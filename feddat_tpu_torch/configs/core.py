@@ -1,0 +1,122 @@
+"""Typed configuration tree (copy of ``feddat_tpu/configs/core.py``).
+
+The port keeps its own copy of the dataclasses it needs — ``PEFTMode``,
+``AdapterSpec``, ``LoraSpec``, ``PromptSpec``, ``ViltModelConfig`` and
+``adapter_spec_for_mode`` — with the same fields and defaults, so a config
+written for one package reads the same in the other.  The ALBEF, optimizer
+and federated configs come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+
+class PEFTMode(str, enum.Enum):
+    """Parameter-efficient fine-tuning modes (reference ``--optimizer_mode``,
+    ``src/train/main.py:132-245``)."""
+
+    FULL = "full"
+    ADAPTER = "adapter"
+    DAT = "dat"
+    FREEZE_ENCODER = "freeze_encoder"
+    FREEZE_BOTTOM_K = "freeze_bottom_k_layers"
+    NONE = "none"
+    NORM = "norm"
+    LORA = "lora"
+    BIAS = "bias"
+    PROMPT = "prompt"
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterSpec:
+    """Bottleneck-adapter configuration (reference
+    ``src/modeling/models/adapter.py:16-58``).  DAT uses
+    ``('adapter_0', 'adapter_1', 'adapter_2')``: local, shared and frozen
+    teacher."""
+
+    names: Tuple[str, ...] = ()
+    reduction_factor: int = 16
+    scaling: float = 1.0
+    # Fixed 0.5/0.5 ensemble mix of the live reference path (``adapter.py:144,160``).
+    ensemble_weight: float = 0.5
+    # Route the ensemble mode through the fused CUDA epilogue
+    # (``ops/adapter_fused.py``) when the hidden states are on the card.
+    fused: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return len(self.names) > 0
+
+    @property
+    def is_dat(self) -> bool:
+        return "adapter_2" in self.names
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraSpec:
+    """LoRA on attention query/value (loralib ``r=16``, default alpha 1)."""
+
+    rank: int = 16
+    alpha: float = 1.0
+    enabled: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PromptSpec:
+    """Reparameterized prompt tuning (reference ``src/train/main.py:214-229``)."""
+
+    length: int = 5
+    bottleneck: int = 192
+    enabled: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ViltModelConfig:
+    """ViLT-B/32 (HF ``ViltModel``); images sit on a fixed ``image_size``
+    canvas so every batch has a static shape."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_text_len: int = 40
+    image_size: Tuple[int, int] = (384, 384)
+    patch_size: int = 32
+    pretrained_image_size: Tuple[int, int] = (384, 384)
+    type_vocab_size: int = 2
+    modality_type_vocab_size: int = 3
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    adapter: AdapterSpec = AdapterSpec()
+    lora: LoraSpec = LoraSpec()
+    prompt: PromptSpec = PromptSpec()
+    remat: bool = False
+    remat_policy: str = "full"
+    attention_logits_dtype: str = "float32"
+    scan_unroll: int = 1
+    # With attn_impl='block': fold norm_before into the attention-block kernel.
+    fuse_ln: bool = False
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size[0] // self.patch_size) * (
+            self.image_size[1] // self.patch_size
+        )
+
+
+def adapter_spec_for_mode(mode: PEFTMode, reduction_factor: int = 16) -> AdapterSpec:
+    """Adapter names per PEFT mode (reference ``main.py:105-118``)."""
+    if mode == PEFTMode.DAT:
+        return AdapterSpec(
+            names=("adapter_0", "adapter_1", "adapter_2"),
+            reduction_factor=reduction_factor,
+        )
+    if mode == PEFTMode.ADAPTER:
+        return AdapterSpec(names=("adapter",), reduction_factor=reduction_factor)
+    return AdapterSpec()

@@ -1,0 +1,241 @@
+"""Shared building blocks: LayerNorm, LoRA dense, attention, MLP, pre-LN layer.
+
+Counterpart of ``feddat_tpu/models/layers.py``.  Child names follow the flax
+parameter paths (``attention.query.dense``, ``norm_before``, ``mlp.output``,
+``adapter.adapter_0_down``, ...) so ``utils/param_bridge.py`` maps the JAX
+parameter tree mechanically.  Parameters live in fp32, as flax keeps them;
+each module computes in its ``dtype`` the way flax's ``dtype=`` does.
+
+``attn_impl``: ``"auto"`` runs the composable path (``ops/attention.py``);
+``"block"`` routes eligible self-attention sites through the attention-block
+kernel (``ops/attn_block.py``), with ``norm_before`` fused into it when
+``fuse_ln`` is set.  The other JAX routes belong to later slices and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
+from feddat_tpu_torch.models.adapters import AdapterCell, dense
+from feddat_tpu_torch.ops.attention import xla_attention
+
+ATTN_IMPLS = ("auto", "block")
+# attn_impl values of the JAX package that later slices port (ROADMAP Queue 2).
+_LATER_IMPLS = {
+    "layer": "the whole-layer backward kernel #4, ops/layer_block.py::_layer_bwd_kernel",
+    "fused": "kernels #5 and #6, ops/fused_attention.py::_fwd_kernel/_bwd_kernel",
+    "flash": "kernels #7 to #9, ops/flash.py",
+}
+# Longest S at which norm_before is fused into the kernel (layers.py:494).
+LN_FUSED_MAX_S = 448
+
+
+def check_attn_impl(attn_impl: str) -> str:
+    if attn_impl in _LATER_IMPLS:
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} is not ported yet: it needs {_LATER_IMPLS[attn_impl]} "
+            "(ROADMAP Queue 2)"
+        )
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ATTN_IMPLS}")
+    return attn_impl
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)(x, deterministic)``."""
+    if deterministic or rate == 0.0:
+        return x
+    return F.dropout(x, rate, training=True)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: fp32 statistics with the fast variance
+    ``max(E[x²]−μ², 0)``, ``(x−μ)·(rsqrt(var+eps)·scale) + bias``, cast to
+    ``dtype``.  ``weight``/``bias`` are flax's ``scale``/``bias``."""
+
+    def __init__(self, features: int, eps: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+class LoraDense(nn.Module):
+    """Dense with an optional additive low-rank path (loralib ``lora.Linear``):
+    ``y = Wx + b + (alpha/r)·B(Ax)``."""
+
+    def __init__(self, in_features: int, features: int, lora: LoraSpec,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lora = lora
+        self.dtype = dtype
+        self.dense = nn.Linear(in_features, features)
+        if lora.enabled:
+            self.lora_a = nn.Linear(in_features, lora.rank, bias=False)
+            self.lora_b = nn.Linear(lora.rank, features, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dense(x, self.dense, self.dtype)
+        if self.lora.enabled:
+            low = dense(dense(x, self.lora_a, self.dtype), self.lora_b, self.dtype)
+            y = y + low * (self.lora.alpha / self.lora.rank)
+        return y
+
+
+def attn_block_eligible(attn_impl: str, bias: Optional[torch.Tensor], lora: LoraSpec,
+                        dropout_rate: float, deterministic: bool) -> bool:
+    """``layers.py:163-173``: self-attention with a padding-row bias (or
+    none), no LoRA, no live attention dropout.  Used by MultiHeadAttention
+    (to route) and PreLNLayer (to decide LN fusion)."""
+    return (
+        attn_impl == "block"
+        and (bias is None or (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1))
+        and not lora.enabled
+        and not (dropout_rate > 0.0 and not deterministic)
+    )
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with separate q/k/v/out projections; LoRA on
+    query/value only.  (The JAX module's cross-attention ``kv`` input serves
+    ALBEF's xBERT and comes with that slice.)"""
+
+    def __init__(self, hidden_size: int, num_heads: int, dropout_rate: float = 0.0,
+                 lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.lora = lora
+        self.dtype = dtype
+        self.attn_impl = check_attn_impl(attn_impl)
+        self.logits_dtype = logits_dtype
+        self.query = LoraDense(hidden_size, hidden_size, lora, dtype)
+        self.key = nn.Linear(hidden_size, hidden_size)
+        self.value = LoraDense(hidden_size, hidden_size, lora, dtype)
+        self.out = nn.Linear(hidden_size, hidden_size)
+
+    def _block(self, x, bias, ln):
+        from feddat_tpu_torch.ops.attn_block import attn_block
+
+        def w(layer):
+            return layer.weight.to(self.dtype).contiguous()
+
+        bqkv = torch.stack(
+            [self.query.dense.bias, self.key.bias, self.value.dense.bias]
+        ).to(torch.float32)
+        gb = ln_eps = None
+        if ln is not None:
+            gb = torch.stack([ln[0], ln[1]]).to(torch.float32)
+            ln_eps = float(ln[2])
+        return attn_block(
+            x.to(self.dtype).contiguous(),
+            w(self.query.dense), w(self.key), w(self.value.dense), w(self.out),
+            bqkv, self.out.bias.to(torch.float32)[None, :], gb, bias,
+            self.num_heads, (self.hidden_size // self.num_heads) ** -0.5, ln_eps,
+        )
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True, ln: Optional[tuple] = None) -> torch.Tensor:
+        if attn_block_eligible(self.attn_impl, bias, self.lora, self.dropout_rate, deterministic):
+            return self._block(x, bias, ln)
+        if ln is not None:
+            raise ValueError(
+                "fused-LN attention requested at a site that does not qualify "
+                "for the block kernel (PreLNLayer must pre-check eligibility)"
+            )
+        if self.dropout_rate > 0.0 and not deterministic:
+            raise NotImplementedError("live attention dropout belongs to the training slice")
+        d_head = self.hidden_size // self.num_heads
+
+        def split(t):
+            b, s, _ = t.shape
+            return t.reshape(b, s, self.num_heads, d_head).transpose(1, 2)
+
+        q = self.query(x)
+        k = dense(x, self.key, self.dtype)
+        v = self.value(x)
+        ctx = xla_attention(split(q), split(k), split(v), bias, logits_dtype=self.logits_dtype)
+        b, h, s, d = ctx.shape
+        ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
+        return dense(ctx, self.out, self.dtype)
+
+
+class Mlp(nn.Module):
+    """``intermediate -> exact GELU -> output`` (+ dropout)."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int, dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+        self.intermediate = nn.Linear(hidden_size, intermediate_size)
+        self.output = nn.Linear(intermediate_size, hidden_size)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        h = F.gelu(dense(x, self.intermediate, self.dtype))
+        h = dense(h, self.output, self.dtype)
+        return dropout(h, self.dropout_rate, deterministic)
+
+
+class PreLNLayer(nn.Module):
+    """Pre-LayerNorm transformer layer with the DAT adapter slot::
+
+        h   = x + attn(norm_before(x))
+        o   = h + mlp(norm_after(h))
+        out = o + adapter.delta(o)
+    """
+
+    def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
+                 adapter: AdapterSpec, dropout_rate: float = 0.0,
+                 attention_dropout: float = 0.0, layer_norm_eps: float = 1e-12,
+                 lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32,
+                 fuse_ln: bool = False):
+        super().__init__()
+        self.adapter_spec = adapter
+        self.dropout_rate = dropout_rate
+        self.attention_dropout = attention_dropout
+        self.layer_norm_eps = layer_norm_eps
+        self.lora = lora
+        self.attn_impl = check_attn_impl(attn_impl)
+        self.fuse_ln = fuse_ln
+        self.attention = MultiHeadAttention(
+            hidden_size, num_heads, attention_dropout, lora, dtype, attn_impl, logits_dtype
+        )
+        self.norm_before = LayerNorm(hidden_size, layer_norm_eps, dtype)
+        self.norm_after = LayerNorm(hidden_size, layer_norm_eps, dtype)
+        self.mlp = Mlp(hidden_size, intermediate_size, dropout_rate, dtype)
+        if adapter.enabled:
+            self.adapter = AdapterCell(adapter, hidden_size, dtype)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                adapter_mode: str = "none", deterministic: bool = True,
+                adapter_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        block_ok = attn_block_eligible(
+            self.attn_impl, bias, self.lora, self.attention_dropout, deterministic
+        )
+        if block_ok and self.fuse_ln and x.shape[1] <= LN_FUSED_MAX_S:
+            ln = (self.norm_before.weight, self.norm_before.bias, self.layer_norm_eps)
+            attn_out = self.attention(x, bias=bias, deterministic=deterministic, ln=ln)
+        else:
+            attn_out = self.attention(self.norm_before(x), bias=bias, deterministic=deterministic)
+        h = x + dropout(attn_out, self.dropout_rate, deterministic)
+        o = h + self.mlp(self.norm_after(h), deterministic)
+        if self.adapter_spec.enabled:
+            o = o + self.adapter.delta(o, adapter_mode, adapter_weights)
+        return o

@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into its own shared library under ``feddat_tpu_torch/_build/`` the first
+time a kernel of it launches, then loaded with ``ctypes`` (pointers and the
+stream passed as ``c_void_p``).  This keeps PyTorch's headers out of the
+build: a source compiles in seconds, not minutes.
+
+* Only sources inside the package are compiled; the library name carries a
+  hash of the source and the flags, so an edited source rebuilds.
+* Nothing here runs at import: ``import feddat_tpu_torch`` works on a host
+  without ``nvcc``.  A failed build raises with ``nvcc``'s output.
+* :func:`build` starts one ``nvcc`` per source, all at once, and waits for
+  all of them (``chip_smoke.py`` builds everything up front this way).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """``_build/lib<name>-<hash>.so`` for the current source and flags."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def sources() -> Sequence[str]:
+    """Names of the kernel sources, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every listed source (default: all) that has no up-to-date
+    library, all in parallel.  Returns ``{name: ptxas report}`` for the
+    sources it compiled.  Raises ``RuntimeError`` with the compiler output
+    if any build fails."""
+    names = [n for n in (sources() if names is None else names)
+             if not library_path(n).exists()]
+    if not names:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    reports, failures = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+        reports[name] = log
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of a ``csrc`` library, with its launch count.
+
+    ``launches`` is a plain integer that the owning wrapper raises by one
+    for every successful launch, so a run can show that its main path went
+    through the kernel."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def function(self):
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        err = self.function()(*args)
+        if err != 0:
+            msg = load(self.source).kernel_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def ptr(t) -> Optional[int]:
+    """``data_ptr`` of a tensor for a ``c_void_p`` argument (None -> NULL)."""
+    return None if t is None else t.data_ptr()

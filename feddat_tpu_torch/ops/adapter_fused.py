@@ -1,0 +1,115 @@
+"""Fused DAT ensemble-adapter epilogue.
+
+Counterpart of ``feddat_tpu/ops/adapter_fused.py``::
+
+    delta = w·up_a(relu(down_a h)) + (1−w)·up_b(relu(down_b h))     (fp32 math)
+
+returned in ``h.dtype``; the caller adds the residual and the adapter
+scaling.  ``params_*`` = ``(w_down [d, r], b_down [r], w_up [r, d],
+b_up [d])`` in the flax layout, as in the JAX function.
+
+* :func:`adapter_fused_reference` — plain PyTorch, the JAX ``_reference``.
+* :func:`adapter_fused_cuda` — the hand-written kernel in
+  ``csrc/adapter_fused.cu`` (forward only).
+* :func:`fused_ensemble_adapter` — the autograd wrapper: forward through the
+  kernel for a CUDA tensor (the plain version for a CPU tensor), backward by
+  recomputing the plain version, which is the JAX contract
+  (``adapter_fused.py:110-113``: its backward is XLA, not Pallas).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+
+KERNEL = CudaKernel(
+    "adapter_fused", "adapter_fused_fwd",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+)
+
+Params = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def adapter_fused_reference(h: torch.Tensor, params_a: Params, params_b: Params,
+                            weight: float) -> torch.Tensor:
+    """Plain version: h and the weights taken to fp32, cast back to h.dtype."""
+    hf = h.to(torch.float32)
+
+    def branch(wd, bd, wu, bu):
+        f = [t.to(torch.float32) for t in (wd, bd, wu, bu)]
+        return torch.relu(hf @ f[0] + f[1]) @ f[2] + f[3]
+
+    out = weight * branch(*params_a) + (1.0 - weight) * branch(*params_b)
+    return out.to(h.dtype)
+
+
+@functools.cache
+def _max_dim(r: int) -> int:
+    fn = load("adapter_fused").adapter_fused_max_dim
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(r)
+
+
+def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
+                       weight: float) -> torch.Tensor:
+    """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params;
+    ``d`` a multiple of 16.  Raises on anything else."""
+    if not h.is_cuda:
+        raise ValueError("adapter_fused_cuda: h must be a CUDA tensor")
+    d = h.shape[-1]
+    r = params_a[0].shape[1]
+    shapes = ((d, r), (r,), (r, d), (d,))
+    for t in (h, *params_a, *params_b):
+        if not t.is_cuda or t.dtype != torch.bfloat16:
+            raise TypeError("adapter_fused_cuda takes bf16 CUDA tensors only")
+        if not t.is_contiguous():
+            raise ValueError("adapter_fused_cuda: inputs must be contiguous")
+    if h.data_ptr() % 16:
+        raise ValueError("adapter_fused_cuda: h must start on a 16-byte boundary")
+    for params in (params_a, params_b):
+        if tuple(tuple(t.shape) for t in params) != shapes:
+            raise ValueError(f"adapter_fused_cuda: params must have shapes {shapes}")
+    if d % 16 or d > _max_dim(r):
+        raise ValueError(f"adapter_fused_cuda: width {d} is not a multiple of 16 "
+                         f"or exceeds the shared-memory limit for bottleneck {r}")
+    flat = h.reshape(-1, d)
+    out = torch.empty_like(flat)
+    KERNEL.launch(
+        ptr(flat), *(ptr(t) for t in params_a), *(ptr(t) for t in params_b), ptr(out),
+        flat.shape[0], d, r, float(weight),
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    return out.reshape(h.shape)
+
+
+class _FusedEnsembleAdapter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, wda, bda, wua, bua, wdb, bdb, wub, bub, weight):
+        pa, pb = (wda, bda, wua, bua), (wdb, bdb, wub, bub)
+        ctx.save_for_backward(h, *pa, *pb)
+        ctx.weight = weight
+        if h.is_cuda:
+            return adapter_fused_cuda(h, pa, pb, weight)
+        return adapter_fused_reference(h, pa, pb, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:9]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = adapter_fused_reference(inputs[0], tuple(inputs[1:5]), tuple(inputs[5:9]),
+                                          ctx.weight)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return (*(next(grads) if n else None for n in needs), None)
+
+
+def fused_ensemble_adapter(h: torch.Tensor, params_a: Sequence[torch.Tensor],
+                           params_b: Sequence[torch.Tensor], weight: float = 0.5) -> torch.Tensor:
+    """``w·adapter_a(h) + (1−w)·adapter_b(h)`` — the ensemble DELTA."""
+    return _FusedEnsembleAdapter.apply(h, *params_a, *params_b, float(weight))

@@ -1,0 +1,138 @@
+"""Batch inference surface: ViLT VQA classification serving.
+
+Counterpart of ``feddat_tpu/serving.py::ViltVqaPredictor`` (lines 104-252):
+host preprocessing (``vilt_resized_u8`` + ``pack_u8_canvas`` + WordPiece),
+padding to the smallest batch bucket that fits, one continual-learner
+forward under ``torch.inference_mode()`` followed by an fp32 softmax, and a
+top-k.  ``from_checkpoint`` and ``AlbefVqaPredictor`` come with later slices
+(ROADMAP Queue 1: checkpoints, ALBEF family).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from feddat_tpu_torch.data.images import pack_u8_canvas, vilt_resized_u8
+from feddat_tpu_torch.device import DeviceLike, resolve_device
+
+
+def _pad_batch(arrs: Dict[str, np.ndarray], batch_size: int) -> Tuple[Dict[str, np.ndarray], int]:
+    """Zero-pad every leading dim to ``batch_size``; returns (batch, n_real)."""
+    n = next(iter(arrs.values())).shape[0]
+    if n > batch_size:
+        raise ValueError(f"{n} examples > batch size {batch_size}")
+    out = {}
+    for k, v in arrs.items():
+        pad = batch_size - n
+        out[k] = np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)]) if pad else v
+    return out, n
+
+
+def _normalize_buckets(batch_buckets: Optional[Sequence[int]], batch_size: int) -> Tuple[int, ...]:
+    """Ascending unique bucket sizes, always including ``batch_size``."""
+    buckets = sorted(set(batch_buckets or ()) | {batch_size})
+    if any(b <= 0 for b in buckets):
+        raise ValueError(f"batch buckets must be positive: {buckets}")
+    return tuple(buckets)
+
+
+def _bucket_for(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket that fits ``n`` examples."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def _load_params(model: torch.nn.Module, params_or_state) -> None:
+    """None keeps the model's weights; a torch state_dict loads as is; a
+    JAX-package param tree (nested dicts of arrays) goes through the bridge."""
+    if params_or_state is None:
+        return
+    state = params_or_state
+    if any(isinstance(v, Mapping) for v in state.values()):
+        from feddat_tpu_torch.utils.param_bridge import vilt_from_flax
+
+        state = vilt_from_flax(state)
+    model.load_state_dict(state, strict=True)
+
+
+class ViltVqaPredictor:
+    """Serving wrapper for a ViLT continual learner.
+
+    ``label2ans`` maps class index -> answer string; ``adapter_mode`` follows
+    eval semantics ('ensemble' for DAT, a named adapter, or 'none');
+    ``batch_buckets`` are extra batch sizes so a small request runs at the
+    smallest one that fits.  The model moves to ``device`` (default CUDA)."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        params_or_state,
+        task_key: str,
+        tokenizer,
+        label2ans: Sequence[str],
+        batch_size: int = 16,
+        canvas: Tuple[int, int] = (384, 640),
+        max_text_len: int = 40,
+        adapter_mode: str = "ensemble",
+        batch_buckets: Optional[Sequence[int]] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        _load_params(self.model, params_or_state)
+        self.task_key = task_key
+        self.tokenizer = tokenizer
+        self.label2ans = list(label2ans)
+        self.batch_size = batch_size
+        self.buckets = _normalize_buckets(batch_buckets, batch_size)
+        self.canvas = tuple(canvas)
+        self.max_text_len = max_text_len
+        self.adapter_mode = adapter_mode
+
+    def _preprocess(self, images, questions) -> Dict[str, np.ndarray]:
+        u8s = []
+        for img in images:
+            if not hasattr(img, "convert"):
+                from PIL import Image
+
+                img = Image.open(img)
+            u8s.append(vilt_resized_u8(img, self.canvas))
+        pixels, dims = pack_u8_canvas(u8s, self.canvas)
+        ids, mask = self.tokenizer.batch_encode(list(questions), self.max_text_len)
+        return {
+            "input_ids": ids,
+            "attention_mask": mask,
+            "pixel_values": pixels,  # u8: the model normalises on the device
+            "pixel_mask": dims,      # compact [B, 2] rectangle mask
+        }
+
+    def forward(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+        """Padded numpy batch -> class probabilities [B, num_labels] (fp32)."""
+        tensors = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        with torch.inference_mode():
+            _, logits = self.model(self.task_key, tensors, adapter_mode=self.adapter_mode,
+                                   deterministic=True)
+            probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        return probs.cpu().numpy()
+
+    def predict(self, images: Sequence[Any], questions: Sequence[str],
+                top_k: int = 5) -> List[List[Tuple[str, float]]]:
+        """-> per example, top-k (answer, probability), descending."""
+        if len(images) != len(questions):
+            raise ValueError(f"{len(images)} images for {len(questions)} questions")
+        results: List[List[Tuple[str, float]]] = []
+        for s in range(0, len(images), self.batch_size):
+            chunk_imgs = images[s : s + self.batch_size]
+            chunk_qs = questions[s : s + self.batch_size]
+            bucket = _bucket_for(len(chunk_imgs), self.buckets)
+            batch, n = _pad_batch(self._preprocess(chunk_imgs, chunk_qs), bucket)
+            probs = self.forward(batch)[:n]
+            order = np.argsort(-probs, axis=-1)[:, :top_k]
+            for i in range(n):
+                results.append([(self.label2ans[j], float(probs[i, j])) for j in order[i]])
+        return results
