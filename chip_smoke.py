@@ -4,21 +4,27 @@
 
 Phases, in this order:
 
-1. build  — compile every kernel of the serving path from ``feddat_tpu_torch/csrc``
-            (one ``nvcc`` per source, all at once) and print the build time.
+1. build  — compile every kernel source in ``feddat_tpu_torch/csrc`` (one
+            ``nvcc`` per source, all at once) and print the build time.
 2. parity — hold each kernel against its plain PyTorch version on the card, at
-            the serving shapes and at ragged ones, with the stated tolerances.
+            the serving and training shapes and at ragged ones, with the stated
+            tolerances; the whole-layer backward twice, bitwise.
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
-            The kernels' launch counts are read around exactly this run, and
-            the probabilities are held against the port's plain path
-            (attn_impl='auto', unfused adapters) on the same weights.
-4. time   — each kernel, its plain version and one PyTorch call chain for the
+            Launch counts are read around exactly this run, and the probabilities
+            are held against the port's plain path (attn_impl='auto').
+4. train  — full-width ViLT-B/32 DAT training in bf16 at B=64, canvas 384x384
+            (S=185), attn_impl='layer': fused DAT steps with launch counts read
+            around one step (#1 and #4 once per layer per pass); the first step's
+            losses and gradients held against the port's plain path; the standard
+            DAT step with attn_impl='block' (#3); then one FederatedTrainer round
+            of two synthetic clients with FedAvg of adapter_1 and evaluate_dat.
+5. time   — each kernel, its plain version and one PyTorch call chain for the
             same function (a yardstick the port never calls), by CUDA events,
-            beside the kernel's bound; forward-only and predict() rates, the
-            single-request latency, and a torch.profiler breakdown of one
-            forward's device time by kernel.
+            beside the kernel's bound; serving rates and latency; DAT train
+            samples/s, kernel path against plain path in alternating samples;
+            torch.profiler breakdowns of one serving forward and one train step.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -45,6 +51,9 @@ PEAK_BYTES = 3.35e12
 B, TEXT_LEN, CANVAS = 16, 40, (384, 640)
 S = TEXT_LEN + (CANVAS[0] // 32) * (CANVAS[1] // 32) + 1
 DM, HEADS, R = 768, 12, 48
+# Training shape: B=64, S = 40 text + 12*12 patches of a 384x384 canvas + CLS = 185.
+TB, TCANVAS = 64, (384, 384)
+TS = TEXT_LEN + (TCANVAS[0] // 32) * (TCANVAS[1] // 32) + 1
 NUM_LABELS = 3129  # VQAv2 answer vocabulary (feddat_tpu/configs/tasks.py:96)
 
 
@@ -152,6 +161,50 @@ def adapter_bound(n):
             bf16_ops + fp32_ops, fma_target_ms)
 
 
+def attn_bwd_ops(b, s):
+    """bf16 tensor-core operations of the attention backward (the part #3 and
+    #4 share): dctx = g.Wo, the q/k/v recompute and dx = dq.Wq + dk.Wk + dv.Wv
+    (14 M Dm^2), plus the five per-head products the TPU kernel does (s, dP,
+    dv, dq, dk: 10 S^2 d per head; the CUDA kernel recomputes s and dP once
+    more, which the bound does not charge)."""
+    m, d = b * s, DM // HEADS
+    return 14 * m * DM * DM + 10 * b * HEADS * s * s * d
+
+
+def attn_bwd_bound(b, s, fuse_ln):
+    """Least time (ms) for one #3 call and what bounds it: the bf16 products
+    above on the tensor cores beside the fp32 softmax recompute and LN
+    forward/backward on the CUDA cores (the pipes overlap); bytes: x, ctx, g
+    and dx once each, the four weights, biases, mask, lse."""
+    m = b * s
+    bf16_ops = attn_bwd_ops(b, s)
+    fp32_ops = b * HEADS * s * s * 8 + (m * DM * 16 if fuse_ln else 0)
+    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = 4 * m * DM * 2 + 4 * DM * DM * 2 + 3 * DM * 4 + 2 * DM * 4 + b * s * 4 + b * HEADS * s * 4
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
+
+
+def layer_bwd_bound(b, s, use_b, ffn=3072):
+    """Least time (ms) for one #4 call and what bounds it.  bf16 operands
+    (tensor cores): the FFN recompute and its backward (4 products of M Dm F),
+    the attention backward above, and the adapter products — all of bf16
+    values with fp32 sums, so tensor-core work too (down, g_relu, g_o for each
+    member, dWu and dWd: (6 if ensemble else 3) + 2 products of M Dm r).  fp32
+    on the CUDA cores, overlapping: GELU and its derivative over M F, the
+    softmax recompute, two LayerNorms forward and backward.  Bytes: x, aout,
+    ctx, g and dx once each, every weight, lse."""
+    m, r = b * s, R
+    adapter = ((6 if use_b else 3) + 2) * 2 * m * DM * r
+    bf16_ops = 4 * 2 * m * DM * ffn + attn_bwd_ops(b, s) + adapter
+    fp32_ops = m * ffn * 40 + b * HEADS * s * s * 8 + m * DM * 32
+    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (5 * m * DM * 2 + (4 * DM * DM + 2 * DM * ffn) * 2 + (3 * DM + ffn + 6 * DM) * 4
+              + 2 * (2 * DM * r * 2 + (r + DM) * 4) + b * s * 4 + b * HEADS * s * 4)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
+
+
 # ------------------------------------------------------------------ phases
 def phase_build():
     from feddat_tpu_torch.ops import _build
@@ -212,6 +265,234 @@ def adapter_parity(torch, n, seed):
     return err.max().item()
 
 
+def layer_weights(torch, seed, ffn=3072):
+    """Frozen layer weights and two adapters on the card: bf16 matrices, fp32
+    biases and LayerNorm rows drawn large (std 0.5-1) so that a dropped or
+    misplaced bias or LN parameter moves the outputs far past the tolerances."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    bf = torch.bfloat16
+    ln = lambda: torch.stack([1.0 + randn(DM, std=0.5), randn(DM, std=0.5)])  # noqa: E731
+    frozen = dict(
+        wq=randn(DM, DM, std=0.04, dtype=bf), wk=randn(DM, DM, std=0.04, dtype=bf),
+        wv=randn(DM, DM, std=0.04, dtype=bf), wo=randn(DM, DM, std=0.04, dtype=bf),
+        bqkv=randn(3, DM), bo=randn(1, DM), gb1=ln(), gb2=ln(),
+        w1=randn(ffn, DM, std=0.04, dtype=bf), b1=randn(1, ffn),
+        w2=randn(DM, ffn, std=0.02, dtype=bf), b2=randn(1, DM, std=0.5),
+    )
+    adapters = [(randn(DM, R, std=0.05, dtype=bf), randn(1, R), randn(R, DM, std=0.05, dtype=bf),
+                 randn(1, DM, std=0.5)) for _ in range(2)]
+    return frozen, adapters
+
+
+def padding_bias(torch, b, s, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    valid = torch.randint(max(1, s // 3), s + 1, (b, 1), generator=g, device="cuda")
+    keys = torch.arange(s, device="cuda")[None, :]
+    return ((keys >= valid).float() * -10000.0)[:, None, None, :]
+
+
+def layer_case(torch, b, s, use_b, seed):
+    """Residuals of one layer's forward on the card (layer_fwd: kernel #1 +
+    plain ops) and a cotangent g at std 1, so that lse and ctx are the ones
+    the backward really sees; -> (args of layer_block_bwd_*, cfg)."""
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    w, ((wda, bda, wua, bua), (wdb, bdb, wub, bub)) = layer_weights(torch, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+    bias = padding_bias(torch, b, s, seed)
+    cfg = (HEADS, 64 ** -0.5, 1e-12, 1e-12, 0.5 if use_b else 1.0, 0.5 if use_b else 0.0, use_b)
+    with torch.no_grad():
+        _, (_, ctx, lse, aout) = lb.layer_fwd(
+            x, w["wq"], w["wk"], w["wv"], w["wo"], w["bqkv"], w["bo"], w["gb1"], w["gb2"],
+            w["w1"], w["b1"], w["w2"], w["b2"], wda, bda, wua, bua, wdb, bdb, wub, bub, bias, *cfg)
+    gout = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+    args = (x, aout, ctx, lse, gout, bias, w["wq"], w["wk"], w["wv"], w["wo"], w["bqkv"],
+            w["gb1"], w["gb2"], w["w1"], w["b1"], w["w2"], w["b2"],
+            wda, bda, wua, bua, wdb, bdb, wub, bub)
+    return args, cfg
+
+
+def attn_bwd_case(torch, b, s, fuse_ln, seed):
+    """Kernel #1's residuals on the card and a cotangent at std 1 ->
+    args of attn_block_bwd_* (x, weights, bqkv, gb, bias, ctx, lse, g, ...)."""
+    from feddat_tpu_torch.ops import attn_block as ab
+
+    x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = attn_inputs(torch, b, s, fuse_ln, seed)
+    if fuse_ln:  # LayerNorm rows drawn large, as for the layer
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        gb = torch.stack([1.0 + 0.5 * torch.randn(DM, generator=gen, device="cuda"),
+                          0.5 * torch.randn(DM, generator=gen, device="cuda")])
+    with torch.no_grad():
+        _, ctx, lse = ab.attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    gout = torch.randn(b, s, DM, generator=gen, device="cuda").bfloat16()
+    return (x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout, heads, scale, ln_eps)
+
+
+def rel_norm(k, r) -> float:
+    """||k - r|| / ||r|| over all elements, in fp32."""
+    k, r = k.float(), r.float()
+    return ((k - r).norm() / r.norm()).item()
+
+
+def own_ulps(torch, k, r) -> float:
+    """Largest |k - r| in bf16 ulps of each element's own |r|, the ulp taken
+    at no less than the rms of r (an element near 0 is held at the ulp of a
+    typical one, not at ~0)."""
+    k, r = k.float(), r.float()
+    mag = torch.maximum(r.abs(), r.pow(2).mean().sqrt())
+    return ((k - r).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+# Limits of the backward kernels against their plain versions, set from this
+# phase's readings on the card over seeds 0-2 at B=64, S=185 and the ragged
+# cases (PERF.md, PR 2): above the largest sound reading, below the planted
+# faults that the phase also reads.  Both sides round to bf16 at the same
+# points after fp32 sums taken in another order.
+#   #3 dx, elementwise in bf16 ulps of each element's own magnitude: sound
+#   <= 16 (one element at seed 0; <= 6 elsewhere), planted (one row off by
+#   the rms) >= 131: limit 32.
+#   #4, stage by stage.  o (the FFN recompute): 0.3-0.5% of the elements
+#   differ, by <= 2 ulps (the tensor cores sum p1 and f as cuBLAS's bf16
+#   GEMM does, not as its fp32 one): limit 4.  The kernel's ReLU gate
+#   matched down > 0 on its own o everywhere; it may differ only where |down|
+#   is rounding noise (1e-3 of max |down|).  On the kernel's o and gate the
+#   adapter gradients read <= 7.8e-5 in relative norm and g_o <= 2.3e-5:
+#   limits 5e-4 and 2e-4 (a 10% scale or one dropped 256-row chunk reads
+#   >= 0.1).  dx from the kernel's g_o (steps 4-7), as #3's dx: <= 15 ulps,
+#   planted >= 135: limit 32.
+#   End to end, each output by relative norm.  There the two sides' o
+#   differ, and at 15-29 gate entries (B=64) down_a lies within that of 0,
+#   so whole rows of g_down move by |g_relu|: dwda and dbda read <= 1.3e-2,
+#   dx <= 4.6e-3, dwua <= 8.5e-4, dbua <= 1.1e-7; planted >= 0.099.
+ATTN_DX_ULPS = 32
+LAYER_STAGE_LIMITS = {"o_ulps": 4, "gate_noise": 1e-3, "adapter": 5e-4, "g_o": 2e-4, "dx_ulps": 32}
+LAYER_E2E_LIMITS = {"dx": 1e-2, "dwda": 3e-2, "dbda": 3e-2, "dwua": 2e-3, "dbua": 1e-6}
+PLANTED_CHUNK = 256  # rows of one partial-sum chunk of #4 (at most half the rows)
+
+
+def attn_bwd_parity(torch, b, s, fuse_ln, seed):
+    from feddat_tpu_torch.ops import attn_block as ab
+
+    args = attn_bwd_case(torch, b, s, fuse_ln, seed)
+    with torch.no_grad():
+        got = ab.attn_block_bwd_cuda(*args).float()
+        want = ab.attn_block_bwd_reference(*args).float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "attn_block_bwd dx has non-finite values")
+    err, ulps = (got - want).abs().max().item(), own_ulps(torch, got, want)
+    planted = got.clone()
+    planted[0, 0] += want.pow(2).mean().sqrt()  # one row off by a typical |dx|
+    p_ulps = own_ulps(torch, planted, want)
+    print(f"parity attn_block_bwd B={b} S={s} ln={fuse_ln} dx: {ulps:.2f} own ulps (limit "
+          f"{ATTN_DX_ULPS}), rel norm {rel_norm(got, want):.2e}, max_abs_err={err:.3e}; planted "
+          f"fault (row 0 off by the rms) {p_ulps:.1f} ulps")
+    check(ulps <= ATTN_DX_ULPS < p_ulps,
+          f"attn_block_bwd dx disagrees with the plain version: {ulps} ulps (limit {ATTN_DX_ULPS})")
+    return err
+
+
+def layer_bwd_parity(torch, b, s, use_b, seed):
+    """#4 against its plain version, stage by stage and end to end (see the
+    limits above); prints the o elements and gate entries where the kernel
+    and the plain version differ, and p1's deviation beside cuBLAS's bf16
+    tensor-core GEMM's.  The adapter gradients must be bitwise the same on a
+    second call."""
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    args, cfg = layer_case(torch, b, s, use_b, seed)
+    (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
+     wda, bda, wua, bua, wdb, bdb, wub, bub) = args
+    heads, scale, eps1, eps2, w_a, w_b, _ = cfg
+    tag, lim = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}", LAYER_STAGE_LIMITS
+    with torch.no_grad():
+        got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
+        again = lb.layer_block_bwd_cuda(*args, *cfg)
+        want = lb.layer_block_bwd_reference(*args, *cfg)
+        for name, k in zip(("dx", "dwda", "dbda", "dwua", "dbua"), got):
+            check(bool(torch.isfinite(k).all()), f"layer_block_bwd {name} has non-finite values")
+
+        # steps 1-2: the FFN recompute
+        _, xhat2, rstd2, p1, o = lb.ffn_recompute_reference(x, aout, gb2, w1, b1, w2, b2, eps2)
+        o, o_k, m_k = o.reshape(-1, DM), st["o"], st["m"]
+        p1_fp32 = m_k.float() @ w1.float().t() + b1[0]
+        p1_cublas = torch.mm(m_k, w1.t(), out_dtype=torch.float32) + b1[0]
+        top = p1_fp32.abs().max().item()
+        o_ulps, o_diff = own_ulps(torch, o_k, o), int((o_k != o).sum())
+        print(f"{tag} o: {o_diff} of {o.numel()} elements differ ({100 * o_diff / o.numel():.3f}%), "
+              f"{o_ulps:.2f} own ulps (limit {lim['o_ulps']}); p1 on the kernel's m, max |diff| "
+              f"from fp32 cuBLAS / max |p1|: kernel {(st['p1'] - p1_fp32).abs().max().item() / top:.2e}, "
+              f"cuBLAS bf16 tensor cores {(p1_cublas - p1_fp32).abs().max().item() / top:.2e}")
+        check(o_ulps <= lim["o_ulps"], f"layer_block_bwd o disagrees: {o_ulps} ulps")
+
+        # step 3: the kernel's gate against down_a > 0 on its own o and on the plain o
+        gate = st["relu_a"] > 0
+        down_k = o_k.float() @ wda.float() + bda[0]
+        down_r = o.float() @ wda.float() + bda[0]
+        flips = gate != (down_k > 0)
+        noise = down_k[flips].abs().max().item() / down_k.abs().max().item() if flips.any() else 0.0
+        print(f"{tag} gate_a: {int(flips.sum())} of {gate.numel()} entries differ from down > 0 on "
+              f"the kernel's o (largest |down| there {noise:.2e} of max |down|, limit "
+              f"{lim['gate_noise']:.0e}), {int((gate != (down_r > 0)).sum())} on the plain o")
+        check(noise <= lim["gate_noise"], f"layer_block_bwd gate differs where |down| = {noise}")
+
+        # step 3: the adapter gradients and g_o on the kernel's o and gate
+        g2 = g.reshape(-1, DM)
+        relu, g_delta, g_down = lb.adapter_bwd_reference(o_k, g2, wda, bda, wua, w_a, gate)
+        stage = lb.adapter_wgrads_reference(o_k, relu, g_delta, g_down)
+        g_o = g2.float() + g_down.bfloat16().float() @ wda.float().t()
+        if use_b:
+            g_down_b = lb.adapter_bwd_reference(o_k, g2, wdb, bdb, wub, w_b)[2]
+            g_o = g_o + g_down_b.bfloat16().float() @ wdb.float().t()
+        errs = {name: rel_norm(k, r) for name, k, r in
+                zip(("dwda", "dbda", "dwua", "dbua"), got[1:], stage)}
+        errs["g_o"] = rel_norm(st["g_o"], g_o)
+        print(f"{tag} stage 3 on the kernel's o and gate, rel norm: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+              + f" (limits {lim['adapter']:.0e}, g_o {lim['g_o']:.0e})")
+        check(max(v for n, v in errs.items() if n != "g_o") <= lim["adapter"] and errs["g_o"] <= lim["g_o"],
+              f"layer_block_bwd adapter stage disagrees: {errs}")
+
+        # steps 4-7 from the kernel's g_o
+        dx_tail = lb.layer_tail_bwd_reference(
+            st["g_o"].view(b, s, DM), xhat2, rstd2, st["p1"].view(b, s, -1), x, ctx, lse, bias,
+            wq, wk, wv, wo, bqkv, gb1, gb2, w1, w2, heads, scale, eps1)
+        dx_ulps = own_ulps(torch, got[0], dx_tail)
+        planted_dx = got[0].float()
+        planted_dx[0, 0] += dx_tail.float().pow(2).mean().sqrt()  # one row off by a typical |dx|
+        p_ulps = own_ulps(torch, planted_dx, dx_tail)
+        print(f"{tag} steps 4-7 from the kernel's g_o: dx {dx_ulps:.2f} own ulps (limit "
+              f"{lim['dx_ulps']}); planted fault (row 0 off by the rms) {p_ulps:.1f} ulps")
+        check(dx_ulps <= lim["dx_ulps"] < p_ulps, f"layer_block_bwd dx disagrees: {dx_ulps} ulps")
+
+        # end to end, with planted faults that the limits must catch
+        e2e = {name: rel_norm(k, r) for name, k, r in
+               zip(("dx", "dwda", "dbda", "dwua", "dbua"), got, want)}
+        n = min(PLANTED_CHUNK, b * s // 2)
+        planted = {
+            "dwda x 0.9": rel_norm(0.9 * got[1], want[1]),
+            f"dwda without rows 0-{n - 1}":
+                rel_norm(got[1] - o_k[:n].float().t() @ st["g_down_a"][:n].bfloat16().float(), want[1]),
+            f"dbua without rows 0-{n - 1}": rel_norm(got[4] - g_delta[:n].float().sum(0), want[4]),
+        }
+        print(f"{tag} end to end, rel norm: " + ", ".join(f"{k} {v:.2e}" for k, v in e2e.items())
+              + f"; max_abs_err dx {(got[0].float() - want[0].float()).abs().max().item():.3e}; "
+              + "planted: " + ", ".join(f"{k} {v:.2e}" for k, v in planted.items()))
+        for name, v in e2e.items():
+            check(v <= LAYER_E2E_LIMITS[name], f"layer_block_bwd {name} disagrees: rel norm {v}")
+        check(all(v > LAYER_E2E_LIMITS[k.split()[0]] for k, v in planted.items()),
+              f"a planted fault passes the end-to-end limits: {planted}")
+    stable = all(torch.equal(a, c) for a, c in zip(got, again))
+    print(f"{tag}: second call bitwise equal: {stable}")
+    check(stable, "layer_block_bwd is not bitwise stable across two calls")
+    return (got[0].float() - want[0].float()).abs().max().item()
+
+
 def phase_parity(torch, seed):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
@@ -219,6 +500,12 @@ def phase_parity(torch, seed):
     errs["adapter_fused"] = adapter_parity(torch, B * S, seed)
     for n in (3 * 21, 17):
         adapter_parity(torch, n, seed + n)
+    errs["attn_block_bwd"] = max(attn_bwd_parity(torch, TB, TS, ln, seed) for ln in (True, False))
+    for b, s, ln in ((3, 17, True), (3, 21, False), (2, 130, True), (1, 450, True)):
+        attn_bwd_parity(torch, b, s, ln, seed + s)
+    errs["layer_block_bwd"] = max(layer_bwd_parity(torch, TB, TS, e, seed) for e in (True, False))
+    for b, s, e in ((3, 17, True), (3, 21, False), (2, 130, True), (2, 281, False), (1, 450, True)):
+        layer_bwd_parity(torch, b, s, e, seed + s)
     return errs
 
 
@@ -301,6 +588,291 @@ def phase_serve(torch, seed):
     return pred, plain, launches, (imgs, qs, batch)
 
 
+def counters():
+    from feddat_tpu_torch.ops import adapter_fused as af
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    return {"attn_block": ab.KERNEL, "adapter_fused": af.KERNEL,
+            "attn_block_bwd": ab.KERNEL_BWD, "layer_block_bwd": lb.KERNEL}
+
+
+def reset_counts():
+    for k in counters().values():
+        k.launches = 0
+
+
+def read_counts():
+    return {name: k.launches for name, k in counters().items()}
+
+
+TRAIN_CLIENTS = ("c0", "c1")
+
+
+def build_trainer_model(torch, seed, attn_impl, state=None, dtype="bfloat16"):
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+
+    model, cfg = create_model(
+        "vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS}, PEFTMode.DAT, 16,
+        dtype, image_size=TCANVAS, attn_impl=attn_impl, seed=seed)
+    check(cfg.fuse_ln and not cfg.adapter.fused and cfg.hidden_dropout == 0.0, f"unexpected {cfg}")
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def train_client(key, num_train, num_eval, seed):
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+
+    return SyntheticVQAClient(key, num_train=num_train, num_eval=num_eval, num_labels=NUM_LABELS,
+                              vocab_size=30522, text_len=TEXT_LEN, image_size=TCANVAS,
+                              batch_size=TB, val_batch_size=TB, seed=seed)
+
+
+def make_steps(model, params, fused=True):
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_forward, make_vilt_fused_parts
+
+    part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode.DAT)
+    opt = OptimizerConfig()
+    if fused:
+        step = dat.make_dat_train_step_fused(*make_vilt_fused_parts(model, TRAIN_CLIENTS[0]), part,
+                                             opt, 100)
+    else:
+        step = dat.make_dat_train_step(make_vilt_forward(model, TRAIN_CLIENTS[0]), part, opt, 100)
+    return step, part, opt
+
+
+def set_error(torch, got, exact):
+    """Relative Frobenius error of one gradient set (all its tensors as one
+    vector) and the worst single tensor's."""
+    num = den = 0.0
+    worst, worst_name = 0.0, ""
+    for name, e in exact.items():
+        g, e = got[name].float(), e.float()
+        check(bool(torch.isfinite(g).all()), f"non-finite gradient {name}")
+        d2, e2 = (g - e).pow(2).sum().item(), e.pow(2).sum().item()
+        num, den = num + d2, den + e2
+        if (d2 / max(e2, 1e-60)) ** 0.5 > worst:
+            worst, worst_name = (d2 / max(e2, 1e-60)) ** 0.5, name
+    return (num / max(den, 1e-60)) ** 0.5, worst, worst_name
+
+
+# Kernel path vs plain path over one full-width train step.  Both paths compute
+# in bf16 and round at other places (the layer route keeps p1 in fp32 and takes
+# GELU' from the polynomial erf; the plain path rounds every Dense output to
+# bf16 as flax does); the adapters' ReLU gates flip where they differ near 0,
+# and it compounds over 12 layers.  With random weights the adapter-down
+# gradients are small and bf16 noise is a visible share of some of them (the
+# phase prints the plain bf16 path's own worst tensor, ~3% from fp32 at B=64).
+# So both bf16 paths are held against the plain path in fp32 (attn_impl='auto',
+# float32, the exact function): per gradient set (the two updates' adapter and
+# head gradients), the kernel path's relative Frobenius error may be at most
+# twice the plain bf16 path's, or 1%; the losses within 1% of the fp32 ones.
+TRAIN_GRAD_FACTOR, TRAIN_GRAD_FLOOR = 2.0, 1e-2
+TRAIN_LOSS_TOL = 1e-2
+
+
+def grad_agreement(torch, what, kernel, plain_bf16, exact):
+    worst_ratio = 0.0
+    for stage in exact["grads"]:
+        k, kw, kn = set_error(torch, kernel["grads"][stage], exact["grads"][stage])
+        p, pw, _ = set_error(torch, plain_bf16["grads"][stage], exact["grads"][stage])
+        tol = max(TRAIN_GRAD_FACTOR * p, TRAIN_GRAD_FLOOR)
+        print(f"train: {what} {stage} gradients vs plain fp32: kernel path {k:.3e} (worst tensor "
+              f"{kw:.3e} {kn}), plain bf16 path {p:.3e} (worst tensor {pw:.3e}); tol {tol:.3e}")
+        check(k <= tol, f"{what}: {stage} gradients disagree: {k} > {tol}")
+        worst_ratio = max(worst_ratio, k / tol)
+    for key in ("loss", "loss_shared"):
+        k, e = float(kernel[key]), float(exact[key])
+        print(f"train: {what} {key}: kernel path {k:.6f}, plain bf16 {float(plain_bf16[key]):.6f}, "
+              f"plain fp32 {e:.6f}")
+        check(abs(k - e) <= TRAIN_LOSS_TOL * abs(e), f"{what}: {key} disagrees: {k} vs {e}")
+    return worst_ratio
+
+
+def phase_train(torch, seed):
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import to_device
+
+    model = build_trainer_model(torch, seed, "layer")
+    layers = model.config.num_layers
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_device(next(train_client(TRAIN_CLIENTS[0], TB, 0, seed).train_batches(0)), "cuda")
+    step, part, opt = make_steps(model, params)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    reset_counts()
+    state, m = step(state0, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"train: fused DAT step, attn_impl='layer', B={TB} S={TS}: launches {launches}")
+    want = {"attn_block": 2 * layers, "layer_block_bwd": 2 * layers, "attn_block_bwd": 0,
+            "adapter_fused": 0}
+    check(launches == want, f"fused step launches {launches}, expected {want}")
+    losses = [(float(m["loss"]), float(m["loss_shared"]))]
+    for _ in range(2):
+        state, mm = step(state, batch)
+        losses.append((float(mm["loss"]), float(mm["loss_shared"])))
+    print(f"train: fused DAT steps (loss, loss_shared): {[tuple(round(v, 4) for v in l) for l in losses]}")
+    check(all(math.isfinite(v) for l in losses for v in l), "non-finite train loss")
+
+    plain_model = build_trainer_model(torch, seed, "auto", model.state_dict())
+    exact_model = build_trainer_model(torch, seed, "auto", model.state_dict(), "float32")
+    before = read_counts()
+    plain = {fused: make_steps(plain_model, params, fused)[0](state0, batch)[1]
+             for fused in (True, False)}
+    exact = {fused: make_steps(exact_model, params, fused)[0](state0, batch)[1]
+             for fused in (True, False)}
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    del exact_model
+    fused_err = grad_agreement(torch, "fused step, layer kernels", m, plain[True], exact[True])
+
+    block_model = build_trainer_model(torch, seed, "block", model.state_dict())
+    std_step, _, _ = make_steps(block_model, params, fused=False)
+    reset_counts()
+    _, bm = std_step(state0, batch)
+    torch.cuda.synchronize()
+    std_launches = read_counts()
+    # layer 0's attention input depends on no trainable parameter, so autograd
+    # (like JAX's vjp) never asks for its backward: #3 runs for layers 1..L-1
+    want = {"attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1), "layer_block_bwd": 0,
+            "adapter_fused": 0}
+    print(f"train: standard DAT step, attn_impl='block': launches {std_launches}")
+    check(std_launches == want, f"standard step launches {std_launches}, expected {want}")
+    std_err = grad_agreement(torch, "standard step, block kernels", bm, plain[False], exact[False])
+    del m, bm, plain, exact
+
+    clients = {k: train_client(k, 2 * TB, TB, seed + 1 + i) for i, k in enumerate(TRAIN_CLIENTS)}
+    cfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed)
+    trainer = FederatedTrainer(model, params, clients, cfg, use_fused_dat=True)
+    t0 = time.perf_counter()
+    reset_counts()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    round_launches = read_counts()
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    print(f"train: FederatedTrainer round of {len(clients)} clients x 2 fused steps in "
+          f"{round_s:.2f} s, launches {round_launches}; evaluate_dat {entry['scores']}")
+    check(round_launches["layer_block_bwd"] == 2 * 2 * len(clients) * layers,
+          f"round launches {round_launches}")
+    for key, scores in entry["scores"].items():
+        check(len(scores) == 3 and all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in scores),
+              f"bad evaluate_dat scores for {key}: {scores}")
+    moved = [k for k, v in trainer.server_params.items() if "adapter_1" in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * layers and all(bool(torch.isfinite(trainer.server_params[k]).all()) for k in moved),
+          "FedAvg did not update every adapter_1 tensor on the server")
+    personal = [trainer.personal[k]["vilt.layers.0.adapter.adapter_0_up.bias"] for k in TRAIN_CLIENTS]
+    check(not torch.equal(*personal), "the clients' personal adapter_0 were averaged")
+    return dict(model=model, plain_model=plain_model, block_model=block_model, params=params,
+                batch=batch, state0=state0, launches=launches, std_launches=std_launches,
+                grad_errs=(fused_err, std_err))
+
+
+def time_backward_kernels(torch, seed):
+    """#3 and #4 at the training shape: kernel, plain version, a library
+    chain (autograd through F.layer_norm/F.linear/SDPA/F.gelu in bf16) and the bound."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    rows = []
+    args = attn_bwd_case(torch, TB, TS, True, seed)
+    x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
+    x_req = x.detach().requires_grad_()
+
+    def heads(t):
+        return t.view(TB, TS, HEADS, 64).transpose(1, 2)
+
+    xl = F.layer_norm(x_req, (DM,), gb[0].bfloat16(), gb[1].bfloat16(), 1e-12)
+    q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
+    att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
+    out = F.linear(att.transpose(1, 2).reshape(TB, TS, DM), wo)
+    with torch.no_grad():
+        k_ms = cuda_ms(torch, lambda: ab.attn_block_bwd_cuda(*args), 20)
+        p_ms = cuda_ms(torch, lambda: ab.attn_block_bwd_reference(*args), 3, warmup=1)
+    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True), 20)
+    bound, bound_by, ops = attn_bwd_bound(TB, TS, True)
+    rows.append(("attn_block_bwd", k_ms, p_ms, l_ms, bound, bound_by, ops))
+    del out, att, q, k, v, xl
+
+    largs, cfg = layer_case(torch, TB, TS, True, seed)
+    (x, aout, ctx, lse, gout, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
+     wda, bda, wua, bua, wdb, bdb, wub, bub) = largs
+    xr = x.detach().requires_grad_()
+    pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
+    xl = F.layer_norm(xr, (DM,), gb1[0].bfloat16(), gb1[1].bfloat16(), 1e-12)
+    q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
+    att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
+    h = xr + F.linear(att.transpose(1, 2).reshape(TB, TS, DM), wo)
+    mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
+                          b1[0].bfloat16()))
+    o = h + F.linear(mid, w2, b2[0].bfloat16())
+
+    def adapter(wd, bd, wu, bu):
+        return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
+
+    out = o + 0.5 * adapter(*pa) + 0.5 * adapter(wdb, bdb, wub, bub)
+    with torch.no_grad():
+        k_ms = cuda_ms(torch, lambda: lb.layer_block_bwd_cuda(*largs, *cfg), 10)
+        p_ms = cuda_ms(torch, lambda: lb.layer_block_bwd_reference(*largs, *cfg), 3, warmup=1)
+    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True), 10)
+    bound, bound_by, ops = layer_bwd_bound(TB, TS, True)
+    rows.append(("layer_block_bwd", k_ms, p_ms, l_ms, bound, bound_by, ops))
+    for name, k_ms, p_ms, l_ms, bound, bound_by, ops in rows:
+        print(f"time {name} B={TB} S={TS}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s "
+              f"bf16), bound {bound:.4f} ms by {bound_by} ({100 * bound / k_ms:.1f}% of bound), "
+              f"plain {p_ms:.4f} ms, library chain (autograd.grad) {l_ms:.4f} ms")
+    return rows
+
+
+def time_train(torch, tr):
+    """DAT train samples/s per card for the fused step: kernel path
+    (attn_impl='layer') and plain path ('auto') in alternating samples of 2
+    steps, on the same weights and a batch staged on the card."""
+    step, _, _ = make_steps(tr["model"], tr["params"])
+    plain_step, _, _ = make_steps(tr["plain_model"], tr["params"])
+    batch, state0 = tr["batch"], tr["state0"]
+
+    def sample(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn(state0, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 2
+
+    for fn in (step, plain_step):
+        sample(fn)  # warm: cuBLAS handles, allocator
+    k_s, p_s = [], []
+    for i in range(6):
+        for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
+            (k_s if path is step else p_s).append(sample(path))
+    k_med, p_med = statistics.median(k_s), statistics.median(p_s)
+    wins = sum(a < b for a, b in zip(k_s, p_s))
+    print(f"time train: fused DAT step B={TB} S={TS}, 6 alternating pairs of 2 steps: medians "
+          f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
+          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
+          f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
+    profile_device(torch, lambda: step(state0, batch), f"train step (fused DAT, B={TB})", {
+        "port GEMMs (#1, #4)": ("gemm_kernel",),
+        "port attention (#1 fwd, #4 bwd)": ("attn_kernel", "attn_bwd_"),
+        "port row passes + adapter (#4)": ("ln2_fwd_rows", "ln_bwd_rows", "adapter_"),
+    })
+    return TB / k_med, TB / p_med
+
+
 def phase_time(torch, pred, plain, requests, seed):
     import torch.nn.functional as F
 
@@ -380,21 +952,23 @@ def phase_time(torch, pred, plain, requests, seed):
           f"({fwd_ms:.3f} ms per batch of {B}); predict() {B / predict_s:.1f} predictions/s "
           f"({1e3 * predict_s:.1f} ms per batch, host preprocessing included); plain path "
           f"forward-only {B / (plain_fwd_ms / 1e3):.1f} predictions/s")
-    profile_forward(torch, pred, batch)
-    return {name: (k, p, l, bd, by) for name, k, p, l, bd, by, _ in rows}
+    profile_device(torch, lambda: pred.forward(batch), f"forward (B={B})",
+                   {"attn_block": ("gemm_kernel", "attn_kernel"), "adapter_fused": ("adapter_kernel",)})
+    return {name: (k, p, l, bd, by, ops) for name, k, p, l, bd, by, ops in rows}
 
 
-def profile_forward(torch, pred, batch):
-    """Device time of one kernel-path forward by kernel, from torch.profiler."""
+def profile_device(torch, fn, label, groups):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler, with
+    the idle share of its wall time; ``groups`` sums kernels by name pieces."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred.forward(batch)
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        pred.forward(batch)
+        fn()
         end.record()
         end.synchronize()
     wall_us = 1e3 * start.elapsed_time(end)
@@ -404,16 +978,15 @@ def profile_forward(torch, pred, batch):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if busy == 0:
-        print("profile: torch.profiler recorded no device time for the forward")
+        print(f"profile {label}: torch.profiler recorded no device time")
         return
-    groups = {"attn_block": ("gemm_bias_kernel", "attn_kernel"), "adapter_fused": ("adapter_kernel",)}
     shares = {g: sum(t for n, t in by_name.items() if any(k in n for k in keys))
               for g, keys in groups.items()}
-    print(f"profile forward (B={B}): wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"(idle {100 * (1 - busy / wall_us):.1f}%), "
           + ", ".join(f"{g} {t / 1e3:.3f} ms ({100 * t / busy:.1f}%)" for g, t in shares.items())
           + f", other {(busy - sum(shares.values())) / 1e3:.3f} ms")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {t / 1e3:8.3f} ms {100 * t / busy:5.1f}%  {name[:110]}")
 
 
@@ -440,17 +1013,31 @@ def main(argv=None) -> int:
 
     phase_build()
     errs = phase_parity(torch, args.seed)
-    pred, plain, launches, requests = phase_serve(torch, args.seed)
+    pred, plain, serve_launches, requests = phase_serve(torch, args.seed)
+    tr = phase_train(torch, args.seed)
     times = phase_time(torch, pred, plain, requests, args.seed)
+    del pred, plain
+    times.update({name: row for name, *row in time_backward_kernels(torch, args.seed)})
+    time_train(torch, tr)
 
+    # each kernel's launches on the path it serves: the fused train step (this
+    # slice's main path) for #1 and #4, the standard 'block' step for #3, and
+    # the serving path for #2
+    launches = {"attn_block": tr["launches"]["attn_block"],
+                "adapter_fused": serve_launches["adapter_fused"],
+                "attn_block_bwd": tr["std_launches"]["attn_block_bwd"],
+                "layer_block_bwd": tr["launches"]["layer_block_bwd"]}
     sources = {
         "attn_block": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:90"),
         "adapter_fused": ("feddat_tpu_torch/csrc/adapter_fused.cu",
                           "feddat_tpu/ops/adapter_fused.py:30"),
+        "attn_block_bwd": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:139"),
+        "layer_block_bwd": ("feddat_tpu_torch/csrc/layer_block.cu",
+                            "feddat_tpu/ops/layer_block.py:126"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        k_ms, p_ms, l_ms, bound, bound_by = times[name]
+        k_ms, p_ms, l_ms, bound, bound_by, _ = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms,

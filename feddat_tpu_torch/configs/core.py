@@ -1,17 +1,18 @@
 """Typed configuration tree (copy of ``feddat_tpu/configs/core.py``).
 
 The port keeps its own copy of the dataclasses it needs — ``PEFTMode``,
-``AdapterSpec``, ``LoraSpec``, ``PromptSpec``, ``ViltModelConfig`` and
+``AdapterSpec``, ``LoraSpec``, ``PromptSpec``, ``ViltModelConfig``,
+``OptimizerConfig``, ``FederatedConfig``, ``TrainConfig`` and
 ``adapter_spec_for_mode`` — with the same fields and defaults, so a config
-written for one package reads the same in the other.  The ALBEF, optimizer
-and federated configs come with the slices that use them.
+written for one package reads the same in the other.  The ALBEF configs come
+with the slice that uses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class PEFTMode(str, enum.Enum):
@@ -108,6 +109,58 @@ class ViltModelConfig:
         return (self.image_size[0] // self.patch_size) * (
             self.image_size[1] // self.patch_size
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + polynomial (linear) decay with warmup (reference
+    ``task_trainer.py:477-504``, ``53-59``; hparams from
+    ``src/configs/task_configs_fed.py:48-51``)."""
+
+    lr: float = 1e-4
+    weight_decay: float = 1e-2
+    adam_eps: float = 1e-8
+    beta1: float = 0.9
+    beta2: float = 0.98
+    warmup_ratio: float = 0.1
+    # Polynomial decay power (reference uses power=1, i.e. linear).
+    power: float = 1.0
+    lr_end: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedConfig:
+    """Communication-round loop parameters (reference ``src/train/main.py:300-303, 453-558``)."""
+
+    comm_rounds: int = 20
+    local_epochs: int = 1
+    eval_every: int = 5
+    # Per-client FedAvg weights; None means uniform (the reference's ``main.py:455``).
+    client_weights: Optional[Tuple[float, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Top-level experiment config (the argparse surface of ``main.py:262-322``)."""
+
+    encoder_name: str = "vilt"  # vilt | viltbert | albef_distill | albef_no_distill
+    peft_mode: PEFTMode = PEFTMode.DAT
+    tasks: Tuple[str, ...] = ()
+    batch_size: int = 2
+    val_batch_size: int = 2
+    seed: int = 1
+    optimizer: OptimizerConfig = OptimizerConfig()
+    federated: FederatedConfig = FederatedConfig()
+    # Scheduler horizon epochs (``max_steps = len(loader) * num_epochs``).
+    num_epochs: int = 1
+    layers_to_freeze: int = 2
+    # Compute dtype for matmuls; params always live in fp32.
+    dtype: str = "bfloat16"
+    single_task: bool = False
+    debug_steps: int = 0
+    # Bit generator for dropout masks in the JAX package ("threefry" or the
+    # TPU's "rbg"); the port draws from a seeded torch.Generator either way.
+    dropout_rng: str = "threefry"
 
 
 def adapter_spec_for_mode(mode: PEFTMode, reduction_factor: int = 16) -> AdapterSpec:

@@ -1,7 +1,7 @@
-// Fused pre-LN attention block, forward, for Hopper (sm_90a).
+// Fused pre-LN attention block, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel feddat_tpu/ops/attn_block.py::_fwd_kernel (called
-// through _fwd_call).  Same function, same rounding points:
+// Forward: replaces the TPU kernel feddat_tpu/ops/attn_block.py::_fwd_kernel
+// (kernel #1, called through _fwd_call).  Same function, same rounding points:
 //
 //   xln   = LayerNorm(x)  (optional; fp32, fast variance max(E[x^2]-mu^2, 0))
 //   q/k/v = bf16(xln . W + b)            (bf16 products, fp32 accumulation)
@@ -20,209 +20,30 @@
 // matrices (4.7 MB) and one batch element's activations resident in VMEM and
 // walks the heads in order.  A Hopper block has 227 KB of shared memory, so
 // the work is cut into three launches on the caller's stream:
-//   (a) gemm_bias_kernel: one tiled bf16 GEMM for q|k|v together
-//       (N = 3*Dm), mma.sync m16n8k16 with fp32 accumulators, LayerNorm
-//       applied in the prologue while the A tile is staged into shared
-//       memory (row statistics computed once per 128-row tile), bias-add and
-//       bf16 cast in the epilogue;
+//   (a) port::gemm_kernel (common.cuh): one tiled bf16 GEMM for q|k|v
+//       together (N = 3*Dm), mma.sync m16n8k16 with fp32 accumulators,
+//       LayerNorm applied in the prologue while the A tile is staged into
+//       shared memory (row statistics computed once per 128-row tile),
+//       bias-add and bf16 cast in the epilogue;
 //   (b) attn_kernel: one block per (query tile of 64, head, batch element);
 //       the fp32 logits of its 64 rows over the whole key range stay in
 //       shared memory, so the softmax is the TPU's exact two-pass form (no
 //       online rescaling); padded keys are simply never summed;
-//   (c) gemm_bias_kernel again for the out-projection.
+//   (c) the same GEMM again for the out-projection.
 // q/k/v round-trip through device memory (3 x B*S*Dm bf16, from L2 mostly).
 // wgmma, TMA and fusing the three launches are later work.
+//
+// Backward: replaces feddat_tpu/ops/attn_block.py::_bwd_kernel (kernel #3,
+// called through _attn_block_bwd): dx only, the projections frozen.  The
+// attention part is attn_bwd.cuh, shared with the whole-layer backward (#4);
+// with the LayerNorm fused, one row pass (common.cuh::ln_bwd_rows_kernel)
+// takes dxln back through LN1.  Its bound and design are in attn_bwd.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_bwd.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// ---------------------------------------------------------------- (a), (c)
-constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 32;
-constexpr int GEMM_THREADS = 256;        // 8 warps: 2 along M x 4 along N
-constexpr int GEMM_LD = GEMM_BK + 8;     // padded smem row (bf16): conflict-free fragments
-
-struct GemmArgs {
-  const bf16* a;          // [M, K] row-major activations
-  const bf16* w[3];       // per output segment: [n_seg, K] (nn.Linear layout)
-  const float* bias[3];   // per output segment: [n_seg] fp32
-  bf16* c[3];             // per output segment: [M, n_seg]
-  const float* ln_gamma;  // [K] fp32, or null: no fused LayerNorm
-  const float* ln_beta;   // [K] fp32
-  float ln_eps;
-  int M, K, n_seg;
-};
-
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_bias_kernel(GemmArgs p) {
-  __shared__ __align__(16) bf16 As[GEMM_BM * GEMM_LD];
-  __shared__ __align__(16) bf16 Bs[GEMM_BN * GEMM_LD];
-  __shared__ float row_mu[GEMM_BM];
-  __shared__ float row_rstd[GEMM_BM];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * GEMM_BM;
-  const int ncol = blockIdx.x * GEMM_BN;
-  const int seg = ncol / p.n_seg, n0 = ncol % p.n_seg;
-  const bf16* __restrict__ W = p.w[seg];
-  const bool ln = p.ln_gamma != nullptr;
-
-  if (ln) {  // row statistics of this tile, fp32, fast-variance form
-    for (int r = warp; r < GEMM_BM; r += GEMM_THREADS / 32) {
-      const int row = m0 + r;
-      float s = 0.f, ss = 0.f;
-      if (row < p.M) {
-        const bf16* xr = p.a + (size_t)row * p.K;
-        for (int k = lane * 8; k < p.K; k += 32 * 8) {
-          uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-          const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float f = __bfloat162float(e[i]);
-            s += f;
-            ss += f * f;
-          }
-        }
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        float mu = s / (float)p.K;
-        float var = fmaxf(ss / (float)p.K - mu * mu, 0.f);
-        row_mu[r] = mu;
-        row_rstd[r] = rsqrtf(var + p.ln_eps);
-      }
-    }
-    __syncthreads();
-  }
-
-  // each thread stages 2 x 16 B of A and of B per k-tile
-  uint4 ra[2], rb[2];
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GEMM_THREADS;
-      const int r = idx >> 2, c8 = (idx & 3) * 8;
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < p.M) ra[i] = *reinterpret_cast<const uint4*>(p.a + (size_t)(m0 + r) * p.K + k0 + c8);
-      rb[i] = *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * p.K + k0 + c8);
-    }
-  };
-  auto store_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GEMM_THREADS;
-      const int r = idx >> 2, c8 = (idx & 3) * 8;
-      uint4 va = ra[i];
-      if (ln && m0 + r < p.M) {
-        const float mu = row_mu[r], rstd = row_rstd[r];
-        bf16* e = reinterpret_cast<bf16*>(&va);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int k = k0 + c8 + t;
-          float xf = __bfloat162float(e[t]);
-          float y = __fadd_rn(__fmul_rn(__fmul_rn(xf - mu, rstd), p.ln_gamma[k]), p.ln_beta[k]);
-          e[t] = __float2bfloat16_rn(y);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * GEMM_LD + c8) = va;
-      *reinterpret_cast<uint4*>(Bs + r * GEMM_LD + c8) = rb[i];
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  const int wm = (warp >> 2) * 64;  // warp's 64 rows
-  const int wn = (warp & 3) * 32;   // warp's 32 columns
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < p.K; k0 += GEMM_BK) {
-    __syncthreads();
-    store_tiles(k0);
-    __syncthreads();
-    if (k0 + GEMM_BK < p.K) load_tiles(k0 + GEMM_BK);  // in flight during the MMAs
-#pragma unroll
-    for (int ks = 0; ks < GEMM_BK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* pa = As + (wm + mt * 16 + g) * GEMM_LD + ks + tig * 2;
-        af[mt][0] = lds32(pa);
-        af[mt][1] = lds32(pa + 8 * GEMM_LD);
-        af[mt][2] = lds32(pa + 8);
-        af[mt][3] = lds32(pa + 8 * GEMM_LD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* pb = Bs + (wn + nt * 8 + g) * GEMM_LD + ks + tig * 2;
-        bfr[nt][0] = lds32(pb);
-        bfr[nt][1] = lds32(pb + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-
-  const float* __restrict__ bias = p.bias[seg];
-  bf16* __restrict__ C = p.c[seg];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int r0 = m0 + wm + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn + nt * 8 + tig * 2;
-      const float b0 = bias[col], b1 = bias[col + 1];
-      if (r0 < p.M)
-        *reinterpret_cast<uint32_t*>(C + (size_t)r0 * p.n_seg + col) =
-            pack_bf16(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
-      if (r0 + 8 < p.M)
-        *reinterpret_cast<uint32_t*>(C + (size_t)(r0 + 8) * p.n_seg + col) =
-            pack_bf16(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
-    }
-  }
-}
+using namespace port;
 
 // --------------------------------------------------------------------- (b)
 constexpr int ATT_BQ = 64;       // query rows per block (16 per warp)
@@ -392,6 +213,8 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_kernel(AttnArgs p) {
 
 }  // namespace
 
+using namespace port;
+
 extern "C" {
 
 // Largest S the attention kernel's shared memory holds (the wrapper checks).
@@ -419,23 +242,27 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
   bf16* qkv_b = static_cast<bf16*>(qkv);
 
   GemmArgs a{};
-  a.a = static_cast<const bf16*>(x);
-  a.w[0] = static_cast<const bf16*>(wq);
-  a.w[1] = static_cast<const bf16*>(wk);
-  a.w[2] = static_cast<const bf16*>(wv);
+  a.a[0] = static_cast<const bf16*>(x);
+  a.lda = Dm;
+  a.b[0] = static_cast<const bf16*>(wq);
+  a.b[1] = static_cast<const bf16*>(wk);
+  a.b[2] = static_cast<const bf16*>(wv);
+  a.ldb = Dm;
+  a.b_seg = Dm;
   for (int i = 0; i < 3; ++i) {
     a.bias[i] = bq + (size_t)i * Dm;
-    a.c[i] = qkv_b + i * plane;
+    a.c_bf16[i] = qkv_b + i * plane;
   }
+  a.c_seg = Dm;
   a.ln_gamma = gb ? static_cast<const float*>(gb) : nullptr;
   a.ln_beta = gb ? static_cast<const float*>(gb) + Dm : nullptr;
   a.ln_eps = ln_eps;
   a.M = M;
+  a.N = 3 * Dm;
   a.K = Dm;
-  a.n_seg = Dm;
-  gemm_bias_kernel<<<dim3(3 * Dm / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM), GEMM_THREADS, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int e = launch_gemm<B_NT, EPI_BIAS_BF16>(a, st);
+  if (e) return e;
+  cudaError_t err;
 
   AttnArgs t{};
   t.q = qkv_b;
@@ -457,17 +284,70 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs o{};
-  o.a = static_cast<const bf16*>(ctx);
-  for (int i = 0; i < 3; ++i) {
-    o.w[i] = static_cast<const bf16*>(wo);
-    o.bias[i] = static_cast<const float*>(bo);
-    o.c[i] = static_cast<bf16*>(out);
-  }
+  o.a[0] = static_cast<const bf16*>(ctx);
+  o.lda = Dm;
+  o.b[0] = static_cast<const bf16*>(wo);
+  o.ldb = Dm;
+  o.bias[0] = static_cast<const float*>(bo);
+  o.c_bf16[0] = static_cast<bf16*>(out);
   o.M = M;
+  o.N = Dm;
   o.K = Dm;
-  o.n_seg = Dm;
-  gemm_bias_kernel<<<dim3(Dm / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM), GEMM_THREADS, 0, st>>>(o);
-  return (int)cudaGetLastError();
+  return launch_gemm<B_NT, EPI_BIAS_BF16>(o, st);
+}
+
+// Bytes of scratch attn_block_bwd needs: qkv and dq|dk|dv [3, M, Dm] bf16 each,
+// dctx [M, Dm] bf16, delta [B, H, S] f32 and, with the fused LN, dxln [M, Dm] f32.
+long long attn_block_bwd_workspace(int B, int S, int Dm, int H, int has_ln) {
+  const long long md = (long long)B * S * Dm;
+  return 7 * md * 2 + (long long)B * H * S * 4 + (has_ln ? md * 4 : 0) + 5 * 256;
+}
+
+// x [B, S, Dm] bf16 (pre-LN when gb is given); weights and biases as the
+// forward; gb [2, Dm] f32 or null; bias [B, S] f32 or null; ctx [B, S, Dm]
+// bf16 and lse [B, H, S] f32 from the forward; g [B, S, Dm] bf16.
+// Output dx [B, S, Dm] bf16.  Returns the CUDA error of the launches.
+int attn_block_bwd(const void* x, const void* wq, const void* wk, const void* wv, const void* wo,
+                   const void* bqkv, const void* gb, const void* bias, const void* ctx,
+                   const void* lse, const void* g, void* workspace, void* dx, int B, int S, int Dm,
+                   int H, float scale, float ln_eps, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t md = (size_t)B * S * Dm;
+  char* w = static_cast<char*>(workspace);
+  auto carve = [&](size_t bytes) {
+    char* p = w;
+    w += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  AttnBwdProblem a{};
+  a.x = static_cast<const bf16*>(x);
+  a.wq = static_cast<const bf16*>(wq);
+  a.wk = static_cast<const bf16*>(wk);
+  a.wv = static_cast<const bf16*>(wv);
+  a.wo = static_cast<const bf16*>(wo);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.gamma = gb ? static_cast<const float*>(gb) : nullptr;
+  a.beta = gb ? static_cast<const float*>(gb) + Dm : nullptr;
+  a.ln_eps = ln_eps;
+  a.bias = static_cast<const float*>(bias);
+  a.ctx = static_cast<const bf16*>(ctx);
+  a.lse = static_cast<const float*>(lse);
+  a.g_att = static_cast<const bf16*>(g);
+  a.qkv = reinterpret_cast<bf16*>(carve(3 * md * 2));
+  a.dqkv = reinterpret_cast<bf16*>(carve(3 * md * 2));
+  a.dctx = reinterpret_cast<bf16*>(carve(md * 2));
+  a.delta = reinterpret_cast<float*>(carve((size_t)B * H * S * 4));
+  a.B = B;
+  a.S = S;
+  a.Dm = Dm;
+  a.H = H;
+  a.scale = scale;
+  if (gb == nullptr) return attn_bwd_to_dxln(a, 1, static_cast<bf16*>(dx), nullptr, st);
+  float* dxln = reinterpret_cast<float*>(carve(md * 4));
+  int err = attn_bwd_to_dxln(a, 0, nullptr, dxln, st);
+  if (err) return err;
+  return launch_ln_bwd_rows(a.x, a.gamma, ln_eps, dxln, nullptr, static_cast<bf16*>(dx), nullptr,
+                            B * S, Dm, st);
 }
 
 }  // extern "C"

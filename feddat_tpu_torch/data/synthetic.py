@@ -1,0 +1,112 @@
+"""Deterministic in-memory VQA clients (numpy twin of
+``feddat_tpu/data/synthetic.py::SyntheticVQAClient``).
+
+With the same arguments and seed it yields bitwise the same batches as the
+JAX package's client: the same numpy draws in the same order.  The batch
+schema is the real collator's; the answer is a learnable function of the
+first token and the sign of the mean pixel.  The ALBEF client comes with the
+ALBEF slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticVQAClient:
+    """One fake federated client with ViLT-style VQA batches.
+
+    Batch schema (what the real collator produces,
+    cf. ``vqa_dataset_crossvqa.py:377-422``):
+      input_ids [B, L] int32, attention_mask [B, L] int32,
+      pixel_values [B, H, W, 3] float32, target_scores [B, num_labels]
+      (+ ``valid`` [B] float32 on eval batches).
+    """
+
+    task_key: str
+    num_train: int = 32
+    num_eval: int = 16
+    num_labels: int = 16
+    vocab_size: int = 100
+    text_len: int = 8
+    image_size: Tuple[int, int] = (32, 32)
+    batch_size: int = 4
+    val_batch_size: int = 4
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        n = self.num_train + self.num_eval
+        self.input_ids = rng.randint(1, self.vocab_size, size=(n, self.text_len)).astype(np.int32)
+        lengths = rng.randint(self.text_len // 2, self.text_len + 1, size=(n,))
+        self.attention_mask = (
+            np.arange(self.text_len)[None, :] < lengths[:, None]
+        ).astype(np.int32)
+        self.input_ids *= self.attention_mask  # pad ids -> 0
+        self.pixel_values = rng.randn(n, self.image_size[0], self.image_size[1], 3).astype(
+            np.float32
+        )
+        # Learnable signal: the answer is a function of the first token and
+        # the sign of the mean pixel.
+        answer = (
+            self.input_ids[:, 0] + (self.pixel_values.mean(axis=(1, 2, 3)) > 0)
+        ) % self.num_labels
+        self.answers = answer.astype(np.int64)
+        self.target_scores = np.zeros((n, self.num_labels), dtype=np.float32)
+        self.target_scores[np.arange(n), answer] = 1.0
+        # sprinkle soft secondary answers like real VQA soft targets
+        second = (answer + 1) % self.num_labels
+        self.target_scores[np.arange(n), second] = 0.3
+
+    # -- sizes -------------------------------------------------------------
+    @property
+    def num_train_examples(self) -> int:
+        return self.num_train
+
+    @property
+    def num_eval_examples(self) -> int:
+        return self.num_eval
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.num_train // self.batch_size
+
+    # -- iterators ---------------------------------------------------------
+    def train_batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """Shuffled fixed-size train batches (drop-last, like the reference's
+        ALBEF loader; the ViLT loader's shuffle-always quirk is made explicit
+        here as deterministic per-epoch shuffling)."""
+        rng = np.random.RandomState(self.seed * 1000 + epoch)
+        idx = rng.permutation(self.num_train)
+        for s in range(self.steps_per_epoch):
+            sel = idx[s * self.batch_size : (s + 1) * self.batch_size]
+            yield {
+                "input_ids": self.input_ids[sel],
+                "attention_mask": self.attention_mask[sel],
+                "pixel_values": self.pixel_values[sel],
+                "target_scores": self.target_scores[sel],
+            }
+
+    def eval_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Fixed-size eval batches, final batch zero-padded with a ``valid``
+        mask (replaces the reference's gather + truncation,
+        ``task_trainer.py:129-156``)."""
+        start = self.num_train
+        n = self.num_eval
+        bs = self.val_batch_size
+        for s in range(0, n, bs):
+            sel = np.arange(start + s, start + min(s + bs, n))
+            pad = bs - len(sel)
+            valid = np.concatenate([np.ones(len(sel)), np.zeros(pad)]).astype(np.float32)
+            sel = np.concatenate([sel, np.full(pad, start, dtype=sel.dtype)])
+            yield {
+                "input_ids": self.input_ids[sel],
+                "attention_mask": self.attention_mask[sel],
+                "pixel_values": self.pixel_values[sel],
+                "target_scores": self.target_scores[sel],
+                "valid": valid,
+            }

@@ -1,0 +1,238 @@
+"""Sequential federated engine (counterpart of ``feddat_tpu/federated/engine.py``,
+the reference's communication-round loop ``src/train/main.py:453-558``).
+
+Per round, per client:
+  1. client params = server params with the client's personal partition
+     swapped in (``main.py:472-478``);
+  2. DAT teacher refresh ``adapter_2 <- adapter_1`` (``task_trainer.py:36-45``);
+  3. fresh AdamW + schedule (``task_trainer.py:52-63``);
+  4. ``local_epochs`` epochs of (DAT or plain) train steps;
+  5. re-capture the personal partition; harvest the communicated subset.
+Then FedAvg over the harvested subsets into the server params, and every
+``eval_every`` rounds an evaluation of each client's personalised model
+(``main.py:520-558``).
+
+Parameters are ``{state_dict name: tensor}`` dicts on the engine's device
+(CUDA unless ``device="cpu"``).  ViLT only.  Checkpointing and resume, tensor
+parallelism (``tp_mesh``), profiling (``profile_dir``), auxiliary model state
+(``aux_init``/``aux_forward``, ALBEF) and preemption handling are later
+slices (ROADMAP Queue 1) and raise ``NotImplementedError``.  ViLT's dropout
+rates are 0, so the JAX engine's PRNG splits change nothing; each client's
+state carries a ``torch.Generator`` seeded from the engine's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode, TrainConfig
+from feddat_tpu_torch.device import DeviceLike, resolve_device
+from feddat_tpu_torch.federated.fedavg import fedavg
+from feddat_tpu_torch.peft.partition import (
+    comm_roles,
+    label_params,
+    merge,
+    param_budget,
+    personal_roles,
+    split_by_roles,
+    teacher_refresh,
+)
+from feddat_tpu_torch.train.dat import (
+    Partitioner,
+    init_train_state,
+    make_dat_train_step,
+    make_dat_train_step_fused,
+    make_plain_train_step,
+)
+from feddat_tpu_torch.train.evaluation import evaluate, evaluate_dat, make_eval_step
+from feddat_tpu_torch.train.forwards import make_vilt_forward, make_vilt_fused_parts, to_device
+
+logger = logging.getLogger("feddat_tpu_torch")
+
+
+def _later(what: str, queue_item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {queue_item})")
+
+
+@dataclasses.dataclass
+class ClientRuntime:
+    """Per-client step functions and data handle."""
+
+    task_key: str
+    data: Any  # train_batches / eval_batches / steps_per_epoch / num_eval_examples
+    forward: Callable
+    partitioner: Partitioner
+    train_step: Callable
+    eval_step: Callable
+    opt_cfg: OptimizerConfig = None
+
+
+class FederatedTrainer:
+    """Drives communication rounds over a set of clients."""
+
+    def __init__(self, model, params: Optional[Dict[str, torch.Tensor]], clients: Dict[str, Any],
+                 config: TrainConfig, make_forward: Optional[Callable] = None,
+                 metric: str = "vqa_score", make_eval: Optional[Callable] = None,
+                 checkpoint_dir: Optional[str] = None, metrics_logger=None,
+                 aux_init: Optional[Callable] = None, batch_transform: Optional[Callable] = None,
+                 aux_forward: bool = False, use_fused_dat: bool = False,
+                 optimizer_overrides: Optional[Dict[str, OptimizerConfig]] = None,
+                 num_epochs_overrides: Optional[Dict[str, int]] = None, tp_mesh=None,
+                 profile_dir: Optional[str] = None, device: DeviceLike = None):
+        """``params`` defaults to the model's own state_dict; ``make_forward(model,
+        task_key)`` and ``make_eval(model, task_key)`` customise the model
+        family (ViLT by default)."""
+        if checkpoint_dir is not None:
+            raise _later("checkpointing (checkpoint_dir)", "5, checkpoints")
+        if tp_mesh is not None:
+            raise _later("tensor parallelism (tp_mesh)", "12, distribution")
+        if profile_dir is not None:
+            raise _later("round profiling (profile_dir)", "7, utils/observability")
+        if aux_init is not None or aux_forward:
+            raise _later("auxiliary model state (aux_init/aux_forward)", "9, ALBEF family")
+        if type(model).__name__ != "ViltContinualLearner":
+            raise _later(f"the federated engine for {type(model).__name__}", "9-10, other encoders")
+        self.device = resolve_device(device)
+        self.model = model
+        self.config = config
+        self.mode = config.peft_mode
+        if params is None:
+            params = model.state_dict()
+        params = {k: v.detach().to(self.device) for k, v in params.items()}
+        self.server_params = params
+        self.labels = label_params(params)
+        self._personal_roles = personal_roles(self.mode)
+        self._comm_roles = comm_roles(self.mode)
+        self.rng = torch.Generator().manual_seed(config.seed)
+        make_forward = make_forward or (lambda m, k: make_vilt_forward(m, k, loss="vqa"))
+
+        self.clients: List[ClientRuntime] = []
+        for task_key, data in clients.items():
+            forward = make_forward(model, task_key)
+            part = Partitioner(params, task_key, self.mode)
+            n_epochs = (num_epochs_overrides or {}).get(task_key, config.num_epochs)
+            max_steps = data.steps_per_epoch * n_epochs
+            opt_cfg = (optimizer_overrides or {}).get(task_key, config.optimizer)
+            if self.mode == PEFTMode.DAT:
+                if use_fused_dat:
+                    step = make_dat_train_step_fused(*make_vilt_fused_parts(model, task_key), part,
+                                                     opt_cfg, max_steps)
+                else:
+                    step = make_dat_train_step(forward, part, opt_cfg, max_steps)
+            else:
+                adapter_mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
+                step = make_plain_train_step(forward, part, opt_cfg, max_steps, adapter_mode)
+            eval_step = make_eval(model, task_key) if make_eval else make_eval_step(model, task_key, metric)
+            self.clients.append(ClientRuntime(task_key, data, forward, part, step, eval_step, opt_cfg))
+
+        # every client starts from the same personal partition (main.py:440-450)
+        init_personal, _ = split_by_roles(params, self.labels, self._personal_roles)
+        self.personal: Dict[str, Dict[str, torch.Tensor]] = {
+            c.task_key: dict(init_personal) for c in self.clients}
+        self.history: List[Dict[str, Any]] = []
+        self.metrics = metrics_logger
+        self.batch_transform = batch_transform
+        self.param_budget = param_budget(params, self.mode)
+        b = self.param_budget
+        logger.info("params: total=%d trainable=%d (%.3f%%) communicated=%d personal=%d",
+                    b["total"], b["trainable"], b["trainable_pct"], b["communicated"], b["personal"])
+
+    def _client_params(self, client: ClientRuntime, refresh: bool = True) -> Dict[str, torch.Tensor]:
+        """Server params with the client's personal partition swapped in;
+        ``refresh`` applies the DAT teacher refresh (train start only — eval
+        uses the stored personal ``adapter_2``, engine.py:273-290)."""
+        _, rest = split_by_roles(self.server_params, self.labels, self._personal_roles)
+        params = merge(rest, self.personal[client.task_key])
+        if refresh and self.mode == PEFTMode.DAT:
+            params = teacher_refresh(params)
+        return params
+
+    def train_client(self, client: ClientRuntime, round_idx: int) -> Dict[str, torch.Tensor]:
+        """One client's local training; returns its full post-training params."""
+        params = self._client_params(client)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.rng))
+        state = init_train_state(params, client.partitioner, client.opt_cfg,
+                                 torch.Generator().manual_seed(seed))
+        spe = client.data.steps_per_epoch
+        for epoch in range(self.config.federated.local_epochs):
+            for step_idx, batch in enumerate(client.data.train_batches(epoch=round_idx * 1000 + epoch)):
+                if self.config.debug_steps and step_idx > self.config.debug_steps:
+                    break
+                if self.batch_transform is not None:
+                    batch = self.batch_transform(batch, epoch, step_idx, spe)
+                state, metrics = client.train_step(state, to_device(batch, self.device))
+                if self.metrics is not None:  # the scalars; the DAT steps' gradient sets stay here
+                    scalars = {k: v for k, v in metrics.items() if k != "grads"}
+                    self.metrics.step(scalars, next(iter(batch.values())).shape[0], client.task_key)
+        return state.params
+
+    def _absorb(self, client: ClientRuntime, trained: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self.personal[client.task_key], _ = split_by_roles(trained, self.labels, self._personal_roles)
+        return split_by_roles(trained, self.labels, self._comm_roles)[0]
+
+    def run_round(self, round_idx: int) -> None:
+        t0 = time.time()
+        comm = [self._absorb(c, self.train_client(c, round_idx)) for c in self.clients]
+        if comm and self._comm_roles:
+            _, rest = split_by_roles(self.server_params, self.labels, self._comm_roles)
+            self.server_params = merge(rest, fedavg(comm, self.config.federated.client_weights))
+        self._last_round_wall_s = time.time() - t0
+        logger.info("round %d done in %.2fs", round_idx, self._last_round_wall_s)
+
+    def _evaluate_client(self, client: ClientRuntime):
+        params = self._client_params(client, refresh=False)
+        n, dbg = client.data.num_eval_examples, self.config.debug_steps
+        if self.mode == PEFTMode.DAT:
+            return evaluate_dat(params, client.eval_step, client.data.eval_batches, n, debug_steps=dbg)
+        mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
+        return evaluate(params, client.eval_step, client.data.eval_batches(), n, mode, debug_steps=dbg)
+
+    def evaluate_round(self, round_idx: int) -> Dict[str, Any]:
+        """Evaluate each client's personalised model (``main.py:520-558``)."""
+        entry = {"round": round_idx,
+                 "scores": {c.task_key: self._evaluate_client(c) for c in self.clients}}
+        self.history.append(entry)
+        logger.info("eval %s", entry)
+        if self.metrics is not None:
+            self.metrics.round(round_idx, entry["scores"], getattr(self, "_last_round_wall_s", 0.0))
+        return entry
+
+    def run_single_task(self) -> Dict[str, Any]:
+        """Centralised baseline (``--do_single``, ``main.py:402-436``): each
+        task trains ``comm_rounds`` times on its own from the initial params,
+        then evaluates; the trainer is left as it started."""
+        init_server = self.server_params
+        init_personal, _ = split_by_roles(init_server, self.labels, self._personal_roles)
+        results = {}
+        for client in self.clients:
+            self.server_params = init_server
+            self.personal[client.task_key] = dict(init_personal)
+            for r in range(self.config.federated.comm_rounds):
+                comm = self._absorb(client, self.train_client(client, r))
+                if self._comm_roles:
+                    _, rest = split_by_roles(self.server_params, self.labels, self._comm_roles)
+                    self.server_params = merge(rest, comm)
+            results[client.task_key] = self._evaluate_client(client)
+        self.server_params = init_server
+        for c in self.clients:
+            self.personal[c.task_key] = dict(init_personal)
+        entry = {"round": -1, "scores": results, "single_task": True}
+        self.history.append(entry)
+        return entry
+
+    def run(self, resume: bool = False) -> List[Dict[str, Any]]:
+        """All ``comm_rounds`` rounds with evaluation every ``eval_every`` and
+        after the last; ``resume`` needs checkpoints (a later slice)."""
+        if resume:
+            raise _later("resume", "5, checkpoints")
+        rounds = self.config.federated.comm_rounds
+        for r in range(rounds):
+            self.run_round(r)
+            if (r + 1) % self.config.federated.eval_every == 0 or r == rounds - 1:
+                self.evaluate_round(r)
+        return self.history

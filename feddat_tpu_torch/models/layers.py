@@ -8,8 +8,10 @@ each module computes in its ``dtype`` the way flax's ``dtype=`` does.
 
 ``attn_impl``: ``"auto"`` runs the composable path (``ops/attention.py``);
 ``"block"`` routes eligible self-attention sites through the attention-block
-kernel (``ops/attn_block.py``), with ``norm_before`` fused into it when
-``fuse_ln`` is set.  The other JAX routes belong to later slices and raise.
+kernels (``ops/attn_block.py``), with ``norm_before`` fused into them when
+``fuse_ln`` is set; ``"layer"`` routes an eligible whole layer through
+``ops/layer_block.py`` (one backward kernel per layer) and the other layers
+the ``"block"`` way.  The other JAX routes belong to later slices and raise.
 """
 
 from __future__ import annotations
@@ -21,18 +23,20 @@ from torch import nn
 from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
-from feddat_tpu_torch.models.adapters import AdapterCell, dense
+from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
 from feddat_tpu_torch.ops.attention import xla_attention
 
-ATTN_IMPLS = ("auto", "block")
+ATTN_IMPLS = ("auto", "block", "layer")
 # attn_impl values of the JAX package that later slices port (ROADMAP Queue 2).
 _LATER_IMPLS = {
-    "layer": "the whole-layer backward kernel #4, ops/layer_block.py::_layer_bwd_kernel",
     "fused": "kernels #5 and #6, ops/fused_attention.py::_fwd_kernel/_bwd_kernel",
     "flash": "kernels #7 to #9, ops/flash.py",
 }
 # Longest S at which norm_before is fused into the kernel (layers.py:494).
 LN_FUSED_MAX_S = 448
+# Longest S the whole-layer route takes (layers.py:392; the JAX package's
+# FEDDAT_LAYER_MAX_S sweep override is not carried over).
+LAYER_MAX_S = 592
 
 
 def check_attn_impl(attn_impl: str) -> str:
@@ -159,7 +163,7 @@ class MultiHeadAttention(nn.Module):
                 "for the block kernel (PreLNLayer must pre-check eligibility)"
             )
         if self.dropout_rate > 0.0 and not deterministic:
-            raise NotImplementedError("live attention dropout belongs to the training slice")
+            raise NotImplementedError("live attention dropout is not ported yet (ROADMAP Queue 1, item 13)")
         d_head = self.hidden_size // self.num_heads
 
         def split(t):
@@ -208,6 +212,8 @@ class PreLNLayer(nn.Module):
                  fuse_ln: bool = False):
         super().__init__()
         self.adapter_spec = adapter
+        self.num_heads = num_heads
+        self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.attention_dropout = attention_dropout
         self.layer_norm_eps = layer_norm_eps
@@ -215,7 +221,8 @@ class PreLNLayer(nn.Module):
         self.attn_impl = check_attn_impl(attn_impl)
         self.fuse_ln = fuse_ln
         self.attention = MultiHeadAttention(
-            hidden_size, num_heads, attention_dropout, lora, dtype, attn_impl, logits_dtype
+            hidden_size, num_heads, attention_dropout, lora, dtype,
+            "block" if attn_impl == "layer" else attn_impl, logits_dtype,
         )
         self.norm_before = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.norm_after = LayerNorm(hidden_size, layer_norm_eps, dtype)
@@ -223,12 +230,73 @@ class PreLNLayer(nn.Module):
         if adapter.enabled:
             self.adapter = AdapterCell(adapter, hidden_size, dtype)
 
+    def _layer_kernel_eligible(self, bias, adapter_mode, deterministic, adapter_weights, x) -> bool:
+        """``layers.py:366-393``: an enabled adapter in a mode whose gradient
+        contract the kernel implements (one named adapter, or the ensemble
+        whose partner is the frozen ``adapter_2`` teacher), no per-example
+        adapter weights, a block-eligible site, no live hidden dropout, and
+        S at most ``LAYER_MAX_S``."""
+        names = self.adapter_spec.names
+        mode_ok = adapter_mode in names or (
+            adapter_mode == MODE_ENSEMBLE and ensemble_members(names)[1] == "adapter_2")
+        return (
+            self.adapter_spec.enabled
+            and mode_ok
+            and adapter_weights is None
+            and attn_block_eligible("block", bias, self.lora, self.attention_dropout, deterministic)
+            and not (self.dropout_rate > 0.0 and not deterministic)
+            and x.shape[1] <= LAYER_MAX_S
+        )
+
+    def _layer_kernel(self, x, bias, adapter_mode):
+        """``layers.py:395-453``: the whole layer through ``ops/layer_block.py``."""
+        from feddat_tpu_torch.ops.layer_block import layer_block
+
+        spec, dt = self.adapter_spec, self.dtype
+        if adapter_mode == MODE_ENSEMBLE:
+            a_name, b_name = ensemble_members(spec.names)
+            w_a = spec.ensemble_weight * spec.scaling
+            w_b = (1.0 - spec.ensemble_weight) * spec.scaling
+            use_b = True
+        else:
+            a_name = b_name = adapter_mode
+            w_a, w_b, use_b = 1.0, 0.0, False
+        att, mlp = self.attention, self.mlp
+
+        def w(layer):
+            return layer.weight.to(dt).contiguous()
+
+        def row(t):
+            return t.to(torch.float32)[None, :]
+
+        def adapter(name):
+            down = getattr(self.adapter, f"{name}_down")
+            up = getattr(self.adapter, f"{name}_up")
+            return (down.weight.t().to(dt).contiguous(), row(down.bias),
+                    up.weight.t().to(dt).contiguous(), row(up.bias))
+
+        bqkv = torch.stack([att.query.dense.bias, att.key.bias, att.value.dense.bias]).to(torch.float32)
+        gb1 = torch.stack([self.norm_before.weight, self.norm_before.bias]).to(torch.float32)
+        gb2 = torch.stack([self.norm_after.weight, self.norm_after.bias]).to(torch.float32)
+        return layer_block(
+            x.to(dt).contiguous(), w(att.query.dense), w(att.key), w(att.value.dense), w(att.out),
+            bqkv, row(att.out.bias), gb1, gb2,
+            w(mlp.intermediate), row(mlp.intermediate.bias), w(mlp.output), row(mlp.output.bias),
+            *adapter(a_name), *adapter(b_name), bias,
+            self.num_heads, None, self.layer_norm_eps, self.layer_norm_eps,
+            float(w_a), float(w_b), use_b,
+        )
+
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 adapter_mode: str = "none", deterministic: bool = True,
                 adapter_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        block_ok = attn_block_eligible(
-            self.attn_impl, bias, self.lora, self.attention_dropout, deterministic
-        )
+        if self.attn_impl == "layer" and self._layer_kernel_eligible(
+            bias, adapter_mode, deterministic, adapter_weights, x
+        ):
+            return self._layer_kernel(x, bias, adapter_mode)
+        # a layer that does not qualify goes the "block" way (layers.py:468)
+        impl = "block" if self.attn_impl == "layer" else self.attn_impl
+        block_ok = attn_block_eligible(impl, bias, self.lora, self.attention_dropout, deterministic)
         if block_ok and self.fuse_ln and x.shape[1] <= LN_FUSED_MAX_S:
             ln = (self.norm_before.weight, self.norm_before.bias, self.layer_norm_eps)
             attn_out = self.attention(x, bias=bias, deterministic=deterministic, ln=ln)

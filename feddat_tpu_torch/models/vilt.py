@@ -138,6 +138,9 @@ class ViltEncoder(nn.Module):
         if c.prompt.enabled:
             raise NotImplementedError("prompt tuning (models/prompts.py) is not ported yet "
                                       "(ROADMAP Queue 1, remaining PEFT modes)")
+        if c.remat:
+            raise NotImplementedError("remat/remat_policy (activation recomputation; no numeric "
+                                      "effect) is not ported yet (ROADMAP Queue 1, item 13)")
         self.config = c
         self.dtype = dtype
         self.attn_impl = check_attn_impl(attn_impl)
@@ -239,6 +242,20 @@ class ViltContinualLearner(nn.Module):
         if spec.num_images == 1:
             return self.forward_single_image(task_key, batch, adapter_mode, deterministic)
         return self.forward_multi_images(task_key, batch, adapter_mode, deterministic)
+
+    def encode_single_image(self, task_key, batch, adapter_mode="none", deterministic=True):
+        """Encoder-only forward -> pooled [B, d] (vilt.py:414-429; the fused
+        DAT step shares one ensemble encoder pass between its stages)."""
+        _, pooled = self.vilt(
+            batch["input_ids"], batch["attention_mask"], batch.get("token_type_ids"),
+            batch["pixel_values"], batch.get("pixel_mask"), adapter_mode=adapter_mode,
+            deterministic=deterministic, adapter_weights=batch.get("adapter_weights"),
+        )
+        return pooled
+
+    def apply_head(self, task_key, pooled):
+        """Head-only forward (vilt.py:431-433)."""
+        return self.head(task_key)(pooled)
 
     def forward_single_image(self, task_key, batch, adapter_mode="none", deterministic=True):
         _, pooled = self.vilt(

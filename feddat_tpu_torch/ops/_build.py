@@ -7,7 +7,8 @@ stream passed as ``c_void_p``).  This keeps PyTorch's headers out of the
 build: a source compiles in seconds, not minutes.
 
 * Only sources inside the package are compiled; the library name carries a
-  hash of the source and the flags, so an edited source rebuilds.
+  hash of the source, every shared ``csrc/*.cuh`` header and the flags, so
+  an edited source or header rebuilds.
 * Nothing here runs at import: ``import feddat_tpu_torch`` works on a host
   without ``nvcc``.  A failed build raises with ``nvcc``'s output.
 * :func:`build` starts one ``nvcc`` per source, all at once, and waits for
@@ -51,10 +52,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """``_build/lib<name>-<hash>.so`` for the current source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """``_build/lib<name>-<hash>.so`` for the current source, headers and flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> Sequence[str]:

@@ -1,27 +1,34 @@
-"""Fused pre-LN attention block, forward (frozen projections).
+"""Fused pre-LN attention block with frozen projections: forward and backward.
 
-Counterpart of ``feddat_tpu/ops/attn_block.py`` (``_fwd_kernel`` through
-``_fwd_call``)::
+Counterpart of ``feddat_tpu/ops/attn_block.py``.  Forward (``_fwd_kernel``
+through ``_fwd_call``, kernel #1)::
 
     xln   = LayerNorm(x)          (optional, fused: gb / ln_eps)
     q/k/v = xln · Wᵀ + b          (bf16 inputs, fp32 accumulation)
     ctx   = softmax(q kᵀ·scale + bias) v   (per head, fp32 logits)
     out   = ctx · Woᵀ + bo
 
-Two implementations of one function:
+Backward (``_bwd_kernel`` through ``_attn_block_bwd``, kernel #3): ``dx`` only,
+recomputing LN1 and q/k/v from ``x`` and the saved ``ctx``/``lse``; the
+projections, biases, LN parameters and the mask get no gradient.
 
-* :func:`attn_block_reference` — plain PyTorch with the TPU kernel's
-  rounding points.  The CPU tests hold it against the JAX kernel, and
-  ``chip_smoke.py`` holds the CUDA kernel against it.
-* :func:`attn_block_cuda` — the hand-written kernel in ``csrc/attn_block.cu``.
+Two implementations of each:
 
-:func:`attn_block` picks by device only: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.
+* :func:`attn_block_reference` / :func:`attn_block_bwd_reference` — plain
+  PyTorch with the TPU kernels' rounding points.  The CPU tests hold them
+  against the JAX kernels, and ``chip_smoke.py`` holds the CUDA kernels
+  against them.
+* :func:`attn_block_cuda` / :func:`attn_block_bwd_cuda` — the hand-written
+  kernels in ``csrc/attn_block.cu`` (the backward's attention part is
+  ``csrc/attn_bwd.cuh``, shared with the whole-layer backward).
+
+:func:`attn_block` is differentiable with the JAX custom_vjp's contract and
+picks by device only: a CPU tensor takes the plain versions, a CUDA tensor
+launches the kernels or raises.  As in JAX, past ``LN_BWD_FUSED_MAX_S`` the
+backward takes LN1 outside the kernel (attn_block.py:358-385, 410-415).
 
 Weights use the ``nn.Linear`` layout ``[out, in]``.  ``bias`` is the
-additive ``[B, 1, 1, S]`` padding bias (or None).  The backward kernel
-(``_bwd_kernel``) is a later slice, so the CUDA path refuses inputs that
-require grad.
+additive ``[B, 1, 1, S]`` padding bias (or None).
 """
 
 from __future__ import annotations
@@ -39,9 +46,15 @@ KERNEL = CudaKernel(
     "attn_block", "attn_block_fwd",
     [_vp] * 13 + [_i, _i, _i, _i, _f, _f, _vp],
 )
+KERNEL_BWD = CudaKernel(
+    "attn_block", "attn_block_bwd",
+    [_vp] * 13 + [_i, _i, _i, _i, _f, _f, _vp],
+)
 # Head dim and width multiple the kernel is written for (mma tiles).
 HEAD_DIM = 64
 WIDTH_MULTIPLE = 128
+# Longest padded S at which the backward keeps LN1 fused (attn_block.py:358).
+LN_BWD_FUSED_MAX_S = 448
 
 
 @functools.cache
@@ -61,14 +74,29 @@ def _key_bias(bias: Optional[torch.Tensor], b: int, s: int) -> Optional[torch.Te
     return bias.to(torch.float32).reshape(bias.shape[0], s).expand(b, s)
 
 
-def layer_norm_fast_variance(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                             eps: float) -> torch.Tensor:
-    """The kernel's LN (attn_block.py:68-87): fp32, ``max(E[x²]−μ², 0)``,
-    ``(x−μ)·rstd·scale + shift``; returns fp32."""
+def layer_norm_stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xhat, rstd) of the kernels' LayerNorm (attn_block.py:68-87): fp32,
+    ``var = max(E[x²]−μ², 0)``, ``xhat = (x−μ)·rsqrt(var+eps)``."""
     xr = x.to(torch.float32)
     mu = xr.mean(-1, keepdim=True)
     var = torch.clamp((xr * xr).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    return (xr - mu) * torch.rsqrt(var + eps) * scale + shift
+    rstd = torch.rsqrt(var + eps)
+    return (xr - mu) * rstd, rstd
+
+
+def layer_norm_fast_variance(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                             eps: float) -> torch.Tensor:
+    """The kernels' LayerNorm ``xhat·scale + shift``, fp32."""
+    return layer_norm_stats(x, eps)[0] * scale + shift
+
+
+def layer_norm_bwd(dy: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+                   gamma: torch.Tensor) -> torch.Tensor:
+    """d x of a LayerNorm with a frozen scale (layer_block.py:79-84), fp32."""
+    dxhat = dy.to(torch.float32) * gamma
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2)
 
 
 def attn_block_reference(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
@@ -111,17 +139,28 @@ def attn_block_reference(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
     return out, ctx, lse
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]):
+def check_cuda_arg(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+                   shape: Tuple[int, ...]):
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
+    ``dtype`` and ``shape`` (what the kernels' vector loads assume)."""
     if not t.is_cuda:
-        raise ValueError(f"attn_block_cuda: {name} must be a CUDA tensor")
+        raise ValueError(f"{fn}: {name} must be a CUDA tensor")
     if t.dtype != dtype:
-        raise TypeError(f"attn_block_cuda: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"attn_block_cuda: {name} must have shape {shape}, got {tuple(t.shape)}")
+        raise ValueError(f"{fn}: {name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"attn_block_cuda: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
     if t.data_ptr() % 16:
-        raise ValueError(f"attn_block_cuda: {name} must start on a 16-byte boundary")
+        raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
+
+
+def check_heads(fn: str, dm: int, num_heads: int) -> None:
+    if dm % num_heads or dm // num_heads != HEAD_DIM or dm % WIDTH_MULTIPLE:
+        raise ValueError(
+            f"{fn} takes head dim {HEAD_DIM} and a width that is a multiple "
+            f"of {WIDTH_MULTIPLE}; got width {dm} with {num_heads} heads"
+        )
 
 
 def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
@@ -132,33 +171,24 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
     Takes bf16 ``x [B, S, Dm]`` and weights ``[Dm, Dm]``, fp32 ``bqkv [3, Dm]``,
     ``bo [1, Dm]``, ``gb [2, Dm]`` (with ``ln_eps``) and ``bias``; requires
     ``Dm / num_heads == 64`` and ``Dm % 128 == 0``.  Raises on anything else."""
-    tensors = [x, wq, wk, wv, wo, bqkv, bo, gb, bias]
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "attn_block_cuda has no backward yet (the attention-block backward "
-            "kernel #3 is in ROADMAP Queue 2); run it under torch.no_grad/inference_mode"
-        )
+    fn = "attn_block_cuda"
     if x.dim() != 3:
-        raise ValueError(f"attn_block_cuda: x must be [B, S, Dm], got {tuple(x.shape)}")
+        raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
     b, s, dm = x.shape
-    if dm % num_heads or dm // num_heads != HEAD_DIM or dm % WIDTH_MULTIPLE:
-        raise ValueError(
-            f"attn_block_cuda takes head dim {HEAD_DIM} and a width that is a multiple "
-            f"of {WIDTH_MULTIPLE}; got width {dm} with {num_heads} heads"
-        )
-    _check_cuda("x", x, torch.bfloat16, (b, s, dm))
+    check_heads(fn, dm, num_heads)
+    check_cuda_arg(fn, "x", x, torch.bfloat16, (b, s, dm))
     for name, w in zip(("wq", "wk", "wv", "wo"), (wq, wk, wv, wo)):
-        _check_cuda(name, w, torch.bfloat16, (dm, dm))
-    _check_cuda("bqkv", bqkv, torch.float32, (3, dm))
-    _check_cuda("bo", bo, torch.float32, (1, dm))
+        check_cuda_arg(fn, name, w, torch.bfloat16, (dm, dm))
+    check_cuda_arg(fn, "bqkv", bqkv, torch.float32, (3, dm))
+    check_cuda_arg(fn, "bo", bo, torch.float32, (1, dm))
     if (gb is None) != (ln_eps is None):
         raise ValueError("attn_block_cuda: pass gb and ln_eps together (fused LN) or neither")
     if gb is not None:
-        _check_cuda("gb", gb, torch.float32, (2, dm))
+        check_cuda_arg(fn, "gb", gb, torch.float32, (2, dm))
     brow = _key_bias(bias, b, s)
     if brow is not None:
         brow = brow.contiguous()
-        _check_cuda("bias", brow, torch.float32, (b, s))
+        check_cuda_arg(fn, "bias", brow, torch.float32, (b, s))
     max_s = _max_seq()
     if s > max_s or s < 1:
         raise ValueError(f"attn_block_cuda: sequence length {s} outside [1, {max_s}]")
@@ -177,9 +207,156 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
     return out, ctx, lse
 
 
+def attn_bwd_core_reference(xin, wq, wk, wv, wo, bqkv, brow, ctx, lse, g_att,
+                            num_heads: int, scale: float) -> torch.Tensor:
+    """The attention half of kernels #3 and #4 (attn_block.py:150-210,
+    layer_block.py:244-298) in plain PyTorch -> ``dxln`` fp32 [B, S, Dm].
+
+    ``xin`` is the block's (LayerNormed) bf16 input, ``brow`` the [B, S]
+    fp32 key bias or None, ``g_att`` the bf16 cotangent of the output.
+    Rounds where the TPU kernel rounds: dctx, q/k/v, bf16(P), dv, ds, dq, dk
+    in ``xin.dtype``; logits, P, dP, delta and dxln in fp32."""
+    dt = xin.dtype
+    b, s, dm = xin.shape
+    d = dm // num_heads
+    f32 = torch.float32
+    xf = xin.to(f32)
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, d).transpose(1, 2).to(f32)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, s, dm)
+
+    dctx = (g_att.to(f32) @ wo.to(f32)).to(dt)
+    q, k, v = (heads((xf @ w.to(f32).t() + bqkv[i]).to(dt)) for i, w in enumerate((wq, wk, wv)))
+    do, o = heads(dctx), heads(ctx)
+    logits = q @ k.transpose(-1, -2) * scale
+    if brow is not None:
+        logits = logits + brow[:, None, None, :]
+    p = torch.exp(logits - lse[..., None])
+    dv = (p.to(dt).to(f32).transpose(-1, -2) @ do).to(dt)
+    dp = do @ v.transpose(-1, -2)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).to(f32)
+    dq = (ds @ k * scale).to(dt)
+    dk = (ds.transpose(-1, -2) @ q * scale).to(dt)
+    return sum(merge(t).to(f32) @ w.to(f32) for t, w in ((dq, wq), (dk, wk), (dv, wv)))
+
+
+def attn_block_bwd_reference(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads: int,
+                             scale: Optional[float] = None,
+                             ln_eps: Optional[float] = None) -> torch.Tensor:
+    """Plain version of kernel #3 -> ``dx`` in ``x.dtype`` (LN1 fused when
+    ``gb``/``ln_eps`` are given: dxln goes back through the LayerNorm in
+    fp32 before the one cast, attn_block.py:211-238)."""
+    b, s, dm = x.shape
+    if scale is None:
+        scale = (dm // num_heads) ** -0.5
+    xin = x
+    if ln_eps is not None:
+        xhat, rstd = layer_norm_stats(x, ln_eps)
+        xin = (xhat * gb[0] + gb[1]).to(x.dtype)
+    dxln = attn_bwd_core_reference(xin, wq, wk, wv, wo, bqkv, _key_bias(bias, b, s), ctx, lse,
+                                   g, num_heads, scale)
+    if ln_eps is not None:
+        dxln = layer_norm_bwd(dxln, xhat, rstd, gb[0])
+    return dxln.to(x.dtype)
+
+
+@functools.cache
+def _bwd_workspace(b: int, s: int, dm: int, h: int, has_ln: bool) -> int:
+    fn = load("attn_block").attn_block_bwd_workspace
+    fn.argtypes, fn.restype = [_i] * 5, ctypes.c_longlong
+    return fn(b, s, dm, h, int(has_ln))
+
+
+def attn_block_bwd_cuda(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads: int,
+                        scale: Optional[float] = None,
+                        ln_eps: Optional[float] = None) -> torch.Tensor:
+    """Kernel #3 -> ``dx``, as :func:`attn_block_bwd_reference`.  Takes the
+    forward's bf16 ``x``/weights and fp32 ``bqkv``/``gb``/``bias``, its bf16
+    ``ctx`` and fp32 ``lse [B, H, S]``, and bf16 ``g``; the same shape limits
+    as :func:`attn_block_cuda`.  Raises on anything else."""
+    fn = "attn_block_bwd_cuda"
+    if x.dim() != 3:
+        raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
+    b, s, dm = x.shape
+    check_heads(fn, dm, num_heads)
+    for name, t, dtype, shape in (
+        ("x", x, torch.bfloat16, (b, s, dm)), ("ctx", ctx, torch.bfloat16, (b, s, dm)),
+        ("g", g, torch.bfloat16, (b, s, dm)), ("lse", lse, torch.float32, (b, num_heads, s)),
+        ("bqkv", bqkv, torch.float32, (3, dm)),
+        *((name, w, torch.bfloat16, (dm, dm)) for name, w in zip(("wq", "wk", "wv", "wo"),
+                                                                  (wq, wk, wv, wo))),
+    ):
+        check_cuda_arg(fn, name, t, dtype, shape)
+    if (gb is None) != (ln_eps is None):
+        raise ValueError(f"{fn}: pass gb and ln_eps together (fused LN) or neither")
+    if gb is not None:
+        check_cuda_arg(fn, "gb", gb, torch.float32, (2, dm))
+    brow = _key_bias(bias, b, s)
+    if brow is not None:
+        brow = brow.contiguous()
+        check_cuda_arg(fn, "bias", brow, torch.float32, (b, s))
+    max_s = _max_seq()
+    if s > max_s or s < 1:
+        raise ValueError(f"{fn}: sequence length {s} outside [1, {max_s}]")
+    if scale is None:
+        scale = HEAD_DIM ** -0.5
+    ws = torch.empty(_bwd_workspace(b, s, dm, num_heads, gb is not None), dtype=torch.uint8,
+                     device=x.device)
+    dx = torch.empty_like(x)
+    KERNEL_BWD.launch(
+        ptr(x), ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(gb), ptr(brow), ptr(ctx),
+        ptr(lse), ptr(g), ptr(ws), ptr(dx), b, s, dm, num_heads, float(scale),
+        float(ln_eps or 0.0), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return dx
+
+
+def attn_block_bwd(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads: int,
+                   scale: Optional[float] = None, ln_eps: Optional[float] = None) -> torch.Tensor:
+    """``dx`` of the attention block: kernel #3 for a CUDA tensor, the plain
+    version for a CPU tensor.  Past ``LN_BWD_FUSED_MAX_S`` (padded to 16, as
+    JAX pads) the LayerNorm runs outside the kernel, as in
+    ``_attn_block_bwd``: the kernel sees the bf16 LN output and its bf16 dx
+    goes back through the LayerNorm in fp32."""
+    impl = attn_block_bwd_cuda if x.is_cuda else attn_block_bwd_reference
+    s = x.shape[1]
+    if ln_eps is None or -(-s // 16) * 16 <= LN_BWD_FUSED_MAX_S:
+        return impl(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads, scale, ln_eps)
+    xhat, rstd = layer_norm_stats(x, ln_eps)
+    kernel_x = (xhat * gb[0] + gb[1]).to(x.dtype)
+    dx = impl(kernel_x, wq, wk, wv, wo, bqkv, None, bias, ctx, lse, g, num_heads, scale, None)
+    return layer_norm_bwd(dx, xhat, rstd, gb[0]).to(dx.dtype)
+
+
+class _AttnBlock(torch.autograd.Function):
+    """The JAX custom_vjp's contract (attn_block.py:314-422): ``dx`` is
+    real; the weights, biases, LN parameters and the mask get none."""
+
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps):
+        impl = attn_block_cuda if x.is_cuda else attn_block_reference
+        out, ctx_t, lse = impl(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps)
+        ctx.save_for_backward(x, wq, wk, wv, wo, bqkv, gb, bias, ctx_t, lse)
+        ctx.cfg = (num_heads, scale, ln_eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, wk, wv, wo, bqkv, gb, bias, ctx_t, lse = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = attn_block_bwd(x, wq, wk, wv, wo, bqkv, gb, bias, ctx_t, lse,
+                                g.contiguous(), *ctx.cfg)
+        return (dx,) + (None,) * 11
+
+
 def attn_block(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
                scale: Optional[float] = None, ln_eps: Optional[float] = None) -> torch.Tensor:
-    """The attention block's output ``[B, S, Dm]``: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor (never a fallback)."""
-    impl = attn_block_cuda if x.is_cuda else attn_block_reference
-    return impl(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps)[0]
+    """The attention block's output ``[B, S, Dm]``, differentiable in ``x``:
+    the CUDA kernels for a CUDA tensor, the plain versions for a CPU tensor
+    (never a fallback)."""
+    return _AttnBlock.apply(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps)

@@ -1,9 +1,12 @@
-"""The port's plain attention-block version against the JAX Pallas kernel
-(``ops/attn_block.py::_fwd_call``, interpret mode) on the CPU in float32:
-out, ctx and lse, with and without the fused LayerNorm, with S padded to the
-kernel's multiple of 16 and an odd batch.  Tolerance rtol=1e-4, atol=1e-5
-(tests/test_pallas_kernels.py): one fp32 function, summed in another order."""
+"""The port's plain attention-block versions against the JAX Pallas kernels
+(``ops/attn_block.py``, interpret mode) on the CPU in float32: the forward's
+out, ctx and lse (``_fwd_call``), and the backward's dx (kernel #3 through the
+custom_vjp, ``jax.vjp``), with and without the fused LayerNorm, with S padded
+to the kernel's multiple of 16 and an odd batch.  Tolerance rtol=1e-4,
+atol=1e-5 (tests/test_pallas_kernels.py): one fp32 function, summed in
+another order."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ import torch
 
 from feddat_tpu.ops.attention import mask_to_bias as jax_mask_to_bias
 from feddat_tpu.ops.attn_block import _fwd_call
+from feddat_tpu.ops.attn_block import attn_block as jax_attn_block
 from feddat_tpu_torch.ops import attn_block as ab
 from feddat_tpu_torch.ops.attention import mask_to_bias
 
@@ -64,3 +68,57 @@ def test_dispatch_on_cpu_is_the_plain_version():
     np.testing.assert_array_equal(out.numpy(), ab.attn_block_reference(*args)[0].numpy())
     with pytest.raises(ValueError, match="padding bias"):
         ab.attn_block(*args[:8], torch.zeros(2, 1, 9, 9), 4)
+
+
+@pytest.mark.parametrize("fuse_ln", [False, True])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 21)])
+def test_backward_dx_matches_jax_vjp(b, s, fuse_ln):
+    """Kernel #3's plain version through the port's autograd wrapper: dx
+    real, every other input without a gradient (the JAX contract returns
+    zeros there, attn_block.py:416-419)."""
+    inp = _inputs(b * 10 + s + 7, b, s)
+    heads, eps = 4, 1e-12
+    gb = inp["gb"] if fuse_ln else None
+    ln_eps = eps if fuse_ln else None
+    g = np.random.RandomState(s).randn(b, s, 32).astype(np.float32)
+    bias_j = jax_mask_to_bias(jnp.asarray(inp["mask"]))
+
+    def f(x):
+        return jax_attn_block(x, *map(jnp.asarray, inp["ws"]), jnp.asarray(inp["bqkv"]),
+                              jnp.asarray(inp["bo"]), None if gb is None else jnp.asarray(gb),
+                              bias_j, heads, None, 1, True, ln_eps)
+
+    _, vjp = jax.vjp(f, jnp.asarray(inp["x"]))
+    (want,) = vjp(jnp.asarray(g))
+    x = torch.tensor(inp["x"], requires_grad=True)
+    ws = [torch.tensor(np.ascontiguousarray(w.T), requires_grad=True) for w in inp["ws"]]
+    out = ab.attn_block(x, *ws, torch.tensor(inp["bqkv"]), torch.tensor(inp["bo"]),
+                        None if gb is None else torch.tensor(gb),
+                        mask_to_bias(torch.tensor(inp["mask"])), heads, None, ln_eps)
+    got = torch.autograd.grad(out, [x, *ws], torch.from_numpy(g), allow_unused=True)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert all(t is None for t in got[1:])
+
+
+def test_backward_past_448_takes_the_layernorm_outside():
+    """At S=450 (padded 464 > LN_BWD_FUSED_MAX_S) JAX recomputes LN1
+    outside the kernel and converts the kernel's dx back through it; the
+    port follows the same split (attn_block.py:372-415)."""
+    b, s = 1, 450
+    inp = _inputs(11, b, s)
+    g = np.random.RandomState(12).randn(b, s, 32).astype(np.float32)
+    bias_j = jax_mask_to_bias(jnp.asarray(inp["mask"]))
+
+    def f(x):
+        return jax_attn_block(x, *map(jnp.asarray, inp["ws"]), jnp.asarray(inp["bqkv"]),
+                              jnp.asarray(inp["bo"]), jnp.asarray(inp["gb"]), bias_j, 4, None,
+                              1, True, 1e-12)
+
+    _, vjp = jax.vjp(f, jnp.asarray(inp["x"]))
+    (want,) = vjp(jnp.asarray(g))
+    x = torch.tensor(inp["x"], requires_grad=True)
+    out = ab.attn_block(x, *(torch.tensor(np.ascontiguousarray(w.T)) for w in inp["ws"]),
+                        torch.tensor(inp["bqkv"]), torch.tensor(inp["bo"]), torch.tensor(inp["gb"]),
+                        mask_to_bias(torch.tensor(inp["mask"])), 4, None, 1e-12)
+    (got,) = torch.autograd.grad(out, [x], torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)

@@ -22,6 +22,7 @@ from feddat_tpu_torch.configs.core import AdapterSpec
 from feddat_tpu_torch.models.vilt import TaskHeadSpec, ViltContinualLearner
 from feddat_tpu_torch.ops import adapter_fused as af
 from feddat_tpu_torch.ops import attn_block as ab
+from feddat_tpu_torch.ops import layer_block as lb
 from feddat_tpu_torch.serving import ViltVqaPredictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -70,12 +71,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 4, 128, dtype=torch.bfloat16)
     w = torch.zeros(128, 128, dtype=torch.bfloat16)
     before = (ab.KERNEL.launches, af.KERNEL.launches)
+    assert (ab.KERNEL_BWD.launches, lb.KERNEL.launches) == (0, 0)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         ab.attn_block_cuda(x, w, w, w, w, torch.zeros(3, 128), torch.zeros(1, 128), None, None, 2)
     params = (torch.zeros(128, 8), torch.zeros(8), torch.zeros(8, 128), torch.zeros(128))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         af.adapter_fused_cuda(x, params, params, 0.5)
-    assert (ab.KERNEL.launches, af.KERNEL.launches) == before
+    lse, f32 = torch.zeros(1, 2, 4), torch.zeros(3, 128)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        ab.attn_block_bwd_cuda(x, w, w, w, w, f32, None, None, x, lse, x, 2)
+    ln, adapter = torch.zeros(2, 128), (torch.zeros(128, 8), torch.zeros(1, 8),
+                                         torch.zeros(8, 128), torch.zeros(1, 128))
+    for layer_bwd in (lb.layer_block_bwd_cuda, lb.layer_block_bwd_cuda_stages):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            layer_bwd(x, x, x, lse, x, None, w, w, w, w, f32, ln, ln,
+                      torch.zeros(256, 128), torch.zeros(1, 256), torch.zeros(128, 256),
+                      torch.zeros(1, 128), *adapter, *adapter, 2, None, 1e-12, 1e-12,
+                      1.0, 0.0, False)
+    assert (ab.KERNEL.launches, af.KERNEL.launches, ab.KERNEL_BWD.launches,
+            lb.KERNEL.launches) == before + (0, 0)
 
 
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -94,9 +108,44 @@ def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     assert _build._LIBS == {} and not list((tmp_path / "build").glob("*.so"))
 
 
+def test_editing_a_shared_header_changes_the_library_path(tmp_path, monkeypatch):
+    """Every ``csrc/*.cuh`` is part of each library's hash, so an edited
+    header never loads a stale build."""
+    from feddat_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (csrc / "h.cuh").write_text("// two\n")
+    second = _build.library_path("k")
+    (csrc / "other.cuh").write_text("// new header\n")
+    assert len({first, second, _build.library_path("k")}) == 3
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["k.cu"]
+
+
+def test_remat_raises_until_ported():
+    """remat/remat_policy only trade memory for recomputation in JAX (no
+    numeric effect); the port refuses them until ROADMAP Queue 1 ports them."""
+    import dataclasses
+
+    from feddat_tpu_torch.configs.core import ViltModelConfig
+    from feddat_tpu_torch.models.vilt import ViltEncoder
+
+    cfg = ViltModelConfig(vocab_size=16, hidden_size=32, num_layers=1, num_heads=4,
+                          intermediate_size=64, max_text_len=4, image_size=(32, 32),
+                          patch_size=16, remat=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ViltEncoder(cfg)
+    ViltEncoder(dataclasses.replace(cfg, remat=False))
+
+
 def test_attn_impls_of_later_slices_raise():
     spec = AdapterSpec(names=("adapter_0",), reduction_factor=4)
-    for impl in ("layer", "fused", "flash"):
+    for impl in ("fused", "flash"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PreLNLayer(32, 4, 64, spec, attn_impl=impl)
     with pytest.raises(ValueError, match="unknown attn_impl"):
