@@ -20,11 +20,20 @@ Phases, in this order:
             losses and gradients held against the port's plain path; the standard
             DAT step with attn_impl='block' (#3); then one FederatedTrainer round
             of two synthetic clients with FedAvg of adapter_1 and evaluate_dat.
-5. time   — each kernel, its plain version and one PyTorch call chain for the
+5. peft   — the single-update PEFT baselines at the same width and batch through
+            attn_impl='fused' (a 100-label head as scripts/peft_bench.py): one
+            plain train step each of lora (r=16 on q/v, lora_b drawn non-zero),
+            bias, full, prompt (S=195) and freeze_bottom_k_layers (k=2) with the
+            #5/#6 launches read around it (12/12, 12/10 with k=2), gradients held
+            against the plain path in fp32 by the 2x-bf16 rule; then one
+            FederatedTrainer round of LoRA (2 clients x 2 steps, FedAvg of the
+            LoRA factors) and its evaluation (#5 only).
+6. time   — each kernel, its plain version and one PyTorch call chain for the
             same function (a yardstick the port never calls), by CUDA events,
-            beside the kernel's bound; serving rates and latency; DAT train
-            samples/s, kernel path against plain path in alternating samples;
-            torch.profiler breakdowns of one serving forward and one train step.
+            beside the kernel's bound; serving rates and latency; DAT and LoRA
+            train samples/s, kernel path against plain path in alternating
+            samples; torch.profiler breakdowns of one serving forward and one
+            step of each.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -201,6 +210,23 @@ def layer_bwd_bound(b, s, use_b, ffn=3072):
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
     nbytes = (5 * m * DM * 2 + (4 * DM * DM + 2 * DM * ffn) * 2 + (3 * DM + ffn + 6 * DM) * 4
               + 2 * (2 * DM * r * 2 + (r + DM) * 4) + b * s * 4 + b * HEADS * s * 4)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
+
+
+def fused_attention_bound(b, s, backward):
+    """Least time (ms) for one #5 (forward) or #6 (backward) call and what
+    bounds it.  bf16 operands (tensor cores): q.k^T and P.v (4 B H S^2 d), or
+    the five per-head products of the TPU kernel (s, dP, dv, dq, dk: 10 B H
+    S^2 d); beside them on the CUDA cores the fp32 softmax or its recompute
+    (6 or 8 operations per logit); the pipes overlap.  Bytes: q, k, v, o
+    (and dO in, dq, dk, dv out) once each, the bias row and lse."""
+    d = DM // HEADS
+    per_head = b * HEADS * s * s * d
+    bf16_ops = (10 if backward else 4) * per_head
+    fp32_ops = b * HEADS * s * s * (8 if backward else 6)
+    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (8 if backward else 4) * b * HEADS * s * d * 2 + b * s * 4 + b * HEADS * s * 4
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
@@ -493,6 +519,78 @@ def layer_bwd_parity(torch, b, s, use_b, seed):
     return (got[0].float() - want[0].float()).abs().max().item()
 
 
+def fused_inputs(torch, b, s, seed, layout="split"):
+    """q, k, v and a cotangent dO [B, H, S, 64] bf16 on the card at std 1
+    (logits q.k^T/8 at std 1).  ``split``: the [B, H, S, 64] views that
+    MultiHeadAttention's split() makes of [B, S, Dm] projections (strides S Dm,
+    64, Dm, 1), as the main path hands them over; ``contiguous``: [B, H, S, 64]
+    tensors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def heads():
+        if layout == "split":
+            t = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+            return t.view(b, s, HEADS, DM // HEADS).transpose(1, 2)
+        return torch.randn(b, HEADS, s, DM // HEADS, generator=g, device="cuda").bfloat16()
+
+    return heads(), heads(), heads(), heads()
+
+
+# #5 and #6 against their plain versions on the same inputs (#6 on the
+# kernel's own o and lse, as the autograd path hands them over).  o, dq, dk, dv
+# elementwise in bf16 ulps of each element's own magnitude (own_ulps), lse in
+# fp32 as |err| / max |lse|.  Limits set from this phase's readings on the card
+# over seeds 0-2 at all five shapes (PERF.md §6, #5/#6): above the largest sound
+# reading, below the planted faults that the phase also reads (one row off by
+# the rms; lse of one row off by 1e-3).  Sound: o <= 2 own ulps, lse <= 1.6e-7,
+# dq/dk/dv <= 4; planted: >= 128 ulps, lse >= 1.4e-4.
+FUSED_LIMITS = {"o": 8, "lse": 1e-5, "dq": 16, "dk": 16, "dv": 16}
+
+
+def fused_parity(torch, b, s, seed, batch1=False, layout="split"):
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, do = fused_inputs(torch, b, s, seed, layout)
+    bias = padding_bias(torch, 1 if batch1 else b, s, seed)
+    scale = 64 ** -0.5
+    tag = f"parity fused_attention B={b} S={s} bias={'[1,1,1,S]' if batch1 else '[B,1,1,S]'} {layout}"
+    with torch.no_grad():
+        o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
+        again = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
+        o_r, lse_r = fa.fused_attention_fwd_ref(q, k, v, bias, scale)
+        grads = fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale)
+        grads_again = fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale)
+        grads_r = fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale)
+    torch.cuda.synchronize()
+    readings, planted = {}, {}
+    for name, got, want in (("o", o, o_r), *zip(("dq", "dk", "dv"), grads, grads_r)):
+        check(bool(torch.isfinite(got.float()).all()), f"fused_attention {name} has non-finite values")
+        readings[name] = own_ulps(torch, got, want)
+        bad = got.float().clone()
+        bad[0, 0, 0] += want.float().pow(2).mean().sqrt()  # one row off by a typical |value|
+        planted[name] = own_ulps(torch, bad, want)
+    top = lse_r.abs().max().item()
+    readings["lse"] = (lse - lse_r).abs().max().item() / top
+    bad = lse.clone()
+    bad[0, 0, 0] += 1e-3
+    planted["lse"] = (bad - lse_r).abs().max().item() / top
+    print(f"{tag}: " + ", ".join(f"{n} {readings[n]:.3g} (limit {FUSED_LIMITS[n]:g}, planted "
+                                 f"{planted[n]:.3g})" for n in FUSED_LIMITS)
+          + f"; rel norm o {rel_norm(o, o_r):.2e} dq {rel_norm(grads[0], grads_r[0]):.2e} "
+          f"dk {rel_norm(grads[1], grads_r[1]):.2e} dv {rel_norm(grads[2], grads_r[2]):.2e}")
+    for n, lim in FUSED_LIMITS.items():
+        check(readings[n] <= lim < planted[n],
+              f"fused_attention {n} disagrees with the plain version: {readings[n]} (limit {lim}, "
+              f"planted {planted[n]})")
+    stable = torch.equal(o, again[0]) and torch.equal(lse, again[1]) and all(
+        torch.equal(a, c) for a, c in zip(grads, grads_again))
+    print(f"{tag}: second calls bitwise equal: {stable}")
+    check(stable, "fused_attention is not bitwise stable across two calls")
+    fwd_err = max((o.float() - o_r.float()).abs().max().item(), (lse - lse_r).abs().max().item())
+    bwd_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(grads, grads_r))
+    return fwd_err, bwd_err
+
+
 def phase_parity(torch, seed):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
@@ -506,6 +604,11 @@ def phase_parity(torch, seed):
     errs["layer_block_bwd"] = max(layer_bwd_parity(torch, TB, TS, e, seed) for e in (True, False))
     for b, s, e in ((3, 17, True), (3, 21, False), (2, 130, True), (2, 281, False), (1, 450, True)):
         layer_bwd_parity(torch, b, s, e, seed + s)
+    errs["fused_attention"], errs["fused_attention_bwd"] = fused_parity(torch, TB, TS, seed)
+    fused_parity(torch, B, S, seed + 1)  # the serving canvas, keys dropped by the padding mask
+    fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
+    fused_parity(torch, 4, TS + 10, seed + 3, batch1=True, layout="contiguous")
+    fused_parity(torch, 2, 37, seed + 4)
     return errs
 
 
@@ -591,10 +694,12 @@ def phase_serve(torch, seed):
 def counters():
     from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import fused_attention as fa
     from feddat_tpu_torch.ops import layer_block as lb
 
     return {"attn_block": ab.KERNEL, "adapter_fused": af.KERNEL,
-            "attn_block_bwd": ab.KERNEL_BWD, "layer_block_bwd": lb.KERNEL}
+            "attn_block_bwd": ab.KERNEL_BWD, "layer_block_bwd": lb.KERNEL,
+            "fused_attention": fa.KERNEL, "fused_attention_bwd": fa.KERNEL_BWD}
 
 
 def reset_counts():
@@ -604,6 +709,10 @@ def reset_counts():
 
 def read_counts():
     return {name: k.launches for name, k in counters().items()}
+
+
+NO_LAUNCHES = {"attn_block": 0, "adapter_fused": 0, "attn_block_bwd": 0, "layer_block_bwd": 0,
+               "fused_attention": 0, "fused_attention_bwd": 0}
 
 
 TRAIN_CLIENTS = ("c0", "c1")
@@ -676,7 +785,7 @@ TRAIN_GRAD_FACTOR, TRAIN_GRAD_FLOOR = 2.0, 1e-2
 TRAIN_LOSS_TOL = 1e-2
 
 
-def grad_agreement(torch, what, kernel, plain_bf16, exact):
+def grad_agreement(torch, what, kernel, plain_bf16, exact, loss_keys=("loss", "loss_shared")):
     worst_ratio = 0.0
     for stage in exact["grads"]:
         k, kw, kn = set_error(torch, kernel["grads"][stage], exact["grads"][stage])
@@ -686,7 +795,7 @@ def grad_agreement(torch, what, kernel, plain_bf16, exact):
               f"{kw:.3e} {kn}), plain bf16 path {p:.3e} (worst tensor {pw:.3e}); tol {tol:.3e}")
         check(k <= tol, f"{what}: {stage} gradients disagree: {k} > {tol}")
         worst_ratio = max(worst_ratio, k / tol)
-    for key in ("loss", "loss_shared"):
+    for key in loss_keys:
         k, e = float(kernel[key]), float(exact[key])
         print(f"train: {what} {key}: kernel path {k:.6f}, plain bf16 {float(plain_bf16[key]):.6f}, "
               f"plain fp32 {e:.6f}")
@@ -712,8 +821,7 @@ def phase_train(torch, seed):
     torch.cuda.synchronize()
     launches = read_counts()
     print(f"train: fused DAT step, attn_impl='layer', B={TB} S={TS}: launches {launches}")
-    want = {"attn_block": 2 * layers, "layer_block_bwd": 2 * layers, "attn_block_bwd": 0,
-            "adapter_fused": 0}
+    want = {**NO_LAUNCHES, "attn_block": 2 * layers, "layer_block_bwd": 2 * layers}
     check(launches == want, f"fused step launches {launches}, expected {want}")
     losses = [(float(m["loss"]), float(m["loss_shared"]))]
     for _ in range(2):
@@ -742,8 +850,7 @@ def phase_train(torch, seed):
     std_launches = read_counts()
     # layer 0's attention input depends on no trainable parameter, so autograd
     # (like JAX's vjp) never asks for its backward: #3 runs for layers 1..L-1
-    want = {"attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1), "layer_block_bwd": 0,
-            "adapter_fused": 0}
+    want = {**NO_LAUNCHES, "attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1)}
     print(f"train: standard DAT step, attn_impl='block': launches {std_launches}")
     check(std_launches == want, f"standard step launches {std_launches}, expected {want}")
     std_err = grad_agreement(torch, "standard step, block kernels", bm, plain[False], exact[False])
@@ -777,6 +884,222 @@ def phase_train(torch, seed):
     return dict(model=model, plain_model=plain_model, block_model=block_model, params=params,
                 batch=batch, state0=state0, launches=launches, std_launches=std_launches,
                 grad_errs=(fused_err, std_err))
+
+
+# The single-update PEFT baselines through attn_impl="fused" (the grid of
+# scripts/peft_bench.py plus full and freeze_bottom_k): a 100-label head,
+# LoRA r=16, alpha 1 on q/v, 5+5 prompts (S=195), the bottom 2 layers frozen.
+PEFT_MODES = ("lora", "bias", "full", "prompt", "freeze_bottom_k_layers")
+PEFT_LABELS = 100
+FREEZE_K = 2
+
+
+def peft_model(torch, mode, seed, attn_impl, dtype="bfloat16", logits="float32", state=None):
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+
+    model, cfg = create_model(
+        "vilt", {k: TaskHeadSpec(num_labels=PEFT_LABELS) for k in TRAIN_CLIENTS}, PEFTMode(mode), 16,
+        dtype, image_size=TCANVAS, attn_impl=attn_impl, attention_logits_dtype=logits, seed=seed)
+    check(cfg.lora.enabled == (mode == "lora") and cfg.prompt.enabled == (mode == "prompt")
+          and cfg.lora.rank == 16 and cfg.lora.alpha == 1.0, f"unexpected {cfg}")
+    if state is not None:
+        model.load_state_dict(state)
+    elif mode == "lora":
+        # lora_b's JAX init is zeros, which makes lora_a's first gradient exactly
+        # 0: draw it at the projections' std so both factors are checked
+        g = torch.Generator(device="cuda").manual_seed(seed + 7)
+        with torch.no_grad():
+            for name, prm in model.named_parameters():
+                if "lora_b" in name:
+                    prm.copy_(torch.randn(prm.shape, generator=g, device="cuda") * 0.02)
+    return model
+
+
+def peft_client(key, num_train, num_eval, seed):
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+
+    return SyntheticVQAClient(key, num_train=num_train, num_eval=num_eval, num_labels=PEFT_LABELS,
+                              vocab_size=30522, text_len=TEXT_LEN, image_size=TCANVAS,
+                              batch_size=TB, val_batch_size=TB, seed=seed)
+
+
+def peft_step(model, mode, params):
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_forward
+
+    part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode(mode), layers_to_freeze=FREEZE_K)
+    opt = OptimizerConfig()
+    step = dat.make_plain_train_step(make_vilt_forward(model, TRAIN_CLIENTS[0]), part, opt, 100, "none")
+    return step, part, opt
+
+
+def peft_grads(torch, model, params, part, batch):
+    """The plain step's loss and gradients of its trainable set (what its
+    AdamW update consumes), on ``model``'s attention route and dtype."""
+    from feddat_tpu_torch.train.forwards import make_vilt_forward
+
+    leaves = {n: params[n].detach().requires_grad_() for n in sorted(part.shared_paths | part.head_paths)}
+    loss, _ = make_vilt_forward(model, TRAIN_CLIENTS[0])({**params, **leaves}, batch, "none")
+    return {"loss": loss.detach(), "grads": {"trainable": dict(zip(
+        leaves, torch.autograd.grad(loss, list(leaves.values()))))}}
+
+
+def phase_peft(torch, seed):
+    """Each PEFT mode's plain train step at full width through attn_impl="fused":
+    #5/#6 launches of one step, gradients held to the 2x-bf16 rule; then one
+    FederatedTrainer round of LoRA and its evaluation."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import to_device
+
+    batch = to_device(next(peft_client(TRAIN_CLIENTS[0], TB, 0, seed).train_batches(0)), "cuda")
+    out = {"grad_ratio": {}}
+    for mode in PEFT_MODES:
+        model = peft_model(torch, mode, seed, "fused")
+        layers = model.config.num_layers
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        step, part, opt = peft_step(model, mode, params)
+        state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+        seq = TS + (2 * model.config.prompt.length if mode == "prompt" else 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        _, m = step(state0, batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        trained = layers - FREEZE_K if mode == "freeze_bottom_k_layers" else layers
+        want = {**NO_LAUNCHES, "fused_attention": layers, "fused_attention_bwd": trained}
+        print(f"peft: {mode} step, attn_impl='fused', B={TB} S={seq}: #5/#6 launches "
+              f"{launches['fused_attention']}/{launches['fused_attention_bwd']} (expected "
+              f"{layers}/{trained}), loss {float(m['loss']):.4f}")
+        check(launches == want, f"{mode} step launches {launches}, expected {want}")
+        check(math.isfinite(float(m["loss"])), f"{mode}: non-finite loss")
+
+        sd = model.state_dict()
+        kernel = peft_grads(torch, model, params, part, batch)
+        before = read_counts()
+        plain = peft_grads(torch, peft_model(torch, mode, seed, "auto", state=sd), params, part, batch)
+        exact = peft_grads(torch, peft_model(torch, mode, seed, "auto", "float32", state=sd), params,
+                           part, batch)
+        torch.cuda.synchronize()
+        check(read_counts() == before, "the plain path launched a kernel")
+        out["grad_ratio"][mode] = grad_agreement(torch, f"peft {mode}", kernel, plain, exact,
+                                                 ("loss",))
+        del kernel, plain, exact
+        if mode == "lora":
+            out.update(model=model, params=params, state0=state0, batch=batch, launches=launches)
+        else:
+            del model, params, state0, sd
+        torch.cuda.empty_cache()
+
+    model, params = out["model"], out["params"]
+    layers = model.config.num_layers
+    clients = {k: peft_client(k, 2 * TB, TB, seed + 1 + i) for i, k in enumerate(TRAIN_CLIENTS)}
+    cfg = TrainConfig(peft_mode=PEFTMode.LORA, optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed, layers_to_freeze=FREEZE_K)
+    trainer = FederatedTrainer(model, params, clients, cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    round_launches = read_counts()
+    reset_counts()
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    eval_launches = read_counts()
+    steps = 2 * len(clients)
+    print(f"peft: FederatedTrainer LoRA round of {len(clients)} clients x 2 steps in {round_s:.2f} s, "
+          f"#5/#6 launches {round_launches['fused_attention']}/{round_launches['fused_attention_bwd']}; "
+          f"evaluate {entry['scores']}, #5/#6 launches {eval_launches['fused_attention']}/"
+          f"{eval_launches['fused_attention_bwd']}")
+    check(round_launches == {**NO_LAUNCHES, "fused_attention": steps * layers,
+                             "fused_attention_bwd": steps * layers}, f"round launches {round_launches}")
+    check(eval_launches == {**NO_LAUNCHES, "fused_attention": len(clients) * layers},
+          f"evaluate launches {eval_launches}")
+    for key, score in entry["scores"].items():
+        check(math.isfinite(score) and 0.0 <= score <= 100.0, f"bad evaluate score for {key}: {score}")
+    moved = [k for k, v in trainer.server_params.items() if "lora_" in k and not torch.equal(v, params[k])]
+    others = [k for k, v in trainer.server_params.items()
+              if "lora_" not in k and "task_" not in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * layers and not others
+          and all(bool(torch.isfinite(trainer.server_params[k]).all()) for k in moved),
+          f"FedAvg moved {len(moved)} LoRA tensors (expected {4 * layers}) and {len(others)} others")
+    out["round_s"] = round_s
+    return out
+
+
+def time_fused_kernels(torch, seed):
+    """#5 and #6 at the training shape (B=64, S=185): kernel, plain version,
+    SDPA forward / autograd.grad through SDPA (yardsticks the port never
+    calls) and the bound."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, do = fused_inputs(torch, TB, TS, seed)
+    bias = padding_bias(torch, TB, TS, seed)
+    scale = 64 ** -0.5
+    rows = []
+    with torch.no_grad():
+        o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
+        k_ms = cuda_ms(torch, lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale), 50)
+        p_ms = cuda_ms(torch, lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale), 5, warmup=1)
+        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16()),
+                       50)
+    rows.append(("fused_attention", k_ms, p_ms, l_ms, *fused_attention_bound(TB, TS, False)))
+    with torch.no_grad():
+        k_ms = cuda_ms(torch, lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale), 50)
+        p_ms = cuda_ms(torch, lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale), 5,
+                       warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias.bfloat16())
+    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 50)
+    rows.append(("fused_attention_bwd", k_ms, p_ms, l_ms, *fused_attention_bound(TB, TS, True)))
+    for name, k_ms, p_ms, l_ms, bound, bound_by, ops in rows:
+        print(f"time {name} B={TB} S={TS}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s bf16), "
+              f"bound {bound:.4f} ms by {bound_by} ({100 * bound / k_ms:.1f}% of bound), "
+              f"plain {p_ms:.4f} ms, library (SDPA{' autograd.grad' if 'bwd' in name else ''}) "
+              f"{l_ms:.4f} ms")
+    return rows
+
+
+def time_peft(torch, pf, seed):
+    """LoRA train samples/s: kernel path (attn_impl='fused') against the port's
+    plain path (attn_impl='auto' with bf16 logits, the CLI default under
+    --dtype bfloat16) in alternating samples of 2 steps; a profile of one step."""
+    step, _, _ = peft_step(pf["model"], "lora", pf["params"])
+    plain_model = peft_model(torch, "lora", seed, "auto", logits="bfloat16", state=pf["model"].state_dict())
+    plain_step, _, _ = peft_step(plain_model, "lora", pf["params"])
+    batch, state0 = pf["batch"], pf["state0"]
+
+    def sample(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn(state0, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 2
+
+    for fn in (step, plain_step):
+        sample(fn)
+    k_s, p_s = [], []
+    for i in range(6):
+        for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
+            (k_s if path is step else p_s).append(sample(path))
+    k_med, p_med = statistics.median(k_s), statistics.median(p_s)
+    wins = sum(a < b for a, b in zip(k_s, p_s))
+    print(f"time peft: LoRA step B={TB} S={TS}, 6 alternating pairs of 2 steps: medians "
+          f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
+          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
+          f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
+    profile_device(torch, lambda: step(state0, batch), f"LoRA step (fused, B={TB})", {
+        "#5 attn_kernel": ("attn_kernel",), "#6 attn_bwd": ("attn_bwd_",)})
+    return TB / k_med, TB / p_med
 
 
 def time_backward_kernels(torch, seed):
@@ -1015,18 +1338,24 @@ def main(argv=None) -> int:
     errs = phase_parity(torch, args.seed)
     pred, plain, serve_launches, requests = phase_serve(torch, args.seed)
     tr = phase_train(torch, args.seed)
+    pf = phase_peft(torch, args.seed)
     times = phase_time(torch, pred, plain, requests, args.seed)
     del pred, plain
     times.update({name: row for name, *row in time_backward_kernels(torch, args.seed)})
     time_train(torch, tr)
+    times.update({name: row for name, *row in time_fused_kernels(torch, args.seed)})
+    time_peft(torch, pf, args.seed)
 
-    # each kernel's launches on the path it serves: the fused train step (this
-    # slice's main path) for #1 and #4, the standard 'block' step for #3, and
-    # the serving path for #2
+    # each kernel's launches on the path it serves: the fused DAT train step
+    # for #1 and #4, the standard 'block' step for #3, the serving path for #2,
+    # and the LoRA step through attn_impl='fused' (this slice's main path) for
+    # #5 and #6
     launches = {"attn_block": tr["launches"]["attn_block"],
                 "adapter_fused": serve_launches["adapter_fused"],
                 "attn_block_bwd": tr["std_launches"]["attn_block_bwd"],
-                "layer_block_bwd": tr["launches"]["layer_block_bwd"]}
+                "layer_block_bwd": tr["launches"]["layer_block_bwd"],
+                "fused_attention": pf["launches"]["fused_attention"],
+                "fused_attention_bwd": pf["launches"]["fused_attention_bwd"]}
     sources = {
         "attn_block": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:90"),
         "adapter_fused": ("feddat_tpu_torch/csrc/adapter_fused.cu",
@@ -1034,6 +1363,10 @@ def main(argv=None) -> int:
         "attn_block_bwd": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:139"),
         "layer_block_bwd": ("feddat_tpu_torch/csrc/layer_block.cu",
                             "feddat_tpu/ops/layer_block.py:126"),
+        "fused_attention": ("feddat_tpu_torch/csrc/fused_attention.cu",
+                            "feddat_tpu/ops/fused_attention.py:37"),
+        "fused_attention_bwd": ("feddat_tpu_torch/csrc/fused_attention.cu",
+                                "feddat_tpu/ops/fused_attention.py:60"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

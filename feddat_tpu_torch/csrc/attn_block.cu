@@ -25,7 +25,8 @@
 //       LayerNorm applied in the prologue while the A tile is staged into
 //       shared memory (row statistics computed once per 128-row tile),
 //       bias-add and bf16 cast in the epilogue;
-//   (b) attn_kernel: one block per (query tile of 64, head, batch element);
+//   (b) attn_fwd.cuh::attn_kernel (shared with kernel #5): one block per
+//       (query tile of 64, head, batch element) over the projection scratch;
 //       the fp32 logits of its 64 rows over the whole key range stay in
 //       shared memory, so the softmax is the TPU's exact two-pass form (no
 //       online rescaling); padded keys are simply never summed;
@@ -40,189 +41,14 @@
 // takes dxln back through LN1.  Its bound and design are in attn_bwd.cuh.
 
 #include "attn_bwd.cuh"
-
-namespace {
-
-using namespace port;
-
-// --------------------------------------------------------------------- (b)
-constexpr int ATT_BQ = 64;       // query rows per block (16 per warp)
-constexpr int ATT_BK = 64;       // keys per staged K/V tile
-constexpr int ATT_D = 64;        // head dim
-constexpr int ATT_THREADS = 128;
-constexpr int ATT_LD = ATT_D + 8;  // padded smem row (bf16)
-
-struct AttnArgs {
-  const bf16* q;      // [B*S, Dm]; head h in columns [h*64, h*64+64)
-  const bf16* k;
-  const bf16* v;
-  const float* bias;  // [B, S] additive key bias, or null
-  bf16* ctx;          // [B*S, Dm]
-  float* lse;         // [B, H, S]
-  int S, Dm, H, sp;   // sp = S rounded up to ATT_BK
-  float scale;
-};
-
-size_t attn_smem_bytes(int sp) {
-  return sizeof(float) * ((size_t)ATT_BQ * (sp + 8) + sp + 2 * ATT_BQ) +
-         sizeof(bf16) * 2 * ATT_BQ * ATT_LD;
-}
-
-__global__ void __launch_bounds__(ATT_THREADS) attn_kernel(AttnArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lld = p.sp + 8;  // logits row stride (fp32)
-  float* L = reinterpret_cast<float*>(smem);  // [ATT_BQ][lld]
-  float* brow = L + ATT_BQ * lld;             // [sp]
-  float* m_s = brow + p.sp;                   // [ATT_BQ]
-  float* l_s = m_s + ATT_BQ;                  // [ATT_BQ]
-  bf16* Qs = reinterpret_cast<bf16*>(l_s + ATT_BQ);  // [ATT_BQ][ATT_LD]
-  bf16* KVs = Qs + ATT_BQ * ATT_LD;  // K tile [key][d], then V tile transposed [d][key]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t row0 = (size_t)b * p.S;  // first token row of this batch element
-  const int col0 = h * ATT_D;
-  const int qr = warp * 16;             // this warp's rows within the tile
-
-  for (int j = tid; j < p.sp; j += ATT_THREADS)
-    brow[j] = (j < p.S && p.bias != nullptr) ? p.bias[row0 + j] : 0.f;
-  for (int i = tid; i < ATT_BQ * (ATT_D / 8); i += ATT_THREADS) {
-    const int r = i / (ATT_D / 8), c = (i % (ATT_D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.S) v = *reinterpret_cast<const uint4*>(p.q + (row0 + q0 + r) * p.Dm + col0 + c);
-    *reinterpret_cast<uint4*>(Qs + r * ATT_LD + c) = v;
-  }
-  __syncthreads();
-
-  uint32_t qa[ATT_D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < ATT_D / 16; ++ks) {
-    const bf16* pq = Qs + (qr + g) * ATT_LD + ks * 16 + tig * 2;
-    qa[ks][0] = lds32(pq);
-    qa[ks][1] = lds32(pq + 8 * ATT_LD);
-    qa[ks][2] = lds32(pq + 8);
-    qa[ks][3] = lds32(pq + 8 * ATT_LD + 8);
-  }
-
-  // phase 1: scaled, biased fp32 logits of the warp's 16 rows x all keys
-  for (int kt = 0; kt < p.sp; kt += ATT_BK) {
-    __syncthreads();
-    for (int i = tid; i < ATT_BK * (ATT_D / 8); i += ATT_THREADS) {
-      const int r = i / (ATT_D / 8), c = (i % (ATT_D / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kt + r < p.S) v = *reinterpret_cast<const uint4*>(p.k + (row0 + kt + r) * p.Dm + col0 + c);
-      *reinterpret_cast<uint4*>(KVs + r * ATT_LD + c) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < ATT_BK / 8; ++nt) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < ATT_D / 16; ++ks) {
-        const bf16* pk = KVs + (nt * 8 + g) * ATT_LD + ks * 16 + tig * 2;
-        uint32_t kb[2] = {lds32(pk), lds32(pk + 8)};
-        mma_16816(c, qa[ks], kb);
-      }
-      const int key = kt + nt * 8 + tig * 2;
-      const bool v0 = key < p.S, v1 = key + 1 < p.S;
-      const float b0 = brow[key], b1 = brow[key + 1];
-      float2 top, bot;
-      top.x = v0 ? __fadd_rn(__fmul_rn(c[0], p.scale), b0) : -INFINITY;
-      top.y = v1 ? __fadd_rn(__fmul_rn(c[1], p.scale), b1) : -INFINITY;
-      bot.x = v0 ? __fadd_rn(__fmul_rn(c[2], p.scale), b0) : -INFINITY;
-      bot.y = v1 ? __fadd_rn(__fmul_rn(c[3], p.scale), b1) : -INFINITY;
-      *reinterpret_cast<float2*>(L + (qr + g) * lld + key) = top;
-      *reinterpret_cast<float2*>(L + (qr + g + 8) * lld + key) = bot;
-    }
-  }
-  __syncwarp();
-
-  // phase 2: row max, p = exp(s - max) in place, l = sum(p) (fp32)
-  for (int r = 0; r < 16; ++r) {
-    float* lr = L + (qr + r) * lld;
-    float m = -INFINITY;
-    for (int j = lane; j < p.S; j += 32) m = fmaxf(m, lr[j]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < p.sp; j += 32) {
-      const float e = j < p.S ? expf(lr[j] - m) : 0.f;
-      lr[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    if (lane == 0) {
-      m_s[qr + r] = m;
-      l_s[qr + r] = l;
-    }
-  }
-  __syncwarp();
-
-  // phase 3: ctx = bf16(p) . v, fp32 accumulators for 16 rows x 64 dims
-  float acc[ATT_D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < ATT_D / 8; ++nt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[nt][t] = 0.f;
-
-  for (int kt = 0; kt < p.sp; kt += ATT_BK) {
-    __syncthreads();
-    for (int i = tid; i < ATT_BK * (ATT_D / 8); i += ATT_THREADS) {
-      const int r = i % ATT_BK, c = (i / ATT_BK) * 8;  // r: key, c: first dim
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kt + r < p.S) v = *reinterpret_cast<const uint4*>(p.v + (row0 + kt + r) * p.Dm + col0 + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) KVs[(c + t) * ATT_LD + r] = e[t];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < ATT_BK / 16; ++ks) {
-      const float* p0 = L + (qr + g) * lld + kt + ks * 16 + tig * 2;
-      const float* p1 = p0 + 8 * lld;
-      const float2 x00 = *reinterpret_cast<const float2*>(p0);
-      const float2 x10 = *reinterpret_cast<const float2*>(p1);
-      const float2 x01 = *reinterpret_cast<const float2*>(p0 + 8);
-      const float2 x11 = *reinterpret_cast<const float2*>(p1 + 8);
-      uint32_t pa[4] = {pack_bf16(x00.x, x00.y), pack_bf16(x10.x, x10.y),
-                        pack_bf16(x01.x, x01.y), pack_bf16(x11.x, x11.y)};
-#pragma unroll
-      for (int nt = 0; nt < ATT_D / 8; ++nt) {
-        const bf16* pv = KVs + (nt * 8 + g) * ATT_LD + ks * 16 + tig * 2;
-        uint32_t vb[2] = {lds32(pv), lds32(pv + 8)};
-        mma_16816(acc[nt], pa, vb);
-      }
-    }
-  }
-
-  const int r_top = q0 + qr + g, r_bot = r_top + 8;
-  const float l_top = l_s[qr + g], l_bot = l_s[qr + g + 8];
-#pragma unroll
-  for (int nt = 0; nt < ATT_D / 8; ++nt) {
-    const int col = col0 + nt * 8 + tig * 2;
-    if (r_top < p.S)
-      *reinterpret_cast<uint32_t*>(p.ctx + (row0 + r_top) * p.Dm + col) =
-          pack_bf16(acc[nt][0] / l_top, acc[nt][1] / l_top);
-    if (r_bot < p.S)
-      *reinterpret_cast<uint32_t*>(p.ctx + (row0 + r_bot) * p.Dm + col) =
-          pack_bf16(acc[nt][2] / l_bot, acc[nt][3] / l_bot);
-  }
-  if (lane < 16 && q0 + qr + lane < p.S)
-    p.lse[((size_t)b * p.H + h) * p.S + q0 + qr + lane] = m_s[qr + lane] + logf(l_s[qr + lane]);
-}
-
-}  // namespace
+#include "attn_fwd.cuh"
 
 using namespace port;
 
 extern "C" {
 
 // Largest S the attention kernel's shared memory holds (the wrapper checks).
-int attn_block_max_seq(void) {
-  int sp = 0;
-  while (attn_smem_bytes(sp + ATT_BK) <= 227 * 1024) sp += ATT_BK;
-  return sp;
-}
+int attn_block_max_seq(void) { return attn_fwd_max_seq(); }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -262,26 +88,18 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
   a.K = Dm;
   int e = launch_gemm<B_NT, EPI_BIAS_BF16>(a, st);
   if (e) return e;
-  cudaError_t err;
-
-  AttnArgs t{};
-  t.q = qkv_b;
-  t.k = qkv_b + plane;
-  t.v = qkv_b + 2 * plane;
+  const long long sb = (long long)S * Dm;  // [3, B*S, Dm] planes, head h at column h*64
+  AttnFwdArgs t{};
+  t.q = {qkv_b, sb, ATT_D, Dm};
+  t.k = {qkv_b + plane, sb, ATT_D, Dm};
+  t.v = {qkv_b + 2 * plane, sb, ATT_D, Dm};
   t.bias = static_cast<const float*>(bias);
-  t.ctx = static_cast<bf16*>(ctx);
+  t.o = {static_cast<bf16*>(ctx), sb, ATT_D, Dm};
   t.lse = static_cast<float*>(lse);
   t.S = S;
-  t.Dm = Dm;
   t.H = H;
-  t.sp = (S + ATT_BK - 1) / ATT_BK * ATT_BK;
   t.scale = scale;
-  const size_t smem = attn_smem_bytes(t.sp);
-  err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_kernel<<<dim3(t.sp / ATT_BQ, H, B), ATT_THREADS, smem, st>>>(t);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((e = launch_attn_fwd(t, B, st))) return e;
 
   GemmArgs o{};
   o.a[0] = static_cast<const bf16*>(ctx);

@@ -3,6 +3,8 @@
 // The attention half of two TPU kernels, written once:
 //   feddat_tpu/ops/attn_block.py::_bwd_kernel       (kernel #3, lines 139-240)
 //   feddat_tpu/ops/layer_block.py::_layer_bwd_kernel (kernel #4, lines 240-302)
+// and the whole of a third, the per-head part alone (launch_attn_bwd):
+//   feddat_tpu/ops/fused_attention.py::_bwd_kernel  (kernel #6, lines 60-85)
 // Same function, same rounding points (attn_block.py:145-205):
 //
 //   xln   = LayerNorm1(x)                 (optional, in the GEMM prologue)
@@ -35,7 +37,9 @@
 //                         dV += bf16(P)^T.dO and dK += dS^T.Q.
 // P and dS never leave registers: the mma C fragment of one product is the A
 // fragment of the next.  Padded query rows and keys are never summed, which is
-// the TPU's exp(-1e9) = 0 and zero-padded cotangent.  The projection products
+// the TPU's exp(-1e9) = 0 and zero-padded cotangent.  Operands and outputs
+// are Heads views (common.cuh): #3/#4 address their [3, M, Dm] scratch planes,
+// #6 the caller's [B, H, S, 64] tensors in place.  The projection products
 // run through port::gemm_kernel (the slice-1 GEMM, with an NN layout added).
 #pragma once
 
@@ -49,28 +53,25 @@ constexpr int AB_THREADS = 128;  // 4 warps x 16 rows
 constexpr int AB_LD = AB_D + 8;  // padded smem row (bf16)
 
 struct AttnBwdArgs {
-  const bf16* q;       // [B*S, Dm] each; head h in columns [h*64, h*64+64)
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;    // dctx [B*S, Dm]
-  const bf16* ctx;     // [B*S, Dm]
+  Heads<const bf16> q, k, v;
+  Heads<const bf16> dout;  // cotangent of the attention output (dctx)
+  Heads<const bf16> ctx;   // the forward's attention output
   const float* lse;    // [B, H, S]
   const float* bias;   // [B, S] additive key bias, or null
   float* delta;        // [B, H, S] written by the dq launch, read by the dkdv launch
-  bf16* dq;            // [B*S, Dm] each
-  bf16* dk;
-  bf16* dv;
-  int S, Dm, H;
+  Heads<bf16> dq, dk, dv;
+  int S, H;
   float scale;
 };
 
-// stage rows [r0, r0+64) of one head's 64 columns: natural [row][d] and/or transposed [d][row]
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, size_t row0, int r0, int S, int Dm,
-                                           int col0, bf16* nat, bf16* tr) {
+// stage rows [r0, r0+64) of one (batch, head)'s [S, 64] operand `src` (row
+// stride ss): natural [row][d] and/or transposed [d][row]
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, long long ss, int r0, int S,
+                                           bf16* nat, bf16* tr) {
   for (int i = threadIdx.x; i < AB_T * (AB_D / 8); i += AB_THREADS) {
     const int r = i / (AB_D / 8), c = (i % (AB_D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (row0 + r0 + r) * Dm + col0 + c);
+    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + c);
     if (nat != nullptr) *reinterpret_cast<uint4*>(nat + r * AB_LD + c) = v;
     if (tr != nullptr) {
       const bf16* e = reinterpret_cast<const bf16*>(&v);
@@ -138,19 +139,24 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dq_kernel(AttnBwdArgs p) 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * AB_T, h = blockIdx.y, b = blockIdx.z;
-  const size_t row0 = (size_t)b * p.S;
-  const int col0 = h * AB_D, wr = warp * 16;
+  const size_t row0 = (size_t)b * p.S;  // this batch element's bias row
+  const int wr = warp * 16;
   const size_t lse0 = ((size_t)b * p.H + h) * p.S;
+  const bf16* qb = p.q.at(b, h);
+  const bf16* kb = p.k.at(b, h);
+  const bf16* vb = p.v.at(b, h);
+  const bf16* dob = p.dout.at(b, h);
+  const bf16* ob = p.ctx.at(b, h);
 
-  stage_tile(p.q, row0, q0, p.S, p.Dm, col0, Qs, nullptr);
-  stage_tile(p.dout, row0, q0, p.S, p.Dm, col0, Os, nullptr);
+  stage_tile(qb, p.q.ss, q0, p.S, Qs, nullptr);
+  stage_tile(dob, p.dout.ss, q0, p.S, Os, nullptr);
   // delta = rowsum(dO * ctx) in fp32 for this warp's 16 rows
   for (int r = 0; r < 16; ++r) {
     const int q = q0 + wr + r;
     float s = 0.f;
     if (q < p.S) {
-      const bf16* dr = p.dout + (row0 + q) * p.Dm + col0;
-      const bf16* cr = p.ctx + (row0 + q) * p.Dm + col0;
+      const bf16* dr = dob + q * p.dout.ss;
+      const bf16* cr = ob + q * p.ctx.ss;
       for (int d = lane; d < AB_D; d += 32) s += __bfloat162float(dr[d]) * __bfloat162float(cr[d]);
     }
     s = warp_sum(s);
@@ -174,8 +180,8 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dq_kernel(AttnBwdArgs p) 
 
   for (int kt = 0; kt < p.S; kt += AB_T) {
     __syncthreads();
-    stage_tile(p.k, row0, kt, p.S, p.Dm, col0, Ks, Kt);
-    stage_tile(p.v, row0, kt, p.S, p.Dm, col0, Vs, nullptr);
+    stage_tile(kb, p.k.ss, kt, p.S, Ks, Kt);
+    stage_tile(vb, p.v.ss, kt, p.S, Vs, nullptr);
     for (int j = tid; j < AB_T; j += AB_THREADS)
       brow[j] = (kt + j < p.S && p.bias != nullptr) ? p.bias[row0 + kt + j] : 0.f;
     __syncthreads();
@@ -197,14 +203,15 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dq_kernel(AttnBwdArgs p) 
     frag_times_tile(s, Kt, g, tig, acc);
   }
 
+  bf16* dqb = p.dq.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < AB_D / 8; ++nt) {
-    const int col = col0 + nt * 8 + tig * 2;
+    const int col = nt * 8 + tig * 2;
     if (r_top < p.S)
-      *reinterpret_cast<uint32_t*>(p.dq + (row0 + r_top) * p.Dm + col) =
+      *reinterpret_cast<uint32_t*>(dqb + r_top * p.dq.ss + col) =
           pack_bf16(acc[nt][0] * p.scale, acc[nt][1] * p.scale);
     if (r_bot < p.S)
-      *reinterpret_cast<uint32_t*>(p.dq + (row0 + r_bot) * p.Dm + col) =
+      *reinterpret_cast<uint32_t*>(dqb + r_bot * p.dq.ss + col) =
           pack_bf16(acc[nt][2] * p.scale, acc[nt][3] * p.scale);
   }
 }
@@ -221,12 +228,14 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dkdv_kernel(AttnBwdArgs p
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int k0 = blockIdx.x * AB_T, h = blockIdx.y, b = blockIdx.z;
-  const size_t row0 = (size_t)b * p.S;
-  const int col0 = h * AB_D, wr = warp * 16;
+  const size_t row0 = (size_t)b * p.S;  // this batch element's bias row
+  const int wr = warp * 16;
   const size_t lse0 = ((size_t)b * p.H + h) * p.S;
+  const bf16* qb = p.q.at(b, h);
+  const bf16* dob = p.dout.at(b, h);
 
-  stage_tile(p.k, row0, k0, p.S, p.Dm, col0, Qs, nullptr);
-  stage_tile(p.v, row0, k0, p.S, p.Dm, col0, Qt, nullptr);
+  stage_tile(p.k.at(b, h), p.k.ss, k0, p.S, Qs, nullptr);
+  stage_tile(p.v.at(b, h), p.v.ss, k0, p.S, Qt, nullptr);
   for (int j = tid; j < AB_T; j += AB_THREADS)
     brow[j] = (k0 + j < p.S && p.bias != nullptr) ? p.bias[row0 + k0 + j] : 0.f;
   __syncthreads();
@@ -245,8 +254,8 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dkdv_kernel(AttnBwdArgs p
 
   for (int qt = 0; qt < p.S; qt += AB_T) {
     __syncthreads();
-    stage_tile(p.q, row0, qt, p.S, p.Dm, col0, Qs, Qt);
-    stage_tile(p.dout, row0, qt, p.S, p.Dm, col0, Os, Ot);
+    stage_tile(qb, p.q.ss, qt, p.S, Qs, Qt);
+    stage_tile(dob, p.dout.ss, qt, p.S, Os, Ot);
     for (int j = tid; j < AB_T; j += AB_THREADS) {
       const bool ok = qt + j < p.S;
       lse_s[j] = ok ? p.lse[lse0 + qt + j] : 0.f;
@@ -273,20 +282,33 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dkdv_kernel(AttnBwdArgs p
     frag_times_tile(dpt, Qt, g, tig, dk);
   }
 
+  bf16* dvb = p.dv.at(b, h);
+  bf16* dkb = p.dk.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < AB_D / 8; ++nt) {
-    const int col = col0 + nt * 8 + tig * 2;
+    const int col = nt * 8 + tig * 2;
     if (key_top < p.S) {
-      *reinterpret_cast<uint32_t*>(p.dv + (row0 + key_top) * p.Dm + col) = pack_bf16(dv[nt][0], dv[nt][1]);
-      *reinterpret_cast<uint32_t*>(p.dk + (row0 + key_top) * p.Dm + col) =
+      *reinterpret_cast<uint32_t*>(dvb + key_top * p.dv.ss + col) = pack_bf16(dv[nt][0], dv[nt][1]);
+      *reinterpret_cast<uint32_t*>(dkb + key_top * p.dk.ss + col) =
           pack_bf16(dk[nt][0] * p.scale, dk[nt][1] * p.scale);
     }
     if (key_bot < p.S) {
-      *reinterpret_cast<uint32_t*>(p.dv + (row0 + key_bot) * p.Dm + col) = pack_bf16(dv[nt][2], dv[nt][3]);
-      *reinterpret_cast<uint32_t*>(p.dk + (row0 + key_bot) * p.Dm + col) =
+      *reinterpret_cast<uint32_t*>(dvb + key_bot * p.dv.ss + col) = pack_bf16(dv[nt][2], dv[nt][3]);
+      *reinterpret_cast<uint32_t*>(dkb + key_bot * p.dk.ss + col) =
           pack_bf16(dk[nt][2] * p.scale, dk[nt][3] * p.scale);
     }
   }
+}
+
+// The two per-head launches on `st` (dq with delta, then dk/dv): the whole of
+// kernel #6 and the attention core of #3 and #4.  Returns the CUDA error.
+inline int launch_attn_bwd(const AttnBwdArgs& t, int B, cudaStream_t st) {
+  const dim3 grid((t.S + AB_T - 1) / AB_T, t.H, B);
+  attn_bwd_dq_kernel<<<grid, AB_THREADS, 0, st>>>(t);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  attn_bwd_dkdv_kernel<<<grid, AB_THREADS, 0, st>>>(t);
+  return (int)cudaGetLastError();
 }
 
 // Everything of the attention backward up to dxln (fp32 [M, Dm]), on `st`.
@@ -348,27 +370,23 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_b
   r.c_seg = a.Dm;
   if ((err = launch_gemm<B_NT, EPI_BIAS_BF16>(r, st))) return err;
 
+  const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*64
   AttnBwdArgs t{};
-  t.q = a.qkv;
-  t.k = a.qkv + plane;
-  t.v = a.qkv + 2 * plane;
-  t.dout = a.dctx;
-  t.ctx = a.ctx;
+  t.q = {a.qkv, sb, AB_D, a.Dm};
+  t.k = {a.qkv + plane, sb, AB_D, a.Dm};
+  t.v = {a.qkv + 2 * plane, sb, AB_D, a.Dm};
+  t.dout = {a.dctx, sb, AB_D, a.Dm};
+  t.ctx = {a.ctx, sb, AB_D, a.Dm};
   t.lse = a.lse;
   t.bias = a.bias;
   t.delta = a.delta;
-  t.dq = a.dqkv;
-  t.dk = a.dqkv + plane;
-  t.dv = a.dqkv + 2 * plane;
+  t.dq = {a.dqkv, sb, AB_D, a.Dm};
+  t.dk = {a.dqkv + plane, sb, AB_D, a.Dm};
+  t.dv = {a.dqkv + 2 * plane, sb, AB_D, a.Dm};
   t.S = a.S;
-  t.Dm = a.Dm;
   t.H = a.H;
   t.scale = a.scale;
-  const dim3 grid((a.S + AB_T - 1) / AB_T, a.H, a.B);
-  attn_bwd_dq_kernel<<<grid, AB_THREADS, 0, st>>>(t);
-  if ((err = (int)cudaGetLastError())) return err;
-  attn_bwd_dkdv_kernel<<<grid, AB_THREADS, 0, st>>>(t);
-  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_attn_bwd(t, a.B, st))) return err;
 
   GemmArgs d{};  // dxln = dq.Wq + dk.Wk + dv.Wv  (one product, K = 3 Dm)
   for (int i = 0; i < 3; ++i) d.a[i] = a.dqkv + i * plane;

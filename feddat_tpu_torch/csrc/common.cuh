@@ -1,6 +1,7 @@
 // Building blocks shared by the port's kernels (sm_90a): mma.sync helpers,
-// warp reductions, the TPU layer kernel's polynomial erf/GELU, and one tiled
-// bf16 GEMM with a choice of operand layout and epilogue.
+// warp reductions, the TPU layer kernel's polynomial erf/GELU, the strided
+// per-head operand view of the attention kernels, and one tiled bf16 GEMM
+// with a choice of operand layout and epilogue.
 //
 // The GEMM (C[M, N] = A[M, K] . B, fp32 accumulation) is the workhorse of the
 // attention-block kernels (#1, #3) and the whole-layer backward (#4):
@@ -59,6 +60,19 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// One [B, H, S, 64] bf16 operand of the attention kernels, addressed by element
+// strides with the head dim contiguous: a [B*S, Dm] projection plane is
+// {p, S*Dm, 64, Dm} (also what split() makes of a [B, S, Dm] tensor), a
+// contiguous [B, H, S, 64] tensor {p, H*S*64, S*64, 64}.  The wrappers check
+// that every stride is a multiple of 8 elements and p is 16-byte aligned, so
+// each row's 8-element chunks load as uint4.
+template <typename T>
+struct Heads {
+  T* p;
+  long long sb, sh, ss;
+  __device__ __forceinline__ T* at(int b, int h) const { return p + b * sb + h * sh; }
+};
 
 // erf as the TPU layer kernel computes it (feddat_tpu/ops/layer_block.py:92-113):
 // the Eigen/XLA rational polynomial on x clamped to [-4, 4] (max abs error

@@ -114,7 +114,7 @@ class FederatedTrainer:
         self.clients: List[ClientRuntime] = []
         for task_key, data in clients.items():
             forward = make_forward(model, task_key)
-            part = Partitioner(params, task_key, self.mode)
+            part = Partitioner(params, task_key, self.mode, layers_to_freeze=config.layers_to_freeze)
             n_epochs = (num_epochs_overrides or {}).get(task_key, config.num_epochs)
             max_steps = data.steps_per_epoch * n_epochs
             opt_cfg = (optimizer_overrides or {}).get(task_key, config.optimizer)

@@ -6,12 +6,15 @@ parameter paths (``attention.query.dense``, ``norm_before``, ``mlp.output``,
 parameter tree mechanically.  Parameters live in fp32, as flax keeps them;
 each module computes in its ``dtype`` the way flax's ``dtype=`` does.
 
-``attn_impl``: ``"auto"`` runs the composable path (``ops/attention.py``);
+``attn_impl``: ``"auto"`` and ``"xla"`` run the composable path
+(``ops/attention.py``); ``"fused"`` runs it with the attention core through the
+whole-sequence kernels (``ops/fused_attention.py``) where JAX's gate admits
+the site, so the projections, LoRA and LayerNorms stay trainable;
 ``"block"`` routes eligible self-attention sites through the attention-block
 kernels (``ops/attn_block.py``), with ``norm_before`` fused into them when
 ``fuse_ln`` is set; ``"layer"`` routes an eligible whole layer through
 ``ops/layer_block.py`` (one backward kernel per layer) and the other layers
-the ``"block"`` way.  The other JAX routes belong to later slices and raise.
+the ``"block"`` way.  ``"flash"`` belongs to a later slice and raises.
 """
 
 from __future__ import annotations
@@ -24,14 +27,11 @@ from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
-from feddat_tpu_torch.ops.attention import xla_attention
+from feddat_tpu_torch.ops.attention import dot_product_attention
 
-ATTN_IMPLS = ("auto", "block", "layer")
+ATTN_IMPLS = ("auto", "xla", "block", "layer", "fused")
 # attn_impl values of the JAX package that later slices port (ROADMAP Queue 2).
-_LATER_IMPLS = {
-    "fused": "kernels #5 and #6, ops/fused_attention.py::_fwd_kernel/_bwd_kernel",
-    "flash": "kernels #7 to #9, ops/flash.py",
-}
+_LATER_IMPLS = {"flash": "kernels #7 to #9, ops/flash.py"}
 # Longest S at which norm_before is fused into the kernel (layers.py:494).
 LN_FUSED_MAX_S = 448
 # Longest S the whole-layer route takes (layers.py:392; the JAX package's
@@ -162,8 +162,6 @@ class MultiHeadAttention(nn.Module):
                 "fused-LN attention requested at a site that does not qualify "
                 "for the block kernel (PreLNLayer must pre-check eligibility)"
             )
-        if self.dropout_rate > 0.0 and not deterministic:
-            raise NotImplementedError("live attention dropout is not ported yet (ROADMAP Queue 1, item 13)")
         d_head = self.hidden_size // self.num_heads
 
         def split(t):
@@ -173,7 +171,11 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x)
         k = dense(x, self.key, self.dtype)
         v = self.value(x)
-        ctx = xla_attention(split(q), split(k), split(v), bias, logits_dtype=self.logits_dtype)
+        ctx = dot_product_attention(
+            split(q), split(k), split(v), bias,
+            dropout_rate=0.0 if deterministic else self.dropout_rate,
+            impl=self.attn_impl, logits_dtype=self.logits_dtype,
+        )
         b, h, s, d = ctx.shape
         ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
         return dense(ctx, self.out, self.dtype)

@@ -6,6 +6,8 @@ Counterpart of ``feddat_tpu/models/vilt.py``:
 * patch embeddings = 32x32 conv on an NHWC canvas, CLS token, learned
   positions (a canvas smaller than the configured one takes the top-left
   sub-grid of the position table, vilt.py:142-150);
+* with prompt tuning, reparameterized prompts spliced after each stream's
+  CLS (``models/prompts.py``, vilt.py:235-246);
 * modality-type embeddings (0 text, 1 image, 2 second image);
 * ``num_layers`` pre-LN layers with the DAT adapter slot, as a ModuleList
   ``layers.<i>`` (flax stacks them with ``nn.scan`` under ``layers/layer``);
@@ -29,6 +31,7 @@ from feddat_tpu_torch.configs.core import ViltModelConfig
 from feddat_tpu_torch.data.images import VILT_MEAN, VILT_STD
 from feddat_tpu_torch.models.adapters import dense
 from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl, dropout
+from feddat_tpu_torch.models.prompts import ReparamPrompt, splice_after_cls
 from feddat_tpu_torch.ops.attention import mask_to_bias
 
 _LOGITS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,9 +138,6 @@ class ViltEncoder(nn.Module):
                  attn_impl: str = "auto"):
         super().__init__()
         c = config
-        if c.prompt.enabled:
-            raise NotImplementedError("prompt tuning (models/prompts.py) is not ported yet "
-                                      "(ROADMAP Queue 1, remaining PEFT modes)")
         if c.remat:
             raise NotImplementedError("remat/remat_policy (activation recomputation; no numeric "
                                       "effect) is not ported yet (ROADMAP Queue 1, item 13)")
@@ -146,6 +146,9 @@ class ViltEncoder(nn.Module):
         self.attn_impl = check_attn_impl(attn_impl)
         self.text_embeddings = ViltTextEmbeddings(c, dtype)
         self.visual_embeddings = ViltVisualEmbeddings(c, dtype)
+        if c.prompt.enabled:
+            self.prompt_text = ReparamPrompt(c.prompt, c.hidden_size, dtype)
+            self.prompt_vis = ReparamPrompt(c.prompt, c.hidden_size, dtype)
         self.modality_type_embeddings = nn.Embedding(c.modality_type_vocab_size, c.hidden_size)
         self.layers = nn.ModuleList(
             PreLNLayer(
@@ -196,6 +199,12 @@ class ViltEncoder(nn.Module):
             image_mask = torch.cat(
                 [torch.ones((b, 1), dtype=attention_mask.dtype, device=image.device),
                  pm.reshape(b, -1).to(attention_mask.dtype)], dim=1)
+
+        if c.prompt.enabled:
+            text, attention_mask = splice_after_cls(text, attention_mask, self.prompt_text())
+            image, image_mask = splice_after_cls(image, image_mask, self.prompt_vis())
+            # only its shape feeds the modality-type lookup below
+            input_ids = torch.zeros(text.shape[:2], dtype=input_ids.dtype, device=text.device)
 
         text = text + embed(torch.zeros_like(input_ids), self.modality_type_embeddings, self.dtype)
         img_type = torch.full(image.shape[:2], image_token_type_idx, dtype=torch.long,
@@ -302,7 +311,9 @@ def init_vilt_params(model: nn.Module, seed: int) -> nn.Module:
     """Initialise every parameter in place, as the JAX package does: normal
     kernels and embeddings (std 0.02, ``initializer_range`` where JAX uses
     it), zero biases, unit LayerNorm scales, zero CLS token and position
-    table, LoRA A uniform(±1/sqrt(fan_in)) and LoRA B zero.  Draws on the CPU
+    table, LoRA A uniform(±1/sqrt(fan_in)) and LoRA B zero, and the prompt
+    MLPs' torch defaults (embedding N(0, 1), Linear weights and biases
+    uniform(±1/sqrt(fan_in)), prompts.py:33-44).  Draws on the CPU
     from a ``torch.Generator`` seeded with ``seed`` in parameter order, so a
     seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
@@ -313,7 +324,13 @@ def init_vilt_params(model: nn.Module, seed: int) -> nn.Module:
         for mod_name, mod in model.named_modules():
             for p_name, p in mod.named_parameters(recurse=False):
                 full = f"{mod_name}.{p_name}" if mod_name else p_name
-                if isinstance(mod, LayerNorm):
+                if ".prompt_" in f".{mod_name}":
+                    if isinstance(mod, nn.Embedding):
+                        val = torch.randn(p.shape, generator=gen)
+                    else:
+                        bound = mod.in_features ** -0.5
+                        val = torch.rand(p.shape, generator=gen) * (2 * bound) - bound
+                elif isinstance(mod, LayerNorm):
                     val = torch.ones(p.shape) if p_name == "weight" else torch.zeros(p.shape)
                 elif p_name == "bias" or p_name in ("cls_token", "position_embeddings"):
                     val = torch.zeros(p.shape)

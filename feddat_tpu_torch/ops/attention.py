@@ -1,9 +1,11 @@
-"""Plain attention core and the padding-mask bias.
+"""Attention core behind one routing interface, and the padding-mask bias.
 
 Counterpart of ``feddat_tpu/ops/attention.py``: ``xla_attention`` is
-``_xla_attention`` (the composable path, lines 22-57) and ``mask_to_bias``
-is the same -10000.0 fill (lines 144-151).  The "flash" and "fused" Pallas
-routes of ``dot_product_attention`` are later slices (ROADMAP Queue 2).
+``_xla_attention`` (the composable path, lines 22-57), ``dot_product_attention``
+routes by ``impl`` as lines 60-141 do, and ``mask_to_bias`` is the same
+-10000.0 fill (lines 144-151).  ``impl="fused"`` takes the whole-sequence
+kernels (``ops/fused_attention.py``, #5/#6) where the JAX routing rule admits
+the site; ``impl="flash"`` (#7-#9) is a later slice (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -11,6 +13,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from feddat_tpu_torch.ops.fused_attention import fused_short_attention
+
+# The JAX package's routing rule for impl="fused" (attention.py:120-125): the
+# TPU kernel keeps ~4 fp32 [H, S, S] logit tiles in a 16 MiB scoped-VMEM
+# budget, so sites with 4·H·S²·4 bytes above it take the composable path.  Not
+# a limit of the CUDA kernels; it decides where the logits are stored in
+# ``logits_dtype`` (composable path) or never stored (kernel), so the port
+# routes the same sites as JAX.
+FUSED_ROUTE_MAX_LOGIT_BYTES = 16 * 1024 * 1024
 
 
 def xla_attention(
@@ -36,6 +48,52 @@ def xla_attention(
         logits = logits + bias.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
+
+
+def fused_route_eligible(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
+                         dropout_rate: float) -> bool:
+    """The ``impl="fused"`` gate of attention.py:120-131: no live dropout,
+    self-attention lengths, a ``[B or 1, 1, 1, S]`` padding bias (or none), and
+    ``4·H·S²·4`` within :data:`FUSED_ROUTE_MAX_LOGIT_BYTES`."""
+    h, s = q.shape[1], q.shape[2]
+    return (
+        dropout_rate == 0.0
+        and k.shape[2] == s
+        and 4 * h * s * s * 4 <= FUSED_ROUTE_MAX_LOGIT_BYTES
+        and (bias is None
+             or (bias.shape[0] in (1, q.shape[0]) and bias.shape[1] == 1 and bias.shape[2] == 1))
+    )
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    impl: str = "auto",
+    logits_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Multi-head attention core, q [B, H, S_q, D], k/v [B, H, S_kv, D] ->
+    [B, H, S_q, D] in ``v.dtype``.  ``"auto"``, ``"xla"`` and ``"block"`` (a
+    site the block route did not take) run :func:`xla_attention`; ``"fused"``
+    runs :func:`fused_short_attention` where :func:`fused_route_eligible`
+    admits the site and :func:`xla_attention` elsewhere.  ``dropout_rate`` is
+    the live rate (0 when deterministic)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl == "flash":
+        raise NotImplementedError("impl='flash' is not ported yet: it needs kernels #7 to #9, "
+                                  "ops/flash.py (slice 4, ROADMAP Queue 2)")
+    if impl not in ("auto", "xla", "block", "fused"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "fused" and fused_route_eligible(q, k, bias, dropout_rate):
+        return fused_short_attention(q, k, v, bias, scale)
+    if dropout_rate > 0.0:
+        raise NotImplementedError("live attention dropout is not ported yet (ROADMAP Queue 1, item 13)")
+    return xla_attention(q, k, v, bias, scale, logits_dtype)
 
 
 def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

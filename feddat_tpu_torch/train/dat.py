@@ -40,14 +40,31 @@ from feddat_tpu_torch.train.state import TrainState
 Params = Dict[str, torch.Tensor]
 
 
+def _in_frozen_bottom(name: str, layers_to_freeze: int) -> bool:
+    """Under ``freeze_bottom_k_layers``: the embeddings and layers ``< k`` stay
+    frozen (dat.py:106-152; ViLT's stack is ``vilt.layers.<i>``)."""
+    parts = name.split(".")
+    if any("embeddings" in part for part in parts):
+        return True
+    if "layers" in parts:
+        return int(parts[parts.index("layers") + 1]) < layers_to_freeze
+    return False
+
+
 class Partitioner:
     """Static name-set partitioning of a parameter dict for one client.
 
     ``shared`` (adapter_1, or the mode's trainable non-head roles),
     ``local`` (adapter_0), ``head`` (the *active* task's head only — other
-    clients' heads must not be touched by weight decay), frozen the rest."""
+    clients' heads must not be touched by weight decay), frozen the rest.
 
-    def __init__(self, params: Params, task_key: str, mode: PEFTMode):
+    ``freeze_bottom_k_layers``: JAX keeps the stacked layers in the trainable
+    set, masks the bottom ``layers_to_freeze`` layers' gradients to 0 and
+    blends their decayed values back (dat.py:664-682); with one name per layer
+    the port leaves those layers out of the trainable set, which yields the
+    same parameters, and autograd then skips their backward altogether."""
+
+    def __init__(self, params: Params, task_key: str, mode: PEFTMode, layers_to_freeze: int = 0):
         labels = label_params(params)
         self.mode = mode
         head_tag = f"task_{task_key}"
@@ -58,14 +75,13 @@ class Partitioner:
         if mode == PEFTMode.DAT:
             self.shared_paths = frozenset(n for n, l in labels.items() if l == ROLE_SHARED)
             self.local_paths = frozenset(n for n, l in labels.items() if l == ROLE_LOCAL)
-        elif mode == PEFTMode.FREEZE_BOTTOM_K:
-            raise NotImplementedError(
-                "peft_mode='freeze_bottom_k_layers' (its per-layer gradient mask) is not ported "
-                "yet (ROADMAP Queue 1, remaining PEFT modes)")
         else:
             roles = trainable_roles(mode) - {ROLE_HEAD}
+            freeze = mode == PEFTMode.FREEZE_BOTTOM_K
             self.shared_paths = frozenset(
-                n for n, l in labels.items() if l in roles and "text_bert" not in n.split("."))
+                n for n, l in labels.items()
+                if l in roles and "text_bert" not in n.split(".")
+                and not (freeze and _in_frozen_bottom(n, layers_to_freeze)))
             self.local_paths = frozenset()
 
     def extract(self, params: Params, paths: FrozenSet[str]) -> Params:

@@ -4,7 +4,7 @@
   ``flax`` or ``feddat_tpu``;
 * entry points need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
-  plain version, and ``attn_impl`` values of later slices raise.
+  plain version, and the ``attn_impl`` value of a later slice raises.
 """
 
 import ast
@@ -22,6 +22,7 @@ from feddat_tpu_torch.configs.core import AdapterSpec
 from feddat_tpu_torch.models.vilt import TaskHeadSpec, ViltContinualLearner
 from feddat_tpu_torch.ops import adapter_fused as af
 from feddat_tpu_torch.ops import attn_block as ab
+from feddat_tpu_torch.ops import fused_attention as fa
 from feddat_tpu_torch.ops import layer_block as lb
 from feddat_tpu_torch.serving import ViltVqaPredictor
 
@@ -88,8 +89,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                       torch.zeros(256, 128), torch.zeros(1, 256), torch.zeros(128, 256),
                       torch.zeros(1, 128), *adapter, *adapter, 2, None, 1e-12, 1e-12,
                       1.0, 0.0, False)
+    heads = torch.zeros(1, 2, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fa.fused_attention_fwd_cuda(heads, heads, heads, None, 0.125)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fa.fused_attention_bwd_cuda(heads, heads, heads, None, heads, heads, lse, 0.125)
     assert (ab.KERNEL.launches, af.KERNEL.launches, ab.KERNEL_BWD.launches,
-            lb.KERNEL.launches) == before + (0, 0)
+            lb.KERNEL.launches, fa.KERNEL.launches, fa.KERNEL_BWD.launches) == before + (0, 0, 0, 0)
 
 
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -145,8 +151,9 @@ def test_remat_raises_until_ported():
 
 def test_attn_impls_of_later_slices_raise():
     spec = AdapterSpec(names=("adapter_0",), reduction_factor=4)
-    for impl in ("fused", "flash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PreLNLayer(32, 4, 64, spec, attn_impl=impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PreLNLayer(32, 4, 64, spec, attn_impl="flash")
+    for impl in ("xla", "fused"):  # ported: the composable route, with kernels #5/#6 for "fused"
+        assert PreLNLayer(32, 4, 64, spec, attn_impl=impl).attention.attn_impl == impl
     with pytest.raises(ValueError, match="unknown attn_impl"):
         PreLNLayer(32, 4, 64, spec, attn_impl="xla-typo")
