@@ -8,7 +8,8 @@ Phases, in this order:
             ``nvcc`` per source, all at once) and print the build time.
 2. parity — hold each kernel against its plain PyTorch version on the card, at
             the serving and training shapes and at ragged ones, with the stated
-            tolerances; the whole-layer backward twice, bitwise.
+            tolerances; the whole-layer backward twice, bitwise; the flash
+            forward (#7) at ALBEF's nine attention shapes, twice, bitwise.
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -28,12 +29,21 @@ Phases, in this order:
             against the plain path in fp32 by the 2x-bf16 rule; then one
             FederatedTrainer round of LoRA (2 clients x 2 steps, FedAvg of the
             LoRA factors) and its evaluation (#5 only).
-6. time   — each kernel, its plain version and one PyTorch call chain for the
+6. albef  — full-width ALBEF (ViT-B/16 at 384 px, S=577; BERT-base text and
+            fusion encoder; 6-layer decoder; vocabulary 30522) DAT in bf16 with
+            attn_impl='flash' behind ``AlbefVqaPredictor.predict`` over a
+            100-answer bank, k=64, rerank packed 8 per row: one B=16 request
+            batch and one single request, #7 launched 54 times per
+            rank_answer.  Question states and stage-1 logits held against the
+            plain path (attn_impl='auto') in fp32 by the 2x-bf16 rule, and
+            the top-1 answers against it.
+7. time   — each kernel, its plain version and one PyTorch call (chain) for the
             same function (a yardstick the port never calls), by CUDA events,
             beside the kernel's bound; serving rates and latency; DAT and LoRA
-            train samples/s, kernel path against plain path in alternating
-            samples; torch.profiler breakdowns of one serving forward and one
-            step of each.
+            train samples/s and ALBEF rank-answer questions/s, kernel path
+            against plain path in alternating samples; torch.profiler
+            breakdowns of one serving forward, one step of each and one
+            rank_answer call.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -64,6 +74,30 @@ DM, HEADS, R = 768, 12, 48
 TB, TCANVAS = 64, (384, 384)
 TS = TEXT_LEN + (TCANVAS[0] // 32) * (TCANVAS[1] // 32) + 1
 NUM_LABELS = 3129  # VQAv2 answer vocabulary (feddat_tpu/configs/tasks.py:96)
+# TF32 tensor-core peak (dense), the rate charged for #7's P.v: P is kept at
+# fp32 precision as two bf16 products (hi + lo), the work of one TF32 product.
+PEAK_TF32_FLOPS = 495e12
+# ALBEF serving (slice 4): B=16 requests, 384x384 images -> ViT-B/16 S = 24*24 + 1
+# = 577; questions of 25 tokens, answers of 10; k=64 candidates of a 100-answer
+# bank (cli.py:218), the rerank decode packed 8 per row (eval_pack_group).
+AB, ARES, LQ, LA, ALBEF_K, PACK = 16, 384, 25, 10, 64, 8
+VIT_S = (ARES // 16) ** 2 + 1
+# A stand-in for the first 100 entries of a VQA ans2label (no dataset in the
+# repo): common VQA answers, multi-word ones sharing first tokens with others.
+ALBEF_ANSWERS = [
+    "yes", "no", "2", "1", "white", "3", "red", "blue", "4", "green", "black", "yellow",
+    "brown", "0", "5", "gray", "6", "orange", "pink", "tennis", "frisbee", "baseball",
+    "skateboarding", "7", "surfing", "wood", "kitchen", "8", "dog", "cat", "skiing", "10",
+    "left", "right", "grass", "water", "giraffe", "pizza", "purple", "silver", "man", "woman",
+    "snow", "bathroom", "nothing", "horse", "elephant", "zebra", "train", "bus", "cow", "sheep",
+    "beach", "street", "table", "sitting", "standing", "walking", "eating", "playing",
+    "umbrella", "kite", "banana", "apple", "sandwich", "cake", "phone", "laptop", "clock", "bed",
+    "chair", "couch", "night", "day", "sunny", "cloudy", "summer", "winter", "male", "female",
+    "tennis racket", "baseball bat", "baseball glove", "fire hydrant", "stop sign", "hot dog",
+    "teddy bear", "cell phone", "red and white", "black and white", "blue and white",
+    "surf board", "ski poles", "dog food", "2 people", "1 person", "wii controller",
+    "bathroom sink", "cutting board", "parking meter",
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -229,6 +263,20 @@ def fused_attention_bound(b, s, backward):
     nbytes = (8 if backward else 4) * b * HEADS * s * d * 2 + b * s * 4 + b * HEADS * s * 4
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
+
+
+def flash_bound(b, sq, skv, bias_numel):
+    """Least time (ms) for one #7 call and what bounds it.  Tensor cores: q.k^T
+    on bf16 operands at the bf16 peak, P.v with P at fp32 precision at the TF32
+    peak; beside them on the CUDA cores the online softmax (~6 fp32 operations
+    per logit); the pipes overlap.  Bytes: q, k, v and o in bf16, lse in fp32
+    and the compact fp32 bias once each."""
+    prod = 2 * b * HEADS * sq * skv * (DM // HEADS)
+    t_tensor = prod / PEAK_BF16_FLOPS + prod / PEAK_TF32_FLOPS
+    t_ops = max(t_tensor, 6 * b * HEADS * sq * skv / PEAK_FP32_FLOPS)
+    nbytes = 4 * b * HEADS * (sq + skv) * (DM // HEADS) + b * HEADS * sq * 4 + bias_numel * 4
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 2 * prod
 
 
 # ------------------------------------------------------------------ phases
@@ -591,6 +639,155 @@ def fused_parity(torch, b, s, seed, batch1=False, layout="split"):
     return fwd_err, bwd_err
 
 
+def flash_case(torch, b, sq, skv, kind, seed):
+    """#7 inputs on the card: q [B, H, Sq, 64] and k, v [B, H, Skv, 64] bf16 as
+    the split() views of [B, S, Dm] projections (std 1: logits q.k^T/8 at std
+    1), and the compact fp32 bias of one of ALBEF's layouts: ``none`` (ViT),
+    ``padding`` [B,1,1,Skv] (text self-attention, stage-1 and grouped cross),
+    ``zero`` [B,1,1,Skv] (fusion cross: every image token), ``packed``
+    [B,1,Sq,Skv] (the stage-2 decoder, 8 causal answers per row, each padded
+    to a random length) and ``heads`` [1,H,Sq,Skv] (random, the head-dim layout
+    of _prep_bias that no ALBEF site has)."""
+    from feddat_tpu_torch.ops.attention import packed_self_bias
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def heads(s):
+        t = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+        return t.view(b, s, HEADS, DM // HEADS).transpose(1, 2)
+
+    q, k, v = heads(sq), heads(skv), heads(skv)
+    if kind == "none":
+        bias = None
+    elif kind == "padding":
+        bias = padding_bias(torch, b, skv, seed)
+    elif kind == "zero":
+        bias = torch.zeros(b, 1, 1, skv, device="cuda")
+    elif kind == "packed":
+        la = sq // PACK
+        lengths = torch.randint(1, la + 1, (b * PACK, 1), generator=g, device="cuda")
+        mask = (torch.arange(la, device="cuda")[None, :] < lengths).int()
+        bias = packed_self_bias(mask, PACK, True)
+    elif kind == "heads":
+        bias = torch.randn(1, HEADS, sq, skv, generator=g, device="cuda")
+    else:
+        raise ValueError(kind)
+    return q, k, v, bias
+
+
+# #7 at ALBEF's attention sites (B=16 requests, 12 heads): (site, B, Sq, Skv, bias)
+FLASH_CASES = [
+    ("vit", AB, VIT_S, VIT_S, "none"),
+    ("text self", AB, LQ, LQ, "padding"),
+    ("fusion cross", AB, LQ, VIT_S, "zero"),
+    ("stage-1 self", AB, 1, 1, "padding"),
+    ("stage-1 cross", AB, 1, LQ, "padding"),
+    ("stage-2 packed self", AB * ALBEF_K // PACK, PACK * LA, PACK * LA, "packed"),
+    ("stage-2 grouped cross", AB, ALBEF_K * LA, LQ, "padding"),
+    ("long", 2, 2048, 2048, "padding"),
+    ("ragged head bias", 3, 130, 70, "heads"),
+]
+# #7 against its plain version on the same inputs: o elementwise in bf16 ulps of
+# each element's own magnitude (own_ulps), lse as |err| / max |lse|.  Both keep
+# P in fp32 (the kernel as bf16 hi + lo, ~2^-16 of P) and round o to bf16 once
+# after fp32 sums taken in another order.  Limits set from this phase's
+# readings on the card over two seeds at all nine shapes (PERF.md §6, #7):
+# sound o <= 1 own ulp, lse <= 2.3e-7; planted faults (one row off by the rms;
+# lse of one row off by 1e-3) >= 130 ulps and >= 1.1e-4.  A P rounded to bf16
+# reads only 1-2 ulps at these random inputs, so flash_p_probe holds P's
+# precision with a constructed case instead.
+FLASH_LIMITS = {"o": 4, "lse": 1e-5}
+
+
+def flash_parity(torch, site, b, sq, skv, kind, seed):
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v, bias = flash_case(torch, b, sq, skv, kind, seed)
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, bias, scale)
+        again = fl.flash_attention_fwd_cuda(q, k, v, bias, scale)
+        o_r, lse_r = fl.flash_attention_fwd_ref(q, k, v, bias, scale)
+        # the same function with P rounded to bf16 before P.v (as #5 does)
+        s = (q.float() * scale) @ k.float().transpose(-1, -2) + (0.0 if bias is None else bias)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o_p16 = (p.bfloat16().float() @ v.float() / p.sum(-1, keepdim=True)).bfloat16()
+        del s, p
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()),
+          f"flash_attention {site}: non-finite values")
+    readings = {"o": own_ulps(torch, o, o_r),
+                "lse": (lse - lse_r).abs().max().item() / lse_r.abs().max().item()}
+    bad = o.float().clone()
+    bad[0, 0, 0] += o_r.float().pow(2).mean().sqrt()
+    bad_lse = lse.clone()
+    bad_lse[0, 0, 0] += 1e-3
+    planted = {"o": own_ulps(torch, bad, o_r),
+               "lse": (bad_lse - lse_r).abs().max().item() / lse_r.abs().max().item()}
+    bias_desc = "none" if bias is None else list(bias.shape)
+    print(f"parity flash_attention {site} B={b} H={HEADS} Sq={sq} Skv={skv} bias={bias_desc}: "
+          + ", ".join(f"{n} {readings[n]:.3g} (limit {FLASH_LIMITS[n]:g}, planted {planted[n]:.3g})"
+                      for n in FLASH_LIMITS)
+          + f"; rel norm o {rel_norm(o, o_r):.2e}; a P rounded to bf16 would read "
+          f"{own_ulps(torch, o_p16, o_r):.3g} ulps")
+    for n, lim in FLASH_LIMITS.items():
+        check(readings[n] <= lim < planted[n],
+              f"flash_attention {site} {n} disagrees with the plain version: {readings[n]} "
+              f"(limit {lim}, planted {planted[n]})")
+    stable = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    print(f"parity flash_attention {site}: second call bitwise equal: {stable}")
+    check(stable, f"flash_attention {site} is not bitwise stable across two calls")
+    return max((o.float() - o_r.float()).abs().max().item(), (lse - lse_r).abs().max().item())
+
+
+def flash_p_probe(torch):
+    """P stays fp32 in P.v: logits 0 and 2^-10 (p = e^(-2^-10) and 1, both 1.0
+    in bf16) on values +1000 and -1000.  With fp32 P, o is about -0.4885; a P
+    rounded to bf16 gives exactly 0."""
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v = (torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16, device="cuda") for _ in range(3))
+    q[..., 0] = 1.0
+    k[0, 0, 1, 0] = 2.0 ** -8  # logits q.k/4: 0 and 2^-10
+    v[0, 0, 0], v[0, 0, 1] = 1000.0, -1000.0
+    with torch.no_grad():
+        o, _ = fl.flash_attention_fwd_cuda(q, k, v, None, 0.25)
+        o_r, _ = fl.flash_attention_fwd_ref(q, k, v, None, 0.25)
+    torch.cuda.synchronize()
+    got = o[0, 0, 0, 0].item()
+    print(f"parity flash_attention P probe: o = {got:.6f} (plain version {o_r[0, 0, 0, 0].item():.6f}; "
+          f"a P rounded to bf16 gives 0)")
+    check(torch.equal(o, o_r) and abs(got + 0.4885) < 4e-3, "flash_attention rounds P below fp32")
+
+
+def flash_refusals(torch):
+    """On the card #7's wrapper raises, without launching, on what the kernel
+    does not take (fp32, head dim 32), and the flash backward raises, naming
+    kernels #8/#9: nothing falls back to a plain version."""
+    from feddat_tpu_torch.ops import flash as fl
+
+    x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    before = fl.KERNEL.launches
+    refused = []
+    for bad, err in ((x.float(), TypeError), (x[..., :32], ValueError)):
+        try:
+            fl.flash_attention_fwd_cuda(bad, bad, bad, None, 0.125)
+        except err:
+            refused.append(True)
+    leaves = [x.clone().requires_grad_() for _ in range(3)]
+    try:
+        fl.flash_attention(*leaves).float().sum().backward()
+        message = ""
+    except NotImplementedError as e:
+        message = str(e)
+    torch.cuda.synchronize()
+    print(f"parity flash_attention refusals: fp32 and head dim 32 refused {len(refused)}/2, "
+          f"launches {fl.KERNEL.launches - before} (1: the forward before the backward); "
+          f"CUDA backward raises: {message[:80]!r}")
+    check(len(refused) == 2 and fl.KERNEL.launches - before == 1 and "#8" in message,
+          "flash_attention accepts what it does not take, or its CUDA backward does not raise")
+
+
 def phase_parity(torch, seed):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
@@ -609,6 +806,11 @@ def phase_parity(torch, seed):
     fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
     fused_parity(torch, 4, TS + 10, seed + 3, batch1=True, layout="contiguous")
     fused_parity(torch, 2, 37, seed + 4)
+    flash_errs = {site: flash_parity(torch, site, b, sq, skv, kind, seed + i)
+                  for i, (site, b, sq, skv, kind) in enumerate(FLASH_CASES)}
+    errs["flash_attention"] = flash_errs["vit"]
+    flash_p_probe(torch)
+    flash_refusals(torch)
     return errs
 
 
@@ -694,12 +896,14 @@ def phase_serve(torch, seed):
 def counters():
     from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import flash as fl
     from feddat_tpu_torch.ops import fused_attention as fa
     from feddat_tpu_torch.ops import layer_block as lb
 
     return {"attn_block": ab.KERNEL, "adapter_fused": af.KERNEL,
             "attn_block_bwd": ab.KERNEL_BWD, "layer_block_bwd": lb.KERNEL,
-            "fused_attention": fa.KERNEL, "fused_attention_bwd": fa.KERNEL_BWD}
+            "fused_attention": fa.KERNEL, "fused_attention_bwd": fa.KERNEL_BWD,
+            "flash_attention": fl.KERNEL}
 
 
 def reset_counts():
@@ -712,7 +916,7 @@ def read_counts():
 
 
 NO_LAUNCHES = {"attn_block": 0, "adapter_fused": 0, "attn_block_bwd": 0, "layer_block_bwd": 0,
-               "fused_attention": 0, "fused_attention_bwd": 0}
+               "fused_attention": 0, "fused_attention_bwd": 0, "flash_attention": 0}
 
 
 TRAIN_CLIENTS = ("c0", "c1")
@@ -1033,6 +1237,191 @@ def phase_peft(torch, seed):
     return out
 
 
+def albef_predictor(torch, seed, attn_impl, dtype="bfloat16"):
+    """Full-width ALBEF DAT (random weights from ``seed``) behind the predictor."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.serving import AlbefVqaPredictor
+
+    model, cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, 16, dtype, attn_impl=attn_impl,
+                              seed=seed)
+    check(cfg.adapter.names == ("adapter_0", "adapter_1", "adapter_2") and cfg.adapter.reduction_factor == 16
+          and cfg.eval_pack_group == PACK and cfg.image_res == ARES and cfg.bert.vocab_size == 30522
+          and (cfg.bert.fusion_layer, cfg.bert.num_layers, cfg.decoder_layers) == (6, 12, 6),
+          f"unexpected ALBEF config {cfg}")
+    tok = WordPieceTokenizer.from_vocab_file(str(REPO / "tests" / "fixtures" / "vocab30k.txt"))
+    return AlbefVqaPredictor(model, None, tok, ALBEF_ANSWERS, batch_size=AB, k=ALBEF_K,
+                             max_question_len=LQ, max_answer_len=LA, adapter_mode="ensemble",
+                             batch_buckets=(1,))
+
+
+def albef_requests(n, seed):
+    imgs, _ = synthetic_requests(n, seed)
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 1)
+    words = ["what", "color", "is", "the", "dog", "how", "many", "people", "are", "there", "in",
+             "this", "picture", "sport", "being", "played", "which", "side", "of", "plate", "room"]
+    qs = ["what " + " ".join(rng.choice(words, size=rng.randint(3, 20))) + "?" for _ in range(n)]
+    return imgs, qs
+
+
+# Kernel path vs plain path on ALBEF's rank_answer.  Both bf16 paths are held
+# against the plain path in fp32 (the exact function) by relative Frobenius
+# error: the question states and the stage-1 logits of the kernel path may be
+# at most twice as far from fp32 as the plain bf16 path's, or 1%.  A top-1
+# answer may differ from the fp32 path's only where the fp32 path's top two
+# reranked probabilities are within that tolerance of each other.
+ALBEF_FACTOR, ALBEF_FLOOR = 2.0, 1e-2
+
+
+def albef_stages(torch, pred, t):
+    """(question states [B, Lq, D], stage-1 logits [B, V]) of one predictor."""
+    m = pred.model
+    with torch.inference_mode():
+        qs = m.encode_question(t["pixel_values"], t["question_ids"], t["question_mask"], "ensemble")
+        bos = pred.bank[0][0, 0].expand(qs.shape[0], 1)
+        ones = torch.ones_like(bos, dtype=torch.int32)
+        logits = m.decode_logits(bos, ones, qs, t["question_mask"], "ensemble")[:, 0]
+    return qs.float(), logits.float()
+
+
+def phase_albef(torch, seed):
+    import numpy as np
+
+    pred = albef_predictor(torch, seed, "flash")
+    imgs, qs = albef_requests(AB, seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    batch_out = pred.predict(imgs, qs, top_k=5)  # one rank_answer call at B=16
+    torch.cuda.synchronize()
+    launches = read_counts()
+    reset_counts()
+    single_out = pred.predict(imgs[:1], qs[:1], top_k=5)  # the B=1 bucket
+    torch.cuda.synchronize()
+    single_launches = read_counts()
+    want = {**NO_LAUNCHES, "flash_attention": 54}
+    print(f"albef: rank_answer through AlbefVqaPredictor.predict, attn_impl='flash', B={AB} "
+          f"(S={VIT_S}, Lq={LQ}, La={LA}, k={ALBEF_K}, {len(ALBEF_ANSWERS)} answers): launches "
+          f"{launches['flash_attention']} per batch, {single_launches['flash_attention']} per single "
+          f"request (expected 54: ViT 12, text 6, fusion 12, stage-1 12, stage-2 12)")
+    check(launches == want and single_launches == want,
+          f"albef launches {launches} / {single_launches}, expected {want}")
+    check(len(batch_out) == AB and all(len(r) == 5 for r in batch_out) and len(single_out) == 1,
+          "bad ALBEF result shape")
+    for row in batch_out + single_out:
+        probs = [p for _, p in row]
+        check(all(math.isfinite(p) and 0.0 <= p <= 1.0 for p in probs), f"bad probabilities {row}")
+        check(probs == sorted(probs, reverse=True), "top-k not in descending order")
+        check(all(a in ALBEF_ANSWERS for a, _ in row), f"answer outside the bank: {row}")
+    print(f"albef: first answers {[r[0] for r in batch_out[:3]]}; single {single_out[0][:2]}")
+
+    batch = pred._preprocess(imgs, qs)
+    t = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    state = pred.model.state_dict()
+    plain = albef_predictor(torch, seed, "auto")
+    exact = albef_predictor(torch, seed, "auto", "float32")
+    for other in (plain, exact):
+        other.model.load_state_dict(state)
+    stages = {"kernel": albef_stages(torch, pred, t)}
+    ranked = {"kernel": pred.rank(batch)}
+    torch.cuda.synchronize()
+    before = read_counts()
+    for name, p in (("plain", plain), ("exact", exact)):
+        stages[name], ranked[name] = albef_stages(torch, p, t), p.rank(batch)
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    tol = ALBEF_FLOOR
+    for i, what in enumerate(("question states", "stage-1 logits")):
+        k_err = rel_norm(stages["kernel"][i], stages["exact"][i])
+        p_err = rel_norm(stages["plain"][i], stages["exact"][i])
+        lim = max(ALBEF_FACTOR * p_err, ALBEF_FLOOR)
+        tol = max(tol, lim)
+        print(f"albef: {what} vs plain fp32: kernel path {k_err:.3e}, plain bf16 path {p_err:.3e}; "
+              f"limit {lim:.3e}")
+        check(k_err <= lim, f"albef {what} disagree: {k_err} > {lim}")
+    top = {name: ids[:, 0] for name, (ids, _) in ranked.items()}
+    ex_p = ranked["exact"][1]
+    agree_plain = int((top["kernel"] == top["plain"]).sum())
+    agree_exact = int((top["kernel"] == top["exact"]).sum())
+    plain_exact = int((top["plain"] == top["exact"]).sum())
+    gaps = (ex_p[:, 0] - ex_p[:, 1]) / ex_p[:, 0]
+    off = np.nonzero(top["kernel"] != top["exact"])[0]
+    print(f"albef: top-1 agreement kernel/plain bf16 {agree_plain}/{AB}, kernel/plain fp32 "
+          f"{agree_exact}/{AB}, plain bf16/plain fp32 {plain_exact}/{AB}; fp32 top-2 relative gaps "
+          f"at the disagreements {[round(float(gaps[i]), 4) for i in off]} (allowed <= {tol:.3e}); "
+          f"fp32 top-1 probabilities {np.round(ex_p[:, 0], 3).tolist()}")
+    check(all(gaps[i] <= tol for i in off), "a top-1 answer differs where the fp32 path is not near a tie")
+    del exact, stages, ranked
+    torch.cuda.empty_cache()
+    return dict(pred=pred, plain=plain, batch=batch, requests=(imgs, qs), launches=launches)
+
+
+def time_albef(torch, al, seed):
+    """#7 at the ViT and packed-decoder shapes (kernel, plain, SDPA with the
+    same float mask), rank-answer questions/s kernel vs plain path in
+    alternating samples, predict() rates, and a profile of one rank_answer."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import flash as fl
+
+    rows = []
+    for site, b, sq, skv, kind in (FLASH_CASES[0], FLASH_CASES[5]):
+        q, k, v, bias = flash_case(torch, b, sq, skv, kind, seed)
+        mask = None if bias is None else bias.bfloat16()
+        with torch.no_grad():
+            k_ms = cuda_ms(torch, lambda: fl.flash_attention_fwd_cuda(q, k, v, bias, 0.125), 30)
+            p_ms = cuda_ms(torch, lambda: fl.flash_attention_fwd_ref(q, k, v, bias, 0.125), 5, warmup=1)
+            l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 30)
+        bound, bound_by, ops = flash_bound(b, sq, skv, 0 if bias is None else bias.numel())
+        rows.append((site, k_ms, p_ms, l_ms, bound, bound_by, ops))
+        print(f"time flash_attention {site} B={b} Sq={sq} Skv={skv}: kernel {k_ms:.4f} ms "
+              f"({ops / k_ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms by {bound_by} "
+              f"({100 * bound / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, library (SDPA with the "
+              f"float mask) {l_ms:.4f} ms")
+
+    pred, plain, batch = al["pred"], al["plain"], al["batch"]
+
+    def sample(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            p.rank(batch)
+        return (time.perf_counter() - t0) / 2  # rank() ends in a copy to the host
+
+    for p in (pred, plain):
+        sample(p)
+    k_s, p_s = [], []
+    for i in range(4):
+        for p in ((pred, plain) if i % 2 == 0 else (plain, pred)):
+            (k_s if p is pred else p_s).append(sample(p))
+    k_med, p_med = statistics.median(k_s), statistics.median(p_s)
+    wins = sum(a < b for a, b in zip(k_s, p_s))
+    print(f"time albef: rank_answer B={AB}, 4 alternating pairs of 2 calls: medians "
+          f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms (kernel vs plain path); {AB / k_med:.1f} vs "
+          f"{AB / p_med:.1f} questions/s; kernel path faster in {wins}/4; kernel "
+          f"{[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
+    imgs, qs = al["requests"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        pred.predict(imgs, qs, top_k=5)
+    predict_s = (time.perf_counter() - t0) / 2
+    single_ms = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        pred.predict(imgs[i : i + 1], qs[i : i + 1], top_k=5)
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+    single_ms.sort()
+    print(f"time albef: predict() {AB / predict_s:.1f} questions/s ({1e3 * predict_s:.1f} ms per batch "
+          f"of {AB}, host preprocessing included); single request (B=1 bucket) p50 "
+          f"{single_ms[3]:.1f} ms, max {single_ms[-1]:.1f} ms over {len(single_ms)}")
+    profile_device(torch, lambda: pred.rank(batch), f"rank_answer (flash, B={AB})",
+                   {"#7 flash_fwd_kernel": ("flash_fwd",)})
+    return rows, AB / k_med, AB / p_med
+
+
 def time_fused_kernels(torch, seed):
     """#5 and #6 at the training shape (B=64, S=185): kernel, plain version,
     SDPA forward / autograd.grad through SDPA (yardsticks the port never
@@ -1339,23 +1728,30 @@ def main(argv=None) -> int:
     pred, plain, serve_launches, requests = phase_serve(torch, args.seed)
     tr = phase_train(torch, args.seed)
     pf = phase_peft(torch, args.seed)
+    al = phase_albef(torch, args.seed)
     times = phase_time(torch, pred, plain, requests, args.seed)
     del pred, plain
     times.update({name: row for name, *row in time_backward_kernels(torch, args.seed)})
     time_train(torch, tr)
     times.update({name: row for name, *row in time_fused_kernels(torch, args.seed)})
     time_peft(torch, pf, args.seed)
+    pf_launches = pf["launches"]
+    del pf
+    torch.cuda.empty_cache()
+    flash_rows, _, _ = time_albef(torch, al, args.seed)
+    times["flash_attention"] = flash_rows[0][1:]
 
     # each kernel's launches on the path it serves: the fused DAT train step
     # for #1 and #4, the standard 'block' step for #3, the serving path for #2,
-    # and the LoRA step through attn_impl='fused' (this slice's main path) for
-    # #5 and #6
+    # the LoRA step through attn_impl='fused' for #5 and #6, and one ALBEF
+    # rank_answer through attn_impl='flash' (this slice's main path) for #7
     launches = {"attn_block": tr["launches"]["attn_block"],
                 "adapter_fused": serve_launches["adapter_fused"],
                 "attn_block_bwd": tr["std_launches"]["attn_block_bwd"],
                 "layer_block_bwd": tr["launches"]["layer_block_bwd"],
-                "fused_attention": pf["launches"]["fused_attention"],
-                "fused_attention_bwd": pf["launches"]["fused_attention_bwd"]}
+                "fused_attention": pf_launches["fused_attention"],
+                "fused_attention_bwd": pf_launches["fused_attention_bwd"],
+                "flash_attention": al["launches"]["flash_attention"]}
     sources = {
         "attn_block": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:90"),
         "adapter_fused": ("feddat_tpu_torch/csrc/adapter_fused.cu",
@@ -1367,6 +1763,7 @@ def main(argv=None) -> int:
                             "feddat_tpu/ops/fused_attention.py:37"),
         "fused_attention_bwd": ("feddat_tpu_torch/csrc/fused_attention.cu",
                                 "feddat_tpu/ops/fused_attention.py:60"),
+        "flash_attention": ("feddat_tpu_torch/csrc/flash_attention.cu", "feddat_tpu/ops/flash.py:36"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

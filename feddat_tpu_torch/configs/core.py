@@ -2,10 +2,10 @@
 
 The port keeps its own copy of the dataclasses it needs — ``PEFTMode``,
 ``AdapterSpec``, ``LoraSpec``, ``PromptSpec``, ``ViltModelConfig``,
-``OptimizerConfig``, ``FederatedConfig``, ``TrainConfig`` and
-``adapter_spec_for_mode`` — with the same fields and defaults, so a config
-written for one package reads the same in the other.  The ALBEF configs come
-with the slice that uses them.
+``AlbefBertConfig``, ``AlbefModelConfig``, ``OptimizerConfig``,
+``FederatedConfig``, ``TrainConfig`` and ``adapter_spec_for_mode`` — with the
+same fields and defaults, so a config written for one package reads the same
+in the other.
 """
 
 from __future__ import annotations
@@ -109,6 +109,61 @@ class ViltModelConfig:
         return (self.image_size[0] // self.patch_size) * (
             self.image_size[1] // self.patch_size
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class AlbefBertConfig:
+    """xBERT (reference ``src/configs/model_configs.py:40-60``): a BERT-base
+    whose layers ``>= fusion_layer`` cross-attend to image states."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    fusion_layer: int = 6
+    encoder_width: int = 768
+    pad_token_id: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AlbefModelConfig:
+    """ALBEF = ViT-B/16 at 384 px + xBERT encoder + 6-layer LM decoder
+    (reference ``src/modeling/models/albef_model.py:12-57``)."""
+
+    image_res: int = 384
+    patch_size: int = 16
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    vision_mlp_ratio: float = 4.0
+    vision_layer_norm_eps: float = 1e-6
+    bert: AlbefBertConfig = AlbefBertConfig()
+    decoder_layers: int = 6
+    distill: bool = False
+    momentum: float = 0.995
+    max_question_len: int = 25
+    max_answer_len: int = 10
+    adapter: AdapterSpec = AdapterSpec()
+    lora: LoraSpec = LoraSpec()
+    prompt: PromptSpec = PromptSpec()
+    remat: bool = False
+    remat_policy: str = "full"
+    # See ViltModelConfig.fuse_ln (the ViT blocks under attn_impl='block').
+    fuse_ln: bool = False
+    text_remat: Optional[bool] = None
+    text_remat_policy: str = "full"
+    attention_logits_dtype: str = "float32"
+    # Candidates packed per row in rank_answer's stage-2 decode (a
+    # block-diagonal self-attention bias, exact: the -10000 fill underflows
+    # exp to 0.0); applied when it divides k, 1 = the reference's layout.
+    eval_pack_group: int = 8
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,11 @@
-"""ViLT host image preprocessing (copy of the serving half of
+"""Host image preprocessing (copy of the serving half of
 ``feddat_tpu/data/images.py``).
 
-Shorter-side resize with a longer-side cap, fit-to-canvas, and the raw-uint8
-canvas pack that the model normalises on the device.  Kept byte-for-byte in
-step with the JAX package so both predictors see identical pixels.
+ViLT: shorter-side resize with a longer-side cap, fit-to-canvas, and the
+raw-uint8 canvas pack that the model normalises on the device.  ALBEF: an
+exact bicubic resize to (384, 384) uint8, CLIP-normalised on the device.
+Kept byte-for-byte in step with the JAX package so both predictors see
+identical pixels.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Tuple
 import numpy as np
 from PIL import Image
 
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 VILT_MEAN = np.array([0.5, 0.5, 0.5], np.float32)
 VILT_STD = np.array([0.5, 0.5, 0.5], np.float32)
 
@@ -54,3 +58,8 @@ def pack_u8_canvas(u8s, canvas: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray
         out[i, :h, :w] = a[:h, :w]
         dims[i] = (h, w)
     return out, dims
+
+
+def albef_resized_u8(img: Image.Image, size: int = 384) -> np.ndarray:
+    """Exact bicubic resize to (size, size), as a [size, size, 3] uint8 array."""
+    return np.asarray(img.convert("RGB").resize((size, size), Image.BICUBIC), np.uint8)

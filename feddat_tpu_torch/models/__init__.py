@@ -1,10 +1,10 @@
 """Model registry (counterpart of ``feddat_tpu/models/__init__.py``).
 
-``create_model`` builds the ViLT continual learner on the resolved device
-with the same frozen-backbone guards as the JAX registry, and initialises it
-from ``seed`` (torch modules always carry parameters; the JAX package
-initialises separately with ``init_vilt_params``).  The other encoders are
-later slices.
+``create_model`` builds the ViLT continual learner or ALBEF on the resolved
+device with the same frozen-backbone guards as the JAX registry, and
+initialises it from ``seed`` (torch modules always carry parameters; the JAX
+package initialises separately with ``init_vilt_params``/``init_albef_params``).
+``viltbert`` is a later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from feddat_tpu_torch.configs.core import (
+    AlbefModelConfig,
     LoraSpec,
     PEFTMode,
     PromptSpec,
@@ -44,7 +45,9 @@ def create_model(
 ):
     """-> (model, model_config), the model on ``device`` (default CUDA) with
     weights initialised from ``seed``.  ``adapter_fused`` sets
-    ``AdapterSpec.fused`` (the DAT ensemble through the fused CUDA epilogue)."""
+    ``AdapterSpec.fused`` (the DAT ensemble through the fused CUDA epilogue).
+    ``task_heads`` and ``image_size`` are ignored by ALBEF (its head is the LM
+    decoder, its image 384 px)."""
     dev = resolve_device(device)
     # The attention-block kernel has a frozen-projection contract: modes
     # that train the projections would get no gradient through it.
@@ -81,10 +84,29 @@ def create_model(
             model = ViltContinualLearner(cfg, task_heads, DTYPES[dtype], attn_impl)
         model = model.to_empty(device=dev)
         return init_vilt_params(model, seed), cfg
+    if encoder_name in ("albef_distill", "albef_no_distill"):
+        from feddat_tpu_torch.models.albef import AlbefModel, init_albef_params
+
+        if prompt.enabled:
+            raise NotImplementedError("visual prompt tuning on ALBEF is not ported yet "
+                                      "(ROADMAP Queue 1, item 9)")
+        cfg = AlbefModelConfig(
+            adapter=adapter, lora=lora, prompt=prompt,
+            attention_logits_dtype=attention_logits_dtype, fuse_ln=fuse_ln,
+            distill=(encoder_name == "albef_distill"),
+        )
+        # 'block'/'layer' target the ViT (S=577, the FLOP-dominant stack); the
+        # post-LN text, fusion and decoder towers keep the composable path
+        routes = (dict(attn_impl="auto", vision_attn_impl=attn_impl)
+                  if attn_impl in ("block", "layer") else dict(attn_impl=attn_impl))
+        with torch.device("meta"):
+            model = AlbefModel(cfg, DTYPES[dtype], **routes)
+        model = model.to_empty(device=dev)
+        return init_albef_params(model, seed), cfg
     if encoder_name in ALLOWED_CL_ENCODERS:
         raise NotImplementedError(
             f"encoder {encoder_name!r} is not ported yet "
-            "(ROADMAP Queue 1: ALBEF family, other ViLT variants)"
+            "(ROADMAP Queue 1, item 10: other ViLT variants)"
         )
     raise ValueError(
         f"unknown encoder {encoder_name!r}; allowed: {ALLOWED_CL_ENCODERS} "

@@ -14,7 +14,9 @@ the site, so the projections, LoRA and LayerNorms stay trainable;
 kernels (``ops/attn_block.py``), with ``norm_before`` fused into them when
 ``fuse_ln`` is set; ``"layer"`` routes an eligible whole layer through
 ``ops/layer_block.py`` (one backward kernel per layer) and the other layers
-the ``"block"`` way.  ``"flash"`` belongs to a later slice and raises.
+the ``"block"`` way; ``"flash"`` runs the composable path with the attention
+core through the flash kernel (``ops/flash.py``) at every site, self- and
+cross-attention alike.
 """
 
 from __future__ import annotations
@@ -29,9 +31,7 @@ from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
 from feddat_tpu_torch.ops.attention import dot_product_attention
 
-ATTN_IMPLS = ("auto", "xla", "block", "layer", "fused")
-# attn_impl values of the JAX package that later slices port (ROADMAP Queue 2).
-_LATER_IMPLS = {"flash": "kernels #7 to #9, ops/flash.py"}
+ATTN_IMPLS = ("auto", "xla", "block", "layer", "fused", "flash")
 # Longest S at which norm_before is fused into the kernel (layers.py:494).
 LN_FUSED_MAX_S = 448
 # Longest S the whole-layer route takes (layers.py:392; the JAX package's
@@ -40,11 +40,6 @@ LAYER_MAX_S = 592
 
 
 def check_attn_impl(attn_impl: str) -> str:
-    if attn_impl in _LATER_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported yet: it needs {_LATER_IMPLS[attn_impl]} "
-            "(ROADMAP Queue 2)"
-        )
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; have {ATTN_IMPLS}")
     return attn_impl
@@ -113,13 +108,14 @@ def attn_block_eligible(attn_impl: str, bias: Optional[torch.Tensor], lora: Lora
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with separate q/k/v/out projections; LoRA on
-    query/value only.  (The JAX module's cross-attention ``kv`` input serves
-    ALBEF's xBERT and comes with that slice.)"""
+    """Self- or cross-attention with separate q/k/v/out projections; LoRA on
+    query/value only.  Cross-attention keys and values come from ``kv``
+    (``kv_features`` wide, xBERT's ``encoder_width``)."""
 
     def __init__(self, hidden_size: int, num_heads: int, dropout_rate: float = 0.0,
                  lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32):
+                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32,
+                 kv_features: Optional[int] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
@@ -128,9 +124,10 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.attn_impl = check_attn_impl(attn_impl)
         self.logits_dtype = logits_dtype
+        kv_features = kv_features or hidden_size
         self.query = LoraDense(hidden_size, hidden_size, lora, dtype)
-        self.key = nn.Linear(hidden_size, hidden_size)
-        self.value = LoraDense(hidden_size, hidden_size, lora, dtype)
+        self.key = nn.Linear(kv_features, hidden_size)
+        self.value = LoraDense(kv_features, hidden_size, lora, dtype)
         self.out = nn.Linear(hidden_size, hidden_size)
 
     def _block(self, x, bias, ln):
@@ -154,8 +151,10 @@ class MultiHeadAttention(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                deterministic: bool = True, ln: Optional[tuple] = None) -> torch.Tensor:
-        if attn_block_eligible(self.attn_impl, bias, self.lora, self.dropout_rate, deterministic):
+                deterministic: bool = True, ln: Optional[tuple] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if kv is None and attn_block_eligible(self.attn_impl, bias, self.lora, self.dropout_rate,
+                                              deterministic):
             return self._block(x, bias, ln)
         if ln is not None:
             raise ValueError(
@@ -168,9 +167,10 @@ class MultiHeadAttention(nn.Module):
             b, s, _ = t.shape
             return t.reshape(b, s, self.num_heads, d_head).transpose(1, 2)
 
+        kv = x if kv is None else kv
         q = self.query(x)
-        k = dense(x, self.key, self.dtype)
-        v = self.value(x)
+        k = dense(kv, self.key, self.dtype)
+        v = self.value(kv)
         ctx = dot_product_attention(
             split(q), split(k), split(v), bias,
             dropout_rate=0.0 if deterministic else self.dropout_rate,

@@ -332,7 +332,7 @@ def init_vilt_params(model: nn.Module, seed: int) -> nn.Module:
                         val = torch.rand(p.shape, generator=gen) * (2 * bound) - bound
                 elif isinstance(mod, LayerNorm):
                     val = torch.ones(p.shape) if p_name == "weight" else torch.zeros(p.shape)
-                elif p_name == "bias" or p_name in ("cls_token", "position_embeddings"):
+                elif p_name == "bias" or p_name in ("cls_token", "position_embeddings", "pos_embed"):
                     val = torch.zeros(p.shape)
                 elif mod_name.endswith("lora_b"):
                     val = torch.zeros(p.shape)

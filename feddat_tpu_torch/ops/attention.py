@@ -3,9 +3,11 @@
 Counterpart of ``feddat_tpu/ops/attention.py``: ``xla_attention`` is
 ``_xla_attention`` (the composable path, lines 22-57), ``dot_product_attention``
 routes by ``impl`` as lines 60-141 do, and ``mask_to_bias`` is the same
--10000.0 fill (lines 144-151).  ``impl="fused"`` takes the whole-sequence
-kernels (``ops/fused_attention.py``, #5/#6) where the JAX routing rule admits
-the site; ``impl="flash"`` (#7-#9) is a later slice (ROADMAP Queue 2).
+-10000.0 fill (lines 144-151), with ``causal_bias`` and ``packed_self_bias``
+for ALBEF's decoder (lines 154-191).  ``impl="fused"`` takes the
+whole-sequence kernels (``ops/fused_attention.py``, #5/#6) where the JAX
+routing rule admits the site; ``impl="flash"`` takes the flash kernel
+(``ops/flash.py``, #7) at every site.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from feddat_tpu_torch.ops.flash import flash_attention
 from feddat_tpu_torch.ops.fused_attention import fused_short_attention
 
 # The JAX package's routing rule for impl="fused" (attention.py:120-125): the
@@ -80,17 +83,17 @@ def dot_product_attention(
     [B, H, S_q, D] in ``v.dtype``.  ``"auto"``, ``"xla"`` and ``"block"`` (a
     site the block route did not take) run :func:`xla_attention`; ``"fused"``
     runs :func:`fused_short_attention` where :func:`fused_route_eligible`
-    admits the site and :func:`xla_attention` elsewhere.  ``dropout_rate`` is
-    the live rate (0 when deterministic)."""
+    admits the site and :func:`xla_attention` elsewhere; ``"flash"`` runs
+    :func:`flash_attention` at any site without live dropout.
+    ``dropout_rate`` is the live rate (0 when deterministic)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if impl == "flash":
-        raise NotImplementedError("impl='flash' is not ported yet: it needs kernels #7 to #9, "
-                                  "ops/flash.py (slice 4, ROADMAP Queue 2)")
-    if impl not in ("auto", "xla", "block", "fused"):
+    if impl not in ("auto", "xla", "block", "fused", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "fused" and fused_route_eligible(q, k, bias, dropout_rate):
         return fused_short_attention(q, k, v, bias, scale)
+    if impl == "flash" and dropout_rate == 0.0:
+        return flash_attention(q, k, v, bias, scale)
     if dropout_rate > 0.0:
         raise NotImplementedError("live attention dropout is not ported yet (ROADMAP Queue 1, item 13)")
     return xla_attention(q, k, v, bias, scale, logits_dtype)
@@ -101,3 +104,28 @@ def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torc
     -10000.0 fill (``get_extended_attention_mask``)."""
     bias = (1.0 - mask.to(torch.float32)) * -10000.0
     return bias[:, None, None, :].to(dtype)
+
+
+def causal_bias(seq_len: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Additive causal mask [1, 1, S, S]: 0 where key <= query, -10000 above."""
+    i = torch.arange(seq_len, device=device)
+    bias = torch.where(i[None, :] <= i[:, None], 0.0, -10000.0)
+    return bias[None, None].to(dtype)
+
+
+def packed_self_bias(mask: torch.Tensor, group: int, causal: bool,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Self-attention bias for ``group`` length-L sequences packed per row:
+    [N, L] padding mask (N = G·group) -> [G, 1, group·L, group·L], block
+    diagonal over the packed sequences, each key's padding at -10000, and
+    causal within a sequence when ``causal``.  Exact against the unpacked
+    layout: the -10000 fill underflows exp to 0 in fp32."""
+    n, L = mask.shape
+    G = n // group
+    key = (1.0 - mask.to(torch.float32).reshape(G, group * L)) * -10000.0
+    idx = torch.arange(group * L, device=mask.device)
+    allowed = (idx[:, None] // L) == (idx[None, :] // L)
+    if causal:
+        allowed = allowed & ((idx[None, :] % L) <= (idx[:, None] % L))
+    struct = torch.where(allowed, 0.0, -10000.0)
+    return (key[:, None, None, :] + struct[None, None]).to(dtype)

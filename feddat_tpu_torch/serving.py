@@ -1,11 +1,13 @@
-"""Batch inference surface: ViLT VQA classification serving.
+"""Batch inference surface (counterpart of ``feddat_tpu/serving.py``).
 
-Counterpart of ``feddat_tpu/serving.py::ViltVqaPredictor`` (lines 104-252):
-host preprocessing (``vilt_resized_u8`` + ``pack_u8_canvas`` + WordPiece),
-padding to the smallest batch bucket that fits, one continual-learner
-forward under ``torch.inference_mode()`` followed by an fp32 softmax, and a
-top-k.  ``from_checkpoint`` and ``AlbefVqaPredictor`` come with later slices
-(ROADMAP Queue 1: checkpoints, ALBEF family).
+* :class:`ViltVqaPredictor` (lines 104-252): classification VQA.  Host
+  preprocessing (``vilt_resized_u8`` + ``pack_u8_canvas`` + WordPiece),
+  padding to the smallest batch bucket that fits, one continual-learner
+  forward under ``torch.inference_mode()``, an fp32 softmax and a top-k.
+* :class:`AlbefVqaPredictor` (lines 255-390): answer-ranking VQA, ALBEF's
+  two-stage ``rank_answer`` over an answer bank kept on the device.
+
+``from_checkpoint`` waits for the checkpoint port (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from feddat_tpu_torch.data.images import pack_u8_canvas, vilt_resized_u8
+from feddat_tpu_torch.data.albef_pipeline import encode_answer_bank
+from feddat_tpu_torch.data.images import albef_resized_u8, pack_u8_canvas, vilt_resized_u8
+from feddat_tpu_torch.data.text import pre_question
 from feddat_tpu_torch.device import DeviceLike, resolve_device
+from feddat_tpu_torch.utils.param_bridge import albef_from_flax, vilt_from_flax
 
 
 def _pad_batch(arrs: Dict[str, np.ndarray], batch_size: int) -> Tuple[Dict[str, np.ndarray], int]:
@@ -47,17 +52,24 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def _load_params(model: torch.nn.Module, params_or_state) -> None:
+def _load_params(model: torch.nn.Module, params_or_state, bridge=vilt_from_flax) -> None:
     """None keeps the model's weights; a torch state_dict loads as is; a
-    JAX-package param tree (nested dicts of arrays) goes through the bridge."""
+    JAX-package param tree (nested dicts of arrays) goes through ``bridge``
+    (``utils/param_bridge.py``)."""
     if params_or_state is None:
         return
     state = params_or_state
     if any(isinstance(v, Mapping) for v in state.values()):
-        from feddat_tpu_torch.utils.param_bridge import vilt_from_flax
-
-        state = vilt_from_flax(state)
+        state = bridge(state)
     model.load_state_dict(state, strict=True)
+
+
+def _open(img):
+    if hasattr(img, "convert"):
+        return img
+    from PIL import Image
+
+    return Image.open(img)
 
 
 class ViltVqaPredictor:
@@ -95,13 +107,7 @@ class ViltVqaPredictor:
         self.adapter_mode = adapter_mode
 
     def _preprocess(self, images, questions) -> Dict[str, np.ndarray]:
-        u8s = []
-        for img in images:
-            if not hasattr(img, "convert"):
-                from PIL import Image
-
-                img = Image.open(img)
-            u8s.append(vilt_resized_u8(img, self.canvas))
+        u8s = [vilt_resized_u8(_open(img), self.canvas) for img in images]
         pixels, dims = pack_u8_canvas(u8s, self.canvas)
         ids, mask = self.tokenizer.batch_encode(list(questions), self.max_text_len)
         return {
@@ -135,4 +141,87 @@ class ViltVqaPredictor:
             order = np.argsort(-probs, axis=-1)[:, :top_k]
             for i in range(n):
                 results.append([(self.label2ans[j], float(probs[i, j])) for j in order[i]])
+        return results
+
+
+class AlbefVqaPredictor:
+    """Serving wrapper for ALBEF: two-stage answer ranking over a fixed
+    answer list (``AlbefModel.rank_answer``).
+
+    The tokenised answer bank lives on ``device`` (default CUDA) beside the
+    model; ``k`` is capped by the bank's size, and ``predict``'s ``top_k``
+    by ``k``.  ``batch_buckets`` as in :class:`ViltVqaPredictor`."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        params_or_state,
+        tokenizer,
+        answer_list: Sequence[str],
+        batch_size: int = 16,
+        k: int = 64,
+        max_question_len: int = 25,
+        max_answer_len: int = 10,
+        adapter_mode: str = "ensemble",
+        pad_token_id: int = 0,
+        batch_buckets: Optional[Sequence[int]] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        _load_params(self.model, params_or_state, albef_from_flax)
+        self.tokenizer = tokenizer
+        self.answer_list = list(answer_list)
+        self.batch_size = batch_size
+        self.buckets = _normalize_buckets(batch_buckets, batch_size)
+        self.max_question_len = max_question_len
+        self.image_size = self.model.cfg.image_res
+        self.adapter_mode = adapter_mode
+        self.pad_token_id = pad_token_id
+        ids, mask = encode_answer_bank(tokenizer, self.answer_list, max_answer_len)
+        self.bank = tuple(torch.from_numpy(a).to(self.device) for a in (ids, mask))
+        self.k = min(k, len(self.answer_list))
+
+    @classmethod
+    def from_checkpoint(cls, *args, **kwargs):
+        raise NotImplementedError("serving from a checkpoint is not ported yet "
+                                  "(ROADMAP Queue 1, item 5: checkpoints)")
+
+    def _preprocess(self, images, questions) -> Dict[str, np.ndarray]:
+        pixels = np.stack([albef_resized_u8(_open(img), self.image_size) for img in images])
+        ids, mask = self.tokenizer.batch_encode([pre_question(q, 50) for q in questions],
+                                                self.max_question_len)
+        return {
+            "pixel_values": pixels,  # u8: the ViT CLIP-normalises on the device
+            "question_ids": ids,
+            "question_mask": mask,
+        }
+
+    def rank(self, batch: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """Padded numpy batch -> (answer indices [B, k], probabilities [B, k]),
+        descending."""
+        tensors = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        with torch.inference_mode():
+            ids, probs = self.model.rank_answer(tensors, *self.bank, self.k, self.adapter_mode,
+                                                self.pad_token_id)
+        return ids.cpu().numpy(), probs.cpu().numpy()
+
+    def predict(self, images: Sequence[Any], questions: Sequence[str],
+                top_k: int = 5) -> List[List[Tuple[str, float]]]:
+        """-> per example, top-k (answer, rerank probability), descending."""
+        if len(images) != len(questions):
+            raise ValueError(f"{len(images)} images for {len(questions)} questions")
+        if top_k > self.k:
+            raise ValueError(f"top_k={top_k} exceeds the rerank width k={self.k}; "
+                             "construct the predictor with a larger k")
+        results: List[List[Tuple[str, float]]] = []
+        for s in range(0, len(images), self.batch_size):
+            chunk = self._preprocess(images[s : s + self.batch_size],
+                                     questions[s : s + self.batch_size])
+            bucket = _bucket_for(chunk["pixel_values"].shape[0], self.buckets)
+            batch, n = _pad_batch(chunk, bucket)
+            ids, probs = self.rank(batch)
+            for i in range(n):
+                results.append([(self.answer_list[int(j)], float(p))
+                                 for j, p in zip(ids[i, :top_k], probs[i, :top_k])])
         return results

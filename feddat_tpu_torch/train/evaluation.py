@@ -1,9 +1,9 @@
 """Evaluation loops (counterpart of ``feddat_tpu/train/evaluation.py``).
 
 VQA soft score (ViLT classification) with exact example counting through
-the batches' ``valid`` mask, and the DAT protocol scoring [ensemble,
-adapter_0 only, adapter_1 only] in one pass over the data
-(``task_trainer.py:229-244``).  Per-batch scores stay on the device until
+the batches' ``valid`` mask, ALBEF's rank-answer hit count, and the DAT
+protocol scoring [ensemble, adapter_0 only, adapter_1 only] in one pass over
+the data (``task_trainer.py:229-244``).  Per-batch scores stay on the device until
 the loop ends, so the host never waits on the card between batches.
 """
 
@@ -38,6 +38,31 @@ def make_eval_step(model, task_key: str, metric: str = "vqa_score"):
         if valid is not None:
             per = per * valid.to(per.dtype)
         return per.sum()
+
+    return step
+
+
+def make_albef_eval_step(model, answer_ids, answer_mask, k: int = 64, pad_token_id: int = 0):
+    """ALBEF rank-answer eval: ``step(params, batch, adapter_mode) -> masked
+    hit count`` (0-d tensor), one point where the top reranked answer is any
+    ground-truth label (``gt_labels`` [B, G], -1 padded).  ``answer_ids`` /
+    ``answer_mask``: the tokenised bank [num_answers, La]; ``k`` is capped by
+    its size."""
+    answer_ids, answer_mask = torch.as_tensor(answer_ids), torch.as_tensor(answer_mask)
+    k = min(k, int(answer_ids.shape[0]))
+
+    @torch.no_grad()
+    def step(params, batch, adapter_mode="none"):
+        device = next(iter(params.values())).device
+        batch = to_device(batch, device)
+        topk_ids, _ = call_method(model, params, "rank_answer", batch, answer_ids.to(device),
+                                  answer_mask.to(device), k, adapter_mode, pad_token_id)
+        gt = batch["gt_labels"]
+        hit = ((topk_ids[:, :1] == gt) & (gt >= 0)).any(dim=1).to(torch.float32)
+        valid = batch.get("valid")
+        if valid is not None:
+            hit = hit * valid.to(hit.dtype)
+        return hit.sum()
 
     return step
 

@@ -1,13 +1,14 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
-``vilt_from_flax`` maps the flax tree of ``feddat_tpu``'s
-``ViltContinualLearner`` (nested dicts of numpy arrays) onto the state_dict
-of ``feddat_tpu_torch.models.vilt.ViltContinualLearner``.  It is the inverse
+``vilt_from_flax`` and ``albef_from_flax`` map the flax trees of
+``feddat_tpu``'s ``ViltContinualLearner`` and ``AlbefModel`` (nested dicts of
+numpy arrays) onto the state_dicts of the port's twins.  They are the inverse
 of ``feddat_tpu/utils/checkpoint_convert.py``'s ``_linear``/``_stack``:
 
 * flax ``Dense`` ``kernel [in, out]`` -> ``nn.Linear.weight [out, in]``;
-* the ``nn.scan`` stack ``vilt/layers/layer/...`` with a leading ``[L]``
-  axis -> ``vilt.layers.<i>....`` for each of the L layers;
+* an ``nn.scan`` stack ``<prefix>/<cell>/...`` with a leading ``[L]`` axis
+  -> ``<prefix>.<i>....`` for each of the L layers (ViLT's ``vilt/layers/
+  layer``; ALBEF's ViT blocks, text and fusion layers and decoder layers);
 * the NHWC conv ``kernel [kh, kw, in, out]`` -> ``Conv2d.weight [out, in, kh, kw]``;
 * ``Embed.embedding`` and LayerNorm ``scale`` -> ``.weight``; ``bias`` as is;
 * ``cls_token`` and ``position_embeddings`` as they are.
@@ -20,7 +21,13 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-_STACK = ("vilt", "layers", "layer")
+VILT_STACKS = (("vilt", "layers", "layer"),)
+ALBEF_STACKS = (
+    ("visual_encoder", "blocks", "block"),
+    ("text_encoder", "encoder", "text_layers", "layer"),
+    ("text_encoder", "encoder", "fusion_layers", "layer"),
+    ("text_decoder", "bert", "encoder", "fusion_layers", "layer"),
+)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -42,8 +49,7 @@ def _leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
     return ".".join(path), value
 
 
-def vilt_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax param tree (numpy leaves) -> state_dict (fp32 CPU tensors)."""
+def _from_flax(params_np: Mapping[str, Any], stacks) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def put(path, value):
@@ -53,9 +59,21 @@ def vilt_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[key] = torch.tensor(arr)
 
     for path, value in _flatten(params_np):
-        if path[:3] == _STACK:
-            for i in range(np.shape(value)[0]):
-                put(("vilt", "layers", str(i)) + path[3:], np.asarray(value)[i])
-        else:
+        stack = next((st for st in stacks if path[:len(st)] == st), None)
+        if stack is None:
             put(path, value)
+            continue
+        for i in range(np.shape(value)[0]):
+            put(stack[:-1] + (str(i),) + path[len(stack):], np.asarray(value)[i])
     return out
+
+
+def vilt_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ViLT flax param tree (numpy leaves) -> state_dict (fp32 CPU tensors)."""
+    return _from_flax(params_np, VILT_STACKS)
+
+
+def albef_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ALBEF flax param tree (numpy leaves) -> state_dict (fp32 CPU tensors);
+    the decoder's ``cls/decoder/bias`` is the tied projection's bias."""
+    return _from_flax(params_np, ALBEF_STACKS)

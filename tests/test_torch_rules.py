@@ -4,7 +4,7 @@
   ``flax`` or ``feddat_tpu``;
 * entry points need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
-  plain version, and the ``attn_impl`` value of a later slice raises.
+  plain version, and an unknown ``attn_impl`` raises.
 """
 
 import ast
@@ -22,9 +22,10 @@ from feddat_tpu_torch.configs.core import AdapterSpec
 from feddat_tpu_torch.models.vilt import TaskHeadSpec, ViltContinualLearner
 from feddat_tpu_torch.ops import adapter_fused as af
 from feddat_tpu_torch.ops import attn_block as ab
+from feddat_tpu_torch.ops import flash as fl
 from feddat_tpu_torch.ops import fused_attention as fa
 from feddat_tpu_torch.ops import layer_block as lb
-from feddat_tpu_torch.serving import ViltVqaPredictor
+from feddat_tpu_torch.serving import AlbefVqaPredictor, ViltVqaPredictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "feddat_tpu")
@@ -65,6 +66,12 @@ def test_entry_points_raise_without_cuda():
     tiny = ViltContinualLearner.__new__(ViltContinualLearner)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ViltVqaPredictor(tiny, None, "t", WordPieceTokenizer.toy(["a"]), ["x"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model("albef_no_distill", {}, PEFTMode.DAT, dtype="bfloat16", attn_impl="flash")
+    from feddat_tpu_torch.models.albef import AlbefModel
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AlbefVqaPredictor(AlbefModel.__new__(AlbefModel), None, WordPieceTokenizer.toy(["a"]), ["x"])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -94,8 +101,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa.fused_attention_fwd_cuda(heads, heads, heads, None, 0.125)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         fa.fused_attention_bwd_cuda(heads, heads, heads, None, heads, heads, lse, 0.125)
+    flash_before = fl.KERNEL.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fl.flash_attention_fwd_cuda(heads, heads[:, :, :3], heads[:, :, :3], None, 0.125)
     assert (ab.KERNEL.launches, af.KERNEL.launches, ab.KERNEL_BWD.launches,
             lb.KERNEL.launches, fa.KERNEL.launches, fa.KERNEL_BWD.launches) == before + (0, 0, 0, 0)
+    assert fl.KERNEL.launches == flash_before
 
 
 def test_a_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -150,10 +161,16 @@ def test_remat_raises_until_ported():
 
 
 def test_attn_impls_of_later_slices_raise():
+    """Every attn_impl of the JAX package is ported ("flash" in slice 4, with
+    kernel #7); an unknown value still raises."""
     spec = AdapterSpec(names=("adapter_0",), reduction_factor=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PreLNLayer(32, 4, 64, spec, attn_impl="flash")
-    for impl in ("xla", "fused"):  # ported: the composable route, with kernels #5/#6 for "fused"
+    assert PreLNLayer(32, 4, 64, spec, attn_impl="flash").attention.attn_impl == "flash"
+    for impl in ("xla", "fused"):  # the composable route, with kernels #5/#6 for "fused"
         assert PreLNLayer(32, 4, 64, spec, attn_impl=impl).attention.attn_impl == impl
     with pytest.raises(ValueError, match="unknown attn_impl"):
         PreLNLayer(32, 4, 64, spec, attn_impl="xla-typo")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        from feddat_tpu_torch.ops.attention import dot_product_attention
+
+        x = torch.zeros(1, 1, 2, 8)
+        dot_product_attention(x, x, x, impl="flash-typo")

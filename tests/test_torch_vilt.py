@@ -176,6 +176,8 @@ def test_create_model_guards_and_device():
         create_model("vilt", {"t": TaskHeadSpec(2)}, PEFTMode.LORA, attn_impl="block",
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("albef_distill", {}, PEFTMode.DAT, device="cpu")
+        create_model("viltbert", {}, PEFTMode.DAT, device="cpu")
+    with pytest.raises(NotImplementedError, match="prompt tuning on ALBEF"):
+        create_model("albef_distill", {}, PEFTMode.PROMPT, device="cpu")
     with pytest.raises(ValueError, match="unknown encoder"):
         create_model("flava", {}, PEFTMode.DAT, device="cpu")
