@@ -9,7 +9,10 @@ Phases, in this order:
 2. parity — hold each kernel against its plain PyTorch version on the card, at
             the serving and training shapes and at ragged ones, with the stated
             tolerances; the whole-layer backward twice, bitwise; the flash
-            forward (#7) at ALBEF's nine attention shapes, twice, bitwise.
+            forward (#7) at ALBEF's nine attention shapes, twice, bitwise; the
+            flash backward (#8 dq, #9 dk/dv) at ALBEF's five training sites and
+            four ragged shapes, twice, bitwise, with constructed probes of p's
+            and ds's precision and the wrappers' refusals.
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -43,7 +46,19 @@ Phases, in this order:
             train samples/s and ALBEF rank-answer questions/s, kernel path
             against plain path in alternating samples; torch.profiler
             breakdowns of one serving forward, one step of each and one
-            rank_answer call.
+            rank_answer call.  Then the earlier phases' models are freed.
+8. albef_train — full-width ALBEF DAT training, bf16, attn_impl='flash', the
+            fused DAT step at B=48 questions x 4 answers (bench.py's batch):
+            (a) dropout 0.1 live, #7/#8/#9 launches read around one step (the
+            ViT sites only), steps repeated from one state give equal losses
+            and another generator seed other ones; (b) dropout off, launches
+            at every site, and the four gradient sets and both losses held
+            against the plain fp32 path by the 2x-bf16 rule at B=48; (c) one
+            FederatedTrainer round of two synthetic ALBEF clients (2 fused
+            steps each, FedAvg of adapter_1) and evaluate_dat by rank_answer.
+9. time   — #8 and #9 at ALBEF's ViT shape beside the plain backward, autograd
+            through SDPA and their bounds; ALBEF train samples/s, kernel path
+            against plain path, with peak memory; a profile of one step.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -414,12 +429,12 @@ def rel_norm(k, r) -> float:
     return ((k - r).norm() / r.norm()).item()
 
 
-def own_ulps(torch, k, r) -> float:
+def own_ulps(torch, k, r, floor: float = 0.0) -> float:
     """Largest |k - r| in bf16 ulps of each element's own |r|, the ulp taken
     at no less than the rms of r (an element near 0 is held at the ulp of a
-    typical one, not at ~0)."""
+    typical one, not at ~0) nor than ``floor``."""
     k, r = k.float(), r.float()
-    mag = torch.maximum(r.abs(), r.pow(2).mean().sqrt())
+    mag = torch.maximum(r.abs(), r.pow(2).mean().sqrt().clamp_min(floor))
     return ((k - r).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
 
 
@@ -646,9 +661,10 @@ def flash_case(torch, b, sq, skv, kind, seed):
     ``padding`` [B,1,1,Skv] (text self-attention, stage-1 and grouped cross),
     ``zero`` [B,1,1,Skv] (fusion cross: every image token), ``packed``
     [B,1,Sq,Skv] (the stage-2 decoder, 8 causal answers per row, each padded
-    to a random length) and ``heads`` [1,H,Sq,Skv] (random, the head-dim layout
-    of _prep_bias that no ALBEF site has)."""
-    from feddat_tpu_torch.ops.attention import packed_self_bias
+    to a random length), ``causal`` [B,1,Sq,Skv] (the training decoder: causal
+    plus padding) and ``heads`` [1,H,Sq,Skv] (random, the head-dim layout of
+    _prep_bias that no ALBEF site has)."""
+    from feddat_tpu_torch.ops.attention import causal_bias, packed_self_bias
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -670,6 +686,8 @@ def flash_case(torch, b, sq, skv, kind, seed):
         bias = packed_self_bias(mask, PACK, True)
     elif kind == "heads":
         bias = torch.randn(1, HEADS, sq, skv, generator=g, device="cuda")
+    elif kind == "causal":
+        bias = padding_bias(torch, b, skv, seed) + causal_bias(skv, device="cuda")
     else:
         raise ValueError(kind)
     return q, k, v, bias
@@ -761,31 +779,167 @@ def flash_p_probe(torch):
 
 
 def flash_refusals(torch):
-    """On the card #7's wrapper raises, without launching, on what the kernel
-    does not take (fp32, head dim 32), and the flash backward raises, naming
-    kernels #8/#9: nothing falls back to a plain version."""
+    """On the card the wrappers of #7 and of #8/#9 raise, without launching, on
+    what the kernels do not take (fp32, head dim 32; for the backward also a
+    bias on another device): nothing falls back to a plain version.  The
+    autograd function runs #7 forward and #8/#9 backward on CUDA tensors."""
     from feddat_tpu_torch.ops import flash as fl
 
     x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
-    before = fl.KERNEL.launches
-    refused = []
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    kernels = (fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV)
+    before = [k.launches for k in kernels]
+    refused = 0
     for bad, err in ((x.float(), TypeError), (x[..., :32], ValueError)):
         try:
             fl.flash_attention_fwd_cuda(bad, bad, bad, None, 0.125)
         except err:
-            refused.append(True)
+            refused += 1
+    for bad, bias in ((x.float(), None), (x[..., :32], None), (x, torch.zeros(1, 1, 1, 8))):
+        try:
+            fl.flash_attention_bwd_cuda(bad, bad, bad, bias, bad, bad, lse, 0.125)
+        except ValueError:
+            refused += 1
+    idle = [k.launches - b for k, b in zip(kernels, before)]
     leaves = [x.clone().requires_grad_() for _ in range(3)]
-    try:
-        fl.flash_attention(*leaves).float().sum().backward()
-        message = ""
-    except NotImplementedError as e:
-        message = str(e)
+    fl.flash_attention(*leaves).float().sum().backward()
     torch.cuda.synchronize()
-    print(f"parity flash_attention refusals: fp32 and head dim 32 refused {len(refused)}/2, "
-          f"launches {fl.KERNEL.launches - before} (1: the forward before the backward); "
-          f"CUDA backward raises: {message[:80]!r}")
-    check(len(refused) == 2 and fl.KERNEL.launches - before == 1 and "#8" in message,
-          "flash_attention accepts what it does not take, or its CUDA backward does not raise")
+    ran = [k.launches - b for k, b in zip(kernels, before)]
+    print(f"parity flash_attention refusals: fp32 and head dim 32 (forward and backward) and a CPU "
+          f"bias (backward) refused {refused}/5 with launches {idle}; one autograd forward and "
+          f"backward launched #7/#8/#9 {ran} times")
+    check(refused == 5 and idle == [0, 0, 0] and ran == [1, 1, 1]
+          and all(t.grad is not None for t in leaves),
+          "flash attention accepts what it does not take, or its autograd path skips a kernel")
+
+
+# The backward's training sites at ALBEF's batch (B=48, A=4 answers per
+# question, 12 heads): (site, B, Sq, Skv, bias), then ragged lengths.
+FLASH_BWD_CASES = [
+    ("vit self", 48, VIT_S, VIT_S, "none"),
+    ("text self", 48, LQ, LQ, "padding"),
+    ("fusion cross", 48, LQ, VIT_S, "zero"),
+    ("decoder self", 48 * 4, LA, LA, "causal"),
+    ("decoder grouped cross", 48, 4 * LA, LQ, "padding"),
+    ("Sq=Skv=1", 5, 1, 1, "padding"),
+    ("Sq=1", 5, 1, LQ, "padding"),
+    ("ragged head bias", 3, 130, 70, "heads"),
+    ("ragged", 2, 67, 129, "padding"),
+]
+# #8/#9 against their plain version on the same inputs, each of dq, dk, dv
+# elementwise in bf16 ulps of each element's own magnitude (own_ulps).  Both
+# keep p and ds at fp32 precision (the kernels as bf16 hi + lo) and round the
+# gradients to bf16 once after fp32 sums taken in another order: limit 16, as
+# #6's, with a planted fault (one row off by the rms) read every run.
+FLASH_BWD_LIMIT = 16
+
+
+def flash_bwd_parity(torch, site, b, sq, skv, kind, seed):
+    """#8 (dq) and #9 (dk, dv) on the kernel forward's own o and lse, as the
+    autograd path hands them over, and a cotangent dO in the split() layout."""
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v, bias = flash_case(torch, b, sq, skv, kind, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(b, sq, DM, generator=g, device="cuda").bfloat16()
+    do = do.view(b, sq, HEADS, DM // HEADS).transpose(1, 2)
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, bias, scale)
+        got = fl.flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale)
+        again = fl.flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale)
+        want = fl.flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale)
+    torch.cuda.synchronize()
+
+    def rms(t):
+        return t.float().pow(2).mean().sqrt().item()
+
+    # dq and dk are sums of ds = p (dP - delta), which vanishes where a query
+    # has one key (p = 1, dP = delta): both sides then hold fp32 cancellation
+    # noise only.  So each is held at no less than the ulp of 2^-8 of a typical
+    # ds-sized term (scale |dP| |k| or |q|, |dP| ~ sqrt(64) |dO| |v|).
+    term = scale * 8.0 * rms(do) * rms(v) * 2.0 ** -8
+    floors = {"dq": term * rms(k), "dk": term * rms(q), "dv": 0.0}
+    readings, planted = {}, {}
+    for name, kk, r in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(kk.float()).all()), f"flash_attention_bwd {site} {name}: non-finite")
+        readings[name] = own_ulps(torch, kk, r, floors[name])
+        bad = kk.float().clone()
+        bad[0, 0, 0] += max(rms(r), floors[name])
+        planted[name] = own_ulps(torch, bad, r, floors[name])
+    bias_desc = "none" if bias is None else list(bias.shape)
+    print(f"parity flash_attention_bwd {site} B={b} H={HEADS} Sq={sq} Skv={skv} bias={bias_desc}: "
+          + ", ".join(f"{n} {readings[n]:.3g} own ulps (planted {planted[n]:.3g})" for n in readings)
+          + f", limit {FLASH_BWD_LIMIT}; rel norm " + " ".join(
+              f"{n} {rel_norm(kk, r):.2e}" for n, kk, r in zip(readings, got, want)))
+    for n in readings:
+        check(readings[n] <= FLASH_BWD_LIMIT < planted[n],
+              f"flash_attention_bwd {site} {n} disagrees with the plain version: {readings[n]} "
+              f"(limit {FLASH_BWD_LIMIT}, planted {planted[n]})")
+    stable = all(torch.equal(a, c) for a, c in zip(got, again))
+    print(f"parity flash_attention_bwd {site}: second call bitwise equal: {stable}")
+    check(stable, f"flash_attention_bwd {site} is not bitwise stable across two calls")
+    return {n: (kk.float() - r.float()).abs().max().item() for n, kk, r in zip(readings, got, want)}
+
+
+def flash_bwd_probes(torch):
+    """p and ds stay fp32 in their products.  Each probe puts two terms that
+    are equal in bf16 but not in fp32 (1 + 2^-10 and 1, or e^(-2^-10) and 1)
+    on operands +1000 and -1000, so the gradient is ~1000 * 2^-10 with fp32
+    terms and exactly 0 with terms rounded to bf16.  The logits come from the
+    [1, 1, Sq, Skv] bias (q.k^T = 0), the forward's o from the caller (it only
+    feeds delta = rowsum(dO o)).
+    #8 ds: keys k0 = +1000 e0, k1 = -1000 e0, k2 = 0, bias (ln 2, 0, 0) -> p =
+      (1/2, 1/4, 1/4); dO = e0 + e1, v0 = (10, 2^-9), v1 = (12, 0), v2 = 0 and
+      o = (8, 0) -> delta = 8, ds = (1 + 2^-10, 1, -2): dq = 1000 * 2^-10 * scale.
+    #9 ds: q_a = +1000 e0, q_b = -1000 e0, keys 0; two keys at p = 1/2; dO_a =
+      (4, 2^-8), dO_b = (4, 0), v0 = e0 + e1, v1 = 0, o = v0 / 2 -> ds_a0 = 1 +
+      2^-10, ds_b0 = 1: dk0 = 1000 * 2^-10 * scale.
+    #9 p: row a's logits (0, ln(e^(2^-10) - 1)), row b's (0, -10^4) -> p_a0 =
+      e^(-2^-10), p_b0 = 1; dO_a = +1000 e0, dO_b = -1000 e0: dv0 = 1000 (e^(-2^-10) - 1)."""
+    from feddat_tpu_torch.ops import flash as fl
+
+    def zeros(s):
+        return torch.zeros(1, 1, s, 64, dtype=torch.bfloat16, device="cuda")
+
+    def run(q, k, v, o, do, bias, scale=0.125):
+        with torch.no_grad():
+            _, lse = fl.flash_attention_fwd_cuda(q, k, v, bias, scale)
+            got = fl.flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale)
+            want = fl.flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale)
+        torch.cuda.synchronize()
+        return got, want
+
+    # #8: ds in ds.k
+    q, k, v, o, do = zeros(1), zeros(3), zeros(3), zeros(1), zeros(1)
+    k[0, 0, 0, 0], k[0, 0, 1, 0] = 1000.0, -1000.0
+    v[0, 0, 0, 0], v[0, 0, 0, 1], v[0, 0, 1, 0] = 10.0, 2.0 ** -9, 12.0
+    o[0, 0, 0, 0] = 8.0
+    do[0, 0, 0, :2] = 1.0
+    bias = torch.tensor([math.log(2.0), 0.0, 0.0], device="cuda").view(1, 1, 1, 3)
+    (dq, _, _), (dq_r, _, _) = run(q, k, v, o, do, bias)
+    results = {"#8 ds": (dq[0, 0, 0, 0].item(), dq_r[0, 0, 0, 0].item(), 1000 * 2.0 ** -10 * 0.125)}
+
+    # #9: ds in ds^T.q, and p in p^T.dO
+    q, k, v, o, do = zeros(2), zeros(2), zeros(2), zeros(2), zeros(2)
+    q[0, 0, 0, 0], q[0, 0, 1, 0] = 1000.0, -1000.0
+    v[0, 0, 0, :2] = 1.0
+    o[0, 0, :, :2] = 0.5
+    do[0, 0, 0, 0], do[0, 0, 0, 1], do[0, 0, 1, 0] = 4.0, 2.0 ** -8, 4.0
+    (_, dk, _), (_, dk_r, _) = run(q, k, v, o, do, torch.zeros(1, 1, 1, 2, device="cuda"))
+    results["#9 ds"] = (dk[0, 0, 0, 0].item(), dk_r[0, 0, 0, 0].item(), 1000 * 2.0 ** -10 * 0.125)
+    q, o = zeros(2), zeros(2)
+    do = zeros(2)
+    do[0, 0, 0, 0], do[0, 0, 1, 0] = 1000.0, -1000.0
+    bias = torch.tensor([[0.0, math.log(math.expm1(2.0 ** -10))], [0.0, -1e4]],
+                        device="cuda").view(1, 1, 2, 2)
+    (_, _, dv), (_, _, dv_r) = run(q, k, v, o, do, bias)
+    results["#9 p"] = (dv[0, 0, 0, 0].item(), dv_r[0, 0, 0, 0].item(), 1000 * math.expm1(-2.0 ** -10))
+    print("parity flash_attention_bwd probes (kernel, plain version, exact; terms rounded to bf16 "
+          "give 0): " + "; ".join(f"{n} {a:.6f} {b:.6f} {e:.6f}" for n, (a, b, e) in results.items()))
+    for name, (got, plain, exact) in results.items():
+        check(abs(got - exact) <= 2 * bf16_ulp(abs(exact)) and abs(plain - exact) <= 2 * bf16_ulp(abs(exact)),
+              f"flash_attention_bwd {name}: rounded below fp32 ({got} vs {exact})")
 
 
 def phase_parity(torch, seed):
@@ -810,6 +964,11 @@ def phase_parity(torch, seed):
                   for i, (site, b, sq, skv, kind) in enumerate(FLASH_CASES)}
     errs["flash_attention"] = flash_errs["vit"]
     flash_p_probe(torch)
+    bwd_errs = {site: flash_bwd_parity(torch, site, b, sq, skv, kind, seed + 20 + i)
+                for i, (site, b, sq, skv, kind) in enumerate(FLASH_BWD_CASES)}
+    errs["flash_attention_bwd_dq"] = bwd_errs["vit self"]["dq"]
+    errs["flash_attention_bwd_dkv"] = max(bwd_errs["vit self"]["dk"], bwd_errs["vit self"]["dv"])
+    flash_bwd_probes(torch)
     flash_refusals(torch)
     return errs
 
@@ -903,7 +1062,8 @@ def counters():
     return {"attn_block": ab.KERNEL, "adapter_fused": af.KERNEL,
             "attn_block_bwd": ab.KERNEL_BWD, "layer_block_bwd": lb.KERNEL,
             "fused_attention": fa.KERNEL, "fused_attention_bwd": fa.KERNEL_BWD,
-            "flash_attention": fl.KERNEL}
+            "flash_attention": fl.KERNEL, "flash_attention_bwd_dq": fl.KERNEL_BWD_DQ,
+            "flash_attention_bwd_dkv": fl.KERNEL_BWD_DKV}
 
 
 def reset_counts():
@@ -916,7 +1076,8 @@ def read_counts():
 
 
 NO_LAUNCHES = {"attn_block": 0, "adapter_fused": 0, "attn_block_bwd": 0, "layer_block_bwd": 0,
-               "fused_attention": 0, "fused_attention_bwd": 0, "flash_attention": 0}
+               "fused_attention": 0, "fused_attention_bwd": 0, "flash_attention": 0,
+               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 TRAIN_CLIENTS = ("c0", "c1")
@@ -1358,6 +1519,313 @@ def phase_albef(torch, seed):
     return dict(pred=pred, plain=plain, batch=batch, requests=(imgs, qs), launches=launches)
 
 
+# ALBEF DAT training (slice 5): bench.py's _build_albef batch, B=48 questions
+# with A=4 weighted answers each, dropout live at ALBEF's 0.1 (the users'
+# setting) or off.  The plain fp32 path fits at this batch (about 51 GiB), so
+# the gradient check runs at it too.
+ATB, ANS_PER_Q = 48, 4
+
+
+def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, state=None):
+    """Full-width ALBEF DAT from ``create_model`` (its dropout 0.1 live), or
+    the same configuration with both BERT rates at 0; weights from ``seed``
+    or ``state``."""
+    import dataclasses
+
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import DTYPES, create_model
+    from feddat_tpu_torch.models.albef import AlbefModel
+
+    model, cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, 16, dtype, attn_impl=attn_impl,
+                              seed=seed)
+    check((cfg.bert.hidden_dropout, cfg.bert.attention_dropout) == (0.1, 0.1)
+          and cfg.image_res == ARES and cfg.max_question_len == LQ and cfg.max_answer_len == LA,
+          f"unexpected ALBEF config {cfg}")
+    if not dropout:
+        cfg = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert, hidden_dropout=0.0,
+                                                                attention_dropout=0.0))
+        sd = model.state_dict() if state is None else state
+        with torch.device("meta"):
+            model = AlbefModel(cfg, DTYPES[dtype], attn_impl=attn_impl)
+        model = model.to_empty(device="cuda")
+        model.load_state_dict(sd)
+    elif state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def albef_train_batch(torch, b, seed):
+    """bench.py's ALBEF batch on the card: random pixels, 25 question tokens,
+    A answers of 10 tokens at weight 1/A."""
+    import numpy as np
+
+    from feddat_tpu_torch.train.forwards import to_device
+
+    rng = np.random.RandomState(seed)
+    batch = {
+        "pixel_values": rng.randn(b, ARES, ARES, 3).astype(np.float32),
+        "question_ids": rng.randint(5, 30522, size=(b, LQ)).astype(np.int32),
+        "question_mask": np.ones((b, LQ), np.int32),
+        "answer_ids": rng.randint(5, 30522, size=(b, ANS_PER_Q, LA)).astype(np.int32),
+        "answer_mask": np.ones((b, ANS_PER_Q, LA), np.int32),
+        "answer_weights": np.full((b, ANS_PER_Q), 1.0 / ANS_PER_Q, np.float32),
+    }
+    return to_device(batch, torch.device("cuda"))
+
+
+def albef_fused_step(torch, model, params, seed):
+    """(make_albef_fused_dat_step's step, its initial state from ``seed``)."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.trainers import make_albef_fused_dat_step
+
+    opt = OptimizerConfig()
+    step, part = make_albef_fused_dat_step(model, params, opt, 10_000)
+    return step, dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+
+
+FLASH_KEYS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def flash_launches(counts):
+    return "/".join(str(counts[k]) for k in FLASH_KEYS)
+
+
+def phase_albef_train(torch, seed):
+    """Full-width ALBEF DAT training through attn_impl='flash' and the fused
+    step: (a) the users' setting, dropout 0.1 live (flash at the ViT sites
+    only); (b) dropout off (flash at every site) with the 2x-bf16 gradient
+    rule at the same batch; (c) one FederatedTrainer round of two synthetic
+    clients and its rank-answer evaluate_dat."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    # (a) dropout live: 12 ViT sites per encoder pass, block 0 without a backward
+    model = albef_train_model(torch, seed, "flash")
+    cfg = model.cfg
+    vit, text = cfg.vision_layers, cfg.bert.fusion_layer
+    fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
+    params = {n: t.detach() for n, t in model.state_dict().items()}
+    batch = albef_train_batch(torch, ATB, seed)
+    step, state0 = albef_fused_step(torch, model, params, seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    state, m = step(state0, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {**NO_LAUNCHES, "flash_attention": 2 * vit, "flash_attention_bwd_dq": 2 * (vit - 1),
+            "flash_attention_bwd_dkv": 2 * (vit - 1)}
+    print(f"albef_train: fused DAT step, dropout 0.1 live, attn_impl='flash', B={ATB} A={ANS_PER_Q} "
+          f"(S={VIT_S}, Lq={LQ}, La={LA}): #7/#8/#9 launches {flash_launches(launches)} (expected "
+          f"{flash_launches(want)}: the {vit} ViT sites of 2 encoder passes, forward and backward; "
+          f"block 0's attention input depends on no trainable parameter, so it has no backward; the "
+          f"BERT sites carry attention dropout and take the composable path)")
+    check(launches == want, f"albef_train launches {launches}, expected {want}")
+    losses = [(float(m["loss"]), float(m["loss_shared"]))]
+    for _ in range(2):
+        state, mm = step(state, batch)
+        losses.append((float(mm["loss"]), float(mm["loss_shared"])))
+    _, again = step(state0, batch)
+    _, other = step(state0.replace(rng=torch.Generator().manual_seed(seed + 1)), batch)
+    torch.cuda.synchronize()
+    same = [float(again[k]) == float(m[k]) for k in ("loss", "loss_shared")]
+    moved = [abs(float(other[k]) - float(m[k])) for k in ("loss", "loss_shared")]
+    print(f"albef_train: fused steps (loss, loss_shared) {[tuple(round(v, 4) for v in l) for l in losses]}; "
+          f"the step again from the same state (seed {seed}): equal {same}; from generator seed "
+          f"{seed + 1}: losses move by {moved[0]:.3e}, {moved[1]:.3e}")
+    check(all(math.isfinite(v) for l in losses for v in l), "non-finite ALBEF train loss")
+    check(all(same) and min(moved) > 0.0, "dropout masks are not a function of the state's generator")
+    del state, mm, again, other
+
+    # (b) dropout off: every site through flash; no backward at ViT block 0,
+    # text layer 0's self-attention and decoder layer 0's self-attention
+    sd = model.state_dict()
+    off = albef_train_model(torch, seed, "flash", dropout=False, state=sd)
+    step_off, _ = albef_fused_step(torch, off, params, seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    _, kernel_m = step_off(state0, batch)
+    torch.cuda.synchronize()
+    off_launches = read_counts()
+    per_pass = vit + text + 2 * fusion + 2 * dec
+    want_off = {**NO_LAUNCHES, "flash_attention": 2 * per_pass,
+                "flash_attention_bwd_dq": 2 * (per_pass - 3), "flash_attention_bwd_dkv": 2 * (per_pass - 3)}
+    print(f"albef_train: fused DAT step, dropout off, B={ATB}: #7/#8/#9 launches "
+          f"{flash_launches(off_launches)} (expected {flash_launches(want_off)}: per pass {vit} ViT + "
+          f"{text} text self + {fusion} fusion self and cross + {dec} decoder self and cross = "
+          f"{per_pass} sites, of which ViT block 0, text layer 0 self and decoder layer 0 self need "
+          f"no backward); loss {float(kernel_m['loss']):.4f}")
+    check(off_launches == want_off, f"albef_train dropout-off launches {off_launches}, expected {want_off}")
+
+    # the same step on the plain path in bf16 and in fp32, for the 2x-bf16 rule
+    del step_off
+    before = read_counts()
+    plain = albef_train_model(torch, seed, "auto", dropout=False, state=sd)
+    plain_m = albef_fused_step(torch, plain, params, seed)[0](state0, batch)[1]
+    del plain
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exact = albef_train_model(torch, seed, "auto", "float32", dropout=False, state=sd)
+    exact_m = albef_fused_step(torch, exact, params, seed)[0](state0, batch)[1]
+    torch.cuda.synchronize()
+    print(f"albef_train: plain fp32 fused step at B={ATB}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(read_counts() == before, "the plain path launched a kernel")
+    del exact, off
+    grad_ratio = grad_agreement(torch, f"albef fused step, dropout off, B={ATB}", kernel_m,
+                                plain_m, exact_m)
+    del kernel_m, plain_m, exact_m
+    torch.cuda.empty_cache()
+
+    # (c) one round of two clients, dropout live, and its evaluation
+    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+                                       vocab_size=30522, question_len=LQ, answer_len=LA,
+                                       max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
+                                       batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
+               for i, k in enumerate(TRAIN_CLIENTS)}
+    hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks={
+        k: (c.answer_ids, c.answer_mask) for k, c in clients.items()})
+    tcfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.DAT,
+                       optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    trainer = FederatedTrainer(model, params, clients, tcfg, make_forward=hooks.make_forward,
+                               make_eval=hooks.make_eval, use_fused_dat=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    round_launches = read_counts()
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    steps = 2 * len(clients)
+    print(f"albef_train: FederatedTrainer round of {len(clients)} clients x 2 fused steps (dropout "
+          f"live) in {round_s:.2f} s, #7/#8/#9 launches {flash_launches(round_launches)}; "
+          f"evaluate_dat (rank_answer, k={ALBEF_K} of {len(ALBEF_ANSWERS)}) {entry['scores']}")
+    check(round_launches == {k: steps * v for k, v in want.items()}, f"round launches {round_launches}")
+    for key, scores in entry["scores"].items():
+        check(len(scores) == 3 and all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in scores),
+              f"bad evaluate_dat scores for {key}: {scores}")
+    sites = vit + text + fusion + dec
+    moved = [k for k, v in trainer.server_params.items() if "adapter_1" in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * sites and all(bool(torch.isfinite(trainer.server_params[k]).all()) for k in moved),
+          f"FedAvg moved {len(moved)} adapter_1 tensors, expected {4 * sites}")
+    personal = [trainer.personal[k]["visual_encoder.blocks.0.adapter.adapter_0_up.bias"]
+                for k in TRAIN_CLIENTS]
+    check(not torch.equal(*personal), "the clients' personal adapter_0 were averaged")
+    del trainer, clients
+    torch.cuda.empty_cache()
+    return dict(model=model, params=params, batch=batch, state0=state0, launches=launches,
+                grad_ratio=grad_ratio, round_s=round_s)
+
+
+def flash_bwd_bound(b, sq, skv, bias_numel, part):
+    """Least time (ms) for one #8 (``part="dq"``) or #9 (``"dkv"``) call and
+    what bounds it.  Tensor cores: s = q.k^T and dP = dO.v^T on bf16 operands
+    at the bf16 peak; ds.k (#8), or p^T.dO and ds^T.q (#9), with p and ds at
+    fp32 precision at the TF32 peak.  Beside them on the CUDA cores ~8 fp32
+    operations per logit (scale, bias, exp, dP - delta, products); the pipes
+    overlap.  Bytes: q, k, v, dO and the outputs in bf16, lse and delta in fp32
+    and the compact bias, once each."""
+    d = DM // HEADS
+    prod = 2 * b * HEADS * sq * skv * d
+    fp_products = 1 if part == "dq" else 2
+    t_ops = max(2 * prod / PEAK_BF16_FLOPS + fp_products * prod / PEAK_TF32_FLOPS,
+                8 * b * HEADS * sq * skv / PEAK_FP32_FLOPS)
+    outputs = b * HEADS * (sq if part == "dq" else 2 * skv) * d
+    nbytes = (2 * b * HEADS * (sq + skv) * d + outputs) * 2 + 2 * b * HEADS * sq * 4 + bias_numel * 4
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            (2 + fp_products) * prod)
+
+
+def time_albef_train(torch, at, seed):
+    """#8 and #9 at ALBEF's ViT shape (B=16, H=12, S=577, no bias; #7's row):
+    each kernel, the plain backward, autograd.grad through SDPA (a yardstick
+    the port never calls) and the bounds.  Then ALBEF fused-step samples/s,
+    kernel path against plain path (attn_impl='auto'), dropout live, in
+    alternating samples with each path's peak memory, and a profile of one
+    kernel-path step."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v, _ = flash_case(torch, AB, VIT_S, VIT_S, "none", seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    scale = 64 ** -0.5
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, scale)
+        run_dq, run_dkv, _ = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
+        dq_ms, dkv_ms = cuda_ms(torch, run_dq, 30), cuda_ms(torch, run_dkv, 30)
+        p_ms = cuda_ms(torch, lambda: fl.flash_attention_bwd_ref(q, k, v, None, o, do, lse, scale), 3,
+                       warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 30)
+    del out, leaves
+    rows = {}
+    for name, part, ms in (("flash_attention_bwd_dq", "dq", dq_ms), ("flash_attention_bwd_dkv", "dkv", dkv_ms)):
+        bound, bound_by, ops = flash_bwd_bound(AB, VIT_S, VIT_S, 0, part)
+        rows[name] = (ms, p_ms, l_ms, bound, bound_by, ops)
+        print(f"time {name} B={AB} H={HEADS} S={VIT_S}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+              f"TFLOP/s), bound {bound:.4f} ms by {bound_by} ({100 * bound / ms:.1f}% of bound), plain "
+              f"backward (dq, dk, dv) {p_ms:.4f} ms, library (autograd.grad through SDPA: dq, dk, dv) "
+              f"{l_ms:.4f} ms")
+    print(f"time flash backward: #8 + #9 {dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / l_ms:.2f}x the "
+          f"library's")
+
+    model, params, batch, state0 = at["model"], at["params"], at["batch"], at["state0"]
+    step, _ = albef_fused_step(torch, model, params, seed)
+    plain_model = albef_train_model(torch, seed, "auto", state=model.state_dict())
+    plain_step, _ = albef_fused_step(torch, plain_model, params, seed)
+
+    def sample(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn(state0, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 2
+
+    peak = {}
+    for name, fn in (("kernel", step), ("plain", plain_step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sample(fn)
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    k_s, p_s = [], []
+    for i in range(4):
+        for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
+            (k_s if path is step else p_s).append(sample(path))
+    k_med, p_med = statistics.median(k_s), statistics.median(p_s)
+    wins = sum(a < b for a, b in zip(k_s, p_s))
+    print(f"time albef_train: fused DAT step B={ATB} A={ANS_PER_Q}, dropout live, 4 alternating pairs of "
+          f"2 steps: medians {1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
+          f"{ATB / k_med:.1f} vs {ATB / p_med:.1f} samples/s; kernel path faster in {wins}/4; peak "
+          f"memory {peak['kernel']:.2f} vs {peak['plain']:.2f} GiB; kernel "
+          f"{[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
+    del plain_model, plain_step
+    torch.cuda.empty_cache()
+    profile_device(torch, lambda: step(state0, batch), f"ALBEF fused DAT step (flash, B={ATB})", {
+        "#7 flash_fwd": ("flash_fwd_kernel",), "#8 flash_bwd_dq": ("flash_bwd_dq_kernel",),
+        "#9 flash_bwd_dkv": ("flash_bwd_dkv_kernel",)})
+    # host cost of one call_method (functional_call swaps every parameter in
+    # and out); the fused step makes 5: two encoder passes, three head calls
+    from feddat_tpu_torch.train.forwards import call_method
+
+    tiny = torch.zeros(1, 2, model.cfg.bert.hidden_size, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        swap_ms = 1e3 * sample(lambda *_: [call_method(model, params, "apply_cls", tiny) for _ in range(5)]) / 5
+    print(f"time albef_train host: one call_method over {len(params)} tensors (apply_cls on [1, 2, "
+          f"{tiny.shape[-1]}]) {swap_ms:.2f} ms; the fused step makes 5")
+    return rows, ATB / k_med, ATB / p_med
+
+
 def time_albef(torch, al, seed):
     """#7 at the ViT and packed-decoder shapes (kernel, plain, SDPA with the
     same float mask), rank-answer questions/s kernel vs plain path in
@@ -1685,9 +2153,15 @@ def profile_device(torch, fn, label, groups):
         end.synchronize()
     wall_us = 1e3 * start.elapsed_time(end)
     by_name = {}
+    n_device = n_launch = 0
+    launch_us = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_device += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"):
+            n_launch += 1
+            launch_us += e.self_cpu_time_total
     busy = sum(by_name.values())
     if busy == 0:
         print(f"profile {label}: torch.profiler recorded no device time")
@@ -1697,7 +2171,8 @@ def profile_device(torch, fn, label, groups):
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"(idle {100 * (1 - busy / wall_us):.1f}%), "
           + ", ".join(f"{g} {t / 1e3:.3f} ms ({100 * t / busy:.1f}%)" for g, t in shares.items())
-          + f", other {(busy - sum(shares.values())) / 1e3:.3f} ms")
+          + f", other {(busy - sum(shares.values())) / 1e3:.3f} ms; host: {n_device} device "
+          f"operations, {n_launch} kernel launch calls taking {launch_us / 1e3:.3f} ms of CPU")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {t / 1e3:8.3f} ms {100 * t / busy:5.1f}%  {name[:110]}")
 
@@ -1743,8 +2218,9 @@ def main(argv=None) -> int:
 
     # each kernel's launches on the path it serves: the fused DAT train step
     # for #1 and #4, the standard 'block' step for #3, the serving path for #2,
-    # the LoRA step through attn_impl='fused' for #5 and #6, and one ALBEF
-    # rank_answer through attn_impl='flash' (this slice's main path) for #7
+    # the LoRA step through attn_impl='fused' for #5 and #6, one ALBEF
+    # rank_answer through attn_impl='flash' for #7, and one fused ALBEF DAT
+    # step with dropout live (this slice's main path) for #8 and #9
     launches = {"attn_block": tr["launches"]["attn_block"],
                 "adapter_fused": serve_launches["adapter_fused"],
                 "attn_block_bwd": tr["std_launches"]["attn_block_bwd"],
@@ -1752,6 +2228,12 @@ def main(argv=None) -> int:
                 "fused_attention": pf_launches["fused_attention"],
                 "fused_attention_bwd": pf_launches["fused_attention_bwd"],
                 "flash_attention": al["launches"]["flash_attention"]}
+    del tr, al  # the earlier phases' models
+    torch.cuda.empty_cache()
+    at = phase_albef_train(torch, args.seed)
+    bwd_rows, _, _ = time_albef_train(torch, at, args.seed)
+    times.update(bwd_rows)
+    launches.update({k: at["launches"][k] for k in bwd_rows})
     sources = {
         "attn_block": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:90"),
         "adapter_fused": ("feddat_tpu_torch/csrc/adapter_fused.cu",
@@ -1764,6 +2246,10 @@ def main(argv=None) -> int:
         "fused_attention_bwd": ("feddat_tpu_torch/csrc/fused_attention.cu",
                                 "feddat_tpu/ops/fused_attention.py:60"),
         "flash_attention": ("feddat_tpu_torch/csrc/flash_attention.cu", "feddat_tpu/ops/flash.py:36"),
+        "flash_attention_bwd_dq": ("feddat_tpu_torch/csrc/flash_attention.cu",
+                                   "feddat_tpu/ops/flash.py:75"),
+        "flash_attention_bwd_dkv": ("feddat_tpu_torch/csrc/flash_attention.cu",
+                                    "feddat_tpu/ops/flash.py:107"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -13,12 +13,14 @@ Then FedAvg over the harvested subsets into the server params, and every
 (``main.py:520-558``).
 
 Parameters are ``{state_dict name: tensor}`` dicts on the engine's device
-(CUDA unless ``device="cpu"``).  ViLT only.  Checkpointing and resume, tensor
-parallelism (``tp_mesh``), profiling (``profile_dir``), auxiliary model state
-(``aux_init``/``aux_forward``, ALBEF) and preemption handling are later
-slices (ROADMAP Queue 1) and raise ``NotImplementedError``.  ViLT's dropout
-rates are 0, so the JAX engine's PRNG splits change nothing; each client's
-state carries a ``torch.Generator`` seeded from the engine's.
+(CUDA unless ``device="cpu"``).  The model is ViLT (``ViltContinualLearner``)
+or ALBEF (``AlbefModel``, with the hooks of ``train/trainers.py``).  Each
+client's state carries a ``torch.Generator`` seeded from the engine's, from
+which every step draws its per-stage dropout generators (``train/dat.py``).
+Checkpointing and resume, tensor parallelism (``tp_mesh``), profiling
+(``profile_dir``), ALBEF's momentum-distillation state
+(``aux_init``/``aux_forward``) and preemption handling are later slices
+(ROADMAP Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ from feddat_tpu_torch.train.dat import (
 )
 from feddat_tpu_torch.train.evaluation import evaluate, evaluate_dat, make_eval_step
 from feddat_tpu_torch.train.forwards import make_vilt_forward, make_vilt_fused_parts, to_device
+from feddat_tpu_torch.train.trainers import check_fused_dropout, make_albef_fused_dat_step
+from feddat_tpu_torch.utils.seeding import check_dropout_rng
 
 logger = logging.getLogger("feddat_tpu_torch")
 
@@ -94,9 +98,11 @@ class FederatedTrainer:
         if profile_dir is not None:
             raise _later("round profiling (profile_dir)", "7, utils/observability")
         if aux_init is not None or aux_forward:
-            raise _later("auxiliary model state (aux_init/aux_forward)", "9, ALBEF family")
-        if type(model).__name__ != "ViltContinualLearner":
-            raise _later(f"the federated engine for {type(model).__name__}", "9-10, other encoders")
+            raise _later("ALBEF's momentum-distillation state (aux_init/aux_forward)",
+                         "9, ALBEF family")
+        if type(model).__name__ not in ("ViltContinualLearner", "AlbefModel"):
+            raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
+        check_dropout_rng(config.dropout_rng)
         self.device = resolve_device(device)
         self.model = model
         self.config = config
@@ -120,8 +126,8 @@ class FederatedTrainer:
             opt_cfg = (optimizer_overrides or {}).get(task_key, config.optimizer)
             if self.mode == PEFTMode.DAT:
                 if use_fused_dat:
-                    step = make_dat_train_step_fused(*make_vilt_fused_parts(model, task_key), part,
-                                                     opt_cfg, max_steps)
+                    step = self._build_fused_dat_step(model, params, task_key, part, opt_cfg,
+                                                      max_steps)
                 else:
                     step = make_dat_train_step(forward, part, opt_cfg, max_steps)
             else:
@@ -141,6 +147,18 @@ class FederatedTrainer:
         b = self.param_budget
         logger.info("params: total=%d trainable=%d (%.3f%%) communicated=%d personal=%d",
                     b["total"], b["trainable"], b["trainable_pct"], b["communicated"], b["personal"])
+
+    @staticmethod
+    def _build_fused_dat_step(model, params, task_key, part, opt_cfg, max_steps):
+        """The fused DAT step (one ensemble encoder pass, ``engine.py:206-262``):
+        ALBEF's through ``make_albef_fused_dat_step`` with the client's
+        partitioner; ViLT's encoder and head, stochastic where the model has
+        live dropout (``check_fused_dropout`` logs the one deviation)."""
+        if type(model).__name__ == "AlbefModel":
+            return make_albef_fused_dat_step(model, params, opt_cfg, max_steps, part=part)[0]
+        live = check_fused_dropout(model)
+        return make_dat_train_step_fused(*make_vilt_fused_parts(model, task_key, live > 0.0), part,
+                                         opt_cfg, max_steps)
 
     def _client_params(self, client: ClientRuntime, refresh: bool = True) -> Dict[str, torch.Tensor]:
         """Server params with the client's personal partition swapped in;

@@ -1,11 +1,15 @@
 """ALBEF: ViT-B/16 visual encoder + fusion-BERT question encoder + 6-layer LM
 answer decoder, and its two-stage answer ranking.
 
-Counterpart of the serving half of ``feddat_tpu/models/albef.py``:
-``shifted_lm_loss``, ``AlbefModel.encode_question``, ``decode_logits`` and
-``rank_answer``, and a seeded initialisation.  The training forward
-(``__call__``, ``encode_train``, ``apply_cls``) and ``momentum_update`` come
-with ALBEF training (ROADMAP Queue 1, item 9).
+Counterpart of ``feddat_tpu/models/albef.py``: ``shifted_lm_loss``,
+``AlbefModel`` with the training forward (``forward`` is JAX's ``__call__``:
+the weighted LM loss over a dense ``[B, A]`` answer bank, normalised by B),
+``encode_train``, ``apply_cls`` and ``forward_train_logits`` (the fused DAT
+step's and the momentum twin's pieces), ``encode_question``,
+``decode_logits`` and ``rank_answer``; ``momentum_update`` on state dicts;
+and a seeded initialisation.  With ``deterministic=False`` the BERT towers'
+dropout draws its masks from the current dropout generator
+(``utils/seeding.py``); the ViT has no dropout.
 """
 
 from __future__ import annotations
@@ -97,6 +101,47 @@ class AlbefModel(nn.Module):
         return self.text_decoder(answer_ids, answer_mask, question_states, question_atts,
                                  adapter_mode, deterministic, cross_group, pack_group)
 
+    def forward(self, batch: Dict[str, Any], adapter_mode: str = "none", deterministic: bool = False,
+                soft_logits: Optional[torch.Tensor] = None, alpha: float = 0.0,
+                pad_token_id: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward -> (Σ answer_weights · sequence loss / B, shifted
+        logits [B·A, La−1, V]).  Batch: pixel_values [B, H, W, 3],
+        question_ids/mask [B, Lq], answer_ids/mask [B, A, La], answer_weights
+        [B, A] (0 = a padded slot).  The A answers of a question share its
+        states in the decoder's cross-attention (``cross_group=A``)."""
+        q_states = self.encode_question(batch["pixel_values"], batch["question_ids"],
+                                        batch["question_mask"], adapter_mode, deterministic)
+        b, a, la = batch["answer_ids"].shape
+        ans_ids = batch["answer_ids"].reshape(b * a, la)
+        logits = self.decode_logits(ans_ids, batch["answer_mask"].reshape(b * a, la), q_states,
+                                    batch["question_mask"], adapter_mode, deterministic, cross_group=a)
+        targets = torch.where(ans_ids == pad_token_id, -100, ans_ids)
+        soft = None if soft_logits is None else torch.softmax(soft_logits.float(), dim=-1)
+        seq_loss = shifted_lm_loss(logits, targets, soft, alpha)
+        loss = (batch["answer_weights"].reshape(b * a) * seq_loss).sum() / b
+        return loss, logits[:, :-1, :]
+
+    def encode_train(self, batch: Dict[str, Any], adapter_mode: str = "none",
+                     deterministic: bool = True) -> torch.Tensor:
+        """Everything up to the LM prediction head -> decoder hidden states
+        [B·A, La, D]: the fused DAT step's encoder pass (between its stages ①
+        and ③ only the ``cls`` head changes)."""
+        q_states = self.encode_question(batch["pixel_values"], batch["question_ids"],
+                                        batch["question_mask"], adapter_mode, deterministic)
+        b, a, la = batch["answer_ids"].shape
+        return self.text_decoder.bert_hidden(
+            batch["answer_ids"].reshape(b * a, la), batch["answer_mask"].reshape(b * a, la),
+            q_states, batch["question_mask"], adapter_mode, deterministic, cross_group=a)
+
+    def apply_cls(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The LM prediction head alone -> shifted logits [B·A, La−1, V]."""
+        return self.text_decoder.cls_logits(hidden)[:, :-1, :]
+
+    def forward_train_logits(self, batch: Dict[str, Any], adapter_mode: str = "none",
+                             deterministic: bool = True) -> torch.Tensor:
+        """The momentum twin's forward: shifted logits only."""
+        return self.apply_cls(self.encode_train(batch, adapter_mode, deterministic))
+
     def rank_answer(self, batch: Dict[str, Any], answer_ids: torch.Tensor,
                     answer_mask: torch.Tensor, k: int = 64, adapter_mode: str = "none",
                     pad_token_id: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,6 +173,13 @@ class AlbefModel(nn.Module):
         log_probs = (torch.log(topk_probs.reshape(-1)) - seq_loss).reshape(b, k)
         final_probs, rerank_id = stable_top_k(torch.softmax(log_probs, dim=-1), k)
         return torch.gather(topk_ids, 1, rerank_id), final_probs
+
+
+def momentum_update(params: Dict[str, torch.Tensor], momentum_params: Dict[str, torch.Tensor],
+                    momentum: float = 0.995) -> Dict[str, torch.Tensor]:
+    """The EMA twin update ``m·momentum + p·(1 − momentum)`` per name, as a
+    new dict (``albef_model.py:165-169``)."""
+    return {k: m * momentum + params[k] * (1.0 - momentum) for k, m in momentum_params.items()}
 
 
 def init_albef_params(model: AlbefModel, seed: int) -> AlbefModel:

@@ -16,7 +16,11 @@ kernels (``ops/attn_block.py``), with ``norm_before`` fused into them when
 ``ops/layer_block.py`` (one backward kernel per layer) and the other layers
 the ``"block"`` way; ``"flash"`` runs the composable path with the attention
 core through the flash kernel (``ops/flash.py``) at every site, self- and
-cross-attention alike.
+cross-attention alike, except that a site with live attention dropout takes
+the composable path with dropout, as in JAX.
+
+Dropout masks come from the generator that ``utils/seeding.py::dropout_rng``
+makes current (``call_method(..., rng=gen)``), never from the global RNG.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
+from feddat_tpu_torch.utils import seeding
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
 from feddat_tpu_torch.ops.attention import dot_product_attention
 
@@ -46,10 +51,12 @@ def check_attn_impl(attn_impl: str) -> str:
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
-    """flax ``nn.Dropout(rate)(x, deterministic)``."""
+    """flax ``nn.Dropout(rate)(x, deterministic)``: ``where(keep, x / (1 − rate),
+    0)`` in ``x.dtype``, the mask from the current dropout generator."""
     if deterministic or rate == 0.0:
         return x
-    return F.dropout(x, rate, training=True)
+    keep = seeding.keep_mask(x.shape, 1.0 - rate, x.device, seeding.current_rng())
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.Module):
@@ -171,9 +178,10 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x)
         k = dense(kv, self.key, self.dtype)
         v = self.value(kv)
+        live = 0.0 if deterministic else self.dropout_rate
         ctx = dot_product_attention(
-            split(q), split(k), split(v), bias,
-            dropout_rate=0.0 if deterministic else self.dropout_rate,
+            split(q), split(k), split(v), bias, dropout_rate=live,
+            generator=seeding.current_rng() if live > 0.0 else None,
             impl=self.attn_impl, logits_dtype=self.logits_dtype,
         )
         b, h, s, d = ctx.shape

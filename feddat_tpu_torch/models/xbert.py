@@ -1,7 +1,11 @@
 """Fusion BERT ("xBERT"): ALBEF's question encoder and answer decoder.
 
-Counterpart of the parts of ``feddat_tpu/models/xbert.py`` that
-``rank_answer`` runs (``XBertMaskedLM`` comes with ALBEF training):
+Counterpart of the parts of ``feddat_tpu/models/xbert.py`` that ALBEF's
+training forward and ``rank_answer`` run (``XBertMaskedLM``, the pretraining
+head, is not ported).  Hidden dropout (embeddings, after each attention and
+the FFN output) and attention dropout are live when ``deterministic`` is
+False, their masks drawn from the current dropout generator
+(``utils/seeding.py``):
 
 * ``XBertEmbeddings``: word + position + token-type (type 0), LayerNorm, dropout;
 * ``XBertLayer``: post-LN BERT layer; layers ``>= fusion_layer`` also

@@ -6,8 +6,10 @@ routes by ``impl`` as lines 60-141 do, and ``mask_to_bias`` is the same
 -10000.0 fill (lines 144-151), with ``causal_bias`` and ``packed_self_bias``
 for ALBEF's decoder (lines 154-191).  ``impl="fused"`` takes the
 whole-sequence kernels (``ops/fused_attention.py``, #5/#6) where the JAX
-routing rule admits the site; ``impl="flash"`` takes the flash kernel
-(``ops/flash.py``, #7) at every site.
+routing rule admits the site; ``impl="flash"`` takes the flash kernels
+(``ops/flash.py``, #7-#9) at every site without live dropout.  A site with
+live attention dropout takes ``xla_attention`` with dropout on every route, as
+in JAX (attention.py:96-106, :122-136): no kernel drops probabilities.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from feddat_tpu_torch.ops.flash import flash_attention
 from feddat_tpu_torch.ops.fused_attention import fused_short_attention
+from feddat_tpu_torch.utils.seeding import keep_mask
 
 # The JAX package's routing rule for impl="fused" (attention.py:120-125): the
 # TPU kernel keeps ~4 fp32 [H, S, S] logit tiles in a 16 MiB scoped-VMEM
@@ -35,22 +38,29 @@ def xla_attention(
     bias: Optional[torch.Tensor],
     scale: Optional[float] = None,
     logits_dtype: torch.dtype = torch.float32,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """softmax(q kᵀ·scale + bias) v.  q, k, v: [B, H, S, D]; returns
     [B, H, S_q, D] in ``v.dtype``.
 
     Rounding points follow the JAX path: the logits accumulate in fp32
     (bf16 inputs upcast, so every product is exact), are stored in
-    ``logits_dtype``, the softmax runs in fp32, and the probabilities are
-    cast to ``v.dtype`` before the P·V product."""
+    ``logits_dtype``, the softmax runs in fp32, live dropout applies
+    ``probs · keep / (1 − rate)`` in fp32 with the mask drawn from
+    ``generator``, and the probabilities are cast to ``v.dtype`` before the
+    P·V product."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = (logits * scale).to(logits_dtype)
     if bias is not None:
         logits = logits + bias.to(logits.dtype)
-    probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    probs = torch.softmax(logits.float(), dim=-1)
+    if dropout_rate > 0.0:
+        keep = keep_mask(probs.shape, 1.0 - dropout_rate, probs.device, generator)
+        probs = probs * keep / (1.0 - dropout_rate)
+    return torch.matmul(probs.to(v.dtype), v)
 
 
 def fused_route_eligible(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],
@@ -76,6 +86,7 @@ def dot_product_attention(
     *,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
     impl: str = "auto",
     logits_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
@@ -84,8 +95,9 @@ def dot_product_attention(
     site the block route did not take) run :func:`xla_attention`; ``"fused"``
     runs :func:`fused_short_attention` where :func:`fused_route_eligible`
     admits the site and :func:`xla_attention` elsewhere; ``"flash"`` runs
-    :func:`flash_attention` at any site without live dropout.
-    ``dropout_rate`` is the live rate (0 when deterministic)."""
+    :func:`flash_attention` at any site without live dropout and
+    :func:`xla_attention` with dropout elsewhere.  ``dropout_rate`` is the
+    live rate (0 when deterministic), its masks drawn from ``generator``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl not in ("auto", "xla", "block", "fused", "flash"):
@@ -94,9 +106,7 @@ def dot_product_attention(
         return fused_short_attention(q, k, v, bias, scale)
     if impl == "flash" and dropout_rate == 0.0:
         return flash_attention(q, k, v, bias, scale)
-    if dropout_rate > 0.0:
-        raise NotImplementedError("live attention dropout is not ported yet (ROADMAP Queue 1, item 13)")
-    return xla_attention(q, k, v, bias, scale, logits_dtype)
+    return xla_attention(q, k, v, bias, scale, logits_dtype, dropout_rate, generator)
 
 
 def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

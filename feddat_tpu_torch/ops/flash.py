@@ -20,16 +20,17 @@ gradient), like the JAX custom_vjp's.
 
 * :func:`flash_attention_fwd_ref` / :func:`flash_attention_bwd_ref` — plain
   PyTorch of the same functions.  The CPU tests hold them against the Pallas
-  kernels in interpret mode; ``chip_smoke.py`` holds the CUDA kernel against
-  the forward one.
-* :func:`flash_attention_fwd_cuda` — kernel #7, hand-written CUDA in
-  ``csrc/flash_attention.cu``, reading the strided ``[B, H, S, 64]`` views
-  that split() makes and the bias by strides (0 on a broadcast dim).
+  kernels in interpret mode; ``chip_smoke.py`` holds the CUDA kernels against
+  them.
+* :func:`flash_attention_fwd_cuda` — kernel #7, and
+  :func:`flash_attention_bwd_cuda` — kernels #8 (dq) and #9 (dk, dv), all
+  hand-written CUDA in ``csrc/flash_attention.cu``, reading the strided
+  ``[B, H, S, 64]`` views that split() makes and the bias by strides (0 on a
+  broadcast dim).
 
 :func:`flash_attention` is an autograd Function with the custom_vjp's
-contract: a CPU tensor takes the plain versions both ways; a CUDA tensor
-launches #7 forward and raises on the backward, whose kernels (#8/#9) come
-with ALBEF training (slice 5).  Nothing falls back.
+contract: a CPU tensor takes the plain versions both ways, a CUDA tensor
+launches #7 forward and #8/#9 backward or raises.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from feddat_tpu_torch.ops._build import CudaKernel, ptr
-from feddat_tpu_torch.ops.fused_attention import HEAD_DIM, _check_heads, _empty_heads
+from feddat_tpu_torch.ops.fused_attention import HEAD_DIM, _check_heads, _empty_heads, _in_place_ok
 
 NEG_INF = -1e30
 
@@ -48,6 +49,14 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_fwd",
     [_vp] * 6 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
+)
+KERNEL_BWD_DQ = CudaKernel(
+    "flash_attention", "flash_attention_bwd_dq",
+    [_vp] * 8 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
+)
+KERNEL_BWD_DKV = CudaKernel(
+    "flash_attention", "flash_attention_bwd_dkv",
+    [_vp] * 9 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
 )
 # gridDim.z (the batch) and gridDim.y (the heads) of the launch.
 MAX_GRID_YZ = 65535
@@ -99,12 +108,11 @@ def flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes bf16
-    ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]`` k/v in any layout
-    ``_check_heads`` admits, any lengths, and the compact bias; raises on
-    anything else."""
-    fn = "flash_attention_fwd_cuda"
+def _check_cuda_operands(fn: str, q, k, v, bias):
+    """The checks #7-#9 share: bf16 ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]``
+    k/v in any layout ``_check_heads`` admits, sizes the grid takes, a compact
+    bias on q's device.  -> (b, h, sq, skv, fp32 bias or None, its 4 element
+    strides with 0 on broadcast dims)."""
     _check_heads(fn, "q", q, tuple(q.shape))
     b, h, sq, _ = q.shape
     skv = k.shape[2] if k.dim() == 4 else -1
@@ -117,13 +125,66 @@ def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor,
         raise ValueError(f"{fn}: bias must be on {q.device}")
     bias_strides = [0] * 4 if bias is None else [st if n > 1 else 0
                                                   for st, n in zip(bias.stride(), bias.shape)]
+    return b, h, sq, skv, bias, bias_strides
+
+
+def _strides(ts, bias_strides):
+    vals = [st for t in ts for st in t.stride()[:3]] + bias_strides
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes bf16
+    ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]`` k/v in any layout
+    ``_check_heads`` admits, any lengths, and the compact bias; raises on
+    anything else."""
+    b, h, sq, skv, bias, bias_strides = _check_cuda_operands("flash_attention_fwd_cuda", q, k, v, bias)
     o = _empty_heads(b, h, sq, q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    vals = [st for t in (q, k, v, o) for st in t.stride()[:3]] + bias_strides
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse),
-                  (ctypes.c_longlong * len(vals))(*vals), b, h, sq, skv, float(scale),
+                  _strides((q, k, v, o), bias_strides), b, h, sq, skv, float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
+    """Kernels #8 (dq) and #9 (dk, dv) -> (dq, dk, dv) bf16, as
+    :func:`flash_attention_bwd_ref`.  Takes the forward's operands as
+    :func:`flash_attention_fwd_cuda` does, its bf16 o and fp32 lse, and bf16
+    ``do`` in any layout ``_check_heads`` admits; δ = rowsum(dO∘o) is one fp32
+    reduction here, as JAX takes it in XLA.  Raises ``ValueError`` before any
+    launch on fp32 operands, a head dim other than 64, a bias on another
+    device or anything else the kernels do not take."""
+    launch_dq, launch_dkv, grads = flash_bwd_launchers(q, k, v, bias, o, do, lse, scale)
+    launch_dq()
+    launch_dkv()
+    return grads
+
+
+def flash_bwd_launchers(q, k, v, bias, o, do, lse, scale: float):
+    """The checks, δ and the outputs of :func:`flash_attention_bwd_cuda` ->
+    (launch #8, launch #9, (dq, dk, dv)): each launcher runs its kernel into
+    the returned outputs (``chip_smoke.py`` times them one by one)."""
+    fn = "flash_attention_bwd_cuda"
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{fn}: {name} must be torch.bfloat16, got {t.dtype}")
+    b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
+    for name, t in (("o", o), ("do", do)):
+        _check_heads(fn, name, t, (b, h, sq, HEAD_DIM))
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous():
+        raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {sq}] tensor")
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq = _empty_heads(b, h, sq, q.device)
+    dk, dv = _empty_heads(b, h, skv, q.device), _empty_heads(b, h, skv, q.device)
+    strides = _strides((q, k, v, do, dq, dk, dv), bias_strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def launcher(kernel, *outs):  # holds every operand (δ included) while it lives
+        return lambda: kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias), ptr(lse), ptr(delta),
+                                     *map(ptr, outs), strides, b, h, sq, skv, float(scale), stream)
+
+    return launcher(KERNEL_BWD_DQ, dq), launcher(KERNEL_BWD_DKV, dk, dv), (dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -141,12 +202,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        if q.is_cuda:
-            raise NotImplementedError(
-                "the flash attention backward on the card needs kernels #8 and #9 "
-                "(feddat_tpu/ops/flash.py::_flash_bwd_dq_kernel and _flash_bwd_dkv_kernel), "
-                "which slice 5 ports (ROADMAP Queue 2)")
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, bias, o, g, lse, ctx.scale)
+        impl = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
+        if g.is_cuda and not _in_place_ok(g):  # autograd may hand over any layout of dO
+            g = g.contiguous()
+        dq, dk, dv = impl(q, k, v, bias, o, g, lse, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -154,7 +213,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """``[B, H, Sq, D]`` x ``[B, H, Skv, D]`` -> ``[B, H, Sq, D]``,
-    differentiable in q, k and v: kernel #7 for a CUDA tensor, the plain
+    differentiable in q, k and v: kernels #7-#9 for a CUDA tensor, the plain
     versions for a CPU tensor (never a fallback)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -16,6 +16,17 @@ state advances in both, exactly as in JAX.  Each ``make_*`` builder
 stands for the JAX ``*_step_core`` and the ``make_*`` that compiles it;
 nothing is compiled here.  The metrics hold the losses, the lr and
 ``grads``: both updates' gradient sets (adapter and head partitions only).
+
+Dropout: as JAX splits ``state.rng`` into per-stage keys, each step draws
+per-stage seeds from a copy of ``state.rng`` (``utils/seeding.py::split_rng``;
+the copy, advanced by the same draw every step, is the new state's ``rng``)
+and makes one dropout generator per stage on the parameters' device: the
+standard step d0 (①), d1 (②), d2 (③); the fused step d0 (the ensemble pass
+that ① and ③ share) and d1 (the adapter_1 pass); the plain step one.  The
+same state gives the same masks; ``torch.manual_seed`` changes nothing.
+``TrainConfig.dropout_rng`` selects nothing here: "threefry" and "rbg" (the
+TPU's hardware bit generator in JAX) give the same torch generators
+(``utils/seeding.py::check_dropout_rng``).
 """
 
 from __future__ import annotations
@@ -36,8 +47,17 @@ from feddat_tpu_torch.peft.partition import (
 from feddat_tpu_torch.train.losses import kd_kl_loss
 from feddat_tpu_torch.train.optim import adamw_direction, apply_direction, polynomial_schedule
 from feddat_tpu_torch.train.state import TrainState
+from feddat_tpu_torch.utils.seeding import split_rng, stage_generator
 
 Params = Dict[str, torch.Tensor]
+
+
+def _stage_rngs(state: TrainState, n: int):
+    """-> (the new state's rng, n per-stage dropout generators on the
+    parameters' device)."""
+    nxt, seeds = split_rng(state.rng, n)
+    device = next(iter(state.params.values())).device
+    return nxt, [stage_generator(s, device) for s in seeds]
 
 
 def _in_frozen_bottom(name: str, layers_to_freeze: int) -> bool:
@@ -133,17 +153,17 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
     P = partitioner
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        gen = state.rng
+        rng, (d0, d1, d2) = _stage_rngs(state, 3)
         params = state.params
         # ① ensemble forward (teacher + local mix), no gradient
         with torch.no_grad():
-            _, logits_all = forward(params, batch, MODE_ENSEMBLE, gen)
+            _, logits_all = forward(params, batch, MODE_ENSEMBLE, d0)
 
         # ② shared-adapter update
         shared = _leaves(P.extract(params, P.shared_paths))
         head = _leaves(P.extract(params, P.head_paths))
         task_l1, logits_1 = forward(P.merge_into(P.merge_into(params, shared), head), batch,
-                                    "adapter_1", gen)
+                                    "adapter_1", d1)
         l1 = (task_l1 + kd_kl_loss(logits_1, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared, head)
         lr1 = lr_at(state.sched_count)
@@ -157,7 +177,7 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
         local = _leaves(P.extract(params, P.local_paths))
         head = _leaves(head)
         task_l0, logits_0 = forward(P.merge_into(P.merge_into(params, local), head), batch,
-                                    MODE_ENSEMBLE, gen)
+                                    MODE_ENSEMBLE, d2)
         l0 = (task_l0 + kd_kl_loss(logits_0, logits_1)) / 2.0
         g_local, g_head = _grads(l0, local, head)
         lr0 = lr_at(state.sched_count + 1)
@@ -168,7 +188,7 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
 
         new_state = state.replace(
             params=params, opt_states={"shared": opt_shared, "local": opt_local, "head": opt_head},
-            sched_count=state.sched_count + 2)
+            sched_count=state.sched_count + 2, rng=rng)
         grads = {"shared": g_shared, "head_2": g_head2, "local": g_local, "head_3": g_head}
         return new_state, {"loss": l0.detach(), "loss_shared": l1.detach(),
                            "task_loss": task_l0.detach(), "lr": lr0, "grads": grads}
@@ -179,11 +199,14 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
 def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Partitioner,
                               opt_cfg: OptimizerConfig, max_steps: int):
     """DAT step with ONE ensemble encoder pass (``dat_step_core_fused``,
-    dat.py:311-415): between ①
-    and ③ only the head changes, so the pass's pooled features give the
-    teacher logits (old head) and its saved graph gives ③'s adapter_0
-    gradient (new head).  Exact against :func:`make_dat_train_step` when
-    the encoder has no live dropout (ViLT).
+    dat.py:311-415): between ① and ③ only the head changes, so the pass's
+    pooled features give the teacher logits (old head) and its saved graph
+    gives ③'s adapter_0 gradient (new head).  Exact against
+    :func:`make_dat_train_step` when the encoder has no live dropout (ViLT;
+    ALBEF with its rates set to 0).  With live dropout the encoder passes
+    draw fresh masks every step, d0 for the ensemble pass and d1 for the
+    adapter_1 pass; the one deviation from three independent forwards is
+    that ① and ③ share d0's masks (``trainers.py::check_fused_dropout``).
 
     ``encode_fn(params, batch, mode, gen) -> pooled``, ``head_fn(head
     partition, pooled) -> logits``, ``task_loss_fn(logits, batch)``."""
@@ -192,20 +215,20 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
     P = partitioner
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        gen = state.rng
+        rng, (d0, d1) = _stage_rngs(state, 2)
         params = state.params
         head = P.extract(params, P.head_paths)
         local = _leaves(P.extract(params, P.local_paths))
         shared = P.extract(params, P.shared_paths)
 
         # one ensemble encoder pass, differentiable with respect to adapter_0
-        pooled = encode_fn(P.merge_into(params, local), batch, MODE_ENSEMBLE, gen)
+        pooled = encode_fn(P.merge_into(params, local), batch, MODE_ENSEMBLE, d0)
         with torch.no_grad():
             logits_all = head_fn(head, pooled.detach())
 
         # ② shared-adapter update (full forward through adapter_1)
         shared_l, head_l = _leaves(shared), _leaves(head)
-        pooled1 = encode_fn(P.merge_into(params, shared_l), batch, "adapter_1", gen)
+        pooled1 = encode_fn(P.merge_into(params, shared_l), batch, "adapter_1", d1)
         logits = head_fn(head_l, pooled1)
         l1 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared_l, head_l)
@@ -228,7 +251,7 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
 
         new_state = state.replace(
             params=params, opt_states={"shared": opt_shared, "local": opt_local, "head": opt_head},
-            sched_count=state.sched_count + 2)
+            sched_count=state.sched_count + 2, rng=rng)
         grads = {"shared": g_shared, "head_2": g_head2, "local": g_local, "head_3": g_head}
         return new_state, {"loss": l0.detach(), "loss_shared": l1.detach(), "lr": lr0,
                            "grads": grads}
@@ -246,16 +269,17 @@ def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerC
     paths = P.shared_paths | P.head_paths
 
     def step(state: TrainState, batch: Dict[str, Any]):
+        rng, (gen,) = _stage_rngs(state, 1)
         params = state.params
         trainable = _leaves(P.extract(params, paths))
-        loss, _ = forward(P.merge_into(params, trainable), batch, adapter_mode, state.rng)
+        loss, _ = forward(P.merge_into(params, trainable), batch, adapter_mode, gen)
         (grads,) = _grads(loss, trainable)
         lr = lr_at(state.sched_count)
         new_trainable, opt_state = apply_direction(tx, grads, state.opt_states["trainable"],
                                                    _detached(trainable), lr)
         new_state = state.replace(params=P.merge_into(params, new_trainable),
                                   opt_states={"trainable": opt_state},
-                                  sched_count=state.sched_count + 1)
+                                  sched_count=state.sched_count + 1, rng=rng)
         return new_state, {"loss": loss.detach(), "lr": lr}
 
     return step

@@ -1,22 +1,27 @@
-"""Functional calls into the model, and the ViLT train forward.
+"""Functional calls into the model, and the ViLT and ALBEF train forwards.
 
 Counterpart of ``feddat_tpu/train/forwards.py``.  JAX applies a module to a
-parameter tree (``model.apply({"params": p}, ..., method=...)``); here
-:func:`call_method` runs a method of an ``nn.Module`` with its parameters
-replaced by a ``{state_dict name: tensor}`` dict through
+parameter tree (``model.apply({"params": p}, ..., rngs={"dropout": key},
+method=...)``); here :func:`call_method` runs a method of an ``nn.Module``
+with its parameters replaced by a ``{state_dict name: tensor}`` dict through
 ``torch.func.functional_call``, so the train steps can differentiate with
-respect to any partition of that dict.
+respect to any partition of that dict, and with ``rng`` as the generator of
+every dropout mask drawn inside.  The forwards are ``forward(params, batch,
+adapter_mode, gen) -> (task_loss, logits)``, ``gen`` the stage's dropout
+generator.  The distillation forward (``make_albef_distill_forward``) and its
+alpha ramp (``add_alpha``) are not ported (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from feddat_tpu_torch.train.losses import bce_with_logits_vqa, cross_entropy
+from feddat_tpu_torch.utils.seeding import dropout_rng
 
 
 class _Method(nn.Module):
@@ -29,12 +34,15 @@ class _Method(nn.Module):
         return getattr(self.model, self.method)(*args, **kwargs)
 
 
-def call_method(model: nn.Module, params: Mapping[str, torch.Tensor], method: str, *args, **kwargs):
+def call_method(model: nn.Module, params: Mapping[str, torch.Tensor], method: str, *args,
+                rng: Optional[torch.Generator] = None, **kwargs):
     """``getattr(model, method)(*args, **kwargs)`` with the model's parameters
-    taken from ``params`` (every name of ``model.state_dict()``)."""
+    taken from ``params`` (every name of ``model.state_dict()``) and ``rng``
+    as the dropout generator."""
     wrapper = _Method(model, method)
-    return torch.func.functional_call(
-        wrapper, {f"model.{k}": v for k, v in params.items()}, args, kwargs, strict=True)
+    with dropout_rng(rng):
+        return torch.func.functional_call(
+            wrapper, {f"model.{k}": v for k, v in params.items()}, args, kwargs, strict=True)
 
 
 def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -43,25 +51,14 @@ def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch
             for k, v in batch.items()}
 
 
-def check_no_live_dropout(model: nn.Module) -> None:
-    """The port's train steps run ViLT, whose dropout rates are 0; threading
-    a seeded generator through live dropout masks is ROADMAP Queue 1 work."""
-    cfg = getattr(model, "config", None)
-    if cfg is not None and (cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0):
-        raise NotImplementedError(
-            "live dropout in the port's train steps is not ported yet (ROADMAP Queue 1, item 13, "
-            "dropout); ViLT's rates are 0")
-
-
 def make_vilt_forward(model: nn.Module, task_key: str, loss: str = "vqa"):
     """``forward(params, batch, adapter_mode, gen) -> (task_loss, logits)``:
     BCE·C for VQA (``task_trainer.py:299``) or CE for NLVR2/SNLI-VE/VCR.
-    ``gen`` is the step's dropout generator (unused: no live dropout)."""
-    check_no_live_dropout(model)
+    ViLT's rates are 0, so ``gen`` feeds only the multiple-choice head's 0.1."""
 
     def forward(p, batch, mode, gen=None):
         _, logits = call_method(model, p, "forward", task_key, batch, adapter_mode=mode,
-                                deterministic=False)
+                                deterministic=False, rng=gen)
         if loss == "vqa":
             task_loss = bce_with_logits_vqa(logits, batch["target_scores"])
         else:
@@ -71,18 +68,18 @@ def make_vilt_forward(model: nn.Module, task_key: str, loss: str = "vqa"):
     return forward
 
 
-def make_vilt_fused_parts(model: nn.Module, task_key: str):
+def make_vilt_fused_parts(model: nn.Module, task_key: str, dropout: bool = False):
     """``(encode, head_fn, task_loss)`` for the fused DAT step, as
     ``engine.py::_build_fused_dat_step`` builds them for ViLT: the encoder
-    returns pooled features; the head runs functionally on the head
-    partition alone (the other parameters are not needed)."""
-    check_no_live_dropout(model)
+    returns pooled features (stochastic with the stage's generator when
+    ``dropout``); the head runs functionally on the head partition alone (the
+    other parameters are not needed)."""
     head = model.head(task_key)
     prefix = f"task_{task_key}."
 
     def encode(p, batch, mode, gen=None):
         return call_method(model, p, "encode_single_image", task_key, batch, adapter_mode=mode,
-                           deterministic=True)
+                           deterministic=not dropout, rng=gen)
 
     def head_fn(head_params, pooled):
         sub = {k[len(prefix):]: v for k, v in head_params.items()}
@@ -92,3 +89,16 @@ def make_vilt_fused_parts(model: nn.Module, task_key: str):
         return bce_with_logits_vqa(logits, batch["target_scores"])
 
     return encode, head_fn, task_loss
+
+
+def make_albef_forward(model: nn.Module, pad_token_id: int = 0):
+    """ALBEF train forward -> (weighted LM loss, shifted logits), the
+    no-distill branch (``albef_model.py:69-145``, ``train_albef.sh``): the
+    shifted decoder logits are what DAT's mutual distillation compares
+    (``task_trainer.py:300,320``).  Dropout is live, from ``gen``."""
+
+    def forward(p, batch, mode, gen=None):
+        return call_method(model, p, "forward", batch, adapter_mode=mode, deterministic=False,
+                           alpha=batch.get("alpha", 0.0), pad_token_id=pad_token_id, rng=gen)
+
+    return forward

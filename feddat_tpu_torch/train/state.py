@@ -20,9 +20,10 @@ class TrainState:
     ``params`` maps state_dict names to tensors (the whole model);
     ``opt_states`` is keyed by partition ("shared", "local", "head" for DAT;
     "trainable" for the single-update modes); ``sched_count`` ticks once per
-    optimizer update (twice per batch under DAT); ``rng`` seeds the step's
-    dropout (unused by ViLT, whose dropout rates are 0).  The JAX state's
-    ``aux`` (ALBEF's momentum twins) comes with the ALBEF slice."""
+    optimizer update (twice per batch under DAT); ``rng`` is the generator
+    each step draws its per-stage dropout seeds from (``train/dat.py``).  The
+    JAX state's ``aux`` (ALBEF's momentum twins, for distillation) is not
+    ported (ROADMAP Queue 1, item 9)."""
 
     params: Dict[str, torch.Tensor]
     opt_states: Dict[str, Any]

@@ -1,0 +1,72 @@
+"""Dropout randomness from explicit generators.
+
+Counterpart of the JAX package's key threading: a train step splits its
+state's key into per-stage dropout keys (``feddat_tpu/train/dat.py:226-227``,
+``:357-358``, ``:646``) and re-keys each with ``utils/seeding.py::dropout_key``.
+Here a step derives per-stage ``torch.Generator``\\ s the same way, and the
+model's dropout sites draw their masks only from the generator that
+:func:`dropout_rng` makes current, never from torch's global RNG: a live rate
+with no generator raises.  torch's streams differ from JAX's, so masks agree
+in distribution, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+_CURRENT: Optional[torch.Generator] = None
+DROPOUT_RNG_IMPLS = ("threefry", "rbg")
+
+
+@contextlib.contextmanager
+def dropout_rng(gen: Optional[torch.Generator]) -> Iterator[None]:
+    """Make ``gen`` the generator of every dropout mask drawn inside the block
+    (the flax ``rngs={"dropout": key}`` of one ``apply``)."""
+    global _CURRENT
+    prev, _CURRENT = _CURRENT, gen
+    try:
+        yield
+    finally:
+        _CURRENT = prev
+
+
+def current_rng() -> Optional[torch.Generator]:
+    """The generator :func:`dropout_rng` made current, or None."""
+    return _CURRENT
+
+
+def keep_mask(shape, keep_prob: float, device, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, keep_prob, shape)``: ``uniform < keep_prob``
+    drawn from ``gen`` on ``device``; raises without a generator."""
+    if gen is None:
+        raise RuntimeError("live dropout needs an explicit generator (call_method(..., rng=gen) or "
+                           "seeding.dropout_rng(gen)); the global RNG is never used")
+    return torch.rand(shape, generator=gen, device=device) < keep_prob
+
+
+def split_rng(gen: torch.Generator, n: int) -> Tuple[torch.Generator, List[int]]:
+    """``jax.random.split(rng, n + 1)``: -> (the next state generator, n stage
+    seeds).  ``gen`` itself is not advanced, so a step is a function of its
+    state: the same state gives the same masks."""
+    nxt = torch.Generator(device=gen.device)
+    nxt.set_state(gen.get_state())
+    seeds = torch.randint(0, 2 ** 63 - 1, (n,), generator=nxt).tolist()
+    return nxt, seeds
+
+
+def stage_generator(seed: int, device) -> torch.Generator:
+    """One stage's dropout generator on ``device`` (a CUDA tensor's masks need
+    a CUDA generator)."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def check_dropout_rng(impl: str) -> None:
+    """Validate ``TrainConfig.dropout_rng``.  In the JAX package "rbg" re-keys
+    each stage key for the TPU's hardware bit generator
+    (``feddat_tpu/utils/seeding.py:26-40``), which has no meaning on the GPU:
+    both values give the same torch generators here."""
+    if impl not in DROPOUT_RNG_IMPLS:
+        raise ValueError(f"unknown dropout_rng {impl!r}; have {DROPOUT_RNG_IMPLS}")

@@ -126,10 +126,18 @@ def test_forward_matches_jax_kernel(name, b, h, sq, skv, kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind,sq,skv", [("causal", 6, 6), ("key", 9, 37), ("none", 130, 20)])
+@pytest.mark.parametrize("kind,sq,skv", [
+    ("none", 37, 37),  # ALBEF training: ViT self-attention
+    ("key", 9, 9),  # text self-attention, padding
+    ("key", 9, 37),  # fusion cross-attention
+    ("causal", 6, 6),  # decoder self-attention, causal + padding
+    ("key", 24, 9),  # decoder grouped cross-attention (A·La -> Lq)
+    ("none", 130, 20),  # lengths past the 128-wide blocks
+])
 def test_grads_match_jax_custom_vjp(kind, sq, skv, dtype):
     """dq/dk/dv of the CPU backward (the plain versions of #8/#9) against
-    jax.vjp of the JAX custom_vjp (both Pallas backward kernels, interpret mode)."""
+    jax.vjp of the JAX custom_vjp (both Pallas backward kernels, interpret
+    mode), at the five layouts of ALBEF's training sites and a ragged one."""
     b, h, d = 2, 2, 16
     q, k, v, g, bias = _inputs(sq + skv, b, h, sq, skv, d, kind)
     (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g), dtype)
@@ -187,9 +195,8 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.parametrize("rate,kind", [(0.0, "none"), (0.0, "causal"), (0.0, "key"), (0.1, "key")])
 def test_flash_route_like_jax(rate, kind, monkeypatch):
     """``dot_product_attention(impl="flash")`` with the routes replaced by
-    recorders: both take the flash kernel at every site without live dropout.
-    With live dropout JAX falls back to its composable path and the port
-    refuses (live dropout is ROADMAP Queue 1, item 13)."""
+    recorders: both take the flash kernel at every site without live dropout,
+    and the composable path with dropout at a site with a live rate."""
     b, h, sq, skv = 2, 2, 6, 6 if kind == "causal" else 11
     routes = []
     monkeypatch.setattr(jflash, "flash_attention", lambda q, *a: routes.append("flash") or q)
@@ -202,12 +209,9 @@ def test_flash_route_like_jax(rate, kind, monkeypatch):
                                      None if bias is None else jnp.asarray(bias),
                                      dropout_rate=rate, dropout_rng=jax.random.PRNGKey(0),
                                      impl="flash")
-    try:
-        tattention.dot_product_attention(torch.zeros(b, h, sq, 8), torch.zeros(b, h, skv, 8),
-                                         torch.zeros(b, h, skv, 8),
-                                         None if bias is None else torch.from_numpy(bias),
-                                         dropout_rate=rate, impl="flash")
-    except NotImplementedError:
-        assert rate > 0.0
-        routes.append("xla")
+    tattention.dot_product_attention(torch.zeros(b, h, sq, 8), torch.zeros(b, h, skv, 8),
+                                     torch.zeros(b, h, skv, 8),
+                                     None if bias is None else torch.from_numpy(bias),
+                                     dropout_rate=rate, generator=torch.Generator().manual_seed(0),
+                                     impl="flash")
     assert routes == (["flash", "flash"] if rate == 0.0 else ["xla", "xla"])

@@ -4,7 +4,10 @@
   ``flax`` or ``feddat_tpu``;
 * entry points need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
-  plain version, and an unknown ``attn_impl`` raises.
+  plain version, and an unknown ``attn_impl`` raises;
+* no port module draws randomness from torch's global RNG: no
+  ``F.dropout``/``nn.Dropout``, and every ``torch.rand``/``randn``/
+  ``randint``/``bernoulli`` call names its ``generator``.
 """
 
 import ast
@@ -104,6 +107,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     flash_before = fl.KERNEL.launches
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         fl.flash_attention_fwd_cuda(heads, heads[:, :, :3], heads[:, :, :3], None, 0.125)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fl.flash_attention_bwd_cuda(heads, heads, heads, None, heads, heads, lse, 0.125)
+    with pytest.raises(ValueError, match="torch.bfloat16"):
+        fl.flash_attention_bwd_cuda(heads.float(), heads, heads, None, heads, heads, lse, 0.125)
+    assert (fl.KERNEL_BWD_DQ.launches, fl.KERNEL_BWD_DKV.launches) == (0, 0)
     assert (ab.KERNEL.launches, af.KERNEL.launches, ab.KERNEL_BWD.launches,
             lb.KERNEL.launches, fa.KERNEL.launches, fa.KERNEL_BWD.launches) == before + (0, 0, 0, 0)
     assert fl.KERNEL.launches == flash_before
@@ -174,3 +182,31 @@ def test_attn_impls_of_later_slices_raise():
 
         x = torch.zeros(1, 1, 2, 8)
         dot_product_attention(x, x, x, impl="flash-typo")
+
+
+# torch's sampling functions, and the tensor methods that sample in place
+TORCH_RANDOM = {"rand", "rand_like", "randn", "randn_like", "randint", "randint_like", "randperm",
+                "bernoulli", "normal", "multinomial"}
+TENSOR_RANDOM = {"bernoulli_", "normal_", "uniform_", "random_", "exponential_", "cauchy_"}
+
+
+def _samples(call: ast.Call) -> bool:
+    f = call.func
+    return isinstance(f, ast.Attribute) and (
+        f.attr in TENSOR_RANDOM or (f.attr in TORCH_RANDOM and isinstance(f.value, ast.Name)
+                                    and f.value.id == "torch"))
+
+
+def test_no_global_rng_in_the_port():
+    """Dropout masks (and every other draw) come from explicit generators:
+    the step's output is a function of its state, not of torch.manual_seed."""
+    bad = []
+    for f in sorted((ROOT / "feddat_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if isinstance(node, ast.Attribute) and node.attr in ("dropout", "Dropout") and (
+                    isinstance(node.value, ast.Name) and node.value.id in ("F", "nn", "functional")):
+                bad.append(f"{f.relative_to(ROOT)}:{node.lineno}: {node.value.id}.{node.attr}")
+            if isinstance(node, ast.Call) and _samples(node) \
+                    and not any(kw.arg == "generator" for kw in node.keywords):
+                bad.append(f"{f.relative_to(ROOT)}:{node.lineno}: .{node.func.attr}() without generator")
+    assert not bad, bad
