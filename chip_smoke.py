@@ -9,10 +9,11 @@ Phases, in this order:
 2. parity — hold each kernel against its plain PyTorch version on the card, at
             the serving and training shapes and at ragged ones, with the stated
             tolerances; the whole-layer backward twice, bitwise; the flash
-            forward (#7) at ALBEF's nine attention shapes, twice, bitwise; the
-            flash backward (#8 dq, #9 dk/dv) at ALBEF's five training sites and
-            four ragged shapes, twice, bitwise, with constructed probes of p's
-            and ds's precision and the wrappers' refusals.
+            forward (#7) at ALBEF's nine attention shapes and eight tile edges,
+            twice, bitwise; the flash backward (#8 dq, #9 dk/dv) at ALBEF's five
+            training sites, four ragged shapes and the eight tile edges, twice,
+            bitwise, with constructed probes of p's and ds's precision and the
+            wrappers' refusals.
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -41,8 +42,9 @@ Phases, in this order:
             plain path (attn_impl='auto') in fp32 by the 2x-bf16 rule, and
             the top-1 answers against it.
 7. time   — each kernel, its plain version and one PyTorch call (chain) for the
-            same function (a yardstick the port never calls), by CUDA events,
-            beside the kernel's bound; serving rates and latency; DAT and LoRA
+            same function (a yardstick the port never calls), by the profiler's
+            device time (``device_ms``; the CUDA-event wall per call beside it),
+            against the kernel's bound; serving rates and latency; DAT and LoRA
             train samples/s and ALBEF rank-answer questions/s, kernel path
             against plain path in alternating samples; torch.profiler
             breakdowns of one serving forward, one step of each and one
@@ -57,8 +59,9 @@ Phases, in this order:
             FederatedTrainer round of two synthetic ALBEF clients (2 fused
             steps each, FedAvg of adapter_1) and evaluate_dat by rank_answer.
 9. time   — #8 and #9 at ALBEF's ViT shape beside the plain backward, autograd
-            through SDPA and their bounds; ALBEF train samples/s, kernel path
-            against plain path, with peak memory; a profile of one step.
+            through SDPA and their bounds, by device time; ALBEF train
+            samples/s, kernel path against plain path, with peak memory; a
+            profile of one step.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -129,8 +132,68 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(v, 1e-30))) - 7)
 
 
+DEVICE_MS_MARK = "chip_smoke.device_ms"
+# device_ms's own record: profiles taken, profiles taken again, and for each
+# profile its closing marker kernel's device start less the host's call to
+# launch it (us): launch latency plus the offset between the profiler's clocks
+DEVICE_MS_STATS = {"profiles": 0, "again": 0, "lag_us": []}
+
+
+def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median device milliseconds of one call of ``fn`` over ``iters`` calls
+    after ``warmup``: the sum of the durations of the CUDA kernels (and copies)
+    that torch.profiler records for the call.  The host's dispatch rate does
+    not enter, as it does in :func:`cuda_ms` when the host is the slower side.
+
+    One profile takes ``iters`` + 1 calls.  Before each call, and after the
+    last, the host launches a marker (``torch.cuda._sleep``'s spin kernel,
+    which no timed function launches); after each call it synchronizes.  The
+    device events between one marker and the next, in the device clock's
+    order, are that call's, whatever the host's clock says: on the H100 the
+    two have run milliseconds apart (``time device_ms`` prints the lag).  The
+    first call is not counted: after a long run the profiler has dropped the
+    first call's device events, marker included, in every profile.  The last
+    ``iters`` calls are read back from the last marker.  A profile in which
+    one of them got no device time is taken again, 3 times at most, and each
+    failed try prints what the profiler gave back."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    tries = 3
+    for _ in range(tries):
+        DEVICE_MS_STATS["profiles"] += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters + 2):
+                with record_function(DEVICE_MS_MARK):
+                    torch.cuda._sleep(1000)
+                if i <= iters:
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        marks = sorted(e.time_range.start for e in events
+                       if e.name == DEVICE_MS_MARK and e.device_type != cuda)
+        device = sorted((e.time_range.start, e.time_range.elapsed_us(), "spin_kernel" in e.name)
+                        for e in events
+                        if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+                        and e.name != DEVICE_MS_MARK)
+        at = [i for i, (_, _, is_mark) in enumerate(device) if is_mark][-(iters + 1):]
+        per_call = [sum(us for _, us, _ in device[a + 1:b]) for a, b in zip(at, at[1:])]
+        if len(per_call) == iters and min(per_call) > 0:
+            if marks:
+                DEVICE_MS_STATS["lag_us"].append(device[at[-1]][0] - marks[-1])
+            return statistics.median(per_call) / 1e3
+        DEVICE_MS_STATS["again"] += 1
+        print(f"device_ms: a profile gave {len(device)} device events with {len(at)} of the last "
+              f"{iters + 1} markers; calls without device time {per_call.count(0.0)} of {len(per_call)}")
+    check(False, f"torch.profiler recorded no device time for a timed call in {tries} profiles")
+
+
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call by CUDA events (warm caches, back to back)."""
+    """Mean wall milliseconds per call by CUDA events over back-to-back calls
+    (warm caches): the "wall per call" of the readable lines."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -142,6 +205,23 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_row(torch, label, kernel, plain, library, bound, library_name):
+    """One kernel's row of the JSON line -> (ms, plain_ms, library_ms, bound_ms,
+    bound_by, operations): the kernel, its plain version and one PyTorch call
+    (chain) for the same function, each by :func:`device_ms`, beside the
+    bound.  The readable line adds the kernel's and the library's wall per
+    call by CUDA events."""
+    bound_ms, bound_by, ops = bound
+    k_ms, l_ms = device_ms(torch, kernel), device_ms(torch, library)
+    p_ms = device_ms(torch, plain, iters=3, warmup=1)
+    k_wall, l_wall = cuda_ms(torch, kernel, 20), cuda_ms(torch, library, 20)
+    print(f"time {label}: kernel {k_ms:.4f} ms device ({ops / k_ms / 1e9:.1f} TFLOP/s; wall per call "
+          f"{k_wall:.4f}), bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / k_ms:.1f}% of bound), "
+          f"plain {p_ms:.4f} ms device, library ({library_name}) {l_ms:.4f} ms device (wall per call "
+          f"{l_wall:.4f}); kernel / library {k_ms / l_ms:.2f}x")
+    return k_ms, p_ms, l_ms, bound_ms, bound_by, ops
 
 
 # ----------------------------------------------------------------- inputs
@@ -705,6 +785,15 @@ FLASH_CASES = [
     ("long", 2, 2048, 2048, "padding"),
     ("ragged head bias", 3, 130, 70, "heads"),
 ]
+# #7's and #9's tile edges (128 rows per block, 64 per ring stage): Sq or Skv of
+# 127, 128, 129 and 257, where a warpgroup or a ring stage is partly or wholly
+# empty, with a padding bias (a staged key row) and the per-head one (a staged
+# [query][key] tile).  Forward (Sq, Skv), backward (Skv, Sq): each edge falls on
+# the side that the kernel splits into blocks and on the side that it streams.
+EDGE_LENGTHS = (127, 128, 129, 257)
+FLASH_EDGE_CASES = [(f"edge {n} {kind}", 2, n, 193 if kind == "heads" else n, kind)
+                    for n in EDGE_LENGTHS for kind in ("padding", "heads")]
+FLASH_CASES += FLASH_EDGE_CASES
 # #7 against its plain version on the same inputs: o elementwise in bf16 ulps of
 # each element's own magnitude (own_ulps), lse as |err| / max |lse|.  Both keep
 # P in fp32 (the kernel as bf16 hi + lo, ~2^-16 of P) and round o to bf16 once
@@ -825,7 +914,7 @@ FLASH_BWD_CASES = [
     ("Sq=1", 5, 1, LQ, "padding"),
     ("ragged head bias", 3, 130, 70, "heads"),
     ("ragged", 2, 67, 129, "padding"),
-]
+] + [(site, b, skv, sq, kind) for site, b, sq, skv, kind in FLASH_EDGE_CASES]
 # #8/#9 against their plain version on the same inputs, each of dq, dk, dv
 # elementwise in bf16 ulps of each element's own magnitude (own_ulps).  Both
 # keep p and ds at fp32 precision (the kernels as bf16 hi + lo) and round the
@@ -1761,23 +1850,20 @@ def time_albef_train(torch, at, seed):
     with torch.no_grad():
         o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, scale)
         run_dq, run_dkv, _ = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
-        dq_ms, dkv_ms = cuda_ms(torch, run_dq, 30), cuda_ms(torch, run_dkv, 30)
-        p_ms = cuda_ms(torch, lambda: fl.flash_attention_bwd_ref(q, k, v, None, o, do, lse, scale), 3,
-                       warmup=1)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves)
-    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 30)
-    del out, leaves
+
     rows = {}
-    for name, part, ms in (("flash_attention_bwd_dq", "dq", dq_ms), ("flash_attention_bwd_dkv", "dkv", dkv_ms)):
-        bound, bound_by, ops = flash_bwd_bound(AB, VIT_S, VIT_S, 0, part)
-        rows[name] = (ms, p_ms, l_ms, bound, bound_by, ops)
-        print(f"time {name} B={AB} H={HEADS} S={VIT_S}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
-              f"TFLOP/s), bound {bound:.4f} ms by {bound_by} ({100 * bound / ms:.1f}% of bound), plain "
-              f"backward (dq, dk, dv) {p_ms:.4f} ms, library (autograd.grad through SDPA: dq, dk, dv) "
-              f"{l_ms:.4f} ms")
-    print(f"time flash backward: #8 + #9 {dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / l_ms:.2f}x the "
-          f"library's")
+    for name, part, run in (("flash_attention_bwd_dq", "dq", run_dq), ("flash_attention_bwd_dkv", "dkv", run_dkv)):
+        rows[name] = time_row(
+            torch, f"{name} B={AB} H={HEADS} S={VIT_S}", run,
+            lambda: fl.flash_attention_bwd_ref(q, k, v, None, o, do, lse, scale),
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            flash_bwd_bound(AB, VIT_S, VIT_S, 0, part), "autograd.grad through SDPA: dq, dk, dv; plain: the same")
+    del out, leaves
+    pair = rows["flash_attention_bwd_dq"][0] + rows["flash_attention_bwd_dkv"][0]
+    print(f"time flash backward: #8 + #9 {pair:.4f} ms device, {pair / rows['flash_attention_bwd_dq'][2]:.2f}x "
+          f"the library's")
 
     model, params, batch, state0 = at["model"], at["params"], at["batch"], at["state0"]
     step, _ = albef_fused_step(torch, model, params, seed)
@@ -1839,15 +1925,12 @@ def time_albef(torch, al, seed):
         q, k, v, bias = flash_case(torch, b, sq, skv, kind, seed)
         mask = None if bias is None else bias.bfloat16()
         with torch.no_grad():
-            k_ms = cuda_ms(torch, lambda: fl.flash_attention_fwd_cuda(q, k, v, bias, 0.125), 30)
-            p_ms = cuda_ms(torch, lambda: fl.flash_attention_fwd_ref(q, k, v, bias, 0.125), 5, warmup=1)
-            l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 30)
-        bound, bound_by, ops = flash_bound(b, sq, skv, 0 if bias is None else bias.numel())
-        rows.append((site, k_ms, p_ms, l_ms, bound, bound_by, ops))
-        print(f"time flash_attention {site} B={b} Sq={sq} Skv={skv}: kernel {k_ms:.4f} ms "
-              f"({ops / k_ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms by {bound_by} "
-              f"({100 * bound / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, library (SDPA with the "
-              f"float mask) {l_ms:.4f} ms")
+            rows.append((site, *time_row(
+                torch, f"flash_attention {site} B={b} Sq={sq} Skv={skv}",
+                lambda: fl.flash_attention_fwd_cuda(q, k, v, bias, 0.125),
+                lambda: fl.flash_attention_fwd_ref(q, k, v, bias, 0.125),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                flash_bound(b, sq, skv, 0 if bias is None else bias.numel()), "SDPA with the float mask")))
 
     pred, plain, batch = al["pred"], al["plain"], al["batch"]
 
@@ -1901,27 +1984,21 @@ def time_fused_kernels(torch, seed):
     q, k, v, do = fused_inputs(torch, TB, TS, seed)
     bias = padding_bias(torch, TB, TS, seed)
     scale = 64 ** -0.5
-    rows = []
     with torch.no_grad():
         o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
-        k_ms = cuda_ms(torch, lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale), 50)
-        p_ms = cuda_ms(torch, lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale), 5, warmup=1)
-        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16()),
-                       50)
-    rows.append(("fused_attention", k_ms, p_ms, l_ms, *fused_attention_bound(TB, TS, False)))
-    with torch.no_grad():
-        k_ms = cuda_ms(torch, lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale), 50)
-        p_ms = cuda_ms(torch, lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale), 5,
-                       warmup=1)
+    rows = {"fused_attention": time_row(
+        torch, f"fused_attention B={TB} S={TS}", lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale),
+        lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16()),
+        fused_attention_bound(TB, TS, False), "SDPA with the mask")}
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=bias.bfloat16())
-    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 50)
-    rows.append(("fused_attention_bwd", k_ms, p_ms, l_ms, *fused_attention_bound(TB, TS, True)))
-    for name, k_ms, p_ms, l_ms, bound, bound_by, ops in rows:
-        print(f"time {name} B={TB} S={TS}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s bf16), "
-              f"bound {bound:.4f} ms by {bound_by} ({100 * bound / k_ms:.1f}% of bound), "
-              f"plain {p_ms:.4f} ms, library (SDPA{' autograd.grad' if 'bwd' in name else ''}) "
-              f"{l_ms:.4f} ms")
+    rows["fused_attention_bwd"] = time_row(
+        torch, f"fused_attention_bwd B={TB} S={TS}",
+        lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale),
+        lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale),
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        fused_attention_bound(TB, TS, True), "autograd.grad through SDPA")
     return rows
 
 
@@ -1967,7 +2044,7 @@ def time_backward_kernels(torch, seed):
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import layer_block as lb
 
-    rows = []
+    rows = {}
     args = attn_bwd_case(torch, TB, TS, True, seed)
     x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
     x_req = x.detach().requires_grad_()
@@ -1979,12 +2056,11 @@ def time_backward_kernels(torch, seed):
     q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
     att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
     out = F.linear(att.transpose(1, 2).reshape(TB, TS, DM), wo)
-    with torch.no_grad():
-        k_ms = cuda_ms(torch, lambda: ab.attn_block_bwd_cuda(*args), 20)
-        p_ms = cuda_ms(torch, lambda: ab.attn_block_bwd_reference(*args), 3, warmup=1)
-    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True), 20)
-    bound, bound_by, ops = attn_bwd_bound(TB, TS, True)
-    rows.append(("attn_block_bwd", k_ms, p_ms, l_ms, bound, bound_by, ops))
+    rows["attn_block_bwd"] = time_row(
+        torch, f"attn_block_bwd B={TB} S={TS}", lambda: ab.attn_block_bwd_cuda(*args),
+        lambda: ab.attn_block_bwd_reference(*args),
+        lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True), attn_bwd_bound(TB, TS, True),
+        "autograd.grad through the library forward")
     del out, att, q, k, v, xl
 
     largs, cfg = layer_case(torch, TB, TS, True, seed)
@@ -2004,16 +2080,11 @@ def time_backward_kernels(torch, seed):
         return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
 
     out = o + 0.5 * adapter(*pa) + 0.5 * adapter(wdb, bdb, wub, bub)
-    with torch.no_grad():
-        k_ms = cuda_ms(torch, lambda: lb.layer_block_bwd_cuda(*largs, *cfg), 10)
-        p_ms = cuda_ms(torch, lambda: lb.layer_block_bwd_reference(*largs, *cfg), 3, warmup=1)
-    l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True), 10)
-    bound, bound_by, ops = layer_bwd_bound(TB, TS, True)
-    rows.append(("layer_block_bwd", k_ms, p_ms, l_ms, bound, bound_by, ops))
-    for name, k_ms, p_ms, l_ms, bound, bound_by, ops in rows:
-        print(f"time {name} B={TB} S={TS}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s "
-              f"bf16), bound {bound:.4f} ms by {bound_by} ({100 * bound / k_ms:.1f}% of bound), "
-              f"plain {p_ms:.4f} ms, library chain (autograd.grad) {l_ms:.4f} ms")
+    rows["layer_block_bwd"] = time_row(
+        torch, f"layer_block_bwd B={TB} S={TS}", lambda: lb.layer_block_bwd_cuda(*largs, *cfg),
+        lambda: lb.layer_block_bwd_reference(*largs, *cfg),
+        lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True), layer_bwd_bound(TB, TS, True),
+        "autograd.grad through the library forward")
     return rows
 
 
@@ -2059,7 +2130,7 @@ def phase_time(torch, pred, plain, requests, seed):
     from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
 
-    rows = []
+    rows = {}
     args = attn_inputs(torch, B, S, True, seed)
     x, wq, wk, wv, wo, bqkv, bo, gb, bias = args[:9]
 
@@ -2072,11 +2143,10 @@ def phase_time(torch, pred, plain, requests, seed):
         return F.linear(ctx.transpose(1, 2).reshape(B, S, DM), wo, bo[0].bfloat16())
 
     with torch.inference_mode():
-        k_ms = cuda_ms(torch, lambda: ab.attn_block_cuda(*args), 50)
-        p_ms = cuda_ms(torch, lambda: ab.attn_block_reference(*args), 10)
-        l_ms = cuda_ms(torch, attn_library, 50)
-    bound, bound_by, ops = attn_block_bound(B, S, True)
-    rows.append(("attn_block", k_ms, p_ms, l_ms, bound, bound_by, ops))
+        rows["attn_block"] = time_row(
+            torch, f"attn_block B={B} S={S}", lambda: ab.attn_block_cuda(*args),
+            lambda: ab.attn_block_reference(*args), attn_library, attn_block_bound(B, S, True),
+            "F.layer_norm + F.linear + SDPA + F.linear")
 
     h, pa, pb, w = adapter_inputs(torch, B * S, seed)
 
@@ -2088,18 +2158,13 @@ def phase_time(torch, pred, plain, requests, seed):
         b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
         return (w * a + (1.0 - w) * b).bfloat16()
 
+    *bound, fma_target = adapter_bound(B * S)
     with torch.inference_mode():
-        k_ms = cuda_ms(torch, lambda: af.adapter_fused_cuda(h, pa, pb, w), 100)
-        p_ms = cuda_ms(torch, lambda: af.adapter_fused_reference(h, pa, pb, w), 20)
-        l_ms = cuda_ms(torch, adapter_library, 50)
-    bound, bound_by, ops, fma_target = adapter_bound(B * S)
-    rows.append(("adapter_fused", k_ms, p_ms, l_ms, bound, bound_by, ops))
-    for name, k_ms, p_ms, l_ms, bound, bound_by, ops in rows:
-        print(f"time {name}: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s), "
-              f"bound {bound:.4f} ms by {bound_by} ({100 * bound / k_ms:.1f}% of bound), "
-              f"plain {p_ms:.4f} ms, library chain {l_ms:.4f} ms")
+        rows["adapter_fused"] = time_row(
+            torch, f"adapter_fused N={B * S}", lambda: af.adapter_fused_cuda(h, pa, pb, w),
+            lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library, bound, "torch.addmm chain")
     print(f"time adapter_fused: design target, all operations at the fp32 FMA rate, "
-          f"{fma_target:.4f} ms ({100 * fma_target / rows[1][1]:.1f}% reached)")
+          f"{fma_target:.4f} ms ({100 * fma_target / rows['adapter_fused'][0]:.1f}% reached)")
 
     imgs, qs, batch = requests
     # kernel path vs plain path in alternating pairs (kp, pk, kp, ...), so
@@ -2134,7 +2199,7 @@ def phase_time(torch, pred, plain, requests, seed):
           f"forward-only {B / (plain_fwd_ms / 1e3):.1f} predictions/s")
     profile_device(torch, lambda: pred.forward(batch), f"forward (B={B})",
                    {"attn_block": ("gemm_kernel", "attn_kernel"), "adapter_fused": ("adapter_kernel",)})
-    return {name: (k, p, l, bd, by, ops) for name, k, p, l, bd, by, ops in rows}
+    return rows
 
 
 def profile_device(torch, fn, label, groups):
@@ -2206,9 +2271,9 @@ def main(argv=None) -> int:
     al = phase_albef(torch, args.seed)
     times = phase_time(torch, pred, plain, requests, args.seed)
     del pred, plain
-    times.update({name: row for name, *row in time_backward_kernels(torch, args.seed)})
+    times.update(time_backward_kernels(torch, args.seed))
     time_train(torch, tr)
-    times.update({name: row for name, *row in time_fused_kernels(torch, args.seed)})
+    times.update(time_fused_kernels(torch, args.seed))
     time_peft(torch, pf, args.seed)
     pf_launches = pf["launches"]
     del pf
@@ -2234,6 +2299,10 @@ def main(argv=None) -> int:
     bwd_rows, _, _ = time_albef_train(torch, at, args.seed)
     times.update(bwd_rows)
     launches.update({k: at["launches"][k] for k in bwd_rows})
+    lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
+    print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
+          f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "
+          f"us, range [{lag[0]:.1f}, {lag[-1]:.1f}] over {len(DEVICE_MS_STATS['lag_us'])} profiles")
     sources = {
         "attn_block": ("feddat_tpu_torch/csrc/attn_block.cu", "feddat_tpu/ops/attn_block.py:90"),
         "adapter_fused": ("feddat_tpu_torch/csrc/adapter_fused.cu",

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a): online softmax over key tiles.
+// Flash attention for Hopper (sm_90a): the forward (#7) and the backward's dq
+// (#8) and dk/dv (#9) launches, online softmax over tiles of the other side.
 //
 // Replaces the TPU kernel feddat_tpu/ops/flash.py::_flash_fwd_kernel (kernel
 // #7, called through _flash_forward), the same function at the same points:
@@ -19,23 +20,49 @@
 // underflows to the same 0), query rows past Sq are not written.
 //
 // P stays fp32 in P.v, as the TPU kernel keeps it: p is split into bf16 hi =
-// bf16(p) and lo = bf16(p - hi) and both multiply the bf16 v on mma.sync with
-// fp32 accumulation (p - hi is exact, lo keeps 8 more bits: p is carried to
-// ~2^-17 of itself, far below o's bf16 rounding).  Rounding p to bf16, as
-// kernel #5 does, would move o by up to 2^-9 of each term.
+// bf16(p) and lo = bf16(p - hi) and both multiply the bf16 v with fp32
+// accumulation (p - hi is exact, lo keeps 8 more bits: p is carried to ~2^-17
+// of itself, far below o's bf16 rounding).  Rounding p to bf16, as kernel #5
+// does, would move o by up to 2^-9 of each term.  exp is ex2.approx on the
+// logit's distance from the max times log2(e): ~2^-21 of p, far below too.
 //
 // What bounds it on the H100.  At ALBEF's ViT site (B=16, H=12, S=577)
 // q.k^T is 8.2 GFLOP of bf16 products (~8.3 us at 989 TFLOP/s) and P.v the
 // same again twice over (hi and lo: ~16.6 us, the time TF32 would take); q, k,
 // v, o and lse are ~57 MB (~17 us at 3.35 TB/s): operations bound it.  At the
-// short text sites bytes do.
+// short text sites bytes do.  Beside the tensor cores, each logit costs ~15
+// fp32 instructions (scale, bias, max, exp, sum, the hi/lo split): ~30 us at
+// the CUDA cores' rate, so the softmax must overlap the products.
 //
-// Design: one block of 4 warps per (64-query tile, head, batch element),
-// 16 query rows per warp; a loop over 64-key tiles staged in shared memory (K
-// as [key][d], V transposed as [d][key]); q.k^T and P.v on mma.sync m16n8k16,
-// the logits tile held in registers and handed to P.v as A fragments (no
-// shared-memory round trip); the running max/sum per row kept by the 4
-// threads of a quad.  wgmma, TMA and a ring of tiles are later work.
+// Design.  A 64-row mma.sync kernel that stages every key tile with the
+// threads that then compute on it, writes V transposed by scalar stores and
+// reads the bias per element from global memory reaches ~7% of the bound.
+// So:
+//   * one block of two warpgroups owns 128 query rows, 64 per warpgroup; Q is
+//     loaded once into shared memory;
+//   * K, V and the bias tile of each 64-key step go through a two-stage ring
+//     filled by cp.async: while the warpgroups compute on step j, step j+1 is
+//     in flight;
+//   * q.k^T is one wgmma.m64n64k16 chain per warpgroup with Q and K both read
+//     from their swizzled tiles (flash_sm90.cuh), K in its natural [key][d]
+//     layout;
+//   * P.v is wgmma with p's hi and lo halves as register A fragments (the C
+//     fragments of q.k^T, no shared-memory round trip) and V read from its
+//     natural [key][d] tile through wgmma's transposed B: nothing is stored
+//     transposed;
+//   * the bias tile of the block's rows and the step's keys is staged in
+//     shared memory with K (a [128][64] fp32 tile, or one 64-key row when the
+//     bias is constant over queries), so it is read from device memory once
+//     per block;
+//   * two blocks fit an SM (<= 128 registers a thread), so one block's
+//     softmax overlaps the other's products.
+// What still bounds it: inside a warpgroup nothing overlaps.  Each step waits
+// for q.k^T, runs the softmax on the CUDA cores, then waits for P.v, and ptxas
+// fences the register-A products (its C7519 note); only the SM's other three
+// warpgroups fill those gaps.  At the ViT site the 960 blocks make 3.6 waves
+// of 264.  The next steps are a producer warp with TMA and mbarriers, and
+// q.k^T of step j+1 started before the softmax of step j (FlashAttention-3's
+// ping-pong).  PERF.md §6 has the times.
 //
 // ---------------------------------------------------------------- backward
 // Replaces feddat_tpu/ops/flash.py::_flash_bwd_dq_kernel (kernel #8) and
@@ -49,12 +76,12 @@
 //   #9: dv = bf16(sum_queries p^T dO),  dk = bf16(scale * sum_queries ds^T q)
 //
 // p and ds stay fp32 in their products, as the TPU kernels keep them: each is
-// split into bf16 hi + lo and both multiply the bf16 operand on mma.sync with
-// fp32 accumulation (as #7 does for P.v).  Rounding ds to bf16, as #6 does,
-// would move dq and dk by up to 2^-9 of each term.  Keys past Skv and queries
-// past Sq contribute exactly 0 (JAX pads them with -1e30 and with zero rows of
-// q, dO and delta); their rows are not written.  No atomics: each block owns
-// its output tile, so a second call is bitwise equal.
+// split into bf16 hi + lo and both multiply the bf16 operand with fp32
+// accumulation (as #7 does for P.v).  Rounding ds to bf16, as #6 does, would
+// move dq and dk by up to 2^-9 of each term.  Keys past Skv and queries past
+// Sq contribute exactly 0 (JAX pads them with -1e30 and with zero rows of q,
+// dO and delta); their rows are not written.  No atomics: each block owns its
+// output tile, so a second call is bitwise equal.
 //
 // What bounds them on the H100.  At ALBEF's ViT site (B=16, H=12, S=577) one
 // [S, S] x 64 product is 8.2 GFLOP.  #8 does s and dp on bf16 operands (~16.6
@@ -63,26 +90,55 @@
 // and ds^T.q at fp32 precision (~50 us).  Each moves ~70 MB (~21 us at 3.35
 // TB/s): operations bound both.
 //
-// Design, in the FlashAttention-2 manner of attn_bwd.cuh (whose tile staging
-// and fragment helpers it reuses): #8 is one block of 4 warps per (64-query
-// tile, head, batch element) streaming 64-key tiles (K natural and transposed,
-// V natural); #9 one block per (64-key tile, head, batch element) streaming
-// 64-query tiles (Q and dO natural and transposed).  The logits are rebuilt in
-// registers and handed from C fragments to A fragments with no shared-memory
-// round trip.  The bias is read by element strides as in the forward.
+// #8 is built in the FlashAttention-2 manner of attn_bwd.cuh (whose tile
+// staging and fragment helpers it reuses): one block of 4 warps per
+// (64-query tile, head, batch element) streaming 64-key tiles (K natural and
+// transposed, V natural) on mma.sync.  #9 is built as #7 is (a kernel of
+// #8's kind, staging Q and dO natural and transposed, four tiles with two
+// scalar transposes per 64-query step, reaches ~7% of the bound):
+//   * one block of two warpgroups owns 128 keys, 64 per warpgroup; K and V
+//     are loaded once into swizzled tiles and are the A operands of s^T = K.Q^T
+//     and dp^T = V.dO^T;
+//   * Q and dO of each 64-query step, with that step's lse, delta and bias
+//     tile, go through a two-stage cp.async ring;
+//   * s^T and dp^T are wgmma chains reading Q and dO in their natural [q][d]
+//     layout as K-major B; dV += P^T.dO and dK += dS^T.Q take P^T and dS^T as
+//     register A fragments (hi + lo) and read dO and Q from the same tiles as
+//     wgmma's transposed B: two tiles per step, none transposed;
+//   * dK and dV accumulate in registers for the block's whole walk over the
+//     queries and are written once.
+// What still bounds #9: four 64 x 64 fp32 accumulators (s, dp, dk, dv) take
+// 215 registers a thread, so one block of 8 warps holds an SM and nothing
+// else hides its waits.  Those waits are s^T and dp^T, then the elementwise
+// p and ds, then the four hi + lo products.  Splitting dk and dv across
+// warpgroups, or a third consumer warpgroup with a producer warp, would let
+// two blocks share an SM.
 
 #include "attn_bwd.cuh"
+#include "flash_sm90.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int FL_BQ = 64;       // query rows per block (16 per warp)
+constexpr int FL_BQ = 64;       // #8: query rows per block (16 per warp)
 constexpr int FL_BK = 64;       // keys per staged tile
 constexpr int FL_D = 64;        // head dim
 constexpr int FL_THREADS = 128;
-constexpr int FL_LD = FL_D + 8;  // padded smem row (bf16)
+constexpr int FL_LD = FL_D + 8;  // #8: padded smem row (bf16)
 constexpr float FL_NEG_INF = -1e30f;
+
+// #7 and #9: two warpgroups per block, a two-stage ring of 64-row tiles
+constexpr int FS_THREADS = 256;
+constexpr int FS_ROWS = 128;             // query rows (#7) or keys (#9) per block
+constexpr int FS_STAGES = 2;
+constexpr int F7_BIAS_LD = FL_BK + 8;    // fp32 row of #7's staged [128 q][64 key] bias tile
+constexpr int F9_BIAS_LD = FS_ROWS + 4;  // fp32 row of #9's staged [64 q][128 key] bias tile
+constexpr int TB = sm90::TILE_BYTES;
+
+// How the kernels stage the bias: none, one row constant over queries, or a
+// [query][key] tile per step.
+enum { BIAS_NONE = 0, BIAS_ROW = 1, BIAS_TILE = 2 };
 
 struct FlashArgs {
   Heads<const bf16> q, k, v;
@@ -109,98 +165,108 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__global__ void __launch_bounds__(FL_THREADS) flash_fwd_kernel(FlashArgs p) {
-  __shared__ __align__(16) bf16 Qs[FL_BQ * FL_LD];
-  __shared__ __align__(16) bf16 Ks[FL_BK * FL_LD];  // [key][d]
-  __shared__ __align__(16) bf16 Vt[FL_D * FL_LD];   // [d][key]
+// the 1024-byte aligned start of the dynamic shared memory `raw` (the wgmma
+// swizzle is a function of the address), as a shared-space address and a pointer
+__device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
+  const uint32_t at = sm90::smem_addr(raw);
+  const uint32_t base = (at + 1023u) & ~1023u;
+  *ptr = raw + (base - at);
+  return base;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// #7's dynamic shared memory: Q (two tiles), then K and V of each stage, then
+// the bias of each stage (none, one 64-key row, or a [128][F7_BIAS_LD] tile)
+__host__ __device__ int fwd_bias_floats(int mode) { return mode == BIAS_NONE ? 0 : mode == BIAS_ROW ? FL_BK : FS_ROWS * F7_BIAS_LD; }
+int fwd_smem_bytes(int mode) { return 1024 + (2 + 2 * FS_STAGES) * TB + FS_STAGES * fwd_bias_floats(mode) * 4; }
+
+__global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, int mode) {
+  extern __shared__ __align__(16) uint8_t fs_smem[];
+  uint8_t* sp;
+  const uint32_t sbase = aligned_smem(fs_smem, &sp);
+  const uint32_t sQ = sbase;                             // + wg * TB
+  float* bias_s = reinterpret_cast<float*>(sp + (2 + 2 * FS_STAGES) * TB);
+  const int bias_stage = fwd_bias_floats(mode);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * FL_BQ, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = p.q.at(b, h);
+  const int q0 = blockIdx.x * FS_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int lrow = wg * 64 + warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
   const bf16* kb = p.k.at(b, h);
   const bf16* vb = p.v.at(b, h);
-  const int qr = warp * 16;
-  const int row[2] = {q0 + qr + g, q0 + qr + g + 8};  // this thread's two query rows
+  const float* bb = p.bias != nullptr ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const int nsteps = (p.Skv + FL_BK - 1) / FL_BK;
 
-  // bias rows of this thread's queries (clamped: rows past Sq are never written)
-  const float* brow[2] = {nullptr, nullptr};
-  if (p.bias != nullptr) {
-    const float* base = p.bias + b * p.bsb + h * p.bsh;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) brow[i] = base + (long long)min(row[i], p.Sq - 1) * p.bsq;
-  }
-
-  for (int i = tid; i < FL_BQ * (FL_D / 8); i += FL_THREADS) {
-    const int r = i / (FL_D / 8), c = (i % (FL_D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Sq) v = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * p.q.ss + c);
-    *reinterpret_cast<uint4*>(Qs + r * FL_LD + c) = v;
-  }
-  __syncthreads();
-  uint32_t qa[FL_D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < FL_D / 16; ++ks) {
-    const bf16* pq = Qs + (qr + g) * FL_LD + ks * 16 + tig * 2;
-    qa[ks][0] = lds32(pq);
-    qa[ks][1] = lds32(pq + 8 * FL_LD);
-    qa[ks][2] = lds32(pq + 8);
-    qa[ks][3] = lds32(pq + 8 * FL_LD + 8);
-  }
-
-  float m[2] = {FL_NEG_INF, FL_NEG_INF};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums (its 2 columns of each n-tile)
-  float acc[FL_D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < FL_D / 8; ++nt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[nt][t] = 0.f;
-
-  for (int kt = 0; kt < p.Skv; kt += FL_BK) {
-    __syncthreads();  // the previous tile's K and V reads are done
-    for (int i = tid; i < FL_BK * (FL_D / 8); i += FL_THREADS) {
-      const int r = i / (FL_D / 8), c = (i % (FL_D / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kt + r < p.Skv) v = *reinterpret_cast<const uint4*>(kb + (long long)(kt + r) * p.k.ss + c);
-      *reinterpret_cast<uint4*>(Ks + r * FL_LD + c) = v;
-    }
-    for (int i = tid; i < FL_BK * (FL_D / 8); i += FL_THREADS) {
-      const int r = i % FL_BK, c = (i / FL_BK) * 8;  // r: key, c: first dim
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (kt + r < p.Skv) v = *reinterpret_cast<const uint4*>(vb + (long long)(kt + r) * p.v.ss + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) Vt[(c + t) * FL_LD + r] = e[t];
-    }
-    __syncthreads();
-
-    // s = q.k^T for the warp's 16 rows x 64 keys (C fragments: [0..1] row g, [2..3] row g+8)
-    float s[FL_BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < FL_BK / 8; ++nt) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) s[nt][t] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < FL_D / 16; ++ks) {
-        const bf16* pk = Ks + (nt * 8 + g) * FL_LD + ks * 16 + tig * 2;
-        uint32_t kf[2] = {lds32(pk), lds32(pk + 8)};
-        mma_16816(s[nt], qa[ks], kf);
+  // start the copies of step j's K, V and bias into ring stage j % 2 (one commit group)
+  auto stage = [&](int j) {
+    const int st = j % FS_STAGES, k0 = j * FL_BK;
+    const uint32_t sk = sbase + (2 + 2 * st) * TB;
+    sm90::load_tile<FS_THREADS>(sk, kb, p.k.ss, k0, p.Skv, tid);
+    sm90::load_tile<FS_THREADS>(sk + TB, vb, p.v.ss, k0, p.Skv, tid);
+    const uint32_t sb = sm90::smem_addr(bias_s + st * bias_stage);
+    if (mode == BIAS_ROW) {
+      if (tid < FL_BK) {
+        const bool ok = k0 + tid < p.Skv;
+        sm90::cp_async4(sb + tid * 4, bb + (ok ? (long long)(k0 + tid) * p.bsk : 0), ok);
+      }
+    } else if (mode == BIAS_TILE) {
+      for (int i = tid; i < FS_ROWS * FL_BK; i += FS_THREADS) {
+        const int r = i / FL_BK, c = i % FL_BK;
+        const bool ok = q0 + r < p.Sq && k0 + c < p.Skv;
+        sm90::cp_async4(sb + (r * F7_BIAS_LD + c) * 4,
+                        bb + (ok ? (long long)(q0 + r) * p.bsq + (long long)(k0 + c) * p.bsk : 0), ok);
       }
     }
+    sm90::cp_async_commit();
+  };
+
+  const bf16* qb = p.q.at(b, h);
+  sm90::load_tile<FS_THREADS>(sQ, qb, p.q.ss, q0, p.Sq, tid);
+  sm90::load_tile<FS_THREADS>(sQ + TB, qb, p.q.ss, q0 + 64, p.Sq, tid);
+  stage(0);  // Q lands with the first step
+
+  float m[2] = {FL_NEG_INF, FL_NEG_INF};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums (its 2 columns of each 8-key tile)
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < nsteps; ++j) {
+    const int st = j % FS_STAGES, k0 = j * FL_BK;
+    sm90::cp_async_wait_all();
+    __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
+    if (j + 1 < nsteps) stage(j + 1);
+    const uint32_t sk = sbase + (2 + 2 * st) * TB;
+
+    // s = q.k^T for the warpgroup's 64 rows x 64 keys
+    float s[32];
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < FL_D / 16; ++ks)
+      sm90::wgmma_ss(s, sm90::desc_k(sQ + wg * TB, ks), sm90::desc_k(sk, ks), ks);
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(s);
 
     // scale, bias; keys past Skv drop out (-inf: exp gives 0 and the max ignores them)
+    const float* bs = bias_s + st * bias_stage;
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < FL_BK / 8; ++nt) {
+      const int c = nt * 8 + tig * 2;  // step-local key of d[nt * 4 + 0|2]
+      float2 bv[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      if (mode == BIAS_ROW) {
+        bv[0] = bv[1] = *reinterpret_cast<const float2*>(bs + c);
+      } else if (mode == BIAS_TILE) {
+        bv[0] = *reinterpret_cast<const float2*>(bs + lrow * F7_BIAS_LD + c);
+        bv[1] = *reinterpret_cast<const float2*>(bs + (lrow + 8) * F7_BIAS_LD + c);
+      }
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int key = kt + nt * 8 + tig * 2 + (t & 1), r = t >> 1;
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
         float x = -INFINITY;
-        if (key < p.Skv) {
-          const float bv = brow[r] != nullptr ? brow[r][key * p.bsk] : 0.f;
-          x = __fadd_rn(__fmul_rn(s[nt][t], p.scale), bv);
-        }
-        s[nt][t] = x;
+        if (k0 + c + (e & 1) < p.Skv)
+          x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), (e & 1) ? bv[r].y : bv[r].x);
+        s[nt * 4 + e] = x;
         tmax[r] = fmaxf(tmax[r], x);
       }
     }
@@ -208,52 +274,39 @@ __global__ void __launch_bounds__(FL_THREADS) flash_fwd_kernel(FlashArgs p) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float mn = fmaxf(m[r], quad_max(tmax[r]));
-      corr[r] = expf(m[r] - mn);
+      corr[r] = sm90::ex2((m[r] - mn) * sm90::LOG2E);
       m[r] = mn;
       l[r] *= corr[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < FL_BK / 8; ++nt) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float e = expf(s[nt][t] - m[t >> 1]);
-        s[nt][t] = e;
-        l[t >> 1] += e;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < FL_D / 8; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float e = sm90::ex2((s[i] - m[r]) * sm90::LOG2E);
+      s[i] = e;
+      l[r] += e;
+      o[i] *= corr[r];
     }
 
-    // acc += p.v, p = hi + lo in bf16: the C fragments of key tiles 2ks and
-    // 2ks+1 are the A fragment of the 16-key step ks
+    // o += p.v with p = hi + lo in bf16, v from its natural [key][d] tile
+    sm90::pin(o);
+    sm90::wg_fence();
 #pragma unroll
     for (int ks = 0; ks < FL_BK / 16; ++ks) {
-      const float x[8] = {s[2 * ks][0], s[2 * ks][1], s[2 * ks][2], s[2 * ks][3],
-                          s[2 * ks + 1][0], s[2 * ks + 1][1], s[2 * ks + 1][2], s[2 * ks + 1][3]};
       uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-        lo[i] = pack_bf16(x[2 * i] - round_bf16(x[2 * i]), x[2 * i + 1] - round_bf16(x[2 * i + 1]));
-      }
-#pragma unroll
-      for (int nt = 0; nt < FL_D / 8; ++nt) {
-        const bf16* pv = Vt + (nt * 8 + g) * FL_LD + ks * 16 + tig * 2;
-        uint32_t vf[2] = {lds32(pv), lds32(pv + 8)};
-        mma_16816(acc[nt], hi, vf);
-        mma_16816(acc[nt], lo, vf);
-      }
+      sm90::hilo_frags(s, ks, hi, lo);
+      const uint64_t dv = sm90::desc_mn(sk + TB, ks);
+      sm90::wgmma_rs_t(o, hi, dv);
+      sm90::wgmma_rs_t(o, lo, dv);
     }
+    sm90::wg_commit();
+    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+    sm90::pin(o);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
   bf16* ob = p.o.at(b, h);
+  const int row[2] = {q0 + lrow, q0 + lrow + 8};
 #pragma unroll
   for (int nt = 0; nt < FL_D / 8; ++nt) {
     const int col = nt * 8 + tig * 2;
@@ -261,7 +314,7 @@ __global__ void __launch_bounds__(FL_THREADS) flash_fwd_kernel(FlashArgs p) {
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.Sq)
         *reinterpret_cast<uint32_t*>(ob + (long long)row[r] * p.o.ss + col) =
-            pack_bf16(acc[nt][2 * r] / l[r], acc[nt][2 * r + 1] / l[r]);
+            pack_bf16(o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
   }
   if (tig == 0) {
 #pragma unroll
@@ -381,75 +434,147 @@ __global__ void __launch_bounds__(FL_THREADS) flash_bwd_dq_kernel(FlashBwdArgs p
   }
 }
 
-__global__ void __launch_bounds__(FL_THREADS) flash_bwd_dkv_kernel(FlashBwdArgs p) {
-  __shared__ __align__(16) bf16 Qs[FL_BQ * FL_LD];  // [q][d]   (K tile while staging)
-  __shared__ __align__(16) bf16 Qt[FL_D * FL_LD];   // [d][q]   (V tile while staging)
-  __shared__ __align__(16) bf16 Os[FL_BQ * FL_LD];  // dO [q][d]
-  __shared__ __align__(16) bf16 Ot[FL_D * FL_LD];   // dO [d][q]
-  __shared__ float lse_s[FL_BQ];
-  __shared__ float dl_s[FL_BQ];
+// #9's dynamic shared memory: K and V of the block (two tiles each), then Q and
+// dO of each stage, then lse and delta of each stage (64 fp32 each), then the
+// bias tile of each stage ([64][F9_BIAS_LD] fp32, only when it varies over queries)
+__host__ __device__ int dkv_bias_floats(int mode) { return mode == BIAS_TILE ? FL_BQ * F9_BIAS_LD : 0; }
+int dkv_smem_bytes(int mode) {
+  return 1024 + (4 + 2 * FS_STAGES) * TB + FS_STAGES * (2 * FL_BQ + dkv_bias_floats(mode)) * 4;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdArgs p, int mode) {
+  extern __shared__ __align__(16) uint8_t fs_smem[];
+  uint8_t* sp;
+  const uint32_t sbase = aligned_smem(fs_smem, &sp);
+  const uint32_t sK = sbase, sV = sbase + 2 * TB;  // + wg * TB
+  float* vec_s = reinterpret_cast<float*>(sp + (4 + 2 * FS_STAGES) * TB);  // [stage][lse 64 | delta 64]
+  float* bias_s = vec_s + FS_STAGES * 2 * FL_BQ;
+  const int bias_stage = dkv_bias_floats(mode);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * FL_BK, h = blockIdx.y, b = blockIdx.z;
-  const int wr = warp * 16;
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};  // this thread's two keys
+  const int k0 = blockIdx.x * FS_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int lkey = wg * 64 + warp * 16 + g;  // block-local key of d[..0|1]; lkey + 8 of d[..2|3]
+  const int key[2] = {k0 + lkey, k0 + lkey + 8};
   const long long lse0 = ((long long)b * p.H + h) * p.Sq;
-
-  // bias columns of this thread's keys (clamped: keys past Skv drop out)
-  const float* bcol[2] = {nullptr, nullptr};
-  if (p.bias != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      bcol[r] = p.bias + b * p.bsb + h * p.bsh + (long long)min(key[r], p.Skv - 1) * p.bsk;
-  }
-
-  stage_tile(p.k.at(b, h), p.k.ss, k0, p.Skv, Qs, nullptr);
-  stage_tile(p.v.at(b, h), p.v.ss, k0, p.Skv, Qt, nullptr);
-  __syncthreads();
-  uint32_t ka[FL_D / 16][4], va[FL_D / 16][4];
-  a_frags(Qs, wr, g, tig, ka);
-  a_frags(Qt, wr, g, tig, va);
-
-  float dk[FL_D / 8][4], dv[FL_D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < FL_D / 8; ++nt) {
-    dk[nt][0] = dk[nt][1] = dk[nt][2] = dk[nt][3] = 0.f;
-    dv[nt][0] = dv[nt][1] = dv[nt][2] = dv[nt][3] = 0.f;
-  }
-
   const bf16* qb = p.q.at(b, h);
   const bf16* dob = p.dout.at(b, h);
-  for (int qt = 0; qt < p.Sq; qt += FL_BQ) {
-    __syncthreads();  // the previous tile's reads (and the K/V fragments) are done
-    stage_tile(qb, p.q.ss, qt, p.Sq, Qs, Qt);
-    stage_tile(dob, p.dout.ss, qt, p.Sq, Os, Ot);
-    for (int j = tid; j < FL_BQ; j += FL_THREADS) {
-      const bool ok = qt + j < p.Sq;
-      lse_s[j] = ok ? p.lse[lse0 + qt + j] : 0.f;
-      dl_s[j] = ok ? p.delta[lse0 + qt + j] : 0.f;
+  const float* bb = p.bias != nullptr ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const int nsteps = (p.Sq + FL_BQ - 1) / FL_BQ;
+
+  // a bias constant over queries is two registers (clamped: keys past Skv drop out)
+  float bkey[2] = {0.f, 0.f};
+  if (mode == BIAS_ROW) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) bkey[r] = bb[(long long)min(key[r], p.Skv - 1) * p.bsk];
+  }
+
+  // start the copies of query step j's Q, dO, lse, delta and bias into ring stage j % 2
+  // (one commit group)
+  auto stage = [&](int j) {
+    const int st = j % FS_STAGES, qt = j * FL_BQ;
+    const uint32_t sq = sbase + (4 + 2 * st) * TB;
+    sm90::load_tile<FS_THREADS>(sq, qb, p.q.ss, qt, p.Sq, tid);
+    sm90::load_tile<FS_THREADS>(sq + TB, dob, p.dout.ss, qt, p.Sq, tid);
+    if (tid < 2 * FL_BQ) {
+      const int i = tid % FL_BQ;
+      const bool ok = qt + i < p.Sq;
+      const float* src = (tid < FL_BQ ? p.lse : p.delta) + lse0 + (ok ? qt + i : 0);
+      sm90::cp_async4(sm90::smem_addr(vec_s + st * 2 * FL_BQ + tid), src, ok);
     }
-    __syncthreads();
-    float st[FL_BQ / 8][4], dpt[FL_BQ / 8][4];
-    rows_times_tile(ka, Qs, g, tig, st);   // s^T: rows = keys, cols = queries
-    rows_times_tile(va, Os, g, tig, dpt);  // dp^T
-#pragma unroll
-    for (int nt = 0; nt < FL_BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + tig * 2 + (e & 1), r = e >> 1;
-        float pr = 0.f, ds = 0.f;
-        if (qt + qi < p.Sq && key[r] < p.Skv) {
-          const float bv = bcol[r] != nullptr ? bcol[r][(long long)(qt + qi) * p.bsq] : 0.f;
-          pr = expf(__fadd_rn(__fmul_rn(st[nt][e], p.scale), bv) - lse_s[qi]);
-          ds = pr * (dpt[nt][e] - dl_s[qi]);
-        }
-        st[nt][e] = pr;
-        dpt[nt][e] = ds;
+    if (mode == BIAS_TILE) {
+      const uint32_t sb = sm90::smem_addr(bias_s + st * bias_stage);
+      for (int i = tid; i < FL_BQ * FS_ROWS; i += FS_THREADS) {
+        const int r = i / FS_ROWS, c = i % FS_ROWS;
+        const bool ok = qt + r < p.Sq && k0 + c < p.Skv;
+        sm90::cp_async4(sb + (r * F9_BIAS_LD + c) * 4,
+                        bb + (ok ? (long long)(qt + r) * p.bsq + (long long)(k0 + c) * p.bsk : 0), ok);
       }
     }
-    frag_hilo_times_tile(st, Ot, g, tig, dv);
-    frag_hilo_times_tile(dpt, Qt, g, tig, dk);
+    sm90::cp_async_commit();
+  };
+
+  const bf16* kb = p.k.at(b, h);
+  const bf16* vb = p.v.at(b, h);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    sm90::load_tile<FS_THREADS>(sK + t * TB, kb, p.k.ss, k0 + 64 * t, p.Skv, tid);
+    sm90::load_tile<FS_THREADS>(sV + t * TB, vb, p.v.ss, k0 + 64 * t, p.Skv, tid);
+  }
+  stage(0);  // K and V land with the first step
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int j = 0; j < nsteps; ++j) {
+    const int st = j % FS_STAGES, qt = j * FL_BQ;
+    sm90::cp_async_wait_all();
+    __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
+    if (j + 1 < nsteps) stage(j + 1);
+    const uint32_t sq = sbase + (4 + 2 * st) * TB, so = sq + TB;
+
+    // s^T = K.Q^T and dp^T = V.dO^T: rows = the warpgroup's 64 keys, columns = 64 queries
+    float s[32], dp[32];
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < FL_D / 16; ++ks)
+      sm90::wgmma_ss(s, sm90::desc_k(sK + wg * TB, ks), sm90::desc_k(sq, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < FL_D / 16; ++ks)
+      sm90::wgmma_ss(dp, sm90::desc_k(sV + wg * TB, ks), sm90::desc_k(so, ks), ks);
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(s);
+    sm90::pin(dp);
+
+    // p^T and ds^T in place; queries past Sq and keys past Skv give 0
+    const float* lse_s = vec_s + st * 2 * FL_BQ;
+    const float* dl_s = lse_s + FL_BQ;
+    const float* bs = bias_s + st * bias_stage;
+#pragma unroll
+    for (int nt = 0; nt < FL_BQ / 8; ++nt) {
+      const int qi = nt * 8 + tig * 2;  // step-local query of d[nt * 4 + 0|2]
+      const float2 lq = *reinterpret_cast<const float2*>(lse_s + qi);
+      const float2 dq = *reinterpret_cast<const float2*>(dl_s + qi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = e & 1;
+        float pr = 0.f, ds = 0.f;
+        if (qt + qi + c < p.Sq && key[r] < p.Skv) {
+          const float bv = mode == BIAS_ROW    ? bkey[r]
+                           : mode == BIAS_TILE ? bs[(qi + c) * F9_BIAS_LD + lkey + 8 * r]
+                                               : 0.f;
+          const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), bv);
+          pr = sm90::ex2((x - (c ? lq.y : lq.x)) * sm90::LOG2E);
+          ds = pr * (dp[nt * 4 + e] - (c ? dq.y : dq.x));
+        }
+        s[nt * 4 + e] = pr;
+        dp[nt * 4 + e] = ds;
+      }
+    }
+
+    // dv += p^T.dO and dk += ds^T.q, p and ds as bf16 hi + lo, dO and q from
+    // their natural [q][d] tiles
+    sm90::pin(dk);
+    sm90::pin(dv);
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < FL_BQ / 16; ++ks) {
+      uint32_t hi[4], lo[4];
+      sm90::hilo_frags(s, ks, hi, lo);
+      const uint64_t dso = sm90::desc_mn(so, ks);
+      sm90::wgmma_rs_t(dv, hi, dso);
+      sm90::wgmma_rs_t(dv, lo, dso);
+      sm90::hilo_frags(dp, ks, hi, lo);
+      const uint64_t dsq = sm90::desc_mn(sq, ks);
+      sm90::wgmma_rs_t(dk, hi, dsq);
+      sm90::wgmma_rs_t(dk, lo, dsq);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+    sm90::pin(dk);
+    sm90::pin(dv);
   }
 
   bf16* dkb = p.dk.at(b, h);
@@ -461,9 +586,9 @@ __global__ void __launch_bounds__(FL_THREADS) flash_bwd_dkv_kernel(FlashBwdArgs 
     for (int r = 0; r < 2; ++r)
       if (key[r] < p.Skv) {
         *reinterpret_cast<uint32_t*>(dvb + (long long)key[r] * p.dv.ss + col) =
-            pack_bf16(dv[nt][2 * r], dv[nt][2 * r + 1]);
+            pack_bf16(dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(dkb + (long long)key[r] * p.dk.ss + col) =
-            pack_bf16(dk[nt][2 * r] * p.scale, dk[nt][2 * r + 1] * p.scale);
+            pack_bf16(dk[nt * 4 + 2 * r] * p.scale, dk[nt * 4 + 2 * r + 1] * p.scale);
       }
   }
 }
@@ -497,6 +622,25 @@ bool bad_sizes(int B, int H, int Sq, int Skv) {
   return B < 1 || H < 1 || Sq < 1 || Skv < 1 || B > 65535 || H > 65535;
 }
 
+int bias_mode(const void* bias, long long bsq) {
+  return bias == nullptr ? BIAS_NONE : bsq == 0 ? BIAS_ROW : BIAS_TILE;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (`done` remembers the devices); a launch that asks for more than the limit
+// is refused with cudaErrorInvalidValue and never runs.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev] >= bytes)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
+  return err;
+}
+
+int fwd_smem_done[64], dkv_smem_done[64];
+
 }  // namespace
 
 extern "C" {
@@ -506,7 +650,9 @@ const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_
 // q [B, H, Sq, 64], k and v [B, H, Skv, 64] bf16 and o (output, [B, H, Sq, 64])
 // by element strides (strides[0..11]: q, k, v, o as sb, sh, ss); bias fp32 or
 // null with strides[12..15] = its b, h, q, k element strides (0 on broadcast
-// dims); lse [B, H, Sq] fp32 (output).  Returns the CUDA error of the launch.
+// dims); lse [B, H, Sq] fp32 (output).  Every bf16 operand's start must be
+// 16-byte aligned and its strides multiples of 8 elements (cp.async copies 16
+// bytes).  Returns the CUDA error of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                         void* lse, const long long* strides, int B, int H, int Sq, int Skv,
                         float scale, void* stream) {
@@ -526,8 +672,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   a.Sq = Sq;
   a.Skv = Skv;
   a.scale = scale;
-  dim3 grid((Sq + FL_BQ - 1) / FL_BQ, H, B);
-  flash_fwd_kernel<<<grid, FL_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  const cudaError_t err = allow_smem(flash_fwd_kernel, fwd_smem_bytes(BIAS_TILE), fwd_smem_done);
+  if (err != cudaSuccess) return (int)err;
+  const int mode = bias_mode(bias, a.bsq);
+  dim3 grid((Sq + FS_ROWS - 1) / FS_ROWS, H, B);
+  flash_fwd_kernel<<<grid, FS_THREADS, fwd_smem_bytes(mode), reinterpret_cast<cudaStream_t>(stream)>>>(
+      a, mode);
   return (int)cudaGetLastError();
 }
 
@@ -555,8 +705,12 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
   if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   const FlashBwdArgs a = bwd_args(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, strides, H, Sq,
                                   Skv, scale);
-  dim3 grid((Skv + FL_BK - 1) / FL_BK, H, B);
-  flash_bwd_dkv_kernel<<<grid, FL_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel, dkv_smem_bytes(BIAS_TILE), dkv_smem_done);
+  if (err != cudaSuccess) return (int)err;
+  const int mode = bias_mode(bias, a.bsq);
+  dim3 grid((Skv + FS_ROWS - 1) / FS_ROWS, H, B);
+  flash_bwd_dkv_kernel<<<grid, FS_THREADS, dkv_smem_bytes(mode),
+                         reinterpret_cast<cudaStream_t>(stream)>>>(a, mode);
   return (int)cudaGetLastError();
 }
 

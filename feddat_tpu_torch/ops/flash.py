@@ -26,7 +26,11 @@ gradient), like the JAX custom_vjp's.
   :func:`flash_attention_bwd_cuda` — kernels #8 (dq) and #9 (dk, dv), all
   hand-written CUDA in ``csrc/flash_attention.cu``, reading the strided
   ``[B, H, S, 64]`` views that split() makes and the bias by strides (0 on a
-  broadcast dim).
+  broadcast dim).  #7 and #9 are built for Hopper (``wgmma`` on 128-row
+  blocks, a cp.async ring of 64-row tiles): their C entry points choose the
+  grid (``ceil(Sq/128)`` query blocks for #7, ``ceil(Skv/128)`` key blocks
+  for #9, by heads and batch) and raise each kernel's dynamic shared-memory
+  limit once per device; #8 keeps its 64-query blocks.
 
 :func:`flash_attention` is an autograd Function with the custom_vjp's
 contract: a CPU tensor takes the plain versions both ways, a CUDA tensor
@@ -110,9 +114,11 @@ def flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale: float):
 
 def _check_cuda_operands(fn: str, q, k, v, bias):
     """The checks #7-#9 share: bf16 ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]``
-    k/v in any layout ``_check_heads`` admits, sizes the grid takes, a compact
-    bias on q's device.  -> (b, h, sq, skv, fp32 bias or None, its 4 element
-    strides with 0 on broadcast dims)."""
+    k/v in any layout ``_check_heads`` admits (a 16-byte aligned start and
+    strides of multiples of 8 elements: the kernels copy rows 16 bytes at a
+    time with cp.async), sizes the grid takes, a compact bias on q's device.
+    -> (b, h, sq, skv, fp32 bias or None, its 4 element strides with 0 on
+    broadcast dims)."""
     _check_heads(fn, "q", q, tuple(q.shape))
     b, h, sq, _ = q.shape
     skv = k.shape[2] if k.dim() == 4 else -1

@@ -71,6 +71,12 @@ CASES = [
     ("ragged_long", 1, 2, 130, 140, "key"),
     ("head_bias", 1, 2, 19, 13, "heads"),
     ("kv_dim_1", 2, 2, 5, 7, "kv1"),
+    # the CUDA kernels' tile edges (128 query rows per block, 64 keys per
+    # streamed tile): each of 127, 128, 129 and 257 on both sides
+    ("edge_127", 1, 2, 127, 127, "key"),
+    ("edge_128", 1, 2, 128, 257, "heads"),
+    ("edge_129", 1, 2, 129, 128, "key"),
+    ("edge_257", 1, 2, 257, 129, "heads"),
 ]
 
 
@@ -133,6 +139,12 @@ def test_forward_matches_jax_kernel(name, b, h, sq, skv, kind, dtype):
     ("causal", 6, 6),  # decoder self-attention, causal + padding
     ("key", 24, 9),  # decoder grouped cross-attention (A·La -> Lq)
     ("none", 130, 20),  # lengths past the 128-wide blocks
+    # the CUDA kernels' tile edges (128 keys per block, 64 queries per
+    # streamed tile): each of 127, 128, 129 and 257 on both sides
+    ("key", 127, 127),
+    ("heads", 257, 128),
+    ("key", 128, 129),
+    ("heads", 129, 257),
 ])
 def test_grads_match_jax_custom_vjp(kind, sq, skv, dtype):
     """dq/dk/dv of the CPU backward (the plain versions of #8/#9) against
