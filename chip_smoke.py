@@ -8,7 +8,9 @@ Phases, in this order:
             ``nvcc`` per source, all at once) and print the build time.
 2. parity — hold each kernel against its plain PyTorch version on the card, at
             the serving and training shapes and at ragged ones, with the stated
-            tolerances; the whole-layer backward twice, bitwise; the flash
+            tolerances; the attention-block backward (#3) and the whole-layer
+            backward (#4) also at M = 127, 128, 129 and 257 rows (the edges of
+            their GEMM's 128-row tiles), each twice, bitwise; the flash
             forward (#7) at ALBEF's nine attention shapes and eight tile edges,
             twice, bitwise; the flash backward (#8 dq, #9 dk/dv) at ALBEF's five
             training sites, four ragged shapes and the eight tile edges, twice,
@@ -44,7 +46,9 @@ Phases, in this order:
 7. time   — each kernel, its plain version and one PyTorch call (chain) for the
             same function (a yardstick the port never calls), by the profiler's
             device time (``device_ms``; the CUDA-event wall per call beside it),
-            against the kernel's bound; serving rates and latency; DAT and LoRA
+            against the kernel's bound; the device time of each launch of one
+            #3 and one #4 call, and #4's FFN products on the wgmma GEMM beside
+            cuBLAS's torch.mm at the same shapes; serving rates and latency; DAT and LoRA
             train samples/s and ALBEF rank-answer questions/s, kernel path
             against plain path in alternating samples; torch.profiler
             breakdowns of one serving forward, one step of each and one
@@ -139,55 +143,69 @@ DEVICE_MS_MARK = "chip_smoke.device_ms"
 DEVICE_MS_STATS = {"profiles": 0, "again": 0, "lag_us": []}
 
 
-def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
-    """Median device milliseconds of one call of ``fn`` over ``iters`` calls
-    after ``warmup``: the sum of the durations of the CUDA kernels (and copies)
-    that torch.profiler records for the call.  The host's dispatch rate does
-    not enter, as it does in :func:`cuda_ms` when the host is the slower side.
+# Calls that open every profile and are not counted: late in a run the
+# profiler drops the device events of a profile's first calls, markers
+# included (one call's in PR 6's runs, up to three in PR 7's).
+PROFILE_LEAD = 4
 
-    One profile takes ``iters`` + 1 calls.  Before each call, and after the
-    last, the host launches a marker (``torch.cuda._sleep``'s spin kernel,
-    which no timed function launches); after each call it synchronizes.  The
-    device events between one marker and the next, in the device clock's
-    order, are that call's, whatever the host's clock says: on the H100 the
-    two have run milliseconds apart (``time device_ms`` prints the lag).  The
-    first call is not counted: after a long run the profiler has dropped the
-    first call's device events, marker included, in every profile.  The last
-    ``iters`` calls are read back from the last marker.  A profile in which
-    one of them got no device time is taken again, 3 times at most, and each
-    failed try prints what the profiler gave back."""
+
+def profile_calls(torch, fn, calls: int):
+    """Profile ``PROFILE_LEAD + calls`` calls of ``fn`` -> (the device events
+    of each of the last ``calls`` calls as [(start, us, name)], or None when
+    fewer markers came back; the closing marker's device start less the
+    host's call to launch it, us, or None).
+
+    Before each call, and after the last, the host launches a marker
+    (``torch.cuda._sleep``'s spin kernel, which no timed function launches);
+    after each call it synchronizes.  The device events between one marker and
+    the next, in the device clock's order, are that call's, whatever the
+    host's clock says: on the H100 the two have run milliseconds apart."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_LEAD + calls + 1):
+            with record_function(DEVICE_MS_MARK):
+                torch.cuda._sleep(1000)
+            if i < PROFILE_LEAD + calls:
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    marks = sorted(e.time_range.start for e in events
+                   if e.name == DEVICE_MS_MARK and e.device_type != cuda)
+    device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
+                    if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+                    and e.name != DEVICE_MS_MARK)
+    at = [i for i, (_, _, name) in enumerate(device) if "spin_kernel" in name][-(calls + 1):]
+    if len(at) < calls + 1:
+        print(f"profile_calls: a profile gave {len(device)} device events with {len(at)} of the last "
+              f"{calls + 1} markers")
+        return None, None
+    lag = device[at[-1]][0] - marks[-1] if marks else None
+    return [device[a + 1:b] for a, b in zip(at, at[1:])], lag
+
+
+def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median device milliseconds of one call of ``fn`` over ``iters`` calls
+    after ``warmup``: the sum of the durations of the CUDA kernels (and copies)
+    that torch.profiler records for the call (:func:`profile_calls`).  The
+    host's dispatch rate does not enter, as it does in :func:`cuda_ms` when
+    the host is the slower side.  A profile in which one of the calls got no
+    device time is taken again, 3 times at most."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     tries = 3
     for _ in range(tries):
         DEVICE_MS_STATS["profiles"] += 1
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(iters + 2):
-                with record_function(DEVICE_MS_MARK):
-                    torch.cuda._sleep(1000)
-                if i <= iters:
-                    fn()
-                torch.cuda.synchronize()
-        events = prof.events()
-        marks = sorted(e.time_range.start for e in events
-                       if e.name == DEVICE_MS_MARK and e.device_type != cuda)
-        device = sorted((e.time_range.start, e.time_range.elapsed_us(), "spin_kernel" in e.name)
-                        for e in events
-                        if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
-                        and e.name != DEVICE_MS_MARK)
-        at = [i for i, (_, _, is_mark) in enumerate(device) if is_mark][-(iters + 1):]
-        per_call = [sum(us for _, us, _ in device[a + 1:b]) for a, b in zip(at, at[1:])]
-        if len(per_call) == iters and min(per_call) > 0:
-            if marks:
-                DEVICE_MS_STATS["lag_us"].append(device[at[-1]][0] - marks[-1])
-            return statistics.median(per_call) / 1e3
+        per_call, lag = profile_calls(torch, fn, iters)
+        totals = [sum(us for _, us, _ in call) for call in per_call or []]
+        if len(totals) == iters and min(totals) > 0:
+            if lag is not None:
+                DEVICE_MS_STATS["lag_us"].append(lag)
+            return statistics.median(totals) / 1e3
         DEVICE_MS_STATS["again"] += 1
-        print(f"device_ms: a profile gave {len(device)} device events with {len(at)} of the last "
-              f"{iters + 1} markers; calls without device time {per_call.count(0.0)} of {len(per_call)}")
+        print(f"device_ms: calls without device time {totals.count(0.0)} of {len(totals)}")
     check(False, f"torch.profiler recorded no device time for a timed call in {tries} profiles")
 
 
@@ -205,6 +223,27 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_breakdown(torch, fn, label, calls: int = 5):
+    """Device milliseconds of each launch of one call of ``fn``, in launch
+    order, median over ``calls`` calls (:func:`profile_calls`) ->
+    [(kernel name, ms)]."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call, _ = profile_calls(torch, fn, calls)
+    counts = {len(c) for c in per_call or []}
+    check(per_call is not None and len(counts) == 1 and 0 not in counts,
+          f"breakdown {label}: calls with {sorted(counts)} launches")
+    rows = [(per_call[0][j][2], statistics.median(c[j][1] for c in per_call) / 1e3)
+            for j in range(counts.pop())]
+    total = sum(ms for _, ms in rows)
+    print(f"breakdown {label}: {len(rows)} launches, {total:.4f} ms device (median of {calls} calls "
+          f"per launch)")
+    for name, ms in rows:
+        print(f"  {ms:8.4f} ms {100 * ms / total:5.1f}%  {name[:100]}")
+    return rows
 
 
 def time_row(torch, label, kernel, plain, library, bound, library_name):
@@ -551,8 +590,11 @@ def attn_bwd_parity(torch, b, s, fuse_ln, seed):
     args = attn_bwd_case(torch, b, s, fuse_ln, seed)
     with torch.no_grad():
         got = ab.attn_block_bwd_cuda(*args).float()
+        again = ab.attn_block_bwd_cuda(*args).float()
         want = ab.attn_block_bwd_reference(*args).float()
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"attn_block_bwd B={b} S={s} ln={fuse_ln} is not bitwise stable "
+          "across two calls")
     check(bool(torch.isfinite(got).all()), "attn_block_bwd dx has non-finite values")
     err, ulps = (got - want).abs().max().item(), own_ulps(torch, got, want)
     planted = got.clone()
@@ -560,7 +602,7 @@ def attn_bwd_parity(torch, b, s, fuse_ln, seed):
     p_ulps = own_ulps(torch, planted, want)
     print(f"parity attn_block_bwd B={b} S={s} ln={fuse_ln} dx: {ulps:.2f} own ulps (limit "
           f"{ATTN_DX_ULPS}), rel norm {rel_norm(got, want):.2e}, max_abs_err={err:.3e}; planted "
-          f"fault (row 0 off by the rms) {p_ulps:.1f} ulps")
+          f"fault (row 0 off by the rms) {p_ulps:.1f} ulps; second call bitwise equal")
     check(ulps <= ATTN_DX_ULPS < p_ulps,
           f"attn_block_bwd dx disagrees with the plain version: {ulps} ulps (limit {ATTN_DX_ULPS})")
     return err
@@ -1041,9 +1083,15 @@ def phase_parity(torch, seed):
     errs["attn_block_bwd"] = max(attn_bwd_parity(torch, TB, TS, ln, seed) for ln in (True, False))
     for b, s, ln in ((3, 17, True), (3, 21, False), (2, 130, True), (1, 450, True)):
         attn_bwd_parity(torch, b, s, ln, seed + s)
+    for s in EDGE_LENGTHS:  # M = S rows: the edges of the 128-row tiles of the GEMMs
+        for flag in (True, False):
+            attn_bwd_parity(torch, 1, s, flag, seed + s)
     errs["layer_block_bwd"] = max(layer_bwd_parity(torch, TB, TS, e, seed) for e in (True, False))
     for b, s, e in ((3, 17, True), (3, 21, False), (2, 130, True), (2, 281, False), (1, 450, True)):
         layer_bwd_parity(torch, b, s, e, seed + s)
+    for s in EDGE_LENGTHS:
+        for flag in (True, False):
+            layer_bwd_parity(torch, 1, s, flag, seed + s)
     errs["fused_attention"], errs["fused_attention_bwd"] = fused_parity(torch, TB, TS, seed)
     fused_parity(torch, B, S, seed + 1)  # the serving canvas, keys dropped by the padding mask
     fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
@@ -2036,9 +2084,42 @@ def time_peft(torch, pf, seed):
     return TB / k_med, TB / p_med
 
 
+# The four FFN products of #4 at the training shape, by the name of their
+# gemm_sm90_kernel<layout, epilogue> instance in #4's launch order (the first
+# <1, 2> is g_m; the second is the attention's dx): label, name, N, K, B_NT?
+FFN_GEMMS = (("FFN1 p1 = m.W1^T (NT)", "gemm_sm90_kernel<0, 3>", 3072, DM, True),
+             ("FFN2 o = ge.W2^T (NT)", "gemm_sm90_kernel<0, 4>", DM, 3072, True),
+             ("g_p1 = g_f.W2 (NN)", "gemm_sm90_kernel<1, 5>", 3072, DM, False),
+             ("g_m = g_p1.W1 (NN)", "gemm_sm90_kernel<1, 2>", DM, 3072, False))
+
+
+def gemm_against_cublas(torch, breakdown, seed):
+    """The wgmma GEMM's rate on #4's four FFN products (device ms from one #4
+    call's breakdown) beside cuBLAS's torch.mm at the same shapes with bf16
+    output (device_ms), a yardstick the port never calls."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = TB * TS
+    for label, name, n, k, nt in FFN_GEMMS:
+        ms = next((t for kname, t in breakdown if name in kname), None)
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        w = torch.randn(n, k, generator=g, device="cuda").bfloat16()
+        wt = w.t().contiguous()  # [K, N] for the NN layout
+        lib = device_ms(torch, (lambda: torch.mm(a, w.t())) if nt else (lambda: torch.mm(a, wt)))
+        flop = 2 * m * n * k
+        mine = "not in the breakdown" if ms is None else f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s)"
+        print(f"gemm {label} M={m} N={n} K={k}: gemm_sm90 {mine}; cuBLAS torch.mm {lib:.4f} ms "
+              f"({flop / lib / 1e9:.1f} TFLOP/s)")
+
+
 def time_backward_kernels(torch, seed):
     """#3 and #4 at the training shape: kernel, plain version, a library
-    chain (autograd through F.layer_norm/F.linear/SDPA/F.gelu in bf16) and the bound."""
+    chain for the same function and the bound; each kernel's launches by
+    device time, and the GEMM's FFN products beside cuBLAS.  The library chain
+    (F.layer_norm/F.linear/SDPA/F.gelu in bf16) runs the forward from x inside
+    the timed call and autograd.grad through it, so it recomputes what the
+    kernel recomputes (LN1 and q/k/v; for #4 also h, m, p1, o) and more (the
+    attention forward; for #4 the out projection).  The old chain, autograd
+    through a graph retained from one forward, is printed beside it."""
     import torch.nn.functional as F
 
     from feddat_tpu_torch.ops import attn_block as ab
@@ -2047,44 +2128,69 @@ def time_backward_kernels(torch, seed):
     rows = {}
     args = attn_bwd_case(torch, TB, TS, True, seed)
     x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
-    x_req = x.detach().requires_grad_()
 
     def heads(t):
         return t.view(TB, TS, HEADS, 64).transpose(1, 2)
 
-    xl = F.layer_norm(x_req, (DM,), gb[0].bfloat16(), gb[1].bfloat16(), 1e-12)
-    q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
-    att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
-    out = F.linear(att.transpose(1, 2).reshape(TB, TS, DM), wo)
+    def attention(xr, gamma, wq, wk, wv, bqkv, bias):
+        xl = F.layer_norm(xr, (DM,), gamma[0].bfloat16(), gamma[1].bfloat16(), 1e-12)
+        q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
+        att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
+        return att.transpose(1, 2).reshape(TB, TS, DM)
+
+    def chain3():
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            dctx = torch.mm(gout.view(-1, DM), wo).view_as(x)
+            return torch.autograd.grad(attention(xr, gb, wq, wk, wv, bqkv, bias), [xr], dctx)
+
+    x_req = x.detach().requires_grad_()
+    out = F.linear(attention(x_req, gb, wq, wk, wv, bqkv, bias), wo)
+    old3 = device_ms(torch, lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True))
     rows["attn_block_bwd"] = time_row(
         torch, f"attn_block_bwd B={TB} S={TS}", lambda: ab.attn_block_bwd_cuda(*args),
-        lambda: ab.attn_block_bwd_reference(*args),
-        lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True), attn_bwd_bound(TB, TS, True),
-        "autograd.grad through the library forward")
-    del out, att, q, k, v, xl
+        lambda: ab.attn_block_bwd_reference(*args), chain3, attn_bwd_bound(TB, TS, True),
+        "the forward from x and autograd.grad through it")
+    print(f"time attn_block_bwd library, old chain (autograd.grad through a retained graph): "
+          f"{old3:.4f} ms device")
+    del out
+    launch_breakdown(torch, lambda: ab.attn_block_bwd_cuda(*args), f"attn_block_bwd (#3) B={TB} S={TS}")
 
     largs, cfg = layer_case(torch, TB, TS, True, seed)
     (x, aout, ctx, lse, gout, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = largs
+
+    def layer(xr, pa):
+        h = xr + F.linear(attention(xr, gb1, wq, wk, wv, bqkv, bias), wo)
+        mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
+                              b1[0].bfloat16()))
+        o = h + F.linear(mid, w2, b2[0].bfloat16())
+
+        def adapter(wd, bd, wu, bu):
+            return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
+
+        return o + 0.5 * adapter(*pa) + 0.5 * adapter(wdb, bdb, wub, bub)
+
+    def chain4():
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
+            return torch.autograd.grad(layer(xr, pa), [xr, *pa], gout)
+
     xr = x.detach().requires_grad_()
     pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
-    xl = F.layer_norm(xr, (DM,), gb1[0].bfloat16(), gb1[1].bfloat16(), 1e-12)
-    q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
-    att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
-    h = xr + F.linear(att.transpose(1, 2).reshape(TB, TS, DM), wo)
-    mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
-                          b1[0].bfloat16()))
-    o = h + F.linear(mid, w2, b2[0].bfloat16())
-
-    def adapter(wd, bd, wu, bu):
-        return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
-
-    out = o + 0.5 * adapter(*pa) + 0.5 * adapter(wdb, bdb, wub, bub)
+    out = layer(xr, pa)
+    old4 = device_ms(torch, lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True))
     rows["layer_block_bwd"] = time_row(
         torch, f"layer_block_bwd B={TB} S={TS}", lambda: lb.layer_block_bwd_cuda(*largs, *cfg),
-        lambda: lb.layer_block_bwd_reference(*largs, *cfg),
-        lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True), layer_bwd_bound(TB, TS, True),
-        "autograd.grad through the library forward")
+        lambda: lb.layer_block_bwd_reference(*largs, *cfg), chain4, layer_bwd_bound(TB, TS, True),
+        "the forward from x and autograd.grad through it")
+    print(f"time layer_block_bwd library, old chain (autograd.grad through a retained graph): "
+          f"{old4:.4f} ms device")
+    del out
+    breakdown = launch_breakdown(torch, lambda: lb.layer_block_bwd_cuda(*largs, *cfg),
+                                 f"layer_block_bwd (#4) B={TB} S={TS}")
+    gemm_against_cublas(torch, breakdown, seed)
     return rows
 
 
@@ -2117,9 +2223,9 @@ def time_train(torch, tr):
           f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
           f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     profile_device(torch, lambda: step(state0, batch), f"train step (fused DAT, B={TB})", {
-        "port GEMMs (#1, #4)": ("gemm_kernel",),
+        "port GEMMs (#1 mma.sync, #4 wgmma)": ("gemm_kernel", "gemm_sm90_kernel"),
         "port attention (#1 fwd, #4 bwd)": ("attn_kernel", "attn_bwd_"),
-        "port row passes + adapter (#4)": ("ln2_fwd_rows", "ln_bwd_rows", "adapter_"),
+        "port row passes + adapter (#4)": ("ln2_fwd_rows", "ln_fwd_rows", "ln_bwd_rows", "adapter_"),
     })
     return TB / k_med, TB / p_med
 

@@ -36,9 +36,11 @@
 //
 // Backward: replaces feddat_tpu/ops/attn_block.py::_bwd_kernel (kernel #3,
 // called through _attn_block_bwd): dx only, the projections frozen.  The
-// attention part is attn_bwd.cuh, shared with the whole-layer backward (#4);
-// with the LayerNorm fused, one row pass (common.cuh::ln_bwd_rows_kernel)
-// takes dxln back through LN1.  Its bound and design are in attn_bwd.cuh.
+// attention part is attn_bwd.cuh, shared with the whole-layer backward (#4),
+// its products on wgmma (gemm_sm90.cuh); with the LayerNorm fused, one row
+// pass writes bf16(LN1(x)) for the q/k/v recompute and another
+// (common.cuh::ln_bwd_rows_kernel) takes dxln back through LN1.  Its bound
+// and design are in attn_bwd.cuh.
 
 #include "attn_bwd.cuh"
 #include "attn_fwd.cuh"
@@ -115,10 +117,11 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
 }
 
 // Bytes of scratch attn_block_bwd needs: qkv and dq|dk|dv [3, M, Dm] bf16 each,
-// dctx [M, Dm] bf16, delta [B, H, S] f32 and, with the fused LN, dxln [M, Dm] f32.
+// dctx [M, Dm] bf16, delta [B, H, S] f32 and, with the fused LN, dxln [M, Dm]
+// f32 and xln = bf16(LN1(x)) [M, Dm] bf16.
 long long attn_block_bwd_workspace(int B, int S, int Dm, int H, int has_ln) {
   const long long md = (long long)B * S * Dm;
-  return 7 * md * 2 + (long long)B * H * S * 4 + (has_ln ? md * 4 : 0) + 5 * 256;
+  return 7 * md * 2 + (long long)B * H * S * 4 + (has_ln ? md * 4 + md * 2 + 256 : 0) + 5 * 256;
 }
 
 // x [B, S, Dm] bf16 (pre-LN when gb is given); weights and biases as the
@@ -162,6 +165,7 @@ int attn_block_bwd(const void* x, const void* wq, const void* wk, const void* wv
   a.scale = scale;
   if (gb == nullptr) return attn_bwd_to_dxln(a, 1, static_cast<bf16*>(dx), nullptr, st);
   float* dxln = reinterpret_cast<float*>(carve(md * 4));
+  a.xln = reinterpret_cast<bf16*>(carve(md * 2));
   int err = attn_bwd_to_dxln(a, 0, nullptr, dxln, st);
   if (err) return err;
   return launch_ln_bwd_rows(a.x, a.gamma, ln_eps, dxln, nullptr, static_cast<bf16*>(dx), nullptr,

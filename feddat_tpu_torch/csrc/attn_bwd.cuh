@@ -7,7 +7,7 @@
 //   feddat_tpu/ops/fused_attention.py::_bwd_kernel  (kernel #6, lines 60-85)
 // Same function, same rounding points (attn_block.py:145-205):
 //
-//   xln   = LayerNorm1(x)                 (optional, in the GEMM prologue)
+//   xln   = bf16(LayerNorm1(x))           (optional, one row pass)
 //   dctx  = bf16(g_att . Wo)              (g_att [M, Dm] bf16)
 //   q/k/v = bf16(xln . W^T + b)           (recomputed, never stored by the forward)
 //   per head: s = q k^T * scale + bias_row,  P = exp(s - lse)   (fp32, saved lse)
@@ -21,7 +21,9 @@
 // H=12) the five projection-sized products (dctx, q/k/v, dx with K = 3 Dm) are
 // ~97.8 GFLOP and the per-head products (s, dP recomputed twice, dv, dk, dq)
 // ~33.6 GFLOP of bf16 tensor-core work: ~0.13 ms at 989 TFLOP/s, against
-// ~0.03 ms of bytes.  Operations bound it.
+// ~0.03 ms of bytes.  Operations bound it.  The projection products run on
+// wgmma through gemm_sm90.cuh (three launches); LN1, when fused, is one row
+// pass that writes bf16(LN1(x)) once (common.cuh::ln_fwd_rows_kernel).
 //
 // What the design does about it.  The TPU kernel holds one batch element's
 // q/k/v and all four weights in VMEM and walks the heads in order; a Hopper
@@ -39,11 +41,11 @@
 // fragment of the next.  Padded query rows and keys are never summed, which is
 // the TPU's exp(-1e9) = 0 and zero-padded cotangent.  Operands and outputs
 // are Heads views (common.cuh): #3/#4 address their [3, M, Dm] scratch planes,
-// #6 the caller's [B, H, S, 64] tensors in place.  The projection products
-// run through port::gemm_kernel (the slice-1 GEMM, with an NN layout added).
+// #6 the caller's [B, H, S, 64] tensors in place.
 #pragma once
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace port {
 
@@ -312,7 +314,8 @@ inline int launch_attn_bwd(const AttnBwdArgs& t, int B, cudaStream_t st) {
 }
 
 // Everything of the attention backward up to dxln (fp32 [M, Dm]), on `st`.
-// ws: qkv [3, M, Dm] bf16, dqkv [3, M, Dm] bf16, dctx [M, Dm] bf16, delta [B, H, S] f32.
+// ws: qkv [3, M, Dm] bf16, dqkv [3, M, Dm] bf16, dctx [M, Dm] bf16, delta [B, H, S] f32
+// and, with LN1 (gamma given), xln [M, Dm] bf16.
 struct AttnBwdProblem {
   const bf16* x;                 // [M, Dm] pre-LN input (or the LN output when gamma is null)
   const bf16 *wq, *wk, *wv, *wo;  // [Dm, Dm] nn.Linear layout
@@ -328,6 +331,7 @@ struct AttnBwdProblem {
   bf16* dqkv;
   bf16* dctx;
   float* delta;
+  bf16* xln;                     // bf16(LN1(x)) when gamma is given
   int B, S, Dm, H;
   float scale;
 };
@@ -347,10 +351,15 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_b
   c.N = a.Dm;
   c.K = a.Dm;
   c.c_bf16[0] = a.dctx;
-  if ((err = launch_gemm<B_NN, EPI_BF16>(c, st))) return err;
+  if ((err = launch_gemm_sm90<B_NN, EPI_BF16>(c, st))) return err;
 
-  GemmArgs r{};  // q/k/v = bf16(LN1(x) . W^T + b)
-  r.a[0] = a.x;
+  const bf16* xin = a.x;
+  if (a.gamma != nullptr) {  // xln = bf16(LN1(x))
+    if ((err = launch_ln_fwd_rows(a.x, a.gamma, a.beta, a.ln_eps, a.xln, M, a.Dm, st))) return err;
+    xin = a.xln;
+  }
+  GemmArgs r{};  // q/k/v = bf16(xln . W^T + b)
+  r.a[0] = xin;
   r.lda = a.Dm;
   r.b[0] = a.wq;
   r.b[1] = a.wk;
@@ -360,15 +369,12 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_b
   r.M = M;
   r.N = 3 * a.Dm;
   r.K = a.Dm;
-  r.ln_gamma = a.gamma;
-  r.ln_beta = a.beta;
-  r.ln_eps = a.ln_eps;
   for (int i = 0; i < 3; ++i) {
     r.bias[i] = a.bqkv + (size_t)i * a.Dm;
     r.c_bf16[i] = a.qkv + i * plane;
   }
   r.c_seg = a.Dm;
-  if ((err = launch_gemm<B_NT, EPI_BIAS_BF16>(r, st))) return err;
+  if ((err = launch_gemm_sm90<B_NT, EPI_BIAS_BF16>(r, st))) return err;
 
   const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*64
   AttnBwdArgs t{};
@@ -402,10 +408,10 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_b
   d.K = 3 * a.Dm;
   if (dx_epi_bf16) {
     d.c_bf16[0] = dx_bf16;
-    return launch_gemm<B_NN, EPI_BF16>(d, st);
+    return launch_gemm_sm90<B_NN, EPI_BF16>(d, st);
   }
   d.c_f32 = dxln;
-  return launch_gemm<B_NN, EPI_F32>(d, st);
+  return launch_gemm_sm90<B_NN, EPI_F32>(d, st);
 }
 
 }  // namespace port

@@ -3,8 +3,9 @@
 // per-head operand view of the attention kernels, and one tiled bf16 GEMM
 // with a choice of operand layout and epilogue.
 //
-// The GEMM (C[M, N] = A[M, K] . B, fp32 accumulation) is the workhorse of the
-// attention-block kernels (#1, #3) and the whole-layer backward (#4):
+// The GEMM (C[M, N] = A[M, K] . B, fp32 accumulation) of the attention-block
+// forward (#1); the backward kernels #3 and #4 run the same contract
+// (GemmArgs, gemm_store) on wgmma through gemm_sm90.cuh:
 //   * B_NT: B given as [N, K] row-major (an nn.Linear weight [out, in]), so
 //     C = A . W^T; the N range may be split into segments with their own
 //     weight, bias and output (q|k|v in one launch);
@@ -18,7 +19,6 @@
 // Tiles: 128 x 128 x 32, 8 warps of 64 x 32, mma.sync m16n8k16 with fp32
 // accumulators; the next k-tile is loaded into registers during the MMAs.
 // N must be a multiple of 128 and K (and each K segment) of 32; M is free.
-// wgmma/TMA pipelining is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -145,31 +145,59 @@ struct GemmArgs {
   const float* aux_f32;   // [M, ldc]
 };
 
+// What an epilogue reads besides the accumulator for two adjacent columns of
+// one row: the bias pair and the aux pair (FFN2's h, the GELU backward's p1).
+struct EpiIn {
+  float2 bias, aux;
+};
+
 template <int EPI>
-__device__ __forceinline__ void gemm_store(const GemmArgs& p, int row, int col, float v0, float v1) {
+__device__ __forceinline__ EpiIn gemm_epi_load(const GemmArgs& p, int row, int col) {
+  const size_t off = (size_t)row * p.ldc;
+  EpiIn in{};
+  if (EPI == EPI_BIAS_BF16) {
+    const int seg = col / p.c_seg, cs = col % p.c_seg;
+    in.bias = make_float2(p.bias[seg][cs], p.bias[seg][cs + 1]);
+  } else if (EPI == EPI_FFN1 || EPI == EPI_FFN2) {
+    in.bias = make_float2(p.bias[0][col], p.bias[0][col + 1]);
+  }
+  if (EPI == EPI_FFN2) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p.aux_bf16 + off + col);
+    in.aux = make_float2(__low2float(h), __high2float(h));
+  } else if (EPI == EPI_GELU_BWD) {
+    in.aux = *reinterpret_cast<const float2*>(p.aux_f32 + off + col);
+  }
+  return in;
+}
+
+template <int EPI>
+__device__ __forceinline__ void gemm_epi_store(const GemmArgs& p, int row, int col, float v0, float v1,
+                                               const EpiIn& in) {
   const size_t off = (size_t)row * p.ldc;
   if (EPI == EPI_BIAS_BF16) {
     const int seg = col / p.c_seg, cs = col % p.c_seg;
-    const float* bias = p.bias[seg];
-    *reinterpret_cast<uint32_t*>(p.c_bf16[seg] + off + cs) = pack_bf16(v0 + bias[cs], v1 + bias[cs + 1]);
+    *reinterpret_cast<uint32_t*>(p.c_bf16[seg] + off + cs) = pack_bf16(v0 + in.bias.x, v1 + in.bias.y);
   } else if (EPI == EPI_BF16) {
     *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(v0, v1);
   } else if (EPI == EPI_F32) {
     *reinterpret_cast<float2*>(p.c_f32 + off + col) = make_float2(v0, v1);
   } else if (EPI == EPI_FFN1) {
-    const float p0 = v0 + p.bias[0][col], p1 = v1 + p.bias[0][col + 1];
+    const float p0 = v0 + in.bias.x, p1 = v1 + in.bias.y;
     *reinterpret_cast<float2*>(p.c_f32 + off + col) = make_float2(p0, p1);
     *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(gelu_poly(p0), gelu_poly(p1));
   } else if (EPI == EPI_FFN2) {
-    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p.aux_bf16 + off + col);
-    const float f0 = round_bf16(v0 + p.bias[0][col]), f1 = round_bf16(v1 + p.bias[0][col + 1]);
-    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) =
-        pack_bf16(__low2float(h) + f0, __high2float(h) + f1);
+    const float f0 = round_bf16(v0 + in.bias.x), f1 = round_bf16(v1 + in.bias.y);
+    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(in.aux.x + f0, in.aux.y + f1);
   } else if (EPI == EPI_GELU_BWD) {
-    const float2 x = *reinterpret_cast<const float2*>(p.aux_f32 + off + col);
     *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) =
-        pack_bf16(v0 * gelu_grad_poly(x.x), v1 * gelu_grad_poly(x.y));
+        pack_bf16(v0 * gelu_grad_poly(in.aux.x), v1 * gelu_grad_poly(in.aux.y));
   }
+}
+
+// The epilogue at (row, col) and (row, col + 1): gemm_epi_load, then gemm_epi_store.
+template <int EPI>
+__device__ __forceinline__ void gemm_store(const GemmArgs& p, int row, int col, float v0, float v1) {
+  gemm_epi_store<EPI>(p, row, col, v0, v1, gemm_epi_load<EPI>(p, row, col));
 }
 
 template <int BL, int EPI>
@@ -318,19 +346,72 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-// Launches C = A . B with the given layout and epilogue on `st`; returns the
-// CUDA error (cudaErrorInvalidValue for a shape the tiles do not cover).
+// Fills in GemmArgs's defaults (one segment each, ldc) and checks the shape
+// against tiles `bn` wide and `bk` deep; false for a shape they do not cover.
 template <int BL, int EPI>
-inline int launch_gemm(GemmArgs p, cudaStream_t st) {
+inline bool gemm_prepare(GemmArgs& p, int bn, int bk) {
   if (p.a_kseg <= 0) p.a_kseg = p.K;
   if (p.b_seg <= 0) p.b_seg = (BL == B_NT) ? p.N : p.K;
   if (p.c_seg <= 0) p.c_seg = p.N;
   if (p.ldc <= 0) p.ldc = (EPI == EPI_BIAS_BF16) ? p.c_seg : p.N;
-  if (p.M < 1 || p.N % GEMM_BN || p.K % GEMM_BK || p.a_kseg % GEMM_BK ||
-      (BL == B_NT ? p.b_seg % GEMM_BN : p.b_seg % GEMM_BK) || p.c_seg % GEMM_BN ||
-      (p.ln_gamma != nullptr && p.a_kseg != p.K))
-    return (int)cudaErrorInvalidValue;
+  return !(p.M < 1 || p.N % bn || p.K % bk || p.a_kseg % bk ||
+           (BL == B_NT ? p.b_seg % bn : p.b_seg % bk) || p.c_seg % bn ||
+           (p.ln_gamma != nullptr && p.a_kseg != p.K));
+}
+
+// Launches C = A . B with the given layout and epilogue on `st`; returns the
+// CUDA error (cudaErrorInvalidValue for a shape the tiles do not cover).
+template <int BL, int EPI>
+inline int launch_gemm(GemmArgs p, cudaStream_t st) {
+  if (!gemm_prepare<BL, EPI>(p, GEMM_BN, GEMM_BK)) return (int)cudaErrorInvalidValue;
   gemm_kernel<BL, EPI><<<dim3(p.N / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM), GEMM_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ LayerNorm forward
+// One warp per row: out = bf16(LN(x)) in the arithmetic of gemm_kernel's
+// LayerNorm prologue: the row statistics over 8-element chunks per lane, then
+// warp_sum, and store_tiles's transform.  So a GEMM that reads `out` as its A
+// operand sees bitwise what that prologue builds.  D a multiple of 8.
+__global__ void ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, float eps, bf16* __restrict__ out,
+                                   int M, int D) {
+  const int warps = blockDim.x >> 5;
+  const int row = blockIdx.x * warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int k = lane * 8; k < D; k += 32 * 8) {
+    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float f = __bfloat162float(e[i]);
+      s += f;
+      ss += f * f;
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / (float)D;
+  const float var = fmaxf(ss / (float)D - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  for (int k = lane * 8; k < D; k += 32 * 8) {
+    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float xf = __bfloat162float(e[t]);
+      float y = __fadd_rn(__fmul_rn(__fmul_rn(xf - mu, rstd), gamma[k + t]), beta[k + t]);
+      e[t] = __float2bfloat16_rn(y);
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)row * D + k) = v;
+  }
+}
+
+inline int launch_ln_fwd_rows(const bf16* x, const float* gamma, const float* beta, float eps,
+                              bf16* out, int M, int D, cudaStream_t st) {
+  ln_fwd_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
   return (int)cudaGetLastError();
 }
 

@@ -626,19 +626,6 @@ int bias_mode(const void* bias, long long bsq) {
   return bias == nullptr ? BIAS_NONE : bsq == 0 ? BIAS_ROW : BIAS_TILE;
 }
 
-// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
-// (`done` remembers the devices); a launch that asks for more than the limit
-// is refused with cudaErrorInvalidValue and never runs.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev] >= bytes)) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
-  return err;
-}
-
 int fwd_smem_done[64], dkv_smem_done[64];
 
 }  // namespace
@@ -672,7 +659,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   a.Sq = Sq;
   a.Skv = Skv;
   a.scale = scale;
-  const cudaError_t err = allow_smem(flash_fwd_kernel, fwd_smem_bytes(BIAS_TILE), fwd_smem_done);
+  const cudaError_t err = sm90::allow_smem(flash_fwd_kernel, fwd_smem_bytes(BIAS_TILE), fwd_smem_done);
   if (err != cudaSuccess) return (int)err;
   const int mode = bias_mode(bias, a.bsq);
   dim3 grid((Sq + FS_ROWS - 1) / FS_ROWS, H, B);
@@ -705,7 +692,7 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
   if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   const FlashBwdArgs a = bwd_args(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, strides, H, Sq,
                                   Skv, scale);
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel, dkv_smem_bytes(BIAS_TILE), dkv_smem_done);
+  const cudaError_t err = sm90::allow_smem(flash_bwd_dkv_kernel, dkv_smem_bytes(BIAS_TILE), dkv_smem_done);
   if (err != cudaSuccess) return (int)err;
   const int mode = bias_mode(bias, a.bsq);
   dim3 grid((Skv + FS_ROWS - 1) / FS_ROWS, H, B);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels #7 and #9
-// (flash_attention.cu, the only includer): 128-byte swizzled bf16 tiles
-// filled by cp.async, wgmma descriptors of those tiles, and the 64 x 64 x 16
-// warpgroup products the kernels are made of.
+// (flash_attention.cu) and of the GEMM of #3 and #4 (gemm_sm90.cuh):
+// 128-byte swizzled bf16 tiles filled by cp.async, wgmma descriptors of
+// those tiles, the 64 x 64 x 16 warpgroup products of the flash kernels, and
+// the raising of a kernel's dynamic shared-memory limit.
 //
 // Every operand tile is [64 rows][64] bf16: 128-byte rows whose 16-byte
 // chunks are swizzled as wgmma's 128B layout (and TMA's SWIZZLE_128B) wants,
@@ -46,10 +47,13 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 // This thread's copies have landed; then make them visible to wgmma's async
 // proxy (the caller's __syncthreads() makes everyone's visible to all).
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// With PENDING > 0, the newest PENDING commit groups may still be in flight.
+template <int PENDING = 0>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // rows [r0, r0 + 64) of one (batch, head)'s [S, 64] operand `src` (row stride
 // ss elements) into a swizzled tile by cp.async; rows past S are zero
@@ -99,9 +103,10 @@ __device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.s
 // Pin an accumulator's registers at this point of the program: the compiler
 // may not move a read or write of them across it (wgmma writes them
 // asynchronously, behind the compiler's back, until wg_wait_all).
-__device__ __forceinline__ void pin(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define FS_ACC32(d)                                                                              \
@@ -151,6 +156,19 @@ __device__ __forceinline__ void hilo_frags(const float (&x)[32], int ks, uint32_
     hi[i] = pack_bf16(a, b);
     lo[i] = pack_bf16(a - round_bf16(a), b - round_bf16(b));
   }
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (`done` remembers the devices); a launch that asks for more than the limit
+// is refused with cudaErrorInvalidValue and never runs.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev] >= bytes)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
+  return err;
 }
 
 }  // namespace sm90

@@ -25,21 +25,26 @@
 // carries the adapter gradients across its sequential grid.  On the card the
 // work is a short sequence of launches on the caller's stream:
 //   1. ln2_fwd_rows_kernel: h = bf16(x + aout), m = bf16(LN2(h));
-//   2. the FFN recompute through port::gemm_kernel: p1 = m.W1^T + b1 kept
-//      fp32 with ge = bf16(gelu(p1)) in the same epilogue, then
-//      o = bf16(h + bf16(ge.W2^T + b2));
+//   2. the FFN recompute on wgmma (gemm_sm90.cuh, as every product of steps
+//      2, 4 and 6): p1 = m.W1^T + b1 kept fp32 with ge = bf16(gelu(p1)) in
+//      the same epilogue, then o = bf16(h + bf16(ge.W2^T + b2));
 //   3. adapter_bwd_rows_kernel: both members' down projections, the active
 //      adapter's relu and g_down, and g_o = g + g_down.Wd^T (bf16 values
-//      with fp32 sums on the tensor cores, mma.sync);
+//      with fp32 sums on the tensor cores, mma.sync; 16 rows per block, Dm
+//      split over its four warps);
 //      adapter_wgrad_kernel writes per-chunk partial sums of the weight
-//      gradients and adapter_wgrad_reduce_kernel adds them in a fixed order,
-//      so two runs give bitwise the same gradients (no float atomics);
+//      gradients (dWu = relu_a^T . g_delta_a and dWd = o^T . bf16(g_down_a),
+//      bf16 values with fp32 sums on the tensor cores) and
+//      adapter_wgrad_reduce_kernel adds them in a fixed order, so two runs
+//      give bitwise the same gradients (no float atomics);
 //   4. g_p1 = bf16((g_f.W2) * gelu'(p1)) (GEMM epilogue), g_m = g_p1.W1;
 //   5. ln_bwd_rows_kernel: g_h = g_o + LN2_bwd(g_m), g_att = bf16(g_h);
-//   6. the attention backward of attn_bwd.cuh (shared with kernel #3) to dxln;
+//   6. the attention backward of attn_bwd.cuh (shared with kernel #3) to dxln,
+//      LN1 written once as bf16(LN1(x)) by a row pass;
 //   7. ln_bwd_rows_kernel: dx = bf16(LN1_bwd(dxln) + g_h).
-// p1 (fp32, 145 MB at the training shape) goes through device memory; fusing
-// steps 2 and 4 so that it never does, and wgmma/TMA GEMMs, are later work.
+// p1 (fp32, 145 MB at the training shape) goes through device memory: fusing
+// steps 2 and 4 so that it never does would recompute m.W1^T (56 GFLOP) to
+// save ~290 MB of traffic, an even trade.
 
 #include "attn_bwd.cuh"
 
@@ -73,16 +78,17 @@ __global__ void ln2_fwd_rows_kernel(const bf16* __restrict__ x, const bf16* __re
 }
 
 // ----------------------------------------------------------------- step 3
-constexpr int AW_ROWS = 256;  // rows per chunk of the weight-gradient partial sums
-constexpr int AW_COLS = 64;   // Dm columns per block
-constexpr int AW_SUB = 32;    // rows staged at a time
-constexpr int AW_JMAX = 16;   // bottleneck r <= 4 * AW_JMAX
-constexpr int AD_MAX_R = 4 * AW_JMAX;
-constexpr int AR_ROWS = 64;     // rows per block of the row pass: 4 warps x 16
-constexpr int AR_THREADS = 128;
-constexpr int AR_K = 32;        // Dm columns staged per step
-constexpr int AR_LD = AR_K + 8;  // padded smem row (bf16)
-constexpr int AR_NCHUNK = 64;   // Dm columns of g_o per warp pass
+constexpr int AW_ROWS = 256;    // rows per chunk of the weight-gradient partial sums
+constexpr int AW_COLS = 64;     // Dm columns per block: 4 warps x 16
+constexpr int AW_SUB = 64;      // rows staged at a time
+constexpr int AW_THREADS = 128;
+constexpr int AW_LD = AW_COLS + 8;  // padded smem row (bf16)
+constexpr int AD_MAX_R = 64;    // largest bottleneck r (a multiple of 16)
+constexpr int AR_ROWS = 16;      // rows per block of the row pass
+constexpr int AR_WARPS = 4;      // warps per block, each a quarter of Dm
+constexpr int AR_THREADS = 32 * AR_WARPS;
+constexpr int AR_GROUP = 4;      // 8-column tiles of g_o whose reads go together
+constexpr int AR_DM_MULTIPLE = AR_WARPS * 8 * AR_GROUP;  // Dm must be a multiple
 
 struct AdapterBwdArgs {
   const bf16* o;              // [M, D] recomputed o
@@ -99,28 +105,54 @@ struct AdapterBwdArgs {
   int M, D;
 };
 
+__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// The m16n8k16 A fragment of rows r and r + 8, columns k..k+15, of a
+// row-major bf16 matrix with row stride ld; rows at or past M read as 0.
+__device__ __forceinline__ void a_frag_rows(uint32_t (&a)[4], const bf16* x, int ld, int r, int M, int k,
+                                            int tig) {
+  const bf16* p0 = x + (size_t)r * ld + k + tig * 2;
+  a[0] = r < M ? ldg32(p0) : 0u;
+  a[2] = r < M ? ldg32(p0 + 8) : 0u;
+  a[1] = r + 8 < M ? ldg32(p0 + (size_t)8 * ld) : 0u;
+  a[3] = r + 8 < M ? ldg32(p0 + (size_t)8 * ld + 8) : 0u;
+}
+
+// The m16n8k16 B fragment of a [N][K] row-major bf16 matrix (row n = output
+// column, K contiguous, row stride ld): row n, columns k..k+15.
+__device__ __forceinline__ void b_frag_rows(uint32_t (&b)[2], const bf16* w, int ld, int n, int k, int tig) {
+  const bf16* p0 = w + (size_t)n * ld + k + tig * 2;
+  b[0] = ldg32(p0);
+  b[1] = ldg32(p0 + 8);
+}
+
 // The adapters' row pass on tensor cores (all three products take bf16
-// values with fp32 sums, as on the TPU), one warp per 16 rows:
+// values with fp32 sums, as on the TPU).  A block owns 16 rows; each of its
+// four warps one quarter of Dm:
 //   down   = o . Wd + bd               for both members (N = 2R)
 //   g_relu = bf16(g w) . Wu^T          for each member with its own w
-//   g_down = down > 0 ? g_relu : 0
+// each warp over its quarter, its fragments read straight from device memory
+// (the weights from L1/L2); the four partial sums are added through shared
+// memory in warp order, so every warp holds the same full sums;
+//   g_down = down > 0 ? g_relu : 0     (its C fragments are the A fragments of)
 //   g_o    = (g + bf16(g_down_a) . Wda^T) [+ bf16(g_down_b) . Wdb^T]
-// The first two stream Dm in AR_K-wide chunks through shared memory; g_down
-// stays in registers (its C fragments are the A fragments of the third);
-// the third reads Wd^T fragments from L1/L2 (36 KB per member).
+// each warp for its quarter of the columns.  The TPU kernel's rows run in
+// order; here 740 blocks of short chains run side by side (a 64-row block
+// streaming all of Dm through shared memory kept one or two blocks per SM
+// and took 0.14 ms at the training shape).
 template <int R, bool USE_B>
 __global__ void __launch_bounds__(AR_THREADS) adapter_bwd_rows_kernel(AdapterBwdArgs p) {
   constexpr int NM = USE_B ? 2 : 1;  // members
   constexpr int NT = R / 8;          // n-tiles of one member
-  __shared__ __align__(16) bf16 Os[AR_ROWS * AR_LD];
-  __shared__ __align__(16) bf16 Gs[NM][AR_ROWS * AR_LD];  // bf16(g w) per member
-  __shared__ __align__(16) bf16 Wd[NM * R * AR_LD];        // [n = member j][k = d]
-  __shared__ __align__(16) bf16 Wu[NM * R * AR_LD];
+  constexpr int NACC = NM * NT * 4;  // one lane's share of a [16][NM R] accumulator
+  __shared__ float red[AR_WARPS][NACC][32];
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.x * AR_ROWS, wr = warp * 16;
-  const int r_top = m0 + wr + g, r_bot = r_top + 8;
+  const int r_top = blockIdx.x * AR_ROWS + g, r_bot = r_top + 8;
+  const int quarter = p.D / AR_WARPS, d0 = warp * quarter;
 
   float down[NM][NT][4], grelu[NM][NT][4];
 #pragma unroll
@@ -130,66 +162,59 @@ __global__ void __launch_bounds__(AR_THREADS) adapter_bwd_rows_kernel(AdapterBwd
 #pragma unroll
       for (int e = 0; e < 4; ++e) down[a][nt][e] = grelu[a][nt][e] = 0.f;
 
-  for (int k0 = 0; k0 < p.D; k0 += AR_K) {
-    __syncthreads();
-    for (int i = tid; i < AR_ROWS * (AR_K / 8); i += AR_THREADS) {
-      const int r = i / (AR_K / 8), c = (i % (AR_K / 8)) * 8;
-      uint4 vo = make_uint4(0u, 0u, 0u, 0u), vg = vo;
-      if (m0 + r < p.M) {
-        vo = *reinterpret_cast<const uint4*>(p.o + (size_t)(m0 + r) * p.D + k0 + c);
-        vg = *reinterpret_cast<const uint4*>(p.g + (size_t)(m0 + r) * p.D + k0 + c);
-      }
-      *reinterpret_cast<uint4*>(Os + r * AR_LD + c) = vo;
-      const bf16* ge = reinterpret_cast<const bf16*>(&vg);
+  for (int k = d0; k < d0 + quarter; k += 16) {
+    uint32_t ao[4], araw[4];
+    a_frag_rows(ao, p.o, p.D, r_top, p.M, k, tig);
+    a_frag_rows(araw, p.g, p.D, r_top, p.M, k, tig);
 #pragma unroll
-      for (int a = 0; a < NM; ++a) {
-        const float w = a ? p.w_b : p.w_a;
+    for (int a = 0; a < NM; ++a) {
+      const float w = a ? p.w_b : p.w_a;
+      uint32_t ag[4];  // bf16(g w)
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          Gs[a][r * AR_LD + c + t] = __float2bfloat16_rn(__bfloat162float(ge[t]) * w);
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&araw[i]);
+        ag[i] = pack_bf16(__low2float(v) * w, __high2float(v) * w);
       }
-    }
-    for (int i = tid; i < NM * R * (AR_K / 8); i += AR_THREADS) {
-      const int n = i / (AR_K / 8), c = (i % (AR_K / 8)) * 8;
-      const int a = n / R, j = n % R;
       const bf16* wdT = a ? p.wdbT : p.wdaT;
       const bf16* wu = a ? p.wub : p.wua;
-      *reinterpret_cast<uint4*>(Wd + n * AR_LD + c) =
-          *reinterpret_cast<const uint4*>(wdT + (size_t)j * p.D + k0 + c);
-      *reinterpret_cast<uint4*>(Wu + n * AR_LD + c) =
-          *reinterpret_cast<const uint4*>(wu + (size_t)j * p.D + k0 + c);
-    }
-    __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < AR_K; ks += 16) {
-      uint32_t ao[4], ag[NM][4];
-      const bf16* po = Os + (wr + g) * AR_LD + ks + tig * 2;
-      ao[0] = lds32(po);
-      ao[1] = lds32(po + 8 * AR_LD);
-      ao[2] = lds32(po + 8);
-      ao[3] = lds32(po + 8 * AR_LD + 8);
-#pragma unroll
-      for (int a = 0; a < NM; ++a) {
-        const bf16* pg = Gs[a] + (wr + g) * AR_LD + ks + tig * 2;
-        ag[a][0] = lds32(pg);
-        ag[a][1] = lds32(pg + 8 * AR_LD);
-        ag[a][2] = lds32(pg + 8);
-        ag[a][3] = lds32(pg + 8 * AR_LD + 8);
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bd[2], bu[2];
+        b_frag_rows(bd, wdT, p.D, nt * 8 + g, k, tig);
+        b_frag_rows(bu, wu, p.D, nt * 8 + g, k, tig);
+        mma_16816(down[a][nt], ao, bd);
+        mma_16816(grelu[a][nt], ag, bu);
       }
-#pragma unroll
-      for (int a = 0; a < NM; ++a)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int n = a * R + nt * 8 + g;
-          uint32_t bd[2] = {lds32(Wd + n * AR_LD + ks + tig * 2), lds32(Wd + n * AR_LD + ks + tig * 2 + 8)};
-          uint32_t bu[2] = {lds32(Wu + n * AR_LD + ks + tig * 2), lds32(Wu + n * AR_LD + ks + tig * 2 + 8)};
-          mma_16816(down[a][nt], ao, bd);
-          mma_16816(grelu[a][nt], ag[a], bu);
-        }
     }
   }
 
-  // gate, write relu_a and g_down_a, keep bf16(g_down) as A fragments
+  // the quarters' partial sums, added in warp order (the same in every warp)
+  auto reduce = [&](float (&acc)[NM][NT][4]) {
+#pragma unroll
+    for (int a = 0; a < NM; ++a)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[warp][(a * NT + nt) * 4 + e][lane] = acc[a][nt][e];
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < NM; ++a)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (a * NT + nt) * 4 + e;
+          float v = red[0][i][lane];
+#pragma unroll
+          for (int w = 1; w < AR_WARPS; ++w) v += red[w][i][lane];
+          acc[a][nt][e] = v;
+        }
+    __syncthreads();
+  };
+  reduce(down);
+  reduce(grelu);
+
+  // gate; warp 0 writes relu_a and g_down_a; bf16(g_down) kept as A fragments
   uint32_t gdn[NM][R / 16][4];
 #pragma unroll
   for (int a = 0; a < NM; ++a) {
@@ -204,7 +229,7 @@ __global__ void __launch_bounds__(AR_THREADS) adapter_bwd_rows_kernel(AdapterBwd
         down[a][nt][e] = dn;
         gd[e] = dn > 0.f ? grelu[a][nt][e] : 0.f;
       }
-      if (a == 0) {
+      if (a == 0 && warp == 0) {
         if (r_top < p.M) {
           *reinterpret_cast<float2*>(p.gdown_a + (size_t)r_top * R + j) = make_float2(gd[0], gd[1]);
           *reinterpret_cast<uint32_t*>(p.relu_a + (size_t)r_top * R + j) =
@@ -222,51 +247,52 @@ __global__ void __launch_bounds__(AR_THREADS) adapter_bwd_rows_kernel(AdapterBwd
     }
   }
 
-  // g_o = (g + bf16(g_down_a) . Wda^T) [+ bf16(g_down_b) . Wdb^T]
-  for (int n0 = 0; n0 < p.D; n0 += AR_NCHUNK) {
-    float acc[NM][AR_NCHUNK / 8][4];
+  // g_o = (g + bf16(g_down_a) . Wda^T) [+ bf16(g_down_b) . Wdb^T] over this
+  // warp's quarter, AR_GROUP column tiles at a time: a group's reads of g go
+  // before its stores
+  const int rows[2] = {r_top, r_bot};
+  for (int n0 = d0; n0 < d0 + quarter; n0 += 8 * AR_GROUP) {
+    __nv_bfloat162 gv[AR_GROUP][2];
+#pragma unroll
+    for (int t = 0; t < AR_GROUP; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        gv[t][h] = rows[h] < p.M
+                       ? *reinterpret_cast<const __nv_bfloat162*>(p.g + (size_t)rows[h] * p.D + n0 + t * 8 + tig * 2)
+                       : __floats2bfloat162_rn(0.f, 0.f);
+    float acc[NM][AR_GROUP][4];
 #pragma unroll
     for (int a = 0; a < NM; ++a) {
       const bf16* wd = a ? p.wdb : p.wda;
 #pragma unroll
-      for (int nt = 0; nt < AR_NCHUNK / 8; ++nt) {
-        acc[a][nt][0] = acc[a][nt][1] = acc[a][nt][2] = acc[a][nt][3] = 0.f;
-        const bf16* pw = wd + (size_t)(n0 + nt * 8 + g) * R + tig * 2;
+      for (int t = 0; t < AR_GROUP; ++t) {
+        acc[a][t][0] = acc[a][t][1] = acc[a][t][2] = acc[a][t][3] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < R / 16; ++ks) {
-          uint32_t b[2] = {lds32(pw + ks * 16), lds32(pw + ks * 16 + 8)};
-          mma_16816(acc[a][nt], gdn[a][ks], b);
+          uint32_t b[2];
+          b_frag_rows(b, wd, R, n0 + t * 8 + g, ks * 16, tig);
+          mma_16816(acc[a][t], gdn[a][ks], b);
         }
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < AR_NCHUNK / 8; ++nt) {
-      const int col = n0 + nt * 8 + tig * 2;
+    for (int t = 0; t < AR_GROUP; ++t) {
+      const int col = n0 + t * 8 + tig * 2;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? r_bot : r_top;
-        if (row >= p.M) continue;
-        const size_t off = (size_t)row * p.D + col;
-        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(p.g + off);
-        float v0 = __low2float(gv) + acc[0][nt][2 * half];
-        float v1 = __high2float(gv) + acc[0][nt][2 * half + 1];
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= p.M) continue;
+        const size_t off = (size_t)rows[h] * p.D + col;
+        float v0 = __low2float(gv[t][h]) + acc[0][t][2 * h];
+        float v1 = __high2float(gv[t][h]) + acc[0][t][2 * h + 1];
         if (USE_B) {
-          v0 += acc[NM - 1][nt][2 * half];
-          v1 += acc[NM - 1][nt][2 * half + 1];
+          v0 += acc[NM - 1][t][2 * h];
+          v1 += acc[NM - 1][t][2 * h + 1];
         }
         *reinterpret_cast<float2*>(p.g_o + off) = make_float2(v0, v1);
         *reinterpret_cast<uint32_t*>(p.g_f + off) = pack_bf16(v0, v1);
       }
     }
   }
-}
-
-template <int R>
-int launch_adapter_rows(const AdapterBwdArgs& p, bool use_b, cudaStream_t st) {
-  const dim3 grid((p.M + AR_ROWS - 1) / AR_ROWS);
-  if (use_b) adapter_bwd_rows_kernel<R, true><<<grid, AR_THREADS, 0, st>>>(p);
-  else adapter_bwd_rows_kernel<R, false><<<grid, AR_THREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
 }
 
 struct AdapterWgradArgs {
@@ -276,70 +302,124 @@ struct AdapterWgradArgs {
   const float* gdown_a;  // [M, R]
   float w_a;
   float* part;           // [chunks][2 R D + D + R]: dWu [R][D], dWd [D][R], dbu [D], dbd [R]
-  int M, D, R;
+  int M, D;
 };
 
-// Partial sums over one chunk of AW_ROWS rows for AW_COLS columns of Dm:
-// dWu[j][d] += relu_a[j] g_delta_a[d], dWd[d][j] += o[d] bf16(g_down_a[j]),
-// dbu[d] += g_delta_a[d], dbd[j] += g_down_a[j] (the last in the x=0 blocks).
-__global__ void __launch_bounds__(256) adapter_wgrad_kernel(AdapterWgradArgs p) {
-  __shared__ float relu_s[AW_SUB][AD_MAX_R];
-  __shared__ float gdn_s[AW_SUB][AD_MAX_R];
-  __shared__ float gdf_s[AW_SUB][AD_MAX_R];
-  __shared__ float gd_s[AW_SUB][AW_COLS];
-  __shared__ float o_s[AW_SUB][AW_COLS];
-  const int tid = threadIdx.x, dl = tid % AW_COLS, jg = tid / AW_COLS;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// Partial sums over one chunk of AW_ROWS rows for AW_COLS columns of Dm, on
+// the tensor cores (every operand is a bf16 value, every sum fp32):
+//   dWu^T[d][j] = sum_rows g_delta_a[d] relu_a[j],  g_delta_a = bf16(g w_a)
+//   dWd[d][j]   = sum_rows o[d] bf16(g_down_a[j])
+// i.e. C[64 d][R] = X^T . Y with X [rows][d] and Y [rows][j] as they lie in
+// memory: the rows are the products' K, so both operands are read transposed
+// from their natural tiles by ldmatrix.trans.  Warp w owns d rows 16w..16w+15.
+// dbu[d] += g_delta_a[d] and dbd[j] += g_down_a[j] (the latter in the x = 0
+// blocks) are summed row by row in fp32.
+template <int R>
+__global__ void __launch_bounds__(AW_THREADS) adapter_wgrad_kernel(AdapterWgradArgs p) {
+  constexpr int RL = R + 8;  // padded smem row of the [rows][R] tiles (bf16)
+  __shared__ __align__(16) bf16 Xo[AW_SUB * AW_LD];  // o
+  __shared__ __align__(16) bf16 Xg[AW_SUB * AW_LD];  // g_delta_a
+  __shared__ __align__(16) bf16 Yr[AW_SUB * RL];     // relu_a
+  __shared__ __align__(16) bf16 Yd[AW_SUB * RL];     // bf16(g_down_a)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int d0 = blockIdx.x * AW_COLS, chunk = blockIdx.y;
-  const bool bias_d = blockIdx.x == 0 && tid < p.R;
-  float au[AW_JMAX], ad[AW_JMAX], abu = 0.f, abd = 0.f;
-#pragma unroll
-  for (int i = 0; i < AW_JMAX; ++i) au[i] = ad[i] = 0.f;
   const int r_begin = chunk * AW_ROWS, r_end = min(p.M, r_begin + AW_ROWS);
+  float du[R / 8][4], dd[R / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < R / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) du[nt][e] = dd[nt][e] = 0.f;
+  float abu = 0.f, abd = 0.f;
+  // ldmatrix row addresses: thread t feeds row t % 8 of 8x8 matrix t / 8
+  const int mi = lane >> 3, mr = lane & 7;
+  const int xa = (mr + ((mi >> 1) << 3)) * AW_LD + warp * 16 + ((mi & 1) << 3);  // A: (k, m) blocks
+  const int ya = (mr + ((mi & 1) << 3)) * RL + ((mi >> 1) << 3);                 // B: (k, n) blocks
+
   for (int rs = r_begin; rs < r_end; rs += AW_SUB) {
     __syncthreads();
-    for (int i = tid; i < AW_SUB * p.R; i += blockDim.x) {
-      const int r = i / p.R, j = i % p.R, row = rs + r;
-      const bool ok = row < r_end;
-      const float gdv = ok ? p.gdown_a[(size_t)row * p.R + j] : 0.f;
-      relu_s[r][j] = ok ? __bfloat162float(p.relu_a[(size_t)row * p.R + j]) : 0.f;
-      gdf_s[r][j] = gdv;
-      gdn_s[r][j] = round_bf16(gdv);
+    for (int i = tid; i < AW_SUB * (AW_COLS / 8); i += AW_THREADS) {
+      const int r = i / (AW_COLS / 8), c = (i % (AW_COLS / 8)) * 8, row = rs + r;
+      uint4 vo = make_uint4(0u, 0u, 0u, 0u), vg = vo;
+      if (row < r_end) {
+        vo = *reinterpret_cast<const uint4*>(p.o + (size_t)row * p.D + d0 + c);
+        vg = *reinterpret_cast<const uint4*>(p.g + (size_t)row * p.D + d0 + c);
+      }
+      bf16* ge = reinterpret_cast<bf16*>(&vg);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) ge[t] = __float2bfloat16_rn(__bfloat162float(ge[t]) * p.w_a);
+      *reinterpret_cast<uint4*>(Xo + r * AW_LD + c) = vo;
+      *reinterpret_cast<uint4*>(Xg + r * AW_LD + c) = vg;
     }
-    for (int i = tid; i < AW_SUB * AW_COLS; i += blockDim.x) {
-      const int r = i / AW_COLS, c = i % AW_COLS, row = rs + r;
-      const bool ok = row < r_end;
-      const size_t off = (size_t)row * p.D + d0 + c;
-      gd_s[r][c] = ok ? round_bf16(__bfloat162float(p.g[off]) * p.w_a) : 0.f;
-      o_s[r][c] = ok ? __bfloat162float(p.o[off]) : 0.f;
+    for (int i = tid; i < AW_SUB * (R / 8); i += AW_THREADS) {
+      const int r = i / (R / 8), c = (i % (R / 8)) * 8, row = rs + r;
+      uint4 vr = make_uint4(0u, 0u, 0u, 0u), vd = vr;
+      if (row < r_end) {
+        vr = *reinterpret_cast<const uint4*>(p.relu_a + (size_t)row * R + c);
+        const float4 a = *reinterpret_cast<const float4*>(p.gdown_a + (size_t)row * R + c);
+        const float4 b = *reinterpret_cast<const float4*>(p.gdown_a + (size_t)row * R + c + 4);
+        vd = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+      }
+      *reinterpret_cast<uint4*>(Yr + r * RL + c) = vr;
+      *reinterpret_cast<uint4*>(Yd + r * RL + c) = vd;
     }
     __syncthreads();
     const int nr = min(AW_SUB, r_end - rs);
-    for (int r = 0; r < nr; ++r) {
-      const float gdv = gd_s[r][dl], ov = o_s[r][dl];
+    if (tid < AW_COLS)
+      for (int r = 0; r < nr; ++r) abu += __bfloat162float(Xg[r * AW_LD + tid]);
+    if (blockIdx.x == 0 && tid < R)
+      for (int r = 0; r < nr; ++r) abd += p.gdown_a[(size_t)(rs + r) * R + tid];
 #pragma unroll
-      for (int i = 0; i < AW_JMAX; ++i) {
-        const int j = jg + 4 * i;
-        if (j < p.R) {
-          au[i] += relu_s[r][j] * gdv;
-          ad[i] += ov * gdn_s[r][j];
-        }
+    for (int ks = 0; ks < AW_SUB / 16; ++ks) {
+      uint32_t ao[4], ag[4];
+      ldsm_x4_trans(ao, Xo + ks * 16 * AW_LD + xa);
+      ldsm_x4_trans(ag, Xg + ks * 16 * AW_LD + xa);
+#pragma unroll
+      for (int np = 0; np < R / 16; ++np) {
+        uint32_t br[4], bd[4];
+        ldsm_x4_trans(br, Yr + ks * 16 * RL + np * 16 + ya);
+        ldsm_x4_trans(bd, Yd + ks * 16 * RL + np * 16 + ya);
+        const uint32_t br0[2] = {br[0], br[1]}, br1[2] = {br[2], br[3]};
+        const uint32_t bd0[2] = {bd[0], bd[1]}, bd1[2] = {bd[2], bd[3]};
+        mma_16816(du[2 * np], ag, br0);
+        mma_16816(du[2 * np + 1], ag, br1);
+        mma_16816(dd[2 * np], ao, bd0);
+        mma_16816(dd[2 * np + 1], ao, bd1);
       }
-      if (jg == 0) abu += gdv;
-      if (bias_d) abd += gdf_s[r][tid];
     }
   }
-  const size_t stride = (size_t)2 * p.R * p.D + p.D + p.R;
-  float* out = p.part + chunk * stride;
+  const size_t rd = (size_t)R * p.D;
+  float* out = p.part + chunk * (2 * rd + p.D + R);
+  const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < AW_JMAX; ++i) {
-    const int j = jg + 4 * i;
-    if (j < p.R) {
-      out[(size_t)j * p.D + d0 + dl] = au[i];
-      out[(size_t)p.R * p.D + (size_t)(d0 + dl) * p.R + j] = ad[i];
+  for (int nt = 0; nt < R / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + warp * 16 + g + 8 * (e >> 1), j = nt * 8 + tig * 2 + (e & 1);
+      out[(size_t)j * p.D + d] = du[nt][e];
+      out[rd + (size_t)d * R + j] = dd[nt][e];
     }
-  }
-  if (jg == 0) out[(size_t)2 * p.R * p.D + d0 + dl] = abu;
-  if (bias_d) out[(size_t)2 * p.R * p.D + p.D + tid] = abd;
+  if (tid < AW_COLS) out[2 * rd + d0 + tid] = abu;
+  if (blockIdx.x == 0 && tid < R) out[2 * rd + p.D + tid] = abd;
+}
+
+// The adapter backward's row pass, then the chunks' weight-gradient partial
+// sums, on `st`.
+template <int R>
+int launch_adapter_bwd(const AdapterBwdArgs& ab, const AdapterWgradArgs& aw, bool use_b, int chunks,
+                       cudaStream_t st) {
+  const dim3 grid((ab.M + AR_ROWS - 1) / AR_ROWS);
+  if (use_b) adapter_bwd_rows_kernel<R, true><<<grid, AR_THREADS, 0, st>>>(ab);
+  else adapter_bwd_rows_kernel<R, false><<<grid, AR_THREADS, 0, st>>>(ab);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  adapter_wgrad_kernel<R><<<dim3(aw.D / AW_COLS, chunks), AW_THREADS, 0, st>>>(aw);
+  return (int)cudaGetLastError();
 }
 
 // Adds the chunks' partial sums in chunk order (deterministic).
@@ -360,7 +440,7 @@ __global__ void adapter_wgrad_reduce_kernel(const float* __restrict__ part, int 
 // 256-byte boundary.  The only place that knows the layout.
 enum WsBuffer {
   WS_H, WS_M, WS_O, WS_P1, WS_GE_GP1, WS_RELU_A, WS_GDOWN_A, WS_G_O, WS_G_M_DXLN, WS_G_H,
-  WS_G_F, WS_G_ATT, WS_DCTX, WS_QKV, WS_DQKV, WS_DELTA, WS_PART, WS_COUNT
+  WS_G_F, WS_G_ATT, WS_DCTX, WS_QKV, WS_DQKV, WS_DELTA, WS_PART, WS_XLN, WS_COUNT
 };
 
 struct WsLayout {
@@ -380,6 +460,7 @@ WsLayout ws_layout(int B, int S, int Dm, int H, int F, int R) {
       md * 2 * 3, md * 2 * 3,              // qkv, dq|dk|dv
       (size_t)B * H * S * 4,               // delta
       chunks * (2 * (size_t)R * Dm + Dm + R) * 4,  // adapter partial sums
+      md * 2,                              // bf16(LN1(x))
   };
   WsLayout l{};
   size_t off = 0;
@@ -431,7 +512,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
                     void* dbua, int B, int S, int Dm, int H, int F, int R, float scale, float eps1,
                     float eps2, float w_a, float w_b, int use_b, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (R < 16 || R % 16 || R > AD_MAX_R || Dm % AR_NCHUNK) return (int)cudaErrorInvalidValue;
+  if (R < 16 || R % 16 || R > AD_MAX_R || Dm % AR_DM_MULTIPLE) return (int)cudaErrorInvalidValue;
   const int M = B * S;
   const WsLayout wl = ws_layout(B, S, Dm, H, F, R);
   char* ws = static_cast<char*>(workspace);
@@ -475,7 +556,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   f1.bias[0] = static_cast<const float*>(b1);
   f1.c_f32 = p1;
   f1.c_bf16[0] = t_mf;
-  if ((err = launch_gemm<B_NT, EPI_FFN1>(f1, st))) return err;
+  if ((err = launch_gemm_sm90<B_NT, EPI_FFN1>(f1, st))) return err;
   GemmArgs f2{};
   f2.a[0] = t_mf;
   f2.lda = F;
@@ -487,7 +568,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   f2.bias[0] = static_cast<const float*>(b2);
   f2.aux_bf16 = h;
   f2.c_bf16[0] = o;
-  if ((err = launch_gemm<B_NT, EPI_FFN2>(f2, st))) return err;
+  if ((err = launch_gemm_sm90<B_NT, EPI_FFN2>(f2, st))) return err;
 
   // 3. adapter backward: rows, then deterministic weight-gradient sums
   AdapterBwdArgs ab{};
@@ -509,13 +590,6 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   ab.g_f = g_f;
   ab.M = M;
   ab.D = Dm;
-  switch (R) {
-    case 16: err = launch_adapter_rows<16>(ab, use_b, st); break;
-    case 32: err = launch_adapter_rows<32>(ab, use_b, st); break;
-    case 48: err = launch_adapter_rows<48>(ab, use_b, st); break;
-    default: err = launch_adapter_rows<64>(ab, use_b, st); break;
-  }
-  if (err) return err;
   AdapterWgradArgs aw{};
   aw.o = o;
   aw.g = static_cast<const bf16*>(g);
@@ -525,9 +599,13 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   aw.part = part;
   aw.M = M;
   aw.D = Dm;
-  aw.R = R;
-  adapter_wgrad_kernel<<<dim3(Dm / AW_COLS, chunks), 256, 0, st>>>(aw);
-  if ((err = (int)cudaGetLastError())) return err;
+  switch (R) {
+    case 16: err = launch_adapter_bwd<16>(ab, aw, use_b, chunks, st); break;
+    case 32: err = launch_adapter_bwd<32>(ab, aw, use_b, chunks, st); break;
+    case 48: err = launch_adapter_bwd<48>(ab, aw, use_b, chunks, st); break;
+    default: err = launch_adapter_bwd<64>(ab, aw, use_b, chunks, st); break;
+  }
+  if (err) return err;
   const size_t outs = (size_t)2 * R * Dm + Dm + R;
   adapter_wgrad_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
       part, chunks, static_cast<float*>(dwua), static_cast<float*>(dwda), static_cast<float*>(dbua),
@@ -545,7 +623,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   b2g.K = Dm;
   b2g.aux_f32 = p1;
   b2g.c_bf16[0] = t_mf;
-  if ((err = launch_gemm<B_NN, EPI_GELU_BWD>(b2g, st))) return err;
+  if ((err = launch_gemm_sm90<B_NN, EPI_GELU_BWD>(b2g, st))) return err;
   GemmArgs b1g{};
   b1g.a[0] = t_mf;
   b1g.lda = F;
@@ -555,7 +633,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   b1g.N = Dm;
   b1g.K = F;
   b1g.c_f32 = g_m;
-  if ((err = launch_gemm<B_NN, EPI_F32>(b1g, st))) return err;
+  if ((err = launch_gemm_sm90<B_NN, EPI_F32>(b1g, st))) return err;
 
   // 5. g_h = g_o + LN2_bwd(g_m), g_att = bf16(g_h)
   if ((err = launch_ln_bwd_rows(h, gamma2, eps2, g_m, g_o, g_att, g_h, M, Dm, st))) return err;
@@ -579,6 +657,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
   a.dqkv = dqkv;
   a.dctx = dctx;
   a.delta = delta;
+  a.xln = reinterpret_cast<bf16*>(buf(WS_XLN));
   a.B = B;
   a.S = S;
   a.Dm = Dm;

@@ -1,0 +1,166 @@
+"""Time the port's hand-written kernels of this checkout against those of
+another source tree, on one CUDA card, by the profiler's device time.
+
+    git archive <commit> feddat_tpu_torch/csrc | tar -x -C logs/parent
+    python3 scripts/torch_kernel_ab.py --other logs/parent
+
+Builds ``attn_block.cu``, ``layer_block.cu`` and ``flash_attention.cu`` of both
+trees with the package's nvcc flags, all six at once, then times each tree in
+the order other, this, this, other:
+
+* #3, the attention-block backward, and #4, the whole-layer backward (ensemble
+  on), at the ViLT training shape (B=64, S=185, LN1 fused);
+* #1, the attention-block forward at the serving shape (B=16, S=281, LN1
+  fused): the control when #1's code did not change;
+* #7 at ALBEF's ViT site (B=16, H=12, S=577, no bias) and at its packed
+  decoder site (B=128, Sq=Skv=80, a [128, 1, 80, 80] bias), #8 and #9 at the
+  ViT site.
+
+Each time is ``chip_smoke.device_ms`` (median over 10 calls of the summed
+kernel durations) beside the CUDA-event wall per call; each tree's first pass
+also prints the device time of every launch of one #3 and one #4 call
+(``chip_smoke.launch_breakdown``).  Then prints how far
+the two trees' outputs lie apart, in bf16 ulps of each element
+(``chip_smoke.own_ulps``; relative norm for #4's fp32 adapter gradients), and
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+SOURCES = ("attn_block", "layer_block", "flash_attention")
+
+
+def build(trees, out_dir):
+    """One nvcc per (tree, source), all started together ->
+    {tree name: {source: library path}}."""
+    from feddat_tpu_torch.ops import _build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = _build._nvcc(), {}
+    for name, root in trees.items():
+        csrc = root / "feddat_tpu_torch" / "csrc"
+        for src in SOURCES:
+            lib = out_dir / f"{src}_{name}.so"
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / f"{src}.cu")]
+            procs[name, src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                 text=True), lib)
+    libs = {}
+    for (name, src), (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} {src}.cu (exit {proc.returncode}):\n{log}")
+        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+        print(f"build {name} {src}: {lib.name}; ptxas: " + " | ".join(regs))
+        libs.setdefault(name, {})[src] = lib
+    return libs
+
+
+def use(libs):
+    """Route the wrappers of #1/#3, #4 and #7-#9 to the given libraries."""
+    from feddat_tpu_torch.ops import _build
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    for src, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _build._LIBS[src] = lib
+    for kernel in (ab.KERNEL, ab.KERNEL_BWD, lb.KERNEL, fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV):
+        kernel._fn = None
+    # the workspace sizes and layouts are the tree's own
+    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
+        cached.cache_clear()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", type=Path, required=True,
+                    help="root of the other tree (holds feddat_tpu_torch/csrc)")
+    ap.add_argument("--build", type=Path, default=REPO / "feddat_tpu_torch" / "_build" / "ab")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    t0 = time.perf_counter()
+    libs = build({"other": args.other.resolve(), "this": REPO}, args.build)
+    print(f"build: both trees in {time.perf_counter() - t0:.1f} s")
+
+    use(libs["this"])
+    fwd_args = cs.attn_inputs(torch, cs.B, cs.S, True, args.seed)
+    bwd_args = cs.attn_bwd_case(torch, cs.TB, cs.TS, True, args.seed)
+    layer_args, cfg = cs.layer_case(torch, cs.TB, cs.TS, True, args.seed)
+    scale = 64 ** -0.5
+    q, k, v, _ = cs.flash_case(torch, cs.AB, cs.VIT_S, cs.VIT_S, "none", args.seed)
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    packed = next(c for c in cs.FLASH_CASES if c[0] == "stage-2 packed self")
+    qp, kp, vp, biasp = cs.flash_case(torch, *packed[1:], args.seed)
+
+    outs, times = {}, {}
+    for name in ("other", "this", "this", "other"):
+        use(libs[name])
+        with torch.no_grad():
+            o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, scale)
+            run_dq, run_dkv, grads = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
+            run_dq()
+            run_dkv()
+            got = {"#1": ab.attn_block_cuda(*fwd_args), "#3": (ab.attn_block_bwd_cuda(*bwd_args),),
+                   "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads)}
+            torch.cuda.synchronize()
+            outs[name] = {key: [t.clone() for t in ts] for key, ts in got.items()}
+            fns = {"#3 attn_block_bwd": lambda: ab.attn_block_bwd_cuda(*bwd_args),
+                   "#4 layer_block_bwd": lambda: lb.layer_block_bwd_cuda(*layer_args, *cfg),
+                   "#1 attn_block (control)": lambda: ab.attn_block_cuda(*fwd_args),
+                   "#7 vit": lambda: fl.flash_attention_fwd_cuda(q, k, v, None, scale),
+                   "#7 packed": lambda: fl.flash_attention_fwd_cuda(qp, kp, vp, biasp, scale),
+                   "#8 vit": run_dq, "#9 vit": run_dkv}
+            row = {label: (cs.device_ms(torch, fn), cs.cuda_ms(torch, fn, 30)) for label, fn in fns.items()}
+            if name not in times:  # each tree's launches of one #3 and one #4 call
+                for label in ("#3 attn_block_bwd", "#4 layer_block_bwd"):
+                    cs.launch_breakdown(torch, fns[label], f"{name} {label} B={cs.TB} S={cs.TS}")
+        times.setdefault(name, []).append(row)
+        print(f"time {name}: " + ", ".join(f"{label} {dev:.4f} ms device (wall per call {wall:.4f})"
+                                           for label, (dev, wall) in row.items()))
+    for label in times["this"][0]:
+        mine = [r[label][0] for r in times["this"]]
+        theirs = [r[label][0] for r in times["other"]]
+        print(f"ab {label}: this {mine} other {theirs}; other / this "
+              f"{(sum(theirs) / len(theirs)) / (sum(mine) / len(mine)):.2f}x")
+    names = {"#1": ("out", "ctx", "lse"), "#3": ("dx",), "#4": ("dx", "dwda", "dbda", "dwua", "dbua"),
+             "#7-#9": ("o", "dq", "dk", "dv")}
+    for key, labels in names.items():
+        apart = []
+        for label, a, b in zip(labels, outs["this"][key], outs["other"][key]):
+            if a.dtype == torch.bfloat16:
+                apart.append(f"{label} {cs.own_ulps(torch, a, b):g} own bf16 ulps")
+            else:
+                apart.append(f"{label} rel norm {cs.rel_norm(a, b):.2e}")
+        print(f"ab outputs {key}, this against other: " + ", ".join(apart))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -71,11 +71,12 @@ def test_dispatch_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("fuse_ln", [False, True])
-@pytest.mark.parametrize("b,s", [(2, 16), (3, 21)])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (1, 127), (1, 129)])
 def test_backward_dx_matches_jax_vjp(b, s, fuse_ln):
     """Kernel #3's plain version through the port's autograd wrapper: dx
     real, every other input without a gradient (the JAX contract returns
-    zeros there, attn_block.py:416-419)."""
+    zeros there, attn_block.py:416-419).  B=1 at S=127 and 129 mirrors the
+    card's row counts on either side of the GEMM's 128-row tile."""
     inp = _inputs(b * 10 + s + 7, b, s)
     heads, eps = 4, 1e-12
     gb = inp["gb"] if fuse_ln else None
@@ -122,3 +123,39 @@ def test_backward_past_448_takes_the_layernorm_outside():
                         mask_to_bias(torch.tensor(inp["mask"])), 4, None, 1e-12)
     (got,) = torch.autograd.grad(out, [x], torch.from_numpy(g))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 127), (1, 129), (3, 21)])
+def test_ln1_plane_outside_equals_fused_backward(b, s, dtype):
+    """The CUDA backward of #3 (and #4's attention part) writes bf16(LN1(x))
+    once as a plane, feeds it to the attention core as a plain input, and
+    takes dxln back through LN1.  In plain ops that route (the plane, the
+    core with no LayerNorm, LN1's backward outside) gives the fused-LN plain
+    backward exactly, and both agree with jax.vjp of the JAX kernel in fp32."""
+    inp = _inputs(b * 31 + s, b, s)
+    heads, eps, scale = 4, 1e-12, 8 ** -0.5
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    x = t(inp["x"]).to(dtype)
+    ws = [t(w.T).to(dtype) for w in inp["ws"]]
+    bqkv, bo, gb = t(inp["bqkv"]), t(inp["bo"]), t(inp["gb"])
+    bias = mask_to_bias(t(inp["mask"]))
+    _, ctx, lse = ab.attn_block_reference(x, *ws, bqkv, bo, gb, bias, heads, scale, eps)
+    g = t(np.random.RandomState(s + 1).randn(b, s, 32).astype(np.float32)).to(dtype)
+    fused = ab.attn_block_bwd_reference(x, *ws, bqkv, gb, bias, ctx, lse, g, heads, scale, eps)
+
+    plane = ab.layer_norm_fast_variance(x, gb[0], gb[1], eps).to(dtype)
+    xhat, rstd = ab.layer_norm_stats(x, eps)
+    dxln = ab.attn_bwd_core_reference(plane, *ws, bqkv, ab._key_bias(bias, b, s), ctx, lse, g,
+                                      heads, scale)
+    outside = ab.layer_norm_bwd(dxln, xhat, rstd, gb[0]).to(dtype)
+    assert torch.equal(outside, fused)
+    if dtype == torch.float32:
+        def f(x_):
+            return jax_attn_block(x_, *map(jnp.asarray, inp["ws"]), jnp.asarray(inp["bqkv"]),
+                                  jnp.asarray(inp["bo"]), jnp.asarray(inp["gb"]),
+                                  jax_mask_to_bias(jnp.asarray(inp["mask"])), heads, scale, 1, True, eps)
+
+        _, vjp = jax.vjp(f, jnp.asarray(inp["x"]))
+        (want,) = vjp(jnp.asarray(g.numpy()))
+        np.testing.assert_allclose(outside.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)

@@ -51,14 +51,30 @@ def test_layer_fwd_matches_jax(setup, mode):
     assert ctx.shape == x_res.shape == aout.shape == (B, S, D) and lse.shape == (B, H, S)
 
 
-@pytest.mark.parametrize("mode", ["ensemble", "adapter_1"])
+def _ragged(mode: str):
+    """``"<mode>@<S>"`` -> (mode, S): the setup's layer at B=1 and that S."""
+    name, _, s = mode.partition("@")
+    return name, (int(s) if s else None)
+
+
+@pytest.mark.parametrize("mode", ["ensemble", "adapter_1", "ensemble@127", "adapter_1@129"])
 def test_layer_block_grads_match_jax_vjp(setup, mode):
     """dx and the active adapter's four gradients of the port's autograd
     wrapper (plain backward on the CPU) against ``jax.vjp`` of the JAX
-    custom_vjp (the Pallas backward kernel in interpret mode)."""
+    custom_vjp (the Pallas backward kernel in interpret mode).  ``@127`` and
+    ``@129`` run the same layer at B=1 and that S: the card's row counts on
+    either side of the GEMM's 128-row tile."""
     _, params, x, bias = setup
+    mode, s = _ragged(mode)
+    b = B
+    if s is not None:
+        rng = np.random.RandomState(s)
+        b, x = 1, jnp.asarray(rng.randn(1, s, D).astype(np.float32) * 0.3)
+        bias = np.zeros((1, 1, 1, s), np.float32)
+        bias[..., -3:] = -1e9  # padded keys, as the setup's first row
+        bias = jnp.asarray(bias)
     weights, (w_a, w_b, use_b), _ = _kernel_args(params, mode)
-    gw = np.random.RandomState(1).randn(B, S, D).astype(np.float32)
+    gw = np.random.RandomState(1).randn(b, x.shape[1], D).astype(np.float32)
 
     def f(x_, wda, bda, wua, bua):
         w = list(weights)
