@@ -19,21 +19,27 @@
 // What the design does about it.  The TPU kernel keeps all four weight
 // matrices (4.7 MB) and one batch element's activations resident in VMEM and
 // walks the heads in order.  A Hopper block has 227 KB of shared memory, so
-// the work is cut into three launches on the caller's stream:
-//   (a) port::gemm_kernel (common.cuh): one tiled bf16 GEMM for q|k|v
-//       together (N = 3*Dm), mma.sync m16n8k16 with fp32 accumulators,
-//       LayerNorm applied in the prologue while the A tile is staged into
-//       shared memory (row statistics computed once per 128-row tile),
-//       bias-add and bf16 cast in the epilogue;
-//   (b) attn_fwd.cuh::attn_kernel (shared with kernel #5): one block per
+// the work is cut into launches on the caller's stream:
+//   (a) with the LayerNorm fused, one row pass (common.cuh::ln_fwd_rows_kernel)
+//       writes bf16(LN1(x)) once.  Its [M, Dm] plane is the `ctx` output:
+//       nothing else writes ctx before the attention core, which runs after
+//       the q|k|v product has read the plane (stream order), so the plane
+//       takes no memory of its own;
+//   (b) q|k|v in one wgmma GEMM (gemm_sm90.cuh, N = 3*Dm, one segment per
+//       projection), bias-add and bf16 cast in the epilogue.  (a) and (b) are
+//       gemm_sm90.cuh::launch_qkv, the very launches of the backward's q/k/v
+//       recompute (#3, #4), so the backward's p = exp(s - lse) is rebuilt
+//       from the forward's own logits;
+//   (c) attn_fwd.cuh::attn_kernel (shared with kernel #5): one block per
 //       (query tile of 64, head, batch element) over the projection scratch;
 //       the fp32 logits of its 64 rows over the whole key range stay in
 //       shared memory, so the softmax is the TPU's exact two-pass form (no
 //       online rescaling); padded keys are simply never summed;
-//   (c) the same GEMM again for the out-projection.
+//   (d) the out-projection on the same GEMM.
 // q/k/v round-trip through device memory (3 x B*S*Dm bf16, from L2 mostly).
-// wgmma, TMA and fusing the three launches are later work.
-//
+// The attention core (mma.sync, no copy in flight) is the slow part left; it
+// is redesigned with #5's.
+
 // Backward: replaces feddat_tpu/ops/attn_block.py::_bwd_kernel (kernel #3,
 // called through _attn_block_bwd): dx only, the projections frozen.  The
 // attention part is attn_bwd.cuh, shared with the whole-layer backward (#4),
@@ -56,8 +62,9 @@ const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_
 
 // x [B, S, Dm] bf16; wq/wk/wv/wo [Dm, Dm] bf16 (nn.Linear [out, in]);
 // bqkv [3, Dm] f32; bo [Dm] f32; gb [2, Dm] f32 or null (no fused LN);
-// bias [B, S] f32 or null; qkv scratch [3, B*S, Dm] bf16.
-// Outputs: ctx [B, S, Dm] bf16, lse [B, H, S] f32, out [B, S, Dm] bf16.
+// bias [B, S] f32 or null; qkv scratch [3, B*S, Dm] bf16 (left holding q/k/v).
+// Outputs: ctx [B, S, Dm] bf16 (also the LN1 plane's scratch before the
+// attention core writes it), lse [B, H, S] f32, out [B, S, Dm] bf16.
 // Returns the CUDA error of the launches (0 = success).
 int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv,
                    const void* wo, const void* bqkv, const void* bo, const void* gb,
@@ -66,29 +73,11 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S;
   const size_t plane = (size_t)M * Dm;
-  const float* bq = static_cast<const float*>(bqkv);
   bf16* qkv_b = static_cast<bf16*>(qkv);
-
-  GemmArgs a{};
-  a.a[0] = static_cast<const bf16*>(x);
-  a.lda = Dm;
-  a.b[0] = static_cast<const bf16*>(wq);
-  a.b[1] = static_cast<const bf16*>(wk);
-  a.b[2] = static_cast<const bf16*>(wv);
-  a.ldb = Dm;
-  a.b_seg = Dm;
-  for (int i = 0; i < 3; ++i) {
-    a.bias[i] = bq + (size_t)i * Dm;
-    a.c_bf16[i] = qkv_b + i * plane;
-  }
-  a.c_seg = Dm;
-  a.ln_gamma = gb ? static_cast<const float*>(gb) : nullptr;
-  a.ln_beta = gb ? static_cast<const float*>(gb) + Dm : nullptr;
-  a.ln_eps = ln_eps;
-  a.M = M;
-  a.N = 3 * Dm;
-  a.K = Dm;
-  int e = launch_gemm<B_NT, EPI_BIAS_BF16>(a, st);
+  const float* gamma = static_cast<const float*>(gb);
+  int e = launch_qkv(static_cast<const bf16*>(x), gamma, gamma != nullptr ? gamma + Dm : nullptr, ln_eps,
+                     static_cast<bf16*>(ctx), static_cast<const bf16*>(wq), static_cast<const bf16*>(wk),
+                     static_cast<const bf16*>(wv), static_cast<const float*>(bqkv), qkv_b, M, Dm, st);
   if (e) return e;
   const long long sb = (long long)S * Dm;  // [3, B*S, Dm] planes, head h at column h*64
   AttnFwdArgs t{};
@@ -113,7 +102,7 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
   o.M = M;
   o.N = Dm;
   o.K = Dm;
-  return launch_gemm<B_NT, EPI_BIAS_BF16>(o, st);
+  return launch_gemm_sm90<B_NT, EPI_BIAS_BF16>(o, st);
 }
 
 // Bytes of scratch attn_block_bwd needs: qkv and dq|dk|dv [3, M, Dm] bf16 each,

@@ -353,28 +353,10 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_b
   c.c_bf16[0] = a.dctx;
   if ((err = launch_gemm_sm90<B_NN, EPI_BF16>(c, st))) return err;
 
-  const bf16* xin = a.x;
-  if (a.gamma != nullptr) {  // xln = bf16(LN1(x))
-    if ((err = launch_ln_fwd_rows(a.x, a.gamma, a.beta, a.ln_eps, a.xln, M, a.Dm, st))) return err;
-    xin = a.xln;
-  }
-  GemmArgs r{};  // q/k/v = bf16(xln . W^T + b)
-  r.a[0] = xin;
-  r.lda = a.Dm;
-  r.b[0] = a.wq;
-  r.b[1] = a.wk;
-  r.b[2] = a.wv;
-  r.ldb = a.Dm;
-  r.b_seg = a.Dm;
-  r.M = M;
-  r.N = 3 * a.Dm;
-  r.K = a.Dm;
-  for (int i = 0; i < 3; ++i) {
-    r.bias[i] = a.bqkv + (size_t)i * a.Dm;
-    r.c_bf16[i] = a.qkv + i * plane;
-  }
-  r.c_seg = a.Dm;
-  if ((err = launch_gemm_sm90<B_NT, EPI_BIAS_BF16>(r, st))) return err;
+  // q/k/v = bf16(xln . W^T + b), xln = bf16(LN1(x)) when gamma is given
+  if ((err = launch_qkv(a.x, a.gamma, a.beta, a.ln_eps, a.xln, a.wq, a.wk, a.wv, a.bqkv, a.qkv, M,
+                        a.Dm, st)))
+    return err;
 
   const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*64
   AttnBwdArgs t{};

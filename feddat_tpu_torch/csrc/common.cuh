@@ -1,11 +1,10 @@
 // Building blocks shared by the port's kernels (sm_90a): mma.sync helpers,
 // warp reductions, the TPU layer kernel's polynomial erf/GELU, the strided
-// per-head operand view of the attention kernels, and one tiled bf16 GEMM
-// with a choice of operand layout and epilogue.
+// per-head operand view of the attention kernels, the contract of the GEMMs
+// that gemm_sm90.cuh runs on wgmma, and the LayerNorm row passes.
 //
-// The GEMM (C[M, N] = A[M, K] . B, fp32 accumulation) of the attention-block
-// forward (#1); the backward kernels #3 and #4 run the same contract
-// (GemmArgs, gemm_store) on wgmma through gemm_sm90.cuh:
+// The GEMM contract (C[M, N] = A[M, K] . B, fp32 accumulation), used by the
+// attention-block forward (#1) and the backward kernels #3 and #4:
 //   * B_NT: B given as [N, K] row-major (an nn.Linear weight [out, in]), so
 //     C = A . W^T; the N range may be split into segments with their own
 //     weight, bias and output (q|k|v in one launch);
@@ -13,12 +12,8 @@
 //     used on the input side of a backward); the K range may be split into
 //     segments with their own A and B (dx = dq.Wq + dk.Wk + dv.Wv in one
 //     launch, K = 3 Dm);
-//   * an optional LayerNorm on A in the prologue (row statistics once per
-//     128-row tile, fast-variance form, as the TPU kernels do);
 //   * epilogues that fuse what the TPU kernels do right after the dot.
-// Tiles: 128 x 128 x 32, 8 warps of 64 x 32, mma.sync m16n8k16 with fp32
-// accumulators; the next k-tile is loaded into registers during the MMAs.
-// N must be a multiple of 128 and K (and each K segment) of 32; M is free.
+// A LayerNorm of A is written once by ln_fwd_rows_kernel before the GEMM.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,12 +104,6 @@ __device__ __forceinline__ float gelu_grad_poly(float x) {
 }
 
 // ------------------------------------------------------------------- GEMM
-constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 32;
-constexpr int GEMM_THREADS = 256;     // 8 warps: 2 along M x 4 along N
-constexpr int GEMM_LD = GEMM_BK + 8;  // padded smem row (bf16): conflict-free fragments
-
 enum { B_NT = 0, B_NN = 1 };
 
 enum {
@@ -133,9 +122,6 @@ struct GemmArgs {
                          // B_NN: segment by k (b_seg), [k_seg, N] row-major, row stride ldb
   int ldb, b_seg;
   int M, N, K;
-  const float* ln_gamma;  // [K] fp32 or null: LayerNorm of A in the prologue (one A segment)
-  const float* ln_beta;
-  float ln_eps;
   const float* bias[3];   // per N segment (EPI_BIAS_BF16), or bias[0] over all N
   int c_seg;              // N-segment width of the outputs (EPI_BIAS_BF16); else N
   bf16* c_bf16[3];
@@ -194,158 +180,6 @@ __device__ __forceinline__ void gemm_epi_store(const GemmArgs& p, int row, int c
   }
 }
 
-// The epilogue at (row, col) and (row, col + 1): gemm_epi_load, then gemm_epi_store.
-template <int EPI>
-__device__ __forceinline__ void gemm_store(const GemmArgs& p, int row, int col, float v0, float v1) {
-  gemm_epi_store<EPI>(p, row, col, v0, v1, gemm_epi_load<EPI>(p, row, col));
-}
-
-template <int BL, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(16) bf16 As[GEMM_BM * GEMM_LD];
-  __shared__ __align__(16) bf16 Bs[GEMM_BN * GEMM_LD];  // always [n][k]
-  __shared__ float row_mu[GEMM_BM];
-  __shared__ float row_rstd[GEMM_BM];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * GEMM_BM;
-  const int n0 = blockIdx.x * GEMM_BN;
-  const bool ln = p.ln_gamma != nullptr;
-
-  if (ln) {  // row statistics of this tile, fp32, fast-variance form
-    for (int r = warp; r < GEMM_BM; r += GEMM_THREADS / 32) {
-      const int row = m0 + r;
-      float s = 0.f, ss = 0.f;
-      if (row < p.M) {
-        const bf16* xr = p.a[0] + (size_t)row * p.lda;
-        for (int k = lane * 8; k < p.K; k += 32 * 8) {
-          uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-          const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float f = __bfloat162float(e[i]);
-            s += f;
-            ss += f * f;
-          }
-        }
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        float mu = s / (float)p.K;
-        float var = fmaxf(ss / (float)p.K - mu * mu, 0.f);
-        row_mu[r] = mu;
-        row_rstd[r] = rsqrtf(var + p.ln_eps);
-      }
-    }
-    __syncthreads();
-  }
-
-  // each thread stages 2 x 16 B of A and of B per k-tile
-  uint4 ra[2], rb[2];
-  auto load_tiles = [&](int k0) {
-    const int sa = k0 / p.a_kseg;
-    const bf16* A = p.a[sa];
-    const int ka = k0 - sa * p.a_kseg;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GEMM_THREADS;
-      const int r = idx >> 2, c8 = (idx & 3) * 8;
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < p.M) ra[i] = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * p.lda + ka + c8);
-      if (BL == B_NT) {
-        const int sb = n0 / p.b_seg;
-        rb[i] = *reinterpret_cast<const uint4*>(p.b[sb] + (size_t)(n0 - sb * p.b_seg + r) * p.ldb + k0 + c8);
-      } else {
-        const int sb = k0 / p.b_seg;
-        const int kr = idx >> 4, n8 = (idx & 15) * 8;  // 32 k-rows x 128 n
-        rb[i] = *reinterpret_cast<const uint4*>(p.b[sb] + (size_t)(k0 - sb * p.b_seg + kr) * p.ldb + n0 + n8);
-      }
-    }
-  };
-  auto store_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GEMM_THREADS;
-      const int r = idx >> 2, c8 = (idx & 3) * 8;
-      uint4 va = ra[i];
-      if (ln && m0 + r < p.M) {
-        const float mu = row_mu[r], rstd = row_rstd[r];
-        bf16* e = reinterpret_cast<bf16*>(&va);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int k = k0 + c8 + t;
-          float xf = __bfloat162float(e[t]);
-          float y = __fadd_rn(__fmul_rn(__fmul_rn(xf - mu, rstd), p.ln_gamma[k]), p.ln_beta[k]);
-          e[t] = __float2bfloat16_rn(y);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * GEMM_LD + c8) = va;
-      if (BL == B_NT) {
-        *reinterpret_cast<uint4*>(Bs + r * GEMM_LD + c8) = rb[i];
-      } else {
-        const int kr = idx >> 4, n8 = (idx & 15) * 8;
-        const bf16* e = reinterpret_cast<const bf16*>(&rb[i]);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) Bs[(n8 + t) * GEMM_LD + kr] = e[t];
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  const int wm = (warp >> 2) * 64;  // warp's 64 rows
-  const int wn = (warp & 3) * 32;   // warp's 32 columns
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < p.K; k0 += GEMM_BK) {
-    __syncthreads();
-    store_tiles(k0);
-    __syncthreads();
-    if (k0 + GEMM_BK < p.K) load_tiles(k0 + GEMM_BK);  // in flight during the MMAs
-#pragma unroll
-    for (int ks = 0; ks < GEMM_BK; ks += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* pa = As + (wm + mt * 16 + g) * GEMM_LD + ks + tig * 2;
-        af[mt][0] = lds32(pa);
-        af[mt][1] = lds32(pa + 8 * GEMM_LD);
-        af[mt][2] = lds32(pa + 8);
-        af[mt][3] = lds32(pa + 8 * GEMM_LD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* pb = Bs + (wn + nt * 8 + g) * GEMM_LD + ks + tig * 2;
-        bfr[nt][0] = lds32(pb);
-        bfr[nt][1] = lds32(pb + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int r0 = m0 + wm + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn + nt * 8 + tig * 2;
-      if (r0 < p.M) gemm_store<EPI>(p, r0, col, acc[mt][nt][0], acc[mt][nt][1]);
-      if (r0 + 8 < p.M) gemm_store<EPI>(p, r0 + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-}
-
 // Fills in GemmArgs's defaults (one segment each, ldc) and checks the shape
 // against tiles `bn` wide and `bk` deep; false for a shape they do not cover.
 template <int BL, int EPI>
@@ -355,24 +189,15 @@ inline bool gemm_prepare(GemmArgs& p, int bn, int bk) {
   if (p.c_seg <= 0) p.c_seg = p.N;
   if (p.ldc <= 0) p.ldc = (EPI == EPI_BIAS_BF16) ? p.c_seg : p.N;
   return !(p.M < 1 || p.N % bn || p.K % bk || p.a_kseg % bk ||
-           (BL == B_NT ? p.b_seg % bn : p.b_seg % bk) || p.c_seg % bn ||
-           (p.ln_gamma != nullptr && p.a_kseg != p.K));
-}
-
-// Launches C = A . B with the given layout and epilogue on `st`; returns the
-// CUDA error (cudaErrorInvalidValue for a shape the tiles do not cover).
-template <int BL, int EPI>
-inline int launch_gemm(GemmArgs p, cudaStream_t st) {
-  if (!gemm_prepare<BL, EPI>(p, GEMM_BN, GEMM_BK)) return (int)cudaErrorInvalidValue;
-  gemm_kernel<BL, EPI><<<dim3(p.N / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM), GEMM_THREADS, 0, st>>>(p);
-  return (int)cudaGetLastError();
+           (BL == B_NT ? p.b_seg % bn : p.b_seg % bk) || p.c_seg % bn);
 }
 
 // ------------------------------------------------------ LayerNorm forward
-// One warp per row: out = bf16(LN(x)) in the arithmetic of gemm_kernel's
-// LayerNorm prologue: the row statistics over 8-element chunks per lane, then
-// warp_sum, and store_tiles's transform.  So a GEMM that reads `out` as its A
-// operand sees bitwise what that prologue builds.  D a multiple of 8.
+// One warp per row: out = bf16(LN(x)) in the TPU kernels' fast-variance form
+// (fp32 row statistics over 8-element chunks per lane, then warp_sum;
+// var = max(E[x^2] - mu^2, 0); y = (x - mu) * rstd * gamma + beta, rounded
+// once).  The q|k|v product of #1 and of #3/#4's recompute reads this plane as
+// its A operand.  D a multiple of 8.
 __global__ void ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                                    const float* __restrict__ beta, float eps, bf16* __restrict__ out,
                                    int M, int D) {

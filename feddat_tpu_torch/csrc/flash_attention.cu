@@ -90,13 +90,26 @@
 // and ds^T.q at fp32 precision (~50 us).  Each moves ~70 MB (~21 us at 3.35
 // TB/s): operations bound both.
 //
-// #8 is built in the FlashAttention-2 manner of attn_bwd.cuh (whose tile
-// staging and fragment helpers it reuses): one block of 4 warps per
-// (64-query tile, head, batch element) streaming 64-key tiles (K natural and
-// transposed, V natural) on mma.sync.  #9 is built as #7 is (a kernel of
-// #8's kind, staging Q and dO natural and transposed, four tiles with two
-// scalar transposes per 64-query step, reaches ~7% of the bound):
-//   * one block of two warpgroups owns 128 keys, 64 per warpgroup; K and V
+// A 64-query mma.sync kernel that stages every key tile with the threads that
+// then compute on it, writes K transposed by scalar stores and reads the bias
+// per element from global memory reaches ~8% of the bound (the first design of
+// all three).  Both are built as #7 is:
+//   * #8: one block of two warpgroups owns 128 queries, 64 per warpgroup; Q and
+//     dO are loaded once into swizzled tiles, lse and delta of the thread's two
+//     rows sit in registers.  K, V and the bias of each 64-key step go through
+//     #7's two-stage ring (stage_keys: the same staging, bias tile included).
+//     s = Q.K^T and dp = dO.V^T are wgmma chains on the natural tiles read
+//     K-major; dQ += dS.K takes dS as register A fragments (hi + lo) and reads
+//     K from the same natural [key][d] tile as wgmma's transposed B.  Three
+//     64 x 64 fp32 accumulators (s, dp, dq) are 96 registers before any
+//     fragment or address, yet ptxas fits the kernel in 125 with no spills,
+//     under __launch_bounds__(256, 2) as under (256, 1): two blocks share an
+//     SM (66 KB of shared memory each without a bias tile; a [128][64] bias
+//     tile takes 137 KB and leaves one).  The bound keeps it so: an edit that
+//     needs more registers spills in ptxas's report instead of silently
+//     halving the blocks per SM.  A third consumer warpgroup (<= 168
+//     registers) would pad ViT's 577 queries to 768 rows instead of 640;
+//   * #9: one block of two warpgroups owns 128 keys, 64 per warpgroup; K and V
 //     are loaded once into swizzled tiles and are the A operands of s^T = K.Q^T
 //     and dp^T = V.dO^T;
 //   * Q and dO of each 64-query step, with that step's lse, delta and bias
@@ -107,32 +120,30 @@
 //     wgmma's transposed B: two tiles per step, none transposed;
 //   * dK and dV accumulate in registers for the block's whole walk over the
 //     queries and are written once.
-// What still bounds #9: four 64 x 64 fp32 accumulators (s, dp, dk, dv) take
-// 215 registers a thread, so one block of 8 warps holds an SM and nothing
-// else hides its waits.  Those waits are s^T and dp^T, then the elementwise
-// p and ds, then the four hi + lo products.  Splitting dk and dv across
-// warpgroups, or a third consumer warpgroup with a producer warp, would let
-// two blocks share an SM.
+// What still bounds them: inside a warpgroup nothing overlaps.  Each step
+// waits for the bf16 products, then runs the elementwise p and ds, then the
+// hi + lo products; only the SM's other block (#8) hides those waits, and in
+// #9 nothing does (four 64 x 64 fp32 accumulators, 215 registers, one block
+// of 8 warps per SM).  A producer warp with TMA, the next step's products
+// issued before this step's elementwise work, or splitting #9's accumulators
+// across more warpgroups would.
 
-#include "attn_bwd.cuh"
 #include "flash_sm90.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int FL_BQ = 64;       // #8: query rows per block (16 per warp)
-constexpr int FL_BK = 64;       // keys per staged tile
+constexpr int FL_BQ = 64;       // #9: queries per streamed step
+constexpr int FL_BK = 64;       // #7, #8: keys per streamed step
 constexpr int FL_D = 64;        // head dim
-constexpr int FL_THREADS = 128;
-constexpr int FL_LD = FL_D + 8;  // #8: padded smem row (bf16)
 constexpr float FL_NEG_INF = -1e30f;
 
-// #7 and #9: two warpgroups per block, a two-stage ring of 64-row tiles
+// two warpgroups per block, a two-stage ring of 64-row tiles
 constexpr int FS_THREADS = 256;
-constexpr int FS_ROWS = 128;             // query rows (#7) or keys (#9) per block
+constexpr int FS_ROWS = 128;             // query rows (#7, #8) or keys (#9) per block
 constexpr int FS_STAGES = 2;
-constexpr int F7_BIAS_LD = FL_BK + 8;    // fp32 row of #7's staged [128 q][64 key] bias tile
+constexpr int KEY_BIAS_LD = FL_BK + 8;   // fp32 row of the staged [128 q][64 key] bias tile (#7, #8)
 constexpr int F9_BIAS_LD = FS_ROWS + 4;  // fp32 row of #9's staged [64 q][128 key] bias tile
 constexpr int TB = sm90::TILE_BYTES;
 
@@ -174,10 +185,55 @@ __device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
   return base;
 }
 
+// #7's and #8's ring: the K and V tiles of one 64-key step and the bias of
+// the block's 128 query rows at those keys.  The bias is staged as none, one
+// 64-key row (constant over queries), or a [128][KEY_BIAS_LD] fp32 tile, so it
+// is read from device memory once per block.
+__host__ __device__ int key_bias_floats(int mode) {
+  return mode == BIAS_NONE ? 0 : mode == BIAS_ROW ? FL_BK : FS_ROWS * KEY_BIAS_LD;
+}
+
+// start the copies of (b, h)'s step at key k0 for the block at query q0 into
+// the stage at `sk` (K, then V) and `bs` (its bias); one commit group.  Keys
+// past Skv and rows past Sq are zero-filled.  `p` is #7's FlashArgs or #8's
+// FlashBwdArgs, read in place (kernel parameters, no registers held).
+template <typename Args>
+__device__ __forceinline__ void stage_keys(const Args& p, int b, int h, int q0, int k0, int mode,
+                                           uint32_t sk, float* bs, int tid) {
+  sm90::load_tile<FS_THREADS>(sk, p.k.at(b, h), p.k.ss, k0, p.Skv, tid);
+  sm90::load_tile<FS_THREADS>(sk + TB, p.v.at(b, h), p.v.ss, k0, p.Skv, tid);
+  const uint32_t sb = sm90::smem_addr(bs);
+  const float* bb = p.bias + b * p.bsb + h * p.bsh;  // read only when mode != BIAS_NONE
+  if (mode == BIAS_ROW) {
+    if (tid < FL_BK) {
+      const bool ok = k0 + tid < p.Skv;
+      sm90::cp_async4(sb + tid * 4, bb + (ok ? (long long)(k0 + tid) * p.bsk : 0), ok);
+    }
+  } else if (mode == BIAS_TILE) {
+    for (int i = tid; i < FS_ROWS * FL_BK; i += FS_THREADS) {
+      const int r = i / FL_BK, c = i % FL_BK;
+      const bool ok = q0 + r < p.Sq && k0 + c < p.Skv;
+      sm90::cp_async4(sb + (r * KEY_BIAS_LD + c) * 4,
+                      bb + (ok ? (long long)(q0 + r) * p.bsq + (long long)(k0 + c) * p.bsk : 0), ok);
+    }
+  }
+  sm90::cp_async_commit();
+}
+
+// the staged bias of block rows lrow and lrow + 8 at the step's keys c, c + 1
+__device__ __forceinline__ void staged_bias(int mode, const float* bs, int lrow, int c, float2 (&bv)[2]) {
+  bv[0] = bv[1] = make_float2(0.f, 0.f);
+  if (mode == BIAS_ROW) {
+    bv[0] = bv[1] = *reinterpret_cast<const float2*>(bs + c);
+  } else if (mode == BIAS_TILE) {
+    bv[0] = *reinterpret_cast<const float2*>(bs + lrow * KEY_BIAS_LD + c);
+    bv[1] = *reinterpret_cast<const float2*>(bs + (lrow + 8) * KEY_BIAS_LD + c);
+  }
+}
+
 // #7's dynamic shared memory: Q (two tiles), then K and V of each stage, then
-// the bias of each stage (none, one 64-key row, or a [128][F7_BIAS_LD] tile)
-__host__ __device__ int fwd_bias_floats(int mode) { return mode == BIAS_NONE ? 0 : mode == BIAS_ROW ? FL_BK : FS_ROWS * F7_BIAS_LD; }
-int fwd_smem_bytes(int mode) { return 1024 + (2 + 2 * FS_STAGES) * TB + FS_STAGES * fwd_bias_floats(mode) * 4; }
+// the bias of each stage
+int fwd_smem_bytes(int mode) { return 1024 + (2 + 2 * FS_STAGES) * TB + FS_STAGES * key_bias_floats(mode) * 4; }
 
 __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, int mode) {
   extern __shared__ __align__(16) uint8_t fs_smem[];
@@ -185,38 +241,17 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
   const uint32_t sbase = aligned_smem(fs_smem, &sp);
   const uint32_t sQ = sbase;                             // + wg * TB
   float* bias_s = reinterpret_cast<float*>(sp + (2 + 2 * FS_STAGES) * TB);
-  const int bias_stage = fwd_bias_floats(mode);
+  const int bias_stage = key_bias_floats(mode);
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * FS_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int lrow = wg * 64 + warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
-  const bf16* kb = p.k.at(b, h);
-  const bf16* vb = p.v.at(b, h);
-  const float* bb = p.bias != nullptr ? p.bias + b * p.bsb + h * p.bsh : nullptr;
   const int nsteps = (p.Skv + FL_BK - 1) / FL_BK;
-
-  // start the copies of step j's K, V and bias into ring stage j % 2 (one commit group)
+  // step j's K, V and bias go to ring stage j % 2
   auto stage = [&](int j) {
-    const int st = j % FS_STAGES, k0 = j * FL_BK;
-    const uint32_t sk = sbase + (2 + 2 * st) * TB;
-    sm90::load_tile<FS_THREADS>(sk, kb, p.k.ss, k0, p.Skv, tid);
-    sm90::load_tile<FS_THREADS>(sk + TB, vb, p.v.ss, k0, p.Skv, tid);
-    const uint32_t sb = sm90::smem_addr(bias_s + st * bias_stage);
-    if (mode == BIAS_ROW) {
-      if (tid < FL_BK) {
-        const bool ok = k0 + tid < p.Skv;
-        sm90::cp_async4(sb + tid * 4, bb + (ok ? (long long)(k0 + tid) * p.bsk : 0), ok);
-      }
-    } else if (mode == BIAS_TILE) {
-      for (int i = tid; i < FS_ROWS * FL_BK; i += FS_THREADS) {
-        const int r = i / FL_BK, c = i % FL_BK;
-        const bool ok = q0 + r < p.Sq && k0 + c < p.Skv;
-        sm90::cp_async4(sb + (r * F7_BIAS_LD + c) * 4,
-                        bb + (ok ? (long long)(q0 + r) * p.bsq + (long long)(k0 + c) * p.bsk : 0), ok);
-      }
-    }
-    sm90::cp_async_commit();
+    const int st = j % FS_STAGES;
+    stage_keys(p, b, h, q0, j * FL_BK, mode, sbase + (2 + 2 * st) * TB, bias_s + st * bias_stage, tid);
   };
 
   const bf16* qb = p.q.at(b, h);
@@ -253,13 +288,8 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
 #pragma unroll
     for (int nt = 0; nt < FL_BK / 8; ++nt) {
       const int c = nt * 8 + tig * 2;  // step-local key of d[nt * 4 + 0|2]
-      float2 bv[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
-      if (mode == BIAS_ROW) {
-        bv[0] = bv[1] = *reinterpret_cast<const float2*>(bs + c);
-      } else if (mode == BIAS_TILE) {
-        bv[0] = *reinterpret_cast<const float2*>(bs + lrow * F7_BIAS_LD + c);
-        bv[1] = *reinterpret_cast<const float2*>(bs + (lrow + 8) * F7_BIAS_LD + c);
-      }
+      float2 bv[2];
+      staged_bias(mode, bs, lrow, c, bv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -334,106 +364,10 @@ struct FlashBwdArgs {
   float scale;
 };
 
-// acc[nt] (16 x 64) += X(16 x 64 fp32 C fragments) . B, X carried at fp32
-// precision as bf16 hi + lo (two mma.sync per step); B given transposed as a
-// [64 n][FL_LD] tile ([n][k]), as in attn_bwd.cuh::frag_times_tile
-__device__ __forceinline__ void frag_hilo_times_tile(float (*x)[4], const bf16* bt, int g, int tig,
-                                                     float (*acc)[4]) {
-#pragma unroll
-  for (int ks = 0; ks < FL_BK / 16; ++ks) {
-    const float e[8] = {x[2 * ks][0], x[2 * ks][1], x[2 * ks][2], x[2 * ks][3],
-                        x[2 * ks + 1][0], x[2 * ks + 1][1], x[2 * ks + 1][2], x[2 * ks + 1][3]};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hi[i] = pack_bf16(e[2 * i], e[2 * i + 1]);
-      lo[i] = pack_bf16(e[2 * i] - round_bf16(e[2 * i]), e[2 * i + 1] - round_bf16(e[2 * i + 1]));
-    }
-#pragma unroll
-    for (int nt = 0; nt < FL_D / 8; ++nt) {
-      const bf16* pb = bt + (nt * 8 + g) * FL_LD + ks * 16 + tig * 2;
-      uint32_t b[2] = {lds32(pb), lds32(pb + 8)};
-      mma_16816(acc[nt], hi, b);
-      mma_16816(acc[nt], lo, b);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(FL_THREADS) flash_bwd_dq_kernel(FlashBwdArgs p) {
-  __shared__ __align__(16) bf16 Qs[FL_BQ * FL_LD];
-  __shared__ __align__(16) bf16 Os[FL_BQ * FL_LD];  // dO tile
-  __shared__ __align__(16) bf16 Ks[FL_BK * FL_LD];  // [key][d]
-  __shared__ __align__(16) bf16 Kt[FL_D * FL_LD];   // [d][key]
-  __shared__ __align__(16) bf16 Vs[FL_BK * FL_LD];  // [key][d]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * FL_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int wr = warp * 16;
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};  // this thread's two query rows
-  const long long lse0 = ((long long)b * p.H + h) * p.Sq;
-
-  // lse, delta and bias row of this thread's queries (clamped: rows past Sq drop out)
-  float lse_r[2], dl_r[2];
-  const float* brow[2] = {nullptr, nullptr};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = min(row[r], p.Sq - 1);
-    lse_r[r] = p.lse[lse0 + q];
-    dl_r[r] = p.delta[lse0 + q];
-    if (p.bias != nullptr) brow[r] = p.bias + b * p.bsb + h * p.bsh + (long long)q * p.bsq;
-  }
-
-  stage_tile(p.q.at(b, h), p.q.ss, q0, p.Sq, Qs, nullptr);
-  stage_tile(p.dout.at(b, h), p.dout.ss, q0, p.Sq, Os, nullptr);
-  __syncthreads();
-  uint32_t qa[FL_D / 16][4], oa[FL_D / 16][4];
-  a_frags(Qs, wr, g, tig, qa);
-  a_frags(Os, wr, g, tig, oa);
-
-  float acc[FL_D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < FL_D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  const bf16* kb = p.k.at(b, h);
-  const bf16* vb = p.v.at(b, h);
-  for (int kt = 0; kt < p.Skv; kt += FL_BK) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_tile(kb, p.k.ss, kt, p.Skv, Ks, Kt);
-    stage_tile(vb, p.v.ss, kt, p.Skv, Vs, nullptr);
-    __syncthreads();
-    float s[FL_BK / 8][4], dp[FL_BK / 8][4];
-    rows_times_tile(qa, Ks, g, tig, s);
-    rows_times_tile(oa, Vs, g, tig, dp);
-#pragma unroll
-    for (int nt = 0; nt < FL_BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + nt * 8 + tig * 2 + (e & 1), r = e >> 1;
-        float ds = 0.f;
-        if (key < p.Skv && row[r] < p.Sq) {
-          const float bv = brow[r] != nullptr ? brow[r][key * p.bsk] : 0.f;
-          const float pr = expf(__fadd_rn(__fmul_rn(s[nt][e], p.scale), bv) - lse_r[r]);
-          ds = pr * (dp[nt][e] - dl_r[r]);
-        }
-        s[nt][e] = ds;
-      }
-    }
-    frag_hilo_times_tile(s, Kt, g, tig, acc);
-  }
-
-  bf16* dqb = p.dq.at(b, h);
-#pragma unroll
-  for (int nt = 0; nt < FL_D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < p.Sq)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)row[r] * p.dq.ss + col) =
-            pack_bf16(acc[nt][2 * r] * p.scale, acc[nt][2 * r + 1] * p.scale);
-  }
-}
-
+// #9's kernel comes before #8's in this file on purpose: with #8's first,
+// ptxas (CUDA 12.8) gave #9 167 registers instead of 215 and #9 ran 1.44x
+// slower (0.284 against 0.197 ms at the ViT site on the H100); #8's own code
+// is the same either way.
 // #9's dynamic shared memory: K and V of the block (two tiles each), then Q and
 // dO of each stage, then lse and delta of each stage (64 fp32 each), then the
 // bias tile of each stage ([64][F9_BIAS_LD] fp32, only when it varies over queries)
@@ -593,6 +527,124 @@ __global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdAr
   }
 }
 
+// #8's dynamic shared memory: Q and dO (two tiles each), then K and V of each
+// stage, then the bias of each stage (as #7's)
+int dq_smem_bytes(int mode) { return 1024 + (4 + 2 * FS_STAGES) * TB + FS_STAGES * key_bias_floats(mode) * 4; }
+
+// <= 128 registers a thread, so two blocks share an SM where the shared
+// memory allows it (see the note at the top of the file).
+__global__ void __launch_bounds__(FS_THREADS, 2) flash_bwd_dq_kernel(FlashBwdArgs p, int mode) {
+  extern __shared__ __align__(16) uint8_t fs_smem[];
+  uint8_t* sp;
+  const uint32_t sbase = aligned_smem(fs_smem, &sp);
+  const uint32_t sQ = sbase, sO = sbase + 2 * TB;  // + wg * TB
+  float* bias_s = reinterpret_cast<float*>(sp + (4 + 2 * FS_STAGES) * TB);
+  const int bias_stage = key_bias_floats(mode);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * FS_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int lrow = wg * 64 + warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
+  const int row[2] = {q0 + lrow, q0 + lrow + 8};
+  const int nsteps = (p.Skv + FL_BK - 1) / FL_BK;
+  // step j's K, V and bias go to ring stage j % 2
+  auto stage = [&](int j) {
+    const int st = j % FS_STAGES;
+    stage_keys(p, b, h, q0, j * FL_BK, mode, sbase + (4 + 2 * st) * TB, bias_s + st * bias_stage, tid);
+  };
+
+  const bf16* qb = p.q.at(b, h);
+  const bf16* dob = p.dout.at(b, h);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    sm90::load_tile<FS_THREADS>(sQ + t * TB, qb, p.q.ss, q0 + 64 * t, p.Sq, tid);
+    sm90::load_tile<FS_THREADS>(sO + t * TB, dob, p.dout.ss, q0 + 64 * t, p.Sq, tid);
+  }
+  stage(0);  // Q and dO land with the first step
+
+  // lse and delta of this thread's two rows (clamped: rows past Sq drop out below)
+  const long long lse0 = ((long long)b * p.H + h) * p.Sq;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = min(row[r], p.Sq - 1);
+    lse_r[r] = p.lse[lse0 + q];
+    dl_r[r] = p.delta[lse0 + q];
+  }
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < nsteps; ++j) {
+    const int st = j % FS_STAGES, k0 = j * FL_BK;
+    sm90::cp_async_wait_all();
+    __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
+    if (j + 1 < nsteps) stage(j + 1);
+    const uint32_t sk = sbase + (4 + 2 * st) * TB;
+
+    // s = q.k^T and dp = dO.v^T for the warpgroup's 64 rows x 64 keys
+    float s[32], dp[32];
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < FL_D / 16; ++ks)
+      sm90::wgmma_ss(s, sm90::desc_k(sQ + wg * TB, ks), sm90::desc_k(sk, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < FL_D / 16; ++ks)
+      sm90::wgmma_ss(dp, sm90::desc_k(sO + wg * TB, ks), sm90::desc_k(sk + TB, ks), ks);
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(s);
+    sm90::pin(dp);
+
+    // ds = p (dp - delta) in place of s; keys past Skv and rows past Sq give 0
+    const float* bs = bias_s + st * bias_stage;
+#pragma unroll
+    for (int nt = 0; nt < FL_BK / 8; ++nt) {
+      const int c = nt * 8 + tig * 2;  // step-local key of d[nt * 4 + 0|2]
+      float2 bv[2];
+      staged_bias(mode, bs, lrow, c, bv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = 0.f;
+        if (k0 + c + (e & 1) < p.Skv && row[r] < p.Sq) {
+          const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), (e & 1) ? bv[r].y : bv[r].x);
+          const float pr = sm90::ex2((x - lse_r[r]) * sm90::LOG2E);
+          ds = pr * (dp[nt * 4 + e] - dl_r[r]);
+        }
+        s[nt * 4 + e] = ds;
+      }
+    }
+
+    // dq += ds.k with ds = hi + lo in bf16, k from its natural [key][d] tile
+    sm90::pin(dq);
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < FL_BK / 16; ++ks) {
+      uint32_t hi[4], lo[4];
+      sm90::hilo_frags(s, ks, hi, lo);
+      const uint64_t dk = sm90::desc_mn(sk, ks);
+      sm90::wgmma_rs_t(dq, hi, dk);
+      sm90::wgmma_rs_t(dq, lo, dk);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+    sm90::pin(dq);
+  }
+
+  bf16* dqb = p.dq.at(b, h);
+#pragma unroll
+  for (int nt = 0; nt < FL_D / 8; ++nt) {
+    const int col = nt * 8 + tig * 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row[r] < p.Sq)
+        *reinterpret_cast<uint32_t*>(dqb + (long long)row[r] * p.dq.ss + col) =
+            pack_bf16(dq[nt * 4 + 2 * r] * p.scale, dq[nt * 4 + 2 * r + 1] * p.scale);
+  }
+}
+
 FlashBwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout,
                       const void* bias, const void* lse, const void* delta, void* dq, void* dk,
                       void* dv, const long long* strides, int H, int Sq, int Skv, float scale) {
@@ -626,7 +678,7 @@ int bias_mode(const void* bias, long long bsq) {
   return bias == nullptr ? BIAS_NONE : bsq == 0 ? BIAS_ROW : BIAS_TILE;
 }
 
-int fwd_smem_done[64], dkv_smem_done[64];
+int fwd_smem_done[64], dq_smem_done[64], dkv_smem_done[64];
 
 }  // namespace
 
@@ -680,8 +732,12 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   const FlashBwdArgs a = bwd_args(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, strides, H,
                                   Sq, Skv, scale);
-  dim3 grid((Sq + FL_BQ - 1) / FL_BQ, H, B);
-  flash_bwd_dq_kernel<<<grid, FL_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  const cudaError_t err = sm90::allow_smem(flash_bwd_dq_kernel, dq_smem_bytes(BIAS_TILE), dq_smem_done);
+  if (err != cudaSuccess) return (int)err;
+  const int mode = bias_mode(bias, a.bsq);
+  dim3 grid((Sq + FS_ROWS - 1) / FS_ROWS, H, B);
+  flash_bwd_dq_kernel<<<grid, FS_THREADS, dq_smem_bytes(mode), reinterpret_cast<cudaStream_t>(stream)>>>(
+      a, mode);
   return (int)cudaGetLastError();
 }
 

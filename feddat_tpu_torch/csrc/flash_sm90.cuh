@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels #7 and #9
+// Hopper (sm_90a) building blocks of the flash-attention kernels #7-#9
 // (flash_attention.cu) and of the GEMM of #3 and #4 (gemm_sm90.cuh):
 // 128-byte swizzled bf16 tiles filled by cp.async, wgmma descriptors of
 // those tiles, the 64 x 64 x 16 warpgroup products of the flash kernels, and
@@ -9,10 +9,10 @@
 // chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4), in a tile whose shared
 // address is 1024-byte aligned.  One such tile of a natural [s][d] operand is
 // read both ways, so no operand is ever transposed in shared memory:
-//   * K-major (rows are M or N, the 64 columns are K): q.k^T's Q and K, s^T's
-//     K and Q, dp^T's V and dO;
+//   * K-major (rows are M or N, the 64 columns are K): q.k^T's Q and K, dp's
+//     dO and V, s^T's K and Q, dp^T's V and dO;
 //   * MN-major, wgmma's transposed B (rows are K, the 64 columns are N): P.V's
-//     V, dV's dO, dK's Q.
+//     V, dQ's K, dV's dO, dK's Q.
 #pragma once
 
 #include "common.cuh"

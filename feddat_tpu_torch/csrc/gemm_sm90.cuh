@@ -1,11 +1,12 @@
-// The GEMM of the backward kernels #3 (attn_block.cu) and #4 (layer_block.cu),
-// for Hopper (sm_90a): C[M, N] = A[M, K] . B with bf16 operands and fp32
-// sums, port::GemmArgs's contract (common.cuh) on wgmma:
+// The GEMM of the attention-block forward #1 and backward #3 (attn_block.cu)
+// and of the whole-layer backward #4 (layer_block.cu), for Hopper (sm_90a):
+// C[M, N] = A[M, K] . B with bf16 operands and fp32 sums, port::GemmArgs's
+// contract (common.cuh) on wgmma:
 //   * both B layouts: B_NT (B given as [N, K], an nn.Linear weight) and B_NN
 //     (B given as [K, N]);
 //   * N segments (B_NT: q|k|v in one launch, each with its weight, bias and
 //     output) and K segments (B_NN: dx = dq.Wq + dk.Wk + dv.Wv, K = 3 Dm);
-//   * the six epilogues of gemm_store, FFN1's fp32 p1 with bf16 gelu(p1)
+//   * the six epilogues of gemm_epi_store, FFN1's fp32 p1 with bf16 gelu(p1)
 //     included;
 //   * a ragged M.  N must be a multiple of 128, K and every segment of K of
 //     64, an N segment of 128.  No LayerNorm prologue: a caller that needs
@@ -30,10 +31,10 @@
 //     it lies in memory, [64 k][128 n], as two 64-column swizzled tiles read
 //     through wgmma's transposed (MN-major) descriptor whose leading byte
 //     offset is the second tile's: no operand is transposed in shared memory;
-//   * the accumulator has mma.sync's C layout per warp, so the epilogue is
-//     gemm_store<EPI>'s at the same (row, col) as port::gemm_kernel's, with
-//     the reads of 4 column tiles (bias, FFN2's h, the GELU backward's fp32
-//     p1) issued before their stores (8 made ptxas spill);
+//   * the accumulator has mma.sync's C layout per warp, so the epilogue
+//     writes each thread's column pairs through gemm_epi_load/gemm_epi_store,
+//     with the reads of 4 column tiles (bias, FFN2's h, the GELU backward's
+//     fp32 p1) issued before their stores (8 made ptxas spill);
 //   * 97 KB of shared memory and <= 128 registers a thread let two blocks
 //     share an SM: one block's epilogue (FFN1 writes 96 KB a tile) and its
 //     waits at the ring's barrier overlap the other's products.
@@ -186,10 +187,6 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
 
 }  // namespace sm90
 
-// Launches C = A . B with the given layout and epilogue on `st` through
-// sm90::gemm_sm90_kernel; returns the CUDA error (cudaErrorInvalidValue for a
-// shape the tiles do not cover or a LayerNorm asked of the prologue).  Raises
-// the kernel's dynamic shared-memory limit once per device.
 // The devices on which this library's instance of gemm_sm90_kernel<BL, EPI>
 // has its limit raised.  Internal linkage on purpose: a static inside an
 // inline function would be one object across every loaded library (a unique
@@ -197,16 +194,51 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
 template <int BL, int EPI>
 static int g9_smem_done[64];
 
+// Launches C = A . B with the given layout and epilogue on `st` through
+// sm90::gemm_sm90_kernel; returns the CUDA error (cudaErrorInvalidValue for a
+// shape the tiles do not cover).  Raises the kernel's dynamic shared-memory
+// limit once per device.
 template <int BL, int EPI>
 inline int launch_gemm_sm90(GemmArgs p, cudaStream_t st) {
-  if (!gemm_prepare<BL, EPI>(p, sm90::G9_BN, sm90::G9_BK) || p.ln_gamma != nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (!gemm_prepare<BL, EPI>(p, sm90::G9_BN, sm90::G9_BK)) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       sm90::allow_smem(sm90::gemm_sm90_kernel<BL, EPI>, sm90::G9_SMEM, g9_smem_done<BL, EPI>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.N / sm90::G9_BN, (p.M + sm90::G9_BM - 1) / sm90::G9_BM);
   sm90::gemm_sm90_kernel<BL, EPI><<<grid, sm90::G9_THREADS, sm90::G9_SMEM, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// An attention block's q|k|v = bf16(xin . W^T + b) on `st`: with gamma,
+// xin = bf16(LN1(x)) written first into `xln` ([M, Dm] bf16) by one row pass,
+// else xin = x; then one GEMM with an N segment per projection, each into its
+// [M, Dm] plane of qkv.  #1's forward and #3's and #4's recompute all call
+// this, so the backward rebuilds p from the forward's own q/k/v bitwise.
+inline int launch_qkv(const bf16* x, const float* gamma, const float* beta, float eps, bf16* xln,
+                      const bf16* wq, const bf16* wk, const bf16* wv, const float* bqkv, bf16* qkv,
+                      int M, int Dm, cudaStream_t st) {
+  const bf16* xin = x;
+  if (gamma != nullptr) {
+    if (int err = launch_ln_fwd_rows(x, gamma, beta, eps, xln, M, Dm, st)) return err;
+    xin = xln;
+  }
+  GemmArgs r{};
+  r.a[0] = xin;
+  r.lda = Dm;
+  r.b[0] = wq;
+  r.b[1] = wk;
+  r.b[2] = wv;
+  r.ldb = Dm;
+  r.b_seg = Dm;
+  r.M = M;
+  r.N = 3 * Dm;
+  r.K = Dm;
+  for (int i = 0; i < 3; ++i) {
+    r.bias[i] = bqkv + (size_t)i * Dm;
+    r.c_bf16[i] = qkv + i * (size_t)M * Dm;
+  }
+  r.c_seg = Dm;
+  return launch_gemm_sm90<B_NT, EPI_BIAS_BF16>(r, st);
 }
 
 }  // namespace port

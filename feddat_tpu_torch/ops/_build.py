@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -95,6 +96,42 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def _kernel_name(symbol: str) -> str:
+    """A readable name for a mangled kernel symbol: the nested name's parts
+    (the anonymous namespace left out) and two int template arguments, e.g.
+    ``port::sm90::gemm_sm90_kernel<0, 0>``; the symbol itself otherwise."""
+    body = symbol[3:] if symbol.startswith("_ZN") else symbol[2:] if symbol.startswith("_Z") else ""
+    parts, i = [], 0
+    while i < len(body) and body[i].isdigit():
+        j = i
+        while body[j].isdigit():
+            j += 1
+        n = int(body[i:j])
+        parts.append(body[j:j + n])
+        i = j + n
+    if not parts:
+        return symbol
+    args = re.match(r"ILi(\d+)ELi(\d+)E", body[i:])
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
+    return name + (f"<{args.group(1)}, {args.group(2)}>" if args else "")
+
+
+def ptxas_summary(log: str) -> Sequence[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name, registers
+    and spills."""
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            lines.append(f"{_kernel_name(name)}: {m.group(1)} registers; {spills}")
+            name = None
+    return lines
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,23 +4,27 @@ another source tree, on one CUDA card, by the profiler's device time.
     git archive <commit> feddat_tpu_torch/csrc | tar -x -C logs/parent
     python3 scripts/torch_kernel_ab.py --other logs/parent
 
-Builds ``attn_block.cu``, ``layer_block.cu`` and ``flash_attention.cu`` of both
-trees with the package's nvcc flags, all six at once, then times each tree in
-the order other, this, this, other:
+Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu`` and
+``fused_attention.cu`` of both trees with the package's nvcc flags, all eight
+at once, then times each tree in the order other, this, this, other:
 
+* #1, the attention-block forward with LN1 fused, at the serving shape (B=16,
+  S=281) and the ViLT training shape (B=64, S=185);
 * #3, the attention-block backward, and #4, the whole-layer backward (ensemble
-  on), at the ViLT training shape (B=64, S=185, LN1 fused);
-* #1, the attention-block forward at the serving shape (B=16, S=281, LN1
-  fused): the control when #1's code did not change;
+  on), at the training shape;
 * #7 at ALBEF's ViT site (B=16, H=12, S=577, no bias) and at its packed
   decoder site (B=128, Sq=Skv=80, a [128, 1, 80, 80] bias), #8 and #9 at the
-  ViT site.
+  ViT site;
+* #5, the whole-sequence attention forward at the training shape.
 
-Each time is ``chip_smoke.device_ms`` (median over 10 calls of the summed
-kernel durations) beside the CUDA-event wall per call; each tree's first pass
-also prints the device time of every launch of one #3 and one #4 call
-(``chip_smoke.launch_breakdown``).  Then prints how far
-the two trees' outputs lie apart, in bf16 ulps of each element
+#1 and #8 are the kernels the current change redesigned; #5, whose code
+(``attn_fwd.cuh``, also #1's attention core) does not change, is the control
+that says how far the turns drift.  Each time is ``chip_smoke.device_ms``
+(median over 10 calls of the summed kernel durations) beside the CUDA-event
+wall per call; each tree's first pass also prints the device time of every
+launch of one #1 call at both shapes and of one flash backward call (delta,
+#8, #9) at the ViT site (``chip_smoke.launch_breakdown``).  Then prints how
+far the two trees' outputs lie apart, in bf16 ulps of each element
 (``chip_smoke.own_ulps``; relative norm for #4's fp32 adapter gradients), and
 the card's name and power limit.
 """
@@ -36,7 +40,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-SOURCES = ("attn_block", "layer_block", "flash_attention")
+SOURCES = ("attn_block", "layer_block", "flash_attention", "fused_attention")
 
 
 def build(trees, out_dir):
@@ -58,17 +62,17 @@ def build(trees, out_dir):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} {src}.cu (exit {proc.returncode}):\n{log}")
-        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
-        print(f"build {name} {src}: {lib.name}; ptxas: " + " | ".join(regs))
+        print(f"build {name} {src}: {lib.name}; ptxas: " + " | ".join(_build.ptxas_summary(log)))
         libs.setdefault(name, {})[src] = lib
     return libs
 
 
 def use(libs):
-    """Route the wrappers of #1/#3, #4 and #7-#9 to the given libraries."""
+    """Route the wrappers of #1/#3, #4, #5/#6 and #7-#9 to the given libraries."""
     from feddat_tpu_torch.ops import _build
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
     from feddat_tpu_torch.ops import layer_block as lb
 
     for src, path in libs.items():
@@ -76,10 +80,12 @@ def use(libs):
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _build._LIBS[src] = lib
-    for kernel in (ab.KERNEL, ab.KERNEL_BWD, lb.KERNEL, fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV):
+    for kernel in (ab.KERNEL, ab.KERNEL_BWD, lb.KERNEL, fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV,
+                   fa.KERNEL, fa.KERNEL_BWD):
         kernel._fn = None
     # the workspace sizes and layouts are the tree's own
-    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
+    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets,
+                   fa.max_seq):
         cached.cache_clear()
 
 
@@ -99,6 +105,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
     from feddat_tpu_torch.ops import layer_block as lb
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -110,6 +117,9 @@ def main(argv=None) -> int:
 
     use(libs["this"])
     fwd_args = cs.attn_inputs(torch, cs.B, cs.S, True, args.seed)
+    train_args = cs.attn_inputs(torch, cs.TB, cs.TS, True, args.seed)
+    fq, fk, fv, _ = cs.fused_inputs(torch, cs.TB, cs.TS, args.seed)
+    fbias = cs.padding_bias(torch, cs.TB, cs.TS, args.seed)
     bwd_args = cs.attn_bwd_case(torch, cs.TB, cs.TS, True, args.seed)
     layer_args, cfg = cs.layer_case(torch, cs.TB, cs.TS, True, args.seed)
     scale = 64 ** -0.5
@@ -127,20 +137,28 @@ def main(argv=None) -> int:
             run_dq, run_dkv, grads = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
             run_dq()
             run_dkv()
-            got = {"#1": ab.attn_block_cuda(*fwd_args), "#3": (ab.attn_block_bwd_cuda(*bwd_args),),
-                   "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads)}
+            got = {"#1": ab.attn_block_cuda(*fwd_args), "#1 training": ab.attn_block_cuda(*train_args),
+                   "#3": (ab.attn_block_bwd_cuda(*bwd_args),),
+                   "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads),
+                   "#5": fa.fused_attention_fwd_cuda(fq, fk, fv, fbias, scale)}
             torch.cuda.synchronize()
             outs[name] = {key: [t.clone() for t in ts] for key, ts in got.items()}
-            fns = {"#3 attn_block_bwd": lambda: ab.attn_block_bwd_cuda(*bwd_args),
+            fns = {"#1 attn_block serving": lambda: ab.attn_block_cuda(*fwd_args),
+                   "#1 attn_block training": lambda: ab.attn_block_cuda(*train_args),
+                   "#8 vit": run_dq,
+                   "#3 attn_block_bwd": lambda: ab.attn_block_bwd_cuda(*bwd_args),
                    "#4 layer_block_bwd": lambda: lb.layer_block_bwd_cuda(*layer_args, *cfg),
-                   "#1 attn_block (control)": lambda: ab.attn_block_cuda(*fwd_args),
                    "#7 vit": lambda: fl.flash_attention_fwd_cuda(q, k, v, None, scale),
                    "#7 packed": lambda: fl.flash_attention_fwd_cuda(qp, kp, vp, biasp, scale),
-                   "#8 vit": run_dq, "#9 vit": run_dkv}
+                   "#9 vit": run_dkv,
+                   "#5 fused_attention (control)": lambda: fa.fused_attention_fwd_cuda(fq, fk, fv, fbias,
+                                                                                        scale)}
             row = {label: (cs.device_ms(torch, fn), cs.cuda_ms(torch, fn, 30)) for label, fn in fns.items()}
-            if name not in times:  # each tree's launches of one #3 and one #4 call
-                for label in ("#3 attn_block_bwd", "#4 layer_block_bwd"):
-                    cs.launch_breakdown(torch, fns[label], f"{name} {label} B={cs.TB} S={cs.TS}")
+            if name not in times:  # each tree's launches of one #1 call and one flash backward call
+                cs.launch_breakdown(torch, fns["#1 attn_block serving"], f"{name} #1 B={cs.B} S={cs.S}")
+                cs.launch_breakdown(torch, fns["#1 attn_block training"], f"{name} #1 B={cs.TB} S={cs.TS}")
+                cs.launch_breakdown(torch, lambda: fl.flash_attention_bwd_cuda(q, k, v, None, o, do, lse, scale),
+                                    f"{name} flash backward (delta, #8, #9) B={cs.AB} S={cs.VIT_S}")
         times.setdefault(name, []).append(row)
         print(f"time {name}: " + ", ".join(f"{label} {dev:.4f} ms device (wall per call {wall:.4f})"
                                            for label, (dev, wall) in row.items()))
@@ -149,8 +167,9 @@ def main(argv=None) -> int:
         theirs = [r[label][0] for r in times["other"]]
         print(f"ab {label}: this {mine} other {theirs}; other / this "
               f"{(sum(theirs) / len(theirs)) / (sum(mine) / len(mine)):.2f}x")
-    names = {"#1": ("out", "ctx", "lse"), "#3": ("dx",), "#4": ("dx", "dwda", "dbda", "dwua", "dbua"),
-             "#7-#9": ("o", "dq", "dk", "dv")}
+    names = {"#1": ("out", "ctx", "lse"), "#1 training": ("out", "ctx", "lse"), "#3": ("dx",),
+             "#4": ("dx", "dwda", "dbda", "dwua", "dbua"), "#7-#9": ("o", "dq", "dk", "dv"),
+             "#5": ("o", "lse")}
     for key, labels in names.items():
         apart = []
         for label, a, b in zip(labels, outs["this"][key], outs["other"][key]):

@@ -34,8 +34,10 @@ def _inputs(seed, b, s, dm=32):
 
 
 @pytest.mark.parametrize("fuse_ln", [False, True])
-@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (3, 17)])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (3, 17), (1, 127), (1, 129)])
 def test_reference_matches_jax_kernel(b, s, fuse_ln):
+    """B=1 at S=127 and 129 mirrors the card's row counts on either side of
+    the GEMM's 128-row tile."""
     inp = _inputs(b * 100 + s, b, s)
     heads, eps = 4, 1e-12
     gb = inp["gb"] if fuse_ln else None
@@ -54,6 +56,36 @@ def test_reference_matches_jax_kernel(b, s, fuse_ln):
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_j)[:b, :s], rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:b, :, :s], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 127), (1, 129), (3, 21)])
+def test_ln1_plane_outside_equals_fused_forward(b, s, dtype):
+    """The CUDA forward of #1 writes bf16(LN1(x)) once as a plane and runs
+    its q|k|v product on that plane with no LayerNorm of its own (the launches
+    of #3's recompute).  In plain ops that route (the plane, then the forward
+    without LN) gives the fused-LN plain forward exactly, and in fp32 both
+    agree with the JAX kernel."""
+    inp = _inputs(b * 37 + s, b, s)
+    heads, eps, scale = 4, 1e-12, 8 ** -0.5
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    x = t(inp["x"]).to(dtype)
+    ws = [t(w.T).to(dtype) for w in inp["ws"]]
+    bqkv, bo, gb = t(inp["bqkv"]), t(inp["bo"]), t(inp["gb"])
+    bias = mask_to_bias(t(inp["mask"]))
+    fused = ab.attn_block_reference(x, *ws, bqkv, bo, gb, bias, heads, scale, eps)
+    plane = ab.layer_norm_fast_variance(x, gb[0], gb[1], eps).to(dtype)
+    outside = ab.attn_block_reference(plane, *ws, bqkv, bo, None, bias, heads, scale, None)
+    for got, want in zip(outside, fused):
+        assert torch.equal(got, want)
+    if dtype == torch.float32:
+        out_j, (_, _, ctx_j, lse_j) = _fwd_call(
+            jnp.asarray(inp["x"]), *map(jnp.asarray, inp["ws"]), jnp.asarray(inp["bqkv"]),
+            jnp.asarray(inp["bo"]), jnp.asarray(inp["gb"]), jax_mask_to_bias(jnp.asarray(inp["mask"])),
+            heads, scale, 1, True, eps,
+        )
+        for got, want in zip(outside, (out_j, np.asarray(ctx_j)[:b, :s], np.asarray(lse_j)[:b, :, :s])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def test_dispatch_on_cpu_is_the_plain_version():

@@ -152,6 +152,30 @@ def test_editing_a_shared_header_changes_the_library_path(tmp_path, monkeypatch)
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["k.cu"]
 
 
+def test_ptxas_summary_gives_each_kernel_its_registers_and_spills():
+    """The build report that chip_smoke.py and the A/B script print: one line
+    per kernel of an ``nvcc -Xptxas -v`` log (here two lines of the form ptxas
+    writes), with the mangled name made readable."""
+    from feddat_tpu_torch.ops import _build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN4port4sm9016gemm_sm90_kernelILi0ELi3EEEvNS_8GemmArgsE'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN4port4sm9016gemm_sm90_kernelILi0ELi3EEEvNS_8GemmArgsE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 112 registers, used 1 barriers",
+        "ptxas info    : Function properties for "
+        "_ZN51_GLOBAL__N__57dd581c_18_flash_attention_cu_da77f36219flash_bwd_dq_kernelE12FlashBwdArgsi",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size",
+    ])
+    assert _build.ptxas_summary(log) == [
+        "port::sm90::gemm_sm90_kernel<0, 3>: 112 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "flash_bwd_dq_kernel: 128 registers; 8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+    ]
+
+
 def test_remat_raises_until_ported():
     """remat/remat_policy only trade memory for recomputation in JAX (no
     numeric effect); the port refuses them until ROADMAP Queue 1 ports them."""
