@@ -16,7 +16,10 @@ Phases, in this order:
             twice, bitwise; the flash backward (#8 dq, #9 dk/dv) at ALBEF's five
             training sites, four ragged shapes and twelve tile edges, twice,
             bitwise, with constructed probes of p's and ds's precision and the
-            wrappers' refusals.
+            wrappers' refusals; the whole-sequence attention (#5, #6) at five
+            shapes, the 64-row tile edges, S=769 and 1024 and a fully masked
+            batch element, twice, bitwise, with constructed probes of its bf16
+            rounding points (P before P.v, ds before dq and dk).
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -782,21 +785,29 @@ def fused_inputs(torch, b, s, seed, layout="split"):
 # #5 and #6 against their plain versions on the same inputs (#6 on the
 # kernel's own o and lse, as the autograd path hands them over).  o, dq, dk, dv
 # elementwise in bf16 ulps of each element's own magnitude (own_ulps), lse in
-# fp32 as |err| / max |lse|.  Limits set from this phase's readings on the card
-# over seeds 0-2 at all five shapes (PERF.md §6, #5/#6): above the largest sound
-# reading, below the planted faults that the phase also reads (one row off by
-# the rms; lse of one row off by 1e-3).  Sound: o <= 2 own ulps, lse <= 1.6e-7,
-# dq/dk/dv <= 4; planted: >= 128 ulps, lse >= 1.4e-4.
+# fp32 as |err| / max |lse| of each batch element.  Limits set from this
+# phase's readings on the card over seeds 0-2 at the first five shapes (PERF.md
+# §6, #5/#6): above the largest sound reading, below the planted faults that
+# the phase also reads (one row off by the rms; lse of one row off by 1e-3).
+# Sound: o <= 2 own ulps, lse <= 1.6e-7, dq/dk/dv <= 4; planted: >= 128 ulps,
+# lse >= 1.4e-4.
 FUSED_LIMITS = {"o": 8, "lse": 1e-5, "dq": 16, "dk": 16, "dv": 16}
+# S at the edges of #5's and #6's 64-row tiles (one batch element, 12 heads)
+FUSED_EDGE_LENGTHS = (63, 64, 65, 127, 128, 129)
 
 
-def fused_parity(torch, b, s, seed, batch1=False, layout="split"):
+def fused_parity(torch, b, s, seed, batch1=False, layout="split", mask_all=False):
+    """#5 and #6 at one shape; ``mask_all`` puts -10000 on every key of batch
+    element 0 (its rows are then the unbiased softmax, as on the TPU)."""
     from feddat_tpu_torch.ops import fused_attention as fa
 
     q, k, v, do = fused_inputs(torch, b, s, seed, layout)
     bias = padding_bias(torch, 1 if batch1 else b, s, seed)
+    if mask_all:
+        bias[0] = -10000.0
     scale = 64 ** -0.5
-    tag = f"parity fused_attention B={b} S={s} bias={'[1,1,1,S]' if batch1 else '[B,1,1,S]'} {layout}"
+    tag = (f"parity fused_attention B={b} S={s} bias={'[1,1,1,S]' if batch1 else '[B,1,1,S]'} {layout}"
+           + (" element 0 fully masked" if mask_all else ""))
     with torch.no_grad():
         o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
         again = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
@@ -812,11 +823,18 @@ def fused_parity(torch, b, s, seed, batch1=False, layout="split"):
         bad = got.float().clone()
         bad[0, 0, 0] += want.float().pow(2).mean().sqrt()  # one row off by a typical |value|
         planted[name] = own_ulps(torch, bad, want)
-    top = lse_r.abs().max().item()
-    readings["lse"] = (lse - lse_r).abs().max().item() / top
+    # lse per batch element against that element's largest |lse|, so that a
+    # fully masked element (lse near -10000) does not hide the others' errors;
+    # the planted fault goes into the last element
+    top = lse_r.abs().amax(dim=(1, 2))
+
+    def lse_err(t):
+        return ((t - lse_r).abs().amax(dim=(1, 2)) / top).max().item()
+
+    readings["lse"] = lse_err(lse)
     bad = lse.clone()
-    bad[0, 0, 0] += 1e-3
-    planted["lse"] = (bad - lse_r).abs().max().item() / top
+    bad[-1, 0, 0] += 1e-3
+    planted["lse"] = lse_err(bad)
     print(f"{tag}: " + ", ".join(f"{n} {readings[n]:.3g} (limit {FUSED_LIMITS[n]:g}, planted "
                                  f"{planted[n]:.3g})" for n in FUSED_LIMITS)
           + f"; rel norm o {rel_norm(o, o_r):.2e} dq {rel_norm(grads[0], grads_r[0]):.2e} "
@@ -832,6 +850,64 @@ def fused_parity(torch, b, s, seed, batch1=False, layout="split"):
     fwd_err = max((o.float() - o_r.float()).abs().max().item(), (lse - lse_r).abs().max().item())
     bwd_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(grads, grads_r))
     return fwd_err, bwd_err
+
+
+def fused_probes(torch):
+    """The bf16 rounding points of #5 and #6, through the CUDA entry points at
+    d=64, each against the plain version bitwise.
+    P: two keys with logits 0 (key 0) and 2^-10 (key 100, in the second 64-key
+      tile; every other key masked) and values +1000 and -1000.  p = e^(-2^-10)
+      and 1 are both 1.0 in bf16, so bf16(P).v gives o = 0 exactly; an fp32 P,
+      or a running max that meets the larger logit only in the second tile,
+      would not.
+    ds: lse given as 0 and q, k on disjoint dims, so every p is exactly 1; dO =
+      e0 on both queries, v0 = e0, v1 = 2 e0, o_a = 3 * 2^-10 e0 and o_b = 0, so
+      ds_a = (1 - 3u, 2 - 3u) (u = 2^-10) round to (1 - 4u, 2) in bf16 and ds_b
+      = (1, 2) are exact.  With k1 = -k0/2 and q_b = -q_a, dq_a = scale (ds_a0
+      - ds_a1 / 2) and dk = scale (ds_a - ds_b) q_a read -2^-11, -2^-11 and 0
+      with ds rounded, -1.5 u / 8, -3 u / 8 and -3 u / 8 without.  Every
+      sum is exact in fp32, so the kernel and the plain version agree bitwise
+      whatever their order of summation."""
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    def zeros(s):
+        return torch.zeros(1, 1, s, 64, dtype=torch.bfloat16, device="cuda")
+
+    s = 129
+    q, k, v = zeros(s), zeros(s), zeros(s)
+    q[..., 0] = 1.0
+    k[0, 0, 100, 0] = 2.0 ** -8  # logits q.k/4: 0 and 2^-10
+    v[0, 0, 0, :], v[0, 0, 100, :] = 1000.0, -1000.0
+    bias = torch.full((1, 1, 1, s), -10000.0, device="cuda")
+    bias[..., 0] = bias[..., 100] = 0.0
+    with torch.no_grad():
+        o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, 0.25)
+        o_r, lse_r = fa.fused_attention_fwd_ref(q, k, v, bias, 0.25)
+    torch.cuda.synchronize()
+    p_ok = torch.equal(o, o_r) and not o.float().any().item()
+    print(f"parity fused_attention P probe: max |o| {o.float().abs().max().item():g} (plain version "
+          f"{o_r.float().abs().max().item():g}; bf16(P) gives 0), lse {lse[0, 0, 0].item():.6f} "
+          f"(plain {lse_r[0, 0, 0].item():.6f})")
+
+    q, k, v, o, do = zeros(2), zeros(2), zeros(2), zeros(2), zeros(2)
+    q[0, 0, 0, 32], q[0, 0, 1, 32] = 1.0, -1.0
+    k[0, 0, 0, 0], k[0, 0, 1, 0] = 1.0, -0.5
+    v[0, 0, 0, 0], v[0, 0, 1, 0] = 1.0, 2.0
+    o[0, 0, 0, 0] = 3 * 2.0 ** -10
+    do[0, 0, :, 0] = 1.0
+    lse = torch.zeros(1, 1, 2, device="cuda")
+    with torch.no_grad():
+        got = fa.fused_attention_bwd_cuda(q, k, v, None, o, do, lse, 0.125)
+        want = fa.fused_attention_bwd_ref(q, k, v, None, o, do, lse, 0.125)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    dq, dk = got[0][0, 0, 0, 0].item(), (got[1][0, 0, 0, 32].item(), got[1][0, 0, 1, 32].item())
+    ds_ok = same and dq == -2.0 ** -11 and dk == (-2.0 ** -11, 0.0)
+    print(f"parity fused_attention ds probe: dq_a0 {dq!r}, dk_0 {dk[0]!r}, dk_1 {dk[1]!r} (bf16(ds) gives "
+          f"{-2.0 ** -11!r}, {-2.0 ** -11!r}, 0.0; fp32 ds {-1.5 * 2.0 ** -10 / 8!r}, "
+          f"{-3 * 2.0 ** -10 / 8!r}, {-3 * 2.0 ** -10 / 8!r}); equal to the plain version: {same}")
+    check(p_ok, "fused_attention: o of the P probe is not exactly 0 or not the plain version's")
+    check(ds_ok, "fused_attention_bwd: the ds probe is not bf16(ds)'s result or not the plain version's")
 
 
 def flash_case(torch, b, sq, skv, kind, seed):
@@ -1162,6 +1238,12 @@ def phase_parity(torch, seed):
     fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
     fused_parity(torch, 4, TS + 10, seed + 3, batch1=True, layout="contiguous")
     fused_parity(torch, 2, 37, seed + 4)
+    for s in FUSED_EDGE_LENGTHS:  # the edges of the kernels' 64-row tiles
+        fused_parity(torch, 1, s, seed + s)
+    for s in (769, 1024):  # past the 768 keys that a logits tile in shared memory allowed
+        fused_parity(torch, 1, s, seed + s)
+    fused_parity(torch, 2, TS, seed + 5, mask_all=True)
+    fused_probes(torch)
     flash_errs = {site: flash_parity(torch, site, b, sq, skv, kind, seed + i)
                   for i, (site, b, sq, skv, kind) in enumerate(FLASH_CASES)}
     errs["flash_attention"] = flash_errs["vit"]
@@ -2087,31 +2169,40 @@ def time_albef(torch, al, seed):
 
 
 def time_fused_kernels(torch, seed):
-    """#5 and #6 at the training shape (B=64, S=185): kernel, plain version,
-    SDPA forward / autograd.grad through SDPA (yardsticks the port never
-    calls) and the bound."""
+    """#5 and #6 at the training shape (B=64, S=185), then at the serving
+    canvas (B=16, S=281): kernel, plain version, SDPA forward / autograd.grad
+    through SDPA (yardsticks the port never calls) and the bound; the device
+    time of each launch of one #6 call (dq with delta, then dk/dv) at the
+    training shape.  Returns the training shape's rows."""
     import torch.nn.functional as F
 
     from feddat_tpu_torch.ops import fused_attention as fa
 
-    q, k, v, do = fused_inputs(torch, TB, TS, seed)
-    bias = padding_bias(torch, TB, TS, seed)
-    scale = 64 ** -0.5
-    with torch.no_grad():
-        o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
-    rows = {"fused_attention": time_row(
-        torch, f"fused_attention B={TB} S={TS}", lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale),
-        lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale),
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16()),
-        fused_attention_bound(TB, TS, False), "SDPA with the mask")}
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias.bfloat16())
-    rows["fused_attention_bwd"] = time_row(
-        torch, f"fused_attention_bwd B={TB} S={TS}",
-        lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale),
-        lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale),
-        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-        fused_attention_bound(TB, TS, True), "autograd.grad through SDPA")
+    rows = {}
+    for b, s in ((TB, TS), (B, S)):
+        q, k, v, do = fused_inputs(torch, b, s, seed)
+        bias = padding_bias(torch, b, s, seed)
+        scale = 64 ** -0.5
+        with torch.no_grad():
+            o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
+        fwd = time_row(
+            torch, f"fused_attention B={b} S={s}", lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale),
+            lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16()),
+            fused_attention_bound(b, s, False), "SDPA with the mask")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias.bfloat16())
+        bwd = time_row(
+            torch, f"fused_attention_bwd B={b} S={s}",
+            lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale),
+            lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale),
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            fused_attention_bound(b, s, True), "autograd.grad through SDPA")
+        if not rows:
+            rows = {"fused_attention": fwd, "fused_attention_bwd": bwd}
+            launch_breakdown(torch, lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale),
+                             f"#6 B={b} S={s} (dq with delta, then dk/dv)")
+        del out, leaves
     return rows
 
 
@@ -2145,7 +2236,7 @@ def time_peft(torch, pf, seed):
           f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
           f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     profile_device(torch, lambda: step(state0, batch), f"LoRA step (fused, B={TB})", {
-        "#5 attn_kernel": ("attn_kernel",), "#6 attn_bwd": ("attn_bwd_",)})
+        "#5 fused_fwd_kernel": ("fused_fwd_kernel",), "#6 fused_bwd": ("fused_bwd_",)})
     return TB / k_med, TB / p_med
 
 

@@ -3,8 +3,8 @@
 // The attention half of two TPU kernels, written once:
 //   feddat_tpu/ops/attn_block.py::_bwd_kernel       (kernel #3, lines 139-240)
 //   feddat_tpu/ops/layer_block.py::_layer_bwd_kernel (kernel #4, lines 240-302)
-// and the whole of a third, the per-head part alone (launch_attn_bwd):
-//   feddat_tpu/ops/fused_attention.py::_bwd_kernel  (kernel #6, lines 60-85)
+// (kernel #6, feddat_tpu/ops/fused_attention.py::_bwd_kernel, is the per-head
+// part alone; it runs on fused_attention.cu's wgmma kernels, not on these).
 // Same function, same rounding points (attn_block.py:145-205):
 //
 //   xln   = bf16(LayerNorm1(x))           (optional, one row pass)
@@ -40,8 +40,8 @@
 // P and dS never leave registers: the mma C fragment of one product is the A
 // fragment of the next.  Padded query rows and keys are never summed, which is
 // the TPU's exp(-1e9) = 0 and zero-padded cotangent.  Operands and outputs
-// are Heads views (common.cuh): #3/#4 address their [3, M, Dm] scratch planes,
-// #6 the caller's [B, H, S, 64] tensors in place.
+// are Heads views (common.cuh): #3/#4 address their [3, M, Dm] scratch planes
+// in place.
 #pragma once
 
 #include "common.cuh"
@@ -302,8 +302,8 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_dkdv_kernel(AttnBwdArgs p
   }
 }
 
-// The two per-head launches on `st` (dq with delta, then dk/dv): the whole of
-// kernel #6 and the attention core of #3 and #4.  Returns the CUDA error.
+// The two per-head launches on `st` (dq with delta, then dk/dv): the
+// attention core of #3 and #4.  Returns the CUDA error.
 inline int launch_attn_bwd(const AttnBwdArgs& t, int B, cudaStream_t st) {
   const dim3 grid((t.S + AB_T - 1) / AB_T, t.H, B);
   attn_bwd_dq_kernel<<<grid, AB_THREADS, 0, st>>>(t);

@@ -1,8 +1,9 @@
 // Attention forward over whole key rows, for Hopper (sm_90a).
 //
-// The per-head attention of two TPU kernels, written once:
+// The per-head attention of the TPU kernel
 //   feddat_tpu/ops/attn_block.py::_fwd_kernel       (kernel #1, its attention stage)
-//   feddat_tpu/ops/fused_attention.py::_fwd_kernel  (kernel #5, lines 37-57)
+// (kernel #5, feddat_tpu/ops/fused_attention.py::_fwd_kernel, is the same
+// function; it runs on fused_attention.cu's wgmma kernel, not on this one).
 // Same function, same rounding points:
 //
 //   s   = q k^T * scale + bias_row     (fp32; bf16 products, fp32 sums)
@@ -16,9 +17,8 @@
 // form (no online rescaling), and padded keys are simply never summed.  q.k^T
 // and P.v run on mma.sync m16n8k16 with fp32 accumulators; K and V are staged
 // 64 keys at a time.  Operands are Heads views (common.cuh), so #1's
-// [3, B*S, Dm] projection scratch and #5's [B, H, S, 64] views of [B, S, Dm]
-// projections are read in place.  The largest S is what one block's shared
-// memory holds (attn_fwd_max_seq: 768).
+// [3, B*S, Dm] projection scratch is read in place.  The largest S is what one
+// block's shared memory holds (attn_fwd_max_seq: 768).
 #pragma once
 
 #include "common.cuh"

@@ -19,9 +19,9 @@ Two implementations of each:
   against the JAX kernels, and ``chip_smoke.py`` holds the CUDA kernels
   against them.
 * :func:`fused_attention_fwd_cuda` / :func:`fused_attention_bwd_cuda` — the
-  hand-written kernels in ``csrc/fused_attention.cu`` (the attention stage of
-  #1 and the attention core of #3/#4, ``csrc/attn_fwd.cuh`` and
-  ``csrc/attn_bwd.cuh``, on strided ``[B, H, S, 64]`` operands).
+  hand-written kernels in ``csrc/fused_attention.cu`` (``wgmma`` on swizzled
+  tiles filled by a cp.async ring, on strided ``[B, H, S, 64]`` operands; any
+  S ≥ 1).
 
 :func:`fused_short_attention` is differentiable with the JAX custom_vjp's
 contract (the bias is a constant) and picks by device only: a CPU tensor takes
@@ -33,12 +33,11 @@ the plain versions, a CUDA tensor launches the kernels or raises.  q/k/v are
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops._build import CudaKernel, ptr
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _strides = ctypes.POINTER(ctypes.c_longlong)
@@ -50,16 +49,8 @@ KERNEL_BWD = CudaKernel(
     "fused_attention", "fused_attention_bwd",
     [_vp] * 11 + [_strides, _i, _i, _i, _f, _vp],
 )
-# Head dim the kernels are written for (mma tiles).
+# Head dim the kernels are written for (wgmma tiles).
 HEAD_DIM = 64
-
-
-@functools.cache
-def max_seq() -> int:
-    """Longest S whose fp32 logits tile fits a block's shared memory."""
-    fn = load("fused_attention").fused_attention_max_seq
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
 
 
 def _bias_rows(bias: Optional[torch.Tensor], b: int, s: int, device=None) -> torch.Tensor:
@@ -149,15 +140,15 @@ def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tens
 
 def fused_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #5 -> (o, lse), as :func:`fused_attention_fwd_ref`.  Takes bf16
-    ``[B, H, S, 64]`` q/k/v (any layout :func:`_check_heads` admits) and S up to
-    :func:`max_seq`; raises on anything else."""
+    ``[B, H, S, 64]`` q/k/v (any layout :func:`_check_heads` admits) at any
+    S ≥ 1; raises on anything else."""
     fn = "fused_attention_fwd_cuda"
     shape = tuple(q.shape)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads(fn, name, t, shape)
     b, h, s, _ = shape
-    if s < 1 or s > max_seq():
-        raise ValueError(f"{fn}: sequence length {s} outside [1, {max_seq()}]")
+    if s < 1:
+        raise ValueError(f"{fn}: sequence length {s} must be at least 1")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
     o = _empty_heads(b, h, s, q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)

@@ -15,18 +15,21 @@ at once, then times each tree in the order other, this, this, other:
 * #7 at ALBEF's ViT site (B=16, H=12, S=577, no bias) and at its packed
   decoder site (B=128, Sq=Skv=80, a [128, 1, 80, 80] bias), #8 and #9 at the
   ViT site;
-* #5, the whole-sequence attention forward at the training shape.
+* #5 and #6, the whole-sequence attention forward and backward (a [B, 1, 1,
+  S] padding bias), at the training shape and the serving canvas.
 
-#1 and #8 are the kernels the current change redesigned; #5, whose code
-(``attn_fwd.cuh``, also #1's attention core) does not change, is the control
-that says how far the turns drift.  Each time is ``chip_smoke.device_ms``
-(median over 10 calls of the summed kernel durations) beside the CUDA-event
-wall per call; each tree's first pass also prints the device time of every
-launch of one #1 call at both shapes and of one flash backward call (delta,
-#8, #9) at the ViT site (``chip_smoke.launch_breakdown``).  Then prints how
-far the two trees' outputs lie apart, in bf16 ulps of each element
-(``chip_smoke.own_ulps``; relative norm for #4's fp32 adapter gradients), and
-the card's name and power limit.
+#5 and #6 are the kernels the current change redesigned (``fused_attention.cu``
+on wgmma).  #1 at both shapes and #3, whose attention cores
+(``attn_fwd.cuh``, ``attn_bwd.cuh``) and GEMMs do not change, are the controls
+that say how far the turns drift; #4 and #7-#9 did not change either.  Each
+time is ``chip_smoke.device_ms`` (median over 10 calls of the summed kernel
+durations) beside the CUDA-event wall per call; each tree's first pass also
+prints the device time of every launch of one #1 call at both shapes, of one
+flash backward call (delta, #8, #9) at the ViT site and of one #6 call at the
+training shape (``chip_smoke.launch_breakdown``).  Then prints how far the
+two trees' outputs lie apart, in bf16 ulps of each element
+(``chip_smoke.own_ulps``; relative norm for #4's fp32 adapter gradients and
+the lse of #5), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -84,8 +87,7 @@ def use(libs):
                    fa.KERNEL, fa.KERNEL_BWD):
         kernel._fn = None
     # the workspace sizes and layouts are the tree's own
-    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets,
-                   fa.max_seq):
+    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
         cached.cache_clear()
 
 
@@ -118,8 +120,9 @@ def main(argv=None) -> int:
     use(libs["this"])
     fwd_args = cs.attn_inputs(torch, cs.B, cs.S, True, args.seed)
     train_args = cs.attn_inputs(torch, cs.TB, cs.TS, True, args.seed)
-    fq, fk, fv, _ = cs.fused_inputs(torch, cs.TB, cs.TS, args.seed)
-    fbias = cs.padding_bias(torch, cs.TB, cs.TS, args.seed)
+    fused = {}  # #5/#6 inputs at the training shape and the serving canvas: q, k, v, dO, bias
+    for tag, b, s in (("training", cs.TB, cs.TS), ("serving", cs.B, cs.S)):
+        fused[tag] = (*cs.fused_inputs(torch, b, s, args.seed), cs.padding_bias(torch, b, s, args.seed))
     bwd_args = cs.attn_bwd_case(torch, cs.TB, cs.TS, True, args.seed)
     layer_args, cfg = cs.layer_case(torch, cs.TB, cs.TS, True, args.seed)
     scale = 64 ** -0.5
@@ -139,8 +142,12 @@ def main(argv=None) -> int:
             run_dkv()
             got = {"#1": ab.attn_block_cuda(*fwd_args), "#1 training": ab.attn_block_cuda(*train_args),
                    "#3": (ab.attn_block_bwd_cuda(*bwd_args),),
-                   "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads),
-                   "#5": fa.fused_attention_fwd_cuda(fq, fk, fv, fbias, scale)}
+                   "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads)}
+            fwd = {}  # #6 from this tree's own #5 forward
+            for tag, (fq, fk, fv, fdo, fb) in fused.items():
+                fo, flse = fwd[tag] = fa.fused_attention_fwd_cuda(fq, fk, fv, fb, scale)
+                grads6 = fa.fused_attention_bwd_cuda(fq, fk, fv, fb, fo, fdo, flse, scale)
+                got[f"#5/#6 {tag}"] = (fo, flse, *grads6)
             torch.cuda.synchronize()
             outs[name] = {key: [t.clone() for t in ts] for key, ts in got.items()}
             fns = {"#1 attn_block serving": lambda: ab.attn_block_cuda(*fwd_args),
@@ -150,15 +157,22 @@ def main(argv=None) -> int:
                    "#4 layer_block_bwd": lambda: lb.layer_block_bwd_cuda(*layer_args, *cfg),
                    "#7 vit": lambda: fl.flash_attention_fwd_cuda(q, k, v, None, scale),
                    "#7 packed": lambda: fl.flash_attention_fwd_cuda(qp, kp, vp, biasp, scale),
-                   "#9 vit": run_dkv,
-                   "#5 fused_attention (control)": lambda: fa.fused_attention_fwd_cuda(fq, fk, fv, fbias,
-                                                                                        scale)}
+                   "#9 vit": run_dkv}
+            for tag, (fq, fk, fv, fdo, fb) in fused.items():
+                fo, flse = fwd[tag]
+                fns[f"#5 fused_attention {tag}"] = (
+                    lambda fq=fq, fk=fk, fv=fv, fb=fb: fa.fused_attention_fwd_cuda(fq, fk, fv, fb, scale))
+                fns[f"#6 fused_attention_bwd {tag}"] = (
+                    lambda fq=fq, fk=fk, fv=fv, fb=fb, fo=fo, fdo=fdo, flse=flse:
+                    fa.fused_attention_bwd_cuda(fq, fk, fv, fb, fo, fdo, flse, scale))
             row = {label: (cs.device_ms(torch, fn), cs.cuda_ms(torch, fn, 30)) for label, fn in fns.items()}
-            if name not in times:  # each tree's launches of one #1 call and one flash backward call
+            if name not in times:  # each tree's launches of one #1, flash backward and #6 call
                 cs.launch_breakdown(torch, fns["#1 attn_block serving"], f"{name} #1 B={cs.B} S={cs.S}")
                 cs.launch_breakdown(torch, fns["#1 attn_block training"], f"{name} #1 B={cs.TB} S={cs.TS}")
                 cs.launch_breakdown(torch, lambda: fl.flash_attention_bwd_cuda(q, k, v, None, o, do, lse, scale),
                                     f"{name} flash backward (delta, #8, #9) B={cs.AB} S={cs.VIT_S}")
+                cs.launch_breakdown(torch, fns["#6 fused_attention_bwd training"],
+                                    f"{name} #6 B={cs.TB} S={cs.TS} (dq with delta, then dk/dv)")
         times.setdefault(name, []).append(row)
         print(f"time {name}: " + ", ".join(f"{label} {dev:.4f} ms device (wall per call {wall:.4f})"
                                            for label, (dev, wall) in row.items()))
@@ -169,7 +183,7 @@ def main(argv=None) -> int:
               f"{(sum(theirs) / len(theirs)) / (sum(mine) / len(mine)):.2f}x")
     names = {"#1": ("out", "ctx", "lse"), "#1 training": ("out", "ctx", "lse"), "#3": ("dx",),
              "#4": ("dx", "dwda", "dbda", "dwua", "dbua"), "#7-#9": ("o", "dq", "dk", "dv"),
-             "#5": ("o", "lse")}
+             "#5/#6 training": ("o", "lse", "dq", "dk", "dv"), "#5/#6 serving": ("o", "lse", "dq", "dk", "dv")}
     for key, labels in names.items():
         apart = []
         for label, a, b in zip(labels, outs["this"][key], outs["other"][key]):

@@ -56,11 +56,22 @@ def _check(got, want, dtype, what):
         np.testing.assert_allclose(got, want, rtol=0, atol=2 * ulp, err_msg=what)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bias_kind", ["none", "padding", "batch1"])
-def test_forward_and_grads_match_jax_kernels(dtype, bias_kind):
-    b, h, s, d = 2, 2, 21, 16
-    seed = 10 * list(DTYPES).index(dtype) + ["none", "padding", "batch1"].index(bias_kind)
+# (bias kind, dtype, (b, h, s, d), seed): every bias kind in both dtypes at a
+# ragged S; then, at the CUDA kernels' head dim, S at the edges of their 64-row
+# tiles and S=1024, past the 768 keys that the earlier CUDA #5 took (a site the
+# JAX gate admits at one head, GATE_CASES).
+FWD_BWD_CASES = [
+    pytest.param(kind, dtype, (2, 2, 21, 16), 10 * i + j, id=f"{kind}-{dtype}")
+    for j, kind in enumerate(("none", "padding", "batch1")) for i, dtype in enumerate(DTYPES)
+] + [
+    pytest.param("padding", "bfloat16", shape, 30 + n, id="padding-bfloat16-" + "x".join(map(str, shape)))
+    for n, shape in enumerate(((1, 1, 63, 64), (1, 1, 65, 64), (1, 2, 129, 64), (1, 1, 1024, 64)))
+]
+
+
+@pytest.mark.parametrize("bias_kind,dtype,shape,seed", FWD_BWD_CASES)
+def test_forward_and_grads_match_jax_kernels(bias_kind, dtype, shape, seed):
+    b, h, s, d = shape
     q, k, v, g, bias = _inputs(seed, b, h, s, d, bias_kind)
     (jq, jk, jv, jg, _), (tq, tk, tv, tg, _) = _both((q, k, v, g, None), dtype)
     jbias = None if bias is None else jnp.asarray(bias)
@@ -160,3 +171,53 @@ def test_p_is_rounded_to_bf16_before_p_v():
     o_t, _ = fa.fused_attention_fwd_ref(tq, tk, tv, None, 0.25)
     assert not np.asarray(o_j, np.float32).any()
     np.testing.assert_array_equal(o_t.float().numpy(), np.asarray(o_j, np.float32))
+
+
+def test_ds_is_rounded_to_bf16_before_dq_dk():
+    """A case where the rounding point of ds shows (the card's ds probe,
+    chip_smoke.py::fused_probes): lse given as 0 and q, k on disjoint dims, so
+    every p is exactly 1; ds_a = (1 - 3u, 2 - 3u) (u = 2^-10) rounds to
+    (1 - 4u, 2) in bf16.  With k1 = -k0/2 and q_b = -q_a, the TPU kernel's
+    bf16(ds) gives dq_a0 = dk_0 = -2^-11 and dk_1 = 0; an fp32 ds would give
+    -1.5u/8, -3u/8 and -3u/8.  Every sum is exact, so the two sides agree
+    bitwise."""
+    d = 64
+    q, k, v, o, g = (np.zeros((1, 1, 2, d), np.float32) for _ in range(5))
+    q[0, 0, 0, 32], q[0, 0, 1, 32] = 1.0, -1.0
+    k[0, 0, 0, 0], k[0, 0, 1, 0] = 1.0, -0.5
+    v[0, 0, 0, 0], v[0, 0, 1, 0] = 1.0, 2.0
+    o[0, 0, 0, 0] = 3 * 2.0 ** -10
+    g[0, 0, :, 0] = 1.0
+    lse = np.zeros((1, 1, 2), np.float32)
+    (jq, jk, jv, jo, jg), (tq, tk, tv, to, tg) = _both((q, k, v, o, g), "bfloat16")
+    want = jfused._fused_bwd(0.125, True, (jq, jk, jv, None, jo, jnp.asarray(lse)), jg)[:3]
+    got = fa.fused_attention_bwd_ref(tq, tk, tv, None, to, tg, torch.from_numpy(lse), 0.125)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_array_equal(a.float().numpy(), np.asarray(w, np.float32), err_msg=name)
+    dq, dk = got[0].float().numpy(), got[1].float().numpy()
+    assert dq[0, 0, 0, 0] == dk[0, 0, 0, 32] == -2.0 ** -11 and dk[0, 0, 1, 32] == 0.0
+
+
+def test_fully_masked_row_is_the_unbiased_softmax():
+    """Batch element 0 carries -10000 on every key: the exact two-pass max
+    subtracts it, so its rows are the softmax without the bias (up to the
+    fp32 rounding of logits near -10000), not a uniform average of v.  The
+    plain #5/#6 against the JAX kernels there, in bf16."""
+    b, h, s, d = 2, 2, 37, 64
+    q, k, v, g, bias = _inputs(7, b, h, s, d, "padding")
+    bias[0] = -10000.0
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _both((q, k, v, g), "bfloat16")
+    jbias, tbias = jnp.asarray(bias), torch.from_numpy(bias)
+    o_j, lse_j = jfused._fwd_call(jq, jk, jv, jbias, d ** -0.5, True)
+    o_t, lse_t = fa.fused_attention_fwd_ref(tq, tk, tv, tbias, d ** -0.5)
+    _check(o_t, o_j, "bfloat16", "o")
+    _check(lse_t, lse_j, "bfloat16", "lse")
+    o_free, _ = fa.fused_attention_fwd_ref(tq, tk, tv, None, d ** -0.5)
+    uniform = tv.float().mean(-2, keepdim=True).expand_as(o_free)
+    _check(o_t[0], o_free[0].float().numpy(), "bfloat16", "o against the unbiased softmax")
+    assert (o_t[0].float() - uniform[0]).abs().max() > 0.1
+    _, vjp = jax.vjp(lambda a, b_, c: jfused.fused_short_attention(a, b_, c, jbias, None, True), jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    got = torch.autograd.grad(fa.fused_short_attention(*leaves, tbias), leaves, tg)
+    for name, a, w in zip(("dq", "dk", "dv"), got, vjp(jg)):
+        _check(a, w, "bfloat16", name)
