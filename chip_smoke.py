@@ -19,7 +19,11 @@ Phases, in this order:
             wrappers' refusals; the whole-sequence attention (#5, #6) at five
             shapes, the 64-row tile edges, S=769 and 1024 and a fully masked
             batch element, twice, bitwise, with constructed probes of its bf16
-            rounding points (P before P.v, ds before dq and dk).
+            rounding points (P before P.v, ds before dq and dk); the
+            ensemble-adapter epilogue (#2) at ten row counts (the edges of its
+            64-row cluster tiles, the B=1 bucket, the serving batch) for
+            bottlenecks 48, 12 and 96, twice, bitwise, with a planted fault
+            and a constructed probe of the ReLU output's low bits.
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -50,9 +54,10 @@ Phases, in this order:
 7. time   — each kernel, its plain version and one PyTorch call (chain) for the
             same function (a yardstick the port never calls), by the profiler's
             device time (``device_ms``; the CUDA-event wall per call beside it),
-            against the kernel's bound (#1 at the serving and training shapes);
+            against the kernel's bound (#1 at the serving and training shapes,
+            #2 at the serving batch and the B=1 bucket);
             the device time of each launch of one #1 call at both shapes and of
-            one #3 and one #4 call, and #4's FFN products on the wgmma GEMM beside
+            one #2, one #3 and one #4 call, and #4's FFN products on the wgmma GEMM beside
             cuBLAS's torch.mm at the same shapes; serving rates and latency; DAT and LoRA
             train samples/s and ALBEF rank-answer questions/s, kernel path
             against plain path in alternating samples; torch.profiler
@@ -291,7 +296,7 @@ def attn_inputs(torch, b, s, fuse_ln, seed):
     return (x, *ws, bqkv, bo, gb, bias, HEADS, 64 ** -0.5, 1e-12 if fuse_ln else None)
 
 
-def adapter_inputs(torch, n, seed):
+def adapter_inputs(torch, n, seed, r=R):
     """Adapter inputs on the card, all bf16; the biases are drawn at the scale
     of the products they are added to (down ~1.4, up ~0.3), so a dropped
     bias shows."""
@@ -301,9 +306,34 @@ def adapter_inputs(torch, n, seed):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
 
     h = p(n, DM, std=1.0)
-    pa = (p(DM, R, std=0.05), p(R, std=1.0), p(R, DM, std=0.05), p(DM, std=0.5))
-    pb = (p(DM, R, std=0.05), p(R, std=1.0), p(R, DM, std=0.05), p(DM, std=0.5))
+    pa = (p(DM, r, std=0.05), p(r, std=1.0), p(r, DM, std=0.05), p(DM, std=0.5))
+    pb = (p(DM, r, std=0.05), p(r, std=1.0), p(r, DM, std=0.05), p(DM, std=0.5))
     return h, pa, pb, 0.5
+
+
+def adapter_probe_inputs(torch, n):
+    """A constructed case whose ReLU outputs carry bits below a bf16 hi + lo
+    pair.  Every row of h is 1 at columns 0, D/4 and D/2 (three K slices of
+    the kernel's cluster), so a's bottleneck units 0 and 1 are x0 = 1 + 2^-9
+    + 2^-18 and x1 = 1 + 2^-9, b's units 5 and 6 are 1 + 2^-9 + 3 2^-19 and
+    1 + 2^-9, all exact in fp32.  Wu rows +1 and -1 leave a = 2^-18 and
+    b = 3 2^-19 in every column, so the mix at w = 0.5 is 5 2^-20 exactly.
+    x = hi + mid + lo carries x0 exactly; hi + lo with lo = bf16(x - hi)
+    gives x0 = x1 and a mix of 0."""
+    bf, k1, k2 = torch.bfloat16, DM // 4, DM // 2
+    h = torch.zeros(n, DM, dtype=bf, device="cuda")
+    h[:, [0, k1, k2]] = 1.0
+    params = []
+    for (u0, u1), low in (((0, 1), 2.0 ** -18), ((5, 6), 3 * 2.0 ** -19)):
+        wd = torch.zeros(DM, R, dtype=bf, device="cuda")
+        wd[0, [u0, u1]] = 1.0
+        wd[k1, [u0, u1]] = 2.0 ** -9
+        wd[k2, u0] = low
+        wu = torch.zeros(R, DM, dtype=bf, device="cuda")
+        wu[u0], wu[u1] = 1.0, -1.0
+        params.append((wd, torch.zeros(R, dtype=bf, device="cuda"), wu,
+                       torch.zeros(DM, dtype=bf, device="cuda")))
+    return h, params[0], params[1], 0.5, 5 * 2.0 ** -20
 
 
 # ------------------------------------------------------------------ bounds
@@ -324,23 +354,24 @@ def attn_block_bound(b, s, fuse_ln):
 
 
 def adapter_bound(n):
-    """Least time (ms) for one ensemble-adapter call, what bounds it, and the
-    design's own target.
+    """Least time (ms) for one ensemble-adapter call, what bounds it, and its
+    operations.
 
-    The down-projections multiply bf16 h by bf16 Wd: the products are exact
-    in fp32, so tensor cores with fp32 accumulation do that work at the bf16
-    rate.  The up-projections multiply the fp32 ReLU output and are charged,
-    with the bias, ReLU and mix, at the fp32 rate; the pipes overlap, so the
-    floor is the larger time.  The design target is every operation at the
-    fp32 FMA rate, as the kernel does them."""
+    The down projections multiply bf16 h by bf16 Wd: the products are exact
+    in fp32, so tensor cores with fp32 sums do that work at the bf16 rate.
+    The up projections multiply the fp32 ReLU output x by bf16 Wu; x splits
+    exactly enough into three bf16 parts (hi + mid + lo, residual below
+    2^-24 |x|), so they are three bf16 products with fp32 sums, also at the
+    bf16 rate.  The bias, ReLU, split and mix are fp32 work on the CUDA
+    cores; the pipes overlap, so the floor is the larger time.  Bytes: h in,
+    the mix out, both adapters' weights and biases once each."""
     mm = n * 2 * 2 * DM * R  # one projection of both adapters
-    bf16_ops, fp32_ops = mm, mm + n * (2 * R + 4 * DM)  # + bias+relu, bias+mix
+    bf16_ops = mm + 3 * mm
+    fp32_ops = n * (2 * 2 * R + 4 * 2 * R + 4 * DM)  # bias + relu, split, bias + mix
     nbytes = 2 * n * DM * 2 + 2 * (2 * DM * R + R + DM) * 2
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
-    fma_target_ms = 1e3 * (bf16_ops + fp32_ops) / PEAK_FP32_FLOPS
-    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
-            bf16_ops + fp32_ops, fma_target_ms)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
 def attn_bwd_ops(b, s):
@@ -515,23 +546,59 @@ def attn_qkv_plane(torch, args):
     check(same, f"attn_block B={b} S={s}: #1's q/k/v differ from #3's recompute")
 
 
-def adapter_parity(torch, n, seed):
+# #2's ragged row counts (the edges of its 64-row cluster tiles, the B=1
+# bucket's 281 and the serving shape's 4496) and bottlenecks (R=12 is padded
+# to 16 and read element by element, R=96 takes two 64-column atoms per adapter).
+ADAPTER_ROWS = (17, 63, 64, 65, 127, 128, 129, S, 3 * 21, B * S)
+ADAPTER_BOTTLENECKS = (R, 12, 96)
+
+
+def adapter_parity(torch, n, seed, r=R):
+    """#2 against its plain version: every element within one bf16 ulp
+    (2^-7 |ref| + 1e-6), a planted fault caught, a second call bitwise equal."""
     from feddat_tpu_torch.ops import adapter_fused as af
 
-    h, pa, pb, w = adapter_inputs(torch, n, seed)
+    h, pa, pb, w = adapter_inputs(torch, n, seed, r)
     with torch.inference_mode():
-        got = af.adapter_fused_cuda(h, pa, pb, w).float()
+        got = af.adapter_fused_cuda(h, pa, pb, w)
+        again = af.adapter_fused_cuda(h, pa, pb, w)
         want = af.adapter_fused_reference(h, pa, pb, w).float()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "adapter_fused has non-finite values")
-    err = (got - want).abs()
     # both sides do fp32 math and round once to bf16: they may differ by one
     # bf16 ulp where the fp32 sums land on either side of a rounding point
-    bad = (err > 2.0 ** -7 * want.abs() + 1e-6).sum().item()
-    print(f"parity adapter_fused N={n}: max_abs_err={err.max().item():.3e} "
-          f"elements beyond one bf16 ulp (2^-7 |ref| + 1e-6): {bad}")
-    check(bad == 0, f"adapter_fused disagrees with the plain version in {bad} elements")
+    limit = 2.0 ** -7 * want.abs() + 1e-6
+    err = (got.float() - want).abs()
+    bad = (err > limit).sum().item()
+    planted = got.float().clone()
+    planted[-1] += want.pow(2).mean().sqrt()  # the last row off by the rms
+    caught = ((planted - want).abs() > limit).sum().item()
+    stable = torch.equal(got, again)
+    print(f"parity adapter_fused N={n} R={r}: max_abs_err={err.max().item():.3e} "
+          f"elements beyond one bf16 ulp (2^-7 |ref| + 1e-6): {bad}; planted fault (last row off "
+          f"by the rms) {caught} of {DM}; second call bitwise equal: {stable}")
+    check(bad == 0, f"adapter_fused N={n} R={r} disagrees with the plain version in {bad} elements")
+    check(caught > 0, f"adapter_fused N={n} R={r}: the limit did not catch the planted fault")
+    check(stable, f"adapter_fused N={n} R={r} is not bitwise stable across two calls")
     return err.max().item()
+
+
+def adapter_probe(torch):
+    """#2 on :func:`adapter_probe_inputs`: bitwise the plain fp32 version's,
+    which is the exact 5 2^-20 (a two-part split of x would give 0)."""
+    from feddat_tpu_torch.ops import adapter_fused as af
+
+    h, pa, pb, w, exact = adapter_probe_inputs(torch, 65)
+    with torch.inference_mode():
+        got = af.adapter_fused_cuda(h, pa, pb, w)
+        want = af.adapter_fused_reference(h, pa, pb, w)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"parity adapter_fused probe (ReLU outputs below a bf16 hi + lo pair): kernel "
+          f"{got.float().unique().tolist()}, plain {want.float().unique().tolist()}, exact {exact!r}; "
+          f"bitwise equal: {same}")
+    check(same and bool((want.float() == exact).all()),
+          "adapter_fused probe: the kernel drops bits of the ReLU output below bf16 hi + lo")
 
 
 def layer_weights(torch, seed, ffn=3072):
@@ -1219,8 +1286,10 @@ def phase_parity(torch, seed):
         for flag in (True, False):
             attn_parity(torch, 1, s, flag, seed + s)
     errs["adapter_fused"] = adapter_parity(torch, B * S, seed)
-    for n in (3 * 21, 17):
-        adapter_parity(torch, n, seed + n)
+    for r in ADAPTER_BOTTLENECKS:
+        for n in ADAPTER_ROWS:
+            adapter_parity(torch, n, seed + n + r, r)
+    adapter_probe(torch)
     errs["attn_block_bwd"] = max(attn_bwd_parity(torch, TB, TS, ln, seed) for ln in (True, False))
     for b, s, ln in ((3, 17, True), (3, 21, False), (2, 130, True), (1, 450, True)):
         attn_bwd_parity(torch, b, s, ln, seed + s)
@@ -2422,23 +2491,25 @@ def phase_time(torch, pred, plain, requests, seed):
     rows = {"attn_block": time_attn_block(torch, B, S, seed)}  # the JSON line's row
     time_attn_block(torch, TB, TS, seed)  # the training shape (the fused DAT step's 24 calls)
 
-    h, pa, pb, w = adapter_inputs(torch, B * S, seed)
+    for n in (B * S, S):  # the serving batch (the JSON line's row) and the B=1 bucket
+        h, pa, pb, w = adapter_inputs(torch, n, seed)
 
-    def adapter_library():
-        hf = h.float()
-        fa = [t.float() for t in pa]
-        fb = [t.float() for t in pb]
-        a = torch.addmm(fa[3], torch.relu(torch.addmm(fa[1], hf, fa[0])), fa[2])
-        b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
-        return (w * a + (1.0 - w) * b).bfloat16()
+        def adapter_library():
+            hf = h.float()
+            fa = [t.float() for t in pa]
+            fb = [t.float() for t in pb]
+            a = torch.addmm(fa[3], torch.relu(torch.addmm(fa[1], hf, fa[0])), fa[2])
+            b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
+            return (w * a + (1.0 - w) * b).bfloat16()
 
-    *bound, fma_target = adapter_bound(B * S)
-    with torch.inference_mode():
-        rows["adapter_fused"] = time_row(
-            torch, f"adapter_fused N={B * S}", lambda: af.adapter_fused_cuda(h, pa, pb, w),
-            lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library, bound, "torch.addmm chain")
-    print(f"time adapter_fused: design target, all operations at the fp32 FMA rate, "
-          f"{fma_target:.4f} ms ({100 * fma_target / rows['adapter_fused'][0]:.1f}% reached)")
+        with torch.inference_mode():
+            row = time_row(torch, f"adapter_fused N={n}", lambda: af.adapter_fused_cuda(h, pa, pb, w),
+                           lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library,
+                           adapter_bound(n), "torch.addmm chain")
+            if n == B * S:
+                rows["adapter_fused"] = row
+                launch_breakdown(torch, lambda: af.adapter_fused_cuda(h, pa, pb, w),
+                                 f"adapter_fused (#2) N={n}")
 
     imgs, qs, batch = requests
     # kernel path vs plain path in alternating pairs (kp, pk, kp, ...), so

@@ -1,48 +1,73 @@
 // DAT ensemble-adapter epilogue, forward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel feddat_tpu/ops/adapter_fused.py::_kernel (called
-// through _forward).  Same function, all arithmetic in fp32:
+// Replaces the TPU kernel feddat_tpu/ops/adapter_fused.py::_kernel (lines
+// 30-47, called through _forward).  Same function, fp32 math on bf16 inputs
+// and one rounding at the end:
 //
-//   out = bf16( w * (relu(h . Wd_a + bd_a) . Wu_a + bu_a)
-//             + (1 - w) * (relu(h . Wd_b + bd_b) . Wu_b + bu_b) )
+//   a = relu(h . Wd_a + bd_a) . Wu_a + bu_a,  b = likewise,
+//   out = bf16( w * a + (1 - w) * b )
 //
 // with h [N, D] and the four matrices in bf16 (the model casts them, like
 // models/adapters.py:146 does), Wd [D, R], Wu [R, D] (flax layout).  The
 // kernel returns the mix only; the caller adds the residual.
 //
-// What bounds it on the H100: at the serving shape (N = 16*281 rows, D = 768,
-// R = 48) one call does 1.33 GFLOP and moves ~14 MB (~4.2 us of bytes).  Half
-// of the work, h . Wd, has bf16 operands whose products are exact in fp32, so
-// tensor cores could do it at the bf16 rate (~0.7 us); the up-projection
-// multiplies the fp32 relu output and is fp32 work (~10.1 us at 67 TFLOP/s).
-// The card's floor is therefore ~10.1 us, by operations (chip_smoke.py's
-// adapter_bound); splitting the relu output into bf16 pieces would take it
-// down to the byte floor.  This design does every product with fp32 FMAs,
-// so its own target is ~20 us (all 1.33 GFLOP at the fp32 rate).
+// What bounds it on the H100.  At the serving shape (N = 16*281 rows, D = 768,
+// R = 48) one call moves ~14.1 MB (h in, the mix out, both adapters' weights:
+// ~4.2 us at 3.35 TB/s).  The down projection has bf16 operands, so its
+// products are exact in fp32 and tensor cores with fp32 sums do it at the bf16
+// rate.  The up projection multiplies the fp32 ReLU output x; split as
+// x = hi + mid + lo, three bf16 numbers with a residual below 2^-24 |x|, it is
+// three bf16 products with fp32 sums, also at the bf16 rate.  All of it is
+// ~2.6 GFLOP (~2.7 us at 989 TFLOP/s), so bytes bound the call
+// (chip_smoke.py's adapter_bound).
 //
-// What the design does about it.  On the TPU both adapters' weights (295 KB
-// in bf16) stay in VMEM next to a 256-row block.  They do not fit a Hopper
-// block's 227 KB of shared memory, so each block keeps only its 16 rows of h
-// (transposed, fp32) and the 16 x 2R bottleneck activations in shared memory,
-// and streams the weights from L2 (all blocks read the same 295 KB).  Each
-// thread accumulates 16 rows in registers, so one weight load feeds 16 FMAs
-// and the shared-memory reads are float4 broadcasts.  Tensor-core and
-// register-tiled variants are later work.
+// Design.  On the TPU a 256-row block keeps both adapters' weights (295 KB)
+// in VMEM; that does not fit a Hopper block's 227 KB, and 71 row tiles of 64
+// would fill half of the 132 SMs.  So each 64-row tile of h is a cluster of 4
+// CTAs of one warpgroup each, and rank r of the cluster
+//   * takes the K slice [r D/4, (r+1) D/4) of the down projection of both
+//     adapters at once: h and Wd tiles come by TMA (one thread issues a copy
+//     per 64 x 64 tile into a two-stage ring, completion on an mbarrier;
+//     zeros past N, the slice and R), wgmma.m64n64k16 reads h K-major and Wd
+//     as it lies ([D, R], wgmma's transposed B, desc_mn), a's columns in
+//     their own 64-column atoms, then b's;
+//   * writes its fp32 [64, 2 Rp] partial to its shared memory; after a
+//     cluster barrier it finishes rows [16 r, 16 r + 16): sums the four
+//     partials through distributed shared memory in rank order 0, 1, 2, 3,
+//     adds bd, applies the ReLU in fp32, splits x into bf16 hi, mid and lo,
+//     writes them as K-major A tiles, and sends those rows to the other three
+//     ranks by bulk shared-to-shared copies (an mbarrier on each receiver);
+//   * computes its output columns [r D/4, (r+1) D/4) in chunks of 64: per
+//     chunk two accumulators, a over a's hi, mid and lo k-steps and b over
+//     b's, with Wu [R, D] staged as it lies (desc_mn) by TMA through two
+//     buffers, the next chunk's copy in flight; the epilogue adds bu_a and
+//     bu_b, forms w a + (1 - w) b in fp32 and rounds once to bf16.
+// Every byte of h is read from memory once, and each CTA reads a quarter of
+// the weights (~74 KB at R = 48, not 295 KB).  Every sum has one fixed order
+// (no atomics), so a second call is bitwise equal.  Rows past N read as zero
+// and are never stored.  The regions of shared memory are reused phase by
+// phase (Layout), 75 KB at D = 768, R = 48: three CTAs per SM, so the 284
+// CTAs of the serving batch run in one wave.  Wd rows of R % 8 != 0 elements
+// are not 16-byte aligned, which TMA needs: then every thread copies Wd
+// element by element.  D must be a multiple of 64 up to 1024, R at most 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda.h>
+
+#include "flash_sm90.cuh"
+
+using namespace port;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int AD_ROWS = 16;      // rows of h per block
-constexpr int AD_THREADS = 192;
-constexpr int AD_KSPLIT = 2;     // the down-projection's D axis is split in 2 per column
+constexpr int AD_ROWS = 64;      // rows of h per cluster
+constexpr int AD_THREADS = 128;  // one warpgroup per CTA
+constexpr int AD_CLUSTER = 4;    // CTAs per row tile: K slices of GEMM1, column slices of GEMM2
+constexpr int AD_MAX_D = 1024;
+constexpr int AD_MAX_R = 128;
+constexpr int TB = sm90::TILE_BYTES;
 
 struct AdapterArgs {
-  const bf16* h;  // [N, D]
+  const bf16* h;      // [N, D]
   const bf16* wd[2];  // [D, R] per adapter (a, b)
   const bf16* bd[2];  // [R]
   const bf16* wu[2];  // [R, D]
@@ -52,98 +77,441 @@ struct AdapterArgs {
   float weight;
 };
 
-size_t adapter_smem_bytes(int D, int R) {
-  return sizeof(float) * ((size_t)D * AD_ROWS + 2 * (size_t)AD_KSPLIT * R * AD_ROWS);
+// The copy engine's views of the operands (built per call by encode_maps):
+// h and Wu as [rows][4 ranks][D/4] so that a box never crosses into the next
+// rank's slice (the engine fills zeros past it, past N and past R), Wd as
+// [4][D/4][R] (only when R % 8 == 0: the engine needs 16-byte row strides).
+struct TmaMaps {
+  CUtensorMap h, wd[2], wu[2];
+};
+
+// Sizes that follow from D and R.  Each adapter's bottleneck columns take
+// KT2 64-column atoms of their own (a's, then b's: NA = 2 KT2 atoms; a copy
+// lands on a 1024-byte aligned atom), padded with zero columns.  Shared
+// memory, after 1024 bytes of alignment slack, in regions used in turn:
+//   X: GEMM1's two-stage ring (an h tile and NA Wd tiles a stage), then the
+//      A parts [3][NA];
+//   B: this rank's fp32 partial (read by the whole cluster), then the two Wu
+//      buffers, each [2 adapters][Rp rows][64 columns];
+//   the biases in bf16 (bd in the packed columns, bu for the rank's columns
+//   of both adapters), then five mbarriers (two ring stages, two Wu
+//   buffers, the A parts' rows from the other ranks).
+struct Layout {
+  int Rp;   // R padded to a multiple of 16
+  int KT2;  // 64-column atoms of one adapter's Rp columns (64-row tiles of Wu)
+  int NA;   // atoms of the packed bottleneck
+  int KS;   // D / 4: a rank's K slice of GEMM1 and its columns of GEMM2
+  int nkt;  // 64-wide tiles of a K slice, and 64-column chunks of GEMM2
+  int stage, x_bytes, wu_block, b_bytes, bars, smem;
+};
+
+__host__ __device__ inline Layout layout(int D, int R) {
+  Layout L;
+  L.Rp = (R + 15) / 16 * 16;
+  L.KT2 = (L.Rp + 63) / 64;
+  L.NA = 2 * L.KT2;
+  L.KS = D / AD_CLUSTER;
+  L.nkt = (L.KS + 63) / 64;
+  L.stage = (1 + L.NA) * TB;
+  const int parts = 3 * L.NA * TB;
+  L.x_bytes = 2 * L.stage > parts ? 2 * L.stage : parts;
+  L.wu_block = L.Rp * 128;  // [Rp rows][64] bf16, 128B-swizzled
+  const int partial = 2 * L.Rp * AD_ROWS * 4;
+  L.b_bytes = partial > 4 * L.wu_block ? partial : 4 * L.wu_block;
+  L.bars = L.x_bytes + L.b_bytes + ((64 * L.NA + 2 * L.KS) * 2 + 7) / 8 * 8;
+  L.smem = 1024 + L.bars + 5 * 8;
+  return L;
 }
 
-__global__ void __launch_bounds__(AD_THREADS) adapter_kernel(AdapterArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* hT = reinterpret_cast<float*>(smem);  // [D][AD_ROWS]
-  float* down = hT + (size_t)p.D * AD_ROWS;    // [AD_KSPLIT][2R][AD_ROWS] partial sums
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * AD_ROWS;
-  const int R2 = 2 * p.R;
+// d += A . B: A [64 M][16 K] K-major and B [16 K][64 N] MN-major (wgmma's
+// transposed B), both in shared memory
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FS_D32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : FS_ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  // stage h transposed (fp32): hT[k][r]
-  for (int i = tid; i < AD_ROWS * (p.D / 8); i += AD_THREADS) {
-    const int r = i % AD_ROWS, k = (i / AD_ROWS) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.N) v = *reinterpret_cast<const uint4*>(p.h + (size_t)(row0 + r) * p.D + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// mbarrier `bar` expects `bytes` more from the copy engine (and this thread's arrival)
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of the 3-d view `map` at coordinates (c0, c1, c2) into shared
+// memory at `dst`, counted on mbarrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// The kernel for Rp = 16 RP16: every wgmma chain has a compile-time length.
+template <int RP16>
+__global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS, RP16 <= 4 ? 3 : 1)
+    adapter_kernel(AdapterArgs p, const __grid_constant__ TmaMaps maps) {
+  constexpr int KT2 = (RP16 + 3) / 4, NA = 2 * KT2;  // Rp = 16 RP16
+  constexpr int NQ = 4 * RP16, QA = 2 * RP16;  // 8-column groups of the real columns: both, one adapter
+  extern __shared__ __align__(16) uint8_t ad_smem[];
+  const Layout L = layout(p.D, p.R);
+  const uint32_t at = sm90::smem_addr(ad_smem);
+  const uint32_t base = (at + 1023u) & ~1023u;  // the swizzle is a function of the address
+  uint8_t* const sp = ad_smem + (base - at);
+  const uint32_t sX = base, sB = base + L.x_bytes;
+  bf16* const bd_s = reinterpret_cast<bf16*>(sp + L.x_bytes + L.b_bytes);  // [64 NA]
+  bf16* const bu_s = bd_s + 64 * NA;                                        // [2][KS]
+  const uint32_t bar_k = base + L.bars, bar_wu = bar_k + 16, bar_parts = bar_k + 32;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  uint32_t rank;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const int row0 = (blockIdx.x / AD_CLUSTER) * AD_ROWS;
+  const int k0 = rank * L.KS;  // this rank's K slice of GEMM1 and its output columns of GEMM2
+  const bool tma_wd = (p.R & 7) == 0;
+
+  if (tid == 0) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) hT[(k + t) * AD_ROWS + r] = __bfloat162float(e[t]);
+    for (int i = 0; i < 5; ++i) asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_k + 8 * i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // down-projections of both adapters: column c of [a | b], one half of D per job
-  const int kspan = p.D / AD_KSPLIT;
-  for (int job = tid; job < R2 * AD_KSPLIT; job += AD_THREADS) {
-    const int c = job % R2, part = job / R2;
-    const int ad = c < p.R ? 0 : 1, cc = c - ad * p.R;
-    const bf16* __restrict__ wcol = p.wd[ad] + cc;
-    float acc[AD_ROWS];
+  // k-tile t of GEMM1 into ring stage t % 2: h [row0, row0 + 64) x
+  // k0 + [64 t, 64 t + 64) K-major, and Wd rows k0 + [64 t, 64 t + 64) of
+  // both adapters' atoms MN-major, zero past N, past the slice and past R.
+  // Wd rows of R % 8 != 0 elements are not 16-byte aligned: then every
+  // thread copies them element by element.
+  auto stage_k = [&](int t) {
+    if (t >= L.nkt) return;
+    const uint32_t sH = sX + (t & 1) * L.stage, sWd = sH + TB;
+    if (tid == 0) {
+      expect_bytes(bar_k + 8 * (t & 1), TB * (1 + (tma_wd ? NA : 0)));
+      tma_load(sH, &maps.h, t * 64, rank, row0, bar_k + 8 * (t & 1));
+      if (tma_wd)
 #pragma unroll
-    for (int r = 0; r < AD_ROWS; ++r) acc[r] = 0.f;
-    const int k_end = (part + 1) * kspan;
-    for (int k = part * kspan; k < k_end; ++k) {
-      const float w = __bfloat162float(wcol[(size_t)k * p.R]);
-      const float4* hv = reinterpret_cast<const float4*>(hT + k * AD_ROWS);
+        for (int A = 0; A < NA; ++A)
+          tma_load(sWd + A * TB, &maps.wd[A / KT2], (A % KT2) * 64, t * 64, rank, bar_k + 8 * (t & 1));
+    }
+    if (!tma_wd) {
+#pragma unroll 1
+      for (int j = 0; j < NA * 512 / AD_THREADS; ++j) {
+        const int i = tid + j * AD_THREADS, A = i >> 9, r = (i >> 3) & 63, c = i & 7;
+        const int ad = A / KT2, cc = (A % KT2) * 64 + c * 8, kk = t * 64 + r;
+        const bf16* src = (ad ? p.wd[1] : p.wd[0]) + (size_t)(k0 + kk) * p.R + cc;
+        float v[8];
 #pragma unroll
-      for (int q = 0; q < AD_ROWS / 4; ++q) {
-        const float4 x = hv[q];
-        acc[4 * q + 0] += x.x * w;
-        acc[4 * q + 1] += x.y * w;
-        acc[4 * q + 2] += x.z * w;
-        acc[4 * q + 3] += x.w * w;
+        for (int e = 0; e < 8; ++e) v[e] = kk < L.KS && cc + e < p.R ? __bfloat162float(src[e]) : 0.f;
+        st_shared16(sWd + A * TB + sm90::swz(r, c), make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                               pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+  };
+  // Wu rows [0, Rp) (zero past R), columns k0 + [64 ch, 64 ch + 64) of both
+  // adapters into buffer ch % 2 of region B
+  auto stage_wu = [&](int ch) {
+    if (tid == 0 && ch < L.nkt) {
+      const uint32_t buf = sB + (ch & 1) * 2 * L.wu_block, bar = bar_wu + 8 * (ch & 1);
+      expect_bytes(bar, 2 * L.wu_block);
+      tma_load(buf, &maps.wu[0], ch * 64, rank, 0, bar);
+      tma_load(buf + L.wu_block, &maps.wu[1], ch * 64, rank, 0, bar);
+    }
+  };
+
+  // The biases go to shared memory (the epilogue's stores through p.out may
+  // alias global reads as far as the compiler knows, which would make each
+  // read wait for the stores before it); all reads are issued before the
+  // first store.
+  constexpr int BD_PER = 64 * NA / AD_THREADS, BU_PER = 2 * AD_MAX_D / AD_CLUSTER / AD_THREADS;
+  bf16 bdv[BD_PER], buv[BU_PER];
+#pragma unroll
+  for (int j = 0; j < BD_PER; ++j) {
+    const int i = tid + j * AD_THREADS, ad = i >= 64 * KT2, cc = i - ad * 64 * KT2;
+    bdv[j] = cc < p.R ? (ad ? p.bd[1] : p.bd[0])[cc] : __float2bfloat16_rn(0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < BU_PER; ++j) {
+    const int i = tid + j * AD_THREADS, ad = i >= L.KS;
+    if (i < 2 * L.KS) buv[j] = (ad ? p.bu[1] : p.bu[0])[k0 + i - ad * L.KS];
+  }
+  stage_k(0);
+  stage_k(1);
+#pragma unroll
+  for (int j = 0; j < BD_PER; ++j) bd_s[tid + j * AD_THREADS] = bdv[j];
+#pragma unroll
+  for (int j = 0; j < BU_PER; ++j)
+    if (tid + j * AD_THREADS < 2 * L.KS) bu_s[tid + j * AD_THREADS] = buv[j];
+
+  // GEMM1: this rank's partial of [h . Wd_a | h . Wd_b] over its K slice,
+  // one wgmma group per 64-wide tile (the last tile's k-steps run in full on
+  // zeros), tile t + 1's copies in flight meanwhile
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+    sm90::pin(acc[a]);  // the zeros are written before the first fence, not between the products
+  }
+  for (int t = 0; t < L.nkt; ++t) {
+    wait_phase(bar_k + 8 * (t & 1), (t >> 1) & 1);
+    __syncthreads();  // and the element-by-element Wd copies
+    const uint32_t sH = sX + (t & 1) * L.stage, sWd = sH + TB;
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = sm90::desc_k(sH, ks);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) wgmma_ss_t(acc[a], da, sm90::desc_mn(sWd + a * TB, ks));
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) sm90::pin(acc[a]);
+    __syncthreads();  // every warp is done with this stage
+    stage_k(t + 2);
+  }
+
+  // The partial in region B in thread-major order, the 8-column groups of the
+  // real columns only: group jj (a's QA groups, then b's) of thread tid at
+  // float4 jj * 128 + tid, so each thread of every rank reads back the
+  // elements it owns
+  auto group = [](int jj) { return jj < QA ? jj : 8 * KT2 + jj - QA; };  // packed 8-column group
+  float4* part = reinterpret_cast<float4*>(sp + L.x_bytes);
+#pragma unroll
+  for (int jj = 0; jj < NQ; ++jj) {
+    const int j = group(jj);
+    const float* d = &acc[j >> 3][4 * (j & 7)];
+    part[jj * AD_THREADS + tid] = make_float4(d[0], d[1], d[2], d[3]);
+  }
+  cluster_sync();  // every rank's partial is written
+
+  // Rank r finishes rows [16 r, 16 r + 16) of the tile (warp r's rows in the
+  // accumulator layout): its warp w sums groups jj = w, w + 4, ... of warp
+  // r's lane `lane` from the four partials in rank order 0..3, adds bd,
+  // applies the ReLU, splits into bf16 hi, mid and lo, and writes the parts
+  // into its own K-major A tiles [part][atom] (over the ring).  Packed group
+  // j is rows 16 rank + g and + 8, columns 8 j + 2 tig and + 1.  Then the copy
+  // engine sends those rows (2 KB of each tile) to the other three ranks.
+  uint32_t remote_part[AD_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < AD_CLUSTER; ++r)
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote_part[r])
+                 : "r"(sm90::smem_addr(part) + (32 * rank + lane) * 16), "r"(r));
+  constexpr int MB = RP16 < 4 ? RP16 : 4;  // owned groups read in one round trip
+#pragma unroll
+  for (int m0 = 0; m0 < RP16; m0 += MB) {
+    float4 v[MB][AD_CLUSTER];
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm)
+#pragma unroll
+      for (int r = 0; r < AD_CLUSTER; ++r)
+        if (m0 + mm < RP16)
+          asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(v[mm][r].x), "=f"(v[mm][r].y), "=f"(v[mm][r].z), "=f"(v[mm][r].w)
+                       : "r"(remote_part[r] + (4 * (m0 + mm) + warp) * AD_THREADS * 16));
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) {
+      if (m0 + mm >= RP16) break;
+      const int j = group(4 * (m0 + mm) + warp), a = j >> 3, q = j & 7;
+      float x[4] = {v[mm][0].x, v[mm][0].y, v[mm][0].z, v[mm][0].w};
+#pragma unroll
+      for (int r = 1; r < AD_CLUSTER; ++r) {
+        x[0] = __fadd_rn(x[0], v[mm][r].x), x[1] = __fadd_rn(x[1], v[mm][r].y);
+        x[2] = __fadd_rn(x[2], v[mm][r].z), x[3] = __fadd_rn(x[3], v[mm][r].w);
+      }
+      const int col = 8 * j + 2 * tig;
+      const float b0 = __bfloat162float(bd_s[col]), b1 = __bfloat162float(bd_s[col + 1]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float pv[3][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y = fmaxf(__fadd_rn(x[2 * hf + e], e ? b1 : b0), 0.f);
+          const float hi = round_bf16(y), r1 = __fsub_rn(y, hi);
+          const float mid = round_bf16(r1), lo = round_bf16(__fsub_rn(r1, mid));
+          pv[0][e] = hi, pv[1][e] = mid, pv[2][e] = lo;
+        }
+        const uint32_t off = sm90::swz(16 * rank + g + 8 * hf, q) + tig * 4;
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sX + (s * NA + a) * TB + off),
+                       "r"(pack_bf16(pv[s][0], pv[s][1]))
+                       : "memory");
       }
     }
-    float* dst = down + ((size_t)part * R2 + c) * AD_ROWS;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the parts, visible to the copy engine
+  __syncthreads();
+  if (tid == 0) {
+    expect_bytes(bar_parts, (AD_CLUSTER - 1) * 3 * NA * 2048);
+#pragma unroll 1
+    for (int d = 1; d < AD_CLUSTER; ++d) {
+      const uint32_t to = (rank + d) % AD_CLUSTER;
+      uint32_t dst, bar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(sX + rank * 2048), "r"(to));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(bar) : "r"(bar_parts), "r"(to));
 #pragma unroll
-    for (int r = 0; r < AD_ROWS; ++r) dst[r] = acc[r];
+      for (int blk = 0; blk < 3 * NA; ++blk)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], 2048, [%2];\n" ::"r"(
+                dst + blk * TB),
+            "r"(sX + rank * 2048 + blk * TB), "r"(bar)
+            : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   }
-  __syncthreads();
-  // bias + relu into the first partial plane
-  for (int i = tid; i < R2 * AD_ROWS; i += AD_THREADS) {
-    const int c = i / AD_ROWS;
-    const int ad = c < p.R ? 0 : 1, cc = c - ad * p.R;
-    float s = down[i];
-    for (int part = 1; part < AD_KSPLIT; ++part) s += down[(size_t)part * R2 * AD_ROWS + i];
-    down[i] = fmaxf(s + __bfloat162float(p.bd[ad][cc]), 0.f);
-  }
-  __syncthreads();
+  // The other ranks' rows have landed; they were sent after their reads of
+  // this rank's partial, so region B is free for the Wu buffers.
+  wait_phase(bar_parts, 0);
 
-  // up-projections and the mix, one output column per thread at a time
+  // GEMM2 and the mix, 64 output columns at a time, chunk ch + 1's copies in
+  // flight meanwhile
+  stage_wu(0);
+  stage_wu(1);
   const float wa = p.weight, wb = 1.f - p.weight;
-  for (int c = tid; c < p.D; c += AD_THREADS) {
-    float aa[AD_ROWS], ab[AD_ROWS];
+  for (int ch = 0; ch < L.nkt; ++ch) {
+    wait_phase(bar_wu + 8 * (ch & 1), (ch >> 1) & 1);
+    const uint32_t buf = sB + (ch & 1) * 2 * L.wu_block;
+    float ya[32], yb[32];
 #pragma unroll
-    for (int r = 0; r < AD_ROWS; ++r) aa[r] = ab[r] = 0.f;
-    for (int k = 0; k < p.R; ++k) {
-      const float ua = __bfloat162float(p.wu[0][(size_t)k * p.D + c]);
-      const float ub = __bfloat162float(p.wu[1][(size_t)k * p.D + c]);
-      const float4* da = reinterpret_cast<const float4*>(down + (size_t)k * AD_ROWS);
-      const float4* db = reinterpret_cast<const float4*>(down + (size_t)(p.R + k) * AD_ROWS);
+    for (int i = 0; i < 32; ++i) ya[i] = yb[i] = 0.f;
+    sm90::pin(ya);
+    sm90::pin(yb);
+    sm90::wg_fence();
 #pragma unroll
-      for (int q = 0; q < AD_ROWS / 4; ++q) {
-        const float4 x = da[q], y = db[q];
-        aa[4 * q + 0] += x.x * ua;
-        aa[4 * q + 1] += x.y * ua;
-        aa[4 * q + 2] += x.z * ua;
-        aa[4 * q + 3] += x.w * ua;
-        ab[4 * q + 0] += y.x * ub;
-        ab[4 * q + 1] += y.y * ub;
-        ab[4 * q + 2] += y.z * ub;
-        ab[4 * q + 3] += y.w * ub;
+    for (int s = 0; s < 3; ++s)  // hi, then mid, then lo
+#pragma unroll
+      for (int ks = 0; ks < RP16; ++ks) {
+        const int ca = ks * 16, cb = 64 * KT2 + ks * 16;  // packed columns of a's and b's k-step
+        wgmma_ss_t(ya, sm90::desc_k(sX + (s * NA + (ca >> 6)) * TB, (ca & 63) >> 4),
+                   sm90::desc_mn(buf + (ks >> 2) * TB, ks & 3));
+        wgmma_ss_t(yb, sm90::desc_k(sX + (s * NA + (cb >> 6)) * TB, (cb & 63) >> 4),
+                   sm90::desc_mn(buf + L.wu_block + (ks >> 2) * TB, ks & 3));
+      }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::pin(ya);
+    sm90::pin(yb);
+    __syncthreads();  // every warp is done with this buffer
+    stage_wu(ch + 2);
+
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = ch * 64 + nt * 8 + tig * 2;
+      if (n >= L.KS) continue;
+      const __nv_bfloat162 ua = *reinterpret_cast<const __nv_bfloat162*>(bu_s + n);
+      const __nv_bfloat162 ub = *reinterpret_cast<const __nv_bfloat162*>(bu_s + L.KS + n);
+      const float bua[2] = {__low2float(ua), __high2float(ua)}, bub[2] = {__low2float(ub), __high2float(ub)};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + warp * 16 + g + 8 * hf;
+        if (row >= p.N) continue;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = nt * 4 + 2 * hf + e;
+          o[e] = __fadd_rn(__fmul_rn(wa, __fadd_rn(ya[i], bua[e])), __fmul_rn(wb, __fadd_rn(yb[i], bub[e])));
+        }
+        *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.D + k0 + n) = pack_bf16(o[0], o[1]);
       }
     }
-    const float ba = __bfloat162float(p.bu[0][c]), bb = __bfloat162float(p.bu[1][c]);
-#pragma unroll
-    for (int r = 0; r < AD_ROWS; ++r) {
-      if (row0 + r < p.N) {
-        const float a = aa[r] + ba, b = ab[r] + bb;
-        p.out[(size_t)(row0 + r) * p.D + c] = __float2bfloat16_rn(wa * a + wb * b);
-      }
-    }
+  }
+  // the copies to the other ranks have read this rank's tiles before it exits
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-d bf16 view {d0, d1, d2} (d0 contiguous; strides s1, s2 in bytes) in
+// 128B-swizzled boxes {b0, b1, b2}; zeros outside the view
+bool encode3(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
+             uint32_t b0, uint32_t b1, uint32_t b2) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, b2}, one[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool encode_maps(const AdapterArgs& a, const Layout& L, TmaMaps* m) {
+  const uint64_t KS = L.KS, R = a.R, D = a.D;
+  bool ok = encode3(&m->h, a.h, KS, AD_CLUSTER, a.N, KS * 2, D * 2, 64, 1, AD_ROWS);
+  for (int ad = 0; ad < 2; ++ad) {
+    ok = ok && encode3(&m->wu[ad], a.wu[ad], KS, AD_CLUSTER, R, KS * 2, D * 2, 64, 1, L.Rp);
+    if (a.R % 8 == 0)
+      ok = ok && encode3(&m->wd[ad], a.wd[ad], R, KS, AD_CLUSTER, R * 2, KS * R * 2, 64, 64, 1);
+  }
+  return ok;
+}
+
+// The devices on which each instance has its shared-memory limit raised.
+int smem_done[9][64];
+
+template <int RP16>
+int launch_rp(const AdapterArgs& a, const TmaMaps& maps, int smem, cudaStream_t st) {
+  const cudaError_t err = sm90::allow_smem(adapter_kernel<RP16>, smem, smem_done[RP16]);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.N + AD_ROWS - 1) / AD_ROWS * AD_CLUSTER);
+  adapter_kernel<RP16><<<grid, AD_THREADS, smem, st>>>(a, maps);
+  return (int)cudaGetLastError();
+}
+
+int launch(const AdapterArgs& a, cudaStream_t st) {
+  if (a.N < 0 || a.D < 64 || a.D % 64 || a.D > AD_MAX_D || a.R < 1 || a.R > AD_MAX_R)
+    return (int)cudaErrorInvalidValue;
+  if (a.N == 0) return 0;
+  const Layout L = layout(a.D, a.R);
+  TmaMaps maps;
+  if (!encode_maps(a, L, &maps)) return (int)cudaErrorInvalidValue;
+  switch (L.Rp / 16) {
+    case 1: return launch_rp<1>(a, maps, L.smem, st);
+    case 2: return launch_rp<2>(a, maps, L.smem, st);
+    case 3: return launch_rp<3>(a, maps, L.smem, st);
+    case 4: return launch_rp<4>(a, maps, L.smem, st);
+    case 5: return launch_rp<5>(a, maps, L.smem, st);
+    case 6: return launch_rp<6>(a, maps, L.smem, st);
+    case 7: return launch_rp<7>(a, maps, L.smem, st);
+    default: return launch_rp<8>(a, maps, L.smem, st);
   }
 }
 
@@ -153,8 +521,9 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// h [N, D] bf16; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16;
-// out [N, D] bf16.  D must be a multiple of 8 * AD_KSPLIT.
+// h [N, D] bf16; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 and
+// 16-byte aligned; out [N, D] bf16.  D a multiple of 64 in [64, 1024], R in
+// [1, 128], N >= 0 (cudaErrorInvalidValue otherwise).
 // Returns the CUDA error of the launch (0 = success).
 int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const void* wu_a,
                       const void* bu_a, const void* wd_b, const void* bd_b, const void* wu_b,
@@ -175,20 +544,7 @@ int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const v
   a.D = D;
   a.R = R;
   a.weight = weight;
-  const size_t smem = adapter_smem_bytes(D, R);
-  cudaError_t err =
-      cudaFuncSetAttribute(adapter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  adapter_kernel<<<(N + AD_ROWS - 1) / AD_ROWS, AD_THREADS, smem,
-                   reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Largest D (for a given R) whose staging fits a block's shared memory.
-int adapter_fused_max_dim(int R) {
-  int d = 0;
-  while (adapter_smem_bytes(d + 16, R) <= 227 * 1024) d += 16;
-  return d;
+  return launch(a, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

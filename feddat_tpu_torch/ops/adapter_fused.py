@@ -10,7 +10,7 @@ b_up [d])`` in the flax layout, as in the JAX function.
 
 * :func:`adapter_fused_reference` — plain PyTorch, the JAX ``_reference``.
 * :func:`adapter_fused_cuda` — the hand-written kernel in
-  ``csrc/adapter_fused.cu`` (forward only).
+  ``csrc/adapter_fused.cu`` (forward only; wgmma in a 4-CTA cluster).
 * :func:`fused_ensemble_adapter` — the autograd wrapper: forward through the
   kernel for a CUDA tensor (the plain version for a CPU tensor), backward by
   recomputing the plain version, which is the JAX contract
@@ -20,12 +20,11 @@ b_up [d])`` in the flax layout, as in the JAX function.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops._build import CudaKernel, ptr
 
 KERNEL = CudaKernel(
     "adapter_fused", "adapter_fused_fwd",
@@ -48,17 +47,18 @@ def adapter_fused_reference(h: torch.Tensor, params_a: Params, params_b: Params,
     return out.to(h.dtype)
 
 
-@functools.cache
-def _max_dim(r: int) -> int:
-    fn = load("adapter_fused").adapter_fused_max_dim
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(r)
+# The kernel's shapes: D a multiple of 64 up to 1024 (each rank of a 4-CTA
+# cluster takes D/4 of the K axis and of the output columns), R up to 128
+# (each adapter's bottleneck padded to 64-column atoms of its own, both in at
+# most 256 accumulator columns).  N is free.
+MAX_DIM, MAX_BOTTLENECK = 1024, 128
 
 
 def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
                        weight: float) -> torch.Tensor:
-    """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params;
-    ``d`` a multiple of 16.  Raises on anything else."""
+    """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params,
+    contiguous and 16-byte aligned; ``d`` a multiple of 64 up to
+    ``MAX_DIM``, ``r`` up to ``MAX_BOTTLENECK``.  Raises on anything else."""
     if not h.is_cuda:
         raise ValueError("adapter_fused_cuda: h must be a CUDA tensor")
     d = h.shape[-1]
@@ -69,16 +69,19 @@ def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
             raise TypeError("adapter_fused_cuda takes bf16 CUDA tensors only")
         if not t.is_contiguous():
             raise ValueError("adapter_fused_cuda: inputs must be contiguous")
-    if h.data_ptr() % 16:
-        raise ValueError("adapter_fused_cuda: h must start on a 16-byte boundary")
+        if t.data_ptr() % 16:
+            raise ValueError("adapter_fused_cuda: inputs must start on a 16-byte boundary")
     for params in (params_a, params_b):
         if tuple(tuple(t.shape) for t in params) != shapes:
             raise ValueError(f"adapter_fused_cuda: params must have shapes {shapes}")
-    if d % 16 or d > _max_dim(r):
-        raise ValueError(f"adapter_fused_cuda: width {d} is not a multiple of 16 "
-                         f"or exceeds the shared-memory limit for bottleneck {r}")
+    if d % 64 or not 64 <= d <= MAX_DIM:
+        raise ValueError(f"adapter_fused_cuda: width {d} is not a multiple of 64 in [64, {MAX_DIM}]")
+    if not 1 <= r <= MAX_BOTTLENECK:
+        raise ValueError(f"adapter_fused_cuda: bottleneck {r} is not in [1, {MAX_BOTTLENECK}]")
     flat = h.reshape(-1, d)
     out = torch.empty_like(flat)
+    if flat.shape[0] == 0:
+        return out.reshape(h.shape)
     KERNEL.launch(
         ptr(flat), *(ptr(t) for t in params_a), *(ptr(t) for t in params_b), ptr(out),
         flat.shape[0], d, r, float(weight),

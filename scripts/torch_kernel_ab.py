@@ -4,9 +4,10 @@ another source tree, on one CUDA card, by the profiler's device time.
     git archive <commit> feddat_tpu_torch/csrc | tar -x -C logs/parent
     python3 scripts/torch_kernel_ab.py --other logs/parent
 
-Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu`` and
-``fused_attention.cu`` of both trees with the package's nvcc flags, all eight
-at once, then times each tree in the order other, this, this, other:
+Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu``,
+``fused_attention.cu`` and ``adapter_fused.cu`` of both trees with the
+package's nvcc flags, all ten at once, then times each tree in the order
+other, this, this, other:
 
 * #1, the attention-block forward with LN1 fused, at the serving shape (B=16,
   S=281) and the ViLT training shape (B=64, S=185);
@@ -16,17 +17,20 @@ at once, then times each tree in the order other, this, this, other:
   decoder site (B=128, Sq=Skv=80, a [128, 1, 80, 80] bias), #8 and #9 at the
   ViT site;
 * #5 and #6, the whole-sequence attention forward and backward (a [B, 1, 1,
-  S] padding bias), at the training shape and the serving canvas.
+  S] padding bias), at the training shape and the serving canvas;
+* #2, the DAT ensemble-adapter epilogue, at the serving batch (N = 16 * 281
+  rows) and the B=1 bucket (N = 281).
 
-#5 and #6 are the kernels the current change redesigned (``fused_attention.cu``
-on wgmma).  #1 at both shapes and #3, whose attention cores
-(``attn_fwd.cuh``, ``attn_bwd.cuh``) and GEMMs do not change, are the controls
-that say how far the turns drift; #4 and #7-#9 did not change either.  Each
+#2 is the kernel the current change redesigned (``adapter_fused.cu`` on
+wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not
+change, are the controls that say how far the turns drift; #3, #4, #6 and
+#7-#9 did not change either.  Each
 time is ``chip_smoke.device_ms`` (median over 10 calls of the summed kernel
 durations) beside the CUDA-event wall per call; each tree's first pass also
 prints the device time of every launch of one #1 call at both shapes, of one
-flash backward call (delta, #8, #9) at the ViT site and of one #6 call at the
-training shape (``chip_smoke.launch_breakdown``).  Then prints how far the
+flash backward call (delta, #8, #9) at the ViT site, of one #6 call at the
+training shape and of one #2 call at the serving batch
+(``chip_smoke.launch_breakdown``).  Then prints how far the
 two trees' outputs lie apart, in bf16 ulps of each element
 (``chip_smoke.own_ulps``; relative norm for #4's fp32 adapter gradients and
 the lse of #5), and the card's name and power limit.
@@ -43,7 +47,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-SOURCES = ("attn_block", "layer_block", "flash_attention", "fused_attention")
+SOURCES = ("attn_block", "layer_block", "flash_attention", "fused_attention", "adapter_fused")
 
 
 def build(trees, out_dir):
@@ -71,8 +75,9 @@ def build(trees, out_dir):
 
 
 def use(libs):
-    """Route the wrappers of #1/#3, #4, #5/#6 and #7-#9 to the given libraries."""
+    """Route the wrappers of #1/#3, #2, #4, #5/#6 and #7-#9 to the given libraries."""
     from feddat_tpu_torch.ops import _build
+    from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import flash as fl
     from feddat_tpu_torch.ops import fused_attention as fa
@@ -84,7 +89,7 @@ def use(libs):
         lib.kernel_error_string.restype = ctypes.c_char_p
         _build._LIBS[src] = lib
     for kernel in (ab.KERNEL, ab.KERNEL_BWD, lb.KERNEL, fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV,
-                   fa.KERNEL, fa.KERNEL_BWD):
+                   fa.KERNEL, fa.KERNEL_BWD, af.KERNEL):
         kernel._fn = None
     # the workspace sizes and layouts are the tree's own
     for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
@@ -105,6 +110,7 @@ def main(argv=None) -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import flash as fl
     from feddat_tpu_torch.ops import fused_attention as fa
@@ -131,6 +137,7 @@ def main(argv=None) -> int:
     do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
     packed = next(c for c in cs.FLASH_CASES if c[0] == "stage-2 packed self")
     qp, kp, vp, biasp = cs.flash_case(torch, *packed[1:], args.seed)
+    adapter = {n: cs.adapter_inputs(torch, n, args.seed) for n in (cs.B * cs.S, cs.S)}
 
     outs, times = {}, {}
     for name in ("other", "this", "this", "other"):
@@ -148,6 +155,8 @@ def main(argv=None) -> int:
                 fo, flse = fwd[tag] = fa.fused_attention_fwd_cuda(fq, fk, fv, fb, scale)
                 grads6 = fa.fused_attention_bwd_cuda(fq, fk, fv, fb, fo, fdo, flse, scale)
                 got[f"#5/#6 {tag}"] = (fo, flse, *grads6)
+            for n, ad_args in adapter.items():
+                got[f"#2 N={n}"] = (af.adapter_fused_cuda(*ad_args),)
             torch.cuda.synchronize()
             outs[name] = {key: [t.clone() for t in ts] for key, ts in got.items()}
             fns = {"#1 attn_block serving": lambda: ab.attn_block_cuda(*fwd_args),
@@ -165,6 +174,8 @@ def main(argv=None) -> int:
                 fns[f"#6 fused_attention_bwd {tag}"] = (
                     lambda fq=fq, fk=fk, fv=fv, fb=fb, fo=fo, fdo=fdo, flse=flse:
                     fa.fused_attention_bwd_cuda(fq, fk, fv, fb, fo, fdo, flse, scale))
+            for n, ad_args in adapter.items():
+                fns[f"#2 adapter_fused N={n}"] = lambda ad_args=ad_args: af.adapter_fused_cuda(*ad_args)
             row = {label: (cs.device_ms(torch, fn), cs.cuda_ms(torch, fn, 30)) for label, fn in fns.items()}
             if name not in times:  # each tree's launches of one #1, flash backward and #6 call
                 cs.launch_breakdown(torch, fns["#1 attn_block serving"], f"{name} #1 B={cs.B} S={cs.S}")
@@ -173,6 +184,8 @@ def main(argv=None) -> int:
                                     f"{name} flash backward (delta, #8, #9) B={cs.AB} S={cs.VIT_S}")
                 cs.launch_breakdown(torch, fns["#6 fused_attention_bwd training"],
                                     f"{name} #6 B={cs.TB} S={cs.TS} (dq with delta, then dk/dv)")
+                cs.launch_breakdown(torch, fns[f"#2 adapter_fused N={cs.B * cs.S}"],
+                                    f"{name} #2 N={cs.B * cs.S}")
         times.setdefault(name, []).append(row)
         print(f"time {name}: " + ", ".join(f"{label} {dev:.4f} ms device (wall per call {wall:.4f})"
                                            for label, (dev, wall) in row.items()))
@@ -183,7 +196,8 @@ def main(argv=None) -> int:
               f"{(sum(theirs) / len(theirs)) / (sum(mine) / len(mine)):.2f}x")
     names = {"#1": ("out", "ctx", "lse"), "#1 training": ("out", "ctx", "lse"), "#3": ("dx",),
              "#4": ("dx", "dwda", "dbda", "dwua", "dbua"), "#7-#9": ("o", "dq", "dk", "dv"),
-             "#5/#6 training": ("o", "lse", "dq", "dk", "dv"), "#5/#6 serving": ("o", "lse", "dq", "dk", "dv")}
+             "#5/#6 training": ("o", "lse", "dq", "dk", "dv"), "#5/#6 serving": ("o", "lse", "dq", "dk", "dv"),
+             f"#2 N={cs.B * cs.S}": ("out",), f"#2 N={cs.S}": ("out",)}
     for key, labels in names.items():
         apart = []
         for label, a, b in zip(labels, outs["this"][key], outs["other"][key]):

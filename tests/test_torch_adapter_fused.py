@@ -1,6 +1,8 @@
 """The port's fused ensemble adapter (plain version, CPU) against the JAX
 Pallas kernel ``fused_ensemble_adapter(..., 0.5, True)`` (interpret mode):
-forward and gradients, float32.  Tolerance rtol=1e-4, atol=1e-5."""
+forward and gradients, float32, tolerance rtol=1e-4, atol=1e-5; and the CUDA
+kernel's arithmetic emulated in torch against the same kernel in bf16 (see
+the section below)."""
 
 import jax
 import jax.numpy as jnp
@@ -49,3 +51,108 @@ def test_gradients_match_jax():
     assert len(got) == len(want) == 9
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the CUDA kernel (csrc/adapter_fused.cu), emulated in plain
+# torch: the down projection as four K-slice partials (one per CTA of the
+# cluster) summed in rank order, bias and ReLU in fp32, the ReLU output split
+# into bf16 parts, each adapter's up projection accumulated in fp32 from the
+# bf16 x bf16 products of the parts, then the fp32 mix rounded once to bf16.
+# Held against the JAX kernel in interpret mode within the chip's limit: one
+# bf16 ulp, 2^-7 |ref| + 1e-6.
+
+D_FULL, R_FULL = 768, 48
+
+
+def _emulate_kernel(h, params_a, params_b, weight, parts=3):
+    bf, f32 = torch.bfloat16, torch.float32
+    hf = h.to(f32)
+    ks = h.shape[-1] // 4
+
+    def down(wd, bd):
+        wdf = wd.to(f32)
+        s = None
+        for r in range(4):  # rank order, the same on every rank
+            p = hf[:, r * ks:(r + 1) * ks] @ wdf[r * ks:(r + 1) * ks]
+            s = p if s is None else s + p
+        return torch.relu(s + bd.to(f32))
+
+    def split(x):
+        out, rest = [], x
+        for _ in range(parts):
+            piece = rest.to(bf).to(f32)
+            out.append(piece)
+            rest = rest - piece
+        return out
+
+    def branch(wd, bd, wu, bu):
+        acc = torch.zeros(h.shape[0], wu.shape[1], dtype=f32)
+        for piece in split(down(wd, bd)):
+            acc = acc + piece @ wu.to(f32)
+        return acc + bu.to(f32)
+
+    a, b = branch(*params_a), branch(*params_b)
+    return (weight * a + (1.0 - weight) * b).to(bf)
+
+
+def _bf16_case(rng, n, d, r):
+    """bf16 inputs at the serving scales of chip_smoke.py, as torch tensors and
+    as float32 numpy arrays holding the same bf16 values."""
+    def t(*shape, std):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32)).to(torch.bfloat16)
+
+    h = t(n, d, std=1.0)
+    pa = (t(d, r, std=0.05), t(r, std=1.0), t(r, d, std=0.05), t(d, std=0.5))
+    pb = (t(d, r, std=0.05), t(r, std=1.0), t(r, d, std=0.05), t(d, std=0.5))
+    return h, pa, pb
+
+
+def _jax_bf16(h, pa, pb, weight):
+    def j(x):
+        return jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+
+    out = jax_fused(j(h), tuple(map(j, pa)), tuple(map(j, pb)), weight, True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _probe_case():
+    """ReLU outputs with bits below a bf16 hi + lo pair: a's units 0 and 1 are
+    1 + 2^-9 + 2^-18 and 1 + 2^-9, b's units 5 and 6 are 1 + 2^-9 + 3 2^-19
+    and 1 + 2^-9 (exact in fp32, the three terms in three K slices); Wu rows
+    +1 and -1 leave a = 2^-18 and b = 3 2^-19, a mix of 5 2^-20 at w = 0.5."""
+    bf, d, r = torch.bfloat16, D_FULL, R_FULL
+    h = torch.zeros(65, d, dtype=bf)
+    h[:, [0, d // 4, d // 2]] = 1.0
+    params = []
+    for (u0, u1), low in (((0, 1), 2.0 ** -18), ((5, 6), 3 * 2.0 ** -19)):
+        wd = torch.zeros(d, r, dtype=bf)
+        wd[0, [u0, u1]] = 1.0
+        wd[d // 4, [u0, u1]] = 2.0 ** -9
+        wd[d // 2, u0] = low
+        wu = torch.zeros(r, d, dtype=bf)
+        wu[u0], wu[u1] = 1.0, -1.0
+        params.append((wd, torch.zeros(r, dtype=bf), wu, torch.zeros(d, dtype=bf)))
+    return h, params[0], params[1], 5 * 2.0 ** -20
+
+
+def test_kernel_rounding_design_matches_jax_kernel_at_full_width():
+    rng = np.random.RandomState(7)
+    h, pa, pb = _bf16_case(rng, 300, D_FULL, R_FULL)
+    want = _jax_bf16(h, pa, pb, 0.5)
+    got = _emulate_kernel(h, pa, pb, 0.5).float().numpy()
+    limit = 2.0 ** -7 * np.abs(want) + 1e-6
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= limit).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("parts", [3, 2])
+def test_kernel_rounding_design_low_bits_probe(parts):
+    h, pa, pb, exact = _probe_case()
+    want = _jax_bf16(h, pa, pb, 0.5)
+    assert (want == exact).all()
+    got = _emulate_kernel(h, pa, pb, 0.5, parts=parts).float().numpy()
+    if parts == 3:  # hi + mid + lo carries the ReLU output exactly: bitwise the JAX kernel's
+        np.testing.assert_array_equal(got, want)
+    else:  # hi + lo drops 2^-18 and 3 2^-19: the probe reads 0
+        assert (got == 0).all()
