@@ -76,6 +76,31 @@ Phases, in this order:
             through SDPA and their bounds, by device time; ALBEF train
             samples/s, kernel path against plain path, with peak memory; a
             profile of one step.
+10. graphs — phases 2-9 run under ``disable_graphs()``, the eager path; this
+            one drives the compiled layer (``feddat_tpu_torch/train/compiled.py``)
+            through the entry points users call, as CUDA graphs: the fused DAT
+            step ('layer'), the ViLT eval step (3 DAT modes), the standard DAT
+            step ('block'), the LoRA step ('fused'), ViltVqaPredictor.forward
+            (two request batches into one graph: #2's TMA maps hold the
+            capture's addresses), AlbefVqaPredictor.rank, the fused ALBEF step
+            with dropout live and the ALBEF eval step (2 modes), each: launches
+            per replay, counted by the wrappers and measured from the device's
+            kernel names in a profile, equal to the eager path's per call,
+            three replayed calls
+            bitwise equal to three eager ones (or within twice eager's own
+            run-to-run spread where eager is not bitwise run to run), then graph
+            against eager in 6 alternating pairs (host launch calls, wall, device
+            busy, idle share, peak memory; a replay launches no kernel but its
+            copies, generator fills and one graph, and runs the eager call's
+            kernels); ALBEF replays from one state equal, from another seed
+            not; FederatedTrainers of two ALBEF clients (one shared train
+            program, one shared eval program) and of two ViLT clients (a train
+            and an eval program each) over 2 rounds and evaluate_dat, bitwise
+            equal to the eager engines; then the routing gate: #4's limit
+            against the library's, a 'layer' DAT step at adapter bottleneck 96
+            through #1/#3 (not #4) by the 2x-bf16 rule; and the refusals that
+            stay: a 'block' model at S=769 and a fused ensemble at bottleneck
+            192 raise before any launch.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -85,12 +110,16 @@ Exits non-zero, without that line, if there is no CUDA device or any phase fails
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -238,11 +267,16 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 def launch_breakdown(torch, fn, label, calls: int = 5):
     """Device milliseconds of each launch of one call of ``fn``, in launch
     order, median over ``calls`` calls (:func:`profile_calls`) ->
-    [(kernel name, ms)]."""
+    [(kernel name, ms)].  A profile that lost calls' device events is taken
+    again, 3 times at most, as in :func:`device_ms`."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    per_call, _ = profile_calls(torch, fn, calls)
+    for _ in range(3):
+        per_call, _ = profile_calls(torch, fn, calls)
+        if per_call is not None:
+            break
+        DEVICE_MS_STATS["again"] += 1
     counts = {len(c) for c in per_call or []}
     check(per_call is not None and len(counts) == 1 and 0 not in counts,
           f"breakdown {label}: calls with {sorted(counts)} launches")
@@ -2548,6 +2582,654 @@ def phase_time(torch, pred, plain, requests, seed):
     return rows
 
 
+# ----------------------------------------------------------------- graphs
+# The compiled layer (feddat_tpu_torch/train/compiled.py): every step, eval
+# step and serving forward above ran under disable_graphs(), eagerly; here the
+# same entry points run as users call them, captured as CUDA graphs at their
+# first call and replayed after.  Each path: launch counts around one replay
+# against the eager path's per call; three replayed steps (or calls) against
+# three eager ones from the same state, bitwise where the eager path is
+# bitwise run to run, else within twice its run-to-run spread; graph against
+# eager in alternating pairs for host launch calls, wall, device busy, idle
+# share and peak memory.
+GRAPH_PAIRS = 6
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
+# Every __global__ function of feddat_tpu_torch/csrc, and for each wrapper the
+# one that its launch runs once and no other wrapper runs: #4 runs #3's
+# attn_bwd_dq_kernel once per launch, so #3's count is that kernel's less #4's.
+PORT_KERNELS = ("attn_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "adapter_kernel",
+                "ln2_fwd_rows_kernel", "adapter_bwd_rows_kernel", "adapter_wgrad_kernel",
+                "adapter_wgrad_reduce_kernel", "ln_fwd_rows_kernel", "ln_bwd_rows_kernel",
+                "gemm_sm90_kernel", "fused_fwd_kernel", "fused_bwd_dq_kernel",
+                "fused_bwd_dkdv_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
+SIGNATURE = {"attn_block": "attn_kernel", "adapter_fused": "adapter_kernel",
+             "attn_block_bwd": "attn_bwd_dq_kernel", "layer_block_bwd": "ln2_fwd_rows_kernel",
+             "fused_attention": "fused_fwd_kernel", "fused_attention_bwd": "fused_bwd_dq_kernel",
+             "flash_attention": "flash_fwd_kernel", "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def port_symbol(name):
+    """The csrc ``__global__`` function a device kernel name (demangled or
+    not) belongs to, or None."""
+    for sym in PORT_KERNELS:
+        if re.search(rf"(?<![A-Za-z_]){sym}(?![a-z_])", name):
+            return sym
+    return None
+
+
+def device_launches(names):
+    """Each wrapper's launches measured from a profile's device kernel names
+    (a Counter), through :data:`SIGNATURE`."""
+    syms = Counter()
+    for name, n in names.items():
+        syms[port_symbol(name)] += n
+    out = {k: syms[sym] for k, sym in SIGNATURE.items()}
+    out["attn_block_bwd"] -= out["layer_block_bwd"]
+    return out
+
+
+def graph_mode(graphs):
+    from feddat_tpu_torch.train import compiled
+
+    return contextlib.nullcontext() if graphs else compiled.disable_graphs()
+
+
+def step_tensors(torch, out, i):
+    """The tensors one step (``out = (state, metrics)``) or call (a tensor or
+    a tuple of them) hands back, by name: losses, gradient sets, and the
+    trainable partitions with their moments."""
+    if isinstance(out, torch.Tensor):
+        return {f"{i}/out": out}
+    if isinstance(out, tuple) and not hasattr(out[0], "opt_states"):
+        return {f"{i}/out{j}": t for j, t in enumerate(out)}
+    state, metrics = out
+    flat = {f"{i}/{k}": v for k, v in metrics.items() if isinstance(v, torch.Tensor)}
+    for stage, grads in metrics.get("grads", {}).items():
+        flat.update({f"{i}/grads/{stage}/{n}": g for n, g in grads.items()})
+    for part, st in state.opt_states.items():
+        for n in st.mu:
+            flat.update({f"{i}/params/{n}": state.params[n], f"{i}/mu/{n}": st.mu[n],
+                         f"{i}/nu/{n}": st.nu[n]})
+    return flat
+
+
+def run_calls(torch, call, graphs, n=3):
+    """``n`` chained calls (``call(previous result or None)``) in one mode ->
+    (their tensors by name, the launch counts of the first call)."""
+    flat, prev, first = {}, None, None
+    with graph_mode(graphs):
+        for i in range(n):
+            reset_counts()
+            prev = call(prev)
+            torch.cuda.synchronize()
+            first = first or read_counts()
+            flat.update(step_tensors(torch, prev, i))
+    return flat, first
+
+
+def graph_agreement(torch, label, graph, eager, eager2):
+    """Replayed against eager results: bitwise where two eager runs are
+    bitwise equal, else within twice their relative spread (Frobenius over
+    all the tensors) -> the rule applied."""
+    check(graph.keys() == eager.keys(), f"{label}: graph and eager results differ in names")
+    exact = all(torch.equal(eager[k], eager2[k]) for k in eager)
+
+    def spread(a, b):
+        num = sum(float((a[k].double() - b[k].double()).pow(2).sum()) for k in a)
+        den = sum(float(b[k].double().pow(2).sum()) for k in a)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    if exact:
+        bad = [k for k in eager if not torch.equal(graph[k], eager[k])]
+        print(f"graphs: {label}: rule bitwise (eager is bitwise run to run): {len(eager)} tensors, "
+              f"{len(bad)} differ{'' if not bad else ' e.g. ' + bad[0]}; graph vs eager relative "
+              f"{spread(graph, eager):.3e}")
+        check(not bad, f"{label}: replayed results differ from eager ones: {bad[:3]}")
+        return "bitwise"
+    g, e = spread(graph, eager), spread(eager2, eager)
+    print(f"graphs: {label}: rule 2x run-to-run (eager is not bitwise run to run): graph vs eager "
+          f"{g:.3e}, eager vs eager {e:.3e}")
+    check(g <= 2.0 * e, f"{label}: replayed results {g} from eager, more than twice eager's {e}")
+    return "2x run-to-run"
+
+
+def call_profile(torch, label, modes, run, tries: int = 3):
+    """:func:`call_profile_once`, taken again (``tries`` at most) when the
+    profiler lost a call's events."""
+    for _ in range(tries - 1):
+        rows = call_profile_once(torch, label, modes, run)
+        if rows is not None:
+            return rows
+        DEVICE_MS_STATS["again"] += 1
+    rows = call_profile_once(torch, label, modes, run)
+    check(rows is not None, f"graphs: {label}: the profile lost calls in {tries} profiles")
+    return rows
+
+
+def call_profile_once(torch, label, modes, run):
+    """One torch.profiler profile of ``PROFILE_LEAD`` graph calls and then one
+    call per entry of ``modes`` (True: graph, False: eager), a marker kernel
+    before each call and after the last, a synchronize after each -> one row
+    per call: host launch calls (kernel launches, graph launches, memcpys,
+    fill ops), CUDA-event ms, device busy ms (and its share in dtype casts
+    and copies by kernel, and in memcpys), peak allocated and reserved bytes,
+    the set of kernel names and the count of each of the port's kernels by
+    name; None if the profile lost calls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in modes]
+    mem = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_LEAD + len(modes) + 1):
+            with record_function(DEVICE_MS_MARK):
+                torch.cuda._sleep(1000)
+            j = i - PROFILE_LEAD
+            if 0 <= j < len(modes):
+                torch.cuda.reset_peak_memory_stats()
+                with record_function(f"chip_smoke.call.{j}"):
+                    ev[j][0].record()
+                    run(modes[j])
+                    ev[j][1].record()
+                torch.cuda.synchronize()
+                mem.append((torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()))
+            elif j < 0:
+                run(True)
+            torch.cuda.synchronize()
+    events = prof.events()
+    windows = {int(e.name.rsplit(".", 1)[1]): (e.time_range.start, e.time_range.end) for e in events
+               if e.name.startswith("chip_smoke.call.") and e.device_type != cuda}
+    device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
+                    if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+                    and e.name != DEVICE_MS_MARK and not e.name.startswith("chip_smoke."))
+    at = [i for i, (_, _, name) in enumerate(device) if "spin_kernel" in name][-(len(modes) + 1):]
+    if len(at) != len(modes) + 1 or len(windows) != len(modes):
+        print(f"graphs: {label}: the profile lost calls ({len(at)} markers, {len(windows)} windows)")
+        return None
+    host = [e for e in events if e.device_type != cuda]
+    rows = []
+    for j, g in enumerate(modes):
+        lo, hi = windows[j]
+        here = [e for e in host if lo <= e.time_range.start <= hi]
+        mine = [e.name for e in here]
+        dev = device[at[j] + 1:at[j + 1]]
+        rows.append(dict(
+            graphs=g, launches=sum(n in HOST_LAUNCHES for n in mine),
+            in_copies=launches_inside(here, ("aten::copy_", "aten::_foreach_copy_")),
+            graph_launches=mine.count("cudaGraphLaunch"),
+            memcpys=sum(n.startswith("cudaMemcpy") for n in mine), fills=mine.count("aten::fill_"),
+            copies=mine.count("aten::copy_"), foreach=mine.count("aten::_foreach_copy_"),
+            ms=ev[j][0].elapsed_time(ev[j][1]), busy=sum(us for _, us, _ in dev) / 1e3,
+            casts=sum(us for _, us, n in dev if "direct_copy_kernel" in n) / 1e3,
+            memcpy_ms=sum(us for _, us, n in dev if n.lower().startswith("memcpy")) / 1e3,
+            peak=mem[j][0], reserved=mem[j][1],
+            kernels={n for _, _, n in dev if not n.lower().startswith(("memcpy", "memset"))},
+            port=Counter(n for _, _, n in dev if port_symbol(n))))
+    return rows
+
+
+def launches_inside(events, ops):
+    """How many of ``events``' host kernel launches start inside an event
+    named in ``ops`` (the launches those ops made)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.name in ops)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+    n = 0
+    for e in events:
+        if e.name in HOST_LAUNCHES:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            n += i >= 0 and e.time_range.start <= merged[i][1]
+    return n
+
+
+def graph_vs_eager(torch, label, call, want, pairs=GRAPH_PAIRS):
+    """Graph against eager in ``pairs`` alternating pairs (G E, E G, ...):
+    wall per call by the host clock without the profiler, then the same
+    order in one profile (:func:`call_profile`).  Prints the medians and
+    checks that a replay launches no kernel from the host apart from its
+    input and output copies, the fills of ``CUDAGraph.replay``'s generator
+    prologue and one graph launch, runs the same kernels as the eager call
+    (and those copies and fills),
+    and runs each of the port's kernels as often as the eager call: each
+    wrapper's launches, measured from the device's kernel names
+    (:func:`device_launches`), equal ``want`` in every replay and every eager
+    call -> the replays' measured launches."""
+
+    def run(graphs):
+        with graph_mode(graphs):
+            call()
+
+    modes = [g for i in range(pairs) for g in ((True, False) if i % 2 == 0 else (False, True))]
+    walls = {True: [], False: []}
+    for g in modes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(g)
+        torch.cuda.synchronize()
+        walls[g].append(1e3 * (time.perf_counter() - t0))
+    rows = call_profile(torch, label, modes, run)
+    out = {}
+    for g in (True, False):
+        mine = [r for r in rows if r["graphs"] == g]
+        med = {k: statistics.median(r[k] for r in mine)
+               for k in ("launches", "in_copies", "graph_launches", "memcpys", "fills", "copies",
+                         "foreach", "ms", "busy", "casts", "memcpy_ms", "peak", "reserved")}
+        med["wall"] = statistics.median(walls[g])
+        med["idle"] = 1.0 - med["busy"] / med["ms"] if med["ms"] else math.nan
+        med["kernels"] = set().union(*(r["kernels"] for r in mine))
+        out[g] = med
+        print(f"graphs: {label} {'graph' if g else 'eager'} (median of {len(mine)}): wall "
+              f"{med['wall']:.3f} ms unprofiled, {med['ms']:.3f} ms profiled; device busy "
+              f"{med['busy']:.3f} ms (idle {100 * med['idle']:.1f}%; casts and copies by kernel "
+              f"{med['casts']:.3f} ms, memcpy {med['memcpy_ms']:.3f} ms); host: {med['launches']:.0f} "
+              f"kernel launch calls ({med['in_copies']:.0f} inside copy ops), "
+              f"{med['graph_launches']:.0f} graph launches, {med['memcpys']:.0f} memcpy calls, "
+              f"{med['copies']:.0f} copy ops, {med['foreach']:.0f} multi-tensor copy ops, "
+              f"{med['fills']:.0f} fill ops; peak allocated "
+              f"{med['peak'] / 2 ** 30:.2f} GiB, reserved {med['reserved'] / 2 ** 30:.2f} GiB; "
+              f"walls {[round(w, 3) for w in walls[g]]}")
+    g, e = out[True], out[False]
+    print(f"graphs: {label}: graph / eager wall {g['wall'] / e['wall']:.3f}, busy "
+          f"{g['busy'] / e['busy']:.3f}")
+    for r in rows:
+        if r["graphs"]:
+            check(r["graph_launches"] == 1 and r["launches"] <= r["fills"] + r["in_copies"],
+                  f"{label}: a replay made {r['launches']} kernel launch calls for {r['fills']} "
+                  f"generator fills, {r['in_copies']} inside its input and output copies and "
+                  f"{r['graph_launches']} graph launches")
+    missing, extra = e["kernels"] - g["kernels"], g["kernels"] - e["kernels"]
+    print(f"graphs: {label}: {len(g['kernels'])} kernel names in the replays, {len(e['kernels'])} "
+          f"eager; only eager {sorted(missing)[:4]}, only graph {sorted(extra)[:4]}")
+    check(g["busy"] > 0.0, f"{label}: the profiler recorded no device time for a replay")
+    # the replay's own: the generator fills and the multi-tensor input copies
+    check(not missing and all("fill" in n.lower() or ("multi_tensor_apply" in n and "Copy<" in n)
+                              for n in extra),
+          f"{label}: the replay's kernels differ from the eager call's")
+    measured = [(r["graphs"], device_launches(r["port"])) for r in rows]
+    replay = next(m for g, m in measured if g)
+    print(f"graphs: {label}: launches measured on the device per replay {counts_text(replay)}, "
+          f"per eager call {counts_text(next(m for g, m in measured if not g))}; "
+          f"{sum(rows[0]['port'].values())} port kernel launches per call")
+    check(all(m == want for _, m in measured),
+          f"{label}: device-measured launches {[m for _, m in measured]}, expected {want}")
+    check(all(r["port"] == rows[0]["port"] for r in rows),
+          f"{label}: the port's kernels by name differ between calls")
+    return replay
+
+
+def graph_path(torch, label, first, call, want, n=3):
+    """A path through the compiled layer: ``first()`` makes its first call's
+    result from the start state, ``call(prev)`` one call (``prev`` None: from
+    the start state).  Eager twice and graph once, ``n`` chained calls each;
+    the launch counts around one replay (returned); the captures it made."""
+    from feddat_tpu_torch.train import compiled
+
+    eager, eager_counts = run_calls(torch, call, False, n)
+    eager2, _ = run_calls(torch, call, False, n)
+    cap0 = compiled.STATS["captures"]
+    graph, first_counts = run_calls(torch, call, True, n)
+    captures = compiled.STATS["captures"] - cap0
+    reset_counts()
+    rep0 = compiled.STATS["replays"]
+    first()
+    torch.cuda.synchronize()
+    replay = read_counts()
+    replays = compiled.STATS["replays"] - rep0
+    print(f"graphs: {label}: {captures} capture(s); wrapper counts per eager call "
+          f"{counts_text(eager_counts)}, per replay {counts_text(replay)} ({replays} replay), first graph call "
+          f"{counts_text(first_counts)}; expected {counts_text(want)}")
+    check(captures >= 1 and replays == 1, f"{label}: {captures} captures, {replays} replays")
+    check(eager_counts == replay == first_counts == want,
+          f"{label}: launches eager {eager_counts}, replay {replay}, expected {want}")
+    graph_agreement(torch, label, graph, eager, eager2)
+    return replay
+
+
+def counts_text(counts):
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+
+
+def vilt_step_path(torch, label, seed, attn_impl, fused, want):
+    from feddat_tpu_torch.train import dat
+
+    model = build_trainer_model(torch, seed, attn_impl)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_cuda_batch(torch, train_client(TRAIN_CLIENTS[0], TB, 0, seed))
+    step, part, opt = make_steps(model, params, fused)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    graph_path(torch, label, lambda: step(state0, batch),
+               lambda prev: step(prev[0] if prev else state0, batch), want)
+    launches = graph_vs_eager(torch, label, lambda: step(state0, batch), want)
+    return dict(model=model, params=params, batch=batch, launches=launches)
+
+
+def to_cuda_batch(torch, client):
+    from feddat_tpu_torch.train.forwards import to_device
+
+    return to_device(next(client.train_batches(0)), torch.device("cuda"))
+
+
+def gate_checks(torch, seed):
+    """The routing gate on the card: #4's bottleneck limit as the gate asks it
+    against the library's own; a "layer" DAT step at adapter bottleneck 96
+    (reduction 8), which #4 does not take, goes through #1/#3 and holds the
+    2x-bf16 rule against the plain path.  And the refusals that stay: a
+    "block" site at S=769, past #1's 768, and an ensemble adapter at
+    bottleneck 192, past #2's 128, raise on the card and launch nothing (no
+    plain version runs in a kernel's place)."""
+    from feddat_tpu_torch.configs.core import AdapterSpec, OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.adapters import AdapterCell
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.ops import layer_block as lb
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_fused_parts, to_device
+
+    print(f"gates: #4 largest bottleneck {lb._max_bottleneck()} (gate {lb.MAX_BOTTLENECK})")
+    check(lb._max_bottleneck() == lb.MAX_BOTTLENECK, "the gate's limit differs from #4's")
+
+    def r96(attn_impl, dtype="bfloat16", state=None):
+        model, cfg = create_model("vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS},
+                                  PEFTMode.DAT, 8, dtype, image_size=TCANVAS, attn_impl=attn_impl,
+                                  seed=seed)
+        if state is not None:
+            model.load_state_dict(state)
+        return model
+
+    model = r96("layer")
+    layers = model.config.num_layers
+    check(model.vilt.layers[0].adapter.bottleneck == 96, "the reduction-8 model's bottleneck is not 96")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_cuda_batch(torch, train_client(TRAIN_CLIENTS[0], TB, 0, seed))
+    part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode.DAT)
+    opt = OptimizerConfig()
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+
+    def step_of(m):
+        return dat.make_dat_train_step_fused(*make_vilt_fused_parts(m, TRAIN_CLIENTS[0]), part, opt, 100)
+
+    step = step_of(model)
+    reset_counts()
+    _, kernel_m = step(state0, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {**NO_LAUNCHES, "attn_block": 2 * layers, "attn_block_bwd": 2 * (layers - 1)}
+    print(f"gates: fused DAT step, attn_impl='layer', bottleneck 96, B={TB} S={TS}: launches "
+          f"{counts_text(launches)} (expected {counts_text(want)}: the block route, #4 none)")
+    check(launches == want, f"bottleneck-96 layer step launches {launches}, expected {want}")
+    sd = model.state_dict()
+    del step, model
+    with graph_mode(False):
+        before = read_counts()
+        plain_m = step_of(r96("auto", state=sd))(state0, batch)[1]
+        exact_m = step_of(r96("auto", "float32", state=sd))(state0, batch)[1]
+        torch.cuda.synchronize()
+        check(read_counts() == before, "the plain path launched a kernel")
+    grad_agreement(torch, "fused step, bottleneck 96, block route", kernel_m, plain_m, exact_m)
+    del kernel_m, plain_m, exact_m, params, state0, sd
+    torch.cuda.empty_cache()
+
+    canvas = (832, 896)  # 26 x 28 patches: S = 40 + 728 + 1 = 769
+    s_long = TEXT_LEN + (canvas[0] // 32) * (canvas[1] // 32) + 1
+    client = SyntheticVQAClient("c0", num_train=2, num_eval=0, num_labels=NUM_LABELS, vocab_size=30522,
+                                text_len=TEXT_LEN, image_size=canvas, batch_size=2, val_batch_size=2,
+                                seed=seed)
+    long_batch = to_device(next(client.train_batches(0)), torch.device("cuda"))
+    m, _ = create_model("vilt", {"c0": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, 16,
+                        "bfloat16", image_size=canvas, attn_impl="block", seed=seed)
+    check(s_long == 769, f"the long canvas gives S={s_long}")
+    refused(torch, f"a 'block' model at S={s_long}",
+            lambda: m("c0", long_batch, adapter_mode="ensemble", deterministic=True))
+    del m, long_batch
+
+    spec = AdapterSpec(names=("adapter_0", "adapter_1", "adapter_2"), reduction_factor=4, fused=True)
+    cell = AdapterCell(spec, 768, torch.bfloat16).cuda()
+    z = torch.randn(2, 7, 768, device="cuda", dtype=torch.bfloat16)
+    check(cell.bottleneck == 192, f"the reduction-4 cell's bottleneck is {cell.bottleneck}")
+    refused(torch, "a fused ensemble adapter at bottleneck 192", lambda: cell.delta(z, "ensemble"))
+
+
+def refused(torch, what, call):
+    """``call()`` must raise ValueError on the card before any launch."""
+    reset_counts()
+    try:
+        call()
+    except ValueError as e:
+        torch.cuda.synchronize()
+        print(f"gates: {what} is refused on the card: {e}")
+        check(read_counts() == NO_LAUNCHES, f"{what}: launches before the refusal {read_counts()}")
+        return
+    raise AssertionError(f"{what} ran on the card; its kernel does not take it")
+
+
+def federated_rounds(torch, label, make_trainer, captures, programs):
+    """Two rounds of a FederatedTrainer and evaluate_dat after the first,
+    eager and then with graphs: the graph rounds share ``programs`` programs
+    and capture ``captures`` graphs, launch what the eager rounds launch, and
+    give bitwise equal scores and server adapters; prints the times and the
+    peak reserved memory of each."""
+    from feddat_tpu_torch.train import compiled
+
+    rounds = {}
+    for graphs in (False, True):
+        trainer = make_trainer()
+        with graph_mode(graphs):
+            cap0 = compiled.STATS["captures"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer.run_round(0)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            round_launches = read_counts()
+            entry = trainer.evaluate_round(0)
+            t0 = time.perf_counter()
+            trainer.run_round(1)
+            torch.cuda.synchronize()
+            second_s = time.perf_counter() - t0
+            made = compiled.STATS["captures"] - cap0
+        shared = len(trainer._programs)
+        rounds[graphs] = dict(scores=entry["scores"], captures=made, launches=round_launches,
+                              programs=shared,
+                              server={k: v for k, v in trainer.server_params.items() if "adapter" in k})
+        print(f"graphs: FederatedTrainer, {label}, {'graphs' if graphs else 'eager'}: round 0 "
+              f"{first_s:.3f} s (captures included), round 1 {second_s:.3f} s; {made} captures, "
+              f"{shared} programs; launches in round 0 {counts_text(round_launches)}; evaluate_dat "
+              f"{entry['scores']}; peak reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
+        del trainer
+        torch.cuda.empty_cache()
+    g, e = rounds[True], rounds[False]
+    check(g["captures"] == captures and g["programs"] == programs,
+          f"{label}: {g['captures']} captures and {g['programs']} programs, expected {captures} "
+          f"and {programs}")
+    check(g["launches"] == e["launches"], f"{label}: round launches graph {g['launches']}, eager {e['launches']}")
+    check(g["scores"] == e["scores"], f"{label}: evaluate_dat graph {g['scores']}, eager {e['scores']}")
+    bad = [k for k in e["server"] if not torch.equal(g["server"][k], e["server"][k])]
+    print(f"graphs: FederatedTrainer, {label}, graphs vs eager after 2 rounds: {len(bad)} of "
+          f"{len(e['server'])} adapter tensors differ (bitwise rule)")
+    check(not bad, f"{label}: the graph rounds' server adapters differ from the eager rounds': {bad[:3]}")
+
+
+def phase_graphs(torch, seed):
+    """Each path of the compiled layer as users call it (see the comment
+    above GRAPH_PAIRS), the FederatedTrainer's shared programs, and the
+    routing gates -> launches per replay, for the JSON line."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import compiled, dat
+    from feddat_tpu_torch.train.evaluation import make_albef_eval_step, make_eval_step
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # 1. the fused DAT step, ViLT, attn_impl='layer': #1 and #4
+    p = vilt_step_path(torch, "ViLT fused DAT step (layer)", seed, "layer", True,
+                       {**NO_LAUNCHES, "attn_block": 24, "layer_block_bwd": 24})
+    launches.update(attn_block=p["launches"]["attn_block"],
+                    layer_block_bwd=p["launches"]["layer_block_bwd"])
+
+    # 5a. the ViLT eval step on the same model, each DAT mode (evaluate_dat)
+    ev = make_eval_step(p["model"], TRAIN_CLIENTS[0])
+    for mode in ("ensemble", "adapter_0", "adapter_1"):
+        def call(prev, mode=mode):
+            return ev(p["params"], p["batch"], adapter_mode=mode)
+        graph_path(torch, f"ViLT eval step ({mode})", lambda: call(None), call,
+                   {**NO_LAUNCHES, "attn_block": 12})
+    graph_vs_eager(torch, "ViLT eval step (ensemble)",
+                   lambda: ev(p["params"], p["batch"], adapter_mode="ensemble"),
+                   {**NO_LAUNCHES, "attn_block": 12})
+    del p, ev
+    torch.cuda.empty_cache()
+
+    # 4. the standard DAT step, attn_impl='block': #1 and #3
+    p = vilt_step_path(torch, "ViLT standard DAT step (block)", seed, "block", False,
+                       {**NO_LAUNCHES, "attn_block": 36, "attn_block_bwd": 22})
+    launches["attn_block_bwd"] = p["launches"]["attn_block_bwd"]
+    del p
+    torch.cuda.empty_cache()
+
+    # 2. the LoRA step, attn_impl='fused': #5 and #6
+    model = peft_model(torch, "lora", seed, "fused")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_cuda_batch(torch, peft_client(TRAIN_CLIENTS[0], TB, 0, seed))
+    step, part, opt = peft_step(model, "lora", params)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    want = {**NO_LAUNCHES, "fused_attention": 12, "fused_attention_bwd": 12}
+    graph_path(torch, "LoRA step (fused)", lambda: step(state0, batch),
+               lambda prev: step(prev[0] if prev else state0, batch), want)
+    replay = graph_vs_eager(torch, "LoRA step (fused)", lambda: step(state0, batch), want)
+    launches.update(fused_attention=replay["fused_attention"],
+                    fused_attention_bwd=replay["fused_attention_bwd"])
+    del model, params, batch, step, state0
+    torch.cuda.empty_cache()
+
+    # 6. ViltVqaPredictor.forward, one graph per bucket: #1 and #2; the second
+    # request batch is replayed from rewritten input buffers (#2's TMA maps
+    # hold the capture's addresses)
+    pred = build_predictor(torch, seed, "block", True)
+    imgs, qs = synthetic_requests(2 * B, seed)
+    batches = [pred._preprocess(imgs[:B], qs[:B]), pred._preprocess(imgs[B:], qs[B:])]
+    want = {**NO_LAUNCHES, "attn_block": 12, "adapter_fused": 12}
+    graph_path(torch, "ViLT serving forward (B=16, two request batches)",
+               lambda: pred.forward(batches[0]),
+               lambda prev: torch.from_numpy(pred.forward(batches[0 if prev is None else 1])),
+               want, n=2)
+    single = pred.predict(imgs[:1], qs[:1], top_k=5)
+    with graph_mode(False):
+        single_eager = pred.predict(imgs[:1], qs[:1], top_k=5)
+    print(f"graphs: ViLT predict, the B=1 bucket: graph {single[0][:2]}, eager {single_eager[0][:2]}")
+    check(single == single_eager, "the B=1 bucket's replay differs from the eager forward")
+    replay = graph_vs_eager(torch, "ViLT serving forward (B=16)", lambda: pred.forward(batches[1]),
+                            want)
+    launches["adapter_fused"] = replay["adapter_fused"]
+    del pred, batches
+    torch.cuda.empty_cache()
+
+    # 7. AlbefVqaPredictor.rank (rank_answer, k=64), one graph per bucket: #7
+    pred = albef_predictor(torch, seed, "flash")
+    imgs, qs = albef_requests(2 * AB, seed)
+    batches = [pred._preprocess(imgs[:AB], qs[:AB]), pred._preprocess(imgs[AB:], qs[AB:])]
+    want = {**NO_LAUNCHES, "flash_attention": 54}
+    graph_path(torch, "ALBEF rank_answer (B=16, k=64)", lambda: pred.rank(batches[0]),
+               lambda prev: tuple(torch.from_numpy(a) for a in
+                                  pred.rank(batches[0 if prev is None else 1])), want, n=2)
+    replay = graph_vs_eager(torch, "ALBEF rank_answer (B=16, k=64)", lambda: pred.rank(batches[0]),
+                            want)
+    launches["flash_attention"] = replay["flash_attention"]
+    del pred, batches
+    torch.cuda.empty_cache()
+
+    # 3. the fused ALBEF step, dropout 0.1 live, attn_impl='flash': #7, #8, #9
+    model = albef_train_model(torch, seed, "flash")
+    params = {n: t.detach() for n, t in model.state_dict().items()}
+    batch = albef_train_batch(torch, ATB, seed)
+    step, state0 = albef_fused_step(torch, model, params, seed)
+    vit = model.cfg.vision_layers
+    want = {**NO_LAUNCHES, "flash_attention": 2 * vit, "flash_attention_bwd_dq": 2 * (vit - 1),
+            "flash_attention_bwd_dkv": 2 * (vit - 1)}
+    graph_path(torch, "ALBEF fused DAT step (flash, dropout live, B=48x4)",
+               lambda: step(state0, batch),
+               lambda prev: step(prev[0] if prev else state0, batch), want)
+    _, m1 = step(state0, batch)
+    _, m2 = step(state0, batch)
+    _, m3 = step(state0.replace(rng=torch.Generator().manual_seed(seed + 1)), batch)
+    same = [float(m1[k]) == float(m2[k]) for k in ("loss", "loss_shared")]
+    moved = [abs(float(m3[k]) - float(m1[k])) for k in ("loss", "loss_shared")]
+    print(f"graphs: ALBEF replays from one state: losses equal {same}; from generator seed "
+          f"{seed + 1}: losses move by {moved[0]:.3e}, {moved[1]:.3e}")
+    check(all(same) and min(moved) > 0.0, "replayed dropout masks are not a function of the seed")
+    del m1, m2, m3
+    replay = graph_vs_eager(torch, "ALBEF fused DAT step (B=48x4)", lambda: step(state0, batch),
+                            want)
+    launches.update({k: replay[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
+    del step, state0
+
+    # 5b. the ALBEF eval step (rank_answer over a client's bank), each DAT mode
+    client = SyntheticAlbefClient("c0", num_train=ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+                                  vocab_size=30522, question_len=LQ, answer_len=LA,
+                                  max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
+                                  batch_size=ATB, val_batch_size=ATB, seed=seed + 1)
+    aev = make_albef_eval_step(model, client.answer_ids, client.answer_mask, k=ALBEF_K)
+    eval_batch = next(iter(client.eval_batches()))
+    for mode in ("ensemble", "adapter_0"):
+        def acall(prev, mode=mode):
+            return aev(params, eval_batch, adapter_mode=mode)
+        graph_path(torch, f"ALBEF eval step ({mode}, B={ATB})", lambda: acall(None), acall,
+                   {**NO_LAUNCHES, "flash_attention": 54})
+    graph_vs_eager(
+        torch, f"ALBEF eval step (B={ATB})", lambda: aev(params, eval_batch, adapter_mode="ensemble"),
+        {**NO_LAUNCHES, "flash_attention": 54})
+    del aev
+    torch.cuda.empty_cache()
+
+    # 8. FederatedTrainer: two ALBEF clients share one train program and one
+    # eval program; a round and evaluate_dat, eager against graphs
+    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+                                       vocab_size=30522, question_len=LQ, answer_len=LA,
+                                       max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
+                                       batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
+               for i, k in enumerate(TRAIN_CLIENTS)}
+    hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks={
+        k: (c.answer_ids, c.answer_mask) for k, c in clients.items()})
+    tcfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.DAT,
+                       optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=2, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    federated_rounds(torch, "2 ALBEF clients x 2 fused steps", lambda: FederatedTrainer(
+        model, params, clients, tcfg, make_forward=hooks.make_forward, make_eval=hooks.make_eval,
+        use_fused_dat=True), captures=1 + 3, programs=2)
+    del model, params, batch, clients
+    torch.cuda.empty_cache()
+
+    # 8b. the same for phase train's ViLT round, the main DAT path: each
+    # client has its task head, so its own train and eval programs
+    model = build_trainer_model(torch, seed, "layer")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    clients = {k: train_client(k, 2 * TB, TB, seed + 1 + i) for i, k in enumerate(TRAIN_CLIENTS)}
+    vcfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=2, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    federated_rounds(torch, "2 ViLT clients x 2 fused steps", lambda: FederatedTrainer(
+        model, params, clients, vcfg, use_fused_dat=True), captures=2 * (1 + 3), programs=4)
+    del model, params, clients
+    torch.cuda.empty_cache()
+
+    gate_checks(torch, seed)
+    print(f"graphs: phase took {time.perf_counter() - t_phase:.1f} s; compiled.STATS {compiled.STATS}")
+    return launches
+
+
 def profile_device(torch, fn, label, groups):
     """Device time of one call of ``fn`` by kernel, from torch.profiler, with
     the idle share of its wall time; ``groups`` sums kernels by name pieces."""
@@ -2609,42 +3291,41 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    phase_build()
-    errs = phase_parity(torch, args.seed)
-    pred, plain, serve_launches, requests = phase_serve(torch, args.seed)
-    tr = phase_train(torch, args.seed)
-    pf = phase_peft(torch, args.seed)
-    al = phase_albef(torch, args.seed)
-    times = phase_time(torch, pred, plain, requests, args.seed)
-    del pred, plain
-    times.update(time_backward_kernels(torch, args.seed))
-    time_train(torch, tr)
-    times.update(time_fused_kernels(torch, args.seed))
-    time_peft(torch, pf, args.seed)
-    pf_launches = pf["launches"]
-    del pf
-    torch.cuda.empty_cache()
-    flash_rows, _, _ = time_albef(torch, al, args.seed)
-    times["flash_attention"] = flash_rows[0][1:]
+    from feddat_tpu_torch.train import compiled
 
-    # each kernel's launches on the path it serves: the fused DAT train step
-    # for #1 and #4, the standard 'block' step for #3, the serving path for #2,
-    # the LoRA step through attn_impl='fused' for #5 and #6, one ALBEF
-    # rank_answer through attn_impl='flash' for #7, and one fused ALBEF DAT
-    # step with dropout live (this slice's main path) for #8 and #9
-    launches = {"attn_block": tr["launches"]["attn_block"],
-                "adapter_fused": serve_launches["adapter_fused"],
-                "attn_block_bwd": tr["std_launches"]["attn_block_bwd"],
-                "layer_block_bwd": tr["launches"]["layer_block_bwd"],
-                "fused_attention": pf_launches["fused_attention"],
-                "fused_attention_bwd": pf_launches["fused_attention_bwd"],
-                "flash_attention": al["launches"]["flash_attention"]}
-    del tr, al  # the earlier phases' models
-    torch.cuda.empty_cache()
-    at = phase_albef_train(torch, args.seed)
-    bwd_rows, _, _ = time_albef_train(torch, at, args.seed)
-    times.update(bwd_rows)
-    launches.update({k: at["launches"][k] for k in bwd_rows})
+    phase_build()
+    # phases 2-9 run the eager path (disable_graphs): the kernels' parity,
+    # gradients and times as the earlier slices measured them
+    with compiled.disable_graphs():
+        errs = phase_parity(torch, args.seed)
+        pred, plain, _, requests = phase_serve(torch, args.seed)
+        tr = phase_train(torch, args.seed)
+        pf = phase_peft(torch, args.seed)
+        al = phase_albef(torch, args.seed)
+        times = phase_time(torch, pred, plain, requests, args.seed)
+        del pred, plain
+        times.update(time_backward_kernels(torch, args.seed))
+        time_train(torch, tr)
+        times.update(time_fused_kernels(torch, args.seed))
+        time_peft(torch, pf, args.seed)
+        del pf
+        torch.cuda.empty_cache()
+        flash_rows, _, _ = time_albef(torch, al, args.seed)
+        times["flash_attention"] = flash_rows[0][1:]
+        del tr, al  # the earlier phases' models
+        torch.cuda.empty_cache()
+        at = phase_albef_train(torch, args.seed)
+        bwd_rows, _, _ = time_albef_train(torch, at, args.seed)
+        times.update(bwd_rows)
+        del at
+        torch.cuda.empty_cache()
+    check(compiled.STATS["captures"] == 0, "an eager phase captured a graph")
+    # each kernel's launches per replayed call on the path it serves, the
+    # main path of this slice: the fused DAT step for #1 and #4, the standard
+    # 'block' step for #3, the serving forward for #2, the LoRA step for #5
+    # and #6, one rank_answer for #7, and the fused ALBEF step with dropout
+    # live for #8 and #9
+    launches = phase_graphs(torch, args.seed)
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

@@ -10,15 +10,30 @@ identical pixels.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 from PIL import Image
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 VILT_MEAN = np.array([0.5, 0.5, 0.5], np.float32)
 VILT_STD = np.array([0.5, 0.5, 0.5], np.float32)
+_ON_DEVICE: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def normalize_u8(x: torch.Tensor, stats: str) -> torch.Tensor:
+    """``(x / 255 − mean) / std`` on ``x``'s device, fp32, with ``stats``
+    "vilt" or "clip".  The statistics go to the device once per process: a
+    CUDA graph's capture cannot copy from pageable host memory, and the
+    warm-up call before it makes the copy."""
+    key = (stats, x.device)
+    if key not in _ON_DEVICE:
+        mean, std = (VILT_MEAN, VILT_STD) if stats == "vilt" else (CLIP_MEAN, CLIP_STD)
+        _ON_DEVICE[key] = torch.from_numpy(np.stack([mean, std])).to(x.device)
+    mean_std = _ON_DEVICE[key]
+    return (x.to(torch.float32) / 255.0 - mean_std[0]) / mean_std[1]
 
 
 def vilt_resize(img: Image.Image, shorter: int = 384, longer: int = 640) -> Image.Image:

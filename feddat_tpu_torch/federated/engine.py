@@ -16,7 +16,12 @@ Parameters are ``{state_dict name: tensor}`` dicts on the engine's device
 (CUDA unless ``device="cpu"``).  The model is ViLT (``ViltContinualLearner``)
 or ALBEF (``AlbefModel``, with the hooks of ``train/trainers.py``).  Each
 client's state carries a ``torch.Generator`` seeded from the engine's, from
-which every step draws its per-stage dropout generators (``train/dat.py``).
+which every step draws its per-stage dropout seeds (``train/dat.py``).  The
+train and eval steps are compiled (``train/compiled.py``): CUDA graphs on the
+card.  Clients whose steps compute the same function (train steps of equal
+kind, partitions and optimizer settings, which ALBEF's clients have; eval
+steps of equal ``Compiled.key``) share one program, so one capture per step
+and shape serves them all; the graphs share one memory pool.
 Checkpointing and resume, tensor parallelism (``tp_mesh``), profiling
 (``profile_dir``), ALBEF's momentum-distillation state
 (``aux_init``/``aux_forward``) and preemption handling are later slices
@@ -44,6 +49,7 @@ from feddat_tpu_torch.peft.partition import (
     split_by_roles,
     teacher_refresh,
 )
+from feddat_tpu_torch.train.compiled import Compiled
 from feddat_tpu_torch.train.dat import (
     Partitioner,
     init_train_state,
@@ -118,6 +124,12 @@ class FederatedTrainer:
         make_forward = make_forward or (lambda m, k: make_vilt_forward(m, k, loss="vqa"))
 
         self.clients: List[ClientRuntime] = []
+        # programs shared by clients.  A train step's body is fixed by its
+        # kind, its partitions and its optimizer settings: the model and the
+        # frozen weights are the engine's, and a client's forward differs from
+        # another's only in its task head, whose paths are in head_paths (ViLT's
+        # task_<key> heads; ALBEF's one cls head, so ALBEF clients share)
+        self._programs: Dict[Any, Any] = {}
         for task_key, data in clients.items():
             forward = make_forward(model, task_key)
             part = Partitioner(params, task_key, self.mode, layers_to_freeze=config.layers_to_freeze)
@@ -133,7 +145,11 @@ class FederatedTrainer:
             else:
                 adapter_mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
                 step = make_plain_train_step(forward, part, opt_cfg, max_steps, adapter_mode)
+            step.share(self._programs, (step.program.name, part.shared_paths, part.local_paths,
+                                        part.head_paths, opt_cfg))
             eval_step = make_eval(model, task_key) if make_eval else make_eval_step(model, task_key, metric)
+            if isinstance(eval_step, Compiled) and eval_step.key is not None:
+                eval_step.share(self._programs, eval_step.key)
             self.clients.append(ClientRuntime(task_key, data, forward, part, step, eval_step, opt_cfg))
 
         # every client starts from the same personal partition (main.py:440-450)

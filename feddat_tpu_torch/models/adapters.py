@@ -55,10 +55,10 @@ class AdapterCell(nn.Module):
         self.spec = spec
         self.model_dim = model_dim
         self.dtype = dtype
-        bottleneck = model_dim // spec.reduction_factor
+        self.bottleneck = model_dim // spec.reduction_factor
         for name in spec.names:
-            self.add_module(f"{name}_down", nn.Linear(model_dim, bottleneck))
-            self.add_module(f"{name}_up", nn.Linear(bottleneck, model_dim))
+            self.add_module(f"{name}_down", nn.Linear(model_dim, self.bottleneck))
+            self.add_module(f"{name}_up", nn.Linear(self.bottleneck, model_dim))
 
     def _one(self, z: torch.Tensor, name: str) -> torch.Tensor:
         down = dense(z, getattr(self, f"{name}_down"), self.dtype)

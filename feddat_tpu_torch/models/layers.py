@@ -25,6 +25,7 @@ makes current (``call_method(..., rng=gen)``), never from the global RNG.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -34,7 +35,10 @@ from torch.nn import functional as F
 from feddat_tpu_torch.configs.core import AdapterSpec, LoraSpec
 from feddat_tpu_torch.utils import seeding
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
+from feddat_tpu_torch.ops import layer_block as _lb
 from feddat_tpu_torch.ops.attention import dot_product_attention
+
+logger = logging.getLogger("feddat_tpu_torch")
 
 ATTN_IMPLS = ("auto", "xla", "block", "layer", "fused", "flash")
 # Longest S at which norm_before is fused into the kernel (layers.py:494).
@@ -112,6 +116,25 @@ def attn_block_eligible(attn_impl: str, bias: Optional[torch.Tensor], lora: Lora
         and not lora.enabled
         and not (dropout_rate > 0.0 and not deterministic)
     )
+
+
+_ROUTED: set = set()
+
+
+def layer_route_takes(r: int, on_card: bool) -> bool:
+    """Whether the whole-layer route takes adapter bottleneck ``r``: on the
+    card, #4 holds those of ``ops/layer_block.py::takes_bottleneck`` (JAX's
+    gate has no such limit, so any other goes the ``"block"`` way, as a layer
+    JAX's gate refuses does, and stays on kernels #1/#3); the plain versions
+    on the CPU take any.  A shape predicate, logged once per bottleneck: a
+    site it admits whose kernel fails to build or launch still raises."""
+    if on_card and not _lb.takes_bottleneck(r):
+        if r not in _ROUTED:
+            _ROUTED.add(r)
+            logger.info("route: layer site with adapter bottleneck %d takes the block route "
+                        "(kernel #4 holds multiples of 16 up to %d)", r, _lb.MAX_BOTTLENECK)
+        return False
+    return True
 
 
 class MultiHeadAttention(nn.Module):
@@ -245,7 +268,8 @@ class PreLNLayer(nn.Module):
         contract the kernel implements (one named adapter, or the ensemble
         whose partner is the frozen ``adapter_2`` teacher), no per-example
         adapter weights, a block-eligible site, no live hidden dropout, and
-        S at most ``LAYER_MAX_S``."""
+        S at most ``LAYER_MAX_S``; on the card an adapter bottleneck that #4
+        takes (:func:`layer_route_takes`)."""
         names = self.adapter_spec.names
         mode_ok = adapter_mode in names or (
             adapter_mode == MODE_ENSEMBLE and ensemble_members(names)[1] == "adapter_2")
@@ -256,12 +280,11 @@ class PreLNLayer(nn.Module):
             and attn_block_eligible("block", bias, self.lora, self.attention_dropout, deterministic)
             and not (self.dropout_rate > 0.0 and not deterministic)
             and x.shape[1] <= LAYER_MAX_S
+            and layer_route_takes(self.adapter.bottleneck, x.is_cuda)
         )
 
     def _layer_kernel(self, x, bias, adapter_mode):
         """``layers.py:395-453``: the whole layer through ``ops/layer_block.py``."""
-        from feddat_tpu_torch.ops.layer_block import layer_block
-
         spec, dt = self.adapter_spec, self.dtype
         if adapter_mode == MODE_ENSEMBLE:
             a_name, b_name = ensemble_members(spec.names)
@@ -288,7 +311,7 @@ class PreLNLayer(nn.Module):
         bqkv = torch.stack([att.query.dense.bias, att.key.bias, att.value.dense.bias]).to(torch.float32)
         gb1 = torch.stack([self.norm_before.weight, self.norm_before.bias]).to(torch.float32)
         gb2 = torch.stack([self.norm_after.weight, self.norm_after.bias]).to(torch.float32)
-        return layer_block(
+        return _lb.layer_block(
             x.to(dt).contiguous(), w(att.query.dense), w(att.key), w(att.value.dense), w(att.out),
             bqkv, row(att.out.bias), gb1, gb2,
             w(mlp.intermediate), row(mlp.intermediate.bias), w(mlp.output), row(mlp.output.bias),

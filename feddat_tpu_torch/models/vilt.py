@@ -28,7 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import ViltModelConfig
-from feddat_tpu_torch.data.images import VILT_MEAN, VILT_STD
+from feddat_tpu_torch.data.images import normalize_u8
 from feddat_tpu_torch.models.adapters import dense
 from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl, dropout
 from feddat_tpu_torch.models.prompts import ReparamPrompt, splice_after_cls
@@ -179,9 +179,7 @@ class ViltEncoder(nn.Module):
         if pixel_values.dtype == torch.uint8:
             # raw-u8 path: normalise on the device; the canvas zero-pad is
             # reproduced by masking (u8 zeros would normalise to -1)
-            dev = pixel_values.device
-            x = pixel_values.to(torch.float32) / 255.0
-            x = (x - torch.from_numpy(VILT_MEAN).to(dev)) / torch.from_numpy(VILT_STD).to(dev)
+            x = normalize_u8(pixel_values, "vilt")
             if pixel_mask is not None:
                 x = x * pixel_mask[..., None].to(x.dtype)
             pixel_values = x

@@ -15,7 +15,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AlbefModelConfig
-from feddat_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+from feddat_tpu_torch.data.images import normalize_u8
 from feddat_tpu_torch.models import DTYPES
 from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl
 
@@ -53,9 +53,7 @@ class VisionTransformer(nn.Module):
         b = pixel_values.shape[0]
         if pixel_values.dtype == torch.uint8:
             # raw-u8 path: CLIP normalisation on the device (no canvas pad to mask)
-            dev = pixel_values.device
-            x = pixel_values.to(torch.float32) / 255.0
-            pixel_values = (x - torch.from_numpy(CLIP_MEAN).to(dev)) / torch.from_numpy(CLIP_STD).to(dev)
+            pixel_values = normalize_u8(pixel_values, "clip")
         conv = self.patch_embed
         x = F.conv2d(pixel_values.to(self.dtype).permute(0, 3, 1, 2), conv.weight.to(self.dtype),
                      conv.bias.to(self.dtype), stride=c.patch_size)

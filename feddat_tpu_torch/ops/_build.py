@@ -24,7 +24,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +36,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Every CudaKernel made, in order: ``train/compiled.py`` reads their counts
+# around a capture and adds each kernel's share to it at every replay.
+KERNELS: List["CudaKernel"] = []
 
 
 def _nvcc() -> str:
@@ -151,7 +154,9 @@ class CudaKernel:
 
     ``launches`` is a plain integer that the owning wrapper raises by one
     for every successful launch, so a run can show that its main path went
-    through the kernel."""
+    through the kernel.  A launch recorded into a CUDA graph is not one: the
+    capture takes it back and every replay of the graph adds it again
+    (``train/compiled.py``)."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
@@ -159,6 +164,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def function(self):
         if self._fn is None:

@@ -54,6 +54,11 @@ def adapter_fused_reference(h: torch.Tensor, params_a: Params, params_b: Params,
 MAX_DIM, MAX_BOTTLENECK = 1024, 128
 
 
+def takes(d: int, r: int) -> bool:
+    """Whether the kernel takes width ``d`` and bottleneck ``r``."""
+    return d % 64 == 0 and 64 <= d <= MAX_DIM and 1 <= r <= MAX_BOTTLENECK
+
+
 def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
                        weight: float) -> torch.Tensor:
     """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params,
@@ -74,10 +79,9 @@ def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
     for params in (params_a, params_b):
         if tuple(tuple(t.shape) for t in params) != shapes:
             raise ValueError(f"adapter_fused_cuda: params must have shapes {shapes}")
-    if d % 64 or not 64 <= d <= MAX_DIM:
-        raise ValueError(f"adapter_fused_cuda: width {d} is not a multiple of 64 in [64, {MAX_DIM}]")
-    if not 1 <= r <= MAX_BOTTLENECK:
-        raise ValueError(f"adapter_fused_cuda: bottleneck {r} is not in [1, {MAX_BOTTLENECK}]")
+    if not takes(d, r):
+        raise ValueError(f"adapter_fused_cuda: width {d} (a multiple of 64 in [64, {MAX_DIM}]) or "
+                         f"bottleneck {r} (in [1, {MAX_BOTTLENECK}]) out of the kernel's range")
     flat = h.reshape(-1, d)
     out = torch.empty_like(flat)
     if flat.shape[0] == 0:

@@ -228,6 +228,17 @@ def _workspace(b: int, s: int, dm: int, h: int, f: int, r: int) -> int:
     return fn(b, s, dm, h, f, r)
 
 
+# Largest adapter bottleneck of #4 (``AD_MAX_R`` in csrc/layer_block.cu;
+# chip_smoke.py holds it against ``layer_block_max_bottleneck()``).
+MAX_BOTTLENECK = 64
+
+
+def takes_bottleneck(r: int) -> bool:
+    """Whether #4 takes adapter bottleneck ``r``: a multiple of 16 in
+    [16, ``MAX_BOTTLENECK``] (the gate of ``models/layers.py``'s layer route)."""
+    return r % 16 == 0 and 16 <= r <= MAX_BOTTLENECK
+
+
 @functools.cache
 def _max_bottleneck() -> int:
     fn = load("layer_block").layer_block_max_bottleneck

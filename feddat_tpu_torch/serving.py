@@ -7,6 +7,10 @@
 * :class:`AlbefVqaPredictor` (lines 255-390): answer-ranking VQA, ALBEF's
   two-stage ``rank_answer`` over an answer bank kept on the device.
 
+Both run their device work (:meth:`ViltVqaPredictor.forward`'s forward and
+softmax, :meth:`AlbefVqaPredictor.rank`'s ``rank_answer``) as a
+:class:`~feddat_tpu_torch.train.compiled.Compiled` function: one CUDA graph per
+batch bucket on the card, as JAX jits its predictors (serving.py:171, :300).
 ``from_checkpoint`` waits for the checkpoint port (ROADMAP Queue 1, item 5).
 """
 
@@ -21,6 +25,7 @@ from feddat_tpu_torch.data.albef_pipeline import encode_answer_bank
 from feddat_tpu_torch.data.images import albef_resized_u8, pack_u8_canvas, vilt_resized_u8
 from feddat_tpu_torch.data.text import pre_question
 from feddat_tpu_torch.device import DeviceLike, resolve_device
+from feddat_tpu_torch.train.compiled import Compiled
 from feddat_tpu_torch.utils.param_bridge import albef_from_flax, vilt_from_flax
 
 
@@ -64,6 +69,12 @@ def _load_params(model: torch.nn.Module, params_or_state, bridge=vilt_from_flax)
     model.load_state_dict(state, strict=True)
 
 
+def _on_device(batch: Dict[str, np.ndarray], device: torch.device):
+    """The prologue of a predictor's compiled call: numpy batch -> tensors on
+    ``device``."""
+    return {"batch": {k: torch.from_numpy(v).to(device) for k, v in batch.items()}}, (), None
+
+
 def _open(img):
     if hasattr(img, "convert"):
         return img
@@ -105,6 +116,14 @@ class ViltVqaPredictor:
         self.canvas = tuple(canvas)
         self.max_text_len = max_text_len
         self.adapter_mode = adapter_mode
+        self._forward = Compiled(self._probs, lambda batch: _on_device(batch, self.device),
+                                 name="vilt_forward")
+
+    def _probs(self, inp, gens):
+        with torch.inference_mode():
+            _, logits = self.model(self.task_key, inp["batch"], adapter_mode=self.adapter_mode,
+                                   deterministic=True)
+            return torch.softmax(logits.to(torch.float32), dim=-1)
 
     def _preprocess(self, images, questions) -> Dict[str, np.ndarray]:
         u8s = [vilt_resized_u8(_open(img), self.canvas) for img in images]
@@ -119,12 +138,7 @@ class ViltVqaPredictor:
 
     def forward(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         """Padded numpy batch -> class probabilities [B, num_labels] (fp32)."""
-        tensors = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-        with torch.inference_mode():
-            _, logits = self.model(self.task_key, tensors, adapter_mode=self.adapter_mode,
-                                   deterministic=True)
-            probs = torch.softmax(logits.to(torch.float32), dim=-1)
-        return probs.cpu().numpy()
+        return self._forward(batch).cpu().numpy()
 
     def predict(self, images: Sequence[Any], questions: Sequence[str],
                 top_k: int = 5) -> List[List[Tuple[str, float]]]:
@@ -181,6 +195,16 @@ class AlbefVqaPredictor:
         ids, mask = encode_answer_bank(tokenizer, self.answer_list, max_answer_len)
         self.bank = tuple(torch.from_numpy(a).to(self.device) for a in (ids, mask))
         self.k = min(k, len(self.answer_list))
+        self._rank = Compiled(self._rank_body, self._rank_prologue, name="albef_rank")
+
+    def _rank_prologue(self, batch):
+        inputs, seeds, host = _on_device(batch, self.device)
+        return {**inputs, "bank": self.bank}, seeds, host
+
+    def _rank_body(self, inp, gens):
+        with torch.inference_mode():
+            return self.model.rank_answer(inp["batch"], *inp["bank"], self.k, self.adapter_mode,
+                                          self.pad_token_id)
 
     @classmethod
     def from_checkpoint(cls, *args, **kwargs):
@@ -200,10 +224,7 @@ class AlbefVqaPredictor:
     def rank(self, batch: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
         """Padded numpy batch -> (answer indices [B, k], probabilities [B, k]),
         descending."""
-        tensors = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-        with torch.inference_mode():
-            ids, probs = self.model.rank_answer(tensors, *self.bank, self.k, self.adapter_mode,
-                                                self.pad_token_id)
+        ids, probs = self._rank(batch)
         return ids.cpu().numpy(), probs.cpu().numpy()
 
     def predict(self, images: Sequence[Any], questions: Sequence[str],

@@ -1,0 +1,284 @@
+"""Steps and forwards as CUDA graphs: the port's counterpart of ``jax.jit``.
+
+The JAX package runs every train step, eval step and serving forward as one
+compiled program (``feddat_tpu/train/dat.py:307``, ``train/evaluation.py:41``,
+``serving.py:171``).  Here a :class:`Compiled` function has three parts:
+
+* a host **prologue** that turns its arguments into a tree of tensors (dicts,
+  lists and tuples of tensors; any other leaf is a static value that keys
+  the cache) and the seeds of the dropout generators the body draws from.
+  All host arithmetic happens here: the lr, Adam's bias corrections and the
+  stage seeds enter the body as device tensors and generator states;
+* a device **body** ``body(inputs, gens) -> outputs`` that reads nothing from
+  the host (no ``.item()``, ``float()``, ``tolist()``, ``.cpu()``, no
+  tensor-valued ``if``, no generator made inside);
+* a host **epilogue** that builds the result from the host part and the
+  body's outputs.
+
+The body runs in a :class:`Program`, which keeps one entry per input
+signature (the tree's structure, each tensor's shape, dtype and device, and
+the static leaves).  On the card an entry is a ``torch.cuda.CUDAGraph``: at
+the first call of a signature one warm-up call runs on a side stream (it
+builds every kernel through ``ops/_build.py`` and runs each wrapper's
+one-time host setup), then the body is captured and the graph replayed;
+later calls only replay it.  Every failure to capture or replay raises.
+
+* **Inputs** are copied into static buffers at every call, one per (tree
+  path, shape, dtype, device) of a program, shared by its entries (a graph
+  reads them only while it replays, right after its own copies): those on
+  the card in one multi-tensor copy, a CPU tensor in a call that has CUDA
+  tensors one by one onto their device.
+* **Outputs** are handed back as JAX's engine gets them without donation
+  (``feddat_tpu/federated/engine.py:153-260``): an output that is an input
+  passed through is the caller's own tensor, every other one a copy of the
+  graph's output, so the inputs and the earlier results stay valid.
+* **Generators**: an entry owns one ``torch.Generator`` per stage, registered
+  with its graph and seeded from the prologue's seeds before every replay,
+  so the masks are a function of the step's seed, as in eager mode.
+* **Launch counts**: a launch recorded at capture does not run, and the
+  warm-up call is part of building the graph, as a compile is of a jitted
+  call: the capture takes both back from each ``CudaKernel``'s count, and
+  every replay adds one call's launches.  So a count says how many launches
+  the calls a caller made ran, as in eager mode.
+* **Memory**: every graph allocates from one pool
+  (``torch.cuda.graph_pool_handle()``); the graphs never run concurrently and
+  their outputs are copied out before another graph replays.
+
+On the CPU the same plumbing (prologue, static buffers, device-tensor
+scalars, hand-back) runs the body eagerly, so the CPU tests exercise it.
+:func:`disable_graphs`, the counterpart of ``jax.disable_jit``, calls the
+prologue, the body on the caller's tensors and the epilogue directly, on any
+device; it is the only switch.  :data:`STATS` counts captures, replays and
+eager runs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+
+from feddat_tpu_torch.ops._build import KERNELS
+from feddat_tpu_torch.utils.seeding import stage_generator
+
+_ENABLED = True
+STATS = {"captures": 0, "replays": 0, "eager": 0}
+_POOL = None
+_STREAM = None
+
+
+@contextlib.contextmanager
+def disable_graphs() -> Iterator[None]:
+    """Run every :class:`Compiled` function inside the block eagerly, on the
+    caller's tensors (``jax.disable_jit``)."""
+    global _ENABLED
+    prev, _ENABLED = _ENABLED, False
+    try:
+        yield
+    finally:
+        _ENABLED = prev
+
+
+def _flatten(tree, path: tuple, leaves: List[torch.Tensor], paths: List[tuple]) -> Hashable:
+    """-> a hashable structure of ``tree``; its tensors go to ``leaves`` (with
+    their tree paths to ``paths``), dicts in key order."""
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _flatten(tree[k], path + (k,), leaves, paths))
+                           for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return ("l" if isinstance(tree, list) else "t",
+                tuple(_flatten(v, path + (i,), leaves, paths) for i, v in enumerate(tree)))
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        paths.append(path)
+        return ("T", tuple(tree.shape), tree.dtype, tree.device)
+    return ("S", tree)
+
+
+def _unflatten(struct, leaves: Iterator[torch.Tensor]):
+    kind, body = struct[0], struct[1]
+    if kind == "d":
+        return {k: _unflatten(s, leaves) for k, s in body}
+    if kind in ("l", "t"):
+        items = [_unflatten(s, leaves) for s in body]
+        return items if kind == "l" else tuple(items)
+    if kind == "T":
+        return next(leaves)
+    return body
+
+
+def _fill(bufs: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> None:
+    """Copy every input into its static buffer: the ones already on the
+    buffers' device in one multi-tensor copy per dtype (a few launches for a
+    thousand parameters), the others (a batch from the host) one by one."""
+    groups: Dict[torch.dtype, Tuple[List[torch.Tensor], List[torch.Tensor]]] = {}
+    for b, t in zip(bufs, srcs):
+        if t.device == b.device:
+            dst, src = groups.setdefault(b.dtype, ([], []))
+            dst.append(b)
+            src.append(t.detach())
+        else:
+            b.copy_(t.detach(), non_blocking=True)
+    for dst, src in groups.values():
+        torch._foreach_copy_(dst, src)
+
+
+def _counts() -> List[int]:
+    return [k.launches for k in KERNELS]
+
+
+def _seed(gens: Sequence[torch.Generator], seeds: Sequence[int]) -> None:
+    for g, s in zip(gens, seeds):
+        g.manual_seed(s)
+
+
+def _graph_device(leaves: Sequence[torch.Tensor]) -> torch.device:
+    return next((t.device for t in leaves if t.is_cuda), torch.device("cpu"))
+
+
+class _Entry:
+    """One input signature of a program: its static buffers, generators and,
+    on the card, its graph, static outputs and launch counts per replay."""
+
+    def __init__(self, struct, bufs: List[torch.Tensor], gens: List[torch.Generator]):
+        self.bufs = bufs
+        self.gens = gens
+        self.inputs = _unflatten(struct, iter(bufs))
+        self.by_buffer = {id(b): i for i, b in enumerate(bufs)}
+        self.graph = None
+        self.out_struct = None
+        self.out_leaves: List[torch.Tensor] = []
+        self.launches: List[Tuple[Any, int]] = []
+
+
+class Program:
+    """``body(inputs, gens) -> outputs``, run from static buffers: replayed as a
+    CUDA graph on the card, eagerly on the CPU (module docstring)."""
+
+    def __init__(self, body: Callable, name: str):
+        self.body = body
+        self.name = name
+        self.entries: Dict[Hashable, _Entry] = {}
+        self.bufs: Dict[tuple, torch.Tensor] = {}
+
+    def _buf(self, path: tuple, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """The static buffer of one input: a normal tensor even when it is
+        made inside ``torch.inference_mode()``, so that calls inside and
+        outside that mode can fill it."""
+        key = (path, tuple(t.shape), t.dtype, device)
+        if key not in self.bufs:
+            with torch.inference_mode(False):
+                self.bufs[key] = torch.empty(t.shape, dtype=t.dtype, device=device)
+        return self.bufs[key]
+
+    def eager(self, inputs, seeds: Sequence[int] = ()):
+        """The body on the caller's tensors (CPU tensors staged onto the
+        device of the CUDA ones) with fresh generators."""
+        leaves: List[torch.Tensor] = []
+        struct = _flatten(inputs, (), leaves, [])
+        device = _graph_device(leaves)
+        moved = _unflatten(struct, iter([t.to(device) for t in leaves]))
+        STATS["eager"] += 1
+        return self.body(moved, [stage_generator(s, device) for s in seeds])
+
+    def __call__(self, inputs, seeds: Sequence[int] = ()):
+        if not _ENABLED:
+            return self.eager(inputs, seeds)
+        leaves: List[torch.Tensor] = []
+        paths: List[tuple] = []
+        struct = _flatten(inputs, (), leaves, paths)
+        device = _graph_device(leaves)
+        key = (struct, len(seeds))
+        entry = self.entries.get(key)
+        if entry is None:
+            bufs = [self._buf(p, t, device) for p, t in zip(paths, leaves)]
+            entry = _Entry(struct, bufs, [torch.Generator(device=device) for _ in seeds])
+            self.entries[key] = entry
+        _fill(entry.bufs, leaves)
+        if device.type != "cuda":
+            _seed(entry.gens, seeds)
+            STATS["eager"] += 1
+            out_leaves: List[torch.Tensor] = []
+            out_struct = _flatten(self.body(entry.inputs, entry.gens), (), out_leaves, [])
+            return self._hand_back(entry, out_struct, out_leaves, leaves)
+        if entry.graph is None:
+            self._capture(entry, seeds)
+        _seed(entry.gens, seeds)
+        entry.graph.replay()
+        STATS["replays"] += 1
+        for kernel, n in entry.launches:
+            kernel.launches += n
+        return self._hand_back(entry, entry.out_struct, entry.out_leaves, leaves)
+
+    @staticmethod
+    def _hand_back(entry: _Entry, struct, out_leaves, leaves):
+        """Outputs that are static input buffers -> the caller's tensors;
+        every other output -> a copy."""
+        picked = []
+        for t in out_leaves:
+            i = entry.by_buffer.get(id(t))
+            picked.append(leaves[i] if i is not None else t.clone())
+        return _unflatten(struct, iter(picked))
+
+    def _capture(self, entry: _Entry, seeds: Sequence[int]) -> None:
+        global _POOL, _STREAM
+        if _POOL is None:
+            _POOL, _STREAM = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        if entry.gens:
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    f"{self.name}: torch {torch.__version__} has no "
+                    "CUDAGraph.register_generator_state, so a body that draws dropout masks "
+                    "from its own generators cannot be captured")
+            for g in entry.gens:
+                register(g)
+        before = _counts()
+        # warm-up: builds the kernels and runs their one-time host setup
+        _STREAM.wait_stream(torch.cuda.current_stream())
+        _seed(entry.gens, seeds)
+        with torch.cuda.stream(_STREAM):
+            self.body(entry.inputs, entry.gens)
+        torch.cuda.current_stream().wait_stream(_STREAM)
+        warm = _counts()
+        _seed(entry.gens, seeds)
+        with torch.cuda.graph(graph, pool=_POOL, stream=_STREAM):
+            out = self.body(entry.inputs, entry.gens)
+        after = _counts()
+        entry.launches = [(k, a - w) for k, a, w in zip(KERNELS, after, warm) if a != w]
+        for kernel, a, b in zip(KERNELS, after, before):
+            kernel.launches -= a - b
+        out_leaves: List[torch.Tensor] = []
+        entry.out_struct = _flatten(out, (), out_leaves, [])
+        entry.out_leaves = out_leaves
+        entry.graph = graph
+        STATS["captures"] += 1
+
+
+class Compiled:
+    """``prologue(*args, **kwargs) -> (inputs, seeds, host)``, then
+    ``program(inputs, seeds) -> outputs``, then ``epilogue(host, outputs)``.
+    Without an epilogue the outputs are the result.  ``key``, where the
+    maker gives one, names the function the body computes (two makers that
+    give equal keys build interchangeable bodies)."""
+
+    def __init__(self, body: Callable, prologue: Callable, epilogue: Optional[Callable] = None,
+                 name: str = "compiled", key: Optional[Hashable] = None):
+        self.program = Program(body, name)
+        self.prologue = prologue
+        self.epilogue = epilogue
+        self.key = key
+
+    def __call__(self, *args, **kwargs):
+        inputs, seeds, host = self.prologue(*args, **kwargs)
+        out = self.program(inputs, seeds)
+        return out if self.epilogue is None else self.epilogue(host, out)
+
+    def share(self, programs: Dict[Hashable, Program], key: Hashable) -> "Compiled":
+        """Run the program registered under ``key`` (this one's if none is):
+        callers whose bodies compute the same function of their inputs (the
+        same model, partition names and optimizer settings) share its graphs."""
+        self.program = programs.setdefault(key, self.program)
+        return self

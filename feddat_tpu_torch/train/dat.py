@@ -8,19 +8,22 @@ per batch:
   ② adapter_1 forward; L1 = (task + KL(l1 ‖ logits_all))/2; update adapter_1 + head
   ③ ensemble forward; L0 = (task + KL(l0 ‖ l1))/2; update adapter_0 + head
 
-Each step is a plain function ``step(state, batch) -> (state, metrics)``:
-the trainable partitions are detached copies that require grad, passed into
-the model with ``torch.func.functional_call``; the two updates share one
-schedule clock (lr(c) then lr(c+1), c advances by 2) and the head's Adam
-state advances in both, exactly as in JAX.  Each ``make_*`` builder
-stands for the JAX ``*_step_core`` and the ``make_*`` that compiles it;
-nothing is compiled here.  The metrics hold the losses, the lr and
-``grads``: both updates' gradient sets (adapter and head partitions only).
+Each step is ``step(state, batch) -> (state, metrics)``: the trainable
+partitions are detached copies that require grad, passed into the model
+with ``torch.func.functional_call``; the two updates share one schedule
+clock (lr(c) then lr(c+1), c advances by 2) and the head's Adam state
+advances in both, exactly as in JAX.  Each ``make_*`` factory stands for
+the JAX ``*_step_core`` and the ``make_*`` that jits it: it returns a
+:class:`~feddat_tpu_torch.train.compiled.Compiled` step (:func:`compile_step`),
+a host prologue, a device body replayed as a CUDA graph on the card, and a
+host epilogue.  The metrics hold the losses, the lr and ``grads``: both
+updates' gradient sets (adapter and head partitions only).
 
-Dropout: as JAX splits ``state.rng`` into per-stage keys, each step draws
-per-stage seeds from a copy of ``state.rng`` (``utils/seeding.py::split_rng``;
-the copy, advanced by the same draw every step, is the new state's ``rng``)
-and makes one dropout generator per stage on the parameters' device: the
+Dropout: as JAX splits ``state.rng`` into per-stage keys, each step's
+prologue draws per-stage seeds from a copy of ``state.rng``
+(``utils/seeding.py::split_rng``; the copy, advanced by the same draw every
+step, is the new state's ``rng``), and the body draws its masks from one
+dropout generator per stage on the parameters' device, seeded with them: the
 standard step d0 (①), d1 (②), d2 (③); the fused step d0 (the ensemble pass
 that ① and ③ share) and d1 (the adapter_1 pass); the plain step one.  The
 same state gives the same masks; ``torch.manual_seed`` changes nothing.
@@ -31,7 +34,7 @@ TPU's hardware bit generator in JAX) give the same torch generators
 
 from __future__ import annotations
 
-from typing import Any, Dict, FrozenSet, Tuple
+from typing import Any, Callable, Dict, FrozenSet, Tuple
 
 import torch
 
@@ -45,19 +48,17 @@ from feddat_tpu_torch.peft.partition import (
     trainable_roles,
 )
 from feddat_tpu_torch.train.losses import kd_kl_loss
-from feddat_tpu_torch.train.optim import adamw_direction, apply_direction, polynomial_schedule
+from feddat_tpu_torch.train.compiled import Compiled
+from feddat_tpu_torch.train.optim import (
+    AdamState,
+    AdamWDirection,
+    adamw_direction,
+    polynomial_schedule,
+)
 from feddat_tpu_torch.train.state import TrainState
-from feddat_tpu_torch.utils.seeding import split_rng, stage_generator
+from feddat_tpu_torch.utils.seeding import split_rng
 
 Params = Dict[str, torch.Tensor]
-
-
-def _stage_rngs(state: TrainState, n: int):
-    """-> (the new state's rng, n per-stage dropout generators on the
-    parameters' device)."""
-    nxt, seeds = split_rng(state.rng, n)
-    device = next(iter(state.params.values())).device
-    return nxt, [stage_generator(s, device) for s in seeds]
 
 
 def _in_frozen_bottom(name: str, layers_to_freeze: int) -> bool:
@@ -144,17 +145,81 @@ def _detached(sub: Params) -> Params:
     return {k: v.detach() for k, v in sub.items()}
 
 
+def _update(tx: AdamWDirection, grads: Params, moments: Dict[str, Params], params: Params, lr,
+            bias_correction) -> Tuple[Params, Dict[str, Params]]:
+    """One AdamW update in a device body: ``moments = {"mu", "nu"}``; ``lr``
+    and the bias corrections are 0-dim device tensors."""
+    updates, mu, nu = tx.moments(grads, moments["mu"], moments["nu"], params, bias_correction)
+    return {k: params[k] + updates[k] * lr for k in params}, {"mu": mu, "nu": nu}
+
+
+def _scalars(sc: torch.Tensor, updates: Dict[str, int]):
+    """The body's view of the prologue's scalars -> (lrs, {partition: [(bc1,
+    bc2) per update]}), in :func:`compile_step`'s order."""
+    n_lr = max(updates.values())
+    lrs, i, bcs = [sc[j] for j in range(n_lr)], n_lr, {}
+    for part, n in updates.items():
+        bcs[part] = [(sc[i + 2 * j], sc[i + 2 * j + 1]) for j in range(n)]
+        i += 2 * n
+    return lrs, bcs
+
+
+def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], float],
+                 n_stages: int, updates: Dict[str, int], name: str) -> Compiled:
+    """``step(state, batch) -> (new state, metrics)`` around a device body
+    (``train/compiled.py``).  ``updates`` maps each optimizer partition to the
+    number of its updates per step; the schedule advances by the largest.
+
+    The prologue does the host part of the step as before, in float32: it
+    splits ``state.rng`` into the next rng and ``n_stages`` dropout seeds
+    (the same state gives the same masks), computes the lr of each schedule
+    tick and each update's bias corrections, and packs them into one fp32
+    tensor.  The body gets ``{"params", "opt": {partition: {"mu", "nu"}},
+    "batch", "scalars"}`` and the stage generators, and returns ``{"params",
+    "opt", <metrics>}``; the epilogue builds the new state (counts, schedule,
+    rng) and adds the last lr to the metrics."""
+    n_lr = max(updates.values())
+
+    def prologue(state: TrainState, batch: Dict[str, Any]):
+        rng, seeds = split_rng(state.rng, n_stages)
+        lrs = [lr_at(state.sched_count + j) for j in range(n_lr)]
+        vals = list(lrs)
+        for part, n in updates.items():
+            for j in range(n):
+                vals.extend(tx.bias_correction(state.opt_states[part].count + j + 1))
+        inputs = {"params": state.params,
+                  "opt": {p: {"mu": state.opt_states[p].mu, "nu": state.opt_states[p].nu}
+                          for p in updates},
+                  "batch": batch, "scalars": torch.tensor(vals, dtype=torch.float32)}
+        return inputs, seeds, (state, rng, lrs[-1])
+
+    def epilogue(host, out):
+        state, rng, lr = host
+        opt = {p: AdamState(state.opt_states[p].count + n, out["opt"][p]["mu"], out["opt"][p]["nu"])
+               for p, n in updates.items()}
+        new_state = state.replace(params=out["params"], opt_states=opt,
+                                  sched_count=state.sched_count + n_lr, rng=rng)
+        metrics = {k: v for k, v in out.items() if k not in ("params", "opt")}
+        metrics["lr"] = lr
+        return new_state, metrics
+
+    return Compiled(body, prologue, epilogue, name)
+
+
+_DAT_UPDATES = {"shared": 1, "local": 1, "head": 2}
+
+
 def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerConfig,
-                        max_steps: int):
+                        max_steps: int) -> Compiled:
     """The standard DAT step (``dat_step_core``): ``forward(params, batch,
     adapter_mode, gen) -> (task_loss, logits)``, three forwards, two updates."""
     tx = adamw_direction(opt_cfg)
-    lr_at = polynomial_schedule(opt_cfg, max_steps)
     P = partitioner
 
-    def step(state: TrainState, batch: Dict[str, Any]):
-        rng, (d0, d1, d2) = _stage_rngs(state, 3)
-        params = state.params
+    def body(inp, gens):
+        d0, d1, d2 = gens
+        params, opt, batch = inp["params"], inp["opt"], inp["batch"]
+        (lr1, lr0), bcs = _scalars(inp["scalars"], _DAT_UPDATES)
         # ① ensemble forward (teacher + local mix), no gradient
         with torch.no_grad():
             _, logits_all = forward(params, batch, MODE_ENSEMBLE, d0)
@@ -166,10 +231,9 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
                                     "adapter_1", d1)
         l1 = (task_l1 + kd_kl_loss(logits_1, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared, head)
-        lr1 = lr_at(state.sched_count)
-        new_shared, opt_shared = apply_direction(tx, g_shared, state.opt_states["shared"],
-                                                 _detached(shared), lr1)
-        head, opt_head = apply_direction(tx, g_head2, state.opt_states["head"], _detached(head), lr1)
+        new_shared, m_shared = _update(tx, g_shared, opt["shared"], _detached(shared), lr1,
+                                       bcs["shared"][0])
+        head, m_head = _update(tx, g_head2, opt["head"], _detached(head), lr1, bcs["head"][0])
         params = P.merge_into(P.merge_into(params, new_shared), head)
         logits_1 = logits_1.detach()
 
@@ -180,24 +244,21 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
                                     MODE_ENSEMBLE, d2)
         l0 = (task_l0 + kd_kl_loss(logits_0, logits_1)) / 2.0
         g_local, g_head = _grads(l0, local, head)
-        lr0 = lr_at(state.sched_count + 1)
-        new_local, opt_local = apply_direction(tx, g_local, state.opt_states["local"],
-                                               _detached(local), lr0)
-        head, opt_head = apply_direction(tx, g_head, opt_head, _detached(head), lr0)
+        new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
+                                     bcs["local"][0])
+        head, m_head = _update(tx, g_head, m_head, _detached(head), lr0, bcs["head"][1])
         params = P.merge_into(P.merge_into(params, new_local), head)
-
-        new_state = state.replace(
-            params=params, opt_states={"shared": opt_shared, "local": opt_local, "head": opt_head},
-            sched_count=state.sched_count + 2, rng=rng)
         grads = {"shared": g_shared, "head_2": g_head2, "local": g_local, "head_3": g_head}
-        return new_state, {"loss": l0.detach(), "loss_shared": l1.detach(),
-                           "task_loss": task_l0.detach(), "lr": lr0, "grads": grads}
+        return {"params": params, "opt": {"shared": m_shared, "local": m_local, "head": m_head},
+                "loss": l0.detach(), "loss_shared": l1.detach(), "task_loss": task_l0.detach(),
+                "grads": grads}
 
-    return step
+    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 3, _DAT_UPDATES,
+                        "dat_step")
 
 
 def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Partitioner,
-                              opt_cfg: OptimizerConfig, max_steps: int):
+                              opt_cfg: OptimizerConfig, max_steps: int) -> Compiled:
     """DAT step with ONE ensemble encoder pass (``dat_step_core_fused``,
     dat.py:311-415): between ① and ③ only the head changes, so the pass's
     pooled features give the teacher logits (old head) and its saved graph
@@ -211,12 +272,12 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
     ``encode_fn(params, batch, mode, gen) -> pooled``, ``head_fn(head
     partition, pooled) -> logits``, ``task_loss_fn(logits, batch)``."""
     tx = adamw_direction(opt_cfg)
-    lr_at = polynomial_schedule(opt_cfg, max_steps)
     P = partitioner
 
-    def step(state: TrainState, batch: Dict[str, Any]):
-        rng, (d0, d1) = _stage_rngs(state, 2)
-        params = state.params
+    def body(inp, gens):
+        d0, d1 = gens
+        params, opt, batch = inp["params"], inp["opt"], inp["batch"]
+        (lr1, lr0), bcs = _scalars(inp["scalars"], _DAT_UPDATES)
         head = P.extract(params, P.head_paths)
         local = _leaves(P.extract(params, P.local_paths))
         shared = P.extract(params, P.shared_paths)
@@ -232,9 +293,8 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
         logits = head_fn(head_l, pooled1)
         l1 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared_l, head_l)
-        lr1 = lr_at(state.sched_count)
-        new_shared, opt_shared = apply_direction(tx, g_shared, state.opt_states["shared"], shared, lr1)
-        head, opt_head = apply_direction(tx, g_head2, state.opt_states["head"], head, lr1)
+        new_shared, m_shared = _update(tx, g_shared, opt["shared"], shared, lr1, bcs["shared"][0])
+        head, m_head = _update(tx, g_head2, opt["head"], head, lr1, bcs["head"][0])
         params = P.merge_into(P.merge_into(params, new_shared), head)
         logits_1 = logits.detach()
 
@@ -243,43 +303,37 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
         logits = head_fn(head_l, pooled)
         l0 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_1)) / 2.0
         g_head, g_local = _grads(l0, head_l, local)
-        lr0 = lr_at(state.sched_count + 1)
-        new_local, opt_local = apply_direction(tx, g_local, state.opt_states["local"],
-                                               _detached(local), lr0)
-        head, opt_head = apply_direction(tx, g_head, opt_head, head, lr0)
+        new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
+                                     bcs["local"][0])
+        head, m_head = _update(tx, g_head, m_head, head, lr0, bcs["head"][1])
         params = P.merge_into(P.merge_into(params, new_local), head)
-
-        new_state = state.replace(
-            params=params, opt_states={"shared": opt_shared, "local": opt_local, "head": opt_head},
-            sched_count=state.sched_count + 2, rng=rng)
         grads = {"shared": g_shared, "head_2": g_head2, "local": g_local, "head_3": g_head}
-        return new_state, {"loss": l0.detach(), "loss_shared": l1.detach(), "lr": lr0,
-                           "grads": grads}
+        return {"params": params, "opt": {"shared": m_shared, "local": m_local, "head": m_head},
+                "loss": l0.detach(), "loss_shared": l1.detach(), "grads": grads}
 
-    return step
+    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 2, _DAT_UPDATES,
+                        "dat_step_fused")
 
 
 def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerConfig,
-                          max_steps: int, adapter_mode: str = "none"):
+                          max_steps: int, adapter_mode: str = "none") -> Compiled:
     """One forward/backward/update for the non-DAT modes (``plain_step_core``,
     ``task_trainer.py:433-450``)."""
     tx = adamw_direction(opt_cfg)
-    lr_at = polynomial_schedule(opt_cfg, max_steps)
     P = partitioner
     paths = P.shared_paths | P.head_paths
+    updates = {"trainable": 1}
 
-    def step(state: TrainState, batch: Dict[str, Any]):
-        rng, (gen,) = _stage_rngs(state, 1)
-        params = state.params
+    def body(inp, gens):
+        params = inp["params"]
+        (lr,), bcs = _scalars(inp["scalars"], updates)
         trainable = _leaves(P.extract(params, paths))
-        loss, _ = forward(P.merge_into(params, trainable), batch, adapter_mode, gen)
+        loss, _ = forward(P.merge_into(params, trainable), inp["batch"], adapter_mode, gens[0])
         (grads,) = _grads(loss, trainable)
-        lr = lr_at(state.sched_count)
-        new_trainable, opt_state = apply_direction(tx, grads, state.opt_states["trainable"],
-                                                   _detached(trainable), lr)
-        new_state = state.replace(params=P.merge_into(params, new_trainable),
-                                  opt_states={"trainable": opt_state},
-                                  sched_count=state.sched_count + 1, rng=rng)
-        return new_state, {"loss": loss.detach(), "lr": lr}
+        new_trainable, moments = _update(tx, grads, inp["opt"]["trainable"], _detached(trainable),
+                                         lr, bcs["trainable"][0])
+        return {"params": P.merge_into(params, new_trainable), "opt": {"trainable": moments},
+                "loss": loss.detach()}
 
-    return step
+    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 1, updates,
+                        "plain_step")

@@ -5,8 +5,11 @@ warmup-decay schedule (counterpart of ``feddat_tpu/train/optim.py``).
   scale(-1)`` written out on dicts of tensors (torch AdamW's update without
   the lr).  The lr stays outside so that the DAT step's two updates per batch
   share one schedule clock, and the head's moments advance twice per batch.
-* Schedules are computed in float32, as JAX does, and returned as Python
-  floats holding that float32 value.
+* Schedules and Adam's bias corrections are computed on the host in float32,
+  as JAX does, and returned as Python floats holding that float32 value.  A
+  step's device body takes them as 0-dim fp32 tensors (``lr`` and
+  ``bias_correction`` of :func:`apply_direction`), so that a captured CUDA
+  graph reads them afresh at every replay (``train/compiled.py``).
 * ``_decay_mask`` follows the reference's no-decay routing on the port's
   state_dict names: every ``bias``, plus the LayerNorm scales under the
   parents the reference's torch modules name ``LayerNorm``.
@@ -15,13 +18,14 @@ warmup-decay schedule (counterpart of ``feddat_tpu/train/optim.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from feddat_tpu_torch.configs.core import OptimizerConfig
 
 Tensors = Dict[str, torch.Tensor]
+Scalar = Union[float, torch.Tensor]
 
 
 def _f32(v) -> torch.Tensor:
@@ -96,20 +100,35 @@ class AdamWDirection:
         return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
                          {k: torch.zeros_like(v) for k, v in params.items()})
 
-    def update(self, grads: Tensors, state: AdamState, params: Tensors) -> Tuple[Tensors, AdamState]:
+    def bias_correction(self, count: int) -> Tuple[float, float]:
+        """``(1 − β1^count, 1 − β2^count)`` in float32, on the host."""
         c = self.cfg
-        count = state.count + 1
-        bc1 = float(1.0 - _f32(c.beta1) ** count)
-        bc2 = float(1.0 - _f32(c.beta2) ** count)
+        return float(1.0 - _f32(c.beta1) ** count), float(1.0 - _f32(c.beta2) ** count)
+
+    def moments(self, grads: Tensors, mu: Tensors, nu: Tensors, params: Tensors,
+                bias_correction: Tuple[Scalar, Scalar]) -> Tuple[Tensors, Tensors, Tensors]:
+        """The device part of one update -> (updates, new mu, new nu)."""
+        c = self.cfg
+        bc1, bc2 = bias_correction
         mask = _decay_mask(params)
-        mu, nu, updates = {}, {}, {}
+        new_mu, new_nu, updates = {}, {}, {}
         for k, g in grads.items():
-            mu[k] = (1.0 - c.beta1) * g + c.beta1 * state.mu[k]
-            nu[k] = (1.0 - c.beta2) * (g * g) + c.beta2 * state.nu[k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + c.adam_eps)
+            new_mu[k] = (1.0 - c.beta1) * g + c.beta1 * mu[k]
+            new_nu[k] = (1.0 - c.beta2) * (g * g) + c.beta2 * nu[k]
+            u = (new_mu[k] / bc1) / (torch.sqrt(new_nu[k] / bc2) + c.adam_eps)
             if mask[k]:
                 u = u + c.weight_decay * params[k]
             updates[k] = -u
+        return updates, new_mu, new_nu
+
+    def update(self, grads: Tensors, state: AdamState, params: Tensors,
+               bias_correction: Optional[Tuple[Scalar, Scalar]] = None
+               ) -> Tuple[Tensors, AdamState]:
+        """One update; ``bias_correction`` (two floats or 0-dim fp32 tensors)
+        defaults to :meth:`bias_correction` of the new count."""
+        count = state.count + 1
+        bc = self.bias_correction(count) if bias_correction is None else bias_correction
+        updates, mu, nu = self.moments(grads, state.mu, state.nu, params, bc)
         return updates, AdamState(count, mu, nu)
 
 
@@ -118,7 +137,10 @@ def adamw_direction(cfg: OptimizerConfig) -> AdamWDirection:
 
 
 def apply_direction(tx: AdamWDirection, grads: Tensors, opt_state: AdamState, params: Tensors,
-                    lr: float) -> Tuple[Tensors, AdamState]:
-    """One torch-AdamW step at learning rate ``lr`` -> (new params, new state)."""
-    updates, new_state = tx.update(grads, opt_state, params)
+                    lr: Scalar, bias_correction: Optional[Tuple[Scalar, Scalar]] = None
+                    ) -> Tuple[Tensors, AdamState]:
+    """One torch-AdamW step at learning rate ``lr`` -> (new params, new state).
+    ``lr`` and ``bias_correction`` may be 0-dim fp32 tensors on the params'
+    device (the same float32 values give the same bits)."""
+    updates, new_state = tx.update(grads, opt_state, params, bias_correction)
     return {k: params[k] + updates[k] * lr for k in params}, new_state
