@@ -16,8 +16,9 @@ Phases, in this order:
             twice, bitwise; the flash backward (#8 dq, #9 dk/dv) at ALBEF's five
             training sites, four ragged shapes and twelve tile edges, twice,
             bitwise, with constructed probes of p's and ds's precision and the
-            wrappers' refusals; the whole-sequence attention (#5, #6) at five
-            shapes, the 64-row tile edges, S=769 and 1024 and a fully masked
+            wrappers' refusals; #1 and #3 (LN1 outside) and #4 at ALBEF's ViT
+            length S=577 without a padding bias and at S=592, 593 and 768;
+            the whole-sequence attention (#5, #6) at five shapes, the 64-row tile edges, S=769 and 1024 and a fully masked
             batch element, twice, bitwise, with constructed probes of its bf16
             rounding points (P before P.v, ds before dq and dk); the
             ensemble-adapter epilogue (#2) at ten row counts (the edges of its
@@ -89,7 +90,7 @@ Phases, in this order:
             three replayed calls
             bitwise equal to three eager ones (or within twice eager's own
             run-to-run spread where eager is not bitwise run to run), then graph
-            against eager in 6 alternating pairs (host launch calls, wall, device
+            against eager in 4 alternating pairs (host launch calls, wall, device
             busy, idle share, peak memory; a replay launches no kernel but its
             copies, generator fills and one graph, and runs the eager call's
             kernels); ALBEF replays from one state equal, from another seed
@@ -101,6 +102,21 @@ Phases, in this order:
             through #1/#3 (not #4) by the 2x-bf16 rule; and the refusals that
             stay: a 'block' model at S=769 and a fused ensemble at bottleneck
             192 raise before any launch.
+11. albef_tuned — the JAX package's tuned ALBEF configuration (bench.py:192-229):
+            full-width ALBEF DAT in bf16 through create_model(attn_impl='layer',
+            remat=True, remat_policy='block_save_nox', text_remat_policy='names',
+            attention_logits_dtype='bfloat16'): the ViT on #1/#4 at S=577, the
+            BERT towers on the composable path with "names" remat.  The fused
+            DAT step at B=48 x 4: dropout off, launches 24/24 and the 2x-bf16
+            rule against the plain path; dropout live, remat against no remat
+            bitwise with each one's peak memory; three replays bitwise three
+            eager steps, launches per replay from the wrappers and from the
+            device, graph against eager in 4 pairs and a profile of one replay;
+            samples/s and peak memory of the tuned, "flash" and plain paths
+            with graphs, alternating; a 2-client round, eager against graphs;
+            the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
+            step; "full" runs #1 again in the backward), bitwise against no
+            remat and "full"; #1, #3 and #4 timed at S=577.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -184,12 +200,13 @@ DEVICE_MS_STATS = {"profiles": 0, "again": 0, "lag_us": []}
 
 # Calls that open every profile and are not counted: late in a run the
 # profiler drops the device events of a profile's first calls, markers
-# included (one call's in PR 6's runs, up to three in PR 7's).
+# included (from one call up to five calls of the 0.4 ms library chain at
+# B=48, S=577, five profiles in a row); a profile taken again doubles them.
 PROFILE_LEAD = 4
 
 
-def profile_calls(torch, fn, calls: int):
-    """Profile ``PROFILE_LEAD + calls`` calls of ``fn`` -> (the device events
+def profile_calls(torch, fn, calls: int, lead: int = PROFILE_LEAD):
+    """Profile ``lead + calls`` calls of ``fn`` -> (the device events
     of each of the last ``calls`` calls as [(start, us, name)], or None when
     fewer markers came back; the closing marker's device start less the
     host's call to launch it, us, or None).
@@ -203,10 +220,10 @@ def profile_calls(torch, fn, calls: int):
 
     cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILE_LEAD + calls + 1):
+        for i in range(lead + calls + 1):
             with record_function(DEVICE_MS_MARK):
                 torch.cuda._sleep(1000)
-            if i < PROFILE_LEAD + calls:
+            if i < lead + calls:
                 fn()
             torch.cuda.synchronize()
     events = prof.events()
@@ -230,14 +247,17 @@ def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     that torch.profiler records for the call (:func:`profile_calls`).  The
     host's dispatch rate does not enter, as it does in :func:`cuda_ms` when
     the host is the slower side.  A profile in which one of the calls got no
-    device time is taken again, 3 times at most."""
+    device time is taken again, 5 times at most: late in a run the profiler
+    has lost most events of three profiles in a row on an H100 (0, 7 and 15
+    device events where a dozen calls make hundreds), each time with twice
+    the uncounted lead calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    tries = 3
-    for _ in range(tries):
+    tries = 5
+    for t in range(tries):
         DEVICE_MS_STATS["profiles"] += 1
-        per_call, lag = profile_calls(torch, fn, iters)
+        per_call, lag = profile_calls(torch, fn, iters, PROFILE_LEAD << t)
         totals = [sum(us for _, us, _ in call) for call in per_call or []]
         if len(totals) == iters and min(totals) > 0:
             if lag is not None:
@@ -272,8 +292,8 @@ def launch_breakdown(torch, fn, label, calls: int = 5):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        per_call, _ = profile_calls(torch, fn, calls)
+    for t in range(3):
+        per_call, _ = profile_calls(torch, fn, calls, PROFILE_LEAD << t)
         if per_call is not None:
             break
         DEVICE_MS_STATS["again"] += 1
@@ -308,13 +328,14 @@ def time_row(torch, label, kernel, plain, library, bound, library_name):
 
 
 # ----------------------------------------------------------------- inputs
-def attn_inputs(torch, b, s, fuse_ln, seed):
+def attn_inputs(torch, b, s, fuse_ln, seed, masked=True):
     """Attention-block inputs on the card: bf16 activations and weights, fp32
     biases/LN, and a padding bias like the model's (text padding + masked
-    image patches at -10000).  The biases are drawn at the scale of the
-    projections they are added to, so a dropped or misplaced bias moves the
-    outputs far past the tolerances (bk only through lse: the softmax is
-    shift-invariant per query)."""
+    image patches at -10000; none when not ``masked``, as ALBEF's ViT has
+    none).  The biases are drawn at the scale of the projections they are
+    added to, so a dropped or misplaced bias moves the outputs far past the
+    tolerances (bk only through lse: the softmax is shift-invariant per
+    query)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, std=1.0, dtype=torch.float32):
@@ -326,7 +347,7 @@ def attn_inputs(torch, b, s, fuse_ln, seed):
     gb = torch.stack([1.0 + randn(DM, std=0.1), randn(DM, std=0.1)]) if fuse_ln else None
     valid = torch.randint(max(1, s // 3), s + 1, (b, 1), generator=g, device="cuda")
     keys = torch.arange(s, device="cuda")[None, :]
-    bias = ((keys >= valid).float() * -10000.0)[:, None, None, :]
+    bias = ((keys >= valid).float() * -10000.0)[:, None, None, :] if masked else None
     return (x, *ws, bqkv, bo, gb, bias, HEADS, 64 ** -0.5, 1e-12 if fuse_ln else None)
 
 
@@ -371,7 +392,7 @@ def adapter_probe_inputs(torch, n):
 
 
 # ------------------------------------------------------------------ bounds
-def attn_block_bound(b, s, fuse_ln):
+def attn_block_bound(b, s, fuse_ln, masked=True):
     """Least time (ms) for one attention-block call and what bounds it.
 
     The projections, q.k^T and P.v take bf16 operands (tensor cores); the
@@ -382,7 +403,7 @@ def attn_block_bound(b, s, fuse_ln):
     fp32_ops = b * HEADS * s * s * 6 + (m * DM * 8 if fuse_ln else 0)  # softmax (+ LN)
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
     nbytes = (3 * m * DM * 2 + 4 * DM * DM * 2 + 4 * DM * 4 + (2 * DM * 4 if fuse_ln else 0)
-              + b * s * 4 + b * HEADS * s * 4)  # x, out, ctx; weights; biases; mask; lse
+              + (b * s * 4 if masked else 0) + b * HEADS * s * 4)  # x, out, ctx; weights; biases; mask; lse
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
@@ -418,7 +439,7 @@ def attn_bwd_ops(b, s):
     return 14 * m * DM * DM + 10 * b * HEADS * s * s * d
 
 
-def attn_bwd_bound(b, s, fuse_ln):
+def attn_bwd_bound(b, s, fuse_ln, masked=True):
     """Least time (ms) for one #3 call and what bounds it: the bf16 products
     above on the tensor cores beside the fp32 softmax recompute and LN
     forward/backward on the CUDA cores (the pipes overlap); bytes: x, ctx, g
@@ -427,12 +448,13 @@ def attn_bwd_bound(b, s, fuse_ln):
     bf16_ops = attn_bwd_ops(b, s)
     fp32_ops = b * HEADS * s * s * 8 + (m * DM * 16 if fuse_ln else 0)
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
-    nbytes = 4 * m * DM * 2 + 4 * DM * DM * 2 + 3 * DM * 4 + 2 * DM * 4 + b * s * 4 + b * HEADS * s * 4
+    nbytes = (4 * m * DM * 2 + 4 * DM * DM * 2 + 3 * DM * 4 + 2 * DM * 4 + (b * s * 4 if masked else 0)
+              + b * HEADS * s * 4)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def layer_bwd_bound(b, s, use_b, ffn=3072):
+def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True):
     """Least time (ms) for one #4 call and what bounds it.  bf16 operands
     (tensor cores): the FFN recompute and its backward (4 products of M Dm F),
     the attention backward above, and the adapter products — all of bf16
@@ -447,7 +469,7 @@ def layer_bwd_bound(b, s, use_b, ffn=3072):
     fp32_ops = m * ffn * 40 + b * HEADS * s * s * 8 + m * DM * 32
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
     nbytes = (5 * m * DM * 2 + (4 * DM * DM + 2 * DM * ffn) * 2 + (3 * DM + ffn + 6 * DM) * 4
-              + 2 * (2 * DM * r * 2 + (r + DM) * 4) + b * s * 4 + b * HEADS * s * 4)
+              + 2 * (2 * DM * r * 2 + (r + DM) * 4) + (b * s * 4 if masked else 0) + b * HEADS * s * 4)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
@@ -506,10 +528,10 @@ def phase_build():
 ATTN_OWN_ULPS = 8
 
 
-def attn_parity(torch, b, s, fuse_ln, seed):
+def attn_parity(torch, b, s, fuse_ln, seed, masked=True):
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_inputs(torch, b, s, fuse_ln, seed)
+    args = attn_inputs(torch, b, s, fuse_ln, seed, masked)
     with torch.inference_mode():
         got = ab.attn_block_cuda(*args)
         again = ab.attn_block_cuda(*args)
@@ -527,7 +549,7 @@ def attn_parity(torch, b, s, fuse_ln, seed):
         # sees those flips only through q.k: allow 2 bf16 ulps of its largest.
         ulps = 2 if name == "lse" else 8
         tol = ulps * bf16_ulp(r.abs().max().item())
-        print(f"parity attn_block B={b} S={s} ln={fuse_ln} {name}: max_abs_err={err:.3e} "
+        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} {name}: max_abs_err={err:.3e} "
               f"tol={tol:.3e} ({ulps} bf16 ulps at max |ref|={r.abs().max().item():.3e})")
         check(err <= tol, f"attn_block {name} disagrees with the plain version: {err} > {tol}")
         errs[name] = err
@@ -536,13 +558,13 @@ def attn_parity(torch, b, s, fuse_ln, seed):
         bad = k.float().clone()
         bad[0, 0] += r.float().pow(2).mean().sqrt()  # one row off by a typical |r|
         p_ulps = own_ulps(torch, bad, r)
-        print(f"parity attn_block B={b} S={s} ln={fuse_ln} {name}: {ulps:.2f} own ulps (limit "
+        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} {name}: {ulps:.2f} own ulps (limit "
               f"{ATTN_OWN_ULPS}); planted fault (row 0 off by the rms) {p_ulps:.1f} ulps")
         check(ulps <= ATTN_OWN_ULPS < p_ulps,
               f"attn_block {name} disagrees with the plain version: {ulps} own ulps (limit {ATTN_OWN_ULPS})")
     stable = all(torch.equal(k, c) for k, c in zip(got, again))
-    print(f"parity attn_block B={b} S={s} ln={fuse_ln}: second call bitwise equal: {stable}")
-    check(stable, f"attn_block B={b} S={s} ln={fuse_ln} is not bitwise stable across two calls")
+    print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'}: second call bitwise equal: {stable}")
+    check(stable, f"attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} is not bitwise stable across two calls")
     attn_qkv_plane(torch, args)
     return max(errs.values())
 
@@ -665,16 +687,17 @@ def padding_bias(torch, b, s, seed):
     return ((keys >= valid).float() * -10000.0)[:, None, None, :]
 
 
-def layer_case(torch, b, s, use_b, seed):
+def layer_case(torch, b, s, use_b, seed, masked=True):
     """Residuals of one layer's forward on the card (layer_fwd: kernel #1 +
     plain ops) and a cotangent g at std 1, so that lse and ctx are the ones
-    the backward really sees; -> (args of layer_block_bwd_*, cfg)."""
+    the backward really sees; -> (args of layer_block_bwd_*, cfg).  No
+    padding bias when not ``masked``."""
     from feddat_tpu_torch.ops import layer_block as lb
 
     w, ((wda, bda, wua, bua), (wdb, bdb, wub, bub)) = layer_weights(torch, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
-    bias = padding_bias(torch, b, s, seed)
+    bias = padding_bias(torch, b, s, seed) if masked else None
     cfg = (HEADS, 64 ** -0.5, 1e-12, 1e-12, 0.5 if use_b else 1.0, 0.5 if use_b else 0.0, use_b)
     with torch.no_grad():
         _, (_, ctx, lse, aout) = lb.layer_fwd(
@@ -687,12 +710,13 @@ def layer_case(torch, b, s, use_b, seed):
     return args, cfg
 
 
-def attn_bwd_case(torch, b, s, fuse_ln, seed):
+def attn_bwd_case(torch, b, s, fuse_ln, seed, masked=True):
     """Kernel #1's residuals on the card and a cotangent at std 1 ->
     args of attn_block_bwd_* (x, weights, bqkv, gb, bias, ctx, lse, g, ...)."""
     from feddat_tpu_torch.ops import attn_block as ab
 
-    x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = attn_inputs(torch, b, s, fuse_ln, seed)
+    x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = attn_inputs(torch, b, s, fuse_ln,
+                                                                             seed, masked)
     if fuse_ln:  # LayerNorm rows drawn large, as for the layer
         gen = torch.Generator(device="cuda").manual_seed(seed + 2)
         gb = torch.stack([1.0 + 0.5 * torch.randn(DM, generator=gen, device="cuda"),
@@ -746,23 +770,23 @@ LAYER_E2E_LIMITS = {"dx": 1e-2, "dwda": 3e-2, "dbda": 3e-2, "dwua": 2e-3, "dbua"
 PLANTED_CHUNK = 256  # rows of one partial-sum chunk of #4 (at most half the rows)
 
 
-def attn_bwd_parity(torch, b, s, fuse_ln, seed):
+def attn_bwd_parity(torch, b, s, fuse_ln, seed, masked=True):
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_bwd_case(torch, b, s, fuse_ln, seed)
+    args = attn_bwd_case(torch, b, s, fuse_ln, seed, masked)
     with torch.no_grad():
         got = ab.attn_block_bwd_cuda(*args).float()
         again = ab.attn_block_bwd_cuda(*args).float()
         want = ab.attn_block_bwd_reference(*args).float()
     torch.cuda.synchronize()
-    check(torch.equal(got, again), f"attn_block_bwd B={b} S={s} ln={fuse_ln} is not bitwise stable "
+    check(torch.equal(got, again), f"attn_block_bwd B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} is not bitwise stable "
           "across two calls")
     check(bool(torch.isfinite(got).all()), "attn_block_bwd dx has non-finite values")
     err, ulps = (got - want).abs().max().item(), own_ulps(torch, got, want)
     planted = got.clone()
     planted[0, 0] += want.pow(2).mean().sqrt()  # one row off by a typical |dx|
     p_ulps = own_ulps(torch, planted, want)
-    print(f"parity attn_block_bwd B={b} S={s} ln={fuse_ln} dx: {ulps:.2f} own ulps (limit "
+    print(f"parity attn_block_bwd B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} dx: {ulps:.2f} own ulps (limit "
           f"{ATTN_DX_ULPS}), rel norm {rel_norm(got, want):.2e}, max_abs_err={err:.3e}; planted "
           f"fault (row 0 off by the rms) {p_ulps:.1f} ulps; second call bitwise equal")
     check(ulps <= ATTN_DX_ULPS < p_ulps,
@@ -770,7 +794,7 @@ def attn_bwd_parity(torch, b, s, fuse_ln, seed):
     return err
 
 
-def layer_bwd_parity(torch, b, s, use_b, seed):
+def layer_bwd_parity(torch, b, s, use_b, seed, masked=True):
     """#4 against its plain version, stage by stage and end to end (see the
     limits above); prints the o elements and gate entries where the kernel
     and the plain version differ, and p1's deviation beside cuBLAS's bf16
@@ -778,11 +802,12 @@ def layer_bwd_parity(torch, b, s, use_b, seed):
     second call."""
     from feddat_tpu_torch.ops import layer_block as lb
 
-    args, cfg = layer_case(torch, b, s, use_b, seed)
+    args, cfg = layer_case(torch, b, s, use_b, seed, masked)
     (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = args
     heads, scale, eps1, eps2, w_a, w_b, _ = cfg
-    tag, lim = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}", LAYER_STAGE_LIMITS
+    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{'' if masked else ' unmasked'}"
+    lim = LAYER_STAGE_LIMITS
     with torch.no_grad():
         got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
         again = lb.layer_block_bwd_cuda(*args, *cfg)
@@ -1312,6 +1337,31 @@ def flash_bwd_probes(torch):
               f"flash_attention_bwd {name}: rounded below fp32 ({got} vs {exact})")
 
 
+# ALBEF's ViT length (S=577, B=2, no padding bias: the tuned configuration's
+# ViT, LN1 outside #1 and #3 past 448) and the edges around it: 592 (#1's
+# logits tile pads 577 to 592), 593 (one row more: 608) and 768 (the longest
+# S a block's fp32 logits tile holds), B=1 with a padding bias.
+VIT_LENGTH_CASES = ((2, VIT_S, False), (1, 592, True), (1, 593, True), (1, 768, True))
+
+
+def vit_length_parity(torch, seed):
+    """#1 (LN1 outside, as the model runs it past LN_FUSED_MAX_S), #3 (LN1
+    outside) and #4 (both adapter modes at S=577) at :data:`VIT_LENGTH_CASES`,
+    then at the albef_tuned phase's own shapes, without a padding bias: #1
+    and #4 (both adapter modes) at the tuned step's B=ATB, where #4's adapter
+    weight gradients sum M = B*S = 27 696 rows in partial-sum chunks, and #3
+    at the "block" path's B=SECOND_B; under the limits of the other cases."""
+    for b, s, masked in VIT_LENGTH_CASES:
+        attn_parity(torch, b, s, False, seed + s, masked)
+        attn_bwd_parity(torch, b, s, False, seed + s, masked)
+        for use_b in ((True, False) if s == VIT_S else (s % 2 == 0,)):
+            layer_bwd_parity(torch, b, s, use_b, seed + s, masked)
+    attn_parity(torch, ATB, VIT_S, False, seed + 1, masked=False)
+    for use_b in (True, False):
+        layer_bwd_parity(torch, ATB, VIT_S, use_b, seed + 1, masked=False)
+    attn_bwd_parity(torch, SECOND_B, VIT_S, False, seed + 1, masked=False)
+
+
 def phase_parity(torch, seed):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((TB, TS, True), (3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
@@ -1336,6 +1386,7 @@ def phase_parity(torch, seed):
     for s in EDGE_LENGTHS:
         for flag in (True, False):
             layer_bwd_parity(torch, 1, s, flag, seed + s)
+    vit_length_parity(torch, seed)
     errs["fused_attention"], errs["fused_attention_bwd"] = fused_parity(torch, TB, TS, seed)
     fused_parity(torch, B, S, seed + 1)  # the serving canvas, keys dropped by the padding mask
     fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
@@ -1913,10 +1964,10 @@ def phase_albef(torch, seed):
 ATB, ANS_PER_Q = 48, 4
 
 
-def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, state=None):
+def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, state=None, **flags):
     """Full-width ALBEF DAT from ``create_model`` (its dropout 0.1 live), or
     the same configuration with both BERT rates at 0; weights from ``seed``
-    or ``state``."""
+    or ``state``; ``flags``: create_model's remat and logits arguments."""
     import dataclasses
 
     from feddat_tpu_torch.configs.core import PEFTMode
@@ -1924,7 +1975,7 @@ def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, st
     from feddat_tpu_torch.models.albef import AlbefModel
 
     model, cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, 16, dtype, attn_impl=attn_impl,
-                              seed=seed)
+                              seed=seed, **flags)
     check((cfg.bert.hidden_dropout, cfg.bert.attention_dropout) == (0.1, 0.1)
           and cfg.image_res == ARES and cfg.max_question_len == LQ and cfg.max_answer_len == LA,
           f"unexpected ALBEF config {cfg}")
@@ -1932,8 +1983,11 @@ def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, st
         cfg = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert, hidden_dropout=0.0,
                                                                 attention_dropout=0.0))
         sd = model.state_dict() if state is None else state
+        # create_model's routes: "block"/"layer" take the ViT alone
+        routes = (dict(attn_impl="auto", vision_attn_impl=attn_impl)
+                  if attn_impl in ("block", "layer") else dict(attn_impl=attn_impl))
         with torch.device("meta"):
-            model = AlbefModel(cfg, DTYPES[dtype], attn_impl=attn_impl)
+            model = AlbefModel(cfg, DTYPES[dtype], **routes)
         model = model.to_empty(device="cuda")
         model.load_state_dict(sd)
     elif state is not None:
@@ -2370,6 +2424,87 @@ def gemm_against_cublas(torch, breakdown, seed):
               f"({flop / lib / 1e9:.1f} TFLOP/s)")
 
 
+def attention_chain(torch, b, s, fuse_ln):
+    """The attention part of #3/#4's library yardstick at one shape:
+    (F.layer_norm when ``fuse_ln``,) F.linear q/k/v, SDPA with the mask."""
+    import torch.nn.functional as F
+
+    def heads(t):
+        return t.view(b, s, HEADS, 64).transpose(1, 2)
+
+    def attention(xr, gamma, wq, wk, wv, bqkv, bias):
+        xl = (F.layer_norm(xr, (DM,), gamma[0].bfloat16(), gamma[1].bfloat16(), 1e-12)
+              if fuse_ln else xr)
+        q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
+        mask = None if bias is None else bias.bfloat16()
+        att = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return att.transpose(1, 2).reshape(b, s, DM)
+
+    return attention
+
+
+def attn_bwd_row(torch, b, s, fuse_ln, seed, masked=True):
+    """#3's time row at one shape: kernel, plain version, the library chain
+    (the forward from x inside the timed call and autograd.grad through it)
+    and the bound -> (row, args, attention chain)."""
+    from feddat_tpu_torch.ops import attn_block as ab
+
+    args = attn_bwd_case(torch, b, s, fuse_ln, seed, masked)
+    x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
+    attention = attention_chain(torch, b, s, fuse_ln)
+
+    def chain3():
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            dctx = torch.mm(gout.view(-1, DM), wo).view_as(x)
+            return torch.autograd.grad(attention(xr, gb, wq, wk, wv, bqkv, bias), [xr], dctx)
+
+    row = time_row(
+        torch, f"attn_block_bwd B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'}",
+        lambda: ab.attn_block_bwd_cuda(*args), lambda: ab.attn_block_bwd_reference(*args), chain3,
+        attn_bwd_bound(b, s, fuse_ln, masked), "the forward from x and autograd.grad through it")
+    return row, args, attention
+
+
+def layer_bwd_row(torch, b, s, use_b, seed, masked=True):
+    """#4's time row at one shape, as :func:`attn_bwd_row` -> (row, args, cfg,
+    the layer's library forward)."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    largs, cfg = layer_case(torch, b, s, use_b, seed, masked)
+    (x, aout, ctx, lse, gout, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
+     wda, bda, wua, bua, wdb, bdb, wub, bub) = largs
+    attention = attention_chain(torch, b, s, True)
+    w_a, w_b = cfg[4], cfg[5]
+
+    def layer(xr, pa):
+        h = xr + F.linear(attention(xr, gb1, wq, wk, wv, bqkv, bias), wo)
+        mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
+                              b1[0].bfloat16()))
+        o = h + F.linear(mid, w2, b2[0].bfloat16())
+
+        def adapter(wd, bd, wu, bu):
+            return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
+
+        out = o + w_a * adapter(*pa)
+        return out + w_b * adapter(wdb, bdb, wub, bub) if use_b else out
+
+    def chain4():
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
+            return torch.autograd.grad(layer(xr, pa), [xr, *pa], gout)
+
+    row = time_row(
+        torch, f"layer_block_bwd B={b} S={s} ensemble={use_b}{'' if masked else ' unmasked'}",
+        lambda: lb.layer_block_bwd_cuda(*largs, *cfg), lambda: lb.layer_block_bwd_reference(*largs, *cfg),
+        chain4, layer_bwd_bound(b, s, use_b, masked=masked),
+        "the forward from x and autograd.grad through it")
+    return row, largs, cfg, layer
+
+
 def time_backward_kernels(torch, seed):
     """#3 and #4 at the training shape: kernel, plain version, a library
     chain for the same function and the bound; each kernel's launches by
@@ -2385,65 +2520,22 @@ def time_backward_kernels(torch, seed):
     from feddat_tpu_torch.ops import layer_block as lb
 
     rows = {}
-    args = attn_bwd_case(torch, TB, TS, True, seed)
+    rows["attn_block_bwd"], args, attention = attn_bwd_row(torch, TB, TS, True, seed)
     x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
-
-    def heads(t):
-        return t.view(TB, TS, HEADS, 64).transpose(1, 2)
-
-    def attention(xr, gamma, wq, wk, wv, bqkv, bias):
-        xl = F.layer_norm(xr, (DM,), gamma[0].bfloat16(), gamma[1].bfloat16(), 1e-12)
-        q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
-        att = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
-        return att.transpose(1, 2).reshape(TB, TS, DM)
-
-    def chain3():
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_()
-            dctx = torch.mm(gout.view(-1, DM), wo).view_as(x)
-            return torch.autograd.grad(attention(xr, gb, wq, wk, wv, bqkv, bias), [xr], dctx)
-
     x_req = x.detach().requires_grad_()
     out = F.linear(attention(x_req, gb, wq, wk, wv, bqkv, bias), wo)
     old3 = device_ms(torch, lambda: torch.autograd.grad(out, [x_req], gout, retain_graph=True))
-    rows["attn_block_bwd"] = time_row(
-        torch, f"attn_block_bwd B={TB} S={TS}", lambda: ab.attn_block_bwd_cuda(*args),
-        lambda: ab.attn_block_bwd_reference(*args), chain3, attn_bwd_bound(TB, TS, True),
-        "the forward from x and autograd.grad through it")
     print(f"time attn_block_bwd library, old chain (autograd.grad through a retained graph): "
           f"{old3:.4f} ms device")
     del out
     launch_breakdown(torch, lambda: ab.attn_block_bwd_cuda(*args), f"attn_block_bwd (#3) B={TB} S={TS}")
 
-    largs, cfg = layer_case(torch, TB, TS, True, seed)
-    (x, aout, ctx, lse, gout, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
-     wda, bda, wua, bua, wdb, bdb, wub, bub) = largs
-
-    def layer(xr, pa):
-        h = xr + F.linear(attention(xr, gb1, wq, wk, wv, bqkv, bias), wo)
-        mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
-                              b1[0].bfloat16()))
-        o = h + F.linear(mid, w2, b2[0].bfloat16())
-
-        def adapter(wd, bd, wu, bu):
-            return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
-
-        return o + 0.5 * adapter(*pa) + 0.5 * adapter(wdb, bdb, wub, bub)
-
-    def chain4():
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_()
-            pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
-            return torch.autograd.grad(layer(xr, pa), [xr, *pa], gout)
-
+    rows["layer_block_bwd"], largs, cfg, layer = layer_bwd_row(torch, TB, TS, True, seed)
+    x, gout, wda, bda, wua, bua = largs[0], largs[4], *largs[17:21]
     xr = x.detach().requires_grad_()
     pa = [t.detach().requires_grad_() for t in (wda, bda, wua, bua)]
     out = layer(xr, pa)
     old4 = device_ms(torch, lambda: torch.autograd.grad(out, [xr, *pa], gout, retain_graph=True))
-    rows["layer_block_bwd"] = time_row(
-        torch, f"layer_block_bwd B={TB} S={TS}", lambda: lb.layer_block_bwd_cuda(*largs, *cfg),
-        lambda: lb.layer_block_bwd_reference(*largs, *cfg), chain4, layer_bwd_bound(TB, TS, True),
-        "the forward from x and autograd.grad through it")
     print(f"time layer_block_bwd library, old chain (autograd.grad through a retained graph): "
           f"{old4:.4f} ms device")
     del out
@@ -2489,33 +2581,29 @@ def time_train(torch, tr):
     return TB / k_med, TB / p_med
 
 
-def time_attn_block(torch, b, s, seed):
-    """#1 at one shape with LN1 fused: kernel, plain version, the same
-    function as one PyTorch call chain (a yardstick the port never calls) and
-    the bound; then the device time of each of its launches (LN1 rows, q|k|v
-    GEMM, attention core, out GEMM)."""
+def time_attn_block(torch, b, s, seed, fuse_ln=True, masked=True):
+    """#1 at one shape (LN1 fused unless ``fuse_ln`` is off): kernel, plain
+    version, the same function as one PyTorch call chain (a yardstick the
+    port never calls) and the bound; then the device time of each of its
+    launches (LN1 rows, q|k|v GEMM, attention core, out GEMM)."""
     import torch.nn.functional as F
 
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_inputs(torch, b, s, True, seed)
+    args = attn_inputs(torch, b, s, fuse_ln, seed, masked)
     x, wq, wk, wv, wo, bqkv, bo, gb, bias = args[:9]
+    attention = attention_chain(torch, b, s, fuse_ln)
 
     def library():
-        xl = F.layer_norm(x, (DM,), gb[0].bfloat16(), gb[1].bfloat16(), 1e-12)
+        return F.linear(attention(x, gb, wq, wk, wv, bqkv, bias), wo, bo[0].bfloat16())
 
-        def split(t):
-            return t.view(b, s, HEADS, 64).transpose(1, 2)
-
-        q, k, v = (split(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
-        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.bfloat16())
-        return F.linear(ctx.transpose(1, 2).reshape(b, s, DM), wo, bo[0].bfloat16())
-
+    label = f"attn_block B={b} S={s}" + ("" if fuse_ln else " ln=False") + ("" if masked else " unmasked")
     with torch.inference_mode():
-        row = time_row(torch, f"attn_block B={b} S={s}", lambda: ab.attn_block_cuda(*args),
-                       lambda: ab.attn_block_reference(*args), library, attn_block_bound(b, s, True),
-                       "F.layer_norm + F.linear + SDPA + F.linear")
-        launch_breakdown(torch, lambda: ab.attn_block_cuda(*args), f"attn_block (#1) B={b} S={s}")
+        row = time_row(torch, label, lambda: ab.attn_block_cuda(*args),
+                       lambda: ab.attn_block_reference(*args), library,
+                       attn_block_bound(b, s, fuse_ln, masked),
+                       ("F.layer_norm + " if fuse_ln else "") + "F.linear + SDPA + F.linear")
+        launch_breakdown(torch, lambda: ab.attn_block_cuda(*args), f"attn_block (#1) {label[11:]}")
     return row
 
 
@@ -3230,6 +3318,271 @@ def phase_graphs(torch, seed):
     return launches
 
 
+# bench.py:192-229's accelerator flags (scripts/train_albef_tpu_tuned.sh:30-34):
+# create_model(..., attn_impl="layer") routes the ViT alone through #1/#4
+TUNED_FLAGS = dict(remat=True, remat_policy="block_save_nox", text_remat_policy="names",
+                   attention_logits_dtype="bfloat16")
+SECOND_B = 16  # the second path's batch (the JAX package's round-3 "block" route)
+SPEED_ROUNDS = 3
+STEP_GROUPS = {"port kernels": PORT_KERNELS, "cuBLAS GEMM": ("xmma", "nvjet", "cutlass"),
+               "casts and copies": ("direct_copy_kernel",)}
+
+
+def tuned_flags_check(model, vision):
+    cfg = model.cfg
+    check(cfg.remat and cfg.remat_policy == "block_save_nox" and cfg.text_remat is None
+          and cfg.text_remat_policy == "names" and cfg.fuse_ln and cfg.attention_logits_dtype == "bfloat16"
+          and model.visual_encoder.attn_impl == vision
+          and model.text_encoder.encoder.text_layers[0].attention.attn_impl == "auto"
+          and model.text_encoder.encoder.remat and model.text_decoder.bert.encoder.remat,
+          f"unexpected tuned ALBEF configuration {cfg}")
+
+
+def same_tensors(torch, label, a, b):
+    """Bitwise comparison of two steps' tensors by name (step_tensors)."""
+    check(a.keys() == b.keys(), f"{label}: the two steps give different tensors")
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f"albef_tuned: {label}: {len(a)} tensors (losses, four gradient sets, adapters and moments), "
+          f"{len(bad)} differ{'' if not bad else ' e.g. ' + bad[0]}")
+    return bad
+
+
+def tensor_gib(tensors):
+    """GiB of the distinct storages under ``tensors``."""
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+    return sum(seen.values()) / 2 ** 30
+
+
+def path_speed(torch, paths, batch, seed, weights, rounds=SPEED_ROUNDS):
+    """Samples/s and peak memory of fused ALBEF steps with graphs on (the
+    users' default), one path's graph alive at a time (two full-width pools
+    do not share the card): in each round every path is captured anew, its
+    replays timed in 2 samples of 2 steps, and the graph freed; the order
+    alternates between rounds.  Every path's model stays on the card, so a
+    path's peak is its own: the peak above what was resident at its start,
+    plus the ``weights`` GiB of the one weight set its step reads.  ->
+    {path: (samples/s median, samples, own peak reserved GiB, own peak
+    allocated GiB)}."""
+    times = {name: [] for name in paths}
+    peak = {name: (0.0, 0.0) for name in paths}
+    names = list(paths)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            model, params = paths[name]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            step, state0 = albef_fused_step(torch, model, params, seed)
+            step(state0, batch)  # capture
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(state0, batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / 2)
+            own = ((torch.cuda.max_memory_reserved() - base[0]) / 2 ** 30 + weights,
+                   (torch.cuda.max_memory_allocated() - base[1]) / 2 ** 30 + weights)
+            peak[name] = (max(peak[name][0], own[0]), max(peak[name][1], own[1]))
+            del step, state0
+    torch.cuda.empty_cache()
+    return {name: (ATB / statistics.median(times[name]), [round(ATB / t, 1) for t in times[name]],
+                   *peak[name]) for name in paths}
+
+
+def phase_albef_tuned(torch, seed):
+    """The JAX package's tuned ALBEF configuration (bench.py:192-229): the ViT
+    on the whole-layer kernels (#1 forward, #4 backward) at S=577 without
+    remat, the BERT towers on the composable path with "names" remat, bf16
+    logits, fused LN; the fused DAT step at B=48 x 4 answers, dropout 0.1
+    live.  Then the "block" route with block_save_nox remat at B=16 (#1, #3).
+    -> the kernels' launches per replayed step on these paths."""
+    t_phase = time.perf_counter()
+    batch = albef_train_batch(torch, ATB, seed)
+    model = albef_train_model(torch, seed, "layer", **TUNED_FLAGS)
+    tuned_flags_check(model, "layer")
+    sd = model.state_dict()
+    params = {n: t.detach() for n, t in sd.items()}
+    vit = model.cfg.vision_layers
+    want = {**NO_LAUNCHES, "attn_block": 2 * vit, "layer_block_bwd": 2 * vit}
+
+    # (a) dropout off: the tuned step against the plain path by the 2x-bf16
+    # rule (plain bf16 with the same bf16 logits; the exact one in fp32)
+    with graph_mode(False):
+        off = albef_train_model(torch, seed, "layer", dropout=False, state=sd, **TUNED_FLAGS)
+        step_off, state0 = albef_fused_step(torch, off, params, seed)
+        torch.cuda.synchronize()
+        reset_counts()
+        _, kernel_m = step_off(state0, batch)
+        torch.cuda.synchronize()
+        off_counts = read_counts()
+        print(f"albef_tuned: fused DAT step, dropout off, B={ATB}: launches {counts_text(off_counts)} "
+              f"(expected {counts_text(want)}: #1 and #4 once per ViT layer per encoder pass)")
+        check(off_counts == want, f"albef_tuned dropout-off launches {off_counts}, expected {want}")
+        del off, step_off
+        plain = albef_train_model(torch, seed, "auto", dropout=False, state=sd,
+                                  attention_logits_dtype="bfloat16")
+        plain_m = albef_fused_step(torch, plain, params, seed)[0](state0, batch)[1]
+        del plain
+        torch.cuda.empty_cache()
+        exact = albef_train_model(torch, seed, "auto", "float32", dropout=False, state=sd)
+        exact_m = albef_fused_step(torch, exact, params, seed)[0](state0, batch)[1]
+        del exact
+        grad_agreement(torch, f"albef tuned fused step, dropout off, B={ATB}", kernel_m, plain_m, exact_m)
+        del kernel_m, plain_m, exact_m
+    torch.cuda.empty_cache()
+
+    # (b) remat on ("names", then "full" on the BERT towers) against remat
+    # off, dropout live, the same generators (eager): equal losses,
+    # gradients, adapters and moments; each step's peak allocated above what
+    # was resident at its start
+    nor = albef_train_model(torch, seed, "layer", state=sd, **{**TUNED_FLAGS, "remat": False})
+    full = albef_train_model(torch, seed, "layer", state=sd,
+                             **{**TUNED_FLAGS, "text_remat_policy": "full"})
+    runs, peaks = {}, {}
+    with graph_mode(False):
+        for label, m_ in (("names", model), ("full", full), ("no remat", nor)):
+            step_, state0 = albef_fused_step(torch, m_, params, seed)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runs[label] = step_tensors(torch, step_(state0, batch), 0)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            del step_
+    for label in ("names", "full"):
+        bad = same_tensors(torch, f"remat ('{label}' on the BERT towers) against no remat, dropout "
+                                  "live, one eager step from one state", runs[label], runs["no remat"])
+        check(not bad, f"albef_tuned: '{label}' remat changes the step: {bad[:3]}")
+    print("albef_tuned: eager step, dropout live, peak allocated above what was resident at its "
+          "start: " + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items())
+          + f"; 'names' saves {peaks['no remat'] - peaks['names']:.3f}, 'full' "
+          f"{peaks['no remat'] - peaks['full']:.3f} GiB")
+    del runs, full
+    torch.cuda.empty_cache()
+
+    # (c) graphs: three replays bitwise three eager steps, the launches per
+    # replay from the wrappers and from the device; graph against eager
+    step, state0 = albef_fused_step(torch, model, params, seed)
+    label = f"ALBEF tuned fused DAT step (layer, remat, dropout live, B={ATB}x{ANS_PER_Q})"
+    graph_path(torch, label, lambda: step(state0, batch),
+               lambda prev: step(prev[0] if prev else state0, batch), want)
+    replay = graph_vs_eager(torch, label, lambda: step(state0, batch), want, pairs=4)
+    launches = {k: replay[k] for k in ("attn_block", "layer_block_bwd")}
+    profile_device(torch, lambda: step(state0, batch), f"ALBEF tuned fused DAT step, replayed "
+                   f"(B={ATB})", STEP_GROUPS)
+    del step, state0
+    torch.cuda.empty_cache()
+
+    # (d) samples/s and peak memory: the tuned configuration, phase
+    # albef_train's "flash" path, the plain path and the tuned step without
+    # remat, graphs on, in the same alternating rounds
+    flash = albef_train_model(torch, seed, "flash", state=sd)
+    plain = albef_train_model(torch, seed, "auto", state=sd)
+    weights = tensor_gib(params.values())
+    speed = path_speed(torch, {"tuned": (model, params), "flash": (flash, params),
+                               "plain": (plain, params), "tuned, remat off": (nor, params)},
+                       batch, seed, weights)
+    for name, (rate, samples, reserved, allocated) in speed.items():
+        print(f"time albef_tuned: {name}: {rate:.1f} samples/s (fused DAT step B={ATB}x{ANS_PER_Q}, "
+              f"dropout live, replayed graph; median of {len(samples)} samples of 2 steps, alternating "
+              f"with the other paths: {samples}); own peak reserved {reserved:.2f} GiB, allocated "
+              f"{allocated:.2f} GiB (capture included; one weight set, {weights:.2f} GiB, included)")
+    on, off = speed["tuned"][1], speed["tuned, remat off"][1]
+    print(f"time albef_tuned: remat off against remat on, paired by round and sample: off faster in "
+          f"{sum(b > a for a, b in zip(on, off))}/{len(on)}, rate ratio median "
+          f"{statistics.median(b / a for a, b in zip(on, off)):.4f}")
+    del flash, plain, nor
+    torch.cuda.empty_cache()
+    tuned_round(torch, model, params, seed)
+    del model, params
+    torch.cuda.empty_cache()
+    launches["attn_block_bwd"] = block_route_path(torch, seed)
+    vit_kernel_times(torch, seed)
+    print(f"albef_tuned: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tuned_round(torch, model, params, seed):
+    """(e) one FederatedTrainer round of two clients in the tuned
+    configuration and evaluate_dat, eager against graphs."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+                                       vocab_size=30522, question_len=LQ, answer_len=LA,
+                                       max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
+                                       batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
+               for i, k in enumerate(TRAIN_CLIENTS)}
+    hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks={
+        k: (c.answer_ids, c.answer_mask) for k, c in clients.items()})
+    tcfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.DAT,
+                       optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=2, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    federated_rounds(torch, "2 ALBEF clients x 2 fused steps (tuned)", lambda: FederatedTrainer(
+        model, params, clients, tcfg, make_forward=hooks.make_forward, make_eval=hooks.make_eval,
+        use_fused_dat=True), captures=1 + 3, programs=2)
+
+
+def block_route_path(torch, seed):
+    """(f) the second path: the ViT on "block" with block_save_nox remat at
+    B=16.  The region keeps #1's outputs (attn_ctx, attn_lse, attn_out), so
+    #1 runs once per layer per pass; "full" runs it again in the backward.
+    -> #3's launches per replayed step, measured from the device."""
+    small = albef_train_batch(torch, SECOND_B, seed)
+    blk = albef_train_model(torch, seed, "block", **TUNED_FLAGS)
+    tuned_flags_check(blk, "block")
+    bsd = blk.state_dict()
+    bparams = {n: t.detach() for n, t in bsd.items()}
+    vit = blk.cfg.vision_layers
+    want_blk = {**NO_LAUNCHES, "attn_block": 2 * vit, "attn_block_bwd": 2 * (vit - 1)}
+    step, state0 = albef_fused_step(torch, blk, bparams, seed)
+    label = f"ALBEF fused DAT step (block, block_save_nox, dropout live, B={SECOND_B}x{ANS_PER_Q})"
+    graph_path(torch, label, lambda: step(state0, small),
+               lambda prev: step(prev[0] if prev else state0, small), want_blk)
+    replay = graph_vs_eager(torch, label, lambda: step(state0, small), want_blk, pairs=2)
+    del step
+    runs = {}
+    with graph_mode(False):
+        for name, policy in (("block_save_nox", "block_save_nox"), ("no remat", None), ("full", "full")):
+            flags = {**TUNED_FLAGS, "remat": policy is not None, "remat_policy": policy or "full"}
+            m_ = blk if name == "block_save_nox" else albef_train_model(torch, seed, "block", state=bsd,
+                                                                        **flags)
+            step_, st0 = albef_fused_step(torch, m_, bparams, seed)
+            torch.cuda.synchronize()
+            reset_counts()
+            runs[name] = step_tensors(torch, step_(st0, small), 0)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            print(f"albef_tuned: block route, {name}: launches per eager step {counts_text(counts)}")
+            if name == "full":  # #1 runs again in the backward, #3 as often
+                check(counts["attn_block"] > 2 * vit and counts["attn_block_bwd"] == 2 * (vit - 1),
+                      f"'full' remat: launches {counts}")
+            else:
+                check(counts == want_blk, f"block route {name}: launches {counts}, expected {want_blk}")
+            del step_, m_
+    for name in ("no remat", "full"):
+        bad = same_tensors(torch, f"block route, block_save_nox against {name}", runs["block_save_nox"],
+                           runs[name])
+        check(not bad, f"albef_tuned: block route, remat changes the step against {name}: {bad[:3]}")
+    del blk, runs
+    torch.cuda.empty_cache()
+    return replay["attn_block_bwd"]
+
+
+def vit_kernel_times(torch, seed):
+    """(g) #1, #3 and #4 at S=577 without a padding bias: #1 and #4 at the
+    tuned step's B=48, #3 at the second path's B=16."""
+    time_attn_block(torch, ATB, VIT_S, seed, fuse_ln=False, masked=False)
+    attn_bwd_row(torch, SECOND_B, VIT_S, False, seed, masked=False)
+    layer_bwd_row(torch, ATB, VIT_S, True, seed, masked=False)
+
+
 def profile_device(torch, fn, label, groups):
     """Device time of one call of ``fn`` by kernel, from torch.profiler, with
     the idle share of its wall time; ``groups`` sums kernels by name pieces."""
@@ -3293,11 +3646,17 @@ def main(argv=None) -> int:
 
     from feddat_tpu_torch.train import compiled
 
+    t_start = time.perf_counter()
+
+    def done(what):
+        print(f"chip_smoke: {what} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase_build()
     # phases 2-9 run the eager path (disable_graphs): the kernels' parity,
     # gradients and times as the earlier slices measured them
     with compiled.disable_graphs():
         errs = phase_parity(torch, args.seed)
+        done("parity")
         pred, plain, _, requests = phase_serve(torch, args.seed)
         tr = phase_train(torch, args.seed)
         pf = phase_peft(torch, args.seed)
@@ -3319,6 +3678,7 @@ def main(argv=None) -> int:
         times.update(bwd_rows)
         del at
         torch.cuda.empty_cache()
+    done("the eager phases")
     check(compiled.STATS["captures"] == 0, "an eager phase captured a graph")
     # each kernel's launches per replayed call on the path it serves, the
     # main path of this slice: the fused DAT step for #1 and #4, the standard
@@ -3326,6 +3686,11 @@ def main(argv=None) -> int:
     # and #6, one rank_answer for #7, and the fused ALBEF step with dropout
     # live for #8 and #9
     launches = phase_graphs(torch, args.seed)
+    done("graphs")
+    # this slice's paths: the tuned ALBEF step for #1 and #4, its "block"
+    # route for #3
+    launches.update(phase_albef_tuned(torch, args.seed))
+    done("albef_tuned")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

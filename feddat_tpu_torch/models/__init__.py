@@ -37,15 +37,21 @@ def create_model(
     image_size: Optional[Tuple[int, int]] = None,
     lora_enabled: Optional[bool] = None,
     prompt_enabled: Optional[bool] = None,
+    remat: bool = False,
+    remat_policy: str = "full",
     attn_impl: str = "auto",
     attention_logits_dtype: str = "float32",
+    text_remat_policy: str = "full",
     adapter_fused: bool = False,
     device: DeviceLike = None,
     seed: int = 0,
 ):
     """-> (model, model_config), the model on ``device`` (default CUDA) with
-    weights initialised from ``seed``.  ``adapter_fused`` sets
-    ``AdapterSpec.fused`` (the DAT ensemble through the fused CUDA epilogue).
+    weights initialised from ``seed``.  ``remat``, ``remat_policy`` and
+    ``text_remat_policy`` (ALBEF's BERT towers) recompute layers in the
+    backward (``ops/remat_policy.py``); they change memory, not the numbers.
+    ``adapter_fused`` sets ``AdapterSpec.fused`` (the DAT ensemble through
+    the fused CUDA epilogue).
     ``task_heads`` and ``image_size`` are ignored by ALBEF (its head is the LM
     decoder, its image 384 px)."""
     dev = resolve_device(device)
@@ -76,7 +82,7 @@ def create_model(
         from feddat_tpu_torch.models.vilt import ViltContinualLearner, init_vilt_params
 
         cfg = ViltModelConfig(
-            adapter=adapter, lora=lora, prompt=prompt,
+            adapter=adapter, lora=lora, prompt=prompt, remat=remat, remat_policy=remat_policy,
             attention_logits_dtype=attention_logits_dtype, fuse_ln=fuse_ln,
             **({"image_size": tuple(image_size)} if image_size else {}),
         )
@@ -91,9 +97,9 @@ def create_model(
             raise NotImplementedError("visual prompt tuning on ALBEF is not ported yet "
                                       "(ROADMAP Queue 1, item 9)")
         cfg = AlbefModelConfig(
-            adapter=adapter, lora=lora, prompt=prompt,
+            adapter=adapter, lora=lora, prompt=prompt, remat=remat, remat_policy=remat_policy,
             attention_logits_dtype=attention_logits_dtype, fuse_ln=fuse_ln,
-            distill=(encoder_name == "albef_distill"),
+            distill=(encoder_name == "albef_distill"), text_remat_policy=text_remat_policy,
         )
         # 'block'/'layer' target the ViT (S=577, the FLOP-dominant stack); the
         # post-LN text, fusion and decoder towers keep the composable path

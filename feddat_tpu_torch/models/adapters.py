@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from feddat_tpu_torch.configs.core import AdapterSpec
+from feddat_tpu_torch.ops.remat_policy import checkpoint_name
 
 MODE_NONE = "none"
 MODE_ENSEMBLE = "ensemble"
@@ -40,11 +41,16 @@ def ensemble_members(names: Sequence[str]) -> tuple:
     return ("adapter_0", "adapter_1")
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+          tag: Optional[str] = None) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)`` semantics: input, kernel and bias are
-    cast to ``dtype`` and the product is returned in ``dtype``."""
+    cast to ``dtype`` and the product is returned in ``dtype``.  ``tag``
+    names the product for the remat policies (``ops/remat_policy.py``); the
+    casts stay outside the tag."""
     b = None if layer.bias is None else layer.bias.to(dtype)
-    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), b)
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    with checkpoint_name(tag):
+        return nn.functional.linear(x, w, b)
 
 
 class AdapterCell(nn.Module):

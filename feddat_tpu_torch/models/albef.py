@@ -71,17 +71,18 @@ class AlbefModel(nn.Module):
         if cfg.prompt.enabled:
             raise NotImplementedError("visual prompt tuning on ALBEF is not ported yet "
                                       "(ROADMAP Queue 1, item 9)")
-        if cfg.remat or cfg.text_remat:
-            raise NotImplementedError("remat/remat_policy (activation recomputation; no numeric "
-                                      "effect) is not ported yet (ROADMAP Queue 1, item 13)")
         self.cfg = cfg
         self.dtype = dtype
         logits_dtype = DTYPES[cfg.attention_logits_dtype]
+        # the BERT towers' remat: text_remat (default cfg.remat) with
+        # text_remat_policy (albef.py:99-117); the ViT's is cfg.remat_policy
+        text_remat = cfg.remat if cfg.text_remat is None else cfg.text_remat
         self.visual_encoder = VisionTransformer(cfg, dtype, vision_attn_impl or attn_impl)
         self.text_encoder = XBertModel(cfg.bert, cfg.adapter, cfg.lora, dtype, attn_impl,
-                                       logits_dtype=logits_dtype)
+                                       logits_dtype=logits_dtype, remat=text_remat,
+                                       remat_policy=cfg.text_remat_policy)
         self.text_decoder = XBertLMHead(decoder_config(cfg), cfg.adapter, cfg.lora, dtype,
-                                        attn_impl, logits_dtype)
+                                        attn_impl, logits_dtype, text_remat, cfg.text_remat_policy)
 
     def encode_question(self, pixel_values, question_ids, question_mask, adapter_mode="none",
                         deterministic=True):

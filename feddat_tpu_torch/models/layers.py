@@ -37,6 +37,7 @@ from feddat_tpu_torch.utils import seeding
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, ensemble_members
 from feddat_tpu_torch.ops import layer_block as _lb
 from feddat_tpu_torch.ops.attention import dot_product_attention
+from feddat_tpu_torch.ops.remat_policy import checkpoint_name, remat
 
 logger = logging.getLogger("feddat_tpu_torch")
 
@@ -75,12 +76,15 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
+        """``tag`` names the output for the remat policies: the final cast to
+        ``dtype`` runs in its scope (none in fp32, where nothing is cast)."""
         xf = x.to(torch.float32)
         mu = xf.mean(-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(self.dtype)
+        with checkpoint_name(tag):
+            return y.to(self.dtype)
 
 
 class LoraDense(nn.Module):
@@ -97,8 +101,9 @@ class LoraDense(nn.Module):
             self.lora_a = nn.Linear(in_features, lora.rank, bias=False)
             self.lora_b = nn.Linear(lora.rank, features, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = dense(x, self.dense, self.dtype)
+    def forward(self, x: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
+        """``tag`` names the base product (``dense``), not the low-rank sum."""
+        y = dense(x, self.dense, self.dtype, tag)
         if self.lora.enabled:
             low = dense(dense(x, self.lora_a, self.dtype), self.lora_b, self.dtype)
             y = y + low * (self.lora.alpha / self.lora.rank)
@@ -198,9 +203,10 @@ class MultiHeadAttention(nn.Module):
             return t.reshape(b, s, self.num_heads, d_head).transpose(1, 2)
 
         kv = x if kv is None else kv
-        q = self.query(x)
-        k = dense(kv, self.key, self.dtype)
-        v = self.value(kv)
+        # remat tags (layers.py:274-278, :295): q/k/v and the out projection
+        q = self.query(x, "qkv")
+        k = dense(kv, self.key, self.dtype, "qkv")
+        v = self.value(kv, "qkv")
         live = 0.0 if deterministic else self.dropout_rate
         ctx = dot_product_attention(
             split(q), split(k), split(v), bias, dropout_rate=live,
@@ -209,7 +215,7 @@ class MultiHeadAttention(nn.Module):
         )
         b, h, s, d = ctx.shape
         ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
-        return dense(ctx, self.out, self.dtype)
+        return dense(ctx, self.out, self.dtype, "attn_out")
 
 
 class Mlp(nn.Module):
@@ -224,7 +230,8 @@ class Mlp(nn.Module):
         self.output = nn.Linear(intermediate_size, hidden_size)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        h = F.gelu(dense(x, self.intermediate, self.dtype))
+        # the pre-GELU product is the remat target ffn_preact (layers.py:316)
+        h = F.gelu(dense(x, self.intermediate, self.dtype, "ffn_preact"))
         h = dense(h, self.output, self.dtype)
         return dropout(h, self.dropout_rate, deterministic)
 
@@ -235,15 +242,22 @@ class PreLNLayer(nn.Module):
         h   = x + attn(norm_before(x))
         o   = h + mlp(norm_after(h))
         out = o + adapter.delta(o)
-    """
+
+    The structural remat flags (layers.py:352-360, 500-520): ``remat_attention``
+    recomputes the attention sub-block alone, ``remat_ln`` the two
+    LayerNorms (remat policies ``attention`` and ``min_save``); neither
+    applies where the block kernel takes norm_before in."""
 
     def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
                  adapter: AdapterSpec, dropout_rate: float = 0.0,
                  attention_dropout: float = 0.0, layer_norm_eps: float = 1e-12,
                  lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32,
-                 fuse_ln: bool = False):
+                 fuse_ln: bool = False, remat_attention: bool = False,
+                 remat_ln: bool = False):
         super().__init__()
+        self.remat_attention = remat_attention
+        self.remat_ln = remat_ln
         self.adapter_spec = adapter
         self.num_heads = num_heads
         self.dtype = dtype
@@ -282,6 +296,12 @@ class PreLNLayer(nn.Module):
             and x.shape[1] <= LAYER_MAX_S
             and layer_route_takes(self.adapter.bottleneck, x.is_cuda)
         )
+
+    def takes_layer_kernel(self, x, bias, adapter_mode, deterministic, adapter_weights) -> bool:
+        """Whether the whole-layer kernel takes this call (``attn_impl="layer"``
+        and an eligible call)."""
+        return self.attn_impl == "layer" and self._layer_kernel_eligible(
+            bias, adapter_mode, deterministic, adapter_weights, x)
 
     def _layer_kernel(self, x, bias, adapter_mode):
         """``layers.py:395-453``: the whole layer through ``ops/layer_block.py``."""
@@ -322,10 +342,14 @@ class PreLNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 adapter_mode: str = "none", deterministic: bool = True,
-                adapter_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.attn_impl == "layer" and self._layer_kernel_eligible(
-            bias, adapter_mode, deterministic, adapter_weights, x
-        ):
+                adapter_weights: Optional[torch.Tensor] = None,
+                whole_layer: Optional[bool] = None) -> torch.Tensor:
+        """``whole_layer``: the caller's :meth:`takes_layer_kernel` for this
+        call (None: decided here)."""
+        if whole_layer is None:
+            whole_layer = self.takes_layer_kernel(x, bias, adapter_mode, deterministic,
+                                                  adapter_weights)
+        if whole_layer:
             return self._layer_kernel(x, bias, adapter_mode)
         # a layer that does not qualify goes the "block" way (layers.py:468)
         impl = "block" if self.attn_impl == "layer" else self.attn_impl
@@ -334,9 +358,19 @@ class PreLNLayer(nn.Module):
             ln = (self.norm_before.weight, self.norm_before.bias, self.layer_norm_eps)
             attn_out = self.attention(x, bias=bias, deterministic=deterministic, ln=ln)
         else:
-            attn_out = self.attention(self.norm_before(x), bias=bias, deterministic=deterministic)
+            if self.remat_ln:
+                attn_in = remat(self.norm_before, None, x)
+            else:
+                # the block kernel's input is the remat target attn_x (attn_block.py:347)
+                attn_in = self.norm_before(x, "attn_x" if block_ok else None)
+            if self.remat_attention:
+                attn_out = remat(self.attention, None, attn_in, bias=bias,
+                                 deterministic=deterministic)
+            else:
+                attn_out = self.attention(attn_in, bias=bias, deterministic=deterministic)
         h = x + dropout(attn_out, self.dropout_rate, deterministic)
-        o = h + self.mlp(self.norm_after(h), deterministic)
+        mlp_in = remat(self.norm_after, None, h) if self.remat_ln else self.norm_after(h)
+        o = h + self.mlp(mlp_in, deterministic)
         if self.adapter_spec.enabled:
             o = o + self.adapter.delta(o, adapter_mode, adapter_weights)
         return o

@@ -33,6 +33,7 @@ from feddat_tpu_torch.models.adapters import dense
 from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl, dropout
 from feddat_tpu_torch.models.prompts import ReparamPrompt, splice_after_cls
 from feddat_tpu_torch.ops.attention import mask_to_bias
+from feddat_tpu_torch.ops.remat_policy import remat_call
 
 _LOGITS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,9 +139,6 @@ class ViltEncoder(nn.Module):
                  attn_impl: str = "auto"):
         super().__init__()
         c = config
-        if c.remat:
-            raise NotImplementedError("remat/remat_policy (activation recomputation; no numeric "
-                                      "effect) is not ported yet (ROADMAP Queue 1, item 13)")
         self.config = c
         self.dtype = dtype
         self.attn_impl = check_attn_impl(attn_impl)
@@ -156,7 +154,8 @@ class ViltEncoder(nn.Module):
                 dropout_rate=c.hidden_dropout, attention_dropout=c.attention_dropout,
                 layer_norm_eps=c.layer_norm_eps, lora=c.lora, dtype=dtype,
                 attn_impl=attn_impl, logits_dtype=_LOGITS_DTYPES[c.attention_logits_dtype],
-                fuse_ln=c.fuse_ln,
+                fuse_ln=c.fuse_ln, remat_attention=c.remat and c.remat_policy == "attention",
+                remat_ln=c.remat and c.remat_policy == "min_save",
             )
             for _ in range(c.num_layers)
         )
@@ -212,10 +211,19 @@ class ViltEncoder(nn.Module):
         x = torch.cat([text, image], dim=1)
         bias = mask_to_bias(torch.cat([attention_mask, image_mask], dim=1), torch.float32)
         for layer in self.layers:
-            x = layer(x, bias, adapter_mode, deterministic, adapter_weights)
+            x = self._layer(layer, x, bias, adapter_mode, deterministic, adapter_weights)
         x = self.final_norm(x)
         pooled = torch.tanh(dense(x[:, 0], self.pooler, self.dtype))
         return x, pooled
+
+    def _layer(self, layer: PreLNLayer, x, bias, adapter_mode, deterministic, adapter_weights):
+        """One layer, recomputed in the backward under ``remat`` (vilt.py:283-312)
+        unless the whole-layer kernel takes this call: its backward keeps its
+        own residuals, so remat would only discard them.  Eligibility is per
+        call, as in JAX: a call that falls back keeps the configured remat."""
+        whole = layer.takes_layer_kernel(x, bias, adapter_mode, deterministic, adapter_weights)
+        return remat_call(layer, self.config.remat and not whole, self.config.remat_policy, True,
+                          x, bias, adapter_mode, deterministic, adapter_weights, whole_layer=whole)
 
 
 class ViltContinualLearner(nn.Module):

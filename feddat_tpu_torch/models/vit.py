@@ -5,7 +5,8 @@ the device, a 16x16 patch conv on the NHWC image, a zero-initialised CLS token
 and position table, ``vision_layers`` pre-LN blocks (``PreLNLayer``, eps
 1e-6, the DAT adapter slot after the MLP residual) as a ModuleList
 ``blocks.<i>`` (flax stacks them with ``nn.scan`` under ``blocks/block``),
-and a final LayerNorm.
+and a final LayerNorm.  ``cfg.remat`` recomputes each block in the backward
+with ``cfg.remat_policy`` (no structural policies), except on ``"layer"``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from feddat_tpu_torch.configs.core import AlbefModelConfig
 from feddat_tpu_torch.data.images import normalize_u8
 from feddat_tpu_torch.models import DTYPES
 from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl
+from feddat_tpu_torch.ops.remat_policy import remat_call
 
 
 class VisionTransformer(nn.Module):
@@ -25,9 +27,6 @@ class VisionTransformer(nn.Module):
                  attn_impl: str = "auto"):
         super().__init__()
         c = cfg
-        if c.remat:
-            raise NotImplementedError("remat/remat_policy (activation recomputation; no numeric "
-                                      "effect) is not ported yet (ROADMAP Queue 1, item 13)")
         self.cfg = c
         self.dtype = dtype
         self.attn_impl = check_attn_impl(attn_impl)
@@ -61,5 +60,8 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(self.dtype).expand(b, 1, c.vision_width)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         for block in self.blocks:
-            x = block(x, None, adapter_mode, deterministic)
+            # remat per block (vit.py:72-91), except on "layer": the
+            # whole-layer kernel's backward keeps its own residuals
+            x = remat_call(block, c.remat and self.attn_impl != "layer", c.remat_policy, False,
+                           x, None, adapter_mode, deterministic)
         return self.final_norm(x)

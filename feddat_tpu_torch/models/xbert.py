@@ -20,7 +20,9 @@ False, their masks drawn from the current dropout generator
 * ``XBertEncoder``: the text-only layers then the fusion layers, as the
   ModuleLists ``text_layers.<i>`` and ``fusion_layers.<i>`` (flax scans them
   under ``text_layers/layer`` and ``fusion_layers/layer``); ``mode`` picks
-  which run;
+  which run; ``remat`` recomputes each layer in the backward with
+  ``remat_policy`` (no structural policies; ``"names"`` keeps the fusion
+  layers' image K/V projections among the rest);
 * ``XBertModel``: embeddings + encoder, with ``pack_group=g`` packing g
   sequences per self-attention row behind a block-diagonal bias (exact);
 * ``XBertLMHead``: the causal decoder with ``BertPredictionHead``, whose
@@ -40,6 +42,7 @@ from feddat_tpu_torch.models.adapters import AdapterCell, dense
 from feddat_tpu_torch.models.layers import LayerNorm, MultiHeadAttention, dropout
 from feddat_tpu_torch.models.vilt import embed
 from feddat_tpu_torch.ops.attention import causal_bias, mask_to_bias, packed_self_bias
+from feddat_tpu_torch.ops.remat_policy import remat_call
 
 
 class XBertEmbeddings(nn.Module):
@@ -100,7 +103,8 @@ class XBertLayer(nn.Module):
             hg = h.reshape(bk // cross_group, cross_group * la, dm)
             cross = self.crossattention(hg, bias=enc_bias, deterministic=deterministic, kv=enc_states)
             h = self.crossattention_norm(dropout(cross.reshape(bk, la, dm), rate, deterministic) + h)
-        inter = F.gelu(dense(h, self.intermediate, self.dtype))
+        # the pre-GELU product is the remat target ffn_preact (xbert.py:134-140)
+        inter = F.gelu(dense(h, self.intermediate, self.dtype, "ffn_preact"))
         o = dropout(dense(inter, self.output, self.dtype), rate, deterministic)
         if self.adapter_spec.enabled:
             z = self.output_norm(o + h)
@@ -113,9 +117,12 @@ class XBertEncoder(nn.Module):
 
     def __init__(self, cfg: AlbefBertConfig, adapter: AdapterSpec, lora: LoraSpec = LoraSpec(),
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 logits_dtype: torch.dtype = torch.float32):
+                 logits_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         c = cfg
+        self.remat = remat
+        self.remat_policy = remat_policy
 
         def stack(has_cross, n):
             return nn.ModuleList(XBertLayer(c, has_cross, adapter, lora, dtype, attn_impl, logits_dtype)
@@ -126,12 +133,16 @@ class XBertEncoder(nn.Module):
 
     def forward(self, x, self_bias, enc_states=None, enc_bias=None, mode: str = "multi_modal",
                 adapter_mode: str = "none", deterministic: bool = True, cross_group: int = 1):
+        def run(layer, x, enc, eb):
+            return remat_call(layer, self.remat, self.remat_policy, False,
+                              x, self_bias, enc, eb, adapter_mode, deterministic, cross_group)
+
         if mode in ("text", "multi_modal"):
             for layer in self.text_layers:
-                x = layer(x, self_bias, None, None, adapter_mode, deterministic, cross_group)
+                x = run(layer, x, None, None)
         if mode in ("fusion", "multi_modal"):
             for layer in self.fusion_layers:
-                x = layer(x, self_bias, enc_states, enc_bias, adapter_mode, deterministic, cross_group)
+                x = run(layer, x, enc_states, enc_bias)
         return x
 
 
@@ -141,11 +152,13 @@ class XBertModel(nn.Module):
     def __init__(self, cfg: AlbefBertConfig, adapter: AdapterSpec = AdapterSpec(),
                  lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", is_decoder: bool = False,
-                 logits_dtype: torch.dtype = torch.float32):
+                 logits_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         self.is_decoder = is_decoder
         self.embeddings = XBertEmbeddings(cfg, dtype)
-        self.encoder = XBertEncoder(cfg, adapter, lora, dtype, attn_impl, logits_dtype)
+        self.encoder = XBertEncoder(cfg, adapter, lora, dtype, attn_impl, logits_dtype, remat,
+                                    remat_policy)
 
     def forward(self, input_ids, attention_mask, encoder_hidden_states=None,
                 encoder_attention_mask=None, mode: str = "multi_modal", adapter_mode: str = "none",
@@ -209,10 +222,11 @@ class XBertLMHead(nn.Module):
 
     def __init__(self, cfg: AlbefBertConfig, adapter: AdapterSpec = AdapterSpec(),
                  lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32):
+                 attn_impl: str = "auto", logits_dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.bert = XBertModel(cfg, adapter, lora, dtype, attn_impl, is_decoder=True,
-                               logits_dtype=logits_dtype)
+                               logits_dtype=logits_dtype, remat=remat, remat_policy=remat_policy)
         self.cls = BertPredictionHead(cfg, dtype)
 
     def bert_hidden(self, input_ids, attention_mask, encoder_hidden_states,

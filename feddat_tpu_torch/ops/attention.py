@@ -20,6 +20,7 @@ import torch
 
 from feddat_tpu_torch.ops.flash import flash_attention
 from feddat_tpu_torch.ops.fused_attention import fused_short_attention
+from feddat_tpu_torch.ops.remat_policy import checkpoint_name
 from feddat_tpu_torch.utils.seeding import keep_mask
 
 # The JAX package's routing rule for impl="fused" (attention.py:120-125): the
@@ -60,7 +61,11 @@ def xla_attention(
     if dropout_rate > 0.0:
         keep = keep_mask(probs.shape, 1.0 - dropout_rate, probs.device, generator)
         probs = probs * keep / (1.0 - dropout_rate)
-    return torch.matmul(probs.to(v.dtype), v)
+    # remat target attn_probs (attention.py:52-56): the cast to v's dtype
+    # (no op in fp32, where nothing is kept)
+    with checkpoint_name("attn_probs"):
+        probs = probs.to(v.dtype)
+    return torch.matmul(probs, v)
 
 
 def fused_route_eligible(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor],

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops.remat_policy import checkpoint_name
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
@@ -332,14 +333,30 @@ def attn_block_bwd(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads: in
     return layer_norm_bwd(dx, xhat, rstd, gb[0]).to(dx.dtype)
 
 
+@torch.library.custom_op(
+    "feddat_tpu_torch::attn_block_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor wq, Tensor wk, Tensor wv, Tensor wo, Tensor bqkv, Tensor bo, "
+           "Tensor? gb, Tensor? bias, int num_heads, float? scale, float? ln_eps) "
+           "-> (Tensor, Tensor, Tensor)")
+def attn_block_fwd(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps):
+    """-> (out, ctx, lse): kernel #1 for a CUDA tensor, the plain version for a
+    CPU tensor, as one dispatcher op, so that a remat policy sees it and can
+    keep its outputs instead of launching it again in the backward."""
+    impl = attn_block_cuda if x.is_cuda else attn_block_reference
+    return impl(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps)
+
+
 class _AttnBlock(torch.autograd.Function):
     """The JAX custom_vjp's contract (attn_block.py:314-422): ``dx`` is
-    real; the weights, biases, LN parameters and the mask get none."""
+    real; the weights, biases, LN parameters and the mask get none.  The
+    forward's three outputs are the remat targets ``attn_out``, ``attn_ctx``
+    and ``attn_lse`` (attn_block.py:341-349, layers.py:259)."""
 
     @staticmethod
     def forward(ctx, x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps):
-        impl = attn_block_cuda if x.is_cuda else attn_block_reference
-        out, ctx_t, lse = impl(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads, scale, ln_eps)
+        with checkpoint_name("attn_out", "attn_ctx", "attn_lse"):
+            out, ctx_t, lse = attn_block_fwd(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads,
+                                             scale, ln_eps)
         ctx.save_for_backward(x, wq, wk, wv, wo, bqkv, gb, bias, ctx_t, lse)
         ctx.cfg = (num_heads, scale, ln_eps)
         return out

@@ -40,6 +40,11 @@ later calls only replay it.  Every failure to capture or replay raises.
   call: the capture takes both back from each ``CudaKernel``'s count, and
   every replay adds one call's launches.  So a count says how many launches
   the calls a caller made ran, as in eager mode.
+* **Remat** (``ops/remat_policy.py``): a body with recomputed regions is
+  captured as any other.  The recompute runs inside the captured backward;
+  the checkpoint machinery adds host bookkeeping only (its one tensor is an
+  empty CPU tensor), and a region reads its forward's dropout draws again,
+  so a replay stays bitwise the eager step.
 * **Memory**: every graph allocates from one pool
   (``torch.cuda.graph_pool_handle()``); the graphs never run concurrently and
   their outputs are copied out before another graph replays.

@@ -7,7 +7,10 @@ Here a step derives per-stage ``torch.Generator``\\ s the same way, and the
 model's dropout sites draw their masks only from the generator that
 :func:`dropout_rng` makes current, never from torch's global RNG: a live rate
 with no generator raises.  torch's streams differ from JAX's, so masks agree
-in distribution, not bit for bit.
+in distribution, not bit for bit.  A recomputed region
+(``ops/remat_policy.py::remat``) keeps its masks, one byte per element as
+the path without remat keeps them, and its recompute reads them again: the
+same masks in the forward and the recompute, on every remat policy.
 """
 
 from __future__ import annotations
@@ -39,12 +42,14 @@ def current_rng() -> Optional[torch.Generator]:
 
 
 def keep_mask(shape, keep_prob: float, device, gen: Optional[torch.Generator]) -> torch.Tensor:
-    """``jax.random.bernoulli(key, keep_prob, shape)``: ``uniform < keep_prob``
-    drawn from ``gen`` on ``device``; raises without a generator."""
+    """``jax.random.bernoulli(key, keep_prob, shape)``: a bool mask drawn from
+    ``gen`` on ``device`` by one random op, so that a recomputed region keeps
+    the mask and not an fp32 uniform; raises without a generator."""
     if gen is None:
         raise RuntimeError("live dropout needs an explicit generator (call_method(..., rng=gen) or "
                            "seeding.dropout_rng(gen)); the global RNG is never used")
-    return torch.rand(shape, generator=gen, device=device) < keep_prob
+    return torch.bernoulli(torch.empty(shape, dtype=torch.bool, device=device), keep_prob,
+                           generator=gen)
 
 
 def split_rng(gen: torch.Generator, n: int) -> Tuple[torch.Generator, List[int]]:

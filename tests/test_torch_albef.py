@@ -312,8 +312,10 @@ def test_seeded_init_follows_jax_scheme():
 ])
 def test_create_model_routes_albef_like_jax(attn_impl, routes, monkeypatch):
     """create_model's ALBEF branch (models/__init__.py:101-126 in JAX): 'block'
-    and 'layer' route the ViT alone, every other value every site.  The model
-    class is replaced by a recorder so no full-width model is built."""
+    and 'layer' route the ViT alone, every other value every site; the remat
+    arguments reach the config as JAX's do (the tuned configuration's
+    ``remat``, ``block_save_nox`` and ``names``).  The model class is replaced
+    by a recorder so no full-width model is built."""
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.models import albef, create_model
 
@@ -327,8 +329,24 @@ def test_create_model_routes_albef_like_jax(attn_impl, routes, monkeypatch):
     monkeypatch.setattr(albef, "AlbefModel", Recorder)
     monkeypatch.setattr(albef, "init_albef_params", lambda m, seed: m)
     _, cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, dtype="bfloat16",
-                          attn_impl=attn_impl, device="cpu")
+                          attn_impl=attn_impl, remat=True, remat_policy="block_save_nox",
+                          text_remat_policy="names", attention_logits_dtype="bfloat16",
+                          device="cpu")
     assert {k: v for k, v in seen.items() if k not in ("cfg", "dtype")} == routes
     assert seen["dtype"] == torch.bfloat16 and seen["cfg"] is cfg
     assert cfg.adapter.names == ("adapter_0", "adapter_1", "adapter_2") and not cfg.distill
     assert cfg.fuse_ln and cfg.eval_pack_group == 8 and cfg.image_res == 384
+    assert (cfg.remat, cfg.remat_policy, cfg.text_remat, cfg.text_remat_policy) == (
+        True, "block_save_nox", None, "names")
+    assert cfg.attention_logits_dtype == "bfloat16"
+    from feddat_tpu.configs.core import PEFTMode as JaxPEFTMode
+    from feddat_tpu.models import create_model as jax_create_model
+
+    _, jcfg = jax_create_model("albef_no_distill", {}, JaxPEFTMode.DAT, dtype="bfloat16",
+                               attn_impl=attn_impl, remat=True, remat_policy="block_save_nox",
+                               text_remat_policy="names", attention_logits_dtype="bfloat16")
+    for field in ("remat", "remat_policy", "text_remat", "text_remat_policy", "fuse_ln",
+                  "attention_logits_dtype"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+    _, plain = create_model("albef_no_distill", {}, PEFTMode.DAT, attn_impl=attn_impl, device="cpu")
+    assert (plain.remat, plain.remat_policy, plain.text_remat_policy) == (False, "full", "full")

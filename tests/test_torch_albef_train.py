@@ -252,7 +252,7 @@ def _live_model(weights, attn_impl="flash"):
 
 
 def test_dropout_masks_keep_fraction_scale_and_fp32_point():
-    """``keep_mask`` draws uniform < keep from the generator it is given;
+    """``keep_mask`` draws a bool Bernoulli(keep) mask from the generator it is given;
     hidden dropout is ``where(keep, x / (1 - rate), 0)``; attention dropout
     applies ``probs * keep / (1 - rate)`` to the fp32 probabilities, before
     their cast to v's dtype."""

@@ -176,22 +176,6 @@ def test_ptxas_summary_gives_each_kernel_its_registers_and_spills():
     ]
 
 
-def test_remat_raises_until_ported():
-    """remat/remat_policy only trade memory for recomputation in JAX (no
-    numeric effect); the port refuses them until ROADMAP Queue 1 ports them."""
-    import dataclasses
-
-    from feddat_tpu_torch.configs.core import ViltModelConfig
-    from feddat_tpu_torch.models.vilt import ViltEncoder
-
-    cfg = ViltModelConfig(vocab_size=16, hidden_size=32, num_layers=1, num_heads=4,
-                          intermediate_size=64, max_text_len=4, image_size=(32, 32),
-                          patch_size=16, remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViltEncoder(cfg)
-    ViltEncoder(dataclasses.replace(cfg, remat=False))
-
-
 def test_attn_impls_of_later_slices_raise():
     """Every attn_impl of the JAX package is ported ("flash" in slice 4, with
     kernel #7); an unknown value still raises."""
