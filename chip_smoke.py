@@ -24,7 +24,10 @@ Phases, in this order:
             ensemble-adapter epilogue (#2) at ten row counts (the edges of its
             64-row cluster tiles, the B=1 bucket, the serving batch) for
             bottlenecks 48, 12 and 96, twice, bitwise, with a planted fault
-            and a constructed probe of the ReLU output's low bits.
+            and a constructed probe of the ReLU output's low bits; #1 and #4
+            (both adapter modes) at the from-disk training shape, B=64, S=281,
+            on the key mask of the phase 12 dataset's first batch (padded
+            canvases and text).
 3. serve  — full-width ViLT-B/32 DAT in bf16 (attn_impl='block', fused LN, fused
             ensemble adapter, random weights from --seed, a 3129-label VQA head)
             behind ``ViltVqaPredictor.predict``: a batch request and a single one.
@@ -117,6 +120,29 @@ Phases, in this order:
             the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
             step; "full" runs #1 again in the backward), bitwise against no
             remat and "full"; #1, #3 and #4 timed at S=577.
+12. from_disk — the path from files to answers.  A dataset written at the
+            start from --seed in the reference's on-disk layout (two
+            registered tasks whose image backends differ, vizwiz and gqa;
+            per client 128 train and 64 eval questions of 10 answers on JPEGs
+            of mixed size and aspect; ans2label by the port's make_labels)
+            is loaded by load_examples, make_backend and ViltVQAPipeline
+            (B=64, cached u8 pixels normalised on the card, canvas 384x640,
+            S=281) into full-width ViLT-B/32 DAT, bf16, "layer", the fused
+            step, graphs, the pinned prefetch.  Run A: 3 rounds with a
+            checkpoint each; run B: the same with a SIGTERM raised at round
+            1's first step, then a fresh trainer resumes at round 2; A and B
+            bitwise equal (server, personal stores, last evaluation).
+            ViltVqaPredictor.from_checkpoint on "block" with the fused
+            adapter (#1, #2) answers each client's eval questions bitwise
+            like a predictor built from the trainer's parameters, and within
+            5% of the largest probability of the plain route; one ALBEF
+            client fed by AlbefVQAPipeline trains a round on "flash"
+            (dropout live, #7-#9) with a checkpoint, and
+            AlbefVqaPredictor.from_checkpoint ranks with the recipe's answer
+            list, bitwise a predictor from the trainer's parameters.  Prints
+            each round's time from disk, the idle share of a replayed round,
+            host ms per batch with the cache cold and warm, one checkpoint's
+            save and restore, and #1/#4's launches per step from the device.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -126,14 +152,17 @@ Exits non-zero, without that line, if there is no CUDA device or any phase fails
 from __future__ import annotations
 
 import argparse
+import atexit
 import bisect
 import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -328,7 +357,7 @@ def time_row(torch, label, kernel, plain, library, bound, library_name):
 
 
 # ----------------------------------------------------------------- inputs
-def attn_inputs(torch, b, s, fuse_ln, seed, masked=True):
+def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None):
     """Attention-block inputs on the card: bf16 activations and weights, fp32
     biases/LN, and a padding bias like the model's (text padding + masked
     image patches at -10000; none when not ``masked``, as ALBEF's ViT has
@@ -347,7 +376,8 @@ def attn_inputs(torch, b, s, fuse_ln, seed, masked=True):
     gb = torch.stack([1.0 + randn(DM, std=0.1), randn(DM, std=0.1)]) if fuse_ln else None
     valid = torch.randint(max(1, s // 3), s + 1, (b, 1), generator=g, device="cuda")
     keys = torch.arange(s, device="cuda")[None, :]
-    bias = ((keys >= valid).float() * -10000.0)[:, None, None, :] if masked else None
+    if bias is None:
+        bias = ((keys >= valid).float() * -10000.0)[:, None, None, :] if masked else None
     return (x, *ws, bqkv, bo, gb, bias, HEADS, 64 ** -0.5, 1e-12 if fuse_ln else None)
 
 
@@ -518,6 +548,12 @@ def phase_build():
             print(f"  ptxas {name}: {line}")
 
 
+def mask_tag(masked, bias):
+    """How a parity line names its key mask: a random padding bias (no
+    tag), none, or a given one (the from-disk fixture's canvases)."""
+    return " fixture mask" if bias is not None else ("" if masked else " unmasked")
+
+
 # #1 against its plain version, out and ctx also elementwise in bf16 ulps of
 # each element's own magnitude (own_ulps), beside the max-abs check below.
 # Both sides round q/k/v, P, ctx and out to bf16 after fp32 sums taken in
@@ -528,10 +564,11 @@ def phase_build():
 ATTN_OWN_ULPS = 8
 
 
-def attn_parity(torch, b, s, fuse_ln, seed, masked=True):
+def attn_parity(torch, b, s, fuse_ln, seed, masked=True, bias=None):
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_inputs(torch, b, s, fuse_ln, seed, masked)
+    args = attn_inputs(torch, b, s, fuse_ln, seed, masked, bias)
+    mtag = mask_tag(masked, bias)
     with torch.inference_mode():
         got = ab.attn_block_cuda(*args)
         again = ab.attn_block_cuda(*args)
@@ -549,7 +586,7 @@ def attn_parity(torch, b, s, fuse_ln, seed, masked=True):
         # sees those flips only through q.k: allow 2 bf16 ulps of its largest.
         ulps = 2 if name == "lse" else 8
         tol = ulps * bf16_ulp(r.abs().max().item())
-        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} {name}: max_abs_err={err:.3e} "
+        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{mtag} {name}: max_abs_err={err:.3e} "
               f"tol={tol:.3e} ({ulps} bf16 ulps at max |ref|={r.abs().max().item():.3e})")
         check(err <= tol, f"attn_block {name} disagrees with the plain version: {err} > {tol}")
         errs[name] = err
@@ -558,13 +595,13 @@ def attn_parity(torch, b, s, fuse_ln, seed, masked=True):
         bad = k.float().clone()
         bad[0, 0] += r.float().pow(2).mean().sqrt()  # one row off by a typical |r|
         p_ulps = own_ulps(torch, bad, r)
-        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} {name}: {ulps:.2f} own ulps (limit "
+        print(f"parity attn_block B={b} S={s} ln={fuse_ln}{mtag} {name}: {ulps:.2f} own ulps (limit "
               f"{ATTN_OWN_ULPS}); planted fault (row 0 off by the rms) {p_ulps:.1f} ulps")
         check(ulps <= ATTN_OWN_ULPS < p_ulps,
               f"attn_block {name} disagrees with the plain version: {ulps} own ulps (limit {ATTN_OWN_ULPS})")
     stable = all(torch.equal(k, c) for k, c in zip(got, again))
-    print(f"parity attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'}: second call bitwise equal: {stable}")
-    check(stable, f"attn_block B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'} is not bitwise stable across two calls")
+    print(f"parity attn_block B={b} S={s} ln={fuse_ln}{mtag}: second call bitwise equal: {stable}")
+    check(stable, f"attn_block B={b} S={s} ln={fuse_ln}{mtag} is not bitwise stable across two calls")
     attn_qkv_plane(torch, args)
     return max(errs.values())
 
@@ -687,7 +724,7 @@ def padding_bias(torch, b, s, seed):
     return ((keys >= valid).float() * -10000.0)[:, None, None, :]
 
 
-def layer_case(torch, b, s, use_b, seed, masked=True):
+def layer_case(torch, b, s, use_b, seed, masked=True, bias=None):
     """Residuals of one layer's forward on the card (layer_fwd: kernel #1 +
     plain ops) and a cotangent g at std 1, so that lse and ctx are the ones
     the backward really sees; -> (args of layer_block_bwd_*, cfg).  No
@@ -697,7 +734,8 @@ def layer_case(torch, b, s, use_b, seed, masked=True):
     w, ((wda, bda, wua, bua), (wdb, bdb, wub, bub)) = layer_weights(torch, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
-    bias = padding_bias(torch, b, s, seed) if masked else None
+    if bias is None:
+        bias = padding_bias(torch, b, s, seed) if masked else None
     cfg = (HEADS, 64 ** -0.5, 1e-12, 1e-12, 0.5 if use_b else 1.0, 0.5 if use_b else 0.0, use_b)
     with torch.no_grad():
         _, (_, ctx, lse, aout) = lb.layer_fwd(
@@ -794,7 +832,7 @@ def attn_bwd_parity(torch, b, s, fuse_ln, seed, masked=True):
     return err
 
 
-def layer_bwd_parity(torch, b, s, use_b, seed, masked=True):
+def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None):
     """#4 against its plain version, stage by stage and end to end (see the
     limits above); prints the o elements and gate entries where the kernel
     and the plain version differ, and p1's deviation beside cuBLAS's bf16
@@ -802,11 +840,11 @@ def layer_bwd_parity(torch, b, s, use_b, seed, masked=True):
     second call."""
     from feddat_tpu_torch.ops import layer_block as lb
 
-    args, cfg = layer_case(torch, b, s, use_b, seed, masked)
+    args, cfg = layer_case(torch, b, s, use_b, seed, masked, bias)
     (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = args
     heads, scale, eps1, eps2, w_a, w_b, _ = cfg
-    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{'' if masked else ' unmasked'}"
+    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{mask_tag(masked, bias)}"
     lim = LAYER_STAGE_LIMITS
     with torch.no_grad():
         got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
@@ -1362,7 +1400,7 @@ def vit_length_parity(torch, seed):
     attn_bwd_parity(torch, SECOND_B, VIT_S, False, seed + 1, masked=False)
 
 
-def phase_parity(torch, seed):
+def phase_parity(torch, seed, root):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((TB, TS, True), (3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
         attn_parity(torch, b, s, ln, seed + s)
@@ -1408,6 +1446,7 @@ def phase_parity(torch, seed):
     errs["flash_attention_bwd_dkv"] = max(bwd_errs["vit self"]["dk"], bwd_errs["vit self"]["dv"])
     flash_bwd_probes(torch)
     flash_refusals(torch)
+    disk_parity(torch, root, seed)
     return errs
 
 
@@ -3623,6 +3662,561 @@ def profile_device(torch, fn, label, groups):
         print(f"  {t / 1e3:8.3f} ms {100 * t / busy:5.1f}%  {name[:110]}")
 
 
+# ------------------------------------------------------------------ from_disk
+# The path from files on disk to answers (phase 12): two registered tasks
+# whose image backends differ, each a client with 128 train and 64 eval
+# questions of 10 crowd answers, on JPEGs of mixed size and aspect (every
+# canvas but one padded), loaded by the port's own loaders into the tuned
+# ViLT script's pipeline (scripts/train_vilt_tpu_tuned.sh: --batch_size 64
+# --val_batch_size 64 --cache_images --device_normalize, canvas 384x640).
+DISK_TASKS = ("vizwiz", "gqa")
+DISK_TRAIN, DISK_EVAL, DISK_CROWD, DISK_PER_IMAGE = 128, 64, 10, 3
+DISK_SIZES = ((640, 480), (480, 640), (500, 500), (800, 600), (375, 500), (612, 612),
+              (1024, 683), (427, 640), (300, 300), (640, 360), (333, 500), (1280, 768))
+DISK_ROUNDS = 3
+DISK_AB = ATB  # the ALBEF part's batch: the ALBEF phases' 48 questions x 4 answers
+DISK_WORDS = ("what", "color", "is", "the", "cat", "on", "left", "how", "many", "people", "are",
+              "there", "in", "picture", "does", "this", "man", "have", "a", "hat", "where",
+              "which", "sign", "say", "kind", "of", "food", "room", "weather", "like")
+
+
+def write_disk_dataset(root, seed):
+    """Write :data:`DISK_TASKS` under ``root`` in the reference's on-disk
+    layout: each task's images where its backend looks for them, its
+    questions-and-annotations JSON per split (``datasets.raw_json_paths``),
+    VQAv2-style annotation files and the ``ans2label`` that the port's
+    ``make_labels`` builds from them (``datasets.ans2label_path``)."""
+    import json
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.data.datasets import ans2label_path, raw_json_paths
+    from feddat_tpu_torch.data.images import make_backend
+    from feddat_tpu_torch.data.make_labels import write_vqa_labels
+
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    n_bytes = 0
+    for t, task in enumerate(DISK_TASKS):
+        spec = TASK_CONFIGS[task]
+        data_dir = os.path.join(root, spec.data_dir)
+        backend = make_backend(spec.images_source, task, root)
+        n_images = (DISK_TRAIN + DISK_EVAL) // DISK_PER_IMAGE
+        files = []
+        for i in range(n_images):
+            # vizwiz keys images by file name, VG by the numeric stem
+            fname = f"VizWiz_train_{i:08d}.jpg" if task == "vizwiz" else f"{(t + 1) * 100000 + i}.jpg"
+            image_id = fname if task == "vizwiz" else fname.split(".")[0]
+            w, h = DISK_SIZES[(i + t) % len(DISK_SIZES)]
+            coarse = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            noise = rng.randint(-12, 13, (h, w, 3))
+            img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int32)
+            path = backend.path_for(image_id)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(np.clip(img + noise, 0, 255).astype(np.uint8)).save(path, quality=90)
+            n_bytes += os.path.getsize(path)
+            files.append(f"images/{fname}")
+        # each question's answers: its main answer (every answer of the pool
+        # is some question's) and crowd noise, 10 in all
+        qid = (t + 1) * 1_000_000
+        for split, n in zip(spec.splits, (DISK_TRAIN, DISK_EVAL)):
+            rows, annos = [], []
+            for j in range(n):
+                main = ALBEF_ANSWERS[(j * 7 + t) % len(ALBEF_ANSWERS)]
+                k = rng.randint(5, DISK_CROWD + 1)
+                crowd = [main] * k + [ALBEF_ANSWERS[a] for a in
+                                      rng.randint(0, len(ALBEF_ANSWERS), DISK_CROWD - k)]
+                words = rng.choice(DISK_WORDS, size=rng.randint(4, 14))
+                rows.append({"question_id": qid, "question": " ".join(words) + "?",
+                             "image": files[(j + (DISK_TRAIN if split != spec.splits[0] else 0))
+                                            // DISK_PER_IMAGE],
+                             "answer": crowd})
+                annos.append({"question_id": qid, "multiple_choice_answer": main})
+                qid += 1
+            questions, _ = raw_json_paths(task, data_dir, split, root)
+            os.makedirs(os.path.dirname(questions), exist_ok=True)
+            with open(questions, "w") as f:
+                json.dump(rows, f)
+            with open(os.path.join(data_dir, f"annotations_{split}.json"), "w") as f:
+                json.dump({"annotations": annos}, f)
+        labels = ans2label_path(task, data_dir, root)
+        os.makedirs(os.path.dirname(labels), exist_ok=True)
+        write_vqa_labels([os.path.join(data_dir, f"annotations_{s}.json") for s in spec.splits],
+                         labels, min_occurrences=1)
+    print(f"from_disk: wrote {len(DISK_TASKS)} tasks x ({DISK_TRAIN} + {DISK_EVAL}) questions on "
+          f"{len(DISK_TASKS) * ((DISK_TRAIN + DISK_EVAL) // DISK_PER_IMAGE)} JPEGs "
+          f"({n_bytes / 2 ** 20:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
+
+
+def disk_tokenizer():
+    from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    return WordPieceTokenizer.from_vocab_file(str(REPO / "tests" / "fixtures" / "vocab30k.txt"))
+
+
+def disk_split(root, task):
+    """-> (train examples, eval examples, image backend, ans2label) of one
+    task, by the port's loaders."""
+    import os
+
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.data.datasets import load_ans2label, load_examples
+    from feddat_tpu_torch.data.images import make_backend
+
+    spec = TASK_CONFIGS[task]
+    data_dir = os.path.join(root, spec.data_dir)
+    train = load_examples(task, data_dir, spec.splits[0], data_root=root)
+    evals = load_examples(task, data_dir, spec.splits[1], data_root=root)
+    return (train, evals, make_backend(spec.images_source, task, root),
+            load_ans2label(task, data_dir, root))
+
+
+def disk_pipeline(root, task, seed, tok):
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.data.pipeline import ViltVQAPipeline
+
+    train, evals, backend, _ = disk_split(root, task)
+    check(len(train) == DISK_TRAIN and len(evals) == DISK_EVAL,
+          f"{task}: loaded {len(train)} train and {len(evals)} eval examples")
+    return ViltVQAPipeline(train, backend, tok, num_labels=TASK_CONFIGS[task].num_labels,
+                           max_text_len=TEXT_LEN, canvas=CANVAS, batch_size=TB, val_batch_size=TB,
+                           seed=seed, num_workers=8, eval_examples=evals, cache_images=True,
+                           pixels_u8=True)
+
+
+def disk_key_bias(torch, root, seed):
+    """The key bias the ViLT model builds for the first train batch of the
+    fixture's first client ([TB, 1, 1, S], -10000 at padded text and image
+    keys), as models/vilt.py builds it from the compact pixel mask."""
+    from feddat_tpu_torch.ops.attention import mask_to_bias
+
+    batch = next(disk_pipeline(root, DISK_TASKS[0], seed, disk_tokenizer()).train_batches(0))
+    dims = torch.from_numpy(batch["pixel_mask"])
+    H, W = CANVAS
+    pm = ((torch.arange(H)[None, :, None] < dims[:, 0, None, None])
+          & (torch.arange(W)[None, None, :] < dims[:, 1, None, None])).to(torch.int32)
+    pm = pm.reshape(TB, H // 32, 32, W // 32, 32).amax(dim=(2, 4)).reshape(TB, -1)
+    text = torch.from_numpy(batch["attention_mask"])
+    mask = torch.cat([text, torch.ones(TB, 1, dtype=text.dtype), pm.to(text.dtype)], dim=1)
+    check(mask.shape == (TB, S), f"fixture mask shape {tuple(mask.shape)}")
+    padded = int((pm.sum(-1) < pm.shape[1]).sum())
+    print(f"from_disk: the fixture's first train batch masks {int((mask == 0).sum())} of {mask.numel()} "
+          f"keys; {padded} of {TB} canvases padded, text keys masked {int((text == 0).sum())}")
+    check(padded > 0, "no padded canvas in the fixture's first batch")
+    return mask_to_bias(mask).cuda()
+
+
+def disk_parity(torch, root, seed):
+    """#1 at the from-disk training shape (B=64, S=281, LN1 fused) and #4 in
+    both adapter modes, on the key mask of the fixture's canvases, under the
+    limits of the other cases."""
+    bias = disk_key_bias(torch, root, seed)
+    attn_parity(torch, TB, S, True, seed + 7, bias=bias)
+    for use_b in (True, False):
+        layer_bwd_parity(torch, TB, S, use_b, seed + 7, bias=bias)
+
+
+class RoundClock:
+    """The engine's metrics hook (``metrics_logger``), called after each
+    round's evaluation: ``walls`` holds each round's ``run_round`` time as
+    the engine measures it (the host's: the last steps may still run on the
+    card), ``periods`` the time from the previous evaluation (or from
+    ``start()``) to this one: the round, its checkpoint and its evaluation,
+    which reads its scores back from the card."""
+
+    def __init__(self):
+        self.walls, self.periods = {}, {}
+        self.t = time.perf_counter()
+
+    def start(self):
+        self.t = time.perf_counter()
+
+    def step(self, scalars, batch_size, task_key):
+        pass
+
+    def round(self, round_idx, scores, wall_s):
+        now = time.perf_counter()
+        self.walls[round_idx], self.periods[round_idx] = wall_s, now - self.t
+        self.t = now
+
+    def text(self):
+        return ", ".join(f"round {r}: {self.periods[r]:.3f} s (run_round {self.walls[r]:.3f} s)"
+                         for r in sorted(self.walls))
+
+
+def disk_model(seed):
+    """Full-width ViLT-B/32 DAT at reduction 16, bf16, on "layer" (#1/#4),
+    a 100-label head per task (TASK_CONFIGS), the fixture's canvas."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+
+    model, cfg = create_model(
+        "vilt", {t: TaskHeadSpec(num_labels=TASK_CONFIGS[t].num_labels) for t in DISK_TASKS},
+        PEFTMode.DAT, 16, "bfloat16", image_size=CANVAS, attn_impl="layer", seed=seed)
+    check(cfg.fuse_ln and cfg.hidden_dropout == 0.0 and cfg.image_size == CANVAS,
+          f"unexpected model config {cfg}")
+    return model
+
+
+def disk_trainer(model, params, root, seed, directory, transform=None, clock=None):
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+
+    tok = disk_tokenizer()
+    clients = {task: disk_pipeline(root, task, seed + i, tok) for i, task in enumerate(DISK_TASKS)}
+    cfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=DISK_ROUNDS, local_epochs=1, eval_every=1),
+                      num_epochs=DISK_ROUNDS, seed=seed)
+    return FederatedTrainer(model, params, clients, cfg, use_fused_dat=True, checkpoint_dir=directory,
+                            batch_transform=transform, metrics_logger=clock)
+
+
+def sigterm_at(first_step):
+    """A batch_transform that raises SIGTERM at the engine's ``first_step``-th
+    step, after checking that the engine's latch holds SIGTERM."""
+    import itertools
+    import signal
+
+    from feddat_tpu_torch.utils.preemption import GracefulPreemption
+
+    calls = itertools.count()
+
+    def transform(batch, epoch, step, steps_per_epoch):
+        if next(calls) == first_step:
+            handler = signal.getsignal(signal.SIGTERM)
+            check(isinstance(getattr(handler, "__self__", None), GracefulPreemption),
+                  f"SIGTERM is not latched by the engine: {handler}")
+            print("from_disk: run B: SIGTERM raised at the first step of round 1", flush=True)
+            signal.raise_signal(signal.SIGTERM)
+        return batch
+
+    return transform
+
+
+def same_state(torch, label, want, trainer):
+    """``want`` = (server parameters, personal stores, history) against the
+    trainer's: every tensor and the last evaluation, bitwise."""
+    server, personal, history = want
+    bad = [k for k in server if not torch.equal(server[k], trainer.server_params[k])]
+    bad += [f"{c}/{k}" for c in personal for k in personal[c]
+            if not torch.equal(personal[c][k], trainer.personal[c][k])]
+    n = len(server) + sum(len(v) for v in personal.values())
+    print(f"from_disk: {label}: {len(bad)} of {n} tensors differ (bitwise rule); last evaluation "
+          f"{history[-1]} vs {trainer.history[-1]}")
+    check(not bad, f"{label}: tensors differ: {bad[:4]}")
+    check(history[-1] == trainer.history[-1], f"{label}: the last evaluations differ")
+
+
+def round_profile(torch, fn, lead=2):
+    """One replayed call of ``fn`` (a round) after ``lead`` uncounted ones
+    (:func:`profile_calls`) -> (device busy ms, wall ms by the host clock
+    around the call and a synchronize, idle share, ms and count of the
+    host-to-device copies among the device events: the prefetched batches
+    and the eval batches)."""
+    walls = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    per_call, _ = profile_calls(torch, timed, 1, lead)
+    check(per_call is not None, "the round's profile lost its calls")
+    busy = sum(us for _, us, _ in per_call[0]) / 1e3
+    h2d = {"pinned": [], "pageable": []}
+    for _, us, name in per_call[0]:
+        name = name.lower()
+        if "htod" in name.replace(" ", ""):
+            h2d["pinned" if "pinned" in name else "pageable"].append(us)
+    wall = walls[-1] * 1e3
+    return busy, wall, 1.0 - busy / wall, {k: (len(v), sum(v) / 1e3) for k, v in h2d.items()}
+
+
+def disk_serving(torch, root, seed, directory, trainer):
+    """``ViltVqaPredictor.from_checkpoint`` for each client on the "block"
+    route with fused LN and the fused ensemble adapter (#1, #2): its
+    answers to the client's eval questions bitwise those of a predictor
+    built from the trainer's client parameters, and within 5% of the largest
+    probability of the plain route's."""
+    import dataclasses
+
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.ops import adapter_fused as af
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.serving import ViltVqaPredictor
+    from feddat_tpu_torch.utils.checkpointing import write_meta
+
+    heads = {t: TaskHeadSpec(num_labels=TASK_CONFIGS[t].num_labels) for t in DISK_TASKS}
+    write_meta(directory, {
+        "encoder_name": "vilt", "optimizer_mode": "dat", "adapter_reduction_factor": 16,
+        "dtype": "bfloat16", "engine": "sequential", "tasks": list(DISK_TASKS), "smoke": False,
+        "image_size": list(CANVAS), "attention_logits_dtype": "float32",
+        "heads": {t: dataclasses.asdict(h) for t, h in heads.items()}})
+
+    def model(attn_impl, fused):
+        return create_model("vilt", heads, PEFTMode.DAT, 16, "bfloat16", image_size=CANVAS,
+                            attn_impl=attn_impl, adapter_fused=fused, seed=seed + 99)[0]
+
+    tok = disk_tokenizer()
+    common = dict(batch_size=B, canvas=CANVAS, max_text_len=TEXT_LEN)
+    served, direct, plain = model("block", True), model("block", True), model("auto", False)
+    for i, task in enumerate(DISK_TASKS):
+        _, evals, backend, a2l = disk_split(root, task)
+        label2ans = [None] * TASK_CONFIGS[task].num_labels
+        for answer, j in a2l.items():
+            label2ans[j] = answer
+        imgs = [backend.load(e.image_id) for e in evals]
+        qs = [e.question for e in evals]
+        t0 = time.perf_counter()
+        pred = ViltVqaPredictor.from_checkpoint(directory, tok, label2ans, task_key=task,
+                                                model=served, **common)
+        load_s = time.perf_counter() - t0
+        check(pred.adapter_mode == "ensemble", f"adapter mode {pred.adapter_mode}")
+        reset_counts()
+        got = pred.predict(imgs, qs, top_k=5)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want_launches = {**NO_LAUNCHES, "attn_block": 12 * len(imgs) // B,
+                         "adapter_fused": 12 * len(imgs) // B}
+        check(launches == want_launches,
+              f"from_checkpoint predict launches {launches}, expected {want_launches}")
+        params = trainer._client_params(trainer.clients[i], refresh=False)
+        ref = ViltVqaPredictor(direct, params, task, tok, label2ans, **common)
+        want = ref.predict(imgs, qs, top_k=5)
+        batch = pred._preprocess(imgs[:B], qs[:B])
+        probs, probs_ref = pred.forward(batch), ref.forward(batch)
+        probs_plain = ViltVqaPredictor(plain, params, task, tok, label2ans, **common).forward(batch)
+        diff, top = float(abs(probs - probs_plain).max()), float(probs_plain.max())
+        print(f"from_disk: serving {task}: from_checkpoint in {load_s:.2f} s; {len(got)} answers; "
+              f"launches {counts_text(launches)}; bitwise equal to the trainer's params' "
+              f"predictor: answers {got == want}, probabilities {bool((probs == probs_ref).all())}; "
+              f"plain route max_abs_diff {diff:.3e} (tol {0.05 * top:.3e}, 5% of max prob {top:.3e}); "
+              f"first answer {got[0][:2]}")
+        check(got == want and bool((probs == probs_ref).all()),
+              f"{task}: the served predictor differs from the trainer's params' predictor")
+        check(diff <= 0.05 * top, f"{task}: the kernel route disagrees with the plain route")
+
+
+def disk_albef(torch, root, seed, directory):
+    """``AlbefVQAPipeline`` feeds one ALBEF client ("flash", dropout 0.1 live,
+    the fused DAT step) for one round with a checkpoint, and
+    ``AlbefVqaPredictor.from_checkpoint`` ranks its eval questions with the
+    recipe's answer list (#7), bitwise a predictor built from the trainer's
+    client parameters."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.albef_pipeline import AlbefVQAPipeline
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.serving import AlbefVqaPredictor
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+    from feddat_tpu_torch.utils.checkpointing import latest_round, write_meta
+
+    task = DISK_TASKS[0]
+    train, evals, backend, a2l = disk_split(root, task)
+    answers = sorted(a2l, key=a2l.get)
+    tok = disk_tokenizer()
+    pipe = AlbefVQAPipeline(train, backend, tok, answers, image_size=ARES, max_question_len=LQ,
+                            max_answer_len=LA, max_answers_per_q=ANS_PER_Q, batch_size=DISK_AB,
+                            val_batch_size=DISK_AB, seed=seed, num_workers=8, eval_examples=evals,
+                            cache_images=True, pixels_u8=True)
+    model = albef_train_model(torch, seed, "flash")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K,
+                            answer_banks={task: (pipe.answer_ids, pipe.answer_mask)})
+    cfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.DAT,
+                      optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed)
+    trainer = FederatedTrainer(model, params, {task: pipe}, cfg, make_forward=hooks.make_forward,
+                               make_eval=hooks.make_eval, use_fused_dat=True, checkpoint_dir=directory)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"from_disk: ALBEF {task}: 1 round of {pipe.steps_per_epoch} fused steps (B={DISK_AB} x "
+          f"{ANS_PER_Q} answers, dropout 0.1) and rank-answer eval over a {len(answers)}-answer bank "
+          f"in {run_s:.2f} s, captures included; launches {counts_text(counts)}; eval {history[-1]}")
+    check(latest_round(directory) == 0 and len(history) == 1, "the ALBEF round was not checkpointed")
+    check(min(counts[k] for k in FLASH_KEYS) > 0, f"the ALBEF round missed a flash kernel: {counts}")
+    write_meta(directory, {
+        "encoder_name": "albef_no_distill", "optimizer_mode": "dat", "adapter_reduction_factor": 16,
+        "dtype": "bfloat16", "engine": "sequential", "tasks": [task], "smoke": False,
+        "image_size": None, "attention_logits_dtype": "float32",
+        "heads": {task: {"num_labels": len(answers)}}, "answer_lists": {task: answers}})
+    common = dict(batch_size=AB, k=ALBEF_K, max_question_len=LQ, max_answer_len=LA)
+    served = AlbefVqaPredictor.from_checkpoint(directory, tok, model=albef_train_model(torch, seed + 1,
+                                                                                       "flash"),
+                                               **common)
+    check(served.answer_list == answers and served.adapter_mode == "ensemble",
+          "the ALBEF recipe's answer list or adapter mode was not taken")
+    imgs, qs = [backend.load(e.image_id) for e in evals[:2 * AB]], [e.question for e in evals[:2 * AB]]
+    reset_counts()
+    got = served.predict(imgs, qs, top_k=5)
+    torch.cuda.synchronize()
+    served_counts = read_counts()
+    ref = AlbefVqaPredictor(albef_train_model(torch, seed + 2, "flash"),
+                            trainer._client_params(trainer.clients[0], refresh=False), tok, answers,
+                            **common)
+    want = ref.predict(imgs, qs, top_k=5)
+    batch = served._preprocess(imgs[:AB], qs[:AB])
+    ids, probs = served.rank(batch)
+    ids_ref, probs_ref = ref.rank(batch)
+    same = got == want and (ids == ids_ref).all() and (probs == probs_ref).all()
+    print(f"from_disk: ALBEF from_checkpoint predict over {len(imgs)} questions: launches "
+          f"{counts_text(served_counts)}; bitwise equal to the trainer's params' predictor: {bool(same)}; "
+          f"first answer {got[0][:2]}")
+    check(served_counts == {**NO_LAUNCHES, "flash_attention": 54 * len(imgs) // AB},
+          f"ALBEF predict launches {served_counts}")
+    check(bool(same), "the served ALBEF predictor differs from the trainer's params' predictor")
+
+
+def phase_from_disk(torch, seed, root):
+    """Phase 12 (see the module docstring): dataset on disk -> pipeline ->
+    prefetch -> fused DAT rounds with a checkpoint per round -> SIGTERM ->
+    relaunch and resume -> from_checkpoint -> answers."""
+    import os
+
+    from feddat_tpu_torch.train import compiled, dat
+    from feddat_tpu_torch.train.forwards import to_device
+    from feddat_tpu_torch.utils.checkpointing import (
+        latest_round,
+        restore_federated_state,
+        save_federated_state,
+    )
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "checkpoints")
+    dir_a, dir_b, dir_c = (os.path.join(work, n) for n in ("a", "b", "albef"))
+
+    # host ms per batch, the u8 cache cold and warm
+    tok = disk_tokenizer()
+    pipe = disk_pipeline(root, DISK_TASKS[0], seed, tok)
+    chunk = pipe.examples[:TB]
+    host = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = pipe._make_batch(chunk)
+        host.append(1e3 * (time.perf_counter() - t0))
+    dims = batch["pixel_mask"]
+    padded = int(((dims[:, 0] < CANVAS[0]) | (dims[:, 1] < CANVAS[1])).sum())
+    print(f"from_disk: host ms per batch of {TB} (decode, resize, pack, tokenize): cache cold "
+          f"{host[0]:.1f}, warm {host[1]:.1f}; pixels {batch['pixel_values'].dtype} "
+          f"{batch['pixel_values'].shape}; canvases padded {padded} of {TB}")
+    del pipe
+
+    model = disk_model(seed)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    layers = model.config.num_layers
+    steps_per_round = len(DISK_TASKS) * (DISK_TRAIN // TB)
+
+    # run A: three rounds, never interrupted
+    clock = RoundClock()
+    run_a = disk_trainer(model, params, root, seed, dir_a, clock=clock)
+    cap0 = compiled.STATS["captures"]
+    reset_counts()
+    t0 = time.perf_counter()
+    clock.start()
+    run_a.run()
+    torch.cuda.synchronize()
+    run_a_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"from_disk: run A: {DISK_ROUNDS} rounds of {len(DISK_TASKS)} clients x {DISK_TRAIN // TB} "
+          f"fused steps (B={TB}, S={S}) in {run_a_s:.2f} s; from disk, each round with its "
+          f"checkpoint and evaluation: {clock.text()} (round 0 captures and fills the u8 cache); "
+          f"{compiled.STATS['captures'] - cap0} captures; launches {counts_text(counts)}; evals "
+          f"{[e['scores'] for e in run_a.history]}")
+    want = {**NO_LAUNCHES, "attn_block": DISK_ROUNDS * steps_per_round * 2 * layers
+            + DISK_ROUNDS * len(DISK_TASKS) * 3 * layers * (DISK_EVAL // TB),
+            "layer_block_bwd": DISK_ROUNDS * steps_per_round * 2 * layers}
+    check(counts == want, f"run A launches {counts}, expected {want}")
+    check(latest_round(dir_a) == DISK_ROUNDS - 1, "run A did not checkpoint its last round")
+
+    # one checkpoint's save and restore, timed
+    t0 = time.perf_counter()
+    path = save_federated_state(work, 99, run_a.server_params, run_a.personal, run_a.rng)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = restore_federated_state(work, 99)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    print(f"from_disk: save_federated_state {save_s:.3f} s, {size} bytes ({size / 2 ** 20:.1f} MiB, "
+          f"{len(run_a.server_params)} server tensors + {len(DISK_TASKS)} personal stores); restore "
+          f"{restore_s:.3f} s onto the card")
+    check(all(torch.equal(restored[1][k], v) for k, v in run_a.server_params.items()),
+          "the restored server parameters differ")
+    del restored
+    os.remove(path)
+
+    done_a = (run_a.server_params, {c: dict(v) for c, v in run_a.personal.items()},
+              list(run_a.history))
+
+    # the launches per step of #1 and #4 from the device, and the device's
+    # idle share over one replayed round (a fourth round: run A is done)
+    client = run_a.clients[0]
+    state0 = dat.init_train_state(run_a._client_params(client), client.partitioner, client.opt_cfg,
+                                  torch.Generator().manual_seed(seed))
+    batch = to_device(next(client.data.train_batches(0)), torch.device("cuda"))
+    row = call_profile(torch, "from-disk fused DAT step", [True],
+                       lambda g: client.train_step(state0, batch))[0]
+    dev = device_launches(row["port"])
+    print(f"from_disk: one replayed fused step (B={TB}, S={S}), from the device's kernel names: "
+          f"#1 {dev['attn_block']}, #4 {dev['layer_block_bwd']} launches; busy {row['busy']:.3f} ms of "
+          f"{row['ms']:.3f} ms")
+    check(dev["attn_block"] == 2 * layers and dev["layer_block_bwd"] == 2 * layers,
+          f"device launches per step {dev}")
+    del state0, batch
+    busy, wall, idle, h2d = round_profile(torch, lambda: run_a.run_round(DISK_ROUNDS))
+    print(f"from_disk: one replayed round ({steps_per_round} steps, host batches from the warm cache "
+          f"through the prefetch): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{100 * idle:.1f}%; host-to-device copies from pinned memory {h2d['pinned'][0]} in "
+          f"{h2d['pinned'][1]:.3f} ms of device time ({steps_per_round} batches, each "
+          f"{TB * CANVAS[0] * CANVAS[1] * 3 / 2 ** 20:.1f} MiB of u8 pixels), from pageable "
+          f"memory {h2d['pageable'][0]} in {h2d['pageable'][1]:.3f} ms")
+    del run_a, client
+    torch.cuda.empty_cache()
+
+    # run B: SIGTERM inside round 1, then a fresh trainer resumes
+    cut = disk_trainer(model, params, root, seed, dir_b,
+                       transform=sigterm_at(steps_per_round))
+    history = cut.run()
+    print(f"from_disk: run B: returned after rounds {[e['round'] for e in history]}; latest "
+          f"checkpoint round {latest_round(dir_b)}")
+    check([e["round"] for e in history] == [0, 1] and latest_round(dir_b) == 1,
+          "the SIGTERM run did not stop after checkpointing round 1")
+    check(history == done_a[2][:2], "run B's first two evaluations differ from run A's")
+    del cut
+    torch.cuda.empty_cache()
+    clock_b = RoundClock()
+    relaunch = disk_trainer(model, params, root, seed, dir_b, clock=clock_b)
+    t0 = time.perf_counter()
+    clock_b.start()
+    history = relaunch.run()
+    torch.cuda.synchronize()
+    print(f"from_disk: run B relaunched: resumed and ran rounds {[e['round'] for e in history]} in "
+          f"{time.perf_counter() - t0:.2f} s: {clock_b.text()} (the restore, the captures and a cold "
+          f"u8 cache included)")
+    check([e["round"] for e in history] == [DISK_ROUNDS - 1], "the relaunch did not resume at round 2")
+    same_state(torch, "run A against run B (SIGTERM in round 1, resumed)", done_a, relaunch)
+    disk_serving(torch, root, seed, dir_b, relaunch)
+    del relaunch, model, params, done_a
+    torch.cuda.empty_cache()
+
+    disk_albef(torch, root, seed, dir_c)
+    torch.cuda.empty_cache()
+    print(f"from_disk: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3652,10 +4246,14 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {what} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     phase_build()
+    # the from-disk dataset first: the parity phase holds #1 and #4 on its masks
+    root = tempfile.mkdtemp(prefix="chip_smoke_from_disk_")
+    atexit.register(shutil.rmtree, root, True)
+    write_disk_dataset(root, args.seed)
     # phases 2-9 run the eager path (disable_graphs): the kernels' parity,
     # gradients and times as the earlier slices measured them
     with compiled.disable_graphs():
-        errs = phase_parity(torch, args.seed)
+        errs = phase_parity(torch, args.seed, root)
         done("parity")
         pred, plain, _, requests = phase_serve(torch, args.seed)
         tr = phase_train(torch, args.seed)
@@ -3691,6 +4289,9 @@ def main(argv=None) -> int:
     # route for #3
     launches.update(phase_albef_tuned(torch, args.seed))
     done("albef_tuned")
+    # this slice's path, from files on disk to answers
+    phase_from_disk(torch, args.seed, root)
+    done("from_disk")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

@@ -21,11 +21,17 @@ train and eval steps are compiled (``train/compiled.py``): CUDA graphs on the
 card.  Clients whose steps compute the same function (train steps of equal
 kind, partitions and optimizer settings, which ALBEF's clients have; eval
 steps of equal ``Compiled.key``) share one program, so one capture per step
-and shape serves them all; the graphs share one memory pool.
-Checkpointing and resume, tensor parallelism (``tp_mesh``), profiling
-(``profile_dir``), ALBEF's momentum-distillation state
-(``aux_init``/``aux_forward``) and preemption handling are later slices
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+and shape serves them all; the graphs share one memory pool.  On the card the
+train batches come through ``data/pipeline.py::prefetch_to_device`` (pinned,
+two batches ahead), as the JAX engine prefetches on an accelerator.
+
+With a ``checkpoint_dir`` every round is checkpointed
+(``utils/checkpointing.py``), ``run()`` resumes from the latest round, and a
+SIGTERM finishes the round in flight, checkpoints it and returns
+(``utils/preemption.py``).  Tensor parallelism (``tp_mesh``), profiling
+(``profile_dir``) and ALBEF's momentum-distillation state
+(``aux_init``/``aux_forward``) are later slices (ROADMAP Queue 1) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode, TrainConfig
+from feddat_tpu_torch.data.pipeline import prefetch_to_device
 from feddat_tpu_torch.device import DeviceLike, resolve_device
 from feddat_tpu_torch.federated.fedavg import fedavg
 from feddat_tpu_torch.peft.partition import (
@@ -60,6 +67,8 @@ from feddat_tpu_torch.train.dat import (
 from feddat_tpu_torch.train.evaluation import evaluate, evaluate_dat, make_eval_step
 from feddat_tpu_torch.train.forwards import make_vilt_forward, make_vilt_fused_parts, to_device
 from feddat_tpu_torch.train.trainers import check_fused_dropout, make_albef_fused_dat_step
+from feddat_tpu_torch.utils.checkpointing import restore_federated_state, save_federated_state
+from feddat_tpu_torch.utils.preemption import GracefulPreemption
 from feddat_tpu_torch.utils.seeding import check_dropout_rng
 
 logger = logging.getLogger("feddat_tpu_torch")
@@ -97,8 +106,6 @@ class FederatedTrainer:
         """``params`` defaults to the model's own state_dict; ``make_forward(model,
         task_key)`` and ``make_eval(model, task_key)`` customise the model
         family (ViLT by default)."""
-        if checkpoint_dir is not None:
-            raise _later("checkpointing (checkpoint_dir)", "5, checkpoints")
         if tp_mesh is not None:
             raise _later("tensor parallelism (tp_mesh)", "12, distribution")
         if profile_dir is not None:
@@ -157,6 +164,7 @@ class FederatedTrainer:
         self.personal: Dict[str, Dict[str, torch.Tensor]] = {
             c.task_key: dict(init_personal) for c in self.clients}
         self.history: List[Dict[str, Any]] = []
+        self.checkpoint_dir = checkpoint_dir
         self.metrics = metrics_logger
         self.batch_transform = batch_transform
         self.param_budget = param_budget(params, self.mode)
@@ -194,7 +202,11 @@ class FederatedTrainer:
                                  torch.Generator().manual_seed(seed))
         spe = client.data.steps_per_epoch
         for epoch in range(self.config.federated.local_epochs):
-            for step_idx, batch in enumerate(client.data.train_batches(epoch=round_idx * 1000 + epoch)):
+            it = client.data.train_batches(epoch=round_idx * 1000 + epoch)
+            if self.device.type == "cuda":
+                # the host's batch assembly and copy overlap the previous step
+                it = prefetch_to_device(it, size=2, device=self.device)
+            for step_idx, batch in enumerate(it):
                 if self.config.debug_steps and step_idx > self.config.debug_steps:
                     break
                 if self.batch_transform is not None:
@@ -259,14 +271,44 @@ class FederatedTrainer:
         self.history.append(entry)
         return entry
 
-    def run(self, resume: bool = False) -> List[Dict[str, Any]]:
-        """All ``comm_rounds`` rounds with evaluation every ``eval_every`` and
-        after the last; ``resume`` needs checkpoints (a later slice)."""
-        if resume:
-            raise _later("resume", "5, checkpoints")
+    def save_checkpoint(self, round_idx: int) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        return save_federated_state(self.checkpoint_dir, round_idx, self.server_params,
+                                    self.personal, self.rng)
+
+    def try_resume(self) -> int:
+        """Restore the latest checkpoint; returns the next round index."""
+        if not self.checkpoint_dir:
+            return 0
+        restored = restore_federated_state(self.checkpoint_dir, device=self.device)
+        if restored is None:
+            return 0
+        rnd, self.server_params, self.personal, self.rng = restored
+        logger.info("resumed from checkpoint at round %d", rnd)
+        return rnd + 1
+
+    def run(self, resume: bool = True) -> List[Dict[str, Any]]:
+        """All ``comm_rounds`` rounds from the latest checkpoint (``resume``),
+        with evaluation every ``eval_every`` rounds and after the last.  With a
+        ``checkpoint_dir`` each round is checkpointed, and a SIGTERM finishes
+        the round in flight, checkpoints it and returns without a final
+        evaluation; the relaunch resumes."""
         rounds = self.config.federated.comm_rounds
-        for r in range(rounds):
-            self.run_round(r)
-            if (r + 1) % self.config.federated.eval_every == 0 or r == rounds - 1:
-                self.evaluate_round(r)
+        start = self.try_resume() if resume else 0
+        preempted = False
+        with GracefulPreemption(enabled=bool(self.checkpoint_dir)) as stop:
+            for r in range(start, rounds):
+                self.run_round(r)
+                self.save_checkpoint(r)
+                if (r + 1) % self.config.federated.eval_every == 0 or r == rounds - 1:
+                    self.evaluate_round(r)
+                if stop.requested:
+                    logger.warning("preempted: round %d checkpointed; exiting", r)
+                    preempted = True
+                    break
+        if not self.history and rounds > 0 and not preempted:
+            # resumed at or after the last round: a run's history is never
+            # empty; a preempted run is not a finished one and gets none
+            self.evaluate_round(rounds - 1)
         return self.history

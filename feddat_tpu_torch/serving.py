@@ -11,7 +11,11 @@ Both run their device work (:meth:`ViltVqaPredictor.forward`'s forward and
 softmax, :meth:`AlbefVqaPredictor.rank`'s ``rank_answer``) as a
 :class:`~feddat_tpu_torch.train.compiled.Compiled` function: one CUDA graph per
 batch bucket on the card, as JAX jits its predictors (serving.py:171, :300).
-``from_checkpoint`` waits for the checkpoint port (ROADMAP Queue 1, item 5).
+
+``from_checkpoint`` (serving.py:181-213, :310-339) rebuilds a predictor from a
+training run's checkpoint directory: the run recipe (``meta.json``) and the
+latest round's parameters with the client's personal partition merged over
+the server's, as the engine evaluates them.
 """
 
 from __future__ import annotations
@@ -25,8 +29,72 @@ from feddat_tpu_torch.data.albef_pipeline import encode_answer_bank
 from feddat_tpu_torch.data.images import albef_resized_u8, pack_u8_canvas, vilt_resized_u8
 from feddat_tpu_torch.data.text import pre_question
 from feddat_tpu_torch.device import DeviceLike, resolve_device
+from feddat_tpu_torch.peft.partition import merge
 from feddat_tpu_torch.train.compiled import Compiled
+from feddat_tpu_torch.utils.checkpointing import load_meta, restore_federated_state
 from feddat_tpu_torch.utils.param_bridge import albef_from_flax, vilt_from_flax
+
+# the SPMD engine's clients share one head module, task_<FED_HEAD_KEY>
+# (feddat_tpu/federated/spmd.py:51)
+FED_HEAD_KEY = "fed"
+
+
+def _load_checkpoint_recipe(checkpoint_dir: str, task_key: Optional[str], device: torch.device):
+    """-> (meta, resolved task_key, personalised params on ``device``, default
+    adapter_mode), from the run recipe (``meta.json``) and the latest round.
+    Both engines' layouts: the sequential store (``personal[task_key]``) and
+    the SPMD engine's stacked client bank (row ``tasks.index(task_key)``)."""
+    meta = load_meta(checkpoint_dir)
+    if meta is None:
+        raise FileNotFoundError(
+            f"no meta.json in {checkpoint_dir!r} — serving needs the run "
+            "recipe the CLI writes next to its round checkpoints"
+        )
+    if meta.get("smoke"):
+        raise ValueError(
+            "this checkpoint was written by a --smoke run (tiny dev model); "
+            "smoke models are not reconstructible for serving"
+        )
+    if task_key is None:
+        if len(meta["tasks"]) != 1:
+            raise ValueError(
+                f"checkpoint holds {len(meta['tasks'])} clients "
+                f"({meta['tasks']}); pass task_key="
+            )
+        task_key = meta["tasks"][0]
+    if task_key not in meta["tasks"]:
+        raise KeyError(f"task {task_key!r} not in checkpoint tasks {meta['tasks']}")
+    restored = restore_federated_state(checkpoint_dir, device=device)
+    if restored is None:
+        raise FileNotFoundError(f"no round checkpoints in {checkpoint_dir!r}")
+    _, server, personal, _ = restored
+    if "stacked_clients" in personal:  # the SPMD engine's [C]-leading client bank
+        i = meta["tasks"].index(task_key)
+        params = merge(server, {k: v[i] for k, v in personal["stacked_clients"].items()})
+    else:
+        params = merge(server, personal[task_key])
+    adapter_mode = {"dat": "ensemble", "adapter": "adapter"}.get(meta["optimizer_mode"], "none")
+    return meta, task_key, params, adapter_mode
+
+
+def _model_from_meta(meta, device: torch.device):
+    """Rebuild the training-time model from the checkpoint recipe, with
+    ``create_model``'s defaults (``attn_impl="auto"``) -> (model, config)."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+
+    if meta["engine"] == "spmd":
+        heads = {FED_HEAD_KEY: TaskHeadSpec(**next(iter(meta["heads"].values())))}
+    else:
+        heads = {k: TaskHeadSpec(**v) for k, v in meta["heads"].items()}
+    return create_model(
+        meta["encoder_name"], heads, PEFTMode(meta["optimizer_mode"]),
+        meta["adapter_reduction_factor"], meta["dtype"],
+        image_size=tuple(meta["image_size"]) if meta.get("image_size") else None,
+        attention_logits_dtype=meta.get("attention_logits_dtype") or "float32",
+        device=device,
+    )
 
 
 def _pad_batch(arrs: Dict[str, np.ndarray], batch_size: int) -> Tuple[Dict[str, np.ndarray], int]:
@@ -119,6 +187,27 @@ class ViltVqaPredictor:
         self._forward = Compiled(self._probs, lambda batch: _on_device(batch, self.device),
                                  name="vilt_forward")
 
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, tokenizer, label2ans: Sequence[str],
+                        task_key: Optional[str] = None, model: Optional[torch.nn.Module] = None,
+                        adapter_mode: Optional[str] = None, device: DeviceLike = None,
+                        **kw) -> "ViltVqaPredictor":
+        """Train -> serve in one call: the model rebuilt from the run recipe
+        (``meta.json``) with the latest round's personalised parameters of
+        ``task_key`` (which may be omitted when the run had one client).
+        ``model`` replaces the rebuilt one (the caller guarantees it matches
+        the checkpoint, e.g. a model on the kernel route);
+        ``adapter_mode`` defaults to the trained PEFT mode's eval mode (DAT
+        -> 'ensemble')."""
+        device = resolve_device(device)
+        meta, task_key, params, default_mode = _load_checkpoint_recipe(checkpoint_dir, task_key,
+                                                                       device)
+        if model is None:
+            model, _ = _model_from_meta(meta, device)
+        head_key = FED_HEAD_KEY if meta["engine"] == "spmd" else task_key
+        return cls(model, params, head_key, tokenizer, label2ans,
+                   adapter_mode=adapter_mode or default_mode, device=device, **kw)
+
     def _probs(self, inp, gens):
         with torch.inference_mode():
             _, logits = self.model(self.task_key, inp["batch"], adapter_mode=self.adapter_mode,
@@ -207,9 +296,27 @@ class AlbefVqaPredictor:
                                           self.pad_token_id)
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs):
-        raise NotImplementedError("serving from a checkpoint is not ported yet "
-                                  "(ROADMAP Queue 1, item 5: checkpoints)")
+    def from_checkpoint(cls, checkpoint_dir: str, tokenizer, task_key: Optional[str] = None,
+                        answer_list: Optional[Sequence[str]] = None,
+                        model: Optional[torch.nn.Module] = None,
+                        adapter_mode: Optional[str] = None, device: DeviceLike = None,
+                        **kw) -> "AlbefVqaPredictor":
+        """Train -> serve for ALBEF (see :meth:`ViltVqaPredictor.from_checkpoint`);
+        ``answer_list`` defaults to the task's trained answer bank in the
+        run recipe."""
+        device = resolve_device(device)
+        meta, task_key, params, default_mode = _load_checkpoint_recipe(checkpoint_dir, task_key,
+                                                                       device)
+        if answer_list is None:
+            lists = meta.get("answer_lists") or {}
+            if task_key not in lists:
+                raise ValueError("checkpoint recipe carries no answer list for "
+                                 f"{task_key!r}; pass answer_list=")
+            answer_list = lists[task_key]
+        if model is None:
+            model, _ = _model_from_meta(meta, device)
+        return cls(model, params, tokenizer, answer_list,
+                   adapter_mode=adapter_mode or default_mode, device=device, **kw)
 
     def _preprocess(self, images, questions) -> Dict[str, np.ndarray]:
         pixels = np.stack([albef_resized_u8(_open(img), self.image_size) for img in images])

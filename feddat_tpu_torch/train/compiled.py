@@ -45,6 +45,9 @@ later calls only replay it.  Every failure to capture or replay raises.
   the checkpoint machinery adds host bookkeeping only (its one tensor is an
   empty CPU tensor), and a region reads its forward's dropout draws again,
   so a replay stays bitwise the eager step.
+* **Other threads**: a capture holds :data:`capture_lock`; a thread that
+  calls into CUDA while graphs may be captured (the batch prefetch) takes it
+  around those calls.
 * **Memory**: every graph allocates from one pool
   (``torch.cuda.graph_pool_handle()``); the graphs never run concurrently and
   their outputs are copied out before another graph replays.
@@ -60,6 +63,7 @@ eager runs.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -71,6 +75,11 @@ _ENABLED = True
 STATS = {"captures": 0, "replays": 0, "eager": 0}
 _POOL = None
 _STREAM = None
+# held for the length of every capture: another thread that calls into CUDA
+# (``data/pipeline.py::prefetch_to_device``'s producer pinning memory,
+# allocating and copying) takes it first, so no such call falls inside a
+# capture, which the default "global" capture mode refuses
+capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -249,7 +258,7 @@ class Program:
         torch.cuda.current_stream().wait_stream(_STREAM)
         warm = _counts()
         _seed(entry.gens, seeds)
-        with torch.cuda.graph(graph, pool=_POOL, stream=_STREAM):
+        with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM):
             out = self.body(entry.inputs, entry.gens)
         after = _counts()
         entry.launches = [(k, a - w) for k, a, w in zip(KERNELS, after, warm) if a != w]

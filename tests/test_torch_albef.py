@@ -244,8 +244,9 @@ def test_predictor_matches_jax_predictor(weights):
         port_pred.predict(imgs, QUESTIONS, top_k=9)
     with pytest.raises(ValueError):
         port_pred.predict(imgs, QUESTIONS[:2])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        AlbefVqaPredictor.from_checkpoint("ckpt", WordPieceTokenizer.toy(WORDS))
+    with pytest.raises(FileNotFoundError, match="no meta.json"):
+        AlbefVqaPredictor.from_checkpoint("no-such-checkpoint-dir", WordPieceTokenizer.toy(WORDS),
+                                          device="cpu")
 
 
 def test_predictor_buckets_and_padding_invariance(weights):

@@ -120,11 +120,10 @@ def test_later_slice_options_raise():
     clients = {k: SyntheticVQAClient(k, seed=i, **CLIENT) for i, k in enumerate(HEADS)}
     cfg = _cfg(dict(TrainConfig=TrainConfig, PEFTMode=PEFTMode, OptimizerConfig=OptimizerConfig,
                     FederatedConfig=FederatedConfig))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedTrainer(model, None, clients, cfg, checkpoint_dir="ckpt", device="cpu")
-    trainer = FederatedTrainer(model, None, clients, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.run(resume=True)
+    for option in (dict(tp_mesh=object()), dict(profile_dir="profile"),
+                   dict(aux_init=lambda params: {}), dict(aux_forward=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FederatedTrainer(model, None, clients, cfg, device="cpu", **option)
 
 
 def test_single_task_baseline_leaves_the_trainer_as_it_started():

@@ -2,7 +2,8 @@
 
 * nothing in ``feddat_tpu_torch/`` or ``chip_smoke.py`` imports ``jax``,
   ``flax`` or ``feddat_tpu``;
-* entry points need the card unless the caller passes ``device="cpu"``;
+* entry points (model, predictors and their ``from_checkpoint``, the batch
+  prefetch) need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
   plain version, and an unknown ``attn_impl`` raises;
 * no port module draws randomness from torch's global RNG: no
@@ -13,6 +14,7 @@
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,6 +77,17 @@ def test_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AlbefVqaPredictor(AlbefModel.__new__(AlbefModel), None, WordPieceTokenizer.toy(["a"]), ["x"])
+    # the device is resolved before the checkpoint directory is read
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ViltVqaPredictor.from_checkpoint("no-such-checkpoint", WordPieceTokenizer.toy(["a"]), ["x"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AlbefVqaPredictor.from_checkpoint("no-such-checkpoint", WordPieceTokenizer.toy(["a"]))
+    from feddat_tpu_torch.data.pipeline import prefetch_to_device
+
+    batches = iter([{"x": np.zeros(2, np.float32)}])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prefetch_to_device(batches)
+    assert next(batches)["x"].shape == (2,)  # refused before the producer started
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
