@@ -93,7 +93,7 @@ Phases, in this order:
             three replayed calls
             bitwise equal to three eager ones (or within twice eager's own
             run-to-run spread where eager is not bitwise run to run), then graph
-            against eager in 4 alternating pairs (host launch calls, wall, device
+            against eager in 3 alternating pairs (host launch calls, wall, device
             busy, idle share, peak memory; a replay launches no kernel but its
             copies, generator fills and one graph, and runs the eager call's
             kernels); ALBEF replays from one state equal, from another seed
@@ -114,9 +114,9 @@ Phases, in this order:
             rule against the plain path; dropout live, remat against no remat
             bitwise with each one's peak memory; three replays bitwise three
             eager steps, launches per replay from the wrappers and from the
-            device, graph against eager in 4 pairs and a profile of one replay;
+            device, graph against eager in 3 pairs and a profile of one replay;
             samples/s and peak memory of the tuned, "flash" and plain paths
-            with graphs, alternating; a 2-client round, eager against graphs;
+            with graphs, one after another; a 2-client round, eager against graphs;
             the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
             step; "full" runs #1 again in the backward), bitwise against no
             remat and "full"; #1, #3 and #4 timed at S=577.
@@ -143,6 +143,29 @@ Phases, in this order:
             each round's time from disk, the idle share of a replayed round,
             host ms per batch with the cache cold and warm, one checkpoint's
             save and restore, and #1/#4's launches per step from the device.
+13. cli — the launch surface on phase 12's dataset: ``python -m
+            feddat_tpu_torch.cli`` in processes of its own with the flags of
+            scripts/train_vilt_tpu_tuned.sh and train_albef_tpu_tuned.sh
+            (read from the scripts, less ``--engine spmd``) and
+            tests/fixtures/vocab30k.txt.  The refusals of ``--engine spmd``
+            and of float32 on ``"layer"`` exit non-zero naming their ROADMAP
+            item before any model is built.  Host ms per batch through the
+            CLI's own client builder with the u8 cache finalized by the
+            native host core against numpy's finalize, bitwise equal.  ViLT-B/32 DAT,
+            full width, 2 clients, 2 rounds with --checkpoint_dir and
+            --profile_dir: exit 0, both tasks' three DAT scores, step and
+            round records, #1 and #4 24 times per step in round 0's trace
+            (read back from its file, by kernel name); the same command
+            unprofiled for 1 round gives a bitwise equal round 0; a relaunch
+            with --comm_rounds 3 resumes at round 2;
+            ViltVqaPredictor.from_checkpoint on the CLI's meta.json on
+            "block" with the fused adapter (#1, #2) within 5% of the largest
+            probability of the plain route.  ALBEF, the tuned flags at
+            B=48 x 4, one client, one round, --debug 2: exit 0, #1 and #4 24
+            times per step in its trace, meta.json's answer list, and
+            AlbefVqaPredictor.from_checkpoint ranking on "flash" (#7).
+            Prints each launch's seconds to its first step and to its exit,
+            the round walls and samples/s of the metrics log.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -2719,7 +2742,7 @@ def phase_time(torch, pred, plain, requests, seed):
 # bitwise run to run, else within twice its run-to-run spread; graph against
 # eager in alternating pairs for host launch calls, wall, device busy, idle
 # share and peak memory.
-GRAPH_PAIRS = 6
+GRAPH_PAIRS = 3
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
 # Every __global__ function of feddat_tpu_torch/csrc, and for each wrapper the
 # one that its launch runs once and no other wrapper runs: #4 runs #3's
@@ -3362,7 +3385,7 @@ def phase_graphs(torch, seed):
 TUNED_FLAGS = dict(remat=True, remat_policy="block_save_nox", text_remat_policy="names",
                    attention_logits_dtype="bfloat16")
 SECOND_B = 16  # the second path's batch (the JAX package's round-3 "block" route)
-SPEED_ROUNDS = 3
+SPEED_ROUNDS = 1
 STEP_GROUPS = {"port kernels": PORT_KERNELS, "cuBLAS GEMM": ("xmma", "nvjet", "cutlass"),
                "casts and copies": ("direct_copy_kernel",)}
 
@@ -3526,8 +3549,8 @@ def phase_albef_tuned(torch, seed):
                        batch, seed, weights)
     for name, (rate, samples, reserved, allocated) in speed.items():
         print(f"time albef_tuned: {name}: {rate:.1f} samples/s (fused DAT step B={ATB}x{ANS_PER_Q}, "
-              f"dropout live, replayed graph; median of {len(samples)} samples of 2 steps, alternating "
-              f"with the other paths: {samples}); own peak reserved {reserved:.2f} GiB, allocated "
+              f"dropout live, replayed graph; median of {len(samples)} samples of 2 steps, in "
+              f"{SPEED_ROUNDS} round(s) with the other paths: {samples}); own peak reserved {reserved:.2f} GiB, allocated "
               f"{allocated:.2f} GiB (capture included; one weight set, {weights:.2f} GiB, included)")
     on, off = speed["tuned"][1], speed["tuned, remat off"][1]
     print(f"time albef_tuned: remat off against remat on, paired by round and sample: off faster in "
@@ -4217,6 +4240,327 @@ def phase_from_disk(torch, seed, root):
     print(f"from_disk: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+CLI_TASKS = ",".join(DISK_TASKS)
+CLI_SPLITS = ("train", "val_small")  # both disk tasks' TaskSpec.splits
+CLI_ROUNDS = 2
+
+
+def script_flags(name):
+    """The flags ``scripts/<name>`` passes to ``python -m feddat_tpu.cli``,
+    each ``${VAR:-default}`` at its default, ``"$@"`` and ``--engine spmd``
+    (the SPMD engine, not ported) left out."""
+    import shlex
+
+    text = (REPO / "scripts" / name).read_text().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if "python -m feddat_tpu.cli" in ln)
+    line = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", line.split("python -m feddat_tpu.cli", 1)[1])
+    argv = [a for a in shlex.split(line) if a != "$@"]
+    i = argv.index("--engine")
+    check(argv[i + 1] == "spmd", f"{name}: unexpected engine {argv[i + 1]}")
+    return argv[:i] + argv[i + 2:]
+
+
+def launch_cli(label, argv, log, timeout=600):
+    """``python -m feddat_tpu_torch.cli`` in a process of its own, from the
+    checkout -> (exit code, seconds to its exit, start time on this clock,
+    its stderr and stdout)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.time()
+    with open(log, "w") as out:
+        rc = subprocess.run([sys.executable, "-m", "feddat_tpu_torch.cli", *argv], cwd=REPO, env=env,
+                            stdout=out, stderr=subprocess.STDOUT, timeout=timeout).returncode
+    wall = time.time() - t0
+    text = Path(log).read_text()
+    print(f"cli: {label}: exit {rc} after {wall:.2f} s")
+    if rc != 0:
+        print("\n".join(f"cli: {label} | {ln}" for ln in text.splitlines()[-40:]))
+    return rc, wall, t0, text
+
+
+def cli_outputs(out_dir, run_name):
+    """-> (history, metrics records) of a CLI run."""
+    history = json.loads((Path(out_dir) / f"{run_name}.history.json").read_text())
+    records = [json.loads(ln) for ln in (Path(out_dir) / f"{run_name}.metrics.jsonl").read_text()
+               .splitlines()]
+    return history, records
+
+
+def cli_stages(label, t0, text):
+    """The launch's own log lines, each at its seconds after the launch
+    (the logger's timestamps): where the time to the first step goes."""
+    import datetime
+
+    for line in text.splitlines():
+        m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) - feddat_tpu_torch\S* - \w+ - (.*)", line)
+        if m:
+            at = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S").timestamp()
+            print(f"cli: {label} at {at + int(m.group(2)) / 1e3 - t0:7.2f} s: {m.group(3)[:150]}")
+
+
+def cli_timeline(label, t0, wall, records):
+    """The seconds to the first step and to the exit, each round's wall and
+    samples/s (the JSONL's, every step's: --wandb_freq 1)."""
+    steps = [r for r in records if r["kind"] == "step"]
+    rounds = [r for r in records if r["kind"] == "round"]
+    rates = [round(r["samples_per_sec"], 1) for r in steps[1:]]
+    print(f"cli: {label}: first step {steps[0]['ts'] - t0:.2f} s after the launch, exit at {wall:.2f} s; "
+          f"round walls (run_round, host clock) {[round(r['wall_s'], 3) for r in rounds]} s; "
+          f"samples/s from one step record to the next {rates} (each record reads the step's "
+          f"losses back; the logger's clock starts at the first step)")
+
+
+def profile_counts(profile_dir):
+    """The one trace file the CLI wrote -> (each wrapper's launches from the
+    device's kernel names, graph launches on the host, trace events)."""
+    traces = sorted(Path(profile_dir).glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"expected one trace in {profile_dir}, found {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    graphs = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    cpu = sum(e.get("cat") == "cpu_op" for e in events)
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    span = max(e["ts"] + e["dur"] for e in timed) - min(e["ts"] for e in timed)
+    busy = sum(e["dur"] for e in timed if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    print(f"cli: {traces[0].name}: {len(events)} events ({cpu} CPU ops, {sum(kernels.values())} kernels, "
+          f"{graphs} cudaGraphLaunch), {traces[0].stat().st_size / 2 ** 20:.1f} MiB; device busy "
+          f"{busy / 1e3:.3f} ms of the trace's {span / 1e3:.3f} ms, idle share {100 * (1 - busy / span):.1f}%")
+    return device_launches(kernels), graphs, events
+
+
+def check_profile(label, profile_dir, steps, captures, layers=12):
+    """#1 and #4 in the profile of round 0: two launches per layer per step
+    (the ensemble pass and DAT stage 2), for the replayed steps and for each
+    capture's warm-up call (a capture itself runs nothing)."""
+    dev, graphs, _ = profile_counts(profile_dir)
+    want = 2 * layers * (steps + captures)
+    print(f"cli: {label}: round 0's profile: #1 {dev['attn_block']}, #4 {dev['layer_block_bwd']} "
+          f"device launches over {steps} steps ({graphs} graph replays) and {captures} capture "
+          f"warm-ups: {dev['attn_block'] / (steps + captures):.1f} and "
+          f"{dev['layer_block_bwd'] / (steps + captures):.1f} per step (want {2 * layers})")
+    check(dev["attn_block"] == dev["layer_block_bwd"] == want, f"{label}: profile launches {dev}")
+    check(graphs == steps, f"{label}: {graphs} graph replays in round 0, expected {steps}")
+
+
+def cli_host_batches(torch, root, seed, argv):
+    """The CLI's own client builder on (a)'s flags without
+    --device_normalize, so that the u8 cache is finalized on the host: host
+    ms per batch of TB with the cache cold and warm through the native core,
+    warm through the numpy finalize, and the finalize alone; native and numpy
+    batches bitwise equal."""
+    import numpy as np
+
+    import feddat_tpu_torch.cli as cli
+    from feddat_tpu_torch import native
+    from feddat_tpu_torch.data.images import VILT_MEAN, VILT_STD, finalize_vilt_u8
+
+    check(native.available(), "the native host core did not build on this machine")
+    args = cli.build_parser().parse_args([a for a in argv if a != "--device_normalize"])
+    tok = native.NativeWordPiece(disk_tokenizer().vocab)
+    clients, _ = cli.build_clients(args, cli.resolve_task_keys(args.ordered_cl_tasks), tok)
+    pipe = clients[DISK_TASKS[0]]
+    check(pipe._native_finalize is native.finalize_canvas_batch and not pipe.pixels_u8,
+          f"the CLI's pipeline does not finalize its u8 cache natively: {cli.image_path(pipe)}")
+    chunk = pipe.examples[:TB]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    cold, _ = timed(lambda: pipe._make_batch(chunk))
+    warm, batch = timed(lambda: pipe._make_batch(chunk))
+    u8s = [pipe._load_u8(e) for e in chunk]
+    fin_native, _ = timed(lambda: native.finalize_canvas_batch(u8s, pipe.canvas, VILT_MEAN.tolist(),
+                                                               VILT_STD.tolist(), num_threads=8))
+    fin_numpy, _ = timed(lambda: [finalize_vilt_u8(a, pipe.canvas) for a in u8s])
+    pipe._native_finalize = None
+    warm_numpy, batch_numpy = timed(lambda: pipe._make_batch(chunk))
+    same = all(np.array_equal(batch[k], batch_numpy[k]) for k in batch)
+    print(f"cli: host ms per batch of {TB} through the CLI's build_clients ({cli.image_path(clients[DISK_TASKS[1]])}; "
+          f"canvas {pipe.canvas}): cache cold {cold:.1f}, warm {warm:.1f} (native finalize), warm "
+          f"{warm_numpy:.1f} (numpy finalize); the finalize alone {fin_native:.1f} native vs "
+          f"{fin_numpy:.1f} numpy; native and numpy batches bitwise equal: {same}")
+    check(same, "the native finalize's batch differs from numpy's")
+
+
+def cli_vilt_serving(torch, root, seed, ckpt):
+    """``ViltVqaPredictor.from_checkpoint`` on the CLI's ``meta.json`` and
+    last round: "block" with the fused adapter (#1, #2) against the plain
+    route, within 5% of the largest probability, for each task."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.serving import ViltVqaPredictor
+    from feddat_tpu_torch.utils.checkpointing import load_meta
+
+    meta = load_meta(ckpt)
+    heads = {k: TaskHeadSpec(**v) for k, v in meta["heads"].items()}
+
+    def model(attn_impl, fused):
+        return create_model("vilt", heads, PEFTMode.DAT, meta["adapter_reduction_factor"], meta["dtype"],
+                            image_size=tuple(meta["image_size"]), attn_impl=attn_impl,
+                            attention_logits_dtype=meta["attention_logits_dtype"],
+                            adapter_fused=fused, seed=seed + 5)[0]
+
+    tok = disk_tokenizer()
+    served, plain = model("block", True), model("auto", False)
+    for task in DISK_TASKS:
+        _, evals, backend, a2l = disk_split(root, task)
+        label2ans = [None] * heads[task].num_labels
+        for answer, j in a2l.items():
+            label2ans[j] = answer
+        imgs, qs = [backend.load(e.image_id) for e in evals], [e.question for e in evals]
+        pred = ViltVqaPredictor.from_checkpoint(ckpt, tok, label2ans, task_key=task, model=served,
+                                                batch_size=B)
+        ref = ViltVqaPredictor.from_checkpoint(ckpt, tok, label2ans, task_key=task, model=plain,
+                                               batch_size=B)
+        reset_counts()
+        answers = pred.predict(imgs, qs, top_k=1)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {**NO_LAUNCHES, "attn_block": 12 * len(imgs) // B, "adapter_fused": 12 * len(imgs) // B}
+        batch = pred._preprocess(imgs[:B], qs[:B])
+        probs, probs_plain = pred.forward(batch), ref.forward(batch)
+        diff, top = float(abs(probs - probs_plain).max()), float(probs_plain.max())
+        print(f"cli: ViltVqaPredictor.from_checkpoint {task} ('block', fused adapter, recipe "
+              f"{meta['dtype']}, logits {meta['attention_logits_dtype']}): {len(answers)} answers, "
+              f"launches {counts_text(counts)}; against the plain route max_abs_diff {diff:.3e} "
+              f"(tol {0.05 * top:.3e}, 5% of max prob {top:.3e}); first answer {answers[0]}")
+        check(counts == want, f"from_checkpoint launches {counts}, expected {want}")
+        check(diff <= 0.05 * top, f"{task}: the served kernel route disagrees with the plain route")
+
+
+def cli_albef_serving(torch, root, seed, ckpt):
+    """``AlbefVqaPredictor.from_checkpoint`` on the CLI's ALBEF recipe (its
+    answer list) ranking on "flash" (#7, 54 launches per rank_answer)."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.serving import AlbefVqaPredictor
+    from feddat_tpu_torch.utils.checkpointing import load_meta
+
+    meta = load_meta(ckpt)
+    task = meta["tasks"][0]
+    model = create_model("albef_no_distill", {}, PEFTMode.DAT, meta["adapter_reduction_factor"],
+                         meta["dtype"], attn_impl="flash",
+                         attention_logits_dtype=meta["attention_logits_dtype"], seed=seed + 6)[0]
+    pred = AlbefVqaPredictor.from_checkpoint(ckpt, disk_tokenizer(), model=model, batch_size=AB,
+                                             k=ALBEF_K, max_question_len=LQ, max_answer_len=LA)
+    _, evals, backend, _ = disk_split(root, task)
+    imgs, qs = [backend.load(e.image_id) for e in evals[:2 * AB]], [e.question for e in evals[:2 * AB]]
+    reset_counts()
+    answers = pred.predict(imgs, qs, top_k=3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    bank = meta["answer_lists"][task]
+    print(f"cli: AlbefVqaPredictor.from_checkpoint {task} ('flash', a {len(bank)}-answer bank from "
+          f"meta.json, k={ALBEF_K}): {len(answers)} answers, launches {counts_text(counts)}; first "
+          f"answer {answers[0]}")
+    check(pred.answer_list == bank and len(bank) >= ALBEF_K, "the recipe's answer list was not taken")
+    check(counts == {**NO_LAUNCHES, "flash_attention": 54 * len(imgs) // AB},
+          f"ALBEF from_checkpoint launches {counts}")
+    check(all(a in bank for ans in answers for a, _ in ans), "an answer outside the bank")
+
+
+def same_round(torch, label, dir_a, dir_b, round_idx):
+    """Two runs' checkpoints of one round: every tensor bitwise equal."""
+    a = torch.load(Path(dir_a) / f"round_{round_idx:05d}", map_location="cpu", weights_only=True)
+    b = torch.load(Path(dir_b) / f"round_{round_idx:05d}", map_location="cpu", weights_only=True)
+    pairs = [(k, a["server_params"][k], b["server_params"][k]) for k in a["server_params"]]
+    pairs += [(f"{c}/{k}", v, b["personal"][c][k]) for c in a["personal"] for k, v in a["personal"][c].items()]
+    bad = [k for k, x, y in pairs if not torch.equal(x, y)]
+    print(f"cli: {label}: round {round_idx}: {len(bad)} of {len(pairs)} tensors differ (bitwise rule)")
+    check(not bad and torch.equal(a["rng"], b["rng"]), f"{label}: tensors differ: {bad[:4]}")
+
+
+def phase_cli(torch, seed, root):
+    """Phase 13 (see the module docstring): the launch surface, ``python -m
+    feddat_tpu_torch.cli`` in processes of its own on phase 12's dataset."""
+    import os
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = Path(root) / "cli"
+    work.mkdir()
+    vocab = str(REPO / "tests" / "fixtures" / "vocab30k.txt")
+    common = ["--climb_data_dir", root, "--vocab_file", vocab, "--splits", *CLI_SPLITS,
+              "--eval_every", "1", "--wandb_freq", "1"]
+
+    # (c) the refusals, first: they exit before any model is built
+    for flags, item in ((["--engine", "spmd"], "Queue 1, item 12"),
+                        (["--dtype", "float32", "--attn_impl", "layer"], "Queue 3")):
+        out = work / "refused"
+        rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
+                                                         *common, *flags], work / "refused.log", 120)
+        print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
+        check(rc != 0 and f"ROADMAP {item}" in text and not out.exists() and "params:" not in text,
+              f"{flags} was not refused up front")
+
+    # (a) ViLT-B/32 DAT, the tuned script's flags on the sequential engine
+    vilt = script_flags("train_vilt_tpu_tuned.sh") + common + ["--ordered_cl_tasks", CLI_TASKS]
+    cli_host_batches(torch, root, seed, vilt)
+    ckpt, profile, out = work / "vilt_ckpt", work / "vilt_profile", work / "vilt_logs"
+    argv = vilt + ["--comm_rounds", str(CLI_ROUNDS), "--checkpoint_dir", str(ckpt),
+                   "--profile_dir", str(profile), "--output_dir", str(out)]
+    rc, wall, t0, text = launch_cli("ViLT tuned flags, 2 rounds, profiled", argv, work / "vilt.log")
+    check(rc == 0, "the ViLT launch failed")
+    run_name = f"vilt_dat_bs{TB}_lr0.0001_rounds{CLI_ROUNDS}x1_seed1"
+    history, records = cli_outputs(out, run_name)
+    cli_stages("ViLT", t0, text)
+    cli_timeline("ViLT", t0, wall, records)
+    print(f"cli: ViLT history {history}; {[ln.split(' - ')[-1] for ln in text.splitlines() if 'kernel launches' in ln]}")
+    check([e["round"] for e in history] == list(range(CLI_ROUNDS))
+          and all(len(e["scores"][t]) == 3 for e in history for t in DISK_TASKS),
+          "the ViLT history lacks a task's three DAT scores")
+    check({r["kind"] for r in records} == {"run_start", "step", "round"}, "JSONL record kinds")
+    check("u8 cache, normalized on the card" in text and "using native C++ WordPiece" in text,
+          "the launch did not take the u8 cache or the native tokenizer")
+    steps = len(DISK_TASKS) * (DISK_TRAIN // TB)
+    check_profile("ViLT", profile, steps, captures=len(DISK_TASKS))
+
+    # the same command unprofiled, one round: round 0 bitwise the profiled one's
+    plain_ckpt = work / "vilt_plain_ckpt"
+    argv_plain = vilt + ["--comm_rounds", "1", "--checkpoint_dir", str(plain_ckpt), "--output_dir",
+                         str(work / "vilt_plain_logs")]
+    rc, _, _, _ = launch_cli("ViLT unprofiled, 1 round", argv_plain, work / "vilt_plain.log")
+    check(rc == 0, "the unprofiled ViLT launch failed")
+    same_round(torch, "profiled against unprofiled launch", ckpt, plain_ckpt, 0)
+
+    # the relaunch with one round more resumes from --checkpoint_dir
+    argv += ["--comm_rounds", str(CLI_ROUNDS + 1)]
+    shutil.rmtree(profile)
+    rc, wall, t0, text = launch_cli("ViLT relaunch, --comm_rounds 3", argv, work / "vilt_resume.log")
+    check(rc == 0, "the ViLT relaunch failed")
+    history, records = cli_outputs(out, run_name.replace(f"rounds{CLI_ROUNDS}", f"rounds{CLI_ROUNDS + 1}"))
+    cli_timeline("ViLT relaunch", t0, wall, records)
+    check(f"resumed from checkpoint at round {CLI_ROUNDS - 1}" in text
+          and [e["round"] for e in history] == [CLI_ROUNDS], "the relaunch did not resume at round 2")
+    cli_vilt_serving(torch, root, seed, str(ckpt))
+    for d in (ckpt, plain_ckpt):
+        shutil.rmtree(d)
+
+    # (b) ALBEF, the tuned script's flags, one task, one round
+    ckpt, profile, out = work / "albef_ckpt", work / "albef_profile", work / "albef_logs"
+    albef = script_flags("train_albef_tpu_tuned.sh") + common + [
+        "--ordered_cl_tasks", DISK_TASKS[0], "--comm_rounds", "1", "--debug", "2",
+        "--checkpoint_dir", str(ckpt), "--profile_dir", str(profile), "--output_dir", str(out)]
+    rc, wall, t0, text = launch_cli("ALBEF tuned flags, 1 round, profiled", albef, work / "albef.log")
+    check(rc == 0, "the ALBEF launch failed")
+    history, records = cli_outputs(out, f"albef_no_distill_dat_bs{ATB}_lr0.0001_rounds1x1_seed2")
+    cli_stages("ALBEF", t0, text)
+    cli_timeline("ALBEF", t0, wall, records)
+    print(f"cli: ALBEF history {history}; {[ln.split(' - ')[-1] for ln in text.splitlines() if 'kernel launches' in ln]}")
+    check(history[-1]["round"] == 0 and len(history[-1]["scores"][DISK_TASKS[0]]) == 3,
+          "the ALBEF history lacks its DAT scores")
+    check_profile("ALBEF", profile, DISK_TRAIN // ATB, captures=1)
+    meta = json.loads((ckpt / "meta.json").read_text())
+    check(len(meta["answer_lists"][DISK_TASKS[0]]) >= ALBEF_K, f"meta answer_lists {meta.get('answer_lists')}")
+    cli_albef_serving(torch, root, seed, str(ckpt))
+    shutil.rmtree(work)
+    print(f"cli: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4292,6 +4636,9 @@ def main(argv=None) -> int:
     # this slice's path, from files on disk to answers
     phase_from_disk(torch, args.seed, root)
     done("from_disk")
+    # this slice's path: the launch surface, the CLI in processes of its own
+    phase_cli(torch, args.seed, root)
+    done("cli")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

@@ -1,0 +1,500 @@
+"""Command-line launch surface (counterpart of ``feddat_tpu/cli.py``).
+
+The JAX CLI's flags, with the same names, choices and defaults, so that the
+launch scripts under ``scripts/`` run here with ``python -m
+feddat_tpu_torch.cli`` in place of ``python -m feddat_tpu.cli``; one flag is
+added, ``--device {cuda,cpu}`` (the counterpart of ``JAX_PLATFORMS``; the
+default ``cuda`` raises without a card).  A launch ties together the task
+registry, the loaders and pipelines, the model, the initial parameters
+(random from ``--seed`` or converted from ``--pretrained_model_name``), the
+sequential federated engine with round checkpoints and resume, the metrics
+log, the run recipe ``meta.json`` and the history JSON, the files the JAX CLI
+writes, under the same names:
+
+    <output_dir>/<run>.log, <run>.metrics.jsonl, <run>.history.json
+    <checkpoint_dir>/round_NNNNN, meta.json
+    <profile_dir>/*.pt.trace.json   (a torch.profiler trace of the first round)
+
+What the port does not have yet is refused before any model is built or any
+dataset read, naming its ROADMAP item: the SPMD engine, multi-host and tensor
+parallelism (``--engine spmd``, ``--multihost``, ``--tp``, ``--mesh_*``,
+``--spmd_full_epochs``: item 12), ``viltbert`` and the tasks of other
+trainers than ``vqa_cross`` (item 10), ``albef_distill`` (item 9), and float32
+on a kernel route on the card (Queue 3: the CUDA kernels take bf16).
+
+Run: ``python -m feddat_tpu_torch.cli --encoder_name vilt --optimizer_mode dat
+--ordered_cl_tasks domain --climb_data_dir ./data ...``
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+from typing import Dict
+
+KERNEL_ROUTES = ("block", "layer", "fused", "flash")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("feddat_tpu_torch")
+    # reference surface
+    p.add_argument("--encoder_name", required=True,
+                   choices=["vilt", "viltbert", "albef_distill", "albef_no_distill"])
+    p.add_argument("--pretrained_model_name", default=None,
+                   help="path to a torch checkpoint (HF ViltModel state dict or ALBEF .pth); omit for random init")
+    p.add_argument("--climb_data_dir", default="./data")
+    p.add_argument("--output_dir", default="./logs")
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_single", action="store_true",
+                   help="centralized single-task baseline (reference --do_single)")
+    p.add_argument("--optimizer_mode", default="dat",
+                   choices=["full", "adapter", "dat", "freeze_encoder",
+                            "freeze_bottom_k_layers", "none", "norm", "lora", "bias", "prompt"])
+    p.add_argument("--ordered_cl_tasks", default="domain",
+                   help="client-set keyword (scene|function|domain) or comma-separated task keys")
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--val_batch_size", type=int, default=None,
+                   help="eval-loader batch size (reference flag; its launch scripts pass 2).  "
+                        "Default: --batch_size")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--comm_rounds", type=int, default=20)
+    p.add_argument("--local_epochs", type=int, default=1)
+    p.add_argument("--num_epochs", type=int, default=10)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--adapter_reduction_factor", type=int, default=16)
+    p.add_argument("--adapter_config", default="pfeiffer",
+                   help="kept for launch-command compatibility (the DAT adapter ignores it, as in the reference)")
+    p.add_argument("--splits", nargs="+", default=["train_small", "val", "test_small"])
+    p.add_argument("--layers_to_freeze", type=int, default=2)
+    p.add_argument("--debug", type=int, default=0)
+    p.add_argument("--do_wandb_logging", action="store_true")
+    p.add_argument("--wandb_freq", type=int, default=100)
+    # the JAX package's additions; the distributed ones are refused (ROADMAP item 12)
+    p.add_argument("--engine", default="sequential", choices=["sequential", "spmd"],
+                   help="the port runs the sequential engine; spmd is refused (ROADMAP item 12)")
+    p.add_argument("--multihost", action="store_true", help="refused (ROADMAP item 12)")
+    p.add_argument("--coordinator_address", default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--mesh_clients", type=int, default=None, help="refused (ROADMAP item 12)")
+    p.add_argument("--mesh_data", type=int, default=None, help="refused (ROADMAP item 12)")
+    p.add_argument("--tp", type=int, default=1, help="tensor parallelism; > 1 is refused (ROADMAP item 12)")
+    p.add_argument("--vocab_file", default=None,
+                   help="bert-base-uncased vocab.txt for the WordPiece tokenizer")
+    p.add_argument("--bert_model_path", default=None,
+                   help="torch state dict of a BertModel for the viltbert text half "
+                        "(viltbert is refused: ROADMAP item 10)")
+    p.add_argument("--eval_every", type=int, default=5)
+    p.add_argument("--use_fused_dat", action="store_true",
+                   help="the fused DAT step: one ensemble encoder pass per batch")
+    p.add_argument("--remat", action="store_true", help="recompute layers in the backward")
+    p.add_argument("--remat_policy", default="full",
+                   choices=["full", "dots", "attention", "names", "min_save",
+                            "block_save", "block_save_nox", "block_save_ffn"],
+                   help="what a recomputed layer keeps (ops/remat_policy.py)")
+    p.add_argument("--text_remat_policy", default="full", choices=["full", "dots", "names"],
+                   help="remat policy of ALBEF's text, fusion and decoder towers")
+    p.add_argument("--dropout_rng", default="threefry", choices=["threefry", "rbg"],
+                   help="accepted for the launch scripts; both give the same torch generators")
+    p.add_argument("--attn_impl", default="auto",
+                   choices=["auto", "xla", "fused", "flash", "block", "layer"],
+                   help="attention route: auto/xla (composable PyTorch), fused (#5/#6), "
+                        "flash (#7-#9), block (#1/#3, frozen projections), layer (#1/#4, the "
+                        "whole-layer backward; DAT/adapter modes).  ALBEF: block/layer route its "
+                        "ViT.  The kernel routes take bf16 on the card")
+    p.add_argument("--attention_logits_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="storage dtype of attention logits; default bfloat16 with --dtype "
+                        "bfloat16, else float32")
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="host-pipeline decode/resize thread-pool size; 0 = serial loading")
+    p.add_argument("--canvas_bucket", action="store_true",
+                   help="ViLT pipelines: pad train batches whose every image resizes to "
+                        "width <= 384 onto a square (384, 384) canvas")
+    p.add_argument("--cache_images", action="store_true",
+                   help="cache decoded+resized images (uint8) across epochs/rounds; the "
+                        "per-epoch normalize+pad runs in the native core")
+    p.add_argument("--spmd_full_epochs", action="store_true", help="refused (ROADMAP item 12)")
+    p.add_argument("--device_normalize", action="store_true",
+                   help="ship pixels to the card as raw uint8 and normalize there")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (CPU and CUDA) of the first executed "
+                        "round into this directory")
+    p.add_argument("--smoke", action="store_true",
+                   help="CI smoke mode: tiny model dimensions + tiny images (functional path only)")
+    # the port's addition
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the port runs (the counterpart of JAX_PLATFORMS); cuda raises "
+                        "without a card")
+    return p
+
+
+def resolve_task_keys(spec: str):
+    from feddat_tpu_torch.configs.tasks import resolve_clients
+
+    if "," in spec:
+        return resolve_clients([s.strip() for s in spec.split(",")])
+    return resolve_clients(spec)
+
+
+def refuse_unported(args, task_keys) -> None:
+    """``SystemExit`` naming the ROADMAP item for what the port lacks, before
+    any model is built or dataset read (the JAX CLI's guards, :354-381 and
+    :440-446, stop there too)."""
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+
+    def refuse(what, item):
+        raise SystemExit(f"feddat_tpu_torch: {what} is not ported yet (ROADMAP {item})")
+
+    distributed = [flag for flag, on in (
+        ("--engine spmd", args.engine == "spmd"), ("--multihost", args.multihost),
+        (f"--tp {args.tp}", args.tp > 1), ("--mesh_clients", args.mesh_clients is not None),
+        ("--mesh_data", args.mesh_data is not None), ("--spmd_full_epochs", args.spmd_full_epochs),
+    ) if on]
+    if distributed:
+        refuse(f"{', '.join(distributed)} (the SPMD engine and multi-device runs)",
+               "Queue 1, item 12: distribution")
+    if args.encoder_name == "viltbert":
+        refuse("the viltbert encoder", "Queue 1, item 10: other encoders and trainers")
+    if args.encoder_name == "albef_distill":
+        refuse("albef_distill (momentum distillation)", "Queue 1, item 9: ALBEF family")
+    other = [k for k in task_keys if TASK_CONFIGS[k].trainer != "vqa_cross"]
+    if other:
+        refuse(f"the trainers of tasks {other} "
+               f"({sorted({TASK_CONFIGS[k].trainer for k in other})}; the port trains vqa_cross)",
+               "Queue 1, item 10: other encoders and trainers")
+    if (args.device == "cuda" and not args.smoke and args.dtype == "float32"
+            and args.attn_impl in KERNEL_ROUTES):
+        refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
+               "kernels take bf16; use --dtype bfloat16, or --attn_impl auto in float32)",
+               "Queue 3: divergences")
+
+
+def _build_vqa_cross_client(args, key, spec, tokenizer, answer_banks):
+    """Federated cross-VQA client (the reference's ``VQATrainerCross`` data
+    path, ``train_vqa_crossvqa.py:39-230``)."""
+    from feddat_tpu_torch.data.albef_pipeline import AlbefVQAPipeline
+    from feddat_tpu_torch.data.datasets import load_ans2label, load_examples
+    from feddat_tpu_torch.data.images import make_backend
+    from feddat_tpu_torch.data.pipeline import ViltVQAPipeline
+
+    # every task path roots under --climb_data_dir (``train_vqa_crossvqa.py:
+    # 97-98``); a registered task with an absolute data_dir passes through
+    data_dir = os.path.join(args.climb_data_dir, spec.data_dir)
+    train_split, eval_split = args.splits[0], args.splits[-1]
+    examples = load_examples(key, data_dir, train_split, data_root=args.climb_data_dir,
+                             tokenizer=tokenizer, shuffle_seed=args.seed)
+    eval_examples = None
+    if eval_split != train_split:
+        try:
+            eval_examples = load_examples(key, data_dir, eval_split, data_root=args.climb_data_dir,
+                                          tokenizer=tokenizer)
+        except (FileNotFoundError, OSError) as e:
+            # dev fixtures without an eval split evaluate on train, never silently
+            logging.getLogger("feddat_tpu_torch").warning(
+                "task %s: no %r split found (%s); evaluating on the TRAIN split", key, eval_split, e)
+    backend = make_backend(spec.images_source, key, args.climb_data_dir)
+    if args.encoder_name.startswith("albef"):
+        ans2label = load_ans2label(key, data_dir, args.climb_data_dir)
+        answer_list = list(ans2label.keys())[:100]  # vqa_dataset_crossvqa.py:301
+        pipe = AlbefVQAPipeline(
+            examples, backend, tokenizer, answer_list,
+            batch_size=args.batch_size, val_batch_size=args.val_batch_size,
+            seed=args.seed, eval_examples=eval_examples,
+            cache_images=args.cache_images, pixels_u8=args.device_normalize,
+            num_workers=args.num_workers,
+            **({"image_size": 64, "max_question_len": 12, "max_answer_len": 6}
+               if args.smoke else {}),
+        )
+        answer_banks[key] = (pipe.answer_ids, pipe.answer_mask)
+        return pipe
+    return ViltVQAPipeline(
+        examples, backend, tokenizer,
+        num_labels=spec.num_labels, batch_size=args.batch_size,
+        val_batch_size=args.val_batch_size, seed=args.seed,
+        eval_examples=eval_examples, cache_images=args.cache_images,
+        pixels_u8=args.device_normalize, num_workers=args.num_workers,
+        canvas_bucket=args.canvas_bucket,
+        **({"canvas": (64, 64), "max_text_len": 16} if args.smoke else {}),
+    )
+
+
+def build_clients(args, task_keys, tokenizer):
+    """Per-client data pipelines -> (clients, answer_banks).  Every task here
+    is a ``vqa_cross`` one (:func:`refuse_unported`)."""
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+
+    clients, answer_banks = {}, {}
+    for key in task_keys:
+        pipe = _build_vqa_cross_client(args, key, TASK_CONFIGS[key], tokenizer, answer_banks)
+        pipe.task_key = key
+        clients[key] = pipe
+    return clients, answer_banks
+
+
+def image_path(pipe) -> str:
+    """How a client's pipeline makes its pixels (logged per client)."""
+    if getattr(pipe, "_cache", None) is None:
+        return "decoded per batch"
+    if pipe.pixels_u8:
+        return "u8 cache, normalized on the card"
+    if pipe._native_finalize is not None:
+        return "u8 cache, finalized by the native core"
+    return "u8 cache, finalized by numpy"
+
+
+def build_model(args, mode, heads, device):
+    """-> (model, model_config, attention logits dtype or None under
+    ``--smoke``).  The smoke models are the JAX CLI's (:513-556): float32 on
+    the composable route whatever ``--dtype`` and ``--attn_impl`` say."""
+    import torch
+
+    from feddat_tpu_torch.configs.core import LoraSpec, PromptSpec, PEFTMode, adapter_spec_for_mode
+
+    smoke_lora = LoraSpec(rank=2, enabled=(mode == PEFTMode.LORA))
+    smoke_prompt = PromptSpec(length=2, bottleneck=8, enabled=(mode == PEFTMode.PROMPT))
+    if args.smoke and args.encoder_name.startswith("albef"):
+        from feddat_tpu_torch.configs.core import AlbefBertConfig, AlbefModelConfig
+        from feddat_tpu_torch.models.albef import AlbefModel
+
+        # encoder_width: the ViT's width, which flax infers at init and the
+        # port's cross-attention is built with
+        smoke_bert = AlbefBertConfig(
+            hidden_size=32, num_layers=4, num_heads=4, intermediate_size=64,
+            hidden_dropout=0.0, attention_dropout=0.0, fusion_layer=2, encoder_width=32,
+        )
+        cfg = AlbefModelConfig(
+            image_res=64, patch_size=32, vision_width=32, vision_layers=2,
+            vision_heads=4, bert=smoke_bert, decoder_layers=2,
+            adapter=adapter_spec_for_mode(mode, 4), lora=smoke_lora, prompt=smoke_prompt,
+        )
+        with torch.device("meta"):
+            model = AlbefModel(cfg)
+        return model.to_empty(device=device), cfg, None
+    if args.smoke:
+        from feddat_tpu_torch.configs.core import ViltModelConfig
+        from feddat_tpu_torch.models.vilt import ViltContinualLearner
+
+        cfg = ViltModelConfig(
+            hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+            max_text_len=16, image_size=(64, 64), patch_size=32,
+            adapter=adapter_spec_for_mode(mode, 4), lora=smoke_lora, prompt=smoke_prompt,
+        )
+        with torch.device("meta"):
+            model = ViltContinualLearner(cfg, heads)
+        return model.to_empty(device=device), cfg, None
+    from feddat_tpu_torch.models import create_model
+
+    logits_dtype = args.attention_logits_dtype or (
+        "bfloat16" if args.dtype == "bfloat16" else "float32")
+    # ViLT matches the pipeline's fixed (384, 640) canvas
+    model, cfg = create_model(
+        args.encoder_name, heads, mode, args.adapter_reduction_factor, args.dtype,
+        image_size=(384, 640) if args.encoder_name == "vilt" else None,
+        remat=args.remat, remat_policy=args.remat_policy,
+        attn_impl=args.attn_impl, attention_logits_dtype=logits_dtype,
+        text_remat_policy=args.text_remat_policy, device=device, seed=args.seed,
+    )
+    return model, cfg, logits_dtype
+
+
+def init_params(args, model, model_cfg) -> Dict[str, "torch.Tensor"]:
+    """The run's initial parameters ``{state_dict name: tensor}``: the model's
+    own weights from ``--seed`` (``create_model``'s, or ``init_vilt_params``/
+    ``init_albef_params`` under ``--smoke``), with ``--pretrained_model_name``
+    converted and merged over them (:569-614)."""
+    import torch
+
+    from feddat_tpu_torch.utils.checkpoint_convert import merge_pretrained
+
+    albef = args.encoder_name.startswith("albef")
+    if args.smoke:
+        from feddat_tpu_torch.models.albef import init_albef_params
+        from feddat_tpu_torch.models.vilt import init_vilt_params
+
+        (init_albef_params if albef else init_vilt_params)(model, args.seed)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    if not args.pretrained_model_name:
+        return params
+    raw = torch.load(args.pretrained_model_name, map_location="cpu")
+    if albef:
+        from feddat_tpu_torch.utils.checkpoint_convert import convert_albef_checkpoint
+        from feddat_tpu_torch.utils.param_bridge import albef_from_flax
+
+        n_patches = (model_cfg.image_res // model_cfg.patch_size) ** 2
+        pretrained = convert_albef_checkpoint(raw.get("model", raw), num_patches_new=n_patches)
+        return merge_pretrained(params, pretrained, bridge=albef_from_flax)
+    from feddat_tpu_torch.utils.checkpoint_convert import convert_hf_vilt
+
+    grid = (model_cfg.image_size[0] // model_cfg.patch_size,
+            model_cfg.image_size[1] // model_cfg.patch_size)
+    pretrained = convert_hf_vilt(raw, num_layers=model_cfg.num_layers, num_patches_new=grid)
+    return merge_pretrained(params, {"vilt": pretrained})
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    task_keys = resolve_task_keys(args.ordered_cl_tasks)
+    refuse_unported(args, task_keys)
+
+    from feddat_tpu_torch import native
+    from feddat_tpu_torch.configs.core import (
+        FederatedConfig,
+        OptimizerConfig,
+        PEFTMode,
+        TrainConfig,
+    )
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.device import resolve_device
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.utils.observability import MetricsLogger, experiment_name, setup_logger
+    from feddat_tpu_torch.utils.seeding import process_index
+
+    device = resolve_device(args.device)
+    mode = PEFTMode(args.optimizer_mode)
+    frozen_kernel_conflict = args.attn_impl in ("block", "layer") and mode in (
+        PEFTMode.FULL, PEFTMode.BIAS, PEFTMode.LORA, PEFTMode.FREEZE_BOTTOM_K)
+    # the whole-layer kernel also freezes the LayerNorms and the FFN
+    if args.attn_impl == "layer" and mode == PEFTMode.NORM:
+        frozen_kernel_conflict = True
+    if frozen_kernel_conflict:
+        if args.do_train:
+            raise SystemExit(
+                f"--attn_impl {args.attn_impl} assumes a frozen backbone; "
+                f"--optimizer_mode {mode.value} trains part of it (its gradients "
+                "would silently be zero).  Use --attn_impl auto for this mode.")
+        print(f"[feddat_tpu_torch] --attn_impl {args.attn_impl} is incompatible with "
+              f"--optimizer_mode {mode.value}; falling back to 'auto' for this eval-only run",
+              file=sys.stderr)
+        args.attn_impl = "auto"
+    if args.attn_impl == "layer" and args.remat:
+        print("[feddat_tpu_torch] --attn_impl layer: the pre-LN layer stacks save their own "
+              "minimal residual set (--remat is ignored for them)", file=sys.stderr)
+    config = TrainConfig(
+        encoder_name=args.encoder_name,
+        peft_mode=mode,
+        tasks=tuple(task_keys),
+        batch_size=args.batch_size,
+        val_batch_size=args.val_batch_size or args.batch_size,
+        seed=args.seed,
+        optimizer=OptimizerConfig(lr=args.lr),
+        federated=FederatedConfig(
+            comm_rounds=args.comm_rounds,
+            local_epochs=args.local_epochs,
+            eval_every=args.eval_every,
+        ),
+        num_epochs=args.num_epochs,
+        layers_to_freeze=args.layers_to_freeze,
+        dtype=args.dtype,
+        single_task=args.do_single,
+        debug_steps=args.debug,
+        dropout_rng=args.dropout_rng,
+    )
+    run_name = experiment_name(config)
+    logger = setup_logger(args.output_dir, run_name=run_name)
+    logger.info("tasks: %s", task_keys)
+
+    from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    logger.info("native host core: %s", "available" if native.available() else "unavailable")
+    if args.vocab_file:
+        tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
+        if native.available():  # the GIL-free C++ batch tokenizer
+            tokenizer = native.NativeWordPiece(tokenizer.vocab)
+            logger.info("using native C++ WordPiece tokenizer")
+    else:
+        logger.warning("no --vocab_file given; using a toy tokenizer (tests/dev only)")
+        tokenizer = WordPieceTokenizer.toy(["what", "is", "the", "a"])
+
+    def head_spec(key):
+        spec = TASK_CONFIGS[key]
+        return TaskHeadSpec(num_labels=spec.num_labels, num_images=spec.num_images,
+                            model_type=spec.model_type, num_choices=spec.num_choices)
+
+    heads = {k: head_spec(k) for k in task_keys}
+    model, model_cfg, logits_dtype = build_model(args, mode, heads, device)
+    clients, answer_banks = build_clients(args, task_keys, tokenizer)
+    for key, pipe in clients.items():
+        logger.info("client %s: %d train / %d eval examples; images: %s", key,
+                    pipe.num_train_examples, pipe.num_eval_examples, image_path(pipe))
+    params = init_params(args, model, model_cfg)
+
+    # single writer: only process 0 writes the JSONL / W&B stream
+    is_p0 = process_index() == 0
+    metrics = MetricsLogger(
+        os.path.join(args.output_dir, f"{run_name}.metrics.jsonl") if is_p0 else None,
+        log_every=args.wandb_freq,
+        wandb_project="feddat_tpu" if (args.do_wandb_logging and is_p0) else None,
+        wandb_run_name=run_name,
+    )
+    if args.checkpoint_dir and is_p0:
+        # the run's model recipe beside the round checkpoints, for
+        # serving.*.from_checkpoint; the JAX CLI's keys and values
+        import dataclasses
+
+        from feddat_tpu_torch.utils.checkpointing import write_meta
+
+        meta = {
+            "encoder_name": args.encoder_name,
+            "optimizer_mode": args.optimizer_mode,
+            "adapter_reduction_factor": args.adapter_reduction_factor,
+            "dtype": args.dtype,
+            "engine": args.engine,
+            "tasks": list(task_keys),
+            "smoke": bool(args.smoke),
+            "image_size": [384, 640] if args.encoder_name in ("vilt", "viltbert") else None,
+            "attention_logits_dtype": logits_dtype,
+            "heads": {k: dataclasses.asdict(head_spec(k)) for k in task_keys},
+        }
+        if args.encoder_name.startswith("albef"):
+            meta["answer_lists"] = {k: list(clients[k].answer_list) for k in task_keys}
+        write_meta(args.checkpoint_dir, meta)
+
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    def hooks_for(task_key):
+        return resolve_trainer(args.encoder_name, TASK_CONFIGS[task_key].trainer,
+                               answer_banks=answer_banks)
+
+    def make_eval(model_, task_key):
+        h = hooks_for(task_key)
+        if h.make_eval is not None:
+            return h.make_eval(model_, task_key)
+        from feddat_tpu_torch.train.evaluation import make_eval_step
+
+        return make_eval_step(model_, task_key, h.metric)
+
+    trainer = FederatedTrainer(
+        model, params, clients, config,
+        make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
+        make_eval=make_eval,
+        metric=hooks_for(task_keys[0]).metric,
+        use_fused_dat=args.use_fused_dat,
+        checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
+        profile_dir=args.profile_dir,
+        device=device,
+    )
+    history = [trainer.run_single_task()] if args.do_single else trainer.run()
+    metrics.close()
+    if device.type == "cuda":
+        from feddat_tpu_torch.ops._build import KERNELS
+        from feddat_tpu_torch.train.compiled import STATS
+
+        logger.info("kernel launches: %s; graphs: %s",
+                    {k.symbol: k.launches for k in KERNELS if k.launches}, STATS)
+    if is_p0:  # single writer on shared filesystems
+        out = os.path.join(args.output_dir, f"{run_name}.history.json")
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(history, f, indent=2, default=float)
+        logger.info("history written to %s", out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,8 +9,8 @@ Train answer weights are occurrences / number of annotations
 set padded to ``gt_pad``.  Answers are encoded once with the standard
 ``[CLS] ... [SEP]`` framing.  :func:`encode_answer_bank` also serves
 rank-answer serving and eval.  The batches are bitwise the JAX package's on
-the same examples; its native finalize is not ported, so the u8 cache always
-takes the numpy normalisation.
+the same examples; the u8 cache is normalised by the native host core when it
+is available (``feddat_tpu_torch/native``), else by numpy, to the same bits.
 """
 
 from __future__ import annotations
@@ -84,12 +84,18 @@ class AlbefVQAPipeline:
         self.num_workers = num_workers
         self.pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
         # see ViltVQAPipeline: decode+resize cached as uint8, normalised per
-        # epoch by numpy; pixels_u8 ships raw uint8 (the model CLIP-normalises
-        # on the device)
+        # epoch by the native core (numpy without it); pixels_u8 ships raw
+        # uint8 (the model CLIP-normalises on the device)
         self.pixels_u8 = pixels_u8
         self._cache: Optional[Dict] = {} if cache_images else None
         self._cache_left = cache_budget_bytes
         self._cache_lock = threading.Lock()
+        self._native_finalize = None
+        if cache_images:
+            from feddat_tpu_torch import native
+
+            if native.available():
+                self._native_finalize = native.finalize_canvas_batch
 
     @property
     def num_train_examples(self) -> int:
@@ -127,6 +133,11 @@ class AlbefVQAPipeline:
                 u8s = list(self.pool.map(self._load_u8, batch_ex))
             else:
                 u8s = [self._load_u8(e) for e in batch_ex]
+            if self._native_finalize is not None:
+                pixels, _ = self._native_finalize(
+                    u8s, (self.image_size, self.image_size), CLIP_MEAN.tolist(), CLIP_STD.tolist(),
+                    num_threads=max(1, self.num_workers), with_mask=False)
+                return pixels
             return np.stack(
                 [(a.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD for a in u8s]
             )

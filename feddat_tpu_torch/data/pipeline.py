@@ -4,9 +4,9 @@
 :class:`ViltVQAPipeline` turns (examples, image backend, tokenizer) into
 fixed-shape ViLT batches: text padded to ``max_text_len``, images on a fixed
 canvas, so a compiled step keeps one signature.  Its batches are bitwise the
-JAX package's on the same examples; the JAX package's native finalize is not
-ported, so the u8 cache always takes the numpy finalize it uses when its
-native core is absent.
+JAX package's on the same examples.  The u8 image cache is normalised and
+padded each epoch by the native host core (``feddat_tpu_torch/native``) when
+it is available, else by the numpy finalize; both give the same bits.
 
 :func:`prefetch_to_device` overlaps the host's batch assembly and the
 host-to-device copy with the previous step (the JAX package prefetches two
@@ -25,6 +25,8 @@ import torch
 
 from feddat_tpu_torch.data.datasets import VQAExample
 from feddat_tpu_torch.data.images import (
+    VILT_MEAN,
+    VILT_STD,
     finalize_vilt_u8,
     pack_u8_canvas,
     process_vilt_image,
@@ -108,6 +110,12 @@ class ViltVQAPipeline:
         self._cache: Optional[Dict[Any, np.ndarray]] = {} if cache_images else None
         self._cache_left = cache_budget_bytes
         self._cache_lock = threading.Lock()
+        self._native_finalize = None
+        if cache_images:
+            from feddat_tpu_torch import native
+
+            if native.available():
+                self._native_finalize = native.finalize_canvas_batch
 
     # the client-data protocol of the engine
     @property
@@ -168,7 +176,8 @@ class ViltVQAPipeline:
 
     def _batch_images(self, batch_ex: List[VQAExample], canvas=None):
         """-> (pixels, masks): per image through PIL and numpy, or from the u8
-        stage (cached or not) with the numpy finalize; bitwise the same."""
+        stage (cached or not) with the native or the numpy finalize; bitwise
+        the same."""
         canvas = canvas or self.canvas
         if self._cache is None and not self.pixels_u8:
             images = self._map(lambda e: self._load_one(e, canvas), batch_ex)
@@ -176,6 +185,9 @@ class ViltVQAPipeline:
         u8s = self._map(self._load_u8, batch_ex)
         if self.pixels_u8:
             return pack_u8_canvas(u8s, canvas)
+        if self._native_finalize is not None:
+            return self._native_finalize(u8s, canvas, VILT_MEAN.tolist(), VILT_STD.tolist(),
+                                         num_threads=max(1, self.num_workers))
         images = [finalize_vilt_u8(a, canvas) for a in u8s]
         return np.stack([p for p, _ in images]), np.stack([m for _, m in images])
 

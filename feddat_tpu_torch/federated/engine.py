@@ -28,10 +28,12 @@ two batches ahead), as the JAX engine prefetches on an accelerator.
 With a ``checkpoint_dir`` every round is checkpointed
 (``utils/checkpointing.py``), ``run()`` resumes from the latest round, and a
 SIGTERM finishes the round in flight, checkpoints it and returns
-(``utils/preemption.py``).  Tensor parallelism (``tp_mesh``), profiling
-(``profile_dir``) and ALBEF's momentum-distillation state
-(``aux_init``/``aux_forward``) are later slices (ROADMAP Queue 1) and raise
-``NotImplementedError``.
+(``utils/preemption.py``).  With a ``profile_dir`` the first round that
+``run()`` executes is traced with ``torch.profiler`` into that directory
+(``utils/observability.py::trace``), as the JAX engine traces it with
+``jax.profiler``.  Tensor parallelism (``tp_mesh``) and ALBEF's
+momentum-distillation state (``aux_init``/``aux_forward``) are later slices
+(ROADMAP Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from feddat_tpu_torch.train.evaluation import evaluate, evaluate_dat, make_eval_
 from feddat_tpu_torch.train.forwards import make_vilt_forward, make_vilt_fused_parts, to_device
 from feddat_tpu_torch.train.trainers import check_fused_dropout, make_albef_fused_dat_step
 from feddat_tpu_torch.utils.checkpointing import restore_federated_state, save_federated_state
+from feddat_tpu_torch.utils.observability import trace
 from feddat_tpu_torch.utils.preemption import GracefulPreemption
 from feddat_tpu_torch.utils.seeding import check_dropout_rng
 
@@ -108,8 +111,6 @@ class FederatedTrainer:
         family (ViLT by default)."""
         if tp_mesh is not None:
             raise _later("tensor parallelism (tp_mesh)", "12, distribution")
-        if profile_dir is not None:
-            raise _later("round profiling (profile_dir)", "7, utils/observability")
         if aux_init is not None or aux_forward:
             raise _later("ALBEF's momentum-distillation state (aux_init/aux_forward)",
                          "9, ALBEF family")
@@ -165,6 +166,7 @@ class FederatedTrainer:
             c.task_key: dict(init_personal) for c in self.clients}
         self.history: List[Dict[str, Any]] = []
         self.checkpoint_dir = checkpoint_dir
+        self.profile_dir = profile_dir
         self.metrics = metrics_logger
         self.batch_transform = batch_transform
         self.param_budget = param_budget(params, self.mode)
@@ -293,13 +295,15 @@ class FederatedTrainer:
         with evaluation every ``eval_every`` rounds and after the last.  With a
         ``checkpoint_dir`` each round is checkpointed, and a SIGTERM finishes
         the round in flight, checkpoints it and returns without a final
-        evaluation; the relaunch resumes."""
+        evaluation; the relaunch resumes.  With a ``profile_dir`` the first
+        round run here is traced."""
         rounds = self.config.federated.comm_rounds
         start = self.try_resume() if resume else 0
         preempted = False
         with GracefulPreemption(enabled=bool(self.checkpoint_dir)) as stop:
             for r in range(start, rounds):
-                self.run_round(r)
+                with trace(self.profile_dir, enabled=bool(self.profile_dir) and r == start):
+                    self.run_round(r)
                 self.save_checkpoint(r)
                 if (r + 1) % self.config.federated.eval_every == 0 or r == rounds - 1:
                     self.evaluate_round(r)

@@ -23,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -36,6 +37,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# held while a library is built and loaded: threads of one process build it
+# once (processes are kept apart by the temporary name and os.replace)
+BUILD_LOCK = threading.Lock()
 # Every CudaKernel made, in order: ``train/compiled.py`` reads their counts
 # around a capture and adds each kernel's share to it at every replay.
 KERNELS: List["CudaKernel"] = []
@@ -139,14 +143,15 @@ def ptxas_summary(log: str) -> Sequence[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return lib
+    with BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
 
 
 class CudaKernel:

@@ -1,4 +1,9 @@
-"""Dropout randomness from explicit generators.
+"""Host seeding and dropout randomness from explicit generators.
+
+:func:`seed_everything` seeds the host-side generators (Python's ``random``
+and numpy's) with the seed plus the process index, as
+``feddat_tpu/utils/seeding.py:16-23`` does; torch's global generator is left
+alone, since the port draws only from explicit generators.
 
 Counterpart of the JAX package's key threading: a train step splits its
 state's key into per-stage dropout keys (``feddat_tpu/train/dat.py:226-227``,
@@ -16,12 +21,31 @@ same masks in the forward and the recompute, on every remat policy.
 from __future__ import annotations
 
 import contextlib
+import random
 from typing import Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 _CURRENT: Optional[torch.Generator] = None
 DROPOUT_RNG_IMPLS = ("threefry", "rbg")
+
+
+def process_index() -> int:
+    """This process's rank in the initialised ``torch.distributed`` group, else
+    0 (the counterpart of ``jax.process_index()``)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def seed_everything(seed: int, per_process_offset: bool = True) -> int:
+    """Seed Python's ``random`` and numpy; returns the effective seed (seed +
+    process index).  torch's global generator is not seeded."""
+    eff = seed + (process_index() if per_process_offset else 0)
+    random.seed(eff)
+    np.random.seed(eff)
+    return eff
 
 
 @contextlib.contextmanager

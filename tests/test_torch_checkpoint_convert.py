@@ -51,34 +51,35 @@ def _assert_trees_equal(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg="/".join(k))
 
 
-def _hf_vilt_state_dict(rng, grid=3, layers=2, half=False):
-    """HF ``ViltModel.state_dict()`` names at TINY_VILT's widths, a square
-    ``grid`` of checkpoint patches and a 2-row modality table."""
+def _hf_vilt_state_dict(rng, grid=3, layers=2, half=False, h=H, inter=INTER, vocab=VOCAB,
+                        text_len=TINY_VILT.max_text_len, p=TINY_VILT.patch_size):
+    """HF ``ViltModel.state_dict()`` names at TINY_VILT's widths (or the
+    ones given), a square ``grid`` of checkpoint patches and a 2-row modality
+    table."""
     def t(*shape):
         x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
         return x.to(torch.bfloat16) if half else x
 
-    p = TINY_VILT.patch_size
     te = "embeddings.text_embeddings"
-    sd = {f"{te}.word_embeddings.weight": t(VOCAB, H), f"{te}.position_embeddings.weight": t(8, H),
-          f"{te}.token_type_embeddings.weight": t(2, H), f"{te}.LayerNorm.weight": t(H),
-          f"{te}.LayerNorm.bias": t(H), "embeddings.cls_token": t(1, 1, H),
-          "embeddings.position_embeddings": t(1, grid * grid + 1, H),
-          "embeddings.patch_embeddings.projection.weight": t(H, 3, p, p),
-          "embeddings.patch_embeddings.projection.bias": t(H),
-          "embeddings.token_type_embeddings.weight": t(2, H),
-          "layernorm.weight": t(H), "layernorm.bias": t(H),
-          "pooler.dense.weight": t(H, H), "pooler.dense.bias": t(H)}
+    sd = {f"{te}.word_embeddings.weight": t(vocab, h), f"{te}.position_embeddings.weight": t(text_len, h),
+          f"{te}.token_type_embeddings.weight": t(2, h), f"{te}.LayerNorm.weight": t(h),
+          f"{te}.LayerNorm.bias": t(h), "embeddings.cls_token": t(1, 1, h),
+          "embeddings.position_embeddings": t(1, grid * grid + 1, h),
+          "embeddings.patch_embeddings.projection.weight": t(h, 3, p, p),
+          "embeddings.patch_embeddings.projection.bias": t(h),
+          "embeddings.token_type_embeddings.weight": t(2, h),
+          "layernorm.weight": t(h), "layernorm.bias": t(h),
+          "pooler.dense.weight": t(h, h), "pooler.dense.bias": t(h)}
     for i in range(layers):
         b = f"encoder.layer.{i}"
         for ln in ("layernorm_before", "layernorm_after"):
-            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = t(H), t(H)
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = t(h), t(h)
         for part in ("query", "key", "value"):
-            sd[f"{b}.attention.attention.{part}.weight"] = t(H, H)
-            sd[f"{b}.attention.attention.{part}.bias"] = t(H)
-        sd[f"{b}.attention.output.dense.weight"], sd[f"{b}.attention.output.dense.bias"] = t(H, H), t(H)
-        sd[f"{b}.intermediate.dense.weight"], sd[f"{b}.intermediate.dense.bias"] = t(INTER, H), t(INTER)
-        sd[f"{b}.output.dense.weight"], sd[f"{b}.output.dense.bias"] = t(H, INTER), t(H)
+            sd[f"{b}.attention.attention.{part}.weight"] = t(h, h)
+            sd[f"{b}.attention.attention.{part}.bias"] = t(h)
+        sd[f"{b}.attention.output.dense.weight"], sd[f"{b}.attention.output.dense.bias"] = t(h, h), t(h)
+        sd[f"{b}.intermediate.dense.weight"], sd[f"{b}.intermediate.dense.bias"] = t(inter, h), t(inter)
+        sd[f"{b}.output.dense.weight"], sd[f"{b}.output.dense.bias"] = t(h, inter), t(h)
     return sd
 
 

@@ -120,8 +120,8 @@ def test_later_slice_options_raise():
     clients = {k: SyntheticVQAClient(k, seed=i, **CLIENT) for i, k in enumerate(HEADS)}
     cfg = _cfg(dict(TrainConfig=TrainConfig, PEFTMode=PEFTMode, OptimizerConfig=OptimizerConfig,
                     FederatedConfig=FederatedConfig))
-    for option in (dict(tp_mesh=object()), dict(profile_dir="profile"),
-                   dict(aux_init=lambda params: {}), dict(aux_forward=True)):
+    for option in (dict(tp_mesh=object()), dict(aux_init=lambda params: {}),
+                   dict(aux_forward=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FederatedTrainer(model, None, clients, cfg, device="cpu", **option)
 

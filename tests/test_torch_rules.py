@@ -3,7 +3,7 @@
 * nothing in ``feddat_tpu_torch/`` or ``chip_smoke.py`` imports ``jax``,
   ``flax`` or ``feddat_tpu``;
 * entry points (model, predictors and their ``from_checkpoint``, the batch
-  prefetch) need the card unless the caller passes ``device="cpu"``;
+  prefetch, the CLI) need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
   plain version, and an unknown ``attn_impl`` raises;
 * no port module draws randomness from torch's global RNG: no
@@ -61,7 +61,7 @@ def _skip_on_a_cuda_host():
         pytest.skip("this host has a CUDA device")
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     _skip_on_a_cuda_host()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
@@ -88,6 +88,12 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prefetch_to_device(batches)
     assert next(batches)["x"].shape == (2,)  # refused before the producer started
+    from feddat_tpu_torch import cli
+
+    # without --device cpu, before the logger, the model or a dataset
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--encoder_name", "vilt", "--output_dir", str(tmp_path / "logs")])
+    assert not (tmp_path / "logs").exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
