@@ -12,9 +12,11 @@ Phases, in this order:
             the whole-layer backward (#4) also at M = 127, 128, 129 and 257 rows
             (the edges of their GEMM's 128-row tiles), each twice, bitwise, #1's
             q/k/v plane bitwise against #3's recompute of it; the flash
-            forward (#7) at ALBEF's nine attention shapes and eight tile edges,
-            twice, bitwise; the flash backward (#8 dq, #9 dk/dv) at ALBEF's five
-            training sites, four ragged shapes and twelve tile edges, twice,
+            forward (#7) at ALBEF's nine attention shapes, eight tile edges and
+            the prompt's fusion cross-attention (577 + 5 keys), twice, bitwise;
+            the flash backward (#8 dq, #9 dk/dv) at ALBEF's five training
+            sites, four ragged shapes, twelve tile edges and the prompt's
+            fusion cross-attention, twice,
             bitwise, with constructed probes of p's and ds's precision and the
             wrappers' refusals; #1 and #3 (LN1 outside) and #4 at ALBEF's ViT
             length S=577 without a padding bias and at S=592, 593 and 768;
@@ -93,7 +95,7 @@ Phases, in this order:
             three replayed calls
             bitwise equal to three eager ones (or within twice eager's own
             run-to-run spread where eager is not bitwise run to run), then graph
-            against eager in 3 alternating pairs (host launch calls, wall, device
+            against eager in 2 alternating pairs (host launch calls, wall, device
             busy, idle share, peak memory; a replay launches no kernel but its
             copies, generator fills and one graph, and runs the eager call's
             kernels); ALBEF replays from one state equal, from another seed
@@ -114,7 +116,7 @@ Phases, in this order:
             rule against the plain path; dropout live, remat against no remat
             bitwise with each one's peak memory; three replays bitwise three
             eager steps, launches per replay from the wrappers and from the
-            device, graph against eager in 3 pairs and a profile of one replay;
+            device, graph against eager in 2 pairs and a profile of one replay;
             samples/s and peak memory of the tuned, "flash" and plain paths
             with graphs, one after another; a 2-client round, eager against graphs;
             the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
@@ -166,6 +168,38 @@ Phases, in this order:
             AlbefVqaPredictor.from_checkpoint ranking on "flash" (#7).
             Prints each launch's seconds to its first step and to its exit,
             the round walls and samples/s of the metrics log.
+14. modes — the sequential engine's other training modes, full width.
+            (a) albef_distill in adapter mode, bf16, "flash", the plain step
+            at B=48 x 4 with dropout 0.1 live: #7/#8/#9 launches 24/11/11
+            (the ViT sites of the twin's forward and the model's); two steps
+            replayed bitwise two eager ones (losses, trained tensors, the
+            twin); the twin's EMA bitwise a host fp32 recompute of
+            m*0.995 + p*0.005; the twin handed back as the program's own
+            tensors and one capture while alpha ramps 0, 0.1, 0.2, 0.3;
+            launches from the device's kernel names and host launches per
+            replay, with distillation (graph against eager) and without
+            (one profiled replay); samples/s and own peak
+            memory against the no-distill step, graphs on, in alternating
+            rounds; with dropout off the gradients by the 2x-bf16 rule
+            (#7/#8/#9 84/39/39); a FederatedTrainer round of 2 clients x 2
+            steps with the distill hooks, one capture.  (b) ALBEF prompt
+            tuning, dropout off: one step with the fusion cross-attention
+            at 577 + 5 keys on #7-#9, its gradients by the 2x-bf16 rule, a
+            round with a checkpoint, and
+            AlbefVqaPredictor.from_checkpoint ranking on "flash" bitwise a
+            predictor from the trainer's parameters.  (c) the joint DAT step
+            on ViLT-B/32 at B=64, S=185, attn_impl='layer': #1 12, #3 11, no
+            #4 (the weighted rows take the "block" way), its four gradient
+            sets against the standard step's plain fp32 path by the 2x-bf16
+            rule, launches from the device, samples/s against the standard
+            "block" step.  (d) ViLT adapter, none and freeze_encoder on
+            "fused": one step each, #5/#6 12/11, 12/0, 12/0 (also from the
+            device's kernel names in one profiled replay), the 2x-bf16 rule.  (e) ``python -m feddat_tpu_torch.cli --encoder_name
+            albef_distill`` with scripts/train_albef.sh's flags and
+            ``--optimizer_mode adapter --dtype bfloat16 --attn_impl flash``
+            on phase 12's dataset, 1 client x 2 steps, profiled (#7/#8/#9
+            24/11/11 per step from the trace), then from_checkpoint on
+            "flash" (#7).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -257,6 +291,80 @@ DEVICE_MS_STATS = {"profiles": 0, "again": 0, "lag_us": []}
 PROFILE_LEAD = 4
 
 
+class ProfEvent:
+    """One event of a finished profile, with the fields of ``prof.events()``'s
+    FunctionEvent that this script reads."""
+    __slots__ = ("name", "device_type", "time_range", "is_user_annotation", "self_cpu_time_total",
+                 "thread", "is_async")
+
+
+def profile_events(torch, prof):
+    """The events of a finished torch.profiler profile as ``prof.events()``
+    gives them (the same names, times from the trace's start, and events left
+    out, the dispatcher's nested records of one op included), read from its
+    kineto results without building a FunctionEvent per event in Python:
+    ``prof.events()`` took 199 s of a 975 s run of this script on an H100
+    (``scripts/chip_smoke_timings.py``), 43-68 s for one profile of eager
+    ALBEF steps.  ``self_cpu_time_total`` is the event's own duration (read
+    only for kernel launch calls, which have no children)."""
+    from torch.autograd.profiler_util import Interval, _filter_name
+
+    results = prof.profiler.kineto_results
+    start = results.trace_start_ns()
+    cpu = torch.autograd.DeviceType.CPU
+    names, out = {}, []
+    for k in results.events():
+        raw = k.name()
+        if _filter_name(raw) or getattr(k, "is_hidden_event", lambda: False)():
+            continue
+        e = ProfEvent()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        e.name = name
+        e.device_type = k.device_type()
+        e.time_range = Interval((k.start_ns() - start) / 1000, (k.end_ns() - start) / 1000)
+        e.is_user_annotation = k.is_user_annotation()
+        e.self_cpu_time_total = e.time_range.elapsed_us()
+        e.thread = k.start_thread_id()
+        e.is_async = k.is_async() or k.start_thread_id() != k.end_thread_id()
+        out.append(e)
+    # EventList._build_tree's nesting: each thread's synchronous CPU events by
+    # their intervals; then _remove_dup_nodes drops an event whose parent has
+    # its name and no other child, until none is left
+    out.sort(key=lambda e: (e.time_range.start, -e.time_range.end))
+    parent, children, stacks = {}, {}, {}
+    for i, e in enumerate(out):
+        if e.device_type != cpu or e.is_async:
+            continue
+        stack = stacks.setdefault(e.thread, [])
+        while stack:
+            p = out[stack[-1]].time_range
+            if e.time_range.start >= p.end or e.time_range.end > p.end:
+                stack.pop()
+            else:
+                parent[i] = stack[-1]
+                children.setdefault(stack[-1], []).append(i)
+                break
+        stack.append(i)
+    gone = set()
+    while True:
+        drop = set()
+        for i in range(len(out)):
+            if i in gone:
+                continue
+            p = parent.get(i)
+            if p is not None and out[p].name == out[i].name and len(children.get(p, ())) == 1:
+                children[p] = children.get(i, [])
+                for c in children[p]:
+                    parent[c] = p
+                drop.add(i)
+        if not drop:
+            break
+        gone |= drop
+    return [e for i, e in enumerate(out) if i not in gone]
+
+
 def profile_calls(torch, fn, calls: int, lead: int = PROFILE_LEAD):
     """Profile ``lead + calls`` calls of ``fn`` -> (the device events
     of each of the last ``calls`` calls as [(start, us, name)], or None when
@@ -278,7 +386,7 @@ def profile_calls(torch, fn, calls: int, lead: int = PROFILE_LEAD):
             if i < lead + calls:
                 fn()
             torch.cuda.synchronize()
-    events = prof.events()
+    events = profile_events(torch, prof)
     marks = sorted(e.time_range.start for e in events
                    if e.name == DEVICE_MS_MARK and e.device_type != cuda)
     device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
@@ -1158,6 +1266,9 @@ EDGE_LENGTHS = (127, 128, 129, 257)
 FLASH_EDGE_CASES = [(f"edge {n} {kind}", 2, n, 193 if kind == "heads" else n, kind)
                     for n in EDGE_LENGTHS for kind in ("padding", "heads")]
 FLASH_CASES += FLASH_EDGE_CASES
+# prompt tuning's fusion cross-attention: the ViT's 577 tokens and 5 prompt
+# tokens, a key length off the 64-key ring stage
+FLASH_CASES += [("fusion cross, prompt", AB, LQ, VIT_S + 5, "zero")]
 # #7 against its plain version on the same inputs: o elementwise in bf16 ulps of
 # each element's own magnitude (own_ulps), lse as |err| / max |lse|.  Both keep
 # P in fp32 (the kernel as bf16 hi + lo, ~2^-16 of P) and round o to bf16 once
@@ -1281,7 +1392,8 @@ FLASH_BWD_CASES = [
 ] + [(site, b, skv, sq, kind) for site, b, sq, skv, kind in FLASH_EDGE_CASES] + [
     # #8 splits the queries into 128-row blocks: the same edges there against
     # a staged per-head [query][key] bias tile
-    (f"edge {n} heads, queries split", 2, n, 193, "heads") for n in EDGE_LENGTHS]
+    (f"edge {n} heads, queries split", 2, n, 193, "heads") for n in EDGE_LENGTHS] + [
+    ("fusion cross, prompt", 48, LQ, VIT_S + 5, "zero")]
 # #8/#9 against their plain version on the same inputs, each of dq, dk, dv
 # elementwise in bf16 ulps of each element's own magnitude (own_ulps).  Both
 # keep p and ds at fp32 precision (the kernels as bf16 hi + lo) and round the
@@ -1590,7 +1702,7 @@ def build_trainer_model(torch, seed, attn_impl, state=None, dtype="bfloat16"):
 
     model, cfg = create_model(
         "vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS}, PEFTMode.DAT, 16,
-        dtype, image_size=TCANVAS, attn_impl=attn_impl, seed=seed)
+        dtype, image_size=TCANVAS, attn_impl=attn_impl, seed=seed if state is None else None)
     check(cfg.fuse_ln and not cfg.adapter.fused and cfg.hidden_dropout == 0.0, f"unexpected {cfg}")
     if state is not None:
         model.load_state_dict(state)
@@ -1766,7 +1878,8 @@ def peft_model(torch, mode, seed, attn_impl, dtype="bfloat16", logits="float32",
 
     model, cfg = create_model(
         "vilt", {k: TaskHeadSpec(num_labels=PEFT_LABELS) for k in TRAIN_CLIENTS}, PEFTMode(mode), 16,
-        dtype, image_size=TCANVAS, attn_impl=attn_impl, attention_logits_dtype=logits, seed=seed)
+        dtype, image_size=TCANVAS, attn_impl=attn_impl, attention_logits_dtype=logits,
+        seed=seed if state is None else None)
     check(cfg.lora.enabled == (mode == "lora") and cfg.prompt.enabled == (mode == "prompt")
           and cfg.lora.rank == 16 and cfg.lora.alpha == 1.0, f"unexpected {cfg}")
     if state is not None:
@@ -1790,24 +1903,25 @@ def peft_client(key, num_train, num_eval, seed):
                               batch_size=TB, val_batch_size=TB, seed=seed)
 
 
-def peft_step(model, mode, params):
+def peft_step(model, mode, params, adapter_mode="none"):
     from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
     from feddat_tpu_torch.train import dat
     from feddat_tpu_torch.train.forwards import make_vilt_forward
 
     part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode(mode), layers_to_freeze=FREEZE_K)
     opt = OptimizerConfig()
-    step = dat.make_plain_train_step(make_vilt_forward(model, TRAIN_CLIENTS[0]), part, opt, 100, "none")
+    step = dat.make_plain_train_step(make_vilt_forward(model, TRAIN_CLIENTS[0]), part, opt, 100,
+                                     adapter_mode)
     return step, part, opt
 
 
-def peft_grads(torch, model, params, part, batch):
+def peft_grads(torch, model, params, part, batch, adapter_mode="none"):
     """The plain step's loss and gradients of its trainable set (what its
     AdamW update consumes), on ``model``'s attention route and dtype."""
     from feddat_tpu_torch.train.forwards import make_vilt_forward
 
     leaves = {n: params[n].detach().requires_grad_() for n in sorted(part.shared_paths | part.head_paths)}
-    loss, _ = make_vilt_forward(model, TRAIN_CLIENTS[0])({**params, **leaves}, batch, "none")
+    loss, _ = make_vilt_forward(model, TRAIN_CLIENTS[0])({**params, **leaves}, batch, adapter_mode)
     return {"loss": loss.detach(), "grads": {"trainable": dict(zip(
         leaves, torch.autograd.grad(loss, list(leaves.values()))))}}
 
@@ -2026,18 +2140,21 @@ def phase_albef(torch, seed):
 ATB, ANS_PER_Q = 48, 4
 
 
-def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, state=None, **flags):
-    """Full-width ALBEF DAT from ``create_model`` (its dropout 0.1 live), or
-    the same configuration with both BERT rates at 0; weights from ``seed``
-    or ``state``; ``flags``: create_model's remat and logits arguments."""
+def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, state=None,
+                      encoder="albef_no_distill", mode="dat", **flags):
+    """Full-width ALBEF (DAT unless ``mode`` says otherwise) from
+    ``create_model`` (its dropout 0.1 live), or the same configuration with
+    both BERT rates at 0; weights from ``seed`` or ``state``; ``flags``:
+    create_model's remat and logits arguments."""
     import dataclasses
 
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.models import DTYPES, create_model
     from feddat_tpu_torch.models.albef import AlbefModel
 
-    model, cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, 16, dtype, attn_impl=attn_impl,
-                              seed=seed, **flags)
+    # weights to be loaded need no random init (seconds per full-width ALBEF)
+    model, cfg = create_model(encoder, {}, PEFTMode(mode), 16, dtype, attn_impl=attn_impl,
+                              seed=seed if state is None else None, **flags)
     check((cfg.bert.hidden_dropout, cfg.bert.attention_dropout) == (0.1, 0.1)
           and cfg.image_res == ARES and cfg.max_question_len == LQ and cfg.max_answer_len == LA,
           f"unexpected ALBEF config {cfg}")
@@ -2741,8 +2858,9 @@ def phase_time(torch, pred, plain, requests, seed):
 # three eager ones from the same state, bitwise where the eager path is
 # bitwise run to run, else within twice its run-to-run spread; graph against
 # eager in alternating pairs for host launch calls, wall, device busy, idle
-# share and peak memory.
-GRAPH_PAIRS = 3
+# share and peak memory.  Two pairs: the script has 1200 s on the card, and
+# every earlier phase's pairs are the first depth cut when a phase is added.
+GRAPH_PAIRS = 2
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
 # Every __global__ function of feddat_tpu_torch/csrc, and for each wrapper the
 # one that its launch runs once and no other wrapper runs: #4 runs #3's
@@ -2888,7 +3006,7 @@ def call_profile_once(torch, label, modes, run):
             elif j < 0:
                 run(True)
             torch.cuda.synchronize()
-    events = prof.events()
+    events = profile_events(torch, prof)
     windows = {int(e.name.rsplit(".", 1)[1]): (e.time_range.start, e.time_range.end) for e in events
                if e.name.startswith("chip_smoke.call.") and e.device_type != cuda}
     device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
@@ -2940,14 +3058,14 @@ def launches_inside(events, ops):
 
 
 def graph_vs_eager(torch, label, call, want, pairs=GRAPH_PAIRS):
-    """Graph against eager in ``pairs`` alternating pairs (G E, E G, ...):
-    wall per call by the host clock without the profiler, then the same
-    order in one profile (:func:`call_profile`).  Prints the medians and
-    checks that a replay launches no kernel from the host apart from its
-    input and output copies, the fills of ``CUDAGraph.replay``'s generator
-    prologue and one graph launch, runs the same kernels as the eager call
-    (and those copies and fills),
-    and runs each of the port's kernels as often as the eager call: each
+    """Graph against eager in ``pairs`` alternating pairs (G E, E G, ...)
+    after one untimed graph call: wall per call by the host clock without
+    the profiler, then the same order in one profile (:func:`call_profile`).
+    Prints the medians and checks that a replay launches no kernel from the
+    host apart from its input and output copies, the fills of
+    ``CUDAGraph.replay``'s generator prologue and one graph launch, runs the
+    same kernels as the eager call (and those copies and fills), and runs
+    each of the port's kernels as often as the eager call: each
     wrapper's launches, measured from the device's kernel names
     (:func:`device_launches`), equal ``want`` in every replay and every eager
     call -> the replays' measured launches."""
@@ -2958,6 +3076,7 @@ def graph_vs_eager(torch, label, call, want, pairs=GRAPH_PAIRS):
 
     modes = [g for i in range(pairs) for g in ((True, False) if i % 2 == 0 else (False, True))]
     walls = {True: [], False: []}
+    run(True)  # a path not captured yet captures here, outside the timed calls
     for g in modes:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3011,6 +3130,28 @@ def graph_vs_eager(torch, label, call, want, pairs=GRAPH_PAIRS):
           f"{label}: device-measured launches {[m for _, m in measured]}, expected {want}")
     check(all(r["port"] == rows[0]["port"] for r in rows),
           f"{label}: the port's kernels by name differ between calls")
+    return replay
+
+
+def replay_launches(torch, label, call, want):
+    """One untimed graph call (a capture where the path has none yet), then
+    one profiled replay: it launches one graph and each of the port's kernels
+    ``want`` times, by the device's kernel names; prints its host side ->
+    those launches."""
+    def run(graphs):
+        with graph_mode(graphs):
+            call()
+
+    run(True)
+    (row,) = call_profile(torch, label, [True], run)
+    replay = device_launches(row["port"])
+    print(f"graphs: {label}: one replay, {row['ms']:.3f} ms profiled, device busy {row['busy']:.3f} ms; "
+          f"host: {row['launches']} kernel launch calls ({row['in_copies']} inside copy ops), "
+          f"{row['graph_launches']} graph launch(es), {row['memcpys']} memcpy calls, {row['fills']} "
+          f"fill ops; launches measured on the device {counts_text(replay)}")
+    check(row["graph_launches"] == 1 and replay == want,
+          f"{label}: a replay made {row['graph_launches']} graph launches and device launches {replay}, "
+          f"expected {want}")
     return replay
 
 
@@ -3417,40 +3558,16 @@ def tensor_gib(tensors):
 
 def path_speed(torch, paths, batch, seed, weights, rounds=SPEED_ROUNDS):
     """Samples/s and peak memory of fused ALBEF steps with graphs on (the
-    users' default), one path's graph alive at a time (two full-width pools
-    do not share the card): in each round every path is captured anew, its
-    replays timed in 2 samples of 2 steps, and the graph freed; the order
-    alternates between rounds.  Every path's model stays on the card, so a
-    path's peak is its own: the peak above what was resident at its start,
-    plus the ``weights`` GiB of the one weight set its step reads.  ->
-    {path: (samples/s median, samples, own peak reserved GiB, own peak
-    allocated GiB)}."""
-    times = {name: [] for name in paths}
-    peak = {name: (0.0, 0.0) for name in paths}
-    names = list(paths)
-    for r in range(rounds):
-        for name in (names if r % 2 == 0 else names[::-1]):
-            model, params = paths[name]
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
-            torch.cuda.reset_peak_memory_stats()
-            step, state0 = albef_fused_step(torch, model, params, seed)
-            step(state0, batch)  # capture
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(2):
-                    step(state0, batch)
-                torch.cuda.synchronize()
-                times[name].append((time.perf_counter() - t0) / 2)
-            own = ((torch.cuda.max_memory_reserved() - base[0]) / 2 ** 30 + weights,
-                   (torch.cuda.max_memory_allocated() - base[1]) / 2 ** 30 + weights)
-            peak[name] = (max(peak[name][0], own[0]), max(peak[name][1], own[1]))
-            del step, state0
-    torch.cuda.empty_cache()
-    return {name: (ATB / statistics.median(times[name]), [round(ATB / t, 1) for t in times[name]],
-                   *peak[name]) for name in paths}
+    users' default), by :func:`alternating_speed`.  Every path's model
+    stays on the card, so a path's peak is its own: the peak above what was
+    resident at its start, plus the ``weights`` GiB of the one weight set
+    its step reads.  -> {path: (samples/s median, samples, own peak
+    reserved GiB, own peak allocated GiB)}."""
+    makers = {name: (lambda m=model, p=params: (*albef_fused_step(torch, m, p, seed), batch))
+              for name, (model, params) in paths.items()}
+    speed = alternating_speed(torch, makers, ATB, rounds)
+    return {name: (rate, samples, reserved + weights, allocated + weights)
+            for name, (rate, samples, reserved, allocated) in speed.items()}
 
 
 def phase_albef_tuned(torch, seed):
@@ -3531,7 +3648,7 @@ def phase_albef_tuned(torch, seed):
     label = f"ALBEF tuned fused DAT step (layer, remat, dropout live, B={ATB}x{ANS_PER_Q})"
     graph_path(torch, label, lambda: step(state0, batch),
                lambda prev: step(prev[0] if prev else state0, batch), want)
-    replay = graph_vs_eager(torch, label, lambda: step(state0, batch), want, pairs=4)
+    replay = graph_vs_eager(torch, label, lambda: step(state0, batch), want)
     launches = {k: replay[k] for k in ("attn_block", "layer_block_bwd")}
     profile_device(torch, lambda: step(state0, batch), f"ALBEF tuned fused DAT step, replayed "
                    f"(B={ATB})", STEP_GROUPS)
@@ -3663,7 +3780,7 @@ def profile_device(torch, fn, label, groups):
     by_name = {}
     n_device = n_launch = 0
     launch_us = 0.0
-    for e in prof.events():
+    for e in profile_events(torch, prof):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             n_device += 1
@@ -4255,6 +4372,8 @@ def script_flags(name):
     line = next(ln for ln in text.splitlines() if "python -m feddat_tpu.cli" in ln)
     line = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", line.split("python -m feddat_tpu.cli", 1)[1])
     argv = [a for a in shlex.split(line) if a != "$@"]
+    if "--engine" not in argv:
+        return argv
     i = argv.index("--engine")
     check(argv[i + 1] == "spmd", f"{name}: unexpected engine {argv[i + 1]}")
     return argv[:i] + argv[i + 2:]
@@ -4442,9 +4561,9 @@ def cli_albef_serving(torch, root, seed, ckpt):
 
     meta = load_meta(ckpt)
     task = meta["tasks"][0]
-    model = create_model("albef_no_distill", {}, PEFTMode.DAT, meta["adapter_reduction_factor"],
-                         meta["dtype"], attn_impl="flash",
-                         attention_logits_dtype=meta["attention_logits_dtype"], seed=seed + 6)[0]
+    model = create_model(meta["encoder_name"], {}, PEFTMode(meta["optimizer_mode"]),
+                         meta["adapter_reduction_factor"], meta["dtype"], attn_impl="flash",
+                         attention_logits_dtype=meta["attention_logits_dtype"], seed=None)[0]
     pred = AlbefVqaPredictor.from_checkpoint(ckpt, disk_tokenizer(), model=model, batch_size=AB,
                                              k=ALBEF_K, max_question_len=LQ, max_answer_len=LA)
     _, evals, backend, _ = disk_split(root, task)
@@ -4561,6 +4680,602 @@ def phase_cli(torch, seed, root):
     print(f"cli: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 14: every training mode of the sequential engine.  ALBEF momentum
+# distillation in adapter mode (the EMA written in place into the twin the
+# compiled step keeps on the card, then the twin's forward and the model's),
+# visual prompts on ALBEF (the fusion cross-attention at 577 + 5 keys), the
+# joint DAT step on ViLT (one mega-batch pass of 2B rows through the "block"
+# way), the ViLT modes adapter, none and freeze_encoder on "fused", and an
+# albef_distill CLI launch.
+MODE_STEPS_PER_EPOCH = 4  # the alpha ramp's epoch: 0, 0.1, 0.2, 0.3, then 0.4
+MODES_SPEED_ROUNDS = 2
+VILT_MODES = ("adapter", "none", "freeze_encoder")
+
+
+def alpha_batch(torch, batch, i):
+    """The batch of step ``i`` of epoch 0 with ``add_alpha``'s alpha on the
+    card, as the engine hands it to a step."""
+    from feddat_tpu_torch.train.forwards import add_alpha, to_device
+
+    return to_device(add_alpha(batch, 0, i, MODE_STEPS_PER_EPOCH), torch.device("cuda"))
+
+
+def albef_plain_step(torch, model, params, seed, mode="adapter", distill=True):
+    """(the plain step of ``mode`` with the distill forward, or the
+    no-distill one, its initial state from ``seed``, its partitioner); the
+    distill state's twin starts as the parameters (``aux_init``)."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_albef_distill_forward, make_albef_forward
+
+    opt = OptimizerConfig()
+    part = dat.Partitioner(params, "fed", PEFTMode(mode))
+    forward = (make_albef_distill_forward if distill else make_albef_forward)(model)
+    step = dat.make_plain_train_step(forward, part, opt, 10_000, "adapter" if mode == "adapter" else "none",
+                                     aux_forward=distill)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    return step, state0.replace(aux=dict(params)) if distill else state0, part
+
+
+def host_copy(tensors):
+    """fp32 numpy copies on the host (never views of the tensors)."""
+    import numpy as np
+
+    return {k: np.array(v.detach().float().cpu().numpy()) for k, v in tensors.items()}
+
+
+def twin_ema_check(torch, label, before_twin, before_params, after_twin):
+    """The twin after a step against a host fp32 recompute of JAX's
+    expression from the twin and the parameters before it: bitwise, every
+    tensor, frozen ones included."""
+    import numpy as np
+
+    m, keep = np.float32(0.995), np.float32(1.0 - 0.995)
+    bad = [k for k, t in before_twin.items()
+           if not np.array_equal(after_twin[k].cpu().numpy(), t * m + before_params[k] * keep)]
+    moved = sum(not np.array_equal(before_twin[k], after_twin[k].cpu().numpy()) for k in before_twin)
+    print(f"modes: {label}: the twin's EMA against a host fp32 recompute: {len(before_twin)} tensors, "
+          f"{len(bad)} differ{'' if not bad else ' e.g. ' + bad[0]}; {moved} moved")
+    check(not bad and moved > 0, f"{label}: the twin's EMA is not m*0.995 + p*0.005: {bad[:3]}")
+
+
+def alternating_speed(torch, makers, batch_size, rounds=MODES_SPEED_ROUNDS):
+    """Samples/s and own peak memory of steps with graphs on, in
+    ``rounds`` rounds whose order alternates: in each round every path is
+    built by ``makers[name]() -> (step, state0, batch)``, captured, timed in
+    2 samples of 2 replayed steps and freed (one path's graph alive at a
+    time) -> {name: (samples/s median, samples, own peak reserved GiB, own
+    peak allocated GiB)}, the peaks above what was resident at the path's
+    start."""
+    times = {name: [] for name in makers}
+    peak = {name: (0.0, 0.0) for name in makers}
+    names = list(makers)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = (torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            step, state, batch = makers[name]()
+            state, _ = step(state, batch)  # capture
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / 2)
+            own = ((torch.cuda.max_memory_reserved() - base[0]) / 2 ** 30,
+                   (torch.cuda.max_memory_allocated() - base[1]) / 2 ** 30)
+            peak[name] = (max(peak[name][0], own[0]), max(peak[name][1], own[1]))
+            del step, state, batch
+    torch.cuda.empty_cache()
+    return {name: (batch_size / statistics.median(times[name]),
+                   [round(batch_size / t, 1) for t in times[name]], *peak[name]) for name in makers}
+
+
+def modes_distill(torch, seed):
+    """(a) albef_distill, adapter mode, "flash", B=48 x 4, dropout 0.1 live:
+    eager and replayed steps bitwise, the twin's EMA against the host, one
+    capture while alpha ramps, launches from the device, host launches and
+    samples/s and peak memory against the no-distill step, the gradients with
+    dropout off by the 2x-bf16 rule, and a 2-client round -> the launches per
+    replayed step measured on the device."""
+    import numpy as np
+
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import compiled
+    from feddat_tpu_torch.train.forwards import make_albef_distill_forward
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+    from feddat_tpu_torch.utils.seeding import stage_generator
+
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"modes: distillation, {what} took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    model = albef_train_model(torch, seed, "flash", encoder="albef_distill", mode="adapter")
+    cfg = model.cfg
+    check(cfg.distill and cfg.adapter.names == ("adapter",) and cfg.momentum == 0.995,
+          f"unexpected albef_distill config {cfg}")
+    vit, text = cfg.vision_layers, cfg.bert.fusion_layer
+    fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
+    params = {n: t.detach() for n, t in model.state_dict().items()}
+    batch = albef_train_batch(torch, ATB, seed)
+    step, state0, part = albef_plain_step(torch, model, params, seed)
+    # the twin's forward and the model's run the 12 ViT sites on #7 (the BERT
+    # sites carry attention dropout); only the model's has a backward, and
+    # block 0's attention input depends on no trainable parameter
+    want = {**NO_LAUNCHES, "flash_attention": 2 * vit, "flash_attention_bwd_dq": vit - 1,
+            "flash_attention_bwd_dkv": vit - 1}
+
+    # eager: two chained steps, the launches of each
+    with graph_mode(False):
+        torch.cuda.synchronize()
+        reset_counts()
+        e1, em1 = step(state0, alpha_batch(torch, batch, 0))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        etwin1 = host_copy(e1.aux)  # handed back, so the next step updates it in place
+        e2, em2 = step(e1, alpha_batch(torch, batch, 1))
+        torch.cuda.synchronize()
+    print(f"modes: albef_distill plain step, adapter mode, dropout 0.1 live, attn_impl='flash', "
+          f"B={ATB} A={ANS_PER_Q}: #7/#8/#9 launches {flash_launches(counts)} (expected "
+          f"{flash_launches(want)}: the ViT sites of the twin's forward and the model's, the "
+          f"model's backward but block 0); losses {float(em1['loss']):.4f}, {float(em2['loss']):.4f} "
+          f"at alpha 0 and {float(alpha_batch(torch, batch, 1)['alpha']):.2f}")
+    check(counts == want, f"distill step launches {counts}, expected {want}")
+    check(all(math.isfinite(float(m["loss"])) for m in (em1, em2)), "non-finite distill loss")
+
+    # graphs: the same two steps, bitwise; the twin resident, its EMA against
+    # the host; one capture while alpha ramps over two more steps
+    cap0 = compiled.STATS["captures"]
+    g1, gm1 = step(state0, alpha_batch(torch, batch, 0))
+    torch.cuda.synchronize()
+    twin1, params1 = host_copy(g1.aux), host_copy(g1.params)
+    g2, gm2 = step(g1, alpha_batch(torch, batch, 1))
+    torch.cuda.synchronize()
+    twin_ema_check(torch, "distill step 2 (replayed)", twin1, params1, g2.aux)
+    trained = sorted(part.shared_paths | part.head_paths)
+    bad = [f"{i}/{what}/{k}" for i, (e, g, em, gm, etwin, twin) in enumerate(
+        ((e1, g1, em1, gm1, etwin1, twin1), (e2, g2, em2, gm2, host_copy(e2.aux), host_copy(g2.aux))))
+        for what, k, a, b in ([("loss", "", em["loss"].cpu(), gm["loss"].cpu())]
+                              + [("params", k, e.params[k].cpu(), g.params[k].cpu()) for k in trained]
+                              + [("twin", k, torch.from_numpy(etwin[k]), torch.from_numpy(twin[k]))
+                                 for k in twin])
+        if not torch.equal(a.float(), b.float())]
+    resident = all(g2.aux[k] is g1.aux[k] and g1.aux[k] is not params[k] for k in params)
+    for i in (2, 3):
+        g2, _ = step(g2, alpha_batch(torch, batch, i))
+    torch.cuda.synchronize()
+    captures = compiled.STATS["captures"] - cap0
+    print(f"modes: distill steps replayed against eager: {len(bad)} of the losses, {len(trained)} "
+          f"trained tensors and {len(params)} twin tensors of 2 steps differ (bitwise rule); the twin "
+          f"handed back as the program's own tensors: {resident}; {captures} capture(s) over 4 steps "
+          f"with alpha 0, 0.1, 0.2, 0.3")
+    check(not bad, f"distill replays differ from eager steps: {bad[:3]}")
+    check(resident and captures == 1 and len(step.program.entries) == 1,
+          f"the twin is not resident ({resident}) or alpha made captures ({captures})")
+    del e1, e2, em1, em2, etwin1, twin1, params1, state0
+    lap("the model and eager against replayed steps")
+
+    # device-measured launches, host launches per replay with and without distillation
+    label = f"albef_distill plain step (adapter, flash, dropout live, B={ATB}x{ANS_PER_Q})"
+    replay = graph_vs_eager(torch, label, lambda: step(g2, alpha_batch(torch, batch, 4)), want)
+    step_nd, state_nd, _ = albef_plain_step(torch, model, params, seed, distill=False)
+    want_nd = {**NO_LAUNCHES, "flash_attention": vit, "flash_attention_bwd_dq": vit - 1,
+               "flash_attention_bwd_dkv": vit - 1}
+    replay_launches(torch, "the same step without distillation (albef_no_distill forward)",
+                    lambda: step_nd(state_nd, batch), want_nd)
+    del step, step_nd, g1, g2, gm1, gm2, state_nd
+    torch.cuda.empty_cache()
+    lap("graph against eager and the replay without distillation")
+
+    # samples/s and own peak memory, graphs on, alternating
+    def make(distill):
+        def build():
+            s, st, _ = albef_plain_step(torch, model, params, seed, distill=distill)
+            return s, st, alpha_batch(torch, batch, 4) if distill else batch
+        return build
+
+    speed = alternating_speed(torch, {"distill": make(True), "no distill": make(False)}, ATB)
+    for name, (rate, samples, reserved, allocated) in speed.items():
+        print(f"time modes: {name} plain step (adapter, flash, dropout live, B={ATB}x{ANS_PER_Q}): "
+              f"{rate:.1f} samples/s (replayed graph, median of {len(samples)} samples of 2 steps in "
+              f"{MODES_SPEED_ROUNDS} alternating rounds: {samples}); own peak reserved {reserved:.2f} GiB, "
+              f"allocated {allocated:.2f} GiB (capture included, the weights not)")
+    d, n = speed["distill"], speed["no distill"]
+    print(f"time modes: distill / no distill: step time {n[0] / d[0]:.3f}x, peak reserved "
+          f"{d[2] - n[2]:+.2f} GiB, allocated {d[3] - n[3]:+.2f} GiB; twin "
+          f"{tensor_gib(params.values()):.2f} GiB")
+    lap("samples/s")
+
+    # dropout off: the distill step's gradients by the 2x-bf16 rule
+    sd = model.state_dict()
+
+    def distill_grads(m):
+        fwd = make_albef_distill_forward(m)
+        leaves = {k: params[k].detach().requires_grad_() for k in trained}
+        twin = {k: v.clone() for k, v in params.items()}
+        gens = (stage_generator(seed + 1, "cuda"), stage_generator(seed + 2, "cuda"))
+        loss, _, _ = fwd({**params, **leaves}, alpha_batch(torch, batch, 2), "adapter", gens, twin)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {"loss": loss.detach(), "grads": {"trainable": dict(zip(leaves, grads))}}
+
+    off = albef_train_model(torch, seed, "flash", dropout=False, state=sd, encoder="albef_distill",
+                            mode="adapter")
+    torch.cuda.synchronize()
+    reset_counts()
+    kernel = distill_grads(off)
+    torch.cuda.synchronize()
+    off_counts = read_counts()
+    per_pass = vit + text + 2 * fusion + 2 * dec
+    want_off = {**NO_LAUNCHES, "flash_attention": 2 * per_pass, "flash_attention_bwd_dq": per_pass - 3,
+                "flash_attention_bwd_dkv": per_pass - 3}
+    print(f"modes: distill step, dropout off: #7/#8/#9 launches {flash_launches(off_counts)} "
+          f"(expected {flash_launches(want_off)}: {per_pass} sites in each forward, the backward but "
+          f"ViT block 0, text layer 0 self and decoder layer 0 self)")
+    check(off_counts == want_off, f"distill dropout-off launches {off_counts}, expected {want_off}")
+    del off
+    before = read_counts()
+    plain = albef_train_model(torch, seed, "auto", dropout=False, state=sd, encoder="albef_distill",
+                              mode="adapter")
+    plain_m = distill_grads(plain)
+    del plain
+    torch.cuda.empty_cache()
+    exact = albef_train_model(torch, seed, "auto", "float32", dropout=False, state=sd,
+                              encoder="albef_distill", mode="adapter")
+    exact_m = distill_grads(exact)
+    del exact
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    grad_agreement(torch, f"albef_distill plain step, dropout off, B={ATB}", kernel, plain_m, exact_m,
+                   ("loss",))
+    del kernel, plain_m, exact_m
+    torch.cuda.empty_cache()
+    lap("the gradients with dropout off")
+
+    # a 2-client round through FederatedTrainer with the distill hooks, graphs on
+    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+                                       vocab_size=30522, question_len=LQ, answer_len=LA,
+                                       max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
+                                       batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
+               for i, k in enumerate(TRAIN_CLIENTS)}
+    hooks = resolve_trainer("albef_distill", "vqa", rank_k=ALBEF_K, answer_banks={
+        k: (c.answer_ids, c.answer_mask) for k, c in clients.items()})
+    tcfg = TrainConfig(encoder_name="albef_distill", peft_mode=PEFTMode.ADAPTER,
+                       optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    trainer = FederatedTrainer(model, params, clients, tcfg, make_forward=hooks.make_forward,
+                               make_eval=hooks.make_eval, aux_init=hooks.aux_init,
+                               batch_transform=hooks.batch_transform, aux_forward=hooks.aux_forward)
+    cap0 = compiled.STATS["captures"]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    round_launches, captures = read_counts(), compiled.STATS["captures"] - cap0
+    entry = trainer.evaluate_round(0)
+    steps = 2 * len(clients)
+    print(f"modes: FederatedTrainer albef_distill round of {len(clients)} clients x 2 plain steps "
+          f"(alpha 0 and 0.2) in {round_s:.2f} s, {captures} capture(s) for {len(trainer._programs)} "
+          f"programs, #7/#8/#9 launches {flash_launches(round_launches)}; evaluate {entry['scores']}")
+    check(captures == 1, f"the distill round captured {captures} graphs, expected 1 (one shared program)")
+    check(round_launches == {k: steps * v for k, v in want.items()}, f"round launches {round_launches}")
+    for key, score in entry["scores"].items():
+        check(math.isfinite(score) and 0.0 <= score <= 100.0, f"bad evaluate score for {key}: {score}")
+    moved = [k for k, v in trainer.server_params.items() if not torch.equal(v, params[k])]
+    check(moved and all(".adapter." in k for k in moved), f"the round moved {moved[:3]}")
+    del trainer, clients
+    torch.cuda.empty_cache()
+    return replay
+
+
+def modes_prompt(torch, seed, root):
+    """(b) prompt tuning on ALBEF ("flash", dropout off, so the fusion
+    cross-attention runs #7-#9 at 577 + 5 keys): one plain step with its
+    launches, its gradients by the 2x-bf16 rule, a round with a checkpoint,
+    and ``from_checkpoint`` ranking on "flash", bitwise a predictor from the
+    trainer's parameters."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.serving import AlbefVqaPredictor
+    from feddat_tpu_torch.train.forwards import make_albef_forward
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+    from feddat_tpu_torch.utils.checkpointing import write_meta
+    from feddat_tpu_torch.utils.seeding import stage_generator
+
+    model = albef_train_model(torch, seed, "flash", dropout=False, mode="prompt")
+    cfg = model.cfg
+    check(cfg.prompt.enabled and cfg.prompt.length == 5 and not cfg.adapter.names,
+          f"unexpected prompt config {cfg}")
+    vit, text = cfg.vision_layers, cfg.bert.fusion_layer
+    fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
+    params = {n: t.detach() for n, t in model.state_dict().items()}
+    batch = albef_train_batch(torch, ATB, seed)
+    step, state0, part = albef_plain_step(torch, model, params, seed, mode="prompt", distill=False)
+    # the prompt enters the fusion layers' cross-attention keys, so the
+    # backward runs there, in the fusion self-attention above the first
+    # fusion layer and in the decoder but its first self-attention
+    want = {**NO_LAUNCHES, "flash_attention": vit + text + 2 * fusion + 2 * dec,
+            "flash_attention_bwd_dq": 2 * fusion - 1 + 2 * dec - 1,
+            "flash_attention_bwd_dkv": 2 * fusion - 1 + 2 * dec - 1}
+    with graph_mode(False):
+        torch.cuda.synchronize()
+        reset_counts()
+        s1, m1 = step(state0, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    # the first step's lr is 0 (warm-up): its gradients show in Adam's moments
+    mu = s1.opt_states["trainable"].mu
+    reached = sorted(k for k in mu if bool(mu[k].abs().max() > 0))
+    print(f"modes: ALBEF prompt plain step, dropout off, B={ATB} A={ANS_PER_Q} (the fusion "
+          f"cross-attention at {VIT_S} + {cfg.prompt.length} keys): #7/#8/#9 launches "
+          f"{flash_launches(counts)} (expected {flash_launches(want)}); loss {float(m1['loss']):.4f}; "
+          f"gradients reached {len(reached)} of {len(mu)} trainable tensors")
+    check(counts == want, f"prompt step launches {counts}, expected {want}")
+    check(math.isfinite(float(m1["loss"])) and set(reached) == set(mu)
+          and any(k.startswith("prompt_vis.") for k in mu), "the prompt step's gradients")
+    del step, s1, m1
+    torch.cuda.empty_cache()
+
+    # the step's gradients by the 2x-bf16 rule against the plain paths
+    trained = sorted(part.shared_paths | part.head_paths)
+
+    def prompt_grads(m):
+        leaves = {k: params[k].detach().requires_grad_() for k in trained}
+        loss, _ = make_albef_forward(m)({**params, **leaves}, batch, "none",
+                                        stage_generator(seed + 1, "cuda"))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {"loss": loss.detach(), "grads": {"trainable": dict(zip(leaves, grads))}}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    kernel = prompt_grads(model)
+    torch.cuda.synchronize()
+    check(read_counts() == want, f"prompt gradients' launches {read_counts()}, expected {want}")
+    sd = model.state_dict()
+    before = read_counts()
+    plain_m = prompt_grads(albef_train_model(torch, seed, "auto", dropout=False, state=sd, mode="prompt"))
+    torch.cuda.empty_cache()
+    exact_m = prompt_grads(albef_train_model(torch, seed, "auto", "float32", dropout=False, state=sd,
+                                             mode="prompt"))
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    grad_agreement(torch, f"ALBEF prompt plain step, dropout off, B={ATB} (fusion cross-attention at "
+                   f"{VIT_S + cfg.prompt.length} keys)", kernel, plain_m, exact_m, ("loss",))
+    del kernel, plain_m, exact_m, sd
+    torch.cuda.empty_cache()
+
+    # one client, one round of 2 steps with a checkpoint; the run recipe as the CLI writes it
+    task = DISK_TASKS[0]
+    clients = {task: SyntheticAlbefClient(task, num_train=2 * ATB, num_eval=ATB,
+                                          num_answers=len(ALBEF_ANSWERS), vocab_size=30522,
+                                          question_len=LQ, answer_len=LA, max_answers_per_q=ANS_PER_Q,
+                                          image_size=(ARES, ARES), batch_size=ATB, val_batch_size=ATB,
+                                          seed=seed + 3)}
+    hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks={
+        task: (clients[task].answer_ids, clients[task].answer_mask)})
+    tcfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.PROMPT,
+                       optimizer=OptimizerConfig(),
+                       federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                       num_epochs=1, seed=seed)
+    ckpt = Path(root) / "modes_prompt_ckpt"
+    trainer = FederatedTrainer(model, params, clients, tcfg, make_forward=hooks.make_forward,
+                               make_eval=hooks.make_eval, checkpoint_dir=str(ckpt))
+    trainer.run_round(0)
+    trainer.save_checkpoint(0)
+    write_meta(str(ckpt), {"encoder_name": "albef_no_distill", "optimizer_mode": "prompt",
+                           "adapter_reduction_factor": 16, "dtype": "bfloat16", "engine": "sequential",
+                           "tasks": [task], "smoke": False, "image_size": None,
+                           "attention_logits_dtype": "float32", "heads": {},
+                           "answer_lists": {task: list(ALBEF_ANSWERS)}})
+    tok = disk_tokenizer()
+    served = create_model("albef_no_distill", {}, PEFTMode.PROMPT, 16, "bfloat16", attn_impl="flash",
+                          seed=None)[0]
+    pred = AlbefVqaPredictor.from_checkpoint(str(ckpt), tok, model=served, batch_size=AB, k=ALBEF_K,
+                                             max_question_len=LQ, max_answer_len=LA)
+    direct = AlbefVqaPredictor(model, trainer._client_params(trainer.clients[0], refresh=False), tok,
+                               ALBEF_ANSWERS, batch_size=AB, k=ALBEF_K, max_question_len=LQ,
+                               max_answer_len=LA, adapter_mode="none")
+    imgs, qs = albef_requests(AB, seed + 4)
+    reset_counts()
+    got = pred.predict(imgs, qs, top_k=3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_rank = direct.predict(imgs, qs, top_k=3)
+    print(f"modes: AlbefVqaPredictor.from_checkpoint of a prompt-mode round ('flash', adapter mode "
+          f"{pred.adapter_mode!r}, the cross-attention at {VIT_S + cfg.prompt.length} keys): "
+          f"launches {counts_text(counts)}; equal to a predictor from the trainer's parameters: "
+          f"{got == want_rank}; first answer {got[0]}")
+    # one rank_answer: the question encoder's sites and two decodes
+    check(counts == {**NO_LAUNCHES, "flash_attention": vit + text + 2 * fusion + 4 * dec},
+          f"prompt from_checkpoint launches {counts}")
+    check(got == want_rank and all(math.isfinite(p) for ans in got for _, p in ans),
+          "the prompt checkpoint ranks differently from the trainer's parameters")
+    shutil.rmtree(ckpt)
+    del model, served, pred, direct, trainer
+    torch.cuda.empty_cache()
+
+
+def modes_joint(torch, seed):
+    """(c) the joint DAT step on full-width ViLT-B/32 at B=64, S=185 on
+    "layer": its weighted rows take the "block" way (#1, #3; no #4); its four
+    gradient sets against the standard step's plain fp32 path by the 2x-bf16
+    rule; launches from the device; samples/s against the standard "block"
+    step -> the launches per replayed joint step measured on the device."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.trainers import make_vilt_joint_dat_step
+
+    model = build_trainer_model(torch, seed, "layer")
+    layers = model.config.num_layers
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_cuda_batch(torch, train_client(TRAIN_CLIENTS[0], TB, 0, seed))
+    part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode.DAT)
+    joint = make_vilt_joint_dat_step(model, TRAIN_CLIENTS[0], part, OptimizerConfig(), 100)
+    state0 = dat.init_train_state(params, part, OptimizerConfig(), torch.Generator().manual_seed(seed))
+    want = {**NO_LAUNCHES, "attn_block": layers, "attn_block_bwd": layers - 1}
+    with graph_mode(False):
+        torch.cuda.synchronize()
+        reset_counts()
+        _, jm = joint(state0, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    print(f"modes: joint DAT step, attn_impl='layer', B={TB} (2B={2 * TB} rows) S={TS}: launches "
+          f"{counts_text(counts)} (expected {counts_text(want)}: one pass, the weighted rows the "
+          f"'block' way, no #4; layer 0 without a backward)")
+    check(counts == want, f"joint step launches {counts}, expected {want}")
+    sd = model.state_dict()
+    before = read_counts()
+    plain = make_steps(build_trainer_model(torch, seed, "auto", sd), params, False)[0](state0, batch)[1]
+    exact = make_steps(build_trainer_model(torch, seed, "auto", sd, "float32"), params,
+                       False)[0](state0, batch)[1]
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    grad_agreement(torch, "joint step against the standard step", jm, plain, exact)
+    del jm, plain, exact
+    torch.cuda.empty_cache()
+    replay = graph_vs_eager(torch, f"ViLT joint DAT step (layer, B={TB}, S={TS})",
+                            lambda: joint(state0, batch), want)
+    block = build_trainer_model(torch, seed, "block", sd)
+    del joint
+    speed = alternating_speed(torch, {
+        "joint": lambda: (make_vilt_joint_dat_step(model, TRAIN_CLIENTS[0], part, OptimizerConfig(), 100),
+                          state0, batch),
+        "standard block": lambda: (make_steps(block, params, fused=False)[0], state0, batch)}, TB)
+    for name, (rate, samples, reserved, allocated) in speed.items():
+        print(f"time modes: ViLT {name} DAT step (B={TB}, S={TS}): {rate:.1f} samples/s (replayed "
+              f"graph, median of {len(samples)}: {samples}); own peak reserved {reserved:.2f} GiB, "
+              f"allocated {allocated:.2f} GiB")
+    print(f"time modes: joint / standard 'block' rate {speed['joint'][0] / speed['standard block'][0]:.3f}")
+    del model, block
+    torch.cuda.empty_cache()
+    return replay
+
+
+def modes_vilt(torch, seed):
+    """(d) ViLT-B/32 in modes adapter, none and freeze_encoder: one plain
+    step each on "fused" with its #5/#6 launches, the 2x-bf16 rule and the
+    launches per replay measured on the device -> the adapter step's."""
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import to_device
+
+    batch = to_device(next(peft_client(TRAIN_CLIENTS[0], TB, 0, seed).train_batches(0)), "cuda")
+    out = None
+    for mode in VILT_MODES:
+        model = peft_model(torch, mode, seed, "fused")
+        layers = model.config.num_layers
+        adapter_mode = "adapter" if mode == "adapter" else "none"
+        check((model.config.adapter.names == ("adapter",)) == (mode == "adapter"),
+              f"{mode}: unexpected adapters {model.config.adapter}")
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        step, part, opt = peft_step(model, mode, params, adapter_mode)
+        state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+        with graph_mode(False):
+            torch.cuda.synchronize()
+            reset_counts()
+            _, m = step(state0, batch)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        # the attention backward runs above the lowest trained parameter:
+        # above layer 0 for the adapters (after each attention), nowhere when
+        # the head alone trains
+        trained = layers - 1 if mode == "adapter" else 0
+        want = {**NO_LAUNCHES, "fused_attention": layers, "fused_attention_bwd": trained}
+        print(f"modes: ViLT {mode} step, attn_impl='fused', B={TB} S={TS}: #5/#6 launches "
+              f"{launches['fused_attention']}/{launches['fused_attention_bwd']} (expected "
+              f"{layers}/{trained}), loss {float(m['loss']):.4f}")
+        check(launches == want, f"ViLT {mode} step launches {launches}, expected {want}")
+        replay = replay_launches(torch, f"ViLT {mode} step (fused, B={TB}, S={TS})",
+                                 lambda: step(state0, batch), want)
+        sd = model.state_dict()
+        kernel = peft_grads(torch, model, params, part, batch, adapter_mode)
+        before = read_counts()
+        plain = peft_grads(torch, peft_model(torch, mode, seed, "auto", state=sd), params, part, batch,
+                           adapter_mode)
+        exact = peft_grads(torch, peft_model(torch, mode, seed, "auto", "float32", state=sd), params,
+                           part, batch, adapter_mode)
+        torch.cuda.synchronize()
+        check(read_counts() == before, "the plain path launched a kernel")
+        grad_agreement(torch, f"ViLT {mode}", kernel, plain, exact, ("loss",))
+        if mode == "adapter":
+            out = replay
+        del model, params, step, state0, kernel, plain, exact, sd
+        torch.cuda.empty_cache()
+    return out
+
+
+def modes_cli(torch, seed, root):
+    """(e) an albef_distill launch, ``python -m feddat_tpu_torch.cli`` with
+    scripts/train_albef.sh's flags and ``--optimizer_mode adapter --dtype
+    bfloat16 --attn_impl flash`` on phase 12's dataset, 1 client x 2 steps,
+    profiled, then ``from_checkpoint`` on "flash"."""
+    work = Path(root) / "modes_cli"
+    work.mkdir()
+    ckpt, profile, out = work / "ckpt", work / "profile", work / "logs"
+    vocab = str(REPO / "tests" / "fixtures" / "vocab30k.txt")
+    argv = script_flags("train_albef.sh") + [
+        "--encoder_name", "albef_distill", "--optimizer_mode", "adapter", "--dtype", "bfloat16",
+        "--attn_impl", "flash", "--climb_data_dir", root, "--vocab_file", vocab, "--splits", *CLI_SPLITS,
+        "--ordered_cl_tasks", DISK_TASKS[0], "--batch_size", str(ATB), "--val_batch_size", str(ATB),
+        "--comm_rounds", "1", "--eval_every", "1", "--wandb_freq", "1", "--debug", "2",
+        "--checkpoint_dir", str(ckpt), "--profile_dir", str(profile), "--output_dir", str(out)]
+    rc, wall, t0, text = launch_cli("albef_distill, train_albef.sh's flags, adapter, flash", argv,
+                                    work / "distill.log")
+    check(rc == 0, "the albef_distill launch failed")
+    history, records = cli_outputs(out, f"albef_distill_adapter_bs{ATB}_lr0.0001_rounds1x1_seed2")
+    cli_stages("albef_distill", t0, text)
+    cli_timeline("albef_distill", t0, wall, records)
+    steps = min(DISK_TRAIN // ATB, 3)  # --debug 2: batches 0..2
+    dev, graphs, _ = profile_counts(profile)
+    per = {k: dev[k] / (steps + 1) for k in FLASH_KEYS}
+    print(f"cli: albef_distill history {history}; round 0's profile: #7/#8/#9 {flash_launches(dev)} "
+          f"device launches over {steps} steps ({graphs} graph replays) and 1 capture warm-up: {per}")
+    check(history[-1]["round"] == 0 and math.isfinite(history[-1]["scores"][DISK_TASKS[0]]),
+          "the albef_distill history lacks its score")
+    check(dev["flash_attention"] == 24 * (steps + 1) and dev["flash_attention_bwd_dq"] == 11 * (steps + 1)
+          and dev["flash_attention_bwd_dkv"] == 11 * (steps + 1) and graphs == steps,
+          f"albef_distill profile launches {dev}, {graphs} replays")
+    check(sum(r["kind"] == "step" for r in records) == steps, "the step records")
+    cli_albef_serving(torch, root, seed, str(ckpt))
+    shutil.rmtree(work)
+
+
+def phase_modes(torch, seed, root):
+    """Phase 14 (see the module docstring) -> the launches per replayed call
+    measured on the device on this slice's paths: the distill step for #7-#9,
+    the joint step for #1 and #3, the ViLT adapter step for #5 and #6."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, seed, *args)
+        print(f"modes: {part} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    replay = timed("distillation", modes_distill)
+    launches.update({k: replay[k] for k in FLASH_KEYS})
+    timed("prompts", modes_prompt, root)
+    replay = timed("the joint step", modes_joint)
+    launches.update({k: replay[k] for k in ("attn_block", "attn_block_bwd")})
+    vilt = timed("the ViLT modes", modes_vilt)
+    launches.update({k: vilt[k] for k in ("fused_attention", "fused_attention_bwd")})
+    timed("the CLI launch", modes_cli, root)
+    print(f"modes: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4639,6 +5354,10 @@ def main(argv=None) -> int:
     # this slice's path: the launch surface, the CLI in processes of its own
     phase_cli(torch, args.seed, root)
     done("cli")
+    # this slice's paths: the distill step for #7-#9, the joint DAT step for
+    # #1 and #3, the ViLT adapter step for #5 and #6
+    launches.update(phase_modes(torch, args.seed, root))
+    done("modes")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

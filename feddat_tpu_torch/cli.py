@@ -19,8 +19,14 @@ What the port does not have yet is refused before any model is built or any
 dataset read, naming its ROADMAP item: the SPMD engine, multi-host and tensor
 parallelism (``--engine spmd``, ``--multihost``, ``--tp``, ``--mesh_*``,
 ``--spmd_full_epochs``: item 12), ``viltbert`` and the tasks of other
-trainers than ``vqa_cross`` (item 10), ``albef_distill`` (item 9), and float32
-on a kernel route on the card (Queue 3: the CUDA kernels take bf16).
+trainers than ``vqa_cross`` (item 10), and float32 on a kernel route on the
+card (Queue 3: the CUDA kernels take bf16).  ``albef_distill`` trains on the
+sequential engine as in the JAX CLI: momentum distillation on the plain
+modes, the fused DAT step without it (``--use_fused_dat``), a ``TypeError``
+at the first step of the standard DAT step (the distill forward takes the
+twin, which that step does not pass), and ``NotImplementedError`` with
+``--engine spmd`` (JAX raises it once the model is built; the port, which
+builds nothing for ``--engine spmd``, before).
 
 Run: ``python -m feddat_tpu_torch.cli --encoder_name vilt --optimizer_mode dat
 --ordered_cl_tasks domain --climb_data_dir ./data ...``
@@ -150,6 +156,12 @@ def refuse_unported(args, task_keys) -> None:
     def refuse(what, item):
         raise SystemExit(f"feddat_tpu_torch: {what} is not ported yet (ROADMAP {item})")
 
+    if args.engine == "spmd" and args.encoder_name == "albef_distill":
+        # the JAX CLI's own refusal (cli.py:699-703), which stays after item 12
+        raise NotImplementedError(
+            "--engine spmd supports albef_no_distill; momentum-distillation aux state is "
+            "sequential-engine only (as is the reference's live DAT path, train_albef.sh)")
+
     distributed = [flag for flag, on in (
         ("--engine spmd", args.engine == "spmd"), ("--multihost", args.multihost),
         (f"--tp {args.tp}", args.tp > 1), ("--mesh_clients", args.mesh_clients is not None),
@@ -160,8 +172,6 @@ def refuse_unported(args, task_keys) -> None:
                "Queue 1, item 12: distribution")
     if args.encoder_name == "viltbert":
         refuse("the viltbert encoder", "Queue 1, item 10: other encoders and trainers")
-    if args.encoder_name == "albef_distill":
-        refuse("albef_distill (momentum distillation)", "Queue 1, item 9: ALBEF family")
     other = [k for k in task_keys if TASK_CONFIGS[k].trainer != "vqa_cross"]
     if other:
         refuse(f"the trainers of tasks {other} "
@@ -469,11 +479,15 @@ def main(argv=None) -> int:
 
         return make_eval_step(model_, task_key, h.metric)
 
+    first_hooks = hooks_for(task_keys[0])
     trainer = FederatedTrainer(
         model, params, clients, config,
         make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
         make_eval=make_eval,
-        metric=hooks_for(task_keys[0]).metric,
+        metric=first_hooks.metric,
+        aux_init=first_hooks.aux_init,
+        batch_transform=first_hooks.batch_transform,
+        aux_forward=first_hooks.aux_forward,
         use_fused_dat=args.use_fused_dat,
         checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
         profile_dir=args.profile_dir,

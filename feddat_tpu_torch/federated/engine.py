@@ -31,9 +31,13 @@ SIGTERM finishes the round in flight, checkpoints it and returns
 (``utils/preemption.py``).  With a ``profile_dir`` the first round that
 ``run()`` executes is traced with ``torch.profiler`` into that directory
 (``utils/observability.py::trace``), as the JAX engine traces it with
-``jax.profiler``.  Tensor parallelism (``tp_mesh``) and ALBEF's
-momentum-distillation state (``aux_init``/``aux_forward``) are later slices
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+``jax.profiler``.  ALBEF's momentum distillation (``aux_init``,
+``batch_transform``, ``aux_forward``: the hooks of ``train/trainers.py``)
+seeds each client's twin at its start and threads it through the plain
+step; the twin is not checkpointed, as in JAX.  ``batch_transform`` runs at
+step time, on the batch the prefetch handed over (it returns a new dict).
+Tensor parallelism (``tp_mesh``) is a later slice (ROADMAP Queue 1, item 12)
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -108,12 +112,13 @@ class FederatedTrainer:
                  profile_dir: Optional[str] = None, device: DeviceLike = None):
         """``params`` defaults to the model's own state_dict; ``make_forward(model,
         task_key)`` and ``make_eval(model, task_key)`` customise the model
-        family (ViLT by default)."""
+        family (ViLT by default).  ``aux_init(params) -> aux`` seeds each
+        client's auxiliary state at its start (ALBEF's momentum twin),
+        ``aux_forward`` marks the forward as aux-threading (the plain step's),
+        ``batch_transform(batch, epoch, step, steps_per_epoch)`` rewrites
+        each batch (the distillation alpha ramp)."""
         if tp_mesh is not None:
             raise _later("tensor parallelism (tp_mesh)", "12, distribution")
-        if aux_init is not None or aux_forward:
-            raise _later("ALBEF's momentum-distillation state (aux_init/aux_forward)",
-                         "9, ALBEF family")
         if type(model).__name__ not in ("ViltContinualLearner", "AlbefModel"):
             raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
         check_dropout_rng(config.dropout_rng)
@@ -152,7 +157,8 @@ class FederatedTrainer:
                     step = make_dat_train_step(forward, part, opt_cfg, max_steps)
             else:
                 adapter_mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
-                step = make_plain_train_step(forward, part, opt_cfg, max_steps, adapter_mode)
+                step = make_plain_train_step(forward, part, opt_cfg, max_steps, adapter_mode,
+                                             aux_forward=aux_forward)
             step.share(self._programs, (step.program.name, part.shared_paths, part.local_paths,
                                         part.head_paths, opt_cfg))
             eval_step = make_eval(model, task_key) if make_eval else make_eval_step(model, task_key, metric)
@@ -168,6 +174,7 @@ class FederatedTrainer:
         self.checkpoint_dir = checkpoint_dir
         self.profile_dir = profile_dir
         self.metrics = metrics_logger
+        self.aux_init = aux_init
         self.batch_transform = batch_transform
         self.param_budget = param_budget(params, self.mode)
         b = self.param_budget
@@ -182,7 +189,7 @@ class FederatedTrainer:
         live dropout (``check_fused_dropout`` logs the one deviation)."""
         if type(model).__name__ == "AlbefModel":
             return make_albef_fused_dat_step(model, params, opt_cfg, max_steps, part=part)[0]
-        live = check_fused_dropout(model)
+        live = check_fused_dropout(model, carries=True)
         return make_dat_train_step_fused(*make_vilt_fused_parts(model, task_key, live > 0.0), part,
                                          opt_cfg, max_steps)
 
@@ -202,6 +209,8 @@ class FederatedTrainer:
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.rng))
         state = init_train_state(params, client.partitioner, client.opt_cfg,
                                  torch.Generator().manual_seed(seed))
+        if self.aux_init is not None:
+            state = state.replace(aux=self.aux_init(params))
         spe = client.data.steps_per_epoch
         for epoch in range(self.config.federated.local_epochs):
             it = client.data.train_batches(epoch=round_idx * 1000 + epoch)

@@ -44,10 +44,11 @@ def create_model(
     text_remat_policy: str = "full",
     adapter_fused: bool = False,
     device: DeviceLike = None,
-    seed: int = 0,
+    seed: Optional[int] = 0,
 ):
     """-> (model, model_config), the model on ``device`` (default CUDA) with
-    weights initialised from ``seed``.  ``remat``, ``remat_policy`` and
+    weights initialised from ``seed``; ``seed=None`` leaves them
+    uninitialised, for a caller that loads a state dict into the model.  ``remat``, ``remat_policy`` and
     ``text_remat_policy`` (ALBEF's BERT towers) recompute layers in the
     backward (``ops/remat_policy.py``); they change memory, not the numbers.
     ``adapter_fused`` sets ``AdapterSpec.fused`` (the DAT ensemble through
@@ -89,13 +90,10 @@ def create_model(
         with torch.device("meta"):
             model = ViltContinualLearner(cfg, task_heads, DTYPES[dtype], attn_impl)
         model = model.to_empty(device=dev)
-        return init_vilt_params(model, seed), cfg
+        return (model if seed is None else init_vilt_params(model, seed)), cfg
     if encoder_name in ("albef_distill", "albef_no_distill"):
         from feddat_tpu_torch.models.albef import AlbefModel, init_albef_params
 
-        if prompt.enabled:
-            raise NotImplementedError("visual prompt tuning on ALBEF is not ported yet "
-                                      "(ROADMAP Queue 1, item 9)")
         cfg = AlbefModelConfig(
             adapter=adapter, lora=lora, prompt=prompt, remat=remat, remat_policy=remat_policy,
             attention_logits_dtype=attention_logits_dtype, fuse_ln=fuse_ln,
@@ -108,7 +106,7 @@ def create_model(
         with torch.device("meta"):
             model = AlbefModel(cfg, DTYPES[dtype], **routes)
         model = model.to_empty(device=dev)
-        return init_albef_params(model, seed), cfg
+        return (model if seed is None else init_albef_params(model, seed)), cfg
     if encoder_name in ALLOWED_CL_ENCODERS:
         raise NotImplementedError(
             f"encoder {encoder_name!r} is not ported yet "

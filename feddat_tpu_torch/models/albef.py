@@ -6,7 +6,9 @@ Counterpart of ``feddat_tpu/models/albef.py``: ``shifted_lm_loss``,
 the weighted LM loss over a dense ``[B, A]`` answer bank, normalised by B),
 ``encode_train``, ``apply_cls`` and ``forward_train_logits`` (the fused DAT
 step's and the momentum twin's pieces), ``encode_question``,
-``decode_logits`` and ``rank_answer``; ``momentum_update`` on state dicts;
+``decode_logits`` and ``rank_answer``, with the visual prompt (``prompt_vis``)
+under prompt tuning; ``momentum_update`` on state dicts
+(and ``momentum_update_`` in place, for the twin a compiled step keeps);
 and a seeded initialisation.  With ``deterministic=False`` the BERT towers'
 dropout draws its masks from the current dropout generator
 (``utils/seeding.py``); the ViT has no dropout.
@@ -22,6 +24,7 @@ from torch import nn
 
 from feddat_tpu_torch.configs.core import AlbefBertConfig, AlbefModelConfig
 from feddat_tpu_torch.models import DTYPES
+from feddat_tpu_torch.models.prompts import ReparamPrompt, splice_after_cls
 from feddat_tpu_torch.models.vilt import init_vilt_params
 from feddat_tpu_torch.models.vit import VisionTransformer
 from feddat_tpu_torch.models.xbert import XBertLMHead, XBertModel
@@ -68,9 +71,6 @@ class AlbefModel(nn.Module):
     def __init__(self, cfg: AlbefModelConfig, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", vision_attn_impl: Optional[str] = None):
         super().__init__()
-        if cfg.prompt.enabled:
-            raise NotImplementedError("visual prompt tuning on ALBEF is not ported yet "
-                                      "(ROADMAP Queue 1, item 9)")
         self.cfg = cfg
         self.dtype = dtype
         logits_dtype = DTYPES[cfg.attention_logits_dtype]
@@ -83,12 +83,19 @@ class AlbefModel(nn.Module):
                                        remat_policy=cfg.text_remat_policy)
         self.text_decoder = XBertLMHead(decoder_config(cfg), cfg.adapter, cfg.lora, dtype,
                                         attn_impl, logits_dtype, text_remat, cfg.text_remat_policy)
+        if cfg.prompt.enabled:
+            # visual prompt tuning (albef.py:131-140): spliced after the ViT's CLS
+            self.prompt_vis = ReparamPrompt(cfg.prompt, cfg.vision_width, dtype)
 
     def encode_question(self, pixel_values, question_ids, question_mask, adapter_mode="none",
                         deterministic=True):
-        """image -> ViT; question x image -> fusion encoder -> question token
+        """image -> ViT (the visual prompt spliced after its CLS token, with
+        prompt tuning); question x image -> fusion encoder -> question token
         states [B, Lq, D] (every image token attended)."""
         image_embeds = self.visual_encoder(pixel_values, adapter_mode, deterministic)
+        if self.cfg.prompt.enabled:
+            ones = torch.ones(image_embeds.shape[:2], dtype=torch.int32, device=image_embeds.device)
+            image_embeds, _ = splice_after_cls(image_embeds, ones, self.prompt_vis())
         return self.text_encoder(question_ids, question_mask, encoder_hidden_states=image_embeds,
                                  mode="multi_modal", adapter_mode=adapter_mode,
                                  deterministic=deterministic)
@@ -180,7 +187,18 @@ def momentum_update(params: Dict[str, torch.Tensor], momentum_params: Dict[str, 
                     momentum: float = 0.995) -> Dict[str, torch.Tensor]:
     """The EMA twin update ``m·momentum + p·(1 − momentum)`` per name, as a
     new dict (``albef_model.py:165-169``)."""
-    return {k: m * momentum + params[k] * (1.0 - momentum) for k, m in momentum_params.items()}
+    return momentum_update_(params, {k: m.clone() for k, m in momentum_params.items()}, momentum)
+
+
+def momentum_update_(params: Dict[str, torch.Tensor], momentum_params: Dict[str, torch.Tensor],
+                     momentum: float = 0.995) -> Dict[str, torch.Tensor]:
+    """:func:`momentum_update` written into ``momentum_params``' tensors in
+    place, with JAX's rounding (the two products rounded, then their sum),
+    by multi-tensor ops; returns ``momentum_params``."""
+    ms = list(momentum_params.values())
+    torch._foreach_mul_(ms, momentum)
+    torch._foreach_add_(ms, torch._foreach_mul([params[k] for k in momentum_params], 1.0 - momentum))
+    return momentum_params
 
 
 def init_albef_params(model: AlbefModel, seed: int) -> AlbefModel:

@@ -1,8 +1,8 @@
 """Fusion BERT ("xBERT"): ALBEF's question encoder and answer decoder.
 
-Counterpart of the parts of ``feddat_tpu/models/xbert.py`` that ALBEF's
-training forward and ``rank_answer`` run (``XBertMaskedLM``, the pretraining
-head, is not ported).  Hidden dropout (embeddings, after each attention and
+Counterpart of ``feddat_tpu/models/xbert.py``: the parts that ALBEF's
+training forward and ``rank_answer`` run, and ``XBertMaskedLM``, the
+masked-LM head of the reference's pretraining.  Hidden dropout (embeddings, after each attention and
 the FFN output) and attention dropout are live when ``deterministic`` is
 False, their masks drawn from the current dropout generator
 (``utils/seeding.py``):
@@ -26,7 +26,9 @@ False, their masks drawn from the current dropout generator
 * ``XBertModel``: embeddings + encoder, with ``pack_group=g`` packing g
   sequences per self-attention row behind a block-diagonal bias (exact);
 * ``XBertLMHead``: the causal decoder with ``BertPredictionHead``, whose
-  vocabulary projection is the decoder's own word-embedding tensor (tied).
+  vocabulary projection is the decoder's own word-embedding tensor (tied);
+* ``XBertMaskedLM``: the bidirectional encoder with the same tied head, and
+  the masked-LM loss with the soft-label mix.
 """
 
 from __future__ import annotations
@@ -247,3 +249,43 @@ class XBertLMHead(nn.Module):
         return self.cls_logits(self.bert_hidden(
             input_ids, attention_mask, encoder_hidden_states, encoder_attention_mask, adapter_mode,
             deterministic, cross_group, pack_group))
+
+
+class XBertMaskedLM(nn.Module):
+    """Masked-LM head over the (optionally multimodal) encoder: the
+    reference's ``BertForMaskedLM`` with the soft-label distillation mix
+    (``xbert.py:1360-1428``; JAX ``models/xbert.py:467-525``).  Without
+    ``labels`` -> token logits [B, L, V]; with them -> (loss, logits), the
+    loss the mean token CE over positions whose label is not -100, mixed as
+    ``(1 - alpha)·CE + alpha·soft-CE`` when ``soft_labels`` [B, L, V] are
+    given.  Without ``encoder_hidden_states`` the fusion layers'
+    cross-attention attends to the text itself, as in JAX."""
+
+    def __init__(self, cfg: AlbefBertConfig, adapter: AdapterSpec = AdapterSpec(),
+                 lora: LoraSpec = LoraSpec(), dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.bert = XBertModel(cfg, adapter, lora, dtype, attn_impl)
+        self.cls = BertPredictionHead(cfg, dtype)
+
+    def forward(self, input_ids, attention_mask, labels=None, encoder_hidden_states=None,
+                encoder_attention_mask=None, soft_labels=None, alpha=0.0,
+                mode: str = "multi_modal", adapter_mode: str = "none", deterministic: bool = True,
+                cross_group: int = 1):
+        hidden = self.bert(input_ids, attention_mask, encoder_hidden_states=encoder_hidden_states,
+                           encoder_attention_mask=encoder_attention_mask, mode=mode,
+                           adapter_mode=adapter_mode, deterministic=deterministic,
+                           cross_group=cross_group)
+        logits = self.cls(hidden, self.bert.embeddings.word_embeddings.weight)
+        if labels is None:
+            return logits
+        valid = labels != -100
+        safe = torch.where(valid, labels, 0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = torch.where(valid, -torch.gather(logp, -1, safe[..., None])[..., 0], 0.0)
+        count = valid.sum().clamp_min(1)
+        loss = nll.sum() / count
+        if soft_labels is not None:
+            distill = torch.where(valid, -(logp * soft_labels).sum(-1), 0.0).sum() / count
+            loss = (1.0 - alpha) * loss + alpha * distill
+        return loss, logits

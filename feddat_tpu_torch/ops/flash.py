@@ -35,6 +35,7 @@ gradient), like the JAX custom_vjp's.
 :func:`flash_attention` is an autograd Function with the custom_vjp's
 contract: a CPU tensor takes the plain versions both ways, a CUDA tensor
 launches #7 forward and #8/#9 backward or raises.  Nothing falls back.
+With gradients off it calls the forward alone and keeps no residuals.
 """
 
 from __future__ import annotations
@@ -223,4 +224,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     versions for a CPU tensor (never a fallback)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if not torch.is_grad_enabled():
+        # no autograd node: nothing is saved for a backward (the momentum
+        # twin's forward); lse, the kernel's second output, is dropped here
+        impl = flash_attention_fwd_cuda if q.is_cuda else flash_attention_fwd_ref
+        return impl(q, k, v, bias, float(scale))[0]
     return _FlashAttention.apply(q, k, v, bias, float(scale))

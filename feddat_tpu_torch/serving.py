@@ -79,7 +79,9 @@ def _load_checkpoint_recipe(checkpoint_dir: str, task_key: Optional[str], device
 
 def _model_from_meta(meta, device: torch.device):
     """Rebuild the training-time model from the checkpoint recipe, with
-    ``create_model``'s defaults (``attn_impl="auto"``) -> (model, config)."""
+    ``create_model``'s defaults (``attn_impl="auto"``) -> (model, config); its
+    weights are left uninitialised: the predictor runs it on the
+    checkpoint's parameters."""
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.models import create_model
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
@@ -93,7 +95,7 @@ def _model_from_meta(meta, device: torch.device):
         meta["adapter_reduction_factor"], meta["dtype"],
         image_size=tuple(meta["image_size"]) if meta.get("image_size") else None,
         attention_logits_dtype=meta.get("attention_logits_dtype") or "float32",
-        device=device,
+        device=device, seed=None,
     )
 
 

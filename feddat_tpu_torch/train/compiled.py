@@ -31,7 +31,19 @@ later calls only replay it.  Every failure to capture or replay raises.
 * **Outputs** are handed back as JAX's engine gets them without donation
   (``feddat_tpu/federated/engine.py:153-260``): an output that is an input
   passed through is the caller's own tensor, every other one a copy of the
-  graph's output, so the inputs and the earlier results stay valid.
+  graph's output, so the inputs (resident ones aside) and the earlier
+  results stay valid.
+* **Resident inputs** (``resident``: the top-level keys of the input tree so
+  marked, ALBEF's momentum twin under ``"aux"``) are donated, as
+  ``jax.jit(..., donate_argnums=...)`` donates, with graphs on or off: a
+  resident input that the program handed back is updated in place and
+  handed back again (an earlier result that holds it sees the update); any
+  other is copied first and never written.  With graphs the tensors handed
+  back are the static buffers (on the card and in the CPU's plumbing
+  alike), so a call that passes them in again copies nothing; eagerly
+  (:func:`disable_graphs`) they are the copies the last eager call updated.
+  After the warm-up call of a capture the buffers are filled again (from a
+  snapshot when the caller passed the buffers themselves).
 * **Generators**: an entry owns one ``torch.Generator`` per stage, registered
   with its graph and seeded from the prologue's seeds before every replay,
   so the masks are a function of the step's seed, as in eager mode.
@@ -125,9 +137,12 @@ def _unflatten(struct, leaves: Iterator[torch.Tensor]):
 def _fill(bufs: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> None:
     """Copy every input into its static buffer: the ones already on the
     buffers' device in one multi-tensor copy per dtype (a few launches for a
-    thousand parameters), the others (a batch from the host) one by one."""
+    thousand parameters), the others (a batch from the host) one by one; a
+    buffer passed in as itself (a resident result) is not copied."""
     groups: Dict[torch.dtype, Tuple[List[torch.Tensor], List[torch.Tensor]]] = {}
     for b, t in zip(bufs, srcs):
+        if t is b:
+            continue
         if t.device == b.device:
             dst, src = groups.setdefault(b.dtype, ([], []))
             dst.append(b)
@@ -155,11 +170,13 @@ class _Entry:
     """One input signature of a program: its static buffers, generators and,
     on the card, its graph, static outputs and launch counts per replay."""
 
-    def __init__(self, struct, bufs: List[torch.Tensor], gens: List[torch.Generator]):
+    def __init__(self, struct, bufs: List[torch.Tensor], gens: List[torch.Generator],
+                 resident: List[bool]):
         self.bufs = bufs
         self.gens = gens
         self.inputs = _unflatten(struct, iter(bufs))
         self.by_buffer = {id(b): i for i, b in enumerate(bufs)}
+        self.resident = resident
         self.graph = None
         self.out_struct = None
         self.out_leaves: List[torch.Tensor] = []
@@ -170,11 +187,14 @@ class Program:
     """``body(inputs, gens) -> outputs``, run from static buffers: replayed as a
     CUDA graph on the card, eagerly on the CPU (module docstring)."""
 
-    def __init__(self, body: Callable, name: str):
+    def __init__(self, body: Callable, name: str, resident: Sequence[str] = ()):
         self.body = body
         self.name = name
+        self.resident = frozenset(resident)
         self.entries: Dict[Hashable, _Entry] = {}
         self.bufs: Dict[tuple, torch.Tensor] = {}
+        # the resident tensors the last eager call updated, by id
+        self.eager_resident: Dict[int, torch.Tensor] = {}
 
     def _buf(self, path: tuple, t: torch.Tensor, device: torch.device) -> torch.Tensor:
         """The static buffer of one input: a normal tensor even when it is
@@ -188,13 +208,19 @@ class Program:
 
     def eager(self, inputs, seeds: Sequence[int] = ()):
         """The body on the caller's tensors (CPU tensors staged onto the
-        device of the CUDA ones) with fresh generators."""
+        device of the CUDA ones) with fresh generators; a resident input that
+        the last eager call did not update is copied first."""
         leaves: List[torch.Tensor] = []
-        struct = _flatten(inputs, (), leaves, [])
+        paths: List[tuple] = []
+        struct = _flatten(inputs, (), leaves, paths)
         device = _graph_device(leaves)
-        moved = _unflatten(struct, iter([t.to(device) for t in leaves]))
+        moved = [t.to(device) for t in leaves]
+        resident = [p[0] in self.resident for p in paths]
+        moved = [t.clone() if r and t is s and self.eager_resident.get(id(t)) is not t else t
+                 for t, s, r in zip(moved, leaves, resident)]
+        self.eager_resident = {id(t): t for t, r in zip(moved, resident) if r}
         STATS["eager"] += 1
-        return self.body(moved, [stage_generator(s, device) for s in seeds])
+        return self.body(_unflatten(struct, iter(moved)), [stage_generator(s, device) for s in seeds])
 
     def __call__(self, inputs, seeds: Sequence[int] = ()):
         if not _ENABLED:
@@ -207,7 +233,8 @@ class Program:
         entry = self.entries.get(key)
         if entry is None:
             bufs = [self._buf(p, t, device) for p, t in zip(paths, leaves)]
-            entry = _Entry(struct, bufs, [torch.Generator(device=device) for _ in seeds])
+            entry = _Entry(struct, bufs, [torch.Generator(device=device) for _ in seeds],
+                           [p[0] in self.resident for p in paths])
             self.entries[key] = entry
         _fill(entry.bufs, leaves)
         if device.type != "cuda":
@@ -217,7 +244,7 @@ class Program:
             out_struct = _flatten(self.body(entry.inputs, entry.gens), (), out_leaves, [])
             return self._hand_back(entry, out_struct, out_leaves, leaves)
         if entry.graph is None:
-            self._capture(entry, seeds)
+            self._capture(entry, seeds, leaves)
         _seed(entry.gens, seeds)
         entry.graph.replay()
         STATS["replays"] += 1
@@ -227,15 +254,19 @@ class Program:
 
     @staticmethod
     def _hand_back(entry: _Entry, struct, out_leaves, leaves):
-        """Outputs that are static input buffers -> the caller's tensors;
-        every other output -> a copy."""
+        """Outputs that are static input buffers -> the caller's tensors, or
+        the buffers themselves where the input is resident; every other
+        output -> a copy."""
         picked = []
         for t in out_leaves:
             i = entry.by_buffer.get(id(t))
-            picked.append(leaves[i] if i is not None else t.clone())
+            if i is None:
+                picked.append(t.clone())
+            else:
+                picked.append(entry.bufs[i] if entry.resident[i] else leaves[i])
         return _unflatten(struct, iter(picked))
 
-    def _capture(self, entry: _Entry, seeds: Sequence[int]) -> None:
+    def _capture(self, entry: _Entry, seeds: Sequence[int], leaves: Sequence[torch.Tensor]) -> None:
         global _POOL, _STREAM
         if _POOL is None:
             _POOL, _STREAM = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
@@ -250,12 +281,19 @@ class Program:
             for g in entry.gens:
                 register(g)
         before = _counts()
-        # warm-up: builds the kernels and runs their one-time host setup
+        # warm-up: builds the kernels and runs their one-time host setup.  The
+        # body may update the resident buffers: refill them afterwards from
+        # the caller's tensors, or from a snapshot where the caller passed the
+        # buffers themselves
+        resident = [(b, t if t is not b else b.clone())
+                    for b, t, r in zip(entry.bufs, leaves, entry.resident) if r]
         _STREAM.wait_stream(torch.cuda.current_stream())
         _seed(entry.gens, seeds)
         with torch.cuda.stream(_STREAM):
             self.body(entry.inputs, entry.gens)
         torch.cuda.current_stream().wait_stream(_STREAM)
+        _fill([b for b, _ in resident], [t for _, t in resident])
+        del resident
         warm = _counts()
         _seed(entry.gens, seeds)
         with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM):
@@ -276,11 +314,13 @@ class Compiled:
     ``program(inputs, seeds) -> outputs``, then ``epilogue(host, outputs)``.
     Without an epilogue the outputs are the result.  ``key``, where the
     maker gives one, names the function the body computes (two makers that
-    give equal keys build interchangeable bodies)."""
+    give equal keys build interchangeable bodies).  ``resident`` names the
+    top-level input keys that are donated (module docstring)."""
 
     def __init__(self, body: Callable, prologue: Callable, epilogue: Optional[Callable] = None,
-                 name: str = "compiled", key: Optional[Hashable] = None):
-        self.program = Program(body, name)
+                 name: str = "compiled", key: Optional[Hashable] = None,
+                 resident: Sequence[str] = ()):
+        self.program = Program(body, name, resident)
         self.prologue = prologue
         self.epilogue = epilogue
         self.key = key

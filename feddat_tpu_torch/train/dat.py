@@ -1,4 +1,4 @@
-"""Train steps: DAT + Mutual-KD (standard and fused), and the single-update step.
+"""Train steps: DAT + Mutual-KD (standard, fused and joint), and the single-update step.
 
 Counterpart of ``feddat_tpu/train/dat.py``.  The reference's DAT step
 (``task_trainer.py:280-330``) is three forwards and two backward/AdamW steps
@@ -25,8 +25,10 @@ prologue draws per-stage seeds from a copy of ``state.rng``
 step, is the new state's ``rng``), and the body draws its masks from one
 dropout generator per stage on the parameters' device, seeded with them: the
 standard step d0 (①), d1 (②), d2 (③); the fused step d0 (the ensemble pass
-that ① and ③ share) and d1 (the adapter_1 pass); the plain step one.  The
-same state gives the same masks; ``torch.manual_seed`` changes nothing.
+that ① and ③ share) and d1 (the adapter_1 pass); the joint step one (its
+mega-batch pass is deterministic); the plain step one, two with ALBEF's
+momentum distillation (the twin's forward, then the model's).  The same
+state gives the same masks; ``torch.manual_seed`` changes nothing.
 ``TrainConfig.dropout_rng`` selects nothing here: "threefry" and "rbg" (the
 TPU's hardware bit generator in JAX) give the same torch generators
 (``utils/seeding.py::check_dropout_rng``).
@@ -34,12 +36,12 @@ TPU's hardware bit generator in JAX) give the same torch generators
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, FrozenSet, Tuple
+from typing import Any, Callable, Dict, FrozenSet, Sequence, Tuple
 
 import torch
 
 from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
-from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE
+from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, MODE_WEIGHTED
 from feddat_tpu_torch.peft.partition import (
     ROLE_HEAD,
     ROLE_LOCAL,
@@ -61,15 +63,29 @@ from feddat_tpu_torch.utils.seeding import split_rng
 Params = Dict[str, torch.Tensor]
 
 
-def _in_frozen_bottom(name: str, layers_to_freeze: int) -> bool:
-    """Under ``freeze_bottom_k_layers``: the embeddings and layers ``< k`` stay
-    frozen (dat.py:106-152; ViLT's stack is ``vilt.layers.<i>``)."""
-    parts = name.split(".")
-    if any("embeddings" in part for part in parts):
-        return True
-    if "layers" in parts:
-        return int(parts[parts.index("layers") + 1]) < layers_to_freeze
-    return False
+# the layer stacks and the global index of their first layer: ALBEF's text
+# encoder is one BERT split into text_layers and fusion_layers, so fusion
+# stacks (the decoder's too) count from the text depth (dat.py:116-131)
+_STACKS = ("layers", "blocks", "text_layers", "fusion_layers")
+# ViT embedding tensors that live outside any *embeddings* module
+_VISION_EMBEDS = ("patch_embed", "pos_embed", "cls_token")
+
+
+def _frozen_bottom(names, layers_to_freeze: int) -> Callable[[str], bool]:
+    """Under ``freeze_bottom_k_layers`` (dat.py:106-152): ``name -> frozen``,
+    the embeddings and the layers of global index ``< k``."""
+    text_depth = 1 + max((int(p[p.index("text_layers") + 1]) for p in (n.split(".") for n in names)
+                          if "text_layers" in p), default=-1)
+    offset = {"layers": 0, "blocks": 0, "text_layers": 0, "fusion_layers": text_depth}
+
+    def frozen(name: str) -> bool:
+        parts = name.split(".")
+        if any("embeddings" in part for part in parts) or any(p in _VISION_EMBEDS for p in parts):
+            return True
+        stack = next((p for p in parts if p in _STACKS), None)
+        return stack is not None and offset[stack] + int(parts[parts.index(stack) + 1]) < layers_to_freeze
+
+    return frozen
 
 
 class Partitioner:
@@ -98,11 +114,11 @@ class Partitioner:
             self.local_paths = frozenset(n for n, l in labels.items() if l == ROLE_LOCAL)
         else:
             roles = trainable_roles(mode) - {ROLE_HEAD}
-            freeze = mode == PEFTMode.FREEZE_BOTTOM_K
+            frozen = (_frozen_bottom(labels, layers_to_freeze) if mode == PEFTMode.FREEZE_BOTTOM_K
+                      else lambda name: False)
             self.shared_paths = frozenset(
                 n for n, l in labels.items()
-                if l in roles and "text_bert" not in n.split(".")
-                and not (freeze and _in_frozen_bottom(n, layers_to_freeze)))
+                if l in roles and "text_bert" not in n.split(".") and not frozen(n))
             self.local_paths = frozenset()
 
     def extract(self, params: Params, paths: FrozenSet[str]) -> Params:
@@ -165,7 +181,8 @@ def _scalars(sc: torch.Tensor, updates: Dict[str, int]):
 
 
 def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], float],
-                 n_stages: int, updates: Dict[str, int], name: str) -> Compiled:
+                 n_stages: int, updates: Dict[str, int], name: str,
+                 aux: bool = False) -> Compiled:
     """``step(state, batch) -> (new state, metrics)`` around a device body
     (``train/compiled.py``).  ``updates`` maps each optimizer partition to the
     number of its updates per step; the schedule advances by the largest.
@@ -175,9 +192,13 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
     (the same state gives the same masks), computes the lr of each schedule
     tick and each update's bias corrections, and packs them into one fp32
     tensor.  The body gets ``{"params", "opt": {partition: {"mu", "nu"}},
-    "batch", "scalars"}`` and the stage generators, and returns ``{"params",
-    "opt", <metrics>}``; the epilogue builds the new state (counts, schedule,
-    rng) and adds the last lr to the metrics."""
+    "batch", "scalars"}`` (and ``"aux"``, the state's auxiliary tensors,
+    with ``aux``) and the stage generators, and returns ``{"params", "opt",
+    <metrics>}`` (and ``"aux"``); the epilogue builds the new state (counts,
+    schedule, rng, aux) and adds the last lr to the metrics.  The aux tensors
+    are resident (``train/compiled.py``): the new state holds the program's
+    own tensors, which the next step updates in place without a copy; a twin
+    passed in for the first time is copied, never written."""
     n_lr = max(updates.values())
 
     def prologue(state: TrainState, batch: Dict[str, Any]):
@@ -191,6 +212,8 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
                   "opt": {p: {"mu": state.opt_states[p].mu, "nu": state.opt_states[p].nu}
                           for p in updates},
                   "batch": batch, "scalars": torch.tensor(vals, dtype=torch.float32)}
+        if aux:
+            inputs["aux"] = state.aux
         return inputs, seeds, (state, rng, lrs[-1])
 
     def epilogue(host, out):
@@ -198,12 +221,13 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
         opt = {p: AdamState(state.opt_states[p].count + n, out["opt"][p]["mu"], out["opt"][p]["nu"])
                for p, n in updates.items()}
         new_state = state.replace(params=out["params"], opt_states=opt,
-                                  sched_count=state.sched_count + n_lr, rng=rng)
-        metrics = {k: v for k, v in out.items() if k not in ("params", "opt")}
+                                  sched_count=state.sched_count + n_lr, rng=rng,
+                                  aux=out["aux"] if aux else state.aux)
+        metrics = {k: v for k, v in out.items() if k not in ("params", "opt", "aux")}
         metrics["lr"] = lr
         return new_state, metrics
 
-    return Compiled(body, prologue, epilogue, name)
+    return Compiled(body, prologue, epilogue, name, resident=("aux",) if aux else ())
 
 
 _DAT_UPDATES = {"shared": 1, "local": 1, "head": 2}
@@ -315,10 +339,113 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
                         "dat_step_fused")
 
 
+def make_dat_train_step_joint(encode_fn, head_fn, task_loss_fn, partitioner: Partitioner,
+                              opt_cfg: OptimizerConfig, max_steps: int,
+                              adapter_names: Sequence[str] = ("adapter_0", "adapter_1", "adapter_2"),
+                              ensemble_weight: float = 0.5,
+                              adapter_scaling: float = 1.0) -> Compiled:
+    """DAT step as ONE mega-batched encoder pass and ONE backward
+    (``dat_step_core_joint``, dat.py:418-591).  The ensemble pass and the
+    adapter_1 pass use disjoint adapters, so they run as one pass over 2B
+    rows in ``MODE_WEIGHTED``: rows 0..B-1 carry the ensemble weights
+    (``ensemble_weight`` on adapter_0, the rest on adapter_2), rows B..2B-1
+    adapter_1 alone.  A zero weight gives that row no gradient to that
+    adapter, so one backward of the pass returns adapter_1's gradient (from
+    the second half) and adapter_0's (from the first).  The head is sequenced
+    as in the standard step: ② at the initial head and lr(c), ③ at the head
+    ② updated and lr(c+1).  Exact against :func:`make_dat_train_step` when
+    the encoder has no live dropout: the pass is deterministic (``encode_fn``
+    gets the one stage generator, which a deterministic encoder ignores;
+    ``trainers.check_fused_dropout(model, carries=False)`` warns when the
+    model's dropout is dropped).  ``batch_size`` is ``batch["input_ids"]``'s
+    first dimension.
+
+    ``adapter_names``, ``ensemble_weight`` and ``adapter_scaling`` must be the
+    model's ``AdapterSpec``'s.  ``adapter_scaling`` must be 1.0: the weighted
+    rows are scaled, the standard step's adapter_1 pass is not."""
+    if adapter_scaling != 1.0:
+        raise ValueError(
+            f"the joint DAT step requires AdapterSpec.scaling == 1.0 (got "
+            f"{adapter_scaling}): its stage-② rows run through MODE_WEIGHTED "
+            "(which scales, reference adapter.py:144,161) while the standard "
+            "step's adapter_1 pass does not (adapter.py:124-130) — any other "
+            "value breaks joint==standard equivalence.  Use the standard or "
+            "fused step.")
+    tx = adamw_direction(opt_cfg)
+    P = partitioner
+    w_row = {name: i for i, name in enumerate(adapter_names)}
+    ens = ((w_row["adapter_0"], ensemble_weight), (w_row["adapter_2"], 1.0 - ensemble_weight))
+    single = ((w_row["adapter_1"], 1.0),)
+
+    def weights(rows, b, device):
+        w = torch.zeros(len(adapter_names), device=device)
+        for i, v in rows:  # fills on the device: nothing to copy from the host in a capture
+            w[i:i + 1].fill_(v)
+        return w.expand(b, -1)
+
+    def body(inp, gens):
+        (d0,) = gens
+        params, opt, batch = inp["params"], inp["opt"], inp["batch"]
+        (lr1, lr0), bcs = _scalars(inp["scalars"], _DAT_UPDATES)
+        head = P.extract(params, P.head_paths)
+        local = _leaves(P.extract(params, P.local_paths))
+        shared = _leaves(P.extract(params, P.shared_paths))
+        b = batch["input_ids"].shape[0]
+        device = batch["input_ids"].device
+        batch2 = {k: torch.cat([v, v]) for k, v in batch.items()}
+        batch2["adapter_weights"] = torch.cat([weights(ens, b, device), weights(single, b, device)])
+        pooled2 = encode_fn(P.merge_into(P.merge_into(params, local), shared), batch2,
+                            MODE_WEIGHTED, d0)
+        pooled_ens, pooled_1 = pooled2[:b].detach(), pooled2[b:].detach()
+        with torch.no_grad():
+            logits_all = head_fn(head, pooled_ens)
+
+        # ② the head-level loss at the initial head
+        head_l, pooled_1 = _leaves(head), pooled_1.requires_grad_()
+        logits = head_fn(head_l, pooled_1)
+        l1 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_all)) / 2.0
+        g_head2, g_pooled_1 = _grads(l1, head_l, {"pooled": pooled_1})
+        head, m_head = _update(tx, g_head2, opt["head"], head, lr1, bcs["head"][0])
+        logits_1 = logits.detach()
+
+        # ③ the head-level loss at the updated head
+        head_l, pooled_ens = _leaves(head), pooled_ens.requires_grad_()
+        logits = head_fn(head_l, pooled_ens)
+        l0 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_1)) / 2.0
+        g_head, g_pooled_ens = _grads(l0, head_l, {"pooled": pooled_ens})
+
+        # one backward of the mega-batch pass for both stages
+        cot = torch.cat([g_pooled_ens["pooled"], g_pooled_1["pooled"]])
+        flat = torch.autograd.grad(pooled2, [*local.values(), *shared.values()], cot)
+        g_local = dict(zip(local, flat[:len(local)]))
+        g_shared = dict(zip(shared, flat[len(local):]))
+        new_shared, m_shared = _update(tx, g_shared, opt["shared"], _detached(shared), lr1,
+                                       bcs["shared"][0])
+        new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
+                                     bcs["local"][0])
+        head, m_head = _update(tx, g_head, m_head, head, lr0, bcs["head"][1])
+        params = P.merge_into(P.merge_into(P.merge_into(params, new_shared), new_local), head)
+        grads = {"shared": g_shared, "head_2": g_head2, "local": g_local, "head_3": g_head}
+        return {"params": params, "opt": {"shared": m_shared, "local": m_local, "head": m_head},
+                "loss": l0.detach(), "loss_shared": l1.detach(), "grads": grads}
+
+    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 1, _DAT_UPDATES,
+                        "dat_step_joint")
+
+
 def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerConfig,
-                          max_steps: int, adapter_mode: str = "none") -> Compiled:
+                          max_steps: int, adapter_mode: str = "none",
+                          aux_forward: bool = False) -> Compiled:
     """One forward/backward/update for the non-DAT modes (``plain_step_core``,
-    ``task_trainer.py:433-450``)."""
+    ``task_trainer.py:433-450``).  The gradient covers the trainable
+    partition only.
+
+    With ``aux_forward`` (ALBEF's momentum distillation) the forward is
+    ``forward(params, batch, mode, (g1, g2), aux) -> (loss, logits, aux)``:
+    it gets two stage generators (JAX splits the step's key in two inside
+    its distill forward, ``forwards.py:85``) and the state's ``aux``, which
+    it updates in place without a gradient; the step threads it through
+    ``state.aux`` (resident in the compiled program, :func:`compile_step`)."""
     tx = adamw_direction(opt_cfg)
     P = partitioner
     paths = P.shared_paths | P.head_paths
@@ -328,12 +455,18 @@ def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerC
         params = inp["params"]
         (lr,), bcs = _scalars(inp["scalars"], updates)
         trainable = _leaves(P.extract(params, paths))
-        loss, _ = forward(P.merge_into(params, trainable), inp["batch"], adapter_mode, gens[0])
+        full = P.merge_into(params, trainable)
+        out = {}
+        if aux_forward:
+            loss, _, out["aux"] = forward(full, inp["batch"], adapter_mode, gens, inp["aux"])
+        else:
+            loss, _ = forward(full, inp["batch"], adapter_mode, gens[0])
         (grads,) = _grads(loss, trainable)
         new_trainable, moments = _update(tx, grads, inp["opt"]["trainable"], _detached(trainable),
                                          lr, bcs["trainable"][0])
         return {"params": P.merge_into(params, new_trainable), "opt": {"trainable": moments},
-                "loss": loss.detach()}
+                "loss": loss.detach(), **out}
 
-    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 1, updates,
-                        "plain_step")
+    return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 2 if aux_forward else 1,
+                        updates, "plain_step_distill" if aux_forward else "plain_step",
+                        aux=aux_forward)

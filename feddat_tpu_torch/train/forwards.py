@@ -8,8 +8,9 @@ with its parameters replaced by a ``{state_dict name: tensor}`` dict through
 respect to any partition of that dict, and with ``rng`` as the generator of
 every dropout mask drawn inside.  The forwards are ``forward(params, batch,
 adapter_mode, gen) -> (task_loss, logits)``, ``gen`` the stage's dropout
-generator.  The distillation forward (``make_albef_distill_forward``) and its
-alpha ramp (``add_alpha``) are not ported (ROADMAP Queue 1, item 9).
+generator; ALBEF's momentum-distillation forward
+(:func:`make_albef_distill_forward`) also takes and returns the momentum
+twin, and :func:`add_alpha` is its per-batch alpha ramp.
 """
 
 from __future__ import annotations
@@ -102,3 +103,44 @@ def make_albef_forward(model: nn.Module, pad_token_id: int = 0):
                            alpha=batch.get("alpha", 0.0), pad_token_id=pad_token_id, rng=gen)
 
     return forward
+
+
+def make_albef_distill_forward(model: nn.Module, pad_token_id: int = 0):
+    """Momentum-distillation forward for the plain (single-update) step
+    (``albef_model.py:100-132``): ``forward(params, batch, mode, (g1, g2),
+    aux) -> (loss, logits, aux)``, ``aux`` the twin ``{state_dict name:
+    tensor}``.  Without a gradient it EMA-updates the twin from ``params``
+    (``models/albef.py::momentum_update_``: every tensor, frozen ones too, in
+    place) and runs the twin's ``forward_train_logits`` with live dropout
+    from ``g1`` (JAX's ``r1``); then the model's forward, with dropout from
+    ``g2``, mixes ``(1 - alpha)·CE + alpha·soft-CE`` against the twin's
+    softmax.  The twin comes back as the same tensors.  (Distillation runs on
+    the plain path only: the reference's DAT + distill combination never
+    activates the twins' adapters.)"""
+    from feddat_tpu_torch.models.albef import momentum_update_
+
+    def forward(p, batch, mode, gens, aux):
+        g1, g2 = gens
+        with torch.no_grad():
+            momentum_update_({k: v.detach() for k, v in p.items()}, aux, model.cfg.momentum)
+            soft = call_method(model, aux, "forward_train_logits", batch, adapter_mode=mode,
+                               deterministic=False, rng=g1)
+        loss, logits = call_method(model, p, "forward", batch, adapter_mode=mode, deterministic=False,
+                                   soft_logits=soft, alpha=batch.get("alpha", 0.0),
+                                   pad_token_id=pad_token_id, rng=g2)
+        return loss, logits, aux
+
+    return forward
+
+
+def add_alpha(batch: Dict[str, Any], epoch: int, step: int, steps_per_epoch: int) -> Dict[str, Any]:
+    """The distillation alpha ramp (``train_vqa_crossvqa.py:265-271``): 0.4
+    ramped linearly over epoch 0, 0.4 afterwards.  A new dict with
+    ``"alpha"`` as a 0-dim fp32 CPU tensor holding JAX's float32 value: a
+    tensor leaf, so a compiled step reads it afresh at every replay instead
+    of keying a new capture on each value; the batch's own arrays are not
+    touched."""
+    alpha = 0.4 if epoch > 0 else 0.4 * min(1.0, step / max(1, steps_per_epoch))
+    out = dict(batch)
+    out["alpha"] = torch.tensor(alpha, dtype=torch.float32)
+    return out

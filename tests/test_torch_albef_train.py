@@ -488,13 +488,16 @@ def test_live_dropout_round_logs_the_fused_deviation(weights, caplog):
 
 
 def test_trainer_hooks_and_refusals():
-    """``resolve_trainer`` routes like JAX's; momentum distillation, the
-    distill engine hooks and an unknown dropout generator raise."""
+    """``resolve_trainer`` routes like JAX's (``albef_distill`` to the
+    distillation hooks); an unknown dropout generator raises, and so does the
+    distill forward in the standard DAT step, at its first step, with JAX's
+    TypeError (the step does not pass the twin)."""
     hooks = trainers.resolve_trainer("albef_no_distill", "vqa", answer_banks={})
     assert hooks.make_eval is not None and hooks.metric == "vqa_score"
+    assert not hooks.aux_forward and hooks.aux_init is None and hooks.batch_transform is None
     assert trainers.resolve_trainer("vilt", "nlvr2").metric == "accuracy"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        trainers.resolve_trainer("albef_distill", "vqa", answer_banks={})
+    distill = trainers.resolve_trainer("albef_distill", "vqa", answer_banks={})
+    assert distill.aux_forward and distill.aux_init is not None and distill.batch_transform is not None
     with pytest.raises(ValueError, match="answer_banks"):
         trainers.resolve_trainer("albef_no_distill", "vqa")
     assert trainers.model_dropout_rate(AlbefModel(port_config(LIVE))) == 0.1
@@ -507,6 +510,11 @@ def test_trainer_hooks_and_refusals():
         with pytest.raises(ValueError, match="dropout_rng") if impl == "philox" else contextlib.nullcontext():
             FederatedTrainer(AlbefModel(port_config(TINY)), None, clients, cfg,
                              make_forward=hooks.make_forward, make_eval=hooks.make_eval, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1: 9"):
-        FederatedTrainer(AlbefModel(port_config(TINY)), None, clients, _cfg(PORT_CFG),
-                         aux_init=lambda p: p, device="cpu")
+    distill = trainers.resolve_trainer("albef_distill", "vqa", rank_k=4, answer_banks={
+        "c0": (clients["c0"].answer_ids, clients["c0"].answer_mask)})
+    trainer = FederatedTrainer(AlbefModel(port_config(TINY)), None, clients, _cfg(PORT_CFG),
+                               make_forward=distill.make_forward, make_eval=distill.make_eval,
+                               aux_init=distill.aux_init, batch_transform=distill.batch_transform,
+                               aux_forward=distill.aux_forward, device="cpu")
+    with pytest.raises(TypeError, match="missing 1 required positional argument: 'aux'"):
+        trainer.run()

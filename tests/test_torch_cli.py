@@ -244,7 +244,6 @@ REFUSALS = [
     (["--mesh_data", "2"], "item 12"),
     (["--spmd_full_epochs"], "item 12"),
     (["--encoder_name", "viltbert"], "item 10"),
-    (["--encoder_name", "albef_distill"], "item 9"),
     (["--ordered_cl_tasks", "torch_cli_nlvr2"], "item 10"),
     (["--device", "cuda", "--dtype", "float32", "--attn_impl", "layer"], "Queue 3"),
     (["--device", "cuda", "--dtype", "float32", "--attn_impl", "flash"], "Queue 3"),

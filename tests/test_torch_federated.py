@@ -120,10 +120,10 @@ def test_later_slice_options_raise():
     clients = {k: SyntheticVQAClient(k, seed=i, **CLIENT) for i, k in enumerate(HEADS)}
     cfg = _cfg(dict(TrainConfig=TrainConfig, PEFTMode=PEFTMode, OptimizerConfig=OptimizerConfig,
                     FederatedConfig=FederatedConfig))
-    for option in (dict(tp_mesh=object()), dict(aux_init=lambda params: {}),
-                   dict(aux_forward=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FederatedTrainer(model, None, clients, cfg, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FederatedTrainer(model, None, clients, cfg, device="cpu", tp_mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: 10"):
+        FederatedTrainer(torch.nn.Linear(2, 2), None, clients, cfg, device="cpu")
 
 
 def test_single_task_baseline_leaves_the_trainer_as_it_started():

@@ -3,7 +3,8 @@ package's, on the CPU in float32 (``tests/conftest.py::TINY_VILT`` without
 adapters; JAX runs kernels #5/#6 in interpret mode, the port their plain
 versions): ``make_plain_train_step`` over 3 steps in modes lora (with a
 non-zero ``lora_b`` drawn with numpy, so ``lora_a`` gets a gradient), bias,
-full, norm, freeze_bottom_k_layers (k=1 of 2 layers) and prompt, and one
+full, norm, freeze_bottom_k_layers (k=1 of 2 layers), prompt, adapter (one
+adapter, ``adapter_mode="adapter"``), freeze_encoder and none, and one
 2-client FederatedTrainer round of LoRA with FedAvg of the LoRA factors.
 
 Tolerances as tests/test_torch_train.py: losses rtol=2e-5, parameters
@@ -63,6 +64,10 @@ MODES = {
     "norm": ({}, {"norm", "norm_bias", "head"}),
     "freeze_bottom_k_layers": ({}, {"backbone", "bias", "norm", "norm_bias", "head"}),
     "prompt": (dict(prompt=JaxPromptSpec(length=3, bottleneck=8, enabled=True)), {"prompt", "head"}),
+    "adapter": (dict(adapter=JaxAdapterSpec(names=("adapter",), reduction_factor=4)),
+                {"shared", "head"}),
+    "freeze_encoder": ({}, {"head"}),
+    "none": ({}, {"head"}),
 }
 
 
@@ -106,8 +111,9 @@ def test_plain_step_fused_route_matches_jax(mode, monkeypatch):
     batch["attention_mask"][0, 5:] = 0  # padded keys reach the kernels as -10000 bias
     opt = JaxOptimizerConfig(**OPT)
     jpart = jdat.Partitioner(params, "coco", JaxPEFTMode(mode), layers_to_freeze=FREEZE_K)
-    jstep = jdat.make_plain_train_step(jax_make_vilt_forward(jmodel, "coco"), jpart, opt, 100, "none",
-                                       donate=False)
+    adapter_mode = "adapter" if mode == "adapter" else "none"
+    jstep = jdat.make_plain_train_step(jax_make_vilt_forward(jmodel, "coco"), jpart, opt, 100,
+                                       adapter_mode, donate=False)
     jstate = jdat.init_train_state(params, jpart, opt, jax.random.PRNGKey(0))
 
     n = counters(monkeypatch)
@@ -115,7 +121,7 @@ def test_plain_step_fused_route_matches_jax(mode, monkeypatch):
     sd = {k: v.detach() for k, v in model.state_dict().items()}
     part = tdat.Partitioner(sd, "coco", PEFTMode(mode), layers_to_freeze=FREEZE_K)
     step = tdat.make_plain_train_step(make_vilt_forward(model, "coco"), part, OptimizerConfig(**OPT),
-                                      100, "none")
+                                      100, adapter_mode)
     state = tdat.init_train_state(sd, part, OptimizerConfig(**OPT), torch.Generator().manual_seed(0))
     tbatch = to_device(batch, torch.device("cpu"))
     for _ in range(3):
@@ -128,7 +134,11 @@ def test_plain_step_fused_route_matches_jax(mode, monkeypatch):
                                        err_msg=f"{mode}: {k}")
 
     layers = cfg.num_layers
-    trained_layers = layers - FREEZE_K if mode == "freeze_bottom_k_layers" else layers
+    # the attention backward runs in the layers above the lowest trained
+    # parameter: all of them, none when only the head trains, and above
+    # layer 0 when the adapters (after each layer's attention) train
+    trained_layers = {"freeze_bottom_k_layers": layers - FREEZE_K, "freeze_encoder": 0, "none": 0,
+                      "adapter": layers - 1}.get(mode, layers)
     # every layer takes the fused route; autograd skips the frozen layers' backward
     assert n == {"fwd": 3 * layers, "bwd": 3 * trained_layers}
     moved = {k for k in sd if not torch.equal(sd[k], state.params[k])}

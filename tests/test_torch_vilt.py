@@ -177,7 +177,7 @@ def test_create_model_guards_and_device():
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         create_model("viltbert", {}, PEFTMode.DAT, device="cpu")
-    with pytest.raises(NotImplementedError, match="prompt tuning on ALBEF"):
-        create_model("albef_distill", {}, PEFTMode.PROMPT, device="cpu")
+    with pytest.raises(ValueError, match="fuses the \\(frozen\\) LayerNorms"):
+        create_model("albef_distill", {}, PEFTMode.NORM, attn_impl="layer", device="cpu")
     with pytest.raises(ValueError, match="unknown encoder"):
         create_model("flava", {}, PEFTMode.DAT, device="cpu")
