@@ -92,16 +92,16 @@ Phases, in this order:
             with dropout live and the ALBEF eval step (2 modes), each: launches
             per replay, counted by the wrappers and measured from the device's
             kernel names in a profile, equal to the eager path's per call,
-            three replayed calls
-            bitwise equal to three eager ones (or within twice eager's own
+            two replayed calls
+            bitwise equal to two eager ones (or within twice eager's own
             run-to-run spread where eager is not bitwise run to run), then graph
-            against eager in 2 alternating pairs (host launch calls, wall, device
+            against eager in one pair (host launch calls, wall, device
             busy, idle share, peak memory; a replay launches no kernel but its
             copies, generator fills and one graph, and runs the eager call's
             kernels); ALBEF replays from one state equal, from another seed
             not; FederatedTrainers of two ALBEF clients (one shared train
             program, one shared eval program) and of two ViLT clients (a train
-            and an eval program each) over 2 rounds and evaluate_dat, bitwise
+            and an eval program each) over one round and evaluate_dat, bitwise
             equal to the eager engines; then the routing gate: #4's limit
             against the library's, a 'layer' DAT step at adapter bottleneck 96
             through #1/#3 (not #4) by the 2x-bf16 rule; and the refusals that
@@ -116,7 +116,7 @@ Phases, in this order:
             rule against the plain path; dropout live, remat against no remat
             bitwise with each one's peak memory; three replays bitwise three
             eager steps, launches per replay from the wrappers and from the
-            device, graph against eager in 2 pairs and a profile of one replay;
+            device, graph against eager in one pair and a profile of one replay;
             samples/s and peak memory of the tuned, "flash" and plain paths
             with graphs, one after another; a 2-client round, eager against graphs;
             the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
@@ -148,18 +148,23 @@ Phases, in this order:
 13. cli — the launch surface on phase 12's dataset: ``python -m
             feddat_tpu_torch.cli`` in processes of its own with the flags of
             scripts/train_vilt_tpu_tuned.sh and train_albef_tpu_tuned.sh
-            (read from the scripts, less ``--engine spmd``) and
-            tests/fixtures/vocab30k.txt.  The refusals of ``--engine spmd``
-            and of float32 on ``"layer"`` exit non-zero naming their ROADMAP
-            item before any model is built.  Host ms per batch through the
-            CLI's own client builder with the u8 cache finalized by the
-            native host core against numpy's finalize, bitwise equal.  ViLT-B/32 DAT,
-            full width, 2 clients, 2 rounds with --checkpoint_dir and
-            --profile_dir: exit 0, both tasks' three DAT scores, step and
-            round records, #1 and #4 24 times per step in round 0's trace
-            (read back from its file, by kernel name); the same command
-            unprofiled for 1 round gives a bitwise equal round 0; a relaunch
-            with --comm_rounds 3 resumes at round 2;
+            (read from the scripts) and tests/fixtures/vocab30k.txt.  Two
+            clients of ``--engine spmd`` on one card exit non-zero with
+            JAX's ``need 2 devices, have 1`` and float32 on ``"layer"``
+            naming its ROADMAP item, both before any model is built; the
+            ViLT script's flags less ``--engine spmd`` (the sequential
+            engine), one client, 2 rounds with --checkpoint_dir and
+            --profile_dir: exit 0, the three DAT scores, step and round
+            records, #1 and #4 24 times per step in round 0's trace (read
+            back from its file, by kernel name); the script as it is,
+            ``--engine spmd`` (a world of one over NCCL), on the same client
+            for 1 round unprofiled: exit 0, the ``(x1 clients stacked)``
+            budget line, JAX's checkpoint layout (the stacked client bank)
+            and a round 0 bitwise the profiled sequential launch's; a
+            relaunch with --comm_rounds 3 resumes at round 2.  Host ms per
+            batch through the CLI's own client builder with the u8 cache
+            finalized by the native host core against numpy's finalize,
+            bitwise equal;
             ViltVqaPredictor.from_checkpoint on the CLI's meta.json on
             "block" with the fused adapter (#1, #2) within 5% of the largest
             probability of the plain route.  ALBEF, the tuned flags at
@@ -200,6 +205,23 @@ Phases, in this order:
             on phase 12's dataset, 1 client x 2 steps, profiled (#7/#8/#9
             24/11/11 per step from the trace), then from_checkpoint on
             "flash" (#7).
+15. spmd — the SPMD engine (``federated/spmd.py``) in a world of one over
+            NCCL, against the sequential engine on the same client, weights,
+            seed and steps: (a) full-width ViLT-B/32 DAT, bf16, the fused
+            step on "layer", B=64, S=185, a round of 2 steps and
+            evaluate_dat; (b) full-width ALBEF DAT on "flash", dropout live,
+            B=48 x 4, 2 fused steps and the rank-answer evaluation.  The
+            gradient mean (inside each step's captured graph), FedAvg and
+            the evaluation gather are NCCL all-reduces over groups of one,
+            so server parameters, personal store and scores must be bitwise
+            the sequential engine's, and every kernel's launches equal
+            (#1, #4 and #2; #7-#9), those of the path above zero.  The SPMD
+            round must capture its step with the step's all-reduce called
+            inside the capture and replay it; one profiled step must be one
+            graph launch that calls no all-reduce from the host (NCCL's
+            all-reduce over a group of one launches no kernel; the NCCL
+            kernels inside the replay over 4 cards are held by
+            ``scripts/torch_spmd_cards.py``).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -2854,13 +2876,14 @@ def phase_time(torch, pred, plain, requests, seed):
 # step and serving forward above ran under disable_graphs(), eagerly; here the
 # same entry points run as users call them, captured as CUDA graphs at their
 # first call and replayed after.  Each path: launch counts around one replay
-# against the eager path's per call; three replayed steps (or calls) against
-# three eager ones from the same state, bitwise where the eager path is
+# against the eager path's per call; two replayed steps (or calls) against
+# two eager ones from the same state, bitwise where the eager path is
 # bitwise run to run, else within twice its run-to-run spread; graph against
-# eager in alternating pairs for host launch calls, wall, device busy, idle
-# share and peak memory.  Two pairs: the script has 1200 s on the card, and
-# every earlier phase's pairs are the first depth cut when a phase is added.
-GRAPH_PAIRS = 2
+# eager in one pair for host launch calls, wall, device busy, idle share and
+# peak memory.  One pair: the script has 1200 s on the card, and the pairs
+# (3 until PR 14, 2 in PR 15) were the first depth cut when a phase was
+# added; the port's bench is the place for timed pairs.
+GRAPH_PAIRS = 1
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
 # Every __global__ function of feddat_tpu_torch/csrc, and for each wrapper the
 # one that its launch runs once and no other wrapper runs: #4 runs #3's
@@ -3155,7 +3178,7 @@ def replay_launches(torch, label, call, want):
     return replay
 
 
-def graph_path(torch, label, first, call, want, n=3):
+def graph_path(torch, label, first, call, want, n=2):
     """A path through the compiled layer: ``first()`` makes its first call's
     result from the start state, ``call(prev)`` one call (``prev`` None: from
     the start state).  Eager twice and graph once, ``n`` chained calls each;
@@ -3302,11 +3325,11 @@ def refused(torch, what, call):
 
 
 def federated_rounds(torch, label, make_trainer, captures, programs):
-    """Two rounds of a FederatedTrainer and evaluate_dat after the first,
-    eager and then with graphs: the graph rounds share ``programs`` programs
-    and capture ``captures`` graphs, launch what the eager rounds launch, and
-    give bitwise equal scores and server adapters; prints the times and the
-    peak reserved memory of each."""
+    """One round of a FederatedTrainer and evaluate_dat, eager and then with
+    graphs: the graph round shares ``programs`` programs and captures
+    ``captures`` graphs, launches what the eager round launches, and gives
+    bitwise equal scores and server adapters; prints the times and the peak
+    reserved memory of each."""
     from feddat_tpu_torch.train import compiled
 
     rounds = {}
@@ -3320,22 +3343,18 @@ def federated_rounds(torch, label, make_trainer, captures, programs):
             t0 = time.perf_counter()
             trainer.run_round(0)
             torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
+            round_s = time.perf_counter() - t0
             round_launches = read_counts()
             entry = trainer.evaluate_round(0)
-            t0 = time.perf_counter()
-            trainer.run_round(1)
-            torch.cuda.synchronize()
-            second_s = time.perf_counter() - t0
             made = compiled.STATS["captures"] - cap0
         shared = len(trainer._programs)
         rounds[graphs] = dict(scores=entry["scores"], captures=made, launches=round_launches,
                               programs=shared,
                               server={k: v for k, v in trainer.server_params.items() if "adapter" in k})
         print(f"graphs: FederatedTrainer, {label}, {'graphs' if graphs else 'eager'}: round 0 "
-              f"{first_s:.3f} s (captures included), round 1 {second_s:.3f} s; {made} captures, "
-              f"{shared} programs; launches in round 0 {counts_text(round_launches)}; evaluate_dat "
-              f"{entry['scores']}; peak reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
+              f"{round_s:.3f} s (captures included); {made} captures, {shared} programs; launches "
+              f"in the round {counts_text(round_launches)}; evaluate_dat {entry['scores']}; peak "
+              f"reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
         del trainer
         torch.cuda.empty_cache()
     g, e = rounds[True], rounds[False]
@@ -3345,9 +3364,9 @@ def federated_rounds(torch, label, make_trainer, captures, programs):
     check(g["launches"] == e["launches"], f"{label}: round launches graph {g['launches']}, eager {e['launches']}")
     check(g["scores"] == e["scores"], f"{label}: evaluate_dat graph {g['scores']}, eager {e['scores']}")
     bad = [k for k in e["server"] if not torch.equal(g["server"][k], e["server"][k])]
-    print(f"graphs: FederatedTrainer, {label}, graphs vs eager after 2 rounds: {len(bad)} of "
+    print(f"graphs: FederatedTrainer, {label}, graphs vs eager after the round: {len(bad)} of "
           f"{len(e['server'])} adapter tensors differ (bitwise rule)")
-    check(not bad, f"{label}: the graph rounds' server adapters differ from the eager rounds': {bad[:3]}")
+    check(not bad, f"{label}: the graph round's server adapters differ from the eager round's: {bad[:3]}")
 
 
 def phase_graphs(torch, seed):
@@ -3724,7 +3743,7 @@ def block_route_path(torch, seed):
     label = f"ALBEF fused DAT step (block, block_save_nox, dropout live, B={SECOND_B}x{ANS_PER_Q})"
     graph_path(torch, label, lambda: step(state0, small),
                lambda prev: step(prev[0] if prev else state0, small), want_blk)
-    replay = graph_vs_eager(torch, label, lambda: step(state0, small), want_blk, pairs=2)
+    replay = graph_vs_eager(torch, label, lambda: step(state0, small), want_blk)
     del step
     runs = {}
     with graph_mode(False):
@@ -4362,17 +4381,18 @@ CLI_SPLITS = ("train", "val_small")  # both disk tasks' TaskSpec.splits
 CLI_ROUNDS = 2
 
 
-def script_flags(name):
+def script_flags(name, engine=False):
     """The flags ``scripts/<name>`` passes to ``python -m feddat_tpu.cli``,
-    each ``${VAR:-default}`` at its default, ``"$@"`` and ``--engine spmd``
-    (the SPMD engine, not ported) left out."""
+    each ``${VAR:-default}`` at its default, ``"$@"`` left out, and
+    ``--engine spmd`` kept with ``engine`` (else the sequential engine runs:
+    the SPMD engine needs one card per client)."""
     import shlex
 
     text = (REPO / "scripts" / name).read_text().replace("\\\n", " ")
     line = next(ln for ln in text.splitlines() if "python -m feddat_tpu.cli" in ln)
     line = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", line.split("python -m feddat_tpu.cli", 1)[1])
     argv = [a for a in shlex.split(line) if a != "$@"]
-    if "--engine" not in argv:
+    if "--engine" not in argv or engine:
         return argv
     i = argv.index("--engine")
     check(argv[i + 1] == "spmd", f"{name}: unexpected engine {argv[i + 1]}")
@@ -4479,8 +4499,9 @@ def cli_host_batches(torch, root, seed, argv):
     tok = native.NativeWordPiece(disk_tokenizer().vocab)
     clients, _ = cli.build_clients(args, cli.resolve_task_keys(args.ordered_cl_tasks), tok)
     pipe = clients[DISK_TASKS[0]]
+    path = cli.image_path(pipe)
     check(pipe._native_finalize is native.finalize_canvas_batch and not pipe.pixels_u8,
-          f"the CLI's pipeline does not finalize its u8 cache natively: {cli.image_path(pipe)}")
+          f"the CLI's pipeline does not finalize its u8 cache natively: {path}")
     chunk = pipe.examples[:TB]
 
     def timed(fn):
@@ -4497,7 +4518,7 @@ def cli_host_batches(torch, root, seed, argv):
     pipe._native_finalize = None
     warm_numpy, batch_numpy = timed(lambda: pipe._make_batch(chunk))
     same = all(np.array_equal(batch[k], batch_numpy[k]) for k in batch)
-    print(f"cli: host ms per batch of {TB} through the CLI's build_clients ({cli.image_path(clients[DISK_TASKS[1]])}; "
+    print(f"cli: host ms per batch of {TB} through the CLI's build_clients ({path}; "
           f"canvas {pipe.canvas}): cache cold {cold:.1f}, warm {warm:.1f} (native finalize), warm "
           f"{warm_numpy:.1f} (numpy finalize); the finalize alone {fin_native:.1f} native vs "
           f"{fin_numpy:.1f} numpy; native and numpy batches bitwise equal: {same}")
@@ -4507,7 +4528,7 @@ def cli_host_batches(torch, root, seed, argv):
 def cli_vilt_serving(torch, root, seed, ckpt):
     """``ViltVqaPredictor.from_checkpoint`` on the CLI's ``meta.json`` and
     last round: "block" with the fused adapter (#1, #2) against the plain
-    route, within 5% of the largest probability, for each task."""
+    route, within 5% of the largest probability, for each task of the run."""
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.models import create_model
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
@@ -4525,7 +4546,7 @@ def cli_vilt_serving(torch, root, seed, ckpt):
 
     tok = disk_tokenizer()
     served, plain = model("block", True), model("auto", False)
-    for task in DISK_TASKS:
+    for task in meta["tasks"]:
         _, evals, backend, a2l = disk_split(root, task)
         label2ans = [None] * heads[task].num_labels
         for answer, j in a2l.items():
@@ -4582,15 +4603,55 @@ def cli_albef_serving(torch, root, seed, ckpt):
     check(all(a in bank for ans in answers for a, _ in ans), "an answer outside the bank")
 
 
-def same_round(torch, label, dir_a, dir_b, round_idx):
-    """Two runs' checkpoints of one round: every tensor bitwise equal."""
-    a = torch.load(Path(dir_a) / f"round_{round_idx:05d}", map_location="cpu", weights_only=True)
-    b = torch.load(Path(dir_b) / f"round_{round_idx:05d}", map_location="cpu", weights_only=True)
-    pairs = [(k, a["server_params"][k], b["server_params"][k]) for k in a["server_params"]]
-    pairs += [(f"{c}/{k}", v, b["personal"][c][k]) for c in a["personal"] for k, v in a["personal"][c].items()]
-    bad = [k for k, x, y in pairs if not torch.equal(x, y)]
-    print(f"cli: {label}: round {round_idx}: {len(bad)} of {len(pairs)} tensors differ (bitwise rule)")
-    check(not bad and torch.equal(a["rng"], b["rng"]), f"{label}: tensors differ: {bad[:4]}")
+def cli_refusals(work, common):
+    """Launches that exit non-zero before any model is built: two clients of
+    the SPMD engine on one card (JAX's mesh error) and float32 on "layer"
+    (ROADMAP Queue 3)."""
+    for flags, want in ((["--engine", "spmd", "--ordered_cl_tasks", CLI_TASKS, "--mesh_data", "1"],
+                         "ValueError: need 2 devices, have 1"),
+                        (["--dtype", "float32", "--attn_impl", "layer"], "ROADMAP Queue 3")):
+        out = work / "refused"
+        rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
+                                                         *common, *flags], work / "refused.log", 120)
+        print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
+        check(rc != 0 and want in text and not out.exists() and "params:" not in text,
+              f"{flags} was not refused up front")
+
+
+def cli_spmd(torch, work, common, task, sequential_ckpt):
+    """The tuned ViLT script as it is, ``--engine spmd``, on one client (one
+    card: a world of one over NCCL) for one round, unprofiled: exit 0, the
+    three DAT scores, the budget line, JAX's checkpoint layout (the stacked
+    client bank), and round 0 bitwise the profiled sequential launch's in
+    ``sequential_ckpt`` (the same client and seed; its head ``task_<task>``
+    is the SPMD engine's ``task_fed``)."""
+    ckpt, out = work / "spmd_ckpt", work / "spmd_logs"
+    argv = script_flags("train_vilt_tpu_tuned.sh", engine=True) + common + [
+        "--ordered_cl_tasks", task, "--comm_rounds", "1", "--checkpoint_dir", str(ckpt),
+        "--output_dir", str(out)]
+    rc, wall, t0, text = launch_cli("ViLT tuned flags as they are (--engine spmd), 1 client, 1 round",
+                                    argv, work / "spmd.log")
+    check(rc == 0 and "--engine" in argv, "the --engine spmd launch failed")
+    history, records = cli_outputs(out, f"vilt_dat_bs{TB}_lr0.0001_rounds1x1_seed1")
+    cli_timeline("ViLT spmd", t0, wall, records)
+    spmd = torch.load(ckpt / "round_00000", map_location="cpu", weights_only=True)
+    seq = torch.load(Path(sequential_ckpt) / "round_00000", map_location="cpu", weights_only=True)
+    stacked = spmd["personal"]["stacked_clients"]
+    got = {**spmd["server_params"], **{k: v[0] for k, v in stacked.items()}}
+    want = {k.replace(f"task_{task}.", "task_fed."): v
+            for k, v in {**seq["server_params"], **seq["personal"][task]}.items()}
+    bad = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    print(f"cli: ViLT spmd history {history}; {[ln.split(' - ')[-1] for ln in text.splitlines() if 'kernel launches' in ln]}; "
+          f"checkpoint: {len(spmd['server_params'])} backbone tensors, {len(stacked)} stacked client "
+          f"tensors; round 0 against the profiled sequential launch's: {len(bad)} of {len(want)} "
+          f"tensors differ (bitwise rule)")
+    check("(x1 clients stacked)" in text and [e["round"] for e in history] == [0]
+          and len(history[0]["scores"][task]) == 3, "the spmd launch's history or budget line")
+    check(set(spmd["personal"]) == {"stacked_clients"} and all(v.shape[0] == 1 for v in stacked.values()),
+          "the spmd checkpoint is not JAX's stacked client bank")
+    check(not bad and set(got) == set(want) and torch.equal(spmd["rng"], seq["rng"]),
+          f"the spmd launch's round 0 differs from the sequential launch's: {bad[:4]}")
+    shutil.rmtree(ckpt)
 
 
 def phase_cli(torch, seed, root):
@@ -4606,23 +4667,18 @@ def phase_cli(torch, seed, root):
     common = ["--climb_data_dir", root, "--vocab_file", vocab, "--splits", *CLI_SPLITS,
               "--eval_every", "1", "--wandb_freq", "1"]
 
-    # (c) the refusals, first: they exit before any model is built
-    for flags, item in ((["--engine", "spmd"], "Queue 1, item 12"),
-                        (["--dtype", "float32", "--attn_impl", "layer"], "Queue 3")):
-        out = work / "refused"
-        rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
-                                                         *common, *flags], work / "refused.log", 120)
-        print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
-        check(rc != 0 and f"ROADMAP {item}" in text and not out.exists() and "params:" not in text,
-              f"{flags} was not refused up front")
+    cli_refusals(work, common)
 
-    # (a) ViLT-B/32 DAT, the tuned script's flags on the sequential engine
-    vilt = script_flags("train_vilt_tpu_tuned.sh") + common + ["--ordered_cl_tasks", CLI_TASKS]
+    # (a) ViLT-B/32 DAT, the tuned script's flags on the sequential engine,
+    # one client (the SPMD launch below takes the same one on one card)
+    task = DISK_TASKS[0]
+    vilt = script_flags("train_vilt_tpu_tuned.sh") + common + ["--ordered_cl_tasks", task]
     cli_host_batches(torch, root, seed, vilt)
     ckpt, profile, out = work / "vilt_ckpt", work / "vilt_profile", work / "vilt_logs"
     argv = vilt + ["--comm_rounds", str(CLI_ROUNDS), "--checkpoint_dir", str(ckpt),
                    "--profile_dir", str(profile), "--output_dir", str(out)]
-    rc, wall, t0, text = launch_cli("ViLT tuned flags, 2 rounds, profiled", argv, work / "vilt.log")
+    rc, wall, t0, text = launch_cli("ViLT tuned flags, sequential, 2 rounds, profiled", argv,
+                                    work / "vilt.log")
     check(rc == 0, "the ViLT launch failed")
     run_name = f"vilt_dat_bs{TB}_lr0.0001_rounds{CLI_ROUNDS}x1_seed1"
     history, records = cli_outputs(out, run_name)
@@ -4630,21 +4686,16 @@ def phase_cli(torch, seed, root):
     cli_timeline("ViLT", t0, wall, records)
     print(f"cli: ViLT history {history}; {[ln.split(' - ')[-1] for ln in text.splitlines() if 'kernel launches' in ln]}")
     check([e["round"] for e in history] == list(range(CLI_ROUNDS))
-          and all(len(e["scores"][t]) == 3 for e in history for t in DISK_TASKS),
-          "the ViLT history lacks a task's three DAT scores")
+          and all(len(e["scores"][task]) == 3 for e in history),
+          "the ViLT history lacks the task's three DAT scores")
     check({r["kind"] for r in records} == {"run_start", "step", "round"}, "JSONL record kinds")
     check("u8 cache, normalized on the card" in text and "using native C++ WordPiece" in text,
           "the launch did not take the u8 cache or the native tokenizer")
-    steps = len(DISK_TASKS) * (DISK_TRAIN // TB)
-    check_profile("ViLT", profile, steps, captures=len(DISK_TASKS))
+    check_profile("ViLT", profile, DISK_TRAIN // TB, captures=1)
 
-    # the same command unprofiled, one round: round 0 bitwise the profiled one's
-    plain_ckpt = work / "vilt_plain_ckpt"
-    argv_plain = vilt + ["--comm_rounds", "1", "--checkpoint_dir", str(plain_ckpt), "--output_dir",
-                         str(work / "vilt_plain_logs")]
-    rc, _, _, _ = launch_cli("ViLT unprofiled, 1 round", argv_plain, work / "vilt_plain.log")
-    check(rc == 0, "the unprofiled ViLT launch failed")
-    same_round(torch, "profiled against unprofiled launch", ckpt, plain_ckpt, 0)
+    # (d) the same script as it is, --engine spmd, unprofiled: round 0
+    # bitwise (a)'s (profiling and the engine change nothing)
+    cli_spmd(torch, work, common, task, ckpt)
 
     # the relaunch with one round more resumes from --checkpoint_dir
     argv += ["--comm_rounds", str(CLI_ROUNDS + 1)]
@@ -4656,8 +4707,7 @@ def phase_cli(torch, seed, root):
     check(f"resumed from checkpoint at round {CLI_ROUNDS - 1}" in text
           and [e["round"] for e in history] == [CLI_ROUNDS], "the relaunch did not resume at round 2")
     cli_vilt_serving(torch, root, seed, str(ckpt))
-    for d in (ckpt, plain_ckpt):
-        shutil.rmtree(d)
+    shutil.rmtree(ckpt)
 
     # (b) ALBEF, the tuned script's flags, one task, one round
     ckpt, profile, out = work / "albef_ckpt", work / "albef_profile", work / "albef_logs"
@@ -4688,7 +4738,7 @@ def phase_cli(torch, seed, root):
 # way), the ViLT modes adapter, none and freeze_encoder on "fused", and an
 # albef_distill CLI launch.
 MODE_STEPS_PER_EPOCH = 4  # the alpha ramp's epoch: 0, 0.1, 0.2, 0.3, then 0.4
-MODES_SPEED_ROUNDS = 2
+MODES_SPEED_ROUNDS = 1
 VILT_MODES = ("adapter", "none", "freeze_encoder")
 
 
@@ -4865,13 +4915,18 @@ def modes_distill(torch, seed):
 
     # device-measured launches, host launches per replay with and without distillation
     label = f"albef_distill plain step (adapter, flash, dropout live, B={ATB}x{ANS_PER_Q})"
-    replay = graph_vs_eager(torch, label, lambda: step(g2, alpha_batch(torch, batch, 4)), want)
+    held = [g2]  # each call takes the state the last one returned: its twin is donated
+
+    def distill_call():
+        held[0], _ = step(held[0], alpha_batch(torch, batch, 4))
+
+    replay = graph_vs_eager(torch, label, distill_call, want)
     step_nd, state_nd, _ = albef_plain_step(torch, model, params, seed, distill=False)
     want_nd = {**NO_LAUNCHES, "flash_attention": vit, "flash_attention_bwd_dq": vit - 1,
                "flash_attention_bwd_dkv": vit - 1}
     replay_launches(torch, "the same step without distillation (albef_no_distill forward)",
                     lambda: step_nd(state_nd, batch), want_nd)
-    del step, step_nd, g1, g2, gm1, gm2, state_nd
+    del step, step_nd, g1, g2, gm1, gm2, state_nd, held
     torch.cuda.empty_cache()
     lap("graph against eager and the replay without distillation")
 
@@ -5276,6 +5331,221 @@ def phase_modes(torch, seed, root):
     return launches
 
 
+# Phase 15: the SPMD engine (federated/spmd.py) in a world of one over NCCL.
+# One client and one data rank: the gradient mean, FedAvg and the evaluation
+# gather are all-reduces over groups of one (NCCL runs them; the step's sits
+# inside its captured graph), so the round must be the sequential engine's,
+# bitwise: a group of one and a FedAvg weight of 1.0 change nothing.
+SPMD_STEPS = 2
+SPMD_CLIENT = "fed"  # the SPMD engine's shared head, task_fed
+
+
+class CollectiveCalls:
+    """Counts the calls of ``torch.distributed.all_reduce`` made inside the
+    block, and those made while a CUDA graph was being captured (a call in a
+    capture is recorded into the graph; one outside runs from the host)."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.calls = self.captured = 0
+        self._inner = inner = dist.all_reduce
+
+        def all_reduce(*args, **kwargs):
+            self.calls += 1
+            self.captured += torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+            return inner(*args, **kwargs)
+
+        dist.all_reduce = all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._inner
+
+
+def graph_collectives(torch, label, call, nccl_kernels):
+    """One profiled call of a step whose graph exists: one graph launch and
+    no all-reduce called from the host.  With ``nccl_kernels`` (a group of
+    more than one rank) the step's all-reduce must also show as NCCL kernels
+    launched by the replay (by the kineto correlation of each device kernel
+    with the host's ``cudaGraphLaunch``) and none outside it; NCCL's in-place
+    all-reduce over a group of one launches nothing.  -> the replay's device
+    ms and its NCCL kernels' share of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # a capture, where the step has none yet, stays out of the profile
+    torch.cuda.synchronize()
+    with CollectiveCalls() as calls, profile(activities=[ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    graph_ids = {k.correlation_id() for k in events
+                 if k.device_type() != cuda and k.name() == "cudaGraphLaunch"}
+    inside, outside, busy, nccl_us = Counter(), Counter(), 0.0, 0.0
+    for k in events:
+        if k.device_type() != cuda:
+            continue
+        us = (k.end_ns() - k.start_ns()) / 1e3
+        busy += us
+        if "nccl" in k.name().lower():
+            nccl_us += us
+            (inside if k.correlation_id() in graph_ids else outside)[k.name()] += 1
+    print(f"spmd: {label}: one profiled step: {len(graph_ids)} graph launch(es), {calls.calls} "
+          f"all-reduce calls from the host; device busy {busy / 1e3:.3f} ms, NCCL kernels "
+          f"{nccl_us / 1e3:.3f} ms of it, inside the replay {dict(inside)}, outside it {dict(outside)}")
+    check(len(graph_ids) == 1 and calls.calls == 0,
+          f"{label}: a replayed step made {len(graph_ids)} graph launches and {calls.calls} "
+          "all-reduce calls from the host")
+    if nccl_kernels:
+        check(sum(inside.values()) >= 1 and not outside,
+              f"{label}: the step's all-reduce is not a node of its replayed graph")
+    return busy / 1e3, nccl_us / 1e3
+
+
+def spmd_against_sequential(torch, label, make_model, client, tcfg, seq_kw, spmd_kw, path_keys):
+    """One round and its evaluation of the SPMD engine and of the sequential
+    engine on the same model, client, weights, seed and steps (the engines
+    call the model functionally and never write the weights): server
+    parameters, personal store and scores bitwise equal, the same launches
+    of every kernel -> the SPMD run's launches."""
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.federated.spmd import SPMDFederatedTrainer
+    from feddat_tpu_torch.parallel.mesh import make_mesh
+    from feddat_tpu_torch.train import compiled
+
+    from feddat_tpu_torch.train.dat import init_train_state
+    from feddat_tpu_torch.train.forwards import to_device
+
+    runs = {}
+    model, params = make_model()
+    for engine in ("sequential", "spmd"):
+        if engine == "spmd":
+            trainer = SPMDFederatedTrainer(model, params, [client()], tcfg, make_mesh(1), **spmd_kw)
+        else:
+            trainer = FederatedTrainer(model, params, {SPMD_CLIENT: client()}, tcfg, **seq_kw)
+        torch.cuda.synchronize()
+        cap0, rep0 = compiled.STATS["captures"], compiled.STATS["replays"]
+        reset_counts()  # the main path: one round and its evaluation
+        t0 = time.perf_counter()
+        with CollectiveCalls() as calls:
+            trainer.run_round(0)
+            entry = trainer.evaluate_round(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        captures, replays = compiled.STATS["captures"] - cap0, compiled.STATS["replays"] - rep0
+        personal = trainer.personal() if engine == "spmd" else trainer.personal[SPMD_CLIENT]
+        runs[engine] = dict(counts=counts, scores=entry["scores"], server=trainer.server_params,
+                            personal=personal)
+        print(f"spmd: {label}, {engine} engine: round of {SPMD_STEPS} steps and evaluate_dat in "
+              f"{wall:.2f} s ({captures} captures, {replays} replays; {calls.calls} all-reduce calls, "
+              f"{calls.captured} of them inside a capture), launches {counts_text(counts)}; scores "
+              f"{entry['scores']}")
+        if engine == "spmd":
+            # the SPMD step was captured with its all-reduce and replayed
+            check(captures >= 1 and replays >= 1 and calls.captured >= 1,
+                  f"{label}: the SPMD round made {captures} captures, {replays} replays and "
+                  f"{calls.captured} all-reduce calls inside a capture")
+            state = init_train_state({**trainer.backbone, **trainer.client_state}, trainer.partitioner,
+                                     tcfg.optimizer, torch.Generator().manual_seed(1))
+            batch = to_device(next(client().train_batches(0)), trainer.device)
+            graph_collectives(torch, label, lambda: trainer.train_step(state, batch), nccl_kernels=False)
+            del state, batch
+        del trainer
+    del model, params
+    seq, spmd = runs["sequential"], runs["spmd"]
+    pairs = [(f"server/{k}", v, spmd["server"][k]) for k, v in seq["server"].items()]
+    pairs += [(f"personal/{k}", v, spmd["personal"][k]) for k, v in seq["personal"].items()]
+    bad = [k for k, a, b in pairs if not torch.equal(a, b)]
+    print(f"spmd: {label}: {len(bad)} of {len(pairs)} tensors differ from the sequential engine's "
+          f"(bitwise rule; {len(seq['server'])} server, {len(seq['personal'])} personal); scores "
+          f"equal: {spmd['scores'] == seq['scores']}; launches equal: {spmd['counts'] == seq['counts']}")
+    check(set(seq["server"]) == set(spmd["server"]) and set(seq["personal"]) == set(spmd["personal"]),
+          f"{label}: the engines' parameter names differ")
+    check(not bad, f"{label}: the SPMD round differs from the sequential one: {bad[:4]}")
+    check(spmd["scores"] == seq["scores"], f"{label}: scores {spmd['scores']} != {seq['scores']}")
+    check(spmd["counts"] == seq["counts"], f"{label}: launches {spmd['counts']} != {seq['counts']}")
+    check(all(spmd["counts"][k] > 0 for k in path_keys), f"{label}: a kernel of the path never "
+          f"launched: {counts_text(spmd['counts'])}")
+    runs["sequential"] = runs["spmd"] = None
+    torch.cuda.empty_cache()
+    return spmd["counts"]
+
+
+def phase_spmd(torch, seed):
+    """Phase 15 (see the module docstring) -> the launches of the SPMD runs
+    of the kernels on their paths: #1 and #4 (ViLT), #7-#9 (ALBEF)."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.parallel.mesh import world
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    with world(torch.device("cuda", 0)) as size:
+        import torch.distributed as dist
+
+        print(f"spmd: a world of {size} over {dist.get_backend()}")
+        check(size == 1 and dist.get_backend() == "nccl", "the world of one is not NCCL's")
+
+        # (a) ViLT-B/32 DAT, the fused step on "layer", bf16, B=64, S=185
+        def vilt():
+            model, cfg = create_model("vilt", {SPMD_CLIENT: TaskHeadSpec(num_labels=NUM_LABELS)},
+                                      PEFTMode.DAT, 16, "bfloat16", image_size=TCANVAS,
+                                      attn_impl="layer", seed=seed)
+            return model, {k: v.detach() for k, v in model.state_dict().items()}
+
+        vcfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(),
+                           federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                           num_epochs=1, seed=seed)
+        counts = spmd_against_sequential(
+            torch, f"ViLT-B/32 DAT, fused step, 'layer', B={TB}, S={TS}", vilt,
+            lambda: train_client(SPMD_CLIENT, SPMD_STEPS * TB, TB, seed + 1), vcfg,
+            dict(use_fused_dat=True), dict(use_fused=True),
+            ("attn_block", "layer_block_bwd"))
+        launches.update({k: counts[k] for k in ("attn_block", "layer_block_bwd")})
+
+        # (b) ALBEF no-distill DAT on "flash", dropout live, B=48 x 4, and
+        # its rank-answer evaluation
+        def albef_client():
+            return SyntheticAlbefClient(SPMD_CLIENT, num_train=SPMD_STEPS * ATB, num_eval=ATB,
+                                        num_answers=len(ALBEF_ANSWERS), vocab_size=30522,
+                                        question_len=LQ, answer_len=LA, max_answers_per_q=ANS_PER_Q,
+                                        image_size=(ARES, ARES), batch_size=ATB, val_batch_size=ATB,
+                                        seed=seed + 2)
+
+        bank = albef_client()
+        banks = {SPMD_CLIENT: (bank.answer_ids, bank.answer_mask)}
+        hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks=banks)
+        acfg = TrainConfig(encoder_name="albef_no_distill", peft_mode=PEFTMode.DAT,
+                           optimizer=OptimizerConfig(),
+                           federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                           num_epochs=1, seed=seed)
+
+        def albef():
+            model = albef_train_model(torch, seed, "flash")
+            return model, {k: v.detach() for k, v in model.state_dict().items()}
+
+        counts = spmd_against_sequential(
+            torch, f"ALBEF DAT, fused step, 'flash', dropout live, B={ATB} x {ANS_PER_Q}", albef,
+            albef_client, acfg,
+            dict(make_forward=hooks.make_forward, make_eval=hooks.make_eval, use_fused_dat=True),
+            dict(use_fused=True, family="albef", answer_banks=banks, rank_k=ALBEF_K), FLASH_KEYS)
+        launches.update({k: counts[k] for k in FLASH_KEYS})
+    check(not dist.is_initialized(), "the world of one outlived its block")
+    print(f"spmd: launches of the SPMD rounds {counts_text(launches)}")
+    print(f"spmd: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5358,6 +5628,10 @@ def main(argv=None) -> int:
     # #1 and #3, the ViLT adapter step for #5 and #6
     launches.update(phase_modes(torch, args.seed, root))
     done("modes")
+    # this slice's path: the SPMD engine's round in a world of one, against
+    # the sequential engine's
+    launches.update(phase_spmd(torch, args.seed))
+    done("spmd")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

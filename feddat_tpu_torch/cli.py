@@ -7,26 +7,36 @@ added, ``--device {cuda,cpu}`` (the counterpart of ``JAX_PLATFORMS``; the
 default ``cuda`` raises without a card).  A launch ties together the task
 registry, the loaders and pipelines, the model, the initial parameters
 (random from ``--seed`` or converted from ``--pretrained_model_name``), the
-sequential federated engine with round checkpoints and resume, the metrics
-log, the run recipe ``meta.json`` and the history JSON, the files the JAX CLI
-writes, under the same names:
+federated engine with round checkpoints and resume, the metrics log, the run
+recipe ``meta.json`` and the history JSON, the files the JAX CLI writes,
+under the same names:
 
     <output_dir>/<run>.log, <run>.metrics.jsonl, <run>.history.json
     <checkpoint_dir>/round_NNNNN, meta.json
     <profile_dir>/*.pt.trace.json   (a torch.profiler trace of the first round)
 
+``--engine spmd`` runs ``federated/spmd.py`` over a (client, data) mesh of
+ranks, one process per device: started alone it is a world of one (NCCL on
+the card, gloo on the CPU); ``torchrun --nproc_per_node N -m
+feddat_tpu_torch.cli --engine spmd ...`` runs N ranks, each on
+``cuda:LOCAL_RANK``, and ``--multihost`` the same launch across hosts
+(``torchrun --nnodes ...``), raising without the launcher's rendezvous.  The
+mesh (``--mesh_clients``, default one client per task; ``--mesh_data``,
+default the rest of the world) is built before any model, with JAX's errors
+(``need N devices, have M``).  Only process 0 writes the metrics log, the
+history and ``meta.json``; with more than one process each traces into
+``<profile_dir>/proc<rank>``.
+
 What the port does not have yet is refused before any model is built or any
-dataset read, naming its ROADMAP item: the SPMD engine, multi-host and tensor
-parallelism (``--engine spmd``, ``--multihost``, ``--tp``, ``--mesh_*``,
-``--spmd_full_epochs``: item 12), ``viltbert`` and the tasks of other
-trainers than ``vqa_cross`` (item 10), and float32 on a kernel route on the
-card (Queue 3: the CUDA kernels take bf16).  ``albef_distill`` trains on the
-sequential engine as in the JAX CLI: momentum distillation on the plain
-modes, the fused DAT step without it (``--use_fused_dat``), a ``TypeError``
-at the first step of the standard DAT step (the distill forward takes the
-twin, which that step does not pass), and ``NotImplementedError`` with
-``--engine spmd`` (JAX raises it once the model is built; the port, which
-builds nothing for ``--engine spmd``, before).
+dataset read, naming its ROADMAP item: tensor parallelism (``--tp`` > 1:
+item 12b), ``viltbert`` and the tasks of other trainers than ``vqa_cross``
+(item 10), and float32 on a kernel route on the card (Queue 3: the CUDA
+kernels take bf16).  ``albef_distill`` trains on the sequential engine as in
+the JAX CLI: momentum distillation on the plain modes, the fused DAT step
+without it (``--use_fused_dat``), a ``TypeError`` at the first step of the
+standard DAT step (the distill forward takes the twin, which that step does
+not pass), and ``NotImplementedError`` with ``--engine spmd`` (JAX raises it
+once the model is built; the port, before).
 
 Run: ``python -m feddat_tpu_torch.cli --encoder_name vilt --optimizer_mode dat
 --ordered_cl_tasks domain --climb_data_dir ./data ...``
@@ -35,6 +45,7 @@ Run: ``python -m feddat_tpu_torch.cli --encoder_name vilt --optimizer_mode dat
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -78,18 +89,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", type=int, default=0)
     p.add_argument("--do_wandb_logging", action="store_true")
     p.add_argument("--wandb_freq", type=int, default=100)
-    # the JAX package's additions; the distributed ones are refused (ROADMAP item 12)
+    # the JAX package's additions
     p.add_argument("--engine", default="sequential", choices=["sequential", "spmd"],
-                   help="the port runs the sequential engine; spmd is refused (ROADMAP item 12)")
-    p.add_argument("--multihost", action="store_true", help="refused (ROADMAP item 12)")
+                   help="sequential: clients one after another; spmd: one process per "
+                        "(client, data) mesh slot (a world of one, or torchrun's ranks)")
+    p.add_argument("--multihost", action="store_true",
+                   help="a process group across hosts from the launcher's rendezvous (torchrun "
+                        "--nnodes) or --coordinator_address/--num_processes/--process_id")
     p.add_argument("--coordinator_address", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--checkpoint_dir", default=None)
-    p.add_argument("--mesh_clients", type=int, default=None, help="refused (ROADMAP item 12)")
-    p.add_argument("--mesh_data", type=int, default=None, help="refused (ROADMAP item 12)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism; > 1 is refused (ROADMAP item 12)")
+    p.add_argument("--mesh_clients", type=int, default=None,
+                   help="spmd mesh client axis (default: one client per task)")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="spmd mesh data axis (default: the world's ranks over the clients)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism; > 1 is refused (ROADMAP item 12b)")
     p.add_argument("--vocab_file", default=None,
                    help="bert-base-uncased vocab.txt for the WordPiece tokenizer")
     p.add_argument("--bert_model_path", default=None,
@@ -124,7 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache_images", action="store_true",
                    help="cache decoded+resized images (uint8) across epochs/rounds; the "
                         "per-epoch normalize+pad runs in the native core")
-    p.add_argument("--spmd_full_epochs", action="store_true", help="refused (ROADMAP item 12)")
+    p.add_argument("--spmd_full_epochs", action="store_true",
+                   help="spmd: run each round to the largest client's step count (each client "
+                        "on its own schedule horizon) instead of the smallest's")
     p.add_argument("--device_normalize", action="store_true",
                    help="ship pixels to the card as raw uint8 and normalize there")
     p.add_argument("--profile_dir", default=None,
@@ -162,14 +181,9 @@ def refuse_unported(args, task_keys) -> None:
             "--engine spmd supports albef_no_distill; momentum-distillation aux state is "
             "sequential-engine only (as is the reference's live DAT path, train_albef.sh)")
 
-    distributed = [flag for flag, on in (
-        ("--engine spmd", args.engine == "spmd"), ("--multihost", args.multihost),
-        (f"--tp {args.tp}", args.tp > 1), ("--mesh_clients", args.mesh_clients is not None),
-        ("--mesh_data", args.mesh_data is not None), ("--spmd_full_epochs", args.spmd_full_epochs),
-    ) if on]
-    if distributed:
-        refuse(f"{', '.join(distributed)} (the SPMD engine and multi-device runs)",
-               "Queue 1, item 12: distribution")
+    if args.tp > 1:
+        refuse(f"--tp {args.tp} (tensor parallelism over a model axis)",
+               "Queue 1, item 12b: tensor parallelism")
     if args.encoder_name == "viltbert":
         refuse("the viltbert encoder", "Queue 1, item 10: other encoders and trainers")
     other = [k for k in task_keys if TASK_CONFIGS[k].trainer != "vqa_cross"]
@@ -182,6 +196,20 @@ def refuse_unported(args, task_keys) -> None:
         refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
                "kernels take bf16; use --dtype bfloat16, or --attn_impl auto in float32)",
                "Queue 3: divergences")
+
+
+def check_spmd_args(args) -> None:
+    """The JAX CLI's guards of ``--engine spmd`` that need no model (:440-446,
+    :679-683), raised before the process group and the mesh."""
+    if args.engine != "spmd":
+        return
+    if args.do_single:
+        raise ValueError("--do_single is a per-task centralized baseline with no client axis; "
+                         "use --engine sequential for it")
+    if args.canvas_bucket:
+        raise SystemExit("--canvas_bucket emits per-batch canvases; the spmd engine stacks "
+                         "same-shape batches across the client axis.  Use --engine sequential "
+                         "with --canvas_bucket.")
 
 
 def _build_vqa_cross_client(args, key, spec, tokenizer, answer_banks):
@@ -350,7 +378,30 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     task_keys = resolve_task_keys(args.ordered_cl_tasks)
     refuse_unported(args, task_keys)
+    check_spmd_args(args)
 
+    from feddat_tpu_torch.device import resolve_device
+    from feddat_tpu_torch.parallel import mesh as pmesh
+
+    device = resolve_device(args.device)
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if args.engine == "spmd" or args.multihost:
+            device = pmesh.local_device(device.type)  # cuda:LOCAL_RANK
+            if args.multihost:
+                pmesh.initialize_multihost(args.coordinator_address, args.num_processes,
+                                           args.process_id, device)
+            stack.enter_context(pmesh.world(device))
+        if args.engine == "spmd":  # JAX's mesh errors come before any model
+            make = pmesh.make_multihost_mesh if args.multihost else pmesh.make_mesh
+            mesh = make(num_clients=args.mesh_clients or len(task_keys),
+                        data_parallel=args.mesh_data, device_type=device.type)
+        return _run(args, task_keys, device, mesh)
+
+
+def _run(args, task_keys, device, mesh) -> int:
+    """The launch after the refusals, on ``device``, with the SPMD engine's
+    ``mesh`` or None."""
     from feddat_tpu_torch import native
     from feddat_tpu_torch.configs.core import (
         FederatedConfig,
@@ -359,12 +410,10 @@ def main(argv=None) -> int:
         TrainConfig,
     )
     from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
-    from feddat_tpu_torch.device import resolve_device
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
     from feddat_tpu_torch.utils.observability import MetricsLogger, experiment_name, setup_logger
     from feddat_tpu_torch.utils.seeding import process_index
 
-    device = resolve_device(args.device)
     mode = PEFTMode(args.optimizer_mode)
     frozen_kernel_conflict = args.attn_impl in ("block", "layer") and mode in (
         PEFTMode.FULL, PEFTMode.BIAS, PEFTMode.LORA, PEFTMode.FREEZE_BOTTOM_K)
@@ -425,7 +474,16 @@ def main(argv=None) -> int:
         return TaskHeadSpec(num_labels=spec.num_labels, num_images=spec.num_images,
                             model_type=spec.model_type, num_choices=spec.num_choices)
 
-    heads = {k: head_spec(k) for k in task_keys}
+    if args.engine == "spmd":
+        # the SPMD clients share one head module, task_<FED_HEAD_KEY>
+        from feddat_tpu_torch.federated.spmd import FED_HEAD_KEY
+
+        specs = {head_spec(k) for k in task_keys}
+        if len(specs) != 1:
+            raise ValueError(f"--engine spmd needs a uniform head shape across clients; got {specs}")
+        heads = {FED_HEAD_KEY: next(iter(specs))}
+    else:
+        heads = {k: head_spec(k) for k in task_keys}
     model, model_cfg, logits_dtype = build_model(args, mode, heads, device)
     clients, answer_banks = build_clients(args, task_keys, tokenizer)
     for key, pipe in clients.items():
@@ -464,36 +522,51 @@ def main(argv=None) -> int:
             meta["answer_lists"] = {k: list(clients[k].answer_list) for k in task_keys}
         write_meta(args.checkpoint_dir, meta)
 
-    from feddat_tpu_torch.federated.engine import FederatedTrainer
-    from feddat_tpu_torch.train.trainers import resolve_trainer
+    if args.engine == "spmd":
+        from feddat_tpu_torch.federated.spmd import SPMDFederatedTrainer
 
-    def hooks_for(task_key):
-        return resolve_trainer(args.encoder_name, TASK_CONFIGS[task_key].trainer,
-                               answer_banks=answer_banks)
+        is_albef = args.encoder_name.startswith("albef")
+        profile_dir = args.profile_dir
+        if profile_dir and mesh.grid.size > 1:  # one trace subtree per process
+            profile_dir = os.path.join(profile_dir, f"proc{mesh.rank}")
+        trainer = SPMDFederatedTrainer(
+            model, params, [clients[k] for k in task_keys], config, mesh,
+            use_fused=args.use_fused_dat, checkpoint_dir=args.checkpoint_dir,
+            metrics_logger=metrics, family="albef" if is_albef else "vilt",
+            answer_banks=answer_banks if is_albef else None,
+            full_epochs=args.spmd_full_epochs, profile_dir=profile_dir, device=device)
+        history = trainer.run()
+    else:
+        from feddat_tpu_torch.federated.engine import FederatedTrainer
+        from feddat_tpu_torch.train.trainers import resolve_trainer
 
-    def make_eval(model_, task_key):
-        h = hooks_for(task_key)
-        if h.make_eval is not None:
-            return h.make_eval(model_, task_key)
-        from feddat_tpu_torch.train.evaluation import make_eval_step
+        def hooks_for(task_key):
+            return resolve_trainer(args.encoder_name, TASK_CONFIGS[task_key].trainer,
+                                   answer_banks=answer_banks)
 
-        return make_eval_step(model_, task_key, h.metric)
+        def make_eval(model_, task_key):
+            h = hooks_for(task_key)
+            if h.make_eval is not None:
+                return h.make_eval(model_, task_key)
+            from feddat_tpu_torch.train.evaluation import make_eval_step
 
-    first_hooks = hooks_for(task_keys[0])
-    trainer = FederatedTrainer(
-        model, params, clients, config,
-        make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
-        make_eval=make_eval,
-        metric=first_hooks.metric,
-        aux_init=first_hooks.aux_init,
-        batch_transform=first_hooks.batch_transform,
-        aux_forward=first_hooks.aux_forward,
-        use_fused_dat=args.use_fused_dat,
-        checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
-        profile_dir=args.profile_dir,
-        device=device,
-    )
-    history = [trainer.run_single_task()] if args.do_single else trainer.run()
+            return make_eval_step(model_, task_key, h.metric)
+
+        first_hooks = hooks_for(task_keys[0])
+        trainer = FederatedTrainer(
+            model, params, clients, config,
+            make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
+            make_eval=make_eval,
+            metric=first_hooks.metric,
+            aux_init=first_hooks.aux_init,
+            batch_transform=first_hooks.batch_transform,
+            aux_forward=first_hooks.aux_forward,
+            use_fused_dat=args.use_fused_dat,
+            checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
+            profile_dir=args.profile_dir,
+            device=device,
+        )
+        history = [trainer.run_single_task()] if args.do_single else trainer.run()
     metrics.close()
     if device.type == "cuda":
         from feddat_tpu_torch.ops._build import KERNELS

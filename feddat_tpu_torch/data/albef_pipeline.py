@@ -24,7 +24,7 @@ import numpy as np
 
 from feddat_tpu_torch.data.datasets import VQAExample
 from feddat_tpu_torch.data.images import CLIP_MEAN, CLIP_STD, albef_resized_u8, process_albef_image
-from feddat_tpu_torch.data.pipeline import iter_eval_chunks
+from feddat_tpu_torch.data.pipeline import iter_eval_chunks, shard_rows
 from feddat_tpu_torch.data.text import pre_question
 
 
@@ -164,12 +164,15 @@ class AlbefVQAPipeline:
             weight[ans] += 1.0 / max(1, len(ex.answers))
         return list(weight.keys()), list(weight.values())
 
-    def train_batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def train_batches(self, epoch: int = 0,
+                      shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
+        """``shard = (d, D)``: only rows ``shard_rows`` of each batch."""
+        rows = shard_rows(self.batch_size, shard)
         rng = np.random.RandomState(self.seed * 1000 + epoch)
         idx = rng.permutation(len(self.examples))
         A, La = self.max_answers_per_q, self.max_answer_len
         for s in range(self.steps_per_epoch):
-            sel = [self.examples[i] for i in idx[s * self.batch_size : (s + 1) * self.batch_size]]
+            sel = [self.examples[i] for i in idx[s * self.batch_size : (s + 1) * self.batch_size][rows]]
             B = len(sel)
             q_ids, q_mask = self.tokenizer.batch_encode(
                 [pre_question(e.question, self.max_ques_words_train) for e in sel],
@@ -194,8 +197,10 @@ class AlbefVQAPipeline:
                 "answer_weights": weights,
             }
 
-    def eval_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def eval_batches(self, shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
+        rows = shard_rows(self.val_batch_size, shard)
         for chunk, valid in iter_eval_chunks(self.eval_examples, self.val_batch_size):
+            chunk, valid = chunk[rows], valid[rows]
             q_ids, q_mask = self.tokenizer.batch_encode(
                 [pre_question(e.question, self.max_ques_words_eval) for e in chunk],
                 self.max_question_len,

@@ -38,6 +38,15 @@ from feddat_tpu_torch.device import DeviceLike, resolve_device
 from feddat_tpu_torch.train.compiled import capture_lock
 
 
+def shard_rows(n: int, shard: Tuple[int, int] = (0, 1)) -> slice:
+    """Rows ``[d·n/D, (d+1)·n/D)`` of an ``n``-row batch for ``shard = (d, D)``:
+    the SPMD engine's data rank ``d`` of ``D`` assembles only these."""
+    d, D = shard
+    if n % D:
+        raise ValueError(f"a batch of {n} rows does not split over {D} data ranks")
+    return slice(d * n // D, (d + 1) * n // D)
+
+
 def iter_eval_chunks(examples: Sequence[Any], batch_size: int):
     """Yield ``(chunk, valid)`` fixed-size eval chunks: the final short chunk
     is padded by repeating element 0 with a zero ``valid`` mask, so the
@@ -202,12 +211,16 @@ class ViltVQAPipeline:
             batch["valid"] = valid
         return batch
 
-    def train_batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def train_batches(self, epoch: int = 0,
+                      shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
+        """``shard = (d, D)``: only rows :func:`shard_rows` of each batch are
+        assembled (a batch's canvas is still its whole chunk's)."""
+        rows = shard_rows(self.batch_size, shard)
         rng = np.random.RandomState(self.seed * 1000 + epoch)
         idx = rng.permutation(len(self.examples))
         if not self.canvas_bucket:
             for s in range(self.steps_per_epoch):
-                sel = idx[s * self.batch_size : (s + 1) * self.batch_size]
+                sel = idx[s * self.batch_size : (s + 1) * self.batch_size][rows]
                 yield self._make_batch([self.examples[i] for i in sel])
             return
         # stream the examples into per-canvas pools in permutation order and
@@ -224,7 +237,7 @@ class ViltVQAPipeline:
             if len(pool) == self.batch_size:
                 pools[canvas] = []
                 emitted += 1
-                yield self._make_batch(pool, canvas=canvas)
+                yield self._make_batch(pool[rows], canvas=canvas)
         # top up with the leftovers of both pools as full batches
         rest = [e for pool in pools.values() for e in pool]
         while emitted < self.steps_per_epoch and len(rest) >= self.batch_size:
@@ -232,11 +245,12 @@ class ViltVQAPipeline:
             canvas = self.canvas if any(
                 self._canvas_of(e) == self.canvas for e in chunk) else self._narrow_canvas
             emitted += 1
-            yield self._make_batch(chunk, canvas=canvas)
+            yield self._make_batch(chunk[rows], canvas=canvas)
 
-    def eval_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def eval_batches(self, shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
+        rows = shard_rows(self.val_batch_size, shard)
         for chunk, valid in iter_eval_chunks(self.eval_examples, self.val_batch_size):
-            yield self._make_batch(chunk, valid)
+            yield self._make_batch(chunk[rows], valid[rows])
 
 
 class _PinnedRing:

@@ -15,6 +15,8 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
+from feddat_tpu_torch.data.pipeline import shard_rows
+
 
 @dataclasses.dataclass
 class SyntheticVQAClient:
@@ -76,14 +78,17 @@ class SyntheticVQAClient:
         return self.num_train // self.batch_size
 
     # -- iterators ---------------------------------------------------------
-    def train_batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def train_batches(self, epoch: int = 0,
+                      shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
         """Shuffled fixed-size train batches (drop-last, like the reference's
         ALBEF loader; the ViLT loader's shuffle-always quirk is made explicit
-        here as deterministic per-epoch shuffling)."""
+        here as deterministic per-epoch shuffling).  ``shard = (d, D)``: only
+        rows ``shard_rows`` of each batch."""
+        rows = shard_rows(self.batch_size, shard)
         rng = np.random.RandomState(self.seed * 1000 + epoch)
         idx = rng.permutation(self.num_train)
         for s in range(self.steps_per_epoch):
-            sel = idx[s * self.batch_size : (s + 1) * self.batch_size]
+            sel = idx[s * self.batch_size : (s + 1) * self.batch_size][rows]
             yield {
                 "input_ids": self.input_ids[sel],
                 "attention_mask": self.attention_mask[sel],
@@ -91,18 +96,20 @@ class SyntheticVQAClient:
                 "target_scores": self.target_scores[sel],
             }
 
-    def eval_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def eval_batches(self, shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
         """Fixed-size eval batches, final batch zero-padded with a ``valid``
         mask (replaces the reference's gather + truncation,
         ``task_trainer.py:129-156``)."""
         start = self.num_train
         n = self.num_eval
         bs = self.val_batch_size
+        rows = shard_rows(bs, shard)
         for s in range(0, n, bs):
             sel = np.arange(start + s, start + min(s + bs, n))
             pad = bs - len(sel)
             valid = np.concatenate([np.ones(len(sel)), np.zeros(pad)]).astype(np.float32)
             sel = np.concatenate([sel, np.full(pad, start, dtype=sel.dtype)])
+            sel, valid = sel[rows], valid[rows]
             yield {
                 "input_ids": self.input_ids[sel],
                 "attention_mask": self.attention_mask[sel],
@@ -165,12 +172,14 @@ class SyntheticAlbefClient:
     def steps_per_epoch(self):
         return self.num_train // self.batch_size
 
-    def train_batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def train_batches(self, epoch: int = 0,
+                      shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
+        rows = shard_rows(self.batch_size, shard)
         rng = np.random.RandomState(self.seed * 1000 + epoch)
         idx = rng.permutation(self.num_train)
         A, La = self.max_answers_per_q, self.answer_len
         for s in range(self.steps_per_epoch):
-            sel = idx[s * self.batch_size : (s + 1) * self.batch_size]
+            sel = idx[s * self.batch_size : (s + 1) * self.batch_size][rows]
             B = len(sel)
             ans_ids = np.zeros((B, A, La), np.int32)
             ans_mask = np.zeros((B, A, La), np.int32)
@@ -188,13 +197,15 @@ class SyntheticAlbefClient:
                 "answer_weights": weights,
             }
 
-    def eval_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+    def eval_batches(self, shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
         start, n, bs = self.num_train, self.num_eval, self.val_batch_size
+        rows = shard_rows(bs, shard)
         for s in range(0, n, bs):
             sel = np.arange(start + s, start + min(s + bs, n))
             pad = bs - len(sel)
             valid = np.concatenate([np.ones(len(sel)), np.zeros(pad)]).astype(np.float32)
             sel = np.concatenate([sel, np.full(pad, start, dtype=sel.dtype)])
+            sel, valid = sel[rows], valid[rows]
             yield {
                 "pixel_values": self.pixel_values[sel],
                 "question_ids": self.question_ids[sel],

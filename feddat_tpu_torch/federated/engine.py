@@ -36,8 +36,9 @@ SIGTERM finishes the round in flight, checkpoints it and returns
 seeds each client's twin at its start and threads it through the plain
 step; the twin is not checkpointed, as in JAX.  ``batch_transform`` runs at
 step time, on the batch the prefetch handed over (it returns a new dict).
-Tensor parallelism (``tp_mesh``) is a later slice (ROADMAP Queue 1, item 12)
-and raises ``NotImplementedError``.
+Tensor parallelism (``tp_mesh``) is a later slice (ROADMAP Queue 1, item
+12b) and raises ``NotImplementedError``; the engine over a (client, data)
+mesh of ranks is ``federated/spmd.py``.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ class FederatedTrainer:
         ``batch_transform(batch, epoch, step, steps_per_epoch)`` rewrites
         each batch (the distillation alpha ramp)."""
         if tp_mesh is not None:
-            raise _later("tensor parallelism (tp_mesh)", "12, distribution")
+            raise _later("tensor parallelism (tp_mesh)", "12b, tensor parallelism")
         if type(model).__name__ not in ("ViltContinualLearner", "AlbefModel"):
             raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
         check_dropout_rng(config.dropout_rng)
@@ -182,16 +183,18 @@ class FederatedTrainer:
                     b["total"], b["trainable"], b["trainable_pct"], b["communicated"], b["personal"])
 
     @staticmethod
-    def _build_fused_dat_step(model, params, task_key, part, opt_cfg, max_steps):
+    def _build_fused_dat_step(model, params, task_key, part, opt_cfg, max_steps, data_group=None):
         """The fused DAT step (one ensemble encoder pass, ``engine.py:206-262``):
         ALBEF's through ``make_albef_fused_dat_step`` with the client's
         partitioner; ViLT's encoder and head, stochastic where the model has
-        live dropout (``check_fused_dropout`` logs the one deviation)."""
+        live dropout (``check_fused_dropout`` logs the one deviation).  The
+        SPMD engine builds its step here too, with its ``data_group``."""
         if type(model).__name__ == "AlbefModel":
-            return make_albef_fused_dat_step(model, params, opt_cfg, max_steps, part=part)[0]
+            return make_albef_fused_dat_step(model, params, opt_cfg, max_steps, part=part,
+                                             data_group=data_group)[0]
         live = check_fused_dropout(model, carries=True)
         return make_dat_train_step_fused(*make_vilt_fused_parts(model, task_key, live > 0.0), part,
-                                         opt_cfg, max_steps)
+                                         opt_cfg, max_steps, data_group=data_group)
 
     def _client_params(self, client: ClientRuntime, refresh: bool = True) -> Dict[str, torch.Tensor]:
         """Server params with the client's personal partition swapped in;

@@ -29,14 +29,12 @@ from feddat_tpu_torch.data.albef_pipeline import encode_answer_bank
 from feddat_tpu_torch.data.images import albef_resized_u8, pack_u8_canvas, vilt_resized_u8
 from feddat_tpu_torch.data.text import pre_question
 from feddat_tpu_torch.device import DeviceLike, resolve_device
+from feddat_tpu_torch.federated.spmd import FED_HEAD_KEY  # the SPMD clients' one head
 from feddat_tpu_torch.peft.partition import merge
 from feddat_tpu_torch.train.compiled import Compiled
 from feddat_tpu_torch.utils.checkpointing import load_meta, restore_federated_state
 from feddat_tpu_torch.utils.param_bridge import albef_from_flax, vilt_from_flax
 
-# the SPMD engine's clients share one head module, task_<FED_HEAD_KEY>
-# (feddat_tpu/federated/spmd.py:51)
-FED_HEAD_KEY = "fed"
 
 
 def _load_checkpoint_recipe(checkpoint_dir: str, task_key: Optional[str], device: torch.device):

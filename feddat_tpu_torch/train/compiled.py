@@ -43,7 +43,11 @@ later calls only replay it.  Every failure to capture or replay raises.
   alike), so a call that passes them in again copies nothing; eagerly
   (:func:`disable_graphs`) they are the copies the last eager call updated.
   After the warm-up call of a capture the buffers are filled again (from a
-  snapshot when the caller passed the buffers themselves).
+  snapshot when the caller passed the buffers themselves).  A resident dict
+  comes back as a :class:`ResidentDict` tagged with the program's call
+  count: passing one that an earlier call handed back, after a later call
+  has updated its tensors in place, raises, as JAX raises on a donated
+  buffer used again.
 * **Generators**: an entry owns one ``torch.Generator`` per stage, registered
   with its graph and seeded from the prologue's seeds before every replay,
   so the masks are a function of the step's seed, as in eager mode.
@@ -60,6 +64,12 @@ later calls only replay it.  Every failure to capture or replay raises.
 * **Other threads**: a capture holds :data:`capture_lock`; a thread that
   calls into CUDA while graphs may be captured (the batch prefetch) takes it
   around those calls.
+* **Collectives** (``collectives=True``: a body that all-reduces over a
+  ``torch.distributed`` group, the SPMD engine's steps) are captured with the
+  rest of the body, NCCL's launches included, in the "thread_local" capture
+  mode: the process group's watchdog thread calls into CUDA (it queries its
+  events) while a capture may run, and that mode confines the capture's
+  rules to the capturing thread.
 * **Memory**: every graph allocates from one pool
   (``torch.cuda.graph_pool_handle()``); the graphs never run concurrently and
   their outputs are copied out before another graph replays.
@@ -166,6 +176,27 @@ def _graph_device(leaves: Sequence[torch.Tensor]) -> torch.device:
     return next((t.device for t in leaves if t.is_cuda), torch.device("cpu"))
 
 
+class ResidentDict(dict):
+    """A resident subtree as a program handed it back, with the program's
+    call count at that time (its generation)."""
+
+    __slots__ = ("program", "generation")
+
+
+def _tag_resident(tree, ids, program: "Program"):
+    """``tree`` with every dict whose tensors are all in ``ids`` (the resident
+    tensors of the call) made a :class:`ResidentDict` of this generation."""
+    if isinstance(tree, dict):
+        if tree and all(isinstance(v, torch.Tensor) and id(v) in ids for v in tree.values()):
+            out = ResidentDict(tree)
+            out.program, out.generation = program, program.generation
+            return out
+        return {k: _tag_resident(v, ids, program) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tag_resident(v, ids, program) for v in tree)
+    return tree
+
+
 class _Entry:
     """One input signature of a program: its static buffers, generators and,
     on the card, its graph, static outputs and launch counts per replay."""
@@ -187,14 +218,18 @@ class Program:
     """``body(inputs, gens) -> outputs``, run from static buffers: replayed as a
     CUDA graph on the card, eagerly on the CPU (module docstring)."""
 
-    def __init__(self, body: Callable, name: str, resident: Sequence[str] = ()):
+    def __init__(self, body: Callable, name: str, resident: Sequence[str] = (),
+                 collectives: bool = False):
         self.body = body
         self.name = name
         self.resident = frozenset(resident)
+        self.collectives = collectives
         self.entries: Dict[Hashable, _Entry] = {}
         self.bufs: Dict[tuple, torch.Tensor] = {}
         # the resident tensors the last eager call updated, by id
         self.eager_resident: Dict[int, torch.Tensor] = {}
+        # calls that handed back resident tensors
+        self.generation = 0
 
     def _buf(self, path: tuple, t: torch.Tensor, device: torch.device) -> torch.Tensor:
         """The static buffer of one input: a normal tensor even when it is
@@ -220,9 +255,29 @@ class Program:
                  for t, s, r in zip(moved, leaves, resident)]
         self.eager_resident = {id(t): t for t, r in zip(moved, resident) if r}
         STATS["eager"] += 1
-        return self.body(_unflatten(struct, iter(moved)), [stage_generator(s, device) for s in seeds])
+        out = self.body(_unflatten(struct, iter(moved)), [stage_generator(s, device) for s in seeds])
+        return self._next_generation(out, self.eager_resident)
+
+    def _check_fresh(self, inputs) -> None:
+        """Raise on a resident input that an earlier call of this program
+        handed back: a later call has updated its tensors in place since."""
+        for key in self.resident if isinstance(inputs, dict) else ():
+            held = inputs.get(key)
+            if (isinstance(held, ResidentDict) and held.program is self
+                    and held.generation != self.generation):
+                raise RuntimeError(
+                    f"{self.name}: resident input {key!r} of call {held.generation} passed again "
+                    f"after call {self.generation} updated its tensors in place (a donated "
+                    "buffer used again); pass the state the last call returned")
+
+    def _next_generation(self, out, resident_ids):
+        if not self.resident:
+            return out
+        self.generation += 1
+        return _tag_resident(out, resident_ids, self)
 
     def __call__(self, inputs, seeds: Sequence[int] = ()):
+        self._check_fresh(inputs)
         if not _ENABLED:
             return self.eager(inputs, seeds)
         leaves: List[torch.Tensor] = []
@@ -252,19 +307,21 @@ class Program:
             kernel.launches += n
         return self._hand_back(entry, entry.out_struct, entry.out_leaves, leaves)
 
-    @staticmethod
-    def _hand_back(entry: _Entry, struct, out_leaves, leaves):
+    def _hand_back(self, entry: _Entry, struct, out_leaves, leaves):
         """Outputs that are static input buffers -> the caller's tensors, or
         the buffers themselves where the input is resident; every other
         output -> a copy."""
-        picked = []
+        picked, resident_ids = [], set()
         for t in out_leaves:
             i = entry.by_buffer.get(id(t))
             if i is None:
                 picked.append(t.clone())
+            elif entry.resident[i]:
+                picked.append(entry.bufs[i])
+                resident_ids.add(id(entry.bufs[i]))
             else:
-                picked.append(entry.bufs[i] if entry.resident[i] else leaves[i])
-        return _unflatten(struct, iter(picked))
+                picked.append(leaves[i])
+        return self._next_generation(_unflatten(struct, iter(picked)), resident_ids)
 
     def _capture(self, entry: _Entry, seeds: Sequence[int], leaves: Sequence[torch.Tensor]) -> None:
         global _POOL, _STREAM
@@ -296,7 +353,8 @@ class Program:
         del resident
         warm = _counts()
         _seed(entry.gens, seeds)
-        with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM):
+        mode = "thread_local" if self.collectives else "global"
+        with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM, capture_error_mode=mode):
             out = self.body(entry.inputs, entry.gens)
         after = _counts()
         entry.launches = [(k, a - w) for k, a, w in zip(KERNELS, after, warm) if a != w]
@@ -315,12 +373,13 @@ class Compiled:
     Without an epilogue the outputs are the result.  ``key``, where the
     maker gives one, names the function the body computes (two makers that
     give equal keys build interchangeable bodies).  ``resident`` names the
-    top-level input keys that are donated (module docstring)."""
+    top-level input keys that are donated; ``collectives`` marks a body that
+    all-reduces (module docstring)."""
 
     def __init__(self, body: Callable, prologue: Callable, epilogue: Optional[Callable] = None,
                  name: str = "compiled", key: Optional[Hashable] = None,
-                 resident: Sequence[str] = ()):
-        self.program = Program(body, name, resident)
+                 resident: Sequence[str] = (), collectives: bool = False):
+        self.program = Program(body, name, resident, collectives)
         self.prologue = prologue
         self.epilogue = epilogue
         self.key = key

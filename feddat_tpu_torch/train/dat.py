@@ -32,6 +32,15 @@ state gives the same masks; ``torch.manual_seed`` changes nothing.
 ``TrainConfig.dropout_rng`` selects nothing here: "threefry" and "rbg" (the
 TPU's hardware bit generator in JAX) give the same torch generators
 (``utils/seeding.py::check_dropout_rng``).
+
+Data parallelism: every ``make_*`` takes an optional ``data_group``, the
+``torch.distributed`` group of the ranks that train one client on their own
+rows of its batch (the SPMD engine's data axis, ``federated/spmd.py``).  With
+a group, each gradient set is averaged over it in fp32 (:func:`mean_over`)
+where JAX's cores apply ``pmean`` over the data axis: after the gradients,
+before AdamW; the scalar metrics are averaged too.  The all-reduce runs
+inside the device body, so a replayed graph holds it.  Without a group the
+body is the one above.
 """
 
 from __future__ import annotations
@@ -69,6 +78,25 @@ Params = Dict[str, torch.Tensor]
 _STACKS = ("layers", "blocks", "text_layers", "fusion_layers")
 # ViT embedding tensors that live outside any *embeddings* module
 _VISION_EMBEDS = ("patch_embed", "pos_embed", "cls_token")
+
+
+def mean_over(group, *subs: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Each tensor of ``subs`` averaged over the ranks of ``group`` in fp32
+    (JAX's ``pmean``): one flat buffer, one all-reduce (it runs in a group of
+    one too), the sum divided by the group's size and cast back to each
+    tensor's dtype."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for s in subs for t in s.values()])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    out, i = [], 0
+    for sub in subs:
+        out.append({})
+        for k, t in sub.items():
+            out[-1][k] = flat[i:i + t.numel()].view(t.shape).to(t.dtype)
+            i += t.numel()
+    return tuple(out)
 
 
 def _frozen_bottom(names, layers_to_freeze: int) -> Callable[[str], bool]:
@@ -182,7 +210,7 @@ def _scalars(sc: torch.Tensor, updates: Dict[str, int]):
 
 def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], float],
                  n_stages: int, updates: Dict[str, int], name: str,
-                 aux: bool = False) -> Compiled:
+                 aux: bool = False, data_group=None) -> Compiled:
     """``step(state, batch) -> (new state, metrics)`` around a device body
     (``train/compiled.py``).  ``updates`` maps each optimizer partition to the
     number of its updates per step; the schedule advances by the largest.
@@ -198,8 +226,18 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
     schedule, rng, aux) and adds the last lr to the metrics.  The aux tensors
     are resident (``train/compiled.py``): the new state holds the program's
     own tensors, which the next step updates in place without a copy; a twin
-    passed in for the first time is copied, never written."""
+    passed in for the first time is copied, never written.  With a
+    ``data_group`` the body's scalar metrics are averaged over it."""
     n_lr = max(updates.values())
+    if data_group is not None:
+        inner = body
+
+        def body(inp, gens):
+            out = inner(inp, gens)
+            keys = [k for k, v in out.items() if k not in ("params", "opt", "aux", "grads")
+                    and isinstance(v, torch.Tensor) and v.dim() == 0]
+            (means,) = mean_over(data_group, {k: out[k] for k in keys})
+            return {**out, **means}
 
     def prologue(state: TrainState, batch: Dict[str, Any]):
         rng, seeds = split_rng(state.rng, n_stages)
@@ -227,14 +265,15 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
         metrics["lr"] = lr
         return new_state, metrics
 
-    return Compiled(body, prologue, epilogue, name, resident=("aux",) if aux else ())
+    return Compiled(body, prologue, epilogue, name, resident=("aux",) if aux else (),
+                    collectives=data_group is not None)
 
 
 _DAT_UPDATES = {"shared": 1, "local": 1, "head": 2}
 
 
 def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerConfig,
-                        max_steps: int) -> Compiled:
+                        max_steps: int, data_group=None) -> Compiled:
     """The standard DAT step (``dat_step_core``): ``forward(params, batch,
     adapter_mode, gen) -> (task_loss, logits)``, three forwards, two updates."""
     tx = adamw_direction(opt_cfg)
@@ -255,6 +294,8 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
                                     "adapter_1", d1)
         l1 = (task_l1 + kd_kl_loss(logits_1, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared, head)
+        if data_group is not None:
+            g_shared, g_head2 = mean_over(data_group, g_shared, g_head2)
         new_shared, m_shared = _update(tx, g_shared, opt["shared"], _detached(shared), lr1,
                                        bcs["shared"][0])
         head, m_head = _update(tx, g_head2, opt["head"], _detached(head), lr1, bcs["head"][0])
@@ -268,6 +309,8 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
                                     MODE_ENSEMBLE, d2)
         l0 = (task_l0 + kd_kl_loss(logits_0, logits_1)) / 2.0
         g_local, g_head = _grads(l0, local, head)
+        if data_group is not None:
+            g_local, g_head = mean_over(data_group, g_local, g_head)
         new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
                                      bcs["local"][0])
         head, m_head = _update(tx, g_head, m_head, _detached(head), lr0, bcs["head"][1])
@@ -278,11 +321,12 @@ def make_dat_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerCon
                 "grads": grads}
 
     return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 3, _DAT_UPDATES,
-                        "dat_step")
+                        "dat_step", data_group=data_group)
 
 
 def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Partitioner,
-                              opt_cfg: OptimizerConfig, max_steps: int) -> Compiled:
+                              opt_cfg: OptimizerConfig, max_steps: int,
+                              data_group=None) -> Compiled:
     """DAT step with ONE ensemble encoder pass (``dat_step_core_fused``,
     dat.py:311-415): between ① and ③ only the head changes, so the pass's
     pooled features give the teacher logits (old head) and its saved graph
@@ -317,6 +361,8 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
         logits = head_fn(head_l, pooled1)
         l1 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_all)) / 2.0
         g_shared, g_head2 = _grads(l1, shared_l, head_l)
+        if data_group is not None:
+            g_shared, g_head2 = mean_over(data_group, g_shared, g_head2)
         new_shared, m_shared = _update(tx, g_shared, opt["shared"], shared, lr1, bcs["shared"][0])
         head, m_head = _update(tx, g_head2, opt["head"], head, lr1, bcs["head"][0])
         params = P.merge_into(P.merge_into(params, new_shared), head)
@@ -327,6 +373,8 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
         logits = head_fn(head_l, pooled)
         l0 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_1)) / 2.0
         g_head, g_local = _grads(l0, head_l, local)
+        if data_group is not None:
+            g_local, g_head = mean_over(data_group, g_local, g_head)
         new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
                                      bcs["local"][0])
         head, m_head = _update(tx, g_head, m_head, head, lr0, bcs["head"][1])
@@ -336,14 +384,14 @@ def make_dat_train_step_fused(encode_fn, head_fn, task_loss_fn, partitioner: Par
                 "loss": l0.detach(), "loss_shared": l1.detach(), "grads": grads}
 
     return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 2, _DAT_UPDATES,
-                        "dat_step_fused")
+                        "dat_step_fused", data_group=data_group)
 
 
 def make_dat_train_step_joint(encode_fn, head_fn, task_loss_fn, partitioner: Partitioner,
                               opt_cfg: OptimizerConfig, max_steps: int,
                               adapter_names: Sequence[str] = ("adapter_0", "adapter_1", "adapter_2"),
                               ensemble_weight: float = 0.5,
-                              adapter_scaling: float = 1.0) -> Compiled:
+                              adapter_scaling: float = 1.0, data_group=None) -> Compiled:
     """DAT step as ONE mega-batched encoder pass and ONE backward
     (``dat_step_core_joint``, dat.py:418-591).  The ensemble pass and the
     adapter_1 pass use disjoint adapters, so they run as one pass over 2B
@@ -405,6 +453,8 @@ def make_dat_train_step_joint(encode_fn, head_fn, task_loss_fn, partitioner: Par
         logits = head_fn(head_l, pooled_1)
         l1 = (task_loss_fn(logits, batch) + kd_kl_loss(logits, logits_all)) / 2.0
         g_head2, g_pooled_1 = _grads(l1, head_l, {"pooled": pooled_1})
+        if data_group is not None:
+            (g_head2,) = mean_over(data_group, g_head2)
         head, m_head = _update(tx, g_head2, opt["head"], head, lr1, bcs["head"][0])
         logits_1 = logits.detach()
 
@@ -419,6 +469,8 @@ def make_dat_train_step_joint(encode_fn, head_fn, task_loss_fn, partitioner: Par
         flat = torch.autograd.grad(pooled2, [*local.values(), *shared.values()], cot)
         g_local = dict(zip(local, flat[:len(local)]))
         g_shared = dict(zip(shared, flat[len(local):]))
+        if data_group is not None:
+            g_local, g_shared, g_head = mean_over(data_group, g_local, g_shared, g_head)
         new_shared, m_shared = _update(tx, g_shared, opt["shared"], _detached(shared), lr1,
                                        bcs["shared"][0])
         new_local, m_local = _update(tx, g_local, opt["local"], _detached(local), lr0,
@@ -430,12 +482,12 @@ def make_dat_train_step_joint(encode_fn, head_fn, task_loss_fn, partitioner: Par
                 "loss": l0.detach(), "loss_shared": l1.detach(), "grads": grads}
 
     return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 1, _DAT_UPDATES,
-                        "dat_step_joint")
+                        "dat_step_joint", data_group=data_group)
 
 
 def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerConfig,
                           max_steps: int, adapter_mode: str = "none",
-                          aux_forward: bool = False) -> Compiled:
+                          aux_forward: bool = False, data_group=None) -> Compiled:
     """One forward/backward/update for the non-DAT modes (``plain_step_core``,
     ``task_trainer.py:433-450``).  The gradient covers the trainable
     partition only.
@@ -462,6 +514,8 @@ def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerC
         else:
             loss, _ = forward(full, inp["batch"], adapter_mode, gens[0])
         (grads,) = _grads(loss, trainable)
+        if data_group is not None:
+            (grads,) = mean_over(data_group, grads)
         new_trainable, moments = _update(tx, grads, inp["opt"]["trainable"], _detached(trainable),
                                          lr, bcs["trainable"][0])
         return {"params": P.merge_into(params, new_trainable), "opt": {"trainable": moments},
@@ -469,4 +523,4 @@ def make_plain_train_step(forward, partitioner: Partitioner, opt_cfg: OptimizerC
 
     return compile_step(body, tx, polynomial_schedule(opt_cfg, max_steps), 2 if aux_forward else 1,
                         updates, "plain_step_distill" if aux_forward else "plain_step",
-                        aux=aux_forward)
+                        aux=aux_forward, data_group=data_group)

@@ -148,16 +148,18 @@ def albef_fused_parts(model, frozen_rest: Dict[str, torch.Tensor], pad_token_id:
 
 
 def make_albef_fused_dat_step(model, params: Dict[str, torch.Tensor], opt_cfg, max_steps: int,
-                              pad_token_id: int = 0, part: Optional[Partitioner] = None):
+                              pad_token_id: int = 0, part: Optional[Partitioner] = None,
+                              data_group=None):
     """-> (fused ALBEF DAT step, its partitioner).  Exact against the standard
     step when dropout is off; with live dropout the masks are threaded
-    through both encoder passes (:func:`check_fused_dropout`)."""
+    through both encoder passes (:func:`check_fused_dropout`).  ``data_group``:
+    the gradient mean of the SPMD engine's data axis (``train/dat.py``)."""
     live = check_fused_dropout(model, carries=True)
     if part is None:
         part = Partitioner(params, "fed", PEFTMode.DAT)
     _, frozen_rest = split_by_roles(params, label_params(params), frozenset({"head"}))
     step = make_dat_train_step_fused(*albef_fused_parts(model, frozen_rest, pad_token_id, live > 0.0),
-                                     part, opt_cfg, max_steps)
+                                     part, opt_cfg, max_steps, data_group=data_group)
     return step, part
 
 

@@ -134,6 +134,10 @@ class MetricsLogger:
             self._samples = 0
             self._emit(rec)
 
+    def logs_next(self) -> bool:
+        """Whether the next :meth:`step` writes a record (reads its metrics)."""
+        return (self._step + 1) % self.log_every == 0
+
     def round(self, round_idx: int, scores: Dict[str, Any], wall_s: float):
         self._emit({"kind": "round", "round": round_idx, "scores": scores, "wall_s": wall_s})
 

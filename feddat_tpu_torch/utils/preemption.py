@@ -12,9 +12,10 @@ checkpoint directory::
             if stop.requested:
                 break
 
-The multi-process consensus of the JAX package (``any_process_requested``)
-belongs to its SPMD engine, which the port does not have yet (ROADMAP
-Queue 1, item 12).
+The SPMD engine (``federated/spmd.py``) runs one process per device: every
+rank asks :meth:`GracefulPreemption.any_process_requested`, a collective,
+at the same round boundary, so that all of them leave the round loop
+together.
 """
 
 from __future__ import annotations
@@ -57,3 +58,20 @@ class GracefulPreemption:
             signal.signal(s, prev)
         self._prev.clear()
         return False
+
+    def any_process_requested(self) -> bool:
+        """True when any rank of the initialised process group latched a
+        signal: one all-reduce (MAX) of the local flag over the world, which
+        every rank must call at the same point (a rank that left the round
+        loop alone would leave the others waiting at their next collective).
+        In a world of one, or with no group, just the local flag."""
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self.requested
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        flag = torch.tensor([1 if self.requested else 0], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())

@@ -11,7 +11,12 @@ byte, the ``step`` records' losses (rtol 1e-4), the history's scores (atol
 reason).  Also: the launch scripts' flags parse through the port's parser,
 which has every flag of JAX's; each refusal exits before a model is built;
 ``--do_single``; a relaunch resumes; ``--pretrained_model_name`` gives the
-backbone that the JAX CLI's conversion gives."""
+backbone that the JAX CLI's conversion gives.  ``--engine spmd`` in a world
+of one (gloo, in this process) against the JAX CLI's ``--engine spmd
+--mesh_data 1`` on one device: the step losses (rtol 1e-4), the scores
+(atol 1e-9) and the checkpoint's stacked client bank (rtol 1e-4, atol
+lr/50); a mesh larger than the world raises JAX's error, ``--multihost``
+without a rendezvous and the engine's other guards stop before any model."""
 
 import json
 import os
@@ -25,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+
+import torch.distributed as dist
 
 import feddat_tpu.cli as jcli
 import feddat_tpu_torch.cli as tcli
@@ -237,12 +244,7 @@ def test_the_parser_has_every_jax_flag():
 
 
 REFUSALS = [
-    (["--engine", "spmd"], "item 12"),
-    (["--multihost"], "item 12"),
-    (["--tp", "2"], "item 12"),
-    (["--mesh_clients", "2"], "item 12"),
-    (["--mesh_data", "2"], "item 12"),
-    (["--spmd_full_epochs"], "item 12"),
+    (["--tp", "2"], "item 12b"),
     (["--encoder_name", "viltbert"], "item 10"),
     (["--ordered_cl_tasks", "torch_cli_nlvr2"], "item 10"),
     (["--device", "cuda", "--dtype", "float32", "--attn_impl", "layer"], "Queue 3"),
@@ -264,6 +266,94 @@ def test_refusals_exit_before_a_model_is_built(extra, item, task, tmp_path, monk
     with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP .*{item}"):
         tcli.main(argv + extra)
     assert not (tmp_path / "logs").exists()
+
+
+TWO = f"{TASK},torch_cli_task2"
+SPMD_ERRORS = [
+    (["--engine", "spmd", "--ordered_cl_tasks", TWO, "--mesh_data", "1"], ValueError,
+     "^need 2 devices, have 1$"),
+    (["--engine", "spmd", "--ordered_cl_tasks", TWO], ValueError,
+     "^1 devices not divisible by 2 clients$"),
+    (["--engine", "spmd", "--mesh_clients", "2", "--mesh_data", "1"], ValueError,
+     "^need 2 devices, have 1$"),
+    (["--engine", "spmd", "--mesh_data", "2"], ValueError, "^need 2 devices, have 1$"),
+    (["--multihost"], RuntimeError, "refusing to fall back to a world of one"),
+    (["--engine", "spmd", "--do_single"], ValueError, "--do_single is a per-task centralized"),
+    (["--engine", "spmd", "--canvas_bucket"], SystemExit, "--canvas_bucket emits per-batch"),
+]
+
+
+@pytest.mark.parametrize("extra,error,match", SPMD_ERRORS,
+                         ids=[" ".join(e).replace(TWO, "2 tasks") for e, _, _ in SPMD_ERRORS])
+def test_spmd_errors_come_before_a_model_is_built(extra, error, match, task, tmp_path, monkeypatch):
+    """The mesh's errors are JAX's word for word (a world of one here), and
+    the process group the launch started is gone after them."""
+    register("torch_cli_task2", tmp_path)
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+
+    def never(*a, **kw):
+        raise AssertionError("a model or client was built")
+
+    for fn in ("build_model", "build_clients", "init_params"):
+        monkeypatch.setattr(tcli, fn, never)
+    argv = ["--encoder_name", "vilt", "--ordered_cl_tasks", TASK, "--device", "cpu",
+            "--output_dir", str(tmp_path / "logs")]
+    with pytest.raises(error, match=match):
+        tcli.main(argv + extra)
+    assert not (tmp_path / "logs").exists() and not dist.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def spmd_runs(task, tmp_path_factory):
+    """Both CLIs' ``--engine spmd`` on one client: JAX on one device of a
+    (1, 1) mesh, the port in a world of one."""
+    data_root, vocab_file = task
+    out_j, out_t = tmp_path_factory.mktemp("jax_spmd"), tmp_path_factory.mktemp("port_spmd")
+    spmd = ("--engine", "spmd", "--mesh_data", "1")
+    with pytest.MonkeyPatch.context() as mp:
+        seen = jax_initial_params(mp)
+        assert jcli.main(smoke_argv(data_root, vocab_file, out_j, *spmd)) == 0
+        start = vilt_from_flax(jax.tree_util.tree_map(np.asarray, seen["params"]))
+        mp.setattr(tcli, "init_params", lambda args, model, cfg: dict(start))
+        assert tcli.main(smoke_argv(data_root, vocab_file, out_t, "--device", "cpu", *spmd)) == 0
+    assert not dist.is_initialized()
+    return out_j, out_t
+
+
+def test_spmd_launch_matches_jax_steps_and_scores(spmd_runs):
+    j_steps, t_steps = (_records(o, "step") for o in spmd_runs)
+    assert len(t_steps) == len(j_steps) == ROUNDS * 2
+    for j, t in zip(j_steps, t_steps):
+        assert (t["task"], t["step"]) == (j["task"], j["step"]) == ("spmd", t["step"])
+        for k in ("loss", "loss_shared", "lr"):
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=f"step {j['step']}: {k}")
+    j_hist, t_hist = (json.loads((o / "logs" / _one(o / "logs", ".history.json")).read_text())
+                      for o in spmd_runs)
+    assert [e["round"] for e in t_hist] == [e["round"] for e in j_hist] == list(range(ROUNDS))
+    for j, t in zip(j_hist, t_hist):
+        np.testing.assert_allclose(t["scores"][TASK], j["scores"][TASK], rtol=0, atol=1e-9)
+
+
+def test_spmd_checkpoint_is_jaxs_stacked_client_bank(spmd_runs):
+    from feddat_tpu.utils.checkpointing import restore_federated_state as jax_restore
+    from feddat_tpu_torch.utils.checkpointing import load_meta, restore_federated_state
+
+    out_j, out_t = spmd_runs
+    assert load_meta(str(out_t / "ckpt"))["engine"] == "spmd"
+    assert (out_t / "ckpt" / "meta.json").read_bytes() == (out_j / "ckpt" / "meta.json").read_bytes()
+    rnd_j, backbone_j, personal_j, _ = jax_restore(str(out_j / "ckpt"))
+    rnd_t, backbone_t, personal_t, _ = restore_federated_state(str(out_t / "ckpt"), device="cpu")
+    assert rnd_j == rnd_t == ROUNDS - 1 and set(personal_t) == {"stacked_clients"}
+    for got, want in ((backbone_t, backbone_j),
+                      ({k: v[0] for k, v in personal_t["stacked_clients"].items()},
+                       jax.tree_util.tree_map(lambda x: np.asarray(x)[0],
+                                              personal_j["stacked_clients"]))):
+        want = vilt_from_flax(jax.tree_util.tree_map(np.asarray, want))
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-4, atol=LR / 50,
+                                       err_msg=k)
 
 
 def test_float32_on_the_plain_route_or_the_cpu_is_not_refused(tmp_path):

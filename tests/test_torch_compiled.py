@@ -18,7 +18,10 @@ eagerly; and the shape gates that route sites off a kernel's limits.
 * (e) ALBEF with dropout live through the plumbing: the same state gives
   bitwise equal steps, another seed other losses;
 * (f) the gates of #4's, #2's and the block route's shape limits;
-* the predictors and an eval step called inside ``torch.inference_mode()``."""
+* the predictors and an eval step called inside ``torch.inference_mode()``;
+* a resident input handed back by an earlier call and passed again after a
+  later call updated it in place raises, graphs on or off, as JAX raises on
+  a donated buffer used again."""
 
 import contextlib
 import logging
@@ -400,3 +403,30 @@ def test_compiled_calls_run_inside_inference_mode(call, vilt, weights):
     for got in outs:
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["plumbing", "eager"])
+def test_a_stale_resident_input_raises(graphs):
+    """Each call hands the resident dict back tagged with its generation: the
+    last one passes again (and is updated in place), an older one raises; a
+    fresh dict is copied and never written."""
+    def body(inp, gens):
+        inp["aux"]["t"].add_(inp["x"])
+        return {"aux": inp["aux"], "y": inp["aux"]["t"] * 2}
+
+    prog = compiled.Program(body, "resident_probe", resident=("aux",))
+    seed = {"t": torch.zeros(3)}
+    ctx = contextlib.nullcontext() if graphs else compiled.disable_graphs()
+    with ctx:
+        first = prog({"aux": seed, "x": torch.ones(3)})
+        second = prog({"aux": first["aux"], "x": torch.ones(3)})
+        assert isinstance(second["aux"], compiled.ResidentDict)
+        assert second["aux"]["t"] is first["aux"]["t"]
+        np.testing.assert_array_equal(second["y"].numpy(), np.full(3, 4.0))
+        with pytest.raises(RuntimeError, match="resident input 'aux' of call 1 passed again after call 2"):
+            prog({"aux": first["aux"], "x": torch.ones(3)})
+        third = prog({"aux": second["aux"], "x": torch.ones(3)})
+        np.testing.assert_array_equal(third["aux"]["t"].numpy(), np.full(3, 3.0))
+        fresh = prog({"aux": {"t": torch.zeros(3)}, "x": torch.ones(3)})
+        np.testing.assert_array_equal(fresh["aux"]["t"].numpy(), np.ones(3))
+    assert torch.equal(seed["t"], torch.zeros(3))

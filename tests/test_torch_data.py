@@ -34,6 +34,7 @@ from feddat_tpu_torch.data import datasets, images
 from feddat_tpu_torch.data.albef_pipeline import AlbefVQAPipeline
 from feddat_tpu_torch.data.make_labels import VQAV2_ANNOTATION_FILES, create_vqa_labels
 from feddat_tpu_torch.data.pipeline import ViltVQAPipeline, iter_eval_chunks, prefetch_to_device
+from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient, SyntheticVQAClient
 from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -312,6 +313,42 @@ def test_albef_pipeline_batches_are_bitwise_jax(image_dir, pixels_u8, cache_imag
     _assert_batches_equal(port.eval_batches(), jax.eval_batches())
     weights = next(port.train_batches(0))["answer_weights"]
     np.testing.assert_allclose(weights.sum(-1), 1.0, rtol=1e-6)
+
+
+def _port_client(kind, image_dir):
+    """A port client with train and eval batches of 4 rows."""
+    if kind == "albef":
+        return AlbefVQAPipeline(_examples(datasets), images.VizwizBackend(image_dir),
+                                WordPieceTokenizer.toy(WORDS), ANSWERS,
+                                eval_examples=_examples(datasets, 7, 1), image_size=32,
+                                max_question_len=8, max_answer_len=4, batch_size=4, seed=1,
+                                num_workers=2)
+    if kind.startswith("synthetic"):
+        return (SyntheticAlbefClient("t") if kind == "synthetic_albef"
+                else SyntheticVQAClient("t", num_eval=14))
+    return ViltVQAPipeline(_examples(datasets), images.VizwizBackend(image_dir),
+                           WordPieceTokenizer.toy(WORDS), num_labels=len(ANSWERS),
+                           max_text_len=10, canvas=(64, 96), batch_size=4, seed=2,
+                           eval_examples=_examples(datasets, 7, 1), num_workers=2,
+                           canvas_bucket=kind == "vilt_bucket")
+
+
+@pytest.mark.parametrize("kind", ["vilt", "vilt_bucket", "albef", "synthetic_vqa", "synthetic_albef"])
+def test_a_shard_assembles_its_rows_of_the_whole_batch(image_dir, kind):
+    """``shard=(d, D)`` (the SPMD engine's data rank d of D) gives rows
+    [d·B/D, (d+1)·B/D) of each whole batch, bitwise, eval padding included;
+    a batch that does not split raises."""
+    client = _port_client(kind, image_dir)
+    for whole_fn, part_fn in ((lambda: client.train_batches(5),
+                               lambda d: client.train_batches(5, shard=(d, 2))),
+                              (client.eval_batches, lambda d: client.eval_batches(shard=(d, 2)))):
+        whole, parts = list(whole_fn()), [list(part_fn(d)) for d in range(2)]
+        assert len(whole) == len(parts[0]) == len(parts[1]) > 0
+        for i, w in enumerate(whole):
+            _assert_batches_equal([{k: np.concatenate([parts[0][i][k], parts[1][i][k]])
+                                    for k in w}], [w])
+    with pytest.raises(ValueError, match="does not split over 3 data ranks"):
+        next(client.train_batches(0, shard=(0, 3)))
 
 
 def test_prefetch_on_the_cpu_hands_over_every_batch_as_tensors():
