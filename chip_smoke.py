@@ -150,8 +150,9 @@ Phases, in this order:
             scripts/train_vilt_tpu_tuned.sh and train_albef_tpu_tuned.sh
             (read from the scripts) and tests/fixtures/vocab30k.txt.  Two
             clients of ``--engine spmd`` on one card exit non-zero with
-            JAX's ``need 2 devices, have 1`` and float32 on ``"layer"``
-            naming its ROADMAP item, both before any model is built; the
+            JAX's ``need 2 devices, have 1``, and ``cli.main`` refuses
+            float32 on ``"layer"`` naming its ROADMAP item, both before
+            any model is built; the
             ViLT script's flags less ``--engine spmd`` (the sequential
             engine), one client, 2 rounds with --checkpoint_dir and
             --profile_dir: exit 0, the three DAT scores, step and round
@@ -160,8 +161,9 @@ Phases, in this order:
             ``--engine spmd`` (a world of one over NCCL), on the same client
             for 1 round unprofiled: exit 0, the ``(x1 clients stacked)``
             budget line, JAX's checkpoint layout (the stacked client bank)
-            and a round 0 bitwise the profiled sequential launch's; a
-            relaunch with --comm_rounds 3 resumes at round 2.  Host ms per
+            and a round 0 bitwise the profiled sequential launch's (the
+            CLI's resume is held on the CPU, tests/test_torch_cli.py, and
+            the engine's on the card by phase 12).  Host ms per
             batch through the CLI's own client builder with the u8 cache
             finalized by the native host core against numpy's finalize,
             bitwise equal;
@@ -222,6 +224,27 @@ Phases, in this order:
             all-reduce over a group of one launches no kernel; the NCCL
             kernels inside the replay over 4 cards are held by
             ``scripts/torch_spmd_cards.py``).
+16. classify — the ViLT family's other tasks (ROADMAP item 10), written
+            from --seed into a temporary directory in their reference
+            layouts (NLVR2 image pairs, SNLI-VE over Flickr30K ids, VCR's
+            four choices on drawn images, VQAv2 over COCO ids) and built by
+            the CLI's own ``build_clients``/``build_model``/``init_params``/
+            ``sequential_trainer`` with the tuned ViLT script's flags on the
+            sequential engine: full-width ViLT-B/32 DAT, bf16, "layer",
+            canvas 384x640 (S=281).  (a) NLVR2 (32 pairs, two encoder
+            passes per example, the second with modality type 2), SNLI-VE
+            (B=64) and VCR (B=64 x 4 choices) on the standard DAT step: one
+            step's gradient sets and losses per task, kernel path against
+            the plain path by the 2x-bf16 rule (VCR on 16 of its 64
+            examples); one round of 2 steps per client, FedAvg and
+            evaluate_dat, each client's #1/#4 launches per step (3 and 2 per
+            layer per encoder pass, no #3) and peak memory.  (b) ViLT-BERT
+            on the 5% low-shot VQAv2 client (u8 pixels normalised on the
+            card): one round of 2 fused steps (#1/#4 24 per step; its text
+            BERT deterministic there, as in JAX) and evaluate_dat, then 2
+            standard DAT steps with the BERT's dropout 0.1 live (equal
+            losses from one seed, others from another); text_bert bitwise
+            unchanged by both.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -3946,6 +3969,140 @@ def disk_pipeline(root, task, seed, tok):
                            pixels_u8=True)
 
 
+# The ViLT family's other tasks on disk, each in its reference layout under
+# its TaskSpec.data_dir: NLVR2 (image pairs), SNLI-VE (Flickr30K ids), VCR
+# (four choices, drawn images) and VQAv2 (COCO ids, the 5% low-shot client).
+# The counts are what the CLI's low-shot draws keep at B=64: NLVR2 and SNLI-VE
+# are under their per-class caps (all kept), VCR and VQAv2 keep 5%: 2 train
+# steps and one eval batch per client (NLVR2 at 32 pairs, the halved batch).
+CLS_TASKS = ("nlvr2", "snli-ve", "vcr")
+CLS_COUNTS = {"nlvr2": (64, 32), "snli-ve": (128, 64), "vcr": (2560, 1280), "vqa": (2560, 1280)}
+
+
+def write_classification_dataset(root, seed, counts=CLS_COUNTS, sizes=DISK_SIZES):
+    """Write the tasks of ``counts`` (train, eval examples) under ``root`` as
+    the port's loaders (``data/classification_datasets.py``,
+    ``datasets.load_vqav2_examples``) read them: one image per size in
+    ``sizes`` for each split, linked under every name an example needs."""
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.data.classification_datasets import SNLI_VE_CATEGORIES
+
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+
+    def pool(directory, ext):
+        """One image per size, written once per split."""
+        os.makedirs(directory, exist_ok=True)
+        paths = []
+        for i, (w, h) in enumerate(sizes):
+            coarse = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            path = os.path.join(directory, f"_pool_{i}.{ext}")
+            Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(path, compress_level=1)
+            paths.append(path)
+        return paths
+
+    def link(src, dst):
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        try:
+            os.link(src, dst)
+        except OSError:
+            shutil.copyfile(src, dst)
+
+    def sentence(lo=4, hi=14):
+        return " ".join(rng.choice(DISK_WORDS, size=rng.randint(lo, hi)))
+
+    def tagged(objects):
+        """A VCR token list: words, some replaced by an object tag [index]."""
+        return [[int(rng.randint(len(objects)))] if rng.rand() < 0.3 else str(w)
+                for w in sentence(3, 10).split()]
+
+    def jsonl(path, rows):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+
+    for task, (n_train, n_eval) in counts.items():
+        data_dir = os.path.join(root, TASK_CONFIGS[task].data_dir)
+        if task == "nlvr2":  # data/{train,dev}.json; images/<split>/<base>-img{0,1}.png
+            for split, n in (("train", n_train), ("dev", n_eval)):
+                images = pool(os.path.join(data_dir, "_pool", split), "png")
+                rows = []
+                for i in range(n):
+                    base = f"{split}-{i}-{i % 7}"
+                    for k in (0, 1):
+                        link(images[(2 * i + k) % len(images)],
+                             os.path.join(data_dir, "images", split, f"{base}-img{k}.png"))
+                    rows.append({"identifier": f"{base}-0", "sentence": sentence(),
+                                 "label": "True" if i % 2 else "False"})
+                jsonl(os.path.join(data_dir, "data", f"{split}.json"), rows)
+        elif task == "snli-ve":  # snli_ve_{split}.jsonl over flickr30k/images/<id>.jpg
+            flickr = os.path.join(root, "flickr30k", "images")
+            for s, (split, n) in enumerate((("train", n_train), ("dev", n_eval))):
+                images = pool(os.path.join(root, "flickr30k", "_pool", split), "jpg")
+                rows = []
+                for i in range(n):
+                    image_id = (s + 1) * 100000 + i // 3
+                    if i % 3 == 0:
+                        link(images[(i // 3) % len(images)], os.path.join(flickr, f"{image_id}.jpg"))
+                    rows.append({"Flickr30K_ID": str(image_id), "sentence2": sentence(),
+                                 "gold_label": SNLI_VE_CATEGORIES[(i + s) % 3]})
+                jsonl(os.path.join(data_dir, f"snli_ve_{split}.jsonl"), rows)
+        elif task == "vcr":  # annotation/{split}.jsonl; drawn_images/<split>/qa/<annot_id>.jpg
+            objects = ["person", "dog", "person", "car", "cup", "person"]
+            for split, n in (("train", n_train), ("val", n_eval)):
+                images = pool(os.path.join(data_dir, "_pool", split), "jpg")
+                # the texts come from a pool: most rows only feed the 5% draw
+                texts = [tagged(objects) for _ in range(64)]
+                rows = []
+                for i in range(n):
+                    annot_id = f"{split}-{i}"
+                    link(images[i % len(images)],
+                         os.path.join(data_dir, "drawn_images", split, "qa", f"{annot_id}.jpg"))
+                    q, *choices = [texts[j] for j in rng.randint(len(texts), size=9)]
+                    rows.append({"annot_id": annot_id, "objects": objects, "question": q,
+                                 "answer_choices": choices[:4],
+                                 "answer_label": int(rng.randint(4)),
+                                 "rationale_choices": choices[4:],
+                                 "rationale_label": int(rng.randint(4))})
+                jsonl(os.path.join(data_dir, "annotation", f"{split}.jsonl"), rows)
+        else:  # VQAv2: questions, annotations and ans2label.pkl; mscoco/<split>2014 by id
+            os.makedirs(data_dir, exist_ok=True)
+            with open(os.path.join(data_dir, "ans2label.pkl"), "wb") as f:
+                pickle.dump({a: j for j, a in enumerate(ALBEF_ANSWERS)}, f)
+            for s, (split, n) in enumerate((("train", n_train), ("val", n_eval))):
+                images = pool(os.path.join(root, "mscoco", "_pool", split), "jpg")
+                questions, annotations = [], []
+                texts = [sentence() for _ in range(64)]
+                for i in range(n):
+                    image_id = (s + 1) * 100000 + i % len(images)
+                    if i < len(images):
+                        link(images[i], os.path.join(root, "mscoco", f"{split}2014",
+                                                     f"COCO_{split}2014_{image_id:012d}.jpg"))
+                    qid = image_id * 1000 + i
+                    main = ALBEF_ANSWERS[(i * 7 + s) % len(ALBEF_ANSWERS)]
+                    k = rng.randint(5, DISK_CROWD + 1)
+                    crowd = [main] * k + [ALBEF_ANSWERS[a] for a in
+                                          rng.randint(0, len(ALBEF_ANSWERS), DISK_CROWD - k)]
+                    questions.append({"question_id": qid, "image_id": image_id,
+                                      "question": texts[rng.randint(len(texts))] + "?"})
+                    annotations.append({"question_id": qid, "image_id": image_id,
+                                        "answers": [{"answer": a} for a in crowd]})
+                with open(os.path.join(data_dir, f"v2_OpenEnded_mscoco_{split}2014_questions.json"),
+                          "w") as f:
+                    json.dump({"questions": questions}, f)
+                with open(os.path.join(data_dir, f"v2_mscoco_{split}2014_annotations.json"), "w") as f:
+                    json.dump({"annotations": annotations}, f)
+    print(f"classify: wrote {dict(counts)} (train, eval) examples on {len(sizes)} images per split "
+          f"and task in {time.perf_counter() - t0:.2f} s")
+
+
 def disk_key_bias(torch, root, seed):
     """The key bias the ViLT model builds for the first train batch of the
     fixture's first client ([TB, 1, 1, S], -10000 at padded text and image
@@ -4605,17 +4762,25 @@ def cli_albef_serving(torch, root, seed, ckpt):
 
 def cli_refusals(work, common):
     """Launches that exit non-zero before any model is built: two clients of
-    the SPMD engine on one card (JAX's mesh error) and float32 on "layer"
-    (ROADMAP Queue 3)."""
-    for flags, want in ((["--engine", "spmd", "--ordered_cl_tasks", CLI_TASKS, "--mesh_data", "1"],
-                         "ValueError: need 2 devices, have 1"),
-                        (["--dtype", "float32", "--attn_impl", "layer"], "ROADMAP Queue 3")):
-        out = work / "refused"
-        rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
-                                                         *common, *flags], work / "refused.log", 120)
-        print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
-        check(rc != 0 and want in text and not out.exists() and "params:" not in text,
-              f"{flags} was not refused up front")
+    the SPMD engine on one card (JAX's mesh error), in a process of its own;
+    float32 on "layer" (ROADMAP Queue 3), through ``cli.main`` here."""
+    from feddat_tpu_torch import cli
+
+    flags = ["--engine", "spmd", "--ordered_cl_tasks", CLI_TASKS, "--mesh_data", "1"]
+    out = work / "refused"
+    rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
+                                                     *common, *flags], work / "refused.log", 120)
+    print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
+    check(rc != 0 and "ValueError: need 2 devices, have 1" in text and not out.exists()
+          and "params:" not in text, f"{flags} was not refused up front")
+    flags = ["--dtype", "float32", "--attn_impl", "layer"]
+    try:
+        cli.main(["--encoder_name", "vilt", "--output_dir", str(out), *common, *flags])
+        message = "no refusal"
+    except SystemExit as e:
+        message = str(e)
+    print(f"cli: refused {' '.join(flags)}: {message}")
+    check("ROADMAP Queue 3" in message and not out.exists(), f"{flags} was not refused up front")
 
 
 def cli_spmd(torch, work, common, task, sequential_ckpt):
@@ -4696,16 +4861,6 @@ def phase_cli(torch, seed, root):
     # (d) the same script as it is, --engine spmd, unprofiled: round 0
     # bitwise (a)'s (profiling and the engine change nothing)
     cli_spmd(torch, work, common, task, ckpt)
-
-    # the relaunch with one round more resumes from --checkpoint_dir
-    argv += ["--comm_rounds", str(CLI_ROUNDS + 1)]
-    shutil.rmtree(profile)
-    rc, wall, t0, text = launch_cli("ViLT relaunch, --comm_rounds 3", argv, work / "vilt_resume.log")
-    check(rc == 0, "the ViLT relaunch failed")
-    history, records = cli_outputs(out, run_name.replace(f"rounds{CLI_ROUNDS}", f"rounds{CLI_ROUNDS + 1}"))
-    cli_timeline("ViLT relaunch", t0, wall, records)
-    check(f"resumed from checkpoint at round {CLI_ROUNDS - 1}" in text
-          and [e["round"] for e in history] == [CLI_ROUNDS], "the relaunch did not resume at round 2")
     cli_vilt_serving(torch, root, seed, str(ckpt))
     shutil.rmtree(ckpt)
 
@@ -5546,6 +5701,237 @@ def phase_spmd(torch, seed):
     return launches
 
 
+# Phase 16: the ViLT family's other tasks (ROADMAP item 10).  The CLI's own
+# builders (flags of scripts/train_vilt_tpu_tuned.sh on the sequential
+# engine) on phase 16's dataset: NLVR2 (two images per example, the second
+# with modality type 2), SNLI-VE and VCR (four choices) on full-width
+# ViLT-B/32 DAT, bf16, "layer", canvas 384x640 (S=281), the standard DAT step
+# (JAX sends classification tasks there); then ViLT-BERT on the low-shot
+# VQAv2 client.  VCR's gradient check runs on the first 16 examples of its
+# batch: the fp32 plain path of 64 x 4 choices needs ~60 GiB.
+CLS_GRAD_ROWS = {"vcr": 16}
+
+
+def classify_args(root, encoder, tasks):
+    from feddat_tpu_torch import cli
+
+    vocab = str(REPO / "tests" / "fixtures" / "vocab30k.txt")
+    return cli.build_parser().parse_args(script_flags("train_vilt_tpu_tuned.sh") + [
+        "--encoder_name", encoder, "--ordered_cl_tasks", tasks, "--climb_data_dir", root,
+        "--vocab_file", vocab, "--comm_rounds", "1", "--eval_every", "1"])
+
+
+def classify_trainer(torch, args):
+    """-> (task keys, clients, model, params, trainer), as a launch builds them."""
+    from feddat_tpu_torch import cli
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+
+    keys = cli.resolve_task_keys(args.ordered_cl_tasks)
+    heads = {k: TaskHeadSpec(num_labels=TASK_CONFIGS[k].num_labels,
+                             num_images=TASK_CONFIGS[k].num_images,
+                             model_type=TASK_CONFIGS[k].model_type,
+                             num_choices=TASK_CONFIGS[k].num_choices) for k in keys}
+    device = torch.device("cuda")
+    model, cfg, _ = cli.build_model(args, PEFTMode(args.optimizer_mode), heads, device)
+    clients, banks = cli.build_clients(args, keys, disk_tokenizer())
+    params = cli.init_params(args, model, cfg)
+    trainer = cli.sequential_trainer(args, keys, model, params, clients, banks,
+                                     cli.train_config(args, keys), device)
+    return keys, clients, model, params, trainer
+
+
+def passes_per_example(spec):
+    return spec.num_choices if spec.model_type == "multi-choice" else spec.num_images
+
+
+def classify_grads(torch, seed, model, params, runtime):
+    """One standard DAT step of a task's shape: its gradient sets and losses,
+    kernel path ("layer") against the plain path in bf16 and in fp32."""
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_forward, to_device
+
+    key = runtime.task_key
+    batch = next(runtime.data.train_batches(0))
+    rows = CLS_GRAD_ROWS.get(key, len(batch["labels"]))
+    batch = to_device({k: v[:rows] for k, v in batch.items()}, "cuda")
+    sd = model.state_dict()
+
+    def grads(m):
+        step = dat.make_dat_train_step(make_vilt_forward(m, key, loss="ce"), runtime.partitioner,
+                                       runtime.opt_cfg, 100)
+        state = dat.init_train_state(params, runtime.partitioner, runtime.opt_cfg,
+                                     torch.Generator().manual_seed(seed))
+        return step(state, batch)[1]
+
+    def plain(dtype, logits):
+        m = create_model("vilt", model.task_heads, runtime.partitioner.mode, 16, dtype,
+                         image_size=CANVAS, attn_impl="auto", attention_logits_dtype=logits,
+                         seed=None)[0]
+        m.load_state_dict(sd)
+        return m
+
+    kernel = grads(model)
+    torch.cuda.synchronize()
+    before = read_counts()
+    ref = grads(plain("bfloat16", "bfloat16"))
+    exact = grads(plain("float32", "float32"))
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    spec = model.task_heads[key]
+    return grad_agreement(torch, f"classify {key} ({rows} x {passes_per_example(spec)} passes, "
+                                 f"S={S})", kernel, ref, exact)
+
+
+def classify_round(torch, seed, root):
+    """(a) the three tasks: each shape's gradients by the 2x-bf16 rule, then
+    one sequential round (2 standard DAT steps per client, FedAvg,
+    evaluate_dat) with each client's launches per step and peak memory ->
+    the round's launches of #1 and #4."""
+    from feddat_tpu_torch.train import compiled
+
+    args = classify_args(root, "vilt", ",".join(CLS_TASKS))
+    keys, clients, model, params, trainer = classify_trainer(torch, args)
+    layers = model.config.num_layers
+    for c in trainer.clients:
+        spec = model.task_heads[c.task_key]
+        print(f"classify: {c.task_key}: {c.data.num_train_examples} train / "
+              f"{c.data.num_eval_examples} eval examples, batch {c.data.batch_size} x "
+              f"{passes_per_example(spec)} passes, {c.data.steps_per_epoch} steps; lr {c.opt_cfg.lr}, "
+              f"program {c.train_step.program.name}")
+        check(c.data.steps_per_epoch == 2, f"{c.task_key}: {c.data.steps_per_epoch} steps per epoch")
+        check(c.train_step.program.name == "dat_step", f"{c.task_key} does not take the "
+              f"standard DAT step: {c.train_step.program.name}")
+    with compiled.disable_graphs():
+        ratios = {c.task_key: classify_grads(torch, seed, model, params, c) for c in trainer.clients}
+    torch.cuda.empty_cache()
+
+    per_client, inner = {}, trainer.train_client
+
+    def measured(client, round_idx):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = read_counts(), time.perf_counter()
+        out = inner(client, round_idx)
+        torch.cuda.synchronize()
+        after = read_counts()
+        per_client[client.task_key] = (
+            {k: after[k] - before[k] for k in after}, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30, torch.cuda.max_memory_reserved() / 2 ** 30)
+        return out
+
+    trainer.train_client = measured
+    reset_counts()
+    trainer.run_round(0)
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want_round = {**NO_LAUNCHES, "attn_block": 0, "layer_block_bwd": 0}
+    for c in trainer.clients:
+        p = passes_per_example(model.task_heads[c.task_key])
+        counts, secs, peak, reserved = per_client[c.task_key]
+        steps = c.data.steps_per_epoch
+        want = {**NO_LAUNCHES, "attn_block": 3 * p * layers * steps,
+                "layer_block_bwd": 2 * p * layers * steps}
+        print(f"classify: {c.task_key} ({p} encoder passes per example): {steps} standard DAT steps "
+              f"in {secs:.2f} s (captures included); per step #1 {counts['attn_block'] / steps:.0f}, "
+              f"#4 {counts['layer_block_bwd'] / steps:.0f}, #3 {counts['attn_block_bwd'] / steps:.0f} "
+              f"(want {3 * p * layers}/{2 * p * layers}/0); peak {peak:.2f} GiB allocated, "
+              f"{reserved:.2f} GiB reserved")
+        check(counts == want, f"{c.task_key}: launches {counts}, expected {want}")
+        evals = -(-c.data.num_eval_examples // c.data.val_batch_size)
+        want_round["attn_block"] += want["attn_block"] + 3 * p * layers * evals
+        want_round["layer_block_bwd"] += want["layer_block_bwd"]
+    print(f"classify: round of {len(keys)} clients and evaluate_dat: launches {counts_text(launches)}; "
+          f"scores {entry['scores']}; gradient error over tol, worst per task {ratios}")
+    check(launches == want_round, f"round launches {launches}, expected {want_round}")
+    for key, scores in entry["scores"].items():
+        check(len(scores) == 3 and all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in scores),
+              f"bad evaluate_dat scores for {key}: {scores}")
+    moved = [k for k, v in trainer.server_params.items()
+             if "adapter_1" in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * layers, "FedAvg did not update every adapter_1 tensor on the server")
+    return {k: launches[k] for k in ("attn_block", "layer_block_bwd")}
+
+
+def classify_viltbert(torch, seed, root):
+    """(b) ViLT-BERT on the low-shot VQAv2 client: one round of 2 fused steps
+    (whose text BERT runs deterministic, as JAX's: the fused step reads the
+    ViLT config's dropout, 0) and evaluate_dat, then 2 standard DAT steps with
+    the BERT's dropout 0.1 live; text_bert bitwise unchanged by both."""
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_forward, to_device
+
+    args = classify_args(root, "viltbert", "vqa")
+    keys, clients, model, params, trainer = classify_trainer(torch, args)
+    layers = model.config.num_layers
+    text = {k: v.clone() for k, v in params.items() if k.startswith("text_bert.")}
+    (c,) = trainer.clients
+    steps = c.data.steps_per_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    entry = trainer.evaluate_round(0)
+    print(f"classify: ViLT-BERT vqa (5% low-shot, {c.data.num_train_examples} train, B="
+          f"{c.data.batch_size}, u8 pixels normalised on the card), {steps} fused steps "
+          f"({c.train_step.program.name}): launches {counts_text(counts)} ({counts['attn_block'] / steps:.0f}"
+          f"/{counts['layer_block_bwd'] / steps:.0f} per step); peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; evaluate_dat {entry['scores']}")
+    check(c.train_step.program.name == "dat_step_fused", "ViLT-BERT on VQA: not the fused step")
+    check(counts == {**NO_LAUNCHES, "attn_block": 2 * layers * steps,
+                     "layer_block_bwd": 2 * layers * steps}, f"ViLT-BERT fused launches {counts}")
+    check(all(torch.equal(trainer.server_params[k], v) for k, v in text.items()),
+          "the fused round moved text_bert")
+
+    step = dat.make_dat_train_step(make_vilt_forward(model, "vqa"), c.partitioner, c.opt_cfg, 100)
+    batch = to_device(next(clients["vqa"].train_batches(0)), "cuda")
+
+    def two_steps(s):
+        state = dat.init_train_state(params, c.partitioner, c.opt_cfg, torch.Generator().manual_seed(s))
+        losses = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            losses.append((float(m["loss"]), float(m["loss_shared"])))
+        return state, losses
+
+    reset_counts()
+    state, losses = two_steps(seed)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _, again = two_steps(seed)
+    _, other = two_steps(seed + 1)
+    print(f"classify: ViLT-BERT standard DAT steps, text BERT dropout 0.1 live: launches "
+          f"{counts_text(counts)}; losses {losses}, same seed {again}, seed + 1 {other}")
+    check(counts == {**NO_LAUNCHES, "attn_block": 2 * 3 * layers, "layer_block_bwd": 2 * 2 * layers},
+          f"ViLT-BERT standard step launches {counts}")
+    check(again == losses and other != losses, "the text BERT's dropout is not live and seeded")
+    check(all(torch.equal(state.params[k], v) for k, v in text.items()),
+          "a standard step moved text_bert")
+
+
+def phase_classify(torch, seed, root):
+    """Phase 16 (see the module docstring) -> the round's launches of #1 and #4."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    data = str(Path(root) / "classify")
+    write_classification_dataset(data, seed)
+    t0 = time.perf_counter()
+    launches = classify_round(torch, seed, data)
+    print(f"classify: the three tasks took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    classify_viltbert(torch, seed, data)
+    print(f"classify: ViLT-BERT took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(data)
+    print(f"classify: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5632,6 +6018,10 @@ def main(argv=None) -> int:
     # the sequential engine's
     launches.update(phase_spmd(torch, args.seed))
     done("spmd")
+    # this slice's path: the ViLT family's classification tasks on the
+    # standard DAT step, their round's #1 and #4
+    launches.update(phase_classify(torch, args.seed, root))
+    done("classify")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

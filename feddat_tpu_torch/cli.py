@@ -27,11 +27,16 @@ default the rest of the world) is built before any model, with JAX's errors
 history and ``meta.json``; with more than one process each traces into
 ``<profile_dir>/proc<rank>``.
 
-What the port does not have yet is refused before any model is built or any
-dataset read, naming its ROADMAP item: tensor parallelism (``--tp`` > 1:
-item 12b), ``viltbert`` and the tasks of other trainers than ``vqa_cross``
-(item 10), and float32 on a kernel route on the card (Queue 3: the CUDA
-kernels take bf16).  ``albef_distill`` trains on the sequential engine as in
+Every encoder and every task trainer of the JAX CLI runs: ``vilt`` and
+``viltbert`` (ViLT with a frozen BERT in front, ``--bert_model_path`` for its
+weights) on the federated VQA clients and on the other trainers' tasks,
+VQAv2 5% low-shot, NLVR2, SNLI-VE and VCR (``_build_classification_client``,
+each with its task's optimizer settings and epoch horizon; mixed client sets
+on the sequential engine, one kind of head on the SPMD engine).  What the
+port does not have yet is refused before any model is built or any dataset
+read, naming its ROADMAP item: tensor parallelism (``--tp`` > 1: item 12b)
+and float32 on a kernel route on the card (Queue 3: the CUDA kernels take
+bf16).  ``albef_distill`` trains on the sequential engine as in
 the JAX CLI: momentum distillation on the plain modes, the fused DAT step
 without it (``--use_fused_dat``), a ``TypeError`` at the first step of the
 standard DAT step (the distill forward takes the twin, which that step does
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -110,8 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_file", default=None,
                    help="bert-base-uncased vocab.txt for the WordPiece tokenizer")
     p.add_argument("--bert_model_path", default=None,
-                   help="torch state dict of a BertModel for the viltbert text half "
-                        "(viltbert is refused: ROADMAP item 10)")
+                   help="torch state dict of a BertModel for the viltbert text half")
     p.add_argument("--eval_every", type=int, default=5)
     p.add_argument("--use_fused_dat", action="store_true",
                    help="the fused DAT step: one ensemble encoder pass per batch")
@@ -166,12 +171,10 @@ def resolve_task_keys(spec: str):
     return resolve_clients(spec)
 
 
-def refuse_unported(args, task_keys) -> None:
+def refuse_unported(args) -> None:
     """``SystemExit`` naming the ROADMAP item for what the port lacks, before
     any model is built or dataset read (the JAX CLI's guards, :354-381 and
     :440-446, stop there too)."""
-    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
-
     def refuse(what, item):
         raise SystemExit(f"feddat_tpu_torch: {what} is not ported yet (ROADMAP {item})")
 
@@ -184,13 +187,6 @@ def refuse_unported(args, task_keys) -> None:
     if args.tp > 1:
         refuse(f"--tp {args.tp} (tensor parallelism over a model axis)",
                "Queue 1, item 12b: tensor parallelism")
-    if args.encoder_name == "viltbert":
-        refuse("the viltbert encoder", "Queue 1, item 10: other encoders and trainers")
-    other = [k for k in task_keys if TASK_CONFIGS[k].trainer != "vqa_cross"]
-    if other:
-        refuse(f"the trainers of tasks {other} "
-               f"({sorted({TASK_CONFIGS[k].trainer for k in other})}; the port trains vqa_cross)",
-               "Queue 1, item 10: other encoders and trainers")
     if (args.device == "cuda" and not args.smoke and args.dtype == "float32"
             and args.attn_impl in KERNEL_ROUTES):
         refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
@@ -261,14 +257,90 @@ def _build_vqa_cross_client(args, key, spec, tokenizer, answer_banks):
     )
 
 
+def _build_classification_client(args, key, spec, tokenizer):
+    """The non-federated VL tasks through their reference trainers' data
+    paths (:241-328): VQAv2 5% low-shot (``train_vqa.py:70-71``), NLVR2
+    2048/256 per class with the batch halved (``train_nlvr2.py:91-92``,
+    ``nlvr2_dataset.py:170``), SNLI-VE 2048/256 per class over train/dev
+    (``train_snli_ve.py:99-100``), VCR 5% low-shot ``qa`` (``train_vcr.py:94-95``)."""
+    from feddat_tpu_torch.data.classification_datasets import (
+        Nlvr2Pipeline,
+        SnliVePipeline,
+        VcrPipeline,
+        convert_to_low_shot_per_class,
+        load_nlvr2_examples,
+        load_snli_ve_examples,
+        load_vcr_examples,
+    )
+    from feddat_tpu_torch.data.datasets import convert_to_low_shot, load_vqav2_examples
+    from feddat_tpu_torch.data.images import make_backend
+    from feddat_tpu_torch.data.pipeline import ViltVQAPipeline
+
+    data_dir = os.path.join(args.climb_data_dir, spec.data_dir)
+    if (args.cache_images or args.device_normalize or args.canvas_bucket) and spec.trainer != "vqa":
+        print(f"[feddat_tpu_torch] --cache_images/--device_normalize/--canvas_bucket are not wired "
+              f"into the {spec.trainer!r} pipeline; task {key!r} uses the plain f32 full-canvas "
+              "image path", file=sys.stderr)
+    smoke_kw = {"canvas": (64, 64), "max_text_len": 16} if args.smoke else {}
+    canvas = smoke_kw.get("canvas", (384, 640))
+    max_text_len = smoke_kw.get("max_text_len", 40)
+
+    if spec.trainer == "vqa":
+        # the reference's fixed low-shot seed (random.Random(1),
+        # vqa_dataset.py:181), whatever --seed says
+        ex = convert_to_low_shot(load_vqav2_examples(data_dir, "train", tokenizer), 0.05, seed=1)
+        ev = convert_to_low_shot(load_vqav2_examples(data_dir, "val", tokenizer), 0.05, seed=1)
+        return ViltVQAPipeline(
+            ex, make_backend(spec.images_source, key, args.climb_data_dir), tokenizer,
+            num_labels=spec.num_labels, batch_size=args.batch_size,
+            val_batch_size=args.val_batch_size, seed=args.seed, eval_examples=ev,
+            cache_images=args.cache_images, pixels_u8=args.device_normalize,
+            num_workers=args.num_workers, canvas_bucket=args.canvas_bucket, **smoke_kw)
+    if spec.trainer == "nlvr2":
+        ex = convert_to_low_shot_per_class(load_nlvr2_examples(data_dir, "train"),
+                                           spec.num_labels, 2048, seed=1)
+        ev = convert_to_low_shot_per_class(load_nlvr2_examples(data_dir, "val"),
+                                           spec.num_labels, 256, seed=1)
+        return Nlvr2Pipeline(
+            ex, tokenizer, max_text_len, canvas, batch_size=max(1, args.batch_size // 2),
+            val_batch_size=max(1, args.val_batch_size // 2) if args.val_batch_size else None,
+            seed=args.seed, eval_examples=ev)
+    if spec.trainer == "snli_ve":
+        ex = convert_to_low_shot_per_class(load_snli_ve_examples(data_dir, "train"),
+                                           spec.num_labels, 2048, seed=1)
+        ev = convert_to_low_shot_per_class(load_snli_ve_examples(data_dir, "dev"),
+                                           spec.num_labels, 256, seed=1)
+        return SnliVePipeline(
+            ex, make_backend(spec.images_source, key, args.climb_data_dir), tokenizer,
+            max_text_len, canvas, batch_size=args.batch_size,
+            val_batch_size=args.val_batch_size, seed=args.seed, eval_examples=ev)
+    if spec.trainer == "vcr":
+        ex = convert_to_low_shot(load_vcr_examples(data_dir, "train", "qa"), 0.05, seed=1)
+        ev = convert_to_low_shot(load_vcr_examples(data_dir, "val", "qa"), 0.05, seed=1)
+        return VcrPipeline(
+            ex, tokenizer, max_text_len, canvas, batch_size=args.batch_size,
+            val_batch_size=args.val_batch_size, num_choices=spec.num_choices, seed=args.seed,
+            image_root=data_dir, eval_examples=ev)
+    raise KeyError(f"unknown trainer kind {spec.trainer!r} for task {key!r}")
+
+
 def build_clients(args, task_keys, tokenizer):
-    """Per-client data pipelines -> (clients, answer_banks).  Every task here
-    is a ``vqa_cross`` one (:func:`refuse_unported`)."""
+    """Per-client data pipelines routed by ``TaskSpec.trainer`` (the
+    reference's ``task_configs[task_key]['task_trainer']``,
+    ``src/train/main.py:482-483``) -> (clients, answer_banks)."""
     from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
 
     clients, answer_banks = {}, {}
     for key in task_keys:
-        pipe = _build_vqa_cross_client(args, key, TASK_CONFIGS[key], tokenizer, answer_banks)
+        spec = TASK_CONFIGS[key]
+        if spec.trainer == "vqa_cross":
+            pipe = _build_vqa_cross_client(args, key, spec, tokenizer, answer_banks)
+        else:
+            if args.encoder_name.startswith("albef"):
+                raise NotImplementedError(
+                    f"task {key!r} ({spec.trainer}) is a ViLT-family task; "
+                    "the reference has no ALBEF path for it either")
+            pipe = _build_classification_client(args, key, spec, tokenizer)
         pipe.task_key = key
         clients[key] = pipe
     return clients, answer_banks
@@ -316,14 +388,16 @@ def build_model(args, mode, heads, device):
     if args.smoke:
         from feddat_tpu_torch.configs.core import ViltModelConfig
         from feddat_tpu_torch.models.vilt import ViltContinualLearner
+        from feddat_tpu_torch.models.viltbert import ViltBertContinualLearner
 
         cfg = ViltModelConfig(
             hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
             max_text_len=16, image_size=(64, 64), patch_size=32,
             adapter=adapter_spec_for_mode(mode, 4), lora=smoke_lora, prompt=smoke_prompt,
         )
+        cls = ViltBertContinualLearner if args.encoder_name == "viltbert" else ViltContinualLearner
         with torch.device("meta"):
-            model = ViltContinualLearner(cfg, heads)
+            model = cls(cfg, heads)
         return model.to_empty(device=device), cfg, None
     from feddat_tpu_torch.models import create_model
 
@@ -332,7 +406,7 @@ def build_model(args, mode, heads, device):
     # ViLT matches the pipeline's fixed (384, 640) canvas
     model, cfg = create_model(
         args.encoder_name, heads, mode, args.adapter_reduction_factor, args.dtype,
-        image_size=(384, 640) if args.encoder_name == "vilt" else None,
+        image_size=(384, 640) if args.encoder_name in ("vilt", "viltbert") else None,
         remat=args.remat, remat_policy=args.remat_policy,
         attn_impl=args.attn_impl, attention_logits_dtype=logits_dtype,
         text_remat_policy=args.text_remat_policy, device=device, seed=args.seed,
@@ -344,7 +418,9 @@ def init_params(args, model, model_cfg) -> Dict[str, "torch.Tensor"]:
     """The run's initial parameters ``{state_dict name: tensor}``: the model's
     own weights from ``--seed`` (``create_model``'s, or ``init_vilt_params``/
     ``init_albef_params`` under ``--smoke``), with ``--pretrained_model_name``
-    converted and merged over them (:569-614)."""
+    converted and merged over them (:569-614), and for ``viltbert`` the
+    ``--bert_model_path`` BertModel state dict converted to the text BERT
+    (:584-596)."""
     import torch
 
     from feddat_tpu_torch.utils.checkpoint_convert import merge_pretrained
@@ -357,7 +433,7 @@ def init_params(args, model, model_cfg) -> Dict[str, "torch.Tensor"]:
         (init_albef_params if albef else init_vilt_params)(model, args.seed)
     params = {k: v.detach() for k, v in model.state_dict().items()}
     if not args.pretrained_model_name:
-        return params
+        return _merge_text_bert(args, params, model_cfg)
     raw = torch.load(args.pretrained_model_name, map_location="cpu")
     if albef:
         from feddat_tpu_torch.utils.checkpoint_convert import convert_albef_checkpoint
@@ -371,13 +447,28 @@ def init_params(args, model, model_cfg) -> Dict[str, "torch.Tensor"]:
     grid = (model_cfg.image_size[0] // model_cfg.patch_size,
             model_cfg.image_size[1] // model_cfg.patch_size)
     pretrained = convert_hf_vilt(raw, num_layers=model_cfg.num_layers, num_patches_new=grid)
-    return merge_pretrained(params, {"vilt": pretrained})
+    return _merge_text_bert(args, merge_pretrained(params, {"vilt": pretrained}), model_cfg)
+
+
+def _merge_text_bert(args, params, model_cfg):
+    """``--bert_model_path`` (viltbert): a BertModel state dict converted to an
+    ``XBertModel`` without fusion layers and merged into ``text_bert``."""
+    if args.encoder_name != "viltbert" or not args.bert_model_path:
+        return params
+    import torch
+
+    from feddat_tpu_torch.utils.checkpoint_convert import convert_bert_to_xbert, merge_pretrained
+    from feddat_tpu_torch.utils.param_bridge import viltbert_from_flax
+
+    bert = convert_bert_to_xbert(torch.load(args.bert_model_path, map_location="cpu"),
+                                 num_layers=model_cfg.num_layers, fusion_layer=model_cfg.num_layers)
+    return merge_pretrained(params, {"text_bert": bert}, bridge=viltbert_from_flax)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     task_keys = resolve_task_keys(args.ordered_cl_tasks)
-    refuse_unported(args, task_keys)
+    refuse_unported(args)
     check_spmd_args(args)
 
     from feddat_tpu_torch.device import resolve_device
@@ -399,16 +490,102 @@ def main(argv=None) -> int:
         return _run(args, task_keys, device, mesh)
 
 
-def _run(args, task_keys, device, mesh) -> int:
-    """The launch after the refusals, on ``device``, with the SPMD engine's
-    ``mesh`` or None."""
-    from feddat_tpu_torch import native
+def train_config(args, task_keys):
+    """The run's ``TrainConfig`` from its flags (:448-467)."""
     from feddat_tpu_torch.configs.core import (
         FederatedConfig,
         OptimizerConfig,
         PEFTMode,
         TrainConfig,
     )
+
+    return TrainConfig(
+        encoder_name=args.encoder_name,
+        peft_mode=PEFTMode(args.optimizer_mode),
+        tasks=tuple(task_keys),
+        batch_size=args.batch_size,
+        val_batch_size=args.val_batch_size or args.batch_size,
+        seed=args.seed,
+        optimizer=OptimizerConfig(lr=args.lr),
+        federated=FederatedConfig(
+            comm_rounds=args.comm_rounds,
+            local_epochs=args.local_epochs,
+            eval_every=args.eval_every,
+        ),
+        num_epochs=args.num_epochs,
+        layers_to_freeze=args.layers_to_freeze,
+        dtype=args.dtype,
+        single_task=args.do_single,
+        debug_steps=args.debug,
+        dropout_rng=args.dropout_rng,
+    )
+
+
+def task_overrides(task_keys):
+    """-> (optimizer, epoch) overrides by task: the non-federated tasks take
+    lr/wd/eps/warmup and their schedule's horizon from the task config
+    (``train_nlvr2.py:85-97``, :657-676); the federated cross-VQA clients
+    take ``--lr`` and ``--num_epochs``."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+
+    specs = {k: TASK_CONFIGS[k] for k in task_keys if TASK_CONFIGS[k].trainer != "vqa_cross"}
+    return ({k: OptimizerConfig(lr=s.lr, weight_decay=s.weight_decay, adam_eps=s.adam_epsilon,
+                                warmup_ratio=s.warmup_ratio) for k, s in specs.items()},
+            {k: s.num_epochs for k, s in specs.items()})
+
+
+def sequential_trainer(args, task_keys, model, params, clients, answer_banks, config, device,
+                       metrics=None):
+    """The sequential ``FederatedTrainer`` a launch runs (:753-800): each
+    client's forward, eval step and metric from its task's trainer hooks (a
+    mixed client set in one run), the per-task overrides, and the fused DAT
+    step only where every task is a VQA-family one."""
+    from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train.evaluation import make_eval_step
+    from feddat_tpu_torch.train.trainers import resolve_trainer
+
+    def hooks_for(task_key):
+        return resolve_trainer(args.encoder_name, TASK_CONFIGS[task_key].trainer,
+                               answer_banks=answer_banks)
+
+    def make_eval(model_, task_key):
+        h = hooks_for(task_key)
+        if h.make_eval is not None:
+            return h.make_eval(model_, task_key)
+        return make_eval_step(model_, task_key, h.metric)
+
+    first_hooks = hooks_for(task_keys[0])
+    use_fused = args.use_fused_dat
+    if use_fused and {TASK_CONFIGS[k].trainer for k in task_keys} - {"vqa_cross", "vqa"}:
+        logging.getLogger("feddat_tpu_torch").warning(
+            "--use_fused_dat covers the VQA-family losses (BCE single-image); classification "
+            "tasks use the standard DAT step")
+        use_fused = False
+    opt_overrides, epoch_overrides = task_overrides(task_keys)
+    return FederatedTrainer(
+        model, params, clients, config,
+        make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
+        make_eval=make_eval,
+        metric=first_hooks.metric,
+        aux_init=first_hooks.aux_init,
+        batch_transform=first_hooks.batch_transform,
+        aux_forward=first_hooks.aux_forward,
+        use_fused_dat=use_fused,
+        optimizer_overrides=opt_overrides,
+        num_epochs_overrides=epoch_overrides,
+        checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
+        profile_dir=args.profile_dir,
+        device=device,
+    )
+
+
+def _run(args, task_keys, device, mesh) -> int:
+    """The launch after the refusals, on ``device``, with the SPMD engine's
+    ``mesh`` or None."""
+    from feddat_tpu_torch import native
+    from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
     from feddat_tpu_torch.utils.observability import MetricsLogger, experiment_name, setup_logger
@@ -433,26 +610,7 @@ def _run(args, task_keys, device, mesh) -> int:
     if args.attn_impl == "layer" and args.remat:
         print("[feddat_tpu_torch] --attn_impl layer: the pre-LN layer stacks save their own "
               "minimal residual set (--remat is ignored for them)", file=sys.stderr)
-    config = TrainConfig(
-        encoder_name=args.encoder_name,
-        peft_mode=mode,
-        tasks=tuple(task_keys),
-        batch_size=args.batch_size,
-        val_batch_size=args.val_batch_size or args.batch_size,
-        seed=args.seed,
-        optimizer=OptimizerConfig(lr=args.lr),
-        federated=FederatedConfig(
-            comm_rounds=args.comm_rounds,
-            local_epochs=args.local_epochs,
-            eval_every=args.eval_every,
-        ),
-        num_epochs=args.num_epochs,
-        layers_to_freeze=args.layers_to_freeze,
-        dtype=args.dtype,
-        single_task=args.do_single,
-        debug_steps=args.debug,
-        dropout_rng=args.dropout_rng,
-    )
+    config = train_config(args, task_keys)
     run_name = experiment_name(config)
     logger = setup_logger(args.output_dir, run_name=run_name)
     logger.info("tasks: %s", task_keys)
@@ -502,8 +660,6 @@ def _run(args, task_keys, device, mesh) -> int:
     if args.checkpoint_dir and is_p0:
         # the run's model recipe beside the round checkpoints, for
         # serving.*.from_checkpoint; the JAX CLI's keys and values
-        import dataclasses
-
         from feddat_tpu_torch.utils.checkpointing import write_meta
 
         meta = {
@@ -524,48 +680,46 @@ def _run(args, task_keys, device, mesh) -> int:
 
     if args.engine == "spmd":
         from feddat_tpu_torch.federated.spmd import SPMDFederatedTrainer
+        from feddat_tpu_torch.train.forwards import make_vilt_forward
 
+        opt_overrides, epoch_overrides = task_overrides(task_keys)
         is_albef = args.encoder_name.startswith("albef")
+        is_classification = bool({TASK_CONFIGS[k].trainer for k in task_keys}
+                                 & {"nlvr2", "snli_ve", "vcr"})
+        use_fused = args.use_fused_dat
+        if use_fused and is_classification:
+            logger.warning("--use_fused_dat covers the VQA-family losses; classification tasks "
+                           "use the standard DAT step")
+            use_fused = False
+        make_forward = None
+        if is_classification and not is_albef:
+            make_forward = lambda m, k: make_vilt_forward(m, k, loss="ce")  # noqa: E731
+        # one step program for every client: the task-config override holds
+        # when all clients agree on it, as in JAX (:735-751)
+        if opt_overrides:
+            if set(opt_overrides) != set(task_keys) or len({
+                (o.lr, o.weight_decay, o.adam_eps, o.warmup_ratio) for o in opt_overrides.values()
+            }) != 1 or len(set(epoch_overrides.values())) != 1:
+                raise SystemExit(
+                    "--engine spmd compiles one optimizer for all clients, but the selected tasks "
+                    "carry different per-task optimizer configs; use --engine sequential for "
+                    "mixed task kinds")
+            config = dataclasses.replace(config, optimizer=next(iter(opt_overrides.values())),
+                                         num_epochs=next(iter(epoch_overrides.values())))
         profile_dir = args.profile_dir
         if profile_dir and mesh.grid.size > 1:  # one trace subtree per process
             profile_dir = os.path.join(profile_dir, f"proc{mesh.rank}")
         trainer = SPMDFederatedTrainer(
             model, params, [clients[k] for k in task_keys], config, mesh,
-            use_fused=args.use_fused_dat, checkpoint_dir=args.checkpoint_dir,
+            make_forward=make_forward, use_fused=use_fused, checkpoint_dir=args.checkpoint_dir,
             metrics_logger=metrics, family="albef" if is_albef else "vilt",
             answer_banks=answer_banks if is_albef else None,
+            metric="accuracy" if is_classification else "vqa_score",
             full_epochs=args.spmd_full_epochs, profile_dir=profile_dir, device=device)
         history = trainer.run()
     else:
-        from feddat_tpu_torch.federated.engine import FederatedTrainer
-        from feddat_tpu_torch.train.trainers import resolve_trainer
-
-        def hooks_for(task_key):
-            return resolve_trainer(args.encoder_name, TASK_CONFIGS[task_key].trainer,
-                                   answer_banks=answer_banks)
-
-        def make_eval(model_, task_key):
-            h = hooks_for(task_key)
-            if h.make_eval is not None:
-                return h.make_eval(model_, task_key)
-            from feddat_tpu_torch.train.evaluation import make_eval_step
-
-            return make_eval_step(model_, task_key, h.metric)
-
-        first_hooks = hooks_for(task_keys[0])
-        trainer = FederatedTrainer(
-            model, params, clients, config,
-            make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
-            make_eval=make_eval,
-            metric=first_hooks.metric,
-            aux_init=first_hooks.aux_init,
-            batch_transform=first_hooks.batch_transform,
-            aux_forward=first_hooks.aux_forward,
-            use_fused_dat=args.use_fused_dat,
-            checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
-            profile_dir=args.profile_dir,
-            device=device,
-        )
+        trainer = sequential_trainer(args, task_keys, model, params, clients, answer_banks, config,
+                                     device, metrics)
         history = [trainer.run_single_task()] if args.do_single else trainer.run()
     metrics.close()
     if device.type == "cuda":

@@ -13,8 +13,12 @@ Then FedAvg over the harvested subsets into the server params, and every
 (``main.py:520-558``).
 
 Parameters are ``{state_dict name: tensor}`` dicts on the engine's device
-(CUDA unless ``device="cpu"``).  The model is ViLT (``ViltContinualLearner``)
-or ALBEF (``AlbefModel``, with the hooks of ``train/trainers.py``).  Each
+(CUDA unless ``device="cpu"``).  The model is ViLT (``ViltContinualLearner``),
+ViLT-BERT (``ViltBertContinualLearner``) or ALBEF (``AlbefModel``, with the
+hooks of ``train/trainers.py``); the ViLT family's classification clients
+(NLVR2, SNLI-VE, VCR) take the CE forward, the accuracy metric and their
+task's optimizer settings and epoch horizon (``optimizer_overrides``,
+``num_epochs_overrides``) from the caller, as the JAX CLI passes them.  Each
 client's state carries a ``torch.Generator`` seeded from the engine's, from
 which every step draws its per-stage dropout seeds (``train/dat.py``).  The
 train and eval steps are compiled (``train/compiled.py``): CUDA graphs on the
@@ -81,6 +85,9 @@ from feddat_tpu_torch.utils.seeding import check_dropout_rng
 
 logger = logging.getLogger("feddat_tpu_torch")
 
+# the model classes both engines train, as JAX's engines do
+ENGINE_MODELS = ("ViltContinualLearner", "ViltBertContinualLearner", "AlbefModel")
+
 
 def _later(what: str, queue_item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {queue_item})")
@@ -120,7 +127,7 @@ class FederatedTrainer:
         each batch (the distillation alpha ramp)."""
         if tp_mesh is not None:
             raise _later("tensor parallelism (tp_mesh)", "12b, tensor parallelism")
-        if type(model).__name__ not in ("ViltContinualLearner", "AlbefModel"):
+        if type(model).__name__ not in ENGINE_MODELS:
             raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
         check_dropout_rng(config.dropout_rng)
         self.device = resolve_device(device)

@@ -42,7 +42,10 @@ them, so a client's stream does not depend on the world's size, and in a
 world of one the engine computes what ``FederatedTrainer`` computes.
 
 All clients share one head module, ``task_<FED_HEAD_KEY>`` (the federated VQA
-clients all have 100 labels); each client trains and keeps its own values.
+clients all have 100 labels; classification clients of one head shape, as the
+CLI requires); each client trains and keeps its own values.  The model is
+ViLT, ViLT-BERT or ALBEF; classification clients come with the CE forward
+(``make_forward``) and ``metric="accuracy"``.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ import torch.distributed as dist
 from feddat_tpu_torch.configs.core import PEFTMode, TrainConfig
 from feddat_tpu_torch.data.pipeline import prefetch_to_device
 from feddat_tpu_torch.device import DeviceLike, resolve_device
-from feddat_tpu_torch.federated.engine import FederatedTrainer
+from feddat_tpu_torch.federated.engine import ENGINE_MODELS, FederatedTrainer
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE
 from feddat_tpu_torch.parallel.mesh import CLIENT_AXIS, DATA_AXIS, RankMesh
 from feddat_tpu_torch.peft.partition import (
@@ -135,7 +138,7 @@ class SPMDFederatedTrainer:
         loop); by default every client runs the smallest's.  ``metrics_logger``
         must be given on every rank or on none: its step records average the
         clients by a collective."""
-        if type(model).__name__ not in ("ViltContinualLearner", "AlbefModel"):
+        if type(model).__name__ not in ENGINE_MODELS:
             raise NotImplementedError(f"the SPMD engine for {type(model).__name__} is not ported "
                                       "yet (ROADMAP Queue 1: 10, other encoders)")
         check_dropout_rng(config.dropout_rng)

@@ -4,7 +4,8 @@
 device with the same frozen-backbone guards as the JAX registry, and
 initialises it from ``seed`` (torch modules always carry parameters; the JAX
 package initialises separately with ``init_vilt_params``/``init_albef_params``).
-``viltbert`` is a later slice.
+``viltbert`` is ViLT with a frozen BERT in front of its text stream
+(``models/viltbert.py``), on the routes ``vilt`` takes.
 """
 
 from __future__ import annotations
@@ -79,16 +80,18 @@ def create_model(
     # 'norm' trains the LayerNorms: keep them outside the kernel there.
     fuse_ln = peft_mode != PEFTMode.NORM
 
-    if encoder_name == "vilt":
+    if encoder_name in ("vilt", "viltbert"):
         from feddat_tpu_torch.models.vilt import ViltContinualLearner, init_vilt_params
+        from feddat_tpu_torch.models.viltbert import ViltBertContinualLearner
 
         cfg = ViltModelConfig(
             adapter=adapter, lora=lora, prompt=prompt, remat=remat, remat_policy=remat_policy,
             attention_logits_dtype=attention_logits_dtype, fuse_ln=fuse_ln,
             **({"image_size": tuple(image_size)} if image_size else {}),
         )
+        cls = ViltBertContinualLearner if encoder_name == "viltbert" else ViltContinualLearner
         with torch.device("meta"):
-            model = ViltContinualLearner(cfg, task_heads, DTYPES[dtype], attn_impl)
+            model = cls(cfg, task_heads, DTYPES[dtype], attn_impl)
         model = model.to_empty(device=dev)
         return (model if seed is None else init_vilt_params(model, seed)), cfg
     if encoder_name in ("albef_distill", "albef_no_distill"):
@@ -107,11 +110,6 @@ def create_model(
             model = AlbefModel(cfg, DTYPES[dtype], **routes)
         model = model.to_empty(device=dev)
         return (model if seed is None else init_albef_params(model, seed)), cfg
-    if encoder_name in ALLOWED_CL_ENCODERS:
-        raise NotImplementedError(
-            f"encoder {encoder_name!r} is not ported yet "
-            "(ROADMAP Queue 1, item 10: other ViLT variants)"
-        )
     raise ValueError(
         f"unknown encoder {encoder_name!r}; allowed: {ALLOWED_CL_ENCODERS} "
         "('flava' is declared but unimplemented in the reference too)"

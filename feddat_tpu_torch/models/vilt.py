@@ -91,10 +91,15 @@ class ViltTextEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.norm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
-    def forward(self, input_ids, token_type_ids, deterministic=True):
+    def forward(self, input_ids, token_type_ids, deterministic=True, inputs_embeds=None):
+        """``inputs_embeds`` (ViLT-BERT): the word states come from the frozen
+        BERT in place of the word table; positions, types and LN still apply
+        (vilt.py:87-104)."""
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        words = (embed(input_ids, self.word_embeddings, self.dtype) if inputs_embeds is None
+                 else inputs_embeds.to(self.dtype))
         x = (
-            embed(input_ids, self.word_embeddings, self.dtype)
+            words
             + embed(positions, self.position_embeddings, self.dtype)
             + embed(token_type_ids, self.token_type_embeddings, self.dtype)
         )
@@ -164,7 +169,7 @@ class ViltEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, token_type_ids=None, pixel_values=None,
                 pixel_mask=None, image_token_type_idx: int = 1, adapter_mode: str = "none",
-                deterministic: bool = True, adapter_weights=None):
+                deterministic: bool = True, adapter_weights=None, inputs_embeds=None):
         c = self.config
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -183,7 +188,7 @@ class ViltEncoder(nn.Module):
                 x = x * pixel_mask[..., None].to(x.dtype)
             pixel_values = x
 
-        text = self.text_embeddings(input_ids, token_type_ids, deterministic)
+        text = self.text_embeddings(input_ids, token_type_ids, deterministic, inputs_embeds)
         image = self.visual_embeddings(pixel_values, deterministic)
 
         b = image.shape[0]

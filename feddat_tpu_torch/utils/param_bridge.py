@@ -1,17 +1,19 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
-``vilt_from_flax`` and ``albef_from_flax`` map the flax trees of
-``feddat_tpu``'s ``ViltContinualLearner`` and ``AlbefModel`` (with its
-visual prompt ``prompt_vis``), and ``xbert_mlm_from_flax`` that of
-``XBertMaskedLM`` (nested dicts of numpy arrays), onto the state_dicts of the
-port's twins.  They are the inverse
+``vilt_from_flax``, ``viltbert_from_flax`` and ``albef_from_flax`` map the
+flax trees of ``feddat_tpu``'s ``ViltContinualLearner`` (and the
+``vilt_clf`` classifiers, whose encoder is ``vilt`` too),
+``ViltBertContinualLearner`` and ``AlbefModel`` (with its visual prompt
+``prompt_vis``), and ``xbert_mlm_from_flax`` that of ``XBertMaskedLM``
+(nested dicts of numpy arrays), onto the state_dicts of the port's twins.  They are the inverse
 of ``feddat_tpu/utils/checkpoint_convert.py``'s ``_linear``/``_stack``:
 
 * flax ``Dense`` ``kernel [in, out]`` -> ``nn.Linear.weight [out, in]``;
 * an ``nn.scan`` stack ``<prefix>/<cell>/...`` with a leading ``[L]`` axis
   -> ``<prefix>.<i>....`` for each of the L layers (ViLT's ``vilt/layers/
-  layer``; ALBEF's ViT blocks, text and fusion layers and decoder layers;
-  the masked-LM encoder's text and fusion layers);
+  layer``; ViLT-BERT's ``text_bert/encoder/text_layers/layer``; ALBEF's ViT
+  blocks, text and fusion layers and decoder layers; the masked-LM
+  encoder's text and fusion layers);
 * the NHWC conv ``kernel [kh, kw, in, out]`` -> ``Conv2d.weight [out, in, kh, kw]``;
 * ``Embed.embedding`` and LayerNorm ``scale`` -> ``.weight``; ``bias`` as is;
 * ``cls_token`` and ``position_embeddings`` as they are.
@@ -72,8 +74,19 @@ def _from_flax(params_np: Mapping[str, Any], stacks) -> Dict[str, torch.Tensor]:
 
 
 def vilt_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """ViLT flax param tree (numpy leaves) -> state_dict (fp32 CPU tensors)."""
+    """ViLT flax param tree (numpy leaves) -> state_dict (fp32 CPU tensors);
+    also the ``vilt_clf`` classifiers' trees (``vilt`` + ``task_clf``)."""
     return _from_flax(params_np, VILT_STACKS)
+
+
+VILTBERT_STACKS = VILT_STACKS + (("text_bert", "encoder", "text_layers", "layer"),)
+
+
+def viltbert_from_flax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ViLT-BERT flax param tree (numpy leaves) -> state_dict (fp32 CPU
+    tensors): the ViLT half as :func:`vilt_from_flax` maps it (it has no
+    word table), the text BERT as an ``XBertModel`` without fusion layers."""
+    return _from_flax(params_np, VILTBERT_STACKS)
 
 
 XBERT_MLM_STACKS = (

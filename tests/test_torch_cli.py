@@ -8,7 +8,12 @@ is replaced by JAX's initial parameters carried over with
 byte, the ``step`` records' losses (rtol 1e-4), the history's scores (atol
 1e-9: counts of argmax hits) and the last round's server parameters (rtol
 1e-4, atol lr/50, the tolerance of tests/test_torch_federated.py and its
-reason).  Also: the launch scripts' flags parse through the port's parser,
+reason).  The same, less the parameters, for ``--encoder_name viltbert`` on
+that task (JAX's initial weights through ``viltbert_from_flax``) and for the
+mixed set ``--ordered_cl_tasks nlvr2,snli-ve,vcr,vqa`` on a dataset written
+by ``chip_smoke.py::write_classification_dataset`` (the standard DAT step,
+each task's optimizer; the multiple-choice head's dropout off on both
+sides), with ``meta.json`` byte for byte.  Also: the launch scripts' flags parse through the port's parser,
 which has every flag of JAX's; each refusal exits before a model is built;
 ``--do_single``; a relaunch resumes; ``--pretrained_model_name`` gives the
 backbone that the JAX CLI's conversion gives.  ``--engine spmd`` in a world
@@ -38,9 +43,12 @@ import feddat_tpu_torch.cli as tcli
 from feddat_tpu.configs.tasks import TaskSpec as JaxTaskSpec
 from feddat_tpu.configs.tasks import register_task as jax_register_task
 from feddat_tpu_torch.configs.tasks import TaskSpec, register_task
-from feddat_tpu_torch.utils.param_bridge import vilt_from_flax
+from feddat_tpu_torch.utils.param_bridge import vilt_from_flax, viltbert_from_flax
 
 from test_torch_checkpoint_convert import _hf_vilt_state_dict
+from test_torch_classification_engine import COUNTS as CLS_COUNTS
+from test_torch_classification_engine import SIZES as CLS_SIZES
+from test_torch_classification_engine import chip_smoke, head_dropout_off
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TASK = "torch_cli_task"
@@ -48,9 +56,9 @@ LR = 5e-3
 ROUNDS = 2
 
 
-def register(key, data_dir, trainer="vqa_cross"):
+def register(key, data_dir):
     kw = dict(task_key=key, task_name=key, data_dir=str(data_dir), images_source="vizwiz",
-              splits=("train_small", "val"), num_labels=100, trainer=trainer)
+              splits=("train_small", "val"), num_labels=100)
     jax_register_task(JaxTaskSpec(**kw), overwrite=True)
     register_task(TaskSpec(**kw), overwrite=True)
 
@@ -245,8 +253,6 @@ def test_the_parser_has_every_jax_flag():
 
 REFUSALS = [
     (["--tp", "2"], "item 12b"),
-    (["--encoder_name", "viltbert"], "item 10"),
-    (["--ordered_cl_tasks", "torch_cli_nlvr2"], "item 10"),
     (["--device", "cuda", "--dtype", "float32", "--attn_impl", "layer"], "Queue 3"),
     (["--device", "cuda", "--dtype", "float32", "--attn_impl", "flash"], "Queue 3"),
 ]
@@ -254,8 +260,6 @@ REFUSALS = [
 
 @pytest.mark.parametrize("extra,item", REFUSALS, ids=[" ".join(e) for e, _ in REFUSALS])
 def test_refusals_exit_before_a_model_is_built(extra, item, task, tmp_path, monkeypatch):
-    register("torch_cli_nlvr2", tmp_path, trainer="nlvr2")
-
     def never(*a, **kw):
         raise AssertionError("a model or client was built")
 
@@ -356,16 +360,76 @@ def test_spmd_checkpoint_is_jaxs_stacked_client_bank(spmd_runs):
                                        err_msg=k)
 
 
+# ViLT-BERT on the VQA client (the fused step: its text BERT runs
+# deterministic there in both packages, so the runs match exactly), and the
+# mixed set of the other trainers' tasks on the standard DAT step (the
+# multiple-choice head's dropout off on both sides: the packages draw their
+# masks from different generators)
+LAUNCHES = {
+    "viltbert-vqa": ("viltbert", TASK, viltbert_from_flax),
+    "vilt-nlvr2,snli-ve,vcr,vqa": ("vilt", "nlvr2,snli-ve,vcr,vqa", vilt_from_flax),
+}
+
+
+@pytest.fixture(scope="module", params=list(LAUNCHES))
+def launched(request, task, tmp_path_factory):
+    encoder, tasks, bridge = LAUNCHES[request.param]
+    data_root, vocab_file = task
+    if tasks != TASK:
+        data_root = tmp_path_factory.mktemp("classification")
+        chip_smoke.write_classification_dataset(str(data_root), 0, CLS_COUNTS, CLS_SIZES)
+        vocab_file = ROOT / "tests" / "fixtures" / "vocab30k.txt"
+    out_j, out_t = tmp_path_factory.mktemp("jax_cls"), tmp_path_factory.mktemp("port_cls")
+
+    def argv(out, *extra):
+        a = smoke_argv(data_root, vocab_file, out, *extra)
+        a[a.index("--encoder_name") + 1] = encoder
+        a[a.index("--ordered_cl_tasks") + 1] = tasks
+        return a
+
+    with pytest.MonkeyPatch.context() as mp:
+        head_dropout_off(mp)
+        seen = jax_initial_params(mp)
+        assert jcli.main(argv(out_j)) == 0
+        start = bridge(jax.tree_util.tree_map(np.asarray, seen["params"]))
+        mp.setattr(tcli, "init_params", lambda args, model, cfg: dict(start))
+        assert tcli.main(argv(out_t, "--device", "cpu")) == 0
+    return tasks.split(","), out_j, out_t
+
+
+def test_classification_launches_step_losses_match_jax(launched):
+    tasks, *outs = launched
+    j_steps, t_steps = (_records(o, "step") for o in outs)
+    assert len(t_steps) == len(j_steps) >= ROUNDS * len(tasks)
+    assert {r["task"] for r in t_steps} == set(tasks)
+    for j, t in zip(j_steps, t_steps):
+        assert t.keys() == j.keys() and (t["task"], t["step"]) == (j["task"], j["step"])
+        for k in ("loss", "loss_shared", "lr"):
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=f"step {j['step']}: {k}")
+
+
+def test_classification_launches_scores_and_meta_match_jax(launched):
+    tasks, out_j, out_t = launched
+    j_hist, t_hist = (json.loads((o / "logs" / _one(o / "logs", ".history.json")).read_text())
+                      for o in (out_j, out_t))
+    assert [e["round"] for e in t_hist] == [e["round"] for e in j_hist] == list(range(ROUNDS))
+    for j, t in zip(j_hist, t_hist):
+        for key in tasks:
+            assert len(t["scores"][key]) == 3
+            np.testing.assert_allclose(t["scores"][key], j["scores"][key], rtol=0, atol=1e-9)
+    assert (out_t / "ckpt" / "meta.json").read_bytes() == (out_j / "ckpt" / "meta.json").read_bytes()
+
+
 def test_float32_on_the_plain_route_or_the_cpu_is_not_refused(tmp_path):
     """The Queue 3 refusal is about the card's kernels: float32 on "auto", a
     kernel route on the CPU (its plain version) and --smoke (whose model is the
     JAX CLI's float32 "auto" one) pass the check."""
     args = tcli.build_parser().parse_args(["--encoder_name", "vilt", "--dtype", "float32"])
-    tcli.refuse_unported(args, ())
+    tcli.refuse_unported(args)
     for extra in (["--device", "cpu"], ["--smoke"]):
         args = tcli.build_parser().parse_args(
             ["--encoder_name", "vilt", "--dtype", "float32", "--attn_impl", "layer", *extra])
-        tcli.refuse_unported(args, ())
+        tcli.refuse_unported(args)
 
 
 def test_pretrained_vilt_backbone_is_the_jax_clis(task, tmp_path, monkeypatch):

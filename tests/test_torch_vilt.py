@@ -175,8 +175,9 @@ def test_create_model_guards_and_device():
     with pytest.raises(ValueError, match="frozen attention projections"):
         create_model("vilt", {"t": TaskHeadSpec(2)}, PEFTMode.LORA, attn_impl="block",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("viltbert", {}, PEFTMode.DAT, device="cpu")
+    model, _ = create_model("viltbert", {"t": TaskHeadSpec(2)}, PEFTMode.DAT, attn_impl="layer",
+                            device="cpu", seed=None)
+    assert type(model).__name__ == "ViltBertContinualLearner" and model.vilt.attn_impl == "layer"
     with pytest.raises(ValueError, match="fuses the \\(frozen\\) LayerNorms"):
         create_model("albef_distill", {}, PEFTMode.NORM, attn_impl="layer", device="cpu")
     with pytest.raises(ValueError, match="unknown encoder"):

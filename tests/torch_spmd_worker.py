@@ -39,7 +39,24 @@ def make_model(family: str, model_cfg, heads, weights: str, attn_impl: str = "au
     return model.eval()
 
 
+def snli_ve_client(root: str, vocab: str, batch_size: int, seed: int, key: str, canvas, text_len):
+    """A SNLI-VE client from the files under ``root``, as the CLI builds it."""
+    from feddat_tpu_torch.data.classification_datasets import SnliVePipeline, load_snli_ve_examples
+    from feddat_tpu_torch.data.images import make_backend
+    from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    data_dir = os.path.join(root, "snli-ve")
+    pipe = SnliVePipeline(load_snli_ve_examples(data_dir, "train"),
+                          make_backend("flickr30k", "snli-ve", root),
+                          WordPieceTokenizer.from_vocab_file(vocab), text_len, canvas, batch_size,
+                          seed=seed, eval_examples=load_snli_ve_examples(data_dir, "dev"))
+    pipe.task_key = key
+    return pipe
+
+
 def make_clients(family: str, specs: Sequence[Dict[str, Any]]):
+    if family == "snli-ve":
+        return [snli_ve_client(**spec) for spec in specs]
     cls = SyntheticAlbefClient if family == "albef" else SyntheticVQAClient
     return [cls(**spec) for spec in specs]
 
@@ -62,15 +79,22 @@ def run_engine(family: str, model_cfg, heads, weights: str, clients: Sequence[Di
                sigterm: Tuple[int, int] = None, **engine_kw) -> Dict[str, Any]:
     """One ``SPMDFederatedTrainer.run`` on a ``mesh_shape`` mesh -> this rank's
     slot, client state, server view, history and latest checkpoint round.
-    ``sigterm = (rank, round)`` signals that rank in that round."""
+    ``sigterm = (rank, round)`` signals that rank in that round.  Family
+    ``"snli-ve"``: ViLT on SNLI-VE clients read from disk, with the CE
+    forward (``metric="accuracy"`` comes in ``engine_kw``)."""
     mesh = make_mesh(*mesh_shape, device_type="cpu")
     model = make_model(family, model_cfg, heads, weights, attn_impl)
+    if family == "snli-ve":
+        from feddat_tpu_torch.train.forwards import make_vilt_forward
+
+        engine_kw["make_forward"] = lambda m, k: make_vilt_forward(m, k, loss="ce")
     data = make_clients(family, clients)
     if sigterm is not None and dist.get_rank() == sigterm[0]:
         _sigterm_in_round(data[mesh.client_index], sigterm[1])
     if family == "albef":
         engine_kw["answer_banks"] = {c.task_key: (c.answer_ids, c.answer_mask) for c in data}
-    trainer = SPMDFederatedTrainer(model, None, data, config, mesh, family=family, device="cpu",
+    trainer = SPMDFederatedTrainer(model, None, data, config, mesh,
+                                   family="albef" if family == "albef" else "vilt", device="cpu",
                                    **engine_kw)
     history = trainer.run(resume=resume)
     ckpt = engine_kw.get("checkpoint_dir")
