@@ -10,7 +10,9 @@ Phases, in this order:
             the serving and training shapes and at ragged ones, with the stated
             tolerances; the attention-block forward (#1) and backward (#3) and
             the whole-layer backward (#4) also at M = 127, 128, 129 and 257 rows
-            (the edges of their GEMM's 128-row tiles), each twice, bitwise, #1's
+            (the edges of their GEMM's 128-row tiles) and at the accuracy
+            study's step (B=32, S=77: phase 17 on "block", #4 on the study's
+            "layer" route), each twice, bitwise, #1's
             q/k/v plane bitwise against #3's recompute of it; the flash
             forward (#7) at ALBEF's nine attention shapes, eight tile edges and
             the prompt's fusion cross-attention (577 + 5 keys), twice, bitwise;
@@ -114,11 +116,12 @@ Phases, in this order:
             BERT towers on the composable path with "names" remat.  The fused
             DAT step at B=48 x 4: dropout off, launches 24/24 and the 2x-bf16
             rule against the plain path; dropout live, remat against no remat
-            bitwise with each one's peak memory; three replays bitwise three
-            eager steps, launches per replay from the wrappers and from the
+            bitwise with each one's peak memory; a replay bitwise an eager
+            step, launches per replay from the wrappers and from the
             device, graph against eager in one pair and a profile of one replay;
-            samples/s and peak memory of the tuned, "flash" and plain paths
-            with graphs, one after another; a 2-client round, eager against graphs;
+            samples/s and peak memory of the tuned and "flash" paths with
+            graphs, one after another; a 2-client round of one step each,
+            eager against graphs;
             the "block" route with block_save_nox at B=16 (#1 24, #3 22 per
             step; "full" runs #1 again in the backward), bitwise against no
             remat and "full"; #1, #3 and #4 timed at S=577.
@@ -245,6 +248,19 @@ Phases, in this order:
             standard DAT steps with the BERT's dropout 0.1 live (equal
             losses from one seed, others from another); text_bert bitwise
             unchanged by both.
+17. study — the accuracy study (``feddat_tpu_torch/study.py``) as
+            ``scripts/torch_accuracy_study.py`` runs it: ``run_study`` on the
+            card at full width, the ViLT family (ViLT-B/32, bf16, canvas
+            192x192, S=77, "block" with block_save_nox remat and fused LN),
+            mode dat, seed --seed, 4 synthetic clients x 2 rounds of 8
+            standard DAT steps at B=32, FedAvg, one evaluation in the three
+            DAT modes, through the engine's replayed graphs.  Checks: each
+            round's #1/#3 launches 36/22 per step and nothing else, its
+            replays (no capture in round 1), every logged loss finite,
+            JAX's history schema (three scores per client; the table's
+            client_0..3 and average), and the average ensemble score above
+            chance (100/11: 11 answers are reachable).  Prints each client's
+            three scores, the round walls and the phase's seconds.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -281,6 +297,9 @@ DM, HEADS, R = 768, 12, 48
 # Training shape: B=64, S = 40 text + 12*12 patches of a 384x384 canvas + CLS = 185.
 TB, TCANVAS = 64, (384, 384)
 TS = TEXT_LEN + (TCANVAS[0] // 32) * (TCANVAS[1] // 32) + 1
+# The accuracy study's ViLT step (phase 17): B=32, S = 40 text + 6*6 patches
+# of a 192x192 canvas + CLS = 77.
+STUDY_SHAPE = (32, TEXT_LEN + (192 // 32) ** 2 + 1)
 NUM_LABELS = 3129  # VQAv2 answer vocabulary (feddat_tpu/configs/tasks.py:96)
 # TF32 tensor-core peak (dense), the rate charged for #7's P.v: P is kept at
 # fp32 precision as two bf16 products (hi + lo), the work of one TF32 product.
@@ -1016,11 +1035,11 @@ def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None):
     second call."""
     from feddat_tpu_torch.ops import layer_block as lb
 
+    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{mask_tag(masked, bias)}"
     args, cfg = layer_case(torch, b, s, use_b, seed, masked, bias)
     (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = args
     heads, scale, eps1, eps2, w_a, w_b, _ = cfg
-    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{mask_tag(masked, bias)}"
     lim = LAYER_STAGE_LIMITS
     with torch.no_grad():
         got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
@@ -1587,6 +1606,7 @@ def phase_parity(torch, seed, root):
     for s in EDGE_LENGTHS:  # M = S rows: the edges of the GEMM's 128-row tiles
         for flag in (True, False):
             attn_parity(torch, 1, s, flag, seed + s)
+    attn_parity(torch, *STUDY_SHAPE, True, seed + 77)  # the study's step (phase 17)
     errs["adapter_fused"] = adapter_parity(torch, B * S, seed)
     for r in ADAPTER_BOTTLENECKS:
         for n in ADAPTER_ROWS:
@@ -1598,12 +1618,14 @@ def phase_parity(torch, seed, root):
     for s in EDGE_LENGTHS:  # M = S rows: the edges of the 128-row tiles of the GEMMs
         for flag in (True, False):
             attn_bwd_parity(torch, 1, s, flag, seed + s)
+    attn_bwd_parity(torch, *STUDY_SHAPE, True, seed + 77)
     errs["layer_block_bwd"] = max(layer_bwd_parity(torch, TB, TS, e, seed) for e in (True, False))
     for b, s, e in ((3, 17, True), (3, 21, False), (2, 130, True), (2, 281, False), (1, 450, True)):
         layer_bwd_parity(torch, b, s, e, seed + s)
     for s in EDGE_LENGTHS:
         for flag in (True, False):
             layer_bwd_parity(torch, 1, s, flag, seed + s)
+    layer_bwd_parity(torch, *STUDY_SHAPE, True, seed + 77)  # the study on "layer"
     vit_length_parity(torch, seed)
     errs["fused_attention"], errs["fused_attention_bwd"] = fused_parity(torch, TB, TS, seed)
     fused_parity(torch, B, S, seed + 1)  # the serving canvas, keys dropped by the padding mask
@@ -3681,15 +3703,17 @@ def phase_albef_tuned(torch, seed):
           "start: " + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items())
           + f"; 'names' saves {peaks['no remat'] - peaks['names']:.3f}, 'full' "
           f"{peaks['no remat'] - peaks['full']:.3f} GiB")
-    del runs, full
+    del runs, full, nor
     torch.cuda.empty_cache()
 
-    # (c) graphs: three replays bitwise three eager steps, the launches per
-    # replay from the wrappers and from the device; graph against eager
+    # (c) graphs: a replay bitwise an eager step (the chained replays of the
+    # graphs phase's paths and of the "block" route below hold the state
+    # threading), the launches per replay
+    # from the wrappers and from the device; graph against eager
     step, state0 = albef_fused_step(torch, model, params, seed)
     label = f"ALBEF tuned fused DAT step (layer, remat, dropout live, B={ATB}x{ANS_PER_Q})"
     graph_path(torch, label, lambda: step(state0, batch),
-               lambda prev: step(prev[0] if prev else state0, batch), want)
+               lambda prev: step(prev[0] if prev else state0, batch), want, n=1)
     replay = graph_vs_eager(torch, label, lambda: step(state0, batch), want)
     launches = {k: replay[k] for k in ("attn_block", "layer_block_bwd")}
     profile_device(torch, lambda: step(state0, batch), f"ALBEF tuned fused DAT step, replayed "
@@ -3697,25 +3721,19 @@ def phase_albef_tuned(torch, seed):
     del step, state0
     torch.cuda.empty_cache()
 
-    # (d) samples/s and peak memory: the tuned configuration, phase
-    # albef_train's "flash" path, the plain path and the tuned step without
-    # remat, graphs on, in the same alternating rounds
+    # (d) samples/s and peak memory: the tuned configuration and phase
+    # albef_train's "flash" path, graphs on, in the same alternating rounds
+    # (rates of more paths belong to the bench of ROADMAP item 7)
     flash = albef_train_model(torch, seed, "flash", state=sd)
-    plain = albef_train_model(torch, seed, "auto", state=sd)
     weights = tensor_gib(params.values())
-    speed = path_speed(torch, {"tuned": (model, params), "flash": (flash, params),
-                               "plain": (plain, params), "tuned, remat off": (nor, params)},
-                       batch, seed, weights)
+    speed = path_speed(torch, {"tuned": (model, params), "flash": (flash, params)}, batch, seed,
+                       weights)
     for name, (rate, samples, reserved, allocated) in speed.items():
         print(f"time albef_tuned: {name}: {rate:.1f} samples/s (fused DAT step B={ATB}x{ANS_PER_Q}, "
               f"dropout live, replayed graph; median of {len(samples)} samples of 2 steps, in "
-              f"{SPEED_ROUNDS} round(s) with the other paths: {samples}); own peak reserved {reserved:.2f} GiB, allocated "
+              f"{SPEED_ROUNDS} round(s) with the other path: {samples}); own peak reserved {reserved:.2f} GiB, allocated "
               f"{allocated:.2f} GiB (capture included; one weight set, {weights:.2f} GiB, included)")
-    on, off = speed["tuned"][1], speed["tuned, remat off"][1]
-    print(f"time albef_tuned: remat off against remat on, paired by round and sample: off faster in "
-          f"{sum(b > a for a, b in zip(on, off))}/{len(on)}, rate ratio median "
-          f"{statistics.median(b / a for a, b in zip(on, off)):.4f}")
-    del flash, plain, nor
+    del flash
     torch.cuda.empty_cache()
     tuned_round(torch, model, params, seed)
     del model, params
@@ -3728,13 +3746,14 @@ def phase_albef_tuned(torch, seed):
 
 def tuned_round(torch, model, params, seed):
     """(e) one FederatedTrainer round of two clients in the tuned
-    configuration and evaluate_dat, eager against graphs."""
+    configuration, one fused step each, and evaluate_dat, eager against
+    graphs."""
     from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
     from feddat_tpu_torch.data.synthetic import SyntheticAlbefClient
     from feddat_tpu_torch.federated.engine import FederatedTrainer
     from feddat_tpu_torch.train.trainers import resolve_trainer
 
-    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+    clients = {k: SyntheticAlbefClient(k, num_train=ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
                                        vocab_size=30522, question_len=LQ, answer_len=LA,
                                        max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
                                        batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
@@ -3745,7 +3764,7 @@ def tuned_round(torch, model, params, seed):
                        optimizer=OptimizerConfig(),
                        federated=FederatedConfig(comm_rounds=2, local_epochs=1, eval_every=1),
                        num_epochs=1, seed=seed)
-    federated_rounds(torch, "2 ALBEF clients x 2 fused steps (tuned)", lambda: FederatedTrainer(
+    federated_rounds(torch, "2 ALBEF clients x 1 fused step (tuned)", lambda: FederatedTrainer(
         model, params, clients, tcfg, make_forward=hooks.make_forward, make_eval=hooks.make_eval,
         use_fused_dat=True), captures=1 + 3, programs=2)
 
@@ -5932,6 +5951,95 @@ def phase_classify(torch, seed, root):
     return launches
 
 
+STUDY_CLIENTS, STUDY_ROUNDS = 4, 2
+STUDY_CHANCE = 100.0 / 11  # the 8 shared and 3 personal answers a client can give
+
+
+def phase_study(torch, seed):
+    """Phase 17 (see the module docstring) -> the run's launches of #1 and #3."""
+    from feddat_tpu_torch import study
+    from feddat_tpu_torch.train import compiled
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rounds, losses = [], []
+
+    class Steps:  # the engine's metrics logger: each step's losses, left on the card
+        def step(self, metrics, batch_size, task_key):
+            losses.append(torch.stack([metrics["loss"], metrics["loss_shared"]]))
+
+        def round(self, round_idx, scores, wall_s):
+            pass
+
+    class Probe(study.FederatedTrainer):
+        """The study's engine with each round's steps, launches, captures and
+        replays read around it."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, metrics_logger=Steps(), **kwargs)
+
+        def run_round(self, round_idx):
+            torch.cuda.synchronize()
+            before, n0 = read_counts(), len(losses)
+            cap0, rep0 = compiled.STATS["captures"], compiled.STATS["replays"]
+            super().run_round(round_idx)
+            torch.cuda.synchronize()
+            counts = {k: v - before[k] for k, v in read_counts().items()}
+            rounds.append(dict(steps=len(losses) - n0, counts=counts, wall=self._last_round_wall_s,
+                               captures=compiled.STATS["captures"] - cap0,
+                               replays=compiled.STATS["replays"] - rep0))
+
+    engine, study.FederatedTrainer = study.FederatedTrainer, Probe
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        results = study.run_study(modes=("dat",), seeds=(seed,), num_clients=STUDY_CLIENTS,
+                                  comm_rounds=STUDY_ROUNDS, family="vilt")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        study.FederatedTrainer = engine
+    (history,) = results["dat"]["histories"]
+    table = results["dat"]["table"]
+    layers = 12
+    client = study.HeterogeneousVQAClient
+    steps_per_round = client.num_train // client.batch_size
+    # the standard DAT step on "block" with block_save_nox remat: #1 three
+    # times per layer (its outputs kept), #3 for layers 1..L-1 twice
+    want = {**NO_LAUNCHES, "attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1)}
+    for i, r in enumerate(rounds):
+        per_step = {k: v / r["steps"] for k, v in r["counts"].items() if v}
+        print(f"study: round {i}: {r['steps']} steps of {STUDY_CLIENTS} clients, engine round wall "
+              f"{r['wall']:.3f} s, {r['captures']} captures, {r['replays']} replays; launches per "
+              f"step {per_step} (expected {counts_text(want)})")
+        check(r["steps"] == STUDY_CLIENTS * steps_per_round
+              and r["counts"] == {k: r["steps"] * v for k, v in want.items()},
+              f"study round {i}: {r['steps']} steps, launches {r['counts']}")
+        check(r["replays"] >= r["steps"] and (i == 0 or r["captures"] == 0),
+              f"study round {i}: {r['captures']} captures and {r['replays']} replays for "
+              f"{r['steps']} steps")
+    check(len(rounds) == STUDY_ROUNDS, f"study: {len(rounds)} rounds")
+    got = torch.stack(losses).float().cpu()
+    print(f"study: {len(losses)} steps' losses (adapter_0, adapter_1): first {got[0].tolist()}, "
+          f"last {got[-1].tolist()}")
+    check(bool(torch.isfinite(got).all()), "study: a logged loss is not finite")
+    check(len(history) == 1 and history[0]["round"] == STUDY_ROUNDS - 1
+          and set(history[0]["scores"]) == {f"client_{i}" for i in range(STUDY_CLIENTS)}
+          and all(len(s) == 3 for s in history[0]["scores"].values())
+          and set(table) == {f"client_{i}" for i in range(STUDY_CLIENTS)} | {"average"},
+          f"study: history {history}, table keys {sorted(table)}")
+    for key, (ens, local, shared) in history[0]["scores"].items():
+        print(f"study: {key}: ensemble {ens:.3f}, local (adapter_0) {local:.3f}, shared "
+              f"(adapter_1) {shared:.3f}")
+    avg = table["average"]["mean"]
+    print(f"study: average ensemble score {avg:.3f} (chance {STUDY_CHANCE:.3f}); run_study took "
+          f"{run_s:.1f} s, launches in all {counts_text(launches)}")
+    check(avg > STUDY_CHANCE, f"study: average ensemble score {avg} is not above chance")
+    print(f"study: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] for k in ("attn_block", "attn_block_bwd")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6022,6 +6130,10 @@ def main(argv=None) -> int:
     # standard DAT step, their round's #1 and #4
     launches.update(phase_classify(torch, args.seed, root))
     done("classify")
+    # this slice's path: the accuracy study's full-width ViLT DAT run on
+    # "block", its #1 and #3
+    launches.update(phase_study(torch, args.seed))
+    done("study")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

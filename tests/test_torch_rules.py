@@ -1,7 +1,7 @@
 """Rules of the port that hold on any host:
 
-* nothing in ``feddat_tpu_torch/`` or ``chip_smoke.py`` imports ``jax``,
-  ``flax`` or ``feddat_tpu``;
+* nothing in ``feddat_tpu_torch/``, ``chip_smoke.py`` or the port's scripts
+  (``scripts/torch_*.py``) imports ``jax``, ``flax`` or ``feddat_tpu``;
 * entry points (model, predictors and their ``from_checkpoint``, the batch
   prefetch, the CLI) need the card unless the caller passes ``device="cpu"``;
 * a CUDA kernel wrapper given CPU tensors raises instead of running the
@@ -37,7 +37,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "feddat_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "feddat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "feddat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path):
@@ -54,6 +55,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     bad = {f"{f.relative_to(ROOT)}: {m}" for f in files for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
     assert "feddat_tpu_torch" in set(_imported_roots(ROOT / "chip_smoke.py"))
+    scripts = {f.name for f in files if f.parent.name == "scripts"}
+    assert {"torch_accuracy_study.py", "torch_kernel_ab.py", "torch_spmd_cards.py"} <= scripts
 
 
 def _skip_on_a_cuda_host():
