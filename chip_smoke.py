@@ -188,9 +188,8 @@ Phases, in this order:
             tensors and one capture while alpha ramps 0, 0.1, 0.2, 0.3;
             launches from the device's kernel names and host launches per
             replay, with distillation (graph against eager) and without
-            (one profiled replay); samples/s and own peak
-            memory against the no-distill step, graphs on, in alternating
-            rounds; with dropout off the gradients by the 2x-bf16 rule
+            (one profiled replay); with dropout off the gradients by the
+            2x-bf16 rule
             (#7/#8/#9 84/39/39); a FederatedTrainer round of 2 clients x 2
             steps with the distill hooks, one capture.  (b) ALBEF prompt
             tuning, dropout off: one step with the fusion cross-attention
@@ -261,6 +260,21 @@ Phases, in this order:
             client_0..3 and average), and the average ensemble score above
             chance (100/11: 11 answers are reachable).  Prints each client's
             three scores, the round walls and the phase's seconds.
+18. tp    — tensor parallelism (``parallel/tp.py``): two ranks share the one
+            card over gloo (NCCL refuses two ranks on one device; gloo carries
+            all-reduces of CUDA tensors through the host), each in a process
+            of its own, at (data=1, model=2): full-width ViLT-B/32 DAT, bf16,
+            attn_impl='auto' (JAX's --tp guard forces it), B=64, S=185, a
+            16-label head (a 3129-label one scores 0 after two steps), one
+            FederatedTrainer round of 2 fused steps and evaluate_dat, eagerly
+            (a gloo collective cannot be captured).  Against the world-of-one
+            engine on the same weights, client and seed in bf16, with the
+            same run in fp32 as the exact function: the communicated
+            partition's update (adapter_1 after the round less its initial
+            value) and the three scores by the 2x-bf16 rule (scores with a
+            floor of one example's score).  Each rank holds half of every
+            sharded kernel (bytes printed against tp=1), and #1-#9 launch no
+            time on the path (no kernel partitions over the model axis).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -5104,24 +5118,6 @@ def modes_distill(torch, seed):
     torch.cuda.empty_cache()
     lap("graph against eager and the replay without distillation")
 
-    # samples/s and own peak memory, graphs on, alternating
-    def make(distill):
-        def build():
-            s, st, _ = albef_plain_step(torch, model, params, seed, distill=distill)
-            return s, st, alpha_batch(torch, batch, 4) if distill else batch
-        return build
-
-    speed = alternating_speed(torch, {"distill": make(True), "no distill": make(False)}, ATB)
-    for name, (rate, samples, reserved, allocated) in speed.items():
-        print(f"time modes: {name} plain step (adapter, flash, dropout live, B={ATB}x{ANS_PER_Q}): "
-              f"{rate:.1f} samples/s (replayed graph, median of {len(samples)} samples of 2 steps in "
-              f"{MODES_SPEED_ROUNDS} alternating rounds: {samples}); own peak reserved {reserved:.2f} GiB, "
-              f"allocated {allocated:.2f} GiB (capture included, the weights not)")
-    d, n = speed["distill"], speed["no distill"]
-    print(f"time modes: distill / no distill: step time {n[0] / d[0]:.3f}x, peak reserved "
-          f"{d[2] - n[2]:+.2f} GiB, allocated {d[3] - n[3]:+.2f} GiB; twin "
-          f"{tensor_gib(params.values()):.2f} GiB")
-    lap("samples/s")
 
     # dropout off: the distill step's gradients by the 2x-bf16 rule
     sd = model.state_dict()
@@ -5516,18 +5512,21 @@ SPMD_CLIENT = "fed"  # the SPMD engine's shared head, task_fed
 
 class CollectiveCalls:
     """Counts the calls of ``torch.distributed.all_reduce`` made inside the
-    block, and those made while a CUDA graph was being captured (a call in a
-    capture is recorded into the graph; one outside runs from the host)."""
+    block, those made while a CUDA graph was being captured (a call in a
+    capture is recorded into the graph; one outside runs from the host), and
+    by group (``by_group[group]``, None for the world)."""
 
     def __enter__(self):
         import torch
         import torch.distributed as dist
 
         self.calls = self.captured = 0
+        self.by_group = Counter()
         self._inner = inner = dist.all_reduce
 
         def all_reduce(*args, **kwargs):
             self.calls += 1
+            self.by_group[kwargs.get("group", args[2] if len(args) > 2 else None)] += 1
             self.captured += torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
             return inner(*args, **kwargs)
 
@@ -5540,14 +5539,15 @@ class CollectiveCalls:
         dist.all_reduce = self._inner
 
 
-def graph_collectives(torch, label, call, nccl_kernels):
+def graph_collectives(torch, label, call, nccl_kernels, stats=None):
     """One profiled call of a step whose graph exists: one graph launch and
     no all-reduce called from the host.  With ``nccl_kernels`` (a group of
     more than one rank) the step's all-reduce must also show as NCCL kernels
     launched by the replay (by the kineto correlation of each device kernel
     with the host's ``cudaGraphLaunch``) and none outside it; NCCL's in-place
     all-reduce over a group of one launches nothing.  -> the replay's device
-    ms and its NCCL kernels' share of them."""
+    ms and its NCCL kernels' share of them; ``stats["nccl_in_replay"]``, when
+    a dict is given, the number of NCCL kernels the replay launched."""
     from torch.profiler import ProfilerActivity, profile
 
     call()  # a capture, where the step has none yet, stays out of the profile
@@ -5578,6 +5578,8 @@ def graph_collectives(torch, label, call, nccl_kernels):
     if nccl_kernels:
         check(sum(inside.values()) >= 1 and not outside,
               f"{label}: the step's all-reduce is not a node of its replayed graph")
+    if stats is not None:
+        stats["nccl_in_replay"] = sum(inside.values())
     return busy / 1e3, nccl_us / 1e3
 
 
@@ -6040,6 +6042,119 @@ def phase_study(torch, seed):
     return {k: launches[k] for k in ("attn_block", "attn_block_bwd")}
 
 
+# Phase 18: tensor parallelism (ROADMAP item 12b).  Two ranks in processes of
+# their own share the one card over gloo at (data=1, model=2); the world-of-one
+# engine runs here meanwhile, in bf16 and in fp32.
+TP_STEPS = 2
+TP_CLIENT = "tp"
+# a 16-label head: a random-init 3129-label head scores 0 on every example
+# after two steps, which would leave the scores' check nothing to compare
+TP_LABELS = 16
+
+
+def tp_round(torch, seed, dtype, mesh=None):
+    """One round of TP_STEPS fused DAT steps and evaluate_dat of full-width
+    ViLT-B/32 on "auto", eagerly, on ``mesh`` (None: the world of one) ->
+    the communicated partition's update, the scores, the launches, the
+    backbone's bytes on this rank and the round's wall."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.parallel import tp
+    from feddat_tpu_torch.train import compiled
+
+    model, _ = create_model("vilt", {TP_CLIENT: TaskHeadSpec(num_labels=TP_LABELS)}, PEFTMode.DAT,
+                            16, dtype, image_size=TCANVAS, attn_impl="auto", seed=seed)
+    cfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(lr=1e-3, warmup_ratio=0.0),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed)
+    client = SyntheticVQAClient(TP_CLIENT, num_train=TP_STEPS * TB, num_eval=TB, num_labels=TP_LABELS,
+                                vocab_size=30522, text_len=TEXT_LEN, image_size=TCANVAS,
+                                batch_size=TB, val_batch_size=TB, seed=seed + 5)
+    trainer = FederatedTrainer(model, None, {TP_CLIENT: client}, cfg, use_fused_dat=True,
+                               tp_mesh=mesh, device="cuda")
+    init = {k: v.clone() for k, v in trainer.server_params.items() if "adapter_1" in k}
+    with compiled.disable_graphs():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run_round(0)
+        entry = trainer.evaluate_round(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    update = {k: (trainer.server_params[k] - v).float().cpu() for k, v in init.items()}
+    return {"update": update, "scores": entry["scores"][TP_CLIENT], "counts": counts,
+            "bytes": tp.backbone_bytes(trainer.server_params), "wall": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _tp_rank(rank, store, out, seed):
+    """A rank of phase 18 (a process of its own): gloo from a file store, the
+    card shared, the (data=1, model=2) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from feddat_tpu_torch.parallel.tp import make_tp_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        # the mesh's groups are gloo's (the default backend); they carry CUDA tensors
+        mesh = make_tp_mesh(2, 1, device_type="cpu")
+        torch.save(tp_round(torch, seed, "bfloat16", mesh), Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, seed):
+    """Phase 18 (see the module docstring)."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    atexit.register(shutil.rmtree, work, True)
+    ranks = mp.start_processes(_tp_rank, args=(str(work / "store"), str(work), seed), nprocs=2,
+                               join=False, start_method="spawn")
+    # the world of one meanwhile, in bf16 and in fp32 (the exact function)
+    ref = tp_round(torch, seed, "bfloat16")
+    exact = tp_round(torch, seed, "float32")
+    while not ranks.join():
+        pass
+    got = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    label = f"ViLT-B/32 DAT, fused step, 'auto', bf16, B={TB}, S={TS}, {TP_STEPS} steps"
+    for name, run in (("tp=1 bf16", ref), ("tp=1 fp32", exact), ("tp=2 rank 0", got[0]),
+                      ("tp=2 rank 1", got[1])):
+        b = run["bytes"]
+        print(f"tp: {label}, {name}: round and evaluate_dat in {run['wall']:.2f} s, scores "
+              f"{run['scores']}, sharded kernels {b['sharded'] / 2 ** 20:.2f} MiB of "
+              f"{b['total'] / 2 ** 20:.2f} MiB of parameters on this rank, peak allocated "
+              f"{run['peak_gib']:.2f} GiB, launches {counts_text(run['counts'])}")
+    for r, run in enumerate(got):
+        check(run["counts"] == NO_LAUNCHES, f"tp: rank {r} launched a kernel: {run['counts']}")
+        check(2 * run["bytes"]["sharded"] == ref["bytes"]["sharded"],
+              f"tp: rank {r} holds {run['bytes']['sharded']} bytes of sharded kernels, not half of "
+              f"{ref['bytes']['sharded']}")
+        k, kw, kn = set_error(torch, run["update"], exact["update"])
+        p, pw, _ = set_error(torch, ref["update"], exact["update"])
+        tol = max(TRAIN_GRAD_FACTOR * p, TRAIN_GRAD_FLOOR)
+        print(f"tp: rank {r} adapter_1 update vs tp=1 fp32: {k:.3e} (worst tensor {kw:.3e} {kn}), "
+              f"tp=1 bf16 {p:.3e} (worst tensor {pw:.3e}); tol {tol:.3e}")
+        check(k <= tol, f"tp: rank {r}'s communicated partition disagrees: {k} > {tol}")
+        floor = 100.0 / TB  # one example's score
+        for i, (a, e, b) in enumerate(zip(run["scores"], exact["scores"], ref["scores"])):
+            check(abs(a - e) <= max(TRAIN_GRAD_FACTOR * abs(b - e), floor),
+                  f"tp: rank {r} score {i} {a} against fp32 {e} (bf16 tp=1 {b})")
+    check(all(torch.equal(got[0]["update"][k], got[1]["update"][k]) for k in got[0]["update"])
+          and got[0]["scores"] == got[1]["scores"], "tp: the model ranks disagree")
+    print(f"tp: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6134,6 +6249,9 @@ def main(argv=None) -> int:
     # "block", its #1 and #3
     launches.update(phase_study(torch, args.seed))
     done("study")
+    # this slice's path: tensor parallelism, two ranks on the card over gloo
+    phase_tp(torch, args.seed)
+    done("tp")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

@@ -27,6 +27,16 @@ default the rest of the world) is built before any model, with JAX's errors
 history and ``meta.json``; with more than one process each traces into
 ``<profile_dir>/proc<rank>``.
 
+``--tp M`` shards the frozen backbone over a ``model`` axis of ranks
+(``parallel/tp.py``), one process per rank, as JAX's ``--tp`` shards it over
+devices: ``torchrun --nproc_per_node D*M -m feddat_tpu_torch.cli --tp M ...``
+runs the sequential engine over a ``(data=D, model=M)`` mesh, and with
+``--engine spmd`` over ``(client, data, model)``.  JAX's guards hold
+(:func:`apply_tp_arg_guards`): ``--multihost`` is refused, every kernel
+route falls back to ``"auto"``, and a batch the data axis does not divide is
+refused.  Started alone, ``--tp 2`` raises JAX's mesh error (a world of one
+has one device) and never falls back.
+
 Every encoder and every task trainer of the JAX CLI runs: ``vilt`` and
 ``viltbert`` (ViLT with a frozen BERT in front, ``--bert_model_path`` for its
 weights) on the federated VQA clients and on the other trainers' tasks,
@@ -34,9 +44,8 @@ VQAv2 5% low-shot, NLVR2, SNLI-VE and VCR (``_build_classification_client``,
 each with its task's optimizer settings and epoch horizon; mixed client sets
 on the sequential engine, one kind of head on the SPMD engine).  What the
 port does not have yet is refused before any model is built or any dataset
-read, naming its ROADMAP item: tensor parallelism (``--tp`` > 1: item 12b)
-and float32 on a kernel route on the card (Queue 3: the CUDA kernels take
-bf16).  ``albef_distill`` trains on the sequential engine as in
+read, naming its ROADMAP item: float32 on a kernel route on the card (Queue
+3: the CUDA kernels take bf16).  ``albef_distill`` trains on the sequential engine as in
 the JAX CLI: momentum distillation on the plain modes, the fused DAT step
 without it (``--use_fused_dat``), a ``TypeError`` at the first step of the
 standard DAT step (the distill forward takes the twin, which that step does
@@ -112,7 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int, default=None,
                    help="spmd mesh data axis (default: the world's ranks over the clients)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism; > 1 is refused (ROADMAP item 12b)")
+                   help="tensor-parallel degree: shard the frozen backbone Megatron-style over a "
+                        "`model` axis of ranks (parallel/tp.py); trainable PEFT partitions stay "
+                        "replicated.  Sequential engine over (data, model); --engine spmd over "
+                        "(client, data, model); one process per rank (torchrun)")
     p.add_argument("--vocab_file", default=None,
                    help="bert-base-uncased vocab.txt for the WordPiece tokenizer")
     p.add_argument("--bert_model_path", default=None,
@@ -184,9 +196,6 @@ def refuse_unported(args) -> None:
             "--engine spmd supports albef_no_distill; momentum-distillation aux state is "
             "sequential-engine only (as is the reference's live DAT path, train_albef.sh)")
 
-    if args.tp > 1:
-        refuse(f"--tp {args.tp} (tensor parallelism over a model axis)",
-               "Queue 1, item 12b: tensor parallelism")
     if (args.device == "cuda" and not args.smoke and args.dtype == "float32"
             and args.attn_impl in KERNEL_ROUTES):
         refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
@@ -206,6 +215,65 @@ def check_spmd_args(args) -> None:
         raise SystemExit("--canvas_bucket emits per-batch canvases; the spmd engine stacks "
                          "same-shape batches across the client axis.  Use --engine sequential "
                          "with --canvas_bucket.")
+
+
+def check_attn_args(args) -> None:
+    """The JAX CLI's frozen-kernel guard (:416-438): a kernel route with a mode
+    that trains what the kernel freezes exits when training and falls back
+    to ``"auto"`` for an eval-only run."""
+    mode = args.optimizer_mode
+    conflict = args.attn_impl in ("block", "layer") and mode in (
+        "full", "bias", "lora", "freeze_bottom_k_layers")
+    # the whole-layer kernel also freezes the LayerNorms and the FFN
+    if args.attn_impl == "layer" and mode == "norm":
+        conflict = True
+    if conflict:
+        if args.do_train:
+            raise SystemExit(
+                f"--attn_impl {args.attn_impl} assumes a frozen backbone; "
+                f"--optimizer_mode {mode} trains part of it (its gradients "
+                "would silently be zero).  Use --attn_impl auto for this mode.")
+        print(f"[feddat_tpu_torch] --attn_impl {args.attn_impl} is incompatible with "
+              f"--optimizer_mode {mode}; falling back to 'auto' for this eval-only run",
+              file=sys.stderr)
+        args.attn_impl = "auto"
+    if args.attn_impl == "layer" and args.remat:
+        print("[feddat_tpu_torch] --attn_impl layer: the pre-LN layer stacks save their own "
+              "minimal residual set (--remat is ignored for them)", file=sys.stderr)
+
+
+def apply_tp_arg_guards(args) -> None:
+    """Validate/normalize the ``--tp`` argument combinations (in place), as the
+    JAX CLI's (:354-381).
+
+    TP composes with both engines — sequential runs over a (data, model)
+    mesh (parallel/tp.py), spmd over (client, data, model) — within one
+    launcher's world, and with the composable attention route (no CUDA
+    kernel partitions over the model axis, as no Pallas kernel does)."""
+    if args.tp <= 1:
+        return
+    if args.multihost:
+        raise SystemExit(
+            "--tp is single-controller: the sequential engine feeds "
+            "process-local batches to the (data, model) mesh, which cannot "
+            "span a multihost process group.  Drop --multihost (TP uses all "
+            "of this process's devices) or use --engine spmd --multihost "
+            "without --tp.")
+    if args.attn_impl in KERNEL_ROUTES:
+        print(f"[feddat_tpu_torch] --attn_impl {args.attn_impl} is a Pallas custom "
+              "call and does not partition over the model axis; falling back "
+              "to 'auto' for this --tp run", file=sys.stderr)
+        args.attn_impl = "auto"
+
+
+def check_tp_batch(args, tp_mesh) -> None:
+    """The JAX CLI's batch check under ``--tp`` (:787-798)."""
+    dp = tp_mesh.shape["data"]
+    if args.batch_size % dp != 0:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} is not divisible by the "
+            f"TP mesh's data axis ({dp} = {dp * args.tp} devices / "
+            f"--tp {args.tp}); batches are sharded over that axis")
 
 
 def _build_vqa_cross_client(args, key, spec, tokenizer, answer_banks):
@@ -468,25 +536,35 @@ def _merge_text_bert(args, params, model_cfg):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     task_keys = resolve_task_keys(args.ordered_cl_tasks)
+    check_attn_args(args)
+    apply_tp_arg_guards(args)
     refuse_unported(args)
     check_spmd_args(args)
 
     from feddat_tpu_torch.device import resolve_device
     from feddat_tpu_torch.parallel import mesh as pmesh
+    from feddat_tpu_torch.parallel.tp import make_tp_mesh
 
     device = resolve_device(args.device)
     with contextlib.ExitStack() as stack:
         mesh = None
-        if args.engine == "spmd" or args.multihost:
+        if args.engine == "spmd" or args.multihost or args.tp > 1:
             device = pmesh.local_device(device.type)  # cuda:LOCAL_RANK
             if args.multihost:
                 pmesh.initialize_multihost(args.coordinator_address, args.num_processes,
                                            args.process_id, device)
             stack.enter_context(pmesh.world(device))
-        if args.engine == "spmd":  # JAX's mesh errors come before any model
-            make = pmesh.make_multihost_mesh if args.multihost else pmesh.make_mesh
-            mesh = make(num_clients=args.mesh_clients or len(task_keys),
-                        data_parallel=args.mesh_data, device_type=device.type)
+        # JAX's mesh errors come before any model
+        if args.engine == "spmd" and args.multihost:
+            mesh = pmesh.make_multihost_mesh(num_clients=args.mesh_clients or len(task_keys),
+                                             data_parallel=args.mesh_data, device_type=device.type)
+        elif args.engine == "spmd":
+            mesh = pmesh.make_mesh(num_clients=args.mesh_clients or len(task_keys),
+                                   data_parallel=args.mesh_data, model_parallel=args.tp,
+                                   device_type=device.type)
+        elif args.tp > 1:
+            mesh = make_tp_mesh(model_parallel=args.tp, device_type=device.type)
+            check_tp_batch(args, mesh)
         return _run(args, task_keys, device, mesh)
 
 
@@ -536,7 +614,7 @@ def task_overrides(task_keys):
 
 
 def sequential_trainer(args, task_keys, model, params, clients, answer_banks, config, device,
-                       metrics=None):
+                       metrics=None, tp_mesh=None):
     """The sequential ``FederatedTrainer`` a launch runs (:753-800): each
     client's forward, eval step and metric from its task's trainer hooks (a
     mixed client set in one run), the per-task overrides, and the fused DAT
@@ -564,6 +642,9 @@ def sequential_trainer(args, task_keys, model, params, clients, answer_banks, co
             "tasks use the standard DAT step")
         use_fused = False
     opt_overrides, epoch_overrides = task_overrides(task_keys)
+    profile_dir = args.profile_dir
+    if profile_dir and tp_mesh is not None and tp_mesh.grid.size > 1:  # one subtree per process
+        profile_dir = os.path.join(profile_dir, f"proc{tp_mesh.rank}")
     return FederatedTrainer(
         model, params, clients, config,
         make_forward=lambda model_, task_key: hooks_for(task_key).make_forward(model_, task_key),
@@ -576,14 +657,16 @@ def sequential_trainer(args, task_keys, model, params, clients, answer_banks, co
         optimizer_overrides=opt_overrides,
         num_epochs_overrides=epoch_overrides,
         checkpoint_dir=args.checkpoint_dir, metrics_logger=metrics,
-        profile_dir=args.profile_dir,
+        tp_mesh=tp_mesh,
+        profile_dir=profile_dir,
         device=device,
     )
 
 
 def _run(args, task_keys, device, mesh) -> int:
     """The launch after the refusals, on ``device``, with the SPMD engine's
-    ``mesh`` or None."""
+    ``mesh``, the sequential engine's ``(data, model)`` mesh under ``--tp``,
+    or None."""
     from feddat_tpu_torch import native
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.configs.tasks import TASK_CONFIGS
@@ -592,24 +675,6 @@ def _run(args, task_keys, device, mesh) -> int:
     from feddat_tpu_torch.utils.seeding import process_index
 
     mode = PEFTMode(args.optimizer_mode)
-    frozen_kernel_conflict = args.attn_impl in ("block", "layer") and mode in (
-        PEFTMode.FULL, PEFTMode.BIAS, PEFTMode.LORA, PEFTMode.FREEZE_BOTTOM_K)
-    # the whole-layer kernel also freezes the LayerNorms and the FFN
-    if args.attn_impl == "layer" and mode == PEFTMode.NORM:
-        frozen_kernel_conflict = True
-    if frozen_kernel_conflict:
-        if args.do_train:
-            raise SystemExit(
-                f"--attn_impl {args.attn_impl} assumes a frozen backbone; "
-                f"--optimizer_mode {mode.value} trains part of it (its gradients "
-                "would silently be zero).  Use --attn_impl auto for this mode.")
-        print(f"[feddat_tpu_torch] --attn_impl {args.attn_impl} is incompatible with "
-              f"--optimizer_mode {mode.value}; falling back to 'auto' for this eval-only run",
-              file=sys.stderr)
-        args.attn_impl = "auto"
-    if args.attn_impl == "layer" and args.remat:
-        print("[feddat_tpu_torch] --attn_impl layer: the pre-LN layer stacks save their own "
-              "minimal residual set (--remat is ignored for them)", file=sys.stderr)
     config = train_config(args, task_keys)
     run_name = experiment_name(config)
     logger = setup_logger(args.output_dir, run_name=run_name)
@@ -718,8 +783,11 @@ def _run(args, task_keys, device, mesh) -> int:
             full_epochs=args.spmd_full_epochs, profile_dir=profile_dir, device=device)
         history = trainer.run()
     else:
+        if mesh is not None:
+            logger.info("tensor parallel: mesh (data=%d, model=%d)", mesh.shape["data"],
+                        mesh.shape["model"])
         trainer = sequential_trainer(args, task_keys, model, params, clients, answer_banks, config,
-                                     device, metrics)
+                                     device, metrics, tp_mesh=mesh)
         history = [trainer.run_single_task()] if args.do_single else trainer.run()
     metrics.close()
     if device.type == "cuda":

@@ -40,9 +40,19 @@ SIGTERM finishes the round in flight, checkpoints it and returns
 seeds each client's twin at its start and threads it through the plain
 step; the twin is not checkpointed, as in JAX.  ``batch_transform`` runs at
 step time, on the batch the prefetch handed over (it returns a new dict).
-Tensor parallelism (``tp_mesh``) is a later slice (ROADMAP Queue 1, item
-12b) and raises ``NotImplementedError``; the engine over a (client, data)
-mesh of ranks is ``federated/spmd.py``.
+The engine over a (client, data) mesh of ranks is ``federated/spmd.py``.
+
+Tensor parallelism (``tp_mesh``, a ``(data, model)`` mesh of ranks from
+``parallel/tp.py::make_tp_mesh``, one process per rank): each rank holds its
+shards of the backbone (``shard_params_tp`` at init and after a resume) and
+the replicated trainable partitions, and runs its steps and evaluations
+under the mesh's model group (``parallel/tp.py::active``).  Data rank ``d``
+of ``D`` takes rows ``[d·B/D, (d+1)·B/D)`` of each batch (``shard=(d, D)``)
+and the steps average their gradients over the data group, as the SPMD
+engine's do; FedAvg and the personal store work shard by shard; the scores
+are summed over the data group only (each model rank holds the same ones).
+Checkpoints are gathered over the model group into JAX's full layout and
+written by rank 0; every rank restores and reshards.
 """
 
 from __future__ import annotations
@@ -53,11 +63,14 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode, TrainConfig
 from feddat_tpu_torch.data.pipeline import prefetch_to_device
 from feddat_tpu_torch.device import DeviceLike, resolve_device
 from feddat_tpu_torch.federated.fedavg import fedavg
+from feddat_tpu_torch.parallel import tp
+from feddat_tpu_torch.parallel.mesh import DATA_AXIS
 from feddat_tpu_torch.peft.partition import (
     comm_roles,
     label_params,
@@ -124,9 +137,9 @@ class FederatedTrainer:
         client's auxiliary state at its start (ALBEF's momentum twin),
         ``aux_forward`` marks the forward as aux-threading (the plain step's),
         ``batch_transform(batch, epoch, step, steps_per_epoch)`` rewrites
-        each batch (the distillation alpha ramp)."""
-        if tp_mesh is not None:
-            raise _later("tensor parallelism (tp_mesh)", "12b, tensor parallelism")
+        each batch (the distillation alpha ramp).  ``tp_mesh``: the ``(data,
+        model)`` mesh of ranks this process is one of (``params`` whole on
+        every rank; the engine keeps this rank's shards)."""
         if type(model).__name__ not in ENGINE_MODELS:
             raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
         check_dropout_rng(config.dropout_rng)
@@ -137,6 +150,16 @@ class FederatedTrainer:
         if params is None:
             params = model.state_dict()
         params = {k: v.detach().to(self.device) for k, v in params.items()}
+        self.param_budget = param_budget(params, self.mode)
+        self.tp_mesh, self.tp, self._shard, data_group = tp_mesh, None, {}, None
+        self._data_ranks = 1 if tp_mesh is None else tp_mesh.size(DATA_AXIS)
+        if tp_mesh is not None:
+            self.tp, data_group = tp.context(tp_mesh), tp_mesh.data_group
+            if self.tp is not None:
+                tp.check_model(model)
+            if self._data_ranks > 1:  # this rank's rows of every batch
+                self._shard = {"shard": (tp_mesh.data_index, self._data_ranks)}
+            params = tp.shard_params_tp(params, self.tp)
         self.server_params = params
         self.labels = label_params(params)
         self._personal_roles = personal_roles(self.mode)
@@ -160,13 +183,13 @@ class FederatedTrainer:
             if self.mode == PEFTMode.DAT:
                 if use_fused_dat:
                     step = self._build_fused_dat_step(model, params, task_key, part, opt_cfg,
-                                                      max_steps)
+                                                      max_steps, data_group)
                 else:
-                    step = make_dat_train_step(forward, part, opt_cfg, max_steps)
+                    step = make_dat_train_step(forward, part, opt_cfg, max_steps, data_group)
             else:
                 adapter_mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
                 step = make_plain_train_step(forward, part, opt_cfg, max_steps, adapter_mode,
-                                             aux_forward=aux_forward)
+                                             aux_forward=aux_forward, data_group=data_group)
             step.share(self._programs, (step.program.name, part.shared_paths, part.local_paths,
                                         part.head_paths, opt_cfg))
             eval_step = make_eval(model, task_key) if make_eval else make_eval_step(model, task_key, metric)
@@ -184,7 +207,6 @@ class FederatedTrainer:
         self.metrics = metrics_logger
         self.aux_init = aux_init
         self.batch_transform = batch_transform
-        self.param_budget = param_budget(params, self.mode)
         b = self.param_budget
         logger.info("params: total=%d trainable=%d (%.3f%%) communicated=%d personal=%d",
                     b["total"], b["trainable"], b["trainable_pct"], b["communicated"], b["personal"])
@@ -215,6 +237,10 @@ class FederatedTrainer:
 
     def train_client(self, client: ClientRuntime, round_idx: int) -> Dict[str, torch.Tensor]:
         """One client's local training; returns its full post-training params."""
+        with tp.active(self.tp):
+            return self._train_client(client, round_idx)
+
+    def _train_client(self, client: ClientRuntime, round_idx: int) -> Dict[str, torch.Tensor]:
         params = self._client_params(client)
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.rng))
         state = init_train_state(params, client.partitioner, client.opt_cfg,
@@ -223,7 +249,7 @@ class FederatedTrainer:
             state = state.replace(aux=self.aux_init(params))
         spe = client.data.steps_per_epoch
         for epoch in range(self.config.federated.local_epochs):
-            it = client.data.train_batches(epoch=round_idx * 1000 + epoch)
+            it = client.data.train_batches(epoch=round_idx * 1000 + epoch, **self._shard)
             if self.device.type == "cuda":
                 # the host's batch assembly and copy overlap the previous step
                 it = prefetch_to_device(it, size=2, device=self.device)
@@ -235,7 +261,8 @@ class FederatedTrainer:
                 state, metrics = client.train_step(state, to_device(batch, self.device))
                 if self.metrics is not None:  # the scalars; the DAT steps' gradient sets stay here
                     scalars = {k: v for k, v in metrics.items() if k != "grads"}
-                    self.metrics.step(scalars, next(iter(batch.values())).shape[0], client.task_key)
+                    rows = next(iter(batch.values())).shape[0] * self._data_ranks
+                    self.metrics.step(scalars, rows, client.task_key)
         return state.params
 
     def _absorb(self, client: ClientRuntime, trained: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -254,10 +281,20 @@ class FederatedTrainer:
     def _evaluate_client(self, client: ClientRuntime):
         params = self._client_params(client, refresh=False)
         n, dbg = client.data.num_eval_examples, self.config.debug_steps
-        if self.mode == PEFTMode.DAT:
-            return evaluate_dat(params, client.eval_step, client.data.eval_batches, n, debug_steps=dbg)
-        mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
-        return evaluate(params, client.eval_step, client.data.eval_batches(), n, mode, debug_steps=dbg)
+        batches = lambda: client.data.eval_batches(**self._shard)  # noqa: E731
+        with tp.active(self.tp):
+            if self.mode == PEFTMode.DAT:
+                scores = evaluate_dat(params, client.eval_step, batches, n, debug_steps=dbg)
+            else:
+                mode = "adapter" if self.mode == PEFTMode.ADAPTER else "none"
+                scores = evaluate(params, client.eval_step, batches(), n, mode, debug_steps=dbg)
+        if not self._shard:
+            return scores
+        # each data rank scored its rows: the sum over the data group (not
+        # the world, where every score would count once per model rank)
+        t = torch.tensor(scores, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=self.tp_mesh.data_group)
+        return t.tolist()
 
     def evaluate_round(self, round_idx: int) -> Dict[str, Any]:
         """Evaluate each client's personalised model (``main.py:520-558``)."""
@@ -293,10 +330,17 @@ class FederatedTrainer:
         return entry
 
     def save_checkpoint(self, round_idx: int) -> Optional[str]:
+        """Under ``tp_mesh`` every rank calls it: the shards are gathered over
+        the model group into JAX's full layout and rank 0 writes them."""
         if not self.checkpoint_dir:
             return None
-        return save_federated_state(self.checkpoint_dir, round_idx, self.server_params,
-                                    self.personal, self.rng)
+        server, personal = self.server_params, self.personal
+        if self.tp_mesh is not None:
+            server = tp.gather_params_tp(server, self.tp)
+            personal = {k: tp.gather_params_tp(v, self.tp) for k, v in personal.items()}
+            if self.tp_mesh.rank != 0:
+                return None
+        return save_federated_state(self.checkpoint_dir, round_idx, server, personal, self.rng)
 
     def try_resume(self) -> int:
         """Restore the latest checkpoint; returns the next round index."""
@@ -305,7 +349,11 @@ class FederatedTrainer:
         restored = restore_federated_state(self.checkpoint_dir, device=self.device)
         if restored is None:
             return 0
-        rnd, self.server_params, self.personal, self.rng = restored
+        rnd, server, personal, self.rng = restored
+        # the checkpoint holds whole tensors: reshard them, or the rest of the
+        # run would hold a replicated backbone (JAX's engine.py:390-395)
+        self.server_params = tp.shard_params_tp(server, self.tp)
+        self.personal = {k: tp.shard_params_tp(v, self.tp) for k, v in personal.items()}
         logger.info("resumed from checkpoint at round %d", rnd)
         return rnd + 1
 

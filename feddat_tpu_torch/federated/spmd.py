@@ -1,5 +1,5 @@
-"""SPMD federated engine over a (client, data) mesh of ranks (counterpart of
-``feddat_tpu/federated/spmd.py``).
+"""SPMD federated engine over a (client, data[, model]) mesh of ranks
+(counterpart of ``feddat_tpu/federated/spmd.py``).
 
 The JAX engine runs every client's local DAT training as one jitted
 ``shard_map`` program over a ``(client, data)`` device mesh.  Here each rank
@@ -41,6 +41,16 @@ from the engine's generator, in client order, as the sequential engine draws
 them, so a client's stream does not depend on the world's size, and in a
 world of one the engine computes what ``FederatedTrainer`` computes.
 
+With a ``model`` axis (``make_mesh(..., model_parallel=M)``) each slot's
+ranks run tensor parallel (``parallel/tp.py``): the backbone is held as this
+rank's shards under ``tp_spec_for``, the client partitions replicated over
+the model group (in ``PEFTMode.FULL``, whose partition holds the sharded
+kernels too, as shards), and every step and evaluation runs under the mesh's
+model group.  FedAvg goes over the client group at a fixed (data, model)
+index; the evaluation's all-reduce over the world takes the scores of model
+index 0 alone, so no score counts once per model rank; checkpoints gather the
+shards over the model group first, into JAX's full layout.
+
 All clients share one head module, ``task_<FED_HEAD_KEY>`` (the federated VQA
 clients all have 100 labels; classification clients of one head shape, as the
 CLI requires); each client trains and keeps its own values.  The model is
@@ -63,6 +73,7 @@ from feddat_tpu_torch.data.pipeline import prefetch_to_device
 from feddat_tpu_torch.device import DeviceLike, resolve_device
 from feddat_tpu_torch.federated.engine import ENGINE_MODELS, FederatedTrainer
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE
+from feddat_tpu_torch.parallel import tp
 from feddat_tpu_torch.parallel.mesh import CLIENT_AXIS, DATA_AXIS, RankMesh
 from feddat_tpu_torch.peft.partition import (
     ROLE_TEACHER,
@@ -116,7 +127,7 @@ def _all_gather_tree(tree: Dict[str, torch.Tensor], group, size: int) -> Dict[st
 
 
 class SPMDFederatedTrainer:
-    """Runs federated rounds as SPMD over a ``(client, data)`` mesh of ranks."""
+    """Runs federated rounds as SPMD over a ``(client, data[, model])`` mesh of ranks."""
 
     def __init__(self, model, params: Optional[Dict[str, torch.Tensor]], clients: Sequence[Any],
                  config: TrainConfig, mesh: RankMesh, make_forward: Optional[Callable] = None,
@@ -158,9 +169,14 @@ class SPMDFederatedTrainer:
         self.full_epochs = full_epochs
         mode = config.peft_mode
 
+        self.tp = tp.context(mesh)
+        if self.tp is not None:
+            tp.check_model(model)
         if params is None:
             params = model.state_dict()
         params = {k: v.detach().to(self.device) for k, v in params.items()}
+        self.param_budget = b = param_budget(params, mode)
+        params = tp.shard_params_tp(params, self.tp)
         self.partitioner = P = Partitioner(params, FED_HEAD_KEY, mode,
                                            layers_to_freeze=config.layers_to_freeze)
         labels = label_params(params)
@@ -222,7 +238,6 @@ class SPMDFederatedTrainer:
 
         self.rng = torch.Generator().manual_seed(config.seed)
         self.history: List[Dict[str, Any]] = []
-        self.param_budget = b = param_budget(params, mode)
         logger.info("params: total=%d trainable=%d (%.3f%%) communicated=%d personal=%d"
                     " (x%d clients stacked)", b["total"], b["trainable"], b["trainable_pct"],
                     b["communicated"], b["personal"], C)
@@ -285,6 +300,10 @@ class SPMDFederatedTrainer:
             self.client_state[p] = self._init_client[p]
 
     def run_round(self, round_idx: int) -> None:
+        with tp.active(self.tp):
+            self._run_round(round_idx)
+
+    def _run_round(self, round_idx: int) -> None:
         t0 = time.time()
         if self.config.peft_mode == PEFTMode.DAT:  # adapter_2 <- adapter_1 (task_trainer.py:36-45)
             self.client_state = teacher_refresh(self.client_state)
@@ -325,19 +344,20 @@ class SPMDFederatedTrainer:
         params = {**self.backbone, **self.client_state}
         parts: List[List[torch.Tensor]] = [[] for _ in modes]
         it, template = self.client.eval_batches(**self._shard), None
-        for _ in range(n_steps):
-            batch = next(it, None)
-            if batch is None:
-                if template is None:
-                    break  # no eval batch at all: this client's sums stay 0
-                batch = {k: np.zeros_like(v) for k, v in template.items()}
-            template = template or batch
-            batch = to_device(batch, self.device)
-            for j, m in enumerate(modes):
-                parts[j].append(self.eval_step(params, batch, adapter_mode=m))
+        with tp.active(self.tp):
+            for _ in range(n_steps):
+                batch = next(it, None)
+                if batch is None:
+                    if template is None:
+                        break  # no eval batch at all: this client's sums stay 0
+                    batch = {k: np.zeros_like(v) for k, v in template.items()}
+                template = template or batch
+                batch = to_device(batch, self.device)
+                for j, m in enumerate(modes):
+                    parts[j].append(self.eval_step(params, batch, adapter_mode=m))
         buf = torch.zeros(self.num_clients, len(modes), n_steps, dtype=torch.float32,
                           device=self.device)
-        if parts[0]:
+        if parts[0] and self.mesh.model_index == 0:  # a slot's model ranks hold the same scores
             buf[self.slot, :, :len(parts[0])] = torch.stack([torch.stack(p) for p in parts])
         dist.all_reduce(buf)  # the data psum and the gather over clients, at once
         host = buf.cpu().numpy()
@@ -353,15 +373,17 @@ class SPMDFederatedTrainer:
 
     # -- checkpoint / resume -------------------------------------------------
     def save_checkpoint(self, round_idx: int) -> Optional[str]:
-        """Every rank calls it: the client states are gathered over the data
-        index 0 ranks' client group and rank 0 writes the backbone and the
-        stacked client bank."""
+        """Every rank calls it: the data index 0 ranks gather their shards over
+        the model group, then the client states over their client group, and
+        rank 0 writes the backbone and the stacked client bank."""
         if not self.checkpoint_dir or self.data_index != 0:
             return None
-        stacked = _all_gather_tree(self.client_state, self.mesh.client_group, self.num_clients)
+        backbone = tp.gather_params_tp(self.backbone, self.tp)
+        state = tp.gather_params_tp(self.client_state, self.tp)
+        stacked = _all_gather_tree(state, self.mesh.client_group, self.num_clients)
         if self.mesh.rank != 0:
             return None
-        return save_federated_state(self.checkpoint_dir, round_idx, self.backbone,
+        return save_federated_state(self.checkpoint_dir, round_idx, backbone,
                                     {"stacked_clients": stacked}, self.rng)
 
     def try_resume(self) -> int:
@@ -380,8 +402,10 @@ class SPMDFederatedTrainer:
                     "one SHARED filesystem path visible to every host (process 0 writes, all read)")
         if restored is None:
             return 0
-        rnd, self.backbone, personal, self.rng = restored
-        self.client_state = {k: v[self.slot].clone() for k, v in personal["stacked_clients"].items()}
+        rnd, backbone, personal, self.rng = restored
+        self.backbone = tp.shard_params_tp(backbone, self.tp)
+        self.client_state = tp.shard_params_tp(
+            {k: v[self.slot].clone() for k, v in personal["stacked_clients"].items()}, self.tp)
         logger.info("resumed from checkpoint at round %d", rnd)
         return rnd + 1
 

@@ -21,6 +21,14 @@ the composable path with dropout, as in JAX.
 
 Dropout masks come from the generator that ``utils/seeding.py::dropout_rng``
 makes current (``call_method(..., rng=gen)``), never from the global RNG.
+
+Under tensor parallelism (the context ``parallel/tp.py::active`` opens) the
+parameters are this rank's shards: attention runs its ``H/M`` local heads
+(column-parallel q/k/v, row-parallel ``out``) and the MLP its ``I/M`` local
+columns, on the composable route (``parallel/tp.py::check_model`` refuses
+a kernel route); attention dropout draws the full-size mask and keeps its
+heads' slice.  Without the context every one of those ops is the plain
+one, on the same single body.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE, AdapterCell, dense, 
 from feddat_tpu_torch.ops import layer_block as _lb
 from feddat_tpu_torch.ops.attention import dot_product_attention
 from feddat_tpu_torch.ops.remat_policy import checkpoint_name, remat
+from feddat_tpu_torch.parallel import tp as _tp
 
 logger = logging.getLogger("feddat_tpu_torch")
 
@@ -101,12 +110,17 @@ class LoraDense(nn.Module):
             self.lora_a = nn.Linear(in_features, lora.rank, bias=False)
             self.lora_b = nn.Linear(lora.rank, features, bias=False)
 
-    def forward(self, x: torch.Tensor, tag: Optional[str] = None) -> torch.Tensor:
-        """``tag`` names the base product (``dense``), not the low-rank sum."""
-        y = dense(x, self.dense, self.dtype, tag)
+    def forward(self, x: torch.Tensor, tag: Optional[str] = None,
+                tp: Optional[_tp.TPContext] = None, x_in: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``tag`` names the base product (``dense``), not the low-rank sum.
+        With ``tp`` the base product is column-parallel on ``x_in`` (``x``
+        through ``copy_to_model``) and the replicated low-rank path, on ``x``,
+        keeps this rank's columns."""
+        y = _tp.column(x if x_in is None else x_in, self.dense, self.dtype, tp, tag)
         if self.lora.enabled:
             low = dense(dense(x, self.lora_a, self.dtype), self.lora_b, self.dtype)
-            y = y + low * (self.lora.alpha / self.lora.rank)
+            y = y + _tp.take_local(low * (self.lora.alpha / self.lora.rank), tp)
         return y
 
 
@@ -200,22 +214,38 @@ class MultiHeadAttention(nn.Module):
 
         def split(t):
             b, s, _ = t.shape
-            return t.reshape(b, s, self.num_heads, d_head).transpose(1, 2)
+            return t.reshape(b, s, -1, d_head).transpose(1, 2)
 
-        kv = x if kv is None else kv
+        # under tensor parallelism: copy in, column-parallel q/k/v on this
+        # rank's heads, row-parallel out (a sum over the model group)
+        tp = _tp.current()
+        x_in = _tp.copy_to_model(x, tp)
+        kv, kv_in = (x, x_in) if kv is None else (kv, _tp.copy_to_model(kv, tp))
         # remat tags (layers.py:274-278, :295): q/k/v and the out projection
-        q = self.query(x, "qkv")
-        k = dense(kv, self.key, self.dtype, "qkv")
-        v = self.value(kv, "qkv")
+        q = self.query(x, "qkv", tp, x_in)
+        k = _tp.column(kv_in, self.key, self.dtype, tp, "qkv")
+        v = self.value(kv, "qkv", tp, kv_in)
         live = 0.0 if deterministic else self.dropout_rate
         ctx = dot_product_attention(
             split(q), split(k), split(v), bias, dropout_rate=live,
             generator=seeding.current_rng() if live > 0.0 else None,
             impl=self.attn_impl, logits_dtype=self.logits_dtype,
+            heads=_tp.local_heads(self.num_heads, tp),
         )
         b, h, s, d = ctx.shape
         ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
-        return dense(ctx, self.out, self.dtype, "attn_out")
+        return _tp.row(ctx, self.out, self.dtype, tp, "attn_out")
+
+
+def ffn(x: torch.Tensor, intermediate: nn.Linear, output: nn.Linear,
+        dtype: torch.dtype) -> torch.Tensor:
+    """``intermediate -> exact GELU -> output`` (no dropout); under tensor
+    parallelism on this rank's ``I/M`` columns, summed over the model group.
+    The pre-GELU product is the remat target ffn_preact (layers.py:316,
+    xbert.py:134-140)."""
+    tp = _tp.current()
+    h = F.gelu(_tp.column(_tp.copy_to_model(x, tp), intermediate, dtype, tp, "ffn_preact"))
+    return _tp.row(h, output, dtype, tp)
 
 
 class Mlp(nn.Module):
@@ -230,9 +260,7 @@ class Mlp(nn.Module):
         self.output = nn.Linear(intermediate_size, hidden_size)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        # the pre-GELU product is the remat target ffn_preact (layers.py:316)
-        h = F.gelu(dense(x, self.intermediate, self.dtype, "ffn_preact"))
-        h = dense(h, self.output, self.dtype)
+        h = ffn(x, self.intermediate, self.output, self.dtype)
         return dropout(h, self.dropout_rate, deterministic)
 
 

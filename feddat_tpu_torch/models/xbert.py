@@ -8,7 +8,9 @@ False, their masks drawn from the current dropout generator
 (``utils/seeding.py``):
 
 * ``XBertEmbeddings``: word + position + token-type (type 0), LayerNorm, dropout;
-* ``XBertLayer``: post-LN BERT layer; layers ``>= fusion_layer`` also
+* ``XBertLayer``: post-LN BERT layer (its attention and FFN on this rank's
+  heads and columns under tensor parallelism, ``parallel/tp.py``); layers
+  ``>= fusion_layer`` also
   cross-attend to encoder states (``encoder_width`` wide).  ``cross_group=k``
   regroups ``[B·k, L, D]`` query rows as ``[B, k·L, D]`` so the k rows of one
   question share its key/value set (a pure view, no repeated states).  The
@@ -41,7 +43,7 @@ from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AdapterSpec, AlbefBertConfig, LoraSpec
 from feddat_tpu_torch.models.adapters import AdapterCell, dense
-from feddat_tpu_torch.models.layers import LayerNorm, MultiHeadAttention, dropout
+from feddat_tpu_torch.models.layers import LayerNorm, MultiHeadAttention, dropout, ffn
 from feddat_tpu_torch.models.vilt import embed
 from feddat_tpu_torch.ops.attention import causal_bias, mask_to_bias, packed_self_bias
 from feddat_tpu_torch.ops.remat_policy import remat_call
@@ -105,9 +107,7 @@ class XBertLayer(nn.Module):
             hg = h.reshape(bk // cross_group, cross_group * la, dm)
             cross = self.crossattention(hg, bias=enc_bias, deterministic=deterministic, kv=enc_states)
             h = self.crossattention_norm(dropout(cross.reshape(bk, la, dm), rate, deterministic) + h)
-        # the pre-GELU product is the remat target ffn_preact (xbert.py:134-140)
-        inter = F.gelu(dense(h, self.intermediate, self.dtype, "ffn_preact"))
-        o = dropout(dense(inter, self.output, self.dtype), rate, deterministic)
+        o = dropout(ffn(h, self.intermediate, self.output, self.dtype), rate, deterministic)
         if self.adapter_spec.enabled:
             z = self.output_norm(o + h)
             return self.output_norm(o + self.adapter.delta(z, adapter_mode) + h)

@@ -14,7 +14,7 @@ in JAX (attention.py:96-106, :122-136): no kernel drops probabilities.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +41,7 @@ def xla_attention(
     logits_dtype: torch.dtype = torch.float32,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """softmax(q kᵀ·scale + bias) v.  q, k, v: [B, H, S, D]; returns
     [B, H, S_q, D] in ``v.dtype``.
@@ -50,7 +51,9 @@ def xla_attention(
     ``logits_dtype``, the softmax runs in fp32, live dropout applies
     ``probs · keep / (1 − rate)`` in fp32 with the mask drawn from
     ``generator``, and the probabilities are cast to ``v.dtype`` before the
-    P·V product."""
+    P·V product.  ``heads = (first, total)``: q holds heads ``first..`` of
+    ``total`` (a model rank's under tensor parallelism); the mask is drawn
+    for all of them and sliced, so it is the whole model's mask."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -59,7 +62,10 @@ def xla_attention(
         logits = logits + bias.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
     if dropout_rate > 0.0:
-        keep = keep_mask(probs.shape, 1.0 - dropout_rate, probs.device, generator)
+        shape = probs.shape if heads is None else (probs.shape[0], heads[1], *probs.shape[2:])
+        keep = keep_mask(shape, 1.0 - dropout_rate, probs.device, generator)
+        if heads is not None:
+            keep = keep[:, heads[0]:heads[0] + probs.shape[1]]
         probs = probs * keep / (1.0 - dropout_rate)
     # remat target attn_probs (attention.py:52-56): the cast to v's dtype
     # (no op in fp32, where nothing is kept)
@@ -94,6 +100,7 @@ def dot_product_attention(
     generator: Optional[torch.Generator] = None,
     impl: str = "auto",
     logits_dtype: torch.dtype = torch.float32,
+    heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Multi-head attention core, q [B, H, S_q, D], k/v [B, H, S_kv, D] ->
     [B, H, S_q, D] in ``v.dtype``.  ``"auto"``, ``"xla"`` and ``"block"`` (a
@@ -102,7 +109,8 @@ def dot_product_attention(
     admits the site and :func:`xla_attention` elsewhere; ``"flash"`` runs
     :func:`flash_attention` at any site without live dropout and
     :func:`xla_attention` with dropout elsewhere.  ``dropout_rate`` is the
-    live rate (0 when deterministic), its masks drawn from ``generator``."""
+    live rate (0 when deterministic), its masks drawn from ``generator``;
+    ``heads`` as :func:`xla_attention` takes it (the composable path only)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl not in ("auto", "xla", "block", "fused", "flash"):
@@ -111,7 +119,7 @@ def dot_product_attention(
         return fused_short_attention(q, k, v, bias, scale)
     if impl == "flash" and dropout_rate == 0.0:
         return flash_attention(q, k, v, bias, scale)
-    return xla_attention(q, k, v, bias, scale, logits_dtype, dropout_rate, generator)
+    return xla_attention(q, k, v, bias, scale, logits_dtype, dropout_rate, generator, heads)
 
 
 def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

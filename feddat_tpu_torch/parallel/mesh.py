@@ -1,4 +1,4 @@
-"""The (client, data) mesh of ranks (counterpart of ``feddat_tpu/parallel/mesh.py``).
+"""The (client, data[, model]) mesh of ranks (counterpart of ``feddat_tpu/parallel/mesh.py``).
 
 The JAX package runs one controller over a mesh of devices.  The port runs
 one process per device, as ``torchrun`` starts them, joined in a
@@ -11,7 +11,11 @@ in place of devices, wrapped in a ``DeviceMesh`` whose dimensions are named
   * ``client`` — the federated clients: FedAvg is one all-reduce over a
     rank's client group (the ranks of one data index, one per client);
   * ``data``   — data parallelism within a client: the gradient mean is one
-    all-reduce over a rank's data group (the ranks of one client).
+    all-reduce over a rank's data group (the ranks of one client);
+  * ``model``  — with ``model_parallel > 1``, tensor parallelism within a
+    (client, data) slot (``parallel/tp.py``): the axis is innermost, JAX's
+    ``reshape(C, D, M)``, so a slot's model group is ``M`` consecutive ranks
+    (one host's cards under ``torchrun --nproc_per_node``).
 
 :func:`make_mesh` keeps JAX's arithmetic and its errors (``not divisible``,
 ``need N devices, have M``), with the world's ranks as the devices.  Unlike
@@ -22,7 +26,7 @@ process with no slot would have nothing to feed and no collective to join.
 environment (``torchrun --nnodes ...``) or explicit arguments and raises
 without them, as JAX's does; :func:`world` starts a world of one in-process
 (a file store in a temporary directory) when no launcher started this
-process.  Tensor parallelism (a ``model`` axis) is ROADMAP item 12b.
+process.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from feddat_tpu_torch.device import resolve_device
 
 CLIENT_AXIS = "client"
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -134,56 +139,68 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 
 def mesh_grid(num_clients: int = 1, data_parallel: Optional[int] = None,
               world_size: Optional[int] = None, model_parallel: int = 1) -> np.ndarray:
-    """JAX's ``make_mesh`` arithmetic on ranks -> the ``[C, D]`` grid of ranks
-    (``data_parallel`` defaults to the world over the clients)."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "tensor parallelism (a model axis) is not ported yet (ROADMAP Queue 1: 12b, "
-            "tensor parallelism)")
+    """JAX's ``make_mesh`` arithmetic on ranks -> the ``[C, D]`` grid of ranks,
+    ``[C, D, M]`` with ``model_parallel > 1`` (``data_parallel`` defaults to
+    the world over the clients and the model axis)."""
     n = dist.get_world_size() if world_size is None else world_size
     if data_parallel is None:
-        if n % num_clients != 0:
-            raise ValueError(f"{n} devices not divisible by {num_clients} clients")
-        data_parallel = n // num_clients
-    need = num_clients * data_parallel
+        if n % (num_clients * model_parallel) != 0:
+            raise ValueError(f"{n} devices not divisible by {num_clients} clients"
+                             + (f" x model={model_parallel}" if model_parallel > 1 else ""))
+        data_parallel = n // (num_clients * model_parallel)
+    need = num_clients * data_parallel * model_parallel
     if need > n:
         raise ValueError(f"need {need} devices, have {n}")
-    _every_rank_has_a_slot(num_clients, data_parallel, n)
-    return np.arange(need).reshape(num_clients, data_parallel)
+    shape = (num_clients, data_parallel) + ((model_parallel,) if model_parallel > 1 else ())
+    _every_rank_has_a_slot(need, n, shape)
+    return np.arange(need).reshape(shape)
 
 
-def _every_rank_has_a_slot(num_clients: int, data_parallel: int, n: int) -> None:
-    if num_clients * data_parallel < n:
+def _every_rank_has_a_slot(need: int, n: int, shape: Sequence[int]) -> None:
+    if need < n:
         raise ValueError(
-            f"a ({num_clients}, {data_parallel}) mesh takes {num_clients * data_parallel} of the "
-            f"world's {n} ranks; every rank needs a slot: start that many processes")
+            f"a {tuple(shape)} mesh takes {need} of the world's {n} ranks; every rank needs a "
+            "slot: start that many processes")
 
 
 class RankMesh:
-    """A ``[C, D]`` grid of ranks and this rank's place in it: its client
-    index, its data index, and the ``DeviceMesh``'s two groups."""
+    """A grid of ranks over named axes (``("client", "data")``, with
+    ``"model"`` innermost under tensor parallelism, or the sequential
+    engine's ``("data", "model")``) and this rank's place in it: its index
+    and the ``DeviceMesh``'s group along each axis.  An axis the mesh lacks
+    has index 0, size 1 and no group."""
 
-    def __init__(self, grid: np.ndarray, device_type: str):
+    def __init__(self, grid: np.ndarray, device_type: str, names: Sequence[str] = None):
         from torch.distributed.device_mesh import DeviceMesh
 
         self.grid = np.asarray(grid)
+        self.names = tuple(names or (CLIENT_AXIS, DATA_AXIS, MODEL_AXIS)[:self.grid.ndim])
         self.device_mesh = DeviceMesh(device_type, torch.as_tensor(self.grid),
-                                      mesh_dim_names=(CLIENT_AXIS, DATA_AXIS))
+                                      mesh_dim_names=self.names)
         self.rank = dist.get_rank()
-        (c,), (d,) = np.nonzero(self.grid == self.rank)
-        self.client_index, self.data_index = int(c), int(d)
-        self.client_group = self.device_mesh.get_group(CLIENT_AXIS)
-        self.data_group = self.device_mesh.get_group(DATA_AXIS)
+        place = np.argwhere(self.grid == self.rank)[0]
+        self.index = {n: int(i) for n, i in zip(self.names, place)}
+        self.groups = {n: self.device_mesh.get_group(n) for n in self.names}
 
     @property
     def shape(self):
-        return {CLIENT_AXIS: self.grid.shape[0], DATA_AXIS: self.grid.shape[1]}
+        return dict(zip(self.names, self.grid.shape))
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    client_index = property(lambda self: self.index.get(CLIENT_AXIS, 0))
+    data_index = property(lambda self: self.index.get(DATA_AXIS, 0))
+    model_index = property(lambda self: self.index.get(MODEL_AXIS, 0))
+    client_group = property(lambda self: self.groups.get(CLIENT_AXIS))
+    data_group = property(lambda self: self.groups.get(DATA_AXIS))
+    model_group = property(lambda self: self.groups.get(MODEL_AXIS))
 
 
 def make_mesh(num_clients: int = 1, data_parallel: Optional[int] = None,
               model_parallel: int = 1, device_type: str = "cuda") -> RankMesh:
-    """The ``(client=num_clients, data=data_parallel)`` mesh over the
-    initialised world (:func:`mesh_grid`'s errors first)."""
+    """The ``(client=num_clients, data=data_parallel[, model=model_parallel])``
+    mesh over the initialised world (:func:`mesh_grid`'s errors first)."""
     return RankMesh(mesh_grid(num_clients, data_parallel, model_parallel=model_parallel), device_type)
 
 
@@ -223,7 +240,7 @@ def make_multihost_mesh(num_clients: int, data_parallel: Optional[int] = None,
     :func:`initialize_multihost` first."""
     hosts = host_indices()
     grid = arrange_multihost_grid(range(len(hosts)), hosts.__getitem__, num_clients, data_parallel)
-    _every_rank_has_a_slot(*grid.shape, len(hosts))
+    _every_rank_has_a_slot(grid.size, len(hosts), grid.shape)
     return RankMesh(grid, device_type)
 
 

@@ -64,12 +64,17 @@ later calls only replay it.  Every failure to capture or replay raises.
 * **Other threads**: a capture holds :data:`capture_lock`; a thread that
   calls into CUDA while graphs may be captured (the batch prefetch) takes it
   around those calls.
-* **Collectives** (``collectives=True``: a body that all-reduces over a
-  ``torch.distributed`` group, the SPMD engine's steps) are captured with the
-  rest of the body, NCCL's launches included, in the "thread_local" capture
-  mode: the process group's watchdog thread calls into CUDA (it queries its
-  events) while a capture may run, and that mode confines the capture's
-  rules to the capturing thread.
+* **Collectives**: a body that all-reduces over a ``torch.distributed``
+  group (the SPMD engine's steps, every step and evaluation under tensor
+  parallelism) is captured with the rest of it, NCCL's launches included.
+  While a process group exists, every capture runs in the "thread_local"
+  mode (:func:`capture_mode`): the group's watchdog thread calls into CUDA
+  (it queries its events) at any time, a body without collectives's
+  capture included, and that mode confines the capture's rules to the
+  capturing thread.  An entry's key holds its inputs' shapes, so a graph
+  replays only for parameters of the layout it was captured on: a rank's
+  tensor-parallel shards run only under the model group that cut them
+  (``parallel/tp.py``), and whole parameters never do.
 * **Memory**: every graph allocates from one pool
   (``torch.cuda.graph_pool_handle()``); the graphs never run concurrently and
   their outputs are copied out before another graph replays.
@@ -214,16 +219,22 @@ class _Entry:
         self.launches: List[Tuple[Any, int]] = []
 
 
+def capture_mode() -> str:
+    """The capture's error mode: "thread_local" while a process group
+    exists (its watchdog thread calls into CUDA), else "global" (module
+    docstring)."""
+    live = torch.distributed.is_available() and torch.distributed.is_initialized()
+    return "thread_local" if live else "global"
+
+
 class Program:
     """``body(inputs, gens) -> outputs``, run from static buffers: replayed as a
     CUDA graph on the card, eagerly on the CPU (module docstring)."""
 
-    def __init__(self, body: Callable, name: str, resident: Sequence[str] = (),
-                 collectives: bool = False):
+    def __init__(self, body: Callable, name: str, resident: Sequence[str] = ()):
         self.body = body
         self.name = name
         self.resident = frozenset(resident)
-        self.collectives = collectives
         self.entries: Dict[Hashable, _Entry] = {}
         self.bufs: Dict[tuple, torch.Tensor] = {}
         # the resident tensors the last eager call updated, by id
@@ -353,8 +364,8 @@ class Program:
         del resident
         warm = _counts()
         _seed(entry.gens, seeds)
-        mode = "thread_local" if self.collectives else "global"
-        with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM, capture_error_mode=mode):
+        with capture_lock, torch.cuda.graph(graph, pool=_POOL, stream=_STREAM,
+                                            capture_error_mode=capture_mode()):
             out = self.body(entry.inputs, entry.gens)
         after = _counts()
         entry.launches = [(k, a - w) for k, a, w in zip(KERNELS, after, warm) if a != w]
@@ -373,13 +384,12 @@ class Compiled:
     Without an epilogue the outputs are the result.  ``key``, where the
     maker gives one, names the function the body computes (two makers that
     give equal keys build interchangeable bodies).  ``resident`` names the
-    top-level input keys that are donated; ``collectives`` marks a body that
-    all-reduces (module docstring)."""
+    top-level input keys that are donated (module docstring)."""
 
     def __init__(self, body: Callable, prologue: Callable, epilogue: Optional[Callable] = None,
                  name: str = "compiled", key: Optional[Hashable] = None,
-                 resident: Sequence[str] = (), collectives: bool = False):
-        self.program = Program(body, name, resident, collectives)
+                 resident: Sequence[str] = ()):
+        self.program = Program(body, name, resident)
         self.prologue = prologue
         self.epilogue = epilogue
         self.key = key

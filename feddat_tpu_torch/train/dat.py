@@ -265,8 +265,7 @@ def compile_step(body: Callable, tx: AdamWDirection, lr_at: Callable[[int], floa
         metrics["lr"] = lr
         return new_state, metrics
 
-    return Compiled(body, prologue, epilogue, name, resident=("aux",) if aux else (),
-                    collectives=data_group is not None)
+    return Compiled(body, prologue, epilogue, name, resident=("aux",) if aux else ())
 
 
 _DAT_UPDATES = {"shared": 1, "local": 1, "head": 2}

@@ -35,6 +35,7 @@ from feddat_tpu.models.albef import AlbefModel as JaxAlbef
 from feddat_tpu.models.albef import momentum_update as jax_momentum_update
 from feddat_tpu.train import dat as jdat
 from feddat_tpu.train import optim as joptim
+from feddat_tpu.train import trainers as jtrainers
 from feddat_tpu.train.evaluation import make_albef_eval_step as jax_make_albef_eval_step
 from feddat_tpu.train.forwards import make_albef_forward as jax_make_albef_forward
 from feddat_tpu.train.losses import kd_kl_loss as jax_kd_kl_loss
@@ -432,6 +433,21 @@ PORT_CFG = dict(TrainConfig=TrainConfig, PEFTMode=PEFTMode, OptimizerConfig=Opti
                 FederatedConfig=FederatedConfig)
 
 
+def _shared_steps(make):
+    """``make`` memoised on what fixes the step's function: the model, the
+    optimizer, the horizon, the partitions and the dropout generator."""
+    made = {}
+
+    def shared(model, params, opt_cfg, max_steps, part=None, **kw):
+        key = (id(model), opt_cfg, max_steps, kw.get("dropout_rng"), kw.get("donate"),
+               None if part is None else (part.shared_paths, part.local_paths, part.head_paths))
+        if key not in made:
+            made[key] = make(model, params, opt_cfg, max_steps, part=part, **kw)
+        return made[key]
+
+    return shared
+
+
 def test_federated_round_matches_jax_engine(weights):
     """Two clients, one round of 2 fused steps each (dropout off), FedAvg of
     adapter_1, and evaluate_dat by rank_answer (k=4): the port with "flash"
@@ -445,8 +461,15 @@ def test_federated_round_matches_jax_engine(weights):
     bank = (jclients["c0"].answer_ids, jclients["c0"].answer_mask)
     assert all(np.array_equal(c.answer_ids, bank[0]) for c in jclients.values())
     jeval = jax_make_albef_eval_step(jmodel, *bank, k=4)
-    jt = JaxTrainer(jmodel, weights, jclients, jcfg, use_fused_dat=True,
-                    make_forward=lambda m, k: jax_make_albef_forward(m), make_eval=lambda m, k: jeval)
+    with pytest.MonkeyPatch.context() as mp:
+        # the clients' fused steps compute one function (ALBEF's one cls head,
+        # the same optimizer and horizon), as the port's clients share one
+        # program: one JAX compile for both
+        mp.setattr(jtrainers, "make_albef_fused_dat_step", _shared_steps(jtrainers.make_albef_fused_dat_step))
+        jt = JaxTrainer(jmodel, weights, jclients, jcfg, use_fused_dat=True,
+                        make_forward=lambda m, k: jax_make_albef_forward(m),
+                        make_eval=lambda m, k: jeval)
+        assert jt.clients[0].train_step is jt.clients[1].train_step
     jt.run()
 
     clients = {f"c{i}": SyntheticAlbefClient(f"c{i}", seed=i, **CLIENT) for i in range(2)}

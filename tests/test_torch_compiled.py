@@ -430,3 +430,15 @@ def test_a_stale_resident_input_raises(graphs):
         fresh = prog({"aux": {"t": torch.zeros(3)}, "x": torch.ones(3)})
         np.testing.assert_array_equal(fresh["aux"]["t"].numpy(), np.ones(3))
     assert torch.equal(seed["t"], torch.zeros(3))
+
+
+def test_captures_run_thread_local_while_a_process_group_lives():
+    """A live process group's watchdog thread calls into CUDA at any time, so
+    every capture made while one exists runs in the "thread_local" mode,
+    whether or not its body all-reduces."""
+    from feddat_tpu_torch.parallel import mesh as tmesh
+
+    assert compiled.capture_mode() == "global"
+    with tmesh.world(torch.device("cpu")):
+        assert compiled.capture_mode() == "thread_local"
+    assert compiled.capture_mode() == "global"

@@ -27,6 +27,8 @@ from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFT
 from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
 from feddat_tpu_torch.federated.engine import FederatedTrainer
 from feddat_tpu_torch.federated.fedavg import fedavg
+from feddat_tpu_torch.parallel.mesh import world
+from feddat_tpu_torch.parallel.tp import make_tp_mesh
 from feddat_tpu_torch.utils.param_bridge import vilt_from_flax
 
 from conftest import TINY_VILT
@@ -120,8 +122,15 @@ def test_later_slice_options_raise():
     clients = {k: SyntheticVQAClient(k, seed=i, **CLIENT) for i, k in enumerate(HEADS)}
     cfg = _cfg(dict(TrainConfig=TrainConfig, PEFTMode=PEFTMode, OptimizerConfig=OptimizerConfig,
                     FederatedConfig=FederatedConfig))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedTrainer(model, None, clients, cfg, device="cpu", tp_mesh=object())
+    # a (data=1, model=1) mesh in a world of one runs what the engine without one runs
+    with world(torch.device("cpu")):
+        plain = FederatedTrainer(model, None, clients, cfg, device="cpu")
+        plain.run_round(0)
+        with_mesh = FederatedTrainer(model, None, clients, cfg, device="cpu",
+                                     tp_mesh=make_tp_mesh(1, device_type="cpu"))
+        with_mesh.run_round(0)
+    for k, v in plain.server_params.items():
+        assert torch.equal(v, with_mesh.server_params[k]), k
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: 10"):
         FederatedTrainer(torch.nn.Linear(2, 2), None, clients, cfg, device="cpu")
 

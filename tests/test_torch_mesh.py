@@ -45,10 +45,33 @@ def test_errors_are_jaxs_word_for_word(clients, data, n):
 
 
 def test_a_mesh_must_take_every_rank_and_has_no_model_axis():
+    """Every rank needs a slot; a model axis of 1 adds no axis (JAX's 2-D
+    mesh), one of 2 is the innermost third axis."""
     with pytest.raises(ValueError, match="takes 2 of the world.s 4 ranks; every rank needs a slot"):
         tmesh.mesh_grid(1, 2, world_size=4)
-    with pytest.raises(NotImplementedError, match="12b"):
-        tmesh.mesh_grid(1, 1, world_size=2, model_parallel=2)
+    with pytest.raises(ValueError, match=r"a \(1, 1, 2\) mesh takes 2 of the world.s 4 ranks"):
+        tmesh.mesh_grid(1, 1, world_size=4, model_parallel=2)
+    assert tmesh.mesh_grid(1, 2, world_size=2, model_parallel=1).shape == (1, 2)
+    np.testing.assert_array_equal(tmesh.mesh_grid(1, 1, world_size=2, model_parallel=2),
+                                  [[[0, 1]]])
+
+
+@pytest.mark.parametrize("clients,data,model,n", [(2, 2, 2, 8), (2, None, 2, 8), (1, None, 4, 8),
+                                                  (2, 1, 2, 4), (4, 1, 2, 8)])
+def test_model_axis_grid_is_jaxs_with_ranks_for_devices(clients, data, model, n):
+    want = jmesh.make_mesh(clients, data, devices=jax.devices()[:n], model_parallel=model)
+    got = tmesh.mesh_grid(clients, data, world_size=n, model_parallel=model)
+    assert want.axis_names == ("client", "data", "model")
+    np.testing.assert_array_equal(got, np.vectorize(lambda d: d.id)(want.devices))
+
+
+@pytest.mark.parametrize("clients,data,model,n", [(3, None, 2, 8), (2, 2, 4, 8), (1, None, 3, 8)])
+def test_model_axis_errors_are_jaxs_word_for_word(clients, data, model, n):
+    with pytest.raises(ValueError) as want:
+        jmesh.make_mesh(clients, data, devices=jax.devices()[:n], model_parallel=model)
+    with pytest.raises(ValueError) as got:
+        tmesh.mesh_grid(clients, data, world_size=n, model_parallel=model)
+    assert str(got.value) == str(want.value)
 
 
 def _fake(num_hosts, per_host, interleave=False):

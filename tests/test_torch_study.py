@@ -164,6 +164,21 @@ def _without_dropout(build):
     return wrapped
 
 
+def _shared_steps(make):
+    """``make_dat_train_step`` memoised on what fixes the step's function: the
+    forward, the partitions, the optimizer and the horizon."""
+    made = {}
+
+    def shared(forward, part, opt_cfg, max_steps, **kw):
+        key = (id(forward), part.shared_paths, part.local_paths, part.head_paths, opt_cfg,
+               max_steps, tuple(sorted(kw.items())))
+        if key not in made:
+            made[key] = make(forward, part, opt_cfg, max_steps, **kw)
+        return made[key]
+
+    return shared
+
+
 def _paired(family, rounds, modes=("dat",), clients=2, out_dirs=(None, None)):
     """-> (JAX results, port results, JAX step records, port step records)
     of ``run_study`` over ``modes``, seed 0, ``clients`` clients, the port
@@ -177,6 +192,9 @@ def _paired(family, rounds, modes=("dat",), clients=2, out_dirs=(None, None)):
         model, params, engine_kw = j_build(family, mode, full_scale, num_clients, clients, seed,
                                            **kwargs)
         captured[mode.value, seed] = params
+        if family == "albef":  # one forward for every client (it takes no task key)
+            forward = engine_kw["make_forward"](model, None)
+            engine_kw = {**engine_kw, "make_forward": lambda mdl, task_key: forward}
         return model, params, engine_kw
 
     def port_build(family, mode, full_scale, num_clients, clients, seed, **kwargs):
@@ -193,6 +211,9 @@ def _paired(family, rounds, modes=("dat",), clients=2, out_dirs=(None, None)):
         mp.setattr(tstudy, "_build_family", port_build)
         mp.setattr(tstudy, "FederatedTrainer", _recording(tstudy.FederatedTrainer, tsteps))
         if family == "albef":
+            # ALBEF's clients train one function (one forward, its one cls head):
+            # one JAX compile of their DAT step, as the port shares one program
+            mp.setattr(jax_engine, "make_dat_train_step", _shared_steps(jax_engine.make_dat_train_step))
             mp.setattr(jstudy, "_study_albef_model", _without_dropout(jstudy._study_albef_model))
             mp.setattr(tstudy, "_study_albef_model", _without_dropout(tstudy._study_albef_model))
         jres = jstudy.run_study(full_scale=False, out_dir=out_dirs[0], **kw)
