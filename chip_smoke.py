@@ -22,13 +22,18 @@ Phases, in this order:
             bitwise, with constructed probes of p's and ds's precision and the
             wrappers' refusals; #1 and #3 (LN1 outside) and #4 at ALBEF's ViT
             length S=577 without a padding bias and at S=592, 593 and 768;
+            #1 and #3 (LN1 fused and outside) and #4 (both adapter modes)
+            past 768, at B=2, S=769 and B=1, S=1024;
             the whole-sequence attention (#5, #6) at five shapes, the 64-row tile edges, S=769 and 1024 and a fully masked
             batch element, twice, bitwise, with constructed probes of its bf16
             rounding points (P before P.v, ds before dq and dk); the
             ensemble-adapter epilogue (#2) at ten row counts (the edges of its
             64-row cluster tiles, the B=1 bucket, the serving batch) for
             bottlenecks 48, 12 and 96, twice, bitwise, with a planted fault
-            and a constructed probe of the ReLU output's low bits; #1 and #4
+            and a constructed probe of the ReLU output's low bits, and at
+            five row counts for bottlenecks 192, 384 and 196 (walked in
+            chunks) and widths 1280 (R=80) and 2048 (R=128), with the probe
+            again at R=192 in the second chunk; #1 and #4
             (both adapter modes) at the from-disk training shape, B=64, S=281,
             on the key mask of the phase 12 dataset's first batch (padded
             canvases and text).
@@ -63,7 +68,9 @@ Phases, in this order:
             same function (a yardstick the port never calls), by the profiler's
             device time (``device_ms``; the CUDA-event wall per call beside it),
             against the kernel's bound (#1 at the serving and training shapes,
-            #2 at the serving batch and the B=1 bucket);
+            #2 at the serving batch and the B=1 bucket, and at the serving
+            batch for R=192 and 384 and D=1280 and 2048; #1, #3 and #4 at
+            B=16, S=769 and 1024);
             the device time of each launch of one #1 call at both shapes and of
             one #2, one #3 and one #4 call, and #4's FFN products on the wgmma GEMM beside
             cuBLAS's torch.mm at the same shapes; serving rates and latency; DAT and LoRA
@@ -106,9 +113,13 @@ Phases, in this order:
             and an eval program each) over one round and evaluate_dat, bitwise
             equal to the eager engines; then the routing gate: #4's limit
             against the library's, a 'layer' DAT step at adapter bottleneck 96
-            through #1/#3 (not #4) by the 2x-bf16 rule; and the refusals that
-            stay: a 'block' model at S=769 and a fused ensemble at bottleneck
-            192 raise before any launch.
+            through #1/#3 (not #4) by the 2x-bf16 rule; then past the first
+            designs' limits: full-width ViLT-B/32 DAT at reduction 4
+            (bottleneck 192), the fused ensemble adapter, 'block' with
+            fuse_ln, on a canvas of 832x896 (S=769), B=16: two standard DAT
+            steps (#1 36, #3 22, #2 24 each; the first's gradients by the
+            2x-bf16 rule) and ViltVqaPredictor's ensemble forward (#1 12, #2
+            12) by the serving rule.
 11. albef_tuned — the JAX package's tuned ALBEF configuration (bench.py:192-229):
             full-width ALBEF DAT in bf16 through create_model(attn_impl='layer',
             remat=True, remat_policy='block_save_nox', text_remat_policy='names',
@@ -590,42 +601,43 @@ def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None):
     return (x, *ws, bqkv, bo, gb, bias, HEADS, 64 ** -0.5, 1e-12 if fuse_ln else None)
 
 
-def adapter_inputs(torch, n, seed, r=R):
-    """Adapter inputs on the card, all bf16; the biases are drawn at the scale
-    of the products they are added to (down ~1.4, up ~0.3), so a dropped
-    bias shows."""
+def adapter_inputs(torch, n, seed, r=R, d=DM):
+    """Adapter inputs on the card at width ``d``, all bf16; the biases are
+    drawn at the scale of the products they are added to (down ~1.4 at
+    d = 768, up ~0.3 at r = 48), so a dropped bias shows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def p(*shape, std):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
 
-    h = p(n, DM, std=1.0)
-    pa = (p(DM, r, std=0.05), p(r, std=1.0), p(r, DM, std=0.05), p(DM, std=0.5))
-    pb = (p(DM, r, std=0.05), p(r, std=1.0), p(r, DM, std=0.05), p(DM, std=0.5))
+    h = p(n, d, std=1.0)
+    pa = (p(d, r, std=0.05), p(r, std=1.0), p(r, d, std=0.05), p(d, std=0.5))
+    pb = (p(d, r, std=0.05), p(r, std=1.0), p(r, d, std=0.05), p(d, std=0.5))
     return h, pa, pb, 0.5
 
 
-def adapter_probe_inputs(torch, n):
+def adapter_probe_inputs(torch, n, r=R, b_units=(5, 6)):
     """A constructed case whose ReLU outputs carry bits below a bf16 hi + lo
     pair.  Every row of h is 1 at columns 0, D/4 and D/2 (three K slices of
     the kernel's cluster), so a's bottleneck units 0 and 1 are x0 = 1 + 2^-9
-    + 2^-18 and x1 = 1 + 2^-9, b's units 5 and 6 are 1 + 2^-9 + 3 2^-19 and
-    1 + 2^-9, all exact in fp32.  Wu rows +1 and -1 leave a = 2^-18 and
-    b = 3 2^-19 in every column, so the mix at w = 0.5 is 5 2^-20 exactly.
-    x = hi + mid + lo carries x0 exactly; hi + lo with lo = bf16(x - hi)
-    gives x0 = x1 and a mix of 0."""
+    + 2^-18 and x1 = 1 + 2^-9, b's units ``b_units`` (5 and 6; past 128 at a
+    wider ``r``, in the kernel's second chunk of the bottleneck) are 1 + 2^-9
+    + 3 2^-19 and 1 + 2^-9, all exact in fp32.  Wu rows +1 and -1 leave
+    a = 2^-18 and b = 3 2^-19 in every column, so the mix at w = 0.5 is
+    5 2^-20 exactly.  x = hi + mid + lo carries x0 exactly; hi + lo with
+    lo = bf16(x - hi) gives x0 = x1 and a mix of 0."""
     bf, k1, k2 = torch.bfloat16, DM // 4, DM // 2
     h = torch.zeros(n, DM, dtype=bf, device="cuda")
     h[:, [0, k1, k2]] = 1.0
     params = []
-    for (u0, u1), low in (((0, 1), 2.0 ** -18), ((5, 6), 3 * 2.0 ** -19)):
-        wd = torch.zeros(DM, R, dtype=bf, device="cuda")
+    for (u0, u1), low in (((0, 1), 2.0 ** -18), (b_units, 3 * 2.0 ** -19)):
+        wd = torch.zeros(DM, r, dtype=bf, device="cuda")
         wd[0, [u0, u1]] = 1.0
         wd[k1, [u0, u1]] = 2.0 ** -9
         wd[k2, u0] = low
-        wu = torch.zeros(R, DM, dtype=bf, device="cuda")
+        wu = torch.zeros(r, DM, dtype=bf, device="cuda")
         wu[u0], wu[u1] = 1.0, -1.0
-        params.append((wd, torch.zeros(R, dtype=bf, device="cuda"), wu,
+        params.append((wd, torch.zeros(r, dtype=bf, device="cuda"), wu,
                        torch.zeros(DM, dtype=bf, device="cuda")))
     return h, params[0], params[1], 0.5, 5 * 2.0 ** -20
 
@@ -647,7 +659,7 @@ def attn_block_bound(b, s, fuse_ln, masked=True):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def adapter_bound(n):
+def adapter_bound(n, r=R, d=DM):
     """Least time (ms) for one ensemble-adapter call, what bounds it, and its
     operations.
 
@@ -659,10 +671,10 @@ def adapter_bound(n):
     bf16 rate.  The bias, ReLU, split and mix are fp32 work on the CUDA
     cores; the pipes overlap, so the floor is the larger time.  Bytes: h in,
     the mix out, both adapters' weights and biases once each."""
-    mm = n * 2 * 2 * DM * R  # one projection of both adapters
+    mm = n * 2 * 2 * d * r  # one projection of both adapters
     bf16_ops = mm + 3 * mm
-    fp32_ops = n * (2 * 2 * R + 4 * 2 * R + 4 * DM)  # bias + relu, split, bias + mix
-    nbytes = 2 * n * DM * 2 + 2 * (2 * DM * R + R + DM) * 2
+    fp32_ops = n * (2 * 2 * r + 4 * 2 * r + 4 * d)  # bias + relu, split, bias + mix
+    nbytes = 2 * n * d * 2 + 2 * (2 * d * r + r + d) * 2
     t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
@@ -853,14 +865,21 @@ def attn_qkv_plane(torch, args):
 # to 16 and read element by element, R=96 takes two 64-column atoms per adapter).
 ADAPTER_ROWS = (17, 63, 64, 65, 127, 128, 129, S, 3 * 21, B * S)
 ADAPTER_BOTTLENECKS = (R, 12, 96)
+# (R, D) past the first design's R <= 128 and D <= 1024: the bottleneck walked
+# in chunks (R=192 two of 96 at a DAT ensemble's reduction 4, R=384 three of
+# 128, R=196 two of 112 with Wd read element by element), and wider models
+# (D=1280 with R=80, D=2048 with R=128: one chunk, K slices of 320 and 512),
+# each at the row counts of ADAPTER_WIDE_ROWS.
+ADAPTER_WIDE = ((192, DM), (384, DM), (196, DM), (80, 1280), (128, 2048))
+ADAPTER_WIDE_ROWS = (17, 65, 129, S, B * S)
 
 
-def adapter_parity(torch, n, seed, r=R):
+def adapter_parity(torch, n, seed, r=R, d=DM):
     """#2 against its plain version: every element within one bf16 ulp
     (2^-7 |ref| + 1e-6), a planted fault caught, a second call bitwise equal."""
     from feddat_tpu_torch.ops import adapter_fused as af
 
-    h, pa, pb, w = adapter_inputs(torch, n, seed, r)
+    h, pa, pb, w = adapter_inputs(torch, n, seed, r, d)
     with torch.inference_mode():
         got = af.adapter_fused_cuda(h, pa, pb, w)
         again = af.adapter_fused_cuda(h, pa, pb, w)
@@ -876,27 +895,28 @@ def adapter_parity(torch, n, seed, r=R):
     planted[-1] += want.pow(2).mean().sqrt()  # the last row off by the rms
     caught = ((planted - want).abs() > limit).sum().item()
     stable = torch.equal(got, again)
-    print(f"parity adapter_fused N={n} R={r}: max_abs_err={err.max().item():.3e} "
+    tag = f"N={n} R={r}" + ("" if d == DM else f" D={d}")
+    print(f"parity adapter_fused {tag}: max_abs_err={err.max().item():.3e} "
           f"elements beyond one bf16 ulp (2^-7 |ref| + 1e-6): {bad}; planted fault (last row off "
-          f"by the rms) {caught} of {DM}; second call bitwise equal: {stable}")
-    check(bad == 0, f"adapter_fused N={n} R={r} disagrees with the plain version in {bad} elements")
-    check(caught > 0, f"adapter_fused N={n} R={r}: the limit did not catch the planted fault")
-    check(stable, f"adapter_fused N={n} R={r} is not bitwise stable across two calls")
+          f"by the rms) {caught} of {d}; second call bitwise equal: {stable}")
+    check(bad == 0, f"adapter_fused {tag} disagrees with the plain version in {bad} elements")
+    check(caught > 0, f"adapter_fused {tag}: the limit did not catch the planted fault")
+    check(stable, f"adapter_fused {tag} is not bitwise stable across two calls")
     return err.max().item()
 
 
-def adapter_probe(torch):
+def adapter_probe(torch, r=R, b_units=(5, 6)):
     """#2 on :func:`adapter_probe_inputs`: bitwise the plain fp32 version's,
     which is the exact 5 2^-20 (a two-part split of x would give 0)."""
     from feddat_tpu_torch.ops import adapter_fused as af
 
-    h, pa, pb, w, exact = adapter_probe_inputs(torch, 65)
+    h, pa, pb, w, exact = adapter_probe_inputs(torch, 65, r, b_units)
     with torch.inference_mode():
         got = af.adapter_fused_cuda(h, pa, pb, w)
         want = af.adapter_fused_reference(h, pa, pb, w)
     torch.cuda.synchronize()
     same = torch.equal(got, want)
-    print(f"parity adapter_fused probe (ReLU outputs below a bf16 hi + lo pair): kernel "
+    print(f"parity adapter_fused probe R={r}, b's units {b_units} (ReLU outputs below a bf16 hi + lo pair): kernel "
           f"{got.float().unique().tolist()}, plain {want.float().unique().tolist()}, exact {exact!r}; "
           f"bitwise equal: {same}")
     check(same and bool((want.float() == exact).all()),
@@ -1593,6 +1613,10 @@ def flash_bwd_probes(torch):
 # logits tile pads 577 to 592), 593 (one row more: 608) and 768 (the longest
 # S a block's fp32 logits tile holds), B=1 with a padding bias.
 VIT_LENGTH_CASES = ((2, VIT_S, False), (1, 592, True), (1, 593, True), (1, 768, True))
+# Past the 768 keys that #1's first attention core held as fp32 logits in
+# shared memory: (B, S) of #1 and #3 (LN1 fused and outside) and #4 (both
+# adapter modes), with a padding bias.
+LONG_CASES = ((2, 769), (1, 1024))
 
 
 def vit_length_parity(torch, seed):
@@ -1613,6 +1637,17 @@ def vit_length_parity(torch, seed):
     attn_bwd_parity(torch, SECOND_B, VIT_S, False, seed + 1, masked=False)
 
 
+def long_length_parity(torch, seed):
+    """#1, #3 and #4 at :data:`LONG_CASES`, under the limits of the other
+    cases."""
+    for b, s in LONG_CASES:
+        for ln in (True, False):
+            attn_parity(torch, b, s, ln, seed + s)
+            attn_bwd_parity(torch, b, s, ln, seed + s)
+        for use_b in (True, False):
+            layer_bwd_parity(torch, b, s, use_b, seed + s)
+
+
 def phase_parity(torch, seed, root):
     errs = {"attn_block": attn_parity(torch, B, S, True, seed)}
     for b, s, ln in ((TB, TS, True), (3, 21, True), (3, 17, False), (3, 21, False), (2, 130, True)):
@@ -1626,6 +1661,10 @@ def phase_parity(torch, seed, root):
         for n in ADAPTER_ROWS:
             adapter_parity(torch, n, seed + n + r, r)
     adapter_probe(torch)
+    for r, d in ADAPTER_WIDE:
+        for n in ADAPTER_WIDE_ROWS:
+            adapter_parity(torch, n, seed + n + r + d, r, d)
+    adapter_probe(torch, 192, (150, 151))  # b's units in the second chunk of 96
     errs["attn_block_bwd"] = max(attn_bwd_parity(torch, TB, TS, ln, seed) for ln in (True, False))
     for b, s, ln in ((3, 17, True), (3, 21, False), (2, 130, True), (1, 450, True)):
         attn_bwd_parity(torch, b, s, ln, seed + s)
@@ -1641,6 +1680,7 @@ def phase_parity(torch, seed, root):
             layer_bwd_parity(torch, 1, s, flag, seed + s)
     layer_bwd_parity(torch, *STUDY_SHAPE, True, seed + 77)  # the study on "layer"
     vit_length_parity(torch, seed)
+    long_length_parity(torch, seed)
     errs["fused_attention"], errs["fused_attention_bwd"] = fused_parity(torch, TB, TS, seed)
     fused_parity(torch, B, S, seed + 1)  # the serving canvas, keys dropped by the padding mask
     fused_parity(torch, 3, 295, seed + 2)  # the longest S the JAX gate admits at 12 heads
@@ -1680,7 +1720,7 @@ def synthetic_requests(n, seed):
     return imgs, qs
 
 
-def build_predictor(torch, seed, attn_impl, fused, state=None):
+def build_predictor(torch, seed, attn_impl, fused, state=None, canvas=CANVAS, reduction=16):
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
     from feddat_tpu_torch.models import create_model
@@ -1688,14 +1728,14 @@ def build_predictor(torch, seed, attn_impl, fused, state=None):
     from feddat_tpu_torch.serving import ViltVqaPredictor
 
     model, cfg = create_model(
-        "vilt", {"vqa": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, 16, "bfloat16",
-        image_size=CANVAS, attn_impl=attn_impl, adapter_fused=fused, seed=seed,
+        "vilt", {"vqa": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, reduction, "bfloat16",
+        image_size=canvas, attn_impl=attn_impl, adapter_fused=fused, seed=seed,
     )
     check(cfg.fuse_ln and cfg.adapter.fused == fused, f"unexpected model config {cfg}")
     tok = WordPieceTokenizer.from_vocab_file(str(REPO / "tests" / "fixtures" / "vocab30k.txt"))
     return ViltVqaPredictor(
         model, state, "vqa", tok, [f"answer_{i}" for i in range(NUM_LABELS)], batch_size=B,
-        canvas=CANVAS, max_text_len=TEXT_LEN, adapter_mode="ensemble", batch_buckets=(1,),
+        canvas=canvas, max_text_len=TEXT_LEN, adapter_mode="ensemble", batch_buckets=(1,),
     )
 
 
@@ -1727,6 +1767,15 @@ def phase_serve(torch, seed):
     before = (ab.KERNEL.launches, af.KERNEL.launches)
     probs_plain = plain.forward(batch)
     check((ab.KERNEL.launches, af.KERNEL.launches) == before, "the plain path launched a kernel")
+    serving_agreement("serve:", probs_kernel, probs_plain, n)
+    singles = pred.predict(imgs[:1], qs[:1], top_k=5)
+    check([a for a, _ in singles[0]] == [a for a, _ in single_out[0]], "single request not stable")
+    return pred, plain, launches, (imgs, qs, batch)
+
+
+def serving_agreement(tag, probs_kernel, probs_plain, n):
+    """The serving rule: kernel path probabilities within 5% of the plain
+    path's largest, each row a distribution."""
     check(probs_kernel.shape == (n, NUM_LABELS), f"probs shape {probs_kernel.shape}")
     sums = probs_kernel.sum(-1)
     check(bool(abs(sums - 1.0).max() < 1e-3), f"probabilities do not sum to 1: {sums}")
@@ -1737,12 +1786,9 @@ def phase_serve(torch, seed):
     # compounds over 12 layers: allow 5% of the largest probability.
     tol = 0.05 * top
     agree = int((probs_kernel.argmax(-1) == probs_plain.argmax(-1)).sum())
-    print(f"serve: kernel path vs plain path probabilities max_abs_diff={diff:.3e} tol={tol:.3e} "
+    print(f"{tag} kernel path vs plain path probabilities max_abs_diff={diff:.3e} tol={tol:.3e} "
           f"(5% of max prob {top:.3e}); top-1 agreement {agree}/{n}")
-    check(diff <= tol, f"kernel path disagrees with the plain path: {diff} > {tol}")
-    singles = pred.predict(imgs[:1], qs[:1], top_k=5)
-    check([a for a, _ in singles[0]] == [a for a, _ in single_out[0]], "single request not stable")
-    return pred, plain, launches, (imgs, qs, batch)
+    check(diff <= tol, f"{tag} kernel path disagrees with the plain path: {diff} > {tol}")
 
 
 def counters():
@@ -2835,7 +2881,7 @@ def time_train(torch, tr):
           f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     profile_device(torch, lambda: step(state0, batch), f"train step (fused DAT, B={TB})", {
         "port GEMMs (#1, #4; wgmma)": ("gemm_sm90_kernel",),
-        "port attention (#1 fwd, #4 bwd)": ("attn_kernel", "attn_bwd_"),
+        "port attention (#1 fwd, #4 bwd)": ("block_core_",),
         "port row passes + adapter (#4)": ("ln2_fwd_rows", "ln_fwd_rows", "ln_bwd_rows", "adapter_"),
     })
     return TB / k_med, TB / p_med
@@ -2867,31 +2913,46 @@ def time_attn_block(torch, b, s, seed, fuse_ln=True, masked=True):
     return row
 
 
-def phase_time(torch, pred, plain, requests, seed):
+# #2's timed shapes past R = 128 and D = 1024 (at the serving batch's rows).
+ADAPTER_TIMED = ((192, DM), (384, DM), (80, 1280), (128, 2048))
+
+
+def time_adapter(torch, n, seed, r=R, d=DM):
+    """#2 at n rows, bottleneck r and width d: kernel, plain version, the
+    torch.addmm chain (a yardstick the port never calls) and the bound; the
+    device time of each launch of one call at the serving batch's R=48."""
     from feddat_tpu_torch.ops import adapter_fused as af
 
+    h, pa, pb, w = adapter_inputs(torch, n, seed, r, d)
+
+    def adapter_library():
+        hf = h.float()
+        fa = [t.float() for t in pa]
+        fb = [t.float() for t in pb]
+        a = torch.addmm(fa[3], torch.relu(torch.addmm(fa[1], hf, fa[0])), fa[2])
+        b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
+        return (w * a + (1.0 - w) * b).bfloat16()
+
+    label = f"adapter_fused N={n}" + ("" if (r, d) == (R, DM) else f" R={r} D={d}")
+    with torch.inference_mode():
+        row = time_row(torch, label, lambda: af.adapter_fused_cuda(h, pa, pb, w),
+                       lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library,
+                       adapter_bound(n, r, d), "torch.addmm chain")
+        if (n, r, d) == (B * S, R, DM):
+            launch_breakdown(torch, lambda: af.adapter_fused_cuda(h, pa, pb, w), f"adapter_fused (#2) N={n}")
+    return row
+
+
+def phase_time(torch, pred, plain, requests, seed):
     rows = {"attn_block": time_attn_block(torch, B, S, seed)}  # the JSON line's row
     time_attn_block(torch, TB, TS, seed)  # the training shape (the fused DAT step's 24 calls)
 
-    for n in (B * S, S):  # the serving batch (the JSON line's row) and the B=1 bucket
-        h, pa, pb, w = adapter_inputs(torch, n, seed)
-
-        def adapter_library():
-            hf = h.float()
-            fa = [t.float() for t in pa]
-            fb = [t.float() for t in pb]
-            a = torch.addmm(fa[3], torch.relu(torch.addmm(fa[1], hf, fa[0])), fa[2])
-            b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
-            return (w * a + (1.0 - w) * b).bfloat16()
-
-        with torch.inference_mode():
-            row = time_row(torch, f"adapter_fused N={n}", lambda: af.adapter_fused_cuda(h, pa, pb, w),
-                           lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library,
-                           adapter_bound(n), "torch.addmm chain")
-            if n == B * S:
-                rows["adapter_fused"] = row
-                launch_breakdown(torch, lambda: af.adapter_fused_cuda(h, pa, pb, w),
-                                 f"adapter_fused (#2) N={n}")
+    # the serving batch (the JSON line's row), the B=1 bucket, and the serving
+    # batch at the bottlenecks and widths past the first design's range
+    rows["adapter_fused"] = time_adapter(torch, B * S, seed)
+    time_adapter(torch, S, seed)
+    for r, d in ADAPTER_TIMED:
+        time_adapter(torch, B * S, seed, r, d)
 
     imgs, qs, batch = requests
     # kernel path vs plain path in alternating pairs (kp, pk, kp, ...), so
@@ -2925,7 +2986,7 @@ def phase_time(torch, pred, plain, requests, seed):
           f"({1e3 * predict_s:.1f} ms per batch, host preprocessing included); plain path "
           f"forward-only {B / (plain_fwd_ms / 1e3):.1f} predictions/s")
     profile_device(torch, lambda: pred.forward(batch), f"forward (B={B})",
-                   {"attn_block": ("ln_fwd_rows", "gemm_sm90_kernel", "attn_kernel"),
+                   {"attn_block": ("ln_fwd_rows", "gemm_sm90_kernel", "block_core_fwd_kernel"),
                     "adapter_fused": ("adapter_kernel",)})
     return rows
 
@@ -2945,16 +3006,19 @@ def phase_time(torch, pred, plain, requests, seed):
 GRAPH_PAIRS = 1
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
 # Every __global__ function of feddat_tpu_torch/csrc, and for each wrapper the
-# one that its launch runs once and no other wrapper runs: #4 runs #3's
-# attn_bwd_dq_kernel once per launch, so #3's count is that kernel's less #4's.
-PORT_KERNELS = ("attn_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "adapter_kernel",
+# one that its launch runs once and no other wrapper runs: #1's attention core
+# and #3/#4's per-head part run #5/#6's code (csrc/attn_sm90.cuh) under entries
+# of their own, and #4 runs #3's block_core_bwd_dq_kernel once per launch, so
+# #3's count is that kernel's less #4's.
+PORT_KERNELS = ("block_core_fwd_kernel", "block_core_bwd_dq_kernel", "block_core_bwd_dkdv_kernel",
+                "adapter_kernel",
                 "ln2_fwd_rows_kernel", "adapter_bwd_rows_kernel", "adapter_wgrad_kernel",
                 "adapter_wgrad_reduce_kernel", "ln_fwd_rows_kernel", "ln_bwd_rows_kernel",
                 "gemm_sm90_kernel", "fused_fwd_kernel", "fused_bwd_dq_kernel",
                 "fused_bwd_dkdv_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel")
-SIGNATURE = {"attn_block": "attn_kernel", "adapter_fused": "adapter_kernel",
-             "attn_block_bwd": "attn_bwd_dq_kernel", "layer_block_bwd": "ln2_fwd_rows_kernel",
+SIGNATURE = {"attn_block": "block_core_fwd_kernel", "adapter_fused": "adapter_kernel",
+             "attn_block_bwd": "block_core_bwd_dq_kernel", "layer_block_bwd": "ln2_fwd_rows_kernel",
              "fused_attention": "fused_fwd_kernel", "fused_attention_bwd": "fused_bwd_dq_kernel",
              "flash_attention": "flash_fwd_kernel", "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
              "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}
@@ -3293,18 +3357,15 @@ def gate_checks(torch, seed):
     """The routing gate on the card: #4's bottleneck limit as the gate asks it
     against the library's own; a "layer" DAT step at adapter bottleneck 96
     (reduction 8), which #4 does not take, goes through #1/#3 and holds the
-    2x-bf16 rule against the plain path.  And the refusals that stay: a
-    "block" site at S=769, past #1's 768, and an ensemble adapter at
-    bottleneck 192, past #2's 128, raise on the card and launch nothing (no
-    plain version runs in a kernel's place)."""
-    from feddat_tpu_torch.configs.core import AdapterSpec, OptimizerConfig, PEFTMode
-    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+    2x-bf16 rule against the plain path.  Then the path past the first
+    designs' limits, S=769 on #1/#3 and bottleneck 192 on #2
+    (:func:`long_canvas_path`)."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
     from feddat_tpu_torch.models import create_model
-    from feddat_tpu_torch.models.adapters import AdapterCell
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
     from feddat_tpu_torch.ops import layer_block as lb
     from feddat_tpu_torch.train import dat
-    from feddat_tpu_torch.train.forwards import make_vilt_fused_parts, to_device
+    from feddat_tpu_torch.train.forwards import make_vilt_fused_parts
 
     print(f"gates: #4 largest bottleneck {lb._max_bottleneck()} (gate {lb.MAX_BOTTLENECK})")
     check(lb._max_bottleneck() == lb.MAX_BOTTLENECK, "the gate's limit differs from #4's")
@@ -3350,37 +3411,110 @@ def gate_checks(torch, seed):
     del kernel_m, plain_m, exact_m, params, state0, sd
     torch.cuda.empty_cache()
 
-    canvas = (832, 896)  # 26 x 28 patches: S = 40 + 728 + 1 = 769
-    s_long = TEXT_LEN + (canvas[0] // 32) * (canvas[1] // 32) + 1
-    client = SyntheticVQAClient("c0", num_train=2, num_eval=0, num_labels=NUM_LABELS, vocab_size=30522,
-                                text_len=TEXT_LEN, image_size=canvas, batch_size=2, val_batch_size=2,
-                                seed=seed)
-    long_batch = to_device(next(client.train_batches(0)), torch.device("cuda"))
-    m, _ = create_model("vilt", {"c0": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, 16,
-                        "bfloat16", image_size=canvas, attn_impl="block", seed=seed)
+    long_canvas_path(torch, seed)
+
+
+# Past both of the first designs' limits (#1/#3's S <= 768, #2's R <= 128):
+# full-width ViLT-B/32 DAT at reduction 4 (bottleneck 192), the fused
+# ensemble adapter, bf16, "block" with fuse_ln, on a canvas of 832 x 896
+# (26 x 28 patches: S = 40 + 728 + 1 = 769), B=16.
+LONG_CANVAS = (832, 896)
+
+
+def long_canvas_path(torch, seed):
+    """Two standard DAT steps through #1, #3 and #2 (the step's two ensemble
+    passes run the fused adapter: #1 36, #3 22, #2 24 per step), the first
+    held by the 2x-bf16 rule against the plain path in bf16 and fp32; then
+    ViltVqaPredictor's ensemble forward (#1 12, #2 12) by the serving rule
+    against the plain route."""
+    from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.models.vilt import TaskHeadSpec
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import make_vilt_forward, to_device
+
+    t0 = time.perf_counter()
+    s_long = TEXT_LEN + (LONG_CANVAS[0] // 32) * (LONG_CANVAS[1] // 32) + 1
     check(s_long == 769, f"the long canvas gives S={s_long}")
-    refused(torch, f"a 'block' model at S={s_long}",
-            lambda: m("c0", long_batch, adapter_mode="ensemble", deterministic=True))
-    del m, long_batch
 
-    spec = AdapterSpec(names=("adapter_0", "adapter_1", "adapter_2"), reduction_factor=4, fused=True)
-    cell = AdapterCell(spec, 768, torch.bfloat16).cuda()
-    z = torch.randn(2, 7, 768, device="cuda", dtype=torch.bfloat16)
-    check(cell.bottleneck == 192, f"the reduction-4 cell's bottleneck is {cell.bottleneck}")
-    refused(torch, "a fused ensemble adapter at bottleneck 192", lambda: cell.delta(z, "ensemble"))
+    def model_of(attn_impl, fused, dtype="bfloat16", state=None):
+        model, cfg = create_model("vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS},
+                                  PEFTMode.DAT, 4, dtype, image_size=LONG_CANVAS, attn_impl=attn_impl,
+                                  adapter_fused=fused, seed=seed if state is None else None)
+        if state is not None:
+            model.load_state_dict(state)
+        return model, cfg
 
+    model, cfg = model_of("block", True)
+    layers = cfg.num_layers
+    check(cfg.fuse_ln and cfg.adapter.fused and model.vilt.layers[0].adapter.bottleneck == 192,
+          f"unexpected long-canvas model {cfg}")
+    client = SyntheticVQAClient("c0", num_train=2 * B, num_eval=0, num_labels=NUM_LABELS, vocab_size=30522,
+                                text_len=TEXT_LEN, image_size=LONG_CANVAS, batch_size=B, val_batch_size=B,
+                                seed=seed)
+    batches = [to_device(bt, torch.device("cuda")) for bt in client.train_batches(0)]
+    check(len(batches) == 2 and tuple(batches[0]["pixel_values"].shape[1:3]) == LONG_CANVAS,
+          "the long-canvas client's batches")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    part = dat.Partitioner(params, TRAIN_CLIENTS[0], PEFTMode.DAT)
+    opt = OptimizerConfig()
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
 
-def refused(torch, what, call):
-    """``call()`` must raise ValueError on the card before any launch."""
-    reset_counts()
-    try:
-        call()
-    except ValueError as e:
+    def step_of(m):
+        return dat.make_dat_train_step(make_vilt_forward(m, TRAIN_CLIENTS[0]), part, opt, 100)
+
+    want = {**NO_LAUNCHES, "attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1),
+            "adapter_fused": 2 * layers}
+    step = step_of(model)
+    state = state0
+    for i, batch in enumerate(batches):
+        reset_counts()
+        state, m = step(state, batch)
         torch.cuda.synchronize()
-        print(f"gates: {what} is refused on the card: {e}")
-        check(read_counts() == NO_LAUNCHES, f"{what}: launches before the refusal {read_counts()}")
-        return
-    raise AssertionError(f"{what} ran on the card; its kernel does not take it")
+        launches = read_counts()
+        print(f"gates: long canvas, standard DAT step {i + 1}, attn_impl='block', fused ensemble, bottleneck "
+              f"192, B={B} S={s_long}: launches {counts_text(launches)} (expected {counts_text(want)}); "
+              f"loss {float(m['loss']):.4f}, loss_shared {float(m['loss_shared']):.4f}")
+        check(launches == want, f"long-canvas step launches {launches}, expected {want}")
+        check(math.isfinite(float(m["loss"])) and math.isfinite(float(m["loss_shared"])),
+              "long-canvas step: non-finite loss")
+        if i == 0:  # the first step's gradients, before the next call can reuse its buffers
+            sd = model.state_dict()
+            with graph_mode(False):
+                before = read_counts()
+                plain_m = step_of(model_of("auto", False, state=sd)[0])(state0, batch)[1]
+                exact_m = step_of(model_of("auto", False, "float32", state=sd)[0])(state0, batch)[1]
+                torch.cuda.synchronize()
+                check(read_counts() == before, "the plain path launched a kernel")
+            grad_agreement(torch, f"standard step, long canvas S={s_long}, bottleneck 192", m, plain_m,
+                           exact_m)
+            del plain_m, exact_m
+            torch.cuda.empty_cache()
+    del step, model, state, m, state0, params
+    torch.cuda.empty_cache()
+
+    pred = build_predictor(torch, seed, "block", True, canvas=LONG_CANVAS, reduction=4)
+    check(pred.model.vilt.layers[0].adapter.bottleneck == 192, "the long-canvas predictor's bottleneck")
+    imgs, qs = synthetic_requests(B, seed)
+    batch = pred._preprocess(imgs, qs)
+    reset_counts()
+    probs_kernel = pred.forward(batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {**NO_LAUNCHES, "attn_block": layers, "adapter_fused": layers}
+    print(f"gates: long canvas, ViltVqaPredictor.forward (ensemble), B={B} S={s_long}: launches "
+          f"{counts_text(launches)} (expected {counts_text(want)})")
+    check(launches == want, f"long-canvas forward launches {launches}, expected {want}")
+    plain = build_predictor(torch, seed, "auto", False, state=pred.model.state_dict(), canvas=LONG_CANVAS,
+                            reduction=4)
+    with graph_mode(False):
+        probs_plain = plain.forward(batch)
+    check(read_counts() == launches, "the plain path launched a kernel")
+    serving_agreement(f"gates: long canvas S={s_long}:", probs_kernel, probs_plain, B)
+    del pred, plain, probs_kernel, probs_plain
+    torch.cuda.empty_cache()
+    print(f"gates: long-canvas path took {time.perf_counter() - t0:.1f} s")
 
 
 def federated_rounds(torch, label, make_trainer, captures, programs):
@@ -3827,6 +3961,16 @@ def block_route_path(torch, seed):
     del blk, runs
     torch.cuda.empty_cache()
     return replay["attn_block_bwd"]
+
+
+def long_kernel_times(torch, seed):
+    """#1 and #3 (LN1 outside, as the model runs them past 448) and #4 at
+    B=16, S=769 (the long-canvas path of gate_checks) and S=1024, with a
+    padding bias: kernel, plain version, library chain and bound."""
+    for s_long in (769, 1024):
+        time_attn_block(torch, SECOND_B, s_long, seed, fuse_ln=False)
+        attn_bwd_row(torch, SECOND_B, s_long, False, seed)
+        layer_bwd_row(torch, SECOND_B, s_long, True, seed)
 
 
 def vit_kernel_times(torch, seed):
@@ -6200,6 +6344,7 @@ def main(argv=None) -> int:
         times = phase_time(torch, pred, plain, requests, args.seed)
         del pred, plain
         times.update(time_backward_kernels(torch, args.seed))
+        long_kernel_times(torch, args.seed)
         time_train(torch, tr)
         times.update(time_fused_kernels(torch, args.seed))
         time_peft(torch, pf, args.seed)

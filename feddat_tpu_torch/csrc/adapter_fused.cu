@@ -21,35 +21,45 @@
 // ~2.6 GFLOP (~2.7 us at 989 TFLOP/s), so bytes bound the call
 // (chip_smoke.py's adapter_bound).
 //
-// Design.  On the TPU a 256-row block keeps both adapters' weights (295 KB)
-// in VMEM; that does not fit a Hopper block's 227 KB, and 71 row tiles of 64
-// would fill half of the 132 SMs.  So each 64-row tile of h is a cluster of 4
-// CTAs of one warpgroup each, and rank r of the cluster
+// Design.  On the TPU a 256-row block keeps both adapters' weights (295 KB at
+// R = 48) in VMEM; that does not fit a Hopper block's 227 KB, and 71 row tiles
+// of 64 would fill half of the 132 SMs.  So each 64-row tile of h is a
+// cluster of 4 CTAs of one warpgroup each, and rank r of the cluster
 //   * takes the K slice [r D/4, (r+1) D/4) of the down projection of both
 //     adapters at once: h and Wd tiles come by TMA (one thread issues a copy
 //     per 64 x 64 tile into a two-stage ring, completion on an mbarrier;
 //     zeros past N, the slice and R), wgmma.m64n64k16 reads h K-major and Wd
 //     as it lies ([D, R], wgmma's transposed B, desc_mn), a's columns in
 //     their own 64-column atoms, then b's;
-//   * writes its fp32 [64, 2 Rp] partial to its shared memory; after a
+//   * writes its fp32 [64, 2 Rc] partial to its shared memory; after a
 //     cluster barrier it finishes rows [16 r, 16 r + 16): sums the four
 //     partials through distributed shared memory in rank order 0, 1, 2, 3,
 //     adds bd, applies the ReLU in fp32, splits x into bf16 hi, mid and lo,
 //     writes them as K-major A tiles, and sends those rows to the other three
 //     ranks by bulk shared-to-shared copies (an mbarrier on each receiver);
 //   * computes its output columns [r D/4, (r+1) D/4) in chunks of 64: per
-//     chunk two accumulators, a over a's hi, mid and lo k-steps and b over
+//     chunk two accumulators, a over a's lo, mid and hi k-steps and b over
 //     b's, with Wu [R, D] staged as it lies (desc_mn) by TMA through two
 //     buffers, the next chunk's copy in flight; the epilogue adds bu_a and
 //     bu_b, forms w a + (1 - w) b in fp32 and rounds once to bf16.
-// Every byte of h is read from memory once, and each CTA reads a quarter of
-// the weights (~74 KB at R = 48, not 295 KB).  Every sum has one fixed order
-// (no atomics), so a second call is bitwise equal.  Rows past N read as zero
-// and are never stored.  The regions of shared memory are reused phase by
-// phase (Layout), 75 KB at D = 768, R = 48: three CTAs per SM, so the 284
-// CTAs of the serving batch run in one wave.  Wd rows of R % 8 != 0 elements
-// are not 16-byte aligned, which TMA needs: then every thread copies Wd
-// element by element.  D must be a multiple of 64 up to 1024, R at most 128.
+// A bottleneck wider than AD_CHUNK = 128 columns is walked in chunks of one
+// width Rc <= 128 (a multiple of 16; R = 192 is two of 96, R = 384 three of
+// 128), each chunk the three steps above on its columns of Wd, bd and Wu:
+// a chunk's partials, A parts and Wu buffers take the shared memory of one
+// R = Rc call, and the up projection's fp32 sums of each adapter carry from
+// one chunk to the next through a scratch in device memory (p.acc, 512 D
+// bytes per row tile, written by the thread that reads it back), each
+// chunk's sums added to them in one fp32 add; only the last chunk adds bu
+// and mixes.  Nothing on chip grows with D: the K slice and
+// the output columns are walked 64 at a time and bu is read per 64 columns,
+// so any D that is a multiple of 64 runs.  Every byte of h is read from
+// memory once per chunk, and each CTA reads a quarter of the weights (~74 KB
+// at R = 48, not 295 KB).  Every sum has one fixed order (no atomics), so a
+// second call is bitwise equal.  Rows past N read as zero and are never
+// stored.  The regions of shared memory are reused phase by phase (Layout),
+// 75 KB at R = 48: three CTAs per SM, so the 284 CTAs of the serving batch
+// run in one wave.  Wd rows of R % 8 != 0 elements are not 16-byte aligned,
+// which TMA needs: then every thread copies Wd element by element.
 
 #include <cuda.h>
 
@@ -62,8 +72,7 @@ namespace {
 constexpr int AD_ROWS = 64;      // rows of h per cluster
 constexpr int AD_THREADS = 128;  // one warpgroup per CTA
 constexpr int AD_CLUSTER = 4;    // CTAs per row tile: K slices of GEMM1, column slices of GEMM2
-constexpr int AD_MAX_D = 1024;
-constexpr int AD_MAX_R = 128;
+constexpr int AD_CHUNK = 128;   // most bottleneck columns of one chunk
 constexpr int TB = sm90::TILE_BYTES;
 
 struct AdapterArgs {
@@ -73,9 +82,19 @@ struct AdapterArgs {
   const bf16* wu[2];  // [R, D]
   const bf16* bu[2];  // [D]
   bf16* out;          // [N, D]
+  float* acc;         // the up projection's sums between chunks (nc > 1), else null
   int N, D, R;
+  int nc;             // chunks of the bottleneck
   float weight;
 };
+
+// The bottleneck's chunks: as few as take at most AD_CHUNK columns each, all
+// of one width Rc, a multiple of 16 (the last one zero past R).
+inline int chunk_count(int R) { return (R + AD_CHUNK - 1) / AD_CHUNK; }
+inline int chunk_width(int R) {
+  const int n = chunk_count(R);
+  return ((R + n - 1) / n + 15) / 16 * 16;
+}
 
 // The copy engine's views of the operands (built per call by encode_maps):
 // h and Wu as [rows][4 ranks][D/4] so that a box never crosses into the next
@@ -85,19 +104,18 @@ struct TmaMaps {
   CUtensorMap h, wd[2], wu[2];
 };
 
-// Sizes that follow from D and R.  Each adapter's bottleneck columns take
-// KT2 64-column atoms of their own (a's, then b's: NA = 2 KT2 atoms; a copy
-// lands on a 1024-byte aligned atom), padded with zero columns.  Shared
-// memory, after 1024 bytes of alignment slack, in regions used in turn:
+// Sizes that follow from D and the chunk width Rc.  Each adapter's chunk
+// columns take KT2 64-column atoms of their own (a's, then b's: NA = 2 KT2
+// atoms; a copy lands on a 1024-byte aligned atom), padded with zero columns.
+// Shared memory, after 1024 bytes of alignment slack, in regions used in turn:
 //   X: GEMM1's two-stage ring (an h tile and NA Wd tiles a stage), then the
 //      A parts [3][NA];
 //   B: this rank's fp32 partial (read by the whole cluster), then the two Wu
 //      buffers, each [2 adapters][Rp rows][64 columns];
-//   the biases in bf16 (bd in the packed columns, bu for the rank's columns
-//   of both adapters), then five mbarriers (two ring stages, two Wu
-//   buffers, the A parts' rows from the other ranks).
+//   bd in bf16 (the packed columns), then five mbarriers (two ring stages,
+//   two Wu buffers, the A parts' rows from the other ranks).
 struct Layout {
-  int Rp;   // R padded to a multiple of 16
+  int Rp;   // the chunk's columns, Rc, padded to a multiple of 16
   int KT2;  // 64-column atoms of one adapter's Rp columns (64-row tiles of Wu)
   int NA;   // atoms of the packed bottleneck
   int KS;   // D / 4: a rank's K slice of GEMM1 and its columns of GEMM2
@@ -118,7 +136,7 @@ __host__ __device__ inline Layout layout(int D, int R) {
   L.wu_block = L.Rp * 128;  // [Rp rows][64] bf16, 128B-swizzled
   const int partial = 2 * L.Rp * AD_ROWS * 4;
   L.b_bytes = partial > 4 * L.wu_block ? partial : 4 * L.wu_block;
-  L.bars = L.x_bytes + L.b_bytes + ((64 * L.NA + 2 * L.KS) * 2 + 7) / 8 * 8;
+  L.bars = L.x_bytes + L.b_bytes + (64 * L.NA * 2 + 7) / 8 * 8;
   L.smem = 1024 + L.bars + 5 * 8;
   return L;
 }
@@ -168,26 +186,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// The kernel for Rp = 16 RP16: every wgmma chain has a compile-time length.
+// The kernel for chunks of Rc = 16 RP16 bottleneck columns: every wgmma chain
+// has a compile-time length.  Chunk c of the bottleneck is columns
+// [c Rc, c Rc + Rc) of each adapter (zero past R); the chunks run in order,
+// and with more than one the up projection's fp32 sums go through p.acc.
 template <int RP16>
 __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS, RP16 <= 4 ? 3 : 1)
     adapter_kernel(AdapterArgs p, const __grid_constant__ TmaMaps maps) {
-  constexpr int KT2 = (RP16 + 3) / 4, NA = 2 * KT2;  // Rp = 16 RP16
+  constexpr int KT2 = (RP16 + 3) / 4, NA = 2 * KT2;  // Rc = 16 RP16
   constexpr int NQ = 4 * RP16, QA = 2 * RP16;  // 8-column groups of the real columns: both, one adapter
+  constexpr int BD_PER = 64 * NA / AD_THREADS;
   extern __shared__ __align__(16) uint8_t ad_smem[];
-  const Layout L = layout(p.D, p.R);
+  const Layout L = layout(p.D, 16 * RP16);
+  // a bottleneck of more than one chunk is wider than 128, so its chunks are
+  // at least 80 columns wide (chunk_width): instances of RP16 <= 4 run one
+  const int nc = RP16 > 4 ? p.nc : 1;
   const uint32_t at = sm90::smem_addr(ad_smem);
   const uint32_t base = (at + 1023u) & ~1023u;  // the swizzle is a function of the address
   uint8_t* const sp = ad_smem + (base - at);
   const uint32_t sX = base, sB = base + L.x_bytes;
   bf16* const bd_s = reinterpret_cast<bf16*>(sp + L.x_bytes + L.b_bytes);  // [64 NA]
-  bf16* const bu_s = bd_s + 64 * NA;                                        // [2][KS]
   const uint32_t bar_k = base + L.bars, bar_wu = bar_k + 16, bar_parts = bar_k + 32;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
   uint32_t rank;
   asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  const int row0 = (blockIdx.x / AD_CLUSTER) * AD_ROWS;
+  const int tile = blockIdx.x / AD_CLUSTER, row0 = tile * AD_ROWS;
   const int k0 = rank * L.KS;  // this rank's K slice of GEMM1 and its output columns of GEMM2
   const bool tma_wd = (p.R & 7) == 0;
 
@@ -198,27 +222,33 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
   }
   __syncthreads();
 
-  // k-tile t of GEMM1 into ring stage t % 2: h [row0, row0 + 64) x
-  // k0 + [64 t, 64 t + 64) K-major, and Wd rows k0 + [64 t, 64 t + 64) of
-  // both adapters' atoms MN-major, zero past N, past the slice and past R.
-  // Wd rows of R % 8 != 0 elements are not 16-byte aligned: then every
-  // thread copies them element by element.
+  // The ring stages and Wu buffers are counted across chunks (T = c nkt + t,
+  // U = c nkt + ch): use n of either goes to stage n % 2 at phase (n / 2) % 2.
+  int c0 = 0;  // the chunk's first bottleneck column
+  int T0 = 0;  // its first GEMM1 tile and GEMM2 chunk, counted across chunks
+
+  // k-tile t of GEMM1 into ring stage T % 2: h [row0, row0 + 64) x
+  // k0 + [64 t, 64 t + 64) K-major, and Wd rows k0 + [64 t, 64 t + 64),
+  // columns c0 + ..., of both adapters' atoms MN-major, zero past N, past the
+  // slice and past R.  Wd rows of R % 8 != 0 elements are not 16-byte
+  // aligned: then every thread copies them element by element.
   auto stage_k = [&](int t) {
     if (t >= L.nkt) return;
-    const uint32_t sH = sX + (t & 1) * L.stage, sWd = sH + TB;
+    const int T = T0 + t;
+    const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + TB;
     if (tid == 0) {
-      expect_bytes(bar_k + 8 * (t & 1), TB * (1 + (tma_wd ? NA : 0)));
-      tma_load(sH, &maps.h, t * 64, rank, row0, bar_k + 8 * (t & 1));
+      expect_bytes(bar_k + 8 * (T & 1), TB * (1 + (tma_wd ? NA : 0)));
+      tma_load(sH, &maps.h, t * 64, rank, row0, bar_k + 8 * (T & 1));
       if (tma_wd)
 #pragma unroll
         for (int A = 0; A < NA; ++A)
-          tma_load(sWd + A * TB, &maps.wd[A / KT2], (A % KT2) * 64, t * 64, rank, bar_k + 8 * (t & 1));
+          tma_load(sWd + A * TB, &maps.wd[A / KT2], c0 + (A % KT2) * 64, t * 64, rank, bar_k + 8 * (T & 1));
     }
     if (!tma_wd) {
 #pragma unroll 1
       for (int j = 0; j < NA * 512 / AD_THREADS; ++j) {
         const int i = tid + j * AD_THREADS, A = i >> 9, r = (i >> 3) & 63, c = i & 7;
-        const int ad = A / KT2, cc = (A % KT2) * 64 + c * 8, kk = t * 64 + r;
+        const int ad = A / KT2, cc = c0 + (A % KT2) * 64 + c * 8, kk = t * 64 + r;
         const bf16* src = (ad ? p.wd[1] : p.wd[0]) + (size_t)(k0 + kk) * p.R + cc;
         float v[8];
 #pragma unroll
@@ -229,213 +259,253 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
   };
-  // Wu rows [0, Rp) (zero past R), columns k0 + [64 ch, 64 ch + 64) of both
-  // adapters into buffer ch % 2 of region B
+  // Wu rows c0 + [0, Rc) (zero past R), columns k0 + [64 ch, 64 ch + 64) of
+  // both adapters into buffer U % 2 of region B
   auto stage_wu = [&](int ch) {
     if (tid == 0 && ch < L.nkt) {
-      const uint32_t buf = sB + (ch & 1) * 2 * L.wu_block, bar = bar_wu + 8 * (ch & 1);
+      const int U = T0 + ch;
+      const uint32_t buf = sB + (U & 1) * 2 * L.wu_block, bar = bar_wu + 8 * (U & 1);
       expect_bytes(bar, 2 * L.wu_block);
-      tma_load(buf, &maps.wu[0], ch * 64, rank, 0, bar);
-      tma_load(buf + L.wu_block, &maps.wu[1], ch * 64, rank, 0, bar);
+      tma_load(buf, &maps.wu[0], ch * 64, rank, c0, bar);
+      tma_load(buf + L.wu_block, &maps.wu[1], ch * 64, rank, c0, bar);
     }
   };
-
-  // The biases go to shared memory (the epilogue's stores through p.out may
-  // alias global reads as far as the compiler knows, which would make each
-  // read wait for the stores before it); all reads are issued before the
-  // first store.
-  constexpr int BD_PER = 64 * NA / AD_THREADS, BU_PER = 2 * AD_MAX_D / AD_CLUSTER / AD_THREADS;
-  bf16 bdv[BD_PER], buv[BU_PER];
-#pragma unroll
-  for (int j = 0; j < BD_PER; ++j) {
-    const int i = tid + j * AD_THREADS, ad = i >= 64 * KT2, cc = i - ad * 64 * KT2;
-    bdv[j] = cc < p.R ? (ad ? p.bd[1] : p.bd[0])[cc] : __float2bfloat16_rn(0.f);
-  }
-#pragma unroll
-  for (int j = 0; j < BU_PER; ++j) {
-    const int i = tid + j * AD_THREADS, ad = i >= L.KS;
-    if (i < 2 * L.KS) buv[j] = (ad ? p.bu[1] : p.bu[0])[k0 + i - ad * L.KS];
-  }
-  stage_k(0);
-  stage_k(1);
-#pragma unroll
-  for (int j = 0; j < BD_PER; ++j) bd_s[tid + j * AD_THREADS] = bdv[j];
-#pragma unroll
-  for (int j = 0; j < BU_PER; ++j)
-    if (tid + j * AD_THREADS < 2 * L.KS) bu_s[tid + j * AD_THREADS] = buv[j];
-
-  // GEMM1: this rank's partial of [h . Wd_a | h . Wd_b] over its K slice,
-  // one wgmma group per 64-wide tile (the last tile's k-steps run in full on
-  // zeros), tile t + 1's copies in flight meanwhile
-  float acc[NA][32];
-#pragma unroll
-  for (int a = 0; a < NA; ++a) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
-    sm90::pin(acc[a]);  // the zeros are written before the first fence, not between the products
-  }
-  for (int t = 0; t < L.nkt; ++t) {
-    wait_phase(bar_k + 8 * (t & 1), (t >> 1) & 1);
-    __syncthreads();  // and the element-by-element Wd copies
-    const uint32_t sH = sX + (t & 1) * L.stage, sWd = sH + TB;
-    sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t da = sm90::desc_k(sH, ks);
-#pragma unroll
-      for (int a = 0; a < NA; ++a) wgmma_ss_t(acc[a], da, sm90::desc_mn(sWd + a * TB, ks));
-    }
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-#pragma unroll
-    for (int a = 0; a < NA; ++a) sm90::pin(acc[a]);
-    __syncthreads();  // every warp is done with this stage
-    stage_k(t + 2);
-  }
-
-  // The partial in region B in thread-major order, the 8-column groups of the
-  // real columns only: group jj (a's QA groups, then b's) of thread tid at
-  // float4 jj * 128 + tid, so each thread of every rank reads back the
-  // elements it owns
   auto group = [](int jj) { return jj < QA ? jj : 8 * KT2 + jj - QA; };  // packed 8-column group
   float4* part = reinterpret_cast<float4*>(sp + L.x_bytes);
-#pragma unroll
-  for (int jj = 0; jj < NQ; ++jj) {
-    const int j = group(jj);
-    const float* d = &acc[j >> 3][4 * (j & 7)];
-    part[jj * AD_THREADS + tid] = make_float4(d[0], d[1], d[2], d[3]);
-  }
-  cluster_sync();  // every rank's partial is written
-
-  // Rank r finishes rows [16 r, 16 r + 16) of the tile (warp r's rows in the
-  // accumulator layout): its warp w sums groups jj = w, w + 4, ... of warp
-  // r's lane `lane` from the four partials in rank order 0..3, adds bd,
-  // applies the ReLU, splits into bf16 hi, mid and lo, and writes the parts
-  // into its own K-major A tiles [part][atom] (over the ring).  Packed group
-  // j is rows 16 rank + g and + 8, columns 8 j + 2 tig and + 1.  Then the copy
-  // engine sends those rows (2 KB of each tile) to the other three ranks.
   uint32_t remote_part[AD_CLUSTER];
 #pragma unroll
   for (int r = 0; r < AD_CLUSTER; ++r)
     asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                  : "=r"(remote_part[r])
                  : "r"(sm90::smem_addr(part) + (32 * rank + lane) * 16), "r"(r));
-  constexpr int MB = RP16 < 4 ? RP16 : 4;  // owned groups read in one round trip
-#pragma unroll
-  for (int m0 = 0; m0 < RP16; m0 += MB) {
-    float4 v[MB][AD_CLUSTER];
-#pragma unroll
-    for (int mm = 0; mm < MB; ++mm)
-#pragma unroll
-      for (int r = 0; r < AD_CLUSTER; ++r)
-        if (m0 + mm < RP16)
-          asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                       : "=f"(v[mm][r].x), "=f"(v[mm][r].y), "=f"(v[mm][r].z), "=f"(v[mm][r].w)
-                       : "r"(remote_part[r] + (4 * (m0 + mm) + warp) * AD_THREADS * 16));
-#pragma unroll
-    for (int mm = 0; mm < MB; ++mm) {
-      if (m0 + mm >= RP16) break;
-      const int j = group(4 * (m0 + mm) + warp), a = j >> 3, q = j & 7;
-      float x[4] = {v[mm][0].x, v[mm][0].y, v[mm][0].z, v[mm][0].w};
-#pragma unroll
-      for (int r = 1; r < AD_CLUSTER; ++r) {
-        x[0] = __fadd_rn(x[0], v[mm][r].x), x[1] = __fadd_rn(x[1], v[mm][r].y);
-        x[2] = __fadd_rn(x[2], v[mm][r].z), x[3] = __fadd_rn(x[3], v[mm][r].w);
-      }
-      const int col = 8 * j + 2 * tig;
-      const float b0 = __bfloat162float(bd_s[col]), b1 = __bfloat162float(bd_s[col + 1]);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float pv[3][2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = fmaxf(__fadd_rn(x[2 * hf + e], e ? b1 : b0), 0.f);
-          const float hi = round_bf16(y), r1 = __fsub_rn(y, hi);
-          const float mid = round_bf16(r1), lo = round_bf16(__fsub_rn(r1, mid));
-          pv[0][e] = hi, pv[1][e] = mid, pv[2][e] = lo;
-        }
-        const uint32_t off = sm90::swz(16 * rank + g + 8 * hf, q) + tig * 4;
-#pragma unroll
-        for (int s = 0; s < 3; ++s)
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sX + (s * NA + a) * TB + off),
-                       "r"(pack_bf16(pv[s][0], pv[s][1]))
-                       : "memory");
-      }
-    }
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the parts, visible to the copy engine
-  __syncthreads();
-  if (tid == 0) {
-    expect_bytes(bar_parts, (AD_CLUSTER - 1) * 3 * NA * 2048);
-#pragma unroll 1
-    for (int d = 1; d < AD_CLUSTER; ++d) {
-      const uint32_t to = (rank + d) % AD_CLUSTER;
-      uint32_t dst, bar;
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(sX + rank * 2048), "r"(to));
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(bar) : "r"(bar_parts), "r"(to));
-#pragma unroll
-      for (int blk = 0; blk < 3 * NA; ++blk)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], 2048, [%2];\n" ::"r"(
-                dst + blk * TB),
-            "r"(sX + rank * 2048 + blk * TB), "r"(bar)
-            : "memory");
-    }
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  }
-  // The other ranks' rows have landed; they were sent after their reads of
-  // this rank's partial, so region B is free for the Wu buffers.
-  wait_phase(bar_parts, 0);
-
-  // GEMM2 and the mix, 64 output columns at a time, chunk ch + 1's copies in
-  // flight meanwhile
-  stage_wu(0);
-  stage_wu(1);
   const float wa = p.weight, wb = 1.f - p.weight;
-  for (int ch = 0; ch < L.nkt; ++ch) {
-    wait_phase(bar_wu + 8 * (ch & 1), (ch >> 1) & 1);
-    const uint32_t buf = sB + (ch & 1) * 2 * L.wu_block;
-    float ya[32], yb[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) ya[i] = yb[i] = 0.f;
-    sm90::pin(ya);
-    sm90::pin(yb);
-    sm90::wg_fence();
-#pragma unroll
-    for (int s = 0; s < 3; ++s)  // hi, then mid, then lo
-#pragma unroll
-      for (int ks = 0; ks < RP16; ++ks) {
-        const int ca = ks * 16, cb = 64 * KT2 + ks * 16;  // packed columns of a's and b's k-step
-        wgmma_ss_t(ya, sm90::desc_k(sX + (s * NA + (ca >> 6)) * TB, (ca & 63) >> 4),
-                   sm90::desc_mn(buf + (ks >> 2) * TB, ks & 3));
-        wgmma_ss_t(yb, sm90::desc_k(sX + (s * NA + (cb >> 6)) * TB, (cb & 63) >> 4),
-                   sm90::desc_mn(buf + L.wu_block + (ks >> 2) * TB, ks & 3));
-      }
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-    sm90::pin(ya);
-    sm90::pin(yb);
-    __syncthreads();  // every warp is done with this buffer
-    stage_wu(ch + 2);
 
+  for (int c = 0; c < nc; ++c, c0 += 16 * RP16, T0 += L.nkt) {
+    if (c > 0) {
+      // the copies to the other ranks have read this rank's A parts (region
+      // X), and every warp is done with them and with the Wu buffers
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();
+    }
+    // bd goes to shared memory, its reads issued before the copies
+    bf16 bdv[BD_PER];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int n = ch * 64 + nt * 8 + tig * 2;
-      if (n >= L.KS) continue;
-      const __nv_bfloat162 ua = *reinterpret_cast<const __nv_bfloat162*>(bu_s + n);
-      const __nv_bfloat162 ub = *reinterpret_cast<const __nv_bfloat162*>(bu_s + L.KS + n);
-      const float bua[2] = {__low2float(ua), __high2float(ua)}, bub[2] = {__low2float(ub), __high2float(ub)};
+    for (int j = 0; j < BD_PER; ++j) {
+      const int i = tid + j * AD_THREADS, ad = i >= 64 * KT2, cc = c0 + i - ad * 64 * KT2;
+      bdv[j] = cc < p.R ? (ad ? p.bd[1] : p.bd[0])[cc] : __float2bfloat16_rn(0.f);
+    }
+    stage_k(0);
+    stage_k(1);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = row0 + warp * 16 + g + 8 * hf;
-        if (row >= p.N) continue;
-        float o[2];
+    for (int j = 0; j < BD_PER; ++j) bd_s[tid + j * AD_THREADS] = bdv[j];
+
+    // GEMM1: this rank's partial of [h . Wd_a | h . Wd_b] over its K slice,
+    // one wgmma group per 64-wide tile (the last tile's k-steps run in full on
+    // zeros), tile t + 1's copies in flight meanwhile
+    float acc[NA][32];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = nt * 4 + 2 * hf + e;
-          o[e] = __fadd_rn(__fmul_rn(wa, __fadd_rn(ya[i], bua[e])), __fmul_rn(wb, __fadd_rn(yb[i], bub[e])));
+    for (int a = 0; a < NA; ++a) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+      sm90::pin(acc[a]);  // the zeros are written before the first fence, not between the products
+    }
+    for (int t = 0; t < L.nkt; ++t) {
+      const int T = T0 + t;
+      wait_phase(bar_k + 8 * (T & 1), (T >> 1) & 1);
+      __syncthreads();  // and the element-by-element Wd copies
+      const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + TB;
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t da = sm90::desc_k(sH, ks);
+#pragma unroll
+        for (int a = 0; a < NA; ++a) wgmma_ss_t(acc[a], da, sm90::desc_mn(sWd + a * TB, ks));
+      }
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+#pragma unroll
+      for (int a = 0; a < NA; ++a) sm90::pin(acc[a]);
+      __syncthreads();  // every warp is done with this stage
+      stage_k(t + 2);
+    }
+
+    // The partial in region B in thread-major order, the 8-column groups of
+    // the real columns only: group jj (a's QA groups, then b's) of thread tid
+    // at float4 jj * 128 + tid, so each thread of every rank reads back the
+    // elements it owns
+#pragma unroll
+    for (int jj = 0; jj < NQ; ++jj) {
+      const int j = group(jj);
+      const float* d = &acc[j >> 3][4 * (j & 7)];
+      part[jj * AD_THREADS + tid] = make_float4(d[0], d[1], d[2], d[3]);
+    }
+    cluster_sync();  // every rank's partial is written
+
+    // Rank r finishes rows [16 r, 16 r + 16) of the tile (warp r's rows in
+    // the accumulator layout): its warp w sums groups jj = w, w + 4, ... of
+    // warp r's lane `lane` from the four partials in rank order 0..3, adds
+    // bd, applies the ReLU, splits into bf16 hi, mid and lo, and writes the
+    // parts into its own K-major A tiles [part][atom] (over the ring).
+    // Packed group j is rows 16 rank + g and + 8, columns 8 j + 2 tig and + 1.
+    // Then the copy engine sends those rows (2 KB of each tile) to the other
+    // three ranks.
+    constexpr int MB = RP16 < 4 ? RP16 : 4;  // owned groups read in one round trip
+#pragma unroll
+    for (int m0 = 0; m0 < RP16; m0 += MB) {
+      float4 v[MB][AD_CLUSTER];
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm)
+#pragma unroll
+        for (int r = 0; r < AD_CLUSTER; ++r)
+          if (m0 + mm < RP16)
+            asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=f"(v[mm][r].x), "=f"(v[mm][r].y), "=f"(v[mm][r].z), "=f"(v[mm][r].w)
+                         : "r"(remote_part[r] + (4 * (m0 + mm) + warp) * AD_THREADS * 16));
+#pragma unroll
+      for (int mm = 0; mm < MB; ++mm) {
+        if (m0 + mm >= RP16) break;
+        const int j = group(4 * (m0 + mm) + warp), a = j >> 3, q = j & 7;
+        float x[4] = {v[mm][0].x, v[mm][0].y, v[mm][0].z, v[mm][0].w};
+#pragma unroll
+        for (int r = 1; r < AD_CLUSTER; ++r) {
+          x[0] = __fadd_rn(x[0], v[mm][r].x), x[1] = __fadd_rn(x[1], v[mm][r].y);
+          x[2] = __fadd_rn(x[2], v[mm][r].z), x[3] = __fadd_rn(x[3], v[mm][r].w);
         }
-        *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.D + k0 + n) = pack_bf16(o[0], o[1]);
+        const int col = 8 * j + 2 * tig;
+        const float b0 = __bfloat162float(bd_s[col]), b1 = __bfloat162float(bd_s[col + 1]);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float pv[3][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y = fmaxf(__fadd_rn(x[2 * hf + e], e ? b1 : b0), 0.f);
+            const float hi = round_bf16(y), r1 = __fsub_rn(y, hi);
+            const float mid = round_bf16(r1), lo = round_bf16(__fsub_rn(r1, mid));
+            pv[0][e] = hi, pv[1][e] = mid, pv[2][e] = lo;
+          }
+          const uint32_t off = sm90::swz(16 * rank + g + 8 * hf, q) + tig * 4;
+#pragma unroll
+          for (int s = 0; s < 3; ++s)
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sX + (s * NA + a) * TB + off),
+                         "r"(pack_bf16(pv[s][0], pv[s][1]))
+                         : "memory");
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the parts, visible to the copy engine
+    __syncthreads();
+    if (tid == 0) {
+      expect_bytes(bar_parts, (AD_CLUSTER - 1) * 3 * NA * 2048);
+#pragma unroll 1
+      for (int d = 1; d < AD_CLUSTER; ++d) {
+        const uint32_t to = (rank + d) % AD_CLUSTER;
+        uint32_t dst, bar;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(sX + rank * 2048), "r"(to));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(bar) : "r"(bar_parts), "r"(to));
+#pragma unroll
+        for (int blk = 0; blk < 3 * NA; ++blk)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], 2048, [%2];\n" ::"r"(
+                  dst + blk * TB),
+              "r"(sX + rank * 2048 + blk * TB), "r"(bar)
+              : "memory");
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    // The other ranks' rows have landed; they were sent after their reads of
+    // this rank's partial, so region B is free for the Wu buffers.
+    wait_phase(bar_parts, c & 1);
+
+    // GEMM2, 64 output columns at a time, chunk ch + 1's copies in flight
+    // meanwhile.  Each adapter's accumulator starts at 0 for every chunk of
+    // the bottleneck and takes the lo, mid and hi parts in that order (the
+    // tensor cores' fp32 accumulation keeps more of the small parts' bits
+    // that way: half the error against the fp64 function near 0, PERF.md
+    // §6, PR 20); a chunk after the first adds the sums the chunks before
+    // left in p.acc in one fp32 add, and the last forms the mix and rounds
+    // once.
+    stage_wu(0);
+    stage_wu(1);
+    for (int ch = 0; ch < L.nkt; ++ch) {
+      const int U = T0 + ch;
+      wait_phase(bar_wu + 8 * (U & 1), (U >> 1) & 1);
+      const uint32_t buf = sB + (U & 1) * 2 * L.wu_block;
+      // this thread's 32 fp32 sums of each adapter at (tile, rank, ch) in
+      // p.acc, thread-major, so a warp's accesses are contiguous
+      float* const saved = p.acc + ((((size_t)tile * AD_CLUSTER + rank) * L.nkt + ch) * 2 * 32) * AD_THREADS + tid;
+      // bu of this thread's columns, read before the products so that they
+      // land meanwhile (the epilogue's stores through p.out may alias them
+      // as far as the compiler knows: a read there would wait for the stores
+      // before it)
+      __nv_bfloat162 bua2[8], bub2[8];
+      if (c + 1 == nc)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int n = ch * 64 + nt * 8 + tig * 2;
+          if (n < L.KS) {
+            bua2[nt] = *reinterpret_cast<const __nv_bfloat162*>(p.bu[0] + k0 + n);
+            bub2[nt] = *reinterpret_cast<const __nv_bfloat162*>(p.bu[1] + k0 + n);
+          }
+        }
+      float ya[32], yb[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        ya[i] = 0.f;
+        yb[i] = 0.f;
+      }
+      sm90::pin(ya);
+      sm90::pin(yb);
+      sm90::wg_fence();
+#pragma unroll
+      for (int s = 2; s >= 0; --s)  // lo, then mid, then hi: the small parts first
+#pragma unroll
+        for (int ks = 0; ks < RP16; ++ks) {
+          const int ca = ks * 16, cb = 64 * KT2 + ks * 16;  // packed columns of a's and b's k-step
+          wgmma_ss_t(ya, sm90::desc_k(sX + (s * NA + (ca >> 6)) * TB, (ca & 63) >> 4),
+                     sm90::desc_mn(buf + (ks >> 2) * TB, ks & 3));
+          wgmma_ss_t(yb, sm90::desc_k(sX + (s * NA + (cb >> 6)) * TB, (cb & 63) >> 4),
+                     sm90::desc_mn(buf + L.wu_block + (ks >> 2) * TB, ks & 3));
+        }
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(ya);
+      sm90::pin(yb);
+      __syncthreads();  // every warp is done with this buffer
+      stage_wu(ch + 2);
+
+      if (c > 0) {  // the chunks before, then this one, each sum rounded once
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          ya[i] = __fadd_rn(saved[i * AD_THREADS], ya[i]);
+          yb[i] = __fadd_rn(saved[(32 + i) * AD_THREADS], yb[i]);
+        }
+      }
+      if (c + 1 < nc) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          saved[i * AD_THREADS] = ya[i];
+          saved[(32 + i) * AD_THREADS] = yb[i];
+        }
+        continue;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = ch * 64 + nt * 8 + tig * 2;
+        if (n >= L.KS) continue;
+        const float bua[2] = {__low2float(bua2[nt]), __high2float(bua2[nt])};
+        const float bub[2] = {__low2float(bub2[nt]), __high2float(bub2[nt])};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = row0 + warp * 16 + g + 8 * hf;
+          if (row >= p.N) continue;
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = nt * 4 + 2 * hf + e;
+            o[e] = __fadd_rn(__fmul_rn(wa, __fadd_rn(ya[i], bua[e])), __fmul_rn(wb, __fadd_rn(yb[i], bub[e])));
+          }
+          *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.D + k0 + n) = pack_bf16(o[0], o[1]);
+        }
       }
     }
   }
@@ -496,11 +566,20 @@ int launch_rp(const AdapterArgs& a, const TmaMaps& maps, int smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-int launch(const AdapterArgs& a, cudaStream_t st) {
-  if (a.N < 0 || a.D < 64 || a.D % 64 || a.D > AD_MAX_D || a.R < 1 || a.R > AD_MAX_R)
-    return (int)cudaErrorInvalidValue;
+// Bytes of p.acc a call needs: each row tile's 4 ranks x nkt output chunks x
+// 2 adapters x 32 sums of each of 128 threads, fp32; 0 with one chunk.
+size_t acc_bytes(int N, int D, int R) {
+  if (N <= 0 || chunk_count(R) < 2) return 0;
+  const Layout L = layout(D, chunk_width(R));
+  return (size_t)(N + AD_ROWS - 1) / AD_ROWS * AD_CLUSTER * L.nkt * 2 * 32 * AD_THREADS * 4;
+}
+
+int launch(AdapterArgs a, cudaStream_t st) {
+  if (a.N < 0 || a.D < 64 || a.D % 64 || a.R < 1) return (int)cudaErrorInvalidValue;
   if (a.N == 0) return 0;
-  const Layout L = layout(a.D, a.R);
+  a.nc = chunk_count(a.R);
+  if (a.nc > 1 && a.acc == nullptr) return (int)cudaErrorInvalidValue;
+  const Layout L = layout(a.D, chunk_width(a.R));
   TmaMaps maps;
   if (!encode_maps(a, L, &maps)) return (int)cudaErrorInvalidValue;
   switch (L.Rp / 16) {
@@ -521,14 +600,18 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Bytes of scratch adapter_fused_fwd needs at these shapes (0: none).
+long long adapter_fused_workspace(int N, int D, int R) { return (long long)acc_bytes(N, D, R); }
+
 // h [N, D] bf16; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 and
-// 16-byte aligned; out [N, D] bf16.  D a multiple of 64 in [64, 1024], R in
-// [1, 128], N >= 0 (cudaErrorInvalidValue otherwise).
+// 16-byte aligned; out [N, D] bf16; workspace of adapter_fused_workspace
+// bytes (may be null when that is 0).  D a multiple of 64, D >= 64, R >= 1,
+// N >= 0 (cudaErrorInvalidValue otherwise).
 // Returns the CUDA error of the launch (0 = success).
 int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const void* wu_a,
                       const void* bu_a, const void* wd_b, const void* bd_b, const void* wu_b,
-                      const void* bu_b, void* out, int N, int D, int R, float weight,
-                      void* stream) {
+                      const void* bu_b, void* out, void* workspace, int N, int D, int R,
+                      float weight, void* stream) {
   AdapterArgs a{};
   a.h = static_cast<const bf16*>(h);
   a.wd[0] = static_cast<const bf16*>(wd_a);
@@ -540,6 +623,7 @@ int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const v
   a.wu[1] = static_cast<const bf16*>(wu_b);
   a.bu[1] = static_cast<const bf16*>(bu_b);
   a.out = static_cast<bf16*>(out);
+  a.acc = static_cast<float*>(workspace);
   a.N = N;
   a.D = D;
   a.R = R;

@@ -30,33 +30,40 @@
 //       gemm_sm90.cuh::launch_qkv, the very launches of the backward's q/k/v
 //       recompute (#3, #4), so the backward's p = exp(s - lse) is rebuilt
 //       from the forward's own logits;
-//   (c) attn_fwd.cuh::attn_kernel (shared with kernel #5): one block per
-//       (query tile of 64, head, batch element) over the projection scratch;
-//       the fp32 logits of its 64 rows over the whole key range stay in
-//       shared memory, so the softmax is the TPU's exact two-pass form (no
-//       online rescaling); padded keys are simply never summed;
+//   (c) the attention core: attn_sm90.cuh's wgmma forward, the code of #5,
+//       under this file's entry block_core_fwd_kernel: one warpgroup per
+//       (64 queries, head, batch element) over Heads views of the projection
+//       scratch (strides S*Dm, 64, Dm) and of the ctx plane; the keys swept
+//       twice, so the softmax is the TPU's exact two-pass form (no online
+//       rescaling) and no logits tile is kept: any S >= 1 runs;
 //   (d) the out-projection on the same GEMM.
 // q/k/v round-trip through device memory (3 x B*S*Dm bf16, from L2 mostly).
-// The attention core (mma.sync, no copy in flight) is the slow part left; it
-// is redesigned with #5's.
 
 // Backward: replaces feddat_tpu/ops/attn_block.py::_bwd_kernel (kernel #3,
 // called through _attn_block_bwd): dx only, the projections frozen.  The
-// attention part is attn_bwd.cuh, shared with the whole-layer backward (#4),
-// its products on wgmma (gemm_sm90.cuh); with the LayerNorm fused, one row
-// pass writes bf16(LN1(x)) for the q/k/v recompute and another
+// attention part is attn_bwd.cuh, shared with the whole-layer backward (#4):
+// its products on wgmma (gemm_sm90.cuh), its per-head part on attn_sm90.cuh's
+// backward kernels; with the LayerNorm fused, one row pass writes
+// bf16(LN1(x)) for the q/k/v recompute and another
 // (common.cuh::ln_bwd_rows_kernel) takes dxln back through LN1.  Its bound
 // and design are in attn_bwd.cuh.
 
 #include "attn_bwd.cuh"
-#include "attn_fwd.cuh"
 
 using namespace port;
 
-extern "C" {
+namespace {
 
-// Largest S the attention kernel's shared memory holds (the wrapper checks).
-int attn_block_max_seq(void) { return attn_fwd_max_seq(); }
+__global__ void __launch_bounds__(attn::FA_THREADS, attn::FWD_MIN_BLOCKS)
+    block_core_fwd_kernel(attn::FusedFwdArgs p) {
+  attn::fused_fwd_body(p);
+}
+
+int core_fwd_smem_done[64];
+
+}  // namespace
+
+extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -80,17 +87,18 @@ int attn_block_fwd(const void* x, const void* wq, const void* wk, const void* wv
                      static_cast<const bf16*>(wv), static_cast<const float*>(bqkv), qkv_b, M, Dm, st);
   if (e) return e;
   const long long sb = (long long)S * Dm;  // [3, B*S, Dm] planes, head h at column h*64
-  AttnFwdArgs t{};
-  t.q = {qkv_b, sb, ATT_D, Dm};
-  t.k = {qkv_b + plane, sb, ATT_D, Dm};
-  t.v = {qkv_b + 2 * plane, sb, ATT_D, Dm};
+  const int hd = attn::FA_D;
+  attn::FusedFwdArgs t{};
+  t.q = {qkv_b, sb, hd, Dm};
+  t.k = {qkv_b + plane, sb, hd, Dm};
+  t.v = {qkv_b + 2 * plane, sb, hd, Dm};
   t.bias = static_cast<const float*>(bias);
-  t.o = {static_cast<bf16*>(ctx), sb, ATT_D, Dm};
+  t.o = {static_cast<bf16*>(ctx), sb, hd, Dm};
   t.lse = static_cast<float*>(lse);
   t.S = S;
   t.H = H;
   t.scale = scale;
-  if ((e = launch_attn_fwd(t, B, st))) return e;
+  if ((e = attn::launch_fwd(block_core_fwd_kernel, core_fwd_smem_done, t, B, st))) return e;
 
   GemmArgs o{};
   o.a[0] = static_cast<const bf16*>(ctx);

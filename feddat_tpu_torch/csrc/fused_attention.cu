@@ -3,583 +3,55 @@
 // Replaces two TPU kernels, the same functions at the same rounding points:
 //   feddat_tpu/ops/fused_attention.py::_fwd_kernel (kernel #5, lines 37-57,
 //   called through _fwd_call), per (batch, head) on q/k/v [B, H, S, 64] bf16
-//   and a [B, S] fp32 padding-bias row:
-//
-//     s   = fp32(q k^T) * scale + bias_row     (two roundings: __fmul_rn, __fadd_rn)
-//     m   = the exact max of s over all S keys (no running max)
-//     p   = exp(s - m),  l = sum(p)            (fp32, l over the unrounded p)
-//     o   = bf16((bf16(p) . v) / l),  lse = m + log(l)
-//
+//   and a [B, S] fp32 padding-bias row: o and lse;
 //   feddat_tpu/ops/fused_attention.py::_bwd_kernel (kernel #6, lines 60-85,
-//   called through _fused_bwd), P rebuilt from the forward's lse:
+//   called through _fused_bwd): dq, dk and dv, P rebuilt from the forward's lse.
 //
-//     p  = exp(s - lse),  dv = bf16(bf16(p)^T . dO)
-//     dp = dO v^T,  delta = rowsum(dO * o)     (fp32)
-//     ds = bf16(p (dp - delta))
-//     dq = bf16((ds . k) * scale),  dk = bf16((ds^T . q) * scale)
-//
-// P is rounded to bf16 once before P.v and dv, and ds once before dq and dk,
-// as the TPU kernels round them (the flash kernels #7-#9 keep both at fp32
-// precision instead: flash_attention.cu).  exp is expf, as torch.exp.
-//
-// Every operand and output is a Heads view addressed by strides (common.cuh),
-// so the [B, H, S, 64] views that split() makes of [B, S, Dm] projections are
-// read, and the outputs written, in place.  Any S >= 1 runs: nothing of size
-// S is held on chip.
-//
-// What bounds them on the H100.  At the training shape (B=64, H=12, S=185)
-// one [S, S] x 64 product over all heads is 3.4 GFLOP.  #5 does three (q.k^T
-// twice, P.v: ~10 us at 989 TFLOP/s) and moves ~73 MB (q, k, v, o, lse:
-// ~22 us at 3.35 TB/s); the #6 pair does seven (s and dp in each launch, dv,
-// dq, dk: ~24 us) and moves ~147 MB (~44 us).  Both are bound by bytes, and
-// beside the tensor cores each logit costs ~10-15 fp32 instructions (scale,
-// bias, exp, max or sum, ds, the bf16 pack) on the CUDA cores.
-//
-// Design.  The earlier design (the attention cores of #1 and #3/#4,
-// attn_fwd.cuh and attn_bwd.cuh, on mma.sync) kept a block's 64 x S fp32
-// logits in shared memory (S <= 768, one block per SM at long S), staged every
-// tile with the threads that then compute on it, and wrote V, K, Q and dO
-// transposed by scalar stores: 9-12% of the bound.  Here, as #7-#9 are built
-// (flash_sm90.cuh):
-//   * one block is one warpgroup (128 threads) owning 64 rows, queries (#5,
-//     the dq launch) or keys (the dkdv launch): at S=185 the rows pad to 192,
-//     not to the 256 of 128-row blocks, and several blocks share an SM;
-//   * the operand that the block owns is loaded once into swizzled tiles; the
-//     other side's 64-row tiles (and their bias, lse and delta) go through a
-//     two-stage ring filled by cp.async, so step j+1's copies run while step
-//     j computes;
-//   * every product is wgmma.m64n64k16 on natural [row][d] tiles: q.k^T,
-//     dO.v^T, k.q^T and v.dO^T read both tiles K-major; P.v, ds.k, P^T.dO and
-//     ds^T.q take bf16(P) or bf16(ds) as one register A fragment (the C
-//     fragment of the product before) and read v, k, dO or q through wgmma's
-//     transposed B (desc_mn): nothing is transposed anywhere;
-//   * #5 sweeps the keys twice: sweep 1 computes s and keeps only the row max;
-//     sweep 2 recomputes s bit for bit (the same wgmma chain on the same
-//     tiles), forms p and l, and adds bf16(p).v.  So the max is the exact max
-//     over all keys (a fully masked row gives the unbiased softmax, as on the
-//     TPU) and no logits tile is kept: the third product costs less at this
-//     byte-bound shape than shared memory for S logits would;
-//   * #6 is two launches in the FlashAttention-2 manner: the dq launch (64
-//     queries a block, K/V/bias through the ring) also writes delta to a
-//     [B, H, S] scratch; the dkdv launch (64 keys a block, Q/dO/lse/delta
-//     through the ring) accumulates dk and dv over all queries in registers.
-//     Each output row is owned by one block and summed in fp32 registers with
-//     no atomics, so a second call is bitwise equal.
-// What still bounds them: inside a warpgroup nothing overlaps (each step waits
-// for its products, then runs the elementwise work), and every 64-row block
-// reads the other side's whole sequence again from L2 (#5 reads K twice).
-// Blocks per SM on the H100 (ptxas, CUDA 12.8): #5 112 registers and 42.5 KB
-// of shared memory, 4 blocks (a bound of 5 gives 96 registers and runs 1-4%
-// slower); dq 128 registers under its bound of 4 (136 under 3: #6 4-7%
-// slower) and 50.7 KB, 4 blocks; dkdv 166 registers and 51.2 KB, 3 blocks
-// (PERF.md §6).
-// Keys past S and queries past S contribute exactly 0 (the zero rows that
-// cp.async fills in do not give p = 0: a zero q row has logits = bias, and a
-// zero-filled lse gives p = exp(s)), and their rows are not written.
-//
-// The entry points take the same Heads views and [B, S] bias row as
-// AttnFwdArgs and AttnBwdArgs (attn_fwd.cuh, attn_bwd.cuh), so #1's, #3's
-// and #4's attention cores could be routed through these kernels.
+// The functions, their bound on the H100 and the design (one warpgroup per 64
+// rows, a two-stage cp.async ring, wgmma.m64n64k16, the keys swept twice for
+// the exact max, the backward as a dq launch and a dkdv launch) are
+// attn_sm90.cuh's, whose bodies #1's attention core and #3/#4's per-head part
+// run too, under entries of their own (attn_block.cu, attn_bwd.cuh).  Here
+// they get #5's and #6's entries, fused_fwd_kernel and fused_bwd_dq/dkdv_kernel,
+// and C entry points that take the operands as [B, H, S, 64] views by
+// strides, so split() views are read and written in place.  Any S >= 1 runs.
 
-#include "flash_sm90.cuh"
+#include "attn_sm90.cuh"
 
 using namespace port;
+using namespace port::attn;
 
 namespace {
-
-constexpr int FA_ROWS = 64;      // rows a block owns, and rows of each streamed step
-constexpr int FA_D = 64;         // head dim
-constexpr int FA_THREADS = 128;  // one warpgroup
-constexpr int FA_STAGES = 2;     // ring stages: step j+1's copies in flight during step j
-constexpr int TB = sm90::TILE_BYTES;
-
-// The forward's operands (AttnFwdArgs' fields): q, k, v, o [B, H, S, 64]
-// bf16 views; bias [B, S] fp32 or null; lse [B, H, S] fp32 (output).
-struct FusedFwdArgs {
-  Heads<const bf16> q, k, v;
-  const float* bias;
-  Heads<bf16> o;
-  float* lse;
-  int S, H;
-  float scale;
-};
-
-// The backward's operands (AttnBwdArgs' fields): q, k, v, dout, ctx (the
-// forward's o) [B, H, S, 64] bf16 views; lse [B, H, S] fp32 from the forward;
-// bias [B, S] fp32 or null; delta [B, H, S] fp32 scratch (written by the dq
-// launch, read by the dkdv launch); dq, dk, dv outputs.
-struct FusedBwdArgs {
-  Heads<const bf16> q, k, v;
-  Heads<const bf16> dout;
-  Heads<const bf16> ctx;
-  const float* lse;
-  const float* bias;
-  float* delta;
-  Heads<bf16> dq, dk, dv;
-  int S, H;
-  float scale;
-};
 
 template <typename T>
 Heads<T> heads(const void* p, const long long* st) {
   return {static_cast<T*>(const_cast<void*>(p)), st[0], st[1], st[2]};
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+__global__ void __launch_bounds__(FA_THREADS, FWD_MIN_BLOCKS) fused_fwd_kernel(FusedFwdArgs p) {
+  fused_fwd_body(p);
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+// dkdv before dq (attn_sm90.cuh)
+__global__ void __launch_bounds__(FA_THREADS, DKDV_MIN_BLOCKS) fused_bwd_dkdv_kernel(FusedBwdArgs p) {
+  fused_bwd_dkdv_body(p);
 }
 
-// the 1024-byte aligned start of the dynamic shared memory `raw` (the wgmma
-// swizzle is a function of the address), as a shared-space address and a pointer
-__device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
-  const uint32_t at = sm90::smem_addr(raw);
-  const uint32_t base = (at + 1023u) & ~1023u;
-  *ptr = raw + (base - at);
-  return base;
+__global__ void __launch_bounds__(FA_THREADS, DQ_MIN_BLOCKS) fused_bwd_dq_kernel(FusedBwdArgs p) {
+  fused_bwd_dq_body(p);
 }
-
-// the bf16 A fragment of k-step ks (16 columns) of a 64 x 64 fp32 accumulator:
-// each value rounded to bf16 once (round to nearest even)
-__device__ __forceinline__ void bf16_frag(const float (&x)[32], int ks, uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(x[ks * 8 + 2 * i], x[ks * 8 + 2 * i + 1]);
-}
-
-// 64 fp32 values [i0, i0 + 64) of `src` into shared memory by cp.async (one
-// 4-byte copy for each of the first 64 threads), zero past n
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int i0, int n, int tid) {
-  if (tid < FA_ROWS) {
-    const bool ok = i0 + tid < n;
-    sm90::cp_async4(sm90::smem_addr(dst + tid), src + (ok ? i0 + tid : 0), ok);
-  }
-}
-
-// d = A . B^T over the 64 head dims: A, B two [64 rows][64] swizzled tiles
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < FA_D / 16; ++ks) sm90::wgmma_ss(d, sm90::desc_k(a, ks), sm90::desc_k(b, ks), ks);
-}
-
-// d += bf16(x) . B over 64 rows: x a 64 x 64 fp32 accumulator, B a natural
-// [64 rows][64] swizzled tile read as wgmma's transposed B
-__device__ __forceinline__ void product_rs(float (&d)[32], const float (&x)[32], uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < FA_ROWS / 16; ++ks) {
-    uint32_t a[4];
-    bf16_frag(x, ks, a);
-    sm90::wgmma_rs_t(d, a, sm90::desc_mn(b, ks));
-  }
-}
-
-// ---------------------------------------------------------------- #5
-// Dynamic shared memory: Q, then K and V of each stage, then 64 bias floats
-// of each stage.
-constexpr int FWD_SMEM = 1024 + (1 + 2 * FA_STAGES) * TB + FA_STAGES * FA_ROWS * 4;
-
-// The block's 64 queries at one 64-key step: s = fp32(q.k^T) * scale + bias,
-// -inf at keys past S, into x (in place of the accumulator)
-__device__ __forceinline__ void logits(float (&x)[32], const float* bs, bool has_bias, int k0, int S,
-                                       float scale, int tig) {
-#pragma unroll
-  for (int nt = 0; nt < FA_ROWS / 8; ++nt) {
-    const int c = nt * 8 + tig * 2;  // step-local key of x[nt * 4 + 0|2]
-    const float2 bv = has_bias ? *reinterpret_cast<const float2*>(bs + c) : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float v = __fadd_rn(__fmul_rn(x[nt * 4 + e], scale), (e & 1) ? bv.y : bv.x);
-      x[nt * 4 + e] = k0 + c + (e & 1) < S ? v : -INFINITY;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(FA_THREADS, 4) fused_fwd_kernel(FusedFwdArgs p) {
-  extern __shared__ __align__(16) uint8_t fa_smem[];
-  uint8_t* sp;
-  const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sQ = sbase;  // stage st: K at sbase + (1 + 2 st) TB, V one tile later
-  float* bias_s = reinterpret_cast<float*>(sp + (1 + 2 * FA_STAGES) * TB);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * FA_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int nk = (p.S + FA_ROWS - 1) / FA_ROWS;
-  const bf16* kb = p.k.at(b, h);
-  const bf16* vb = p.v.at(b, h);
-  const float* brow = p.bias != nullptr ? p.bias + (long long)b * p.S : nullptr;
-
-  // step j < nk is sweep 1 at key tile j (K and bias), step j >= nk sweep 2
-  // at key tile j - nk (K, V and bias); step j goes to ring stage j % 2, one
-  // commit group (empty past the last step)
-  auto stage = [&](int j) {
-    if (j < 2 * nk) {
-      const int st = j % FA_STAGES, k0 = (j < nk ? j : j - nk) * FA_ROWS;
-      const uint32_t sk = sbase + (1 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sk, kb, p.k.ss, k0, p.S, tid);
-      if (j >= nk) sm90::load_tile<FA_THREADS>(sk + TB, vb, p.v.ss, k0, p.S, tid);
-      if (brow != nullptr) load_vec(bias_s + st * FA_ROWS, brow, k0, p.S, tid);
-    }
-    sm90::cp_async_commit();
-  };
-
-  sm90::load_tile<FA_THREADS>(sQ, p.q.at(b, h), p.q.ss, q0, p.S, tid);
-  stage(0);  // Q lands with the first step
-
-  float m[2] = {-INFINITY, -INFINITY};  // rows lrow, lrow + 8: this thread's max, then the row's
-  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
-  float o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-
-  for (int j = 0; j < 2 * nk; ++j) {
-    const int st = j % FA_STAGES, k0 = (j < nk ? j : j - nk) * FA_ROWS;
-    sm90::cp_async_wait_all();
-    __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
-    stage(j + 1);
-    const uint32_t sk = sbase + (1 + 2 * st) * TB;
-
-    float s[32];
-    sm90::wg_fence();
-    product_ss(s, sQ, sk);
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-    sm90::pin(s);
-    logits(s, bias_s + st * FA_ROWS, brow != nullptr, k0, p.S, p.scale, tig);
-
-    if (j < nk) {  // sweep 1: the row max
-#pragma unroll
-      for (int i = 0; i < 32; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
-      if (j == nk - 1) {
-        m[0] = quad_max(m[0]);
-        m[1] = quad_max(m[1]);
-      }
-      continue;
-    }
-    // sweep 2: p = exp(s - m) (exp(-inf) = 0 at keys past S), l += p, o += bf16(p).v
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = expf(s[i] - m[r]);
-      l[r] += s[i];
-    }
-    sm90::pin(o);
-    sm90::wg_fence();
-    product_rs(o, s, sk + TB);
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(o);
-  }
-
-  const int lrow = warp * 16 + g;  // block-local row of o[..0|1]; lrow + 8 of o[..2|3]
-  const int row[2] = {q0 + lrow, q0 + lrow + 8};
-  bf16* ob = p.o.at(b, h);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
-#pragma unroll
-  for (int nt = 0; nt < FA_D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < p.S)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row[r] * p.o.ss + col) =
-            pack_bf16(o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
-  }
-  if (tig == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < p.S) p.lse[((long long)b * p.H + h) * p.S + row[r]] = m[r] + logf(l[r]);
-  }
-}
-
-// ---------------------------------------------------------------- #6
-// The dkdv launch precedes the dq launch in this file as #9 precedes #8 in
-// flash_attention.cu (ptxas's allocation for one kernel can move with the
-// body of the one before it; PERF.md §6 records what each got).
-//
-// dkdv's dynamic shared memory: K and V of the block, then Q and dO of each
-// stage, then lse and delta (64 floats each) of each stage.
-constexpr int DKDV_SMEM = 1024 + (2 + 2 * FA_STAGES) * TB + FA_STAGES * 2 * FA_ROWS * 4;
-
-__global__ void __launch_bounds__(FA_THREADS, 2) fused_bwd_dkdv_kernel(FusedBwdArgs p) {
-  extern __shared__ __align__(16) uint8_t fa_smem[];
-  uint8_t* sp;
-  const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sK = sbase, sV = sbase + TB;  // stage st: Q at sbase + (2 + 2 st) TB, dO one tile later
-  float* vec_s = reinterpret_cast<float*>(sp + (2 + 2 * FA_STAGES) * TB);  // [stage][lse 64 | delta 64]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * FA_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int lkey = warp * 16 + g;  // block-local key of d[..0|1]; lkey + 8 of d[..2|3]
-  const int key[2] = {k0 + lkey, k0 + lkey + 8};
-  const long long lse0 = ((long long)b * p.H + h) * p.S;
-  const bf16* qb = p.q.at(b, h);
-  const bf16* dob = p.dout.at(b, h);
-  const int nq = (p.S + FA_ROWS - 1) / FA_ROWS;
-
-  // the bias of this thread's two keys (clamped: keys past S drop out below)
-  float bkey[2] = {0.f, 0.f};
-  if (p.bias != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) bkey[r] = p.bias[(long long)b * p.S + min(key[r], p.S - 1)];
-  }
-
-  // query step j's Q, dO, lse and delta into ring stage j % 2 (one commit
-  // group, empty past the last step)
-  auto stage = [&](int j) {
-    if (j < nq) {
-      const int st = j % FA_STAGES, qt = j * FA_ROWS;
-      const uint32_t sq = sbase + (2 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sq, qb, p.q.ss, qt, p.S, tid);
-      sm90::load_tile<FA_THREADS>(sq + TB, dob, p.dout.ss, qt, p.S, tid);
-      load_vec(vec_s + st * 2 * FA_ROWS, p.lse + lse0, qt, p.S, tid);
-      load_vec(vec_s + st * 2 * FA_ROWS + FA_ROWS, p.delta + lse0, qt, p.S, tid);
-    }
-    sm90::cp_async_commit();
-  };
-
-  sm90::load_tile<FA_THREADS>(sK, p.k.at(b, h), p.k.ss, k0, p.S, tid);
-  sm90::load_tile<FA_THREADS>(sV, p.v.at(b, h), p.v.ss, k0, p.S, tid);
-  stage(0);  // K and V land with the first step
-
-  float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-
-  for (int j = 0; j < nq; ++j) {
-    const int st = j % FA_STAGES, qt = j * FA_ROWS;
-    sm90::cp_async_wait_all();
-    __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
-    stage(j + 1);
-    const uint32_t sq = sbase + (2 + 2 * st) * TB, so = sq + TB;
-
-    // s^T = K.Q^T and dp^T = V.dO^T: rows = the block's 64 keys, columns = 64 queries
-    float s[32], dp[32];
-    sm90::wg_fence();
-    product_ss(s, sK, sq);
-    product_ss(dp, sV, so);
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-    sm90::pin(s);
-    sm90::pin(dp);
-
-    // p^T and ds^T in place; queries past S and keys past S give exactly 0
-    const float* lse_s = vec_s + st * 2 * FA_ROWS;
-    const float* dl_s = lse_s + FA_ROWS;
-#pragma unroll
-    for (int nt = 0; nt < FA_ROWS / 8; ++nt) {
-      const int qi = nt * 8 + tig * 2;  // step-local query of d[nt * 4 + 0|2]
-      const float2 lq = *reinterpret_cast<const float2*>(lse_s + qi);
-      const float2 dq = *reinterpret_cast<const float2*>(dl_s + qi);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = e & 1;
-        float pr = 0.f, ds = 0.f;
-        if (qt + qi + c < p.S && key[r] < p.S) {
-          const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), bkey[r]);
-          pr = expf(x - (c ? lq.y : lq.x));
-          ds = pr * (dp[nt * 4 + e] - (c ? dq.y : dq.x));
-        }
-        s[nt * 4 + e] = pr;
-        dp[nt * 4 + e] = ds;
-      }
-    }
-
-    // dv += bf16(p^T).dO and dk += bf16(ds^T).q, dO and q from their natural tiles
-    sm90::pin(dk);
-    sm90::pin(dv);
-    sm90::wg_fence();
-    product_rs(dv, s, so);
-    product_rs(dk, dp, sq);
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(dk);
-    sm90::pin(dv);
-  }
-
-  bf16* dkb = p.dk.at(b, h);
-  bf16* dvb = p.dv.at(b, h);
-#pragma unroll
-  for (int nt = 0; nt < FA_D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (key[r] < p.S) {
-        *reinterpret_cast<uint32_t*>(dvb + (long long)key[r] * p.dv.ss + col) =
-            pack_bf16(dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dkb + (long long)key[r] * p.dk.ss + col) =
-            pack_bf16(dk[nt * 4 + 2 * r] * p.scale, dk[nt * 4 + 2 * r + 1] * p.scale);
-      }
-  }
-}
-
-// dq's dynamic shared memory: Q and dO of the block, then K and V of each
-// stage, then 64 bias floats of each stage, then the block's 64 deltas.
-constexpr int DQ_SMEM = 1024 + (2 + 2 * FA_STAGES) * TB + (FA_STAGES + 1) * FA_ROWS * 4;
-
-__global__ void __launch_bounds__(FA_THREADS, 4) fused_bwd_dq_kernel(FusedBwdArgs p) {
-  extern __shared__ __align__(16) uint8_t fa_smem[];
-  uint8_t* sp;
-  const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sQ = sbase, sO = sbase + TB;  // stage st: K at sbase + (2 + 2 st) TB, V one tile later
-  float* bias_s = reinterpret_cast<float*>(sp + (2 + 2 * FA_STAGES) * TB);
-  float* delta_s = bias_s + FA_STAGES * FA_ROWS;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * FA_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int lrow = warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
-  const int row[2] = {q0 + lrow, q0 + lrow + 8};
-  const long long lse0 = ((long long)b * p.H + h) * p.S;
-  const bf16* kb = p.k.at(b, h);
-  const bf16* vb = p.v.at(b, h);
-  const bf16* dob = p.dout.at(b, h);
-  const float* brow = p.bias != nullptr ? p.bias + (long long)b * p.S : nullptr;
-  const int nk = (p.S + FA_ROWS - 1) / FA_ROWS;
-
-  // key step j's K, V and bias into ring stage j % 2 (one commit group, empty
-  // past the last step)
-  auto stage = [&](int j) {
-    if (j < nk) {
-      const int st = j % FA_STAGES, k0 = j * FA_ROWS;
-      const uint32_t sk = sbase + (2 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sk, kb, p.k.ss, k0, p.S, tid);
-      sm90::load_tile<FA_THREADS>(sk + TB, vb, p.v.ss, k0, p.S, tid);
-      if (brow != nullptr) load_vec(bias_s + st * FA_ROWS, brow, k0, p.S, tid);
-    }
-    sm90::cp_async_commit();
-  };
-
-  sm90::load_tile<FA_THREADS>(sQ, p.q.at(b, h), p.q.ss, q0, p.S, tid);
-  sm90::load_tile<FA_THREADS>(sO, dob, p.dout.ss, q0, p.S, tid);
-  stage(0);  // Q and dO land with the first step
-
-  // delta = rowsum(dO * o) in fp32 while they land: two threads a row, 32
-  // columns each, from device memory; written to the scratch for the dkdv launch
-  {
-    const int r = tid >> 1, c0 = (tid & 1) * 32, q = q0 + r;
-    float acc = 0.f;
-    if (q < p.S) {
-      const bf16* dr = dob + (long long)q * p.dout.ss + c0;
-      const bf16* orow = p.ctx.at(b, h) + (long long)q * p.ctx.ss + c0;
-#pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        const uint4 dv4 = *reinterpret_cast<const uint4*>(dr + c);
-        const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + c);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv4);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov4);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) acc += __bfloat162float(de[t]) * __bfloat162float(oe[t]);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((tid & 1) == 0) {
-      delta_s[r] = acc;
-      if (q < p.S) p.delta[lse0 + q] = acc;
-    }
-  }
-  __syncthreads();
-
-  // lse and delta of this thread's two rows (lse clamped: rows past S drop out below)
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = p.lse[lse0 + min(row[r], p.S - 1)];
-    dl_r[r] = delta_s[lrow + 8 * r];
-  }
-
-  float dq[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    const int st = j % FA_STAGES, k0 = j * FA_ROWS;
-    sm90::cp_async_wait_all();
-    __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
-    stage(j + 1);
-    const uint32_t sk = sbase + (2 + 2 * st) * TB;
-
-    // s = Q.K^T and dp = dO.V^T for the block's 64 rows x 64 keys
-    float s[32], dp[32];
-    sm90::wg_fence();
-    product_ss(s, sQ, sk);
-    product_ss(dp, sO, sk + TB);
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-    sm90::pin(s);
-    sm90::pin(dp);
-
-    // ds = p (dp - delta) in place of s; keys past S and rows past S give exactly 0
-    const float* bs = bias_s + st * FA_ROWS;
-#pragma unroll
-    for (int nt = 0; nt < FA_ROWS / 8; ++nt) {
-      const int c = nt * 8 + tig * 2;  // step-local key of d[nt * 4 + 0|2]
-      const float2 bv = brow != nullptr ? *reinterpret_cast<const float2*>(bs + c) : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float ds = 0.f;
-        if (k0 + c + (e & 1) < p.S && row[r] < p.S) {
-          const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), (e & 1) ? bv.y : bv.x);
-          const float pr = expf(x - lse_r[r]);
-          ds = pr * (dp[nt * 4 + e] - dl_r[r]);
-        }
-        s[nt * 4 + e] = ds;
-      }
-    }
-
-    // dq += bf16(ds).k, k from its natural [key][d] tile
-    sm90::pin(dq);
-    sm90::wg_fence();
-    product_rs(dq, s, sk);
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(dq);
-  }
-
-  bf16* dqb = p.dq.at(b, h);
-#pragma unroll
-  for (int nt = 0; nt < FA_D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < p.S)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)row[r] * p.dq.ss + col) =
-            pack_bf16(dq[nt * 4 + 2 * r] * p.scale, dq[nt * 4 + 2 * r + 1] * p.scale);
-  }
-}
-
-bool bad_sizes(int B, int H, int S) { return B < 1 || H < 1 || S < 1 || B > 65535 || H > 65535; }
 
 // the kernels' shared-memory limits, raised once per device (this library's own flags)
 int fwd_smem_done[64], dq_smem_done[64], dkdv_smem_done[64];
 
 // #5 over B batch elements on `st`; returns the CUDA error of the launch
 int launch_fused_fwd(const FusedFwdArgs& a, int B, cudaStream_t st) {
-  if (bad_sizes(B, a.H, a.S)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = sm90::allow_smem(fused_fwd_kernel, FWD_SMEM, fwd_smem_done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + FA_ROWS - 1) / FA_ROWS, a.H, B);
-  fused_fwd_kernel<<<grid, FA_THREADS, FWD_SMEM, st>>>(a);
-  return (int)cudaGetLastError();
+  return launch_fwd(fused_fwd_kernel, fwd_smem_done, a, B, st);
 }
 
 // #6's two launches on `st` (dq with delta, then dk/dv); returns the CUDA error
 int launch_fused_bwd(const FusedBwdArgs& a, int B, cudaStream_t st) {
-  if (bad_sizes(B, a.H, a.S)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = sm90::allow_smem(fused_bwd_dq_kernel, DQ_SMEM, dq_smem_done);
-  if (err == cudaSuccess) err = sm90::allow_smem(fused_bwd_dkdv_kernel, DKDV_SMEM, dkdv_smem_done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + FA_ROWS - 1) / FA_ROWS, a.H, B);
-  fused_bwd_dq_kernel<<<grid, FA_THREADS, DQ_SMEM, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fused_bwd_dkdv_kernel<<<grid, FA_THREADS, DKDV_SMEM, st>>>(a);
-  return (int)cudaGetLastError();
+  return launch_bwd(fused_bwd_dq_kernel, dq_smem_done, fused_bwd_dkdv_kernel, dkdv_smem_done, a, B, st);
 }
 
 }  // namespace

@@ -40,7 +40,8 @@
 //   4. g_p1 = bf16((g_f.W2) * gelu'(p1)) (GEMM epilogue), g_m = g_p1.W1;
 //   5. ln_bwd_rows_kernel: g_h = g_o + LN2_bwd(g_m), g_att = bf16(g_h);
 //   6. the attention backward of attn_bwd.cuh (shared with kernel #3) to dxln,
-//      LN1 written once as bf16(LN1(x)) by a row pass;
+//      LN1 written once as bf16(LN1(x)) by a row pass, the per-head part on
+//      attn_sm90.cuh's wgmma kernels (the code of #6; any S);
 //   7. ln_bwd_rows_kernel: dx = bf16(LN1_bwd(dxln) + g_h).
 // p1 (fp32, 145 MB at the training shape) goes through device memory: fusing
 // steps 2 and 4 so that it never does would recompute m.W1^T (56 GFLOP) to

@@ -10,7 +10,9 @@ b_up [d])`` in the flax layout, as in the JAX function.
 
 * :func:`adapter_fused_reference` — plain PyTorch, the JAX ``_reference``.
 * :func:`adapter_fused_cuda` — the hand-written kernel in
-  ``csrc/adapter_fused.cu`` (forward only; wgmma in a 4-CTA cluster).
+  ``csrc/adapter_fused.cu`` (forward only; wgmma in a 4-CTA cluster; any
+  bottleneck, walked in chunks of at most 128 columns, and any width that is
+  a multiple of 64).
 * :func:`fused_ensemble_adapter` — the autograd wrapper: forward through the
   kernel for a CUDA tensor (the plain version for a CPU tensor), backward by
   recomputing the plain version, which is the JAX contract
@@ -20,15 +22,16 @@ b_up [d])`` in the flax layout, as in the JAX function.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, ptr
+from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
 
 KERNEL = CudaKernel(
     "adapter_fused", "adapter_fused_fwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
 )
 
 Params = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -47,23 +50,28 @@ def adapter_fused_reference(h: torch.Tensor, params_a: Params, params_b: Params,
     return out.to(h.dtype)
 
 
-# The kernel's shapes: D a multiple of 64 up to 1024 (each rank of a 4-CTA
-# cluster takes D/4 of the K axis and of the output columns), R up to 128
-# (each adapter's bottleneck padded to 64-column atoms of its own, both in at
-# most 256 accumulator columns).  N is free.
-MAX_DIM, MAX_BOTTLENECK = 1024, 128
-
-
+# The kernel's shapes: D a multiple of 64 (each rank of a 4-CTA cluster takes
+# D/4 of the K axis and of the output columns, 16-column multiples), any
+# R >= 1 and any N.
 def takes(d: int, r: int) -> bool:
     """Whether the kernel takes width ``d`` and bottleneck ``r``."""
-    return d % 64 == 0 and 64 <= d <= MAX_DIM and 1 <= r <= MAX_BOTTLENECK
+    return d % 64 == 0 and d >= 64 and r >= 1
+
+
+@functools.cache
+def _workspace(n: int, d: int, r: int) -> int:
+    """Bytes of scratch the kernel needs: the up projection's fp32 sums
+    between the bottleneck's chunks, none for r <= 128."""
+    fn = load("adapter_fused").adapter_fused_workspace
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(n, d, r)
 
 
 def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
                        weight: float) -> torch.Tensor:
     """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params,
-    contiguous and 16-byte aligned; ``d`` a multiple of 64 up to
-    ``MAX_DIM``, ``r`` up to ``MAX_BOTTLENECK``.  Raises on anything else."""
+    contiguous and 16-byte aligned; ``d`` a multiple of 64 (at least 64), any
+    ``r``.  Raises on anything else, before any launch."""
     if not h.is_cuda:
         raise ValueError("adapter_fused_cuda: h must be a CUDA tensor")
     d = h.shape[-1]
@@ -80,15 +88,18 @@ def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
         if tuple(tuple(t.shape) for t in params) != shapes:
             raise ValueError(f"adapter_fused_cuda: params must have shapes {shapes}")
     if not takes(d, r):
-        raise ValueError(f"adapter_fused_cuda: width {d} (a multiple of 64 in [64, {MAX_DIM}]) or "
-                         f"bottleneck {r} (in [1, {MAX_BOTTLENECK}]) out of the kernel's range")
+        raise ValueError(f"adapter_fused_cuda: width {d} (a multiple of 64, at least 64) or "
+                         f"bottleneck {r} (at least 1) out of the kernel's range")
     flat = h.reshape(-1, d)
     out = torch.empty_like(flat)
     if flat.shape[0] == 0:
         return out.reshape(h.shape)
+    n = flat.shape[0]
+    size = _workspace(n, d, r)
+    ws = torch.empty(size, dtype=torch.uint8, device=h.device) if size else None
     KERNEL.launch(
-        ptr(flat), *(ptr(t) for t in params_a), *(ptr(t) for t in params_b), ptr(out),
-        flat.shape[0], d, r, float(weight),
+        ptr(flat), *(ptr(t) for t in params_a), *(ptr(t) for t in params_b), ptr(out), ptr(ws),
+        n, d, r, float(weight),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     return out.reshape(h.shape)

@@ -20,7 +20,9 @@ Two implementations of each:
   against them.
 * :func:`attn_block_cuda` / :func:`attn_block_bwd_cuda` — the hand-written
   kernels in ``csrc/attn_block.cu`` (the backward's attention part is
-  ``csrc/attn_bwd.cuh``, shared with the whole-layer backward).
+  ``csrc/attn_bwd.cuh``, shared with the whole-layer backward; the attention
+  cores both ways are ``csrc/attn_sm90.cuh``'s wgmma kernels, which #5 and
+  #6 run too): any S >= 1.
 
 :func:`attn_block` is differentiable with the JAX custom_vjp's contract and
 picks by device only: a CPU tensor takes the plain versions, a CUDA tensor
@@ -56,14 +58,6 @@ HEAD_DIM = 64
 WIDTH_MULTIPLE = 128
 # Longest padded S at which the backward keeps LN1 fused (attn_block.py:358).
 LN_BWD_FUSED_MAX_S = 448
-
-
-@functools.cache
-def _max_seq() -> int:
-    """Longest S whose fp32 logits tile fits a block's shared memory."""
-    fn = load("attn_block").attn_block_max_seq
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
 
 
 def _key_bias(bias: Optional[torch.Tensor], b: int, s: int) -> Optional[torch.Tensor]:
@@ -171,7 +165,8 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
 
     Takes bf16 ``x [B, S, Dm]`` and weights ``[Dm, Dm]``, fp32 ``bqkv [3, Dm]``,
     ``bo [1, Dm]``, ``gb [2, Dm]`` (with ``ln_eps``) and ``bias``; requires
-    ``Dm / num_heads == 64`` and ``Dm % 128 == 0``.  Raises on anything else."""
+    ``Dm / num_heads == 64`` and ``Dm % 128 == 0``; any S >= 1.  Raises on
+    anything else."""
     fn = "attn_block_cuda"
     if x.dim() != 3:
         raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
@@ -190,9 +185,8 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
     if brow is not None:
         brow = brow.contiguous()
         check_cuda_arg(fn, "bias", brow, torch.float32, (b, s))
-    max_s = _max_seq()
-    if s > max_s or s < 1:
-        raise ValueError(f"attn_block_cuda: sequence length {s} outside [1, {max_s}]")
+    if s < 1:
+        raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
         scale = HEAD_DIM ** -0.5
     qkv = torch.empty((3, b * s, dm), dtype=torch.bfloat16, device=x.device)
@@ -300,9 +294,8 @@ def attn_block_bwd_cuda(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_head
     if brow is not None:
         brow = brow.contiguous()
         check_cuda_arg(fn, "bias", brow, torch.float32, (b, s))
-    max_s = _max_seq()
-    if s > max_s or s < 1:
-        raise ValueError(f"{fn}: sequence length {s} outside [1, {max_s}]")
+    if s < 1:
+        raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
         scale = HEAD_DIM ** -0.5
     ws = torch.empty(_bwd_workspace(b, s, dm, num_heads, gb is not None), dtype=torch.uint8,

@@ -8,7 +8,8 @@ The profiler sees a kernel as one span.  This script copies
 phase boundaries of ``adapter_fused.cu`` (thread 0 of CTAs 0, 3, 4 and the
 last one writes them to a ``__device__`` array that an extra C entry point
 reads back), builds the copy with the package's nvcc flags, runs it at the
-serving batch (N = 16 * 281 rows) and the B=1 bucket (N = 281), R = 48, and
+serving batch (N = 16 * 281 rows) and the B=1 bucket (N = 281), R = 48 (one
+chunk of the bottleneck, so no scratch), and
 prints each CTA's cycles since its start at every stamp:
 
     issue   the biases staged and the first two k-tiles' copies issued
@@ -38,13 +39,13 @@ sys.path.insert(0, str(REPO))
 # (phase, source line the stamp goes after (+) or before (-))
 ANCHORS = (
     ("start", "+", "  const int k0 = rank * L.KS;  // this rank's K slice of GEMM1 and its output columns of GEMM2\n"),
-    ("issue", "+", "    if (tid + j * AD_THREADS < 2 * L.KS) bu_s[tid + j * AD_THREADS] = buv[j];\n"),
-    ("gemm1", "-", "  // The partial in region B"),
-    ("sync1", "+", "  cluster_sync();  // every rank's partial is written\n"),
-    ("rows", "-", "  asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");  // the parts, visible"),
-    ("parts", "+", "  wait_phase(bar_parts, 0);\n"),
-    ("ch", "+", "    stage_wu(ch + 2);\n"),
-    ("end", "-", "  // the copies to the other ranks have read"),
+    ("issue", "+", "    for (int j = 0; j < BD_PER; ++j) bd_s[tid + j * AD_THREADS] = bdv[j];\n"),
+    ("gemm1", "-", "    // The partial in region B"),
+    ("sync1", "+", "    cluster_sync();  // every rank's partial is written\n"),
+    ("rows", "-", "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");  // the parts, visible"),
+    ("parts", "+", "    wait_phase(bar_parts, c & 1);\n"),
+    ("ch", "+", "      stage_wu(ch + 2);\n"),
+    ("end", "-", "  // the copies to the other ranks have read this rank's tiles"),
 )
 PHASES = ("start", "issue", "gemm1", "sync1", "rows", "parts", "ch0", "ch1", "ch2", "end")
 CTAS = 4
@@ -111,7 +112,7 @@ def main(argv=None) -> int:
         out = torch.empty_like(h)
         for _ in range(3):  # the last call's stamps are read
             err = fn(h.data_ptr(), *(t.data_ptr() for t in pa), *(t.data_ptr() for t in pb), out.data_ptr(),
-                     n, cs.DM, cs.R, w, torch.cuda.current_stream().cuda_stream)
+                     None, n, cs.DM, cs.R, w, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"adapter_fused_fwd failed: CUDA error {err}")
         torch.cuda.synchronize()

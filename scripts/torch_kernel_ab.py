@@ -19,7 +19,9 @@ other, this, this, other:
 * #5 and #6, the whole-sequence attention forward and backward (a [B, 1, 1,
   S] padding bias), at the training shape and the serving canvas;
 * #2, the DAT ensemble-adapter epilogue, at the serving batch (N = 16 * 281
-  rows) and the B=1 bucket (N = 281).
+  rows) and the B=1 bucket (N = 281).  Its C entry point takes a scratch
+  pointer and exports ``adapter_fused_workspace``: the other tree must have
+  both (a tree that does not cannot be compared here).
 
 #2 is the kernel the current change redesigned (``adapter_fused.cu`` on
 wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not
@@ -92,7 +94,7 @@ def use(libs):
                    fa.KERNEL, fa.KERNEL_BWD, af.KERNEL):
         kernel._fn = None
     # the workspace sizes and layouts are the tree's own
-    for cached in (ab._bwd_workspace, ab._max_seq, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
+    for cached in (ab._bwd_workspace, af._workspace, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
         cached.cache_clear()
 
 

@@ -20,11 +20,25 @@ def _params(rng, d=32, r=8):
     return [(rng.randn(*shape) * 0.1).astype(np.float32) for shape in ((d, r), (r,), (r, d), (d,))]
 
 
-@pytest.mark.parametrize("shape", [(2, 10, 32), (3, 32), (1, 300, 32)])
-def test_forward_matches_jax_kernel(shape):
+# h's shape (the last axis is d) and the bottleneck r: the tiny cases, then
+# bottlenecks past 128 (the CUDA kernel walks them in chunks) and widths past
+# 1024 at the sizes the card runs them.
+FORWARD_CASES = [
+    pytest.param((2, 10, 32), 8, id="shape0"),
+    pytest.param((3, 32), 8, id="shape1"),
+    pytest.param((1, 300, 32), 8, id="shape2"),
+    pytest.param((5, 768), 192, id="r192"),
+    pytest.param((5, 768), 384, id="r384"),
+    pytest.param((3, 1280), 80, id="d1280"),
+    pytest.param((3, 2048), 128, id="d2048"),
+]
+
+
+@pytest.mark.parametrize("shape,r", FORWARD_CASES)
+def test_forward_matches_jax_kernel(shape, r):
     rng = np.random.RandomState(len(shape) + shape[0])
     h = rng.randn(*shape).astype(np.float32)
-    pa, pb = _params(rng), _params(rng)
+    pa, pb = _params(rng, shape[-1], r), _params(rng, shape[-1], r)
     want = jax_fused(jnp.asarray(h), tuple(map(jnp.asarray, pa)), tuple(map(jnp.asarray, pb)),
                      0.5, True)
     got = af.fused_ensemble_adapter(torch.from_numpy(h), [torch.from_numpy(p) for p in pa],
@@ -55,20 +69,30 @@ def test_gradients_match_jax():
 
 # ---------------------------------------------------------------------------
 # The arithmetic of the CUDA kernel (csrc/adapter_fused.cu), emulated in plain
-# torch: the down projection as four K-slice partials (one per CTA of the
-# cluster) summed in rank order, bias and ReLU in fp32, the ReLU output split
-# into bf16 parts, each adapter's up projection accumulated in fp32 from the
-# bf16 x bf16 products of the parts, then the fp32 mix rounded once to bf16.
+# torch: the bottleneck walked in chunks of one width (at most 128 columns),
+# for each chunk the down projection as four K-slice partials (one per CTA of
+# the cluster) summed in rank order, bias and ReLU in fp32, the ReLU output
+# split into bf16 parts, each adapter's up projection accumulated in fp32 from
+# the bf16 x bf16 products of the parts (the small parts first), each chunk's
+# sums added to the chunks' before; then the fp32 mix rounded once to bf16.
 # Held against the JAX kernel in interpret mode within the chip's limit: one
 # bf16 ulp, 2^-7 |ref| + 1e-6.
 
 D_FULL, R_FULL = 768, 48
 
 
+def _chunk_width(r):
+    """The kernel's chunk width: as few chunks as take at most 128 columns,
+    all of one width, a multiple of 16 (adapter_fused.cu::chunk_width)."""
+    n = -(-r // 128)
+    return -(-(-(-r // n)) // 16) * 16
+
+
 def _emulate_kernel(h, params_a, params_b, weight, parts=3):
     bf, f32 = torch.bfloat16, torch.float32
     hf = h.to(f32)
     ks = h.shape[-1] // 4
+    rc = _chunk_width(params_a[0].shape[1])
 
     def down(wd, bd):
         wdf = wd.to(f32)
@@ -87,9 +111,13 @@ def _emulate_kernel(h, params_a, params_b, weight, parts=3):
         return out
 
     def branch(wd, bd, wu, bu):
-        acc = torch.zeros(h.shape[0], wu.shape[1], dtype=f32)
-        for piece in split(down(wd, bd)):
-            acc = acc + piece @ wu.to(f32)
+        acc = None
+        for c0 in range(0, wd.shape[1], rc):  # the chunks in order
+            cols = slice(c0, c0 + rc)
+            part = torch.zeros(h.shape[0], wu.shape[1], dtype=f32)
+            for piece in reversed(split(down(wd[:, cols], bd[cols]))):  # lo, mid, hi
+                part = part + piece @ wu[cols].to(f32)
+            acc = part if acc is None else acc + part
         return acc + bu.to(f32)
 
     a, b = branch(*params_a), branch(*params_b)
@@ -137,13 +165,18 @@ def _probe_case():
 
 
 def test_kernel_rounding_design_matches_jax_kernel_at_full_width():
-    rng = np.random.RandomState(7)
-    h, pa, pb = _bf16_case(rng, 300, D_FULL, R_FULL)
-    want = _jax_bf16(h, pa, pb, 0.5)
-    got = _emulate_kernel(h, pa, pb, 0.5).float().numpy()
-    limit = 2.0 ** -7 * np.abs(want) + 1e-6
-    assert np.isfinite(got).all()
-    assert (np.abs(got - want) <= limit).all(), np.abs(got - want).max()
+    """At the serving bottleneck (one chunk) and at a DAT ensemble's
+    reduction 4, R=192 (two chunks of 96, the up projection's sums carried
+    from the first to the second)."""
+    assert [_chunk_width(r) for r in (48, 128, 129, 192, 196, 384)] == [48, 128, 80, 96, 112, 128]
+    for r, seed in ((R_FULL, 7), (192, 8)):
+        rng = np.random.RandomState(seed)
+        h, pa, pb = _bf16_case(rng, 300, D_FULL, r)
+        want = _jax_bf16(h, pa, pb, 0.5)
+        got = _emulate_kernel(h, pa, pb, 0.5).float().numpy()
+        limit = 2.0 ** -7 * np.abs(want) + 1e-6
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= limit).all(), (r, np.abs(got - want).max())
 
 
 @pytest.mark.parametrize("parts", [3, 2])

@@ -34,10 +34,11 @@ def _inputs(seed, b, s, dm=32):
 
 
 @pytest.mark.parametrize("fuse_ln", [False, True])
-@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (3, 17), (1, 127), (1, 129)])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (3, 17), (1, 127), (1, 129), (1, 769), (1, 1030)])
 def test_reference_matches_jax_kernel(b, s, fuse_ln):
     """B=1 at S=127 and 129 mirrors the card's row counts on either side of
-    the GEMM's 128-row tile."""
+    the GEMM's 128-row tile; S=769 and 1030 lie past the 768 keys that #1's
+    first CUDA core held in shared memory (JAX's kernel has no such cap)."""
     inp = _inputs(b * 100 + s, b, s)
     heads, eps = 4, 1e-12
     gb = inp["gb"] if fuse_ln else None
@@ -103,12 +104,14 @@ def test_dispatch_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("fuse_ln", [False, True])
-@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (1, 127), (1, 129)])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 21), (1, 127), (1, 129), (1, 769), (1, 1030)])
 def test_backward_dx_matches_jax_vjp(b, s, fuse_ln):
     """Kernel #3's plain version through the port's autograd wrapper: dx
     real, every other input without a gradient (the JAX contract returns
     zeros there, attn_block.py:416-419).  B=1 at S=127 and 129 mirrors the
-    card's row counts on either side of the GEMM's 128-row tile."""
+    card's row counts on either side of the GEMM's 128-row tile; S=769 and
+    1030 lie past the 768 keys of #3's first CUDA core (with LN1 fused, JAX
+    takes it outside the kernel there, and so does the port)."""
     inp = _inputs(b * 10 + s + 7, b, s)
     heads, eps = 4, 1e-12
     gb = inp["gb"] if fuse_ln else None

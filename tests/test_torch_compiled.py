@@ -316,10 +316,13 @@ def test_albef_dropout_through_the_plumbing_is_a_function_of_the_state(weights):
 @pytest.mark.parametrize("r", [8, 16, 48, 64, 96, 128, 192])
 def test_gates_route_bottlenecks_the_kernels_do_not_take(r, caplog, monkeypatch):
     """#4's bottlenecks route a layer site the "block" way on the card,
-    logged once; #2's range is what its wrapper raises outside."""
+    logged once; #2 takes every bottleneck (past 128 in chunks) and every
+    width that is a multiple of 64, and its wrapper raises outside that."""
     monkeypatch.setattr(tlayers, "_ROUTED", set())
     assert lb.takes_bottleneck(r) == (r in (16, 48, 64))
-    assert af.takes(768, r) == (r <= 128)
+    assert af.takes(768, r)
+    assert af.takes(1280, 80) and af.takes(2048, 128) and af.takes(64, 1)
+    assert not af.takes(800, 50) and not af.takes(0, 8) and not af.takes(768, 0)
     with caplog.at_level(logging.INFO, logger="feddat_tpu_torch"):
         for _ in range(2):
             assert tlayers.layer_route_takes(r, on_card=True) == lb.takes_bottleneck(r)
@@ -335,8 +338,9 @@ def test_gates_route_bottlenecks_the_kernels_do_not_take(r, caplog, monkeypatch)
 def test_block_gate_sends_long_sequences_down_the_composable_route(s, monkeypatch):
     """JAX's block gate (layers.py:163-173) has no sequence cap and neither
     has the port's: a block site at any S goes to #1/#3's wrapper, never down
-    the composable route.  On the card the wrapper raises past the kernels'
-    768; here its plain version runs the site, equal to the "auto" route."""
+    the composable route.  On the card the kernels take any S (their
+    attention cores keep no logits tile); here the wrapper's plain version
+    runs the site, equal to the "auto" route."""
     assert tlayers.attn_block_eligible("block", None, LoraSpec(), 0.0, True)
     assert not tlayers.attn_block_eligible("auto", None, LoraSpec(), 0.0, True)
     seen = []

@@ -197,9 +197,19 @@ def test_erf_poly_matches_exact_erf():
 def test_layer_block_past_448_matches_jax():
     """S=450 > LN_FWD_FUSED_MAX_S: the forward takes LN1 outside kernel #1
     (layer_block.py:357-376) while the backward re-derives it from x."""
+    _layer_block_long_case(450, 9)
+
+
+def test_layer_block_past_768_matches_jax():
+    """S=769, past the 768 keys that #1's and #4's first CUDA attention
+    cores held in shared memory; JAX's kernels have no such cap (its model
+    gate sends S > 592 the "block" way, the kernel itself takes any S)."""
+    _layer_block_long_case(769, 10)
+
+
+def _layer_block_long_case(s, seed):
     _, params, _, _ = _setup()
-    rng = np.random.RandomState(9)
-    s = 450
+    rng = np.random.RandomState(seed)
     x = jnp.asarray(rng.randn(1, s, D).astype(np.float32) * 0.3)
     weights, (w_a, w_b, use_b), _ = _kernel_args(params, "ensemble")
     gw = rng.randn(1, s, D).astype(np.float32)
