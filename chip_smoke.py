@@ -286,6 +286,33 @@ Phases, in this order:
             floor of one example's score).  Each rank holds half of every
             sharded kernel (bytes printed against tp=1), and #1-#9 launch no
             time on the path (no kernel partitions over the model axis).
+19. fp32  — the "block" and "layer" routes in float32 (#1-#4 take fp32, as
+            the TPU kernels run in the model's dtype), eagerly.  (a) Each
+            kernel alone in fp32 at full width, #1, #3 and #4 (one adapter)
+            at the training shape (B=64, S=185) and #2 at the serving shape
+            (B=16, S=281): on every output the kernel's largest error against
+            the plain version evaluated in float64 (its fp32 casts taken to
+            float64) at most 8x the plain fp32 version's (TF32 off) or 2^-20
+            of the output's largest magnitude; the same check on the kernel
+            run with its operands rounded to bf16 once must fail (#4's
+            references take the kernel's ReLU gate, so a gate flip within
+            rounding noise of 0 is not read as an error).  The patch
+            embedding (cuDNN) against float64 with cuDNN's TF32 at
+            PyTorch's default.  (b) #4 at bottlenecks 24, 96 and 192 in bf16
+            at B=64, S=185 under its bf16 limits.  (c) The slice's path in
+            fp32 at full width (ViLT-B/32 DAT): one fused DAT step on
+            "layer" (#1/#4 24 launches each) and one standard DAT step on
+            "block" with the fused ensemble (#1 36, #2 24, #3 22), each
+            against the plain fp32 path ("auto") on the same weights and
+            batch (each gradient set's relative Frobenius error at most
+            1e-4, losses within 1e-5 relative); one FederatedTrainer round
+            of 2 clients x 2 fused steps on "layer" with FedAvg and
+            evaluate_dat; one ViltVqaPredictor forward at B=16, S=281 on
+            "block" with fused LN (#1/#2 12 each), its top-1 answers against
+            the plain fp32 path's.  (d) Each fp32 kernel's device time, its
+            bound (operations at the TF32 rate or bytes), its plain version
+            and the library chain in fp32 with TF32 off; #4 in bf16 at
+            bottlenecks 96 and 192.  Prints the phase's seconds.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -577,11 +604,11 @@ def time_row(torch, label, kernel, plain, library, bound, library_name):
 
 
 # ----------------------------------------------------------------- inputs
-def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None):
-    """Attention-block inputs on the card: bf16 activations and weights, fp32
-    biases/LN, and a padding bias like the model's (text padding + masked
-    image patches at -10000; none when not ``masked``, as ALBEF's ViT has
-    none).  The biases are drawn at the scale of the projections they are
+def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None, dtype=None):
+    """Attention-block inputs on the card: bf16 (or ``dtype``) activations and
+    weights, fp32 biases/LN, and a padding bias like the model's (text
+    padding + masked image patches at -10000; none when not ``masked``, as
+    ALBEF's ViT has none).  The biases are drawn at the scale of the projections they are
     added to, so a dropped or misplaced bias moves the outputs far past the
     tolerances (bk only through lse: the softmax is shift-invariant per
     query)."""
@@ -590,8 +617,9 @@ def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None):
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
-    x = randn(b, s, DM, dtype=torch.bfloat16)
-    ws = [randn(DM, DM, std=0.04, dtype=torch.bfloat16) for _ in range(4)]
+    dt = dtype or torch.bfloat16
+    x = randn(b, s, DM, dtype=dt)
+    ws = [randn(DM, DM, std=0.04, dtype=dt) for _ in range(4)]
     bqkv, bo = randn(3, DM, std=1.0), randn(1, DM, std=1.0)
     gb = torch.stack([1.0 + randn(DM, std=0.1), randn(DM, std=0.1)]) if fuse_ln else None
     valid = torch.randint(max(1, s // 3), s + 1, (b, 1), generator=g, device="cuda")
@@ -601,14 +629,14 @@ def attn_inputs(torch, b, s, fuse_ln, seed, masked=True, bias=None):
     return (x, *ws, bqkv, bo, gb, bias, HEADS, 64 ** -0.5, 1e-12 if fuse_ln else None)
 
 
-def adapter_inputs(torch, n, seed, r=R, d=DM):
-    """Adapter inputs on the card at width ``d``, all bf16; the biases are
-    drawn at the scale of the products they are added to (down ~1.4 at
-    d = 768, up ~0.3 at r = 48), so a dropped bias shows."""
+def adapter_inputs(torch, n, seed, r=R, d=DM, dtype=None):
+    """Adapter inputs on the card at width ``d``, all bf16 (or ``dtype``); the
+    biases are drawn at the scale of the products they are added to (down
+    ~1.4 at d = 768, up ~0.3 at r = 48), so a dropped bias shows."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def p(*shape, std):
-        return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype or torch.bfloat16)
 
     h = p(n, d, std=1.0)
     pa = (p(d, r, std=0.05), p(r, std=1.0), p(r, d, std=0.05), p(d, std=0.5))
@@ -643,23 +671,31 @@ def adapter_probe_inputs(torch, n, r=R, b_units=(5, 6)):
 
 
 # ------------------------------------------------------------------ bounds
-def attn_block_bound(b, s, fuse_ln, masked=True):
+def tensor_peak(f32):
+    """The card's fastest rate for products of the element type's operands:
+    bf16 on the tensor cores, or 32-bit operands at the TF32 rate (no faster
+    way to multiply them exists on the card)."""
+    return PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS
+
+
+def attn_block_bound(b, s, fuse_ln, masked=True, f32=False):
     """Least time (ms) for one attention-block call and what bounds it.
 
-    The projections, q.k^T and P.v take bf16 operands (tensor cores); the
-    softmax and the LayerNorm are fp32 work on the CUDA cores.  The two pipes
-    run at once, so the operations' floor is the larger of their two times."""
-    m, d = b * s, DM // HEADS
+    The projections, q.k^T and P.v take bf16 operands (tensor cores; fp32
+    ones at the TF32 rate with ``f32``); the softmax and the LayerNorm are
+    fp32 work on the CUDA cores.  The two pipes run at once, so the
+    operations' floor is the larger of their two times."""
+    m, d, es = b * s, DM // HEADS, 4 if f32 else 2
     bf16_ops = 2 * m * DM * DM * 4 + 2 * 2 * b * HEADS * s * s * d  # 4 projections + QK^T + PV
     fp32_ops = b * HEADS * s * s * 6 + (m * DM * 8 if fuse_ln else 0)  # softmax (+ LN)
-    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
-    nbytes = (3 * m * DM * 2 + 4 * DM * DM * 2 + 4 * DM * 4 + (2 * DM * 4 if fuse_ln else 0)
+    t_ops = max(bf16_ops / tensor_peak(f32), fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (3 * m * DM * es + 4 * DM * DM * es + 4 * DM * 4 + (2 * DM * 4 if fuse_ln else 0)
               + (b * s * 4 if masked else 0) + b * HEADS * s * 4)  # x, out, ctx; weights; biases; mask; lse
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def adapter_bound(n, r=R, d=DM):
+def adapter_bound(n, r=R, d=DM, f32=False):
     """Least time (ms) for one ensemble-adapter call, what bounds it, and its
     operations.
 
@@ -670,12 +706,14 @@ def adapter_bound(n, r=R, d=DM):
     2^-24 |x|), so they are three bf16 products with fp32 sums, also at the
     bf16 rate.  The bias, ReLU, split and mix are fp32 work on the CUDA
     cores; the pipes overlap, so the floor is the larger time.  Bytes: h in,
-    the mix out, both adapters' weights and biases once each."""
+    the mix out, both adapters' weights and biases once each.  With ``f32``
+    every operand is fp32: the two projections at the TF32 rate."""
     mm = n * 2 * 2 * d * r  # one projection of both adapters
-    bf16_ops = mm + 3 * mm
+    bf16_ops = 2 * mm if f32 else mm + 3 * mm
     fp32_ops = n * (2 * 2 * r + 4 * 2 * r + 4 * d)  # bias + relu, split, bias + mix
-    nbytes = 2 * n * d * 2 + 2 * (2 * d * r + r + d) * 2
-    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
+    es = 4 if f32 else 2
+    nbytes = 2 * n * d * es + 2 * (2 * d * r + r + d) * es
+    t_ops = max(bf16_ops / tensor_peak(f32), fp32_ops / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
@@ -690,22 +728,23 @@ def attn_bwd_ops(b, s):
     return 14 * m * DM * DM + 10 * b * HEADS * s * s * d
 
 
-def attn_bwd_bound(b, s, fuse_ln, masked=True):
+def attn_bwd_bound(b, s, fuse_ln, masked=True, f32=False):
     """Least time (ms) for one #3 call and what bounds it: the bf16 products
-    above on the tensor cores beside the fp32 softmax recompute and LN
-    forward/backward on the CUDA cores (the pipes overlap); bytes: x, ctx, g
-    and dx once each, the four weights, biases, mask, lse."""
-    m = b * s
+    above on the tensor cores (fp32 ones at the TF32 rate with ``f32``)
+    beside the fp32 softmax recompute and LN forward/backward on the CUDA
+    cores (the pipes overlap); bytes: x, ctx, g and dx once each, the four
+    weights, biases, mask, lse."""
+    m, es = b * s, 4 if f32 else 2
     bf16_ops = attn_bwd_ops(b, s)
     fp32_ops = b * HEADS * s * s * 8 + (m * DM * 16 if fuse_ln else 0)
-    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
-    nbytes = (4 * m * DM * 2 + 4 * DM * DM * 2 + 3 * DM * 4 + 2 * DM * 4 + (b * s * 4 if masked else 0)
+    t_ops = max(bf16_ops / tensor_peak(f32), fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (4 * m * DM * es + 4 * DM * DM * es + 3 * DM * 4 + 2 * DM * 4 + (b * s * 4 if masked else 0)
               + b * HEADS * s * 4)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True):
+def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True, r=R, f32=False):
     """Least time (ms) for one #4 call and what bounds it.  bf16 operands
     (tensor cores): the FFN recompute and its backward (4 products of M Dm F),
     the attention backward above, and the adapter products — all of bf16
@@ -713,14 +752,16 @@ def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True):
     member, dWu and dWd: (6 if ensemble else 3) + 2 products of M Dm r).  fp32
     on the CUDA cores, overlapping: GELU and its derivative over M F, the
     softmax recompute, two LayerNorms forward and backward.  Bytes: x, aout,
-    ctx, g and dx once each, every weight, lse."""
-    m, r = b * s, R
+    ctx, g and dx once each, every weight, lse.  Adapters of bottleneck
+    ``r``; with ``f32`` every operand is fp32 and the products run at the
+    TF32 rate."""
+    m, es = b * s, 4 if f32 else 2
     adapter = ((6 if use_b else 3) + 2) * 2 * m * DM * r
     bf16_ops = 4 * 2 * m * DM * ffn + attn_bwd_ops(b, s) + adapter
     fp32_ops = m * ffn * 40 + b * HEADS * s * s * 8 + m * DM * 32
-    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
-    nbytes = (5 * m * DM * 2 + (4 * DM * DM + 2 * DM * ffn) * 2 + (3 * DM + ffn + 6 * DM) * 4
-              + 2 * (2 * DM * r * 2 + (r + DM) * 4) + (b * s * 4 if masked else 0) + b * HEADS * s * 4)
+    t_ops = max(bf16_ops / tensor_peak(f32), fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (5 * m * DM * es + (4 * DM * DM + 2 * DM * ffn) * es + (3 * DM + ffn + 6 * DM) * 4
+              + 2 * (2 * DM * r * es + (r + DM) * 4) + (b * s * 4 if masked else 0) + b * HEADS * s * 4)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
@@ -828,30 +869,32 @@ def attn_parity(torch, b, s, fuse_ln, seed, masked=True, bias=None):
 
 
 def attn_qkv_plane(torch, args):
-    """#1's q/k/v plane (the ``qkv`` scratch of the C entry point
-    ``attn_block_fwd``) against #3's recompute of it (the first 3 M Dm bf16 of
-    ``attn_block_bwd``'s workspace): one row pass for LN1 and one GEMM launch
-    on both sides, so they must be bitwise equal, and the backward's p =
-    exp(s - lse) is rebuilt from the forward's own logits."""
+    """#1's q/k/v plane (the first 3 M Dm bf16 of the C entry point
+    ``attn_block_fwd``'s workspace) against #3's recompute of it (the first
+    3 M Dm bf16 of ``attn_block_bwd``'s workspace): one row pass for LN1 and
+    one GEMM launch on both sides, so they must be bitwise equal, and the
+    backward's p = exp(s - lse) is rebuilt from the forward's own logits."""
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops._build import ptr
 
     x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = args
     b, s, dm = x.shape
     brow = None if bias is None else ab._key_bias(bias, b, s).contiguous()
-    qkv = torch.empty((3, b * s, dm), dtype=torch.bfloat16, device="cuda")
+    fws = torch.empty(ab._fwd_workspace(b, s, dm, 0), dtype=torch.uint8, device="cuda")
+    qkv = fws[: 3 * b * s * dm * 2].view(torch.bfloat16).view(3, b * s, dm)
     ctx, out = torch.empty_like(x), torch.empty_like(x)
     lse = torch.empty((b, heads, s), dtype=torch.float32, device="cuda")
-    ws = torch.empty(ab._bwd_workspace(b, s, dm, heads, gb is not None), dtype=torch.uint8, device="cuda")
+    ws = torch.empty(ab._bwd_workspace(b, s, dm, heads, gb is not None, 0), dtype=torch.uint8,
+                     device="cuda")
     g = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(s), device="cuda").bfloat16()
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     eps = float(ln_eps or 0.0)
     ab.KERNEL.launch(ptr(x), ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(bo), ptr(gb), ptr(brow),
-                     ptr(qkv), ptr(ctx), ptr(lse), ptr(out), b, s, dm, heads, float(scale), eps, stream)
+                     ptr(fws), ptr(ctx), ptr(lse), ptr(out), b, s, dm, heads, 0, float(scale), eps, stream)
     ab.KERNEL_BWD.launch(ptr(x), ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(gb), ptr(brow),
-                         ptr(ctx), ptr(lse), ptr(g), ptr(ws), ptr(dx), b, s, dm, heads, float(scale), eps,
-                         stream)
+                         ptr(ctx), ptr(lse), ptr(g), ptr(ws), ptr(dx), b, s, dm, heads, 0, float(scale),
+                         eps, stream)
     torch.cuda.synchronize()
     recomputed = ws[: qkv.numel() * 2].view(torch.bfloat16).view_as(qkv)
     same = torch.equal(qkv, recomputed)
@@ -923,16 +966,17 @@ def adapter_probe(torch, r=R, b_units=(5, 6)):
           "adapter_fused probe: the kernel drops bits of the ReLU output below bf16 hi + lo")
 
 
-def layer_weights(torch, seed, ffn=3072):
-    """Frozen layer weights and two adapters on the card: bf16 matrices, fp32
-    biases and LayerNorm rows drawn large (std 0.5-1) so that a dropped or
-    misplaced bias or LN parameter moves the outputs far past the tolerances."""
+def layer_weights(torch, seed, ffn=3072, r=R, dtype=None):
+    """Frozen layer weights and two adapters of bottleneck ``r`` on the card:
+    bf16 (or ``dtype``) matrices, fp32 biases and LayerNorm rows drawn large
+    (std 0.5-1) so that a dropped or misplaced bias or LN parameter moves the
+    outputs far past the tolerances."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     ln = lambda: torch.stack([1.0 + randn(DM, std=0.5), randn(DM, std=0.5)])  # noqa: E731
     frozen = dict(
         wq=randn(DM, DM, std=0.04, dtype=bf), wk=randn(DM, DM, std=0.04, dtype=bf),
@@ -941,7 +985,7 @@ def layer_weights(torch, seed, ffn=3072):
         w1=randn(ffn, DM, std=0.04, dtype=bf), b1=randn(1, ffn),
         w2=randn(DM, ffn, std=0.02, dtype=bf), b2=randn(1, DM, std=0.5),
     )
-    adapters = [(randn(DM, R, std=0.05, dtype=bf), randn(1, R), randn(R, DM, std=0.05, dtype=bf),
+    adapters = [(randn(DM, r, std=0.05, dtype=bf), randn(1, r), randn(r, DM, std=0.05, dtype=bf),
                  randn(1, DM, std=0.5)) for _ in range(2)]
     return frozen, adapters
 
@@ -953,16 +997,18 @@ def padding_bias(torch, b, s, seed):
     return ((keys >= valid).float() * -10000.0)[:, None, None, :]
 
 
-def layer_case(torch, b, s, use_b, seed, masked=True, bias=None):
+def layer_case(torch, b, s, use_b, seed, masked=True, bias=None, r=R, dtype=None):
     """Residuals of one layer's forward on the card (layer_fwd: kernel #1 +
     plain ops) and a cotangent g at std 1, so that lse and ctx are the ones
     the backward really sees; -> (args of layer_block_bwd_*, cfg).  No
-    padding bias when not ``masked``."""
+    padding bias when not ``masked``; adapters of bottleneck ``r``; bf16 or
+    ``dtype``."""
     from feddat_tpu_torch.ops import layer_block as lb
 
-    w, ((wda, bda, wua, bua), (wdb, bdb, wub, bub)) = layer_weights(torch, seed)
+    dt = dtype or torch.bfloat16
+    w, ((wda, bda, wua, bua), (wdb, bdb, wub, bub)) = layer_weights(torch, seed, r=r, dtype=dt)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    x = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+    x = torch.randn(b, s, DM, generator=g, device="cuda").to(dt)
     if bias is None:
         bias = padding_bias(torch, b, s, seed) if masked else None
     cfg = (HEADS, 64 ** -0.5, 1e-12, 1e-12, 0.5 if use_b else 1.0, 0.5 if use_b else 0.0, use_b)
@@ -970,20 +1016,20 @@ def layer_case(torch, b, s, use_b, seed, masked=True, bias=None):
         _, (_, ctx, lse, aout) = lb.layer_fwd(
             x, w["wq"], w["wk"], w["wv"], w["wo"], w["bqkv"], w["bo"], w["gb1"], w["gb2"],
             w["w1"], w["b1"], w["w2"], w["b2"], wda, bda, wua, bua, wdb, bdb, wub, bub, bias, *cfg)
-    gout = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+    gout = torch.randn(b, s, DM, generator=g, device="cuda").to(dt)
     args = (x, aout, ctx, lse, gout, bias, w["wq"], w["wk"], w["wv"], w["wo"], w["bqkv"],
             w["gb1"], w["gb2"], w["w1"], w["b1"], w["w2"], w["b2"],
             wda, bda, wua, bua, wdb, bdb, wub, bub)
     return args, cfg
 
 
-def attn_bwd_case(torch, b, s, fuse_ln, seed, masked=True):
+def attn_bwd_case(torch, b, s, fuse_ln, seed, masked=True, dtype=None):
     """Kernel #1's residuals on the card and a cotangent at std 1 ->
     args of attn_block_bwd_* (x, weights, bqkv, gb, bias, ctx, lse, g, ...)."""
     from feddat_tpu_torch.ops import attn_block as ab
 
-    x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = attn_inputs(torch, b, s, fuse_ln,
-                                                                             seed, masked)
+    x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps = attn_inputs(
+        torch, b, s, fuse_ln, seed, masked, dtype=dtype)
     if fuse_ln:  # LayerNorm rows drawn large, as for the layer
         gen = torch.Generator(device="cuda").manual_seed(seed + 2)
         gb = torch.stack([1.0 + 0.5 * torch.randn(DM, generator=gen, device="cuda"),
@@ -991,7 +1037,7 @@ def attn_bwd_case(torch, b, s, fuse_ln, seed, masked=True):
     with torch.no_grad():
         _, ctx, lse = ab.attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, heads, scale, ln_eps)
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    gout = torch.randn(b, s, DM, generator=gen, device="cuda").bfloat16()
+    gout = torch.randn(b, s, DM, generator=gen, device="cuda").to(x.dtype)
     return (x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout, heads, scale, ln_eps)
 
 
@@ -1061,16 +1107,18 @@ def attn_bwd_parity(torch, b, s, fuse_ln, seed, masked=True):
     return err
 
 
-def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None):
+def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None, r=R):
     """#4 against its plain version, stage by stage and end to end (see the
     limits above); prints the o elements and gate entries where the kernel
     and the plain version differ, and p1's deviation beside cuBLAS's bf16
     tensor-core GEMM's.  The adapter gradients must be bitwise the same on a
-    second call."""
+    second call.  Adapters of bottleneck ``r`` (the kernel's stages hold the
+    padded bottleneck; its first ``r`` columns are the adapter's)."""
     from feddat_tpu_torch.ops import layer_block as lb
 
-    tag = f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{mask_tag(masked, bias)}"
-    args, cfg = layer_case(torch, b, s, use_b, seed, masked, bias)
+    tag = (f"parity layer_block_bwd B={b} S={s} ensemble={use_b}{mask_tag(masked, bias)}"
+           + ("" if r == R else f" R={r}"))
+    args, cfg = layer_case(torch, b, s, use_b, seed, masked, bias, r)
     (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = args
     heads, scale, eps1, eps2, w_a, w_b, _ = cfg
@@ -1096,7 +1144,7 @@ def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None):
         check(o_ulps <= lim["o_ulps"], f"layer_block_bwd o disagrees: {o_ulps} ulps")
 
         # step 3: the kernel's gate against down_a > 0 on its own o and on the plain o
-        gate = st["relu_a"] > 0
+        gate = st["relu_a"][:, :r] > 0
         down_k = o_k.float() @ wda.float() + bda[0]
         down_r = o.float() @ wda.float() + bda[0]
         flips = gate != (down_k > 0)
@@ -1142,7 +1190,7 @@ def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None):
         planted = {
             "dwda x 0.9": rel_norm(0.9 * got[1], want[1]),
             f"dwda without rows 0-{n - 1}":
-                rel_norm(got[1] - o_k[:n].float().t() @ st["g_down_a"][:n].bfloat16().float(), want[1]),
+                rel_norm(got[1] - o_k[:n].float().t() @ st["g_down_a"][:n, :r].bfloat16().float(), want[1]),
             f"dbua without rows 0-{n - 1}": rel_norm(got[4] - g_delta[:n].float().sum(0), want[4]),
         }
         print(f"{tag} end to end, rel norm: " + ", ".join(f"{k} {v:.2e}" for k, v in e2e.items())
@@ -1720,7 +1768,8 @@ def synthetic_requests(n, seed):
     return imgs, qs
 
 
-def build_predictor(torch, seed, attn_impl, fused, state=None, canvas=CANVAS, reduction=16):
+def build_predictor(torch, seed, attn_impl, fused, state=None, canvas=CANVAS, reduction=16,
+                    dtype="bfloat16"):
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
     from feddat_tpu_torch.models import create_model
@@ -1728,7 +1777,7 @@ def build_predictor(torch, seed, attn_impl, fused, state=None, canvas=CANVAS, re
     from feddat_tpu_torch.serving import ViltVqaPredictor
 
     model, cfg = create_model(
-        "vilt", {"vqa": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, reduction, "bfloat16",
+        "vilt", {"vqa": TaskHeadSpec(num_labels=NUM_LABELS)}, PEFTMode.DAT, reduction, dtype,
         image_size=canvas, attn_impl=attn_impl, adapter_fused=fused, seed=seed,
     )
     check(cfg.fuse_ln and cfg.adapter.fused == fused, f"unexpected model config {cfg}")
@@ -1822,15 +1871,16 @@ NO_LAUNCHES = {"attn_block": 0, "adapter_fused": 0, "attn_block_bwd": 0, "layer_
 TRAIN_CLIENTS = ("c0", "c1")
 
 
-def build_trainer_model(torch, seed, attn_impl, state=None, dtype="bfloat16"):
+def build_trainer_model(torch, seed, attn_impl, state=None, dtype="bfloat16", fused=False):
     from feddat_tpu_torch.configs.core import PEFTMode
     from feddat_tpu_torch.models import create_model
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
 
     model, cfg = create_model(
         "vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS}, PEFTMode.DAT, 16,
-        dtype, image_size=TCANVAS, attn_impl=attn_impl, seed=seed if state is None else None)
-    check(cfg.fuse_ln and not cfg.adapter.fused and cfg.hidden_dropout == 0.0, f"unexpected {cfg}")
+        dtype, image_size=TCANVAS, attn_impl=attn_impl, adapter_fused=fused,
+        seed=seed if state is None else None)
+    check(cfg.fuse_ln and cfg.adapter.fused == fused and cfg.hidden_dropout == 0.0, f"unexpected {cfg}")
     if state is not None:
         model.load_state_dict(state)
     return model
@@ -2739,23 +2789,24 @@ def attention_chain(torch, b, s, fuse_ln):
         return t.view(b, s, HEADS, 64).transpose(1, 2)
 
     def attention(xr, gamma, wq, wk, wv, bqkv, bias):
-        xl = (F.layer_norm(xr, (DM,), gamma[0].bfloat16(), gamma[1].bfloat16(), 1e-12)
-              if fuse_ln else xr)
-        q, k, v = (heads(F.linear(xl, w, bqkv[i].bfloat16())) for i, w in enumerate((wq, wk, wv)))
-        mask = None if bias is None else bias.bfloat16()
+        dt = xr.dtype
+        xl = (F.layer_norm(xr, (DM,), gamma[0].to(dt), gamma[1].to(dt), 1e-12) if fuse_ln else xr)
+        q, k, v = (heads(F.linear(xl, w, bqkv[i].to(dt))) for i, w in enumerate((wq, wk, wv)))
+        mask = None if bias is None else bias.to(dt)
         att = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         return att.transpose(1, 2).reshape(b, s, DM)
 
     return attention
 
 
-def attn_bwd_row(torch, b, s, fuse_ln, seed, masked=True):
+def attn_bwd_row(torch, b, s, fuse_ln, seed, masked=True, dtype=None):
     """#3's time row at one shape: kernel, plain version, the library chain
     (the forward from x inside the timed call and autograd.grad through it)
-    and the bound -> (row, args, attention chain)."""
+    and the bound -> (row, args, attention chain).  bf16, or ``dtype``."""
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_bwd_case(torch, b, s, fuse_ln, seed, masked)
+    args = attn_bwd_case(torch, b, s, fuse_ln, seed, masked, dtype)
+    f32 = dtype == torch.float32
     x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, gout = args[:11]
     attention = attention_chain(torch, b, s, fuse_ln)
 
@@ -2766,33 +2817,36 @@ def attn_bwd_row(torch, b, s, fuse_ln, seed, masked=True):
             return torch.autograd.grad(attention(xr, gb, wq, wk, wv, bqkv, bias), [xr], dctx)
 
     row = time_row(
-        torch, f"attn_block_bwd B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'}",
+        torch, f"attn_block_bwd B={b} S={s} ln={fuse_ln}{'' if masked else ' unmasked'}"
+        + (" fp32" if f32 else ""),
         lambda: ab.attn_block_bwd_cuda(*args), lambda: ab.attn_block_bwd_reference(*args), chain3,
-        attn_bwd_bound(b, s, fuse_ln, masked), "the forward from x and autograd.grad through it")
+        attn_bwd_bound(b, s, fuse_ln, masked, f32), "the forward from x and autograd.grad through it")
     return row, args, attention
 
 
-def layer_bwd_row(torch, b, s, use_b, seed, masked=True):
+def layer_bwd_row(torch, b, s, use_b, seed, masked=True, r=R, dtype=None):
     """#4's time row at one shape, as :func:`attn_bwd_row` -> (row, args, cfg,
-    the layer's library forward)."""
+    the layer's library forward).  Adapters of bottleneck ``r``, bf16 or
+    ``dtype``."""
     import torch.nn.functional as F
 
     from feddat_tpu_torch.ops import layer_block as lb
 
-    largs, cfg = layer_case(torch, b, s, use_b, seed, masked)
+    largs, cfg = layer_case(torch, b, s, use_b, seed, masked, r=r, dtype=dtype)
+    f32 = dtype == torch.float32
     (x, aout, ctx, lse, gout, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
      wda, bda, wua, bua, wdb, bdb, wub, bub) = largs
     attention = attention_chain(torch, b, s, True)
     w_a, w_b = cfg[4], cfg[5]
 
     def layer(xr, pa):
+        dt = xr.dtype
         h = xr + F.linear(attention(xr, gb1, wq, wk, wv, bqkv, bias), wo)
-        mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].bfloat16(), gb2[1].bfloat16(), 1e-12), w1,
-                              b1[0].bfloat16()))
-        o = h + F.linear(mid, w2, b2[0].bfloat16())
+        mid = F.gelu(F.linear(F.layer_norm(h, (DM,), gb2[0].to(dt), gb2[1].to(dt), 1e-12), w1, b1[0].to(dt)))
+        o = h + F.linear(mid, w2, b2[0].to(dt))
 
         def adapter(wd, bd, wu, bu):
-            return F.linear(F.relu(F.linear(o, wd.t(), bd[0].bfloat16())), wu.t(), bu[0].bfloat16())
+            return F.linear(F.relu(F.linear(o, wd.t(), bd[0].to(dt))), wu.t(), bu[0].to(dt))
 
         out = o + w_a * adapter(*pa)
         return out + w_b * adapter(wdb, bdb, wub, bub) if use_b else out
@@ -2804,9 +2858,10 @@ def layer_bwd_row(torch, b, s, use_b, seed, masked=True):
             return torch.autograd.grad(layer(xr, pa), [xr, *pa], gout)
 
     row = time_row(
-        torch, f"layer_block_bwd B={b} S={s} ensemble={use_b}{'' if masked else ' unmasked'}",
+        torch, f"layer_block_bwd B={b} S={s} ensemble={use_b}{'' if masked else ' unmasked'}"
+        + ("" if r == R else f" R={r}") + (" fp32" if f32 else ""),
         lambda: lb.layer_block_bwd_cuda(*largs, *cfg), lambda: lb.layer_block_bwd_reference(*largs, *cfg),
-        chain4, layer_bwd_bound(b, s, use_b, masked=masked),
+        chain4, layer_bwd_bound(b, s, use_b, masked=masked, r=r, f32=f32),
         "the forward from x and autograd.grad through it")
     return row, largs, cfg, layer
 
@@ -2887,27 +2942,30 @@ def time_train(torch, tr):
     return TB / k_med, TB / p_med
 
 
-def time_attn_block(torch, b, s, seed, fuse_ln=True, masked=True):
-    """#1 at one shape (LN1 fused unless ``fuse_ln`` is off): kernel, plain
-    version, the same function as one PyTorch call chain (a yardstick the
-    port never calls) and the bound; then the device time of each of its
-    launches (LN1 rows, q|k|v GEMM, attention core, out GEMM)."""
+def time_attn_block(torch, b, s, seed, fuse_ln=True, masked=True, dtype=None):
+    """#1 at one shape (LN1 fused unless ``fuse_ln`` is off), bf16 or
+    ``dtype``: kernel, plain version, the same function as one PyTorch call
+    chain (a yardstick the port never calls) and the bound; then the device
+    time of each of its launches (LN1 rows, q|k|v GEMM, attention core, out
+    GEMM; in fp32 the operands' splits too)."""
     import torch.nn.functional as F
 
     from feddat_tpu_torch.ops import attn_block as ab
 
-    args = attn_inputs(torch, b, s, fuse_ln, seed, masked)
+    args = attn_inputs(torch, b, s, fuse_ln, seed, masked, dtype=dtype)
     x, wq, wk, wv, wo, bqkv, bo, gb, bias = args[:9]
     attention = attention_chain(torch, b, s, fuse_ln)
+    f32 = dtype == torch.float32
 
     def library():
-        return F.linear(attention(x, gb, wq, wk, wv, bqkv, bias), wo, bo[0].bfloat16())
+        return F.linear(attention(x, gb, wq, wk, wv, bqkv, bias), wo, bo[0].to(x.dtype))
 
-    label = f"attn_block B={b} S={s}" + ("" if fuse_ln else " ln=False") + ("" if masked else " unmasked")
+    label = (f"attn_block B={b} S={s}" + ("" if fuse_ln else " ln=False") + ("" if masked else " unmasked")
+             + (" fp32" if f32 else ""))
     with torch.inference_mode():
         row = time_row(torch, label, lambda: ab.attn_block_cuda(*args),
                        lambda: ab.attn_block_reference(*args), library,
-                       attn_block_bound(b, s, fuse_ln, masked),
+                       attn_block_bound(b, s, fuse_ln, masked, f32),
                        ("F.layer_norm + " if fuse_ln else "") + "F.linear + SDPA + F.linear")
         launch_breakdown(torch, lambda: ab.attn_block_cuda(*args), f"attn_block (#1) {label[11:]}")
     return row
@@ -2917,13 +2975,15 @@ def time_attn_block(torch, b, s, seed, fuse_ln=True, masked=True):
 ADAPTER_TIMED = ((192, DM), (384, DM), (80, 1280), (128, 2048))
 
 
-def time_adapter(torch, n, seed, r=R, d=DM):
-    """#2 at n rows, bottleneck r and width d: kernel, plain version, the
-    torch.addmm chain (a yardstick the port never calls) and the bound; the
-    device time of each launch of one call at the serving batch's R=48."""
+def time_adapter(torch, n, seed, r=R, d=DM, dtype=None):
+    """#2 at n rows, bottleneck r and width d, bf16 or ``dtype``: kernel,
+    plain version, the torch.addmm chain (a yardstick the port never calls)
+    and the bound; the device time of each launch of one call at the
+    serving batch's R=48 in bf16."""
     from feddat_tpu_torch.ops import adapter_fused as af
 
-    h, pa, pb, w = adapter_inputs(torch, n, seed, r, d)
+    h, pa, pb, w = adapter_inputs(torch, n, seed, r, d, dtype)
+    f32 = dtype == torch.float32
 
     def adapter_library():
         hf = h.float()
@@ -2931,14 +2991,14 @@ def time_adapter(torch, n, seed, r=R, d=DM):
         fb = [t.float() for t in pb]
         a = torch.addmm(fa[3], torch.relu(torch.addmm(fa[1], hf, fa[0])), fa[2])
         b = torch.addmm(fb[3], torch.relu(torch.addmm(fb[1], hf, fb[0])), fb[2])
-        return (w * a + (1.0 - w) * b).bfloat16()
+        return (w * a + (1.0 - w) * b).to(h.dtype)
 
-    label = f"adapter_fused N={n}" + ("" if (r, d) == (R, DM) else f" R={r} D={d}")
+    label = f"adapter_fused N={n}" + ("" if (r, d) == (R, DM) else f" R={r} D={d}") + (" fp32" if f32 else "")
     with torch.inference_mode():
         row = time_row(torch, label, lambda: af.adapter_fused_cuda(h, pa, pb, w),
                        lambda: af.adapter_fused_reference(h, pa, pb, w), adapter_library,
-                       adapter_bound(n, r, d), "torch.addmm chain")
-        if (n, r, d) == (B * S, R, DM):
+                       adapter_bound(n, r, d, f32), "torch.addmm chain" + (", fp32" if f32 else ""))
+        if (n, r, d, f32) == (B * S, R, DM, False):
             launch_breakdown(torch, lambda: af.adapter_fused_cuda(h, pa, pb, w), f"adapter_fused (#2) N={n}")
     return row
 
@@ -3354,21 +3414,28 @@ def to_cuda_batch(torch, client):
 
 
 def gate_checks(torch, seed):
-    """The routing gate on the card: #4's bottleneck limit as the gate asks it
-    against the library's own; a "layer" DAT step at adapter bottleneck 96
-    (reduction 8), which #4 does not take, goes through #1/#3 and holds the
-    2x-bf16 rule against the plain path.  Then the path past the first
-    designs' limits, S=769 on #1/#3 and bottleneck 192 on #2
+    """The routing gate on the card: #4's padded bottleneck as the wrapper
+    pads it against the library's own; a "layer" DAT step at adapter
+    bottleneck 96 (reduction 8) goes through #1/#4 (24 launches each, #3
+    none) and holds the 2x-bf16 rule against the plain path.  Then the path
+    past the first designs' limits, S=769 on #1/#3 and bottleneck 192 on #2
     (:func:`long_canvas_path`)."""
+    import ctypes
+
     from feddat_tpu_torch.configs.core import OptimizerConfig, PEFTMode
     from feddat_tpu_torch.models import create_model
     from feddat_tpu_torch.models.vilt import TaskHeadSpec
     from feddat_tpu_torch.ops import layer_block as lb
+    from feddat_tpu_torch.ops._build import load
     from feddat_tpu_torch.train import dat
     from feddat_tpu_torch.train.forwards import make_vilt_fused_parts
 
-    print(f"gates: #4 largest bottleneck {lb._max_bottleneck()} (gate {lb.MAX_BOTTLENECK})")
-    check(lb._max_bottleneck() == lb.MAX_BOTTLENECK, "the gate's limit differs from #4's")
+    fn = load("layer_block").layer_block_padded_bottleneck
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    pads = {(r, f32): (lb.padded_bottleneck(r, f32), fn(r, int(f32)))
+            for r in (1, 5, 16, 24, 48, 64, 80, 96, 100, 192, 384) for f32 in (False, True)}
+    print(f"gates: #4's padded bottleneck (wrapper, library) by (R, fp32): {pads}")
+    check(all(a == b for a, b in pads.values()), "the wrapper pads the bottleneck otherwise than #4")
 
     def r96(attn_impl, dtype="bfloat16", state=None):
         model, cfg = create_model("vilt", {k: TaskHeadSpec(num_labels=NUM_LABELS) for k in TRAIN_CLIENTS},
@@ -3395,9 +3462,9 @@ def gate_checks(torch, seed):
     _, kernel_m = step(state0, batch)
     torch.cuda.synchronize()
     launches = read_counts()
-    want = {**NO_LAUNCHES, "attn_block": 2 * layers, "attn_block_bwd": 2 * (layers - 1)}
+    want = {**NO_LAUNCHES, "attn_block": 2 * layers, "layer_block_bwd": 2 * layers}
     print(f"gates: fused DAT step, attn_impl='layer', bottleneck 96, B={TB} S={TS}: launches "
-          f"{counts_text(launches)} (expected {counts_text(want)}: the block route, #4 none)")
+          f"{counts_text(launches)} (expected {counts_text(want)}: #4 at every layer, #3 none)")
     check(launches == want, f"bottleneck-96 layer step launches {launches}, expected {want}")
     sd = model.state_dict()
     del step, model
@@ -3407,7 +3474,7 @@ def gate_checks(torch, seed):
         exact_m = step_of(r96("auto", "float32", state=sd))(state0, batch)[1]
         torch.cuda.synchronize()
         check(read_counts() == before, "the plain path launched a kernel")
-    grad_agreement(torch, "fused step, bottleneck 96, block route", kernel_m, plain_m, exact_m)
+    grad_agreement(torch, "fused step, bottleneck 96, layer route", kernel_m, plain_m, exact_m)
     del kernel_m, plain_m, exact_m, params, state0, sd
     torch.cuda.empty_cache()
 
@@ -4940,7 +5007,8 @@ def cli_albef_serving(torch, root, seed, ckpt):
 def cli_refusals(work, common):
     """Launches that exit non-zero before any model is built: two clients of
     the SPMD engine on one card (JAX's mesh error), in a process of its own;
-    float32 on "layer" (ROADMAP Queue 3), through ``cli.main`` here."""
+    float32 on "flash" (ROADMAP Queue 3: float32 on #5-#9), through ``cli.main``
+    here."""
     from feddat_tpu_torch import cli
 
     flags = ["--engine", "spmd", "--ordered_cl_tasks", CLI_TASKS, "--mesh_data", "1"]
@@ -4950,14 +5018,15 @@ def cli_refusals(work, common):
     print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
     check(rc != 0 and "ValueError: need 2 devices, have 1" in text and not out.exists()
           and "params:" not in text, f"{flags} was not refused up front")
-    flags = ["--dtype", "float32", "--attn_impl", "layer"]
+    flags = ["--dtype", "float32", "--attn_impl", "flash"]
     try:
         cli.main(["--encoder_name", "vilt", "--output_dir", str(out), *common, *flags])
         message = "no refusal"
     except SystemExit as e:
         message = str(e)
     print(f"cli: refused {' '.join(flags)}: {message}")
-    check("ROADMAP Queue 3" in message and not out.exists(), f"{flags} was not refused up front")
+    check("ROADMAP Queue 3: float32 on #5-#9" in message and not out.exists(),
+          f"{flags} was not refused up front")
 
 
 def cli_spmd(torch, work, common, task, sequential_ckpt):
@@ -6299,6 +6368,306 @@ def phase_tp(torch, seed):
     print(f"tp: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------- phase 19: fp32
+# Kernel alone in fp32: its error against the float64 function may be at most
+# 8x the plain fp32 version's (cuBLAS fp32 with TF32 off, the sums in another
+# order) or 2^-20 of the output's largest magnitude, whichever is larger; a
+# single TF32 or bf16 product reads ~1e-3 relative, far past it.
+FP32_FACTOR, FP32_FLOOR = 8.0, 2.0 ** -20
+# The fp32 path against the plain fp32 path: fp32 summation order gives ~1e-6
+# to 1e-5 relative, a TF32 product ~1e-3.
+FP32_GRAD_TOL, FP32_LOSS_TOL = 1e-4, 1e-5
+# #4's bottlenecks past the first design's multiples of 16 up to 64: a DAT
+# ensemble's reduction 32 (24), 8 (96) and 4 (192).
+WIDE_BOTTLENECKS = (24, 96, 192)
+
+
+def float64_mode(torch):
+    """A torch function mode in which every fp32 cast and fp32 dtype argument
+    means float64: a plain version called on float64 inputs inside it is the
+    same function evaluated in float64 (its fp32 casts taken to float64)."""
+    from torch.overrides import TorchFunctionMode
+
+    def sub(v):
+        return torch.float64 if v is torch.float32 else v
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                return args[0].double()
+            return func(*(sub(a) for a in args), **{k: sub(v) for k, v in (kwargs or {}).items()})
+
+    return Float64()
+
+
+def to_float64(torch, args):
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
+
+
+def bf16_operands(torch, args, which):
+    """``args`` with the tensors at ``which`` (a kernel's product operands)
+    rounded to bf16 once: the planted fault of the fp32 checks."""
+    return tuple(a.bfloat16().float() if i in which else a for i, a in enumerate(args))
+
+
+def fp32_check(torch, label, names, got, plain, exact, planted):
+    """The float64 criterion on every output -> the kernel's largest error
+    against the plain fp32 version (the JSON line's max_abs_err)."""
+    worst = 0.0
+    for name, k, p, e, f in zip(names, got, plain, exact, planted):
+        e = e.double()
+        check(bool(torch.isfinite(k).all()), f"fp32 {label} {name} has non-finite values")
+        top = e.abs().max().item()
+        k_err, p_err, f_err = ((t.double() - e).abs().max().item() for t in (k, p, f))
+        lim = max(FP32_FACTOR * p_err, FP32_FLOOR * top)
+        print(f"fp32 {label} {name}: max abs error against float64: kernel {k_err:.3e}, plain fp32 "
+              f"{p_err:.3e} (max |ref| {top:.3e}); limit {lim:.3e} (8x plain, or 2^-20 of max |ref| "
+              f"{FP32_FLOOR * top:.3e}); planted fault (operands rounded to bf16 once) {f_err:.3e}")
+        check(k_err <= lim, f"fp32 {label} {name}: {k_err} against float64 > {lim}")
+        check(f_err > lim, f"fp32 {label} {name}: the check passes bf16 operands ({f_err} <= {lim})")
+        worst = max(worst, (k.double() - p.double()).abs().max().item())
+    return worst
+
+
+def layer_bwd_gated(torch, args, cfg, gate):
+    """The plain #4 (single adapter) with adapter a's ReLU gate given: the
+    stages of ``layer_block_bwd_reference`` with ``gate`` in place of
+    down > 0."""
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    (x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2, w1, b1, w2, b2,
+     wda, bda, wua, bua, wdb, bdb, wub, bub) = args
+    heads, scale, eps1, eps2, w_a, _, _ = cfg
+    _, xhat2, rstd2, p1, o = lb.ffn_recompute_reference(x, aout, gb2, w1, b1, w2, b2, eps2)
+    relu, g_delta, g_down = lb.adapter_bwd_reference(o, g, wda, bda, wua, w_a, gate)
+    g_o = g.to(torch.float32) + g_down.to(x.dtype).to(torch.float32) @ wda.to(torch.float32).t()
+    dx = lb.layer_tail_bwd_reference(g_o, xhat2, rstd2, p1, x, ctx, lse, bias, wq, wk, wv, wo, bqkv,
+                                     gb1, gb2, w1, w2, heads, scale, eps1)
+    return (dx, *lb.adapter_wgrads_reference(o, relu, g_delta, g_down))
+
+
+def fp32_kernels(torch, seed):
+    """(a): #1, #3, #4 and #2 alone in fp32 by the float64 criterion ->
+    {kernel: max abs error against the plain fp32 version}."""
+    from feddat_tpu_torch.ops import adapter_fused as af
+    from feddat_tpu_torch.ops import attn_block as ab
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    f32, errs, f64 = torch.float32, {}, float64_mode(torch)
+    with torch.no_grad():
+        args = attn_inputs(torch, TB, TS, True, seed, dtype=f32)
+        got, plain = ab.attn_block_cuda(*args), ab.attn_block_reference(*args)
+        planted = ab.attn_block_cuda(*bf16_operands(torch, args, range(5)))
+        with f64:
+            exact = ab.attn_block_reference(*to_float64(torch, args))
+        errs["attn_block"] = fp32_check(torch, f"attn_block B={TB} S={TS}", ("out", "ctx", "lse"), got,
+                                        plain, exact, planted)
+        del got, plain, planted, exact
+
+        args = attn_bwd_case(torch, TB, TS, True, seed, dtype=f32)
+        got, plain = ab.attn_block_bwd_cuda(*args), ab.attn_block_bwd_reference(*args)
+        planted = ab.attn_block_bwd_cuda(*bf16_operands(torch, args, (0, 1, 2, 3, 4, 8, 10)))
+        with f64:
+            exact = ab.attn_block_bwd_reference(*to_float64(torch, args))
+        errs["attn_block_bwd"] = fp32_check(torch, f"attn_block_bwd B={TB} S={TS}", ("dx",), (got,),
+                                            (plain,), (exact,), (planted,))
+        del got, plain, planted, exact
+
+        args, cfg = layer_case(torch, TB, TS, False, seed, dtype=f32)
+        got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
+        gate = st["relu_a"][:, :R].reshape(TB, TS, R) > 0
+        print(f"fp32 layer_block_bwd: adapter a's ReLU gate from the kernel ({int(gate.sum())} of "
+              f"{gate.numel()} open) fed to the plain fp32 and float64 versions")
+        plain = layer_bwd_gated(torch, args, cfg, gate)
+        planted = lb.layer_block_bwd_cuda(
+            *bf16_operands(torch, args, (0, 1, 2, 4, 6, 7, 8, 9, 13, 15, 17, 19, 21, 23)), *cfg)
+        with f64:
+            exact = layer_bwd_gated(torch, to_float64(torch, args), cfg, gate)
+        errs["layer_block_bwd"] = fp32_check(torch, f"layer_block_bwd B={TB} S={TS} R={R}",
+                                             ("dx", "dwda", "dbda", "dwua", "dbua"), got, plain, exact,
+                                             planted)
+        del got, st, plain, planted, exact
+
+        h, pa, pb, w = adapter_inputs(torch, B * S, seed, dtype=f32)
+        got, plain = af.adapter_fused_cuda(h, pa, pb, w), af.adapter_fused_reference(h, pa, pb, w)
+        rounded = bf16_operands(torch, (h, *pa, *pb), (0, 1, 3, 5, 7))
+        planted = af.adapter_fused_cuda(rounded[0], rounded[1:5], rounded[5:9], w)
+        with f64:
+            exact = af.adapter_fused_reference(*to_float64(torch, (h,)), to_float64(torch, pa),
+                                               to_float64(torch, pb), w)
+        errs["adapter_fused"] = fp32_check(torch, f"adapter_fused N={B * S} R={R}", ("out",), (got,),
+                                           (plain,), (exact,), (planted,))
+    torch.cuda.synchronize()
+    return errs
+
+
+def patch_embedding_check(torch, seed):
+    """The float32 patch embedding (``models/layers.py::patch_conv2d``, the
+    cuDNN convolution of ViLT's and ALBEF's ViT) against float64 with cuDNN's
+    TF32 at PyTorch's default (on): at most 8x the error of the same function
+    as a plain fp32 matmul (TF32 off), or 2^-20 of its largest magnitude.
+    The plain F.conv2d there (what the port ran before) is printed beside it."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.models.layers import patch_conv2d
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, 3, *CANVAS, generator=g, device="cuda")
+    w = torch.randn(DM, 3, 32, 32, generator=g, device="cuda") * 0.02
+    bias = torch.randn(DM, generator=g, device="cuda")
+    cudnn, default = torch.backends.cudnn, torch.backends.cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = patch_conv2d(x, w, bias, 32)
+            tf32 = F.conv2d(x, w, bias, stride=32)
+            check(cudnn.allow_tf32, "patch_conv2d left cuDNN's TF32 switched")
+    finally:
+        cudnn.allow_tf32 = default
+    with torch.no_grad():
+        exact = F.conv2d(x.double(), w.double(), bias.double(), stride=32)
+        cols = F.unfold(x, 32, stride=32)  # [B, 3 * 32 * 32, patches]
+        mm = (w.view(DM, -1) @ cols + bias[:, None]).view_as(exact)
+    top = exact.abs().max().item()
+    errs = [(t.double() - exact).abs().max().item() for t in (got, mm, tf32)]
+    lim = max(FP32_FACTOR * errs[1], FP32_FLOOR * top)
+    print(f"fp32 patch embedding B={B} {CANVAS[0]}x{CANVAS[1]}, cuDNN TF32 on: max abs error against "
+          f"float64: patch_conv2d {errs[0]:.3e}, fp32 matmul {errs[1]:.3e}, F.conv2d with TF32 "
+          f"{errs[2]:.3e} (max |ref| {top:.3e}); limit {lim:.3e}")
+    check(errs[0] <= lim, f"the fp32 patch embedding is not at fp32 error: {errs}")
+
+
+def fp32_agreement(torch, what, kernel, exact):
+    """The fp32 path's gradient sets and losses against the plain fp32 path's."""
+    for stage in exact["grads"]:
+        k, kw, kn = set_error(torch, kernel["grads"][stage], exact["grads"][stage])
+        print(f"fp32: {what} {stage} gradients vs plain fp32: relative Frobenius {k:.3e} (worst tensor "
+              f"{kw:.3e} {kn}); limit {FP32_GRAD_TOL:.0e}")
+        check(k <= FP32_GRAD_TOL, f"fp32 {what}: {stage} gradients disagree: {k}")
+    for key in ("loss", "loss_shared"):
+        k, e = float(kernel[key]), float(exact[key])
+        print(f"fp32: {what} {key}: kernel path {k:.8f}, plain fp32 {e:.8f} (relative {abs(k - e) / abs(e):.2e})")
+        check(abs(k - e) <= FP32_LOSS_TOL * abs(e), f"fp32 {what}: {key} disagrees: {k} vs {e}")
+
+
+def fp32_paths(torch, seed):
+    """(c): the slice's path in fp32 through the normal entry points ->
+    each fp32 kernel's launches on it (the step's, the forward's)."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import to_device
+
+    model = build_trainer_model(torch, seed, "layer", dtype="float32")
+    layers = model.config.num_layers
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    batch = to_device(next(train_client(TRAIN_CLIENTS[0], TB, 0, seed).train_batches(0)), "cuda")
+    step, part, opt = make_steps(model, params)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    reset_counts()
+    _, m = step(state0, batch)
+    torch.cuda.synchronize()
+    fused = read_counts()
+    want = {**NO_LAUNCHES, "attn_block": 2 * layers, "layer_block_bwd": 2 * layers}
+    print(f"fp32: fused DAT step, attn_impl='layer', float32, B={TB} S={TS}: launches {counts_text(fused)}")
+    check(fused == want, f"fp32 fused step launches {fused}, expected {want}")
+    exact_model = build_trainer_model(torch, seed, "auto", model.state_dict(), "float32")
+    before = read_counts()
+    exact = {f: make_steps(exact_model, params, f)[0](state0, batch)[1] for f in (True, False)}
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    del exact_model
+    fp32_agreement(torch, "fused step, layer kernels", m, exact[True])
+
+    block_model = build_trainer_model(torch, seed, "block", model.state_dict(), "float32", fused=True)
+    reset_counts()
+    _, bm = make_steps(block_model, params, fused=False)[0](state0, batch)
+    torch.cuda.synchronize()
+    std = read_counts()
+    want = {**NO_LAUNCHES, "attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1),
+            "adapter_fused": 2 * layers}
+    print(f"fp32: standard DAT step, attn_impl='block', fused ensemble, float32: launches {counts_text(std)}")
+    check(std == want, f"fp32 standard step launches {std}, expected {want}")
+    fp32_agreement(torch, "standard step, block kernels", bm, exact[False])
+    del block_model, m, bm, exact
+    torch.cuda.empty_cache()
+
+    clients = {k: train_client(k, 2 * TB, TB, seed + 1 + i) for i, k in enumerate(TRAIN_CLIENTS)}
+    cfg = TrainConfig(peft_mode=PEFTMode.DAT, optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed)
+    trainer = FederatedTrainer(model, params, clients, cfg, use_fused_dat=True)
+    reset_counts()
+    trainer.run_round(0)
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    rounds = read_counts()
+    print(f"fp32: FederatedTrainer round of {len(clients)} clients x 2 fused steps, float32, 'layer': "
+          f"launches {counts_text(rounds)}; evaluate_dat {entry['scores']}")
+    check(rounds["layer_block_bwd"] == 2 * 2 * len(clients) * layers
+          and rounds["attn_block_bwd"] == rounds["fused_attention"] == 0, f"fp32 round launches {rounds}")
+    for key, scores in entry["scores"].items():
+        check(len(scores) == 3 and all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in scores),
+              f"fp32: bad evaluate_dat scores for {key}: {scores}")
+    moved = [k for k, v in trainer.server_params.items() if "adapter_1" in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * layers and all(bool(torch.isfinite(trainer.server_params[k]).all()) for k in moved),
+          "fp32: FedAvg did not update every adapter_1 tensor on the server")
+    del trainer, model, params, state0, batch
+    torch.cuda.empty_cache()
+
+    pred = build_predictor(torch, seed, "block", True, dtype="float32")
+    imgs, qs = synthetic_requests(B, seed)
+    batch = pred._preprocess(imgs, qs)
+    reset_counts()
+    probs = pred.forward(batch)
+    torch.cuda.synchronize()
+    serve = read_counts()
+    want = {**NO_LAUNCHES, "attn_block": layers, "adapter_fused": layers}
+    print(f"fp32: ViltVqaPredictor forward, float32, 'block' + fuse_ln, B={B} S={S}: launches "
+          f"{counts_text(serve)}")
+    check(serve == want, f"fp32 serving forward launches {serve}, expected {want}")
+    plain = build_predictor(torch, seed, "auto", False, state=pred.model.state_dict(), dtype="float32")
+    probs_plain = plain.forward(batch)
+    diff, top = float(abs(probs - probs_plain).max()), float(probs_plain.max())
+    agree = int((probs.argmax(-1) == probs_plain.argmax(-1)).sum())
+    print(f"fp32: serving forward vs plain fp32 path: probabilities max_abs_diff={diff:.3e} (max prob "
+          f"{top:.3e}); top-1 agreement {agree}/{B}")
+    check(agree == B, f"fp32 serving: top-1 answers disagree in {B - agree} of {B}")
+    return {"attn_block": fused["attn_block"], "layer_block_bwd": fused["layer_block_bwd"],
+            "attn_block_bwd": std["attn_block_bwd"], "adapter_fused": serve["adapter_fused"]}
+
+
+def fp32_times(torch, seed):
+    """(d): each fp32 kernel's row (kernel, plain version, the library chain
+    in fp32 with TF32 off, the bound at the TF32 rate or bytes; #1 with its
+    launches' device times), and #4 in bf16 at bottlenecks 96 and 192."""
+    f32 = torch.float32
+    rows = {"attn_block": time_attn_block(torch, TB, TS, seed, dtype=f32),
+            "attn_block_bwd": attn_bwd_row(torch, TB, TS, True, seed, dtype=f32)[0],
+            "layer_block_bwd": layer_bwd_row(torch, TB, TS, True, seed, dtype=f32)[0],
+            "adapter_fused": time_adapter(torch, B * S, seed, dtype=f32)}
+    for r in WIDE_BOTTLENECKS[1:]:
+        layer_bwd_row(torch, TB, TS, True, seed, r=r)
+    return rows
+
+
+def phase_fp32(torch, seed):
+    """Phase 19 -> ({fp32 kernel: max abs err}, {fp32 kernel: launches}, {row: time row})."""
+    from feddat_tpu_torch.train import compiled
+
+    with compiled.disable_graphs():
+        errs = fp32_kernels(torch, seed)
+        patch_embedding_check(torch, seed)
+        for r in WIDE_BOTTLENECKS:
+            layer_bwd_parity(torch, TB, TS, True, seed, r=r)
+        torch.cuda.empty_cache()
+        launches = fp32_paths(torch, seed)
+        torch.cuda.empty_cache()
+        rows = fp32_times(torch, seed)
+    torch.cuda.empty_cache()
+    return errs, launches, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6397,6 +6766,10 @@ def main(argv=None) -> int:
     # this slice's path: tensor parallelism, two ranks on the card over gloo
     phase_tp(torch, args.seed)
     done("tp")
+    # this slice's path: the "block" and "layer" routes in float32
+    t_fp32 = time.perf_counter()
+    fp32_errs, fp32_launches, fp32_rows = phase_fp32(torch, args.seed)
+    done(f"fp32 (the phase {time.perf_counter() - t_fp32:.1f} s)")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "
@@ -6425,6 +6798,16 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms,
+            "dtype": "bfloat16",
+        })
+    for name in ("attn_block", "adapter_fused", "attn_block_bwd", "layer_block_bwd"):
+        src, replaces = sources[name]
+        k_ms, p_ms, l_ms, bound, bound_by, _ = fp32_rows[name]
+        kernels.append({
+            "name": f"{name}_fp32", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": fp32_launches[name], "max_abs_err": fp32_errs[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms,
+            "dtype": "float32",
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

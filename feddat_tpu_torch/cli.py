@@ -44,8 +44,9 @@ VQAv2 5% low-shot, NLVR2, SNLI-VE and VCR (``_build_classification_client``,
 each with its task's optimizer settings and epoch horizon; mixed client sets
 on the sequential engine, one kind of head on the SPMD engine).  What the
 port does not have yet is refused before any model is built or any dataset
-read, naming its ROADMAP item: float32 on a kernel route on the card (Queue
-3: the CUDA kernels take bf16).  ``albef_distill`` trains on the sequential engine as in
+read, naming its ROADMAP item: float32 on the ``fused`` and ``flash`` routes
+on the card (Queue 3: "float32 on #5-#9", whose CUDA kernels take bf16; the
+``block`` and ``layer`` routes run float32 on the card).  ``albef_distill`` trains on the sequential engine as in
 the JAX CLI: momentum distillation on the plain modes, the fused DAT step
 without it (``--use_fused_dat``), a ``TypeError`` at the first step of the
 standard DAT step (the distill forward takes the twin, which that step does
@@ -68,6 +69,8 @@ import sys
 from typing import Dict
 
 KERNEL_ROUTES = ("block", "layer", "fused", "flash")
+# the kernel routes whose CUDA kernels (#5-#9) take bf16 only
+BF16_ROUTES = ("fused", "flash")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -146,7 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="attention route: auto/xla (composable PyTorch), fused (#5/#6), "
                         "flash (#7-#9), block (#1/#3, frozen projections), layer (#1/#4, the "
                         "whole-layer backward; DAT/adapter modes).  ALBEF: block/layer route its "
-                        "ViT.  The kernel routes take bf16 on the card")
+                        "ViT.  On the card fused and flash take bf16, block and layer either --dtype")
     p.add_argument("--attention_logits_dtype", default=None, choices=["float32", "bfloat16"],
                    help="storage dtype of attention logits; default bfloat16 with --dtype "
                         "bfloat16, else float32")
@@ -197,10 +200,10 @@ def refuse_unported(args) -> None:
             "sequential-engine only (as is the reference's live DAT path, train_albef.sh)")
 
     if (args.device == "cuda" and not args.smoke and args.dtype == "float32"
-            and args.attn_impl in KERNEL_ROUTES):
+            and args.attn_impl in BF16_ROUTES):
         refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
-               "kernels take bf16; use --dtype bfloat16, or --attn_impl auto in float32)",
-               "Queue 3: divergences")
+               "kernels take bf16; use --dtype bfloat16, or --attn_impl block, layer or auto "
+               "in float32)", "Queue 3: float32 on #5-#9")
 
 
 def check_spmd_args(args) -> None:

@@ -60,6 +60,17 @@
 // 75 KB at R = 48: three CTAs per SM, so the 284 CTAs of the serving batch
 // run in one wave.  Wd rows of R % 8 != 0 elements are not 16-byte aligned,
 // which TMA needs: then every thread copies Wd element by element.
+//
+// fp32 (the model in float32, as the TPU kernel runs it): h, the four
+// matrices and the biases are fp32 and the output is fp32, one rounding
+// nowhere.  The C entry point splits h, Wd and Wu into their three bf16 terms
+// (common.cuh's split3, planes in the workspace), the copy engine's views
+// stack each operand's planes (so a term is a coordinate), and each product
+// is the six term products in common.cuh's pair order: the down projection's
+// h terms x Wd terms, the up projection's x parts x Wu terms.  A stage then
+// holds three h tiles and three of each Wd atom, and a Wu buffer three terms:
+// chunks of at most AD_CHUNK_F32 = 48 columns keep a CTA within 227 KB
+// (218 KB at 48: one CTA per SM).
 
 #include <cuda.h>
 
@@ -72,34 +83,57 @@ namespace {
 constexpr int AD_ROWS = 64;      // rows of h per cluster
 constexpr int AD_THREADS = 128;  // one warpgroup per CTA
 constexpr int AD_CLUSTER = 4;    // CTAs per row tile: K slices of GEMM1, column slices of GEMM2
-constexpr int AD_CHUNK = 128;   // most bottleneck columns of one chunk
+constexpr int AD_CHUNK = 128;     // most bottleneck columns of one chunk
+constexpr int AD_CHUNK_F32 = 48;  // fp32: three terms of every tile
 constexpr int TB = sm90::TILE_BYTES;
 
+// The operands of one call: h, Wd and Wu as bf16 (the terms of fp32 ones:
+// planes N D, D R and R D elements apart), the biases and the output in the
+// element type E.
+template <typename E>
 struct AdapterArgs {
   const bf16* h;      // [N, D]
   const bf16* wd[2];  // [D, R] per adapter (a, b)
-  const bf16* bd[2];  // [R]
+  const E* bd[2];     // [R]
   const bf16* wu[2];  // [R, D]
-  const bf16* bu[2];  // [D]
-  bf16* out;          // [N, D]
+  const E* bu[2];     // [D]
+  E* out;             // [N, D]
   float* acc;         // the up projection's sums between chunks (nc > 1), else null
   int N, D, R;
   int nc;             // chunks of the bottleneck
   float weight;
 };
 
-// The bottleneck's chunks: as few as take at most AD_CHUNK columns each, all
+// The bottleneck's chunks: as few as take at most `most` columns each, all
 // of one width Rc, a multiple of 16 (the last one zero past R).
-inline int chunk_count(int R) { return (R + AD_CHUNK - 1) / AD_CHUNK; }
-inline int chunk_width(int R) {
-  const int n = chunk_count(R);
+inline int chunk_most(bool f32) { return f32 ? AD_CHUNK_F32 : AD_CHUNK; }
+inline int chunk_count(int R, bool f32) { return (R + chunk_most(f32) - 1) / chunk_most(f32); }
+inline int chunk_width(int R, bool f32) {
+  const int n = chunk_count(R, f32);
   return ((R + n - 1) / n + 15) / 16 * 16;
 }
+
+// two adjacent elements of type E as loaded, and as floats
+template <typename E>
+struct Pair {
+  typedef float2 type;
+};
+template <>
+struct Pair<bf16> {
+  typedef __nv_bfloat162 type;
+};
+__device__ __forceinline__ float2 pair_f(float2 v) { return v; }
+__device__ __forceinline__ float2 pair_f(__nv_bfloat162 v) { return make_float2(__low2float(v), __high2float(v)); }
 
 // The copy engine's views of the operands (built per call by encode_maps):
 // h and Wu as [rows][4 ranks][D/4] so that a box never crosses into the next
 // rank's slice (the engine fills zeros past it, past N and past R), Wd as
 // [4][D/4][R] (only when R % 8 == 0: the engine needs 16-byte row strides).
+// An fp32 operand's three term planes are stacked along the outer axis: term
+// t's rows start at t N (h) or t R (Wu), its ranks at 4 t (Wd).  A box of h
+// past N or of Wu past R then reads the next term's rows, not zeros; those
+// rows of h are never stored, and those of Wu meet x columns past R, which
+// are exactly 0 (Wd's and bd's columns past R are zero).
 struct TmaMaps {
   CUtensorMap h, wd[2], wu[2];
 };
@@ -123,20 +157,22 @@ struct Layout {
   int stage, x_bytes, wu_block, b_bytes, bars, smem;
 };
 
-__host__ __device__ inline Layout layout(int D, int R) {
+// nt: bf16 terms of each operand value (1, or 3 in fp32); es: bytes of the
+// element type (bd's copy in shared memory)
+__host__ __device__ inline Layout layout(int D, int R, int nt, int es) {
   Layout L;
   L.Rp = (R + 15) / 16 * 16;
   L.KT2 = (L.Rp + 63) / 64;
   L.NA = 2 * L.KT2;
   L.KS = D / AD_CLUSTER;
   L.nkt = (L.KS + 63) / 64;
-  L.stage = (1 + L.NA) * TB;
+  L.stage = nt * (1 + L.NA) * TB;
   const int parts = 3 * L.NA * TB;
   L.x_bytes = 2 * L.stage > parts ? 2 * L.stage : parts;
-  L.wu_block = L.Rp * 128;  // [Rp rows][64] bf16, 128B-swizzled
+  L.wu_block = L.Rp * 128;  // [Rp rows][64] bf16, 128B-swizzled: one adapter's term
   const int partial = 2 * L.Rp * AD_ROWS * 4;
-  L.b_bytes = partial > 4 * L.wu_block ? partial : 4 * L.wu_block;
-  L.bars = L.x_bytes + L.b_bytes + (64 * L.NA * 2 + 7) / 8 * 8;
+  L.b_bytes = partial > 4 * nt * L.wu_block ? partial : 4 * nt * L.wu_block;
+  L.bars = L.x_bytes + L.b_bytes + (64 * L.NA * es + 7) / 8 * 8;
   L.smem = 1024 + L.bars + 5 * 8;
   return L;
 }
@@ -186,26 +222,31 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// The kernel for chunks of Rc = 16 RP16 bottleneck columns: every wgmma chain
-// has a compile-time length.  Chunk c of the bottleneck is columns
-// [c Rc, c Rc + Rc) of each adapter (zero past R); the chunks run in order,
-// and with more than one the up projection's fp32 sums go through p.acc.
-template <int RP16>
-__global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS, RP16 <= 4 ? 3 : 1)
-    adapter_kernel(AdapterArgs p, const __grid_constant__ TmaMaps maps) {
+// The kernel for chunks of Rc = 16 RP16 bottleneck columns in the element
+// type E: every wgmma chain has a compile-time length.  Chunk c of the
+// bottleneck is columns [c Rc, c Rc + Rc) of each adapter (zero past R); the
+// chunks run in order, and with more than one the up projection's fp32 sums
+// go through p.acc.
+template <int RP16, typename E>
+__global__ void __cluster_dims__(AD_CLUSTER, 1, 1)
+    __launch_bounds__(AD_THREADS, kTerms<E> == 1 && RP16 <= 4 ? 3 : 1)
+        adapter_kernel(AdapterArgs<E> p, const __grid_constant__ TmaMaps maps) {
+  constexpr int NT = kTerms<E>;                      // terms of h, Wd and Wu
   constexpr int KT2 = (RP16 + 3) / 4, NA = 2 * KT2;  // Rc = 16 RP16
   constexpr int NQ = 4 * RP16, QA = 2 * RP16;  // 8-column groups of the real columns: both, one adapter
   constexpr int BD_PER = 64 * NA / AD_THREADS;
+  constexpr int NP = kPairs<E>;                // term products of GEMM1
+  constexpr int NP2 = NT == 3 ? 6 : 3;         // of GEMM2 (x is always split)
   extern __shared__ __align__(16) uint8_t ad_smem[];
-  const Layout L = layout(p.D, 16 * RP16);
-  // a bottleneck of more than one chunk is wider than 128, so its chunks are
-  // at least 80 columns wide (chunk_width): instances of RP16 <= 4 run one
-  const int nc = RP16 > 4 ? p.nc : 1;
+  const Layout L = layout(p.D, 16 * RP16, NT, sizeof(E));
+  // a bf16 bottleneck of more than one chunk is wider than 128, so its chunks
+  // are at least 80 columns wide (chunk_width): instances of RP16 <= 4 run one
+  const int nc = NT == 3 || RP16 > 4 ? p.nc : 1;
   const uint32_t at = sm90::smem_addr(ad_smem);
   const uint32_t base = (at + 1023u) & ~1023u;  // the swizzle is a function of the address
   uint8_t* const sp = ad_smem + (base - at);
   const uint32_t sX = base, sB = base + L.x_bytes;
-  bf16* const bd_s = reinterpret_cast<bf16*>(sp + L.x_bytes + L.b_bytes);  // [64 NA]
+  E* const bd_s = reinterpret_cast<E*>(sp + L.x_bytes + L.b_bytes);  // [64 NA]
   const uint32_t bar_k = base + L.bars, bar_wu = bar_k + 16, bar_parts = bar_k + 32;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
@@ -230,44 +271,54 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
   // k-tile t of GEMM1 into ring stage T % 2: h [row0, row0 + 64) x
   // k0 + [64 t, 64 t + 64) K-major, and Wd rows k0 + [64 t, 64 t + 64),
   // columns c0 + ..., of both adapters' atoms MN-major, zero past N, past the
-  // slice and past R.  Wd rows of R % 8 != 0 elements are not 16-byte
-  // aligned: then every thread copies them element by element.
+  // slice and past R; NT term tiles of each (h's first, then Wd's [term][atom]).
+  // Wd rows of R % 8 != 0 elements are not 16-byte aligned: then every thread
+  // copies them element by element.
   auto stage_k = [&](int t) {
     if (t >= L.nkt) return;
     const int T = T0 + t;
-    const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + TB;
+    const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + NT * TB;
     if (tid == 0) {
-      expect_bytes(bar_k + 8 * (T & 1), TB * (1 + (tma_wd ? NA : 0)));
-      tma_load(sH, &maps.h, t * 64, rank, row0, bar_k + 8 * (T & 1));
-      if (tma_wd)
+      expect_bytes(bar_k + 8 * (T & 1), NT * TB * (1 + (tma_wd ? NA : 0)));
 #pragma unroll
-        for (int A = 0; A < NA; ++A)
-          tma_load(sWd + A * TB, &maps.wd[A / KT2], c0 + (A % KT2) * 64, t * 64, rank, bar_k + 8 * (T & 1));
+      for (int u = 0; u < NT; ++u) {
+        tma_load(sH + u * TB, &maps.h, t * 64, rank, row0 + u * p.N, bar_k + 8 * (T & 1));
+        if (tma_wd)
+#pragma unroll
+          for (int A = 0; A < NA; ++A)
+            tma_load(sWd + (u * NA + A) * TB, &maps.wd[A / KT2], c0 + (A % KT2) * 64, t * 64,
+                     rank + AD_CLUSTER * u, bar_k + 8 * (T & 1));
+      }
     }
     if (!tma_wd) {
 #pragma unroll 1
-      for (int j = 0; j < NA * 512 / AD_THREADS; ++j) {
-        const int i = tid + j * AD_THREADS, A = i >> 9, r = (i >> 3) & 63, c = i & 7;
+      for (int j = 0; j < NT * NA * 512 / AD_THREADS; ++j) {
+        const int i = tid + j * AD_THREADS, u = i / (NA * 512), A = (i >> 9) % NA, r = (i >> 3) & 63,
+                  c = i & 7;
         const int ad = A / KT2, cc = c0 + (A % KT2) * 64 + c * 8, kk = t * 64 + r;
-        const bf16* src = (ad ? p.wd[1] : p.wd[0]) + (size_t)(k0 + kk) * p.R + cc;
+        const bf16* src = (ad ? p.wd[1] : p.wd[0]) + (size_t)u * p.D * p.R + (size_t)(k0 + kk) * p.R + cc;
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = kk < L.KS && cc + e < p.R ? __bfloat162float(src[e]) : 0.f;
-        st_shared16(sWd + A * TB + sm90::swz(r, c), make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                                               pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])));
+        st_shared16(sWd + (u * NA + A) * TB + sm90::swz(r, c),
+                    make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                               pack_bf16(v[6], v[7])));
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
   };
   // Wu rows c0 + [0, Rc) (zero past R), columns k0 + [64 ch, 64 ch + 64) of
-  // both adapters into buffer U % 2 of region B
+  // both adapters into buffer U % 2 of region B, [adapter][term] blocks
   auto stage_wu = [&](int ch) {
     if (tid == 0 && ch < L.nkt) {
       const int U = T0 + ch;
-      const uint32_t buf = sB + (U & 1) * 2 * L.wu_block, bar = bar_wu + 8 * (U & 1);
-      expect_bytes(bar, 2 * L.wu_block);
-      tma_load(buf, &maps.wu[0], ch * 64, rank, c0, bar);
-      tma_load(buf + L.wu_block, &maps.wu[1], ch * 64, rank, c0, bar);
+      const uint32_t buf = sB + (U & 1) * 2 * NT * L.wu_block, bar = bar_wu + 8 * (U & 1);
+      expect_bytes(bar, 2 * NT * L.wu_block);
+#pragma unroll
+      for (int ad = 0; ad < 2; ++ad)
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+          tma_load(buf + (ad * NT + u) * L.wu_block, &maps.wu[ad], ch * 64, rank, c0 + u * p.R, bar);
     }
   };
   auto group = [](int jj) { return jj < QA ? jj : 8 * KT2 + jj - QA; };  // packed 8-column group
@@ -288,11 +339,11 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       __syncthreads();
     }
     // bd goes to shared memory, its reads issued before the copies
-    bf16 bdv[BD_PER];
+    E bdv[BD_PER];
 #pragma unroll
     for (int j = 0; j < BD_PER; ++j) {
       const int i = tid + j * AD_THREADS, ad = i >= 64 * KT2, cc = c0 + i - ad * 64 * KT2;
-      bdv[j] = cc < p.R ? (ad ? p.bd[1] : p.bd[0])[cc] : __float2bfloat16_rn(0.f);
+      bdv[j] = cc < p.R ? (ad ? p.bd[1] : p.bd[0])[cc] : from_f<E>(0.f);
     }
     stage_k(0);
     stage_k(1);
@@ -313,14 +364,17 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       const int T = T0 + t;
       wait_phase(bar_k + 8 * (T & 1), (T >> 1) & 1);
       __syncthreads();  // and the element-by-element Wd copies
-      const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + TB;
+      const uint32_t sH = sX + (T & 1) * L.stage, sWd = sH + NT * TB;
       sm90::wg_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const uint64_t da = sm90::desc_k(sH, ks);
+      for (int pr = 0; pr < NP; ++pr)  // h term . Wd term, the small pairs first
 #pragma unroll
-        for (int a = 0; a < NA; ++a) wgmma_ss_t(acc[a], da, sm90::desc_mn(sWd + a * TB, ks));
-      }
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da = sm90::desc_k(sH + term_a<E>(pr) * TB, ks);
+#pragma unroll
+          for (int a = 0; a < NA; ++a)
+            wgmma_ss_t(acc[a], da, sm90::desc_mn(sWd + (term_b<E>(pr) * NA + a) * TB, ks));
+        }
       sm90::wg_commit();
       sm90::wg_wait_all();
 #pragma unroll
@@ -372,7 +426,7 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
           x[2] = __fadd_rn(x[2], v[mm][r].z), x[3] = __fadd_rn(x[3], v[mm][r].w);
         }
         const int col = 8 * j + 2 * tig;
-        const float b0 = __bfloat162float(bd_s[col]), b1 = __bfloat162float(bd_s[col + 1]);
+        const float b0 = to_f(bd_s[col]), b1 = to_f(bd_s[col + 1]);
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           float pv[3][2];
@@ -421,15 +475,15 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
     // the bottleneck and takes the lo, mid and hi parts in that order (the
     // tensor cores' fp32 accumulation keeps more of the small parts' bits
     // that way: half the error against the fp64 function near 0, PERF.md
-    // §6, PR 20); a chunk after the first adds the sums the chunks before
-    // left in p.acc in one fp32 add, and the last forms the mix and rounds
-    // once.
+    // §6; in fp32 the six part x Wu-term pairs in common.cuh's pair order); a chunk
+    // after the first adds the sums the chunks before left in p.acc in one
+    // fp32 add, and the last forms the mix and rounds once.
     stage_wu(0);
     stage_wu(1);
     for (int ch = 0; ch < L.nkt; ++ch) {
       const int U = T0 + ch;
       wait_phase(bar_wu + 8 * (U & 1), (U >> 1) & 1);
-      const uint32_t buf = sB + (U & 1) * 2 * L.wu_block;
+      const uint32_t buf = sB + (U & 1) * 2 * NT * L.wu_block;
       // this thread's 32 fp32 sums of each adapter at (tile, rank, ch) in
       // p.acc, thread-major, so a warp's accesses are contiguous
       float* const saved = p.acc + ((((size_t)tile * AD_CLUSTER + rank) * L.nkt + ch) * 2 * 32) * AD_THREADS + tid;
@@ -437,14 +491,14 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       // land meanwhile (the epilogue's stores through p.out may alias them
       // as far as the compiler knows: a read there would wait for the stores
       // before it)
-      __nv_bfloat162 bua2[8], bub2[8];
+      typename Pair<E>::type bua2[8], bub2[8];
       if (c + 1 == nc)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           const int n = ch * 64 + nt * 8 + tig * 2;
           if (n < L.KS) {
-            bua2[nt] = *reinterpret_cast<const __nv_bfloat162*>(p.bu[0] + k0 + n);
-            bub2[nt] = *reinterpret_cast<const __nv_bfloat162*>(p.bu[1] + k0 + n);
+            bua2[nt] = *reinterpret_cast<const typename Pair<E>::type*>(p.bu[0] + k0 + n);
+            bub2[nt] = *reinterpret_cast<const typename Pair<E>::type*>(p.bu[1] + k0 + n);
           }
         }
       float ya[32], yb[32];
@@ -457,15 +511,17 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       sm90::pin(yb);
       sm90::wg_fence();
 #pragma unroll
-      for (int s = 2; s >= 0; --s)  // lo, then mid, then hi: the small parts first
+      for (int pr = 0; pr < NP2; ++pr) {  // bf16: lo, then mid, then hi: the small parts first
+        const int s = NT == 3 ? pair_a(pr) : 2 - pr, u = NT == 3 ? pair_b(pr) : 0;  // x's part, Wu's term
 #pragma unroll
         for (int ks = 0; ks < RP16; ++ks) {
           const int ca = ks * 16, cb = 64 * KT2 + ks * 16;  // packed columns of a's and b's k-step
           wgmma_ss_t(ya, sm90::desc_k(sX + (s * NA + (ca >> 6)) * TB, (ca & 63) >> 4),
-                     sm90::desc_mn(buf + (ks >> 2) * TB, ks & 3));
+                     sm90::desc_mn(buf + u * L.wu_block + (ks >> 2) * TB, ks & 3));
           wgmma_ss_t(yb, sm90::desc_k(sX + (s * NA + (cb >> 6)) * TB, (cb & 63) >> 4),
-                     sm90::desc_mn(buf + L.wu_block + (ks >> 2) * TB, ks & 3));
+                     sm90::desc_mn(buf + (NT + u) * L.wu_block + (ks >> 2) * TB, ks & 3));
         }
+      }
       sm90::wg_commit();
       sm90::wg_wait_all();
       sm90::pin(ya);
@@ -492,8 +548,8 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
       for (int nt = 0; nt < 8; ++nt) {
         const int n = ch * 64 + nt * 8 + tig * 2;
         if (n >= L.KS) continue;
-        const float bua[2] = {__low2float(bua2[nt]), __high2float(bua2[nt])};
-        const float bub[2] = {__low2float(bub2[nt]), __high2float(bub2[nt])};
+        const float2 fa = pair_f(bua2[nt]), fb = pair_f(bub2[nt]);
+        const float bua[2] = {fa.x, fa.y}, bub[2] = {fb.x, fb.y};
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int row = row0 + warp * 16 + g + 8 * hf;
@@ -504,7 +560,7 @@ __global__ void __cluster_dims__(AD_CLUSTER, 1, 1) __launch_bounds__(AD_THREADS,
             const int i = nt * 4 + 2 * hf + e;
             o[e] = __fadd_rn(__fmul_rn(wa, __fadd_rn(ya[i], bua[e])), __fmul_rn(wb, __fadd_rn(yb[i], bub[e])));
           }
-          *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.D + k0 + n) = pack_bf16(o[0], o[1]);
+          store2(p.out + (size_t)row * p.D + k0 + n, o[0], o[1]);
         }
       }
     }
@@ -543,55 +599,72 @@ bool encode3(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool encode_maps(const AdapterArgs& a, const Layout& L, TmaMaps* m) {
+// nt: the terms of each operand, stacked as the views' outer axis
+template <typename E>
+bool encode_maps(const AdapterArgs<E>& a, const Layout& L, int nt, TmaMaps* m) {
   const uint64_t KS = L.KS, R = a.R, D = a.D;
-  bool ok = encode3(&m->h, a.h, KS, AD_CLUSTER, a.N, KS * 2, D * 2, 64, 1, AD_ROWS);
+  bool ok = encode3(&m->h, a.h, KS, AD_CLUSTER, (uint64_t)nt * a.N, KS * 2, D * 2, 64, 1, AD_ROWS);
   for (int ad = 0; ad < 2; ++ad) {
-    ok = ok && encode3(&m->wu[ad], a.wu[ad], KS, AD_CLUSTER, R, KS * 2, D * 2, 64, 1, L.Rp);
+    ok = ok && encode3(&m->wu[ad], a.wu[ad], KS, AD_CLUSTER, nt * R, KS * 2, D * 2, 64, 1, L.Rp);
     if (a.R % 8 == 0)
-      ok = ok && encode3(&m->wd[ad], a.wd[ad], R, KS, AD_CLUSTER, R * 2, KS * R * 2, 64, 64, 1);
+      ok = ok && encode3(&m->wd[ad], a.wd[ad], R, KS, AD_CLUSTER * nt, R * 2, KS * R * 2, 64, 64, 1);
   }
   return ok;
 }
 
-// The devices on which each instance has its shared-memory limit raised.
-int smem_done[9][64];
+// The devices on which each instance has its shared-memory limit raised, per
+// element type (bf16, fp32).
+int smem_done[2][9][64];
 
-template <int RP16>
-int launch_rp(const AdapterArgs& a, const TmaMaps& maps, int smem, cudaStream_t st) {
-  const cudaError_t err = sm90::allow_smem(adapter_kernel<RP16>, smem, smem_done[RP16]);
+template <int RP16, typename E>
+int launch_rp(const AdapterArgs<E>& a, const TmaMaps& maps, int smem, cudaStream_t st) {
+  const cudaError_t err =
+      sm90::allow_smem(adapter_kernel<RP16, E>, smem, smem_done[kTerms<E> == 1 ? 0 : 1][RP16]);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + AD_ROWS - 1) / AD_ROWS * AD_CLUSTER);
-  adapter_kernel<RP16><<<grid, AD_THREADS, smem, st>>>(a, maps);
+  adapter_kernel<RP16, E><<<grid, AD_THREADS, smem, st>>>(a, maps);
   return (int)cudaGetLastError();
 }
 
 // Bytes of p.acc a call needs: each row tile's 4 ranks x nkt output chunks x
 // 2 adapters x 32 sums of each of 128 threads, fp32; 0 with one chunk.
-size_t acc_bytes(int N, int D, int R) {
-  if (N <= 0 || chunk_count(R) < 2) return 0;
-  const Layout L = layout(D, chunk_width(R));
+size_t acc_bytes(int N, int D, int R, bool f32) {
+  if (N <= 0 || chunk_count(R, f32) < 2) return 0;
+  const Layout L = layout(D, chunk_width(R, f32), 1, 2);
   return (size_t)(N + AD_ROWS - 1) / AD_ROWS * AD_CLUSTER * L.nkt * 2 * 32 * AD_THREADS * 4;
 }
 
-int launch(AdapterArgs a, cudaStream_t st) {
+// The workspace: fp32's operand terms (h's 3 N D, each Wd's and Wu's 3 D R
+// bf16), then p.acc.
+size_t terms_bytes(int N, int D, int R, bool f32) {
+  return f32 ? ((size_t)3 * N * D + (size_t)12 * D * R) * 2 : 0;
+}
+
+template <typename E>
+int launch(AdapterArgs<E> a, cudaStream_t st) {
+  constexpr bool f32 = kTerms<E> == 3;
   if (a.N < 0 || a.D < 64 || a.D % 64 || a.R < 1) return (int)cudaErrorInvalidValue;
   if (a.N == 0) return 0;
-  a.nc = chunk_count(a.R);
+  a.nc = chunk_count(a.R, f32);
   if (a.nc > 1 && a.acc == nullptr) return (int)cudaErrorInvalidValue;
-  const Layout L = layout(a.D, chunk_width(a.R));
+  const Layout L = layout(a.D, chunk_width(a.R, f32), kTerms<E>, sizeof(E));
   TmaMaps maps;
-  if (!encode_maps(a, L, &maps)) return (int)cudaErrorInvalidValue;
+  if (!encode_maps(a, L, kTerms<E>, &maps)) return (int)cudaErrorInvalidValue;
   switch (L.Rp / 16) {
     case 1: return launch_rp<1>(a, maps, L.smem, st);
     case 2: return launch_rp<2>(a, maps, L.smem, st);
     case 3: return launch_rp<3>(a, maps, L.smem, st);
-    case 4: return launch_rp<4>(a, maps, L.smem, st);
-    case 5: return launch_rp<5>(a, maps, L.smem, st);
-    case 6: return launch_rp<6>(a, maps, L.smem, st);
-    case 7: return launch_rp<7>(a, maps, L.smem, st);
-    default: return launch_rp<8>(a, maps, L.smem, st);
   }
+  if constexpr (!f32) {
+    switch (L.Rp / 16) {
+      case 4: return launch_rp<4>(a, maps, L.smem, st);
+      case 5: return launch_rp<5>(a, maps, L.smem, st);
+      case 6: return launch_rp<6>(a, maps, L.smem, st);
+      case 7: return launch_rp<7>(a, maps, L.smem, st);
+      default: return launch_rp<8>(a, maps, L.smem, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -600,35 +673,69 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Bytes of scratch adapter_fused_fwd needs at these shapes (0: none).
-long long adapter_fused_workspace(int N, int D, int R) { return (long long)acc_bytes(N, D, R); }
+// Bytes of scratch adapter_fused_fwd needs at these shapes (0: none), bf16
+// (f32 = 0) or fp32 (f32 = 1).
+long long adapter_fused_workspace(int N, int D, int R, int f32) {
+  return (long long)(terms_bytes(N, D, R, f32 != 0) + acc_bytes(N, D, R, f32 != 0));
+}
 
-// h [N, D] bf16; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 and
-// 16-byte aligned; out [N, D] bf16; workspace of adapter_fused_workspace
-// bytes (may be null when that is 0).  D a multiple of 64, D >= 64, R >= 1,
-// N >= 0 (cudaErrorInvalidValue otherwise).
-// Returns the CUDA error of the launch (0 = success).
+// h [N, D]; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 (f32 = 0)
+// or all fp32 (f32 = 1), 16-byte aligned; out [N, D] of the same type;
+// workspace of adapter_fused_workspace bytes (may be null when that is 0).
+// D a multiple of 64, D >= 64, R >= 1, N >= 0 (cudaErrorInvalidValue
+// otherwise).  Returns the CUDA error of the launches (0 = success).
 int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const void* wu_a,
                       const void* bu_a, const void* wd_b, const void* bd_b, const void* wu_b,
-                      const void* bu_b, void* out, void* workspace, int N, int D, int R,
+                      const void* bu_b, void* out, void* workspace, int N, int D, int R, int f32,
                       float weight, void* stream) {
-  AdapterArgs a{};
-  a.h = static_cast<const bf16*>(h);
-  a.wd[0] = static_cast<const bf16*>(wd_a);
-  a.bd[0] = static_cast<const bf16*>(bd_a);
-  a.wu[0] = static_cast<const bf16*>(wu_a);
-  a.bu[0] = static_cast<const bf16*>(bu_a);
-  a.wd[1] = static_cast<const bf16*>(wd_b);
-  a.bd[1] = static_cast<const bf16*>(bd_b);
-  a.wu[1] = static_cast<const bf16*>(wu_b);
-  a.bu[1] = static_cast<const bf16*>(bu_b);
-  a.out = static_cast<bf16*>(out);
-  a.acc = static_cast<float*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const void* wd[2] = {wd_a, wd_b};
+  const void* bd[2] = {bd_a, bd_b};
+  const void* wu[2] = {wu_a, wu_b};
+  const void* bu[2] = {bu_a, bu_b};
+  if (!f32) {
+    AdapterArgs<bf16> a{};
+    a.h = static_cast<const bf16*>(h);
+    for (int i = 0; i < 2; ++i) {
+      a.wd[i] = static_cast<const bf16*>(wd[i]);
+      a.bd[i] = static_cast<const bf16*>(bd[i]);
+      a.wu[i] = static_cast<const bf16*>(wu[i]);
+      a.bu[i] = static_cast<const bf16*>(bu[i]);
+    }
+    a.out = static_cast<bf16*>(out);
+    a.acc = static_cast<float*>(workspace);
+    a.N = N;
+    a.D = D;
+    a.R = R;
+    a.weight = weight;
+    return launch(a, st);
+  }
+  if (N < 0 || D < 64 || D % 64 || R < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  // the operands' terms: h's planes N D apart, each matrix's D R apart
+  bf16* terms = static_cast<bf16*>(workspace);
+  const long long nd = (long long)N * D, dr = (long long)D * R;
+  AdapterArgs<float> a{};
+  int err = launch_split3(static_cast<const float*>(h), terms, nd, nd, st);
+  a.h = terms;
+  bf16* w = terms + 3 * nd;
+  for (int i = 0; i < 2 && !err; ++i) {
+    err = launch_split3(static_cast<const float*>(wd[i]), w + 6 * i * dr, dr, dr, st);
+    if (!err) err = launch_split3(static_cast<const float*>(wu[i]), w + (6 * i + 3) * dr, dr, dr, st);
+    a.wd[i] = w + 6 * i * dr;
+    a.wu[i] = w + (6 * i + 3) * dr;
+    a.bd[i] = static_cast<const float*>(bd[i]);
+    a.bu[i] = static_cast<const float*>(bu[i]);
+  }
+  if (err) return err;
+  a.out = static_cast<float*>(out);
+  const size_t tb = terms_bytes(N, D, R, true);
+  a.acc = acc_bytes(N, D, R, true) ? reinterpret_cast<float*>(static_cast<char*>(workspace) + tb) : nullptr;
   a.N = N;
   a.D = D;
   a.R = R;
   a.weight = weight;
-  return launch(a, reinterpret_cast<cudaStream_t>(stream));
+  return launch(a, st);
 }
 
 }  // extern "C"

@@ -34,6 +34,10 @@
 //     [B, H, S] scratch) and block_core_bwd_dkdv_kernel, over Heads views of
 //     the [3, M, Dm] q/k/v and dq|dk|dv scratch planes and the dctx/ctx
 //     planes in place.  Any S >= 1 runs.
+// In fp32 (T = float) every product's activation operand is split into its
+// bf16 terms first (common.cuh's split3, into AttnBwdScratch::planes) and the
+// weights' terms come from the caller; nothing rounds, and the products are
+// the six term products of gemm_sm90.cuh and attn_sm90.cuh.
 // The entries live in the file-level anonymous namespace (the one the
 // including .cu file uses too: nvcc's host stubs cannot tell kernels of two
 // anonymous namespaces of one file apart), so #3's library (attn_block.cu)
@@ -47,106 +51,140 @@
 namespace {
 
 // dkdv before dq (attn_sm90.cuh)
-__global__ void __launch_bounds__(port::attn::FA_THREADS, port::attn::DKDV_MIN_BLOCKS)
-    block_core_bwd_dkdv_kernel(port::attn::FusedBwdArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(port::attn::FA_THREADS, port::attn::dkdv_min_blocks<T>())
+    block_core_bwd_dkdv_kernel(port::attn::FusedBwdArgs<T> p) {
   port::attn::fused_bwd_dkdv_body(p);
 }
 
-__global__ void __launch_bounds__(port::attn::FA_THREADS, port::attn::DQ_MIN_BLOCKS)
-    block_core_bwd_dq_kernel(port::attn::FusedBwdArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(port::attn::FA_THREADS, port::attn::dq_min_blocks<T>())
+    block_core_bwd_dq_kernel(port::attn::FusedBwdArgs<T> p) {
   port::attn::fused_bwd_dq_body(p);
 }
 
-int core_dq_smem_done[64], core_dkdv_smem_done[64];
+// per element type (bf16, fp32)
+int core_dq_smem_done[2][64], core_dkdv_smem_done[2][64];
 
 }  // namespace
 
 namespace port {
 
-// Everything of the attention backward up to dxln (fp32 [M, Dm]), on `st`.
-// ws: qkv [3, M, Dm] bf16, dqkv [3, M, Dm] bf16, dctx [M, Dm] bf16, delta [B, H, S] f32
-// and, with LN1 (gamma given), xln [M, Dm] bf16.
+// Everything of the attention backward up to dxln (fp32 [M, Dm]), on `st`,
+// in the element type T.
+struct AttnBwdScratch {
+  void* qkv;     // [3, M, Dm] T: the recomputed q/k/v
+  void* dqkv;    // [3, M, Dm] T: dq|dk|dv
+  void* dctx;    // [M, Dm] T
+  float* delta;  // [B, H, S]
+  void* xln;     // [M, Dm] T: LN1(x) when gamma is given
+  bf16* planes;  // fp32: the bf16 terms of each product's activation operand (12 M Dm)
+};
+
+template <typename T>
 struct AttnBwdProblem {
-  const bf16* x;                 // [M, Dm] pre-LN input (or the LN output when gamma is null)
-  const bf16 *wq, *wk, *wv, *wo;  // [Dm, Dm] nn.Linear layout
-  const float* bqkv;             // [3, Dm]
-  const float* gamma;            // LN1 [Dm] or null
+  const T* x;                          // [M, Dm] pre-LN input (or the LN output when gamma is null)
+  const bf16 *wq, *wk, *wv, *wo;       // [Dm, Dm] nn.Linear layout: bf16, or fp32's planes w_term apart
+  long long w_term;
+  const float* bqkv;                   // [3, Dm]
+  const float* gamma;                  // LN1 [Dm] or null
   const float* beta;
   float ln_eps;
-  const float* bias;             // [B, S] or null
-  const bf16* ctx;
+  const float* bias;                   // [B, S] or null
+  const T* ctx;
   const float* lse;
-  const bf16* g_att;             // [M, Dm] bf16 cotangent of the block's output
-  bf16* qkv;
-  bf16* dqkv;
-  bf16* dctx;
-  float* delta;
-  bf16* xln;                     // bf16(LN1(x)) when gamma is given
+  const T* g_att;                      // [M, Dm] cotangent of the block's output
+  AttnBwdScratch ws;
   int B, S, Dm, H;
   float scale;
 };
 
-inline int attn_bwd_to_dxln(const AttnBwdProblem& a, int dx_epi_bf16, bf16* dx_bf16, float* dxln,
-                            cudaStream_t st) {
+// Bytes of the fp32 backward's operand planes: the q|k|v and dctx terms the
+// per-head part reads at once, 12 M Dm bf16 (the dctx and dx products' A
+// terms take fewer).
+inline size_t attn_bwd_planes_bytes(size_t md) { return 12 * md * 2; }
+
+template <typename T>
+inline int attn_bwd_to_dxln(const AttnBwdProblem<T>& a, T* dx_t, float* dxln, cudaStream_t st) {
   const int M = a.B * a.S;
   const size_t plane = (size_t)M * a.Dm;
+  T* const qkv = static_cast<T*>(a.ws.qkv);
+  T* const dqkv = static_cast<T*>(a.ws.dqkv);
+  T* const dctx = static_cast<T*>(a.ws.dctx);
+  bf16* const planes = a.ws.planes;
   int err;
 
-  GemmArgs c{};  // dctx = bf16(g_att . Wo)
-  c.a[0] = a.g_att;
+  GemmArgs c{};  // dctx = T(g_att . Wo)
+  if ((err = operand_of(a.g_att, (long long)plane, planes, &c.a[0], &c.a_term, st))) return err;
   c.lda = a.Dm;
   c.b[0] = a.wo;
+  c.b_term = a.w_term;
   c.ldb = a.Dm;
   c.M = M;
   c.N = a.Dm;
   c.K = a.Dm;
-  c.c_bf16[0] = a.dctx;
-  if ((err = launch_gemm_sm90<B_NN, EPI_BF16>(c, st))) return err;
+  c.c[0] = dctx;
+  if ((err = launch_gemm_sm90<B_NN, EPI_OUT, T>(c, st))) return err;
 
-  // q/k/v = bf16(xln . W^T + b), xln = bf16(LN1(x)) when gamma is given
-  if ((err = launch_qkv(a.x, a.gamma, a.beta, a.ln_eps, a.xln, a.wq, a.wk, a.wv, a.bqkv, a.qkv, M,
-                        a.Dm, st)))
+  // q/k/v = T(xln . W^T + b), xln = T(LN1(x)) when gamma is given
+  const bf16* w[3] = {a.wq, a.wk, a.wv};
+  if ((err = launch_qkv<T>(a.x, a.gamma, a.beta, a.ln_eps, static_cast<T*>(a.ws.xln), planes, w, a.w_term,
+                           a.bqkv, qkv, M, a.Dm, st)))
     return err;
 
+  // the per-head part's operands: q/k/v and dctx themselves, or their terms
+  // (q|k|v's planes 3 M Dm apart, then dctx's M Dm apart)
+  const bf16 *qkv_op, *dctx_op;
+  long long qkv_tt, dctx_tt;
+  if ((err = operand_of(static_cast<const T*>(qkv), 3 * (long long)plane, planes, &qkv_op, &qkv_tt, st)))
+    return err;
+  if ((err = operand_of(static_cast<const T*>(dctx), (long long)plane, planes + 9 * plane, &dctx_op, &dctx_tt,
+                        st)))
+    return err;
   const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*64
   const int hd = attn::FA_D;
-  attn::FusedBwdArgs t{};
-  t.q = {a.qkv, sb, hd, a.Dm};
-  t.k = {a.qkv + plane, sb, hd, a.Dm};
-  t.v = {a.qkv + 2 * plane, sb, hd, a.Dm};
-  t.dout = {a.dctx, sb, hd, a.Dm};
-  t.ctx = {a.ctx, sb, hd, a.Dm};
+  attn::FusedBwdArgs<T> t{};
+  t.q = {qkv_op, sb, hd, a.Dm, qkv_tt};
+  t.k = {qkv_op + plane, sb, hd, a.Dm, qkv_tt};
+  t.v = {qkv_op + 2 * plane, sb, hd, a.Dm, qkv_tt};
+  t.dout = {dctx_op, sb, hd, a.Dm, dctx_tt};
+  t.ctx = {a.ctx, sb, hd, a.Dm, 0};
   t.lse = a.lse;
   t.bias = a.bias;
-  t.delta = a.delta;
-  t.dq = {a.dqkv, sb, hd, a.Dm};
-  t.dk = {a.dqkv + plane, sb, hd, a.Dm};
-  t.dv = {a.dqkv + 2 * plane, sb, hd, a.Dm};
+  t.delta = a.ws.delta;
+  t.dq = {dqkv, sb, hd, a.Dm, 0};
+  t.dk = {dqkv + plane, sb, hd, a.Dm, 0};
+  t.dv = {dqkv + 2 * plane, sb, hd, a.Dm, 0};
   t.S = a.S;
   t.H = a.H;
   t.scale = a.scale;
-  if ((err = attn::launch_bwd(block_core_bwd_dq_kernel, core_dq_smem_done, block_core_bwd_dkdv_kernel,
-                              core_dkdv_smem_done, t, a.B, st)))
+  constexpr int ti = kTerms<T> == 1 ? 0 : 1;
+  if ((err = attn::launch_bwd(block_core_bwd_dq_kernel<T>, core_dq_smem_done[ti], block_core_bwd_dkdv_kernel<T>,
+                              core_dkdv_smem_done[ti], t, a.B, st)))
     return err;
 
   GemmArgs d{};  // dxln = dq.Wq + dk.Wk + dv.Wv  (one product, K = 3 Dm)
-  for (int i = 0; i < 3; ++i) d.a[i] = a.dqkv + i * plane;
+  const bf16* dop;
+  if ((err = operand_of(static_cast<const T*>(dqkv), 3 * (long long)plane, planes, &dop, &d.a_term, st)))
+    return err;
+  for (int i = 0; i < 3; ++i) d.a[i] = dop + i * plane;
   d.lda = a.Dm;
   d.a_kseg = a.Dm;
   d.b[0] = a.wq;
   d.b[1] = a.wk;
   d.b[2] = a.wv;
+  d.b_term = a.w_term;
   d.ldb = a.Dm;
   d.b_seg = a.Dm;
   d.M = M;
   d.N = a.Dm;
   d.K = 3 * a.Dm;
-  if (dx_epi_bf16) {
-    d.c_bf16[0] = dx_bf16;
-    return launch_gemm_sm90<B_NN, EPI_BF16>(d, st);
+  if (dx_t != nullptr) {
+    d.c[0] = dx_t;
+    return launch_gemm_sm90<B_NN, EPI_OUT, T>(d, st);
   }
   d.c_f32 = dxln;
-  return launch_gemm_sm90<B_NN, EPI_F32>(d, st);
+  return launch_gemm_sm90<B_NN, EPI_F32, T>(d, st);
 }
 
 }  // namespace port

@@ -80,6 +80,17 @@
 // Keys past S and queries past S contribute exactly 0 (the zero rows that
 // cp.async fills in do not give p = 0: a zero q row has logits = bias, and a
 // zero-filled lse gives p = exp(s)), and their rows are not written.
+//
+// fp32 (#1, #3 and #4 in float32: the bodies' T = float).  The TPU kernels'
+// rounding points are casts to the model dtype, so in fp32 nothing rounds: P
+// and ds enter their products at fp32 precision and o, dq, dk, dv are fp32.
+// The operands q, k, v, dO are the three bf16 terms of each fp32 value
+// (common.cuh's split3, Heads::tt apart), each loaded into a tile of its own
+// (so a Q, K, V or dO block takes three tiles), and every product is the six
+// term products in common.cuh's pair order on the same wgmma paths; P and ds
+// are split in registers the same way (term_frag).  The six products cost
+// 6x the bf16 tensor-core work, and the tiles 3x the shared memory (forward
+// 122 KB, dq and dkdv 146 KB: one block per SM).
 #pragma once
 
 #include "flash_sm90.cuh"
@@ -93,29 +104,33 @@ constexpr int FA_THREADS = 128;  // one warpgroup
 constexpr int FA_STAGES = 2;     // ring stages: step j+1's copies in flight during step j
 constexpr int TB = sm90::TILE_BYTES;
 
-// The forward's operands: q, k, v, o [B, H, S, 64]
-// bf16 views; bias [B, S] fp32 or null; lse [B, H, S] fp32 (output).
+// The forward's operands: q, k, v [B, H, S, 64] bf16 views (the terms of
+// fp32 ones); bias [B, S] fp32 or null; outputs o [B, H, S, 64] of the
+// element type T and lse [B, H, S] fp32.
+template <typename T>
 struct FusedFwdArgs {
   Heads<const bf16> q, k, v;
   const float* bias;
-  Heads<bf16> o;
+  Heads<T> o;
   float* lse;
   int S, H;
   float scale;
 };
 
-// The backward's operands: q, k, v, dout, ctx (the
-// forward's o) [B, H, S, 64] bf16 views; lse [B, H, S] fp32 from the forward;
-// bias [B, S] fp32 or null; delta [B, H, S] fp32 scratch (written by the dq
-// launch, read by the dkdv launch); dq, dk, dv outputs.
+// The backward's operands: q, k, v, dout [B, H, S, 64] bf16 views (the terms
+// of fp32 ones) and ctx (the forward's o, of the element type); lse
+// [B, H, S] fp32 from the forward; bias [B, S] fp32 or null; delta [B, H, S]
+// fp32 scratch (written by the dq launch, read by the dkdv launch); dq, dk,
+// dv outputs of the element type.
+template <typename T>
 struct FusedBwdArgs {
   Heads<const bf16> q, k, v;
   Heads<const bf16> dout;
-  Heads<const bf16> ctx;
+  Heads<const T> ctx;
   const float* lse;
   const float* bias;
   float* delta;
-  Heads<bf16> dq, dk, dv;
+  Heads<T> dq, dk, dv;
   int S, H;
   float scale;
 };
@@ -140,10 +155,34 @@ __device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
 }
 
 // the bf16 A fragment of k-step ks (16 columns) of a 64 x 64 fp32 accumulator:
-// each value rounded to bf16 once (round to nearest even)
-__device__ __forceinline__ void bf16_frag(const float (&x)[32], int ks, uint32_t (&a)[4]) {
+// term t of each value's split (t = 0: the value rounded to bf16 once, round
+// to nearest even)
+__device__ __forceinline__ void term_frag(const float (&x)[32], int ks, int t, uint32_t (&a)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(x[ks * 8 + 2 * i], x[ks * 8 + 2 * i + 1]);
+  for (int i = 0; i < 4; ++i)
+    a[i] = pack_bf16(split_term(x[ks * 8 + 2 * i], t), split_term(x[ks * 8 + 2 * i + 1], t));
+}
+
+// eight adjacent values of a [.., 64] operand given as NT bf16 terms tt apart
+template <int NT>
+__device__ __forceinline__ void load_terms8(const bf16* p, long long tt, float (&v)[8]) {
+  load8(p, v);
+  if (NT == 3) {
+    float m[8], l[8];
+    load8(p + tt, m);
+    load8(p + 2 * tt, l);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (v[i] + m[i]) + l[i];  // exact: the terms' sum is the fp32 value
+  }
+}
+
+// the NT term tiles of rows [r0, r0 + 64) of an operand (terms tt apart)
+// into consecutive swizzled tiles from `tile` by cp.async
+template <int NT>
+__device__ __forceinline__ void load_tiles(uint32_t tile, const bf16* src, long long ss, long long tt, int r0,
+                                           int S, int tid) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) sm90::load_tile<FA_THREADS>(tile + t * TB, src + t * tt, ss, r0, S, tid);
 }
 
 // 64 fp32 values [i0, i0 + 64) of `src` into shared memory by cp.async (one
@@ -155,27 +194,40 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int i0, i
   }
 }
 
-// d = A . B^T over the 64 head dims: A, B two [64 rows][64] swizzled tiles
+// d = A . B^T over the 64 head dims: A, B [64 rows][64] swizzled tiles, NT
+// term tiles each (consecutive), the term pairs in common.cuh's order
+template <int NT>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
+  constexpr int NP = NT == 3 ? 6 : 1;
 #pragma unroll
-  for (int ks = 0; ks < FA_D / 16; ++ks) sm90::wgmma_ss(d, sm90::desc_k(a, ks), sm90::desc_k(b, ks), ks);
+  for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < FA_D / 16; ++ks)
+      sm90::wgmma_ss(d, sm90::desc_k(a + (NP == 1 ? 0 : pair_a(pr)) * TB, ks),
+                     sm90::desc_k(b + (NP == 1 ? 0 : pair_b(pr)) * TB, ks), pr + ks);
 }
 
-// d += bf16(x) . B over 64 rows: x a 64 x 64 fp32 accumulator, B a natural
-// [64 rows][64] swizzled tile read as wgmma's transposed B
+// d += x . B over 64 rows: x a 64 x 64 fp32 accumulator taken as NT bf16
+// terms (NT = 1: bf16(x)), B natural [64 rows][64] swizzled tiles (NT terms)
+// read as wgmma's transposed B, the term pairs in common.cuh's order
+template <int NT>
 __device__ __forceinline__ void product_rs(float (&d)[32], const float (&x)[32], uint32_t b) {
+  constexpr int NP = NT == 3 ? 6 : 1;
 #pragma unroll
-  for (int ks = 0; ks < FA_ROWS / 16; ++ks) {
-    uint32_t a[4];
-    bf16_frag(x, ks, a);
-    sm90::wgmma_rs_t(d, a, sm90::desc_mn(b, ks));
-  }
+  for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < FA_ROWS / 16; ++ks) {
+      uint32_t a[4];
+      term_frag(x, ks, NP == 1 ? 0 : pair_a(pr), a);
+      sm90::wgmma_rs_t(d, a, sm90::desc_mn(b + (NP == 1 ? 0 : pair_b(pr)) * TB, ks));
+    }
 }
 
 // ----------------------------------------------------------- forward
-// Dynamic shared memory: Q, then K and V of each stage, then 64 bias floats
-// of each stage.
-constexpr int FWD_SMEM = 1024 + (1 + 2 * FA_STAGES) * TB + FA_STAGES * FA_ROWS * 4;
+// Dynamic shared memory: Q, then K and V of each stage (NT tiles each), then
+// 64 bias floats of each stage.
+template <int NT>
+__host__ __device__ constexpr int fwd_smem() { return 1024 + NT * (1 + 2 * FA_STAGES) * TB + FA_STAGES * FA_ROWS * 4; }
 
 // The block's 64 queries at one 64-key step: s = fp32(q.k^T) * scale + bias,
 // -inf at keys past S, into x (in place of the accumulator)
@@ -193,12 +245,14 @@ __device__ __forceinline__ void logits(float (&x)[32], const float* bs, bool has
   }
 }
 
-__device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
+template <typename T>
+__device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs<T>& p) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fa_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sQ = sbase;  // stage st: K at sbase + (1 + 2 st) TB, V one tile later
-  float* bias_s = reinterpret_cast<float*>(sp + (1 + 2 * FA_STAGES) * TB);
+  const uint32_t sQ = sbase;  // stage st: K at sbase + NT (1 + 2 st) TB, V NT tiles later
+  float* bias_s = reinterpret_cast<float*>(sp + NT * (1 + 2 * FA_STAGES) * TB);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -214,15 +268,15 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
   auto stage = [&](int j) {
     if (j < 2 * nk) {
       const int st = j % FA_STAGES, k0 = (j < nk ? j : j - nk) * FA_ROWS;
-      const uint32_t sk = sbase + (1 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sk, kb, p.k.ss, k0, p.S, tid);
-      if (j >= nk) sm90::load_tile<FA_THREADS>(sk + TB, vb, p.v.ss, k0, p.S, tid);
+      const uint32_t sk = sbase + NT * (1 + 2 * st) * TB;
+      load_tiles<NT>(sk, kb, p.k.ss, p.k.tt, k0, p.S, tid);
+      if (j >= nk) load_tiles<NT>(sk + NT * TB, vb, p.v.ss, p.v.tt, k0, p.S, tid);
       if (brow != nullptr) load_vec(bias_s + st * FA_ROWS, brow, k0, p.S, tid);
     }
     sm90::cp_async_commit();
   };
 
-  sm90::load_tile<FA_THREADS>(sQ, p.q.at(b, h), p.q.ss, q0, p.S, tid);
+  load_tiles<NT>(sQ, p.q.at(b, h), p.q.ss, p.q.tt, q0, p.S, tid);
   stage(0);  // Q lands with the first step
 
   float m[2] = {-INFINITY, -INFINITY};  // rows lrow, lrow + 8: this thread's max, then the row's
@@ -236,11 +290,11 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
     stage(j + 1);
-    const uint32_t sk = sbase + (1 + 2 * st) * TB;
+    const uint32_t sk = sbase + NT * (1 + 2 * st) * TB;
 
     float s[32];
     sm90::wg_fence();
-    product_ss(s, sQ, sk);
+    product_ss<NT>(s, sQ, sk);
     sm90::wg_commit();
     sm90::wg_wait_all();
     sm90::pin(s);
@@ -255,7 +309,7 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
       }
       continue;
     }
-    // sweep 2: p = exp(s - m) (exp(-inf) = 0 at keys past S), l += p, o += bf16(p).v
+    // sweep 2: p = exp(s - m) (exp(-inf) = 0 at keys past S), l += p, o += T(p).v
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
@@ -264,7 +318,7 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
     }
     sm90::pin(o);
     sm90::wg_fence();
-    product_rs(o, s, sk + TB);
+    product_rs<NT>(o, s, sk + NT * TB);
     sm90::wg_commit();
     sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
     sm90::pin(o);
@@ -272,7 +326,7 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
 
   const int lrow = warp * 16 + g;  // block-local row of o[..0|1]; lrow + 8 of o[..2|3]
   const int row[2] = {q0 + lrow, q0 + lrow + 8};
-  bf16* ob = p.o.at(b, h);
+  T* ob = p.o.at(b, h);
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
 #pragma unroll
@@ -281,8 +335,7 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.S)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row[r] * p.o.ss + col) =
-            pack_bf16(o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
+        store2(ob + (long long)row[r] * p.o.ss + col, o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
   }
   if (tig == 0) {
 #pragma unroll
@@ -297,15 +350,18 @@ __device__ __forceinline__ void fused_fwd_body(const FusedFwdArgs& p) {
 // body of the one before it; PERF.md §6 records what each got).
 //
 // dkdv's dynamic shared memory: K and V of the block, then Q and dO of each
-// stage, then lse and delta (64 floats each) of each stage.
-constexpr int DKDV_SMEM = 1024 + (2 + 2 * FA_STAGES) * TB + FA_STAGES * 2 * FA_ROWS * 4;
+// stage (NT tiles each), then lse and delta (64 floats each) of each stage.
+template <int NT>
+__host__ __device__ constexpr int dkdv_smem() { return 1024 + NT * (2 + 2 * FA_STAGES) * TB + FA_STAGES * 2 * FA_ROWS * 4; }
 
-__device__ __forceinline__ void fused_bwd_dkdv_body(const FusedBwdArgs& p) {
+template <typename T>
+__device__ __forceinline__ void fused_bwd_dkdv_body(const FusedBwdArgs<T>& p) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fa_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sK = sbase, sV = sbase + TB;  // stage st: Q at sbase + (2 + 2 st) TB, dO one tile later
-  float* vec_s = reinterpret_cast<float*>(sp + (2 + 2 * FA_STAGES) * TB);  // [stage][lse 64 | delta 64]
+  const uint32_t sK = sbase, sV = sbase + NT * TB;  // stage st: Q at sbase + NT (2 + 2 st) TB, dO NT tiles later
+  float* vec_s = reinterpret_cast<float*>(sp + NT * (2 + 2 * FA_STAGES) * TB);  // [stage][lse 64 | delta 64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -329,17 +385,17 @@ __device__ __forceinline__ void fused_bwd_dkdv_body(const FusedBwdArgs& p) {
   auto stage = [&](int j) {
     if (j < nq) {
       const int st = j % FA_STAGES, qt = j * FA_ROWS;
-      const uint32_t sq = sbase + (2 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sq, qb, p.q.ss, qt, p.S, tid);
-      sm90::load_tile<FA_THREADS>(sq + TB, dob, p.dout.ss, qt, p.S, tid);
+      const uint32_t sq = sbase + NT * (2 + 2 * st) * TB;
+      load_tiles<NT>(sq, qb, p.q.ss, p.q.tt, qt, p.S, tid);
+      load_tiles<NT>(sq + NT * TB, dob, p.dout.ss, p.dout.tt, qt, p.S, tid);
       load_vec(vec_s + st * 2 * FA_ROWS, p.lse + lse0, qt, p.S, tid);
       load_vec(vec_s + st * 2 * FA_ROWS + FA_ROWS, p.delta + lse0, qt, p.S, tid);
     }
     sm90::cp_async_commit();
   };
 
-  sm90::load_tile<FA_THREADS>(sK, p.k.at(b, h), p.k.ss, k0, p.S, tid);
-  sm90::load_tile<FA_THREADS>(sV, p.v.at(b, h), p.v.ss, k0, p.S, tid);
+  load_tiles<NT>(sK, p.k.at(b, h), p.k.ss, p.k.tt, k0, p.S, tid);
+  load_tiles<NT>(sV, p.v.at(b, h), p.v.ss, p.v.tt, k0, p.S, tid);
   stage(0);  // K and V land with the first step
 
   float dk[32], dv[32];
@@ -351,13 +407,13 @@ __device__ __forceinline__ void fused_bwd_dkdv_body(const FusedBwdArgs& p) {
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
     stage(j + 1);
-    const uint32_t sq = sbase + (2 + 2 * st) * TB, so = sq + TB;
+    const uint32_t sq = sbase + NT * (2 + 2 * st) * TB, so = sq + NT * TB;
 
     // s^T = K.Q^T and dp^T = V.dO^T: rows = the block's 64 keys, columns = 64 queries
     float s[32], dp[32];
     sm90::wg_fence();
-    product_ss(s, sK, sq);
-    product_ss(dp, sV, so);
+    product_ss<NT>(s, sK, sq);
+    product_ss<NT>(dp, sV, so);
     sm90::wg_commit();
     sm90::wg_wait_all();
     sm90::pin(s);
@@ -385,44 +441,47 @@ __device__ __forceinline__ void fused_bwd_dkdv_body(const FusedBwdArgs& p) {
       }
     }
 
-    // dv += bf16(p^T).dO and dk += bf16(ds^T).q, dO and q from their natural tiles
+    // dv += T(p^T).dO and dk += T(ds^T).q, dO and q from their natural tiles
     sm90::pin(dk);
     sm90::pin(dv);
     sm90::wg_fence();
-    product_rs(dv, s, so);
-    product_rs(dk, dp, sq);
+    product_rs<NT>(dv, s, so);
+    product_rs<NT>(dk, dp, sq);
     sm90::wg_commit();
     sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
     sm90::pin(dk);
     sm90::pin(dv);
   }
 
-  bf16* dkb = p.dk.at(b, h);
-  bf16* dvb = p.dv.at(b, h);
+  T* dkb = p.dk.at(b, h);
+  T* dvb = p.dv.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < FA_D / 8; ++nt) {
     const int col = nt * 8 + tig * 2;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (key[r] < p.S) {
-        *reinterpret_cast<uint32_t*>(dvb + (long long)key[r] * p.dv.ss + col) =
-            pack_bf16(dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dkb + (long long)key[r] * p.dk.ss + col) =
-            pack_bf16(dk[nt * 4 + 2 * r] * p.scale, dk[nt * 4 + 2 * r + 1] * p.scale);
+        store2(dvb + (long long)key[r] * p.dv.ss + col, dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
+        store2(dkb + (long long)key[r] * p.dk.ss + col, dk[nt * 4 + 2 * r] * p.scale,
+               dk[nt * 4 + 2 * r + 1] * p.scale);
       }
   }
 }
 
 // dq's dynamic shared memory: Q and dO of the block, then K and V of each
-// stage, then 64 bias floats of each stage, then the block's 64 deltas.
-constexpr int DQ_SMEM = 1024 + (2 + 2 * FA_STAGES) * TB + (FA_STAGES + 1) * FA_ROWS * 4;
+// stage (NT tiles each), then 64 bias floats of each stage, then the block's
+// 64 deltas.
+template <int NT>
+__host__ __device__ constexpr int dq_smem() { return 1024 + NT * (2 + 2 * FA_STAGES) * TB + (FA_STAGES + 1) * FA_ROWS * 4; }
 
-__device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs& p) {
+template <typename T>
+__device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs<T>& p) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fa_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fa_smem, &sp);
-  const uint32_t sQ = sbase, sO = sbase + TB;  // stage st: K at sbase + (2 + 2 st) TB, V one tile later
-  float* bias_s = reinterpret_cast<float*>(sp + (2 + 2 * FA_STAGES) * TB);
+  const uint32_t sQ = sbase, sO = sbase + NT * TB;  // stage st: K at sbase + NT (2 + 2 st) TB, V NT tiles later
+  float* bias_s = reinterpret_cast<float*>(sp + NT * (2 + 2 * FA_STAGES) * TB);
   float* delta_s = bias_s + FA_STAGES * FA_ROWS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -442,16 +501,16 @@ __device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs& p) {
   auto stage = [&](int j) {
     if (j < nk) {
       const int st = j % FA_STAGES, k0 = j * FA_ROWS;
-      const uint32_t sk = sbase + (2 + 2 * st) * TB;
-      sm90::load_tile<FA_THREADS>(sk, kb, p.k.ss, k0, p.S, tid);
-      sm90::load_tile<FA_THREADS>(sk + TB, vb, p.v.ss, k0, p.S, tid);
+      const uint32_t sk = sbase + NT * (2 + 2 * st) * TB;
+      load_tiles<NT>(sk, kb, p.k.ss, p.k.tt, k0, p.S, tid);
+      load_tiles<NT>(sk + NT * TB, vb, p.v.ss, p.v.tt, k0, p.S, tid);
       if (brow != nullptr) load_vec(bias_s + st * FA_ROWS, brow, k0, p.S, tid);
     }
     sm90::cp_async_commit();
   };
 
-  sm90::load_tile<FA_THREADS>(sQ, p.q.at(b, h), p.q.ss, q0, p.S, tid);
-  sm90::load_tile<FA_THREADS>(sO, dob, p.dout.ss, q0, p.S, tid);
+  load_tiles<NT>(sQ, p.q.at(b, h), p.q.ss, p.q.tt, q0, p.S, tid);
+  load_tiles<NT>(sO, dob, p.dout.ss, p.dout.tt, q0, p.S, tid);
   stage(0);  // Q and dO land with the first step
 
   // delta = rowsum(dO * o) in fp32 while they land: two threads a row, 32
@@ -461,15 +520,14 @@ __device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs& p) {
     float acc = 0.f;
     if (q < p.S) {
       const bf16* dr = dob + (long long)q * p.dout.ss + c0;
-      const bf16* orow = p.ctx.at(b, h) + (long long)q * p.ctx.ss + c0;
+      const T* orow = p.ctx.at(b, h) + (long long)q * p.ctx.ss + c0;
 #pragma unroll
       for (int c = 0; c < 32; c += 8) {
-        const uint4 dv4 = *reinterpret_cast<const uint4*>(dr + c);
-        const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + c);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv4);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov4);
+        float de[8], oe[8];
+        load_terms8<NT>(dr + c, p.dout.tt, de);
+        load8(orow + c, oe);
 #pragma unroll
-        for (int t = 0; t < 8; ++t) acc += __bfloat162float(de[t]) * __bfloat162float(oe[t]);
+        for (int t = 0; t < 8; ++t) acc += de[t] * oe[t];
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -497,13 +555,13 @@ __device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs& p) {
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; the warpgroup is done with step j-1's stage
     stage(j + 1);
-    const uint32_t sk = sbase + (2 + 2 * st) * TB;
+    const uint32_t sk = sbase + NT * (2 + 2 * st) * TB;
 
     // s = Q.K^T and dp = dO.V^T for the block's 64 rows x 64 keys
     float s[32], dp[32];
     sm90::wg_fence();
-    product_ss(s, sQ, sk);
-    product_ss(dp, sO, sk + TB);
+    product_ss<NT>(s, sQ, sk);
+    product_ss<NT>(dp, sO, sk + NT * TB);
     sm90::wg_commit();
     sm90::wg_wait_all();
     sm90::pin(s);
@@ -528,58 +586,68 @@ __device__ __forceinline__ void fused_bwd_dq_body(const FusedBwdArgs& p) {
       }
     }
 
-    // dq += bf16(ds).k, k from its natural [key][d] tile
+    // dq += T(ds).k, k from its natural [key][d] tile
     sm90::pin(dq);
     sm90::wg_fence();
-    product_rs(dq, s, sk);
+    product_rs<NT>(dq, s, sk);
     sm90::wg_commit();
     sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
     sm90::pin(dq);
   }
 
-  bf16* dqb = p.dq.at(b, h);
+  T* dqb = p.dq.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < FA_D / 8; ++nt) {
     const int col = nt * 8 + tig * 2;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.S)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)row[r] * p.dq.ss + col) =
-            pack_bf16(dq[nt * 4 + 2 * r] * p.scale, dq[nt * 4 + 2 * r + 1] * p.scale);
+        store2(dqb + (long long)row[r] * p.dq.ss + col, dq[nt * 4 + 2 * r] * p.scale,
+               dq[nt * 4 + 2 * r + 1] * p.scale);
   }
 }
 
+// Blocks per SM each entry's registers must allow: bf16 as measured (PERF.md
+// §6); fp32's shared memory holds one block per SM, so its registers are free.
 constexpr int FWD_MIN_BLOCKS = 4, DQ_MIN_BLOCKS = 4, DKDV_MIN_BLOCKS = 2;
+template <typename T>
+__host__ __device__ constexpr int fwd_min_blocks() { return kTerms<T> == 1 ? FWD_MIN_BLOCKS : 1; }
+template <typename T>
+__host__ __device__ constexpr int dq_min_blocks() { return kTerms<T> == 1 ? DQ_MIN_BLOCKS : 1; }
+template <typename T>
+__host__ __device__ constexpr int dkdv_min_blocks() { return kTerms<T> == 1 ? DKDV_MIN_BLOCKS : 1; }
 
 inline bool bad_sizes(int B, int H, int S) { return B < 1 || H < 1 || S < 1 || B > 65535 || H > 65535; }
 
 // The forward over B batch elements on `st` through `kernel`, an entry whose
 // body is fused_fwd_body; `done` is the entry's own per-device record of its
 // raised shared-memory limit (sm90::allow_smem).  Returns the CUDA error.
-template <typename Kernel>
-inline int launch_fwd(Kernel kernel, int* done, const FusedFwdArgs& a, int B, cudaStream_t st) {
+template <typename Kernel, typename T>
+inline int launch_fwd(Kernel kernel, int* done, const FusedFwdArgs<T>& a, int B, cudaStream_t st) {
   if (bad_sizes(B, a.H, a.S)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = sm90::allow_smem(kernel, FWD_SMEM, done);
+  constexpr int smem = fwd_smem<kTerms<T>>();
+  const cudaError_t err = sm90::allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + FA_ROWS - 1) / FA_ROWS, a.H, B);
-  kernel<<<grid, FA_THREADS, FWD_SMEM, st>>>(a);
+  kernel<<<grid, FA_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The backward's two launches on `st` (dq with delta through `dq`, then dk/dv
 // through `dkdv`: entries whose bodies are fused_bwd_dq_body and
 // fused_bwd_dkdv_body, with their own limit records).  Returns the CUDA error.
-template <typename KernelDq, typename KernelDkdv>
-inline int launch_bwd(KernelDq dq, int* dq_done, KernelDkdv dkdv, int* dkdv_done, const FusedBwdArgs& a,
+template <typename KernelDq, typename KernelDkdv, typename T>
+inline int launch_bwd(KernelDq dq, int* dq_done, KernelDkdv dkdv, int* dkdv_done, const FusedBwdArgs<T>& a,
                       int B, cudaStream_t st) {
   if (bad_sizes(B, a.H, a.S)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = sm90::allow_smem(dq, DQ_SMEM, dq_done);
-  if (err == cudaSuccess) err = sm90::allow_smem(dkdv, DKDV_SMEM, dkdv_done);
+  constexpr int dq_bytes = dq_smem<kTerms<T>>(), dkdv_bytes = dkdv_smem<kTerms<T>>();
+  cudaError_t err = sm90::allow_smem(dq, dq_bytes, dq_done);
+  if (err == cudaSuccess) err = sm90::allow_smem(dkdv, dkdv_bytes, dkdv_done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + FA_ROWS - 1) / FA_ROWS, a.H, B);
-  dq<<<grid, FA_THREADS, DQ_SMEM, st>>>(a);
+  dq<<<grid, FA_THREADS, dq_bytes, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dkdv<<<grid, FA_THREADS, DKDV_SMEM, st>>>(a);
+  dkdv<<<grid, FA_THREADS, dkdv_bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 

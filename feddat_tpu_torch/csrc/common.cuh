@@ -1,7 +1,18 @@
 // Building blocks shared by the port's kernels (sm_90a): mma.sync helpers,
 // warp reductions, the TPU layer kernel's polynomial erf/GELU, the strided
 // per-head operand view of the attention kernels, the contract of the GEMMs
-// that gemm_sm90.cuh runs on wgmma, and the LayerNorm row passes.
+// that gemm_sm90.cuh runs on wgmma, the LayerNorm row passes, and the split
+// of fp32 operands into bf16 terms.
+//
+// The element type.  The kernels of #1-#4 take bf16 or fp32 activations and
+// weights (the TPU kernels run in the model's dtype).  Every rounding point of
+// the TPU kernels is a cast to that type, so in fp32 it rounds nowhere:
+// from_f<float> and round_t<float> are the identity.  The tensor cores
+// multiply bf16; an fp32 operand x is split into three bf16 terms,
+// x = hi + mid + lo exactly (split3), and a product A.B is the sum of the
+// six term products that carry more than fp32's last bit, the small ones
+// first (pair_a/pair_b's order): lo.hi, hi.lo, mid.mid, mid.hi, hi.mid,
+// then hi.hi.
 //
 // The GEMM contract (C[M, N] = A[M, K] . B, fp32 accumulation), used by the
 // attention-block forward (#1) and the backward kernels #3 and #4:
@@ -20,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace port {
 
@@ -56,16 +69,135 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// ------------------------------------------------------- the element type
+// bf16 terms of one operand value: 1 for bf16, 3 (hi, mid, lo) for fp32
+template <typename T>
+constexpr int kTerms = std::is_same<T, float>::value ? 3 : 1;
+// term products of one product: 1, or the six of the split
+template <typename T>
+constexpr int kPairs = kTerms<T> == 3 ? 6 : 1;
+
+// Pair i of a split product takes A's term pair_a(i) and B's term pair_b(i):
+// lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi (the small ones first, so
+// that the fp32 sums take them at their own magnitude).  Pair 0 of an
+// unsplit product is hi.hi.
+__host__ __device__ constexpr int pair_a(int i) { return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int i) { return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0; }
+template <typename T>
+__host__ __device__ constexpr int term_a(int i) { return kPairs<T> == 1 ? 0 : pair_a(i); }
+template <typename T>
+__host__ __device__ constexpr int term_b(int i) { return kPairs<T> == 1 ? 0 : pair_b(i); }
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+
+// the TPU kernels' rounding point .astype(dtype): bf16 rounding, or none
+template <typename T>
+__device__ __forceinline__ float round_t(float v) { return to_f(from_f<T>(v)); }
+
+// two adjacent elements
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(h), __high2float(h));
+}
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// eight adjacent elements, 16-byte aligned
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// term t of x's split: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid).
+// Each difference is exact in fp32, and x = hi + mid + lo exactly for every
+// normal x (24 significant bits in three terms of 8).
+__device__ __forceinline__ float split_term(float x, int t) {
+  const float hi = round_bf16(x);
+  if (t == 0) return hi;
+  const float r1 = __fsub_rn(x, hi), mid = round_bf16(r1);
+  return t == 1 ? mid : round_bf16(__fsub_rn(r1, mid));
+}
+
+// the NT terms of two adjacent values, each pair packed as an operand register
+template <int NT>
+__device__ __forceinline__ void split_pack(float a, float b, uint32_t (&t)[NT]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) t[i] = pack_bf16(split_term(a, i), split_term(b, i));
+}
+
+// x [n] fp32 -> its hi, mid and lo terms at out, out + term, out + 2 term
+__global__ void split3_kernel(const float* __restrict__ x, bf16* __restrict__ out, long long n,
+                              long long term) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float v = x[i];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) out[t * term + i] = __float2bfloat16_rn(split_term(v, t));
+  }
+}
+
+inline int launch_split3(const float* x, bf16* out, long long n, long long term, cudaStream_t st) {
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256 < 132 * 32 ? (n + 255) / 256 : 132 * 32;
+  split3_kernel<<<(unsigned)blocks, 256, 0, st>>>(x, out, n, term);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 operand of a product over x (n elements): bf16 x is its own
+// operand (term stride 0); fp32 x is split into three planes of n elements at
+// `planes`.  Sets the operand's start and term stride; returns the CUDA error.
+inline int operand_of(const bf16* x, long long, bf16*, const bf16** op, long long* term, cudaStream_t) {
+  *op = x;
+  *term = 0;
+  return 0;
+}
+inline int operand_of(const float* x, long long n, bf16* planes, const bf16** op, long long* term,
+                      cudaStream_t st) {
+  *op = planes;
+  *term = n;
+  return launch_split3(x, planes, n, n, st);
+}
+
 // One [B, H, S, 64] bf16 operand of the attention kernels, addressed by element
 // strides with the head dim contiguous: a [B*S, Dm] projection plane is
 // {p, S*Dm, 64, Dm} (also what split() makes of a [B, S, Dm] tensor), a
 // contiguous [B, H, S, 64] tensor {p, H*S*64, S*64, 64}.  The wrappers check
 // that every stride is a multiple of 8 elements and p is 16-byte aligned, so
-// each row's 8-element chunks load as uint4.
+// each row's 8-element chunks load as uint4.  The operand of an fp32 product
+// is the split of its values: term t (mid, lo) lies tt elements after term
+// t - 1.
 template <typename T>
 struct Heads {
   T* p;
   long long sb, sh, ss;
+  long long tt;
   __device__ __forceinline__ T* at(int b, int h) const { return p + b * sb + h * sh; }
 };
 
@@ -106,13 +238,14 @@ __device__ __forceinline__ float gelu_grad_poly(float x) {
 // ------------------------------------------------------------------- GEMM
 enum { B_NT = 0, B_NN = 1 };
 
+// Outputs in the element type T (bf16 rounds once, fp32 not at all):
 enum {
-  EPI_BIAS_BF16 = 0,  // c_bf16[seg] = bf16(acc + bias[seg])           (N segments)
-  EPI_BF16 = 1,       // c_bf16[0]   = bf16(acc)
-  EPI_F32 = 2,        // c_f32       = acc
-  EPI_FFN1 = 3,       // p = acc + bias: c_f32 = p, c_bf16[0] = bf16(gelu_poly(p))
-  EPI_FFN2 = 4,       // c_bf16[0] = bf16(h + bf16(acc + bias)), h = aux_bf16
-  EPI_GELU_BWD = 5,   // c_bf16[0] = bf16(acc * gelu_grad_poly(aux_f32))
+  EPI_BIAS = 0,      // c[seg] = T(acc + bias[seg])                  (N segments)
+  EPI_OUT = 1,       // c[0]   = T(acc)
+  EPI_F32 = 2,       // c_f32  = acc
+  EPI_FFN1 = 3,      // p = acc + bias: c_f32 = p, c[0] = T(gelu_poly(p))
+  EPI_FFN2 = 4,      // c[0] = T(h + T(acc + bias)), h = aux
+  EPI_GELU_BWD = 5,  // c[0] = T(acc * gelu_grad_poly(aux_f32))
 };
 
 struct GemmArgs {
@@ -121,13 +254,14 @@ struct GemmArgs {
   const bf16* b[3];      // B_NT: segment by n (b_seg), [n_seg, K] row-major, row stride ldb
                          // B_NN: segment by k (b_seg), [k_seg, N] row-major, row stride ldb
   int ldb, b_seg;
+  long long a_term, b_term;  // fp32 products: elements from one split term of A (B) to the next
   int M, N, K;
-  const float* bias[3];   // per N segment (EPI_BIAS_BF16), or bias[0] over all N
-  int c_seg;              // N-segment width of the outputs (EPI_BIAS_BF16); else N
-  bf16* c_bf16[3];
+  const float* bias[3];   // per N segment (EPI_BIAS), or bias[0] over all N
+  int c_seg;              // N-segment width of the outputs (EPI_BIAS); else N
+  void* c[3];             // outputs of the element type
   float* c_f32;
   int ldc;
-  const bf16* aux_bf16;   // [M, ldc]
+  const void* aux;        // [M, ldc] of the element type
   const float* aux_f32;   // [M, ldc]
 };
 
@@ -137,46 +271,45 @@ struct EpiIn {
   float2 bias, aux;
 };
 
-template <int EPI>
+template <int EPI, typename T>
 __device__ __forceinline__ EpiIn gemm_epi_load(const GemmArgs& p, int row, int col) {
   const size_t off = (size_t)row * p.ldc;
   EpiIn in{};
-  if (EPI == EPI_BIAS_BF16) {
+  if (EPI == EPI_BIAS) {
     const int seg = col / p.c_seg, cs = col % p.c_seg;
     in.bias = make_float2(p.bias[seg][cs], p.bias[seg][cs + 1]);
   } else if (EPI == EPI_FFN1 || EPI == EPI_FFN2) {
     in.bias = make_float2(p.bias[0][col], p.bias[0][col + 1]);
   }
   if (EPI == EPI_FFN2) {
-    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p.aux_bf16 + off + col);
-    in.aux = make_float2(__low2float(h), __high2float(h));
+    in.aux = load2(static_cast<const T*>(p.aux) + off + col);
   } else if (EPI == EPI_GELU_BWD) {
     in.aux = *reinterpret_cast<const float2*>(p.aux_f32 + off + col);
   }
   return in;
 }
 
-template <int EPI>
+template <int EPI, typename T>
 __device__ __forceinline__ void gemm_epi_store(const GemmArgs& p, int row, int col, float v0, float v1,
                                                const EpiIn& in) {
   const size_t off = (size_t)row * p.ldc;
-  if (EPI == EPI_BIAS_BF16) {
+  T* const c0 = static_cast<T*>(p.c[0]) + (EPI == EPI_F32 ? 0 : off + col);
+  if (EPI == EPI_BIAS) {
     const int seg = col / p.c_seg, cs = col % p.c_seg;
-    *reinterpret_cast<uint32_t*>(p.c_bf16[seg] + off + cs) = pack_bf16(v0 + in.bias.x, v1 + in.bias.y);
-  } else if (EPI == EPI_BF16) {
-    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(v0, v1);
+    store2(static_cast<T*>(p.c[seg]) + off + cs, v0 + in.bias.x, v1 + in.bias.y);
+  } else if (EPI == EPI_OUT) {
+    store2(c0, v0, v1);
   } else if (EPI == EPI_F32) {
     *reinterpret_cast<float2*>(p.c_f32 + off + col) = make_float2(v0, v1);
   } else if (EPI == EPI_FFN1) {
     const float p0 = v0 + in.bias.x, p1 = v1 + in.bias.y;
     *reinterpret_cast<float2*>(p.c_f32 + off + col) = make_float2(p0, p1);
-    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(gelu_poly(p0), gelu_poly(p1));
+    store2(c0, gelu_poly(p0), gelu_poly(p1));
   } else if (EPI == EPI_FFN2) {
-    const float f0 = round_bf16(v0 + in.bias.x), f1 = round_bf16(v1 + in.bias.y);
-    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) = pack_bf16(in.aux.x + f0, in.aux.y + f1);
+    const float f0 = round_t<T>(v0 + in.bias.x), f1 = round_t<T>(v1 + in.bias.y);
+    store2(c0, in.aux.x + f0, in.aux.y + f1);
   } else if (EPI == EPI_GELU_BWD) {
-    *reinterpret_cast<uint32_t*>(p.c_bf16[0] + off + col) =
-        pack_bf16(v0 * gelu_grad_poly(in.aux.x), v1 * gelu_grad_poly(in.aux.y));
+    store2(c0, v0 * gelu_grad_poly(in.aux.x), v1 * gelu_grad_poly(in.aux.y));
   }
 }
 
@@ -187,33 +320,33 @@ inline bool gemm_prepare(GemmArgs& p, int bn, int bk) {
   if (p.a_kseg <= 0) p.a_kseg = p.K;
   if (p.b_seg <= 0) p.b_seg = (BL == B_NT) ? p.N : p.K;
   if (p.c_seg <= 0) p.c_seg = p.N;
-  if (p.ldc <= 0) p.ldc = (EPI == EPI_BIAS_BF16) ? p.c_seg : p.N;
+  if (p.ldc <= 0) p.ldc = (EPI == EPI_BIAS) ? p.c_seg : p.N;
   return !(p.M < 1 || p.N % bn || p.K % bk || p.a_kseg % bk ||
            (BL == B_NT ? p.b_seg % bn : p.b_seg % bk) || p.c_seg % bn);
 }
 
 // ------------------------------------------------------ LayerNorm forward
-// One warp per row: out = bf16(LN(x)) in the TPU kernels' fast-variance form
-// (fp32 row statistics over 8-element chunks per lane, then warp_sum;
+// One warp per row: out = LN(x) in the TPU kernels' fast-variance form (fp32
+// row statistics over 8-element chunks per lane, then warp_sum;
 // var = max(E[x^2] - mu^2, 0); y = (x - mu) * rstd * gamma + beta, rounded
-// once).  The q|k|v product of #1 and of #3/#4's recompute reads this plane as
-// its A operand.  D a multiple of 8.
-__global__ void ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, float eps, bf16* __restrict__ out,
+// once to the element type).  The q|k|v product of #1 and of #3/#4's
+// recompute reads this plane as its A operand.  D a multiple of 8.
+template <typename T>
+__global__ void ln_fwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, float eps, T* __restrict__ out,
                                    int M, int D) {
   const int warps = blockDim.x >> 5;
   const int row = blockIdx.x * warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
-  const bf16* xr = x + (size_t)row * D;
+  const T* xr = x + (size_t)row * D;
   float s = 0.f, ss = 0.f;
   for (int k = lane * 8; k < D; k += 32 * 8) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    float v[8];
+    load8(xr + k, v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float f = __bfloat162float(e[i]);
-      s += f;
-      ss += f * f;
+      s += v[i];
+      ss += v[i] * v[i];
     }
   }
   s = warp_sum(s);
@@ -222,40 +355,38 @@ __global__ void ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __re
   const float var = fmaxf(ss / (float)D - mu * mu, 0.f);
   const float rstd = rsqrtf(var + eps);
   for (int k = lane * 8; k < D; k += 32 * 8) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    bf16* e = reinterpret_cast<bf16*>(&v);
+    float v[8];
+    load8(xr + k, v);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      float xf = __bfloat162float(e[t]);
-      float y = __fadd_rn(__fmul_rn(__fmul_rn(xf - mu, rstd), gamma[k + t]), beta[k + t]);
-      e[t] = __float2bfloat16_rn(y);
-    }
-    *reinterpret_cast<uint4*>(out + (size_t)row * D + k) = v;
+    for (int t = 0; t < 8; ++t) v[t] = __fadd_rn(__fmul_rn(__fmul_rn(v[t] - mu, rstd), gamma[k + t]), beta[k + t]);
+    store8(out + (size_t)row * D + k, v);
   }
 }
 
-inline int launch_ln_fwd_rows(const bf16* x, const float* gamma, const float* beta, float eps,
-                              bf16* out, int M, int D, cudaStream_t st) {
-  ln_fwd_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
+template <typename T>
+inline int launch_ln_fwd_rows(const T* x, const float* gamma, const float* beta, float eps, T* out, int M,
+                              int D, cudaStream_t st) {
+  ln_fwd_rows_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
   return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------- LayerNorm backward
 // One warp per row: out = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat*xhat))
-// (+ resid), with dxhat = dy * gamma and the statistics of bf16 x recomputed in
+// (+ resid), with dxhat = dy * gamma and the statistics of x recomputed in
 // the fast-variance form (feddat_tpu/ops/layer_block.py:79-84 and
-// attn_block.py:217-226).  Writes bf16 and/or fp32.
-__global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma, float eps,
+// attn_block.py:217-226).  Writes the element type and/or fp32.
+template <typename T>
+__global__ void ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma, float eps,
                                    const float* __restrict__ dy, const float* __restrict__ resid,
-                                   bf16* __restrict__ out_bf16, float* __restrict__ out_f32, int M, int D) {
+                                   T* __restrict__ out_t, float* __restrict__ out_f32, int M, int D) {
   const int warps = blockDim.x >> 5;
   const int row = blockIdx.x * warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
-  const bf16* xr = x + (size_t)row * D;
+  const T* xr = x + (size_t)row * D;
   const float* dr = dy + (size_t)row * D;
   float s = 0.f, ss = 0.f;
   for (int k = lane; k < D; k += 32) {
-    const float f = __bfloat162float(xr[k]);
+    const float f = to_f(xr[k]);
     s += f;
     ss += f * f;
   }
@@ -265,7 +396,7 @@ __global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x, const float* __re
   const float rstd = rsqrtf(fmaxf(ss / (float)D - mu * mu, 0.f) + eps);
   float m1 = 0.f, m2 = 0.f;
   for (int k = lane; k < D; k += 32) {
-    const float xhat = (__bfloat162float(xr[k]) - mu) * rstd;
+    const float xhat = (to_f(xr[k]) - mu) * rstd;
     const float dxhat = dr[k] * gamma[k];
     m1 += dxhat;
     m2 += dxhat * xhat;
@@ -273,19 +404,19 @@ __global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x, const float* __re
   m1 = warp_sum(m1) / (float)D;
   m2 = warp_sum(m2) / (float)D;
   for (int k = lane; k < D; k += 32) {
-    const float xhat = (__bfloat162float(xr[k]) - mu) * rstd;
+    const float xhat = (to_f(xr[k]) - mu) * rstd;
     const float dxhat = dr[k] * gamma[k];
     float v = rstd * (dxhat - m1 - xhat * m2);
     if (resid != nullptr) v += resid[(size_t)row * D + k];
     if (out_f32 != nullptr) out_f32[(size_t)row * D + k] = v;
-    if (out_bf16 != nullptr) out_bf16[(size_t)row * D + k] = __float2bfloat16_rn(v);
+    if (out_t != nullptr) out_t[(size_t)row * D + k] = from_f<T>(v);
   }
 }
 
-inline int launch_ln_bwd_rows(const bf16* x, const float* gamma, float eps, const float* dy,
-                              const float* resid, bf16* out_bf16, float* out_f32, int M, int D,
-                              cudaStream_t st) {
-  ln_bwd_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, gamma, eps, dy, resid, out_bf16, out_f32, M, D);
+template <typename T>
+inline int launch_ln_bwd_rows(const T* x, const float* gamma, float eps, const float* dy, const float* resid,
+                              T* out_t, float* out_f32, int M, int D, cudaStream_t st) {
+  ln_bwd_rows_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, eps, dy, resid, out_t, out_f32, M, D);
   return (int)cudaGetLastError();
 }
 

@@ -28,16 +28,16 @@ Heads<T> heads(const void* p, const long long* st) {
   return {static_cast<T*>(const_cast<void*>(p)), st[0], st[1], st[2]};
 }
 
-__global__ void __launch_bounds__(FA_THREADS, FWD_MIN_BLOCKS) fused_fwd_kernel(FusedFwdArgs p) {
+__global__ void __launch_bounds__(FA_THREADS, FWD_MIN_BLOCKS) fused_fwd_kernel(FusedFwdArgs<bf16> p) {
   fused_fwd_body(p);
 }
 
 // dkdv before dq (attn_sm90.cuh)
-__global__ void __launch_bounds__(FA_THREADS, DKDV_MIN_BLOCKS) fused_bwd_dkdv_kernel(FusedBwdArgs p) {
+__global__ void __launch_bounds__(FA_THREADS, DKDV_MIN_BLOCKS) fused_bwd_dkdv_kernel(FusedBwdArgs<bf16> p) {
   fused_bwd_dkdv_body(p);
 }
 
-__global__ void __launch_bounds__(FA_THREADS, DQ_MIN_BLOCKS) fused_bwd_dq_kernel(FusedBwdArgs p) {
+__global__ void __launch_bounds__(FA_THREADS, DQ_MIN_BLOCKS) fused_bwd_dq_kernel(FusedBwdArgs<bf16> p) {
   fused_bwd_dq_body(p);
 }
 
@@ -45,12 +45,12 @@ __global__ void __launch_bounds__(FA_THREADS, DQ_MIN_BLOCKS) fused_bwd_dq_kernel
 int fwd_smem_done[64], dq_smem_done[64], dkdv_smem_done[64];
 
 // #5 over B batch elements on `st`; returns the CUDA error of the launch
-int launch_fused_fwd(const FusedFwdArgs& a, int B, cudaStream_t st) {
+int launch_fused_fwd(const FusedFwdArgs<bf16>& a, int B, cudaStream_t st) {
   return launch_fwd(fused_fwd_kernel, fwd_smem_done, a, B, st);
 }
 
 // #6's two launches on `st` (dq with delta, then dk/dv); returns the CUDA error
-int launch_fused_bwd(const FusedBwdArgs& a, int B, cudaStream_t st) {
+int launch_fused_bwd(const FusedBwdArgs<bf16>& a, int B, cudaStream_t st) {
   return launch_bwd(fused_bwd_dq_kernel, dq_smem_done, fused_bwd_dkdv_kernel, dkdv_smem_done, a, B, st);
 }
 
@@ -68,7 +68,7 @@ const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_
 int fused_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                         void* lse, const long long* strides, int B, int H, int S, float scale,
                         void* stream) {
-  FusedFwdArgs a{};
+  FusedFwdArgs<bf16> a{};
   a.q = heads<const bf16>(q, strides);
   a.k = heads<const bf16>(k, strides + 3);
   a.v = heads<const bf16>(v, strides + 6);
@@ -89,7 +89,7 @@ int fused_attention_bwd(const void* q, const void* k, const void* v, const void*
                         const void* dout, const void* bias, const void* lse, void* delta, void* dq,
                         void* dk, void* dv, const long long* strides, int B, int H, int S,
                         float scale, void* stream) {
-  FusedBwdArgs a{};
+  FusedBwdArgs<bf16> a{};
   a.q = heads<const bf16>(q, strides);
   a.k = heads<const bf16>(k, strides + 3);
   a.v = heads<const bf16>(v, strides + 6);

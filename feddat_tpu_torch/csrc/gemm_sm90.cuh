@@ -1,7 +1,7 @@
 // The GEMM of the attention-block forward #1 and backward #3 (attn_block.cu)
 // and of the whole-layer backward #4 (layer_block.cu), for Hopper (sm_90a):
 // C[M, N] = A[M, K] . B with bf16 operands and fp32 sums, port::GemmArgs's
-// contract (common.cuh) on wgmma:
+// contract (common.cuh) on wgmma, the output in the element type T:
 //   * both B layouts: B_NT (B given as [N, K], an nn.Linear weight) and B_NN
 //     (B given as [K, N]);
 //   * N segments (B_NT: q|k|v in one launch, each with its weight, bias and
@@ -93,20 +93,20 @@ __device__ __forceinline__ uint64_t desc_mn128(uint32_t tiles, int ks) {
   return desc_sw128(tiles + ks * 16 * 128, TILE_BYTES, 1024);
 }
 
-template <int BL, int EPI>
+template <int BL, int EPI, typename T>
 __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(GemmArgs p) {
   extern __shared__ __align__(16) uint8_t g9_smem[];
   const uint32_t at = smem_addr(g9_smem);
   const uint32_t base = (at + 1023u) & ~1023u;  // the swizzle is a function of the address
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int m0 = blockIdx.y * G9_BM, n0 = blockIdx.x * G9_BN;
-  const int nk = p.K / G9_BK;
+  const int nk = p.K / G9_BK, nsteps = kPairs<T> * nk;  // term pair kt / nk, k-step kt % nk
 
-  // start the copies of k-step kt into ring stage kt % G9_STAGES (one commit group)
+  // start the copies of step kt into ring stage kt % G9_STAGES (one commit group)
   auto stage = [&](int kt) {
     const uint32_t sa = base + (kt % G9_STAGES) * G9_STAGE_BYTES, sb = sa + G9_A_BYTES;
-    const int k0 = kt * G9_BK, seg = k0 / p.a_kseg;
-    const bf16* A = p.a[seg] + (k0 - seg * p.a_kseg);
+    const int pr = kt / nk, k0 = (kt - pr * nk) * G9_BK, seg = k0 / p.a_kseg;
+    const bf16* A = p.a[seg] + term_a<T>(pr) * p.a_term + (k0 - seg * p.a_kseg);
 #pragma unroll
     for (int j = 0; j < G9_BM * 8 / G9_THREADS; ++j) {  // G9_BM rows x 8 chunks of 16 B
       const int i = tid + j * G9_THREADS, r = i >> 3, c = i & 7;
@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
     }
     if (BL == B_NT) {  // [128 n][64 k]
       const int sg = n0 / p.b_seg;
-      const bf16* Bp = p.b[sg] + (size_t)(n0 - sg * p.b_seg) * p.ldb + k0;
+      const bf16* Bp = p.b[sg] + term_b<T>(pr) * p.b_term + (size_t)(n0 - sg * p.b_seg) * p.ldb + k0;
 #pragma unroll
       for (int j = 0; j < G9_BN * 8 / G9_THREADS; ++j) {
         const int i = tid + j * G9_THREADS, r = i >> 3, c = i & 7;
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
       }
     } else {  // [64 k][128 n] as two [64 k][64 n] tiles
       const int sg = k0 / p.b_seg;
-      const bf16* Bp = p.b[sg] + (size_t)(k0 - sg * p.b_seg) * p.ldb + n0;
+      const bf16* Bp = p.b[sg] + term_b<T>(pr) * p.b_term + (size_t)(k0 - sg * p.b_seg) * p.ldb + n0;
 #pragma unroll
       for (int j = 0; j < G9_BK * (G9_BN / 8) / G9_THREADS; ++j) {
         const int i = tid + j * G9_THREADS, r = i / (G9_BN / 8), c = i % (G9_BN / 8);
@@ -135,14 +135,14 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
 
 #pragma unroll
   for (int s = 0; s < G9_STAGES - 1; ++s) {
-    if (s < nk) stage(s);
+    if (s < nsteps) stage(s);
     else cp_async_commit();  // an empty group keeps the count of groups in step
   }
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = 0; kt < nsteps; ++kt) {
     cp_async_wait<G9_STAGES - 2>();  // this thread's copies of step kt have landed
     __syncthreads();  // everyone's; both warpgroups are done with step kt-1's stage
     const uint32_t sa = base + (kt % G9_STAGES) * G9_STAGE_BYTES, sb = sa + G9_A_BYTES;
@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
     }
     wg_commit();
     // the copies are issued while the products run; they refill step kt-1's stage
-    if (kt + G9_STAGES - 1 < nk) stage(kt + G9_STAGES - 1);
+    if (kt + G9_STAGES - 1 < nsteps) stage(kt + G9_STAGES - 1);
     else cp_async_commit();
     wg_wait_all();
     pin(acc);
@@ -174,60 +174,81 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
     for (int t = 0; t < G9_EPI_TILES; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        if (row[h] < p.M) in[t][h] = gemm_epi_load<EPI>(p, row[h], n0 + (t0 + t) * 8 + tig * 2);
+        if (row[h] < p.M) in[t][h] = gemm_epi_load<EPI, T>(p, row[h], n0 + (t0 + t) * 8 + tig * 2);
 #pragma unroll
     for (int t = 0; t < G9_EPI_TILES; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (row[h] < p.M)
-          gemm_epi_store<EPI>(p, row[h], n0 + (t0 + t) * 8 + tig * 2, acc[(t0 + t) * 4 + 2 * h],
+          gemm_epi_store<EPI, T>(p, row[h], n0 + (t0 + t) * 8 + tig * 2, acc[(t0 + t) * 4 + 2 * h],
                               acc[(t0 + t) * 4 + 2 * h + 1], in[t][h]);
   }
 }
 
 }  // namespace sm90
 
-// The devices on which this library's instance of gemm_sm90_kernel<BL, EPI>
+// The devices on which this library's instance of gemm_sm90_kernel<BL, EPI, T>
 // has its limit raised.  Internal linkage on purpose: a static inside an
 // inline function would be one object across every loaded library (a unique
 // symbol), so one library's raised limit would let another skip raising its own.
-template <int BL, int EPI>
+template <int BL, int EPI, typename T>
 static int g9_smem_done[64];
 
 // Launches C = A . B with the given layout and epilogue on `st` through
 // sm90::gemm_sm90_kernel; returns the CUDA error (cudaErrorInvalidValue for a
 // shape the tiles do not cover).  Raises the kernel's dynamic shared-memory
 // limit once per device.
-template <int BL, int EPI>
+template <int BL, int EPI, typename T>
 inline int launch_gemm_sm90(GemmArgs p, cudaStream_t st) {
   if (!gemm_prepare<BL, EPI>(p, sm90::G9_BN, sm90::G9_BK)) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      sm90::allow_smem(sm90::gemm_sm90_kernel<BL, EPI>, sm90::G9_SMEM, g9_smem_done<BL, EPI>);
+      sm90::allow_smem(sm90::gemm_sm90_kernel<BL, EPI, T>, sm90::G9_SMEM, g9_smem_done<BL, EPI, T>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.N / sm90::G9_BN, (p.M + sm90::G9_BM - 1) / sm90::G9_BM);
-  sm90::gemm_sm90_kernel<BL, EPI><<<grid, sm90::G9_THREADS, sm90::G9_SMEM, st>>>(p);
+  sm90::gemm_sm90_kernel<BL, EPI, T><<<grid, sm90::G9_THREADS, sm90::G9_SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// An attention block's q|k|v = bf16(xin . W^T + b) on `st`: with gamma,
-// xin = bf16(LN1(x)) written first into `xln` ([M, Dm] bf16) by one row pass,
-// else xin = x; then one GEMM with an N segment per projection, each into its
-// [M, Dm] plane of qkv.  #1's forward and #3's and #4's recompute all call
+// The bf16 terms of a layer's fp32 weights, each [Dm, Dm] or [F, Dm]-sized
+// matrix split into its planes `term` elements apart (bf16 weights are their
+// own operands: nothing is written).  w and ops hold n matrices of `size`
+// elements each; returns the CUDA error.
+template <typename T>
+inline int weight_operands(const T* const* w, int n, long long size, bf16* planes, long long term,
+                           const bf16** ops, cudaStream_t st) {
+  for (int i = 0; i < n; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      ops[i] = planes + i * size;
+      if (int err = launch_split3(reinterpret_cast<const float*>(w[i]), planes + i * size, size, term, st))
+        return err;
+    } else {
+      ops[i] = reinterpret_cast<const bf16*>(w[i]);
+    }
+  }
+  return 0;
+}
+
+// An attention block's q|k|v = T(xin . W^T + b) on `st`: with gamma,
+// xin = T(LN1(x)) written first into `xln` ([M, Dm]) by one row pass, else
+// xin = x; then one GEMM with an N segment per projection, each into its
+// [M, Dm] plane of qkv.  w holds the projections' operands (bf16 weights, or
+// the planes of fp32 ones, w_term apart); in fp32, xin is split into `xs`
+// (3 M Dm bf16) first.  #1's forward and #3's and #4's recompute all call
 // this, so the backward rebuilds p from the forward's own q/k/v bitwise.
-inline int launch_qkv(const bf16* x, const float* gamma, const float* beta, float eps, bf16* xln,
-                      const bf16* wq, const bf16* wk, const bf16* wv, const float* bqkv, bf16* qkv,
-                      int M, int Dm, cudaStream_t st) {
-  const bf16* xin = x;
+template <typename T>
+inline int launch_qkv(const T* x, const float* gamma, const float* beta, float eps, T* xln, bf16* xs,
+                      const bf16* const* w, long long w_term, const float* bqkv, T* qkv, int M, int Dm,
+                      cudaStream_t st) {
+  const T* xin = x;
   if (gamma != nullptr) {
     if (int err = launch_ln_fwd_rows(x, gamma, beta, eps, xln, M, Dm, st)) return err;
     xin = xln;
   }
   GemmArgs r{};
-  r.a[0] = xin;
+  if (int err = operand_of(xin, (long long)M * Dm, xs, &r.a[0], &r.a_term, st)) return err;
   r.lda = Dm;
-  r.b[0] = wq;
-  r.b[1] = wk;
-  r.b[2] = wv;
+  for (int i = 0; i < 3; ++i) r.b[i] = w[i];
+  r.b_term = w_term;
   r.ldb = Dm;
   r.b_seg = Dm;
   r.M = M;
@@ -235,10 +256,10 @@ inline int launch_qkv(const bf16* x, const float* gamma, const float* beta, floa
   r.K = Dm;
   for (int i = 0; i < 3; ++i) {
     r.bias[i] = bqkv + (size_t)i * Dm;
-    r.c_bf16[i] = qkv + i * (size_t)M * Dm;
+    r.c[i] = qkv + i * (size_t)M * Dm;
   }
   r.c_seg = Dm;
-  return launch_gemm_sm90<B_NT, EPI_BIAS_BF16>(r, st);
+  return launch_gemm_sm90<B_NT, EPI_BIAS, T>(r, st);
 }
 
 }  // namespace port

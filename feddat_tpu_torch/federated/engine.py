@@ -102,8 +102,12 @@ logger = logging.getLogger("feddat_tpu_torch")
 ENGINE_MODELS = ("ViltContinualLearner", "ViltBertContinualLearner", "AlbefModel")
 
 
-def _later(what: str, queue_item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {queue_item})")
+def check_engine_model(engine: str, model) -> None:
+    """``TypeError`` unless ``model`` is one of the classes the engines train
+    (:data:`ENGINE_MODELS`)."""
+    if type(model).__name__ not in ENGINE_MODELS:
+        raise TypeError(f"the {engine} trains {', '.join(ENGINE_MODELS)}; got "
+                        f"{type(model).__name__}")
 
 
 @dataclasses.dataclass
@@ -140,8 +144,7 @@ class FederatedTrainer:
         each batch (the distillation alpha ramp).  ``tp_mesh``: the ``(data,
         model)`` mesh of ranks this process is one of (``params`` whole on
         every rank; the engine keeps this rank's shards)."""
-        if type(model).__name__ not in ENGINE_MODELS:
-            raise _later(f"the federated engine for {type(model).__name__}", "10, other encoders")
+        check_engine_model("federated engine", model)
         check_dropout_rng(config.dropout_rng)
         self.device = resolve_device(device)
         self.model = model

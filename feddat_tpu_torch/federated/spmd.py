@@ -71,7 +71,7 @@ import torch.distributed as dist
 from feddat_tpu_torch.configs.core import PEFTMode, TrainConfig
 from feddat_tpu_torch.data.pipeline import prefetch_to_device
 from feddat_tpu_torch.device import DeviceLike, resolve_device
-from feddat_tpu_torch.federated.engine import ENGINE_MODELS, FederatedTrainer
+from feddat_tpu_torch.federated.engine import FederatedTrainer, check_engine_model
 from feddat_tpu_torch.models.adapters import MODE_ENSEMBLE
 from feddat_tpu_torch.parallel import tp
 from feddat_tpu_torch.parallel.mesh import CLIENT_AXIS, DATA_AXIS, RankMesh
@@ -149,9 +149,7 @@ class SPMDFederatedTrainer:
         loop); by default every client runs the smallest's.  ``metrics_logger``
         must be given on every rank or on none: its step records average the
         clients by a collective."""
-        if type(model).__name__ not in ENGINE_MODELS:
-            raise NotImplementedError(f"the SPMD engine for {type(model).__name__} is not ported "
-                                      "yet (ROADMAP Queue 1: 10, other encoders)")
+        check_engine_model("SPMD engine", model)
         check_dropout_rng(config.dropout_rng)
         self.device = resolve_device(device)
         self.model, self.config, self.mesh, self.family = model, config, mesh, family

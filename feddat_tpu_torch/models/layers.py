@@ -33,7 +33,7 @@ one, on the same single body.
 
 from __future__ import annotations
 
-import logging
+import os
 from typing import Optional
 
 import torch
@@ -48,14 +48,35 @@ from feddat_tpu_torch.ops.attention import dot_product_attention
 from feddat_tpu_torch.ops.remat_policy import checkpoint_name, remat
 from feddat_tpu_torch.parallel import tp as _tp
 
-logger = logging.getLogger("feddat_tpu_torch")
-
 ATTN_IMPLS = ("auto", "xla", "block", "layer", "fused", "flash")
 # Longest S at which norm_before is fused into the kernel (layers.py:494).
 LN_FUSED_MAX_S = 448
-# Longest S the whole-layer route takes (layers.py:392; the JAX package's
-# FEDDAT_LAYER_MAX_S sweep override is not carried over).
+# Longest S the whole-layer route takes unless FEDDAT_LAYER_MAX_S says
+# otherwise, read at every gate as JAX reads it (layers.py:392).
 LAYER_MAX_S = 592
+
+
+def layer_max_s() -> int:
+    """The whole-layer route's S cap: ``FEDDAT_LAYER_MAX_S``, else 592."""
+    return int(os.environ.get("FEDDAT_LAYER_MAX_S", str(LAYER_MAX_S)))
+
+
+def patch_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 stride: int) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride)`` of a patch embedding, in full
+    fp32 when ``x`` is float32: cuDNN's TF32 (``torch.backends.cudnn.allow_tf32``,
+    on by default in PyTorch) keeps about three decimal digits, while the JAX
+    package and every float32 matmul of the port keep fp32's.  It is switched
+    off for this call alone and restored after it."""
+    if x.dtype != torch.float32 or not x.is_cuda:
+        return F.conv2d(x, weight, bias, stride=stride)
+    cudnn = torch.backends.cudnn
+    allow = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(x, weight, bias, stride=stride)
+    finally:
+        cudnn.allow_tf32 = allow
 
 
 def check_attn_impl(attn_impl: str) -> str:
@@ -135,25 +156,6 @@ def attn_block_eligible(attn_impl: str, bias: Optional[torch.Tensor], lora: Lora
         and not lora.enabled
         and not (dropout_rate > 0.0 and not deterministic)
     )
-
-
-_ROUTED: set = set()
-
-
-def layer_route_takes(r: int, on_card: bool) -> bool:
-    """Whether the whole-layer route takes adapter bottleneck ``r``: on the
-    card, #4 holds those of ``ops/layer_block.py::takes_bottleneck`` (JAX's
-    gate has no such limit, so any other goes the ``"block"`` way, as a layer
-    JAX's gate refuses does, and stays on kernels #1/#3); the plain versions
-    on the CPU take any.  A shape predicate, logged once per bottleneck: a
-    site it admits whose kernel fails to build or launch still raises."""
-    if on_card and not _lb.takes_bottleneck(r):
-        if r not in _ROUTED:
-            _ROUTED.add(r)
-            logger.info("route: layer site with adapter bottleneck %d takes the block route "
-                        "(kernel #4 holds multiples of 16 up to %d)", r, _lb.MAX_BOTTLENECK)
-        return False
-    return True
 
 
 class MultiHeadAttention(nn.Module):
@@ -310,8 +312,8 @@ class PreLNLayer(nn.Module):
         contract the kernel implements (one named adapter, or the ensemble
         whose partner is the frozen ``adapter_2`` teacher), no per-example
         adapter weights, a block-eligible site, no live hidden dropout, and
-        S at most ``LAYER_MAX_S``; on the card an adapter bottleneck that #4
-        takes (:func:`layer_route_takes`)."""
+        S at most :func:`layer_max_s`.  JAX's terms and no others: #4 takes
+        every bottleneck and both dtypes."""
         names = self.adapter_spec.names
         mode_ok = adapter_mode in names or (
             adapter_mode == MODE_ENSEMBLE and ensemble_members(names)[1] == "adapter_2")
@@ -321,8 +323,7 @@ class PreLNLayer(nn.Module):
             and adapter_weights is None
             and attn_block_eligible("block", bias, self.lora, self.attention_dropout, deterministic)
             and not (self.dropout_rate > 0.0 and not deterministic)
-            and x.shape[1] <= LAYER_MAX_S
-            and layer_route_takes(self.adapter.bottleneck, x.is_cuda)
+            and x.shape[1] <= layer_max_s()
         )
 
     def takes_layer_kernel(self, x, bias, adapter_mode, deterministic, adapter_weights) -> bool:

@@ -30,7 +30,9 @@ from torch.nn import functional as F
 from feddat_tpu_torch.configs.core import ViltModelConfig
 from feddat_tpu_torch.data.images import normalize_u8
 from feddat_tpu_torch.models.adapters import dense
-from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl, dropout
+from feddat_tpu_torch.models.layers import (
+    LayerNorm, PreLNLayer, check_attn_impl, dropout, patch_conv2d,
+)
 from feddat_tpu_torch.models.prompts import ReparamPrompt, splice_after_cls
 from feddat_tpu_torch.ops.attention import mask_to_bias
 from feddat_tpu_torch.ops.remat_policy import remat_call
@@ -121,9 +123,9 @@ class ViltVisualEmbeddings(nn.Module):
         if H % c.patch_size or W % c.patch_size:
             raise ValueError(f"canvas {(H, W)} is not a multiple of the patch size {c.patch_size}")
         conv = self.patch_projection
-        patches = F.conv2d(
+        patches = patch_conv2d(
             pixel_values.to(self.dtype).permute(0, 3, 1, 2),
-            conv.weight.to(self.dtype), conv.bias.to(self.dtype), stride=c.patch_size,
+            conv.weight.to(self.dtype), conv.bias.to(self.dtype), c.patch_size,
         )
         patches = patches.flatten(2).transpose(1, 2)  # [B, gh*gw, d], row-major grid
         pos = self.position_embeddings

@@ -13,12 +13,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from feddat_tpu_torch.configs.core import AlbefModelConfig
 from feddat_tpu_torch.data.images import normalize_u8
 from feddat_tpu_torch.models import DTYPES
-from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl
+from feddat_tpu_torch.models.layers import LayerNorm, PreLNLayer, check_attn_impl, patch_conv2d
 from feddat_tpu_torch.ops.remat_policy import remat_call
 
 
@@ -54,8 +53,8 @@ class VisionTransformer(nn.Module):
             # raw-u8 path: CLIP normalisation on the device (no canvas pad to mask)
             pixel_values = normalize_u8(pixel_values, "clip")
         conv = self.patch_embed
-        x = F.conv2d(pixel_values.to(self.dtype).permute(0, 3, 1, 2), conv.weight.to(self.dtype),
-                     conv.bias.to(self.dtype), stride=c.patch_size)
+        x = patch_conv2d(pixel_values.to(self.dtype).permute(0, 3, 1, 2), conv.weight.to(self.dtype),
+                         conv.bias.to(self.dtype), c.patch_size)
         x = x.flatten(2).transpose(1, 2)  # [B, gh*gw, D], row-major grid
         cls = self.cls_token.to(self.dtype).expand(b, 1, c.vision_width)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)

@@ -11,8 +11,9 @@ b_up [d])`` in the flax layout, as in the JAX function.
 * :func:`adapter_fused_reference` — plain PyTorch, the JAX ``_reference``.
 * :func:`adapter_fused_cuda` — the hand-written kernel in
   ``csrc/adapter_fused.cu`` (forward only; wgmma in a 4-CTA cluster; any
-  bottleneck, walked in chunks of at most 128 columns, and any width that is
-  a multiple of 64).
+  bottleneck, walked in chunks of at most 128 columns (48 in float32), and
+  any width that is a multiple of 64; bf16 or float32, the float32 products
+  as accurate as fp32's).
 * :func:`fused_ensemble_adapter` — the autograd wrapper: forward through the
   kernel for a CUDA tensor (the plain version for a CPU tensor), backward by
   recomputing the plain version, which is the JAX contract
@@ -31,8 +32,10 @@ from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
 
 KERNEL = CudaKernel(
     "adapter_fused", "adapter_fused_fwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
 )
+# The element types the kernel takes (h, the params and the output alike).
+DTYPES = (torch.bfloat16, torch.float32)
 
 Params = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -59,27 +62,31 @@ def takes(d: int, r: int) -> bool:
 
 
 @functools.cache
-def _workspace(n: int, d: int, r: int) -> int:
-    """Bytes of scratch the kernel needs: the up projection's fp32 sums
-    between the bottleneck's chunks, none for r <= 128."""
+def _workspace(n: int, d: int, r: int, f32: int) -> int:
+    """Bytes of scratch the kernel needs: in float32 the operands' bf16
+    terms, and the up projection's fp32 sums between the bottleneck's chunks
+    (none for one chunk)."""
     fn = load("adapter_fused").adapter_fused_workspace
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    return fn(n, d, r)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    return fn(n, d, r, f32)
 
 
 def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
                        weight: float) -> torch.Tensor:
-    """The CUDA kernel, forward only.  bf16 ``h [..., d]`` and bf16 params,
-    contiguous and 16-byte aligned; ``d`` a multiple of 64 (at least 64), any
-    ``r``.  Raises on anything else, before any launch."""
+    """The CUDA kernel, forward only.  ``h [..., d]`` and the params all in
+    bf16 or all in float32, contiguous and 16-byte aligned; ``d`` a multiple
+    of 64 (at least 64), any ``r``.  Raises on anything else, before any
+    launch."""
     if not h.is_cuda:
         raise ValueError("adapter_fused_cuda: h must be a CUDA tensor")
     d = h.shape[-1]
     r = params_a[0].shape[1]
     shapes = ((d, r), (r,), (r, d), (d,))
+    if h.dtype not in DTYPES:
+        raise TypeError(f"adapter_fused_cuda takes bf16 or float32 CUDA tensors, got {h.dtype}")
     for t in (h, *params_a, *params_b):
-        if not t.is_cuda or t.dtype != torch.bfloat16:
-            raise TypeError("adapter_fused_cuda takes bf16 CUDA tensors only")
+        if not t.is_cuda or t.dtype != h.dtype:
+            raise TypeError(f"adapter_fused_cuda takes CUDA tensors of one type ({h.dtype}) only")
         if not t.is_contiguous():
             raise ValueError("adapter_fused_cuda: inputs must be contiguous")
         if t.data_ptr() % 16:
@@ -95,11 +102,12 @@ def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
     if flat.shape[0] == 0:
         return out.reshape(h.shape)
     n = flat.shape[0]
-    size = _workspace(n, d, r)
+    f32 = int(h.dtype == torch.float32)
+    size = _workspace(n, d, r, f32)
     ws = torch.empty(size, dtype=torch.uint8, device=h.device) if size else None
     KERNEL.launch(
         ptr(flat), *(ptr(t) for t in params_a), *(ptr(t) for t in params_b), ptr(out), ptr(ws),
-        n, d, r, float(weight),
+        n, d, r, f32, float(weight),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     return out.reshape(h.shape)

@@ -22,7 +22,9 @@ Two implementations of each:
   kernels in ``csrc/attn_block.cu`` (the backward's attention part is
   ``csrc/attn_bwd.cuh``, shared with the whole-layer backward; the attention
   cores both ways are ``csrc/attn_sm90.cuh``'s wgmma kernels, which #5 and
-  #6 run too): any S >= 1.
+  #6 run too): any S >= 1, in bf16 or float32 (the model's dtype, as the TPU
+  kernels take it; float32 rounds nowhere and its products are as accurate
+  as fp32's).
 
 :func:`attn_block` is differentiable with the JAX custom_vjp's contract and
 picks by device only: a CPU tensor takes the plain versions, a CUDA tensor
@@ -47,12 +49,15 @@ from feddat_tpu_torch.ops.remat_policy import checkpoint_name
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "attn_block", "attn_block_fwd",
-    [_vp] * 13 + [_i, _i, _i, _i, _f, _f, _vp],
+    [_vp] * 13 + [_i] * 5 + [_f, _f, _vp],
 )
 KERNEL_BWD = CudaKernel(
     "attn_block", "attn_block_bwd",
-    [_vp] * 13 + [_i, _i, _i, _i, _f, _f, _vp],
+    [_vp] * 13 + [_i] * 5 + [_f, _f, _vp],
 )
+# The element types the kernels take (activations and weights; biases, LN
+# rows, the padding bias and lse are fp32 either way).
+DTYPES = (torch.bfloat16, torch.float32)
 # Head dim and width multiple the kernel is written for (mma tiles).
 HEAD_DIM = 64
 WIDTH_MULTIPLE = 128
@@ -150,6 +155,13 @@ def check_cuda_arg(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
 
 
+def kernel_dtype(fn: str, x: torch.Tensor) -> torch.dtype:
+    """``x.dtype`` if the kernels take it (bf16 or float32), else raise."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{fn} takes bf16 or float32 activations, got {x.dtype}")
+    return x.dtype
+
+
 def check_heads(fn: str, dm: int, num_heads: int) -> None:
     if dm % num_heads or dm // num_heads != HEAD_DIM or dm % WIDTH_MULTIPLE:
         raise ValueError(
@@ -163,18 +175,19 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA kernel -> (out, ctx, lse), as :func:`attn_block_reference`.
 
-    Takes bf16 ``x [B, S, Dm]`` and weights ``[Dm, Dm]``, fp32 ``bqkv [3, Dm]``,
-    ``bo [1, Dm]``, ``gb [2, Dm]`` (with ``ln_eps``) and ``bias``; requires
-    ``Dm / num_heads == 64`` and ``Dm % 128 == 0``; any S >= 1.  Raises on
-    anything else."""
+    Takes ``x [B, S, Dm]`` and weights ``[Dm, Dm]`` in bf16 or float32 (one
+    type), fp32 ``bqkv [3, Dm]``, ``bo [1, Dm]``, ``gb [2, Dm]`` (with
+    ``ln_eps``) and ``bias``; requires ``Dm / num_heads == 64`` and
+    ``Dm % 128 == 0``; any S >= 1.  Raises on anything else."""
     fn = "attn_block_cuda"
     if x.dim() != 3:
         raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
     b, s, dm = x.shape
     check_heads(fn, dm, num_heads)
-    check_cuda_arg(fn, "x", x, torch.bfloat16, (b, s, dm))
+    dt = kernel_dtype(fn, x)
+    check_cuda_arg(fn, "x", x, dt, (b, s, dm))
     for name, w in zip(("wq", "wk", "wv", "wo"), (wq, wk, wv, wo)):
-        check_cuda_arg(fn, name, w, torch.bfloat16, (dm, dm))
+        check_cuda_arg(fn, name, w, dt, (dm, dm))
     check_cuda_arg(fn, "bqkv", bqkv, torch.float32, (3, dm))
     check_cuda_arg(fn, "bo", bo, torch.float32, (1, dm))
     if (gb is None) != (ln_eps is None):
@@ -189,17 +202,25 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
         raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
         scale = HEAD_DIM ** -0.5
-    qkv = torch.empty((3, b * s, dm), dtype=torch.bfloat16, device=x.device)
+    f32 = int(dt == torch.float32)
+    ws = torch.empty(_fwd_workspace(b, s, dm, f32), dtype=torch.uint8, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
     lse = torch.empty((b, num_heads, s), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launch(
         ptr(x), ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(bo), ptr(gb), ptr(brow),
-        ptr(qkv), ptr(ctx), ptr(lse), ptr(out),
-        b, s, dm, num_heads, float(scale), float(ln_eps or 0.0), stream,
+        ptr(ws), ptr(ctx), ptr(lse), ptr(out),
+        b, s, dm, num_heads, f32, float(scale), float(ln_eps or 0.0), stream,
     )
     return out, ctx, lse
+
+
+@functools.cache
+def _fwd_workspace(b: int, s: int, dm: int, f32: int) -> int:
+    fn = load("attn_block").attn_block_fwd_workspace
+    fn.argtypes, fn.restype = [_i] * 4, ctypes.c_longlong
+    return fn(b, s, dm, f32)
 
 
 def attn_bwd_core_reference(xin, wq, wk, wv, wo, bqkv, brow, ctx, lse, g_att,
@@ -260,30 +281,31 @@ def attn_block_bwd_reference(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num
 
 
 @functools.cache
-def _bwd_workspace(b: int, s: int, dm: int, h: int, has_ln: bool) -> int:
+def _bwd_workspace(b: int, s: int, dm: int, h: int, has_ln: bool, f32: int) -> int:
     fn = load("attn_block").attn_block_bwd_workspace
-    fn.argtypes, fn.restype = [_i] * 5, ctypes.c_longlong
-    return fn(b, s, dm, h, int(has_ln))
+    fn.argtypes, fn.restype = [_i] * 6, ctypes.c_longlong
+    return fn(b, s, dm, h, int(has_ln), f32)
 
 
 def attn_block_bwd_cuda(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_heads: int,
                         scale: Optional[float] = None,
                         ln_eps: Optional[float] = None) -> torch.Tensor:
     """Kernel #3 -> ``dx``, as :func:`attn_block_bwd_reference`.  Takes the
-    forward's bf16 ``x``/weights and fp32 ``bqkv``/``gb``/``bias``, its bf16
-    ``ctx`` and fp32 ``lse [B, H, S]``, and bf16 ``g``; the same shape limits
-    as :func:`attn_block_cuda`.  Raises on anything else."""
+    forward's ``x``/weights (bf16 or float32) and fp32 ``bqkv``/``gb``/
+    ``bias``, its ``ctx`` and fp32 ``lse [B, H, S]``, and ``g`` (``x``'s
+    type); the same shape limits as :func:`attn_block_cuda`.  Raises on
+    anything else."""
     fn = "attn_block_bwd_cuda"
     if x.dim() != 3:
         raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
     b, s, dm = x.shape
     check_heads(fn, dm, num_heads)
+    dt = kernel_dtype(fn, x)
     for name, t, dtype, shape in (
-        ("x", x, torch.bfloat16, (b, s, dm)), ("ctx", ctx, torch.bfloat16, (b, s, dm)),
-        ("g", g, torch.bfloat16, (b, s, dm)), ("lse", lse, torch.float32, (b, num_heads, s)),
+        ("x", x, dt, (b, s, dm)), ("ctx", ctx, dt, (b, s, dm)),
+        ("g", g, dt, (b, s, dm)), ("lse", lse, torch.float32, (b, num_heads, s)),
         ("bqkv", bqkv, torch.float32, (3, dm)),
-        *((name, w, torch.bfloat16, (dm, dm)) for name, w in zip(("wq", "wk", "wv", "wo"),
-                                                                  (wq, wk, wv, wo))),
+        *((name, w, dt, (dm, dm)) for name, w in zip(("wq", "wk", "wv", "wo"), (wq, wk, wv, wo))),
     ):
         check_cuda_arg(fn, name, t, dtype, shape)
     if (gb is None) != (ln_eps is None):
@@ -298,12 +320,13 @@ def attn_block_bwd_cuda(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_head
         raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
         scale = HEAD_DIM ** -0.5
-    ws = torch.empty(_bwd_workspace(b, s, dm, num_heads, gb is not None), dtype=torch.uint8,
+    f32 = int(dt == torch.float32)
+    ws = torch.empty(_bwd_workspace(b, s, dm, num_heads, gb is not None, f32), dtype=torch.uint8,
                      device=x.device)
     dx = torch.empty_like(x)
     KERNEL_BWD.launch(
         ptr(x), ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(gb), ptr(brow), ptr(ctx),
-        ptr(lse), ptr(g), ptr(ws), ptr(dx), b, s, dm, num_heads, float(scale),
+        ptr(lse), ptr(g), ptr(ws), ptr(dx), b, s, dm, num_heads, f32, float(scale),
         float(ln_eps or 0.0), torch.cuda.current_stream(x.device).cuda_stream,
     )
     return dx

@@ -14,7 +14,10 @@ Counterpart of ``feddat_tpu/ops/layer_block.py``::
 * :func:`layer_block_bwd_reference` — the plain version of
   ``_layer_bwd_kernel`` (kernel #4) with its rounding points.
 * :func:`layer_block_bwd_cuda` — the hand-written kernel in
-  ``csrc/layer_block.cu`` (its attention part is ``csrc/attn_bwd.cuh``).
+  ``csrc/layer_block.cu`` (its attention part is ``csrc/attn_bwd.cuh``), in
+  bf16 or float32 (the model's dtype), at any adapter bottleneck: the
+  wrapper zero-pads it to :func:`padded_bottleneck` and drops the padded
+  gradients.
 * :func:`layer_block` — the autograd wrapper with the JAX contract: real
   gradients for ``x`` and the active adapter's ``wd, bd, wu, bu``; none for
   the frozen backbone and the ensemble partner.  The adapter weight
@@ -45,6 +48,7 @@ from feddat_tpu_torch.ops.attn_block import (
     attn_bwd_core_reference,
     check_cuda_arg,
     check_heads,
+    kernel_dtype,
     layer_norm_bwd,
     layer_norm_fast_variance,
     layer_norm_stats,
@@ -53,7 +57,7 @@ from feddat_tpu_torch.ops.attn_block import (
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "layer_block", "layer_block_bwd",
-    [_vp] * 31 + [_i] * 6 + [_f] * 5 + [_i, _vp],
+    [_vp] * 31 + [_i] * 7 + [_f] * 5 + [_i, _vp],
 )
 # Longest S at which the forward keeps LN1 fused into kernel #1 (layer_block.py:66).
 LN_FWD_FUSED_MAX_S = 448
@@ -221,70 +225,80 @@ def layer_block_bwd_reference(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, 
 
 
 @functools.cache
-def _workspace(b: int, s: int, dm: int, h: int, f: int, r: int) -> int:
+def _workspace(b: int, s: int, dm: int, h: int, f: int, r: int, f32: int) -> int:
     fn = load("layer_block").layer_block_bwd_workspace
-    fn.argtypes, fn.restype = [_i] * 6, ctypes.c_longlong
-    return fn(b, s, dm, h, f, r)
+    fn.argtypes, fn.restype = [_i] * 7, ctypes.c_longlong
+    return fn(b, s, dm, h, f, r, f32)
 
 
-# Largest adapter bottleneck of #4 (``AD_MAX_R`` in csrc/layer_block.cu;
-# chip_smoke.py holds it against ``layer_block_max_bottleneck()``).
-MAX_BOTTLENECK = 64
-
-
-def takes_bottleneck(r: int) -> bool:
-    """Whether #4 takes adapter bottleneck ``r``: a multiple of 16 in
-    [16, ``MAX_BOTTLENECK``] (the gate of ``models/layers.py``'s layer route)."""
-    return r % 16 == 0 and 16 <= r <= MAX_BOTTLENECK
-
-
-@functools.cache
-def _max_bottleneck() -> int:
-    fn = load("layer_block").layer_block_max_bottleneck
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
+def padded_bottleneck(r: int, f32: bool) -> int:
+    """The bottleneck #4 runs for adapter bottleneck ``r >= 1``: as few
+    chunks as take at most 64 columns each (16 in float32), all of one width
+    that is a multiple of 16 (``layer_block_padded_bottleneck`` in
+    csrc/layer_block.cu, which ``chip_smoke.py`` holds this against).  The
+    wrapper zero-pads the adapters to it: a padded down column gives
+    ``relu(0) = 0`` and a closed gate, so it changes nothing."""
+    most = 16 if f32 else 64
+    n = -(-r // most)
+    return n * (-(-(-(-r // n)) // 16) * 16)
 
 
 def layer_block_bwd_cuda(*args):
     """Kernel #4 -> ``(dx, dwda, dbda, dwua, dbua)``, as
-    :func:`layer_block_bwd_reference` (same arguments).  bf16 activations,
-    weights and adapters, fp32 biases/LN rows; head dim 64, ``Dm`` and ``F``
-    multiples of 128, a bottleneck of 16, 32, 48 or 64, any S >= 1.
-    Deterministic: the adapter gradients are summed in a fixed
-    order.  Raises on anything else."""
+    :func:`layer_block_bwd_reference` (same arguments).  Activations, weights
+    and adapters in bf16 or float32 (one type), fp32 biases/LN rows; head dim
+    64, ``Dm`` and ``F`` multiples of 128, any bottleneck, any S >= 1.
+    Deterministic: the adapter gradients are summed in a fixed order.
+    Raises on anything else."""
     return _bwd_cuda(*args)[0]
 
 
 # What layer_block_bwd leaves in its workspace, in the order of
-# layer_block_bwd_stage_offsets: (name, bf16?, row width).
+# layer_block_bwd_stage_offsets: (name, in x's type (else fp32)?, row width).
 _STAGES = (("h", True, "dm"), ("m", True, "dm"), ("o", True, "dm"), ("p1", False, "ff"),
            ("relu_a", True, "r"), ("g_down_a", False, "r"), ("g_o", False, "dm"))
 
 
 @functools.cache
-def _stage_offsets(b: int, s: int, dm: int, h: int, f: int, r: int):
+def _stage_offsets(b: int, s: int, dm: int, h: int, f: int, r: int, f32: int):
     fn = load("layer_block").layer_block_bwd_stage_offsets
-    fn.argtypes, fn.restype = [_i] * 6 + [ctypes.POINTER(ctypes.c_longlong)], None
+    fn.argtypes, fn.restype = [_i] * 7 + [ctypes.POINTER(ctypes.c_longlong)], None
     out = (ctypes.c_longlong * len(_STAGES))()
-    fn(b, s, dm, h, f, r, out)
+    fn(b, s, dm, h, f, r, f32, out)
     return tuple(out)
 
 
 def layer_block_bwd_cuda_stages(*args):
     """:func:`layer_block_bwd_cuda` -> ``(outputs, stages)``, where
     ``stages`` views the kernel's own intermediates, each ``[B·S, width]``:
-    ``h``, ``m``, ``o`` (bf16), ``p1`` (fp32), the active adapter's
-    ``relu_a`` (bf16) and ``g_down_a`` (fp32), and ``g_o`` (fp32).
-    ``chip_smoke.py`` holds each stage of the kernel against the plain one."""
+    ``h``, ``m``, ``o`` (in ``x``'s type), ``p1`` (fp32), the active
+    adapter's ``relu_a`` (``x``'s type) and ``g_down_a`` (fp32), and ``g_o``
+    (fp32); ``relu_a`` and ``g_down_a`` at the padded bottleneck, the
+    adapter's own columns first.  ``chip_smoke.py`` holds each stage of the
+    kernel against the plain one."""
     outs, ws = _bwd_cuda(*args)
     x, num_heads, w1, wda = args[0], args[25], args[13], args[17]
-    (b, s, dm), ff, r = x.shape, w1.shape[0], wda.shape[1]
+    (b, s, dm), ff = x.shape, w1.shape[0]
+    f32 = int(x.dtype == torch.float32)
+    r = padded_bottleneck(wda.shape[1], bool(f32))
     widths, stages = {"dm": dm, "ff": ff, "r": r}, {}
-    for (name, is_bf16, width), off in zip(_STAGES, _stage_offsets(b, s, dm, num_heads, ff, r)):
-        dtype = torch.bfloat16 if is_bf16 else torch.float32
+    for (name, own, width), off in zip(_STAGES, _stage_offsets(b, s, dm, num_heads, ff, r, f32)):
+        dtype = x.dtype if own else torch.float32
         n = b * s * widths[width] * dtype.itemsize
         stages[name] = ws[off:off + n].view(dtype).view(b * s, widths[width])
     return outs, stages
+
+
+def _pad_adapter(wd, bd, wu, rp: int):
+    """One adapter's ``(wd [Dm, r], bd [1, r], wu [r, Dm])`` zero-padded to
+    bottleneck ``rp``, with ``wd`` transposed beside it: ``(wd, bd, wu, wdᵀ)``,
+    contiguous (the row pass reads the down kernel along both axes)."""
+    pad = rp - wd.shape[1]
+    if pad:
+        wd = torch.nn.functional.pad(wd, (0, pad))
+        bd = torch.nn.functional.pad(bd, (0, pad))
+        wu = torch.nn.functional.pad(wu, (0, 0, 0, pad))
+    return wd.contiguous(), bd.contiguous(), wu.contiguous(), wd.t().contiguous()
 
 
 def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
@@ -298,7 +312,7 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
     b, s, dm = x.shape
     check_heads(fn, dm, num_heads)
     ff, r = w1.shape[0], wda.shape[1]
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f32 = kernel_dtype(fn, x), torch.float32
     act = (b, s, dm)
     for name, t, dtype, shape in (
         ("x", x, bf, act), ("aout", aout, bf, act), ("ctx", ctx, bf, act), ("g", g, bf, act),
@@ -311,9 +325,9 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
         ("wdb", wdb, bf, (dm, r)), ("bdb", bdb, f32, (1, r)), ("wub", wub, bf, (r, dm)),
     ):
         check_cuda_arg(fn, name, t, dtype, shape)
-    if ff % 128 or r % 16 or not 16 <= r <= _max_bottleneck():
+    if ff % 128 or r < 1:
         raise ValueError(f"{fn}: FFN width {ff} must be a multiple of 128 and the bottleneck "
-                         f"{r} a multiple of 16 within [16, {_max_bottleneck()}]")
+                         f"{r} at least 1")
     brow = _key_bias(bias, b, s)
     if brow is not None:
         brow = brow.contiguous()
@@ -322,14 +336,16 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
         raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
         scale = (dm // num_heads) ** -0.5
-    # the adapter row pass reads the down kernels along both axes
-    wda_t, wdb_t = wda.t().contiguous(), wdb.t().contiguous()
+    is_f32 = int(bf == f32)
+    rp = padded_bottleneck(r, bool(is_f32))
+    wda, bda, wua, wda_t = _pad_adapter(wda, bda, wua, rp)
+    wdb, bdb, wub, wdb_t = _pad_adapter(wdb, bdb, wub, rp)
     dev = x.device
-    ws = torch.empty(_workspace(b, s, dm, num_heads, ff, r), dtype=torch.uint8, device=dev)
+    ws = torch.empty(_workspace(b, s, dm, num_heads, ff, rp, is_f32), dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
-    dwda = torch.empty((dm, r), dtype=f32, device=dev)
-    dbda = torch.empty((r,), dtype=f32, device=dev)
-    dwua = torch.empty((r, dm), dtype=f32, device=dev)
+    dwda = torch.empty((dm, rp), dtype=f32, device=dev)
+    dbda = torch.empty((rp,), dtype=f32, device=dev)
+    dwua = torch.empty((rp, dm), dtype=f32, device=dev)
     dbua = torch.empty((dm,), dtype=f32, device=dev)
     KERNEL.launch(
         ptr(x), ptr(aout), ptr(ctx), ptr(lse), ptr(g), ptr(brow),
@@ -337,10 +353,12 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
         ptr(w1), ptr(b1), ptr(w2), ptr(b2),
         ptr(wda), ptr(bda), ptr(wua), ptr(wda_t), ptr(wdb), ptr(bdb), ptr(wub), ptr(wdb_t),
         ptr(ws), ptr(dx), ptr(dwda), ptr(dbda), ptr(dwua), ptr(dbua),
-        b, s, dm, num_heads, ff, r, float(scale), float(ln_eps1), float(ln_eps2),
+        b, s, dm, num_heads, ff, rp, is_f32, float(scale), float(ln_eps1), float(ln_eps2),
         float(w_a), float(w_b), int(bool(use_b)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if rp != r:  # the padded columns' gradients are dropped
+        dwda, dbda, dwua = dwda[:, :r].contiguous(), dbda[:r].contiguous(), dwua[:r].contiguous()
     return (dx, dwda, dbda, dwua, dbua), ws
 
 

@@ -112,7 +112,7 @@ def main(argv=None) -> int:
         out = torch.empty_like(h)
         for _ in range(3):  # the last call's stamps are read
             err = fn(h.data_ptr(), *(t.data_ptr() for t in pa), *(t.data_ptr() for t in pb), out.data_ptr(),
-                     None, n, cs.DM, cs.R, w, torch.cuda.current_stream().cuda_stream)
+                     None, n, cs.DM, cs.R, 0, w, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"adapter_fused_fwd failed: CUDA error {err}")
         torch.cuda.synchronize()

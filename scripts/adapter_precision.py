@@ -111,7 +111,7 @@ def main(argv=None) -> int:
         dll = ctypes.CDLL(str(lib))
         fn, ws = dll.adapter_fused_fwd, dll.adapter_fused_workspace
         fn.argtypes, fn.restype = af.KERNEL.argtypes, ctypes.c_int
-        ws.argtypes, ws.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        ws.argtypes, ws.restype = [ctypes.c_int] * 4, ctypes.c_longlong
         designs[name] = (fn, ws)
 
     for n, r, d, seed in CASES:
@@ -138,10 +138,11 @@ def main(argv=None) -> int:
               f"limit (largest {p_fp64[1]:.3f} of it)")
         for name, (fn, wsf) in designs.items():
             out = torch.empty_like(h)
-            size = wsf(n, d, r)
+            size = wsf(n, d, r, 0)
             ws = torch.empty(size, dtype=torch.uint8, device="cuda") if size else None
             call = (h.data_ptr(), *(t.data_ptr() for t in pa), *(t.data_ptr() for t in pb), out.data_ptr(),
-                    None if ws is None else ws.data_ptr(), n, d, r, w, torch.cuda.current_stream().cuda_stream)
+                    None if ws is None else ws.data_ptr(), n, d, r, 0, w,
+                    torch.cuda.current_stream().cuda_stream)
             if fn(*call):
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()

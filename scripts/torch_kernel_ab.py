@@ -21,7 +21,9 @@ other, this, this, other:
 * #2, the DAT ensemble-adapter epilogue, at the serving batch (N = 16 * 281
   rows) and the B=1 bucket (N = 281).  Its C entry point takes a scratch
   pointer and exports ``adapter_fused_workspace``: the other tree must have
-  both (a tree that does not cannot be compared here).
+  both (a tree that does not cannot be compared here).  The C entry points
+  of #1-#4 take an element-type flag, and #1's a workspace: a tree whose
+  entry points do not cannot be compared here either.
 
 #2 is the kernel the current change redesigned (``adapter_fused.cu`` on
 wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not
@@ -94,7 +96,7 @@ def use(libs):
                    fa.KERNEL, fa.KERNEL_BWD, af.KERNEL):
         kernel._fn = None
     # the workspace sizes and layouts are the tree's own
-    for cached in (ab._bwd_workspace, af._workspace, lb._workspace, lb._max_bottleneck, lb._stage_offsets):
+    for cached in (ab._fwd_workspace, ab._bwd_workspace, af._workspace, lb._workspace, lb._stage_offsets):
         cached.cache_clear()
 
 

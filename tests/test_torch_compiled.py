@@ -24,7 +24,6 @@ eagerly; and the shape gates that route sites off a kernel's limits.
   a donated buffer used again."""
 
 import contextlib
-import logging
 
 import numpy as np
 import pytest
@@ -314,24 +313,23 @@ def test_albef_dropout_through_the_plumbing_is_a_function_of_the_state(weights):
 
 
 @pytest.mark.parametrize("r", [8, 16, 48, 64, 96, 128, 192])
-def test_gates_route_bottlenecks_the_kernels_do_not_take(r, caplog, monkeypatch):
-    """#4's bottlenecks route a layer site the "block" way on the card,
-    logged once; #2 takes every bottleneck (past 128 in chunks) and every
-    width that is a multiple of 64, and its wrapper raises outside that."""
-    monkeypatch.setattr(tlayers, "_ROUTED", set())
-    assert lb.takes_bottleneck(r) == (r in (16, 48, 64))
+def test_gates_route_bottlenecks_the_kernels_do_not_take(r, monkeypatch):
+    """The layer route takes every bottleneck: #4's wrapper pads any of them
+    to its chunks, so the port's gate has JAX's terms and no bottleneck one
+    (nothing is routed the "block" way any more); #2 takes every bottleneck
+    (past 128 in chunks) and every width that is a multiple of 64, and its
+    wrapper raises outside that."""
+    monkeypatch.delenv("FEDDAT_LAYER_MAX_S", raising=False)
+    assert not hasattr(tlayers, "layer_route_takes") and not hasattr(lb, "takes_bottleneck")
+    assert lb.padded_bottleneck(r, False) >= r and lb.padded_bottleneck(r, True) >= r
     assert af.takes(768, r)
     assert af.takes(1280, 80) and af.takes(2048, 128) and af.takes(64, 1)
     assert not af.takes(800, 50) and not af.takes(0, 8) and not af.takes(768, 0)
-    with caplog.at_level(logging.INFO, logger="feddat_tpu_torch"):
-        for _ in range(2):
-            assert tlayers.layer_route_takes(r, on_card=True) == lb.takes_bottleneck(r)
-    logged = [x for x in caplog.records if "takes the block route" in x.getMessage()]
-    assert len(logged) == (not lb.takes_bottleneck(r))
-    assert tlayers.layer_route_takes(r, on_card=False)  # the plain versions take any r
     spec = AdapterSpec(names=("adapter_0", "adapter_1", "adapter_2"), reduction_factor=768 // r)
-    layer = tlayers.PreLNLayer(768, 12, 64, spec)
+    layer = tlayers.PreLNLayer(768, 12, 64, spec, attn_impl="layer")
     assert layer.adapter.bottleneck == r  # what the gates ask
+    for mode in ("adapter_0", "ensemble"):
+        assert layer.takes_layer_kernel(torch.zeros(1, 185, 768), None, mode, True, None)
 
 
 @pytest.mark.parametrize("s", [768, 769])

@@ -131,7 +131,7 @@ def test_later_slice_options_raise():
         with_mesh.run_round(0)
     for k, v in plain.server_params.items():
         assert torch.equal(v, with_mesh.server_params[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: 10"):
+    with pytest.raises(TypeError, match="federated engine trains ViltContinualLearner, .*; got Linear"):
         FederatedTrainer(torch.nn.Linear(2, 2), None, clients, cfg, device="cpu")
 
 
