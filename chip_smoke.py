@@ -164,9 +164,10 @@ Phases, in this order:
             scripts/train_vilt_tpu_tuned.sh and train_albef_tpu_tuned.sh
             (read from the scripts) and tests/fixtures/vocab30k.txt.  Two
             clients of ``--engine spmd`` on one card exit non-zero with
-            JAX's ``need 2 devices, have 1``, and ``cli.main`` refuses
-            float32 on ``"layer"`` naming its ROADMAP item, both before
-            any model is built; the
+            JAX's ``need 2 devices, have 1`` before any model is built;
+            ``cli.main`` trains ViLT LoRA in float32 on ``"fused"`` (one
+            client, one round: return 0, the task's score, #5/#6 launched
+            and nothing else); the
             ViLT script's flags less ``--engine spmd`` (the sequential
             engine), one client, 2 rounds with --checkpoint_dir and
             --profile_dir: exit 0, the three DAT scores, step and round
@@ -190,8 +191,9 @@ Phases, in this order:
             Prints each launch's seconds to its first step and to its exit,
             the round walls and samples/s of the metrics log.
 14. modes — the sequential engine's other training modes, full width.
-            (a) albef_distill in adapter mode, bf16, "flash", the plain step
-            at B=48 x 4 with dropout 0.1 live: #7/#8/#9 launches 24/11/11
+            ALBEF at B=16 x 4 (MODES_AB).  (a) albef_distill in adapter
+            mode, bf16, "flash", the plain step with dropout 0.1 live:
+            #7/#8/#9 launches 24/11/11
             (the ViT sites of the twin's forward and the model's); two steps
             replayed bitwise two eager ones (losses, trained tensors, the
             twin); the twin's EMA bitwise a host fp32 recompute of
@@ -217,7 +219,7 @@ Phases, in this order:
             device's kernel names in one profiled replay), the 2x-bf16 rule.  (e) ``python -m feddat_tpu_torch.cli --encoder_name
             albef_distill`` with scripts/train_albef.sh's flags and
             ``--optimizer_mode adapter --dtype bfloat16 --attn_impl flash``
-            on phase 12's dataset, 1 client x 2 steps, profiled (#7/#8/#9
+            on phase 12's dataset, 1 client x 3 steps, profiled (#7/#8/#9
             24/11/11 per step from the trace), then from_checkpoint on
             "flash" (#7).
 15. spmd — the SPMD engine (``federated/spmd.py``) in a world of one over
@@ -286,8 +288,8 @@ Phases, in this order:
             floor of one example's score).  Each rank holds half of every
             sharded kernel (bytes printed against tp=1), and #1-#9 launch no
             time on the path (no kernel partitions over the model axis).
-19. fp32  — the "block" and "layer" routes in float32 (#1-#4 take fp32, as
-            the TPU kernels run in the model's dtype), eagerly.  (a) Each
+19. fp32  — every kernel route in float32 (#1-#9 take fp32, as the TPU
+            kernels run in the model's dtype), eagerly.  (a) Each
             kernel alone in fp32 at full width, #1, #3 and #4 (one adapter)
             at the training shape (B=64, S=185) and #2 at the serving shape
             (B=16, S=281): on every output the kernel's largest error against
@@ -296,7 +298,13 @@ Phases, in this order:
             of the output's largest magnitude; the same check on the kernel
             run with its operands rounded to bf16 once must fail (#4's
             references take the kernel's ReLU gate, so a gate flip within
-            rounding noise of 0 is not read as an error).  The patch
+            rounding noise of 0 is not read as an error); #5/#6 at B=64,
+            S=185 with a padding bias and #7-#9 at ALBEF's ViT site (B=16,
+            S=577, no bias), with key-row biases (text self, fusion cross)
+            and with [query][key] tiles (the decoder's causal + padding, the
+            rerank decoder's packed block-diagonal bias, a per-head tile over
+            several ring steps), forward and backward, by the same
+            criterion.  The patch
             embedding (cuDNN) against float64 with cuDNN's TF32 at
             PyTorch's default.  (b) #4 at bottlenecks 24, 96 and 192 in bf16
             at B=64, S=185 under its bf16 limits.  (c) The slice's path in
@@ -309,10 +317,17 @@ Phases, in this order:
             of 2 clients x 2 fused steps on "layer" with FedAvg and
             evaluate_dat; one ViltVqaPredictor forward at B=16, S=281 on
             "block" with fused LN (#1/#2 12 each), its top-1 answers against
-            the plain fp32 path's.  (d) Each fp32 kernel's device time, its
-            bound (operations at the TF32 rate or bytes), its plain version
-            and the library chain in fp32 with TF32 off; #4 in bf16 at
-            bottlenecks 96 and 192.  Prints the phase's seconds.
+            the plain fp32 path's.  Then "fused" and "flash": one LoRA step
+            of ViLT-B/32 on "fused" (#5/#6 12 each) against the plain fp32
+            path and one LoRA round of 2 clients (FedAvg moves every LoRA
+            tensor); one ALBEF fused DAT step on "flash", dropout off, B=16
+            x 4 answers (#7 84, #8/#9 78 each) against the plain fp32 path;
+            AlbefVqaPredictor.predict at B=16 (#7 54), its top-1 answers
+            equal the plain fp32 path's.  (d) Each fp32 kernel's device
+            time, its bound (operations at the TF32 rate or bytes), its
+            plain version and the library call or chain in fp32 with TF32
+            off; #8/#9's one-stage fp32 tile instances beside bf16's; #4 in
+            bf16 at bottlenecks 96 and 192.  Prints the phase's seconds.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -325,6 +340,7 @@ import argparse
 import atexit
 import bisect
 import contextlib
+import gc
 import json
 import math
 import re
@@ -766,33 +782,35 @@ def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True, r=R, f32=False):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def fused_attention_bound(b, s, backward):
+def fused_attention_bound(b, s, backward, f32=False):
     """Least time (ms) for one #5 (forward) or #6 (backward) call and what
-    bounds it.  bf16 operands (tensor cores): q.k^T and P.v (4 B H S^2 d), or
-    the five per-head products of the TPU kernel (s, dP, dv, dq, dk: 10 B H
-    S^2 d); beside them on the CUDA cores the fp32 softmax or its recompute
-    (6 or 8 operations per logit); the pipes overlap.  Bytes: q, k, v, o
-    (and dO in, dq, dk, dv out) once each, the bias row and lse."""
+    bounds it.  bf16 operands (tensor cores; fp32 ones at the TF32 rate with
+    ``f32``): q.k^T and P.v (4 B H S^2 d), or the five per-head products of
+    the TPU kernel (s, dP, dv, dq, dk: 10 B H S^2 d); beside them on the CUDA
+    cores the fp32 softmax or its recompute (6 or 8 operations per logit); the
+    pipes overlap.  Bytes: q, k, v, o (and dO in, dq, dk, dv out) once each,
+    the bias row and lse."""
     d = DM // HEADS
     per_head = b * HEADS * s * s * d
     bf16_ops = (10 if backward else 4) * per_head
     fp32_ops = b * HEADS * s * s * (8 if backward else 6)
-    t_ops = max(bf16_ops / PEAK_BF16_FLOPS, fp32_ops / PEAK_FP32_FLOPS)
-    nbytes = (8 if backward else 4) * b * HEADS * s * d * 2 + b * s * 4 + b * HEADS * s * 4
+    t_ops = max(bf16_ops / tensor_peak(f32), fp32_ops / PEAK_FP32_FLOPS)
+    nbytes = (8 if backward else 4) * b * HEADS * s * d * (4 if f32 else 2) + b * s * 4 + b * HEADS * s * 4
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def flash_bound(b, sq, skv, bias_numel):
+def flash_bound(b, sq, skv, bias_numel, f32=False):
     """Least time (ms) for one #7 call and what bounds it.  Tensor cores: q.k^T
     on bf16 operands at the bf16 peak, P.v with P at fp32 precision at the TF32
-    peak; beside them on the CUDA cores the online softmax (~6 fp32 operations
-    per logit); the pipes overlap.  Bytes: q, k, v and o in bf16, lse in fp32
-    and the compact fp32 bias once each."""
+    peak (with ``f32`` both at the TF32 peak); beside them on the CUDA cores
+    the online softmax (~6 fp32 operations per logit); the pipes overlap.
+    Bytes: q, k, v and o in bf16 (fp32 with ``f32``), lse in fp32 and the
+    compact fp32 bias once each."""
     prod = 2 * b * HEADS * sq * skv * (DM // HEADS)
-    t_tensor = prod / PEAK_BF16_FLOPS + prod / PEAK_TF32_FLOPS
+    t_tensor = prod / tensor_peak(f32) + prod / PEAK_TF32_FLOPS
     t_ops = max(t_tensor, 6 * b * HEADS * sq * skv / PEAK_FP32_FLOPS)
-    nbytes = 4 * b * HEADS * (sq + skv) * (DM // HEADS) + b * HEADS * sq * 4 + bias_numel * 4
+    nbytes = 2 * (4 if f32 else 2) * b * HEADS * (sq + skv) * (DM // HEADS) + b * HEADS * sq * 4 + bias_numel * 4
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), 2 * prod
 
@@ -1206,9 +1224,9 @@ def layer_bwd_parity(torch, b, s, use_b, seed, masked=True, bias=None, r=R):
     return (got[0].float() - want[0].float()).abs().max().item()
 
 
-def fused_inputs(torch, b, s, seed, layout="split"):
-    """q, k, v and a cotangent dO [B, H, S, 64] bf16 on the card at std 1
-    (logits q.k^T/8 at std 1).  ``split``: the [B, H, S, 64] views that
+def fused_inputs(torch, b, s, seed, layout="split", dtype=None):
+    """q, k, v and a cotangent dO [B, H, S, 64] bf16 (or ``dtype``) on the
+    card at std 1 (logits q.k^T/8 at std 1).  ``split``: the [B, H, S, 64] views that
     MultiHeadAttention's split() makes of [B, S, Dm] projections (strides S Dm,
     64, Dm, 1), as the main path hands them over; ``contiguous``: [B, H, S, 64]
     tensors."""
@@ -1216,9 +1234,9 @@ def fused_inputs(torch, b, s, seed, layout="split"):
 
     def heads():
         if layout == "split":
-            t = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+            t = torch.randn(b, s, DM, generator=g, device="cuda").to(dtype or torch.bfloat16)
             return t.view(b, s, HEADS, DM // HEADS).transpose(1, 2)
-        return torch.randn(b, HEADS, s, DM // HEADS, generator=g, device="cuda").bfloat16()
+        return torch.randn(b, HEADS, s, DM // HEADS, generator=g, device="cuda").to(dtype or torch.bfloat16)
 
     return heads(), heads(), heads(), heads()
 
@@ -1351,9 +1369,9 @@ def fused_probes(torch):
     check(ds_ok, "fused_attention_bwd: the ds probe is not bf16(ds)'s result or not the plain version's")
 
 
-def flash_case(torch, b, sq, skv, kind, seed):
-    """#7 inputs on the card: q [B, H, Sq, 64] and k, v [B, H, Skv, 64] bf16 as
-    the split() views of [B, S, Dm] projections (std 1: logits q.k^T/8 at std
+def flash_case(torch, b, sq, skv, kind, seed, dtype=None):
+    """#7 inputs on the card: q [B, H, Sq, 64] and k, v [B, H, Skv, 64] bf16 (or
+    ``dtype``) as the split() views of [B, S, Dm] projections (std 1: logits q.k^T/8 at std
     1), and the compact fp32 bias of one of ALBEF's layouts: ``none`` (ViT),
     ``padding`` [B,1,1,Skv] (text self-attention, stage-1 and grouped cross),
     ``zero`` [B,1,1,Skv] (fusion cross: every image token), ``packed``
@@ -1366,7 +1384,7 @@ def flash_case(torch, b, sq, skv, kind, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def heads(s):
-        t = torch.randn(b, s, DM, generator=g, device="cuda").bfloat16()
+        t = torch.randn(b, s, DM, generator=g, device="cuda").to(dtype or torch.bfloat16)
         return t.view(b, s, HEADS, DM // HEADS).transpose(1, 2)
 
     q, k, v = heads(sq), heads(skv), heads(skv)
@@ -1490,7 +1508,7 @@ def flash_p_probe(torch):
 
 def flash_refusals(torch):
     """On the card the wrappers of #7 and of #8/#9 raise, without launching, on
-    what the kernels do not take (fp32, head dim 32; for the backward also a
+    what the kernels do not take (fp16, head dim 32; for the backward also a
     bias on another device): nothing falls back to a plain version.  The
     autograd function runs #7 forward and #8/#9 backward on CUDA tensors."""
     from feddat_tpu_torch.ops import flash as fl
@@ -1500,22 +1518,23 @@ def flash_refusals(torch):
     kernels = (fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV)
     before = [k.launches for k in kernels]
     refused = 0
-    for bad, err in ((x.float(), TypeError), (x[..., :32], ValueError)):
+    for bad, err in ((x.half(), TypeError), (x[..., :32], ValueError)):
         try:
             fl.flash_attention_fwd_cuda(bad, bad, bad, None, 0.125)
         except err:
             refused += 1
-    for bad, bias in ((x.float(), None), (x[..., :32], None), (x, torch.zeros(1, 1, 1, 8))):
+    for bad, bias, err in ((x.half(), None, TypeError), (x[..., :32], None, ValueError),
+                           (x, torch.zeros(1, 1, 1, 8), ValueError)):
         try:
             fl.flash_attention_bwd_cuda(bad, bad, bad, bias, bad, bad, lse, 0.125)
-        except ValueError:
+        except err:
             refused += 1
     idle = [k.launches - b for k, b in zip(kernels, before)]
     leaves = [x.clone().requires_grad_() for _ in range(3)]
     fl.flash_attention(*leaves).float().sum().backward()
     torch.cuda.synchronize()
     ran = [k.launches - b for k, b in zip(kernels, before)]
-    print(f"parity flash_attention refusals: fp32 and head dim 32 (forward and backward) and a CPU "
+    print(f"parity flash_attention refusals: fp16 and head dim 32 (forward and backward) and a CPU "
           f"bias (backward) refused {refused}/5 with launches {idle}; one autograd forward and "
           f"backward launched #7/#8/#9 {ran} times")
     check(refused == 5 and idle == [0, 0, 0] and ran == [1, 1, 1]
@@ -2520,21 +2539,23 @@ def phase_albef_train(torch, seed):
                 grad_ratio=grad_ratio, round_s=round_s)
 
 
-def flash_bwd_bound(b, sq, skv, bias_numel, part):
+def flash_bwd_bound(b, sq, skv, bias_numel, part, f32=False):
     """Least time (ms) for one #8 (``part="dq"``) or #9 (``"dkv"``) call and
     what bounds it.  Tensor cores: s = q.k^T and dP = dO.v^T on bf16 operands
-    at the bf16 peak; ds.k (#8), or p^T.dO and ds^T.q (#9), with p and ds at
-    fp32 precision at the TF32 peak.  Beside them on the CUDA cores ~8 fp32
-    operations per logit (scale, bias, exp, dP - delta, products); the pipes
-    overlap.  Bytes: q, k, v, dO and the outputs in bf16, lse and delta in fp32
-    and the compact bias, once each."""
+    at the bf16 peak (at the TF32 peak with ``f32``); ds.k (#8), or p^T.dO and
+    ds^T.q (#9), with p and ds at fp32 precision at the TF32 peak.  Beside them
+    on the CUDA cores ~8 fp32 operations per logit (scale, bias, exp, dP -
+    delta, products); the pipes overlap.  Bytes: q, k, v, dO and the outputs
+    in bf16 (fp32 with ``f32``), lse and delta in fp32 and the compact bias,
+    once each."""
     d = DM // HEADS
     prod = 2 * b * HEADS * sq * skv * d
     fp_products = 1 if part == "dq" else 2
-    t_ops = max(2 * prod / PEAK_BF16_FLOPS + fp_products * prod / PEAK_TF32_FLOPS,
+    t_ops = max(2 * prod / tensor_peak(f32) + fp_products * prod / PEAK_TF32_FLOPS,
                 8 * b * HEADS * sq * skv / PEAK_FP32_FLOPS)
     outputs = b * HEADS * (sq if part == "dq" else 2 * skv) * d
-    nbytes = (2 * b * HEADS * (sq + skv) * d + outputs) * 2 + 2 * b * HEADS * sq * 4 + bias_numel * 4
+    nbytes = ((2 * b * HEADS * (sq + skv) * d + outputs) * (4 if f32 else 2) + 2 * b * HEADS * sq * 4
+              + bias_numel * 4)
     t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
             (2 + fp_products) * prod)
@@ -5005,12 +5026,8 @@ def cli_albef_serving(torch, root, seed, ckpt):
 
 
 def cli_refusals(work, common):
-    """Launches that exit non-zero before any model is built: two clients of
-    the SPMD engine on one card (JAX's mesh error), in a process of its own;
-    float32 on "flash" (ROADMAP Queue 3: float32 on #5-#9), through ``cli.main``
-    here."""
-    from feddat_tpu_torch import cli
-
+    """A launch that exits non-zero before any model is built: two clients of
+    the SPMD engine on one card (JAX's mesh error), in a process of its own."""
     flags = ["--engine", "spmd", "--ordered_cl_tasks", CLI_TASKS, "--mesh_data", "1"]
     out = work / "refused"
     rc, wall, _, text = launch_cli(" ".join(flags), ["--encoder_name", "vilt", "--output_dir", str(out),
@@ -5018,15 +5035,43 @@ def cli_refusals(work, common):
     print(f"cli: refused {' '.join(flags)} in {wall:.2f} s: {text.strip().splitlines()[-1]}")
     check(rc != 0 and "ValueError: need 2 devices, have 1" in text and not out.exists()
           and "params:" not in text, f"{flags} was not refused up front")
-    flags = ["--dtype", "float32", "--attn_impl", "flash"]
+
+
+def cli_fp32_lora(torch, work, common):
+    """ViLT-B/32 LoRA in float32 on "fused" through ``cli.main``, one client,
+    one round: it exits 0, writes the task's score and launches #5/#6 (read
+    around the call, graphs on: one count per call made)."""
+    import logging
+
+    from feddat_tpu_torch import cli
+
+    flags = ["--dtype", "float32", "--attn_impl", "fused", "--optimizer_mode", "lora"]
+    out = work / "fp32_lora"
+    argv = ["--encoder_name", "vilt", "--output_dir", str(out), *common, *flags, "--ordered_cl_tasks",
+            DISK_TASKS[0], "--comm_rounds", "1", "--batch_size", str(TB)]
+    logger = logging.getLogger("feddat_tpu_torch")
+    handlers = list(logger.handlers)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
     try:
-        cli.main(["--encoder_name", "vilt", "--output_dir", str(out), *common, *flags])
-        message = "no refusal"
-    except SystemExit as e:
-        message = str(e)
-    print(f"cli: refused {' '.join(flags)}: {message}")
-    check("ROADMAP Queue 3: float32 on #5-#9" in message and not out.exists(),
-          f"{flags} was not refused up front")
+        rc = cli.main(argv)
+    finally:  # the handler of the run's log file goes with its directory
+        for h in [h for h in logger.handlers if h not in handlers]:
+            logger.removeHandler(h)
+            h.close()
+    torch.cuda.synchronize()
+    got = read_counts()
+    history = json.loads(next(out.glob("*.history.json")).read_text())
+    print(f"cli: {' '.join(flags)}, one client, one round, through cli.main: returned {rc} after "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts_text(got)}; history {history}")
+    check(rc in (None, 0) and got["fused_attention"] > 0 and got["fused_attention_bwd"] > 0
+          and sum(got.values()) == got["fused_attention"] + got["fused_attention_bwd"],
+          f"the float32 LoRA launch on 'fused': {rc}, {got}")
+    check([e["round"] for e in history] == [0] and math.isfinite(history[0]["scores"][DISK_TASKS[0]]),
+          f"the float32 LoRA launch's history {history}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cli_spmd(torch, work, common, task, sequential_ckpt):
@@ -5079,6 +5124,7 @@ def phase_cli(torch, seed, root):
               "--eval_every", "1", "--wandb_freq", "1"]
 
     cli_refusals(work, common)
+    cli_fp32_lora(torch, work, common)
 
     # (a) ViLT-B/32 DAT, the tuned script's flags on the sequential engine,
     # one client (the SPMD launch below takes the same one on one card)
@@ -5140,6 +5186,10 @@ def phase_cli(torch, seed, root):
 # albef_distill CLI launch.
 MODE_STEPS_PER_EPOCH = 4  # the alpha ramp's epoch: 0, 0.1, 0.2, 0.3, then 0.4
 MODES_SPEED_ROUNDS = 1
+# ALBEF's batch in this phase (questions, A=4 answers each): a mode's
+# mechanics, launches and gradient rule do not depend on it, and its eager
+# steps at the ALBEF phases' 48 took most of the phase
+MODES_AB = 16
 VILT_MODES = ("adapter", "none", "freeze_encoder")
 
 
@@ -5226,7 +5276,7 @@ def alternating_speed(torch, makers, batch_size, rounds=MODES_SPEED_ROUNDS):
 
 
 def modes_distill(torch, seed):
-    """(a) albef_distill, adapter mode, "flash", B=48 x 4, dropout 0.1 live:
+    """(a) albef_distill, adapter mode, "flash", B=16 x 4, dropout 0.1 live:
     eager and replayed steps bitwise, the twin's EMA against the host, one
     capture while alpha ramps, launches from the device, host launches and
     samples/s and peak memory against the no-distill step, the gradients with
@@ -5256,7 +5306,7 @@ def modes_distill(torch, seed):
     vit, text = cfg.vision_layers, cfg.bert.fusion_layer
     fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
     params = {n: t.detach() for n, t in model.state_dict().items()}
-    batch = albef_train_batch(torch, ATB, seed)
+    batch = albef_train_batch(torch, MODES_AB, seed)
     step, state0, part = albef_plain_step(torch, model, params, seed)
     # the twin's forward and the model's run the 12 ViT sites on #7 (the BERT
     # sites carry attention dropout); only the model's has a backward, and
@@ -5275,7 +5325,7 @@ def modes_distill(torch, seed):
         e2, em2 = step(e1, alpha_batch(torch, batch, 1))
         torch.cuda.synchronize()
     print(f"modes: albef_distill plain step, adapter mode, dropout 0.1 live, attn_impl='flash', "
-          f"B={ATB} A={ANS_PER_Q}: #7/#8/#9 launches {flash_launches(counts)} (expected "
+          f"B={MODES_AB} A={ANS_PER_Q}: #7/#8/#9 launches {flash_launches(counts)} (expected "
           f"{flash_launches(want)}: the ViT sites of the twin's forward and the model's, the "
           f"model's backward but block 0); losses {float(em1['loss']):.4f}, {float(em2['loss']):.4f} "
           f"at alpha 0 and {float(alpha_batch(torch, batch, 1)['alpha']):.2f}")
@@ -5315,7 +5365,7 @@ def modes_distill(torch, seed):
     lap("the model and eager against replayed steps")
 
     # device-measured launches, host launches per replay with and without distillation
-    label = f"albef_distill plain step (adapter, flash, dropout live, B={ATB}x{ANS_PER_Q})"
+    label = f"albef_distill plain step (adapter, flash, dropout live, B={MODES_AB}x{ANS_PER_Q})"
     held = [g2]  # each call takes the state the last one returned: its twin is donated
 
     def distill_call():
@@ -5371,17 +5421,17 @@ def modes_distill(torch, seed):
     del exact
     torch.cuda.synchronize()
     check(read_counts() == before, "the plain path launched a kernel")
-    grad_agreement(torch, f"albef_distill plain step, dropout off, B={ATB}", kernel, plain_m, exact_m,
+    grad_agreement(torch, f"albef_distill plain step, dropout off, B={MODES_AB}", kernel, plain_m, exact_m,
                    ("loss",))
     del kernel, plain_m, exact_m
     torch.cuda.empty_cache()
     lap("the gradients with dropout off")
 
     # a 2-client round through FederatedTrainer with the distill hooks, graphs on
-    clients = {k: SyntheticAlbefClient(k, num_train=2 * ATB, num_eval=ATB, num_answers=len(ALBEF_ANSWERS),
+    clients = {k: SyntheticAlbefClient(k, num_train=2 * MODES_AB, num_eval=MODES_AB, num_answers=len(ALBEF_ANSWERS),
                                        vocab_size=30522, question_len=LQ, answer_len=LA,
                                        max_answers_per_q=ANS_PER_Q, image_size=(ARES, ARES),
-                                       batch_size=ATB, val_batch_size=ATB, seed=seed + 1 + i)
+                                       batch_size=MODES_AB, val_batch_size=MODES_AB, seed=seed + 1 + i)
                for i, k in enumerate(TRAIN_CLIENTS)}
     hooks = resolve_trainer("albef_distill", "vqa", rank_k=ALBEF_K, answer_banks={
         k: (c.answer_ids, c.answer_mask) for k, c in clients.items()})
@@ -5438,7 +5488,7 @@ def modes_prompt(torch, seed, root):
     vit, text = cfg.vision_layers, cfg.bert.fusion_layer
     fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
     params = {n: t.detach() for n, t in model.state_dict().items()}
-    batch = albef_train_batch(torch, ATB, seed)
+    batch = albef_train_batch(torch, MODES_AB, seed)
     step, state0, part = albef_plain_step(torch, model, params, seed, mode="prompt", distill=False)
     # the prompt enters the fusion layers' cross-attention keys, so the
     # backward runs there, in the fusion self-attention above the first
@@ -5455,7 +5505,7 @@ def modes_prompt(torch, seed, root):
     # the first step's lr is 0 (warm-up): its gradients show in Adam's moments
     mu = s1.opt_states["trainable"].mu
     reached = sorted(k for k in mu if bool(mu[k].abs().max() > 0))
-    print(f"modes: ALBEF prompt plain step, dropout off, B={ATB} A={ANS_PER_Q} (the fusion "
+    print(f"modes: ALBEF prompt plain step, dropout off, B={MODES_AB} A={ANS_PER_Q} (the fusion "
           f"cross-attention at {VIT_S} + {cfg.prompt.length} keys): #7/#8/#9 launches "
           f"{flash_launches(counts)} (expected {flash_launches(want)}); loss {float(m1['loss']):.4f}; "
           f"gradients reached {len(reached)} of {len(mu)} trainable tensors")
@@ -5488,17 +5538,17 @@ def modes_prompt(torch, seed, root):
                                              mode="prompt"))
     torch.cuda.synchronize()
     check(read_counts() == before, "the plain path launched a kernel")
-    grad_agreement(torch, f"ALBEF prompt plain step, dropout off, B={ATB} (fusion cross-attention at "
+    grad_agreement(torch, f"ALBEF prompt plain step, dropout off, B={MODES_AB} (fusion cross-attention at "
                    f"{VIT_S + cfg.prompt.length} keys)", kernel, plain_m, exact_m, ("loss",))
     del kernel, plain_m, exact_m, sd
     torch.cuda.empty_cache()
 
     # one client, one round of 2 steps with a checkpoint; the run recipe as the CLI writes it
     task = DISK_TASKS[0]
-    clients = {task: SyntheticAlbefClient(task, num_train=2 * ATB, num_eval=ATB,
+    clients = {task: SyntheticAlbefClient(task, num_train=2 * MODES_AB, num_eval=MODES_AB,
                                           num_answers=len(ALBEF_ANSWERS), vocab_size=30522,
                                           question_len=LQ, answer_len=LA, max_answers_per_q=ANS_PER_Q,
-                                          image_size=(ARES, ARES), batch_size=ATB, val_batch_size=ATB,
+                                          image_size=(ARES, ARES), batch_size=MODES_AB, val_batch_size=MODES_AB,
                                           seed=seed + 3)}
     hooks = resolve_trainer("albef_no_distill", "vqa", rank_k=ALBEF_K, answer_banks={
         task: (clients[task].answer_ids, clients[task].answer_mask)})
@@ -5655,8 +5705,8 @@ def modes_vilt(torch, seed):
 def modes_cli(torch, seed, root):
     """(e) an albef_distill launch, ``python -m feddat_tpu_torch.cli`` with
     scripts/train_albef.sh's flags and ``--optimizer_mode adapter --dtype
-    bfloat16 --attn_impl flash`` on phase 12's dataset, 1 client x 2 steps,
-    profiled, then ``from_checkpoint`` on "flash"."""
+    bfloat16 --attn_impl flash`` on phase 12's dataset, 1 client x 3 steps
+    (``--debug 2``), profiled, then ``from_checkpoint`` on "flash"."""
     work = Path(root) / "modes_cli"
     work.mkdir()
     ckpt, profile, out = work / "ckpt", work / "profile", work / "logs"
@@ -5664,16 +5714,16 @@ def modes_cli(torch, seed, root):
     argv = script_flags("train_albef.sh") + [
         "--encoder_name", "albef_distill", "--optimizer_mode", "adapter", "--dtype", "bfloat16",
         "--attn_impl", "flash", "--climb_data_dir", root, "--vocab_file", vocab, "--splits", *CLI_SPLITS,
-        "--ordered_cl_tasks", DISK_TASKS[0], "--batch_size", str(ATB), "--val_batch_size", str(ATB),
+        "--ordered_cl_tasks", DISK_TASKS[0], "--batch_size", str(MODES_AB), "--val_batch_size", str(MODES_AB),
         "--comm_rounds", "1", "--eval_every", "1", "--wandb_freq", "1", "--debug", "2",
         "--checkpoint_dir", str(ckpt), "--profile_dir", str(profile), "--output_dir", str(out)]
     rc, wall, t0, text = launch_cli("albef_distill, train_albef.sh's flags, adapter, flash", argv,
                                     work / "distill.log")
     check(rc == 0, "the albef_distill launch failed")
-    history, records = cli_outputs(out, f"albef_distill_adapter_bs{ATB}_lr0.0001_rounds1x1_seed2")
+    history, records = cli_outputs(out, f"albef_distill_adapter_bs{MODES_AB}_lr0.0001_rounds1x1_seed2")
     cli_stages("albef_distill", t0, text)
     cli_timeline("albef_distill", t0, wall, records)
-    steps = min(DISK_TRAIN // ATB, 3)  # --debug 2: batches 0..2
+    steps = min(DISK_TRAIN // MODES_AB, 3)  # --debug 2: batches 0..2
     dev, graphs, _ = profile_counts(profile)
     per = {k: dev[k] / (steps + 1) for k in FLASH_KEYS}
     print(f"cli: albef_distill history {history}; round 0's profile: #7/#8/#9 {flash_launches(dev)} "
@@ -6501,6 +6551,85 @@ def fp32_kernels(torch, seed):
     return errs
 
 
+# #7-#9 in fp32 at ALBEF's sites: the ViT (no bias), a staged key row (text
+# self-attention's padding, the fusion cross-attention's zero row) and a
+# staged [query][key] tile (the training decoder's causal + padding bias, the
+# rerank decoder's packed block-diagonal one, and a per-head tile over
+# several ring steps of #8's and #9's one-stage fp32 tile instances).
+FP32_FLASH_CASES = [
+    ("vit", AB, VIT_S, VIT_S, "none"),
+    ("text self", AB, LQ, LQ, "padding"),
+    ("fusion cross", AB, LQ, VIT_S, "zero"),
+    ("decoder self", AB * ANS_PER_Q, LA, LA, "causal"),
+    ("stage-2 packed self", AB * ALBEF_K // PACK, PACK * LA, PACK * LA, "packed"),
+    ("edge 257 heads", 2, 257, 193, "heads"),
+]
+
+
+def fp32_cotangent(torch, b, s, seed):
+    """An fp32 dO [B, H, S, 64] in the split() layout, as autograd hands it over."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return torch.randn(b, s, DM, generator=g, device="cuda").view(b, s, HEADS, DM // HEADS).transpose(1, 2)
+
+
+def fp32_attention_pair(torch, label, fwd, bwd, args, dout, bwd_parts):
+    """A forward kernel and its backward in fp32 by the float64 criterion
+    (``fwd``/``bwd``: (kernel, plain version) pairs; the backward on the kernel
+    forward's own o and lse), the planted fault rounding q, k, v (and dO) to
+    bf16 -> {part: max abs error against the plain fp32 version}, ``bwd_parts``
+    naming the backward's outputs' parts, e.g. (("dq", (0,)), ("dkv", (1, 2)))."""
+    f64 = float64_mode(torch)
+    got, plain = fwd[0](*args), fwd[1](*args)
+    planted = fwd[0](*bf16_operands(torch, args, (0, 1, 2)))
+    with f64:
+        exact = fwd[1](*to_float64(torch, args))
+    check(all(t.dtype == torch.float32 for t in got), f"fp32 {label}: outputs {[t.dtype for t in got]}")
+    errs = {"fwd": fp32_check(torch, label, ("o", "lse"), got, plain, exact, planted)}
+    bargs = (*args[:4], got[0], dout, got[1], args[4])
+    got, plain = bwd[0](*bargs), bwd[1](*bargs)
+    planted = bwd[0](*bf16_operands(torch, bargs, (0, 1, 2, 5)))
+    with f64:
+        exact = bwd[1](*to_float64(torch, bargs))
+    names = ("dq", "dk", "dv")
+    for part, idx in bwd_parts:
+        errs[part] = fp32_check(torch, f"{label} backward", [names[i] for i in idx], [got[i] for i in idx],
+                                [plain[i] for i in idx], [exact[i] for i in idx], [planted[i] for i in idx])
+    return errs
+
+
+def fp32_attention_kernels(torch, seed):
+    """(a): #5/#6 at the LoRA step's shape with a padding bias and #7-#9 at
+    FP32_FLASH_CASES, alone in fp32 by the float64 criterion -> {kernel: max
+    abs error against the plain fp32 version} (#7-#9's at the ViT site)."""
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    f32, scale = torch.float32, 64 ** -0.5
+    with torch.no_grad():
+        q, k, v, do = fused_inputs(torch, TB, TS, seed, dtype=f32)
+        e = fp32_attention_pair(
+            torch, f"fused_attention B={TB} H={HEADS} S={TS} padding",
+            (fa.fused_attention_fwd_cuda, fa.fused_attention_fwd_ref),
+            (fa.fused_attention_bwd_cuda, fa.fused_attention_bwd_ref),
+            (q, k, v, padding_bias(torch, TB, TS, seed), scale), do, (("bwd", (0, 1, 2)),))
+        errs = {"fused_attention": e["fwd"], "fused_attention_bwd": e["bwd"]}
+        del q, k, v, do
+        for site, b, sq, skv, kind in FP32_FLASH_CASES:
+            q, k, v, bias = flash_case(torch, b, sq, skv, kind, seed, dtype=f32)
+            e = fp32_attention_pair(
+                torch, f"flash_attention {site} B={b} Sq={sq} Skv={skv} "
+                f"bias={'none' if bias is None else list(bias.shape)}",
+                (fl.flash_attention_fwd_cuda, fl.flash_attention_fwd_ref),
+                (fl.flash_attention_bwd_cuda, fl.flash_attention_bwd_ref),
+                (q, k, v, bias, scale), fp32_cotangent(torch, b, sq, seed), (("dq", (0,)), ("dkv", (1, 2))))
+            if site == "vit":
+                errs.update(flash_attention=e["fwd"], flash_attention_bwd_dq=e["dq"],
+                            flash_attention_bwd_dkv=e["dkv"])
+            del q, k, v, bias
+    torch.cuda.synchronize()
+    return errs
+
+
 def patch_embedding_check(torch, seed):
     """The float32 patch embedding (``models/layers.py::patch_conv2d``, the
     cuDNN convolution of ViLT's and ALBEF's ViT) against float64 with cuDNN's
@@ -6537,14 +6666,14 @@ def patch_embedding_check(torch, seed):
     check(errs[0] <= lim, f"the fp32 patch embedding is not at fp32 error: {errs}")
 
 
-def fp32_agreement(torch, what, kernel, exact):
+def fp32_agreement(torch, what, kernel, exact, loss_keys=("loss", "loss_shared")):
     """The fp32 path's gradient sets and losses against the plain fp32 path's."""
     for stage in exact["grads"]:
         k, kw, kn = set_error(torch, kernel["grads"][stage], exact["grads"][stage])
         print(f"fp32: {what} {stage} gradients vs plain fp32: relative Frobenius {k:.3e} (worst tensor "
               f"{kw:.3e} {kn}); limit {FP32_GRAD_TOL:.0e}")
         check(k <= FP32_GRAD_TOL, f"fp32 {what}: {stage} gradients disagree: {k}")
-    for key in ("loss", "loss_shared"):
+    for key in loss_keys:
         k, e = float(kernel[key]), float(exact[key])
         print(f"fp32: {what} {key}: kernel path {k:.8f}, plain fp32 {e:.8f} (relative {abs(k - e) / abs(e):.2e})")
         check(abs(k - e) <= FP32_LOSS_TOL * abs(e), f"fp32 {what}: {key} disagrees: {k} vs {e}")
@@ -6637,6 +6766,192 @@ def fp32_paths(torch, seed):
             "attn_block_bwd": std["attn_block_bwd"], "adapter_fused": serve["adapter_fused"]}
 
 
+def fp32_attention_paths(torch, seed):
+    """(b): the "fused" and "flash" routes in fp32 through the normal entry
+    points at full width: ViLT-B/32 LoRA on "fused" (one step, its gradients
+    against the plain fp32 path, one FederatedTrainer round), ALBEF's fused
+    DAT step on "flash" with dropout off and AlbefVqaPredictor's rank_answer
+    on "flash" -> each fp32 kernel's launches on its path."""
+    from feddat_tpu_torch.configs.core import FederatedConfig, OptimizerConfig, PEFTMode, TrainConfig
+    from feddat_tpu_torch.federated.engine import FederatedTrainer
+    from feddat_tpu_torch.train import dat
+    from feddat_tpu_torch.train.forwards import to_device
+
+    out = {}
+    batch = to_device(next(peft_client(TRAIN_CLIENTS[0], TB, 0, seed).train_batches(0)), "cuda")
+    model = peft_model(torch, "lora", seed, "fused", dtype="float32")
+    layers = model.config.num_layers
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    step, part, opt = peft_step(model, "lora", params)
+    state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+    reset_counts()
+    _, m = step(state0, batch)
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {**NO_LAUNCHES, "fused_attention": layers, "fused_attention_bwd": layers}
+    print(f"fp32: LoRA step, attn_impl='fused', float32, B={TB} S={TS}: launches {counts_text(got)}; "
+          f"loss {float(m['loss']):.6f}")
+    check(got == want, f"fp32 LoRA step launches {got}, expected {want}")
+    out.update(fused_attention=got["fused_attention"], fused_attention_bwd=got["fused_attention_bwd"])
+    kernel = peft_grads(torch, model, params, part, batch)
+    before = read_counts()
+    exact = peft_grads(torch, peft_model(torch, "lora", seed, "auto", "float32", state=model.state_dict()),
+                       params, part, batch)
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    fp32_agreement(torch, "LoRA step, fused kernels", kernel, exact, ("loss",))
+    del kernel, exact, m, state0
+
+    clients = {k: peft_client(k, 2 * TB, TB, seed + 1 + i) for i, k in enumerate(TRAIN_CLIENTS)}
+    cfg = TrainConfig(peft_mode=PEFTMode.LORA, optimizer=OptimizerConfig(),
+                      federated=FederatedConfig(comm_rounds=1, local_epochs=1, eval_every=1),
+                      num_epochs=1, seed=seed, layers_to_freeze=FREEZE_K)
+    trainer = FederatedTrainer(model, params, clients, cfg)
+    reset_counts()
+    trainer.run_round(0)
+    torch.cuda.synchronize()
+    rounds = read_counts()
+    reset_counts()
+    entry = trainer.evaluate_round(0)
+    torch.cuda.synchronize()
+    evals = read_counts()
+    steps = 2 * len(clients)
+    print(f"fp32: FederatedTrainer LoRA round of {len(clients)} clients x 2 steps, float32, 'fused': "
+          f"launches {counts_text(rounds)}; evaluate {entry['scores']}, launches {counts_text(evals)}")
+    check(rounds == {**NO_LAUNCHES, "fused_attention": steps * layers, "fused_attention_bwd": steps * layers}
+          and evals == {**NO_LAUNCHES, "fused_attention": len(clients) * layers}, "fp32 LoRA round launches")
+    for key, score in entry["scores"].items():
+        check(math.isfinite(score) and 0.0 <= score <= 100.0, f"fp32: bad evaluate score for {key}: {score}")
+    moved = [k for k, v in trainer.server_params.items() if "lora_" in k and not torch.equal(v, params[k])]
+    check(len(moved) == 4 * layers and all(bool(torch.isfinite(trainer.server_params[k]).all()) for k in moved),
+          f"fp32: FedAvg moved {len(moved)} LoRA tensors, expected {4 * layers}")
+    del trainer, clients, model, params, batch
+    torch.cuda.empty_cache()
+
+    model = albef_train_model(torch, seed, "flash", "float32", dropout=False)
+    cfg = model.cfg
+    vit, text = cfg.vision_layers, cfg.bert.fusion_layer
+    fusion, dec = cfg.bert.num_layers - text, cfg.decoder_layers
+    per_pass = vit + text + 2 * fusion + 2 * dec
+    params = {n: t.detach() for n, t in model.state_dict().items()}
+    batch = albef_train_batch(torch, AB, seed)
+    step, state0 = albef_fused_step(torch, model, params, seed)
+    reset_counts()
+    _, km = step(state0, batch)
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {**NO_LAUNCHES, "flash_attention": 2 * per_pass, "flash_attention_bwd_dq": 2 * (per_pass - 3),
+            "flash_attention_bwd_dkv": 2 * (per_pass - 3)}
+    print(f"fp32: ALBEF fused DAT step, attn_impl='flash', float32, dropout off, B={AB} A={ANS_PER_Q}: "
+          f"#7/#8/#9 launches {flash_launches(got)} (expected {flash_launches(want)})")
+    check(got == want, f"fp32 ALBEF step launches {got}, expected {want}")
+    out.update({k: got[k] for k in FLASH_KEYS[1:]})
+    before = read_counts()
+    exact = albef_train_model(torch, seed, "auto", "float32", dropout=False, state=model.state_dict())
+    em = albef_fused_step(torch, exact, params, seed)[0](state0, batch)[1]
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    fp32_agreement(torch, "ALBEF fused DAT step, flash kernels", km, em)
+    del model, exact, params, batch, step, state0, km, em
+    torch.cuda.empty_cache()
+
+    pred = albef_predictor(torch, seed, "flash", "float32")
+    imgs, qs = albef_requests(AB, seed)
+    reset_counts()
+    answers = pred.predict(imgs, qs, top_k=5)
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {**NO_LAUNCHES, "flash_attention": 54}
+    print(f"fp32: rank_answer through AlbefVqaPredictor.predict, attn_impl='flash', float32, B={AB}, "
+          f"k={ALBEF_K} of {len(ALBEF_ANSWERS)}: launches {counts_text(got)}; first answers {answers[0][:2]}")
+    check(got == want, f"fp32 rank_answer launches {got}, expected {want}")
+    out["flash_attention"] = got["flash_attention"]
+    batch = pred._preprocess(imgs, qs)
+    exact = albef_predictor(torch, seed, "auto", "float32")
+    exact.model.load_state_dict(pred.model.state_dict())
+    ids, probs = pred.rank(batch)
+    before = read_counts()
+    eids, eprobs = exact.rank(batch)
+    torch.cuda.synchronize()
+    check(read_counts() == before, "the plain path launched a kernel")
+    agree = int((ids[:, 0] == eids[:, 0]).sum())
+    diff = float(abs(probs[:, 0] - eprobs[:, 0]).max())
+    print(f"fp32: rank_answer vs plain fp32 path: top-1 agreement {agree}/{AB}; top-1 probabilities "
+          f"max_abs_diff {diff:.3e}")
+    check(agree == AB, f"fp32 rank_answer: top-1 answers disagree in {AB - agree} of {AB}")
+    del pred, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_attention_times(torch, seed):
+    """(c): #5-#9's fp32 rows (kernel, plain version, the library call in fp32
+    with TF32 off, the bound at the TF32 rate or bytes): #5/#6 at the LoRA
+    step's shape, #7-#9 at ALBEF's ViT site; and #8/#9's one-stage fp32
+    tile instances' device times beside the bf16 kernels' at the rerank
+    decoder's packed shape."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    f32, scale, rows = torch.float32, 64 ** -0.5, {}
+    q, k, v, do = fused_inputs(torch, TB, TS, seed, dtype=f32)
+    bias = padding_bias(torch, TB, TS, seed)
+    with torch.no_grad():
+        o, lse = fa.fused_attention_fwd_cuda(q, k, v, bias, scale)
+    rows["fused_attention"] = time_row(
+        torch, f"fused_attention fp32 B={TB} S={TS}", lambda: fa.fused_attention_fwd_cuda(q, k, v, bias, scale),
+        lambda: fa.fused_attention_fwd_ref(q, k, v, bias, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+        fused_attention_bound(TB, TS, False, f32=True), "SDPA in fp32 with the mask, TF32 off")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    rows["fused_attention_bwd"] = time_row(
+        torch, f"fused_attention_bwd fp32 B={TB} S={TS}",
+        lambda: fa.fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale),
+        lambda: fa.fused_attention_bwd_ref(q, k, v, bias, o, do, lse, scale),
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        fused_attention_bound(TB, TS, True, f32=True), "autograd.grad through SDPA in fp32, TF32 off")
+    del out, leaves, q, k, v, do, o, lse
+
+    q, k, v, _ = flash_case(torch, AB, VIT_S, VIT_S, "none", seed, dtype=f32)
+    do = fp32_cotangent(torch, AB, VIT_S, seed)
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, scale)
+        run_dq, run_dkv, _ = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
+        run_dq()  # #8's launch writes the term planes that #9's reads
+    rows["flash_attention"] = time_row(
+        torch, f"flash_attention fp32 vit B={AB} S={VIT_S}", lambda: fl.flash_attention_fwd_cuda(q, k, v, None, scale),
+        lambda: fl.flash_attention_fwd_ref(q, k, v, None, scale), lambda: F.scaled_dot_product_attention(q, k, v),
+        flash_bound(AB, VIT_S, VIT_S, 0, f32=True), "SDPA in fp32, TF32 off")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    for name, part, run in (("flash_attention_bwd_dq", "dq", run_dq), ("flash_attention_bwd_dkv", "dkv", run_dkv)):
+        rows[name] = time_row(
+            torch, f"{name} fp32 B={AB} S={VIT_S}", run,
+            lambda: fl.flash_attention_bwd_ref(q, k, v, None, o, do, lse, scale),
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            flash_bwd_bound(AB, VIT_S, VIT_S, 0, part, f32=True),
+            "autograd.grad through SDPA in fp32, TF32 off: dq, dk, dv; plain: the same")
+    del out, leaves
+
+    site = next(c for c in FP32_FLASH_CASES if c[0] == "stage-2 packed self")
+    times = {}
+    for dtype in (torch.bfloat16, f32):
+        q, k, v, bias = flash_case(torch, *site[1:], seed, dtype=dtype)
+        do = fp32_cotangent(torch, site[1], site[2], seed).to(dtype)
+        with torch.no_grad():
+            o, lse = fl.flash_attention_fwd_cuda(q, k, v, bias, scale)
+            run_dq, run_dkv, _ = fl.flash_bwd_launchers(q, k, v, bias, o, do, lse, scale)
+            run_dq()
+        times[dtype] = [device_ms(torch, run) for run in (run_dq, run_dkv)]
+    print(f"time flash backward, bias tile ({site[0]} B={site[1]} Sq=Skv={site[2]}): #8 {times[f32][0]:.4f} "
+          f"and #9 {times[f32][1]:.4f} ms device in fp32 (one ring stage) against {times[torch.bfloat16][0]:.4f} "
+          f"and {times[torch.bfloat16][1]:.4f} in bf16 (two)")
+    return rows
+
+
 def fp32_times(torch, seed):
     """(d): each fp32 kernel's row (kernel, plain version, the library chain
     in fp32 with TF32 off, the bound at the TF32 rate or bytes; #1 with its
@@ -6657,13 +6972,17 @@ def phase_fp32(torch, seed):
 
     with compiled.disable_graphs():
         errs = fp32_kernels(torch, seed)
+        errs.update(fp32_attention_kernels(torch, seed))
         patch_embedding_check(torch, seed)
         for r in WIDE_BOTTLENECKS:
             layer_bwd_parity(torch, TB, TS, True, seed, r=r)
         torch.cuda.empty_cache()
         launches = fp32_paths(torch, seed)
         torch.cuda.empty_cache()
+        launches.update(fp32_attention_paths(torch, seed))
+        torch.cuda.empty_cache()
         rows = fp32_times(torch, seed)
+        rows.update(fp32_attention_times(torch, seed))
     torch.cuda.empty_cache()
     return errs, launches, rows
 
@@ -6766,7 +7085,8 @@ def main(argv=None) -> int:
     # this slice's path: tensor parallelism, two ranks on the card over gloo
     phase_tp(torch, args.seed)
     done("tp")
-    # this slice's path: the "block" and "layer" routes in float32
+    # this slice's paths: every kernel route in float32 (#1-#4 on "block" and
+    # "layer", #5-#9 on "fused" and "flash")
     t_fp32 = time.perf_counter()
     fp32_errs, fp32_launches, fp32_rows = phase_fp32(torch, args.seed)
     done(f"fp32 (the phase {time.perf_counter() - t_fp32:.1f} s)")
@@ -6800,7 +7120,7 @@ def main(argv=None) -> int:
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms,
             "dtype": "bfloat16",
         })
-    for name in ("attn_block", "adapter_fused", "attn_block_bwd", "layer_block_bwd"):
+    for name in sources:
         src, replaces = sources[name]
         k_ms, p_ms, l_ms, bound, bound_by, _ = fp32_rows[name]
         kernels.append({

@@ -42,16 +42,14 @@ Every encoder and every task trainer of the JAX CLI runs: ``vilt`` and
 weights) on the federated VQA clients and on the other trainers' tasks,
 VQAv2 5% low-shot, NLVR2, SNLI-VE and VCR (``_build_classification_client``,
 each with its task's optimizer settings and epoch horizon; mixed client sets
-on the sequential engine, one kind of head on the SPMD engine).  What the
-port does not have yet is refused before any model is built or any dataset
-read, naming its ROADMAP item: float32 on the ``fused`` and ``flash`` routes
-on the card (Queue 3: "float32 on #5-#9", whose CUDA kernels take bf16; the
-``block`` and ``layer`` routes run float32 on the card).  ``albef_distill`` trains on the sequential engine as in
-the JAX CLI: momentum distillation on the plain modes, the fused DAT step
-without it (``--use_fused_dat``), a ``TypeError`` at the first step of the
-standard DAT step (the distill forward takes the twin, which that step does
-not pass), and ``NotImplementedError`` with ``--engine spmd`` (JAX raises it
-once the model is built; the port, before).
+on the sequential engine, one kind of head on the SPMD engine).  Every
+``--attn_impl`` runs ``--dtype float32`` on the card, as every kernel (#1-#9)
+takes it.  ``albef_distill`` trains on the sequential engine as in the JAX
+CLI: momentum distillation on the plain modes, the fused DAT step without it
+(``--use_fused_dat``), a ``TypeError`` at the first step of the standard DAT
+step (the distill forward takes the twin, which that step does not pass), and
+``NotImplementedError`` with ``--engine spmd`` (JAX raises it once the model
+is built; the port, before).
 
 Run: ``python -m feddat_tpu_torch.cli --encoder_name vilt --optimizer_mode dat
 --ordered_cl_tasks domain --climb_data_dir ./data ...``
@@ -69,8 +67,6 @@ import sys
 from typing import Dict
 
 KERNEL_ROUTES = ("block", "layer", "fused", "flash")
-# the kernel routes whose CUDA kernels (#5-#9) take bf16 only
-BF16_ROUTES = ("fused", "flash")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -187,23 +183,14 @@ def resolve_task_keys(spec: str):
 
 
 def refuse_unported(args) -> None:
-    """``SystemExit`` naming the ROADMAP item for what the port lacks, before
-    any model is built or dataset read (the JAX CLI's guards, :354-381 and
-    :440-446, stop there too)."""
-    def refuse(what, item):
-        raise SystemExit(f"feddat_tpu_torch: {what} is not ported yet (ROADMAP {item})")
-
+    """The refusals raised before any model is built or dataset read (the JAX
+    CLI's guards, :354-381 and :440-446, stop there too): the port lacks
+    nothing the JAX CLI runs, so only JAX's own is left."""
     if args.engine == "spmd" and args.encoder_name == "albef_distill":
         # the JAX CLI's own refusal (cli.py:699-703), which stays after item 12
         raise NotImplementedError(
             "--engine spmd supports albef_no_distill; momentum-distillation aux state is "
             "sequential-engine only (as is the reference's live DAT path, train_albef.sh)")
-
-    if (args.device == "cuda" and not args.smoke and args.dtype == "float32"
-            and args.attn_impl in BF16_ROUTES):
-        refuse(f"--dtype float32 with --attn_impl {args.attn_impl} on the card (its CUDA "
-               "kernels take bf16; use --dtype bfloat16, or --attn_impl block, layer or auto "
-               "in float32)", "Queue 3: float32 on #5-#9")
 
 
 def check_spmd_args(args) -> None:

@@ -154,15 +154,6 @@ __device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
   return base;
 }
 
-// the bf16 A fragment of k-step ks (16 columns) of a 64 x 64 fp32 accumulator:
-// term t of each value's split (t = 0: the value rounded to bf16 once, round
-// to nearest even)
-__device__ __forceinline__ void term_frag(const float (&x)[32], int ks, int t, uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    a[i] = pack_bf16(split_term(x[ks * 8 + 2 * i], t), split_term(x[ks * 8 + 2 * i + 1], t));
-}
-
 // eight adjacent values of a [.., 64] operand given as NT bf16 terms tt apart
 template <int NT>
 __device__ __forceinline__ void load_terms8(const bf16* p, long long tt, float (&v)[8]) {
@@ -194,34 +185,9 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int i0, i
   }
 }
 
-// d = A . B^T over the 64 head dims: A, B [64 rows][64] swizzled tiles, NT
-// term tiles each (consecutive), the term pairs in common.cuh's order
-template <int NT>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
-  constexpr int NP = NT == 3 ? 6 : 1;
-#pragma unroll
-  for (int pr = 0; pr < NP; ++pr)
-#pragma unroll
-    for (int ks = 0; ks < FA_D / 16; ++ks)
-      sm90::wgmma_ss(d, sm90::desc_k(a + (NP == 1 ? 0 : pair_a(pr)) * TB, ks),
-                     sm90::desc_k(b + (NP == 1 ? 0 : pair_b(pr)) * TB, ks), pr + ks);
-}
-
-// d += x . B over 64 rows: x a 64 x 64 fp32 accumulator taken as NT bf16
-// terms (NT = 1: bf16(x)), B natural [64 rows][64] swizzled tiles (NT terms)
-// read as wgmma's transposed B, the term pairs in common.cuh's order
-template <int NT>
-__device__ __forceinline__ void product_rs(float (&d)[32], const float (&x)[32], uint32_t b) {
-  constexpr int NP = NT == 3 ? 6 : 1;
-#pragma unroll
-  for (int pr = 0; pr < NP; ++pr)
-#pragma unroll
-    for (int ks = 0; ks < FA_ROWS / 16; ++ks) {
-      uint32_t a[4];
-      term_frag(x, ks, NP == 1 ? 0 : pair_a(pr), a);
-      sm90::wgmma_rs_t(d, a, sm90::desc_mn(b + (NP == 1 ? 0 : pair_b(pr)) * TB, ks));
-    }
-}
+// the products on term tiles (flash_sm90.cuh)
+using sm90::product_rs;
+using sm90::product_ss;
 
 // ----------------------------------------------------------- forward
 // Dynamic shared memory: Q, then K and V of each stage (NT tiles each), then

@@ -201,6 +201,50 @@ struct Heads {
   __device__ __forceinline__ T* at(int b, int h) const { return p + b * sb + h * sh; }
 };
 
+// x, a [B, H, S, 64] fp32 view by strides -> its hi, mid and lo terms as
+// contiguous [B, H, S, 64] bf16 planes at out, out + term, out + 2 term
+// (term = B H S 64): the operand of an fp32 attention product, split once
+// where the view lies (a split() view of a projection is read in place).
+// One thread per 8 adjacent elements of a row.
+__global__ void split3_heads_kernel(Heads<const float> x, bf16* __restrict__ out, int H, int S,
+                                    long long term) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < term / 8;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i >> 3, bh = r / S;
+    const int c = (int)(i & 7) * 8, s = (int)(r % S), h = (int)(bh % H), b = (int)(bh / H);
+    float v[8], t[8];
+    load8(x.at(b, h) + s * x.ss + c, v);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) t[e] = split_term(v[e], k);
+      store8(out + k * term + r * 64 + c, t);
+    }
+  }
+}
+
+// The operand that split3_heads_kernel writes at `planes`: contiguous
+// [B, H, S, 64] term planes, B H S 64 elements apart.
+inline Heads<const bf16> term_planes(const bf16* planes, int B, int H, int S) {
+  return {planes, (long long)H * S * 64, (long long)S * 64, 64, (long long)B * H * S * 64};
+}
+
+// Splits the fp32 view `x` [B, H, S, 64] into three planes at `planes` and
+// sets *op to them (term_planes); a bf16 view is its own operand.  Returns
+// the CUDA error.
+inline int heads_operand(Heads<const bf16> x, int, int, int, bf16*, Heads<const bf16>* op, cudaStream_t) {
+  *op = x;
+  return 0;
+}
+inline int heads_operand(Heads<const float> x, int B, int H, int S, bf16* planes, Heads<const bf16>* op,
+                         cudaStream_t st) {
+  *op = term_planes(planes, B, H, S);
+  const long long rows = (long long)B * H * S, term = op->tt;
+  const long long blocks = (rows + 31) / 32 < 132 * 32 ? (rows + 31) / 32 : 132 * 32;
+  split3_heads_kernel<<<(unsigned)blocks, 256, 0, st>>>(x, planes, H, S, term);
+  return (int)cudaGetLastError();
+}
+
 // erf as the TPU layer kernel computes it (feddat_tpu/ops/layer_block.py:92-113):
 // the Eigen/XLA rational polynomial on x clamped to [-4, 4] (max abs error
 // 6.0e-7 against the exact erf).  The plain version carries the same

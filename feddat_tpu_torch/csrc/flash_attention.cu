@@ -127,6 +127,42 @@
 // of 8 warps per SM).  A producer warp with TMA, the next step's products
 // issued before this step's elementwise work, or splitting #9's accumulators
 // across more warpgroups would.
+//
+// ------------------------------------------------------------------- fp32
+// All three take bf16 or fp32 q, k, v (dO), as the TPU kernels take the
+// model's dtype (they upcast every operand to fp32 and write o, dq, dk, dv in
+// the inputs' dtype).  The kernels are templates over that element type T;
+// the bf16 instances are the kernels described above, unchanged.  In the fp32
+// instances:
+//   * each fp32 operand is its three bf16 terms (common.cuh's split3: x = hi +
+//     mid + lo exactly), written once per call as contiguous [B, H, S, 64]
+//     planes in the caller's workspace (split3_heads_kernel, by the #7 and #8
+//     entries; #9's entry reads the planes #8's left there) and loaded as
+//     three swizzled tiles per 64-row block;
+//   * q.k^T and dO.v^T are the six term products of common.cuh's pair order
+//     (sm90::product_ss), and P, dP's ds (#8, #9) are split into three bf16
+//     terms in registers and multiply v's, k's, dO's or q's three term tiles
+//     the same way (sm90::product_rs): every product is fp32-accurate;
+//   * o, dq, dk and dv sum each 64-row step's products in a fresh
+//     accumulator and add it to theirs in one fp32 add (step_sum): the
+//     tensor cores round each addition at the magnitude of the running sum,
+//     so the first design, which let the products of every step add into
+//     it, read up to 4.5x the plain fp32 version's error from float64 at
+//     S=577 (and the fp32 ALBEF step's adapter gradients 1.4e-4 from the
+//     plain fp32 path's); summed apart, at most 0.9x.  #8 and #9 take the
+//     step's sum in a product accumulator that is dead at that point (#9
+//     runs its two products apart for it), #7 in 32 registers more;
+//   * exp is expf, as the plain versions and jnp.exp;
+//   * o, dq, dk and dv are written as fp32, lse stays fp32.
+// Shared memory triples with the tiles (TB = 8 KB each): #7 takes 18 tiles
+// and, with a [128][KEY_BIAS_LD] bias tile per stage, 222,208 B (one block
+// per SM of 232,448 B); #8 and #9 take 24 tiles, 197,632 and 198,656 B with
+// no bias or a bias row.  Their bias-tile mode (ALBEF's decoder: causal plus
+// padding, or the packed block-diagonal bias) would need 271,360 and 266,240
+// B with two ring stages, so their fp32 tile-mode instances run ONE ring
+// stage (185,344 and 182,784 B): step j+1's copies start after every
+// warpgroup is done with step j, so nothing overlaps the copies in that mode.
+// Every fp32 instance runs one block per SM (__launch_bounds__(256, 1)).
 
 #include "flash_sm90.cuh"
 
@@ -139,7 +175,8 @@ constexpr int FL_BK = 64;       // #7, #8: keys per streamed step
 constexpr int FL_D = 64;        // head dim
 constexpr float FL_NEG_INF = -1e30f;
 
-// two warpgroups per block, a two-stage ring of 64-row tiles
+// two warpgroups per block, a two-stage ring of 64-row tiles (one stage in
+// #8's and #9's fp32 bias-tile instances)
 constexpr int FS_THREADS = 256;
 constexpr int FS_ROWS = 128;             // query rows (#7, #8) or keys (#9) per block
 constexpr int FS_STAGES = 2;
@@ -151,9 +188,12 @@ constexpr int TB = sm90::TILE_BYTES;
 // [query][key] tile per step.
 enum { BIAS_NONE = 0, BIAS_ROW = 1, BIAS_TILE = 2 };
 
+// q, k, v: bf16, or the three bf16 term planes of fp32 ones (Heads::tt
+// apart); o of the element type T.
+template <typename T>
 struct FlashArgs {
   Heads<const bf16> q, k, v;
-  Heads<bf16> o;
+  Heads<T> o;
   const float* bias;             // compact bias or null
   long long bsb, bsh, bsq, bsk;  // its element strides, 0 on broadcast dims
   float* lse;                    // [B, H, Sq]
@@ -185,6 +225,57 @@ __device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw, uint8_t** ptr) {
   return base;
 }
 
+// exp of a logit's distance from the row max or lse: ex2.approx in bf16
+// (~2^-21 of p, far below o's rounding), expf in fp32 (as torch.exp)
+template <typename T>
+__device__ __forceinline__ float exp_t(float x) {
+  if constexpr (kTerms<T> == 1) {
+    return sm90::ex2(x * sm90::LOG2E);
+  } else {
+    return expf(x);
+  }
+}
+
+// d += x . B for a 64 x 64 fp32 x (P or dS) at fp32 precision and a bf16 B,
+// the natural [64 rows][64] tile read as wgmma's transposed B: x as bf16 hi +
+// lo, both multiplying B (the bf16 kernels)
+__device__ __forceinline__ void hilo_product(float (&d)[32], const float (&x)[32], uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < FL_BK / 16; ++ks) {
+    uint32_t hi[4], lo[4];
+    sm90::hilo_frags(x, ks, hi, lo);
+    const uint64_t db = sm90::desc_mn(b, ks);
+    sm90::wgmma_rs_t(d, hi, db);
+    sm90::wgmma_rs_t(d, lo, db);
+  }
+}
+
+// The same product in fp32, acc += x . B with x's three terms on B's three
+// term tiles: the six term products of one step summed in `tmp` (a fresh
+// accumulator) and added to acc in one fp32 add each.  The tensor cores'
+// accumulation rounds at the magnitude of the sum it adds to, so a running
+// sum over the whole sequence would take every step's products at its own,
+// larger magnitude (the error grows with the steps).
+__device__ __forceinline__ void step_sum(float (&acc)[32], float (&tmp)[32], const float (&x)[32],
+                                         uint32_t b) {
+  sm90::wg_fence();
+  sm90::product_rs<3, true>(tmp, x, b);
+  sm90::wg_commit();
+  sm90::wg_wait_all();
+  sm90::pin(tmp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += tmp[i];
+}
+
+// rows [r0, r0 + 64) of an operand's NT term planes (tt apart) into
+// consecutive swizzled tiles from `tile`
+template <int NT>
+__device__ __forceinline__ void load_terms(uint32_t tile, const bf16* src, long long ss, long long tt, int r0,
+                                           int S, int tid) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) sm90::load_tile<FS_THREADS>(tile + t * TB, src + t * tt, ss, r0, S, tid);
+}
+
 // #7's and #8's ring: the K and V tiles of one 64-key step and the bias of
 // the block's 128 query rows at those keys.  The bias is staged as none, one
 // 64-key row (constant over queries), or a [128][KEY_BIAS_LD] fp32 tile, so it
@@ -194,14 +285,15 @@ __host__ __device__ int key_bias_floats(int mode) {
 }
 
 // start the copies of (b, h)'s step at key k0 for the block at query q0 into
-// the stage at `sk` (K, then V) and `bs` (its bias); one commit group.  Keys
-// past Skv and rows past Sq are zero-filled.  `p` is #7's FlashArgs or #8's
-// FlashBwdArgs, read in place (kernel parameters, no registers held).
-template <typename Args>
+// the stage at `sk` (K's NT term tiles, then V's) and `bs` (its bias); one
+// commit group.  Keys past Skv and rows past Sq are zero-filled.  `p` is #7's
+// FlashArgs or #8's FlashBwdArgs, read in place (kernel parameters, no
+// registers held).
+template <int NT, typename Args>
 __device__ __forceinline__ void stage_keys(const Args& p, int b, int h, int q0, int k0, int mode,
                                            uint32_t sk, float* bs, int tid) {
-  sm90::load_tile<FS_THREADS>(sk, p.k.at(b, h), p.k.ss, k0, p.Skv, tid);
-  sm90::load_tile<FS_THREADS>(sk + TB, p.v.at(b, h), p.v.ss, k0, p.Skv, tid);
+  load_terms<NT>(sk, p.k.at(b, h), p.k.ss, p.k.tt, k0, p.Skv, tid);
+  load_terms<NT>(sk + NT * TB, p.v.at(b, h), p.v.ss, p.v.tt, k0, p.Skv, tid);
   const uint32_t sb = sm90::smem_addr(bs);
   const float* bb = p.bias + b * p.bsb + h * p.bsh;  // read only when mode != BIAS_NONE
   if (mode == BIAS_ROW) {
@@ -231,16 +323,25 @@ __device__ __forceinline__ void staged_bias(int mode, const float* bs, int lrow,
   }
 }
 
-// #7's dynamic shared memory: Q (two tiles), then K and V of each stage, then
-// the bias of each stage
-int fwd_smem_bytes(int mode) { return 1024 + (2 + 2 * FS_STAGES) * TB + FS_STAGES * key_bias_floats(mode) * 4; }
+// Blocks per SM a kernel's registers must allow: two for #7's and #8's bf16
+// instances (see above), one for every fp32 instance (its shared memory holds
+// one block per SM).
+template <typename T>
+constexpr int blocks_fwd_dq() { return kTerms<T> == 1 ? 2 : 1; }
 
-__global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, int mode) {
+// #7's dynamic shared memory: Q (two warpgroups' NT tiles), then K and V of
+// each stage, then the bias of each stage
+template <int NT, int NSTG>
+int fwd_smem_bytes(int mode) { return 1024 + NT * (2 + 2 * NSTG) * TB + NSTG * key_bias_floats(mode) * 4; }
+
+template <typename T, int NSTG>
+__global__ void __launch_bounds__(FS_THREADS, blocks_fwd_dq<T>()) flash_fwd_kernel(FlashArgs<T> p, int mode) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fs_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fs_smem, &sp);
-  const uint32_t sQ = sbase;                             // + wg * TB
-  float* bias_s = reinterpret_cast<float*>(sp + (2 + 2 * FS_STAGES) * TB);
+  const uint32_t sQ = sbase;                             // + wg * NT * TB
+  float* bias_s = reinterpret_cast<float*>(sp + NT * (2 + 2 * NSTG) * TB);
   const int bias_stage = key_bias_floats(mode);
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -248,15 +349,15 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
   const int q0 = blockIdx.x * FS_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int lrow = wg * 64 + warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
   const int nsteps = (p.Skv + FL_BK - 1) / FL_BK;
-  // step j's K, V and bias go to ring stage j % 2
+  // step j's K, V and bias go to ring stage j % NSTG
   auto stage = [&](int j) {
-    const int st = j % FS_STAGES;
-    stage_keys(p, b, h, q0, j * FL_BK, mode, sbase + (2 + 2 * st) * TB, bias_s + st * bias_stage, tid);
+    const int st = j % NSTG;
+    stage_keys<NT>(p, b, h, q0, j * FL_BK, mode, sbase + NT * (2 + 2 * st) * TB, bias_s + st * bias_stage, tid);
   };
 
   const bf16* qb = p.q.at(b, h);
-  sm90::load_tile<FS_THREADS>(sQ, qb, p.q.ss, q0, p.Sq, tid);
-  sm90::load_tile<FS_THREADS>(sQ + TB, qb, p.q.ss, q0 + 64, p.Sq, tid);
+  load_terms<NT>(sQ, qb, p.q.ss, p.q.tt, q0, p.Sq, tid);
+  load_terms<NT>(sQ + NT * TB, qb, p.q.ss, p.q.tt, q0 + 64, p.Sq, tid);
   stage(0);  // Q lands with the first step
 
   float m[2] = {FL_NEG_INF, FL_NEG_INF};
@@ -266,18 +367,16 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 
   for (int j = 0; j < nsteps; ++j) {
-    const int st = j % FS_STAGES, k0 = j * FL_BK;
+    const int st = j % NSTG, k0 = j * FL_BK;
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
-    if (j + 1 < nsteps) stage(j + 1);
-    const uint32_t sk = sbase + (2 + 2 * st) * TB;
+    if (NSTG > 1 && j + 1 < nsteps) stage(j + 1);
+    const uint32_t sk = sbase + NT * (2 + 2 * st) * TB;
 
     // s = q.k^T for the warpgroup's 64 rows x 64 keys
     float s[32];
     sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < FL_D / 16; ++ks)
-      sm90::wgmma_ss(s, sm90::desc_k(sQ + wg * TB, ks), sm90::desc_k(sk, ks), ks);
+    sm90::product_ss<NT>(s, sQ + wg * NT * TB, sk);
     sm90::wg_commit();
     sm90::wg_wait_all();
     sm90::pin(s);
@@ -304,38 +403,41 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float mn = fmaxf(m[r], quad_max(tmax[r]));
-      corr[r] = sm90::ex2((m[r] - mn) * sm90::LOG2E);
+      corr[r] = exp_t<T>(m[r] - mn);
       m[r] = mn;
       l[r] *= corr[r];
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
-      const float e = sm90::ex2((s[i] - m[r]) * sm90::LOG2E);
+      const float e = exp_t<T>(s[i] - m[r]);
       s[i] = e;
       l[r] += e;
       o[i] *= corr[r];
     }
 
-    // o += p.v with p = hi + lo in bf16, v from its natural [key][d] tile
-    sm90::pin(o);
-    sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < FL_BK / 16; ++ks) {
-      uint32_t hi[4], lo[4];
-      sm90::hilo_frags(s, ks, hi, lo);
-      const uint64_t dv = sm90::desc_mn(sk + TB, ks);
-      sm90::wgmma_rs_t(o, hi, dv);
-      sm90::wgmma_rs_t(o, lo, dv);
+    // o += p.v at fp32 precision, v from its natural [key][d] tiles (fp32:
+    // the step's products summed apart, then added to o: step_sum)
+    if constexpr (NT == 1) {
+      sm90::pin(o);
+      sm90::wg_fence();
+      hilo_product(o, s, sk + TB);
+      sm90::wg_commit();
+      sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+      sm90::pin(o);
+    } else {
+      float pv[32];
+      step_sum(o, pv, s, sk + NT * TB);
     }
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(o);
+    if (NSTG == 1 && j + 1 < nsteps) {
+      __syncthreads();  // every warpgroup is done with the one stage
+      stage(j + 1);
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-  bf16* ob = p.o.at(b, h);
+  T* ob = p.o.at(b, h);
   const int row[2] = {q0 + lrow, q0 + lrow + 8};
 #pragma unroll
   for (int nt = 0; nt < FL_D / 8; ++nt) {
@@ -343,8 +445,7 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.Sq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row[r] * p.o.ss + col) =
-            pack_bf16(o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
+        store2(ob + (long long)row[r] * p.o.ss + col, o[nt * 4 + 2 * r] / l[r], o[nt * 4 + 2 * r + 1] / l[r]);
   }
   if (tig == 0) {
 #pragma unroll
@@ -353,9 +454,12 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_fwd_kernel(FlashArgs p, i
   }
 }
 
+// q, k, v, dout: bf16, or the three bf16 term planes of fp32 ones; dq, dk,
+// dv of the element type T.
+template <typename T>
 struct FlashBwdArgs {
   Heads<const bf16> q, k, v, dout;
-  Heads<bf16> dq, dk, dv;
+  Heads<T> dq, dk, dv;
   const float* bias;             // compact bias or null
   long long bsb, bsh, bsq, bsk;  // its element strides, 0 on broadcast dims
   const float* lse;              // [B, H, Sq] from the forward
@@ -367,22 +471,26 @@ struct FlashBwdArgs {
 // #9's kernel comes before #8's in this file on purpose: with #8's first,
 // ptxas (CUDA 12.8) gave #9 167 registers instead of 215 and #9 ran 1.44x
 // slower (0.284 against 0.197 ms at the ViT site on the H100); #8's own code
-// is the same either way.
-// #9's dynamic shared memory: K and V of the block (two tiles each), then Q and
-// dO of each stage, then lse and delta of each stage (64 fp32 each), then the
-// bias tile of each stage ([64][F9_BIAS_LD] fp32, only when it varies over queries)
+// is the same either way.  (The entries below keep that order too.)
+// #9's dynamic shared memory: K and V of the block (two warpgroups' NT tiles
+// each), then Q and dO of each stage, then lse and delta of each stage (64
+// fp32 each), then the bias tile of each stage ([64][F9_BIAS_LD] fp32, only
+// when it varies over queries)
 __host__ __device__ int dkv_bias_floats(int mode) { return mode == BIAS_TILE ? FL_BQ * F9_BIAS_LD : 0; }
+template <int NT, int NSTG>
 int dkv_smem_bytes(int mode) {
-  return 1024 + (4 + 2 * FS_STAGES) * TB + FS_STAGES * (2 * FL_BQ + dkv_bias_floats(mode)) * 4;
+  return 1024 + NT * (4 + 2 * NSTG) * TB + NSTG * (2 * FL_BQ + dkv_bias_floats(mode)) * 4;
 }
 
-__global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdArgs p, int mode) {
+template <typename T, int NSTG>
+__global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdArgs<T> p, int mode) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fs_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fs_smem, &sp);
-  const uint32_t sK = sbase, sV = sbase + 2 * TB;  // + wg * TB
-  float* vec_s = reinterpret_cast<float*>(sp + (4 + 2 * FS_STAGES) * TB);  // [stage][lse 64 | delta 64]
-  float* bias_s = vec_s + FS_STAGES * 2 * FL_BQ;
+  const uint32_t sK = sbase, sV = sbase + 2 * NT * TB;  // + wg * NT * TB
+  float* vec_s = reinterpret_cast<float*>(sp + NT * (4 + 2 * NSTG) * TB);  // [stage][lse 64 | delta 64]
+  float* bias_s = vec_s + NSTG * 2 * FL_BQ;
   const int bias_stage = dkv_bias_floats(mode);
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -403,13 +511,13 @@ __global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdAr
     for (int r = 0; r < 2; ++r) bkey[r] = bb[(long long)min(key[r], p.Skv - 1) * p.bsk];
   }
 
-  // start the copies of query step j's Q, dO, lse, delta and bias into ring stage j % 2
-  // (one commit group)
+  // start the copies of query step j's Q, dO, lse, delta and bias into ring
+  // stage j % NSTG (one commit group)
   auto stage = [&](int j) {
-    const int st = j % FS_STAGES, qt = j * FL_BQ;
-    const uint32_t sq = sbase + (4 + 2 * st) * TB;
-    sm90::load_tile<FS_THREADS>(sq, qb, p.q.ss, qt, p.Sq, tid);
-    sm90::load_tile<FS_THREADS>(sq + TB, dob, p.dout.ss, qt, p.Sq, tid);
+    const int st = j % NSTG, qt = j * FL_BQ;
+    const uint32_t sq = sbase + NT * (4 + 2 * st) * TB;
+    load_terms<NT>(sq, qb, p.q.ss, p.q.tt, qt, p.Sq, tid);
+    load_terms<NT>(sq + NT * TB, dob, p.dout.ss, p.dout.tt, qt, p.Sq, tid);
     if (tid < 2 * FL_BQ) {
       const int i = tid % FL_BQ;
       const bool ok = qt + i < p.Sq;
@@ -432,8 +540,8 @@ __global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdAr
   const bf16* vb = p.v.at(b, h);
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    sm90::load_tile<FS_THREADS>(sK + t * TB, kb, p.k.ss, k0 + 64 * t, p.Skv, tid);
-    sm90::load_tile<FS_THREADS>(sV + t * TB, vb, p.v.ss, k0 + 64 * t, p.Skv, tid);
+    load_terms<NT>(sK + t * NT * TB, kb, p.k.ss, p.k.tt, k0 + 64 * t, p.Skv, tid);
+    load_terms<NT>(sV + t * NT * TB, vb, p.v.ss, p.v.tt, k0 + 64 * t, p.Skv, tid);
   }
   stage(0);  // K and V land with the first step
 
@@ -442,103 +550,154 @@ __global__ void __launch_bounds__(FS_THREADS, 1) flash_bwd_dkv_kernel(FlashBwdAr
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
 
   for (int j = 0; j < nsteps; ++j) {
-    const int st = j % FS_STAGES, qt = j * FL_BQ;
+    const int st = j % NSTG, qt = j * FL_BQ;
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
-    if (j + 1 < nsteps) stage(j + 1);
-    const uint32_t sq = sbase + (4 + 2 * st) * TB, so = sq + TB;
+    if (NSTG > 1 && j + 1 < nsteps) stage(j + 1);
+    const uint32_t sq = sbase + NT * (4 + 2 * st) * TB, so = sq + NT * TB;
 
-    // s^T = K.Q^T and dp^T = V.dO^T: rows = the warpgroup's 64 keys, columns = 64 queries
-    float s[32], dp[32];
-    sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < FL_D / 16; ++ks)
-      sm90::wgmma_ss(s, sm90::desc_k(sK + wg * TB, ks), sm90::desc_k(sq, ks), ks);
-#pragma unroll
-    for (int ks = 0; ks < FL_D / 16; ++ks)
-      sm90::wgmma_ss(dp, sm90::desc_k(sV + wg * TB, ks), sm90::desc_k(so, ks), ks);
-    sm90::wg_commit();
-    sm90::wg_wait_all();
-    sm90::pin(s);
-    sm90::pin(dp);
-
-    // p^T and ds^T in place; queries past Sq and keys past Skv give 0
     const float* lse_s = vec_s + st * 2 * FL_BQ;
     const float* dl_s = lse_s + FL_BQ;
     const float* bs = bias_s + st * bias_stage;
+    // p^T from s^T in place; queries past Sq and keys past Skv give 0
+    auto probs = [&](float (&x)[32]) {
 #pragma unroll
-    for (int nt = 0; nt < FL_BQ / 8; ++nt) {
-      const int qi = nt * 8 + tig * 2;  // step-local query of d[nt * 4 + 0|2]
-      const float2 lq = *reinterpret_cast<const float2*>(lse_s + qi);
-      const float2 dq = *reinterpret_cast<const float2*>(dl_s + qi);
+      for (int nt = 0; nt < FL_BQ / 8; ++nt) {
+        const int qi = nt * 8 + tig * 2;  // step-local query of d[nt * 4 + 0|2]
+        const float2 lq = *reinterpret_cast<const float2*>(lse_s + qi);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = e & 1;
-        float pr = 0.f, ds = 0.f;
-        if (qt + qi + c < p.Sq && key[r] < p.Skv) {
-          const float bv = mode == BIAS_ROW    ? bkey[r]
-                           : mode == BIAS_TILE ? bs[(qi + c) * F9_BIAS_LD + lkey + 8 * r]
-                                               : 0.f;
-          const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), bv);
-          pr = sm90::ex2((x - (c ? lq.y : lq.x)) * sm90::LOG2E);
-          ds = pr * (dp[nt * 4 + e] - (c ? dq.y : dq.x));
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = e & 1;
+          float pr = 0.f;
+          if (qt + qi + c < p.Sq && key[r] < p.Skv) {
+            const float bv = mode == BIAS_ROW    ? bkey[r]
+                             : mode == BIAS_TILE ? bs[(qi + c) * F9_BIAS_LD + lkey + 8 * r]
+                                                 : 0.f;
+            const float xs = __fadd_rn(__fmul_rn(x[nt * 4 + e], p.scale), bv);
+            pr = exp_t<T>(xs - (c ? lq.y : lq.x));
+          }
+          x[nt * 4 + e] = pr;
         }
-        s[nt * 4 + e] = pr;
-        dp[nt * 4 + e] = ds;
       }
-    }
+    };
 
-    // dv += p^T.dO and dk += ds^T.q, p and ds as bf16 hi + lo, dO and q from
-    // their natural [q][d] tiles
-    sm90::pin(dk);
-    sm90::pin(dv);
-    sm90::wg_fence();
+    float s[32], dp[32];
+    if constexpr (NT == 1) {
+      // s^T = K.Q^T and dp^T = V.dO^T: rows = the warpgroup's 64 keys, columns = 64 queries
+      sm90::wg_fence();
+      sm90::product_ss<NT>(s, sK + wg * NT * TB, sq);
+      sm90::product_ss<NT>(dp, sV + wg * NT * TB, so);
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(s);
+      sm90::pin(dp);
+
+      // p^T and ds^T in place; queries past Sq and keys past Skv give 0
 #pragma unroll
-    for (int ks = 0; ks < FL_BQ / 16; ++ks) {
-      uint32_t hi[4], lo[4];
-      sm90::hilo_frags(s, ks, hi, lo);
-      const uint64_t dso = sm90::desc_mn(so, ks);
-      sm90::wgmma_rs_t(dv, hi, dso);
-      sm90::wgmma_rs_t(dv, lo, dso);
-      sm90::hilo_frags(dp, ks, hi, lo);
-      const uint64_t dsq = sm90::desc_mn(sq, ks);
-      sm90::wgmma_rs_t(dk, hi, dsq);
-      sm90::wgmma_rs_t(dk, lo, dsq);
+      for (int nt = 0; nt < FL_BQ / 8; ++nt) {
+        const int qi = nt * 8 + tig * 2;  // step-local query of d[nt * 4 + 0|2]
+        const float2 lq = *reinterpret_cast<const float2*>(lse_s + qi);
+        const float2 dq = *reinterpret_cast<const float2*>(dl_s + qi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = e & 1;
+          float pr = 0.f, ds = 0.f;
+          if (qt + qi + c < p.Sq && key[r] < p.Skv) {
+            const float bv = mode == BIAS_ROW    ? bkey[r]
+                             : mode == BIAS_TILE ? bs[(qi + c) * F9_BIAS_LD + lkey + 8 * r]
+                                                 : 0.f;
+            const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), bv);
+            pr = exp_t<T>(x - (c ? lq.y : lq.x));
+            ds = pr * (dp[nt * 4 + e] - (c ? dq.y : dq.x));
+          }
+          s[nt * 4 + e] = pr;
+          dp[nt * 4 + e] = ds;
+        }
+      }
+
+      // dv += p^T.dO and dk += ds^T.q at fp32 precision, dO and q from their
+      // natural [q][d] tiles: p and ds as hi + lo, the two products
+      // interleaved by k-step
+      sm90::pin(dk);
+      sm90::pin(dv);
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < FL_BQ / 16; ++ks) {
+        uint32_t hi[4], lo[4];
+        sm90::hilo_frags(s, ks, hi, lo);
+        const uint64_t dso = sm90::desc_mn(so, ks);
+        sm90::wgmma_rs_t(dv, hi, dso);
+        sm90::wgmma_rs_t(dv, lo, dso);
+        sm90::hilo_frags(dp, ks, hi, lo);
+        const uint64_t dsq = sm90::desc_mn(sq, ks);
+        sm90::wgmma_rs_t(dk, hi, dsq);
+        sm90::wgmma_rs_t(dk, lo, dsq);
+      }
+      sm90::wg_commit();
+      sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+      sm90::pin(dk);
+      sm90::pin(dv);
+    } else {
+      // fp32: the step's dv and dk products each summed apart (step_sum) in
+      // the accumulator that is free at that point, with no registers more:
+      // s^T -> p^T; dv += p^T.dO (summed in dp); dp^T -> ds^T (p^T still in
+      // s); dk += ds^T.q (summed in s)
+      sm90::wg_fence();
+      sm90::product_ss<NT>(s, sK + wg * NT * TB, sq);
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(s);
+      probs(s);
+      step_sum(dv, dp, s, so);
+      sm90::wg_fence();
+      sm90::product_ss<NT>(dp, sV + wg * NT * TB, so);
+      sm90::wg_commit();
+      sm90::wg_wait_all();
+      sm90::pin(dp);
+#pragma unroll
+      for (int nt = 0; nt < FL_BQ / 8; ++nt) {
+        const float2 dq = *reinterpret_cast<const float2*>(dl_s + nt * 8 + tig * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt * 4 + e] = s[nt * 4 + e] * (dp[nt * 4 + e] - ((e & 1) ? dq.y : dq.x));
+      }
+      step_sum(dk, s, dp, sq);
     }
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(dk);
-    sm90::pin(dv);
+    if (NSTG == 1 && j + 1 < nsteps) {
+      __syncthreads();  // every warpgroup is done with the one stage
+      stage(j + 1);
+    }
   }
 
-  bf16* dkb = p.dk.at(b, h);
-  bf16* dvb = p.dv.at(b, h);
+  T* dkb = p.dk.at(b, h);
+  T* dvb = p.dv.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < FL_D / 8; ++nt) {
     const int col = nt * 8 + tig * 2;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (key[r] < p.Skv) {
-        *reinterpret_cast<uint32_t*>(dvb + (long long)key[r] * p.dv.ss + col) =
-            pack_bf16(dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dkb + (long long)key[r] * p.dk.ss + col) =
-            pack_bf16(dk[nt * 4 + 2 * r] * p.scale, dk[nt * 4 + 2 * r + 1] * p.scale);
+        store2(dvb + (long long)key[r] * p.dv.ss + col, dv[nt * 4 + 2 * r], dv[nt * 4 + 2 * r + 1]);
+        store2(dkb + (long long)key[r] * p.dk.ss + col, dk[nt * 4 + 2 * r] * p.scale,
+               dk[nt * 4 + 2 * r + 1] * p.scale);
       }
   }
 }
 
-// #8's dynamic shared memory: Q and dO (two tiles each), then K and V of each
-// stage, then the bias of each stage (as #7's)
-int dq_smem_bytes(int mode) { return 1024 + (4 + 2 * FS_STAGES) * TB + FS_STAGES * key_bias_floats(mode) * 4; }
+// #8's dynamic shared memory: Q and dO (two warpgroups' NT tiles each), then
+// K and V of each stage, then the bias of each stage (as #7's)
+template <int NT, int NSTG>
+int dq_smem_bytes(int mode) { return 1024 + NT * (4 + 2 * NSTG) * TB + NSTG * key_bias_floats(mode) * 4; }
 
-// <= 128 registers a thread, so two blocks share an SM where the shared
+// bf16: <= 128 registers a thread, so two blocks share an SM where the shared
 // memory allows it (see the note at the top of the file).
-__global__ void __launch_bounds__(FS_THREADS, 2) flash_bwd_dq_kernel(FlashBwdArgs p, int mode) {
+template <typename T, int NSTG>
+__global__ void __launch_bounds__(FS_THREADS, blocks_fwd_dq<T>()) flash_bwd_dq_kernel(FlashBwdArgs<T> p, int mode) {
+  constexpr int NT = kTerms<T>;
   extern __shared__ __align__(16) uint8_t fs_smem[];
   uint8_t* sp;
   const uint32_t sbase = aligned_smem(fs_smem, &sp);
-  const uint32_t sQ = sbase, sO = sbase + 2 * TB;  // + wg * TB
-  float* bias_s = reinterpret_cast<float*>(sp + (4 + 2 * FS_STAGES) * TB);
+  const uint32_t sQ = sbase, sO = sbase + 2 * NT * TB;  // + wg * NT * TB
+  float* bias_s = reinterpret_cast<float*>(sp + NT * (4 + 2 * NSTG) * TB);
   const int bias_stage = key_bias_floats(mode);
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -547,18 +706,18 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_bwd_dq_kernel(FlashBwdArg
   const int lrow = wg * 64 + warp * 16 + g;  // block-local row of d[..0|1]; lrow + 8 of d[..2|3]
   const int row[2] = {q0 + lrow, q0 + lrow + 8};
   const int nsteps = (p.Skv + FL_BK - 1) / FL_BK;
-  // step j's K, V and bias go to ring stage j % 2
+  // step j's K, V and bias go to ring stage j % NSTG
   auto stage = [&](int j) {
-    const int st = j % FS_STAGES;
-    stage_keys(p, b, h, q0, j * FL_BK, mode, sbase + (4 + 2 * st) * TB, bias_s + st * bias_stage, tid);
+    const int st = j % NSTG;
+    stage_keys<NT>(p, b, h, q0, j * FL_BK, mode, sbase + NT * (4 + 2 * st) * TB, bias_s + st * bias_stage, tid);
   };
 
   const bf16* qb = p.q.at(b, h);
   const bf16* dob = p.dout.at(b, h);
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    sm90::load_tile<FS_THREADS>(sQ + t * TB, qb, p.q.ss, q0 + 64 * t, p.Sq, tid);
-    sm90::load_tile<FS_THREADS>(sO + t * TB, dob, p.dout.ss, q0 + 64 * t, p.Sq, tid);
+    load_terms<NT>(sQ + t * NT * TB, qb, p.q.ss, p.q.tt, q0 + 64 * t, p.Sq, tid);
+    load_terms<NT>(sO + t * NT * TB, dob, p.dout.ss, p.dout.tt, q0 + 64 * t, p.Sq, tid);
   }
   stage(0);  // Q and dO land with the first step
 
@@ -577,21 +736,17 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_bwd_dq_kernel(FlashBwdArg
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
 
   for (int j = 0; j < nsteps; ++j) {
-    const int st = j % FS_STAGES, k0 = j * FL_BK;
+    const int st = j % NSTG, k0 = j * FL_BK;
     sm90::cp_async_wait_all();
     __syncthreads();  // step j has landed; every warpgroup is done with step j-1's stage
-    if (j + 1 < nsteps) stage(j + 1);
-    const uint32_t sk = sbase + (4 + 2 * st) * TB;
+    if (NSTG > 1 && j + 1 < nsteps) stage(j + 1);
+    const uint32_t sk = sbase + NT * (4 + 2 * st) * TB;
 
     // s = q.k^T and dp = dO.v^T for the warpgroup's 64 rows x 64 keys
     float s[32], dp[32];
     sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < FL_D / 16; ++ks)
-      sm90::wgmma_ss(s, sm90::desc_k(sQ + wg * TB, ks), sm90::desc_k(sk, ks), ks);
-#pragma unroll
-    for (int ks = 0; ks < FL_D / 16; ++ks)
-      sm90::wgmma_ss(dp, sm90::desc_k(sO + wg * TB, ks), sm90::desc_k(sk + TB, ks), ks);
+    sm90::product_ss<NT>(s, sQ + wg * NT * TB, sk);
+    sm90::product_ss<NT>(dp, sO + wg * NT * TB, sk + NT * TB);
     sm90::wg_commit();
     sm90::wg_wait_all();
     sm90::pin(s);
@@ -610,64 +765,41 @@ __global__ void __launch_bounds__(FS_THREADS, 2) flash_bwd_dq_kernel(FlashBwdArg
         float ds = 0.f;
         if (k0 + c + (e & 1) < p.Skv && row[r] < p.Sq) {
           const float x = __fadd_rn(__fmul_rn(s[nt * 4 + e], p.scale), (e & 1) ? bv[r].y : bv[r].x);
-          const float pr = sm90::ex2((x - lse_r[r]) * sm90::LOG2E);
+          const float pr = exp_t<T>(x - lse_r[r]);
           ds = pr * (dp[nt * 4 + e] - dl_r[r]);
         }
         s[nt * 4 + e] = ds;
       }
     }
 
-    // dq += ds.k with ds = hi + lo in bf16, k from its natural [key][d] tile
-    sm90::pin(dq);
-    sm90::wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < FL_BK / 16; ++ks) {
-      uint32_t hi[4], lo[4];
-      sm90::hilo_frags(s, ks, hi, lo);
-      const uint64_t dk = sm90::desc_mn(sk, ks);
-      sm90::wgmma_rs_t(dq, hi, dk);
-      sm90::wgmma_rs_t(dq, lo, dk);
+    // dq += ds.k at fp32 precision, k from its natural [key][d] tiles (fp32:
+    // the step's products summed apart in dp's registers, free now: step_sum)
+    if constexpr (NT == 1) {
+      sm90::pin(dq);
+      sm90::wg_fence();
+      hilo_product(dq, s, sk);
+      sm90::wg_commit();
+      sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
+      sm90::pin(dq);
+    } else {
+      step_sum(dq, dp, s, sk);
     }
-    sm90::wg_commit();
-    sm90::wg_wait_all();  // this stage is refilled after the next step's barrier
-    sm90::pin(dq);
+    if (NSTG == 1 && j + 1 < nsteps) {
+      __syncthreads();  // every warpgroup is done with the one stage
+      stage(j + 1);
+    }
   }
 
-  bf16* dqb = p.dq.at(b, h);
+  T* dqb = p.dq.at(b, h);
 #pragma unroll
   for (int nt = 0; nt < FL_D / 8; ++nt) {
     const int col = nt * 8 + tig * 2;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.Sq)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)row[r] * p.dq.ss + col) =
-            pack_bf16(dq[nt * 4 + 2 * r] * p.scale, dq[nt * 4 + 2 * r + 1] * p.scale);
+        store2(dqb + (long long)row[r] * p.dq.ss + col, dq[nt * 4 + 2 * r] * p.scale,
+               dq[nt * 4 + 2 * r + 1] * p.scale);
   }
-}
-
-FlashBwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout,
-                      const void* bias, const void* lse, const void* delta, void* dq, void* dk,
-                      void* dv, const long long* strides, int H, int Sq, int Skv, float scale) {
-  FlashBwdArgs a{};
-  a.q = heads<const bf16>(q, strides);
-  a.k = heads<const bf16>(k, strides + 3);
-  a.v = heads<const bf16>(v, strides + 6);
-  a.dout = heads<const bf16>(dout, strides + 9);
-  a.dq = heads<bf16>(dq, strides + 12);
-  a.dk = heads<bf16>(dk, strides + 15);
-  a.dv = heads<bf16>(dv, strides + 18);
-  a.bias = static_cast<const float*>(bias);
-  a.bsb = strides[21];
-  a.bsh = strides[22];
-  a.bsq = strides[23];
-  a.bsk = strides[24];
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.H = H;
-  a.Sq = Sq;
-  a.Skv = Skv;
-  a.scale = scale;
-  return a;
 }
 
 bool bad_sizes(int B, int H, int Sq, int Skv) {
@@ -678,29 +810,48 @@ int bias_mode(const void* bias, long long bsq) {
   return bias == nullptr ? BIAS_NONE : bsq == 0 ? BIAS_ROW : BIAS_TILE;
 }
 
-int fwd_smem_done[64], dq_smem_done[64], dkv_smem_done[64];
+// each instance's shared-memory limit, raised once per device
+template <typename T, int NSTG>
+int fwd_smem_done[64];
+template <typename T, int NSTG>
+int dq_smem_done[64];
+template <typename T, int NSTG>
+int dkv_smem_done[64];
 
-}  // namespace
+// Elements of one operand's three term planes: q's (and dout's) over Sq,
+// k's and v's over Skv.  The workspace holds q's, k's, v's, then dout's.
+long long terms_q(int B, int H, int Sq) { return 3LL * B * H * Sq * FL_D; }
 
-extern "C" {
+// The operands q, k, v (and dout) of a call in T: the bf16 views, or the
+// fp32 views' term planes in `planes`, split here when `split` (the #7 and #8
+// entries) or as the #8 entry left them (the #9 entry).
+template <typename T>
+int term_operands(const void* const* src, const long long* strides, int n, int B, int H, int Sq, int Skv,
+                  bf16* planes, bool split, Heads<const bf16>* const* dst, cudaStream_t st) {
+  const long long nq = terms_q(B, H, Sq), nkv = terms_q(B, H, Skv);
+  const long long off[4] = {0, nq, nq + nkv, nq + 2 * nkv};
+  const int len[4] = {Sq, Skv, Skv, Sq};
+  for (int i = 0; i < n; ++i) {
+    if (kTerms<T> == 3 && !split) {
+      *dst[i] = term_planes(planes + off[i], B, H, len[i]);
+      continue;
+    }
+    bf16* at = planes != nullptr ? planes + off[i] : nullptr;  // none in bf16
+    const int e = heads_operand(heads<const T>(src[i], strides + 3 * i), B, H, len[i], at, dst[i], st);
+    if (e) return e;
+  }
+  return 0;
+}
 
-const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// q [B, H, Sq, 64], k and v [B, H, Skv, 64] bf16 and o (output, [B, H, Sq, 64])
-// by element strides (strides[0..11]: q, k, v, o as sb, sh, ss); bias fp32 or
-// null with strides[12..15] = its b, h, q, k element strides (0 on broadcast
-// dims); lse [B, H, Sq] fp32 (output).  Every bf16 operand's start must be
-// 16-byte aligned and its strides multiples of 8 elements (cp.async copies 16
-// bytes).  Returns the CUDA error of the launch.
-int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                        void* lse, const long long* strides, int B, int H, int Sq, int Skv,
-                        float scale, void* stream) {
-  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  FlashArgs a{};
-  a.q = heads<const bf16>(q, strides);
-  a.k = heads<const bf16>(k, strides + 3);
-  a.v = heads<const bf16>(v, strides + 6);
-  a.o = heads<bf16>(o, strides + 9);
+template <typename T>
+int flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse, bf16* planes,
+              const long long* strides, int B, int H, int Sq, int Skv, float scale, cudaStream_t st) {
+  FlashArgs<T> a{};
+  const void* src[3] = {q, k, v};
+  Heads<const bf16>* const dst[3] = {&a.q, &a.k, &a.v};
+  const int e = term_operands<T>(src, strides, 3, B, H, Sq, Skv, planes, true, dst, st);
+  if (e) return e;
+  a.o = heads<T>(o, strides + 9);
   a.bias = static_cast<const float*>(bias);
   a.bsb = strides[12];
   a.bsh = strides[13];
@@ -711,50 +862,156 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   a.Sq = Sq;
   a.Skv = Skv;
   a.scale = scale;
-  const cudaError_t err = sm90::allow_smem(flash_fwd_kernel, fwd_smem_bytes(BIAS_TILE), fwd_smem_done);
+  const auto kernel = flash_fwd_kernel<T, FS_STAGES>;
+  constexpr int NT = kTerms<T>;
+  const cudaError_t err =
+      sm90::allow_smem(kernel, fwd_smem_bytes<NT, FS_STAGES>(BIAS_TILE), fwd_smem_done<T, FS_STAGES>);
   if (err != cudaSuccess) return (int)err;
   const int mode = bias_mode(bias, a.bsq);
   dim3 grid((Sq + FS_ROWS - 1) / FS_ROWS, H, B);
-  flash_fwd_kernel<<<grid, FS_THREADS, fwd_smem_bytes(mode), reinterpret_cast<cudaStream_t>(stream)>>>(
-      a, mode);
+  kernel<<<grid, FS_THREADS, fwd_smem_bytes<NT, FS_STAGES>(mode), st>>>(a, mode);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_args(FlashBwdArgs<T>* a, const void* q, const void* k, const void* v, const void* dout,
+             const void* bias, const void* lse, const void* delta, void* dq, void* dk, void* dv, bf16* planes,
+             bool split, const long long* strides, int B, int H, int Sq, int Skv, float scale,
+             cudaStream_t st) {
+  const void* src[4] = {q, k, v, dout};
+  Heads<const bf16>* const dst[4] = {&a->q, &a->k, &a->v, &a->dout};
+  const int e = term_operands<T>(src, strides, 4, B, H, Sq, Skv, planes, split, dst, st);
+  if (e) return e;
+  a->dq = heads<T>(dq, strides + 12);
+  a->dk = heads<T>(dk, strides + 15);
+  a->dv = heads<T>(dv, strides + 18);
+  a->bias = static_cast<const float*>(bias);
+  a->bsb = strides[21];
+  a->bsh = strides[22];
+  a->bsq = strides[23];
+  a->bsk = strides[24];
+  a->lse = static_cast<const float*>(lse);
+  a->delta = static_cast<const float*>(delta);
+  a->H = H;
+  a->Sq = Sq;
+  a->Skv = Skv;
+  a->scale = scale;
+  return 0;
+}
+
+// The widest bias mode a backward instance takes, whose shared memory its
+// limit is raised to: the fp32 two-stage instances do not take the tile
+// (their tile would not fit; the one-stage instances take it).
+template <typename T, int NSTG>
+constexpr int widest_bias() { return kTerms<T> == 3 && NSTG > 1 ? BIAS_ROW : BIAS_TILE; }
+
+template <typename T, int NSTG>
+int launch_dkv(const FlashBwdArgs<T>& a, int mode, int B, cudaStream_t st) {
+  constexpr int NT = kTerms<T>;
+  const auto kernel = flash_bwd_dkv_kernel<T, NSTG>;
+  const cudaError_t err =
+      sm90::allow_smem(kernel, dkv_smem_bytes<NT, NSTG>(widest_bias<T, NSTG>()), dkv_smem_done<T, NSTG>);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Skv + FS_ROWS - 1) / FS_ROWS, a.H, B);
+  kernel<<<grid, FS_THREADS, dkv_smem_bytes<NT, NSTG>(mode), st>>>(a, mode);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NSTG>
+int launch_dq(const FlashBwdArgs<T>& a, int mode, int B, cudaStream_t st) {
+  constexpr int NT = kTerms<T>;
+  const auto kernel = flash_bwd_dq_kernel<T, NSTG>;
+  const cudaError_t err =
+      sm90::allow_smem(kernel, dq_smem_bytes<NT, NSTG>(widest_bias<T, NSTG>()), dq_smem_done<T, NSTG>);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Sq + FS_ROWS - 1) / FS_ROWS, a.H, B);
+  kernel<<<grid, FS_THREADS, dq_smem_bytes<NT, NSTG>(mode), st>>>(a, mode);
+  return (int)cudaGetLastError();
+}
+
+// #9 (DKV, reading the terms #8's entry left) or #8 (splitting them): the
+// fp32 bias-tile instances run one ring stage (see the note at the top)
+template <typename T, bool DKV>
+int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* bias, const void* lse,
+              const void* delta, void* dq, void* dk, void* dv, bf16* planes, const long long* strides, int B,
+              int H, int Sq, int Skv, float scale, cudaStream_t st) {
+  FlashBwdArgs<T> a{};
+  const int e = bwd_args<T>(&a, q, k, v, dout, bias, lse, delta, dq, dk, dv, planes, !DKV, strides, B, H, Sq,
+                            Skv, scale, st);
+  if (e) return e;
+  const int mode = bias_mode(bias, a.bsq);
+  if constexpr (kTerms<T> == 3) {
+    if (mode == BIAS_TILE) return DKV ? launch_dkv<T, 1>(a, mode, B, st) : launch_dq<T, 1>(a, mode, B, st);
+  }
+  return DKV ? launch_dkv<T, FS_STAGES>(a, mode, B, st) : launch_dq<T, FS_STAGES>(a, mode, B, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Bytes of scratch the entries need: fp32 q, k, v (and dout for the
+// backward) as three bf16 term planes each; none in bf16.  The backward's
+// two entries share one workspace.
+long long flash_attention_workspace(int B, int H, int Sq, int Skv, int backward, int f32) {
+  if (!f32) return 0;
+  return 2 * ((backward ? 2 : 1) * terms_q(B, H, Sq) + 2 * terms_q(B, H, Skv));
+}
+
+// q [B, H, Sq, 64], k and v [B, H, Skv, 64] and o (output, [B, H, Sq, 64]), all
+// bf16 (f32 = 0) or fp32 (f32 = 1), by element strides (strides[0..11]: q, k,
+// v, o as sb, sh, ss); bias fp32 or null with strides[12..15] = its b, h, q, k
+// element strides (0 on broadcast dims); lse [B, H, Sq] fp32 (output);
+// workspace of flash_attention_workspace bytes.  Every operand's start must
+// be 16-byte aligned and its strides multiples of 8 elements (cp.async copies
+// 16 bytes).  Returns the CUDA error of the launches.
+int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+                        void* lse, void* workspace, const long long* strides, int B, int H, int Sq,
+                        int Skv, int f32, float scale, void* stream) {
+  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
+  bf16* planes = static_cast<bf16*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (!f32) return flash_fwd<bf16>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, scale, st);
+  return flash_fwd<float>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, scale, st);
 }
 
 // The backward's operands by element strides: strides[0..20] are q, k, v, dout,
-// dq, dk, dv as (sb, sh, ss), all [B, H, S, 64] bf16 (dq/dk/dv outputs);
-// strides[21..24] the bias's b, h, q, k element strides (0 on broadcast dims;
-// bias fp32 or null); lse and delta [B, H, Sq] fp32 contiguous.  Each entry
-// point launches one kernel and returns the CUDA error of the launch.
-int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                           const void* bias, const void* lse, const void* delta, void* dq,
-                           const long long* strides, int B, int H, int Sq, int Skv, float scale,
-                           void* stream) {
-  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  const FlashBwdArgs a = bwd_args(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, strides, H,
-                                  Sq, Skv, scale);
-  const cudaError_t err = sm90::allow_smem(flash_bwd_dq_kernel, dq_smem_bytes(BIAS_TILE), dq_smem_done);
-  if (err != cudaSuccess) return (int)err;
-  const int mode = bias_mode(bias, a.bsq);
-  dim3 grid((Sq + FS_ROWS - 1) / FS_ROWS, H, B);
-  flash_bwd_dq_kernel<<<grid, FS_THREADS, dq_smem_bytes(mode), reinterpret_cast<cudaStream_t>(stream)>>>(
-      a, mode);
-  return (int)cudaGetLastError();
-}
-
+// dq, dk, dv as (sb, sh, ss), all [B, H, S, 64] bf16 (f32 = 0) or fp32 (f32 =
+// 1) (dq/dk/dv outputs); strides[21..24] the bias's b, h, q, k element strides
+// (0 on broadcast dims; bias fp32 or null); lse and delta [B, H, Sq] fp32
+// contiguous; workspace of flash_attention_workspace(backward = 1) bytes.  In
+// fp32 the dq entry splits q, k, v and dout into the workspace and the dkv
+// entry reads those terms: call dq first, with the same workspace and
+// operands.  Each entry point launches its kernel and returns the CUDA error.
+// (dkv's entry is defined first: #9's instances before #8's, as above.)
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* bias, const void* lse, const void* delta, void* dk, void* dv,
-                            const long long* strides, int B, int H, int Sq, int Skv, float scale,
-                            void* stream) {
+                            void* workspace, const long long* strides, int B, int H, int Sq, int Skv,
+                            int f32, float scale, void* stream) {
   if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  const FlashBwdArgs a = bwd_args(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, strides, H, Sq,
-                                  Skv, scale);
-  const cudaError_t err = sm90::allow_smem(flash_bwd_dkv_kernel, dkv_smem_bytes(BIAS_TILE), dkv_smem_done);
-  if (err != cudaSuccess) return (int)err;
-  const int mode = bias_mode(bias, a.bsq);
-  dim3 grid((Skv + FS_ROWS - 1) / FS_ROWS, H, B);
-  flash_bwd_dkv_kernel<<<grid, FS_THREADS, dkv_smem_bytes(mode),
-                         reinterpret_cast<cudaStream_t>(stream)>>>(a, mode);
-  return (int)cudaGetLastError();
+  bf16* planes = static_cast<bf16*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (!f32)
+    return flash_bwd<bf16, true>(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, planes, strides, B, H, Sq, Skv,
+                                 scale, st);
+  return flash_bwd<float, true>(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, planes, strides, B, H, Sq, Skv,
+                                scale, st);
+}
+
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                           const void* bias, const void* lse, const void* delta, void* dq,
+                           void* workspace, const long long* strides, int B, int H, int Sq, int Skv,
+                           int f32, float scale, void* stream) {
+  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
+  bf16* planes = static_cast<bf16*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (!f32)
+    return flash_bwd<bf16, false>(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, planes, strides, B, H, Sq,
+                                  Skv, scale, st);
+  return flash_bwd<float, false>(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, planes, strides, B, H, Sq,
+                                 Skv, scale, st);
 }
 
 }  // extern "C"

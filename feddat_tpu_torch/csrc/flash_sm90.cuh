@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels #7-#9
 // (flash_attention.cu) and of the GEMM of #3 and #4 (gemm_sm90.cuh):
 // 128-byte swizzled bf16 tiles filled by cp.async, wgmma descriptors of
-// those tiles, the 64 x 64 x 16 warpgroup products of the flash kernels, and
-// the raising of a kernel's dynamic shared-memory limit.
+// those tiles, the 64 x 64 x 16 warpgroup products of the attention kernels
+// (on bf16 operands, or on the three bf16 term tiles of fp32 ones), and the
+// raising of a kernel's dynamic shared-memory limit.
 //
 // Every operand tile is [64 rows][64] bf16: 128-byte rows whose 16-byte
 // chunks are swizzled as wgmma's 128B layout (and TMA's SWIZZLE_128B) wants,
@@ -136,14 +137,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 }
 
 // d += A . B, A [64 M][16 K] bf16 in registers, B [16 K][64 N] MN-major in
-// shared memory (wgmma's transposed B)
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// shared memory (wgmma's transposed B); d is overwritten when acc == 0
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FS_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : FS_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 // the A fragments (bf16 hi, bf16 lo = x - hi) of k-step ks (16 columns) from
@@ -156,6 +157,45 @@ __device__ __forceinline__ void hilo_frags(const float (&x)[32], int ks, uint32_
     hi[i] = pack_bf16(a, b);
     lo[i] = pack_bf16(a - round_bf16(a), b - round_bf16(b));
   }
+}
+
+// the bf16 A fragment of k-step ks (16 columns) of a 64 x 64 fp32 accumulator:
+// term t of each value's split (t = 0: the value rounded to bf16 once, round
+// to nearest even)
+__device__ __forceinline__ void term_frag(const float (&x)[32], int ks, int t, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = pack_bf16(split_term(x[ks * 8 + 2 * i], t), split_term(x[ks * 8 + 2 * i + 1], t));
+}
+
+// d = A . B^T over the 64 head dims: A, B [64 rows][64] swizzled tiles, NT
+// term tiles each (consecutive), the term pairs in common.cuh's order
+template <int NT>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
+  constexpr int NP = NT == 3 ? 6 : 1;
+#pragma unroll
+  for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < TILE_ROWS / 16; ++ks)
+      wgmma_ss(d, desc_k(a + (NP == 1 ? 0 : pair_a(pr)) * TILE_BYTES, ks),
+               desc_k(b + (NP == 1 ? 0 : pair_b(pr)) * TILE_BYTES, ks), pr + ks);
+}
+
+// d += x . B over 64 rows (d = x . B with FRESH): x a 64 x 64 fp32
+// accumulator taken as NT bf16 terms (NT = 1: bf16(x)), B natural [64
+// rows][64] swizzled tiles (NT terms) read as wgmma's transposed B, the term
+// pairs in common.cuh's order
+template <int NT, bool FRESH = false>
+__device__ __forceinline__ void product_rs(float (&d)[32], const float (&x)[32], uint32_t b) {
+  constexpr int NP = NT == 3 ? 6 : 1;
+#pragma unroll
+  for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+    for (int ks = 0; ks < TILE_ROWS / 16; ++ks) {
+      uint32_t a[4];
+      term_frag(x, ks, NP == 1 ? 0 : pair_a(pr), a);
+      wgmma_rs_t(d, a, desc_mn(b + (NP == 1 ? 0 : pair_b(pr)) * TILE_BYTES, ks), FRESH ? pr + ks : 1);
+    }
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device

@@ -15,6 +15,13 @@
 // they get #5's and #6's entries, fused_fwd_kernel and fused_bwd_dq/dkdv_kernel,
 // and C entry points that take the operands as [B, H, S, 64] views by
 // strides, so split() views are read and written in place.  Any S >= 1 runs.
+//
+// Both take bf16 or fp32 q/k/v (and o, dO for #6), as the TPU kernels take
+// the model's dtype.  In fp32 nothing rounds (bf16(P) and bf16(ds) are casts
+// to fp32 there), the entries split each fp32 operand into its three bf16
+// terms in the caller's workspace (common.cuh's split3_heads_kernel), and
+// the bodies' fp32 instances take each product as six term products; o, dq,
+// dk and dv are written as fp32.  The bf16 instances are unchanged.
 
 #include "attn_sm90.cuh"
 
@@ -28,30 +35,81 @@ Heads<T> heads(const void* p, const long long* st) {
   return {static_cast<T*>(const_cast<void*>(p)), st[0], st[1], st[2]};
 }
 
-__global__ void __launch_bounds__(FA_THREADS, FWD_MIN_BLOCKS) fused_fwd_kernel(FusedFwdArgs<bf16> p) {
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS, fwd_min_blocks<T>()) fused_fwd_kernel(FusedFwdArgs<T> p) {
   fused_fwd_body(p);
 }
 
 // dkdv before dq (attn_sm90.cuh)
-__global__ void __launch_bounds__(FA_THREADS, DKDV_MIN_BLOCKS) fused_bwd_dkdv_kernel(FusedBwdArgs<bf16> p) {
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS, dkdv_min_blocks<T>()) fused_bwd_dkdv_kernel(FusedBwdArgs<T> p) {
   fused_bwd_dkdv_body(p);
 }
 
-__global__ void __launch_bounds__(FA_THREADS, DQ_MIN_BLOCKS) fused_bwd_dq_kernel(FusedBwdArgs<bf16> p) {
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS, dq_min_blocks<T>()) fused_bwd_dq_kernel(FusedBwdArgs<T> p) {
   fused_bwd_dq_body(p);
 }
 
-// the kernels' shared-memory limits, raised once per device (this library's own flags)
-int fwd_smem_done[64], dq_smem_done[64], dkdv_smem_done[64];
+// the kernels' shared-memory limits, raised once per device and element type
+// (bf16, fp32; this library's own flags)
+int fwd_smem_done[2][64], dq_smem_done[2][64], dkdv_smem_done[2][64];
 
-// #5 over B batch elements on `st`; returns the CUDA error of the launch
-int launch_fused_fwd(const FusedFwdArgs<bf16>& a, int B, cudaStream_t st) {
-  return launch_fwd(fused_fwd_kernel, fwd_smem_done, a, B, st);
+// Bytes of the workspace: fp32 q, k, v (and dout for the backward) as three
+// bf16 term planes each; none in bf16.
+long long workspace_bytes(int B, int H, int S, bool backward, bool f32) {
+  return f32 ? (backward ? 4 : 3) * 3 * (long long)B * H * S * FA_D * 2 : 0;
 }
 
-// #6's two launches on `st` (dq with delta, then dk/dv); returns the CUDA error
-int launch_fused_bwd(const FusedBwdArgs<bf16>& a, int B, cudaStream_t st) {
-  return launch_bwd(fused_bwd_dq_kernel, dq_smem_done, fused_bwd_dkdv_kernel, dkdv_smem_done, a, B, st);
+// #5 over B batch elements on `st` (q, k, v in T, split into `planes` in
+// fp32); returns the CUDA error of the launches
+template <typename T>
+int fused_fwd(const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+              bf16* planes, const long long* strides, int B, int H, int S, float scale, cudaStream_t st) {
+  if (bad_sizes(B, H, S)) return (int)cudaErrorInvalidValue;
+  constexpr int ti = kTerms<T> == 1 ? 0 : 1;
+  const long long plane = 3 * (long long)B * H * S * FA_D;  // one fp32 operand's terms
+  FusedFwdArgs<T> a{};
+  int e = heads_operand(heads<const T>(q, strides), B, H, S, planes, &a.q, st);
+  if (!e) e = heads_operand(heads<const T>(k, strides + 3), B, H, S, planes + plane, &a.k, st);
+  if (!e) e = heads_operand(heads<const T>(v, strides + 6), B, H, S, planes + 2 * plane, &a.v, st);
+  if (e) return e;
+  a.o = heads<T>(o, strides + 9);
+  a.bias = bias;
+  a.lse = lse;
+  a.S = S;
+  a.H = H;
+  a.scale = scale;
+  return launch_fwd(fused_fwd_kernel<T>, fwd_smem_done[ti], a, B, st);
+}
+
+// #6's two launches on `st` (dq with delta, then dk/dv; q, k, v, dout split
+// into `planes` in fp32); returns the CUDA error
+template <typename T>
+int fused_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* bias,
+              const float* lse, float* delta, void* dq, void* dk, void* dv, bf16* planes,
+              const long long* strides, int B, int H, int S, float scale, cudaStream_t st) {
+  if (bad_sizes(B, H, S)) return (int)cudaErrorInvalidValue;
+  constexpr int ti = kTerms<T> == 1 ? 0 : 1;
+  const long long plane = 3 * (long long)B * H * S * FA_D;
+  FusedBwdArgs<T> a{};
+  int e = heads_operand(heads<const T>(q, strides), B, H, S, planes, &a.q, st);
+  if (!e) e = heads_operand(heads<const T>(k, strides + 3), B, H, S, planes + plane, &a.k, st);
+  if (!e) e = heads_operand(heads<const T>(v, strides + 6), B, H, S, planes + 2 * plane, &a.v, st);
+  if (!e) e = heads_operand(heads<const T>(dout, strides + 12), B, H, S, planes + 3 * plane, &a.dout, st);
+  if (e) return e;
+  a.ctx = heads<const T>(o, strides + 9);
+  a.dq = heads<T>(dq, strides + 15);
+  a.dk = heads<T>(dk, strides + 18);
+  a.dv = heads<T>(dv, strides + 21);
+  a.bias = bias;
+  a.lse = lse;
+  a.delta = delta;
+  a.S = S;
+  a.H = H;
+  a.scale = scale;
+  return launch_bwd(fused_bwd_dq_kernel<T>, dq_smem_done[ti], fused_bwd_dkdv_kernel<T>, dkdv_smem_done[ti], a,
+                    B, st);
 }
 
 }  // namespace
@@ -60,51 +118,45 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// q, k, v [B, H, S, 64] bf16 and o (output) by element strides
-// (strides[0..11]: q, k, v, o as sb, sh, ss); bias [B, S] f32 or null; lse
-// [B, H, S] f32 (output).  Every bf16 operand's start must be 16-byte aligned
-// and its strides multiples of 8 elements (cp.async copies 16 bytes).
-// Returns the CUDA error of the launch (0 = success).
-int fused_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                        void* lse, const long long* strides, int B, int H, int S, float scale,
-                        void* stream) {
-  FusedFwdArgs<bf16> a{};
-  a.q = heads<const bf16>(q, strides);
-  a.k = heads<const bf16>(k, strides + 3);
-  a.v = heads<const bf16>(v, strides + 6);
-  a.o = heads<bf16>(o, strides + 9);
-  a.bias = static_cast<const float*>(bias);
-  a.lse = static_cast<float*>(lse);
-  a.S = S;
-  a.H = H;
-  a.scale = scale;
-  return launch_fused_fwd(a, B, reinterpret_cast<cudaStream_t>(stream));
+// Bytes of scratch fused_attention_fwd (backward = 0) or _bwd (1) needs.
+long long fused_attention_workspace(int B, int H, int S, int backward, int f32) {
+  return workspace_bytes(B, H, S, backward != 0, f32 != 0);
 }
 
-// q, k, v, o, dout [B, H, S, 64] bf16 and dq, dk, dv (outputs) by element
-// strides (strides[0..23]: q, k, v, o, dout, dq, dk, dv); bias [B, S] f32 or
-// null; lse [B, H, S] f32 from the forward; delta [B, H, S] f32 scratch.
-// Returns the CUDA error of the launches.
+// q, k, v [B, H, S, 64] and o (output) by element strides (strides[0..11]:
+// q, k, v, o as sb, sh, ss), all bf16 (f32 = 0) or fp32 (f32 = 1); bias
+// [B, S] f32 or null; lse [B, H, S] f32 (output); workspace of
+// fused_attention_workspace bytes.  Every operand's start must be 16-byte
+// aligned and its strides multiples of 8 elements (16-byte copies).
+// Returns the CUDA error of the launches (0 = success).
+int fused_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+                        void* lse, void* workspace, const long long* strides, int B, int H, int S,
+                        int f32, float scale, void* stream) {
+  const float* brow = static_cast<const float*>(bias);
+  float* l = static_cast<float*>(lse);
+  bf16* planes = static_cast<bf16*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (f32) return fused_fwd<float>(q, k, v, brow, o, l, planes, strides, B, H, S, scale, st);
+  return fused_fwd<bf16>(q, k, v, brow, o, l, planes, strides, B, H, S, scale, st);
+}
+
+// q, k, v, o, dout [B, H, S, 64] and dq, dk, dv (outputs) by element
+// strides (strides[0..23]: q, k, v, o, dout, dq, dk, dv), all bf16 (f32 = 0)
+// or fp32 (f32 = 1); bias [B, S] f32 or null; lse [B, H, S] f32 from the
+// forward; delta [B, H, S] f32 scratch; workspace of
+// fused_attention_workspace bytes.  Returns the CUDA error of the launches.
 int fused_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* bias, const void* lse, void* delta, void* dq,
-                        void* dk, void* dv, const long long* strides, int B, int H, int S,
-                        float scale, void* stream) {
-  FusedBwdArgs<bf16> a{};
-  a.q = heads<const bf16>(q, strides);
-  a.k = heads<const bf16>(k, strides + 3);
-  a.v = heads<const bf16>(v, strides + 6);
-  a.ctx = heads<const bf16>(o, strides + 9);
-  a.dout = heads<const bf16>(dout, strides + 12);
-  a.dq = heads<bf16>(dq, strides + 15);
-  a.dk = heads<bf16>(dk, strides + 18);
-  a.dv = heads<bf16>(dv, strides + 21);
-  a.bias = static_cast<const float*>(bias);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.S = S;
-  a.H = H;
-  a.scale = scale;
-  return launch_fused_bwd(a, B, reinterpret_cast<cudaStream_t>(stream));
+                        void* dk, void* dv, void* workspace, const long long* strides, int B, int H,
+                        int S, int f32, float scale, void* stream) {
+  const float* brow = static_cast<const float*>(bias);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+  bf16* planes = static_cast<bf16*>(workspace);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (f32)
+    return fused_bwd<float>(q, k, v, o, dout, brow, l, d, dq, dk, dv, planes, strides, B, H, S, scale, st);
+  return fused_bwd<bf16>(q, k, v, o, dout, brow, l, d, dq, dk, dv, planes, strides, B, H, S, scale, st);
 }
 
 }  // extern "C"

@@ -105,10 +105,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return reports
 
 
+# template arguments of the kernels' mangled names: an int, or an element type
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|(f)|(13__nv_bfloat16)")
+
+
 def _kernel_name(symbol: str) -> str:
     """A readable name for a mangled kernel symbol: the nested name's parts
-    (the anonymous namespace left out) and two int template arguments, e.g.
-    ``port::sm90::gemm_sm90_kernel<0, 0>``; the symbol itself otherwise."""
+    (the anonymous namespace left out) and its int and element-type template
+    arguments, e.g. ``port::sm90::gemm_sm90_kernel<0, 0, float>`` or
+    ``flash_fwd_kernel<bf16, 2>``; the symbol itself otherwise."""
     body = symbol[3:] if symbol.startswith("_ZN") else symbol[2:] if symbol.startswith("_Z") else ""
     parts, i = [], 0
     while i < len(body) and body[i].isdigit():
@@ -120,9 +125,14 @@ def _kernel_name(symbol: str) -> str:
         i = j + n
     if not parts:
         return symbol
-    args = re.match(r"ILi(\d+)ELi(\d+)E", body[i:])
     name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
-    return name + (f"<{args.group(1)}, {args.group(2)}>" if args else "")
+    if not body[i:].startswith("I"):
+        return name
+    args, i = [], i + 1
+    while (m := _TEMPLATE_ARG.match(body, i)) is not None:
+        args.append(m.group(1) or ("float" if m.group(2) else "bf16"))
+        i = m.end()
+    return name + (f"<{', '.join(args)}>" if args and body[i:i + 1] == "E" else "")
 
 
 def ptxas_summary(log: str) -> Sequence[str]:

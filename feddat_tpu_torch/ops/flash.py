@@ -30,7 +30,9 @@ gradient), like the JAX custom_vjp's.
   blocks, a cp.async ring of 64-row tiles): their C entry points choose the
   grid (``ceil(Sq/128)`` query blocks for #7, ``ceil(Skv/128)`` key blocks
   for #9, by heads and batch) and raise each kernel's dynamic shared-memory
-  limit once per device; #8 keeps its 64-query blocks.
+  limit once per device; #8 keeps its 64-query blocks.  All three take bf16
+  or float32 operands (the model's dtype, as the TPU kernels take it; o, dq,
+  dk and dv in that type): in float32 every product is as accurate as fp32's.
 
 :func:`flash_attention` is an autograd Function with the custom_vjp's
 contract: a CPU tensor takes the plain versions both ways, a CUDA tensor
@@ -45,24 +47,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, ptr
-from feddat_tpu_torch.ops.fused_attention import HEAD_DIM, _check_heads, _empty_heads, _in_place_ok
+from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops.fused_attention import (HEAD_DIM, _check_heads, _empty_heads, _in_place_ok,
+                                                  check_dtypes)
 
 NEG_INF = -1e30
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel(
-    "flash_attention", "flash_attention_fwd",
-    [_vp] * 6 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
-)
-KERNEL_BWD_DQ = CudaKernel(
-    "flash_attention", "flash_attention_bwd_dq",
-    [_vp] * 8 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
-)
-KERNEL_BWD_DKV = CudaKernel(
-    "flash_attention", "flash_attention_bwd_dkv",
-    [_vp] * 9 + [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _f, _vp],
-)
+_sizes = [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _i, _f, _vp]  # strides, B, H, Sq, Skv, f32
+KERNEL = CudaKernel("flash_attention", "flash_attention_fwd", [_vp] * 7 + _sizes)
+KERNEL_BWD_DQ = CudaKernel("flash_attention", "flash_attention_bwd_dq", [_vp] * 9 + _sizes)
+KERNEL_BWD_DKV = CudaKernel("flash_attention", "flash_attention_bwd_dkv", [_vp] * 10 + _sizes)
 # gridDim.z (the batch) and gridDim.y (the heads) of the launch.
 MAX_GRID_YZ = 65535
 
@@ -114,12 +109,12 @@ def flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale: float):
 
 
 def _check_cuda_operands(fn: str, q, k, v, bias):
-    """The checks #7-#9 share: bf16 ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]``
-    k/v in any layout ``_check_heads`` admits (a 16-byte aligned start and
-    strides of multiples of 8 elements: the kernels copy rows 16 bytes at a
-    time with cp.async), sizes the grid takes, a compact bias on q's device.
-    -> (b, h, sq, skv, fp32 bias or None, its 4 element strides with 0 on
-    broadcast dims)."""
+    """The checks #7-#9 share: ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]``
+    k/v (their one dtype checked by ``check_dtypes`` before) in any layout
+    ``_check_heads`` admits (a 16-byte aligned start and strides of multiples
+    of 8 elements: the kernels copy rows 16 bytes at a time with cp.async),
+    sizes the grid takes, a compact bias on q's device.  -> (b, h, sq, skv,
+    fp32 bias or None, its 4 element strides with 0 on broadcast dims)."""
     _check_heads(fn, "q", q, tuple(q.shape))
     b, h, sq, _ = q.shape
     skv = k.shape[2] if k.dim() == 4 else -1
@@ -140,28 +135,42 @@ def _strides(ts, bias_strides):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _workspace(b: int, h: int, sq: int, skv: int, backward: bool, dtype: torch.dtype, device):
+    """The float32 kernels' scratch for the operands' bf16 term planes (None in
+    bf16, which needs none); the backward's two launches share one."""
+    if dtype != torch.float32:
+        return None
+    fn = load("flash_attention").flash_attention_workspace
+    fn.argtypes, fn.restype = [_i] * 6, ctypes.c_longlong
+    return torch.empty(fn(b, h, sq, skv, int(backward), 1), dtype=torch.uint8, device=device)
+
+
 def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes bf16
-    ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]`` k/v in any layout
-    ``_check_heads`` admits, any lengths, and the compact bias; raises on
-    anything else."""
-    b, h, sq, skv, bias, bias_strides = _check_cuda_operands("flash_attention_fwd_cuda", q, k, v, bias)
-    o = _empty_heads(b, h, sq, q.device)
+    """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes
+    ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]`` k/v, all bf16 or all float32
+    (o in that type), in any layout ``_check_heads`` admits, any lengths, and
+    the compact bias; raises on anything else."""
+    fn = "flash_attention_fwd_cuda"
+    dtype = check_dtypes(fn, (("q", q), ("k", k), ("v", v)))
+    b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
+    o = _empty_heads(b, h, sq, q.device, dtype)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse),
-                  _strides((q, k, v, o), bias_strides), b, h, sq, skv, float(scale),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    ws = _workspace(b, h, sq, skv, False, dtype, q.device)
+    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse), ptr(ws),
+                  _strides((q, k, v, o), bias_strides), b, h, sq, skv, int(dtype == torch.float32),
+                  float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
 
 
 def flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
-    """Kernels #8 (dq) and #9 (dk, dv) -> (dq, dk, dv) bf16, as
+    """Kernels #8 (dq) and #9 (dk, dv) -> (dq, dk, dv), as
     :func:`flash_attention_bwd_ref`.  Takes the forward's operands as
-    :func:`flash_attention_fwd_cuda` does, its bf16 o and fp32 lse, and bf16
-    ``do`` in any layout ``_check_heads`` admits; δ = rowsum(dO∘o) is one fp32
-    reduction here, as JAX takes it in XLA.  Raises ``ValueError`` before any
-    launch on fp32 operands, a head dim other than 64, a bias on another
-    device or anything else the kernels do not take."""
+    :func:`flash_attention_fwd_cuda` does, its o and fp32 lse, and ``do`` in
+    any layout ``_check_heads`` admits, q/k/v/o/do all bf16 or all float32
+    (the gradients in that type); δ = rowsum(dO∘o) is one fp32 reduction here,
+    as JAX takes it in XLA.  Raises before any launch on another dtype
+    (``TypeError``), a head dim other than 64, a bias on another device or
+    anything else the kernels do not take (``ValueError``)."""
     launch_dq, launch_dkv, grads = flash_bwd_launchers(q, k, v, bias, o, do, lse, scale)
     launch_dq()
     launch_dkv()
@@ -171,25 +180,28 @@ def flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
 def flash_bwd_launchers(q, k, v, bias, o, do, lse, scale: float):
     """The checks, δ and the outputs of :func:`flash_attention_bwd_cuda` ->
     (launch #8, launch #9, (dq, dk, dv)): each launcher runs its kernel into
-    the returned outputs (``chip_smoke.py`` times them one by one)."""
+    the returned outputs (``chip_smoke.py`` times them one by one).  In
+    float32 #8's launch also splits q, k, v and dO into the workspace's term
+    planes, which #9's reads: launch #8 first."""
     fn = "flash_attention_bwd_cuda"
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{fn}: {name} must be torch.bfloat16, got {t.dtype}")
+    dtype = check_dtypes(fn, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
     for name, t in (("o", o), ("do", do)):
         _check_heads(fn, name, t, (b, h, sq, HEAD_DIM))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous():
         raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {sq}] tensor")
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq = _empty_heads(b, h, sq, q.device)
-    dk, dv = _empty_heads(b, h, skv, q.device), _empty_heads(b, h, skv, q.device)
+    dq = _empty_heads(b, h, sq, q.device, dtype)
+    dk, dv = _empty_heads(b, h, skv, q.device, dtype), _empty_heads(b, h, skv, q.device, dtype)
+    ws = _workspace(b, h, sq, skv, True, dtype, q.device)
     strides = _strides((q, k, v, do, dq, dk, dv), bias_strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    f32 = int(dtype == torch.float32)
 
-    def launcher(kernel, *outs):  # holds every operand (δ included) while it lives
+    def launcher(kernel, *outs):  # holds every operand (δ and the workspace included) while it lives
         return lambda: kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias), ptr(lse), ptr(delta),
-                                     *map(ptr, outs), strides, b, h, sq, skv, float(scale), stream)
+                                     *map(ptr, outs), ptr(ws), strides, b, h, sq, skv, f32, float(scale),
+                                     stream)
 
     return launcher(KERNEL_BWD_DQ, dq), launcher(KERNEL_BWD_DKV, dk, dv), (dq, dk, dv)
 

@@ -10,7 +10,8 @@ through ``_fwd_call``, kernel #5)::
 Backward (``_bwd_kernel`` through ``_fused_bwd``, kernel #6): P recomputed as
 ``exp(s − lse)``; ``dv = bf16(P)ᵀ·dO``, ``δ = rowsum(dO∘o)``,
 ``ds = bf16(P(dP − δ))``, ``dq = ds·k·scale``, ``dk = dsᵀ·q·scale``, each
-summed in fp32 and cast once.
+summed in fp32 and cast once.  Every bf16 here is a cast to the operands'
+dtype, so in float32 nothing rounds.
 
 Two implementations of each:
 
@@ -21,7 +22,9 @@ Two implementations of each:
 * :func:`fused_attention_fwd_cuda` / :func:`fused_attention_bwd_cuda` — the
   hand-written kernels in ``csrc/fused_attention.cu`` (``wgmma`` on swizzled
   tiles filled by a cp.async ring, on strided ``[B, H, S, 64]`` operands; any
-  S ≥ 1).
+  S ≥ 1), in bf16 or float32 (the model's dtype, as the TPU kernels take it:
+  in float32 nothing rounds, P and ds included, and every product is as
+  accurate as fp32's).
 
 :func:`fused_short_attention` is differentiable with the JAX custom_vjp's
 contract (the bias is a constant) and picks by device only: a CPU tensor takes
@@ -37,20 +40,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, ptr
+from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _strides = ctypes.POINTER(ctypes.c_longlong)
 KERNEL = CudaKernel(
     "fused_attention", "fused_attention_fwd",
-    [_vp] * 6 + [_strides, _i, _i, _i, _f, _vp],
+    [_vp] * 7 + [_strides, _i, _i, _i, _i, _f, _vp],
 )
 KERNEL_BWD = CudaKernel(
     "fused_attention", "fused_attention_bwd",
-    [_vp] * 11 + [_strides, _i, _i, _i, _f, _vp],
+    [_vp] * 12 + [_strides, _i, _i, _i, _i, _f, _vp],
 )
 # Head dim the kernels are written for (wgmma tiles).
 HEAD_DIM = 64
+# The element types the kernels take: q, k, v (and o, dO) all of one (lse,
+# δ and the bias are fp32 either way).
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _bias_rows(bias: Optional[torch.Tensor], b: int, s: int, device=None) -> torch.Tensor:
@@ -101,13 +107,24 @@ def _in_place_ok(t: torch.Tensor) -> bool:
             and not any(st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
 
 
+def check_dtypes(fn: str, operands) -> torch.dtype:
+    """The element type of the ``(name, tensor)`` operands, which must all be
+    one of :data:`DTYPES` (the first's); raise ``TypeError`` naming the first
+    that is not.  Reads dtypes only, so it runs on any device before a launch."""
+    dtype = operands[0][1].dtype
+    for name, t in operands:
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{fn}: {name} must be torch.bfloat16 or torch.float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {operands[0][0]}'s {dtype}, got {t.dtype}")
+    return dtype
+
+
 def _check_heads(fn: str, name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    """Raise unless ``t`` is a bf16 CUDA ``[B, H, S, 64]`` view the kernels read
-    in place (:func:`_in_place_ok`)."""
+    """Raise unless ``t`` is a CUDA ``[B, H, S, 64]`` view the kernels read in
+    place (:func:`_in_place_ok`); its dtype is :func:`check_dtypes`'s."""
     if not t.is_cuda:
         raise ValueError(f"{fn}: {name} must be a CUDA tensor")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{fn}: {name} must be torch.bfloat16, got {t.dtype}")
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
         raise ValueError(f"{fn} takes [B, H, S, {HEAD_DIM}] operands (head dim {HEAD_DIM}); "
                          f"{name} has shape {tuple(t.shape)}")
@@ -123,10 +140,21 @@ def _stride_array(*ts: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _empty_heads(b: int, h: int, s: int, device) -> torch.Tensor:
-    """A bf16 [B, H, S, 64] output laid out as [B, S, H, 64], so that merging the
-    heads back into [B, S, H·64] (or the backward of split()) is a free view."""
-    return torch.empty((b, s, h, HEAD_DIM), dtype=torch.bfloat16, device=device).transpose(1, 2)
+def _empty_heads(b: int, h: int, s: int, device, dtype: torch.dtype) -> torch.Tensor:
+    """A [B, H, S, 64] output of ``dtype`` laid out as [B, S, H, 64], so that
+    merging the heads back into [B, S, H·64] (or the backward of split()) is a
+    free view."""
+    return torch.empty((b, s, h, HEAD_DIM), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _workspace(b: int, h: int, s: int, backward: bool, dtype: torch.dtype, device):
+    """The float32 kernels' scratch for the operands' bf16 term planes (None in
+    bf16, which needs none)."""
+    if dtype != torch.float32:
+        return None
+    fn = load("fused_attention").fused_attention_workspace
+    fn.argtypes, fn.restype = [_i] * 5, ctypes.c_longlong
+    return torch.empty(fn(b, h, s, int(backward), 1), dtype=torch.uint8, device=device)
 
 
 def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tensor]:
@@ -139,41 +167,49 @@ def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tens
 
 
 def fused_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel #5 -> (o, lse), as :func:`fused_attention_fwd_ref`.  Takes bf16
-    ``[B, H, S, 64]`` q/k/v (any layout :func:`_check_heads` admits) at any
-    S ≥ 1; raises on anything else."""
+    """Kernel #5 -> (o, lse), as :func:`fused_attention_fwd_ref`.  Takes
+    ``[B, H, S, 64]`` q/k/v, all bf16 or all float32 (o in that type), in any
+    layout :func:`_check_heads` admits, at any S ≥ 1; raises on anything else."""
     fn = "fused_attention_fwd_cuda"
+    operands = (("q", q), ("k", k), ("v", v))
+    dtype = check_dtypes(fn, operands)
     shape = tuple(q.shape)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in operands:
         _check_heads(fn, name, t, shape)
     b, h, s, _ = shape
     if s < 1:
         raise ValueError(f"{fn}: sequence length {s} must be at least 1")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
-    o = _empty_heads(b, h, s, q.device)
+    o = _empty_heads(b, h, s, q.device, dtype)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(brow), ptr(o), ptr(lse), _stride_array(q, k, v, o),
-                  b, h, s, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    ws = _workspace(b, h, s, False, dtype, q.device)
+    KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(brow), ptr(o), ptr(lse), ptr(ws), _stride_array(q, k, v, o),
+                  b, h, s, int(dtype == torch.float32), float(scale),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
 
 
 def fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
     """Kernel #6 -> (dq, dk, dv), as :func:`fused_attention_bwd_ref`.  Takes
-    the forward's bf16 q/k/v/o, bf16 ``do`` and fp32 ``lse [B, H, S]``; raises
-    on anything else."""
+    the forward's q/k/v/o and ``do``, all bf16 or all float32 (the gradients
+    in that type), and fp32 ``lse [B, H, S]``; raises on anything else."""
     fn = "fused_attention_bwd_cuda"
+    operands = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    dtype = check_dtypes(fn, operands)
     shape = tuple(q.shape)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    for name, t in operands:
         _check_heads(fn, name, t, shape)
     b, h, s, _ = shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
         raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {s}] tensor")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (_empty_heads(b, h, s, q.device) for _ in range(3))
+    dq, dk, dv = (_empty_heads(b, h, s, q.device, dtype) for _ in range(3))
+    ws = _workspace(b, h, s, True, dtype, q.device)
     KERNEL_BWD.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(brow), ptr(lse), ptr(delta),
-                      ptr(dq), ptr(dk), ptr(dv), _stride_array(q, k, v, o, do, dq, dk, dv),
-                      b, h, s, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                      ptr(dq), ptr(dk), ptr(dv), ptr(ws), _stride_array(q, k, v, o, do, dq, dk, dv),
+                      b, h, s, int(dtype == torch.float32), float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 
 

@@ -22,8 +22,9 @@ other, this, this, other:
   rows) and the B=1 bucket (N = 281).  Its C entry point takes a scratch
   pointer and exports ``adapter_fused_workspace``: the other tree must have
   both (a tree that does not cannot be compared here).  The C entry points
-  of #1-#4 take an element-type flag, and #1's a workspace: a tree whose
-  entry points do not cannot be compared here either.
+  of #1-#9 take an element-type flag, and those of #1 and #5-#9 a
+  workspace: a tree whose entry points do not cannot be compared here
+  either.
 
 #2 is the kernel the current change redesigned (``adapter_fused.cu`` on
 wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not

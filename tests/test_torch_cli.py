@@ -255,10 +255,6 @@ REFUSALS = [
     # tensor parallelism runs; started alone, a world of one has one device
     # for a model axis of 2: JAX's mesh error, and no fall back
     (["--tp", "2"], ValueError, "^1 devices not divisible by model=2$"),
-    (["--device", "cuda", "--dtype", "float32", "--attn_impl", "fused"], SystemExit,
-     "not ported yet \\(ROADMAP Queue 3: float32 on #5-#9"),
-    (["--device", "cuda", "--dtype", "float32", "--attn_impl", "flash"], SystemExit,
-     "not ported yet \\(ROADMAP Queue 3: float32 on #5-#9"),
 ]
 
 
@@ -424,20 +420,16 @@ def test_classification_launches_scores_and_meta_match_jax(launched):
     assert (out_t / "ckpt" / "meta.json").read_bytes() == (out_j / "ckpt" / "meta.json").read_bytes()
 
 
-def test_float32_on_the_plain_route_or_the_cpu_is_not_refused(tmp_path):
-    """The Queue 3 refusal is about the card's bf16-only kernels (#5-#9):
-    float32 on "auto", on "block" and "layer" on the card (#1-#4 take it), a
-    kernel route on the CPU (its plain version) and --smoke (whose model is
-    the JAX CLI's float32 "auto" one) pass the check."""
+@pytest.mark.parametrize("impl", ["layer", "fused", "flash"])
+def test_float32_on_the_plain_route_or_the_cpu_is_not_refused(impl, tmp_path):
+    """Every kernel (#1-#9) takes float32: float32 on "auto", and on a kernel
+    route on the card, on the CPU (its plain version) and with --smoke (whose
+    model is the JAX CLI's float32 "auto" one), passes the check."""
     args = tcli.build_parser().parse_args(["--encoder_name", "vilt", "--dtype", "float32"])
     tcli.refuse_unported(args)
     for extra in (["--device", "cpu"], ["--smoke"], ["--device", "cuda"]):
         args = tcli.build_parser().parse_args(
-            ["--encoder_name", "vilt", "--dtype", "float32", "--attn_impl", "layer", *extra])
-        tcli.refuse_unported(args)
-    for extra in (["--device", "cpu"], ["--smoke"]):
-        args = tcli.build_parser().parse_args(
-            ["--encoder_name", "vilt", "--dtype", "float32", "--attn_impl", "flash", *extra])
+            ["--encoder_name", "vilt", "--dtype", "float32", "--attn_impl", impl, *extra])
         tcli.refuse_unported(args)
 
 

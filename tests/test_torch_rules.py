@@ -131,8 +131,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fl.flash_attention_fwd_cuda(heads, heads[:, :, :3], heads[:, :, :3], None, 0.125)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         fl.flash_attention_bwd_cuda(heads, heads, heads, None, heads, heads, lse, 0.125)
-    with pytest.raises(ValueError, match="torch.bfloat16"):
+    with pytest.raises(TypeError, match="k must be q's torch.float32"):
         fl.flash_attention_bwd_cuda(heads.float(), heads, heads, None, heads, heads, lse, 0.125)
+    with pytest.raises(TypeError, match="torch.bfloat16 or torch.float32, got torch.float16"):
+        fl.flash_attention_bwd_cuda(heads.half(), heads, heads, None, heads, heads, lse, 0.125)
     assert (fl.KERNEL_BWD_DQ.launches, fl.KERNEL_BWD_DKV.launches) == (0, 0)
     assert (ab.KERNEL.launches, af.KERNEL.launches, ab.KERNEL_BWD.launches,
             lb.KERNEL.launches, fa.KERNEL.launches, fa.KERNEL_BWD.launches) == before + (0, 0, 0, 0)
@@ -196,6 +198,27 @@ def test_ptxas_summary_gives_each_kernel_its_registers_and_spills():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "flash_bwd_dq_kernel: 128 registers; 8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
     ]
+
+
+@pytest.mark.parametrize("symbol,name", [
+    ("_ZN4port4sm9016gemm_sm90_kernelILi1ELi2EfEEvNS_8GemmArgsE", "port::sm90::gemm_sm90_kernel<1, 2, float>"),
+    ("_ZN51_GLOBAL__N__57dd581c_18_flash_attention_cu_da77f36216flash_fwd_kernelI13__nv_bfloat16Li2EEEv"
+     "NS_9FlashArgsIT_EEi", "flash_fwd_kernel<bf16, 2>"),
+    ("_ZN51_GLOBAL__N__57dd581c_18_flash_attention_cu_da77f36219flash_bwd_dq_kernelIfLi1EEEvNS_12FlashBwdArgs"
+     "IT_EEi", "flash_bwd_dq_kernel<float, 1>"),
+    ("_ZN4port19split3_heads_kernelENS_5HeadsIKfEEP13__nv_bfloat16iix", "port::split3_heads_kernel"),
+])
+def test_ptxas_summary_names_each_template_instance(symbol, name):
+    """Kernels that are templates over the element type and a ring depth
+    print each instance with its arguments, so ptxas's report tells the bf16
+    and float32 instances apart."""
+    from feddat_tpu_torch.ops import _build
+
+    log = (f"ptxas info    : Function properties for {symbol}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers")
+    assert _build.ptxas_summary(log) == [
+        f"{name}: 64 registers; 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
 
 
 def test_attn_impls_of_later_slices_raise():
