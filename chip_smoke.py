@@ -328,6 +328,27 @@ Phases, in this order:
             plain version and the library call or chain in fp32 with TF32
             off; #8/#9's one-stage fp32 tile instances beside bf16's; #4 in
             bf16 at bottlenecks 96 and 192.  Prints the phase's seconds.
+20. shapes — every head dim and width JAX's kernels take, eagerly.  (a) Each
+            kernel against its plain version at its existing limits, in bf16
+            and fp32 (the float64 criterion of phase 19): #5-#9 at head dims
+            8, 12, 16, 32, 80, 128 and 256 (S on both sides of the 64-row
+            tile edges, a padding row and a per-head bias tile); #1/#3/#4 at
+            (Dm, heads, F) = (32, 4, 64), (48, 4, 96) and (192, 3, 768); #2
+            at widths 32, 48, 100 and 192.  (b) Two full-width layer
+            geometries, each a 2-layer ViLT DAT model from create_model with
+            ViltModelConfig at that width, random weights from --seed, bf16,
+            S=185, the steps at B=64 and the serving forward at B=16:
+            ViT-H/14's layer (Dm 1280, 16 heads of 80, F 5120,
+            R=80) and DeiT-Ti's (Dm 192, 3 heads of 64, F 768, R=12).  On
+            each: the fused DAT step on "layer" (#1, #4), the standard step
+            on "block" (#1, #3), the serving forward on "block" with the
+            fused ensemble (#1, #2), a LoRA step on "fused" (#5, #6) and one
+            on "flash" (#7-#9), each held against the plain path as phases
+            train, peft and serve hold theirs, with its launch counts.
+            (c) The JAX CLI's --smoke widths on the kernel routes: ViLT at
+            Dm 32, 4 heads, F 64, R 8 through the same five paths, and ALBEF
+            (ViT and BERT at width 32, 4 heads) with its fused DAT step and
+            rank_answer on "flash".  One line per part.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with every
 kernel's numbers, and as the last line ``{"ok": true, "device": {...}}``.
@@ -362,6 +383,12 @@ PEAK_BYTES = 3.35e12
 B, TEXT_LEN, CANVAS = 16, 40, (384, 640)
 S = TEXT_LEN + (CANVAS[0] // 32) * (CANVAS[1] // 32) + 1
 DM, HEADS, R = 768, 12, 48
+FF = 3072  # the layer's FFN width (phase 20 rebinds DM, HEADS and FF: ``widths``)
+# Alternating kernel/plain samples of the time phase's rates (train, LoRA,
+# ALBEF step and rank_answer; twice as many serving forwards): 3 (6 and 4
+# before phase 20 came), the seconds phase 20 needs; no check reads them,
+# and item 7's bench takes the rates over.
+TIME_PAIRS = 3
 # Training shape: B=64, S = 40 text + 12*12 patches of a 384x384 canvas + CLS = 185.
 TB, TCANVAS = 64, (384, 384)
 TS = TEXT_LEN + (TCANVAS[0] // 32) * (TCANVAS[1] // 32) + 1
@@ -760,7 +787,7 @@ def attn_bwd_bound(b, s, fuse_ln, masked=True, f32=False):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), bf16_ops
 
 
-def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True, r=R, f32=False):
+def layer_bwd_bound(b, s, use_b, ffn=None, masked=True, r=R, f32=False):
     """Least time (ms) for one #4 call and what bounds it.  bf16 operands
     (tensor cores): the FFN recompute and its backward (4 products of M Dm F),
     the attention backward above, and the adapter products — all of bf16
@@ -770,8 +797,8 @@ def layer_bwd_bound(b, s, use_b, ffn=3072, masked=True, r=R, f32=False):
     softmax recompute, two LayerNorms forward and backward.  Bytes: x, aout,
     ctx, g and dx once each, every weight, lse.  Adapters of bottleneck
     ``r``; with ``f32`` every operand is fp32 and the products run at the
-    TF32 rate."""
-    m, es = b * s, 4 if f32 else 2
+    TF32 rate.  FFN width ``ffn``, default :data:`FF`."""
+    m, es, ffn = b * s, 4 if f32 else 2, ffn or FF
     adapter = ((6 if use_b else 3) + 2) * 2 * m * DM * r
     bf16_ops = 4 * 2 * m * DM * ffn + attn_bwd_ops(b, s) + adapter
     fp32_ops = m * ffn * 40 + b * HEADS * s * s * 8 + m * DM * 32
@@ -984,12 +1011,14 @@ def adapter_probe(torch, r=R, b_units=(5, 6)):
           "adapter_fused probe: the kernel drops bits of the ReLU output below bf16 hi + lo")
 
 
-def layer_weights(torch, seed, ffn=3072, r=R, dtype=None):
-    """Frozen layer weights and two adapters of bottleneck ``r`` on the card:
-    bf16 (or ``dtype``) matrices, fp32 biases and LayerNorm rows drawn large
-    (std 0.5-1) so that a dropped or misplaced bias or LN parameter moves the
-    outputs far past the tolerances."""
+def layer_weights(torch, seed, ffn=None, r=R, dtype=None):
+    """Frozen layer weights (FFN width ``ffn``, default :data:`FF`) and two
+    adapters of bottleneck ``r`` on the card: bf16 (or ``dtype``) matrices,
+    fp32 biases and LayerNorm rows drawn large (std 0.5-1) so that a dropped
+    or misplaced bias or LN parameter moves the outputs far past the
+    tolerances."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    ffn = ffn or FF
 
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
@@ -1508,22 +1537,24 @@ def flash_p_probe(torch):
 
 def flash_refusals(torch):
     """On the card the wrappers of #7 and of #8/#9 raise, without launching, on
-    what the kernels do not take (fp16, head dim 32; for the backward also a
-    bias on another device): nothing falls back to a plain version.  The
-    autograd function runs #7 forward and #8/#9 backward on CUDA tensors."""
+    what the kernels do not take (fp16, head dim 264, past the 256 they
+    take; for the backward also a bias on another device): nothing falls
+    back to a plain version.  The autograd function runs #7 forward and
+    #8/#9 backward on CUDA tensors."""
     from feddat_tpu_torch.ops import flash as fl
 
     x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 8, 264, device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, device="cuda")
     kernels = (fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV)
     before = [k.launches for k in kernels]
     refused = 0
-    for bad, err in ((x.half(), TypeError), (x[..., :32], ValueError)):
+    for bad, err in ((x.half(), TypeError), (wide, ValueError)):
         try:
             fl.flash_attention_fwd_cuda(bad, bad, bad, None, 0.125)
         except err:
             refused += 1
-    for bad, bias, err in ((x.half(), None, TypeError), (x[..., :32], None, ValueError),
+    for bad, bias, err in ((x.half(), None, TypeError), (wide, None, ValueError),
                            (x, torch.zeros(1, 1, 1, 8), ValueError)):
         try:
             fl.flash_attention_bwd_cuda(bad, bad, bad, bias, bad, bad, lse, 0.125)
@@ -1534,7 +1565,7 @@ def flash_refusals(torch):
     fl.flash_attention(*leaves).float().sum().backward()
     torch.cuda.synchronize()
     ran = [k.launches - b for k, b in zip(kernels, before)]
-    print(f"parity flash_attention refusals: fp16 and head dim 32 (forward and backward) and a CPU "
+    print(f"parity flash_attention refusals: fp16 and head dim 264 (forward and backward) and a CPU "
           f"bias (backward) refused {refused}/5 with launches {idle}; one autograd forward and "
           f"backward launched #7/#8/#9 {ran} times")
     check(refused == 5 and idle == [0, 0, 0] and ran == [1, 1, 1]
@@ -2370,16 +2401,16 @@ def albef_train_model(torch, seed, attn_impl, dtype="bfloat16", dropout=True, st
     return model
 
 
-def albef_train_batch(torch, b, seed):
-    """bench.py's ALBEF batch on the card: random pixels, 25 question tokens,
-    A answers of 10 tokens at weight 1/A."""
+def albef_train_batch(torch, b, seed, res=ARES):
+    """bench.py's ALBEF batch on the card: random pixels (``res`` square), 25
+    question tokens, A answers of 10 tokens at weight 1/A."""
     import numpy as np
 
     from feddat_tpu_torch.train.forwards import to_device
 
     rng = np.random.RandomState(seed)
     batch = {
-        "pixel_values": rng.randn(b, ARES, ARES, 3).astype(np.float32),
+        "pixel_values": rng.randn(b, res, res, 3).astype(np.float32),
         "question_ids": rng.randint(5, 30522, size=(b, LQ)).astype(np.int32),
         "question_mask": np.ones((b, LQ), np.int32),
         "answer_ids": rng.randint(5, 30522, size=(b, ANS_PER_Q, LA)).astype(np.int32),
@@ -2614,14 +2645,14 @@ def time_albef_train(torch, at, seed):
         sample(fn)
         peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
     k_s, p_s = [], []
-    for i in range(4):
+    for i in range(TIME_PAIRS):
         for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
             (k_s if path is step else p_s).append(sample(path))
     k_med, p_med = statistics.median(k_s), statistics.median(p_s)
     wins = sum(a < b for a, b in zip(k_s, p_s))
-    print(f"time albef_train: fused DAT step B={ATB} A={ANS_PER_Q}, dropout live, 4 alternating pairs of "
+    print(f"time albef_train: fused DAT step B={ATB} A={ANS_PER_Q}, dropout live, {TIME_PAIRS} alternating pairs of "
           f"2 steps: medians {1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
-          f"{ATB / k_med:.1f} vs {ATB / p_med:.1f} samples/s; kernel path faster in {wins}/4; peak "
+          f"{ATB / k_med:.1f} vs {ATB / p_med:.1f} samples/s; kernel path faster in {wins}/{TIME_PAIRS}; peak "
           f"memory {peak['kernel']:.2f} vs {peak['plain']:.2f} GiB; kernel "
           f"{[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     del plain_model, plain_step
@@ -2673,14 +2704,14 @@ def time_albef(torch, al, seed):
     for p in (pred, plain):
         sample(p)
     k_s, p_s = [], []
-    for i in range(4):
+    for i in range(TIME_PAIRS):
         for p in ((pred, plain) if i % 2 == 0 else (plain, pred)):
             (k_s if p is pred else p_s).append(sample(p))
     k_med, p_med = statistics.median(k_s), statistics.median(p_s)
     wins = sum(a < b for a, b in zip(k_s, p_s))
-    print(f"time albef: rank_answer B={AB}, 4 alternating pairs of 2 calls: medians "
+    print(f"time albef: rank_answer B={AB}, {TIME_PAIRS} alternating pairs of 2 calls: medians "
           f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms (kernel vs plain path); {AB / k_med:.1f} vs "
-          f"{AB / p_med:.1f} questions/s; kernel path faster in {wins}/4; kernel "
+          f"{AB / p_med:.1f} questions/s; kernel path faster in {wins}/{TIME_PAIRS}; kernel "
           f"{[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     imgs, qs = al["requests"]
     torch.cuda.synchronize()
@@ -2760,14 +2791,14 @@ def time_peft(torch, pf, seed):
     for fn in (step, plain_step):
         sample(fn)
     k_s, p_s = [], []
-    for i in range(6):
+    for i in range(TIME_PAIRS):
         for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
             (k_s if path is step else p_s).append(sample(path))
     k_med, p_med = statistics.median(k_s), statistics.median(p_s)
     wins = sum(a < b for a, b in zip(k_s, p_s))
-    print(f"time peft: LoRA step B={TB} S={TS}, 6 alternating pairs of 2 steps: medians "
+    print(f"time peft: LoRA step B={TB} S={TS}, {TIME_PAIRS} alternating pairs of 2 steps: medians "
           f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
-          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
+          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/{TIME_PAIRS}; "
           f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     profile_device(torch, lambda: step(state0, batch), f"LoRA step (fused, B={TB})", {
         "#5 fused_fwd_kernel": ("fused_fwd_kernel",), "#6 fused_bwd": ("fused_bwd_",)})
@@ -2807,7 +2838,7 @@ def attention_chain(torch, b, s, fuse_ln):
     import torch.nn.functional as F
 
     def heads(t):
-        return t.view(b, s, HEADS, 64).transpose(1, 2)
+        return t.view(b, s, HEADS, DM // HEADS).transpose(1, 2)
 
     def attention(xr, gamma, wq, wk, wv, bqkv, bias):
         dt = xr.dtype
@@ -2946,14 +2977,14 @@ def time_train(torch, tr):
     for fn in (step, plain_step):
         sample(fn)  # warm: cuBLAS handles, allocator
     k_s, p_s = [], []
-    for i in range(6):
+    for i in range(TIME_PAIRS):
         for path in ((step, plain_step) if i % 2 == 0 else (plain_step, step)):
             (k_s if path is step else p_s).append(sample(path))
     k_med, p_med = statistics.median(k_s), statistics.median(p_s)
     wins = sum(a < b for a, b in zip(k_s, p_s))
-    print(f"time train: fused DAT step B={TB} S={TS}, 6 alternating pairs of 2 steps: medians "
+    print(f"time train: fused DAT step B={TB} S={TS}, {TIME_PAIRS} alternating pairs of 2 steps: medians "
           f"{1e3 * k_med:.1f} vs {1e3 * p_med:.1f} ms per step (kernel vs plain path); "
-          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/6; "
+          f"{TB / k_med:.1f} vs {TB / p_med:.1f} samples/s; kernel path faster in {wins}/{TIME_PAIRS}; "
           f"kernel {[round(1e3 * v, 1) for v in k_s]} plain {[round(1e3 * v, 1) for v in p_s]}")
     profile_device(torch, lambda: step(state0, batch), f"train step (fused DAT, B={TB})", {
         "port GEMMs (#1, #4; wgmma)": ("gemm_sm90_kernel",),
@@ -3039,14 +3070,14 @@ def phase_time(torch, pred, plain, requests, seed):
     # kernel path vs plain path in alternating pairs (kp, pk, kp, ...), so
     # host-load drift hits both alike; each sample is 10 forwards
     k_samples, p_samples = [], []
-    for i in range(10):
+    for i in range(2 * TIME_PAIRS):
         for path in ((pred, plain) if i % 2 == 0 else (plain, pred)):
             ms = cuda_ms(torch, lambda: path.forward(batch), 10, warmup=1)
             (k_samples if path is pred else p_samples).append(ms)
     fwd_ms, plain_fwd_ms = statistics.median(k_samples), statistics.median(p_samples)
     wins = sum(k < p for k, p in zip(k_samples, p_samples))
-    print(f"time serve: forward kernel path vs plain path, 10 alternating pairs: medians "
-          f"{fwd_ms:.3f} vs {plain_fwd_ms:.3f} ms; kernel path faster in {wins}/10 pairs; "
+    print(f"time serve: forward kernel path vs plain path, {2 * TIME_PAIRS} alternating pairs: medians "
+          f"{fwd_ms:.3f} vs {plain_fwd_ms:.3f} ms; kernel path faster in {wins}/{2 * TIME_PAIRS} pairs; "
           f"kernel {[round(v, 2) for v in k_samples]} plain {[round(v, 2) for v in p_samples]}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6496,13 +6527,16 @@ def layer_bwd_gated(torch, args, cfg, gate):
     return (dx, *lb.adapter_wgrads_reference(o, relu, g_delta, g_down))
 
 
-def fp32_kernels(torch, seed):
+def fp32_kernels(torch, seed, tb=None, ts=None, n=None, r=R, d=None):
     """(a): #1, #3, #4 and #2 alone in fp32 by the float64 criterion ->
-    {kernel: max abs error against the plain fp32 version}."""
+    {kernel: max abs error against the plain fp32 version}: #1/#3/#4 at
+    B=``tb``, S=``ts`` (the training shape) with adapters of bottleneck
+    ``r``, #2 at ``n`` rows (the serving batch) of width ``d`` (DM)."""
     from feddat_tpu_torch.ops import adapter_fused as af
     from feddat_tpu_torch.ops import attn_block as ab
     from feddat_tpu_torch.ops import layer_block as lb
 
+    TB, TS, n, d = tb or globals()["TB"], ts or globals()["TS"], n or B * S, d or DM  # noqa: N806
     f32, errs, f64 = torch.float32, {}, float64_mode(torch)
     with torch.no_grad():
         args = attn_inputs(torch, TB, TS, True, seed, dtype=f32)
@@ -6523,9 +6557,9 @@ def fp32_kernels(torch, seed):
                                             (plain,), (exact,), (planted,))
         del got, plain, planted, exact
 
-        args, cfg = layer_case(torch, TB, TS, False, seed, dtype=f32)
+        args, cfg = layer_case(torch, TB, TS, False, seed, r=r, dtype=f32)
         got, st = lb.layer_block_bwd_cuda_stages(*args, *cfg)
-        gate = st["relu_a"][:, :R].reshape(TB, TS, R) > 0
+        gate = st["relu_a"][:, :r].reshape(TB, TS, r) > 0
         print(f"fp32 layer_block_bwd: adapter a's ReLU gate from the kernel ({int(gate.sum())} of "
               f"{gate.numel()} open) fed to the plain fp32 and float64 versions")
         plain = layer_bwd_gated(torch, args, cfg, gate)
@@ -6533,19 +6567,19 @@ def fp32_kernels(torch, seed):
             *bf16_operands(torch, args, (0, 1, 2, 4, 6, 7, 8, 9, 13, 15, 17, 19, 21, 23)), *cfg)
         with f64:
             exact = layer_bwd_gated(torch, to_float64(torch, args), cfg, gate)
-        errs["layer_block_bwd"] = fp32_check(torch, f"layer_block_bwd B={TB} S={TS} R={R}",
+        errs["layer_block_bwd"] = fp32_check(torch, f"layer_block_bwd B={TB} S={TS} R={r}",
                                              ("dx", "dwda", "dbda", "dwua", "dbua"), got, plain, exact,
                                              planted)
         del got, st, plain, planted, exact
 
-        h, pa, pb, w = adapter_inputs(torch, B * S, seed, dtype=f32)
+        h, pa, pb, w = adapter_inputs(torch, n, seed, d=d, dtype=f32)
         got, plain = af.adapter_fused_cuda(h, pa, pb, w), af.adapter_fused_reference(h, pa, pb, w)
         rounded = bf16_operands(torch, (h, *pa, *pb), (0, 1, 3, 5, 7))
         planted = af.adapter_fused_cuda(rounded[0], rounded[1:5], rounded[5:9], w)
         with f64:
             exact = af.adapter_fused_reference(*to_float64(torch, (h,)), to_float64(torch, pa),
                                                to_float64(torch, pb), w)
-        errs["adapter_fused"] = fp32_check(torch, f"adapter_fused N={B * S} R={R}", ("out",), (got,),
+        errs["adapter_fused"] = fp32_check(torch, f"adapter_fused N={n} R={R} D={d}", ("out",), (got,),
                                            (plain,), (exact,), (planted,))
     torch.cuda.synchronize()
     return errs
@@ -6987,6 +7021,336 @@ def phase_fp32(torch, seed):
     return errs, launches, rows
 
 
+# -------------------------------------------------------- phase 20: shapes
+# (a) the kernels alone at the head dims, widths and adapter widths JAX's
+# kernels take and no full-width model here has; (b) two public encoders'
+# layer geometries at full width; (c) the JAX CLI's --smoke widths.
+SHAPE_HEAD_DIMS = (8, 12, 16, 32, 80, 128, 256)
+SHAPE_BLOCKS = ((32, 4, 64), (48, 4, 96), (192, 3, 768))  # (Dm, heads, F)
+SHAPE_ADAPTER_WIDTHS = (32, 48, 100, 192)
+# (label, Dm, heads, F, adapter reduction factor): ViT-H/14 (Dosovitskiy et
+# al. 2021, Table 1: width 1280, 16 heads, MLP 5120) and DeiT-Ti (Touvron et
+# al. 2021, Table 1: width 192, 3 heads, MLP 768) as a ViLT tower's layer
+SHAPE_GEOMETRIES = (("ViT-H/14", 1280, 16, 5120, 16), ("DeiT-Ti", 192, 3, 768, 16))
+SMOKE_VILT = ("smoke ViLT", 32, 4, 64, 4)  # feddat_tpu/cli.py:549-553
+# Depth cut to 2 layers.  The steps run at the training batch TB=64, where
+# the train phase's gradient rule is set: at B=16 over 2 layers a few ReLU
+# gate flips of one adapter-down tensor decide a gradient set's error, and
+# the rule read the unchanged head-dim-64 kernels at 2.30x the plain bf16
+# path's (width 1280 in heads of 64, seed 2; PERF.md §6).  The
+# serving forward runs at the serving batch B=16, ALBEF's step at B=16 x 4.
+SHAPE_LAYERS = 2
+
+
+@contextlib.contextmanager
+def widths(dm, heads, ff=None):
+    """The kernel helpers above (attn_inputs, layer_case, fused_inputs,
+    flash_case, ...) at width ``dm`` in ``heads`` heads and FFN width ``ff``:
+    DM, HEADS and FF rebound for the duration."""
+    g = globals()
+    old = g["DM"], g["HEADS"], g["FF"]
+    g["DM"], g["HEADS"], g["FF"] = dm, heads, ff or old[2]
+    try:
+        yield
+    finally:
+        g["DM"], g["HEADS"], g["FF"] = old
+
+
+@contextlib.contextmanager
+def model_widths(vilt=None, albef=False):
+    """``create_model`` (feddat_tpu_torch.models) building its ViLT at
+    ``vilt`` = (Dm, heads, F, reduction factor) with SHAPE_LAYERS layers, or
+    its ALBEF at the JAX CLI's --smoke widths (feddat_tpu/cli.py:524-545):
+    the config classes it reads, with those fields set, for the duration."""
+    import dataclasses
+
+    from feddat_tpu_torch import models
+    from feddat_tpu_torch.configs.core import AlbefBertConfig
+
+    real = models.ViltModelConfig, models.AlbefModelConfig
+
+    def vilt_cfg(**kw):
+        dm, heads, ff, rf = vilt
+        kw["adapter"] = dataclasses.replace(kw["adapter"], reduction_factor=rf)
+        return real[0](hidden_size=dm, num_heads=heads, intermediate_size=ff, num_layers=SHAPE_LAYERS, **kw)
+
+    def albef_cfg(**kw):
+        bert = AlbefBertConfig(hidden_size=32, num_layers=4, num_heads=4, intermediate_size=64,
+                               hidden_dropout=0.0, attention_dropout=0.0, fusion_layer=2, encoder_width=32)
+        kw["adapter"] = dataclasses.replace(kw["adapter"], reduction_factor=4)
+        return real[1](image_res=64, patch_size=32, vision_width=32, vision_layers=2, vision_heads=4,
+                       bert=bert, decoder_layers=2, **kw)
+
+    if vilt is not None:
+        models.ViltModelConfig = vilt_cfg
+    if albef:
+        models.AlbefModelConfig = albef_cfg
+    try:
+        yield
+    finally:
+        models.ViltModelConfig, models.AlbefModelConfig = real
+
+
+def shapes_kernels(torch, seed):
+    """(a) -> the number of parity cases held."""
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
+
+    f32, scale, cases = torch.float32, 64 ** -0.5, 0
+    fused_pair = ((fa.fused_attention_fwd_cuda, fa.fused_attention_fwd_ref),
+                  (fa.fused_attention_bwd_cuda, fa.fused_attention_bwd_ref))
+    flash_pair = ((fl.flash_attention_fwd_cuda, fl.flash_attention_fwd_ref),
+                  (fl.flash_attention_bwd_cuda, fl.flash_attention_bwd_ref))
+    for d in SHAPE_HEAD_DIMS:
+        with widths(2 * d, 2):
+            check(fa.head_dim_kernels(d) == ("hd64" if d == 64 else "any"), f"head dim {d}'s kernels")
+            for b, s in ((2, 65), (1, 129)):  # either side of the 64-row tiles
+                fused_parity(torch, b, s, seed)
+            for site, b, sq, skv, kind in ((f"hd {d} padding", 2, 129, 63, "padding"),
+                                           (f"hd {d} heads", 2, 65, 130, "heads")):
+                flash_parity(torch, site, b, sq, skv, kind, seed)
+                flash_bwd_parity(torch, site, b, sq, skv, kind, seed)
+            with torch.no_grad():
+                q, k, v, do = fused_inputs(torch, 2, 65, seed, dtype=f32)
+                fp32_attention_pair(torch, f"fused_attention hd={d} B=2 S=65 padding", *fused_pair,
+                                    (q, k, v, padding_bias(torch, 2, 65, seed), scale), do,
+                                    (("bwd", (0, 1, 2)),))
+                q, k, v, bias = flash_case(torch, 2, 65, 130, "heads", seed, dtype=f32)
+                fp32_attention_pair(torch, f"flash_attention hd={d} B=2 Sq=65 Skv=130 heads", *flash_pair,
+                                    (q, k, v, bias, scale), fp32_cotangent(torch, 2, 65, seed),
+                                    (("dq", (0,)), ("dkv", (1, 2))))
+            cases += 10
+    for dm, heads, ff in SHAPE_BLOCKS:
+        with widths(dm, heads, ff):
+            for b, s, ln in ((2, 65, True), (1, 129, False)):
+                attn_parity(torch, b, s, ln, seed)
+                attn_bwd_parity(torch, b, s, ln, seed)
+            for use_b in (False, True):
+                layer_bwd_parity(torch, 4, 65, use_b, seed, r=dm // 4)
+            fp32_kernels(torch, seed, 2, 65, 129, dm // 4, dm)
+            cases += 10
+    for d in SHAPE_ADAPTER_WIDTHS:
+        adapter_parity(torch, 129, seed, R, d)
+        cases += 1
+    torch.cuda.synchronize()
+    shape_functions()
+    return cases
+
+
+def shape_functions():
+    """The wrappers' shape functions (the fp32 workspaces they allocate, #4's
+    adapter width) against the libraries' own at every shape of (a)."""
+    import ctypes
+
+    from feddat_tpu_torch.ops import _build
+    from feddat_tpu_torch.ops import flash as fl
+    from feddat_tpu_torch.ops import fused_attention as fa
+    from feddat_tpu_torch.ops import layer_block as lb
+
+    fused, flash = _build.load("fused_attention"), _build.load("flash_attention")
+    fused.fused_attention_workspace.argtypes = [ctypes.c_int] * 6
+    flash.flash_attention_workspace.argtypes = [ctypes.c_int] * 7
+    width = _build.load("layer_block").layer_block_padded_width
+    fused.fused_attention_workspace.restype = flash.flash_attention_workspace.restype = ctypes.c_longlong
+    width.argtypes, width.restype = [ctypes.c_int], ctypes.c_int
+    bad = []
+    for d in SHAPE_HEAD_DIMS:
+        for backward in (0, 1):
+            if fa.fused_workspace_bytes(2, 3, 65, d, backward, True) != fused.fused_attention_workspace(
+                    2, 3, 65, d, backward, 1):
+                bad.append(("fused", d, backward))
+            if fl.flash_workspace_bytes(2, 3, 65, 130, d, backward, True) != flash.flash_attention_workspace(
+                    2, 3, 65, 130, d, backward, 1):
+                bad.append(("flash", d, backward))
+    widths_ = [b[0] for b in SHAPE_BLOCKS] + [g[1] for g in SHAPE_GEOMETRIES] + [DM]
+    bad += [("width", dm) for dm in widths_ if lb.padded_width(dm) != width(dm)]
+    print(f"shapes: the wrappers' fp32 workspaces and #4's adapter width against the libraries' at "
+          f"head dims {list(SHAPE_HEAD_DIMS)} and widths {widths_}: {len(bad)} differ")
+    check(not bad, f"the wrappers' shape functions disagree with the libraries': {bad}")
+
+
+def shape_batch(torch, labels, seed):
+    """One synthetic VQA batch of TB questions at the training canvas (S=185)."""
+    from feddat_tpu_torch.data.synthetic import SyntheticVQAClient
+    from feddat_tpu_torch.train.forwards import to_device
+
+    client = SyntheticVQAClient(TRAIN_CLIENTS[0], num_train=TB, num_eval=0, num_labels=labels,
+                                vocab_size=30522, text_len=TEXT_LEN, image_size=TCANVAS,
+                                batch_size=TB, val_batch_size=TB, seed=seed)
+    return to_device(next(client.train_batches(0)), "cuda")
+
+
+def shapes_paths(torch, seed, label, dm, heads, ff, rf):
+    """(b)/(c): one ViLT DAT model at this width through the five kernel
+    paths, each against the plain path by its phase's rule -> {path: launches}."""
+    from feddat_tpu_torch.train import dat
+
+    tag = f"shapes: {label} (Dm {dm}, {heads} heads of {dm // heads}, F {ff}, R {dm // rf}) S={TS}"
+    out = {}
+
+    def launched(path, run, want):
+        reset_counts()
+        result = run()
+        torch.cuda.synchronize()
+        got = read_counts()
+        print(f"{tag}: {path}: launches {counts_text(got)}")
+        check(got == want and all(v > 0 for k, v in want.items() if v), f"{label} {path}: launches {got}, expected {want}")
+        out[path] = got
+        return result
+
+    with model_widths(vilt=(dm, heads, ff, rf)):
+        model = build_trainer_model(torch, seed, "layer")
+        c = model.config
+        check((c.hidden_size, c.num_heads, c.intermediate_size, c.num_layers) == (dm, heads, ff, SHAPE_LAYERS)
+              and model.vilt.layers[0].adapter.bottleneck == dm // rf, f"unexpected {label} config {c}")
+        layers, sd = c.num_layers, model.state_dict()
+        params = {k: v.detach() for k, v in sd.items()}
+        batch = shape_batch(torch, NUM_LABELS, seed)
+        step, part, opt = make_steps(model, params)
+        state0 = dat.init_train_state(params, part, opt, torch.Generator().manual_seed(seed))
+        m = launched(f"fused DAT step B={TB} on 'layer'", lambda: step(state0, batch)[1],
+                     {**NO_LAUNCHES, "attn_block": 2 * layers, "layer_block_bwd": 2 * layers})
+        plain_model = build_trainer_model(torch, seed, "auto", sd)
+        exact_model = build_trainer_model(torch, seed, "auto", sd, "float32")
+        before = read_counts()
+        plain = {f: make_steps(plain_model, params, f)[0](state0, batch)[1] for f in (True, False)}
+        exact = {f: make_steps(exact_model, params, f)[0](state0, batch)[1] for f in (True, False)}
+        torch.cuda.synchronize()
+        check(read_counts() == before, "the plain path launched a kernel")
+        grad_agreement(torch, f"{label} fused step, layer kernels", m, plain[True], exact[True])
+        block_model = build_trainer_model(torch, seed, "block", sd)
+        bm = launched(f"standard DAT step B={TB} on 'block'",
+                      lambda: make_steps(block_model, params, fused=False)[0](state0, batch)[1],
+                      {**NO_LAUNCHES, "attn_block": 3 * layers, "attn_block_bwd": 2 * (layers - 1)})
+        grad_agreement(torch, f"{label} standard step, block kernels", bm, plain[False], exact[False])
+        del model, block_model, exact_model, m, bm, plain, exact
+        served = build_trainer_model(torch, seed, "block", sd, fused=True)
+        requests = {k: v[:B] for k, v in batch.items()}
+        with torch.inference_mode():
+            logits = launched(f"serving forward B={B} on 'block', fused ensemble",
+                              lambda: served(TRAIN_CLIENTS[0], requests, adapter_mode="ensemble")[1],
+                              {**NO_LAUNCHES, "attn_block": layers, "adapter_fused": layers})
+            ref = plain_model(TRAIN_CLIENTS[0], requests, adapter_mode="ensemble")[1]
+        serving_agreement(f"{tag}: serving forward:", torch.softmax(logits.float(), -1).cpu(),
+                          torch.softmax(ref.float(), -1).cpu(), B)
+        del served, plain_model, logits, ref
+        lbatch = shape_batch(torch, PEFT_LABELS, seed + 1)
+        for route, keys in (("fused", ("fused_attention", "fused_attention_bwd")), ("flash", FLASH_KEYS)):
+            lm = peft_model(torch, "lora", seed, route)
+            lsd = lm.state_dict()
+            lparams = {k: v.detach() for k, v in lsd.items()}
+            lstep, lpart, lopt = peft_step(lm, "lora", lparams)
+            lstate = dat.init_train_state(lparams, lpart, lopt, torch.Generator().manual_seed(seed))
+            launched(f"LoRA step B={TB} on '{route}'", lambda: lstep(lstate, lbatch),
+                     {**NO_LAUNCHES, **{k: layers for k in keys}})
+            kernel = peft_grads(torch, lm, lparams, lpart, lbatch)
+            before = read_counts()
+            plain = peft_grads(torch, peft_model(torch, "lora", seed, "auto", state=lsd), lparams, lpart, lbatch)
+            exact = peft_grads(torch, peft_model(torch, "lora", seed, "auto", "float32", state=lsd), lparams,
+                               lpart, lbatch)
+            torch.cuda.synchronize()
+            check(read_counts() == before, "the plain path launched a kernel")
+            grad_agreement(torch, f"{label} LoRA on {route}", kernel, plain, exact, ("loss",))
+            del lm, kernel, plain, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def shapes_albef_smoke(torch, seed):
+    """(c): ALBEF at the JAX CLI's --smoke widths on "flash": one fused DAT
+    step (dropout off, as the smoke config has it) with its losses against
+    the plain fp32 path's, and rank_answer behind AlbefVqaPredictor with its
+    question states and stage-1 logits against the plain paths by phase 6's
+    rule -> {path: launches}."""
+    from feddat_tpu_torch.configs.core import PEFTMode
+    from feddat_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from feddat_tpu_torch.models import create_model
+    from feddat_tpu_torch.serving import AlbefVqaPredictor
+
+    out = {}
+    with model_widths(albef=True):
+        models = {}
+        for name, impl, dt in (("kernel", "flash", "bfloat16"), ("plain", "auto", "bfloat16"),
+                               ("exact", "auto", "float32")):
+            models[name], cfg = create_model("albef_no_distill", {}, PEFTMode.DAT, 4, dt, attn_impl=impl,
+                                             seed=seed if name == "kernel" else None)
+            if name != "kernel":
+                models[name].load_state_dict(models["kernel"].state_dict())
+    check((cfg.vision_width, cfg.vision_heads, cfg.bert.hidden_size, cfg.image_res) == (32, 4, 32, 64),
+          f"unexpected smoke ALBEF config {cfg}")
+    tag = "shapes: smoke ALBEF (ViT and BERT width 32, 4 heads of 8, F 64) on 'flash'"
+    params = {k: v.detach() for k, v in models["kernel"].state_dict().items()}
+    batch = albef_train_batch(torch, B, seed, res=cfg.image_res)
+    metrics = {}
+    for name, model in models.items():
+        step, state0 = albef_fused_step(torch, model, params, seed)
+        reset_counts()
+        metrics[name] = step(state0, batch)[1]
+        torch.cuda.synchronize()
+        if name == "kernel":
+            out["fused DAT step"] = read_counts()
+    got = out["fused DAT step"]
+    print(f"{tag}: fused DAT step B={B}x{ANS_PER_Q}: launches {counts_text(got)}")
+    check(all(got[k] > 0 for k in FLASH_KEYS) and all(v == 0 for k, v in got.items() if k not in FLASH_KEYS),
+          f"smoke ALBEF step launches {got}")
+    for key in ("loss", "loss_shared"):
+        k, p, e = (float(metrics[n][key]) for n in ("kernel", "plain", "exact"))
+        print(f"{tag}: {key}: kernel path {k:.6f}, plain bf16 {p:.6f}, plain fp32 {e:.6f}")
+        check(math.isfinite(k) and abs(k - e) <= TRAIN_LOSS_TOL * abs(e), f"smoke ALBEF {key}: {k} vs {e}")
+    tok = WordPieceTokenizer.from_vocab_file(str(REPO / "tests" / "fixtures" / "vocab30k.txt"))
+    preds = {n: AlbefVqaPredictor(m, None, tok, ALBEF_ANSWERS, batch_size=AB, k=ALBEF_K, max_question_len=LQ,
+                                  max_answer_len=LA, adapter_mode="ensemble", batch_buckets=(1,))
+             for n, m in models.items()}
+    imgs, qs = albef_requests(AB, seed)
+    reset_counts()
+    answers = preds["kernel"].predict(imgs, qs, top_k=5)
+    torch.cuda.synchronize()
+    got = out["rank_answer"] = read_counts()
+    print(f"{tag}: rank_answer through AlbefVqaPredictor.predict, B={AB}, k={ALBEF_K}: launches "
+          f"{counts_text(got)}; first answers {[r[0] for r in answers[:2]]}")
+    check(got["flash_attention"] > 0 and sum(got.values()) == got["flash_attention"], f"rank_answer launches {got}")
+    check(len(answers) == AB and all(len(r) == 5 for r in answers), "bad smoke ALBEF answers")
+    t = {k: torch.from_numpy(v).cuda() for k, v in preds["kernel"]._preprocess(imgs, qs).items()}
+    stages = {n: albef_stages(torch, p, t) for n, p in preds.items()}
+    for i, what in enumerate(("question states", "stage-1 logits")):
+        k_err = rel_norm(stages["kernel"][i], stages["exact"][i])
+        p_err = rel_norm(stages["plain"][i], stages["exact"][i])
+        lim = max(ALBEF_FACTOR * p_err, ALBEF_FLOOR)
+        print(f"{tag}: {what} vs plain fp32: kernel path {k_err:.3e}, plain bf16 path {p_err:.3e}; limit {lim:.3e}")
+        check(k_err <= lim, f"smoke ALBEF {what} disagree: {k_err} > {lim}")
+    del models, preds
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shapes(torch, seed):
+    """Phase 20 (see the module docstring) -> {path: launches} of (b) and (c)."""
+    from feddat_tpu_torch.train import compiled
+
+    launches = {}
+    with compiled.disable_graphs():
+        t0 = time.perf_counter()
+        cases = shapes_kernels(torch, seed)
+        print(f"shapes (a): #5-#9 at head dims {list(SHAPE_HEAD_DIMS)}, #1/#3/#4 at (Dm, heads, F) "
+              f"{list(SHAPE_BLOCKS)}, #2 at widths {list(SHAPE_ADAPTER_WIDTHS)}, bf16 and float32: "
+              f"{cases} cases within their limits in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for geometry in SHAPE_GEOMETRIES:
+            for path, got in shapes_paths(torch, seed, *geometry).items():
+                launches[f"{geometry[0]} {path}"] = got
+        print(f"shapes (b): {', '.join(g[0] for g in SHAPE_GEOMETRIES)} layers ({SHAPE_LAYERS} deep, S={TS}; "
+              f"steps at B={TB}, serving at B={B}) through 5 paths each against the plain path; every "
+              f"kernel of each path launched in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for path, got in shapes_paths(torch, seed, *SMOKE_VILT).items():
+            launches[f"smoke ViLT {path}"] = got
+        for path, got in shapes_albef_smoke(torch, seed).items():
+            launches[f"smoke ALBEF {path}"] = got
+        print(f"shapes (c): the JAX CLI's --smoke ViLT through 5 paths and ALBEF's step and rank_answer "
+              f"on 'flash' against the plain path in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7090,6 +7454,11 @@ def main(argv=None) -> int:
     t_fp32 = time.perf_counter()
     fp32_errs, fp32_launches, fp32_rows = phase_fp32(torch, args.seed)
     done(f"fp32 (the phase {time.perf_counter() - t_fp32:.1f} s)")
+    # this slice's paths: every head dim and width JAX's kernels take, the
+    # kernels alone and two full-width layer geometries through every route
+    t_shapes = time.perf_counter()
+    phase_shapes(torch, args.seed)
+    done(f"shapes (the phase {time.perf_counter() - t_shapes:.1f} s)")
     lag = sorted(DEVICE_MS_STATS["lag_us"]) or [math.nan]
     print(f"time device_ms: {DEVICE_MS_STATS['profiles']} profiles, {DEVICE_MS_STATS['again']} taken "
           f"again; closing marker's device start less its launch on the host: median {lag[len(lag) // 2]:.1f} "

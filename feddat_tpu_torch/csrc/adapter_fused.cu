@@ -71,6 +71,15 @@
 // holds three h tiles and three of each Wd atom, and a Wu buffer three terms:
 // chunks of at most AD_CHUNK_F32 = 48 columns keep a CTA within 227 KB
 // (218 KB at 48: one CTA per SM).
+//
+// Any width D >= 1.  A D that is no multiple of 64 runs the kernel at
+// Dp = D rounded up to 64: the C entry point copies h into a zero-padded
+// [N, Dp] plane, Wd into [Dp, R] (zero rows), Wu into [R, Dp] and bu into
+// [Dp] (zero columns), runs the kernel on those, and copies the [N, Dp]
+// output's first D columns out (common.cuh's pad_cols_kernel: five copies in
+// and one out, counted in #2's time at such a D).  A zero column of h meets a
+// zero row of Wd, and the output columns past D are never copied out; the
+// padded planes also give TMA the 16-byte row strides it needs at any D.
 
 #include <cuda.h>
 
@@ -667,32 +676,11 @@ int launch(AdapterArgs<E> a, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// Bytes of scratch adapter_fused_fwd needs at these shapes (0: none), bf16
-// (f32 = 0) or fp32 (f32 = 1).
-long long adapter_fused_workspace(int N, int D, int R, int f32) {
-  return (long long)(terms_bytes(N, D, R, f32 != 0) + acc_bytes(N, D, R, f32 != 0));
-}
-
-// h [N, D]; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 (f32 = 0)
-// or all fp32 (f32 = 1), 16-byte aligned; out [N, D] of the same type;
-// workspace of adapter_fused_workspace bytes (may be null when that is 0).
-// D a multiple of 64, D >= 64, R >= 1, N >= 0 (cudaErrorInvalidValue
-// otherwise).  Returns the CUDA error of the launches (0 = success).
-int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const void* wu_a,
-                      const void* bu_a, const void* wd_b, const void* bd_b, const void* wu_b,
-                      const void* bu_b, void* out, void* workspace, int N, int D, int R, int f32,
-                      float weight, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const void* wd[2] = {wd_a, wd_b};
-  const void* bd[2] = {bd_a, bd_b};
-  const void* wu[2] = {wu_a, wu_b};
-  const void* bu[2] = {bu_a, bu_b};
+// The call at a width D that is a multiple of 64 (the operands as the C
+// entry point takes them; workspace of inner_bytes).
+int adapter_fwd_at(const void* h, const void* const* wd, const void* const* bd, const void* const* wu,
+                   const void* const* bu, void* out, void* workspace, int N, int D, int R, int f32, float weight,
+                   cudaStream_t st) {
   if (!f32) {
     AdapterArgs<bf16> a{};
     a.h = static_cast<const bf16*>(h);
@@ -736,6 +724,91 @@ int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const v
   a.R = R;
   a.weight = weight;
   return launch(a, st);
+}
+
+
+size_t inner_bytes(int N, int D, int R, bool f32) { return terms_bytes(N, D, R, f32) + acc_bytes(N, D, R, f32); }
+
+// The width the kernel runs at, and the zero-padded operands' bytes in front
+// of the kernel's own workspace when D is no multiple of 64 (es: bytes of the
+// element type): h and out [N, Dp], two Wd [Dp, R], two Wu [R, Dp], two bu
+// [Dp], each on a 256-byte boundary (TMA wants 16).
+int padded_width(int D) { return (D + 63) / 64 * 64; }
+enum { PAD_H, PAD_OUT, PAD_WD, PAD_WU = PAD_WD + 2, PAD_BU = PAD_WU + 2, PAD_COUNT = PAD_BU + 2 };
+void pad_layout(int N, int D, int R, int es, size_t* off, size_t* total) {
+  const size_t Dp = padded_width(D);
+  const size_t bytes[PAD_COUNT] = {N * Dp * es, N * Dp * es, Dp * R * es, Dp * R * es,
+                                   R * Dp * es, R * Dp * es, Dp * es, Dp * es};
+  size_t at = 0;
+  for (int i = 0; i < PAD_COUNT; ++i) {
+    off[i] = at;
+    at += (bytes[i] + 255) / 256 * 256;
+  }
+  *total = D % 64 ? at : 0;
+}
+
+template <typename E>
+int adapter_fwd_padded(const void* h, const void* const* wd, const void* const* bd, const void* const* wu,
+                       const void* const* bu, void* out, char* ws, int N, int D, int R, float weight,
+                       cudaStream_t st) {
+  const int Dp = padded_width(D);
+  size_t off[PAD_COUNT], total;
+  pad_layout(N, D, R, sizeof(E), off, &total);
+  auto at = [&](int i) { return reinterpret_cast<E*>(ws + off[i]); };
+  int err = launch_pad_cols<E>(static_cast<const E*>(h), D, at(PAD_H), Dp, N, D, Dp, st);
+  const void *wdp[2], *wup[2], *bup[2];
+  for (int i = 0; i < 2 && !err; ++i) {
+    // Wd [D, R] as one row of D R elements, then zeros to Dp R
+    err = launch_pad_cols<E>(static_cast<const E*>(wd[i]), 0, at(PAD_WD + i), 0, 1, D * R, Dp * R, st);
+    if (!err) err = launch_pad_cols<E>(static_cast<const E*>(wu[i]), D, at(PAD_WU + i), Dp, R, D, Dp, st);
+    if (!err) err = launch_pad_cols<E>(static_cast<const E*>(bu[i]), 0, at(PAD_BU + i), 0, 1, D, Dp, st);
+    wdp[i] = at(PAD_WD + i);
+    wup[i] = at(PAD_WU + i);
+    bup[i] = at(PAD_BU + i);
+  }
+  if (!err)
+    err = adapter_fwd_at(at(PAD_H), wdp, bd, wup, bup, at(PAD_OUT), ws + total, N, Dp, R, kTerms<E> == 3, weight,
+                         st);
+  if (!err) err = launch_pad_cols<E>(at(PAD_OUT), Dp, static_cast<E*>(out), D, N, D, D, st);
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Bytes of scratch adapter_fused_fwd needs at these shapes (0: none), bf16
+// (f32 = 0) or fp32 (f32 = 1).
+long long adapter_fused_workspace(int N, int D, int R, int f32) {
+  if (D < 1 || N < 0) return 0;
+  size_t off[PAD_COUNT], pad;
+  pad_layout(N, D, R, f32 ? 4 : 2, off, &pad);
+  return (long long)(pad + inner_bytes(N, padded_width(D), R, f32 != 0));
+}
+
+
+// h [N, D]; wd_* [D, R], bd_* [R], wu_* [R, D], bu_* [D], all bf16 (f32 = 0)
+// or all fp32 (f32 = 1), 16-byte aligned; out [N, D] of the same type;
+// workspace of adapter_fused_workspace bytes (may be null when that is 0).
+// D >= 1, R >= 1, N >= 0 (cudaErrorInvalidValue otherwise).  Returns the
+// CUDA error of the launches (0 = success).
+int adapter_fused_fwd(const void* h, const void* wd_a, const void* bd_a, const void* wu_a,
+                      const void* bu_a, const void* wd_b, const void* bd_b, const void* wu_b,
+                      const void* bu_b, void* out, void* workspace, int N, int D, int R, int f32,
+                      float weight, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const void* wd[2] = {wd_a, wd_b};
+  const void* bd[2] = {bd_a, bd_b};
+  const void* wu[2] = {wu_a, wu_b};
+  const void* bu[2] = {bu_a, bu_b};
+  if (N < 0 || D < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  if (D % 64 == 0) return adapter_fwd_at(h, wd, bd, wu, bu, out, workspace, N, D, R, f32, weight, st);
+  char* ws = static_cast<char*>(workspace);
+  if (f32) return adapter_fwd_padded<float>(h, wd, bd, wu, bu, out, ws, N, D, R, weight, st);
+  return adapter_fwd_padded<bf16>(h, wd, bd, wu, bu, out, ws, N, D, R, weight, st);
 }
 
 }  // extern "C"

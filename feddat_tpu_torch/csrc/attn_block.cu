@@ -37,6 +37,9 @@
 //       twice, so the softmax is the TPU's exact two-pass form (no online
 //       rescaling) and no logits tile is kept: any S >= 1 runs;
 //   (d) the out-projection on the same GEMM.
+// At a head dim other than 64 (any Dm that divides into 1 to 256 per head)
+// step (c) is attn_any.cuh's core under block_any_fwd_kernel, reading the
+// heads of the projection planes in place at any column.
 // q/k/v round-trip through device memory (3 x B*S*Dm bf16, from L2 mostly).
 
 // Backward: replaces feddat_tpu/ops/attn_block.py::_bwd_kernel (kernel #3,
@@ -69,6 +72,13 @@ __global__ void __launch_bounds__(attn::FA_THREADS, attn::fwd_min_blocks<T>())
 }
 
 int core_fwd_smem_done[2][64];  // per element type (bf16, fp32)
+
+// the core at every other head dim (attn_any.cuh), after the head-dim-64 entry
+template <typename T>
+__global__ void __launch_bounds__(anyd::THREADS, 1) block_any_fwd_kernel(anyd::AnyArgs<T> p) {
+  anyd::any_fwd_body<T, false>(p);
+}
+int any_fwd_smem_done[2][64];
 
 // A workspace's buffers in order, each on a 256-byte boundary (0-byte ones
 // take no room): their offsets and the total.
@@ -138,20 +148,41 @@ int block_fwd(const T* x, const void* const* w, const float* bqkv, const float* 
   const bf16* qop;
   long long qtt;
   if ((e = operand_of(static_cast<const T*>(qkv), 3 * (long long)plane, planes, &qop, &qtt, st))) return e;
-  const long long sb = (long long)S * Dm;  // [3, B*S, Dm] planes, head h at column h*64
-  const int hd = attn::FA_D;
-  attn::FusedFwdArgs<T> t{};
-  t.q = {qop, sb, hd, Dm, qtt};
-  t.k = {qop + plane, sb, hd, Dm, qtt};
-  t.v = {qop + 2 * plane, sb, hd, Dm, qtt};
-  t.bias = bias;
-  t.o = {ctx, sb, hd, Dm, 0};
-  t.lse = lse;
-  t.S = S;
-  t.H = H;
-  t.scale = scale;
-  if ((e = attn::launch_fwd(block_core_fwd_kernel<T>, core_fwd_smem_done[kTerms<T> == 1 ? 0 : 1], t, B, st)))
-    return e;
+  const long long sb = (long long)S * Dm;  // [3, B*S, Dm] planes, head h at column h*hd
+  const int hd = Dm / H;
+  constexpr int ti = kTerms<T> == 1 ? 0 : 1;
+  if (hd == attn::FA_D) {
+    attn::FusedFwdArgs<T> t{};
+    t.q = {qop, sb, hd, Dm, qtt};
+    t.k = {qop + plane, sb, hd, Dm, qtt};
+    t.v = {qop + 2 * plane, sb, hd, Dm, qtt};
+    t.bias = bias;
+    t.o = {ctx, sb, hd, Dm, 0};
+    t.lse = lse;
+    t.S = S;
+    t.H = H;
+    t.scale = scale;
+    if ((e = attn::launch_fwd(block_core_fwd_kernel<T>, core_fwd_smem_done[ti], t, B, st))) return e;
+  } else {
+    anyd::AnyArgs<T> t{};
+    t.q = {qop, sb, hd, Dm, qtt};
+    t.k = {qop + plane, sb, hd, Dm, qtt};
+    t.v = {qop + 2 * plane, sb, hd, Dm, qtt};
+    t.vq = anyd::vec_ok(t.q, hd);
+    t.vk = anyd::vec_ok(t.k, hd);
+    t.vv = anyd::vec_ok(t.v, hd);
+    t.bias = bias;
+    t.bsb = S;  // [B, S]
+    t.bsk = 1;
+    t.o = {ctx, sb, hd, Dm, 0};
+    t.lse = lse;
+    t.H = H;
+    t.Sq = t.Skv = S;
+    t.D = hd;
+    t.ND = anyd::chunks(hd);
+    t.scale = scale;
+    if ((e = anyd::launch_any_fwd(block_any_fwd_kernel<T>, any_fwd_smem_done[ti], t, B, st))) return e;
+  }
 
   GemmArgs o{};
   if ((e = operand_of(static_cast<const T*>(ctx), (long long)plane, planes, &o.a[0], &o.a_term, st))) return e;

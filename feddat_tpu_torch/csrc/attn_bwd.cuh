@@ -33,7 +33,8 @@
 //     this file's entries block_core_bwd_dq_kernel (writes delta to the
 //     [B, H, S] scratch) and block_core_bwd_dkdv_kernel, over Heads views of
 //     the [3, M, Dm] q/k/v and dq|dk|dv scratch planes and the dctx/ctx
-//     planes in place.  Any S >= 1 runs.
+//     planes in place.  Any S >= 1 runs.  At a head dim other than 64 the
+//     per-head part is attn_any.cuh's under block_any_bwd_dq/dkdv_kernel.
 // In fp32 (T = float) every product's activation operand is split into its
 // bf16 terms first (common.cuh's split3, into AttnBwdScratch::planes) and the
 // weights' terms come from the caller; nothing rounds, and the products are
@@ -45,6 +46,7 @@
 // the raised shared-memory limit.
 #pragma once
 
+#include "attn_any.cuh"
 #include "attn_sm90.cuh"
 #include "gemm_sm90.cuh"
 
@@ -65,6 +67,18 @@ __global__ void __launch_bounds__(port::attn::FA_THREADS, port::attn::dq_min_blo
 
 // per element type (bf16, fp32)
 int core_dq_smem_done[2][64], core_dkdv_smem_done[2][64];
+
+// the per-head part at every other head dim (attn_any.cuh), after the
+// head-dim-64 entries
+template <typename T>
+__global__ void __launch_bounds__(port::anyd::THREADS, 1) block_any_bwd_dkdv_kernel(port::anyd::AnyArgs<T> p) {
+  port::anyd::any_dkdv_body<T, false>(p);
+}
+template <typename T>
+__global__ void __launch_bounds__(port::anyd::THREADS, 1) block_any_bwd_dq_kernel(port::anyd::AnyArgs<T> p) {
+  port::anyd::any_dq_body<T, false>(p);
+}
+int any_dq_smem_done[2][64], any_dkdv_smem_done[2][64];
 
 }  // namespace
 
@@ -141,27 +155,57 @@ inline int attn_bwd_to_dxln(const AttnBwdProblem<T>& a, T* dx_t, float* dxln, cu
   if ((err = operand_of(static_cast<const T*>(dctx), (long long)plane, planes + 9 * plane, &dctx_op, &dctx_tt,
                         st)))
     return err;
-  const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*64
-  const int hd = attn::FA_D;
-  attn::FusedBwdArgs<T> t{};
-  t.q = {qkv_op, sb, hd, a.Dm, qkv_tt};
-  t.k = {qkv_op + plane, sb, hd, a.Dm, qkv_tt};
-  t.v = {qkv_op + 2 * plane, sb, hd, a.Dm, qkv_tt};
-  t.dout = {dctx_op, sb, hd, a.Dm, dctx_tt};
-  t.ctx = {a.ctx, sb, hd, a.Dm, 0};
-  t.lse = a.lse;
-  t.bias = a.bias;
-  t.delta = a.ws.delta;
-  t.dq = {dqkv, sb, hd, a.Dm, 0};
-  t.dk = {dqkv + plane, sb, hd, a.Dm, 0};
-  t.dv = {dqkv + 2 * plane, sb, hd, a.Dm, 0};
-  t.S = a.S;
-  t.H = a.H;
-  t.scale = a.scale;
+  const long long sb = (long long)a.S * a.Dm;  // [M, Dm] planes, head h at column h*hd
+  const int hd = a.Dm / a.H;
   constexpr int ti = kTerms<T> == 1 ? 0 : 1;
-  if ((err = attn::launch_bwd(block_core_bwd_dq_kernel<T>, core_dq_smem_done[ti], block_core_bwd_dkdv_kernel<T>,
-                              core_dkdv_smem_done[ti], t, a.B, st)))
-    return err;
+  if (hd == attn::FA_D) {
+    attn::FusedBwdArgs<T> t{};
+    t.q = {qkv_op, sb, hd, a.Dm, qkv_tt};
+    t.k = {qkv_op + plane, sb, hd, a.Dm, qkv_tt};
+    t.v = {qkv_op + 2 * plane, sb, hd, a.Dm, qkv_tt};
+    t.dout = {dctx_op, sb, hd, a.Dm, dctx_tt};
+    t.ctx = {a.ctx, sb, hd, a.Dm, 0};
+    t.lse = a.lse;
+    t.bias = a.bias;
+    t.delta = a.ws.delta;
+    t.dq = {dqkv, sb, hd, a.Dm, 0};
+    t.dk = {dqkv + plane, sb, hd, a.Dm, 0};
+    t.dv = {dqkv + 2 * plane, sb, hd, a.Dm, 0};
+    t.S = a.S;
+    t.H = a.H;
+    t.scale = a.scale;
+    if ((err = attn::launch_bwd(block_core_bwd_dq_kernel<T>, core_dq_smem_done[ti], block_core_bwd_dkdv_kernel<T>,
+                                core_dkdv_smem_done[ti], t, a.B, st)))
+      return err;
+  } else {
+    anyd::AnyArgs<T> t{};
+    t.q = {qkv_op, sb, hd, a.Dm, qkv_tt};
+    t.k = {qkv_op + plane, sb, hd, a.Dm, qkv_tt};
+    t.v = {qkv_op + 2 * plane, sb, hd, a.Dm, qkv_tt};
+    t.dout = {dctx_op, sb, hd, a.Dm, dctx_tt};
+    t.vq = anyd::vec_ok(t.q, hd);
+    t.vk = anyd::vec_ok(t.k, hd);
+    t.vv = anyd::vec_ok(t.v, hd);
+    t.vdo = anyd::vec_ok(t.dout, hd);
+    t.ctx = {a.ctx, sb, hd, a.Dm, 0};
+    t.lse = const_cast<float*>(a.lse);
+    t.bias = a.bias;
+    t.bsb = a.S;  // [B, S]
+    t.bsk = 1;
+    t.delta = a.ws.delta;
+    t.dq = {dqkv, sb, hd, a.Dm, 0};
+    t.dk = {dqkv + plane, sb, hd, a.Dm, 0};
+    t.dv = {dqkv + 2 * plane, sb, hd, a.Dm, 0};
+    t.H = a.H;
+    t.Sq = t.Skv = a.S;
+    t.D = hd;
+    t.ND = anyd::chunks(hd);
+    t.scale = a.scale;
+    if ((err = anyd::launch_any_bwd(block_any_bwd_dq_kernel<T>, any_dq_smem_done[ti], t, a.B, false, st)))
+      return err;
+    if ((err = anyd::launch_any_bwd(block_any_bwd_dkdv_kernel<T>, any_dkdv_smem_done[ti], t, a.B, true, st)))
+      return err;
+  }
 
   GemmArgs d{};  // dxln = dq.Wq + dk.Wk + dv.Wv  (one product, K = 3 Dm)
   const bf16* dop;

@@ -374,7 +374,8 @@ inline bool gemm_prepare(GemmArgs& p, int bn, int bk) {
 // row statistics over 8-element chunks per lane, then warp_sum;
 // var = max(E[x^2] - mu^2, 0); y = (x - mu) * rstd * gamma + beta, rounded
 // once to the element type).  The q|k|v product of #1 and of #3/#4's
-// recompute reads this plane as its A operand.  D a multiple of 8.
+// recompute reads this plane as its A operand.  D a multiple of 8 (any other
+// D: ln_fwd_rows_any_kernel).
 template <typename T>
 __global__ void ln_fwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                                    const float* __restrict__ beta, float eps, T* __restrict__ out,
@@ -407,10 +408,62 @@ __global__ void ln_fwd_rows_kernel(const T* __restrict__ x, const float* __restr
   }
 }
 
+// The same row pass at a width D that is no multiple of 8: one element per
+// lane at a time (the statistics' sums in another order, the same function).
+template <typename T>
+__global__ void ln_fwd_rows_any_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, float eps, T* __restrict__ out, int M,
+                                       int D) {
+  const int warps = blockDim.x >> 5;
+  const int row = blockIdx.x * warps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int k = lane; k < D; k += 32) {
+    const float v = to_f(xr[k]);
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / (float)D;
+  const float var = fmaxf(ss / (float)D - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  for (int k = lane; k < D; k += 32)
+    out[(size_t)row * D + k] = from_f<T>(__fadd_rn(__fmul_rn(__fmul_rn(to_f(xr[k]) - mu, rstd), gamma[k]), beta[k]));
+}
+
 template <typename T>
 inline int launch_ln_fwd_rows(const T* x, const float* gamma, const float* beta, float eps, T* out, int M,
                               int D, cudaStream_t st) {
-  ln_fwd_rows_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
+  if (D % 8) ln_fwd_rows_any_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
+  else ln_fwd_rows_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, beta, eps, out, M, D);
+  return (int)cudaGetLastError();
+}
+
+// rows x cols of src (row stride lds) into dst (row stride ldd), columns
+// [cols, cols_dst) of dst zero: the zero-padded copies (and their way back,
+// cols_dst = cols) of the adapters' operands at a width the kernels' tiles
+// do not cover (#2, #4).  One thread per element of dst.
+template <typename T>
+__global__ void pad_cols_kernel(const T* __restrict__ src, long long lds, T* __restrict__ dst, long long ldd,
+                                long long rows, int cols, int cols_dst) {
+  const long long n = rows * cols_dst;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / cols_dst;
+    const int c = (int)(i % cols_dst);
+    dst[r * ldd + c] = c < cols ? src[r * lds + c] : from_f<T>(0.f);
+  }
+}
+
+template <typename T>
+inline int launch_pad_cols(const T* src, long long lds, T* dst, long long ldd, long long rows, int cols,
+                           int cols_dst, cudaStream_t st) {
+  const long long n = rows * cols_dst;
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256 < 132 * 32 ? (n + 255) / 256 : 132 * 32;
+  pad_cols_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(src, lds, dst, ldd, rows, cols, cols_dst);
   return (int)cudaGetLastError();
 }
 

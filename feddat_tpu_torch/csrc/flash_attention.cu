@@ -163,8 +163,17 @@
 // stage (185,344 and 182,784 B): step j+1's copies start after every
 // warpgroup is done with step j, so nothing overlaps the copies in that mode.
 // Every fp32 instance runs one block per SM (__launch_bounds__(256, 1)).
+//
+// ------------------------------------------------------ other head dims
+// Head dim 64 runs the kernels above.  Every other head dim from 1 to 256
+// runs attn_any.cuh's bodies with FLASH = true (the same functions at the
+// same points: online softmax from -1e30, P and ds at fp32 precision, the
+// compact bias), D padded to 64-column chunks, one warpgroup a block, under
+// this file's flash_any_fwd_kernel and flash_any_bwd_dq/dkv_kernel, defined
+// after every head-dim-64 entry so that those compile as before.  There an
+// fp32 operand's terms are contiguous [B, H, S, D] planes.
 
-#include "flash_sm90.cuh"
+#include "attn_any.cuh"
 
 using namespace port;
 
@@ -946,39 +955,139 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
   return DKV ? launch_dkv<T, FS_STAGES>(a, mode, B, st) : launch_dq<T, FS_STAGES>(a, mode, B, st);
 }
 
+// ------------------------------------------------ other head dims (attn_any.cuh)
+template <typename T>
+__global__ void __launch_bounds__(anyd::THREADS, 1) flash_any_fwd_kernel(anyd::AnyArgs<T> p) {
+  anyd::any_fwd_body<T, true>(p);
+}
+template <typename T>
+__global__ void __launch_bounds__(anyd::THREADS, 1) flash_any_bwd_dkv_kernel(anyd::AnyArgs<T> p) {
+  anyd::any_dkdv_body<T, true>(p);
+}
+template <typename T>
+__global__ void __launch_bounds__(anyd::THREADS, 1) flash_any_bwd_dq_kernel(anyd::AnyArgs<T> p) {
+  anyd::any_dq_body<T, true>(p);
+}
+int any_fwd_done[2][64], any_dq_done[2][64], any_dkv_done[2][64];
+
+// Elements of one operand's three term planes at head dim D (q's and dout's
+// over Sq, k's and v's over Skv); the workspace holds q's, k's, v's, then dout's.
+long long terms_any(int B, int H, int S, int D) { return 3LL * B * H * S * D; }
+
+// The operands q, k, v (and dout) of a call at head dim D: the bf16 views
+// (read in place), or the fp32 views' term planes in `planes`, split here
+// when `split` (the forward and dq entries) or as the dq entry left them.
+template <typename T>
+int any_operands(anyd::AnyArgs<T>* a, const void* const* src, const long long* strides, int n, int B, int H,
+                 int Sq, int Skv, int D, bf16* planes, bool split, cudaStream_t st) {
+  const long long nq = terms_any(B, H, Sq, D), nkv = terms_any(B, H, Skv, D);
+  const long long off[4] = {0, nq, nq + nkv, nq + 2 * nkv};
+  const int len[4] = {Sq, Skv, Skv, Sq};
+  Heads<const bf16>* dst[4] = {&a->q, &a->k, &a->v, &a->dout};
+  int* vec[4] = {&a->vq, &a->vk, &a->vv, &a->vdo};
+  for (int i = 0; i < n; ++i) {
+    bf16* at = planes != nullptr ? planes + off[i] : nullptr;  // none in bf16
+    if (kTerms<T> == 3 && !split) {
+      const long long term = (long long)B * H * len[i] * D;
+      *dst[i] = {at, (long long)H * len[i] * D, (long long)len[i] * D, D, term};
+      *vec[i] = anyd::vec_ok(*dst[i], D);
+      continue;
+    }
+    const int e = heads_operand_any(heads<const T>(src[i], strides + 3 * i), B, H, len[i], D, at, dst[i], vec[i], st);
+    if (e) return e;
+  }
+  return 0;
+}
+
+template <typename T>
+void any_common(anyd::AnyArgs<T>* a, const void* bias, const long long* bs, const void* lse, int H, int Sq,
+                int Skv, int D, float scale) {
+  a->bias = static_cast<const float*>(bias);
+  a->bsb = bs[0];
+  a->bsh = bs[1];
+  a->bsq = bs[2];
+  a->bsk = bs[3];
+  a->lse = static_cast<float*>(const_cast<void*>(lse));
+  a->H = H;
+  a->Sq = Sq;
+  a->Skv = Skv;
+  a->D = D;
+  a->ND = anyd::chunks(D);
+  a->scale = scale;
+}
+
+template <typename T>
+int flash_any_fwd(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse, bf16* planes,
+                  const long long* strides, int B, int H, int Sq, int Skv, int D, float scale, cudaStream_t st) {
+  if (anyd::bad_sizes(B, H, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  anyd::AnyArgs<T> a{};
+  const void* src[3] = {q, k, v};
+  if (const int e = any_operands<T>(&a, src, strides, 3, B, H, Sq, Skv, D, planes, true, st)) return e;
+  a.o = heads<T>(o, strides + 9);
+  any_common<T>(&a, bias, strides + 12, lse, H, Sq, Skv, D, scale);
+  return anyd::launch_any_fwd(flash_any_fwd_kernel<T>, any_fwd_done[kTerms<T> == 1 ? 0 : 1], a, B, st);
+}
+
+template <typename T, bool DKV>
+int flash_any_bwd(const void* q, const void* k, const void* v, const void* dout, const void* bias, const void* lse,
+                  const void* delta, void* dq, void* dk, void* dv, bf16* planes, const long long* strides, int B,
+                  int H, int Sq, int Skv, int D, float scale, cudaStream_t st) {
+  if (anyd::bad_sizes(B, H, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  anyd::AnyArgs<T> a{};
+  const void* src[4] = {q, k, v, dout};
+  if (const int e = any_operands<T>(&a, src, strides, 4, B, H, Sq, Skv, D, planes, !DKV, st)) return e;
+  a.dq = heads<T>(dq, strides + 12);
+  a.dk = heads<T>(dk, strides + 15);
+  a.dv = heads<T>(dv, strides + 18);
+  any_common<T>(&a, bias, strides + 21, lse, H, Sq, Skv, D, scale);
+  a.delta = static_cast<float*>(const_cast<void*>(delta));
+  constexpr int ti = kTerms<T> == 1 ? 0 : 1;
+  if (DKV) return anyd::launch_any_bwd(flash_any_bwd_dkv_kernel<T>, any_dkv_done[ti], a, B, true, st);
+  return anyd::launch_any_bwd(flash_any_bwd_dq_kernel<T>, any_dq_done[ti], a, B, false, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// The largest head dim the entry points take (their argument D); a library
+// without this symbol takes head dim 64 only, and no D.
+int attention_max_head_dim() { return anyd::MAX_D; }
+
 // Bytes of scratch the entries need: fp32 q, k, v (and dout for the
 // backward) as three bf16 term planes each; none in bf16.  The backward's
 // two entries share one workspace.
-long long flash_attention_workspace(int B, int H, int Sq, int Skv, int backward, int f32) {
+long long flash_attention_workspace(int B, int H, int Sq, int Skv, int D, int backward, int f32) {
   if (!f32) return 0;
-  return 2 * ((backward ? 2 : 1) * terms_q(B, H, Sq) + 2 * terms_q(B, H, Skv));
+  return 2 * ((backward ? 2 : 1) * terms_any(B, H, Sq, D) + 2 * terms_any(B, H, Skv, D));
 }
 
-// q [B, H, Sq, 64], k and v [B, H, Skv, 64] and o (output, [B, H, Sq, 64]), all
+// q [B, H, Sq, D], k and v [B, H, Skv, D] and o (output, [B, H, Sq, D]), all
 // bf16 (f32 = 0) or fp32 (f32 = 1), by element strides (strides[0..11]: q, k,
 // v, o as sb, sh, ss); bias fp32 or null with strides[12..15] = its b, h, q, k
 // element strides (0 on broadcast dims); lse [B, H, Sq] fp32 (output);
-// workspace of flash_attention_workspace bytes.  Every operand's start must
-// be 16-byte aligned and its strides multiples of 8 elements (cp.async copies
-// 16 bytes).  Returns the CUDA error of the launches.
+// workspace of flash_attention_workspace bytes; head dim 1 <= D <= 256, unit
+// stride over D.  At D = 64 every operand's start must be 16-byte aligned
+// and its strides multiples of 8 elements (cp.async copies 16 bytes); any
+// other D reads any strides.  Returns the CUDA error of the launches.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                         void* lse, void* workspace, const long long* strides, int B, int H, int Sq,
-                        int Skv, int f32, float scale, void* stream) {
-  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
+                        int Skv, int D, int f32, float scale, void* stream) {
   bf16* planes = static_cast<bf16*>(workspace);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D != FL_D) {
+    if (f32) return flash_any_fwd<float>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, D, scale, st);
+    return flash_any_fwd<bf16>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, D, scale, st);
+  }
+  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   if (!f32) return flash_fwd<bf16>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, scale, st);
   return flash_fwd<float>(q, k, v, bias, o, lse, planes, strides, B, H, Sq, Skv, scale, st);
 }
 
 // The backward's operands by element strides: strides[0..20] are q, k, v, dout,
-// dq, dk, dv as (sb, sh, ss), all [B, H, S, 64] bf16 (f32 = 0) or fp32 (f32 =
+// dq, dk, dv as (sb, sh, ss), all [B, H, S, D] bf16 (f32 = 0) or fp32 (f32 =
 // 1) (dq/dk/dv outputs); strides[21..24] the bias's b, h, q, k element strides
 // (0 on broadcast dims; bias fp32 or null); lse and delta [B, H, Sq] fp32
 // contiguous; workspace of flash_attention_workspace(backward = 1) bytes.  In
@@ -989,10 +1098,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* bias, const void* lse, const void* delta, void* dk, void* dv,
                             void* workspace, const long long* strides, int B, int H, int Sq, int Skv,
-                            int f32, float scale, void* stream) {
-  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
+                            int D, int f32, float scale, void* stream) {
   bf16* planes = static_cast<bf16*>(workspace);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D != FL_D) {
+    if (f32)
+      return flash_any_bwd<float, true>(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, planes, strides, B, H,
+                                        Sq, Skv, D, scale, st);
+    return flash_any_bwd<bf16, true>(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, planes, strides, B, H, Sq,
+                                     Skv, D, scale, st);
+  }
+  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   if (!f32)
     return flash_bwd<bf16, true>(q, k, v, dout, bias, lse, delta, nullptr, dk, dv, planes, strides, B, H, Sq, Skv,
                                  scale, st);
@@ -1003,10 +1119,17 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* bias, const void* lse, const void* delta, void* dq,
                            void* workspace, const long long* strides, int B, int H, int Sq, int Skv,
-                           int f32, float scale, void* stream) {
-  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
+                           int D, int f32, float scale, void* stream) {
   bf16* planes = static_cast<bf16*>(workspace);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D != FL_D) {
+    if (f32)
+      return flash_any_bwd<float, false>(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, planes, strides, B,
+                                         H, Sq, Skv, D, scale, st);
+    return flash_any_bwd<bf16, false>(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, planes, strides, B, H,
+                                      Sq, Skv, D, scale, st);
+  }
+  if (bad_sizes(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
   if (!f32)
     return flash_bwd<bf16, false>(q, k, v, dout, bias, lse, delta, dq, nullptr, nullptr, planes, strides, B, H, Sq,
                                   Skv, scale, st);

@@ -185,6 +185,154 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
   }
 }
 
+// ------------------------------------------------- any N, K and segment
+// The product of gemm_sm90_kernel for a shape its tiles do not cover: N or K
+// not a multiple of the tile, or N or K segments (q|k|v, dx's dq|dk|dv) that
+// are not (Dm = 192, 48, ...).  The same block, ring, wgmma chain, term-pair
+// order and k order, with three differences:
+//   * each segment is tiled on its own (TailShape): grid.x walks the N
+//     segments' ceil(width / 128) tiles and the k-steps walk each K
+//     segment's ceil(width / 64) steps, so no tile spans two segments;
+//   * rows and columns past M, a segment's N width or its K width are
+//     zero-filled (a zero k column adds nothing to the sums): 16-byte copies
+//     when every row stride, segment width and start allows (`vec`), else
+//     element loads into the same swizzled chunks;
+//   * the epilogue stores element by element (gemm_epi_one), guarded by M
+//     and the segment's width, so no pair of columns need be aligned.
+// The head-dim-64 shapes (Dm and F multiples of 128) never take this kernel.
+struct TailShape {
+  int segw_n, tn;  // an N segment's width and its 128-column tiles
+  int segw_k, tk;  // a K segment's width and its 64-deep steps
+  int nseg_k;
+  int vec;         // 16-byte copies
+};
+
+__device__ __forceinline__ unsigned short bf16_bits(const bf16* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+// 8 adjacent bf16 of one row into 16-byte chunk c of swizzled tile row r:
+// the first n of them (0 <= n <= 8) from src, the rest zero
+__device__ __forceinline__ void chunk_copy(uint32_t dst, const bf16* src, int n, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, n > 0);  // src is a mapped address even when nothing is read
+    return;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = 2 * e < n ? bf16_bits(src + 2 * e) : 0u;
+    const uint32_t hi = 2 * e + 1 < n ? bf16_bits(src + 2 * e + 1) : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// one output element of the epilogue: row, column col of N segment seg
+template <int EPI, typename T>
+__device__ __forceinline__ void gemm_epi_one(const GemmArgs& p, int row, int seg, int col, float v) {
+  const size_t off = (size_t)row * p.ldc + col;
+  T* const c0 = static_cast<T*>(p.c[0]) + off;
+  if (EPI == EPI_BIAS) {
+    static_cast<T*>(p.c[seg])[off] = from_f<T>(v + p.bias[seg][col]);
+  } else if (EPI == EPI_OUT) {
+    *c0 = from_f<T>(v);
+  } else if (EPI == EPI_F32) {
+    p.c_f32[off] = v;
+  } else if (EPI == EPI_FFN1) {
+    const float pre = v + p.bias[0][col];
+    p.c_f32[off] = pre;
+    *c0 = from_f<T>(gelu_poly(pre));
+  } else if (EPI == EPI_FFN2) {
+    const float f = round_t<T>(v + p.bias[0][col]);
+    *c0 = from_f<T>(to_f(static_cast<const T*>(p.aux)[off]) + f);
+  } else if (EPI == EPI_GELU_BWD) {
+    *c0 = from_f<T>(v * gelu_grad_poly(p.aux_f32[off]));
+  }
+}
+
+template <int BL, int EPI, typename T>
+__global__ void __launch_bounds__(G9_THREADS, 1) gemm_tail_kernel(GemmArgs p, TailShape ts) {
+  extern __shared__ __align__(16) uint8_t g9_smem[];
+  const uint32_t at = smem_addr(g9_smem);
+  const uint32_t base = (at + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int nseg = blockIdx.x / ts.tn, n0 = (blockIdx.x % ts.tn) * G9_BN;  // n0 within the segment
+  const int m0 = blockIdx.y * G9_BM;
+  const int nk = ts.nseg_k * ts.tk, nsteps = kPairs<T> * nk;
+  const bool vec = ts.vec != 0;
+
+  // step kt: term pair kt / nk; K segment ks, k0 within it
+  auto stage = [&](int kt) {
+    const uint32_t sa = base + (kt % G9_STAGES) * G9_STAGE_BYTES, sb = sa + G9_A_BYTES;
+    const int pr = kt / nk, kq = kt - pr * nk, ks = kq / ts.tk, k0 = (kq % ts.tk) * G9_BK;
+    const int kleft = ts.segw_k - k0;  // valid k of this step: [0, min(64, kleft))
+    const bf16* A = p.a[ks] + term_a<T>(pr) * p.a_term + k0;
+#pragma unroll
+    for (int j = 0; j < G9_BM * 8 / G9_THREADS; ++j) {
+      const int i = tid + j * G9_THREADS, r = i >> 3, c = i & 7;
+      const int n = m0 + r < p.M ? min(8, max(0, kleft - c * 8)) : 0;
+      chunk_copy(sa + swz(r, c), A + (size_t)(n > 0 ? m0 + r : 0) * p.lda + (n > 0 ? c * 8 : 0), n, vec);
+    }
+    if (BL == B_NT) {  // [128 n][64 k] of N segment nseg, k at ks * segw_k + k0
+      const bf16* Bp = p.b[nseg] + term_b<T>(pr) * p.b_term + (size_t)ks * ts.segw_k + k0;
+#pragma unroll
+      for (int j = 0; j < G9_BN * 8 / G9_THREADS; ++j) {
+        const int i = tid + j * G9_THREADS, r = i >> 3, c = i & 7;
+        const int n = n0 + r < ts.segw_n ? min(8, max(0, kleft - c * 8)) : 0;
+        chunk_copy(sb + swz(r, c), Bp + (size_t)(n > 0 ? n0 + r : 0) * p.ldb + (n > 0 ? c * 8 : 0), n, vec);
+      }
+    } else {  // [64 k][128 n] of K segment ks as two [64 k][64 n] tiles
+      const bf16* Bp = p.b[ks] + term_b<T>(pr) * p.b_term + (size_t)k0 * p.ldb + n0;
+#pragma unroll
+      for (int j = 0; j < G9_BK * (G9_BN / 8) / G9_THREADS; ++j) {
+        const int i = tid + j * G9_THREADS, r = i / (G9_BN / 8), c = i % (G9_BN / 8);
+        const int n = r < kleft ? min(8, max(0, ts.segw_n - n0 - c * 8)) : 0;
+        chunk_copy(sb + (c >> 3) * TILE_BYTES + swz(r, c & 7), Bp + (n > 0 ? (size_t)r * p.ldb + c * 8 : 0), n, vec);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < G9_STAGES - 1; ++s) {
+    if (s < nsteps) stage(s);
+    else cp_async_commit();
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nsteps; ++kt) {
+    cp_async_wait<G9_STAGES - 2>();
+    __syncthreads();
+    const uint32_t sa = base + (kt % G9_STAGES) * G9_STAGE_BYTES, sb = sa + G9_A_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < G9_BK / 16; ++ks) {
+      const uint64_t da = desc_k(sa + wg * TILE_BYTES, ks);
+      if (BL == B_NT) wgmma_m64n128<0>(acc, da, desc_k(sb, ks));
+      else wgmma_m64n128<1>(acc, da, desc_mn128(sb, ks));
+    }
+    wg_commit();
+    if (kt + G9_STAGES - 1 < nsteps) stage(kt + G9_STAGES - 1);
+    else cp_async_commit();
+    wg_wait_all();
+    pin(acc);
+  }
+
+  const int g = lane >> 2, tig = lane & 3;
+  const int row0 = m0 + wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int t = 0; t < G9_BN / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * (e >> 1), col = n0 + t * 8 + tig * 2 + (e & 1);
+      if (row < p.M && col < ts.segw_n) gemm_epi_one<EPI, T>(p, row, nseg, col, acc[t * 4 + e]);
+    }
+}
+
 }  // namespace sm90
 
 // The devices on which this library's instance of gemm_sm90_kernel<BL, EPI, T>
@@ -193,6 +341,31 @@ __global__ void __launch_bounds__(G9_THREADS, G9_MIN_BLOCKS) gemm_sm90_kernel(Ge
 // symbol), so one library's raised limit would let another skip raising its own.
 template <int BL, int EPI, typename T>
 static int g9_smem_done[64];
+template <int BL, int EPI, typename T>
+static int g9_tail_smem_done[64];
+
+// The tail kernel's segments (GemmArgs's defaults filled in by
+// gemm_prepare); false for a shape it does not take either: M < 1, or
+// segments that do not divide N or K, or B_NN's K segments not A's.
+template <int BL, int EPI>
+inline bool gemm_tail_shape(const GemmArgs& p, sm90::TailShape* ts) {
+  ts->segw_n = BL == B_NT ? p.b_seg : p.N;
+  ts->segw_k = p.a_kseg;
+  if (p.M < 1 || ts->segw_n < 1 || ts->segw_k < 1 || p.N % ts->segw_n || p.K % ts->segw_k) return false;
+  if (BL == B_NN && p.b_seg != p.a_kseg) return false;
+  if (EPI == EPI_BIAS && p.c_seg != ts->segw_n) return false;
+  if (EPI != EPI_BIAS && p.N != ts->segw_n) return false;  // only the bias epilogue writes N segments
+  ts->tn = (ts->segw_n + sm90::G9_BN - 1) / sm90::G9_BN;
+  ts->tk = (ts->segw_k + sm90::G9_BK - 1) / sm90::G9_BK;
+  ts->nseg_k = p.K / ts->segw_k;
+  bool vec = p.lda % 8 == 0 && p.ldb % 8 == 0 && ts->segw_k % 8 == 0 && p.a_term % 8 == 0 && p.b_term % 8 == 0 &&
+             (BL == B_NT || p.N % 8 == 0);
+  for (int i = 0; i < ts->nseg_k && i < 3; ++i) vec = vec && reinterpret_cast<uintptr_t>(p.a[i]) % 16 == 0;
+  const int nb = BL == B_NT ? p.N / ts->segw_n : ts->nseg_k;
+  for (int i = 0; i < nb && i < 3; ++i) vec = vec && reinterpret_cast<uintptr_t>(p.b[i]) % 16 == 0;
+  ts->vec = vec;
+  return true;
+}
 
 // Launches C = A . B with the given layout and epilogue on `st` through
 // sm90::gemm_sm90_kernel; returns the CUDA error (cudaErrorInvalidValue for a
@@ -200,7 +373,16 @@ static int g9_smem_done[64];
 // limit once per device.
 template <int BL, int EPI, typename T>
 inline int launch_gemm_sm90(GemmArgs p, cudaStream_t st) {
-  if (!gemm_prepare<BL, EPI>(p, sm90::G9_BN, sm90::G9_BK)) return (int)cudaErrorInvalidValue;
+  if (!gemm_prepare<BL, EPI>(p, sm90::G9_BN, sm90::G9_BK)) {
+    sm90::TailShape ts;
+    if (!gemm_tail_shape<BL, EPI>(p, &ts)) return (int)cudaErrorInvalidValue;
+    const auto kernel = sm90::gemm_tail_kernel<BL, EPI, T>;
+    const cudaError_t err = sm90::allow_smem(kernel, sm90::G9_SMEM, g9_tail_smem_done<BL, EPI, T>);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(ts.tn * (p.N / ts.segw_n), (p.M + sm90::G9_BM - 1) / sm90::G9_BM);
+    kernel<<<grid, sm90::G9_THREADS, sm90::G9_SMEM, st>>>(p, ts);
+    return (int)cudaGetLastError();
+  }
   const cudaError_t err =
       sm90::allow_smem(sm90::gemm_sm90_kernel<BL, EPI, T>, sm90::G9_SMEM, g9_smem_done<BL, EPI, T>);
   if (err != cudaSuccess) return (int)err;

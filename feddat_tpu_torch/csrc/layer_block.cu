@@ -114,7 +114,15 @@ constexpr int AR_ROWS = 16;      // rows per block of the row pass
 constexpr int AR_WARPS = 4;      // warps per block, each a quarter of Dm
 constexpr int AR_THREADS = 32 * AR_WARPS;
 constexpr int AR_GROUP = 4;      // 8-column tiles of g_o whose reads go together
-constexpr int AR_DM_MULTIPLE = AR_WARPS * 8 * AR_GROUP;  // Dm must be a multiple
+constexpr int AR_DM_MULTIPLE = AR_WARPS * 8 * AR_GROUP;  // the width the adapter kernels walk
+
+// The width the adapter kernels run at: Dm rounded up to AR_DM_MULTIPLE.  At
+// another Dm (192, 48, ...) o and g are copied into zero-padded [M, Dw]
+// planes and g_o and g_f copied back (pad_cols_kernel), and the caller gives
+// the adapters' weights zero-padded to Dw (ops/layer_block.py): a padded
+// column of o or g, and a zero row of Wd or column of Wu, adds nothing to
+// down, g_relu or g_o, and its gradients are dropped by the caller.
+inline int adapter_width(int Dm) { return (Dm + AR_DM_MULTIPLE - 1) / AR_DM_MULTIPLE * AR_DM_MULTIPLE; }
 
 // The bottleneck's chunks: as few as take at most `most` columns each, all of
 // one width, a multiple of 16 (ops/layer_block.py pads R to their sum).
@@ -576,7 +584,8 @@ __global__ void adapter_wgrad_reduce_kernel(const float* __restrict__ part, int 
 // 256-byte boundary.  The only place that knows the layout.
 enum WsBuffer {
   WS_H, WS_M, WS_O, WS_P1, WS_GE_GP1, WS_RELU_A, WS_GDOWN_A, WS_G_O, WS_G_M_DXLN, WS_G_H,
-  WS_G_F, WS_G_ATT, WS_DCTX, WS_QKV, WS_DQKV, WS_DELTA, WS_PART, WS_XLN, WS_WTERMS, WS_PLANES, WS_COUNT
+  WS_G_F, WS_G_ATT, WS_DCTX, WS_QKV, WS_DQKV, WS_DELTA, WS_PART, WS_XLN, WS_WTERMS, WS_PLANES,
+  WS_O_W, WS_G_W, WS_G_O_W, WS_G_F_W, WS_COUNT
 };
 
 struct WsLayout {
@@ -589,6 +598,8 @@ WsLayout ws_layout(int B, int S, int Dm, int H, int F, int R, int es) {
   const size_t M = (size_t)B * S, md = M * Dm, mf = M * F, mr = M * R;
   const size_t chunks = (M + AW_ROWS - 1) / AW_ROWS;
   const bool f32 = es == 4;
+  const int Dw = adapter_width(Dm);
+  const size_t mw = Dw != Dm ? M * Dw : 0;  // the adapters' padded planes, when Dm needs them
   const size_t bytes[WS_COUNT] = {
       md * es, md * es, md * es,           // h, m, o
       mf * 4, mf * es,                     // p1; ge, then g_p1
@@ -597,10 +608,11 @@ WsLayout ws_layout(int B, int S, int Dm, int H, int F, int R, int es) {
       md * es, md * es, md * es,           // g_f, g_att, dctx
       md * es * 3, md * es * 3,            // qkv, dq|dk|dv
       (size_t)B * H * S * 4,               // delta
-      chunks * (2 * (size_t)R * Dm + Dm + R) * 4,  // adapter partial sums
+      chunks * (2 * (size_t)R * Dw + Dw + R) * 4,  // adapter partial sums
       md * es,                             // LN1(x)
       f32 ? 3 * (4 * (size_t)Dm * Dm + 2 * (size_t)Dm * F) * 2 : 0,  // fp32: the weights' terms
       f32 ? (3 * mf > attn_bwd_planes_bytes(md) / 2 ? 3 * mf * 2 : attn_bwd_planes_bytes(md)) : 0,
+      mw * es, mw * es, mw * 4, mw * es,   // o, g, g_o and g_f at the adapters' width
   };
   WsLayout l{};
   size_t off = 0;
@@ -687,9 +699,24 @@ int layer_bwd(const void* const* act, const float* lse, const float* bias, const
   if ((err = launch_gemm_sm90<B_NT, EPI_FFN2, T>(f2, st))) return err;
 
   // 3. adapter backward: chunk by chunk, rows, then deterministic weight-gradient sums
+  // (at the adapters' width Dw: o and g padded first, g_o and g_f copied back after)
+  const int Dw = adapter_width(Dm);
+  const bool padded = Dw != Dm;
+  const T* o_w = o;
+  const T* g_w = g;
+  if (padded) {
+    T* op = reinterpret_cast<T*>(buf(WS_O_W));
+    T* gp = reinterpret_cast<T*>(buf(WS_G_W));
+    if ((err = launch_pad_cols<T>(o, Dm, op, Dw, M, Dm, Dw, st))) return err;
+    if ((err = launch_pad_cols<T>(g, Dm, gp, Dw, M, Dm, Dw, st))) return err;
+    o_w = op;
+    g_w = gp;
+  }
+  float* g_o_w = padded ? reinterpret_cast<float*>(buf(WS_G_O_W)) : g_o;
+  T* g_f_w = padded ? reinterpret_cast<T*>(buf(WS_G_F_W)) : g_f;
   AdapterBwdArgs ab{};
-  ab.o = o;
-  ab.g = g;
+  ab.o = o_w;
+  ab.g = g_w;
   ab.wda = ad[0];
   ab.wua = ad[1];
   ab.wdaT = ad[2];
@@ -702,27 +729,31 @@ int layer_bwd(const void* const* act, const float* lse, const float* bias, const
   ab.w_b = w_b;
   ab.relu_a = buf(WS_RELU_A);
   ab.gdown_a = reinterpret_cast<float*>(buf(WS_GDOWN_A));
-  ab.g_o = g_o;
-  ab.g_f = g_f;
+  ab.g_o = g_o_w;
+  ab.g_f = g_f_w;
   ab.M = M;
-  ab.D = Dm;
+  ab.D = Dw;
   ab.Rp = R;
   AdapterWgradArgs aw{};
-  aw.o = o;
-  aw.g = g;
+  aw.o = o_w;
+  aw.g = g_w;
   aw.relu_a = ab.relu_a;
   aw.gdown_a = ab.gdown_a;
   aw.w_a = w_a;
   aw.part = part;
   aw.M = M;
-  aw.D = Dm;
+  aw.D = Dw;
   aw.Rp = R;
   const int most = kTerms<T> == 1 ? AD_CHUNK : AD_CHUNK_F32;
   if ((err = adapter_bwd<T>(ab, aw, use_b, row_chunks, chunk_width(R, most), st))) return err;
-  const size_t outs = (size_t)2 * R * Dm + Dm + R;
+  const size_t outs = (size_t)2 * R * Dw + Dw + R;
   adapter_wgrad_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(part, row_chunks, dwua, dwda, dbua,
-                                                                               dbda, Dm, R);
+                                                                               dbda, Dw, R);
   if ((err = (int)cudaGetLastError())) return err;
+  if (padded) {
+    if ((err = launch_pad_cols<float>(g_o_w, Dw, g_o, Dm, M, Dm, Dm, st))) return err;
+    if ((err = launch_pad_cols<T>(g_f_w, Dw, g_f, Dm, M, Dm, Dm, st))) return err;
+  }
 
   // 4. g_p1 = T((g_f.W2) * gelu'(p1)); g_m = g_p1.W1
   GemmArgs b2g{};
@@ -799,6 +830,10 @@ int layer_block_padded_bottleneck(int r, int f32) {
   return chunk_count(r, most) * chunk_width(r, most);
 }
 
+// The width the adapters' weights and gradients take at layer width Dm: Dm
+// rounded up to a multiple of 128 (ops/layer_block.py pads to it).
+int layer_block_padded_width(int Dm) { return Dm < 1 ? 0 : adapter_width(Dm); }
+
 // Bytes of scratch layer_block_bwd needs at these shapes (R padded).
 long long layer_block_bwd_workspace(int B, int S, int Dm, int H, int F, int R, int f32) {
   return (long long)ws_layout(B, S, Dm, H, F, R, f32 ? 4 : 2).total;
@@ -817,11 +852,13 @@ void layer_block_bwd_stage_offsets(int B, int S, int Dm, int H, int F, int R, in
 // bias [B, S] f32 or null.  Frozen: wq..wo [Dm, Dm], w1 [F, Dm], w2 [Dm, F]
 // (nn.Linear layout); bqkv [3, Dm], gb1/gb2 [2, Dm], b1 [F], b2 [Dm] f32.
 // Adapters (flax layout) at the padded bottleneck R
-// (layer_block_padded_bottleneck, zero past the real one): wda/wdb [Dm, R]
-// and wua/wub [R, Dm], with wdaT/wdbT [R, Dm] (the down kernels transposed);
+// (layer_block_padded_bottleneck, zero past the real one) and the padded
+// width Dw (layer_block_padded_width, zero past Dm): wda/wdb [Dw, R] and
+// wua/wub [R, Dw], with wdaT/wdbT [R, Dw] (the down kernels transposed);
 // bda/bdb [R] f32.  Activations, frozen weights and adapters bf16 (f32 = 0)
-// or fp32 (f32 = 1).  Outputs: dx [B, S, Dm] in x's type; dwda [Dm, R],
-// dbda [R], dwua [R, Dm], dbua [Dm] f32.
+// or fp32 (f32 = 1).  Any Dm that divides into H heads of 1 to 256 and any
+// F.  Outputs: dx [B, S, Dm] in x's type; dwda [Dw, R], dbda [R], dwua
+// [R, Dw], dbua [Dw] f32.
 int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void* lse, const void* g,
                     const void* bias, const void* wq, const void* wk, const void* wv, const void* wo,
                     const void* bqkv, const void* gb1, const void* gb2, const void* w1, const void* b1,
@@ -831,7 +868,7 @@ int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void
                     void* dbua, int B, int S, int Dm, int H, int F, int R, int f32, float scale, float eps1,
                     float eps2, float w_a, float w_b, int use_b, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (R < 16 || R != layer_block_padded_bottleneck(R, f32) || Dm % AR_DM_MULTIPLE)
+  if (R < 16 || R != layer_block_padded_bottleneck(R, f32) || Dm < 1 || H < 1 || Dm % H || F < 1)
     return (int)cudaErrorInvalidValue;
   const void* act[4] = {x, aout, ctx, g};
   const void* w[6] = {wq, wk, wv, wo, w1, w2};

@@ -35,6 +35,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Sources nvcc compiles with its device-code optimisation split over the
+# host's cores (``--split-compile``): the four whose build the any-head-dim
+# and tail kernels made the longest (the build is as long as its slowest
+# source).  flash_attention.cu is left whole: split, ptxas gives two of its
+# head-dim-64 fp32 instances 1-2 other registers.  Split, ptxas gives every
+# kernel of the other four its registers unsplit but #4's fp32 adapter row
+# pass (175 -> 176, no spills).
+SPLIT_COMPILE = ("adapter_fused", "attn_block", "fused_attention", "layer_block")
+
+
+def nvcc_flags(name: str) -> Sequence[str]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return (*NVCC_FLAGS, *(("--split-compile=0",) if name in SPLIT_COMPILE else ()))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # held while a library is built and loaded: threads of one process build it
@@ -64,7 +77,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -88,7 +101,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for name in names:
         out = library_path(name)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     reports, failures = {}, []

@@ -53,12 +53,19 @@ def adapter_fused_reference(h: torch.Tensor, params_a: Params, params_b: Params,
     return out.to(h.dtype)
 
 
-# The kernel's shapes: D a multiple of 64 (each rank of a 4-CTA cluster takes
-# D/4 of the K axis and of the output columns, 16-column multiples), any
-# R >= 1 and any N.
+# The kernel's shapes: any D >= 1, any R >= 1 and any N.  Each rank of a
+# 4-CTA cluster takes D/4 of the K axis and of the output columns, so a D
+# that is no multiple of 64 runs at D padded to 64 (zero-padded copies of h
+# and the weights in front of the kernel, the output copied back:
+# csrc/adapter_fused.cu), as JAX's kernel takes every width.
 def takes(d: int, r: int) -> bool:
     """Whether the kernel takes width ``d`` and bottleneck ``r``."""
-    return d % 64 == 0 and d >= 64 and r >= 1
+    return d >= 1 and r >= 1
+
+
+def padded_width(d: int) -> int:
+    """The width the kernel runs at: ``d`` rounded up to 64."""
+    return -(-d // 64) * 64
 
 
 @functools.cache
@@ -74,9 +81,8 @@ def _workspace(n: int, d: int, r: int, f32: int) -> int:
 def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
                        weight: float) -> torch.Tensor:
     """The CUDA kernel, forward only.  ``h [..., d]`` and the params all in
-    bf16 or all in float32, contiguous and 16-byte aligned; ``d`` a multiple
-    of 64 (at least 64), any ``r``.  Raises on anything else, before any
-    launch."""
+    bf16 or all in float32, contiguous and 16-byte aligned; any ``d`` and
+    ``r``.  Raises on anything else, before any launch."""
     if not h.is_cuda:
         raise ValueError("adapter_fused_cuda: h must be a CUDA tensor")
     d = h.shape[-1]
@@ -95,8 +101,8 @@ def adapter_fused_cuda(h: torch.Tensor, params_a: Params, params_b: Params,
         if tuple(tuple(t.shape) for t in params) != shapes:
             raise ValueError(f"adapter_fused_cuda: params must have shapes {shapes}")
     if not takes(d, r):
-        raise ValueError(f"adapter_fused_cuda: width {d} (a multiple of 64, at least 64) or "
-                         f"bottleneck {r} (at least 1) out of the kernel's range")
+        raise ValueError(f"adapter_fused_cuda: width {d} or bottleneck {r} (each at least 1) "
+                         f"out of the kernel's range")
     flat = h.reshape(-1, d)
     out = torch.empty_like(flat)
     if flat.shape[0] == 0:

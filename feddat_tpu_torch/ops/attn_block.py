@@ -22,7 +22,9 @@ Two implementations of each:
   kernels in ``csrc/attn_block.cu`` (the backward's attention part is
   ``csrc/attn_bwd.cuh``, shared with the whole-layer backward; the attention
   cores both ways are ``csrc/attn_sm90.cuh``'s wgmma kernels, which #5 and
-  #6 run too): any S >= 1, in bf16 or float32 (the model's dtype, as the TPU
+  #6 run too, and ``csrc/attn_any.cuh``'s at a head dim other than 64):
+  any S >= 1, any width that divides into heads of 1 to 256, in bf16 or
+  float32 (the model's dtype, as the TPU
   kernels take it; float32 rounds nowhere and its products are as accurate
   as fp32's).
 
@@ -58,9 +60,9 @@ KERNEL_BWD = CudaKernel(
 # The element types the kernels take (activations and weights; biases, LN
 # rows, the padding bias and lse are fp32 either way).
 DTYPES = (torch.bfloat16, torch.float32)
-# Head dim and width multiple the kernel is written for (mma tiles).
-HEAD_DIM = 64
-WIDTH_MULTIPLE = 128
+# The largest head dim the kernels take (csrc/attn_any.cuh; head dim 64 runs
+# csrc/attn_sm90.cuh's core); any width that divides into heads of 1 to 256.
+MAX_HEAD_DIM = 256
 # Longest padded S at which the backward keeps LN1 fused (attn_block.py:358).
 LN_BWD_FUSED_MAX_S = 448
 
@@ -163,10 +165,12 @@ def kernel_dtype(fn: str, x: torch.Tensor) -> torch.dtype:
 
 
 def check_heads(fn: str, dm: int, num_heads: int) -> None:
-    if dm % num_heads or dm // num_heads != HEAD_DIM or dm % WIDTH_MULTIPLE:
+    """Raise unless width ``dm`` divides into ``num_heads`` heads of 1 to
+    :data:`MAX_HEAD_DIM` (any width: the GEMMs take every N, K and segment)."""
+    if num_heads < 1 or dm % num_heads or not 1 <= dm // num_heads <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{fn} takes head dim {HEAD_DIM} and a width that is a multiple "
-            f"of {WIDTH_MULTIPLE}; got width {dm} with {num_heads} heads"
+            f"{fn} takes a width that divides into heads of 1 to {MAX_HEAD_DIM}; "
+            f"got width {dm} with {num_heads} heads"
         )
 
 
@@ -177,8 +181,8 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
 
     Takes ``x [B, S, Dm]`` and weights ``[Dm, Dm]`` in bf16 or float32 (one
     type), fp32 ``bqkv [3, Dm]``, ``bo [1, Dm]``, ``gb [2, Dm]`` (with
-    ``ln_eps``) and ``bias``; requires ``Dm / num_heads == 64`` and
-    ``Dm % 128 == 0``; any S >= 1.  Raises on anything else."""
+    ``ln_eps``) and ``bias``; any Dm that divides into heads of 1 to 256
+    (:func:`check_heads`) and any S >= 1.  Raises on anything else."""
     fn = "attn_block_cuda"
     if x.dim() != 3:
         raise ValueError(f"{fn}: x must be [B, S, Dm], got {tuple(x.shape)}")
@@ -201,7 +205,7 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
     if s < 1:
         raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
-        scale = HEAD_DIM ** -0.5
+        scale = (dm // num_heads) ** -0.5
     f32 = int(dt == torch.float32)
     ws = torch.empty(_fwd_workspace(b, s, dm, f32), dtype=torch.uint8, device=x.device)
     ctx = torch.empty_like(x)
@@ -319,7 +323,7 @@ def attn_block_bwd_cuda(x, wq, wk, wv, wo, bqkv, gb, bias, ctx, lse, g, num_head
     if s < 1:
         raise ValueError(f"{fn}: x holds no tokens (S = {s})")
     if scale is None:
-        scale = HEAD_DIM ** -0.5
+        scale = (dm // num_heads) ** -0.5
     f32 = int(dt == torch.float32)
     ws = torch.empty(_bwd_workspace(b, s, dm, num_heads, gb is not None, f32), dtype=torch.uint8,
                      device=x.device)

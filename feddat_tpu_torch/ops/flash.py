@@ -25,7 +25,7 @@ gradient), like the JAX custom_vjp's.
 * :func:`flash_attention_fwd_cuda` — kernel #7, and
   :func:`flash_attention_bwd_cuda` — kernels #8 (dq) and #9 (dk, dv), all
   hand-written CUDA in ``csrc/flash_attention.cu``, reading the strided
-  ``[B, H, S, 64]`` views that split() makes and the bias by strides (0 on a
+  ``[B, H, S, D]`` views that split() makes and the bias by strides (0 on a
   broadcast dim).  #7 and #9 are built for Hopper (``wgmma`` on 128-row
   blocks, a cp.async ring of 64-row tiles): their C entry points choose the
   grid (``ceil(Sq/128)`` query blocks for #7, ``ceil(Skv/128)`` key blocks
@@ -47,18 +47,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
-from feddat_tpu_torch.ops.fused_attention import (HEAD_DIM, _check_heads, _empty_heads, _in_place_ok,
-                                                  check_dtypes)
+from feddat_tpu_torch.ops._build import CudaKernel, ptr
+from feddat_tpu_torch.ops.fused_attention import (_check_heads, _empty_heads, _in_place_ok, check_dtypes,
+                                                  head_dim_chunks)
 
 NEG_INF = -1e30
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_sizes = [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _i, _f, _vp]  # strides, B, H, Sq, Skv, f32
+_sizes = [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _i, _i, _f, _vp]  # strides, B, H, Sq, Skv, D, f32
 KERNEL = CudaKernel("flash_attention", "flash_attention_fwd", [_vp] * 7 + _sizes)
 KERNEL_BWD_DQ = CudaKernel("flash_attention", "flash_attention_bwd_dq", [_vp] * 9 + _sizes)
 KERNEL_BWD_DKV = CudaKernel("flash_attention", "flash_attention_bwd_dkv", [_vp] * 10 + _sizes)
-# gridDim.z (the batch) and gridDim.y (the heads) of the launch.
+# gridDim.z (the batch) and gridDim.y (the heads; times the head dim's 64-column
+# chunks at a head dim but 64) of the launch.
 MAX_GRID_YZ = 65535
 
 
@@ -108,19 +109,30 @@ def flash_attention_bwd_ref(q, k, v, bias, o, do, lse, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_workspace_bytes(b: int, h: int, sq: int, skv: int, d: int, backward: bool, f32: bool) -> int:
+    """Bytes of #7's (or #8/#9's shared) scratch: float32 q, k, v (and dO)
+    split into three bf16 term planes [B, H, S, D] each; none in bf16.  The
+    library's ``flash_attention_workspace`` says the same (``chip_smoke.py``
+    phase 20 holds the two)."""
+    if not f32:
+        return 0
+    return 2 * 3 * d * b * h * ((2 if backward else 1) * sq + 2 * skv)
+
+
 def _check_cuda_operands(fn: str, q, k, v, bias):
-    """The checks #7-#9 share: ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]``
-    k/v (their one dtype checked by ``check_dtypes`` before) in any layout
-    ``_check_heads`` admits (a 16-byte aligned start and strides of multiples
-    of 8 elements: the kernels copy rows 16 bytes at a time with cp.async),
-    sizes the grid takes, a compact bias on q's device.  -> (b, h, sq, skv,
-    fp32 bias or None, its 4 element strides with 0 on broadcast dims)."""
+    """The checks #7-#9 share: ``[B, H, Sq, D]`` q and ``[B, H, Skv, D]``
+    k/v at a head dim D from 1 to 256 (their one dtype checked by
+    ``check_dtypes`` before) in any layout ``_check_heads`` admits (at D = 64
+    a 16-byte aligned start and strides of multiples of 8 elements: those
+    kernels copy rows 16 bytes at a time with cp.async), sizes the grid
+    takes, a compact bias on q's device.  -> (b, h, sq, skv, fp32 bias or
+    None, its 4 element strides with 0 on broadcast dims)."""
     _check_heads(fn, "q", q, tuple(q.shape))
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     skv = k.shape[2] if k.dim() == 4 else -1
     for name, t in (("k", k), ("v", v)):
-        _check_heads(fn, name, t, (b, h, skv, HEAD_DIM))
-    if min(sq, skv) < 1 or max(b, h) > MAX_GRID_YZ:
+        _check_heads(fn, name, t, (b, h, skv, d))
+    if min(sq, skv) < 1 or max(b, h * head_dim_chunks(d)) > MAX_GRID_YZ:
         raise ValueError(f"{fn}: unsupported sizes B={b} H={h} Sq={sq} Skv={skv}")
     bias = _prep_bias(bias, b, h, sq, skv)
     if bias is not None and bias.device != q.device:
@@ -135,29 +147,30 @@ def _strides(ts, bias_strides):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _workspace(b: int, h: int, sq: int, skv: int, backward: bool, dtype: torch.dtype, device):
+def _workspace(b: int, h: int, sq: int, skv: int, d: int, backward: bool, dtype: torch.dtype, device):
     """The float32 kernels' scratch for the operands' bf16 term planes (None in
     bf16, which needs none); the backward's two launches share one."""
     if dtype != torch.float32:
         return None
-    fn = load("flash_attention").flash_attention_workspace
-    fn.argtypes, fn.restype = [_i] * 6, ctypes.c_longlong
-    return torch.empty(fn(b, h, sq, skv, int(backward), 1), dtype=torch.uint8, device=device)
+    return torch.empty(flash_workspace_bytes(b, h, sq, skv, d, backward, True), dtype=torch.uint8,
+                       device=device)
 
 
 def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes
-    ``[B, H, Sq, 64]`` q and ``[B, H, Skv, 64]`` k/v, all bf16 or all float32
-    (o in that type), in any layout ``_check_heads`` admits, any lengths, and
-    the compact bias; raises on anything else."""
+    ``[B, H, Sq, D]`` q and ``[B, H, Skv, D]`` k/v at any head dim D from 1
+    to 256, all bf16 or all float32 (o in that type), in any layout
+    ``_check_heads`` admits, any lengths, and the compact bias; raises on
+    anything else."""
     fn = "flash_attention_fwd_cuda"
     dtype = check_dtypes(fn, (("q", q), ("k", k), ("v", v)))
     b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
-    o = _empty_heads(b, h, sq, q.device, dtype)
+    d = q.shape[-1]
+    o = _empty_heads(b, h, sq, q.device, dtype, d)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    ws = _workspace(b, h, sq, skv, False, dtype, q.device)
+    ws = _workspace(b, h, sq, skv, d, False, dtype, q.device)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(o), ptr(lse), ptr(ws),
-                  _strides((q, k, v, o), bias_strides), b, h, sq, skv, int(dtype == torch.float32),
+                  _strides((q, k, v, o), bias_strides), b, h, sq, skv, d, int(dtype == torch.float32),
                   float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
 
@@ -169,7 +182,7 @@ def flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
     any layout ``_check_heads`` admits, q/k/v/o/do all bf16 or all float32
     (the gradients in that type); δ = rowsum(dO∘o) is one fp32 reduction here,
     as JAX takes it in XLA.  Raises before any launch on another dtype
-    (``TypeError``), a head dim other than 64, a bias on another device or
+    (``TypeError``), a head dim past 256, a bias on another device or
     anything else the kernels do not take (``ValueError``)."""
     launch_dq, launch_dkv, grads = flash_bwd_launchers(q, k, v, bias, o, do, lse, scale)
     launch_dq()
@@ -186,21 +199,22 @@ def flash_bwd_launchers(q, k, v, bias, o, do, lse, scale: float):
     fn = "flash_attention_bwd_cuda"
     dtype = check_dtypes(fn, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
+    d = q.shape[-1]
     for name, t in (("o", o), ("do", do)):
-        _check_heads(fn, name, t, (b, h, sq, HEAD_DIM))
+        _check_heads(fn, name, t, (b, h, sq, d))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous():
         raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {sq}] tensor")
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq = _empty_heads(b, h, sq, q.device, dtype)
-    dk, dv = _empty_heads(b, h, skv, q.device, dtype), _empty_heads(b, h, skv, q.device, dtype)
-    ws = _workspace(b, h, sq, skv, True, dtype, q.device)
+    dq = _empty_heads(b, h, sq, q.device, dtype, d)
+    dk, dv = _empty_heads(b, h, skv, q.device, dtype, d), _empty_heads(b, h, skv, q.device, dtype, d)
+    ws = _workspace(b, h, sq, skv, d, True, dtype, q.device)
     strides = _strides((q, k, v, do, dq, dk, dv), bias_strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     f32 = int(dtype == torch.float32)
 
     def launcher(kernel, *outs):  # holds every operand (δ and the workspace included) while it lives
         return lambda: kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias), ptr(lse), ptr(delta),
-                                     *map(ptr, outs), ptr(ws), strides, b, h, sq, skv, f32, float(scale),
+                                     *map(ptr, outs), ptr(ws), strides, b, h, sq, skv, d, f32, float(scale),
                                      stream)
 
     return launcher(KERNEL_BWD_DQ, dq), launcher(KERNEL_BWD_DKV, dk, dv), (dq, dk, dv)

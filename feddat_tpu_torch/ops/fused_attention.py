@@ -21,8 +21,9 @@ Two implementations of each:
   against them.
 * :func:`fused_attention_fwd_cuda` / :func:`fused_attention_bwd_cuda` — the
   hand-written kernels in ``csrc/fused_attention.cu`` (``wgmma`` on swizzled
-  tiles filled by a cp.async ring, on strided ``[B, H, S, 64]`` operands; any
-  S ≥ 1), in bf16 or float32 (the model's dtype, as the TPU kernels take it:
+  tiles filled by a cp.async ring, on strided ``[B, H, S, D]`` operands; any
+  S ≥ 1 and any head dim D from 1 to 256, csrc/attn_any.cuh's kernels at
+  every D but 64), in bf16 or float32 (the model's dtype, as the TPU kernels take it:
   in float32 nothing rounds, P and ds included, and every product is as
   accurate as fp32's).
 
@@ -40,20 +41,25 @@ from typing import Optional, Tuple
 
 import torch
 
-from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops._build import CudaKernel, ptr
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _strides = ctypes.POINTER(ctypes.c_longlong)
 KERNEL = CudaKernel(
     "fused_attention", "fused_attention_fwd",
-    [_vp] * 7 + [_strides, _i, _i, _i, _i, _f, _vp],
+    [_vp] * 7 + [_strides, _i, _i, _i, _i, _i, _f, _vp],  # strides, B, H, S, D, f32, scale, stream
 )
 KERNEL_BWD = CudaKernel(
     "fused_attention", "fused_attention_bwd",
-    [_vp] * 12 + [_strides, _i, _i, _i, _i, _f, _vp],
+    [_vp] * 12 + [_strides, _i, _i, _i, _i, _i, _f, _vp],
 )
-# Head dim the kernels are written for (wgmma tiles).
+# The head dim of the kernels written for it (csrc/attn_sm90.cuh,
+# flash_attention.cu's first kernels); every other head dim up to
+# MAX_HEAD_DIM runs csrc/attn_any.cuh's, the dim padded to HEAD_DIM_CHUNK
+# columns.
 HEAD_DIM = 64
+HEAD_DIM_CHUNK = 64
+MAX_HEAD_DIM = 256
 # The element types the kernels take: q, k, v (and o, dO) all of one (lse,
 # δ and the bias are fp32 either way).
 DTYPES = (torch.bfloat16, torch.float32)
@@ -120,19 +126,57 @@ def check_dtypes(fn: str, operands) -> torch.dtype:
     return dtype
 
 
+def check_head_dim(fn: str, d: int) -> None:
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: 1 to
+    :data:`MAX_HEAD_DIM`, as JAX's kernels take every head dim of the
+    encoders these towers hold (none above 256)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{fn} takes head dims from 1 to {MAX_HEAD_DIM}; got {d}")
+
+
+def head_dim_chunks(d: int) -> int:
+    """The 64-column chunks that head dim ``d`` pads to (1 at ``d`` <= 64, 4 at 256)."""
+    return -(-d // HEAD_DIM_CHUNK)
+
+
+def padded_head_dim(d: int) -> int:
+    """Head dim ``d`` padded to whole chunks: the columns the kernels compute."""
+    return head_dim_chunks(d) * HEAD_DIM_CHUNK
+
+
+def head_dim_kernels(d: int) -> str:
+    """Which kernels a call at head dim ``d`` launches: ``"hd64"`` (the kernels
+    written for 64) or ``"any"`` (csrc/attn_any.cuh's, one block per 64
+    rows and output chunk)."""
+    check_head_dim("head_dim_kernels", d)
+    return "hd64" if d == HEAD_DIM else "any"
+
+
+def fused_workspace_bytes(b: int, h: int, s: int, d: int, backward: bool, f32: bool) -> int:
+    """Bytes of #5's (or #6's) scratch: float32 q, k, v (and dO) split into
+    three bf16 term planes [B, H, S, D] each; none in bf16.  The library's
+    ``fused_attention_workspace`` says the same (``chip_smoke.py`` phase 20
+    holds the two)."""
+    return (4 if backward else 3) * 3 * b * h * s * d * 2 if f32 else 0
+
+
 def _check_heads(fn: str, name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    """Raise unless ``t`` is a CUDA ``[B, H, S, 64]`` view the kernels read in
-    place (:func:`_in_place_ok`); its dtype is :func:`check_dtypes`'s."""
+    """Raise unless ``t`` is a CUDA ``[B, H, S, D]`` view the kernels read in
+    place: head dim 1 to 256 with unit stride over it, and at head dim 64
+    (whose kernels copy 16 bytes at a time) :func:`_in_place_ok`; its dtype is
+    :func:`check_dtypes`'s."""
     if not t.is_cuda:
         raise ValueError(f"{fn}: {name} must be a CUDA tensor")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{fn} takes [B, H, S, {HEAD_DIM}] operands (head dim {HEAD_DIM}); "
-                         f"{name} has shape {tuple(t.shape)}")
+    if t.dim() != 4:
+        raise ValueError(f"{fn} takes [B, H, S, D] operands; {name} has shape {tuple(t.shape)}")
+    check_head_dim(fn, t.shape[-1])
     if tuple(t.shape) != shape:
         raise ValueError(f"{fn}: {name} must have shape {shape}, got {tuple(t.shape)}")
-    if not _in_place_ok(t):
+    if t.shape[-1] == HEAD_DIM and not _in_place_ok(t):
         raise ValueError(f"{fn}: {name} needs unit stride over D, the other strides multiples of 8 "
                          f"and a 16-byte aligned start; got strides {t.stride()}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{fn}: {name} needs unit stride over D; got strides {t.stride()}")
 
 
 def _stride_array(*ts: torch.Tensor):
@@ -140,21 +184,19 @@ def _stride_array(*ts: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _empty_heads(b: int, h: int, s: int, device, dtype: torch.dtype) -> torch.Tensor:
-    """A [B, H, S, 64] output of ``dtype`` laid out as [B, S, H, 64], so that
-    merging the heads back into [B, S, H·64] (or the backward of split()) is a
+def _empty_heads(b: int, h: int, s: int, device, dtype: torch.dtype, d: int = HEAD_DIM) -> torch.Tensor:
+    """A [B, H, S, D] output of ``dtype`` laid out as [B, S, H, D], so that
+    merging the heads back into [B, S, H·D] (or the backward of split()) is a
     free view."""
-    return torch.empty((b, s, h, HEAD_DIM), dtype=dtype, device=device).transpose(1, 2)
+    return torch.empty((b, s, h, d), dtype=dtype, device=device).transpose(1, 2)
 
 
-def _workspace(b: int, h: int, s: int, backward: bool, dtype: torch.dtype, device):
+def _workspace(b: int, h: int, s: int, d: int, backward: bool, dtype: torch.dtype, device):
     """The float32 kernels' scratch for the operands' bf16 term planes (None in
     bf16, which needs none)."""
     if dtype != torch.float32:
         return None
-    fn = load("fused_attention").fused_attention_workspace
-    fn.argtypes, fn.restype = [_i] * 5, ctypes.c_longlong
-    return torch.empty(fn(b, h, s, int(backward), 1), dtype=torch.uint8, device=device)
+    return torch.empty(fused_workspace_bytes(b, h, s, d, backward, True), dtype=torch.uint8, device=device)
 
 
 def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tensor]:
@@ -168,23 +210,24 @@ def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tens
 
 def fused_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #5 -> (o, lse), as :func:`fused_attention_fwd_ref`.  Takes
-    ``[B, H, S, 64]`` q/k/v, all bf16 or all float32 (o in that type), in any
-    layout :func:`_check_heads` admits, at any S ≥ 1; raises on anything else."""
+    ``[B, H, S, D]`` q/k/v at any head dim D from 1 to 256, all bf16 or all
+    float32 (o in that type), in any layout :func:`_check_heads` admits, at
+    any S ≥ 1; raises on anything else."""
     fn = "fused_attention_fwd_cuda"
     operands = (("q", q), ("k", k), ("v", v))
     dtype = check_dtypes(fn, operands)
     shape = tuple(q.shape)
     for name, t in operands:
         _check_heads(fn, name, t, shape)
-    b, h, s, _ = shape
+    b, h, s, d = shape
     if s < 1:
         raise ValueError(f"{fn}: sequence length {s} must be at least 1")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
-    o = _empty_heads(b, h, s, q.device, dtype)
+    o = _empty_heads(b, h, s, q.device, dtype, d)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    ws = _workspace(b, h, s, False, dtype, q.device)
+    ws = _workspace(b, h, s, d, False, dtype, q.device)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(brow), ptr(o), ptr(lse), ptr(ws), _stride_array(q, k, v, o),
-                  b, h, s, int(dtype == torch.float32), float(scale),
+                  b, h, s, d, int(dtype == torch.float32), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return o, lse
 
@@ -199,16 +242,16 @@ def fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
     shape = tuple(q.shape)
     for name, t in operands:
         _check_heads(fn, name, t, shape)
-    b, h, s, _ = shape
+    b, h, s, d = shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
         raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {s}] tensor")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (_empty_heads(b, h, s, q.device, dtype) for _ in range(3))
-    ws = _workspace(b, h, s, True, dtype, q.device)
+    dq, dk, dv = (_empty_heads(b, h, s, q.device, dtype, d) for _ in range(3))
+    ws = _workspace(b, h, s, d, True, dtype, q.device)
     KERNEL_BWD.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(brow), ptr(lse), ptr(delta),
                       ptr(dq), ptr(dk), ptr(dv), ptr(ws), _stride_array(q, k, v, o, do, dq, dk, dv),
-                      b, h, s, int(dtype == torch.float32), float(scale),
+                      b, h, s, d, int(dtype == torch.float32), float(scale),
                       torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 

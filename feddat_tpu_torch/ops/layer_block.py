@@ -15,9 +15,9 @@ Counterpart of ``feddat_tpu/ops/layer_block.py``::
   ``_layer_bwd_kernel`` (kernel #4) with its rounding points.
 * :func:`layer_block_bwd_cuda` — the hand-written kernel in
   ``csrc/layer_block.cu`` (its attention part is ``csrc/attn_bwd.cuh``), in
-  bf16 or float32 (the model's dtype), at any adapter bottleneck: the
-  wrapper zero-pads it to :func:`padded_bottleneck` and drops the padded
-  gradients.
+  bf16 or float32 (the model's dtype), at any adapter bottleneck and width:
+  the wrapper zero-pads the adapters to :func:`padded_bottleneck` and
+  :func:`padded_width` and drops the padded gradients.
 * :func:`layer_block` — the autograd wrapper with the JAX contract: real
   gradients for ``x`` and the active adapter's ``wd, bd, wu, bu``; none for
   the frozen backbone and the ensemble partner.  The adapter weight
@@ -246,8 +246,9 @@ def padded_bottleneck(r: int, f32: bool) -> int:
 def layer_block_bwd_cuda(*args):
     """Kernel #4 -> ``(dx, dwda, dbda, dwua, dbua)``, as
     :func:`layer_block_bwd_reference` (same arguments).  Activations, weights
-    and adapters in bf16 or float32 (one type), fp32 biases/LN rows; head dim
-    64, ``Dm`` and ``F`` multiples of 128, any bottleneck, any S >= 1.
+    and adapters in bf16 or float32 (one type), fp32 biases/LN rows; any
+    ``Dm`` that divides into heads of 1 to 256, any ``F``, any bottleneck,
+    any S >= 1.
     Deterministic: the adapter gradients are summed in a fixed order.
     Raises on anything else."""
     return _bwd_cuda(*args)[0]
@@ -289,15 +290,23 @@ def layer_block_bwd_cuda_stages(*args):
     return outs, stages
 
 
-def _pad_adapter(wd, bd, wu, rp: int):
+def padded_width(dm: int) -> int:
+    """The width kernel #4's adapter kernels run at: ``dm`` rounded up to a
+    multiple of 128 (csrc/layer_block.cu ``layer_block_padded_width``; the
+    layer's other passes take ``dm`` as it is)."""
+    return -(-dm // 128) * 128
+
+
+def _pad_adapter(wd, bd, wu, rp: int, dw: Optional[int] = None):
     """One adapter's ``(wd [Dm, r], bd [1, r], wu [r, Dm])`` zero-padded to
-    bottleneck ``rp``, with ``wd`` transposed beside it: ``(wd, bd, wu, wdᵀ)``,
-    contiguous (the row pass reads the down kernel along both axes)."""
-    pad = rp - wd.shape[1]
-    if pad:
-        wd = torch.nn.functional.pad(wd, (0, pad))
+    bottleneck ``rp`` and width ``dw`` (default Dm), with ``wd`` transposed
+    beside it: ``(wd, bd, wu, wdᵀ)``, contiguous (the row pass reads the down
+    kernel along both axes)."""
+    pad, wpad = rp - wd.shape[1], (dw or wd.shape[0]) - wd.shape[0]
+    if pad or wpad:
+        wd = torch.nn.functional.pad(wd, (0, pad, 0, wpad))
         bd = torch.nn.functional.pad(bd, (0, pad))
-        wu = torch.nn.functional.pad(wu, (0, 0, 0, pad))
+        wu = torch.nn.functional.pad(wu, (0, wpad, 0, pad))
     return wd.contiguous(), bd.contiguous(), wu.contiguous(), wd.t().contiguous()
 
 
@@ -325,9 +334,8 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
         ("wdb", wdb, bf, (dm, r)), ("bdb", bdb, f32, (1, r)), ("wub", wub, bf, (r, dm)),
     ):
         check_cuda_arg(fn, name, t, dtype, shape)
-    if ff % 128 or r < 1:
-        raise ValueError(f"{fn}: FFN width {ff} must be a multiple of 128 and the bottleneck "
-                         f"{r} at least 1")
+    if ff < 1 or r < 1:
+        raise ValueError(f"{fn}: FFN width {ff} and bottleneck {r} must be at least 1")
     brow = _key_bias(bias, b, s)
     if brow is not None:
         brow = brow.contiguous()
@@ -337,16 +345,16 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
     if scale is None:
         scale = (dm // num_heads) ** -0.5
     is_f32 = int(bf == f32)
-    rp = padded_bottleneck(r, bool(is_f32))
-    wda, bda, wua, wda_t = _pad_adapter(wda, bda, wua, rp)
-    wdb, bdb, wub, wdb_t = _pad_adapter(wdb, bdb, wub, rp)
+    rp, dw = padded_bottleneck(r, bool(is_f32)), padded_width(dm)
+    wda, bda, wua, wda_t = _pad_adapter(wda, bda, wua, rp, dw)
+    wdb, bdb, wub, wdb_t = _pad_adapter(wdb, bdb, wub, rp, dw)
     dev = x.device
     ws = torch.empty(_workspace(b, s, dm, num_heads, ff, rp, is_f32), dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
-    dwda = torch.empty((dm, rp), dtype=f32, device=dev)
+    dwda = torch.empty((dw, rp), dtype=f32, device=dev)
     dbda = torch.empty((rp,), dtype=f32, device=dev)
-    dwua = torch.empty((rp, dm), dtype=f32, device=dev)
-    dbua = torch.empty((dm,), dtype=f32, device=dev)
+    dwua = torch.empty((rp, dw), dtype=f32, device=dev)
+    dbua = torch.empty((dw,), dtype=f32, device=dev)
     KERNEL.launch(
         ptr(x), ptr(aout), ptr(ctx), ptr(lse), ptr(g), ptr(brow),
         ptr(wq), ptr(wk), ptr(wv), ptr(wo), ptr(bqkv), ptr(gb1), ptr(gb2),
@@ -357,8 +365,9 @@ def _bwd_cuda(x, aout, ctx, lse, g, bias, wq, wk, wv, wo, bqkv, gb1, gb2,
         float(w_a), float(w_b), int(bool(use_b)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rp != r:  # the padded columns' gradients are dropped
-        dwda, dbda, dwua = dwda[:, :r].contiguous(), dbda[:r].contiguous(), dwua[:r].contiguous()
+    if rp != r or dw != dm:  # the padded rows' and columns' gradients are dropped
+        dwda, dbda = dwda[:dm, :r].contiguous(), dbda[:r].contiguous()
+        dwua, dbua = dwua[:r, :dm].contiguous(), dbua[:dm].contiguous()
     return (dx, dwda, dbda, dwua, dbua), ws
 
 

@@ -5,9 +5,10 @@ another source tree, on one CUDA card, by the profiler's device time.
     python3 scripts/torch_kernel_ab.py --other logs/parent
 
 Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu``,
-``fused_attention.cu`` and ``adapter_fused.cu`` of both trees with the
-package's nvcc flags, all ten at once, then times each tree in the order
-other, this, this, other:
+``fused_attention.cu`` and ``adapter_fused.cu`` of both trees, all ten at
+once, this tree's with its own per-source flags (``_build.nvcc_flags``) and
+the other's with the package's common ones (a tree from before the head
+dims other than 64 has no others), then times each tree in the order other, this, this, other:
 
 * #1, the attention-block forward with LN1 fused, at the serving shape (B=16,
   S=281) and the ViLT training shape (B=64, S=185);
@@ -24,7 +25,9 @@ other, this, this, other:
   both (a tree that does not cannot be compared here).  The C entry points
   of #1-#9 take an element-type flag, and those of #1 and #5-#9 a
   workspace: a tree whose entry points do not cannot be compared here
-  either.
+  either.  The entry points of #5-#9 take the head dim D (and export
+  ``attention_max_head_dim``); a tree from before takes none, and its
+  calls here (all at head dim 64) go without it.
 
 #2 is the kernel the current change redesigned (``adapter_fused.cu`` on
 wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not
@@ -66,7 +69,8 @@ def build(trees, out_dir):
         csrc = root / "feddat_tpu_torch" / "csrc"
         for src in SOURCES:
             lib = out_dir / f"{src}_{name}.so"
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / f"{src}.cu")]
+            flags = _build.nvcc_flags(src) if root == REPO else _build.NVCC_FLAGS  # as each tree builds it
+            cmd = [nvcc, *flags, "-I", str(csrc), "-o", str(lib), str(csrc / f"{src}.cu")]
             procs[name, src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                                  text=True), lib)
     libs = {}
@@ -77,6 +81,26 @@ def build(trees, out_dir):
         print(f"build {name} {src}: {lib.name}; ptxas: " + " | ".join(_build.ptxas_summary(log)))
         libs.setdefault(name, {})[src] = lib
     return libs
+
+
+# the wrappers' argument index of the head dim D in each #5-#9 entry point
+HEAD_DIM_ARG = (("fused_attention", "fused_attention_fwd", 11), ("fused_attention", "fused_attention_bwd", 16),
+                ("flash_attention", "flash_attention_fwd", 12), ("flash_attention", "flash_attention_bwd_dq", 14),
+                ("flash_attention", "flash_attention_bwd_dkv", 15))
+
+
+def without_head_dim(fn, argtypes, at):
+    """``fn``, an entry point of a tree from before the head dim argument,
+    called with the wrappers' arguments less argument ``at`` (D, 64 here)."""
+    fn.argtypes = list(argtypes[:at]) + list(argtypes[at + 1:])
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        if args[at] != 64:
+            raise ValueError(f"the other tree takes head dim 64 only, not {args[at]}")
+        return fn(*args[:at], *args[at + 1:])
+
+    return call
 
 
 def use(libs):
@@ -96,6 +120,10 @@ def use(libs):
     for kernel in (ab.KERNEL, ab.KERNEL_BWD, lb.KERNEL, fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV,
                    fa.KERNEL, fa.KERNEL_BWD, af.KERNEL):
         kernel._fn = None
+        for source, symbol, at in HEAD_DIM_ARG:
+            lib = _build._LIBS[source]
+            if (kernel.source, kernel.symbol) == (source, symbol) and not hasattr(lib, "attention_max_head_dim"):
+                kernel._fn = without_head_dim(getattr(lib, symbol), kernel.argtypes, at)
     # the workspace sizes and layouts are the tree's own
     for cached in (ab._fwd_workspace, ab._bwd_workspace, af._workspace, lb._workspace, lb._stage_offsets):
         cached.cache_clear()

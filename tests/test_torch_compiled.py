@@ -317,14 +317,17 @@ def test_gates_route_bottlenecks_the_kernels_do_not_take(r, monkeypatch):
     """The layer route takes every bottleneck: #4's wrapper pads any of them
     to its chunks, so the port's gate has JAX's terms and no bottleneck one
     (nothing is routed the "block" way any more); #2 takes every bottleneck
-    (past 128 in chunks) and every width that is a multiple of 64, and its
-    wrapper raises outside that."""
+    (past 128 in chunks) and every width (a width that is no multiple of 64
+    through zero-padded copies), as JAX's kernel does, and its wrapper
+    raises only at a width or bottleneck below 1."""
     monkeypatch.delenv("FEDDAT_LAYER_MAX_S", raising=False)
     assert not hasattr(tlayers, "layer_route_takes") and not hasattr(lb, "takes_bottleneck")
     assert lb.padded_bottleneck(r, False) >= r and lb.padded_bottleneck(r, True) >= r
     assert af.takes(768, r)
     assert af.takes(1280, 80) and af.takes(2048, 128) and af.takes(64, 1)
-    assert not af.takes(800, 50) and not af.takes(0, 8) and not af.takes(768, 0)
+    assert af.takes(800, 50) and af.takes(48, r) and af.takes(1, 1)
+    assert af.padded_width(800) == 832 and af.padded_width(48) == 64 and af.padded_width(768) == 768
+    assert not af.takes(0, 8) and not af.takes(768, 0)
     spec = AdapterSpec(names=("adapter_0", "adapter_1", "adapter_2"), reduction_factor=768 // r)
     layer = tlayers.PreLNLayer(768, 12, 64, spec, attn_impl="layer")
     assert layer.adapter.bottleneck == r  # what the gates ask
