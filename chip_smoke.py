@@ -331,10 +331,16 @@ Phases, in this order:
 20. shapes — every head dim and width JAX's kernels take, eagerly.  (a) Each
             kernel against its plain version at its existing limits, in bf16
             and fp32 (the float64 criterion of phase 19): #5-#9 at head dims
-            8, 12, 16, 32, 80, 128 and 256 (S on both sides of the 64-row
-            tile edges, a padding row and a per-head bias tile); #1/#3/#4 at
-            (Dm, heads, F) = (32, 4, 64), (48, 4, 96) and (192, 3, 768); #2
-            at widths 32, 48, 100 and 192.  (b) Two full-width layer
+            8, 12, 16, 32, 80, 128, 256, 320 and 512 (S on both sides of the
+            64-row tile edges, a padding row and a per-head bias tile);
+            #8/#9 at head dim 80 also at the 128-row blocks' edges (Sq and
+            Skv of 127, 128, 129 and 257, a padding row and a per-head
+            tile), and one profile each at head dims 80 and 320 reading
+            which kernels ran (csrc/flash_dp.cuh's up to 256); #1/#3/#4 at
+            (Dm, heads, F) = (32, 4, 64), (48, 4, 96), (192, 3, 768),
+            (640, 2, 640) and (1024, 2, 1024) (heads of 8, 12, 64, 320 and
+            512); #2 at widths 32, 48, 100 and 192.  The build phase holds
+            flash_dp.cuh's instances to no spills.  (b) Two full-width layer
             geometries, each a 2-layer ViLT DAT model from create_model with
             ViltModelConfig at that width, random weights from --seed, bf16,
             S=185, the steps at B=64 and the serving forward at B=16:
@@ -853,6 +859,13 @@ def phase_build():
     for name, log in reports.items():
         for line in _build.ptxas_summary(log):
             print(f"  ptxas {name}: {line}")
+    # #8/#9's bodies at head dims but 64 (csrc/flash_dp.cuh) hold four
+    # accumulators: none of their instances may spill
+    dp = [ln for ln in _build.ptxas_summary(reports.get("flash_attention", "")) if "flash_dp_" in ln]
+    spilled = [ln for ln in dp if "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    if dp:
+        print(f"build: flash_dp.cuh's {len(dp)} instances, {len(spilled)} spill")
+    check(not spilled, f"flash_dp.cuh's instances spill: {spilled}")
 
 
 def mask_tag(masked, bias):
@@ -1537,25 +1550,26 @@ def flash_p_probe(torch):
 
 def flash_refusals(torch):
     """On the card the wrappers of #7 and of #8/#9 raise, without launching, on
-    what the kernels do not take (fp16, head dim 264, past the 256 they
-    take; for the backward also a bias on another device): nothing falls
-    back to a plain version.  The autograd function runs #7 forward and
-    #8/#9 backward on CUDA tensors."""
+    what the kernels do not take (fp16, head dim 0, more heads than the
+    grid's 65535; for the backward also a bias on another device): nothing
+    falls back to a plain version.  The autograd function runs #7 forward
+    and #8/#9 backward on CUDA tensors."""
     from feddat_tpu_torch.ops import flash as fl
 
     x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
-    wide = torch.zeros(1, 2, 8, 264, device="cuda", dtype=torch.bfloat16)
+    empty = torch.zeros(1, 2, 8, 0, device="cuda", dtype=torch.bfloat16)
+    many = torch.zeros(1, 65536, 1, 1, device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, device="cuda")
     kernels = (fl.KERNEL, fl.KERNEL_BWD_DQ, fl.KERNEL_BWD_DKV)
     before = [k.launches for k in kernels]
     refused = 0
-    for bad, err in ((x.half(), TypeError), (wide, ValueError)):
+    for bad, err in ((x.half(), TypeError), (empty, ValueError), (many, ValueError)):
         try:
             fl.flash_attention_fwd_cuda(bad, bad, bad, None, 0.125)
         except err:
             refused += 1
-    for bad, bias, err in ((x.half(), None, TypeError), (wide, None, ValueError),
-                           (x, torch.zeros(1, 1, 1, 8), ValueError)):
+    for bad, bias, err in ((x.half(), None, TypeError), (empty, None, ValueError),
+                           (many, None, ValueError), (x, torch.zeros(1, 1, 1, 8), ValueError)):
         try:
             fl.flash_attention_bwd_cuda(bad, bad, bad, bias, bad, bad, lse, 0.125)
         except err:
@@ -1565,10 +1579,10 @@ def flash_refusals(torch):
     fl.flash_attention(*leaves).float().sum().backward()
     torch.cuda.synchronize()
     ran = [k.launches - b for k, b in zip(kernels, before)]
-    print(f"parity flash_attention refusals: fp16 and head dim 264 (forward and backward) and a CPU "
-          f"bias (backward) refused {refused}/5 with launches {idle}; one autograd forward and "
+    print(f"parity flash_attention refusals: fp16, head dim 0 and 65536 heads (forward and backward) "
+          f"and a CPU bias (backward) refused {refused}/7 with launches {idle}; one autograd forward and "
           f"backward launched #7/#8/#9 {ran} times")
-    check(refused == 5 and idle == [0, 0, 0] and ran == [1, 1, 1]
+    check(refused == 7 and idle == [0, 0, 0] and ran == [1, 1, 1]
           and all(t.grad is not None for t in leaves),
           "flash attention accepts what it does not take, or its autograd path skips a kernel")
 
@@ -7025,8 +7039,11 @@ def phase_fp32(torch, seed):
 # (a) the kernels alone at the head dims, widths and adapter widths JAX's
 # kernels take and no full-width model here has; (b) two public encoders'
 # layer geometries at full width; (c) the JAX CLI's --smoke widths.
-SHAPE_HEAD_DIMS = (8, 12, 16, 32, 80, 128, 256)
-SHAPE_BLOCKS = ((32, 4, 64), (48, 4, 96), (192, 3, 768))  # (Dm, heads, F)
+SHAPE_HEAD_DIMS = (8, 12, 16, 32, 80, 128, 256, 320, 512)
+SHAPE_BLOCKS = ((32, 4, 64), (48, 4, 96), (192, 3, 768), (640, 2, 640), (1024, 2, 1024))  # (Dm, heads, F)
+# #8/#9's 128-row blocks (csrc/flash_dp.cuh) at the tile edges of
+# FLASH_BWD_CASES, at this head dim
+SHAPE_EDGE_HEAD_DIM = 80
 SHAPE_ADAPTER_WIDTHS = (32, 48, 100, 192)
 # (label, Dm, heads, F, adapter reduction factor): ViT-H/14 (Dosovitskiy et
 # al. 2021, Table 1: width 1280, 16 heads, MLP 5120) and DeiT-Ti (Touvron et
@@ -7120,6 +7137,14 @@ def shapes_kernels(torch, seed):
                                     (q, k, v, bias, scale), fp32_cotangent(torch, 2, 65, seed),
                                     (("dq", (0,)), ("dkv", (1, 2))))
             cases += 10
+    with widths(2 * SHAPE_EDGE_HEAD_DIM, 2):
+        for site, b, sq, skv, kind in FLASH_BWD_CASES:
+            if site.startswith("edge"):
+                flash_bwd_parity(torch, f"hd {SHAPE_EDGE_HEAD_DIM} {site}", b, sq, skv, kind, seed)
+                cases += 1
+    for d, want in ((80, "flash_dp_bwd"), (320, "flash_any_bwd")):
+        with widths(2 * d, 2):
+            flash_bwd_route(torch, d, want, seed)
     for dm, heads, ff in SHAPE_BLOCKS:
         with widths(dm, heads, ff):
             for b, s, ln in ((2, 65, True), (1, 129, False)):
@@ -7135,6 +7160,25 @@ def shapes_kernels(torch, seed):
     torch.cuda.synchronize()
     shape_functions()
     return cases
+
+
+def flash_bwd_route(torch, d, want, seed):
+    """The device kernels of one #8/#9 call at head dim ``d`` (bf16, B=2,
+    Sq=Skv=129), read from a profile: their dq and dk/dv launches must be
+    ``want``'s (flash_dp_bwd: csrc/flash_dp.cuh's bodies, up to head dim
+    256; flash_any_bwd: attn_any.cuh's streaming bodies past it)."""
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v, _ = flash_case(torch, 2, 129, 129, "none", seed)
+    do = torch.randn_like(q, generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, d ** -0.5)
+    rows = launch_breakdown(torch, lambda: fl.flash_attention_bwd_cuda(q, k, v, None, o, do, lse, d ** -0.5),
+                            f"flash backward (delta, #8, #9) at head dim {d}", calls=3)
+    names = [name for name, _ in rows]
+    ran = [any(f"{want}_{part}_kernel" in n for n in names) for part in ("dq", "dkv")]
+    print(f"shapes: #8/#9 at head dim {d} ran {want}'s dq and dk/dv kernels: {ran}")
+    check(all(ran), f"#8/#9 at head dim {d} did not run {want}'s kernels: {names}")
 
 
 def shape_functions():

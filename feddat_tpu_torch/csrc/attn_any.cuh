@@ -1,6 +1,7 @@
-// Attention at any head dim D from 1 to 256, for Hopper (sm_90a): the
-// forward, dq and dk/dv launches of #5/#6 (and of #1/#3/#4's attention cores)
-// and of #7-#9, for every head dim but 64.  Head dim 64 keeps its own kernels
+// Attention at any head dim D >= 1, for Hopper (sm_90a): the forward, dq and
+// dk/dv launches of #5/#6 (and of #1/#3/#4's attention cores) and of #7-#9,
+// for every head dim but 64 (flash_dp.cuh runs #8/#9's bf16 launches up to
+// head dim 256).  Head dim 64 keeps its own kernels
 // (attn_sm90.cuh, flash_attention.cu), untouched: these bodies are separate
 // code, so that instance's registers and times do not move.
 //
@@ -32,7 +33,8 @@
 // exactly what the step's output products (P.v, ds.k, P^T.dO, ds^T.q) read.
 // So the shared memory is one stage of at most four operands' chunk tiles
 // whatever D is: 48 KB in bf16 and 144 KB in fp32 for two stages of the
-// dq and dk/dv launches (fp32 at D = 256 fits with two stages).
+// dq and dk/dv launches, at every head dim.  What bounds D is the grid:
+// grid.y = H * ND <= 65535.
 // What it costs: each block re-reads its own rows' chunks once per step (from
 // L2) and the blocks of the ND output chunks of one row block each compute
 // the same s and dp, so the products over D are done ND times: at D = 80
@@ -61,7 +63,8 @@ constexpr int ROWS = 64;      // rows a block owns, and rows of each streamed st
 constexpr int CHUNK = 64;     // head-dim columns of one chunk
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;
-constexpr int MAX_D = 256;    // the largest head dim (4 chunks)
+constexpr int MAX_GRID_Y = 65535;
+constexpr int MAX_D = MAX_GRID_Y * CHUNK;  // the largest head dim (at H = 1: grid.y = ND)
 constexpr int TB = sm90::TILE_BYTES;
 constexpr float NEG_INF = -1e30f;
 
@@ -618,9 +621,9 @@ inline int launch_any_bwd(Kernel kernel, int* done, const AnyArgs<T>& a, int B, 
 // x, a [B, H, S, D] fp32 view by strides -> its hi, mid and lo terms as
 // contiguous [B, H, S, D] bf16 planes at out, out + term, out + 2 term (term =
 // B H S D), one thread per element: the operand of an fp32 attention product
-// at a head dim other than 64.
-__global__ void split3_heads_any_kernel(Heads<const float> x, bf16* __restrict__ out, int H, int S, int D,
-                                        long long term) {
+// at a head dim other than 64 (static, as common.cuh's split kernels).
+static __global__ void split3_heads_any_kernel(Heads<const float> x, bf16* __restrict__ out, int H, int S,
+                                               int D, long long term) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < term;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / D, bh = r / S;

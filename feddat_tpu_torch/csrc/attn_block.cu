@@ -37,7 +37,7 @@
 //       twice, so the softmax is the TPU's exact two-pass form (no online
 //       rescaling) and no logits tile is kept: any S >= 1 runs;
 //   (d) the out-projection on the same GEMM.
-// At a head dim other than 64 (any Dm that divides into 1 to 256 per head)
+// At a head dim other than 64 (any Dm that divides into heads of any width)
 // step (c) is attn_any.cuh's core under block_any_fwd_kernel, reading the
 // heads of the projection planes in place at any column.
 // q/k/v round-trip through device memory (3 x B*S*Dm bf16, from L2 mostly).

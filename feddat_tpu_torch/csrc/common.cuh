@@ -152,9 +152,11 @@ __device__ __forceinline__ void split_pack(float a, float b, uint32_t (&t)[NT]) 
   for (int i = 0; i < NT; ++i) t[i] = pack_bf16(split_term(a, i), split_term(b, i));
 }
 
-// x [n] fp32 -> its hi, mid and lo terms at out, out + term, out + 2 term
-__global__ void split3_kernel(const float* __restrict__ x, bf16* __restrict__ out, long long n,
-                              long long term) {
+// x [n] fp32 -> its hi, mid and lo terms at out, out + term, out + 2 term.
+// (This header's kernels that are not templates are static: a library built
+// from several sources, ops/_build.py's PARTS, holds one copy per source.)
+static __global__ void split3_kernel(const float* __restrict__ x, bf16* __restrict__ out, long long n,
+                                     long long term) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const float v = x[i];
@@ -206,8 +208,8 @@ struct Heads {
 // (term = B H S 64): the operand of an fp32 attention product, split once
 // where the view lies (a split() view of a projection is read in place).
 // One thread per 8 adjacent elements of a row.
-__global__ void split3_heads_kernel(Heads<const float> x, bf16* __restrict__ out, int H, int S,
-                                    long long term) {
+static __global__ void split3_heads_kernel(Heads<const float> x, bf16* __restrict__ out, int H, int S,
+                                           long long term) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < term / 8;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i >> 3, bh = r / S;

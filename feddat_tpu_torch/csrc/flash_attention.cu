@@ -165,15 +165,25 @@
 // Every fp32 instance runs one block per SM (__launch_bounds__(256, 1)).
 //
 // ------------------------------------------------------ other head dims
-// Head dim 64 runs the kernels above.  Every other head dim from 1 to 256
-// runs attn_any.cuh's bodies with FLASH = true (the same functions at the
-// same points: online softmax from -1e30, P and ds at fp32 precision, the
-// compact bias), D padded to 64-column chunks, one warpgroup a block, under
-// this file's flash_any_fwd_kernel and flash_any_bwd_dq/dkv_kernel, defined
-// after every head-dim-64 entry so that those compile as before.  There an
-// fp32 operand's terms are contiguous [B, H, S, D] planes.
+// Head dim 64 runs the kernels above.  Every other head dim runs the same
+// functions at the same points (online softmax from -1e30, P and ds at fp32
+// precision, the compact bias) under entries defined after every
+// head-dim-64 entry, so that those compile as before:
+//   * the bf16 backward at head dims up to 256: flash_dp.cuh's bodies, built
+//     for Hopper as #8/#9 above are (128-row blocks, own rows resident, the
+//     other side through a two-stage ring, s and dp once per step up to
+//     head dim 128), one instance per head dim padded to 16, under
+//     flash_dp_bwd_dq_kernel and flash_dp_bwd_dkv_kernel.  Their 32
+//     instances are csrc/flash_dp.cu, a second source compiled apart and
+//     linked into this library (ops/_build.py's PARTS), so that this file
+//     compiles as before and their build runs split over the host's cores;
+//   * the forward, the fp32 backward and the bf16 backward past 256:
+//     attn_any.cuh's streaming bodies with FLASH = true, D padded to
+//     64-column chunks, one warpgroup a block, under flash_any_fwd_kernel and
+//     flash_any_bwd_dq/dkv_kernel.  There an fp32 operand's terms are
+//     contiguous [B, H, S, D] planes.
 
-#include "attn_any.cuh"
+#include "flash_dp.cuh"
 
 using namespace port;
 
@@ -1041,6 +1051,9 @@ int flash_any_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.dv = heads<T>(dv, strides + 18);
   any_common<T>(&a, bias, strides + 21, lse, H, Sq, Skv, D, scale);
   a.delta = static_cast<float*>(const_cast<void*>(delta));
+  if constexpr (kTerms<T> == 1) {
+    if (D <= fdp::MAX_D) return fdp::flash_dp_bwd(a, DKV, B, st);
+  }
   constexpr int ti = kTerms<T> == 1 ? 0 : 1;
   if (DKV) return anyd::launch_any_bwd(flash_any_bwd_dkv_kernel<T>, any_dkv_done[ti], a, B, true, st);
   return anyd::launch_any_bwd(flash_any_bwd_dq_kernel<T>, any_dq_done[ti], a, B, false, st);
@@ -1052,8 +1065,9 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The largest head dim the entry points take (their argument D); a library
-// without this symbol takes head dim 64 only, and no D.
+// The largest head dim the entry points take (their argument D), at one
+// head: H x ceil(D / 64) <= 65535; a library without this symbol takes head
+// dim 64 only, and no D.
 int attention_max_head_dim() { return anyd::MAX_D; }
 
 // Bytes of scratch the entries need: fp32 q, k, v (and dout for the
@@ -1068,10 +1082,10 @@ long long flash_attention_workspace(int B, int H, int Sq, int Skv, int D, int ba
 // bf16 (f32 = 0) or fp32 (f32 = 1), by element strides (strides[0..11]: q, k,
 // v, o as sb, sh, ss); bias fp32 or null with strides[12..15] = its b, h, q, k
 // element strides (0 on broadcast dims); lse [B, H, Sq] fp32 (output);
-// workspace of flash_attention_workspace bytes; head dim 1 <= D <= 256, unit
-// stride over D.  At D = 64 every operand's start must be 16-byte aligned
-// and its strides multiples of 8 elements (cp.async copies 16 bytes); any
-// other D reads any strides.  Returns the CUDA error of the launches.
+// workspace of flash_attention_workspace bytes; head dim D >= 1 with H x
+// ceil(D / 64) <= 65535, unit stride over D.  At D = 64 every operand's
+// start must be 16-byte aligned and its strides multiples of 8 elements
+// (cp.async copies 16 bytes); any other D reads any strides.  Returns the CUDA error of the launches.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                         void* lse, void* workspace, const long long* strides, int B, int H, int Sq,
                         int Skv, int D, int f32, float scale, void* stream) {

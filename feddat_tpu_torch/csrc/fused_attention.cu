@@ -23,12 +23,13 @@
 // the bodies' fp32 instances take each product as six term products; o, dq,
 // dk and dv are written as fp32.  The bf16 instances are unchanged.
 //
-// Every head dim from 1 to 256: head dim 64 runs the kernels above; any other
-// runs attn_any.cuh's bodies (FLASH = false: the same function at the same
-// rounding points, D padded to 64-column chunks) under this file's
-// fused_any_fwd_kernel and fused_any_bwd_dq/dkdv_kernel, defined after the
-// head-dim-64 entries so that those compile as before.  There an fp32
-// operand's terms are contiguous [B, H, S, D] planes (split3_heads_any_kernel).
+// Every head dim D >= 1 (H x ceil(D / 64) <= 65535): head dim 64 runs the
+// kernels above; any other runs attn_any.cuh's bodies (FLASH = false: the
+// same function at the same rounding points, D padded to 64-column chunks)
+// under this file's fused_any_fwd_kernel and fused_any_bwd_dq/dkdv_kernel,
+// defined after the head-dim-64 entries so that those compile as before.
+// There an fp32 operand's terms are contiguous [B, H, S, D] planes
+// (split3_heads_any_kernel).
 
 #include "attn_any.cuh"
 #include "attn_sm90.cuh"
@@ -200,8 +201,9 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The largest head dim the entry points take (their argument D); a library
-// without this symbol takes head dim 64 only, and no D.
+// The largest head dim the entry points take (their argument D), at one
+// head: H x ceil(D / 64) <= 65535; a library without this symbol takes head
+// dim 64 only, and no D.
 int attention_max_head_dim() { return anyd::MAX_D; }
 
 // Bytes of scratch fused_attention_fwd (backward = 0) or _bwd (1) needs.
@@ -211,7 +213,7 @@ long long fused_attention_workspace(int B, int H, int S, int D, int backward, in
 
 // q, k, v [B, H, S, D] and o (output) by element strides (strides[0..11]:
 // q, k, v, o as sb, sh, ss; unit stride over D), all bf16 (f32 = 0) or fp32
-// (f32 = 1), head dim 1 <= D <= 256; bias [B, S] f32 or null; lse [B, H, S]
+// (f32 = 1), head dim D >= 1 (H x ceil(D / 64) <= 65535); bias [B, S] f32 or null; lse [B, H, S]
 // f32 (output); workspace of fused_attention_workspace bytes.  At D = 64 every
 // operand's start must be 16-byte aligned and its strides multiples of 8
 // elements (16-byte copies); any other D reads any strides.

@@ -856,8 +856,8 @@ void layer_block_bwd_stage_offsets(int B, int S, int Dm, int H, int F, int R, in
 // width Dw (layer_block_padded_width, zero past Dm): wda/wdb [Dw, R] and
 // wua/wub [R, Dw], with wdaT/wdbT [R, Dw] (the down kernels transposed);
 // bda/bdb [R] f32.  Activations, frozen weights and adapters bf16 (f32 = 0)
-// or fp32 (f32 = 1).  Any Dm that divides into H heads of 1 to 256 and any
-// F.  Outputs: dx [B, S, Dm] in x's type; dwda [Dw, R], dbda [R], dwua
+// or fp32 (f32 = 1).  Any Dm that divides into H heads and any F.
+// Outputs: dx [B, S, Dm] in x's type; dwda [Dw, R], dbda [R], dwua
 // [R, Dw], dbua [Dw] f32.
 int layer_block_bwd(const void* x, const void* aout, const void* ctx, const void* lse, const void* g,
                     const void* bias, const void* wq, const void* wk, const void* wv, const void* wo,

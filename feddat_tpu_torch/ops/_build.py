@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library under ``feddat_tpu_torch/_build/`` the first
 time a kernel of it launches, then loaded with ``ctypes`` (pointers and the
 stream passed as ``c_void_p``).  This keeps PyTorch's headers out of the
-build: a source compiles in seconds, not minutes.
+build: a source compiles in seconds, not minutes.  A library may take
+further sources (:data:`PARTS`): each is compiled to an object of its own,
+all at once, and the objects are linked into the one library.
 
 * Only sources inside the package are compiled; the library name carries a
   hash of the source, every shared ``csrc/*.cuh`` header and the flags, so
@@ -42,12 +44,35 @@ NVCC_FLAGS = (
 # head-dim-64 fp32 instances 1-2 other registers.  Split, ptxas gives every
 # kernel of the other four its registers unsplit but #4's fp32 adapter row
 # pass (175 -> 176, no spills).
-SPLIT_COMPILE = ("adapter_fused", "attn_block", "fused_attention", "layer_block")
+# flash_dp.cu (#8/#9's 32 instances at head dims but 64) took the whole
+# flash_attention.cu build from about 30 to 145.5 s on the H100's host;
+# split, it builds beside the other sources.
+SPLIT_COMPILE = ("adapter_fused", "attn_block", "fused_attention", "layer_block", "flash_dp")
+# Sources that are parts of another source's library: ``csrc/<part>.cu`` is
+# compiled to an object beside ``csrc/<name>.cu`` and linked into
+# ``lib<name>``, so that the main source compiles as it did alone and each
+# part takes its own flags.  A part is no library of its own.
+PARTS = {"flash_attention": ("flash_dp",)}
+_PART_OF = {part: name for name, parts in PARTS.items() for part in parts}
 
 
 def nvcc_flags(name: str) -> Sequence[str]:
     """The nvcc flags of ``csrc/<name>.cu``."""
     return (*NVCC_FLAGS, *(("--split-compile=0",) if name in SPLIT_COMPILE else ()))
+
+
+def build_commands(name: str, csrc: Path, out: Path, flags=nvcc_flags, parts=None):
+    """The nvcc commands that build ``csrc/<name>.cu`` and its parts (default
+    :data:`PARTS`'s) into the library ``out`` -> (compile commands, all run
+    at once; the link command, run after them, or None for a library of
+    one source, which compiles straight to ``out``)."""
+    nvcc, parts = _nvcc(), PARTS.get(name, ()) if parts is None else parts
+    if not parts:
+        return [[nvcc, *flags(name), "-I", str(csrc), "-o", str(out), str(csrc / f"{name}.cu")]], None
+    objects = [out.with_name(f"{out.stem}.{src}.o") for src in (name, *parts)]
+    compiles = [[nvcc, *[f for f in flags(src) if f != "-shared"], "-c", "-I", str(csrc), "-o", str(obj),
+                 str(csrc / f"{src}.cu")] for src, obj in zip((name, *parts), objects)]
+    return compiles, [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), *map(str, objects)]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # held while a library is built and loaded: threads of one process build it
@@ -73,17 +98,21 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """``_build/lib<name>-<hash>.so`` for the current source, headers and flags."""
+    """``_build/lib<name>-<hash>.so`` for the current sources (the library's
+    and its parts'), headers and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for part in PARTS.get(name, ()):
+        h.update(part.encode() + b"\0" + (CSRC / f"{part}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(nvcc_flags(name)).encode())
+    for src in (name, *PARTS.get(name, ())):
+        h.update(" ".join(nvcc_flags(src)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> Sequence[str]:
-    """Names of the kernel sources, ``csrc/<name>.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    """Names of the kernel libraries, ``csrc/<name>.cu`` (a part is none)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu") if p.stem not in _PART_OF)
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -95,20 +124,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
              if not library_path(n).exists()]
     if not names:
         return {}
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        compiles, link = build_commands(name, CSRC, tmp)
+        procs[name] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                        for cmd in compiles], link, tmp, out)
     reports, failures = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    for name, (running, link, tmp, out) in procs.items():
+        logs = [proc.communicate()[0] for proc in running]
+        codes = [proc.returncode for proc in running]
+        if link is not None and not any(codes):
+            done = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(done.stdout)
+            codes.append(done.returncode)
+        for obj in tmp.parent.glob(f"{tmp.stem}.*.o"):
+            obj.unlink()
+        log = "".join(logs)
+        if any(codes):
+            failures.append(f"nvcc failed for {name}.cu (exit {max(codes)}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
@@ -129,7 +165,9 @@ def _kernel_name(symbol: str) -> str:
     ``flash_fwd_kernel<bf16, 2>``; the symbol itself otherwise."""
     body = symbol[3:] if symbol.startswith("_ZN") else symbol[2:] if symbol.startswith("_Z") else ""
     parts, i = [], 0
-    while i < len(body) and body[i].isdigit():
+    while i < len(body) and (body[i].isdigit() or body[i:i + 1] == "L" and body[i + 1:i + 2].isdigit()):
+        if body[i] == "L":  # a static (internal-linkage) name
+            i += 1
         j = i
         while body[j].isdigit():
             j += 1

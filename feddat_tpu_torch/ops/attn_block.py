@@ -23,7 +23,7 @@ Two implementations of each:
   ``csrc/attn_bwd.cuh``, shared with the whole-layer backward; the attention
   cores both ways are ``csrc/attn_sm90.cuh``'s wgmma kernels, which #5 and
   #6 run too, and ``csrc/attn_any.cuh``'s at a head dim other than 64):
-  any S >= 1, any width that divides into heads of 1 to 256, in bf16 or
+  any S >= 1, any width that divides into heads, in bf16 or
   float32 (the model's dtype, as the TPU
   kernels take it; float32 rounds nowhere and its products are as accurate
   as fp32's).
@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from feddat_tpu_torch.ops._build import CudaKernel, load, ptr
+from feddat_tpu_torch.ops.fused_attention import check_grid
 from feddat_tpu_torch.ops.remat_policy import checkpoint_name
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,9 +61,6 @@ KERNEL_BWD = CudaKernel(
 # The element types the kernels take (activations and weights; biases, LN
 # rows, the padding bias and lse are fp32 either way).
 DTYPES = (torch.bfloat16, torch.float32)
-# The largest head dim the kernels take (csrc/attn_any.cuh; head dim 64 runs
-# csrc/attn_sm90.cuh's core); any width that divides into heads of 1 to 256.
-MAX_HEAD_DIM = 256
 # Longest padded S at which the backward keeps LN1 fused (attn_block.py:358).
 LN_BWD_FUSED_MAX_S = 448
 
@@ -165,13 +163,12 @@ def kernel_dtype(fn: str, x: torch.Tensor) -> torch.dtype:
 
 
 def check_heads(fn: str, dm: int, num_heads: int) -> None:
-    """Raise unless width ``dm`` divides into ``num_heads`` heads of 1 to
-    :data:`MAX_HEAD_DIM` (any width: the GEMMs take every N, K and segment)."""
-    if num_heads < 1 or dm % num_heads or not 1 <= dm // num_heads <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"{fn} takes a width that divides into heads of 1 to {MAX_HEAD_DIM}; "
-            f"got width {dm} with {num_heads} heads"
-        )
+    """Raise unless width ``dm`` divides into ``num_heads`` heads of any width
+    (the GEMMs take every N, K and segment) that the attention core's grid
+    takes (``fused_attention.check_grid``)."""
+    if num_heads < 1 or dm < num_heads or dm % num_heads:
+        raise ValueError(f"{fn} takes a width that divides into heads; got width {dm} with {num_heads} heads")
+    check_grid(fn, 1, num_heads, dm // num_heads)
 
 
 def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
@@ -181,7 +178,7 @@ def attn_block_cuda(x, wq, wk, wv, wo, bqkv, bo, gb, bias, num_heads: int,
 
     Takes ``x [B, S, Dm]`` and weights ``[Dm, Dm]`` in bf16 or float32 (one
     type), fp32 ``bqkv [3, Dm]``, ``bo [1, Dm]``, ``gb [2, Dm]`` (with
-    ``ln_eps``) and ``bias``; any Dm that divides into heads of 1 to 256
+    ``ln_eps``) and ``bias``; any Dm that divides into heads
     (:func:`check_heads`) and any S >= 1.  Raises on anything else."""
     fn = "attn_block_cuda"
     if x.dim() != 3:

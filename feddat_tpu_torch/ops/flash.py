@@ -49,7 +49,7 @@ import torch
 
 from feddat_tpu_torch.ops._build import CudaKernel, ptr
 from feddat_tpu_torch.ops.fused_attention import (_check_heads, _empty_heads, _in_place_ok, check_dtypes,
-                                                  head_dim_chunks)
+                                                  check_grid)
 
 NEG_INF = -1e30
 
@@ -58,9 +58,6 @@ _sizes = [ctypes.POINTER(ctypes.c_longlong), _i, _i, _i, _i, _i, _i, _f, _vp]  #
 KERNEL = CudaKernel("flash_attention", "flash_attention_fwd", [_vp] * 7 + _sizes)
 KERNEL_BWD_DQ = CudaKernel("flash_attention", "flash_attention_bwd_dq", [_vp] * 9 + _sizes)
 KERNEL_BWD_DKV = CudaKernel("flash_attention", "flash_attention_bwd_dkv", [_vp] * 10 + _sizes)
-# gridDim.z (the batch) and gridDim.y (the heads; times the head dim's 64-column
-# chunks at a head dim but 64) of the launch.
-MAX_GRID_YZ = 65535
 
 
 def _prep_bias(bias: Optional[torch.Tensor], b: int, h: int, sq: int,
@@ -121,7 +118,7 @@ def flash_workspace_bytes(b: int, h: int, sq: int, skv: int, d: int, backward: b
 
 def _check_cuda_operands(fn: str, q, k, v, bias):
     """The checks #7-#9 share: ``[B, H, Sq, D]`` q and ``[B, H, Skv, D]``
-    k/v at a head dim D from 1 to 256 (their one dtype checked by
+    k/v at any head dim D (their one dtype checked by
     ``check_dtypes`` before) in any layout ``_check_heads`` admits (at D = 64
     a 16-byte aligned start and strides of multiples of 8 elements: those
     kernels copy rows 16 bytes at a time with cp.async), sizes the grid
@@ -132,8 +129,9 @@ def _check_cuda_operands(fn: str, q, k, v, bias):
     skv = k.shape[2] if k.dim() == 4 else -1
     for name, t in (("k", k), ("v", v)):
         _check_heads(fn, name, t, (b, h, skv, d))
-    if min(sq, skv) < 1 or max(b, h * head_dim_chunks(d)) > MAX_GRID_YZ:
+    if min(sq, skv) < 1:
         raise ValueError(f"{fn}: unsupported sizes B={b} H={h} Sq={sq} Skv={skv}")
+    check_grid(fn, b, h, d)
     bias = _prep_bias(bias, b, h, sq, skv)
     if bias is not None and bias.device != q.device:
         raise ValueError(f"{fn}: bias must be on {q.device}")
@@ -158,10 +156,10 @@ def _workspace(b: int, h: int, sq: int, skv: int, d: int, backward: bool, dtype:
 
 def flash_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #7 -> (o, lse), as :func:`flash_attention_fwd_ref`.  Takes
-    ``[B, H, Sq, D]`` q and ``[B, H, Skv, D]`` k/v at any head dim D from 1
-    to 256, all bf16 or all float32 (o in that type), in any layout
-    ``_check_heads`` admits, any lengths, and the compact bias; raises on
-    anything else."""
+    ``[B, H, Sq, D]`` q and ``[B, H, Skv, D]`` k/v at any head dim D the grid
+    takes (``check_grid``), all bf16 or all float32 (o in that type), in any
+    layout ``_check_heads`` admits, any lengths, and the compact bias; raises
+    on anything else."""
     fn = "flash_attention_fwd_cuda"
     dtype = check_dtypes(fn, (("q", q), ("k", k), ("v", v)))
     b, h, sq, skv, bias, bias_strides = _check_cuda_operands(fn, q, k, v, bias)
@@ -182,7 +180,7 @@ def flash_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
     any layout ``_check_heads`` admits, q/k/v/o/do all bf16 or all float32
     (the gradients in that type); δ = rowsum(dO∘o) is one fp32 reduction here,
     as JAX takes it in XLA.  Raises before any launch on another dtype
-    (``TypeError``), a head dim past 256, a bias on another device or
+    (``TypeError``), a head dim of 0, a bias on another device or
     anything else the kernels do not take (``ValueError``)."""
     launch_dq, launch_dkv, grads = flash_bwd_launchers(q, k, v, bias, o, do, lse, scale)
     launch_dq()

@@ -22,8 +22,9 @@ Two implementations of each:
 * :func:`fused_attention_fwd_cuda` / :func:`fused_attention_bwd_cuda` — the
   hand-written kernels in ``csrc/fused_attention.cu`` (``wgmma`` on swizzled
   tiles filled by a cp.async ring, on strided ``[B, H, S, D]`` operands; any
-  S ≥ 1 and any head dim D from 1 to 256, csrc/attn_any.cuh's kernels at
-  every D but 64), in bf16 or float32 (the model's dtype, as the TPU kernels take it:
+  S ≥ 1 and any head dim D ≥ 1 (:func:`check_grid`), csrc/attn_any.cuh's
+  kernels at every D but 64), in bf16 or float32 (the model's dtype, as the
+  TPU kernels take it:
   in float32 nothing rounds, P and ds included, and every product is as
   accurate as fp32's).
 
@@ -54,12 +55,14 @@ KERNEL_BWD = CudaKernel(
     [_vp] * 12 + [_strides, _i, _i, _i, _i, _i, _f, _vp],
 )
 # The head dim of the kernels written for it (csrc/attn_sm90.cuh,
-# flash_attention.cu's first kernels); every other head dim up to
-# MAX_HEAD_DIM runs csrc/attn_any.cuh's, the dim padded to HEAD_DIM_CHUNK
-# columns.
+# flash_attention.cu's first kernels); every other head dim runs
+# csrc/attn_any.cuh's, the dim padded to HEAD_DIM_CHUNK columns (and the
+# flash backward's bf16 launches up to head dim 256 csrc/flash_dp.cuh's).
 HEAD_DIM = 64
 HEAD_DIM_CHUNK = 64
-MAX_HEAD_DIM = 256
+# gridDim.z (the batch) and gridDim.y (the heads; times the head dim's
+# 64-column chunks at a head dim but 64) of a launch: what bounds the head dim.
+MAX_GRID_YZ = 65535
 # The element types the kernels take: q, k, v (and o, dO) all of one (lse,
 # δ and the bias are fp32 either way).
 DTYPES = (torch.bfloat16, torch.float32)
@@ -127,15 +130,25 @@ def check_dtypes(fn: str, operands) -> torch.dtype:
 
 
 def check_head_dim(fn: str, d: int) -> None:
-    """Raise ``ValueError`` unless the kernels take head dim ``d``: 1 to
-    :data:`MAX_HEAD_DIM`, as JAX's kernels take every head dim of the
-    encoders these towers hold (none above 256)."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{fn} takes head dims from 1 to {MAX_HEAD_DIM}; got {d}")
+    """Raise ``ValueError`` unless the kernels take head dim ``d``: any
+    ``d`` >= 1, as JAX's kernels take any (the grid bounds it with the heads:
+    :func:`check_grid`)."""
+    if d < 1:
+        raise ValueError(f"{fn} takes head dims of at least 1; got {d}")
+
+
+def check_grid(fn: str, b: int, h: int, d: int) -> None:
+    """Raise ``ValueError`` unless a launch's grid takes ``b`` batch
+    elements and ``h`` heads of dim ``d``: gridDim.z = B and gridDim.y = H
+    times the head dim's 64-column chunks, each at most :data:`MAX_GRID_YZ`."""
+    if b > MAX_GRID_YZ or h * head_dim_chunks(d) > MAX_GRID_YZ:
+        raise ValueError(f"{fn}: the grid takes B <= {MAX_GRID_YZ} and heads x 64-column chunks of the head "
+                         f"dim <= {MAX_GRID_YZ}; got B={b}, {h} heads x {head_dim_chunks(d)} chunks "
+                         f"(head dim {d})")
 
 
 def head_dim_chunks(d: int) -> int:
-    """The 64-column chunks that head dim ``d`` pads to (1 at ``d`` <= 64, 4 at 256)."""
+    """The 64-column chunks that head dim ``d`` pads to (1 at ``d`` <= 64, 4 at 256, 8 at 512)."""
     return -(-d // HEAD_DIM_CHUNK)
 
 
@@ -162,7 +175,7 @@ def fused_workspace_bytes(b: int, h: int, s: int, d: int, backward: bool, f32: b
 
 def _check_heads(fn: str, name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
     """Raise unless ``t`` is a CUDA ``[B, H, S, D]`` view the kernels read in
-    place: head dim 1 to 256 with unit stride over it, and at head dim 64
+    place: any head dim with unit stride over it, and at head dim 64
     (whose kernels copy 16 bytes at a time) :func:`_in_place_ok`; its dtype is
     :func:`check_dtypes`'s."""
     if not t.is_cuda:
@@ -210,7 +223,7 @@ def _key_bias_cuda(fn: str, bias, b: int, s: int, device) -> Optional[torch.Tens
 
 def fused_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #5 -> (o, lse), as :func:`fused_attention_fwd_ref`.  Takes
-    ``[B, H, S, D]`` q/k/v at any head dim D from 1 to 256, all bf16 or all
+    ``[B, H, S, D]`` q/k/v at any head dim D the grid takes, all bf16 or all
     float32 (o in that type), in any layout :func:`_check_heads` admits, at
     any S ≥ 1; raises on anything else."""
     fn = "fused_attention_fwd_cuda"
@@ -222,6 +235,7 @@ def fused_attention_fwd_cuda(q, k, v, bias, scale: float) -> Tuple[torch.Tensor,
     b, h, s, d = shape
     if s < 1:
         raise ValueError(f"{fn}: sequence length {s} must be at least 1")
+    check_grid(fn, b, h, d)
     brow = _key_bias_cuda(fn, bias, b, s, q.device)
     o = _empty_heads(b, h, s, q.device, dtype, d)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -243,6 +257,7 @@ def fused_attention_bwd_cuda(q, k, v, bias, o, do, lse, scale: float):
     for name, t in operands:
         _check_heads(fn, name, t, shape)
     b, h, s, d = shape
+    check_grid(fn, b, h, d)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s) or not lse.is_contiguous():
         raise ValueError(f"{fn}: lse must be a contiguous fp32 [{b}, {h}, {s}] tensor")
     brow = _key_bias_cuda(fn, bias, b, s, q.device)

@@ -247,7 +247,7 @@ def layer_block_bwd_cuda(*args):
     """Kernel #4 -> ``(dx, dwda, dbda, dwua, dbua)``, as
     :func:`layer_block_bwd_reference` (same arguments).  Activations, weights
     and adapters in bf16 or float32 (one type), fp32 biases/LN rows; any
-    ``Dm`` that divides into heads of 1 to 256, any ``F``, any bottleneck,
+    ``Dm`` that divides into heads, any ``F``, any bottleneck,
     any S >= 1.
     Deterministic: the adapter gradients are summed in a fixed order.
     Raises on anything else."""

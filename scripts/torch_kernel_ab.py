@@ -4,11 +4,12 @@ another source tree, on one CUDA card, by the profiler's device time.
     git archive <commit> feddat_tpu_torch/csrc | tar -x -C logs/parent
     python3 scripts/torch_kernel_ab.py --other logs/parent
 
-Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu``,
-``fused_attention.cu`` and ``adapter_fused.cu`` of both trees, all ten at
-once, this tree's with its own per-source flags (``_build.nvcc_flags``) and
-the other's with the package's common ones (a tree from before the head
-dims other than 64 has no others), then times each tree in the order other, this, this, other:
+Builds ``attn_block.cu``, ``layer_block.cu``, ``flash_attention.cu`` (with
+its part ``flash_dp.cu`` where the tree has one), ``fused_attention.cu`` and
+``adapter_fused.cu`` of both trees, all at once, this tree's with its own
+per-source flags (``_build.nvcc_flags``) and the other's with the package's
+common ones (a tree from before the head dims other than 64 has no others),
+then times each tree in the order other, this, this, other:
 
 * #1, the attention-block forward with LN1 fused, at the serving shape (B=16,
   S=281) and the ViLT training shape (B=64, S=185);
@@ -19,6 +20,10 @@ dims other than 64 has no others), then times each tree in the order other, this
   ViT site;
 * #5 and #6, the whole-sequence attention forward and backward (a [B, 1, 1,
   S] padding bias), at the training shape and the serving canvas;
+* #8 and #9 at ViT-H/14's layer (B=16, 16 heads of 80, S=185, no bias) and
+  at head dim 128 (16 heads), csrc/flash_dp.cuh's bodies in a tree that has
+  them, each on its tree's own #7 forward; #5, #6 (a padding bias) and #7
+  at head dim 80 beside them;
 * #2, the DAT ensemble-adapter epilogue, at the serving batch (N = 16 * 281
   rows) and the B=1 bucket (N = 281).  Its C entry point takes a scratch
   pointer and exports ``adapter_fused_workspace``: the other tree must have
@@ -29,10 +34,10 @@ dims other than 64 has no others), then times each tree in the order other, this
   ``attention_max_head_dim``); a tree from before takes none, and its
   calls here (all at head dim 64) go without it.
 
-#2 is the kernel the current change redesigned (``adapter_fused.cu`` on
-wgmma in a 4-CTA cluster).  #1 at both shapes and #5, whose code does not
-change, are the controls that say how far the turns drift; #3, #4, #6 and
-#7-#9 did not change either.  Each
+#8 and #9 at head dims 80 and 128 are the kernels the current change
+redesigned (``csrc/flash_dp.cuh``).  Every other row, #8/#9 at head dim 64
+and #5-#7 at head dim 80 among them, runs code the change did not touch:
+those are the controls that say how far the turns drift.  Each
 time is ``chip_smoke.device_ms`` (median over 10 calls of the summed kernel
 durations) beside the CUDA-event wall per call; each tree's first pass also
 prints the device time of every launch of one #1 call at both shapes, of one
@@ -59,25 +64,32 @@ SOURCES = ("attn_block", "layer_block", "flash_attention", "fused_attention", "a
 
 
 def build(trees, out_dir):
-    """One nvcc per (tree, source), all started together ->
-    {tree name: {source: library path}}."""
+    """Every (tree, source)'s nvcc compiles, all started together, then the
+    links of libraries with parts (``_build.PARTS``, where the tree has the
+    part's source) -> {tree name: {source: library path}}."""
     from feddat_tpu_torch.ops import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc, procs = _build._nvcc(), {}
+    procs = {}
     for name, root in trees.items():
         csrc = root / "feddat_tpu_torch" / "csrc"
         for src in SOURCES:
             lib = out_dir / f"{src}_{name}.so"
-            flags = _build.nvcc_flags(src) if root == REPO else _build.NVCC_FLAGS  # as each tree builds it
-            cmd = [nvcc, *flags, "-I", str(csrc), "-o", str(lib), str(csrc / f"{src}.cu")]
-            procs[name, src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                 text=True), lib)
+            parts = tuple(p for p in _build.PARTS.get(src, ()) if (csrc / f"{p}.cu").exists())
+            # as each tree builds it: this tree with its per-source flags, the other with the common ones
+            flags = _build.nvcc_flags if root == REPO else (lambda _: _build.NVCC_FLAGS)
+            compiles, link = _build.build_commands(src, csrc, lib, flags, parts)
+            procs[name, src] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                  text=True) for cmd in compiles], link, lib)
     libs = {}
-    for (name, src), (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {src}.cu (exit {proc.returncode}):\n{log}")
+    for (name, src), (running, link, lib) in procs.items():
+        log = ""
+        for proc in running:
+            log += proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} {src}.cu (exit {proc.returncode}):\n{log}")
+        if link is not None:
+            subprocess.run(link, check=True)
         print(f"build {name} {src}: {lib.name}; ptxas: " + " | ".join(_build.ptxas_summary(log)))
         libs.setdefault(name, {})[src] = lib
     return libs
@@ -171,6 +183,12 @@ def main(argv=None) -> int:
     packed = next(c for c in cs.FLASH_CASES if c[0] == "stage-2 packed self")
     qp, kp, vp, biasp = cs.flash_case(torch, *packed[1:], args.seed)
     adapter = {n: cs.adapter_inputs(torch, n, args.seed) for n in (cs.B * cs.S, cs.S)}
+    heads = {}  # head dims 80 and 128 at B=16, S=185, 16 heads: q, k, v, dO (and #5/#6's padding bias)
+    for d in (80, 128):
+        with cs.widths(16 * d, 16):
+            hq, hk, hv, _ = cs.flash_case(torch, cs.B, cs.TS, cs.TS, "none", args.seed)
+            heads[d] = (hq, hk, hv, torch.randn(hq.shape, generator=g, device="cuda").bfloat16(),
+                        cs.padding_bias(torch, cs.B, cs.TS, args.seed))
 
     outs, times = {}, {}
     for name in ("other", "this", "this", "other"):
@@ -183,6 +201,19 @@ def main(argv=None) -> int:
             got = {"#1": ab.attn_block_cuda(*fwd_args), "#1 training": ab.attn_block_cuda(*train_args),
                    "#3": (ab.attn_block_bwd_cuda(*bwd_args),),
                    "#4": lb.layer_block_bwd_cuda(*layer_args, *cfg), "#7-#9": (o, *grads)}
+            head_fns = {}  # each head dim's #8/#9 on this tree's own #7 forward
+            for d, (hq, hk, hv, hdo, hb) in heads.items():
+                hs = d ** -0.5
+                ho, hlse = fl.flash_attention_fwd_cuda(hq, hk, hv, None, hs)
+                h_dq, h_dkv, h_grads = fl.flash_bwd_launchers(hq, hk, hv, None, ho, hdo, hlse, hs)
+                h_dq()
+                h_dkv()
+                got[f"#7-#9 hd{d}"] = (ho, *h_grads)
+                head_fns[f"#8 hd{d}"], head_fns[f"#9 hd{d}"] = h_dq, h_dkv
+            hq, hk, hv, hdo, hb = heads[80]
+            fo80, flse80 = fa.fused_attention_fwd_cuda(hq, hk, hv, hb, 80 ** -0.5)
+            got["#5/#6 hd80"] = (fo80, flse80, *fa.fused_attention_bwd_cuda(hq, hk, hv, hb, fo80, hdo, flse80,
+                                                                           80 ** -0.5))
             fwd = {}  # #6 from this tree's own #5 forward
             for tag, (fq, fk, fv, fdo, fb) in fused.items():
                 fo, flse = fwd[tag] = fa.fused_attention_fwd_cuda(fq, fk, fv, fb, scale)
@@ -209,6 +240,11 @@ def main(argv=None) -> int:
                     fa.fused_attention_bwd_cuda(fq, fk, fv, fb, fo, fdo, flse, scale))
             for n, ad_args in adapter.items():
                 fns[f"#2 adapter_fused N={n}"] = lambda ad_args=ad_args: af.adapter_fused_cuda(*ad_args)
+            fns.update(head_fns)
+            fns["#5 hd80"] = lambda: fa.fused_attention_fwd_cuda(hq, hk, hv, hb, 80 ** -0.5)
+            fns["#6 hd80"] = lambda: fa.fused_attention_bwd_cuda(hq, hk, hv, hb, fo80, hdo, flse80,
+                                                                 80 ** -0.5)
+            fns["#7 hd80"] = lambda: fl.flash_attention_fwd_cuda(hq, hk, hv, None, 80 ** -0.5)
             row = {label: (cs.device_ms(torch, fn), cs.cuda_ms(torch, fn, 30)) for label, fn in fns.items()}
             if name not in times:  # each tree's launches of one #1, flash backward and #6 call
                 cs.launch_breakdown(torch, fns["#1 attn_block serving"], f"{name} #1 B={cs.B} S={cs.S}")
@@ -230,7 +266,9 @@ def main(argv=None) -> int:
     names = {"#1": ("out", "ctx", "lse"), "#1 training": ("out", "ctx", "lse"), "#3": ("dx",),
              "#4": ("dx", "dwda", "dbda", "dwua", "dbua"), "#7-#9": ("o", "dq", "dk", "dv"),
              "#5/#6 training": ("o", "lse", "dq", "dk", "dv"), "#5/#6 serving": ("o", "lse", "dq", "dk", "dv"),
-             f"#2 N={cs.B * cs.S}": ("out",), f"#2 N={cs.S}": ("out",)}
+             f"#2 N={cs.B * cs.S}": ("out",), f"#2 N={cs.S}": ("out",),
+             "#7-#9 hd80": ("o", "dq", "dk", "dv"), "#7-#9 hd128": ("o", "dq", "dk", "dv"),
+             "#5/#6 hd80": ("o", "lse", "dq", "dk", "dv")}
     for key, labels in names.items():
         apart = []
         for label, a, b in zip(labels, outs["this"][key], outs["other"][key]):

@@ -19,10 +19,15 @@ width):
   through it; #7 (no bias, the ViT's self-attention) against SDPA, #8 and
   #9 against autograd.grad through SDPA (the pair's one call).
 
-ViT-H/14's head dim 80 runs csrc/attn_any.cuh's kernels; DeiT-Ti's width 192
-runs gemm_sm90.cuh's tail kernel for #1/#3/#4 and #4's adapter passes at
-width 256.  Prints the card's name and power limit first and the launch
-breakdown of one #1 call at each geometry.
+Then #7, #8 and #9 at an ALBEF-like site at ViT-H/14's head dim 80 (B=16,
+16 heads, S=577 as ALBEF's ViT-B/16 at 384x384, no bias), against SDPA and
+autograd.grad through it.
+
+ViT-H/14's head dim 80 runs csrc/attn_any.cuh's kernels (#8/#9 in bf16
+csrc/flash_dp.cuh's); DeiT-Ti's width 192 runs gemm_sm90.cuh's tail kernel
+for #1/#3/#4 and #4's adapter passes at width 256.  Prints the card's name
+and power limit first and the launch breakdown of one #1 call at each
+geometry.
 """
 
 from __future__ import annotations
@@ -84,6 +89,43 @@ def time_geometry(torch, cs, label, b, s, r, seed):
     return rows
 
 
+def time_flash_site(torch, cs, label, b, s, seed):
+    """#7, #8 and #9 at the width chip_smoke.widths set, no bias -> {kernel: row}."""
+    import torch.nn.functional as F
+
+    from feddat_tpu_torch.ops import flash as fl
+
+    q, k, v, _ = cs.flash_case(torch, b, s, s, "none", seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                     device="cuda").bfloat16()
+    scale = (cs.DM // cs.HEADS) ** -0.5
+    with torch.no_grad():
+        o, lse = fl.flash_attention_fwd_cuda(q, k, v, None, scale)
+        run_dq, run_dkv, _ = fl.flash_bwd_launchers(q, k, v, None, o, do, lse, scale)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    plain_bwd = lambda: fl.flash_attention_bwd_ref(q, k, v, None, o, do, lse, scale)  # noqa: E731
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+    rows = {"flash_attention": cs.time_row(
+        torch, f"{label} flash_attention B={b} S={s} no bias",
+        lambda: fl.flash_attention_fwd_cuda(q, k, v, None, scale),
+        lambda: fl.flash_attention_fwd_ref(q, k, v, None, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), cs.flash_bound(b, s, s, 0), "SDPA")}
+    for name, run, part in (("flash_attention_bwd_dq", run_dq, "dq"),
+                            ("flash_attention_bwd_dkv", run_dkv, "dkv")):
+        rows[name] = cs.time_row(torch, f"{label} {name} B={b} S={s}", run, plain_bwd, sdpa_bwd,
+                                 cs.flash_bwd_bound(b, s, s, 0, part),
+                                 "autograd.grad through SDPA (dq, dk and dv)")
+    return rows
+
+
+def print_rows(label, b, s, rows):
+    for name, (k_ms, p_ms, l_ms, bound, bound_by, _) in rows.items():
+        print(f"shape_times {label} B={b} S={s} {name}: {k_ms:.4f} ms device, bound {bound:.4f} ms by "
+              f"{bound_by} ({100 * bound / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, library {l_ms:.4f} ms "
+              f"(kernel / library {k_ms / l_ms:.2f}x)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -107,12 +149,13 @@ def main(argv=None) -> int:
     for label, dm, heads, ff, rf in cs.SHAPE_GEOMETRIES:
         with cs.widths(dm, heads, ff):
             rows = time_geometry(torch, cs, label, b, s, dm // rf, args.seed)
-        for name, (k_ms, p_ms, l_ms, bound, bound_by, _) in rows.items():
-            print(f"shape_times {label} (Dm {dm}, {heads} heads of {dm // heads}, F {ff}, R {dm // rf}) "
-                  f"B={b} S={s} {name}: {k_ms:.4f} ms device, bound {bound:.4f} ms by {bound_by} "
-                  f"({100 * bound / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, library {l_ms:.4f} ms "
-                  f"(kernel / library {k_ms / l_ms:.2f}x)")
+        print_rows(f"{label} (Dm {dm}, {heads} heads of {dm // heads}, F {ff}, R {dm // rf})", b, s, rows)
         torch.cuda.empty_cache()
+    label, dm, heads = cs.SHAPE_GEOMETRIES[0][:3]
+    with cs.widths(dm, heads):  # ViT-H/14's heads at ALBEF's ViT length
+        rows = time_flash_site(torch, cs, f"{label} heads, ALBEF-like S", b, cs.VIT_S, args.seed)
+    print_rows(f"{label} heads at ALBEF's ViT length ({heads} heads of {dm // heads}, no bias)", b, cs.VIT_S,
+               rows)
     return 0
 
 

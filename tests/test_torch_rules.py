@@ -176,6 +176,43 @@ def test_editing_a_shared_header_changes_the_library_path(tmp_path, monkeypatch)
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["k.cu"]
 
 
+def test_a_library_with_parts_links_each_source_compiled_apart(tmp_path, monkeypatch):
+    """A library with parts (``_build.PARTS``): each source is compiled to an
+    object of its own with its own flags (``-c``, no ``-shared``), all at
+    once, and the objects are linked into the one library; the part's source
+    is in the library's hash and is no library of its own."""
+    from feddat_tpu_torch.ops import _build
+
+    csrc, calls = tmp_path / "csrc", tmp_path / "calls"
+    csrc.mkdir()
+    for name in ("lib_main", "lib_part"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    fake = tmp_path / "nvcc"  # writes its -o file and logs its arguments
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {calls}\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\necho "ptxas info    : Used 1 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "PARTS", {"lib_main": ("lib_part",)})
+    monkeypatch.setattr(_build, "_PART_OF", {"lib_part": "lib_main"})
+    monkeypatch.setattr(_build, "SPLIT_COMPILE", ("lib_part",))
+    assert _build.sources() == ["lib_main"]
+    before = _build.library_path("lib_main")
+    reports = _build.build()
+    assert list(reports) == ["lib_main"] and before.exists()
+    cmds = [ln.split() for ln in calls.read_text().splitlines()]  # the compiles in any order, then the link
+    main, part = (next(c for c in cmds if c[-1].endswith(f"{n}.cu")) for n in ("lib_main", "lib_part"))
+    link = cmds[-1]
+    assert len(cmds) == 3 and all("-c" in c and "-shared" not in c for c in (main, part))
+    assert "--split-compile=0" not in main and "--split-compile=0" in part
+    assert "-shared" in link and sorted(a for a in link if a.endswith(".o")) == \
+        sorted(c[c.index("-o") + 1] for c in (main, part))
+    assert not list((tmp_path / "build").glob("*.o"))
+    (csrc / "lib_part.cu").write_text("// edited\n")
+    assert _build.library_path("lib_main") != before
+
+
 def test_ptxas_summary_gives_each_kernel_its_registers_and_spills():
     """The build report that chip_smoke.py and the A/B script print: one line
     per kernel of an ``nvcc -Xptxas -v`` log (here two lines of the form ptxas
@@ -207,6 +244,9 @@ def test_ptxas_summary_gives_each_kernel_its_registers_and_spills():
     ("_ZN51_GLOBAL__N__57dd581c_18_flash_attention_cu_da77f36219flash_bwd_dq_kernelIfLi1EEEvNS_12FlashBwdArgs"
      "IT_EEi", "flash_bwd_dq_kernel<float, 1>"),
     ("_ZN4port19split3_heads_kernelENS_5HeadsIKfEEP13__nv_bfloat16iix", "port::split3_heads_kernel"),
+    ("_ZN4portL19split3_heads_kernelENS_5HeadsIKfEEP13__nv_bfloat16iix", "port::split3_heads_kernel"),
+    ("_ZN44_GLOBAL__N__57dd581c_11_flash_dp_cu_0a1b2c3d23flash_dp_bwd_dkv_kernelILi80EEEvN4por"
+     "t4anyd7AnyArgsI13__nv_bfloat16EEii", "flash_dp_bwd_dkv_kernel<80>"),
 ])
 def test_ptxas_summary_names_each_template_instance(symbol, name):
     """Kernels that are templates over the element type and a ring depth

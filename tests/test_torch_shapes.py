@@ -1,16 +1,17 @@
 """Every head dim and width JAX's kernels take: the port against the JAX package.
 
-The kernels #1-#9 take any head dim from 1 to 256, #1/#3/#4 any width that
+The kernels #1-#9 take any head dim D >= 1, #1/#3/#4 any width that
 divides into heads and any FFN width, and #2 any width, in bf16 and float32
-(csrc/attn_any.cuh, gemm_sm90.cuh's tail kernel, the padded adapter passes).
+(csrc/attn_any.cuh, csrc/flash_dp.cuh, gemm_sm90.cuh's tail kernel, the
+padded adapter passes).
 On the CPU each wrapper runs its plain version, so these tests hold the
 plain versions at those shapes against the JAX package's Pallas kernels in
 interpret mode, in float32:
 
 * #5/#6 (``fused_short_attention``) and #7-#9 (``flash_attention``) at head
-  dims 12, 32 and 80: o at rtol=atol=2e-5 and dq, dk, dv against ``jax.vjp``
-  at rtol=1e-4, atol=2e-5, as tests/test_torch_fp32_attention.py holds them
-  at 64;
+  dims 12, 32 and 80, and #7-#9 at 320 (past 256): o at rtol=atol=2e-5 and
+  dq, dk, dv against ``jax.vjp`` at rtol=1e-4, atol=2e-5, as
+  tests/test_torch_fp32_attention.py holds them at 64;
 * #1 (``_fwd_call``) and #3 (``jax.vjp`` of ``attn_block``) at widths 48
   (4 heads of 12), 128 (4 of 32) and 160 (2 of 80), rtol=1e-4, atol=1e-5
   as tests/test_torch_attn_block.py;
@@ -25,8 +26,9 @@ interpret mode, in float32:
   JAX step: losses at rtol=2e-5, parameters at rtol=1e-4, atol=1e-6, as
   tests/test_torch_train.py;
 * the shape functions the wrappers and ``chip_smoke.py`` share: which
-  kernels a head dim takes, the padded widths, the workspace bytes, and the
-  ``ValueError`` past head dim 256.
+  kernels a head dim takes, the padded widths, the workspace bytes, the
+  ``ValueError`` at head dim 0 and below, and head dims past 256 passing
+  both gates.
 """
 
 import jax
@@ -107,6 +109,13 @@ def test_flash_attention_matches_jax_at_head_dim(d, kind, sq, skv):
     """#7-#9 at a cross site (a key row), the training decoder's causal tile
     and a per-head tile."""
     q, k, v, g, bias = _attention_inputs(d + sq, d, 2, 2, sq, skv, kind)
+    _attention_against_jax(jflash.flash_attention, fl.flash_attention, q, k, v, g, bias)
+
+
+def test_flash_attention_matches_jax_past_head_dim_256():
+    """#7-#9 at head dim 320, which JAX's kernels take as any other: B=1,
+    H=2, Sq=40 against Skv=33 keys behind a padding row."""
+    q, k, v, g, bias = _attention_inputs(320, 320, 1, 2, 40, 33, "key")
     _attention_against_jax(jflash.flash_attention, fl.flash_attention, q, k, v, g, bias)
 
 
@@ -303,21 +312,34 @@ def test_vilt_fused_dat_step_on_layer_matches_jax_at_width_48():
 # ------------------------------------------------------------ shape functions
 @pytest.mark.parametrize("d,kernels,chunks,padded", [
     (1, "any", 1, 64), (8, "any", 1, 64), (12, "any", 1, 64), (64, "hd64", 1, 64), (65, "any", 2, 128),
-    (80, "any", 2, 128), (128, "any", 2, 128), (192, "any", 3, 192), (256, "any", 4, 256)])
+    (80, "any", 2, 128), (128, "any", 2, 128), (192, "any", 3, 192), (256, "any", 4, 256),
+    (257, "any", 5, 320), (320, "any", 5, 320), (512, "any", 8, 512)])
 def test_head_dim_instances_and_padding(d, kernels, chunks, padded):
-    """Head dim 64 keeps its own kernels; every other head dim up to 256 takes
+    """Head dim 64 keeps its own kernels; every other head dim takes
     csrc/attn_any.cuh's, padded to whole 64-column chunks."""
     assert fa.head_dim_kernels(d) == kernels
     assert fa.head_dim_chunks(d) == chunks and fa.padded_head_dim(d) == padded
     fa.check_head_dim("t", d)
 
 
-@pytest.mark.parametrize("d", [0, 257, 264, 512])
+@pytest.mark.parametrize("d", [-1, 0, 257, 264, 512])
 def test_head_dims_past_256_raise(d):
-    with pytest.raises(ValueError, match="head dims from 1 to 256"):
-        fa.check_head_dim("fused_attention_fwd_cuda", d)
-    with pytest.raises(ValueError, match="heads of 1 to 256"):
-        ab.check_heads("attn_block_cuda", 2 * d, 2)
+    """Head dims of 0 and below raise at both gates; past 256 they pass both,
+    as JAX's kernels take them, in the chunks and padding they take (the
+    grid bounds them: heads x chunks <= 65535)."""
+    if d < 1:
+        with pytest.raises(ValueError, match="head dims of at least 1"):
+            fa.check_head_dim("fused_attention_fwd_cuda", d)
+        with pytest.raises(ValueError, match="divides into heads"):
+            ab.check_heads("attn_block_cuda", 2 * d, 2)
+        return
+    fa.check_head_dim("fused_attention_fwd_cuda", d)
+    ab.check_heads("attn_block_cuda", 2 * d, 2)
+    assert fa.head_dim_kernels(d) == "any"
+    assert fa.head_dim_chunks(d) == -(-d // 64) and fa.padded_head_dim(d) == 64 * -(-d // 64)
+    fa.check_grid("t", 65535, 65535 // fa.head_dim_chunks(d), d)
+    with pytest.raises(ValueError, match="heads x 64-column chunks"):
+        fa.check_grid("t", 1, 65535 // fa.head_dim_chunks(d) + 1, d)
 
 
 @pytest.mark.parametrize("dm,heads", [(32, 4), (48, 4), (100, 4), (192, 3), (1280, 16), (384, 12), (15, 3)])
